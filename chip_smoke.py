@@ -12,9 +12,11 @@ Phases, one line of output each (or more), in order:
    process per source, in parallel) and prints the build seconds;
 3. kernels — each kernel at the main path's shapes against its plain
    PyTorch version on the same inputs (max error against the stated
-   tolerance), with the kernel's, the plain version's and, for the
-   quantized matmul, one library call's time (CUDA events, L2 flushed
-   between launches), and the least time the card could take;
+   tolerance), with the kernel's, the plain version's and, where one
+   exists, one library call's time (CUDA events, L2 flushed between
+   launches), and the least time the card could take; the flash
+   attention kernels at BERT-base shapes without a mask, with the
+   padding mask and causal;
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -24,11 +26,21 @@ Phases, one line of output each (or more), in order:
 5. main path quantized — the same server with int8 KV + int8 weights,
    then fp8 KV + fp8 weights, on a few requests; logits held against the
    port's plain path (the same step on the CPU);
-   each main-path phase ends with a pass of the same traffic through the
+   each serving phase ends with a pass of the same traffic through the
    idle engine under ``torch.profiler``: device busy share and the
    kernels that took the most device time;
-6. one JSON line listing every kernel: launches on the main path, max
-   error, times, bound;
+6. main path training — BERT-base (vocab 30522, 12 layers, 768 units,
+   3072 hidden, 12 heads, 512 positions; seeded Xavier weights) with the
+   tied masked-LM head of examples/bert_pretrain_mlm.py, batch 8 x 512
+   of the example's synthetic corpus with ``valid_length`` in [128,
+   512], through gluon, the flash attention kernels, ``backward()`` and
+   ``Trainer.step`` (Adam, lr 1e-4): one step's loss and gradients with
+   the kernels against the op's plain path (``flash=False``); 10 steps at
+   dropout 0.1 with falling loss, 12 launches per step of each flash
+   kernel and no kernel build after the first step; step ms and
+   tokens/s, then two steps under ``torch.profiler``;
+7. one JSON line listing every kernel: launches on its main path (the
+   flash kernels': the 10 training steps), max error, times, bound;
 then the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script needs
@@ -46,7 +58,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 rate
-# outside the tensor cores (both kernels accumulate f32 on CUDA cores)
+# outside the tensor cores (every kernel accumulates f32 on CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
@@ -65,11 +77,29 @@ F32_LOGIT_TOL = 2e-3
 # tolerance table of tests/test_kv_quant.py / tests/test_weight_quant.py
 # (int8 0.05; fp8 KV 0.15 and fp8 weights 0.25, so 0.25 with both)
 QUANT_LOGIT_TOL = {"int8": 0.05, "float8_e4m3fn": 0.25}
+# flash kernels vs their plain twins, relative to the largest magnitude
+# of the output: f32 sums over up to 512 keys (forward, dQ) or queries
+# (dK, dV, dbias) in another order, online softmax against one softmax
+FLASH_REL_TOL = 2e-5
+# BERT-base training step, flash kernels vs the op's plain path
+# (flash=False), both f32 with TF32 off: the loss, relative; and every
+# parameter gradient, relative to its own largest entry (gradients that
+# are zero in exact arithmetic, below 1e-6 of the largest gradient of
+# the model, are float noise and not compared): 12 layers of backward
+# carry the last-bit differences of attention
+BERT_LOSS_REL_TOL = 1e-5
+BERT_GRAD_REL_TOL = 1e-3
 
 DEVICE = "cuda"
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, num_layers=12,
                   num_heads=12, d_ff=3072, max_context=1024)
 MAX_SEQS, BLOCK_SIZE, NEW_TOKENS = 8, 16, 32
+# BERT-base (the published config; gluon/model_zoo/bert.py "bert_base"),
+# trained as a masked LM with the tied decoder of
+# examples/bert_pretrain_mlm.py at batch 8 x 512 tokens
+BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=512)
+BERT_BATCH, BERT_T, BERT_LR, BERT_STEPS = 8, 512, 1e-4, 10
 
 
 class SmokeFailure(RuntimeError):
@@ -248,6 +278,120 @@ def run_kernel_phase(torch, timer, rng):
     return results
 
 
+def flash_case(torch, rng, padding, causal):
+    """Inputs of one attention layer of the BERT-base training step
+    (B=8, H=12, T=512, D=64): q, k, v and dout, with the padding bias of
+    ``valid_length`` drawn in [T/4, T] = [128, 512] or none; and the
+    (query, key) pairs the function must visit (pairs a mask drops need
+    no work)."""
+    B, H, T, D = BERT_BATCH, BERT_BASE["num_heads"], BERT_T, 64
+    q, k, v, dout = (torch.from_numpy(
+        rng.randn(B, H, T, D).astype(np.float32)).to(DEVICE)
+        for _ in range(4))
+    vlen = np.full(B, T)
+    bias = None
+    if padding:
+        vlen = rng.randint(T // 4, T + 1, size=B)
+        bias = torch.from_numpy(np.where(
+            np.arange(T)[None, :] < vlen[:, None], 0.0,
+            -1e30).astype(np.float32)).to(DEVICE)
+    pairs = (B * H * T * (T + 1) // 2 if causal
+             else H * T * int(vlen.sum()))
+    return dict(q=q, k=k, v=v, bias=bias, causal=causal), dout, pairs
+
+
+def rel_err(got, want):
+    """(max abs error, the same over max(1, largest |want|))."""
+    err = float((got - want).abs().max())
+    return err, err / max(1.0, float(want.abs().max()))
+
+
+def run_flash_kernel_phase(torch, timer, rng):
+    """K6 (forward), K7a (dK/dV/dbias) and K7b (dQ) at BERT-base shapes
+    against their plain twins; library: torch's fused attention (SDPA)
+    with the same additive mask, and that call's backward (which
+    computes dq, dk and dv together: it is set beside both K7 rows)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, T, D = BERT_BATCH, BERT_BASE["num_heads"], BERT_T, 64
+    scale = 1.0 / D ** 0.5
+    src = "mxnet_tpu_torch/csrc/flash_attention.cu"
+    tpu = "mxnet_tpu/ops/flash_attention.py"
+    bhtd = 4 * B * H * T * D
+    results = []
+    for label, padding, causal in (("no mask", False, False),
+                                   ("padding mask", True, False),
+                                   ("causal", False, True)):
+        a, dout, pairs = flash_case(torch, rng, padding, causal)
+        bias = a["bias"]
+        bias_bytes = 0 if bias is None else 4 * B * T
+        out, lse = fa.flash_forward(**a, scale=scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_forward_reference(**a, scale=scale)
+        delta = (dout * ref_out).sum(-1).reshape(B * H, T)
+        bw = dict(a, dout=dout, lse=ref_lse, delta=delta, scale=scale)
+        want_db = bias is not None
+        got_kv = fa.flash_bwd_dkv(**bw, want_dbias=want_db)
+        got_q = fa.flash_bwd_dq(**bw)
+        torch.cuda.synchronize()
+        ref_kv = fa.flash_bwd_dkv_reference(**bw, want_dbias=want_db)
+        ref_q = fa.flash_bwd_dq_reference(**bw)
+        errs = {
+            "flash_fwd": [rel_err(out, ref_out), rel_err(lse, ref_lse)],
+            "flash_bwd_dkv": [rel_err(g, r) for g, r in
+                              zip(got_kv, ref_kv) if r is not None],
+            "flash_bwd_dq": [rel_err(got_q, ref_q)],
+        }
+        mask = None if bias is None else bias[:, None, None, :]
+        lq, lk, lv = (t.detach().clone().requires_grad_()
+                      for t in (a["q"], a["k"], a["v"]))
+        lib_out = sdpa(lq, lk, lv, attn_mask=mask, is_causal=causal,
+                       scale=scale)
+
+        def lib_fwd():
+            return sdpa(a["q"], a["k"], a["v"], attn_mask=mask,
+                        is_causal=causal, scale=scale)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), dout,
+                                       retain_graph=True)
+        lib_bwd_ms = timer.ms(lib_bwd)
+        cases = [
+            ("flash_fwd", ":89", lambda: fa.flash_forward(**a, scale=scale),
+             lambda: fa.flash_forward_reference(**a, scale=scale),
+             bound(bhtd * 4 + 4 * B * H * T + bias_bytes, 4 * D * pairs),
+             timer.ms(lib_fwd)),
+            ("flash_bwd_dkv", ":254",
+             lambda: fa.flash_bwd_dkv(**bw, want_dbias=want_db),
+             lambda: fa.flash_bwd_dkv_reference(**bw, want_dbias=want_db),
+             bound(bhtd * 6 + 8 * B * H * T + bias_bytes
+                   + (4 * B * H * T if want_db else 0), 8 * D * pairs),
+             lib_bwd_ms),
+            ("flash_bwd_dq", ":292", lambda: fa.flash_bwd_dq(**bw),
+             lambda: fa.flash_bwd_dq_reference(**bw),
+             bound(bhtd * 5 + 8 * B * H * T + bias_bytes, 6 * D * pairs),
+             lib_bwd_ms),
+        ]
+        for name, line, kern, plain, (b_ms, b_by), lib_ms in cases:
+            err = max(e[0] for e in errs[name])
+            rel = max(e[1] for e in errs[name])
+            res = dict(name=name, route="cuda", source=src,
+                       replaces=tpu + line,
+                       shape=f"B={B},H={H},T={T},D={D},{label}",
+                       max_abs_err=err, tol=FLASH_REL_TOL, ms=timer.ms(kern),
+                       plain_ms=timer.ms(plain), bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
+            log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
+                f"(relative {rel:.3e}, tol {FLASH_REL_TOL}) "
+                f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            check(rel <= FLASH_REL_TOL, f"{name} {res['shape']} disagrees "
+                  f"with its plain twin: {rel} > {FLASH_REL_TOL}")
+            results.append(res)
+        del lib_out
+    return results
+
+
 # --------------------------------------------------- main-path phases --
 def mixed_batch(model, rng, dev):
     """One packed batch of three sequences written from position 0
@@ -373,6 +517,13 @@ def profile_engine(torch, engine, prompts):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     engine.pop_finished()
+    return report_profile(prof, wall, steps)
+
+
+def report_profile(prof, wall, steps):
+    """Print the device busy share of ``wall`` seconds (``steps`` steps)
+    and the kernels that took the most device time; returns the share,
+    or None when the profiler saw no device time."""
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and getattr(e, "self_device_time_total", 0) > 0]
@@ -516,6 +667,185 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
     return launches
 
 
+# ------------------------------------------------------ training phase --
+def make_bert_mlm(dropout, **cfg):
+    """``BertForMLM`` of examples/bert_pretrain_mlm.py on the port: BERT
+    plus a Dense/LayerNorm transform and the decoder tied to the word
+    embedding, taking ``valid_length``."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+
+    class BertForMLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.bert = BERTModel(dropout=dropout, **cfg)
+                self.transform = nn.Dense(cfg["units"], activation="relu",
+                                          flatten=False)
+                self.ln = nn.LayerNorm()
+
+        def forward(self, tokens, valid_length):
+            seq, _ = self.bert(tokens, None, valid_length)
+            h = self.ln(self.transform(seq))
+            w = self.bert.word_embed.weight.data()
+            return (h.reshape(-1, h.shape[-1]) @ w.t()).reshape(
+                h.shape[0], h.shape[1], -1)
+    return BertForMLM()
+
+
+def bert_batches(torch, rng, n, vocab, batch, seqlen, dev):
+    """The example's synthetic corpus (bigram chains over a seeded
+    successor table, 15% of positions masked) with ``valid_length``
+    drawn in [seqlen/4, seqlen]; the loss weighs masked valid positions.
+    Returns n (tokens, targets, weights, valid_length) on ``dev``."""
+    trans = rng.randint(2, vocab, vocab)
+    out = []
+    for _ in range(n):
+        toks = np.zeros((batch, seqlen), np.int32)
+        toks[:, 0] = rng.randint(2, vocab, batch)
+        for t in range(1, seqlen):
+            toks[:, t] = trans[toks[:, t - 1]]
+        masked = toks.copy()
+        pos = rng.rand(batch, seqlen) < 0.15
+        pos[:, 0] = False
+        masked[pos] = 1                      # [MASK]
+        vlen = rng.randint(seqlen // 4, seqlen + 1, size=batch)
+        pos &= np.arange(seqlen)[None, :] < vlen[:, None]
+        out.append(tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                         for a in (masked, toks, pos, vlen)))
+    return out
+
+
+def mlm_loss(net, loss_fn, batch_data, vocab):
+    x, y, w, vlen = batch_data
+    logits = net(x, vlen)
+    per_tok = loss_fn(logits.reshape(-1, vocab), y.reshape(-1))
+    wf = w.reshape(-1)
+    return (per_tok * wf).sum() / (wf.sum() + 1e-6)
+
+
+def set_flash(net, flash):
+    from mxnet_tpu_torch.gluon.nn import MultiHeadAttention
+    for m in net.modules():
+        if isinstance(m, MultiHeadAttention):
+            m._flash = flash
+
+
+def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
+                   seqlen=BERT_T, steps=BERT_STEPS):
+    """BERT masked-LM training through gluon, the flash kernels and Adam:
+    (a) one step's loss and gradients with the flash kernels against the
+    op's plain path (flash=False), dropout 0; (b) ``steps`` Trainer steps
+    at dropout 0.1 with falling loss, (c) 12 launches per step of each
+    flash kernel, (d) no kernel build after the first step; then a
+    profiled pass of two more steps. Returns the launch counts of (b)."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.initializer import Xavier
+    vocab, layers = cfg["vocab_size"], cfg["num_layers"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    data = bert_batches(torch, rng, steps + 3, vocab, batch, seqlen, DEVICE)
+    t0 = time.monotonic()
+    net = make_bert_mlm(0.0, **cfg)
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    with ag.pause():                     # materialise the deferred shapes
+        mlm_loss(net, loss_fn, data[0], vocab)
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"bert: {layers} layers, {cfg['units']} units, vocab {vocab}, "
+        f"{n_params / 1e6:.1f}M parameters, seed 0, batch {batch} x "
+        f"{seqlen}, set up in {time.monotonic() - t0:.2f}s")
+    # (a) flash kernels vs the plain op path, same weights and batch
+    grads, one = {}, {}
+    for flash in (True, False):
+        set_flash(net, flash)
+        with ag.record():
+            loss = mlm_loss(net, loss_fn, data[0], vocab)
+        loss.backward()
+        one[flash] = float(loss.detach())
+        grads[flash] = {n: p.grad().clone()
+                        for n, p in net.collect_params().items()}
+    loss_rel = abs(one[True] - one[False]) / abs(one[False])
+    gmax = max(float(g.abs().max()) for g in grads[False].values())
+    worst, skipped = (-1.0, ""), 0
+    for name, g in grads[False].items():
+        ref = float(g.abs().max())
+        if ref < 1e-6 * gmax:
+            skipped += 1
+            continue
+        err = float((grads[True][name] - g).abs().max()) / ref
+        worst = max(worst, (err, name))
+    log(f"bert: one step flash vs flash=False: loss {one[True]:.6f} vs "
+        f"{one[False]:.6f} (relative {loss_rel:.3e}, tol "
+        f"{BERT_LOSS_REL_TOL}); max relative gradient error "
+        f"{worst[0]:.3e} ({worst[1]}; tol {BERT_GRAD_REL_TOL}; "
+        f"{skipped} zero-in-exact-arithmetic gradients not compared)")
+    check(all(np.isfinite(v) for v in one.values()),
+          "bert: non-finite loss")
+    check(loss_rel <= BERT_LOSS_REL_TOL, "bert: flash and plain losses "
+          "disagree")
+    check(worst[0] <= BERT_GRAD_REL_TOL, "bert: flash and plain gradients "
+          "disagree")
+    del net, grads
+    torch.cuda.empty_cache()
+    # (b)-(d) training at dropout 0.1 through the kernels
+    net = make_bert_mlm(0.1, **cfg)
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": BERT_LR})
+    torch.manual_seed(0)                  # dropout masks
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, builds = [], [], None
+    for i in range(steps):
+        t0 = time.monotonic()
+        with ag.record():
+            loss = mlm_loss(net, loss_fn, data[1 + i], vocab)
+        loss.backward()
+        trainer.step(batch)
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        if i == 0:
+            builds = kernels.build_count()
+    launches = kernels.launch_counts()
+    step_ms = float(np.median(times[1:])) * 1e3
+    valid = sum(float(d[3].sum()) for d in data[2:1 + steps])
+    log(f"bert: {steps} Adam steps (lr {BERT_LR}, dropout 0.1): losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    log(f"bert: step {step_ms:.2f} ms (median of steps 2-{steps}; first "
+        f"{times[0] * 1e3:.1f} ms); {batch * seqlen / step_ms * 1e3:.0f} "
+        f"tokens/s ({valid / (sum(times[1:])):.0f} valid tokens/s); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"launches {launches}; builds after the first step "
+        f"{kernels.build_count() - builds}")
+    check(all(np.isfinite(losses)), "bert: non-finite training loss")
+    check(losses[-1] < losses[0], f"bert: loss did not fall over {steps} "
+          f"steps ({losses[0]} -> {losses[-1]})")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches.get(name, 0) == layers * steps,
+              f"bert: {name} launched {launches.get(name, 0)} times in "
+              f"{steps} steps, expected {layers} per step")
+    check(kernels.build_count() == builds, "bert: a kernel was built "
+          "after the first step")
+    # where the time goes: two more steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for d in data[1 + steps:]:
+            with ag.record():
+                loss = mlm_loss(net, loss_fn, d, vocab)
+            loss.backward()
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    report_profile(prof, wall, len(data) - 1 - steps)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -553,6 +883,8 @@ def main():
     timer = Timer(torch)
     # 3. kernels
     results = run_kernel_phase(torch, timer, rng)
+    results += run_flash_kernel_phase(torch, timer, rng)
+    del timer
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()
@@ -564,7 +896,10 @@ def main():
     for dtype in ("int8", "float8_e4m3fn"):
         launches.update(run_quant_phase(torch, rng, np_params, kernels,
                                         dtype))
-    # 6. kernels line
+    del np_params
+    # 6. main path, training
+    launches.update(run_bert_phase(torch, rng, kernels))
+    # 7. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))
         check(r["launches"] > 0, f"{r['name']} never ran on the main path")

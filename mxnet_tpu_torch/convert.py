@@ -8,13 +8,19 @@ lists of float32 arrays), or a quantized checkpoint (any object with
 (``ml_dtypes.float8_e4m3fn`` on the JAX side) arrive as raw bytes and
 are viewed as ``torch.float8_e4m3fn``, so no ``ml_dtypes`` is needed
 where the port runs.
+
+:func:`load_gluon_params` copies a gluon parameter set, as numpy arrays
+by name (the JAX package's ``net.collect_params()``), into a port block,
+so both packages compute the same function from the same weights.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "load_gluon_params"]
 
 
 def tensor_from_numpy(a, device):
@@ -52,3 +58,51 @@ def params_from_numpy(tree, device):
             tree.dtype, getattr(tree, "method", "absmax"),
             getattr(tree, "methods", None))
     return _tree(tree, device)
+
+
+def _root_pattern(prefix):
+    """Regex for a root prefix: a counter-made ``<alias><n>_`` matches
+    any count (global name counters differ between processes)."""
+    m = re.fullmatch(r"(.*?)\d+_", prefix)
+    return re.escape(m.group(1)) + r"\d+_" if m else re.escape(prefix)
+
+
+def load_gluon_params(block, arrays):
+    """Copy ``arrays`` (``{name: numpy array}``, e.g. from the JAX
+    package's ``net.collect_params()``) into ``block``'s parameters.
+
+    Names are matched after the root prefix: the port's ``block.prefix``
+    and, in ``arrays``, the same prefix with any counter (global name
+    counters differ between processes, so ``bertformlm3_...`` matches
+    ``bertformlm0_...``). A parameter whose shape is still deferred takes the array's shape
+    and is materialised on the device its ``initialize`` named. Raises
+    on a missing, extra or mis-shaped name.
+    """
+    ours = block.collect_params()
+    root = block.prefix
+    pat = re.compile(_root_pattern(root))
+    theirs = {}
+    for key, arr in arrays.items():
+        m = pat.match(key)
+        if m is None:
+            raise KeyError(f"'{key}' is not under the root prefix "
+                           f"'{root}'")
+        theirs[key[m.end():]] = arr
+    mine = {name[len(root):]: p for name, p in ours.items()}
+    missing = sorted(set(mine) - set(theirs))
+    extra = sorted(set(theirs) - set(mine))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing}, "
+                       f"extra {extra}")
+    for rel, param in mine.items():
+        arr = np.asarray(theirs[rel])
+        try:
+            param.shape = arr.shape
+        except ValueError as e:
+            raise ValueError(f"'{rel}': array shape {arr.shape} does not "
+                             f"fit parameter shape {param.shape}") from e
+        if tuple(param.shape) != arr.shape:
+            raise ValueError(f"'{rel}': array shape {arr.shape}, "
+                             f"parameter shape {param.shape}")
+        param.set_data(torch.tensor(arr))
+        param._finish_deferred_init()

@@ -48,6 +48,11 @@ SOURCES = {
         "mxt_wq_matmul_int8": [_P] * 5 + [_I] * 4 + [_P],
         "mxt_wq_matmul_fp8": [_P] * 5 + [_I] * 4 + [_P],
     },
+    "flash_attention": {
+        "mxt_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "mxt_flash_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
+        "mxt_flash_dq_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,48 @@
-"""Dense attention of the port: the plain oracle only.
+"""Flash attention of the port: forward and backward kernels, their plain
+twins, and the attention op (mirrors ``mxnet_tpu/ops/flash_attention.py``).
 
-Mirrors ``mxnet_tpu/ops/flash_attention.py``. The flash forward and
-backward kernels there are still to be ported (ROADMAP); what the
-serving slice needs is the masked-score constant and the plain
-attention the model's dense ``forward`` runs.
+- :func:`attention_reference` — plain attention, the oracle (end-aligned
+  causal mask ``tril(k=Tk-Tq)``, as in the JAX package).
+- :func:`flash_forward_reference` / :func:`flash_backward_reference` —
+  the plain twins of the kernels: the forward returns ``(out, lse)``; the
+  backward works from the saved ``lse`` and ``delta = rowsum(dO * O)``,
+  as ``_flash_backward`` does, and splits into the dK/dV(/dbias) part
+  (:func:`flash_bwd_dkv_reference`) and the dQ part
+  (:func:`flash_bwd_dq_reference`), so that each kernel has its own twin.
+- :func:`flash_forward`, :func:`flash_bwd_dkv`, :func:`flash_bwd_dq` — the
+  kernel wrappers. A CPU tensor takes the twin; a CUDA tensor launches
+  ``csrc/flash_attention.cu`` (``flash_fwd``, the port of ``_fwd_kernel``;
+  ``flash_bwd_dkv`` and ``flash_bwd_dq``, the ports of ``_dkv_kernel`` and
+  ``_dq_kernel``) or raises. Each launch counts under that name in
+  :func:`mxnet_tpu_torch.kernels.launch_counts`.
+- :func:`flash_attention` — the ``custom_vjp`` pair as one
+  ``torch.autograd.Function``; :func:`scaled_dot_product_attention` — the
+  op (``flash=False`` is :func:`attention_reference`).
+
+Semantics kept from the JAX flash path: the causal mask compares absolute
+query and key positions (``row >= col``, also when ``Tq != Tk``); masked
+scores are ``-1e30``, never ``-inf``; the denominator is floored at
+``1e-30``. A row whose every key the bias masks attends uniformly over all
+keys (``out`` is the mean of ``v``), as the JAX kernel gives when no key
+padding is added. The kernels mask the ragged edge themselves: keys past
+``Tk`` and queries past ``Tq`` take no part, with no padded copy.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_reference"]
+from .. import kernels
+
+__all__ = ["attention_reference", "flash_forward_reference",
+           "flash_backward_reference", "flash_bwd_dkv_reference",
+           "flash_bwd_dq_reference", "flash_forward", "flash_bwd_dkv",
+           "flash_bwd_dq", "flash_backward", "flash_attention",
+           "scaled_dot_product_attention", "KERNEL_NAMES"]
 
 _NEG_INF = -1e30
+# launch-counter names of the three kernels (forward, dK/dV, dQ)
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def attention_reference(q, k, v, bias=None, causal=False, scale=None):
@@ -31,3 +62,257 @@ def attention_reference(q, k, v, bias=None, causal=False, scale=None):
         logits = torch.where(mask, logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def _default_scale(q, scale):
+    return float(scale) if scale is not None else float(
+        1.0 / (q.shape[-1] ** 0.5))
+
+
+def _scores(q, k, bias, scale):
+    """``q k^T * scale + bias`` in f32, (B, H, Tq, Tk)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :].float()
+    return s
+
+
+def _causal_keep(tq, tk, device):
+    """The flash path's causal mask: query row i sees key j <= i
+    (absolute positions, not end-aligned)."""
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tk, device=device)[None, :]
+    return rows >= cols
+
+
+def flash_forward_reference(q, k, v, bias, causal, scale):
+    """Plain twin of the forward kernel: ``(out (B, H, Tq, D),
+    lse (B*H, Tq) f32)``."""
+    B, H, Tq, _ = q.shape
+    s = _scores(q, k, bias, scale)
+    if causal:
+        s = torch.where(_causal_keep(Tq, k.shape[2], q.device), s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
+    p = torch.exp(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    lse = (m + torch.log(l_safe)).reshape(B * H, Tq)
+    return out.to(q.dtype), lse
+
+
+def _probs(q, k, bias, lse, causal, scale):
+    """Recomputed probabilities ``exp(s - lse)``, zero where the causal
+    mask drops the pair (the backward kernels' ``_bwd_scores``)."""
+    B, H, Tq, _ = q.shape
+    s = _scores(q, k, bias, scale)
+    p = torch.exp(s - lse.reshape(B, H, Tq, 1))
+    if causal:
+        p = torch.where(_causal_keep(Tq, k.shape[2], q.device), p, 0.0)
+    return p
+
+
+def _dscores(q, k, v, bias, dout, lse, delta, causal, scale):
+    B, H, Tq, _ = q.shape
+    p = _probs(q, k, bias, lse, causal, scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    return p, p * (dp - delta.reshape(B, H, Tq, 1))
+
+
+def flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta, causal,
+                            scale, want_dbias=False):
+    """Plain twin of the dK/dV kernel: ``(dk, dv, dbias)`` with ``dbias``
+    per head, ``(B*H, Tk)`` f32, or None unless ``want_dbias``."""
+    B, H, _, _ = q.shape
+    p, ds = _dscores(q, k, v, bias, dout, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dout.float())
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dbias = ds.sum(dim=2).reshape(B * H, -1) if want_dbias else None
+    return dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta, causal, scale):
+    """Plain twin of the dQ kernel."""
+    _, ds = _dscores(q, k, v, bias, dout, lse, delta, causal, scale)
+    return (scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float())).to(
+        q.dtype)
+
+
+def _delta(out, dout):
+    B, H, Tq, _ = out.shape
+    return (dout.float() * out.float()).sum(dim=-1).reshape(B * H, Tq)
+
+
+def _backward(dkv, dq, q, k, v, bias, out, lse, dout, causal, scale,
+              want_dbias):
+    """``(dq, dk, dv, dbias)`` through the given dK/dV and dQ functions
+    (kernel wrappers or twins); ``delta`` and the head-sum of the bias
+    gradient stay in torch, as the JAX package keeps them in XLA."""
+    want = bias is not None and want_dbias
+    scale = _default_scale(q, scale)
+    delta = _delta(out, dout)
+    dk, dv, db = dkv(q, k, v, bias, dout, lse, delta, causal, scale,
+                     want_dbias=want)
+    dq_ = dq(q, k, v, bias, dout, lse, delta, causal, scale)
+    if want:
+        db = db.reshape(q.shape[0], -1, db.shape[-1]).sum(dim=1).to(
+            bias.dtype)
+    return dq_, dk, dv, db
+
+
+def flash_backward_reference(q, k, v, bias, out, lse, dout, causal, scale,
+                             want_dbias=True):
+    """Plain backward from the saved ``lse``: ``(dq, dk, dv, dbias)``;
+    ``dbias`` (B, Tk) is computed when a bias was passed and
+    ``want_dbias``, else None."""
+    return _backward(flash_bwd_dkv_reference, flash_bwd_dq_reference, q, k,
+                     v, bias, out, lse, dout, causal, scale, want_dbias)
+
+
+# ---------------------------------------------------------------- kernels --
+
+def _check_cuda(q, k, v, bias, dout=None, lse=None, delta=None):
+    """Validate what the kernels take; returns (B, H, Tq, Tk, D)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for {q.device}")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take head_dim "
+                         f"{_HEAD_DIMS}, got {D}")
+    dev, f32, req = q.device, torch.float32, kernels.require
+    req(q, "q", f32, (B, H, Tq, D), dev)
+    req(k, "k", f32, (B, H, Tk, D), dev)
+    req(v, "v", f32, (B, H, Tk, D), dev)
+    if bias is not None:
+        req(bias, "bias", f32, (B, Tk), dev)
+    if dout is not None:
+        req(dout, "dout", f32, (B, H, Tq, D), dev)
+        req(lse, "lse", f32, (B * H, Tq), dev)
+        req(delta, "delta", f32, (B * H, Tq), dev)
+    return B, H, Tq, Tk, D
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_forward(q, k, v, bias, causal, scale):
+    """Forward kernel wrapper: ``(out, lse (B*H, Tq))``. CPU tensors take
+    the plain twin; CUDA tensors (f32, contiguous) launch ``flash_fwd``
+    or raise."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, bias, causal, scale)
+    B, H, Tq, Tk, D = _check_cuda(q, k, v, bias)
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    if B * H * Tq == 0:
+        return out, lse
+    lib = kernels.library("flash_attention")
+    rc = lib.mxt_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               _ptr(bias), out.data_ptr(), lse.data_ptr(),
+                               B * H, H, Tq, Tk, D, int(bool(causal)),
+                               scale, kernels.stream_handle(q.device))
+    kernels.check(rc, "mxt_flash_fwd_f32")
+    kernels.count_launch("flash_fwd")
+    return out, lse
+
+
+def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
+                  want_dbias=False):
+    """dK/dV(/dbias) kernel wrapper: ``(dk, dv, dbias (B*H, Tk) or
+    None)``; ``delta = rowsum(dout * out)`` (B*H, Tq)."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta,
+                                       causal, scale, want_dbias)
+    if want_dbias and bias is None:
+        raise ValueError("want_dbias needs a bias")
+    B, H, Tq, Tk, D = _check_cuda(q, k, v, bias, dout, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dbias = (torch.empty((B * H, Tk), dtype=torch.float32,
+                         device=q.device) if want_dbias else None)
+    if B * H * Tk == 0:
+        return dk, dv, dbias
+    lib = kernels.library("flash_attention")
+    rc = lib.mxt_flash_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(bias), dk.data_ptr(),
+        dv.data_ptr(), _ptr(dbias), B * H, H, Tq, Tk, D,
+        int(bool(causal)), scale, kernels.stream_handle(q.device))
+    kernels.check(rc, "mxt_flash_dkv_f32")
+    kernels.count_launch("flash_bwd_dkv")
+    return dk, dv, dbias
+
+
+def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal, scale):
+    """dQ kernel wrapper; arguments as :func:`flash_bwd_dkv`."""
+    scale = _default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta,
+                                      causal, scale)
+    B, H, Tq, Tk, D = _check_cuda(q, k, v, bias, dout, lse, delta)
+    dq = torch.empty_like(q)
+    if B * H * Tq == 0:
+        return dq
+    lib = kernels.library("flash_attention")
+    rc = lib.mxt_flash_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(bias), dq.data_ptr(),
+        B * H, H, Tq, Tk, D, int(bool(causal)), scale,
+        kernels.stream_handle(q.device))
+    kernels.check(rc, "mxt_flash_dq_f32")
+    kernels.count_launch("flash_bwd_dq")
+    return dq
+
+
+def flash_backward(q, k, v, bias, out, lse, dout, causal, scale,
+                   want_dbias=True):
+    """The backward through the two kernel wrappers: ``(dq, dk, dv,
+    dbias)``, as :func:`flash_backward_reference`."""
+    return _backward(flash_bwd_dkv, flash_bwd_dq, q, k, v, bias, out, lse,
+                     dout, causal, scale, want_dbias)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` pair of the JAX package as one Function: the
+    forward saves ``(q, k, v, bias, out, lse)``; the backward recomputes
+    the probabilities from ``lse``. The bias gradient is computed only
+    when autograd asks for it (BERT's padding mask needs none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if bias is not None:
+            bias = bias.contiguous()
+        out, lse = flash_forward(q, k, v, bias, causal, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_backward(
+            q, k, v, bias, out, lse, dout.contiguous(), ctx.causal,
+            ctx.scale, want_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None
+
+
+def flash_attention(q, k, v, bias=None, causal=False, scale=None):
+    """Flash attention entry point. q/k/v: (B, H, T, D); bias: (B, Tk)
+    additive row (0 = keep, large-negative = drop). Differentiable in
+    q, k, v and bias."""
+    return _FlashAttention.apply(q, k, v, bias, bool(causal),
+                                 _default_scale(q, scale))
+
+
+def scaled_dot_product_attention(q, k, v, bias=None, *, causal=False,
+                                 scale=None, flash=True):
+    """The attention op: the flash kernels (their plain twins on the
+    CPU), or with ``flash=False`` :func:`attention_reference`. Inputs
+    (B, H, T, D)."""
+    if not flash:
+        return attention_reference(q, k, v, bias, causal, scale)
+    return flash_attention(q, k, v, bias=bias, causal=causal, scale=scale)

@@ -10,7 +10,13 @@ imports neither ``jax`` nor ``mxnet_tpu``, so it runs where the port runs:
 Tolerances: ``ATT_TOL = 2e-5`` for flat attention (f32 online softmax and
 dot products summed in another order; outputs are O(1)); ``WQ_TOL =
 1e-5`` of the output's magnitude for the quantized matmul (one f32 sum of
-K terms in another order, split-K partials summed in split order).
+K terms in another order, split-K partials summed in split order);
+``FLASH_TOL = 2e-5`` of the output's magnitude for the flash attention
+kernels (f32 sums over up to 200 keys or queries in another order,
+online softmax against one softmax); ``FLASH_GRAD_TOL = 1e-4`` for the
+autograd Function against autograd through ``attention_reference``
+(the reference differentiates softmax itself instead of working from
+the saved logsumexp, which reorders more sums).
 """
 import os
 import sys
@@ -23,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import torch  # noqa: E402
 
 from mxnet_tpu_torch import kernels  # noqa: E402
+from mxnet_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from mxnet_tpu_torch.ops import ragged_attention as tra  # noqa: E402
 from mxnet_tpu_torch.ops import quantization as tqz  # noqa: E402
 from mxnet_tpu_torch.serving.llm import quant as tquant  # noqa: E402
@@ -30,6 +37,8 @@ from mxnet_tpu_torch.serving.llm.model import _quantize_kv  # noqa: E402
 
 ATT_TOL = 2e-5
 WQ_TOL = 1e-5
+FLASH_TOL = 2e-5
+FLASH_GRAD_TOL = 1e-4
 BS = 16
 
 
@@ -120,3 +129,89 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, s = tquant.quantize_leaf(np.eye(64, dtype=np.float32), "int8")
     with pytest.raises(ValueError, match="on cpu"):
         tqz.quantized_matmul(torch.ones(2, 64, device=cuda), q, s)
+
+
+def _flash_inputs(dev, B, H, Tq, Tk, D, padding, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, dout = (torch.randn(B, H, Tq, D, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, generator=g) for _ in range(2))
+    bias = None
+    if padding:
+        lens = torch.randint(1, Tk + 1, (B,), generator=g)
+        lens[0] = Tk
+        bias = torch.where(torch.arange(Tk)[None, :] < lens[:, None], 0.0,
+                           -1e30)
+    return [t.to(dev) if t is not None else None
+            for t in (q, k, v, bias, dout)]
+
+
+def _rel(got, want):
+    got, want = got.detach(), want.detach()
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,D,padding,causal", [
+    (2, 3, 64, 64, 64, False, False),
+    (2, 2, 100, 37, 64, True, True),      # ragged, Tq > Tk, one key tile
+    (1, 2, 130, 200, 32, True, False),    # three query and four key tiles
+    (2, 1, 17, 17, 128, False, True),
+    (1, 1, 5, 70, 16, True, False),
+])
+def test_flash_kernels_match_plain(cuda, B, H, Tq, Tk, D, padding, causal):
+    q, k, v, bias, dout = _flash_inputs(cuda, B, H, Tq, Tk, D, padding)
+    scale = D ** -0.5
+    before = kernels.launch_counts()
+    out, lse = tfa.flash_forward(q, k, v, bias, causal, scale)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = tfa.flash_forward_reference(q, k, v, bias, causal,
+                                                   scale)
+    assert _rel(out, ref_out) < FLASH_TOL
+    assert _rel(lse, ref_lse) < FLASH_TOL
+    delta = (dout * ref_out).sum(-1).reshape(B * H, Tq)
+    args = (q, k, v, bias, dout, ref_lse, delta, causal, scale)
+    got = tfa.flash_bwd_dkv(*args, want_dbias=padding)
+    dq = tfa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    want = tfa.flash_bwd_dkv_reference(*args, want_dbias=padding)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert _rel(g, w) < FLASH_TOL
+    assert _rel(dq, tfa.flash_bwd_dq_reference(*args)) < FLASH_TOL
+    after = kernels.launch_counts()
+    for name in tfa.KERNEL_NAMES:
+        assert after[name] == before.get(name, 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_function_grads_match_reference_autograd(cuda, causal):
+    """The autograd.Function (forward kernel, saved logsumexp, backward
+    kernels) against torch autograd through ``attention_reference``, on
+    the card; Tq == Tk, where the two causal masks agree."""
+    q, k, v, bias, dout = _flash_inputs(cuda, 2, 3, 96, 96, 64, True, 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = tfa.flash_attention(*leaves[:3], bias=leaves[3], causal=causal)
+    out.backward(dout)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    ref = tfa.attention_reference(*ref_leaves, causal=causal)
+    ref.backward(dout)
+    assert _rel(out, ref) < FLASH_TOL
+    for a, b in zip(leaves, ref_leaves):
+        assert _rel(a.grad, b.grad) < FLASH_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v, bias, _ = _flash_inputs(cuda, 1, 2, 8, 8, 64, True)
+    with pytest.raises(TypeError):
+        tfa.flash_forward(q.double(), k.double(), v.double(), None, False,
+                          None)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_forward(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                          v[..., :48].contiguous(), None, False, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
+                          k, v, bias, False, None)

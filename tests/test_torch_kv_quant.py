@@ -158,7 +158,10 @@ def test_params_from_numpy_carries_jax_fp8_checkpoint():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys; import mxnet_tpu_torch, mxnet_tpu_torch.kernels,"
             " mxnet_tpu_torch.convert, mxnet_tpu_torch.serving.llm, "
-            "chip_smoke; bad = [m for m in sys.modules if m == 'jax' or "
+            "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.model_zoo.bert, "
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.autograd, "
+            "mxnet_tpu_torch.initializer, mxnet_tpu_torch.ops.nn, "
+            "mxnet_tpu_torch.ops.flash_attention, chip_smoke; bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.') or m == 'ml_dtypes']; "
             "print(bad); sys.exit(1 if bad else 0)")
