@@ -16,7 +16,8 @@ Phases, one line of output each (or more), in order:
    exists, one library call's time (CUDA events, L2 flushed between
    launches), and the least time the card could take; the flash
    attention kernels at BERT-base shapes without a mask, with the
-   padding mask and causal;
+   padding mask and causal; the chunk (Q=16 and Q=1) and decode (S=8
+   and S=64) paged attention kernels at the decode phase's shapes;
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -29,7 +30,20 @@ Phases, one line of output each (or more), in order:
    each serving phase ends with a pass of the same traffic through the
    idle engine under ``torch.profiler``: device busy share and the
    kernels that took the most device time;
-6. main path training — BERT-base (vocab 30522, 12 layers, 768 units,
+6. paged decode through the model interface — ``TinyDecoder`` at the
+   same widths prefills the same 8 prompts in chunks of 16 through
+   ``decode_chunk`` over a ``PagedKVCache`` (rows done with their prompt
+   sit in the batch at q_len 0), then takes 32 greedy steps through
+   ``decode_step``: every stream against ``greedy_decode_reference``,
+   each prompt's last chunk against the dense ``forward``, 12 chunk
+   kernel launches per step, no kernel build after the first step;
+7. op front end — ``nd.ragged_paged_attention`` on the decode phase's
+   pools with a 3-D q (the decode kernel) and a 4-D q (the chunk
+   kernel), ``nd.scaled_dot_product_attention``, and three user CUDA
+   kernels registered through ``rtc.register_cuda_op`` (``scale_add``,
+   ``square`` with its gradient, ``rowsum`` with its own output shape)
+   at 8192 x 8192 f32, each against its plain version;
+8. main path training — BERT-base (vocab 30522, 12 layers, 768 units,
    3072 hidden, 12 heads, 512 positions; seeded Xavier weights) with the
    tied masked-LM head of examples/bert_pretrain_mlm.py, batch 8 x 512
    of the example's synthetic corpus with ``valid_length`` in [128,
@@ -39,8 +53,9 @@ Phases, one line of output each (or more), in order:
    dropout 0.1 with falling loss, 12 launches per step of each flash
    kernel and no kernel build after the first step; step ms and
    tokens/s, then two steps under ``torch.profiler``;
-7. one JSON line listing every kernel: launches on its main path (the
-   flash kernels': the 10 training steps), max error, times, bound;
+9. one JSON line listing every kernel: launches on the main paths (the
+   flash kernels': the 10 training steps and the op phase's call), max
+   error, times, bound;
 then the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script needs
@@ -89,6 +104,10 @@ FLASH_REL_TOL = 2e-5
 # carry the last-bit differences of attention
 BERT_LOSS_REL_TOL = 1e-5
 BERT_GRAD_REL_TOL = 1e-3
+# user CUDA kernels vs their plain versions, relative to the largest
+# magnitude of the output: one rounding (2x + y fused into an FMA) or a
+# sum of 8192 terms in another order
+RTC_REL_TOL = 1e-5
 
 DEVICE = "cuda"
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, num_layers=12,
@@ -100,6 +119,73 @@ MAX_SEQS, BLOCK_SIZE, NEW_TOKENS = 8, 16, 32
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512)
 BERT_BATCH, BERT_T, BERT_LR, BERT_STEPS = 8, 512, 1e-4, 10
+# paged decode through the model interface: prefill chunk, decode steps
+CHUNK_Q, DECODE_STEPS = 16, 32
+# the chunk and decode kernels' rows: S rows of kv lengths over 15..1024
+# with block edges, H=12, D=64, block 16, 64 table columns (context 1024)
+PAGED_KV_LENS = (15, 16, 17, 255, 256, 511, 700, 1024)
+RTC_N = 8192
+
+# the three user kernels of tests/test_rtc.py, in CUDA C, in the calling
+# convention of mxnet_tpu_torch.rtc: input pointers, the output pointer,
+# each input's numel, the output's numel
+RTC_SOURCES = {
+    "scale_add": r"""
+extern "C" __global__ void scale_add(const float* x, const float* y,
+                                     float* out, long long nx, long long ny,
+                                     long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.f * x[i] + y[i];
+}
+""",
+    "square": r"""
+extern "C" __global__ void square(const float* x, float* out, long long nx,
+                                  long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = x[i] * x[i];
+}
+""",
+    # one block of 256 threads per row (grid = rows, block = 256)
+    "rowsum": r"""
+extern "C" __global__ void rowsum(const float* x, float* out, long long nx,
+                                  long long nrows) {
+  __shared__ float part[256];
+  const long long cols = nx / nrows;
+  const float* row = x + blockIdx.x * cols;
+  float s = 0.f;
+  for (long long c = threadIdx.x; c < cols; c += 256) s += row[c];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = 128; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+""",
+}
+
+
+def register_rtc_ops(prefix):
+    """Register the three user kernels as ops ``<prefix>scale_add``,
+    ``<prefix>square`` (differentiable through its reference) and
+    ``<prefix>rowsum`` (output [rows]); returns their names and plain
+    versions."""
+    from mxnet_tpu_torch import rtc
+    plain = {"scale_add": lambda x, y: x * 2.0 + y,
+             "square": lambda x: x * x,
+             "rowsum": lambda x: x.sum(1)}
+    names = {}
+    for k, src in RTC_SOURCES.items():
+        kw = {}
+        if k == "square":
+            kw["reference_fn"] = plain[k]
+        if k == "rowsum":
+            kw.update(out_shape=lambda shapes, dtypes: ((shapes[0][0],),
+                                                        dtypes[0]),
+                      grid=lambda shapes: (shapes[0][0],), block=(256,))
+        names[k] = rtc.register_cuda_op(prefix + k, src, k, **kw)
+    return names, plain
 
 
 class SmokeFailure(RuntimeError):
@@ -392,6 +478,91 @@ def run_flash_kernel_phase(torch, timer, rng):
     return results
 
 
+def paged_case(torch, rng, S, Q):
+    """Inputs of one chunk (``Q`` set) or decode (``Q`` None) paged
+    attention launch at the decode phase's shapes: ``S`` rows with kv
+    lengths over 15..1024 (``PAGED_KV_LENS``, then random), fragmented
+    tables over an (S * 64 + 1)-block pool; chunk rows query their last
+    min(Q, kv_len) positions, one row fewer (a padded tail). Returns the
+    arguments, the least bytes and the operations this data needs, and
+    the valid-token mask of the output."""
+    H, D, bs, MB = 12, 64, BLOCK_SIZE, 64
+    N = S * MB + 1
+    kv = np.array(PAGED_KV_LENS[:S] + tuple(
+        rng.randint(15, MB * bs + 1, size=max(0, S - len(PAGED_KV_LENS)))),
+        np.int32)
+    tables = rng.permutation(np.arange(1, N)).astype(np.int32)[
+        :S * MB].reshape(S, MB)
+    dev = DEVICE
+    qshape = (S, H, D) if Q is None else (S, Q, H, D)
+    args = dict(q=torch.from_numpy(rng.randn(*qshape).astype(np.float32)),
+                k_pages=torch.from_numpy(
+                    rng.randn(N, bs, H, D).astype(np.float32)),
+                v_pages=torch.from_numpy(
+                    rng.randn(N, bs, H, D).astype(np.float32)),
+                block_tables=torch.from_numpy(tables),
+                kv_lens=torch.from_numpy(kv))
+    if Q is None:
+        ql = np.ones(S, np.int64)
+        valid = np.ones((S,), bool)
+    else:
+        ql = np.minimum(Q, kv)
+        ql[S // 2] = max(1, Q // 2)
+        args["q_lens"] = torch.from_numpy(ql.astype(np.int32))
+        valid = np.arange(Q)[None, :] < ql[:, None]
+    args = {k: v.to(dev) for k, v in args.items()}
+    # every valid token's horizon lies below kv_len: each row's first
+    # ceil(kv_len / bs) pages, read once, plus q, out, tables and lengths
+    pages = int(np.sum(-(-kv // bs)))
+    nq = int(np.prod(qshape))
+    nbytes = (2 * nq * 4 + 2 * pages * bs * H * D * 4 + 4 * S * MB
+              + 4 * S * (1 if Q is None else 2))
+    # token t of a row sees kv_len - q_len + t + 1 positions
+    seen = sum(int(k - q + t + 1) for k, q in zip(kv, ql)
+               for t in range(int(q)))
+    return args, nbytes, 4 * D * H * seen, torch.from_numpy(valid).to(dev)
+
+
+def run_paged_kernel_phase(torch, timer, rng):
+    """K4 (chunk, Q=16 and Q=1) and K5 (decode, S=8 and S=64) against
+    their plain twins on the valid tokens. No single PyTorch call
+    computes paged attention (as for K1/K2): library none."""
+    from mxnet_tpu_torch.ops import ragged_attention as ra
+    results = []
+    for name, line, S, Q in ((ra.CHUNK_KERNEL, ":412", MAX_SEQS, CHUNK_Q),
+                             (ra.CHUNK_KERNEL, ":412", MAX_SEQS, 1),
+                             (ra.DECODE_KERNEL, ":512", MAX_SEQS, None),
+                             (ra.DECODE_KERNEL, ":512", 64, None)):
+        args, nbytes, flops, valid = paged_case(torch, rng, S, Q)
+
+        def kern():
+            return ra.ragged_paged_attention(**args)
+
+        def plain():
+            if Q is None:
+                return ra.ragged_attention_reference(**args)
+            return ra.ragged_chunk_attention_reference(**args)
+        out_k = kern()
+        torch.cuda.synchronize()
+        err = float((out_k - plain())[valid].abs().max())
+        b_ms, b_by = bound(nbytes, flops)
+        shape = (f"S={S}," + ("" if Q is None else f"Q={Q},")
+                 + "H=12,D=64,bs=16,MB=64")
+        res = dict(name=name, route="cuda",
+                   source="mxnet_tpu_torch/csrc/ragged_flat.cu",
+                   replaces="mxnet_tpu/ops/ragged_attention.py" + line,
+                   shape=shape, max_abs_err=err, tol=ATT_TOL,
+                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"kernel {name} {shape}: max_abs_err={err:.3e} (tol {ATT_TOL}) "
+            f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"library: none bound_ms={b_ms:.4f} ({b_by})")
+        check(err <= ATT_TOL, f"{name} {shape} disagrees with its plain "
+              f"version: {err} > {ATT_TOL}")
+        results.append(res)
+    return results
+
+
 # --------------------------------------------------- main-path phases --
 def mixed_batch(model, rng, dev):
     """One packed batch of three sequences written from position 0
@@ -667,6 +838,211 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
     return launches
 
 
+def paged_greedy(torch, model, params, prompts, new_steps, chunk=CHUNK_Q,
+                 block_size=BLOCK_SIZE, on_first_step=None):
+    """Greedy decoding of ``prompts`` through the model interface alone:
+    the rows prefill together in chunks of ``chunk`` tokens through
+    ``decode_chunk`` (a row whose prompt is done sits in the batch at
+    q_len 0), the first token comes from each prompt's last chunk, then
+    ``new_steps`` steps of ``decode_step`` each add one token per row.
+    Pools and tables come from the port's ``PagedKVCache``.
+    ``on_first_step()`` runs after the first step. Returns (streams,
+    last-chunk logits per row, prefill steps, decode step seconds,
+    cache, block tables, kv lens)."""
+    from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
+    c, dev = model.config, model.device
+    S = len(prompts)
+    lens = [len(p) for p in prompts]
+    need = [-(-(n + new_steps + 1) // block_size) for n in lens]
+    cache = PagedKVCache(c.num_layers, c.num_heads, c.head_dim, block_size,
+                         1 + sum(need), c.max_context, device=dev)
+    tables = np.zeros((S, cache.max_blocks_per_seq), np.int32)
+    for i, nb in enumerate(need):
+        tables[i, :nb] = cache.allocator.alloc(nb)
+    bt = torch.from_numpy(tables).to(dev)
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    done, last = [0] * S, [None] * S
+    steps = 0
+    while min(d - n for d, n in zip(done, lens)) < 0:
+        toks = np.zeros((S, chunk), np.int32)
+        pos = np.zeros((S, chunk), np.int32)
+        ql = np.zeros(S, np.int32)
+        for i, p in enumerate(prompts):
+            n = min(chunk, lens[i] - done[i])
+            toks[i, :n] = p[done[i]:done[i] + n]
+            pos[i, :n] = np.arange(done[i], done[i] + n)
+            ql[i] = n
+            done[i] += n
+        logits, _, _ = model.decode_chunk(
+            params, t32(toks), t32(pos), t32(ql), cache.k_pages,
+            cache.v_pages, bt, t32(done))
+        for i in range(S):
+            if ql[i] and done[i] == lens[i]:
+                last[i] = logits[i, :ql[i]]
+        steps += 1
+        if steps == 1 and on_first_step is not None:
+            on_first_step()
+    streams = [[int(torch.argmax(last[i][-1]))] for i in range(S)]
+    t0 = time.monotonic()
+    for _ in range(new_steps):
+        pos = [lens[i] + len(streams[i]) - 1 for i in range(S)]
+        logits, _, _ = model.decode_step(
+            params, t32([s[-1] for s in streams]), t32(pos), cache.k_pages,
+            cache.v_pages, bt, t32([p + 1 for p in pos]))
+        for i, t in enumerate(logits.argmax(-1).tolist()):
+            streams[i].append(t)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    decode_s = time.monotonic() - t0
+    kv = t32([lens[i] + len(streams[i]) - 1 for i in range(S)])
+    return streams, last, steps, decode_s, cache, bt, kv
+
+
+def run_paged_decode_phase(torch, rng, np_params, kernels):
+    """This slice's path at GPT-2-small widths: chunked prefill through
+    ``decode_chunk`` and greedy decode through ``decode_step``, every
+    stream against ``greedy_decode_reference``, each prompt's last chunk
+    against the dense ``forward``, 12 chunk-kernel launches per step and
+    no build after the first step. Returns (launches, (cache, tables, kv
+    lens, model))."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.ops.ragged_attention import CHUNK_KERNEL
+    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+    params = params_from_numpy(np_params, model.device)
+    prompts, _ = prompts_for(rng, model.vocab_size)
+    builds = []
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    streams, last, pre_steps, decode_s, cache, bt, kv = paged_greedy(
+        torch, model, params, prompts, DECODE_STEPS,
+        on_first_step=lambda: builds.append(kernels.build_count()))
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    steps = pre_steps + DECODE_STEPS
+    S = len(prompts)
+    log(f"paged: {S} prompts ({min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens) prefilled in {pre_steps} "
+        f"decode_chunk steps of Q={CHUNK_Q}, then {DECODE_STEPS} "
+        f"decode_step steps: {wall:.3f}s in all (host clock); decode "
+        f"{decode_s / DECODE_STEPS * 1e3:.2f} ms/step = "
+        f"{S * DECODE_STEPS / decode_s:.1f} tokens/s (host clock, 8 rows); "
+        f"launches {launches}; builds after the first step "
+        f"{kernels.build_count() - builds[0]}")
+    check(launches.get(CHUNK_KERNEL, 0) == GPT2_SMALL["num_layers"] * steps,
+          f"paged: {CHUNK_KERNEL} launched {launches.get(CHUNK_KERNEL, 0)} "
+          f"times in {steps} steps, expected 12 per step")
+    check(kernels.build_count() == builds[0], "paged: a kernel was built "
+          "after the first step")
+    err = 0.0
+    for i, p in enumerate(prompts):
+        dense, _, _ = model.forward(params, torch.tensor([p], device=DEVICE))
+        n = last[i].shape[0]
+        check(bool(torch.isfinite(last[i]).all()),
+              "paged: non-finite logits")
+        err = max(err, float((last[i] - dense[0, len(p) - n:]).abs().max()))
+        verdict = check_greedy(model, params, p, streams[i], F32_LOGIT_TOL,
+                               f"paged row {i}")
+        log(f"paged: row {i} (prompt {len(p)}) {len(streams[i])} greedy "
+            f"tokens vs oracle: {verdict}")
+    log(f"paged: last prefill chunk vs dense forward: max_abs_err="
+        f"{err:.3e} (tol {F32_LOGIT_TOL})")
+    check(err <= F32_LOGIT_TOL, "paged: decode_chunk disagrees with forward")
+    return launches, (cache, bt, kv, model)
+
+
+def run_op_phase(torch, timer, rng, decoded):
+    """The op front end: ``nd.ragged_paged_attention`` with a 3-D and a
+    4-D q on the decode phase's layer-0 pools (each against its plain
+    twin, each moving its kernel's count by one),
+    ``nd.scaled_dot_product_attention`` (one ``flash_fwd``), and the
+    three ``rtc`` kernels through ``nd`` at 8192 x 8192 f32 against their
+    plain versions, with ``square``'s gradient under ``record()``.
+    Returns (launches of those calls, kernel rows for the rtc kernels)."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import kernels, nd
+    from mxnet_tpu_torch.ops import ragged_attention as ra
+    cache, bt, kv, model = decoded
+    c = model.config
+    S, H, D = bt.shape[0], c.num_heads, c.head_dim
+    kp, vp = cache.k_pages[0], cache.v_pages[0]
+    q3 = torch.from_numpy(rng.randn(S, H, D).astype(np.float32)).to(DEVICE)
+    q4 = torch.from_numpy(
+        rng.randn(S, CHUNK_Q, H, D).astype(np.float32)).to(DEVICE)
+    ql = torch.full((S,), CHUNK_Q, dtype=torch.int32, device=DEVICE)
+    sdpa_in = [torch.from_numpy(rng.randn(2, H, 128, D).astype(
+        np.float32)).to(DEVICE) for _ in range(3)]
+    names, plain = register_rtc_ops("rtc_")
+    x, y = (torch.from_numpy(rng.randn(RTC_N, RTC_N).astype(
+        np.float32)).to(DEVICE) for _ in range(2))
+    # the path: every call below once, counted
+    kernels.reset_launch_counts()
+    got3 = nd.ragged_paged_attention(q3, kp, vp, bt, kv)
+    got4 = nd.ragged_paged_attention(q4, kp, vp, bt, kv, q_lens=ql)
+    got_sdpa = nd.scaled_dot_product_attention(*sdpa_in)
+    got_rtc = {"scale_add": getattr(nd, names["scale_add"])(x, y),
+               "rowsum": getattr(nd, names["rowsum"])(x)}
+    xg = x.detach().clone().requires_grad_()
+    with ag.record():
+        sq = getattr(nd, names["square"])(xg)
+        sq.sum().backward()
+    got_rtc["square"] = sq.detach()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"ops: launches {launches}")
+    for kname, n in ((ra.DECODE_KERNEL, 1), (ra.CHUNK_KERNEL, 1),
+                     ("flash_fwd", 1)):
+        check(launches.get(kname, 0) == n, f"ops: {kname} launched "
+              f"{launches.get(kname, 0)} times, expected {n}")
+    e3 = float((got3 - ra.ragged_attention_reference(
+        q3, kp, vp, bt, kv)).abs().max())
+    e4 = float((got4 - ra.ragged_chunk_attention_reference(
+        q4, kp, vp, bt, kv, ql)).abs().max())
+    from mxnet_tpu_torch.ops.flash_attention import attention_reference
+    es = float((got_sdpa - attention_reference(*sdpa_in)).abs().max())
+    log(f"ops: nd.ragged_paged_attention 3-D q max_abs_err={e3:.3e}, 4-D q "
+        f"{e4:.3e} (tol {ATT_TOL}); nd.scaled_dot_product_attention "
+        f"{es:.3e} (relative tol {FLASH_REL_TOL})")
+    check(max(e3, e4) <= ATT_TOL, "ops: nd.ragged_paged_attention "
+          "disagrees with its plain twin")
+    check(es <= FLASH_REL_TOL * max(1.0, float(got_sdpa.abs().max())),
+          "ops: nd.scaled_dot_product_attention disagrees")
+    gerr = float((xg.grad - 2 * x).abs().max())
+    log(f"ops: rtc square gradient under record() vs 2x: max_abs_err="
+        f"{gerr:.3e}")
+    check(gerr == 0.0, "ops: rtc square's gradient is not 2x")
+    nb = 4 * RTC_N * RTC_N
+    library = {"scale_add": (lambda: torch.add(y, x, alpha=2), 3 * nb),
+               "square": (lambda: torch.square(x), 2 * nb),
+               "rowsum": (lambda: x.sum(1), nb + 4 * RTC_N)}
+    results = []
+    for k, (lib_fn, nbytes) in library.items():
+        args = (x, y) if k == "scale_add" else (x,)
+        op = getattr(nd, names[k])
+        want = plain[k](*args)
+        rel = rel_err(got_rtc[k], want)
+        b_ms, b_by = bound(nbytes, 0)
+        res = dict(name=f"rtc.{names[k]}", route="cuda",
+                   source="chip_smoke.py",
+                   replaces="mxnet_tpu/rtc.py:76",
+                   shape=f"{RTC_N}x{RTC_N} f32", max_abs_err=rel[0],
+                   tol=RTC_REL_TOL, ms=timer.ms(lambda: op(*args)),
+                   plain_ms=timer.ms(lambda: plain[k](*args)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=timer.ms(lib_fn))
+        log(f"kernel {res['name']} {res['shape']}: max_abs_err="
+            f"{rel[0]:.3e} (relative {rel[1]:.3e}, tol {RTC_REL_TOL}) "
+            f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"library_ms={res['library_ms']:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by})")
+        check(rel[1] <= RTC_REL_TOL, f"{res['name']} disagrees with its "
+              f"plain version: {rel[1]} > {RTC_REL_TOL}")
+        results.append(res)
+    return launches, results
+
+
 # ------------------------------------------------------ training phase --
 def make_bert_mlm(dropout, **cfg):
     """``BertForMLM`` of examples/bert_pretrain_mlm.py on the port: BERT
@@ -884,22 +1260,35 @@ def main():
     # 3. kernels
     results = run_kernel_phase(torch, timer, rng)
     results += run_flash_kernel_phase(torch, timer, rng)
-    del timer
+    results += run_paged_kernel_phase(torch, timer, rng)
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()
     np_params = TinyDecoder(device=DEVICE, **GPT2_SMALL).init_params_numpy(0)
     log(f"params: GPT-2-small widths, seed 0, "
         f"{time.monotonic() - t0:.2f}s")
-    launches = dict(run_f32_phase(torch, rng, np_params, kernels)[0])
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    add(run_f32_phase(torch, rng, np_params, kernels)[0])
     # 5. main path, quantized
     for dtype in ("int8", "float8_e4m3fn"):
-        launches.update(run_quant_phase(torch, rng, np_params, kernels,
-                                        dtype))
+        add(run_quant_phase(torch, rng, np_params, kernels, dtype))
+    # 6. paged decode through the model interface
+    counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)
+    add(counts)
     del np_params
-    # 6. main path, training
-    launches.update(run_bert_phase(torch, rng, kernels))
-    # 7. kernels line
+    # 7. op front end and rtc
+    counts, rtc_rows = run_op_phase(torch, timer, rng, decoded)
+    add(counts)
+    results += rtc_rows
+    del decoded, timer
+    torch.cuda.empty_cache()
+    # 8. main path, training
+    add(run_bert_phase(torch, rng, kernels))
+    # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))
         check(r["launches"] > 0, f"{r['name']} never ran on the main path")

@@ -10,7 +10,13 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   kernel;
 - BERT masked-LM training through gluon (:mod:`mxnet_tpu_torch.gluon`,
   :mod:`~mxnet_tpu_torch.autograd`, :mod:`~mxnet_tpu_torch.optimizer`)
-  with the flash attention forward and backward kernels.
+  with the flash attention forward and backward kernels;
+- paged chunk and decode attention: ``TinyDecoder.decode_chunk`` /
+  ``decode_step`` and the op ``nd.ragged_paged_attention`` with the chunk
+  and decode paged-attention kernels; the op front end
+  (:mod:`~mxnet_tpu_torch.ops.registry`, ``nd``, exported here as
+  :mod:`~mxnet_tpu_torch.ndarray` and ``nd``) and :mod:`~mxnet_tpu_torch.rtc`,
+  which registers a user's CUDA kernel as an op.
 
 See ROADMAP.md for what remains.
 
@@ -21,3 +27,8 @@ version runs instead. This package never imports ``jax`` or
 (:mod:`mxnet_tpu_torch.kernels`).
 """
 __version__ = "0.1.0"
+
+from . import ndarray, rtc  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+
+__all__ = ["ndarray", "nd", "rtc"]

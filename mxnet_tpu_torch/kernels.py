@@ -25,9 +25,9 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "build_all", "library", "launch_counts",
-           "reset_launch_counts", "count_launch", "build_count",
-           "check", "require", "stream_handle"]
+__all__ = ["SOURCES", "build_all", "library", "rtc_library",
+           "launch_counts", "reset_launch_counts", "count_launch",
+           "build_count", "check", "require", "stream_handle"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -43,6 +43,8 @@ SOURCES = {
         "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
         "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
         "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 7 + [_F, _P],
+        "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
+        "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
     },
     "wq_matmul": {
         "mxt_wq_matmul_int8": [_P] * 5 + [_I] * 4 + [_P],
@@ -97,18 +99,17 @@ def _target(name):
                              f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name):
-    """Start nvcc for ``name`` unless its library is already built;
-    returns (popen or None, output path)."""
-    src, out = _target(name)
+def _start(src, out):
+    """Start nvcc on ``src`` unless ``out`` is already built; returns
+    (popen and temporary path, or None)."""
     if os.path.exists(out):
-        return None, out
+        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                             stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return (proc, tmp), out
+    return proc, tmp
 
 
 def _wait(name, started, out):
@@ -124,9 +125,9 @@ def _wait(name, started, out):
     return False
 
 
-def _load(name, out):
+def _load(name, out, entries):
     lib = ctypes.CDLL(out)
-    for fn, argtypes in SOURCES[name].items():
+    for fn, argtypes in entries.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
@@ -140,14 +141,17 @@ def build_all():
     loaded in this process. Returns the names it loaded."""
     with _lock:
         todo = [n for n in SOURCES if n not in _libs]
-        started = [(n,) + _start(n) for n in todo]
+        started = []
+        for n in todo:
+            src, out = _target(n)
+            started.append((n, _start(src, out), out))
         # wait for every nvcc before raising, so none outlives the call
         failed = [n for n, st, out in started if _wait(n, st, out)]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"csrc/{n}.cu:\n{build_logs[n]}" for n in failed))
         for name, _, out in started:
-            _load(name, out)
+            _load(name, out, SOURCES[name])
         return todo
 
 
@@ -158,11 +162,63 @@ def library(name):
         return lib
     with _lock:
         if name not in _libs:
-            started, out = _start(name)
-            if _wait(name, started, out):
+            src, out = _target(name)
+            if _wait(name, _start(src, out), out):
                 raise RuntimeError(
                     f"nvcc failed on csrc/{name}.cu:\n{build_logs[name]}")
-            _load(name, out)
+            _load(name, out, SOURCES[name])
+        return _libs[name]
+
+
+# appended to a caller's source: launches its kernel by address, so the
+# stub never needs the kernel's argument types
+_RTC_STUB = """
+#include <cuda_runtime.h>
+extern "C" int mxt_rtc_launch(void** args, unsigned int gx, unsigned int gy,
+                              unsigned int gz, unsigned int bx,
+                              unsigned int by, unsigned int bz,
+                              void* stream) {
+  cudaError_t e = cudaLaunchKernel((const void*)(@KERNEL@), dim3(gx, gy, gz),
+                                   dim3(bx, by, bz), args, 0,
+                                   static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+_RTC_ENTRIES = {"mxt_rtc_launch": [_P] + [ctypes.c_uint] * 6 + [_P]}
+
+
+def rtc_library(source, kernel_name):
+    """The loaded library for a caller's CUDA ``source`` string whose
+    ``__global__`` function ``kernel_name`` is launched by the generated
+    entry point ``mxt_rtc_launch(args, gx, gy, gz, bx, by, bz, stream)``
+    (``args``: the kernel's argument pointers, as ``cudaLaunchKernel``
+    takes them). Built by nvcc into ``_build/rtc-<hash>.so`` at first
+    use, the hash taken over the source, the kernel name and the flags,
+    so the same source is built once per checkout and loaded once per
+    process."""
+    if not kernel_name.isidentifier():
+        raise ValueError(f"kernel_name must be a C identifier, got "
+                         f"{kernel_name!r}")
+    text = source + _RTC_STUB.replace("@KERNEL@", kernel_name)
+    digest = hashlib.sha256(text.encode() + " ".join(NVCC_FLAGS).encode())
+    name = f"rtc-{digest.hexdigest()[:16]}"
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            src = os.path.join(BUILD_DIR, name + ".cu")
+            out = os.path.join(BUILD_DIR, name + ".so")
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                with open(src, "w") as f:
+                    f.write(text)
+            if _wait(name, _start(src, out), out):
+                raise RuntimeError(
+                    f"nvcc failed on the source of {kernel_name}:\n"
+                    f"{build_logs[name]}")
+            _load(name, out, _RTC_ENTRIES)
         return _libs[name]
 
 

@@ -17,7 +17,8 @@ twins, and the attention op (mirrors ``mxnet_tpu/ops/flash_attention.py``).
   :func:`mxnet_tpu_torch.kernels.launch_counts`.
 - :func:`flash_attention` — the ``custom_vjp`` pair as one
   ``torch.autograd.Function``; :func:`scaled_dot_product_attention` — the
-  op (``flash=False`` is :func:`attention_reference`).
+  op (``flash=False`` is :func:`attention_reference`), registered as
+  ``nd.scaled_dot_product_attention``.
 
 Semantics kept from the JAX flash path: the causal mask compares absolute
 query and key positions (``row >= col``, also when ``Tq != Tk``); masked
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .registry import register
 
 __all__ = ["attention_reference", "flash_forward_reference",
            "flash_backward_reference", "flash_bwd_dkv_reference",
@@ -308,6 +310,7 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None):
                                  _default_scale(q, scale))
 
 
+@register("scaled_dot_product_attention")
 def scaled_dot_product_attention(q, k, v, bias=None, *, causal=False,
                                  scale=None, flash=True):
     """The attention op: the flash kernels (their plain twins on the

@@ -1,24 +1,43 @@
-"""Flat ragged paged attention (the port of the flat path of
+"""Ragged paged attention (the port of
 ``mxnet_tpu/ops/ragged_attention.py``).
 
-A packed ``[T, H, D]`` batch of query tokens from many sequences attends
-over a paged KV pool ``[N, bs, H, D]``: token ``t`` belongs to row
-``seq_ids[t]`` of ``block_tables [S, MB]`` and sits at absolute position
-``positions[t]``, attending causally over positions ``<= positions[t]``
-of its sequence's pages. With ``k_scales``/``v_scales`` ``[N, bs, H]``
-f32 the pages are int8 or fp8-e4m3 and are dequantised per slot and head.
+Query tokens attend over a paged KV pool ``[N, bs, H, D]`` through
+per-sequence block tables ``[S, MB]`` (int32 page ids, unused entries
+pointing at the null block 0). Three shapes, one kernel source
+(``csrc/ragged_flat.cu``):
 
-- :func:`ragged_flat_attention_reference` — the plain gather-based
-  version: gather every page of the token's table row, mask, one softmax.
-- :func:`ragged_flat_attention` — the entry point. A CPU tensor takes the
-  plain version; a CUDA tensor launches ``csrc/ragged_flat.cu`` (f32
-  pages: kernel ``flat_attention``, the port of ``_flat_kernel``;
-  quantised pages: ``flat_attention_quant.int8`` / ``.fp8``, the port of
-  ``_flat_quant_kernel``) or raises. Each launch counts under that name
-  in :func:`mxnet_tpu_torch.kernels.launch_counts`.
+- flat: a packed ``[T, H, D]`` batch; token ``t`` belongs to row
+  ``seq_ids[t]`` and sits at absolute position ``positions[t]``,
+  attending causally over positions ``<= positions[t]``. With
+  ``k_scales``/``v_scales`` ``[N, bs, H]`` f32 the pages are int8 or
+  fp8-e4m3 and are dequantised per slot and head.
+  :func:`ragged_flat_attention` (kernel ``flat_attention``, the port of
+  ``_flat_kernel``; quantised pages ``flat_attention_quant.int8`` /
+  ``.fp8``, the port of ``_flat_quant_kernel``) and its plain version
+  :func:`ragged_flat_attention_reference`.
+- decode: ``q [S, H, D]``, one query per row over its ``kv_lens[i]``
+  valid tokens. :func:`ragged_paged_attention` with a 3-D ``q`` (kernel
+  ``decode_attention``, the port of ``_decode_kernel``); plain version
+  :func:`ragged_attention_reference`.
+- chunk: ``q [S, Q, H, D]`` with ``q_lens [S]``; token ``t`` of row
+  ``i`` sits at ``kv_lens[i] - q_lens[i] + t`` and attends causally up
+  to there (chunked prefill, decode as Q=1, speculative verify).
+  :func:`ragged_paged_attention` with a 4-D ``q`` (kernel
+  ``chunk_attention``, the port of ``_chunk_kernel``); plain version
+  :func:`ragged_chunk_attention_reference`.
 
-Outputs of tokens whose table row is padding (the engine's padded tail
-tokens) are unspecified and discarded by callers, as on the TPU.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises. Each launch counts under its kernel's name in
+:func:`mxnet_tpu_torch.kernels.launch_counts`. ``ragged_paged_attention``
+is also the registered op ``nd.ragged_paged_attention``
+(non-differentiable, as in the JAX package).
+
+Outputs with no contract, discarded by callers as on the TPU: tokens
+whose table row is padding (flat), padded chunk tokens (``t >=
+q_lens[i]``) and rows with ``q_lens[i] == 0``, and rows with
+``kv_lens[i] == 0`` (the decode kernel gives 0 there, the plain version
+the mean of ``v``). Data past ``kv_lens[i]`` and in the null block never
+reaches a valid output.
 """
 from __future__ import annotations
 
@@ -26,9 +45,16 @@ import torch
 
 from .. import kernels
 from .flash_attention import _NEG_INF
+from .registry import register
 
 __all__ = ["ragged_flat_attention", "ragged_flat_attention_reference",
-           "gather_rows", "kernel_name"]
+           "ragged_paged_attention", "ragged_attention_reference",
+           "ragged_chunk_attention_reference", "gather_rows",
+           "kernel_name", "CHUNK_KERNEL", "DECODE_KERNEL"]
+
+# launch-counter names of the chunk (K4) and decode (K5) kernels
+CHUNK_KERNEL = "chunk_attention"
+DECODE_KERNEL = "decode_attention"
 
 # page dtype -> (C entry point, launch-counter name)
 _KERNELS = {
@@ -136,3 +162,138 @@ def ragged_flat_attention(q, k_pages, v_pages, block_tables, seq_ids,
         raise ValueError(f"no flat attention kernel for {q.device}")
     return _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids,
                       positions, scale, k_scales, v_scales)
+
+
+def _gather_pages(pages, block_tables):
+    """``pages[block_tables]`` as ``[S, MB * bs, H, D]`` f32."""
+    S, MB = block_tables.shape
+    g = pages[block_tables.long()].float()
+    return g.reshape(S, MB * pages.shape[1], *pages.shape[2:])
+
+
+def ragged_attention_reference(q, k_pages, v_pages, block_tables, kv_lens,
+                               scale=None):
+    """Gather-based plain version of the decode shape: ``q [S, H, D]``,
+    pages ``[N, bs, H, D]``, ``block_tables [S, MB]``, ``kv_lens [S]``;
+    row ``i`` attends over positions ``< kv_lens[i]``."""
+    D = q.shape[-1]
+    s = scale if scale is not None else float(1.0 / (D ** 0.5))
+    k = _gather_pages(k_pages, block_tables)
+    v = _gather_pages(v_pages, block_tables)
+    logits = torch.einsum("shd,skhd->shk", q.float(), k) * s
+    pos = torch.arange(k.shape[1], dtype=torch.int64, device=q.device)
+    mask = pos[None, None, :] < kv_lens.long()[:, None, None]
+    logits = torch.where(mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("shk,skhd->shd", probs, v)
+    return out.to(q.dtype)
+
+
+def ragged_chunk_attention_reference(q, k_pages, v_pages, block_tables,
+                                     kv_lens, q_lens, scale=None):
+    """Gather-based plain version of the chunk shape: ``q [S, Q, H, D]``,
+    ``kv_lens``/``q_lens [S]``; token ``t`` of row ``i`` attends over
+    positions ``<= kv_lens[i] - q_lens[i] + t``."""
+    Q, D = q.shape[1], q.shape[-1]
+    s = scale if scale is not None else float(1.0 / (D ** 0.5))
+    k = _gather_pages(k_pages, block_tables)
+    v = _gather_pages(v_pages, block_tables)
+    logits = torch.einsum("sqhd,skhd->shqk", q.float(), k) * s
+    pos = torch.arange(k.shape[1], dtype=torch.int64, device=q.device)
+    qpos = (kv_lens.long()[:, None] - q_lens.long()[:, None]
+            + torch.arange(Q, dtype=torch.int64, device=q.device)[None, :])
+    mask = pos[None, None, None, :] <= qpos[:, None, :, None]
+    logits = torch.where(mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("shqk,skhd->sqhd", probs, v)
+    return out.to(q.dtype)
+
+
+def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
+    chunked = q.dim() == 4
+    S, MB = block_tables.shape
+    Q = q.shape[1] if chunked else 1
+    H, D = q.shape[-2:]
+    N, bs = k_pages.shape[0], k_pages.shape[1]
+    dev = q.device
+    if D not in (32, 64, 128, 256):
+        raise ValueError(f"paged attention kernel takes head_dim 32, 64, "
+                         f"128 or 256, got {D}")
+    req = kernels.require
+    req(q, "q", torch.float32, (S, Q, H, D) if chunked else (S, H, D), dev)
+    req(k_pages, "k_pages", torch.float32, (N, bs, H, D), dev)
+    req(v_pages, "v_pages", torch.float32, (N, bs, H, D), dev)
+    req(block_tables, "block_tables", torch.int32, (S, MB), dev)
+    req(kv_lens, "kv_lens", torch.int32, (S,), dev)
+    if chunked:
+        req(q_lens, "q_lens", torch.int32, (S,), dev)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = kernels.library("ragged_flat")
+    stream = kernels.stream_handle(dev)
+    if chunked:
+        fn, counter = "mxt_ragged_chunk_f32", CHUNK_KERNEL
+        rc = lib.mxt_ragged_chunk_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
+            out.data_ptr(), S, Q, H, D, bs, N, MB, float(scale), stream)
+    else:
+        fn, counter = "mxt_ragged_decode_f32", DECODE_KERNEL
+        rc = lib.mxt_ragged_decode_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            S, H, D, bs, N, MB, float(scale), stream)
+    kernels.check(rc, fn)
+    kernels.count_launch(counter)
+    return out
+
+
+def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
+                           q_lens=None, scale=None):
+    """Paged attention, decode and chunk shapes.
+
+    ``q [S, H, D]``: one query per row over its ``kv_lens[i]`` valid
+    tokens (the decode kernel). ``q [S, Q, H, D]`` with ``q_lens [S]``:
+    up to Q query tokens per row, token ``t`` at absolute position
+    ``kv_lens[i] - q_lens[i] + t``, causal (the chunk kernel). Pages
+    ``[N, bs, H, D]`` f32, ``block_tables [S, MB]``, ``kv_lens`` counting
+    this chunk's tokens. CPU tensors take the plain versions; CUDA
+    tensors launch the kernel (int32 tables and lengths, f32 ``q``,
+    contiguous) or raise."""
+    if q.dim() not in (3, 4):
+        raise ValueError(f"q must be (S, H, D) or (S, Q, H, D), got shape "
+                         f"{tuple(q.shape)}")
+    chunked = q.dim() == 4
+    if chunked and q_lens is None:
+        raise ValueError("chunk-shaped q (S, Q, H, D) requires q_lens")
+    for name, p in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if p.dtype != torch.float32:
+            raise TypeError(
+                f"{name} has dtype {p.dtype}: the chunk and decode kernels "
+                f"take f32 pages (bf16 pages wait for the AMP item of "
+                f"ROADMAP.md)")
+    if scale is None:
+        scale = float(1.0 / (q.shape[-1] ** 0.5))
+    if q.device.type == "cpu":
+        if chunked:
+            return ragged_chunk_attention_reference(
+                q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale)
+        return ragged_attention_reference(q, k_pages, v_pages,
+                                          block_tables, kv_lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention kernel for {q.device}")
+    return _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens,
+                       scale)
+
+
+@register("ragged_paged_attention", differentiable=False)
+def _ragged_op(q, k_pages, v_pages, block_tables, kv_lens, *, q_lens=None,
+               scale=None):
+    """Registered paged-attention op (decode and chunk shapes): the
+    kernels on the card, the plain versions on the CPU. ``q_lens`` may be
+    any int32 array-like."""
+    if q_lens is not None and not isinstance(q_lens, torch.Tensor):
+        q_lens = torch.as_tensor(q_lens, dtype=torch.int32, device=q.device)
+    return ragged_paged_attention(q, k_pages, v_pages, block_tables,
+                                  kv_lens, q_lens=q_lens, scale=scale)

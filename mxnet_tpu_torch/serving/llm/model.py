@@ -9,6 +9,11 @@
   :func:`~mxnet_tpu_torch.ops.ragged_attention.ragged_flat_attention`
   (f32, int8 or fp8 pages), with int8/fp8 weights routed through
   :func:`~mxnet_tpu_torch.ops.quantization.quantized_matmul`;
+- :meth:`TinyDecoder.decode_chunk` / :meth:`TinyDecoder.decode_step` —
+  the model interface's paged step: up to Q tokens per sequence (decode
+  is the Q=1 slice) write their K/V into f32 pools in place and attend
+  through :func:`~mxnet_tpu_torch.ops.ragged_attention
+  .ragged_paged_attention` (the chunk kernel);
 - :func:`greedy_decode_reference` — per-sequence greedy decoding over a
   dense cache, the oracle continuous batching must match.
 
@@ -26,7 +31,8 @@ from ..._device import resolve_device
 from ...convert import params_from_numpy
 from ...ops.flash_attention import _NEG_INF, attention_reference
 from ...ops.quantization import quantized_matmul
-from ...ops.ragged_attention import gather_rows, ragged_flat_attention
+from ...ops.ragged_attention import (gather_rows, ragged_flat_attention,
+                                     ragged_paged_attention)
 
 __all__ = ["DecoderConfig", "TinyDecoder", "greedy_decode_reference"]
 
@@ -255,6 +261,71 @@ class TinyDecoder:
         if s is None:
             return x @ params["head"]
         return quantized_matmul(x, params["head"], s)
+
+    def decode_chunk(self, params, tokens, positions, q_lens, k_pages,
+                     v_pages, block_tables, kv_lens):
+        """Up to Q tokens per sequence against the paged cache: the one
+        multi-query-token step that chunked prefill, plain decode (the
+        Q=1 slice) and speculative verify run through.
+
+        tokens/positions: int32 [S, Q]; q_lens: int32 [S] valid token
+        counts (0 = inactive row); pools ``[L, N, bs, H, Dh]`` f32;
+        block_tables: int32 [S, MB]; kv_lens: int32 [S], the valid length
+        including this chunk's tokens (token ``t`` of row ``i`` sits at
+        ``kv_lens[i] - q_lens[i] + t``, which ``positions[i, t]`` must
+        equal for ``t < q_lens[i]``; padded tails carry an in-range
+        position).
+
+        Each layer first writes the chunk's K/V IN PLACE at
+        ``(block_tables[i, pos // bs], pos % bs)`` (padded tokens and
+        inactive rows write to the null block), then attends causally over
+        the paged history through the chunk kernel. Returns (logits [S, Q,
+        V], k_pages, v_pages), the pools being the tensors passed in, as
+        the JAX package's functional interface returns its updated pools.
+        """
+        c = self.config
+        S, Q = tokens.shape
+        bs = k_pages.shape[2]
+        MB = block_tables.shape[1]
+        valid = (torch.arange(Q, device=tokens.device)[None, :]
+                 < q_lens.long()[:, None])                   # [S, Q]
+        pos_l = positions.long()
+        # padded tails may carry any in-range position: clamp the table
+        # column before indexing (the TPU gather clamps on its own)
+        col = torch.clamp(pos_l // bs, 0, MB - 1)
+        bidx = torch.where(valid, torch.gather(block_tables.long(), 1, col),
+                           0)                                # null block
+        slot = torch.where(valid, pos_l % bs, 0)
+        h = params["embed"][tokens.long()] + params["pos"][pos_l]
+        for li, lp in enumerate(params["layers"]):
+            x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"])
+            q = (x @ lp["wq"]).reshape(S, Q, c.num_heads, c.head_dim)
+            k = (x @ lp["wk"]).reshape(S, Q, c.num_heads, c.head_dim)
+            v = (x @ lp["wv"]).reshape(S, Q, c.num_heads, c.head_dim)
+            _write(k_pages[li], bidx, slot, k.to(k_pages.dtype))
+            _write(v_pages[li], bidx, slot, v.to(v_pages.dtype))
+            att = ragged_paged_attention(q, k_pages[li], v_pages[li],
+                                         block_tables, kv_lens,
+                                         q_lens=q_lens)
+            h = h + att.reshape(S, Q, c.d_model) @ lp["wo"]
+            h = h + _mlp(h, lp, lambda a, n, _lp=lp: a @ _lp[n]) \
+                + lp["b2"]
+        logits = _layer_norm(h, params["lnf_g"],
+                             params["lnf_b"]) @ params["head"]
+        return logits, k_pages, v_pages
+
+    def decode_step(self, params, tokens, positions, k_pages, v_pages,
+                    block_tables, kv_lens):
+        """One decode token per sequence: the Q=1 slice of
+        :meth:`decode_chunk`, so it runs the chunk kernel, as the JAX
+        package's does (tokens/positions int32 [S]). Returns (logits [S,
+        V], k_pages, v_pages)."""
+        S = tokens.shape[0]
+        logits, k_pages, v_pages = self.decode_chunk(
+            params, tokens[:, None], positions[:, None],
+            torch.ones(S, dtype=torch.int32, device=tokens.device),
+            k_pages, v_pages, block_tables, kv_lens)
+        return logits[:, 0], k_pages, v_pages
 
 
 def _quantize_kv(x, dtype):

@@ -16,7 +16,11 @@ kernels (f32 sums over up to 200 keys or queries in another order,
 online softmax against one softmax); ``FLASH_GRAD_TOL = 1e-4`` for the
 autograd Function against autograd through ``attention_reference``
 (the reference differentiates softmax itself instead of working from
-the saved logsumexp, which reorders more sums).
+the saved logsumexp, which reorders more sums). The chunk and decode
+paged attention kernels take ``ATT_TOL`` too; the user kernels of
+``chip_smoke.RTC_SOURCES`` registered through ``rtc`` take ``RTC_TOL =
+1e-5`` of the output's magnitude (``2x + y`` fused into one FMA, a row
+sum in another order).
 """
 import os
 import sys
@@ -28,7 +32,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 import torch  # noqa: E402
 
-from mxnet_tpu_torch import kernels  # noqa: E402
+import chip_smoke  # noqa: E402
+from mxnet_tpu_torch import autograd as ag  # noqa: E402
+from mxnet_tpu_torch import kernels, nd  # noqa: E402
 from mxnet_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from mxnet_tpu_torch.ops import ragged_attention as tra  # noqa: E402
 from mxnet_tpu_torch.ops import quantization as tqz  # noqa: E402
@@ -39,6 +45,7 @@ ATT_TOL = 2e-5
 WQ_TOL = 1e-5
 FLASH_TOL = 2e-5
 FLASH_GRAD_TOL = 1e-4
+RTC_TOL = 1e-5
 BS = 16
 
 
@@ -215,3 +222,135 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v, bias, False, None)
+
+
+def _paged_inputs(dev, chunk, H=4, D=64, n_blocks=40):
+    """Fragmented tables over 4 rows with kv lengths at block edges
+    (bs-1, bs, 2bs+1) and a long one; chunk rows query their last
+    q_lens = (5, 1, 16, 7) positions of Q=16 (padded tails on three)."""
+    g = torch.Generator().manual_seed(1)
+    tables = torch.tensor([[9, 0, 0, 0, 0], [3, 0, 0, 0, 0],
+                           [7, 12, 30, 0, 0], [2, 8, 6, 4, 22]],
+                          dtype=torch.int32)
+    kv = torch.tensor([BS - 1, BS, 2 * BS + 1, 5 * BS], dtype=torch.int32)
+    out = dict(block_tables=tables, kv_lens=kv)
+    if chunk:
+        out["q"] = torch.randn(4, 16, H, D, generator=g)
+        out["q_lens"] = torch.tensor([5, 1, 16, 7], dtype=torch.int32)
+    else:
+        out["q"] = torch.randn(4, H, D, generator=g)
+    for name in ("k_pages", "v_pages"):
+        out[name] = torch.randn(n_blocks, BS, H, D, generator=g)
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _valid(t, out):
+    if "q_lens" not in t:
+        return out
+    return torch.cat([out[i, :n] for i, n in
+                      enumerate(t["q_lens"].tolist())])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_paged_kernels_match_plain(cuda, chunk):
+    t = _paged_inputs(cuda, chunk)
+    name = tra.CHUNK_KERNEL if chunk else tra.DECODE_KERNEL
+    before = kernels.launch_counts().get(name, 0)
+    got = tra.ragged_paged_attention(**t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    want = (tra.ragged_chunk_attention_reference(**t) if chunk else
+            tra.ragged_attention_reference(**t))
+    assert float((_valid(t, got) - _valid(t, want)).abs().max()) < ATT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_paged_kernels_garbage_invisible(cuda, chunk):
+    t = _paged_inputs(cuda, chunk)
+    clean = tra.ragged_paged_attention(**t)
+    used = set(t["block_tables"].flatten().tolist()) - {0}
+    for name, val in (("k_pages", 1e6), ("v_pages", -1e6)):
+        for b in range(t[name].shape[0]):
+            if b not in used:
+                t[name][b] = val
+        for i, n in enumerate(t["kv_lens"].tolist()):
+            last = int(t["block_tables"][i, (n - 1) // BS])
+            t[name][last, n % BS or BS:] = val
+    if chunk:
+        for i, n in enumerate(t["q_lens"].tolist()):
+            t["q"][i, n:] = 1e6
+    got = tra.ragged_paged_attention(**t)
+    assert torch.equal(_valid(t, got), _valid(t, clean))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda, chunk):
+    t = _paged_inputs(cuda, chunk)
+    call = tra.ragged_paged_attention
+    with pytest.raises(TypeError):
+        call(**dict(t, kv_lens=t["kv_lens"].long()))
+    with pytest.raises(TypeError, match="AMP"):
+        call(**dict(t, k_pages=t["k_pages"].half(),
+                    v_pages=t["v_pages"].half()))
+    with pytest.raises(ValueError, match="shape"):
+        call(**dict(t, block_tables=t["block_tables"][:2]))
+    with pytest.raises(ValueError, match="on cpu"):
+        call(**dict(t, kv_lens=t["kv_lens"].cpu()))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(**dict(t, k_pages=t["k_pages"].transpose(2, 3)
+                    .contiguous().transpose(2, 3)))
+    with pytest.raises(ValueError, match="head_dim"):
+        call(**dict(t, q=t["q"][..., :16].contiguous(),
+                    k_pages=t["k_pages"][..., :16].contiguous(),
+                    v_pages=t["v_pages"][..., :16].contiguous()))
+
+
+@pytest.fixture
+def rtc_ops(cuda):
+    from mxnet_tpu_torch.ops.registry import _REGISTRY
+    names, plain = chip_smoke.register_rtc_ops("cuda_test_")
+    yield names, plain
+    for n in names.values():
+        _REGISTRY.pop(n, None)
+
+
+@pytest.mark.cuda
+def test_rtc_kernels_match_plain(cuda, rtc_ops):
+    names, plain = rtc_ops
+    g = torch.Generator().manual_seed(2)
+    x, y = (torch.randn(300, 1000, generator=g).to(cuda) for _ in range(2))
+    before = kernels.launch_counts()
+    for k, args in (("scale_add", (x, y)), ("square", (x,)),
+                    ("rowsum", (x,))):
+        got = getattr(nd, names[k])(*args)
+        torch.cuda.synchronize()
+        want = plain[k](*args)
+        assert got.shape == want.shape
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= RTC_TOL * scale
+        counter = f"rtc.{names[k]}"
+        assert kernels.launch_counts()[counter] == before.get(counter,
+                                                              0) + 1
+
+
+@pytest.mark.cuda
+def test_rtc_square_gradient_and_no_second_build(cuda, rtc_ops):
+    names, _ = rtc_ops
+    x = torch.linspace(-3, 3, 1000, device=cuda).requires_grad_()
+    with ag.record():
+        y = getattr(nd, names["square"])(x).sum()
+    y.backward()
+    assert torch.equal(x.grad, 2 * x.detach())
+    builds = kernels.build_count()
+    again, _ = chip_smoke.register_rtc_ops("cuda_test_again_")
+    try:
+        getattr(nd, again["square"])(x.detach())
+        torch.cuda.synchronize()
+        assert kernels.build_count() == builds
+    finally:
+        from mxnet_tpu_torch.ops.registry import _REGISTRY
+        for n in again.values():
+            _REGISTRY.pop(n, None)

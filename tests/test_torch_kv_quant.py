@@ -161,7 +161,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.gluon, mxnet_tpu_torch.gluon.model_zoo.bert, "
             "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.autograd, "
             "mxnet_tpu_torch.initializer, mxnet_tpu_torch.ops.nn, "
-            "mxnet_tpu_torch.ops.flash_attention, chip_smoke; bad = [m for m in sys.modules if m == 'jax' or "
+            "mxnet_tpu_torch.ops.flash_attention, "
+            "mxnet_tpu_torch.ops.registry, mxnet_tpu_torch.ops.invoke, "
+            "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.ndarray.register, "
+            "mxnet_tpu_torch.rtc, chip_smoke; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.') or m == 'ml_dtypes']; "
             "print(bad); sys.exit(1 if bad else 0)")
