@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Two trees' kernel timings on one card, in turns.
+
+Run from the root of a checkout on a machine with an NVIDIA H100, with
+the other tree unpacked under a git-ignored directory:
+
+    git archive <rev> | tar -x -C _checkout/parent
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases kernel,flash --profile
+
+Each turn is its own process, started from that tree's root: it builds
+the tree's kernels and runs the named kernel phases of the tree's
+``chip_smoke.py`` (``kernel``: ``run_kernel_phase``, K1-K3; ``flash``:
+``run_flash_kernel_phase``, K6/K7; ``paged``: ``run_paged_kernel_phase``,
+K4/K5), each phase from ``np.random.RandomState(0)``, so both trees time
+the same inputs. ``--order`` lists the turns by tree letter (A the first
+``--tree``). With ``--profile``, each tree then serves its int8 and fp8
+phases (``run_quant_phase``) once, and the device time of the quantized
+matmul's kernels in the profiled pass is printed beside the pass's
+device time. Prints the card line, one line per (kernel, shape) with
+every turn's ms, the profile lines and one JSON line of it all; ``--log
+FILE`` keeps the turns' full output. Exits non-zero if a turn fails.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke
+from mxnet_tpu_torch import kernels
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kernels.build_all()
+phases = {"kernel": "run_kernel_phase", "flash": "run_flash_kernel_phase",
+          "paged": "run_paged_kernel_phase"}
+timer = chip_smoke.Timer(torch)
+rows = []
+for ph in sys.argv[1].split(","):
+    if ph:
+        rows += getattr(chip_smoke, phases[ph])(
+            torch, timer, np.random.RandomState(0))
+print("AB_ROWS " + json.dumps(
+    [{k: r.get(k) for k in ("name", "shape", "ms", "plain_ms",
+                            "library_ms", "max_abs_err")} for r in rows]),
+    flush=True)
+if sys.argv[2] == "1":
+    # the quantized matmul's kernels, in either tree's design
+    K3 = ("wq_mma_kernel", "wq_matmul_kernel", "split_sum_kernel")
+    report = chip_smoke.report_profile
+
+    def report_k3(prof, wall, steps):
+        rows = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and getattr(e, "self_device_time_total", 0) > 0]
+        busy = sum(e.self_device_time_total for e in rows)
+        k3 = [e for e in rows if any(n in e.key for n in K3)]
+        k3_us = sum(e.self_device_time_total for e in k3)
+        print("AB_PROFILE " + json.dumps(dict(
+            steps=steps, wall_s=wall, busy_ms=busy / 1e3,
+            k3_ms=k3_us / 1e3, k3_launches=sum(e.count for e in k3),
+            k3_share=k3_us / busy if busy else None)), flush=True)
+        return report(prof, wall, steps)
+    chip_smoke.report_profile = report_k3
+    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    np_params = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL
+                            ).init_params_numpy(0)
+    for dtype in ("int8", "float8_e4m3fn"):
+        print(f"AB_DTYPE {dtype}", flush=True)
+        chip_smoke.run_quant_phase(torch, np.random.RandomState(1),
+                                   np_params, kernels, dtype)
+"""
+
+
+def turn(root, phases, profile, log):
+    proc = subprocess.run([sys.executable, "-c", CHILD, phases,
+                           "1" if profile else "0"], cwd=root,
+                          capture_output=True, text=True)
+    log.write(f"===== {root} phases={phases} profile={profile} "
+              f"rc={proc.returncode}\n{proc.stdout}\n{proc.stderr}\n")
+    log.flush()
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise SystemExit(f"chip_ab: the turn in {root} failed")
+    rows, prof, dtype = [], [], None
+    for line in proc.stdout.splitlines():
+        if line.startswith("AB_ROWS "):
+            rows = json.loads(line[8:])
+        elif line.startswith("AB_DTYPE "):
+            dtype = line[9:]
+        elif line.startswith("AB_PROFILE "):
+            prof.append(dict(json.loads(line[11:]), dtype=dtype))
+    return rows, prof
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="label=path, in letter order A, B, ...")
+    ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--phases", default="kernel,flash")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--log", help="file for the turns' full output")
+    args = ap.parse_args()
+    trees = [t.split("=", 1) for t in args.tree]
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)),
+                    exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    table = {}
+    with open(args.log or os.devnull, "w") as log:
+        for letter in args.order:
+            label, root = trees[ord(letter) - ord("A")]
+            rows, _ = turn(os.path.abspath(root), args.phases, False, log)
+            for r in rows:
+                key = (r["name"], r["shape"])
+                table.setdefault(key, []).append(
+                    (label, r["ms"], r["max_abs_err"], r["library_ms"]))
+        profiles = []
+        if args.profile:
+            for label, root in trees:
+                _, prof = turn(os.path.abspath(root), "", True, log)
+                profiles += [dict(p, tree=label) for p in prof]
+    for (name, shape), cells in table.items():
+        turns = " ".join(f"{label}={ms:.4f}" for label, ms, _, _ in cells)
+        errs = max(e for _, _, e, _ in cells)
+        lib = cells[0][3]
+        lib_s = "none" if lib is None else f"{lib:.4f}"
+        print(f"ab {name} {shape}: {turns} (ms, in turn order); "
+              f"library {lib_s}; max_abs_err {errs:.3e}", flush=True)
+    for p in profiles:
+        print(f"ab profile {p['tree']} {p['dtype']}: {p['steps']} steps, "
+              f"device busy {p['busy_ms']:.2f} ms, K3 {p['k3_ms']:.2f} ms "
+              f"in {p['k3_launches']} launches = {p['k3_share']:.3f} of "
+              f"device time", flush=True)
+    print(json.dumps({"ab": [dict(name=n, shape=s, turns=[
+        dict(tree=label, ms=ms) for label, ms, _, _ in c])
+        for (n, s), c in table.items()], "profiles": profiles}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,7 +55,9 @@ Phases, one line of output each (or more), in order:
    tokens/s, then two steps under ``torch.profiler``;
 9. one JSON line listing every kernel: launches on the main paths (the
    flash kernels': the 10 training steps and the op phase's call), max
-   error, times, bound;
+   error, times, bound (the quantized matmul's and the flash kernels'
+   operations on the TF32 tensor cores, 2 and 3 passes for f32
+   accuracy) and, beside it, the f32 CUDA-core bound;
 then the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script needs
@@ -72,10 +74,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 rate
-# outside the tensor cores (every kernel accumulates f32 on CUDA cores)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 rate
+# outside the tensor cores, dense TF32 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+# TF32 tensor-core passes per product at f32 accuracy (split-TF32): the
+# quantized matmul splits only x (its weights are exact in TF32), the
+# flash kernels split both operands (hi*hi + hi*lo + lo*hi). The flash
+# backward's rows take the same count: the same work at f32 accuracy.
+WQ_PASSES = 2
+FLASH_PASSES = 3
 
 # tolerances, each with its reason
 # flat attention kernel vs its plain version: identical math, f32
@@ -229,11 +238,20 @@ class Timer:
         return float(np.median(times))
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, passes=None):
+    """The least time the card could take: ``(ms, "bytes" or
+    "operations", f32 ms)``. Bytes go at the HBM rate; with ``passes``
+    the products go on the TF32 tensor cores, ``passes`` times each at
+    f32 accuracy, else at the f32 rate of the CUDA cores. The third value
+    is always the f32 CUDA-core bound, so rows stay comparable with
+    earlier ones."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                        "operations")
+    t_f32 = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
+    t_ops = (flops * passes / TF32_FLOPS_PER_S * 1e3 if passes
+             else flops / F32_FLOPS_PER_S * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_f32
+    return t_ops, "operations", t_f32
 
 
 # ------------------------------------------------------ kernel phase --
@@ -302,7 +320,7 @@ def run_kernel_phase(torch, timer, rng):
             out_k = kern()
             torch.cuda.synchronize()
             err = float((out_k - plain()).abs().max())
-            b_ms, b_by = bound(nbytes, flops)
+            b_ms, b_by, b_f32 = bound(nbytes, flops)
             name = ra.kernel_name(args["k_pages"].dtype)
             res = dict(name=name, route="cuda",
                        source="mxnet_tpu_torch/csrc/ragged_flat.cu",
@@ -312,7 +330,7 @@ def run_kernel_phase(torch, timer, rng):
                        shape=f"T={T},H=12,D=64,bs=16,MB=64",
                        max_abs_err=err, tol=ATT_TOL, ms=timer.ms(kern),
                        plain_ms=timer.ms(plain), bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
+                       bound_by=b_by, bound_f32_ms=b_f32, library_ms=None)
             log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
                 f"(tol {ATT_TOL}) kernel_ms={res['ms']:.4f} "
                 f"plain_ms={res['plain_ms']:.4f} bound_ms={b_ms:.4f} "
@@ -343,8 +361,9 @@ def run_kernel_phase(torch, timer, rng):
                 ref = plain()
                 err = float((out_k - ref).abs().max())
                 tol = WQ_REL_TOL * max(1.0, float(ref.abs().max()))
-                b_ms, b_by = bound(4 * T * K + K * N + 4 * N + 4 * T * N,
-                                   2 * T * K * N)
+                b_ms, b_by, b_f32 = bound(
+                    4 * T * K + K * N + 4 * N + 4 * T * N, 2 * T * K * N,
+                    WQ_PASSES)
                 name = qz.kernel_name(q.dtype)
                 res = dict(name=name, route="cuda",
                            source="mxnet_tpu_torch/csrc/wq_matmul.cu",
@@ -352,12 +371,13 @@ def run_kernel_phase(torch, timer, rng):
                            shape=f"T={T},K={K},N={N}", max_abs_err=err,
                            tol=tol, ms=timer.ms(kern),
                            plain_ms=timer.ms(plain), bound_ms=b_ms,
-                           bound_by=b_by, library_ms=timer.ms(library))
+                           bound_by=b_by, bound_f32_ms=b_f32,
+                           library_ms=timer.ms(library))
                 log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
                     f"(tol {tol:.3e}) kernel_ms={res['ms']:.4f} "
                     f"plain_ms={res['plain_ms']:.4f} "
                     f"library_ms={res['library_ms']:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by})")
+                    f"bound_ms={b_ms:.4f} ({b_by}) bound_f32_ms={b_f32:.4f}")
                 check(err <= tol, f"{name} {res['shape']} disagrees with "
                       f"its plain version: {err} > {tol}")
                 results.append(res)
@@ -445,20 +465,23 @@ def run_flash_kernel_phase(torch, timer, rng):
         cases = [
             ("flash_fwd", ":89", lambda: fa.flash_forward(**a, scale=scale),
              lambda: fa.flash_forward_reference(**a, scale=scale),
-             bound(bhtd * 4 + 4 * B * H * T + bias_bytes, 4 * D * pairs),
+             bound(bhtd * 4 + 4 * B * H * T + bias_bytes, 4 * D * pairs,
+                   FLASH_PASSES),
              timer.ms(lib_fwd)),
             ("flash_bwd_dkv", ":254",
              lambda: fa.flash_bwd_dkv(**bw, want_dbias=want_db),
              lambda: fa.flash_bwd_dkv_reference(**bw, want_dbias=want_db),
              bound(bhtd * 6 + 8 * B * H * T + bias_bytes
-                   + (4 * B * H * T if want_db else 0), 8 * D * pairs),
+                   + (4 * B * H * T if want_db else 0), 8 * D * pairs,
+                   FLASH_PASSES),
              lib_bwd_ms),
             ("flash_bwd_dq", ":292", lambda: fa.flash_bwd_dq(**bw),
              lambda: fa.flash_bwd_dq_reference(**bw),
-             bound(bhtd * 5 + 8 * B * H * T + bias_bytes, 6 * D * pairs),
+             bound(bhtd * 5 + 8 * B * H * T + bias_bytes, 6 * D * pairs,
+                   FLASH_PASSES),
              lib_bwd_ms),
         ]
-        for name, line, kern, plain, (b_ms, b_by), lib_ms in cases:
+        for name, line, kern, plain, (b_ms, b_by, b_f32), lib_ms in cases:
             err = max(e[0] for e in errs[name])
             rel = max(e[1] for e in errs[name])
             res = dict(name=name, route="cuda", source=src,
@@ -466,11 +489,12 @@ def run_flash_kernel_phase(torch, timer, rng):
                        shape=f"B={B},H={H},T={T},D={D},{label}",
                        max_abs_err=err, tol=FLASH_REL_TOL, ms=timer.ms(kern),
                        plain_ms=timer.ms(plain), bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms)
+                       bound_by=b_by, bound_f32_ms=b_f32, library_ms=lib_ms)
             log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
                 f"(relative {rel:.3e}, tol {FLASH_REL_TOL}) "
                 f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+                f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"bound_f32_ms={b_f32:.4f}")
             check(rel <= FLASH_REL_TOL, f"{name} {res['shape']} disagrees "
                   f"with its plain twin: {rel} > {FLASH_REL_TOL}")
             results.append(res)
@@ -545,7 +569,7 @@ def run_paged_kernel_phase(torch, timer, rng):
         out_k = kern()
         torch.cuda.synchronize()
         err = float((out_k - plain())[valid].abs().max())
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by, b_f32 = bound(nbytes, flops)
         shape = (f"S={S}," + ("" if Q is None else f"Q={Q},")
                  + "H=12,D=64,bs=16,MB=64")
         res = dict(name=name, route="cuda",
@@ -553,7 +577,8 @@ def run_paged_kernel_phase(torch, timer, rng):
                    replaces="mxnet_tpu/ops/ragged_attention.py" + line,
                    shape=shape, max_abs_err=err, tol=ATT_TOL,
                    ms=timer.ms(kern), plain_ms=timer.ms(plain),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
+                   library_ms=None)
         log(f"kernel {name} {shape}: max_abs_err={err:.3e} (tol {ATT_TOL}) "
             f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
             f"library: none bound_ms={b_ms:.4f} ({b_by})")
@@ -1023,14 +1048,14 @@ def run_op_phase(torch, timer, rng, decoded):
         op = getattr(nd, names[k])
         want = plain[k](*args)
         rel = rel_err(got_rtc[k], want)
-        b_ms, b_by = bound(nbytes, 0)
+        b_ms, b_by, b_f32 = bound(nbytes, 0)
         res = dict(name=f"rtc.{names[k]}", route="cuda",
                    source="chip_smoke.py",
                    replaces="mxnet_tpu/rtc.py:76",
                    shape=f"{RTC_N}x{RTC_N} f32", max_abs_err=rel[0],
                    tol=RTC_REL_TOL, ms=timer.ms(lambda: op(*args)),
                    plain_ms=timer.ms(lambda: plain[k](*args)),
-                   bound_ms=b_ms, bound_by=b_by,
+                   bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
                    library_ms=timer.ms(lib_fn))
         log(f"kernel {res['name']} {res['shape']}: max_abs_err="
             f"{rel[0]:.3e} (relative {rel[1]:.3e}, tol {RTC_REL_TOL}) "

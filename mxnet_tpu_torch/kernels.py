@@ -47,8 +47,8 @@ SOURCES = {
         "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
     },
     "wq_matmul": {
-        "mxt_wq_matmul_int8": [_P] * 5 + [_I] * 4 + [_P],
-        "mxt_wq_matmul_fp8": [_P] * 5 + [_I] * 4 + [_P],
+        "mxt_wq_matmul_int8": [_P] * 4 + [_I] * 7 + [_P],
+        "mxt_wq_matmul_fp8": [_P] * 4 + [_I] * 7 + [_P],
     },
     "flash_attention": {
         "mxt_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_F, _P],

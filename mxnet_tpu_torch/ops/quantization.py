@@ -17,7 +17,7 @@ import torch
 from .. import kernels
 
 __all__ = ["quantized_matmul", "quantized_matmul_reference",
-           "kernel_name", "k_splits"]
+           "kernel_name", "wq_plan"]
 
 # weight dtype -> (C entry point, launch-counter name)
 _KERNELS = {torch.int8: ("mxt_wq_matmul_int8", "wq_matmul.int8"),
@@ -29,21 +29,37 @@ def kernel_name(weight_dtype):
     return _KERNELS[weight_dtype][1]
 
 
-# CTAs one launch should put on the card's 132 SMs, and the shallowest K
-# slice worth its own CTA
+# CTAs one launch should put on the card's 132 SMs, the shallowest K
+# slice worth its own CTA, the kernel's K step and its largest cluster
+# (the portable size)
 _TARGET_CTAS = 264
-_MIN_K_SLICE = 128
+_MIN_K_SLICE = 64
+_K_STEP = 32
+_MAX_CLUSTER = 8
+_SMS = 132
 
 
-def k_splits(T, K, N):
-    """How many K slices the kernel splits a (T, K) x (K, N) product
-    into: enough that the launch has about ``_TARGET_CTAS`` CTAs (64
-    columns by 16 rows per tile when T <= 16, else 64 rows), no slice
-    shallower than ``_MIN_K_SLICE``, and no slice empty."""
-    tiles = -(-N // 64) * -(-T // (16 if T <= 16 else 64))
-    want = max(1, min(K // _MIN_K_SLICE, -(-_TARGET_CTAS // tiles)))
-    depth = -(-(-(-K // want)) // 16) * 16     # whole 16-deep steps
-    return -(-K // depth)
+def wq_plan(T, K, N):
+    """The kernel's launch plan for a (T, K) x (K, N) product: ``(m_tile,
+    n_tile, cluster, k_per_slice)``. The M tile is 16 rows when T <= 16,
+    else 64. The N tile is 64 columns, or 256 at T <= 16 when N gives
+    every SM a 256-column tile (the LM head): a CTA then reads 256
+    contiguous bytes of each weight row. Where the tiles are too few
+    for about ``_TARGET_CTAS`` CTAs, the CTAs of one tile split K into
+    ``cluster`` slices (a power of two <= 8, one thread-block cluster),
+    each a whole number of ``_K_STEP``-deep steps, none shallower than
+    ``_MIN_K_SLICE`` unless K is, and none empty."""
+    m_tile = 16 if T <= 16 else 64
+    n_tile = 256 if m_tile == 16 and N >= 256 * _SMS else 64
+    tiles = -(-N // n_tile) * -(-T // m_tile)
+    want = max(1, min(_MAX_CLUSTER, K // _MIN_K_SLICE,
+                      -(-_TARGET_CTAS // tiles)))
+    cluster = 1 << (want.bit_length() - 1)
+    while True:
+        depth = -(-(-(-K // cluster)) // _K_STEP) * _K_STEP
+        if cluster == 1 or (cluster - 1) * depth < K:
+            return m_tile, n_tile, cluster, depth
+        cluster //= 2
 
 
 def quantized_matmul_reference(x, qw, w_scale):
@@ -63,17 +79,18 @@ def _wq_cuda(x, qw, w_scale):
     kernels.require(x, "x", torch.float32, (T, K), dev)
     kernels.require(qw, "qw", qw.dtype, (K, N), dev)
     kernels.require(w_scale, "w_scale", torch.float32, (N,), dev)
+    if qw.data_ptr() % 16:
+        raise ValueError("qw must start on a 16-byte boundary")
     out = torch.empty((T, N), dtype=torch.float32, device=dev)
     if T == 0 or N == 0:
         return out
-    splits = k_splits(T, K, N)
-    scratch = (torch.empty((splits, T, N), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+    if K == 0:
+        return out.zero_()
+    m_tile, n_tile, cluster, depth = wq_plan(T, K, N)
     lib = kernels.library("wq_matmul")
     rc = getattr(lib, fn)(x.data_ptr(), qw.data_ptr(), w_scale.data_ptr(),
-                          out.data_ptr(),
-                          None if scratch is None else scratch.data_ptr(),
-                          T, K, N, splits, kernels.stream_handle(dev))
+                          out.data_ptr(), T, K, N, m_tile, n_tile, cluster,
+                          depth, kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out

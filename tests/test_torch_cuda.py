@@ -10,10 +10,12 @@ imports neither ``jax`` nor ``mxnet_tpu``, so it runs where the port runs:
 Tolerances: ``ATT_TOL = 2e-5`` for flat attention (f32 online softmax and
 dot products summed in another order; outputs are O(1)); ``WQ_TOL =
 1e-5`` of the output's magnitude for the quantized matmul (one f32 sum of
-K terms in another order, split-K partials summed in split order);
+K terms in another order, the cluster's K-slice partials summed in slice
+order, x split into two TF32 parts: ~2^-22 relative per product);
 ``FLASH_TOL = 2e-5`` of the output's magnitude for the flash attention
-kernels (f32 sums over up to 200 keys or queries in another order,
-online softmax against one softmax); ``FLASH_GRAD_TOL = 1e-4`` for the
+kernels (f32 sums over up to 256 keys or queries in another order,
+online softmax against one softmax; the forward's split-TF32 products
+drop only lo*lo, ~2^-22 of each product); ``FLASH_GRAD_TOL = 1e-4`` for the
 autograd Function against autograd through ``attention_reference``
 (the reference differentiates softmax itself instead of working from
 the saved logsumexp, which reorders more sums). The chunk and decode
@@ -105,21 +107,60 @@ def test_flat_attention_kernel_garbage_invisible(cuda):
     assert torch.equal(got[:7], clean[:7])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "fp8"])
-@pytest.mark.parametrize("T,K,N", [(8, 768, 50257), (8, 3072, 768),
-                                   (23, 768, 3072), (128, 3072, 768)])
-def test_wq_matmul_kernel_matches_plain(cuda, dtype, T, K, N):
+def _wq_case(dev, dtype, T, K, N, x_range=None):
     rng = np.random.RandomState(7)
     q, s = tquant.quantize_leaf(
         rng.randn(K, N).astype(np.float32) / np.sqrt(K), dtype)
-    x = torch.from_numpy(rng.randn(T, K).astype(np.float32)).to(cuda)
-    q, s = q.to(cuda), s.to(cuda)
+    x = rng.randn(T, K)
+    if x_range is not None:       # column k scaled by lo .. hi, log-spaced
+        x *= np.logspace(np.log10(x_range[0]), np.log10(x_range[1]), K)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev), q.to(dev),
+            s.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("T", [1, 8, 16, 17, 23, 38, 128])
+@pytest.mark.parametrize("K,N", [(768, 50257), (3072, 768), (768, 3072),
+                                 (768, 768), (203, 130)])
+def test_wq_matmul_kernel_matches_plain(cuda, dtype, T, K, N):
+    """T over the M-tile edge (16/17) and the engine's packed-length
+    ladder; (K, N) the model's four shapes and a ragged one, K and N
+    multiples of no tile (K = 203 leaves x's rows and N = 130 the weight
+    rows off 16-byte boundaries)."""
+    x, q, s = _wq_case(cuda, dtype, T, K, N)
+    name = tqz.kernel_name(q.dtype)
+    before = kernels.launch_counts().get(name, 0)
     got = tqz.quantized_matmul(x, q, s)
     torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
     want = tqz.quantized_matmul_reference(x, q, s)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) < WQ_TOL * scale
+
+
+def _tf32_hi(x):
+    """x rounded to TF32 (nearest, ties away), as cvt.rna.tf32.f32."""
+    b = x.view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("T,K,N", [(8, 3072, 768), (38, 768, 3072)])
+def test_wq_matmul_kernel_keeps_f32_accuracy_over_a_wide_range(
+        cuda, dtype, T, K, N):
+    """x's columns span 1e-3 .. 1e3: the kernel's error stays within
+    ``WQ_TOL``, where the same product with x rounded once to TF32 (a
+    kernel without the lo pass) does not."""
+    x, q, s = _wq_case(cuda, dtype, T, K, N, x_range=(1e-3, 1e3))
+    got = tqz.quantized_matmul(x, q, s)
+    torch.cuda.synchronize()
+    want = (x.double() @ q.double()) * s.double()
+    tol = WQ_TOL * max(1.0, float(want.abs().max()))
+    hi_only = (_tf32_hi(x).double() @ q.double()) * s.double()
+    assert float((hi_only - want).abs().max()) > tol
+    assert float((got.double() - want).abs().max()) < tol
 
 
 @pytest.mark.cuda
@@ -136,12 +177,18 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, s = tquant.quantize_leaf(np.eye(64, dtype=np.float32), "int8")
     with pytest.raises(ValueError, match="on cpu"):
         tqz.quantized_matmul(torch.ones(2, 64, device=cuda), q, s)
+    # rows of 65 bytes: the view from row 1 starts off a 16-byte boundary
+    q, s = tquant.quantize_leaf(np.ones((65, 65), np.float32), "int8")
+    with pytest.raises(ValueError, match="16-byte"):
+        tqz.quantized_matmul(torch.ones(2, 64, device=cuda),
+                             q.to(cuda)[1:], s.to(cuda))
 
 
-def _flash_inputs(dev, B, H, Tq, Tk, D, padding, seed=0):
+def _flash_inputs(dev, B, H, Tq, Tk, D, padding, seed=0, amp=1.0):
     g = torch.Generator().manual_seed(seed)
     q, dout = (torch.randn(B, H, Tq, D, generator=g) for _ in range(2))
     k, v = (torch.randn(B, H, Tk, D, generator=g) for _ in range(2))
+    q, k = q * amp, k * amp
     bias = None
     if padding:
         lens = torch.randint(1, Tk + 1, (B,), generator=g)
@@ -159,15 +206,23 @@ def _rel(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Tq,Tk,D,padding,causal", [
-    (2, 3, 64, 64, 64, False, False),
-    (2, 2, 100, 37, 64, True, True),      # ragged, Tq > Tk, one key tile
-    (1, 2, 130, 200, 32, True, False),    # three query and four key tiles
-    (2, 1, 17, 17, 128, False, True),
-    (1, 1, 5, 70, 16, True, False),
+@pytest.mark.parametrize("B,H,Tq,Tk,D,padding,causal,amp", [
+    (2, 3, 64, 64, 64, False, False, 1.0),
+    (2, 2, 100, 37, 64, True, True, 1.0),   # ragged, Tq > Tk, one key tile
+    (1, 2, 130, 200, 32, True, False, 1.0),  # three query, four key tiles
+    (2, 1, 17, 17, 128, False, True, 1.0),
+    (1, 1, 5, 70, 16, True, False, 1.0),
+    # q and k scaled so that scores reach +-30: the lo passes and the
+    # online rescale carry weight
+    (2, 2, 192, 256, 64, True, False, 2.8),
 ])
-def test_flash_kernels_match_plain(cuda, B, H, Tq, Tk, D, padding, causal):
-    q, k, v, bias, dout = _flash_inputs(cuda, B, H, Tq, Tk, D, padding)
+def test_flash_kernels_match_plain(cuda, B, H, Tq, Tk, D, padding, causal,
+                                   amp):
+    q, k, v, bias, dout = _flash_inputs(cuda, B, H, Tq, Tk, D, padding,
+                                        amp=amp)
+    if amp != 1.0:
+        scores = (q @ k.transpose(-1, -2)) * D ** -0.5
+        assert float(scores.abs().max()) >= 30.0
     scale = D ** -0.5
     before = kernels.launch_counts()
     out, lse = tfa.flash_forward(q, k, v, bias, causal, scale)

@@ -169,16 +169,23 @@ def test_cpu_wrappers_never_launch_a_kernel():
     assert kernels.build_count() == builds
 
 
-@pytest.mark.parametrize("T,K,N", [(8, 768, 768), (8, 3072, 768),
-                                   (8, 768, 50257), (128, 3072, 768),
-                                   (5, 100, 7), (1, 16, 3)])
+@pytest.mark.parametrize("T,K,N", [
+    (8, 768, 768), (8, 3072, 768), (8, 768, 50257), (128, 3072, 768),
+    (5, 100, 7), (1, 16, 3),
+    # the engine's packed-length ladder (8 sequences, chunk 16)
+    (23, 768, 3072), (38, 3072, 768), (128, 768, 50257), (8, 768, 3072),
+    (16, 768, 768), (17, 200, 130)])
 def test_wq_k_splits_cover_k_in_whole_steps(T, K, N):
-    """The split-K plan the kernel runs: every K slice is a whole number
-    of 16-deep steps, none is empty, together they cover K exactly as
-    the kernel slices it, and no launch is split below 128-deep slices
-    unless K itself is shallower."""
-    splits = tqz.k_splits(T, K, N)
-    per = -(-(-(-K // splits)) // 16) * 16     # the kernel's slice depth
-    assert splits >= 1 and per % 16 == 0
-    assert (splits - 1) * per < K <= splits * per
-    assert splits == 1 or K // splits >= 128 - 16
+    """The launch plan the kernel runs: the cluster's K slices are whole
+    32-deep steps, none is empty, together they cover K exactly as the
+    kernel slices it, the cluster is a power of two of at most 8 CTAs,
+    no launch is split below 64-deep slices unless K itself is
+    shallower, the M tile is 16 rows exactly when T <= 16, and the
+    256-column N tile is taken only there, for the LM head's width."""
+    m_tile, n_tile, cluster, depth = tqz.wq_plan(T, K, N)
+    assert m_tile == (16 if T <= 16 else 64)
+    assert n_tile == (256 if T <= 16 and N == 50257 else 64)
+    assert cluster in (1, 2, 4, 8)
+    assert depth > 0 and depth % 32 == 0
+    assert (cluster - 1) * depth < K <= cluster * depth
+    assert cluster == 1 or K // cluster >= 64 - 32
