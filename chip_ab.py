@@ -7,6 +7,8 @@ the other tree unpacked under a git-ignored directory:
     git archive <rev> | tar -x -C _checkout/parent
     python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
         --order ABBA --phases kernel,flash --profile
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases flash --profile-bert
 
 Each turn is its own process, started from that tree's root: it builds
 the tree's kernels and runs the named kernel phases of the tree's
@@ -17,9 +19,13 @@ the same inputs. ``--order`` lists the turns by tree letter (A the first
 ``--tree``). With ``--profile``, each tree then serves its int8 and fp8
 phases (``run_quant_phase``) once, and the device time of the quantized
 matmul's kernels in the profiled pass is printed beside the pass's
-device time. Prints the card line, one line per (kernel, shape) with
-every turn's ms, the profile lines and one JSON line of it all; ``--log
-FILE`` keeps the turns' full output. Exits non-zero if a turn fails.
+device time. With ``--profile-bert``, each tree then trains BERT-base
+(``run_bert_phase``) in the turns of ``--order``, and its profiled pass
+gives device ms per step, the flash kernels' device ms per step
+(forward; dK/dV and dQ) and the device's idle share. Prints the card
+line, one line per (kernel, shape) with every turn's ms, the profile
+lines and one JSON line of it all; ``--log FILE`` keeps the turns' full
+output. Exits non-zero if a turn fails.
 """
 import argparse
 import json
@@ -49,24 +55,33 @@ print("AB_ROWS " + json.dumps(
     [{k: r.get(k) for k in ("name", "shape", "ms", "plain_ms",
                             "library_ms", "max_abs_err")} for r in rows]),
     flush=True)
-if sys.argv[2] == "1":
-    # the quantized matmul's kernels, in either tree's design
-    K3 = ("wq_mma_kernel", "wq_matmul_kernel", "split_sum_kernel")
+# device time of each group of kernels (by name, in either tree's design)
+GROUPS = {"quant": {"K3": ("wq_mma_kernel", "wq_matmul_kernel",
+                           "split_sum_kernel")},
+          "bert": {"flash_fwd": ("flash_fwd_kernel",),
+                   "flash_bwd_dkv": ("flash_dkv_kernel",),
+                   "flash_bwd_dq": ("flash_dq_kernel",)}}
+profile = sys.argv[2]
+if profile:
     report = chip_smoke.report_profile
 
-    def report_k3(prof, wall, steps):
+    def report_groups(prof, wall, steps):
         rows = [e for e in prof.key_averages()
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
                 and getattr(e, "self_device_time_total", 0) > 0]
         busy = sum(e.self_device_time_total for e in rows)
-        k3 = [e for e in rows if any(n in e.key for n in K3)]
-        k3_us = sum(e.self_device_time_total for e in k3)
+        groups = {}
+        for label, names in GROUPS[profile].items():
+            ev = [e for e in rows if any(n in e.key for n in names)]
+            groups[label] = dict(
+                ms=sum(e.self_device_time_total for e in ev) / 1e3,
+                launches=sum(e.count for e in ev))
         print("AB_PROFILE " + json.dumps(dict(
             steps=steps, wall_s=wall, busy_ms=busy / 1e3,
-            k3_ms=k3_us / 1e3, k3_launches=sum(e.count for e in k3),
-            k3_share=k3_us / busy if busy else None)), flush=True)
+            idle=1 - busy / (wall * 1e6), groups=groups)), flush=True)
         return report(prof, wall, steps)
-    chip_smoke.report_profile = report_k3
+    chip_smoke.report_profile = report_groups
+if profile == "quant":
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     np_params = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL
                             ).init_params_numpy(0)
@@ -74,13 +89,17 @@ if sys.argv[2] == "1":
         print(f"AB_DTYPE {dtype}", flush=True)
         chip_smoke.run_quant_phase(torch, np.random.RandomState(1),
                                    np_params, kernels, dtype)
+elif profile == "bert":
+    print("AB_DTYPE bert", flush=True)
+    chip_smoke.run_bert_phase(torch, np.random.RandomState(1), kernels)
 """
 
 
 def turn(root, phases, profile, log):
-    proc = subprocess.run([sys.executable, "-c", CHILD, phases,
-                           "1" if profile else "0"], cwd=root,
-                          capture_output=True, text=True)
+    """One process in ``root``: the kernel ``phases``, then the profiled
+    pass named by ``profile`` ("", "quant" or "bert")."""
+    proc = subprocess.run([sys.executable, "-c", CHILD, phases, profile],
+                          cwd=root, capture_output=True, text=True)
     log.write(f"===== {root} phases={phases} profile={profile} "
               f"rc={proc.returncode}\n{proc.stdout}\n{proc.stderr}\n")
     log.flush()
@@ -104,7 +123,10 @@ def main():
                     help="label=path, in letter order A, B, ...")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--phases", default="kernel,flash")
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="K3's share of the int8/fp8 serving passes")
+    ap.add_argument("--profile-bert", action="store_true",
+                    help="the flash kernels in BERT-base training's pass")
     ap.add_argument("--log", help="file for the turns' full output")
     args = ap.parse_args()
     trees = [t.split("=", 1) for t in args.tree]
@@ -120,7 +142,7 @@ def main():
     with open(args.log or os.devnull, "w") as log:
         for letter in args.order:
             label, root = trees[ord(letter) - ord("A")]
-            rows, _ = turn(os.path.abspath(root), args.phases, False, log)
+            rows, _ = turn(os.path.abspath(root), args.phases, "", log)
             for r in rows:
                 key = (r["name"], r["shape"])
                 table.setdefault(key, []).append(
@@ -128,7 +150,12 @@ def main():
         profiles = []
         if args.profile:
             for label, root in trees:
-                _, prof = turn(os.path.abspath(root), "", True, log)
+                _, prof = turn(os.path.abspath(root), "", "quant", log)
+                profiles += [dict(p, tree=label) for p in prof]
+        if args.profile_bert:
+            for letter in args.order:
+                label, root = trees[ord(letter) - ord("A")]
+                _, prof = turn(os.path.abspath(root), "", "bert", log)
                 profiles += [dict(p, tree=label) for p in prof]
     for (name, shape), cells in table.items():
         turns = " ".join(f"{label}={ms:.4f}" for label, ms, _, _ in cells)
@@ -138,10 +165,14 @@ def main():
         print(f"ab {name} {shape}: {turns} (ms, in turn order); "
               f"library {lib_s}; max_abs_err {errs:.3e}", flush=True)
     for p in profiles:
-        print(f"ab profile {p['tree']} {p['dtype']}: {p['steps']} steps, "
-              f"device busy {p['busy_ms']:.2f} ms, K3 {p['k3_ms']:.2f} ms "
-              f"in {p['k3_launches']} launches = {p['k3_share']:.3f} of "
-              f"device time", flush=True)
+        n = p["steps"]
+        parts = ", ".join(
+            f"{k} {g['ms']:.2f} ms in {g['launches']} launches "
+            f"({g['ms'] / n:.3f} ms/step, {g['ms'] / p['busy_ms']:.3f} of "
+            f"device time)" for k, g in p["groups"].items())
+        print(f"ab profile {p['tree']} {p['dtype']}: {n} steps, device busy "
+              f"{p['busy_ms']:.2f} ms ({p['busy_ms'] / n:.2f} ms/step), idle "
+              f"{p['idle']:.3f}; {parts}", flush=True)
     print(json.dumps({"ab": [dict(name=n, shape=s, turns=[
         dict(tree=label, ms=ms) for label, ms, _, _ in c])
         for (n, s), c in table.items()], "profiles": profiles}))

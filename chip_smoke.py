@@ -16,8 +16,10 @@ Phases, one line of output each (or more), in order:
    exists, one library call's time (CUDA events, L2 flushed between
    launches), and the least time the card could take; the flash
    attention kernels at BERT-base shapes without a mask, with the
-   padding mask and causal; the chunk (Q=16 and Q=1) and decode (S=8
-   and S=64) paged attention kernels at the decode phase's shapes;
+   padding mask and causal, and for each mask the two backward kernels'
+   sum beside the library's backward (one call for dq, dk and dv); the
+   chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged attention
+   kernels at the decode phase's shapes;
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -66,6 +68,7 @@ without either it exits 2 and prints no result.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -498,6 +501,13 @@ def run_flash_kernel_phase(torch, timer, rng):
             check(rel <= FLASH_REL_TOL, f"{name} {res['shape']} disagrees "
                   f"with its plain twin: {rel} > {FLASH_REL_TOL}")
             results.append(res)
+        # the library's backward computes dq, dk and dv in one call: set
+        # it beside the sum of the two backward kernels
+        bwd_ms = sum(r["ms"] for r in results[-2:])
+        log(f"kernel flash_bwd_dkv + flash_bwd_dq B={B},H={H},T={T},D={D},"
+            f"{label}: kernel_ms={bwd_ms:.4f} library_ms={lib_bwd_ms:.4f} "
+            f"(the library's backward, dq, dk and dv in one call): "
+            f"{bwd_ms / lib_bwd_ms:.3f}x the library")
         del lib_out
     return results
 
@@ -1247,6 +1257,43 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
     return launches
 
 
+def kernel_name(mangled):
+    """``flash_dkv_kernel<64>`` for a mangled ``..16flash_dkv_kernelILi64E..``
+    (a length-prefixed name ending in ``_kernel`` and its integer or bool
+    template arguments); the mangled name where none is found."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            end = m.end() + int(mangled[i:m.end()])
+            name = mangled[m.end():end]
+            if name.endswith("_kernel") and name.isidentifier():
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                if args:
+                    name += "<" + ",".join(re.findall(
+                        r"L[ib](\d+)E", args.group(1))) + ">"
+                return name
+    return mangled
+
+
+def ptxas_usage(text):
+    """``(kernel, registers, (spill store bytes, spill load bytes))`` of
+    each kernel in ``nvcc -Xptxas -v`` output (:func:`kernel_name`)."""
+    out, kernel, spill = [], None, ("?", "?")
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel, spill = None, ("?", "?")
+    return out
+
+
 def main():
     try:
         import torch
@@ -1277,9 +1324,9 @@ def main():
     log(f"build: {sorted(kernels.SOURCES)} in "
         f"{time.monotonic() - t0:.2f}s")
     for name, text in sorted(kernels.build_logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_usage(text):
+            log(f"build: {name}: {kernel}: {regs} registers, spill "
+                f"stores/loads {spill[0]}/{spill[1]} bytes")
     rng = np.random.RandomState(0)
     timer = Timer(torch)
     # 3. kernels

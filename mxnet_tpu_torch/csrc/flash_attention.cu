@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernels in mxnet_tpu/ops/flash_attention.py:
 //   K6  _fwd_kernel   (flash_fwd_kernel: out and logsumexp)
-//   K7  _dkv_kernel   (flash_dkv_kernel: dK, dV and the per-head bias
+//   K7a _dkv_kernel   (flash_dkv_kernel: dK, dV and the per-head bias
 //                      gradient of one key tile)
-//       _dq_kernel    (flash_dq_kernel: dQ of one query tile)
+//   K7b _dq_kernel    (flash_dq_kernel: dQ of one query tile)
 //
 // What they compute (q/k/v/out/dout [B*H, T, D] row-major, f32):
 //   s   = q k^T * scale + bias[b, key]          (bias optional, (B, Tk))
@@ -22,49 +22,48 @@
 // forward, p = 0 in the backward) and need no padded copy.
 //
 // What bounds them on the card: operations. At BERT-base shapes (B=8,
-// H=12, T=512, D=64) the forward does ~6.4 GFLOP and the backward ~16
-// GFLOP (its two kernels recompute the scores twice: ~22 GFLOP in all)
-// against ~50 MB of q/k/v/out (~0.015 ms of bytes).
+// H=12, T=512, D=64) the forward does ~6.4 GFLOP, the dK/dV kernel ~12.9
+// (four products per (query, key) pair: S^T, dV, dP^T, dK) and the dQ
+// kernel ~9.7 (S, dP, dQ), against ~50-75 MB of q/k/v/dout/out (~0.02 ms
+// of bytes).
 //
-// K6 (flash_fwd_kernel) runs on the tensor cores at f32 accuracy:
+// All three run every product on the tensor cores at f32 accuracy:
 // split-TF32 mma.sync m16n8k8. Each f32 operand is split into hi =
 // rna_tf32(x) and lo = rna_tf32(x - hi) (11 significant bits each, x =
-// hi + lo to ~2^-22 relative), and each tile
-// product is three MMAs, hi*hi + hi*lo + lo*hi (warp_mma3): only lo*lo,
-// ~2^-22 of each product, is dropped, so the result keeps f32 numerics
-// (the same as the TPU kernel's Precision.HIGHEST, a multi-pass emulation
-// on its matrix unit) at 3 passes of the 495 TFLOP/s TF32 rate: ~0.039 ms
-// at BERT-base shapes against ~0.096 ms for f32 on the CUDA cores. The
-// tensor cores truncate each sum into their accumulator, so the large
-// and small terms go to separate accumulators, started afresh for each
-// key tile and folded into the running sums by f32 adds: no accumulator
-// chains more than D/8 (S) or 8 (P V) large MMAs. One CTA of 4 warps per
-// (64-query tile, b*h), 768 CTAs at BERT-base shapes; a warp owns 16
-// query rows (read from the shared Q tile and split at each use) and
-// carries its S and O accumulators in registers over a 2-stage cp.async
-// ring of K and V tiles; the online softmax works on the S fragments
-// (row max and sum over the quad that shares a row), and P passes to the
-// A layout of P V in registers by permuting keys.
+// hi + lo to ~2^-22 relative), and each tile product is three MMAs, hi*hi
+// + hi*lo + lo*hi (warp_mma3): only lo*lo, ~2^-22 of each product, is
+// dropped, so the result keeps f32 numerics (the same as the TPU kernel's
+// Precision.HIGHEST, a multi-pass emulation on its matrix unit) at 3
+// passes of the 495 TFLOP/s TF32 rate. The tensor cores truncate each sum
+// into their accumulator, so the large and small terms go to separate
+// accumulators, started afresh for each tile of the walked operand and
+// folded into the running sums by f32 adds: no accumulator chains more
+// than D/8 (score products) or 8 (output products) large MMAs.
 //
-// K7 (dK/dV and dQ) still runs every product as a 64x64 (or 64xD) tile
-// product out of shared memory on the CUDA cores (f32, 67 TFLOP/s). A
-// CTA has 256 threads in a 16x16 grid; thread (ty, tx) owns rows
-// 4ty..4ty+3 of every tile and columns 4tx..4tx+3 of a 64x64 score tile
-// (or D/16 columns of a 64xD accumulator), so each step of the inner
-// loop reads one float4 of each operand from shared memory for 16 (or
-// 4*D/16) fused multiply-adds. Operands are staged "k-major" (the
-// contracted index outermost), so both reads are conflict-free float4s;
-// q/k/v rows are loaded from device memory as float4s, either as they
-// lie or transposed into shared memory. The 16 threads that share a row
-// are one half-warp, so a row sum is four shuffles.
-//
-// The TPU kernels walk the sequential innermost grid axis with carried
-// scratch; here a loop inside the CTA walks the other operand's tiles and
-// carries the accumulators in registers: the forward and dQ CTAs own one
-// query tile and loop over key tiles, the dK/dV CTA owns one key tile and
-// loops over query tiles. Each output element is written by one thread,
-// once, with no atomics, so the results are deterministic. A grid of
-// (T/64) x (B*H) CTAs (768 at BERT-base shapes) fills the 132 SMs.
+// One CTA of 4 warps per (64-row tile, b*h); warp w owns rows
+// 16w..16w+15 of the CTA's tile, the A operand of its products, and walks
+// the other operand's tiles through a 2-stage cp.async ring, carrying
+// its accumulators in registers (the TPU kernels walk the sequential
+// innermost grid axis with carried scratch instead):
+//   forward and dQ: a query tile; Q (and dO) stay in shared memory, the
+//     ring carries K and V; dQ walks the key tiles up to the diagonal
+//     when causal, the latest query tiles (the longest walks) first.
+//   dK/dV: a key tile; K and V stay in shared memory, the ring carries
+//     Q, dO and the tile's lse and delta; it walks the query tiles from
+//     the diagonal on when causal, the first key tiles (the longest
+//     walks) first. Scores are transposed (rows = keys), as in the TPU
+//     kernel, so the per-key bias and bias gradient are per row, in
+//     registers, and lse/delta per column, from the ring.
+// Every row is padded to D + 4 floats, so both fragment reads of a tile,
+// as it lies ("B = rows": S = A B^T) and across ("B = columns": O = P B),
+// hit 32 distinct banks: no tile is ever transposed in shared memory. P
+// and dS never leave registers: they pass from the C layout of a score
+// product to the A layout of the next product by permuting the
+// contracted index (out_mma). The splits cost about as many instructions
+// as the MMAs they feed (each warp splits the whole walked tile), which
+// with the softmax's expf keeps the kernels well above their bound.
+// Each output element is written by one thread, once, with no atomics,
+// so the results are deterministic.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,123 +72,43 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // _NEG_INF of ops/flash_attention.py
 constexpr int kTile = 64;           // query and key tile
-constexpr int kThreads = 256;       // 16 x 16 threads (K7)
+constexpr int kThreads = 128;       // 4 warps, 16 rows of the tile each
 
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// N consecutive floats from shared memory (N*4-byte aligned)
-template <int N>
-__device__ __forceinline__ void lds(float (&r)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const float4 x = reinterpret_cast<const float4*>(p)[i];
-      r[4 * i] = x.x;
-      r[4 * i + 1] = x.y;
-      r[4 * i + 2] = x.z;
-      r[4 * i + 3] = x.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    r[0] = x.x;
-    r[1] = x.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) r[i] = p[i];
-  }
-}
-
-// c[i][j] += sum_kk at[kk][4ty + i] * b[kk][NC*tx + j], kk < K: a 64 x
-// (16*NC) tile product with both operands k-major in shared memory
-template <int NC, int K, int LDB>
-__device__ __forceinline__ void tile_mma(float (&c)[4][NC],
-                                         const float* __restrict__ at,
-                                         const float* __restrict__ b, int ty,
-                                         int tx) {
-#pragma unroll 8
-  for (int kk = 0; kk < K; ++kk) {
-    float a[4], bv[NC];
-    lds<4>(a, at + kk * kTile + 4 * ty);
-    lds<NC>(bv, b + kk * LDB + NC * tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) c[i][j] = fmaf(a[i], bv[j], c[i][j]);
-  }
-}
-
-// dst[r][c] = src[row0 + r][c] (rows past nrows read as zero): a 64 x D
-// tile as it lies
+// A padded 64 x D tile in shared memory, and each kernel's shared bytes:
+// forward: Q + 2 x (K, V); dK/dV: K, V + 2 x (Q, dO, lse, delta); dQ: Q,
+// dO + 2 x (K, V)
 template <int D>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int nrows) {
-  constexpr int V = D / 4;
-  for (int f = threadIdx.x; f < kTile * V; f += kThreads) {
-    const int r = f / V, c = f % V;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows)
-      x = reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(row0 + r) * D)[c];
-    reinterpret_cast<float4*>(dst + r * D)[c] = x;
-  }
-}
-
-// dst[c][r] = src[row0 + r][c]: a 64 x D tile transposed to D x 64, so
-// the head dimension is the contracted (outer) index of a score product.
-// Consecutive threads take consecutive rows, so the shared-memory stores
-// are conflict-free.
-template <int D>
-__device__ __forceinline__ void load_rows_t(float* dst,
-                                            const float* __restrict__ src,
-                                            int row0, int nrows) {
-  constexpr int V = D / 4;
-  for (int f = threadIdx.x; f < kTile * V; f += kThreads) {
-    const int r = f % kTile, c = f / kTile;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows)
-      x = reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(row0 + r) * D)[c];
-    dst[(4 * c) * kTile + r] = x.x;
-    dst[(4 * c + 1) * kTile + r] = x.y;
-    dst[(4 * c + 2) * kTile + r] = x.z;
-    dst[(4 * c + 3) * kTile + r] = x.w;
-  }
-}
-
-// stores a thread's 4x4 score block transposed: dst[col][row]
-__device__ __forceinline__ void store_t(float* dst, const float (&s)[4][4],
-                                        int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(dst + (4 * tx + j) * kTile + 4 * ty) =
-        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-}
-
-// ------------------------------------------------------------- forward --
-// K6 on the tensor cores at f32 accuracy. One CTA of 4 warps per (64-query
-// tile, b*h); warp w owns query rows 16w..16w+15 and walks the key tiles
-// with its S (16 x 64) and O (16 x D) accumulators in registers. Shared:
-// the Q tile, then a 2-stage cp.async ring of (K tile, V tile), every row
-// padded to D + 4 floats so that each fragment read below hits 32
-// distinct banks.
-constexpr int kFwdThreads = 128;
-
-template <int D>
-struct FwdPlan {
+struct Tiles {
   static constexpr int kLd = D + 4;
-  static constexpr int kTileFloats = kTile * kLd;
-  static constexpr size_t kSmem = sizeof(float) * 5 * kTileFloats;
+  static constexpr int kFloats = kTile * kLd;
+  static constexpr int kDkvStage = 2 * kFloats + 2 * kTile;
+  static constexpr size_t kFwdSmem = sizeof(float) * 5 * kFloats;
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (2 * kFloats + 2 * kDkvStage);
+  static constexpr size_t kDqSmem = sizeof(float) * 6 * kFloats;
 };
+
+// Output products (P V, P^T dO, dS^T Q, dS K) run in this many parts of
+// D / parts columns, each from its own fresh accumulators (warp_mma3): at
+// D = 128 whole products would leave too few registers for the running
+// sums (dK and dV alone are 128 a thread). Score products run whole: at
+// D = 64 the dK/dV kernel then takes all 255 registers a thread may have
+// with no spill, where halving its score products made ptxas spill.
+template <int D>
+constexpr int kOutParts = D >= 128 ? 4 : 1;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// one float; rows of lse and delta need no 16-byte alignment
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(d), "l"(src), "r"(bytes) : "memory");
 }
 
@@ -229,48 +148,60 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The split-TF32 tile product of one warp: A (16 x 8KS) * B (8KS x 8NT)
-// at f32 accuracy, as NT C fragments (a 16 x 8NT tile). With a = ah + al
-// and b = bh + bl split to TF32, a*b = ah*bh + ah*bl + al*bh + al*bl; the
-// last term is ~2^-22 of the product and is dropped. The tensor cores
-// truncate each sum into their f32 accumulator, and that error grows
-// with the number of MMAs chained into one accumulator and with its
-// magnitude, so the large terms (ah*bh, KS MMAs per fragment) go to
-// `big` and the small ones (ah*bl + al*bh, ~2^-11 of them) to `small`;
-// the caller adds the two with f32 round-to-nearest adds, and starts
-// them from zero often enough (per key tile) to keep the chains short.
-// Each pass runs over all NT accumulators before the next (independent
-// MMAs back to back). `a(ks, ah, al)` gives k-chunk ks's split A
-// fragment; `b(ks, nt, bh, bl)` the split B fragment of k-chunk ks,
-// n-chunk nt.
-template <int KS, int NT, typename AFrag, typename BFrag>
-__device__ __forceinline__ void warp_mma3(float (&big)[NT][4],
-                                          float (&small)[NT][4], AFrag a,
-                                          BFrag b) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
-    a(ks, ah, al);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) b(ks, nt, bh[nt], bl[nt]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      mma_tf32(small[nt], al, bh[nt][0], bh[nt][1]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      mma_tf32(small[nt], ah, bl[nt][0], bl[nt][1]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      mma_tf32(big[nt], ah, bh[nt][0], bh[nt][1]);
-  }
-}
-
 template <int NT>
 __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
+}
+
+// The split-TF32 tile product of one warp: A (16 x 8KS) * B (8KS x 8NT)
+// at f32 accuracy, a 16 x 8NT tile of C fragments. With a = ah + al and b
+// = bh + bl split to TF32, a*b = ah*bh + ah*bl + al*bh + al*bl; the last
+// term is ~2^-22 of the product and is dropped. The tensor cores
+// truncate each sum into their f32 accumulator, and that error grows
+// with the number of MMAs chained into one accumulator and with its
+// magnitude, so the large terms (ah*bh, KS MMAs per fragment) go to
+// `big` and the small ones (ah*bl + al*bh, ~2^-11 of them) to `small`,
+// both fresh for this product, and each element x = big + small (an f32
+// round-to-nearest add) of n-chunk j, C element i, goes to fold(j, i, x)
+// once: the caller folds it into its running sums. The n-chunks run in
+// PARTS parts, each with its own accumulators. Each pass runs over a
+// part's accumulators before the next (independent MMAs back to back).
+// `a(ks, ah, al)` gives k-chunk ks's split A fragment; `b(ks, nt, bh,
+// bl)` the split B fragment of k-chunk ks, n-chunk nt.
+template <int KS, int NT, int PARTS, typename AFrag, typename BFrag,
+          typename Fold>
+__device__ __forceinline__ void warp_mma3(AFrag a, BFrag b, Fold fold) {
+  constexpr int NP = NT / PARTS;
+#pragma unroll
+  for (int part = 0; part < PARTS; ++part) {
+    float big[NP][4], small[NP][4];
+    zero(big);
+    zero(small);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[4], al[4], bh[NP][2], bl[NP][2];
+      a(ks, ah, al);
+#pragma unroll
+      for (int nt = 0; nt < NP; ++nt) b(ks, part * NP + nt, bh[nt], bl[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NP; ++nt)
+        mma_tf32(small[nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < NP; ++nt)
+        mma_tf32(small[nt], ah, bl[nt][0], bl[nt][1]);
+#pragma unroll
+      for (int nt = 0; nt < NP; ++nt)
+        mma_tf32(big[nt], ah, bh[nt][0], bh[nt][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        fold(part * NP + j, i, big[j][i] + small[j][i]);
+  }
 }
 
 // split A fragment of the 16 x 8 block at p (row-major, stride ld)
@@ -282,6 +213,54 @@ __device__ __forceinline__ void a_frag(const float* p, int ld, int g, int t,
   split_tf32(p[(g + 8) * ld + t + 4], hi[3], lo[3]);
 }
 
+// A score tile S = A B^T of one warp (16 x 64), each element to fold(j,
+// i, x) as warp_mma3 gives it: A the warp's 16 rows at `a`, B the 64
+// rows at `b`, both padded tiles read as they lie (B(d, n) = b[n][d]);
+// each operand is split at the read. C fragment j holds rows g and g+8,
+// columns 8j + 2t and 8j + 2t + 1.
+template <int D, typename Fold>
+__device__ __forceinline__ void score_mma(const float* a, const float* b,
+                                          int g, int t, Fold fold) {
+  constexpr int kLd = Tiles<D>::kLd;
+  warp_mma3<D / 8, 8, 1>(
+      [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+        a_frag(a + 8 * kc, kLd, g, t, hi, lo);
+      },
+      [&](int kc, int nt, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+        const float* p = b + (8 * nt + g) * kLd + 8 * kc + t;
+        split_tf32(p[0], hi[0], lo[0]);
+        split_tf32(p[4], hi[1], lo[1]);
+      },
+      fold);
+}
+
+// The product P B of one warp, each element to fold(j, i, x): P (16 x
+// 64) in the C layout of score_mma and B the padded 64 x D tile at `b`
+// read across (B(n, d) = b[n][d]). P's C fragment holds positions 2t and
+// 2t+1 of each 8-wide chunk, where an A fragment wants t and t+4; a
+// product may take its contracted index in any order, so A's column t is
+// position 2t and column t+4 is 2t+1, and B's rows follow: b0 = b[2t],
+// b1 = b[2t+1]. P passes from the C to the A layout in registers.
+template <int D, typename Fold>
+__device__ __forceinline__ void out_mma(const float (&p)[8][4],
+                                        const float* b, int g, int t,
+                                        Fold fold) {
+  constexpr int kLd = Tiles<D>::kLd;
+  warp_mma3<8, D / 8, kOutParts<D>>(
+      [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+        split_tf32(p[kc][0], hi[0], lo[0]);
+        split_tf32(p[kc][2], hi[1], lo[1]);
+        split_tf32(p[kc][1], hi[2], lo[2]);
+        split_tf32(p[kc][3], hi[3], lo[3]);
+      },
+      [&](int kc, int nt, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+        const float* q = b + (8 * kc + 2 * t) * kLd + 8 * nt + g;
+        split_tf32(q[0], hi[0], lo[0]);
+        split_tf32(q[kLd], hi[1], lo[1]);
+      },
+      fold);
+}
+
 // rows row0 .. row0+63 of a [rows, D] f32 matrix into a padded tile by
 // 16-byte cp.async; rows past nrows are zero-filled
 template <int D>
@@ -289,23 +268,41 @@ __device__ __forceinline__ void load_tile_async(float* dst,
                                                 const float* __restrict__ src,
                                                 int row0, int nrows) {
   constexpr int V = D / 4;
-  for (int f = threadIdx.x; f < kTile * V; f += kFwdThreads) {
+  for (int f = threadIdx.x; f < kTile * V; f += kThreads) {
     const int r = f / V, c = f % V;
     const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * FwdPlan<D>::kLd + 4 * c,
+    cp_async16(dst + r * Tiles<D>::kLd + 4 * c,
                ok ? src + static_cast<size_t>(row0 + r) * D + 4 * c : src,
                ok ? 16 : 0);
   }
 }
 
+// the bias of this thread's score columns k0 + 8j + 2t (+1) of row
+// `bias` (0 without one and past Tk); read before the score product, so
+// the loads are in flight during its MMAs
+__device__ __forceinline__ void key_bias(const float* __restrict__ bias,
+                                         int Tk, int k0, int t,
+                                         float (&bj)[8][2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = k0 + 8 * j + 2 * t + e;
+      bj[j][e] = (bias != nullptr && col < Tk) ? bias[col] : 0.f;
+    }
+}
+
+// ------------------------------------------------------------- forward --
+// K6: warp w owns query rows 16w..16w+15 and walks the key tiles with its
+// S (16 x 64) and O (16 x D) accumulators in registers. Shared: the Q
+// tile, then a 2-stage ring of (K tile, V tile).
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ out, float* __restrict__ lse, int H,
                  int Tq, int Tk, int causal, float scale) {
-  using P = FwdPlan<D>;
-  constexpr int kLd = P::kLd;
+  constexpr int kLd = Tiles<D>::kLd, kTf = Tiles<D>::kFloats;
   constexpr int ND = D / 8;  // 8-wide chunks of the head dim
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.y, b = bh / H;
@@ -314,14 +311,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const float* kb = k + static_cast<size_t>(bh) * Tk * D;
   const float* vb = v + static_cast<size_t>(bh) * Tk * D;
+  const float* brow =
+      bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Tk;
   // causal: key tiles at or past the last query row + 1 are fully masked
   const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
   const int tiles = (k_end + kTile - 1) / kTile;
 
   load_tile_async<D>(smem, q + static_cast<size_t>(bh) * Tq * D, q0, Tq);
   if (tiles > 0) {
-    load_tile_async<D>(smem + P::kTileFloats, kb, 0, Tk);
-    load_tile_async<D>(smem + 2 * P::kTileFloats, vb, 0, Tk);
+    load_tile_async<D>(smem + kTf, kb, 0, Tk);
+    load_tile_async<D>(smem + 2 * kTf, vb, 0, Tk);
   }
   cp_commit();
   // this warp's 16 query rows, split at each read (split fragments held
@@ -336,42 +335,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * kTile;
     if (it + 1 < tiles) {
-      float* nk = smem + (1 + 2 * ((it + 1) & 1)) * P::kTileFloats;
+      float* nk = smem + (1 + 2 * ((it + 1) & 1)) * kTf;
       load_tile_async<D>(nk, kb, k0 + kTile, Tk);
-      load_tile_async<D>(nk + P::kTileFloats, vb, k0 + kTile, Tk);
+      load_tile_async<D>(nk + kTf, vb, k0 + kTile, Tk);
     }
     cp_commit();
     cp_wait<1>();
     __syncthreads();  // key tile `it` (and at it = 0 the Q tile) landed
-    const float* ks_ = smem + (1 + 2 * (it & 1)) * P::kTileFloats;
-    const float* vs = ks_ + P::kTileFloats;
+    const float* ks_ = smem + (1 + 2 * (it & 1)) * kTf;
+    const float* vs = ks_ + kTf;
 
-    // S = Q K^T: B(d, key) = K[key][d]
-    float s[8][4], s_small[8][4];
-    zero(s);
-    zero(s_small);
-    warp_mma3<ND, 8>(
-        s, s_small,
-        [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-          a_frag(qw + 8 * kc, kLd, g, t, hi, lo);
-        },
-        [&](int kc, int nt, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-          const float* p = ks_ + (8 * nt + g) * kLd + 8 * kc + t;
-          split_tf32(p[0], hi[0], lo[0]);
-          split_tf32(p[4], hi[1], lo[1]);
-        });
-
-    // online softmax on the C fragments: this thread holds rows g and
-    // g+8, keys k0 + 8j + 2t (+1); the quad of a row reduces by shuffles
-    float bj[8][2];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + 8 * j + 2 * t + e;
-        bj[j][e] = (bias != nullptr && col < Tk) ? bias[b * Tk + col] : 0.f;
-      }
-    float alpha[2];
+    // S = Q K^T, then the online softmax on the C fragments: this thread
+    // holds rows g and g+8, keys k0 + 8j + 2t (+1); the quad of a row
+    // reduces by shuffles
+    float s[8][4], alpha[2], bj[8][2];
+    key_bias(brow, Tk, k0, t, bj);
+    score_mma<D>(qw, ks_, g, t, [&](int j, int i, float x) { s[j][i] = x; });
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + 16 * warp + g + 8 * r;
@@ -381,8 +360,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k0 + 8 * j + 2 * t + e;
-          float x = (s[j][2 * r + e] + s_small[j][2 * r + e]) * scale +
-                    bj[j][e];
+          float x = s[j][2 * r + e] * scale + bj[j][e];
           if (causal && row < col) x = kNegInf;
           if (col >= Tk) x = -INFINITY;  // absent key: weighs exactly 0
           s[j][2 * r + e] = x;
@@ -406,34 +384,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[r] = l[r] * alpha[r] + ps;
       m[r] = m_new;
     }
-
-    // O = alpha O + P V, the tile's product from fresh accumulators. P's
-    // C fragment holds keys 2t and 2t+1 of each 8-key chunk, where an A
-    // fragment wants keys t and t+4; a product over keys may take them in
-    // any order, so A's column t is key 2t and column t+4 is key 2t+1,
-    // and B's rows follow: b0 = V[2t], b1 = V[2t+1]. P passes from the C
-    // to the A layout in registers.
-    float pv[ND][4], pv_small[ND][4];
-    zero(pv);
-    zero(pv_small);
-    warp_mma3<8, ND>(
-        pv, pv_small,
-        [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-          split_tf32(s[kc][0], hi[0], lo[0]);
-          split_tf32(s[kc][2], hi[1], lo[1]);
-          split_tf32(s[kc][1], hi[2], lo[2]);
-          split_tf32(s[kc][3], hi[3], lo[3]);
-        },
-        [&](int kc, int nt, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-          const float* p = vs + (8 * kc + 2 * t) * kLd + 8 * nt + g;
-          split_tf32(p[0], hi[0], lo[0]);
-          split_tf32(p[kLd], hi[1], lo[1]);
-        });
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        o[j][i] = fmaf(o[j][i], alpha[i >> 1], pv[j][i] + pv_small[j][i]);
+    // O = alpha O + P V, the tile's product from fresh accumulators
+    out_mma<D>(s, vs, g, t, [&](int j, int i, float x) {
+      o[j][i] = fmaf(o[j][i], alpha[i >> 1], x);
+    });
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_wait<0>();
@@ -453,14 +407,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------- backward dKV --
-// One CTA per (key tile, b*h), looping over the query tiles that can see
-// it. Score tiles are transposed (rows = keys, columns = queries), as in
-// the TPU kernel, so the per-query lse/delta index columns and the
-// per-key bias and bias gradient index rows. Shared: Kt, Vt [D][64] (the
-// CTA's key tile), Qt, dOt [D][64] and Q, dO [64][D] (the query tile), Ps
-// [64][64] (p, then ds, query-major), lse and delta of the query tile.
+// K7a: one CTA per (b*h, key tile); warp w owns keys 16w..16w+15 and walks
+// the query tiles that can see them, with dK and dV (16 x D each) and the
+// bias gradient of its rows in registers. Shared: the K and V tiles (the
+// A operands of S^T = K Q^T and dP^T = V dO^T), then a 2-stage ring of
+// (Q tile, dO tile, lse and delta of the tile's queries); Q and dO are
+// read as they lie as the B operands of the score products, and across
+// as those of dV += P^T dO and dK += dS^T Q.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -468,176 +423,202 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ bias, float* __restrict__ dk,
                  float* __restrict__ dv, float* __restrict__ dbias, int H,
                  int Tq, int Tk, int causal, float scale) {
-  constexpr int NC = D / 16;
+  constexpr int kLd = Tiles<D>::kLd, kTf = Tiles<D>::kFloats;
+  constexpr int kStage = Tiles<D>::kDkvStage, ND = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;
-  float* vt = kt + D * kTile;
-  float* qt = vt + D * kTile;
-  float* dot = qt + D * kTile;
-  float* qs = dot + D * kTile;
-  float* dos = qs + kTile * D;
-  float* ps = dos + kTile * D;
-  float* ls = ps + kTile * kTile;
-  float* dl = ls + kTile;
-  const int bh = blockIdx.y, b = bh / H;
-  const int k0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int bh = blockIdx.x, b = bh / H;
+  const int k0 = blockIdx.y * kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
+  const size_t koff = static_cast<size_t>(bh) * Tk;
   const float* qb = q + qoff * D;
   const float* dob = dout + qoff * D;
-
-  load_rows_t<D>(kt, k + static_cast<size_t>(bh) * Tk * D, k0, Tk);
-  load_rows_t<D>(vt, v + static_cast<size_t>(bh) * Tk * D, k0, Tk);
-  float bi[4], dk_acc[4][NC], dv_acc[4][NC], db_acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    bi[i] = (bias != nullptr && key < Tk) ? bias[b * Tk + key] : 0.f;
-    db_acc[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  }
+  float* ring = smem + 2 * kTf;
   // causal: query tiles wholly before this key tile see none of it
-  for (int q0 = causal ? k0 : 0; q0 < Tq; q0 += kTile) {
-    __syncthreads();  // the previous query tile is consumed
-    load_rows_t<D>(qt, qb, q0, Tq);
-    load_rows_t<D>(dot, dob, q0, Tq);
-    load_rows<D>(qs, qb, q0, Tq);
-    load_rows<D>(dos, dob, q0, Tq);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      ls[threadIdx.x] = row < Tq ? lse[qoff + row] : 0.f;
-      dl[threadIdx.x] = row < Tq ? delta[qoff + row] : 0.f;
-    }
-    __syncthreads();
-    float p[4][4] = {}, dp[4][4] = {};
-    tile_mma<4, D, kTile>(p, kt, qt, ty, tx);   // s^T
-    tile_mma<4, D, kTile>(dp, vt, dot, ty, tx);  // (dout v^T)^T
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < Tq ? (Tq - q_begin + kTile - 1) / kTile : 0;
+
+  // stage s <- the query tile at q0: Q, dO, then lse and delta (one float
+  // per thread: threads 0..63 lse, 64..127 delta)
+  auto load_stage = [&](int s, int q0) {
+    float* st = ring + s * kStage;
+    load_tile_async<D>(st, qb, q0, Tq);
+    load_tile_async<D>(st + kTf, dob, q0, Tq);
+    const int i = threadIdx.x % kTile, row = q0 + i;
+    const int which = threadIdx.x / kTile;
+    const float* src = (which == 0 ? lse : delta) + qoff;
+    cp_async4(st + 2 * kTf + which * kTile + i, row < Tq ? src + row : src,
+              row < Tq ? 4 : 0);
+  };
+  load_tile_async<D>(smem, k + koff * D, k0, Tk);
+  load_tile_async<D>(smem + kTf, v + koff * D, k0, Tk);
+  if (tiles > 0) load_stage(0, q_begin);
+  cp_commit();
+  // this warp's 16 keys in the K and V tiles, split at each read
+  const float* kw = smem + 16 * warp * kLd;
+  const float* vw = kw + kTf;
+  int key[2];
+  float bk[2], dbs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    key[r] = k0 + 16 * warp + g + 8 * r;
+    bk[r] = (bias != nullptr && key[r] < Tk) ? bias[b * Tk + key[r]] : 0.f;
+  }
+  float dka[ND][4], dva[ND][4];
+  zero(dka);
+  zero(dva);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = q_begin + it * kTile;
+    if (it + 1 < tiles) load_stage((it + 1) & 1, q0 + kTile);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // query tile `it` (and at it = 0 K and V) landed
+    const float* qs = ring + (it & 1) * kStage;
+    const float* dos = qs + kTf;
+    const float* ls = dos + kTf;
+    const float* dls = ls + kTile;
+
+    // P^T = exp(S^T * scale + bias[key] - lse[query]), S^T = K Q^T: this
+    // thread holds keys (rows) g and g+8, queries q0 + 8j + 2t (+1)
+    float p[8][4];
+    score_mma<D>(kw, qs, g, t, [&](int j, int i, float x) {
+      const int r = i >> 1, e = i & 1, row = q0 + 8 * j + 2 * t + e;
+      const bool ok = row < Tq && key[r] < Tk && (!causal || row >= key[r]);
+      p[j][i] = ok ? expf(x * scale + bk[r] - ls[8 * j + 2 * t + e]) : 0.f;
+    });
+    // dV += P^T dO
+    out_mma<D>(p, dos, g, t, [&](int j, int i, float x) { dva[j][i] += x; });
+    // dS^T = P^T * (dP^T - delta[query]), dP^T = V dO^T; the bias
+    // gradient sums dS^T over the queries of each key row
+    float ds[8][4];
+    score_mma<D>(vw, dos, g, t, [&](int j, int i, float x) {
+      ds[j][i] = p[j][i] * (x - dls[8 * j + 2 * t + (i & 1)]);
+      dbs[i >> 1] += ds[j][i];
+    });
+    // dK += dS^T Q (scaled once, at the end)
+    out_mma<D>(ds, qs, g, t, [&](int j, int i, float x) { dka[j][i] += x; });
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_wait<0>();
+
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + 4 * tx + j;
-        const bool valid =
-            row < Tq && key < Tk && (!causal || row >= key);
-        p[i][j] = valid ? expf(p[i][j] * scale + bi[i] - ls[4 * tx + j])
-                        : 0.f;
-        dp[i][j] = p[i][j] * (dp[i][j] - dl[4 * tx + j]);  // ds^T
-        db_acc[i] += dp[i][j];
-      }
-    }
-    store_t(ps, p, ty, tx);
-    __syncthreads();
-    tile_mma<NC, kTile, D>(dv_acc, ps, dos, ty, tx);  // dv += p^T dout
-    __syncthreads();
-    store_t(ps, dp, ty, tx);
-    __syncthreads();
-    tile_mma<NC, kTile, D>(dk_acc, ps, qs, ty, tx);   // dk += ds^T q
+  for (int r = 0; r < 2; ++r) {  // over the quad that shares a key row
+    dbs[r] += __shfl_xor_sync(0xffffffffu, dbs[r], 1);
+    dbs[r] += __shfl_xor_sync(0xffffffffu, dbs[r], 2);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    const float db = half_warp_sum(db_acc[i]);
-    if (key >= Tk) continue;
-    const size_t off = (static_cast<size_t>(bh) * Tk + key) * D + NC * tx;
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= Tk) continue;
+    const size_t off = (koff + key[r]) * D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dk[off + j] = scale * dk_acc[i][j];
-      dv[off + j] = dv_acc[i][j];
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<float2*>(dk + off + 8 * j + 2 * t) = make_float2(
+          scale * dka[j][2 * r], scale * dka[j][2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + off + 8 * j + 2 * t) =
+          make_float2(dva[j][2 * r], dva[j][2 * r + 1]);
     }
-    if (dbias != nullptr && tx == 0)
-      dbias[static_cast<size_t>(bh) * Tk + key] = db;
+    if (dbias != nullptr && t == 0) dbias[koff + key[r]] = dbs[r];
   }
 }
 
 // ----------------------------------------------------------- backward dQ --
-// One CTA per (query tile, b*h), looping over the key tiles it sees.
-// Shared: Qt, dOt [D][64] (the CTA's query tile), Kt, Vt [D][64] and
-// K [64][D] (the key tile), dSt [64][64] (key-major).
+// K7b: one CTA per (b*h, query tile); warp w owns queries 16w..16w+15 and
+// walks the key tiles it sees, with dQ (16 x D) in registers and lse and
+// delta of its rows. Shared: the Q and dO tiles (the A operands of S = Q
+// K^T and dP = dO V^T), then a 2-stage ring of (K tile, V tile); K is
+// read as it lies as the B operand of S and across as that of dQ += dS K.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
                 const float* __restrict__ bias, float* __restrict__ dq, int H,
                 int Tq, int Tk, int causal, float scale) {
-  constexpr int NC = D / 16;
+  constexpr int kLd = Tiles<D>::kLd, kTf = Tiles<D>::kFloats;
+  constexpr int ND = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* dot = qt + D * kTile;
-  float* kt = dot + D * kTile;
-  float* vt = kt + D * kTile;
-  float* ks = vt + D * kTile;
-  float* dst = ks + kTile * D;
-  const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int bh = blockIdx.x, b = bh / H;
+  // the last query tiles first: under the causal mask they walk the most
+  // key tiles
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const size_t qoff = static_cast<size_t>(bh) * Tq;
   const float* kb = k + static_cast<size_t>(bh) * Tk * D;
   const float* vb = v + static_cast<size_t>(bh) * Tk * D;
-
-  load_rows_t<D>(qt, q + qoff * D, q0, Tq);
-  load_rows_t<D>(dot, dout + qoff * D, q0, Tq);
-  float li[4], di[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    li[i] = row < Tq ? lse[qoff + row] : 0.f;
-    di[i] = row < Tq ? delta[qoff + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  }
+  const float* brow =
+      bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Tk;
+  float* ring = smem + 2 * kTf;
+  // causal: key tiles at or past the last query row + 1 are fully masked
   const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    load_rows_t<D>(kt, kb, k0, Tk);
-    load_rows_t<D>(vt, vb, k0, Tk);
-    load_rows<D>(ks, kb, k0, Tk);
-    __syncthreads();
-    float p[4][4] = {}, dp[4][4] = {};
-    tile_mma<4, D, kTile>(p, qt, kt, ty, tx);   // s
-    tile_mma<4, D, kTile>(dp, dot, vt, ty, tx);  // dout v^T
-    float bj[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + 4 * tx + j;
-      bj[j] = (bias != nullptr && col < Tk) ? bias[b * Tk + col] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        const bool valid =
-            row < Tq && col < Tk && (!causal || row >= col);
-        const float pij =
-            valid ? expf(p[i][j] * scale + bj[j] - li[i]) : 0.f;
-        p[i][j] = pij * (dp[i][j] - di[i]);  // ds
-      }
-    }
-    store_t(dst, p, ty, tx);
-    __syncthreads();
-    tile_mma<NC, kTile, D>(acc, dst, ks, ty, tx);  // dq += ds k
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= Tq) continue;
-    float* orow = dq + (qoff + row) * D + NC * tx;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) orow[j] = scale * acc[i][j];
-  }
-}
+  const int tiles = (k_end + kTile - 1) / kTile;
 
-// shared bytes of each kernel at head dim D
-constexpr size_t dkv_smem(int D) {
-  return sizeof(float) * (6 * D * kTile + kTile * kTile + 2 * kTile);
-}
-constexpr size_t dq_smem(int D) {
-  return sizeof(float) * (5 * D * kTile + kTile * kTile);
+  load_tile_async<D>(smem, q + qoff * D, q0, Tq);
+  load_tile_async<D>(smem + kTf, dout + qoff * D, q0, Tq);
+  if (tiles > 0) {
+    load_tile_async<D>(ring, kb, 0, Tk);
+    load_tile_async<D>(ring + kTf, vb, 0, Tk);
+  }
+  cp_commit();
+  // this warp's 16 query rows of Q and dO, split at each read
+  const float* qw = smem + 16 * warp * kLd;
+  const float* dow = qw + kTf;
+  int row[2];
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + 16 * warp + g + 8 * r;
+    lr[r] = row[r] < Tq ? lse[qoff + row[r]] : 0.f;
+    dr[r] = row[r] < Tq ? delta[qoff + row[r]] : 0.f;
+  }
+  float dqa[ND][4];
+  zero(dqa);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile;
+    if (it + 1 < tiles) {
+      float* nk = ring + 2 * ((it + 1) & 1) * kTf;
+      load_tile_async<D>(nk, kb, k0 + kTile, Tk);
+      load_tile_async<D>(nk + kTf, vb, k0 + kTile, Tk);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // key tile `it` (and at it = 0 Q and dO) landed
+    const float* ks_ = ring + 2 * (it & 1) * kTf;
+    const float* vs = ks_ + kTf;
+
+    // P = exp(S * scale + bias[key] - lse[row]), S = Q K^T: this thread
+    // holds rows g and g+8, keys k0 + 8j + 2t (+1)
+    float p[8][4], bj[8][2];
+    key_bias(brow, Tk, k0, t, bj);
+    score_mma<D>(qw, ks_, g, t, [&](int j, int i, float x) {
+      const int r = i >> 1, e = i & 1, col = k0 + 8 * j + 2 * t + e;
+      const bool ok = col < Tk && (!causal || row[r] >= col);
+      p[j][i] = ok ? expf(x * scale + bj[j][e] - lr[r]) : 0.f;
+    });
+    // dS = P * (dP - delta[row]), dP = dO V^T
+    float ds[8][4];
+    score_mma<D>(dow, vs, g, t, [&](int j, int i, float x) {
+      ds[j][i] = p[j][i] * (x - dr[i >> 1]);
+    });
+    // dQ += dS K (scaled once, at the end)
+    out_mma<D>(ds, ks_, g, t, [&](int j, int i, float x) { dqa[j][i] += x; });
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= Tq) continue;
+    float* orow = dq + (qoff + row[r]) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = make_float2(
+          scale * dqa[j][2 * r], scale * dqa[j][2 * r + 1]);
+  }
 }
 
 // sets the kernel's dynamic shared-memory limit (above the 48 KB
@@ -652,20 +633,23 @@ int allow_smem(Kernel kernel, size_t bytes, bool* done) {
   return static_cast<int>(rc);
 }
 
+// the tiles are copied in 16-byte pieces and written in 8-byte ones
+template <typename... Ptr>
+bool aligned16(const Ptr*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
+}
+
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v,
                const float* bias, float* out, float* lse, int BH, int H,
                int Tq, int Tk, int causal, float scale, cudaStream_t st) {
   static bool ready = false;
-  const size_t smem = FwdPlan<D>::kSmem;
+  const size_t smem = Tiles<D>::kFwdSmem;
   if (int rc = allow_smem(flash_fwd_kernel<D>, smem, &ready)) return rc;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) |
-                         reinterpret_cast<uintptr_t>(out);
-  if (ptrs % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (!aligned16(q, k, v, out))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const dim3 grid((Tq + kTile - 1) / kTile, BH);
-  flash_fwd_kernel<D><<<grid, kFwdThreads, smem, st>>>(
+  flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(
       q, k, v, bias, out, lse, H, Tq, Tk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -677,9 +661,12 @@ int launch_dkv(const float* q, const float* k, const float* v,
                int H, int Tq, int Tk, int causal, float scale,
                cudaStream_t st) {
   static bool ready = false;
-  const size_t smem = dkv_smem(D);
+  const size_t smem = Tiles<D>::kDkvSmem;
   if (int rc = allow_smem(flash_dkv_kernel<D>, smem, &ready)) return rc;
-  const dim3 grid((Tk + kTile - 1) / kTile, BH);
+  if (!aligned16(q, k, v, dout, dk, dv))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  // b*h fastest: every CTA of key tile 0 (the longest causal walk) first
+  const dim3 grid(BH, (Tk + kTile - 1) / kTile);
   flash_dkv_kernel<D><<<grid, kThreads, smem, st>>>(
       q, k, v, dout, lse, delta, bias, dk, dv, dbias, H, Tq, Tk, causal,
       scale);
@@ -692,9 +679,11 @@ int launch_dq(const float* q, const float* k, const float* v,
               const float* bias, float* dq, int BH, int H, int Tq, int Tk,
               int causal, float scale, cudaStream_t st) {
   static bool ready = false;
-  const size_t smem = dq_smem(D);
+  const size_t smem = Tiles<D>::kDqSmem;
   if (int rc = allow_smem(flash_dq_kernel<D>, smem, &ready)) return rc;
-  const dim3 grid((Tq + kTile - 1) / kTile, BH);
+  if (!aligned16(q, k, v, dout, dq))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const dim3 grid(BH, (Tq + kTile - 1) / kTile);
   flash_dq_kernel<D><<<grid, kThreads, smem, st>>>(
       q, k, v, dout, lse, delta, bias, dq, H, Tq, Tk, causal, scale);
   return static_cast<int>(cudaGetLastError());

@@ -71,11 +71,17 @@ def _default_scale(q, scale):
         1.0 / (q.shape[-1] ** 0.5))
 
 
+def _wide(x):
+    """``x`` in the twins' arithmetic type: f32, or f64 for f64 inputs
+    (an exact reference for the f32 kernels)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _scores(q, k, bias, scale):
-    """``q k^T * scale + bias`` in f32, (B, H, Tq, Tk)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    """``q k^T * scale + bias`` in f32 (f64 for f64 q), (B, H, Tq, Tk)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q), _wide(k)) * scale
     if bias is not None:
-        s = s + bias[:, None, None, :].float()
+        s = s + _wide(bias)[:, None, None, :]
     return s
 
 
@@ -97,7 +103,7 @@ def flash_forward_reference(q, k, v, bias, causal, scale):
     m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    out = torch.einsum("bhqk,bhkd->bhqd", p, _wide(v)) / l_safe
     lse = (m + torch.log(l_safe)).reshape(B * H, Tq)
     return out.to(q.dtype), lse
 
@@ -116,18 +122,19 @@ def _probs(q, k, bias, lse, causal, scale):
 def _dscores(q, k, v, bias, dout, lse, delta, causal, scale):
     B, H, Tq, _ = q.shape
     p = _probs(q, k, bias, lse, causal, scale)
-    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", _wide(dout), _wide(v))
     return p, p * (dp - delta.reshape(B, H, Tq, 1))
 
 
 def flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta, causal,
                             scale, want_dbias=False):
     """Plain twin of the dK/dV kernel: ``(dk, dv, dbias)`` with ``dbias``
-    per head, ``(B*H, Tk)`` f32, or None unless ``want_dbias``."""
+    per head, ``(B*H, Tk)`` f32 (f64 for f64 inputs), or None unless
+    ``want_dbias``."""
     B, H, _, _ = q.shape
     p, ds = _dscores(q, k, v, bias, dout, lse, delta, causal, scale)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dout.float())
-    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, _wide(dout))
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q))
     dbias = ds.sum(dim=2).reshape(B * H, -1) if want_dbias else None
     return dk.to(k.dtype), dv.to(v.dtype), dbias
 
@@ -135,7 +142,7 @@ def flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta, causal,
 def flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta, causal, scale):
     """Plain twin of the dQ kernel."""
     _, ds = _dscores(q, k, v, bias, dout, lse, delta, causal, scale)
-    return (scale * torch.einsum("bhqk,bhkd->bhqd", ds, k.float())).to(
+    return (scale * torch.einsum("bhqk,bhkd->bhqd", ds, _wide(k))).to(
         q.dtype)
 
 

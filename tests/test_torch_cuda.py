@@ -13,9 +13,10 @@ dot products summed in another order; outputs are O(1)); ``WQ_TOL =
 K terms in another order, the cluster's K-slice partials summed in slice
 order, x split into two TF32 parts: ~2^-22 relative per product);
 ``FLASH_TOL = 2e-5`` of the output's magnitude for the flash attention
-kernels (f32 sums over up to 256 keys or queries in another order,
-online softmax against one softmax; the forward's split-TF32 products
-drop only lo*lo, ~2^-22 of each product); ``FLASH_GRAD_TOL = 1e-4`` for the
+kernels (f32 sums over up to 512 keys or queries in another order,
+online softmax against one softmax; the kernels' split-TF32 products
+drop only lo*lo, ~2^-22 of each product), also against the twins
+evaluated in float64; ``FLASH_GRAD_TOL = 1e-4`` for the
 autograd Function against autograd through ``attention_reference``
 (the reference differentiates softmax itself instead of working from
 the saved logsumexp, which reorders more sums). The chunk and decode
@@ -245,6 +246,65 @@ def test_flash_kernels_match_plain(cuda, B, H, Tq, Tk, D, padding, causal,
     after = kernels.launch_counts()
     for name in tfa.KERNEL_NAMES:
         assert after[name] == before.get(name, 0) + 1
+
+
+def _flash_backward(args, want_dbias):
+    """``(dk, dv, dbias, dq)`` of the two backward kernels."""
+    dk, dv, db = tfa.flash_bwd_dkv(*args, want_dbias=want_dbias)
+    dq = tfa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    return dk, dv, db, dq
+
+
+def _bert_backward_case(dev, padding, causal):
+    """One attention layer of BERT-base's backward at batch 2 (B=2, H=12,
+    T=512, D=64): the backward kernels' arguments, lse and delta from
+    the forward's twin."""
+    B, H, T, D = 2, 12, 512, 64
+    q, k, v, bias, dout = _flash_inputs(dev, B, H, T, T, D, padding)
+    scale = D ** -0.5
+    out, lse = tfa.flash_forward_reference(q, k, v, bias, causal, scale)
+    delta = (dout * out).sum(-1).reshape(B * H, T)
+    return (q, k, v, bias, dout, lse, delta, causal, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding,causal", [(True, False), (False, True)],
+                         ids=["padding", "causal"])
+def test_flash_backward_keeps_f32_accuracy_at_bert_shapes(cuda, padding,
+                                                          causal):
+    """dK, dV, dbias and dQ against the twins evaluated in float64 on the
+    same inputs: the split-TF32 products stay within ``FLASH_TOL`` of the
+    exact result, where the same backward with q, k, v and dout rounded
+    once to TF32 (a kernel without the lo passes) does not."""
+    args = _bert_backward_case(cuda, padding, causal)
+    got = _flash_backward(args, padding)
+    wide = tuple(a.double() for a in args[:3]) + (args[3], args[4].double(),
+                                                  *args[5:])
+    dk, dv, db = tfa.flash_bwd_dkv_reference(*wide, want_dbias=padding)
+    want = (dk, dv, db, tfa.flash_bwd_dq_reference(*wide))
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert _rel(g.double(), w) < FLASH_TOL
+    hi = tuple(_tf32_hi(a).double() for a in args[:3]) + (
+        args[3], _tf32_hi(args[4]).double(), *args[5:])
+    hk, hv, _ = tfa.flash_bwd_dkv_reference(*hi)
+    hq = tfa.flash_bwd_dq_reference(*hi)
+    assert max(_rel(h, w) for h, w in
+               zip((hk, hv, hq), (want[0], want[1], want[3]))) > FLASH_TOL
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda):
+    """Two launches of each backward kernel on the same inputs give
+    bit-identical dK, dV, dbias and dQ: every output element is written
+    once, by one thread, with no atomics."""
+    args = _bert_backward_case(cuda, True, False)
+    first = _flash_backward(args, True)
+    second = _flash_backward(args, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
