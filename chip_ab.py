@@ -9,6 +9,8 @@ the other tree unpacked under a git-ignored directory:
         --order ABBA --phases kernel,flash --profile
     python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
         --order ABBA --phases flash --profile-bert
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases kernel,paged --profile --profile-paged
 
 Each turn is its own process, started from that tree's root: it builds
 the tree's kernels and runs the named kernel phases of the tree's
@@ -16,10 +18,15 @@ the tree's kernels and runs the named kernel phases of the tree's
 ``run_flash_kernel_phase``, K6/K7; ``paged``: ``run_paged_kernel_phase``,
 K4/K5), each phase from ``np.random.RandomState(0)``, so both trees time
 the same inputs. ``--order`` lists the turns by tree letter (A the first
-``--tree``). With ``--profile``, each tree then serves its int8 and fp8
-phases (``run_quant_phase``) once, and the device time of the quantized
-matmul's kernels in the profiled pass is printed beside the pass's
-device time. With ``--profile-bert``, each tree then trains BERT-base
+``--tree``). With ``--profile``, each tree then serves the same traffic
+with f32 KV and weights, then its int8 and fp8 phases
+(``run_quant_phase``), once, and the device time of the flat attention
+kernels (K1, K2) and the quantized matmul (K3) in each profiled pass is
+printed beside the pass's device time. With ``--profile-paged``, each
+turn of ``--order`` also decodes chip_smoke's paged phase (``paged_greedy``:
+chunked prefill at Q=16, then 32 ``decode_step``s at Q=1) under the
+profiler, prefill alone and then prefill and decode, and K4's device ms
+per ``decode_chunk`` step and per ``decode_step`` step are printed. With ``--profile-bert``, each tree then trains BERT-base
 (``run_bert_phase``) in the turns of ``--order``, and its profiled pass
 gives device ms per step, the flash kernels' device ms per step
 (forward; dK/dV and dQ) and the device's idle share. Prints the card
@@ -34,7 +41,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, os, sys
+import json, os, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
@@ -55,9 +62,24 @@ print("AB_ROWS " + json.dumps(
     [{k: r.get(k) for k in ("name", "shape", "ms", "plain_ms",
                             "library_ms", "max_abs_err")} for r in rows]),
     flush=True)
-# device time of each group of kernels (by name, in either tree's design)
-GROUPS = {"quant": {"K3": ("wq_mma_kernel", "wq_matmul_kernel",
+# device time of each group of kernels (by name, in either tree's design;
+# the paged kernels by template, demangled or not)
+PAGED = ("paged_attention_kernel", "paged_ring_kernel")
+
+
+def paged(types, queries):
+    return lambda key: (any(k in key for k in PAGED)
+                        and any(t in key for t in types)
+                        and any(q in key for q in queries))
+
+
+FLOAT = ("kernel<float", "kernelIf")
+BYTES = ("kernel<signed char", "kernelIa", "__nv_fp8_e4m3")
+GROUPS = {"quant": {"K1": paged(FLOAT, ("FlatQuery",)),
+                    "K2": paged(BYTES, ("FlatQuery", "FlatTiles")),
+                    "K3": ("wq_mma_kernel", "wq_matmul_kernel",
                            "split_sum_kernel")},
+          "paged": {"K4": paged(FLOAT, ("ChunkQuery", "ChunkTiles"))},
           "bert": {"flash_fwd": ("flash_fwd_kernel",),
                    "flash_bwd_dkv": ("flash_dkv_kernel",),
                    "flash_bwd_dq": ("flash_dq_kernel",)}}
@@ -72,7 +94,9 @@ if profile:
         busy = sum(e.self_device_time_total for e in rows)
         groups = {}
         for label, names in GROUPS[profile].items():
-            ev = [e for e in rows if any(n in e.key for n in names)]
+            match = names if callable(names) else (
+                lambda key, names=names: any(n in key for n in names))
+            ev = [e for e in rows if match(e.key)]
             groups[label] = dict(
                 ms=sum(e.self_device_time_total for e in ev) / 1e3,
                 launches=sum(e.count for e in ev))
@@ -82,13 +106,47 @@ if profile:
         return report(prof, wall, steps)
     chip_smoke.report_profile = report_groups
 if profile == "quant":
-    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
     np_params = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL
                             ).init_params_numpy(0)
+    # f32 KV and weights: the same traffic as the quantized passes
+    print("AB_DTYPE float32", flush=True)
+    rng = np.random.RandomState(1)
+    model = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL)
+    server = LLMServer(model, np_params, max_seqs=chip_smoke.MAX_SEQS,
+                       block_size=chip_smoke.BLOCK_SIZE, device="cuda")
+    server.warmup()
+    chip_smoke.profile_engine(
+        torch, server.engine, [rng.randint(0, model.vocab_size, size=n)
+                               .tolist() for n in (17, 64, 200)])
+    del server, model
+    torch.cuda.empty_cache()
     for dtype in ("int8", "float8_e4m3fn"):
         print(f"AB_DTYPE {dtype}", flush=True)
         chip_smoke.run_quant_phase(torch, np.random.RandomState(1),
                                    np_params, kernels, dtype)
+elif profile == "paged":
+    # chunked prefill alone, then prefill and decode: the difference is
+    # the decode steps
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    model = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL)
+    params = params_from_numpy(model.init_params_numpy(0), model.device)
+    prompts, _ = chip_smoke.prompts_for(np.random.RandomState(1),
+                                        model.vocab_size)
+    chip_smoke.paged_greedy(torch, model, params, prompts, 2)   # warm up
+    for label, new in (("decode_chunk", 0),
+                       ("decode_chunk+decode_step",
+                        chip_smoke.DECODE_STEPS)):
+        print(f"AB_DTYPE {label}", flush=True)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            out = chip_smoke.paged_greedy(torch, model, params, prompts, new)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        chip_smoke.report_profile(prof, wall, out[2] + new)
 elif profile == "bert":
     print("AB_DTYPE bert", flush=True)
     chip_smoke.run_bert_phase(torch, np.random.RandomState(1), kernels)
@@ -97,7 +155,7 @@ elif profile == "bert":
 
 def turn(root, phases, profile, log):
     """One process in ``root``: the kernel ``phases``, then the profiled
-    pass named by ``profile`` ("", "quant" or "bert")."""
+    pass named by ``profile`` ("", "quant", "paged" or "bert")."""
     proc = subprocess.run([sys.executable, "-c", CHILD, phases, profile],
                           cwd=root, capture_output=True, text=True)
     log.write(f"===== {root} phases={phases} profile={profile} "
@@ -127,6 +185,10 @@ def main():
                     help="K3's share of the int8/fp8 serving passes")
     ap.add_argument("--profile-bert", action="store_true",
                     help="the flash kernels in BERT-base training's pass")
+    ap.add_argument("--profile-paged", action="store_true",
+                    help="K4's device ms per decode_chunk / decode_step "
+                         "step of the paged decode pass, in the turns of "
+                         "--order")
     ap.add_argument("--log", help="file for the turns' full output")
     args = ap.parse_args()
     trees = [t.split("=", 1) for t in args.tree]
@@ -138,16 +200,18 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    table = {}
+    table, profiles = {}, []
     with open(args.log or os.devnull, "w") as log:
         for letter in args.order:
             label, root = trees[ord(letter) - ord("A")]
             rows, _ = turn(os.path.abspath(root), args.phases, "", log)
+            if args.profile_paged:
+                _, prof = turn(os.path.abspath(root), "", "paged", log)
+                profiles += [dict(p, tree=label) for p in prof]
             for r in rows:
                 key = (r["name"], r["shape"])
                 table.setdefault(key, []).append(
                     (label, r["ms"], r["max_abs_err"], r["library_ms"]))
-        profiles = []
         if args.profile:
             for label, root in trees:
                 _, prof = turn(os.path.abspath(root), "", "quant", log)
@@ -173,6 +237,19 @@ def main():
         print(f"ab profile {p['tree']} {p['dtype']}: {n} steps, device busy "
               f"{p['busy_ms']:.2f} ms ({p['busy_ms'] / n:.2f} ms/step), idle "
               f"{p['idle']:.3f}; {parts}", flush=True)
+    for label, _ in trees:
+        runs = [p for p in profiles if p["tree"] == label
+                and p["dtype"].startswith("decode_chunk")]
+        for a, b in zip(runs[0::2], runs[1::2]):
+            chunk = a["groups"]["K4"]
+            both = b["groups"]["K4"]
+            n_chunk = a["steps"]
+            n_dec = b["steps"] - a["steps"]
+            print(f"ab paged {label}: K4 {chunk['ms'] / n_chunk:.4f} ms "
+                  f"per decode_chunk step (Q=16, "
+                  f"{n_chunk} steps), "
+                  f"{(both['ms'] - chunk['ms']) / max(1, n_dec):.4f} ms "
+                  f"per decode_step step (Q=1, {n_dec} steps)", flush=True)
     print(json.dumps({"ab": [dict(name=n, shape=s, turns=[
         dict(tree=label, ms=ms) for label, ms, _, _ in c])
         for (n, s), c in table.items()], "profiles": profiles}))

@@ -19,7 +19,9 @@ Phases, one line of output each (or more), in order:
    padding mask and causal, and for each mask the two backward kernels'
    sum beside the library's backward (one call for dq, dk and dv); the
    chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged attention
-   kernels at the decode phase's shapes;
+   kernels at the decode phase's shapes; the staged kernels' rows (the
+   quantised flat and the chunk kernel) carry their launch plan, shared
+   bytes per CTA and ptxas's registers (a spill fails the run);
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -38,7 +40,10 @@ Phases, one line of output each (or more), in order:
    sit in the batch at q_len 0), then takes 32 greedy steps through
    ``decode_step``: every stream against ``greedy_decode_reference``,
    each prompt's last chunk against the dense ``forward``, 12 chunk
-   kernel launches per step, no kernel build after the first step;
+   kernel launches per step, no kernel build after the first step; then
+   the reference's default ``DecoderConfig()`` (head dim 16) served
+   through ``LLMServer(..., dtype="float32")``, streams against the
+   oracle and one step against the same step on the CPU;
 7. op front end — ``nd.ragged_paged_attention`` on the decode phase's
    pools with a 3-D q (the decode kernel) and a 4-D q (the chunk
    kernel), ``nd.scaled_dot_product_attention``, and three user CUDA
@@ -307,6 +312,7 @@ def attention_case(torch, T, page_dtype, rng):
 
 
 def run_kernel_phase(torch, timer, rng):
+    from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import ragged_attention as ra
     from mxnet_tpu_torch.ops import quantization as qz
     from mxnet_tpu_torch.serving.llm.quant import quantize_leaf
@@ -325,6 +331,11 @@ def run_kernel_phase(torch, timer, rng):
             err = float((out_k - plain()).abs().max())
             b_ms, b_by, b_f32 = bound(nbytes, flops)
             name = ra.kernel_name(args["k_pages"].dtype)
+            extra, note = {}, ""
+            if page_dtype != "float32":
+                extra, note = ring_note(kernels, ra, page_dtype, T, 1, 12,
+                                        64, BLOCK_SIZE, 64)
+                note = "; " + note
             res = dict(name=name, route="cuda",
                        source="mxnet_tpu_torch/csrc/ragged_flat.cu",
                        replaces=("mxnet_tpu/ops/ragged_attention.py:158"
@@ -333,11 +344,12 @@ def run_kernel_phase(torch, timer, rng):
                        shape=f"T={T},H=12,D=64,bs=16,MB=64",
                        max_abs_err=err, tol=ATT_TOL, ms=timer.ms(kern),
                        plain_ms=timer.ms(plain), bound_ms=b_ms,
-                       bound_by=b_by, bound_f32_ms=b_f32, library_ms=None)
+                       bound_by=b_by, bound_f32_ms=b_f32, library_ms=None,
+                       **extra)
             log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
                 f"(tol {ATT_TOL}) kernel_ms={res['ms']:.4f} "
                 f"plain_ms={res['plain_ms']:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by})")
+                f"({b_by}){note}")
             check(err <= ATT_TOL, f"{name} {res['shape']} disagrees "
                   f"with its plain version: {err} > {ATT_TOL}")
             results.append(res)
@@ -561,6 +573,7 @@ def run_paged_kernel_phase(torch, timer, rng):
     """K4 (chunk, Q=16 and Q=1) and K5 (decode, S=8 and S=64) against
     their plain twins on the valid tokens. No single PyTorch call
     computes paged attention (as for K1/K2): library none."""
+    from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import ragged_attention as ra
     results = []
     for name, line, S, Q in ((ra.CHUNK_KERNEL, ":412", MAX_SEQS, CHUNK_Q),
@@ -582,16 +595,21 @@ def run_paged_kernel_phase(torch, timer, rng):
         b_ms, b_by, b_f32 = bound(nbytes, flops)
         shape = (f"S={S}," + ("" if Q is None else f"Q={Q},")
                  + "H=12,D=64,bs=16,MB=64")
+        extra, note = {}, ""
+        if Q is not None:
+            extra, note = ring_note(kernels, ra, "float32", S, Q, 12, 64,
+                                    BLOCK_SIZE, 64)
+            note = "; " + note
         res = dict(name=name, route="cuda",
                    source="mxnet_tpu_torch/csrc/ragged_flat.cu",
                    replaces="mxnet_tpu/ops/ragged_attention.py" + line,
                    shape=shape, max_abs_err=err, tol=ATT_TOL,
                    ms=timer.ms(kern), plain_ms=timer.ms(plain),
                    bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
-                   library_ms=None)
+                   library_ms=None, **extra)
         log(f"kernel {name} {shape}: max_abs_err={err:.3e} (tol {ATT_TOL}) "
             f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-            f"library: none bound_ms={b_ms:.4f} ({b_by})")
+            f"library: none bound_ms={b_ms:.4f} ({b_by}){note}")
         check(err <= ATT_TOL, f"{name} {shape} disagrees with its plain "
               f"version: {err} > {ATT_TOL}")
         results.append(res)
@@ -819,6 +837,57 @@ def run_f32_phase(torch, rng, np_params, kernels):
     profile_engine(torch, server.engine,
                    prompts_for(rng, model.vocab_size)[0])
     return launches, st, n_tok / wall
+
+
+def run_default_config_phase(torch, rng, kernels):
+    """The reference's default ``DecoderConfig()`` (vocab 32, d_model 32,
+    2 layers, 2 heads: head dim 16) served through ``LLMServer`` with
+    ``dtype="float32"`` (the reference's signature): greedy streams
+    against ``greedy_decode_reference`` and one mixed packed
+    ``decode_flat`` step against the same step on the CPU (the kernels'
+    plain twins). Returns the launch counts of the served traffic."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.llm import (DecoderConfig, LLMServer,
+                                             TinyDecoder)
+    model = TinyDecoder(device=DEVICE)
+    c = model.config
+    check(c.head_dim == 16, f"default config head_dim {c.head_dim}")
+    np_params = model.init_params_numpy(0)
+    server = LLMServer(model, np_params, name="default-f32", max_seqs=4,
+                       block_size=BLOCK_SIZE, dtype="float32",
+                       device=DEVICE)
+    server.warmup()
+    prompts = [rng.randint(0, c.vocab_size, size=n).tolist()
+               for n in (1, 15, 17, 40)]
+    server.start()
+    kernels.reset_launch_counts()
+    res, wall = serve(torch, server, prompts, sampled_idx=())
+    launches = kernels.launch_counts()
+    server.shutdown()
+    check(launches.get("flat_attention", 0) > 0,
+          "default config: the flat attention kernel never ran")
+    params = server.engine.params
+    verdicts = [check_greedy(model, params, p, r.tokens, F32_LOGIT_TOL,
+                             f"default config request {i}")
+                for i, (p, r) in enumerate(zip(prompts, res))]
+    cpu_model = TinyDecoder(DecoderConfig(), device="cpu")
+    batch, _ = mixed_batch(model, rng, DEVICE)
+    got = step_logits(model, params, batch, "float32", None)
+    want = step_logits(cpu_model, params_from_numpy(np_params, "cpu"),
+                       {k: v.cpu() for k, v in batch.items()}, "float32",
+                       None)
+    n = int(batch["valid"].sum())
+    err = float((got[:n].cpu() - want[:n]).abs().max())
+    log(f"default config (head_dim 16, dtype=float32): served "
+        f"{len(res)} requests in {wall:.3f}s; greedy vs oracle: "
+        f"{', '.join(verdicts)}; decode_flat on the card vs the plain step "
+        f"on the CPU: max_abs_err={err:.3e} (tol {F32_LOGIT_TOL}); "
+        f"launches {launches}")
+    check(bool(torch.isfinite(got[:n]).all()),
+          "default config: non-finite logits")
+    check(err <= F32_LOGIT_TOL, "default config: the kernel path disagrees "
+          "with the plain step")
+    return launches
 
 
 def run_quant_phase(torch, rng, np_params, kernels, dtype):
@@ -1257,21 +1326,108 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
     return launches
 
 
+# template arguments that are builtin types, as the Itanium ABI mangles them
+_BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
+
+
+def _template_args(s):
+    """The arguments of a mangled template argument list ``I...E`` at the
+    start of ``s`` (integer and bool literals, builtin types, source and
+    nested names, a nested name by its last part), or None."""
+    if not s.startswith("I"):
+        return None
+    args, i = [], 1
+    while i < len(s) and s[i] != "E":
+        lit = re.match(r"L[ib](\d+)E", s[i:])
+        num = re.match(r"\d+", s[i:])
+        if lit:
+            args.append(lit.group(1))
+            i += lit.end()
+        elif s[i] in _BUILTIN_ARGS:
+            args.append(_BUILTIN_ARGS[s[i]])
+            i += 1
+        elif num:
+            j = i + num.end()
+            args.append(s[j:j + int(num.group())])
+            i = j + int(num.group())
+        elif s[i] == "N":
+            i, last = i + 1, "?"
+            while i < len(s) and s[i] != "E":
+                sub = re.match(r"S[0-9A-Z]*_", s[i:])
+                num = re.match(r"\d+", s[i:])
+                if sub:
+                    i += sub.end()
+                elif num:
+                    j = i + num.end()
+                    last = s[j:j + int(num.group())]
+                    i = j + int(num.group())
+                else:
+                    i += 1
+            args.append(last)
+            i += 1
+        else:
+            return None
+    return args
+
+
 def kernel_name(mangled):
-    """``flash_dkv_kernel<64>`` for a mangled ``..16flash_dkv_kernelILi64E..``
-    (a length-prefixed name ending in ``_kernel`` and its integer or bool
+    """``flash_dkv_kernel<64>`` for a mangled ``..16flash_dkv_kernelILi64E..``,
+    ``paged_ring_kernel<int8,1,2,0,FlatTiles>`` for one with type
+    arguments (a length-prefixed name ending in ``_kernel`` and its
     template arguments); the mangled name where none is found."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(m.start(), m.end()):
             end = m.end() + int(mangled[i:m.end()])
             name = mangled[m.end():end]
             if name.endswith("_kernel") and name.isidentifier():
-                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                args = _template_args(mangled[end:])
                 if args:
-                    name += "<" + ",".join(re.findall(
-                        r"L[ib](\d+)E", args.group(1))) + ">"
+                    name += "<" + ",".join(args) + ">"
                 return name
     return mangled
+
+
+def ring_usage(kernels, page_dtype, chunk, D=64):
+    """``(registers, (spill stores, spill loads))`` of the staged paged
+    kernel's instantiation for ``page_dtype`` pages at head dim ``D``,
+    from this process's build log, or None where it built nothing."""
+    t = {"float32": "f32", "int8": "int8",
+         "float8_e4m3fn": "__nv_fp8_e4m3"}[page_dtype]
+    name = (f"paged_ring_kernel<{t},{int(page_dtype != 'float32')},"
+            f"{-(-D // 32)},{int(D % 32 != 0)},"
+            f"{'ChunkTiles' if chunk else 'FlatTiles'}>")
+    for k, regs, spill in ptxas_usage(kernels.build_logs.get(
+            "ragged_flat", "")):
+        if k == name:
+            return regs, spill
+    return None
+
+
+def ring_note(kernels, ra, page_dtype, rows, Q, H, D, bs, MB):
+    """The staged kernel's plan, shared bytes per CTA, registers and
+    spills for one launch, as a dict and as text; fails on a spill."""
+    import torch
+    dt = {"float32": torch.float32, "int8": torch.int8,
+          "float8_e4m3fn": torch.float8_e4m3fn}[page_dtype]
+    heads, splits, stages, subs = ra.paged_plan(rows, Q, H, D, bs, MB, dt)
+    smem = ra.ring_smem_bytes(bs, heads, D, dt, min(Q, 16), stages, MB,
+                              subs)[1]
+    use = ring_usage(kernels, page_dtype, Q > 1 or page_dtype == "float32",
+                     D)
+    note = dict(plan=dict(heads=heads, splits=splits, stages=stages,
+                          subs=subs), smem_bytes=smem,
+                registers=None if use is None else use[0],
+                spill_bytes=None if use is None else [int(x) for x in
+                                                      use[1]])
+    text = (f"plan heads={heads} splits={splits} stages={stages} "
+            f"subs={subs}, {smem} B shared per CTA, "
+            + ("registers not in this build's log" if use is None else
+               f"{use[0]} registers, spill stores/loads "
+               f"{use[1][0]}/{use[1][1]} B"))
+    if use is not None:
+        check(use[1] == ("0", "0"), f"the staged kernel spills at D={D}: "
+              f"{text}")
+    return note, text
 
 
 def ptxas_usage(text):
@@ -1351,6 +1507,8 @@ def main():
     # 6. paged decode through the model interface
     counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)
     add(counts)
+    # 6b. the reference's default config (head dim 16), dtype="float32"
+    add(run_default_config_phase(torch, rng, kernels))
     del np_params
     # 7. op front end and rtc
     counts, rtc_rows = run_op_phase(torch, timer, rng, decoded)

@@ -41,9 +41,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "ragged_flat": {
         "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
-        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
-        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 7 + [_F, _P],
-        "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
+        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 11 + [_F, _P],
+        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 11 + [_F, _P],
+        "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 11 + [_F, _P],
         "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
     },
     "wq_matmul": {

@@ -27,6 +27,14 @@ scores are ``-1e30``, never ``-inf``; the denominator is floored at
 keys (``out`` is the mean of ``v``), as the JAX kernel gives when no key
 padding is added. The kernels mask the ragged edge themselves: keys past
 ``Tk`` and queries past ``Tq`` take no part, with no padded copy.
+
+The kernels are instantiated for head dims 16, 32, 64 and 128. Any other
+``D <= 128`` runs at the next of those: the wrappers zero-pad q, k, v
+(and dout) along ``D``, pass the scale of the true ``D`` and slice the
+outputs back. That is exact: zero columns add nothing to a score, and
+the padded output and gradient columns are dropped. ``D > 128`` raises
+(a 64-row tile at ``D = 256`` does not fit one SM's shared memory in the
+forward, nor dK/dV in the registers of the backward).
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ __all__ = ["attention_reference", "flash_forward_reference",
            "flash_backward_reference", "flash_bwd_dkv_reference",
            "flash_bwd_dq_reference", "flash_forward", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_backward", "flash_attention",
-           "scaled_dot_product_attention", "KERNEL_NAMES"]
+           "scaled_dot_product_attention", "kernel_head_dim",
+           "KERNEL_NAMES"]
 
 _NEG_INF = -1e30
 # launch-counter names of the three kernels (forward, dK/dV, dQ)
@@ -185,9 +194,9 @@ def _check_cuda(q, k, v, bias, dout=None, lse=None, delta=None):
         raise ValueError(f"no flash attention kernel for {q.device}")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim "
-                         f"{_HEAD_DIMS}, got {D}")
+    if not 1 <= D <= _HEAD_DIMS[-1]:
+        raise ValueError(f"flash attention kernels take head_dim 1 to "
+                         f"{_HEAD_DIMS[-1]}, got {D}")
     dev, f32, req = q.device, torch.float32, kernels.require
     req(q, "q", f32, (B, H, Tq, D), dev)
     req(k, "k", f32, (B, H, Tk, D), dev)
@@ -205,6 +214,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def kernel_head_dim(D):
+    """The instantiated head dim a kernel runs ``D`` at: the least of
+    16, 32, 64, 128 that is ``>= D``."""
+    return next(d for d in _HEAD_DIMS if d >= D)
+
+
+def _pad(x, Dp):
+    """``x`` zero-padded along its last axis to ``Dp``."""
+    if x.shape[-1] == Dp:
+        return x
+    return torch.nn.functional.pad(x, (0, Dp - x.shape[-1]))
+
+
+def _unpad(x, D):
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
+
+
 def flash_forward(q, k, v, bias, causal, scale):
     """Forward kernel wrapper: ``(out, lse (B*H, Tq))``. CPU tensors take
     the plain twin; CUDA tensors (f32, contiguous) launch ``flash_fwd``
@@ -213,18 +239,20 @@ def flash_forward(q, k, v, bias, causal, scale):
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, bias, causal, scale)
     B, H, Tq, Tk, D = _check_cuda(q, k, v, bias)
+    Dp = kernel_head_dim(D)
+    q, k, v = (_pad(t, Dp) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     if B * H * Tq == 0:
-        return out, lse
+        return _unpad(out, D), lse
     lib = kernels.library("flash_attention")
     rc = lib.mxt_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                _ptr(bias), out.data_ptr(), lse.data_ptr(),
-                               B * H, H, Tq, Tk, D, int(bool(causal)),
+                               B * H, H, Tq, Tk, Dp, int(bool(causal)),
                                scale, kernels.stream_handle(q.device))
     kernels.check(rc, "mxt_flash_fwd_f32")
     kernels.count_launch("flash_fwd")
-    return out, lse
+    return _unpad(out, D), lse
 
 
 def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
@@ -238,21 +266,23 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
     if want_dbias and bias is None:
         raise ValueError("want_dbias needs a bias")
     B, H, Tq, Tk, D = _check_cuda(q, k, v, bias, dout, lse, delta)
+    Dp = kernel_head_dim(D)
+    q, k, v, dout = (_pad(t, Dp) for t in (q, k, v, dout))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     dbias = (torch.empty((B * H, Tk), dtype=torch.float32,
                          device=q.device) if want_dbias else None)
     if B * H * Tk == 0:
-        return dk, dv, dbias
+        return _unpad(dk, D), _unpad(dv, D), dbias
     lib = kernels.library("flash_attention")
     rc = lib.mxt_flash_dkv_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dk.data_ptr(),
-        dv.data_ptr(), _ptr(dbias), B * H, H, Tq, Tk, D,
+        dv.data_ptr(), _ptr(dbias), B * H, H, Tq, Tk, Dp,
         int(bool(causal)), scale, kernels.stream_handle(q.device))
     kernels.check(rc, "mxt_flash_dkv_f32")
     kernels.count_launch("flash_bwd_dkv")
-    return dk, dv, dbias
+    return _unpad(dk, D), _unpad(dv, D), dbias
 
 
 def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal, scale):
@@ -262,18 +292,20 @@ def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal, scale):
         return flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta,
                                       causal, scale)
     B, H, Tq, Tk, D = _check_cuda(q, k, v, bias, dout, lse, delta)
+    Dp = kernel_head_dim(D)
+    q, k, v, dout = (_pad(t, Dp) for t in (q, k, v, dout))
     dq = torch.empty_like(q)
     if B * H * Tq == 0:
-        return dq
+        return _unpad(dq, D)
     lib = kernels.library("flash_attention")
     rc = lib.mxt_flash_dq_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dq.data_ptr(),
-        B * H, H, Tq, Tk, D, int(bool(causal)), scale,
+        B * H, H, Tq, Tk, Dp, int(bool(causal)), scale,
         kernels.stream_handle(q.device))
     kernels.check(rc, "mxt_flash_dq_f32")
     kernels.count_launch("flash_bwd_dq")
-    return dq
+    return _unpad(dq, D)
 
 
 def flash_backward(q, k, v, bias, out, lse, dout, causal, scale,

@@ -27,7 +27,11 @@ pointing at the null block 0). Three shapes, one kernel source
   :func:`ragged_chunk_attention_reference`.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. Each launch counts under its kernel's name in
+or raises. The kernels take every head dim from 1 to 256. The quantised
+flat kernel and the chunk kernel stage pages through shared memory and
+split a row's pages over a thread-block cluster, by the launch plan of
+:func:`paged_plan`; :func:`page_shares` is the split the kernel makes.
+Each launch counts under its kernel's name in
 :func:`mxnet_tpu_torch.kernels.launch_counts`. ``ragged_paged_attention``
 is also the registered op ``nd.ragged_paged_attention``
 (non-differentiable, as in the JAX package).
@@ -41,6 +45,8 @@ reaches a valid output.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import kernels
@@ -50,7 +56,8 @@ from .registry import register
 __all__ = ["ragged_flat_attention", "ragged_flat_attention_reference",
            "ragged_paged_attention", "ragged_attention_reference",
            "ragged_chunk_attention_reference", "gather_rows",
-           "kernel_name", "CHUNK_KERNEL", "DECODE_KERNEL"]
+           "kernel_name", "paged_plan", "page_shares", "live_pages",
+           "ring_smem_bytes", "CHUNK_KERNEL", "DECODE_KERNEL"]
 
 # launch-counter names of the chunk (K4) and decode (K5) kernels
 CHUNK_KERNEL = "chunk_attention"
@@ -68,6 +75,114 @@ _KERNELS = {
 def kernel_name(page_dtype):
     """Launch-counter name of the kernel for pages of ``page_dtype``."""
     return _KERNELS[page_dtype][1]
+
+
+MAX_HEAD_DIM = 256
+# the staged kernel (csrc/ragged_flat.cu paged_ring_kernel): query
+# tokens per CTA, warps per CTA, most heads per CTA, ring stages, the
+# CTAs one launch should put on the card's 132 SMs (a CTA's page walk is
+# a chain of dependent steps, so the card wants many short walks in
+# flight: 8 an SM), the largest cluster (the portable size), the largest
+# stage of sub-walk pages; shared memory that lets two CTAs share an SM
+# (228 KB an SM, 1 KB reserved per CTA) and the most one CTA may take
+_Q_TILE = 16
+_RING_WARPS = 8
+_MAX_HEADS = 4
+_MAX_STAGES = 4
+_SMS = 132
+_TARGET_CTAS = 8 * _SMS
+_MAX_SPLITS = 8
+_MAX_STAGE = 32 * 1024
+_TWO_PER_SM = 228 * 1024 // 2 - 1024
+_MAX_SMEM = 232448
+
+
+def _a16(n):
+    return -(-n // 16) * 16
+
+
+def ring_smem_bytes(bs, heads, D, page_dtype, qt, stages, MB, subs=1):
+    """``(stage bytes, shared bytes per CTA)`` of the staged kernel
+    (``RingLayout`` in ``csrc/ragged_flat.cu``): a stage holds one page
+    per sub-walk, each page's K and V for ``heads`` heads (and, for
+    int8/fp8 pages, both ``[bs, heads]`` f32 scale tiles); the CTA adds
+    its q tile, the (m, l, acc) of each of the ``subs`` sub-walks of its
+    ``qt * heads`` (token, head) pairs and its share's page ids (at most
+    ``MB``)."""
+    elem = page_dtype.itemsize
+    pairs = qt * heads
+    sc = 0 if page_dtype == torch.float32 else _a16(bs * heads * 4)
+    stage = subs * (2 * _a16(bs * heads * D * elem) + 2 * sc)
+    state = _a16(4 * (pairs * D * (1 + subs) + 2 * subs * pairs + MB))
+    return stage, state + stages * stage
+
+
+@functools.lru_cache(maxsize=256)
+def paged_plan(rows, Q, H, D, bs, MB, page_dtype):
+    """The staged kernel's launch plan: ``(heads per CTA, splits, stages,
+    subs)``. ``rows`` query rows of ``Q`` tokens each (packed tokens:
+    ``Q = 1``); a CTA takes up to 16 tokens of a row and ``heads`` heads,
+    ``pairs = tokens x heads`` (token, head) pairs.
+
+    - heads: the largest divisor of ``H`` up to 4 that keeps a CTA at
+      <= 16 pairs (one head for a 16-token chunk) and two or more ring
+      stages within the shared memory that lets two CTAs share an SM;
+    - splits: 1 when the CTAs already number 8 x 132, else enough for
+      that, at most 8 (one cluster) and at most ``MB``;
+    - subs: where even 8 splits leave fewer CTAs than that, each pair
+      gets up to ``8 // pairs`` warps (sub-walks, each taking every
+      subs-th page of the share), as long as a stage of ``subs`` pages
+      stays within 32 KB;
+    - stages: as many, up to 4, as that memory holds.
+
+    Raises ``ValueError`` when one head of a page does not fit."""
+    qt = min(Q, _Q_TILE)
+
+    def stages_for(heads, subs, budget):
+        return next((n for n in range(_MAX_STAGES, 1, -1)
+                     if ring_smem_bytes(bs, heads, D, page_dtype, qt, n, MB,
+                                        subs)[1] <= budget), None)
+    heads = next((h for h in range(min(H, _MAX_HEADS), 0, -1)
+                  if H % h == 0 and (h == 1 or qt * h <= _Q_TILE)
+                  and stages_for(h, 1, _TWO_PER_SM)), None)
+    if heads is None:
+        if stages_for(1, 1, _MAX_SMEM) is None:
+            raise ValueError(
+                f"block_size {bs} x head_dim {D}: two pages of one head "
+                f"do not fit the paged kernel's shared memory")
+        return 1, min(_MAX_SPLITS, MB), 2, 1
+    ctas = rows * -(-Q // _Q_TILE) * (H // heads)
+    splits = 1 if ctas >= _TARGET_CTAS else min(
+        _MAX_SPLITS, MB, -(-_TARGET_CTAS // ctas))
+    subs = 1
+    if ctas * splits < _TARGET_CTAS:
+        page = ring_smem_bytes(bs, heads, D, page_dtype, qt, 1, MB)[0]
+        subs = next(n for n in range(max(1, _RING_WARPS // (qt * heads)),
+                                     0, -1)
+                    if n == 1 or (n * page <= _MAX_STAGE
+                                  and stages_for(heads, n, _TWO_PER_SM)))
+    return heads, splits, stages_for(heads, subs, _TWO_PER_SM), subs
+
+
+def live_pages(horizon, bs, MB):
+    """Pages of a row a token at causal ``horizon`` reads: those holding
+    a position ``<= horizon``, within the row's ``MB`` table entries."""
+    return 0 if horizon < 0 else min(MB, horizon // bs + 1)
+
+
+def page_shares(n_pages, splits):
+    """The kernel's kv split: ``[(first, end), ...]`` per cluster rank,
+    contiguous shares of ``ceil(n_pages / splits)`` pages (the last ones
+    shorter or empty)."""
+    share = -(-n_pages // splits)
+    return [(min(n_pages, r * share), min(n_pages, (r + 1) * share))
+            for r in range(splits)]
+
+
+def _check_head_dim(D):
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"paged attention kernels take head_dim 1 to "
+                         f"{MAX_HEAD_DIM}, got {D}")
 
 
 def gather_rows(pool, idx):
@@ -111,9 +226,7 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
     S, MB = block_tables.shape
     dev = q.device
     quant = k_scales is not None
-    if D not in (32, 64, 128, 256):
-        raise ValueError(f"flat attention kernel takes head_dim 32, 64, "
-                         f"128 or 256, got {D}")
+    _check_head_dim(D)
     fn, counter = _KERNELS.get(k_pages.dtype, (None, None))
     if fn is None or (k_pages.dtype == torch.float32) == quant:
         raise TypeError(f"unsupported page dtype {k_pages.dtype} "
@@ -137,8 +250,9 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
     ptrs += [block_tables.data_ptr(), seq_ids.data_ptr(),
              positions.data_ptr(), out.data_ptr()]
-    rc = getattr(lib, fn)(*ptrs, T, H, D, bs, N, S, MB, float(scale),
-                          kernels.stream_handle(dev))
+    plan = paged_plan(T, 1, H, D, bs, MB, k_pages.dtype) if quant else ()
+    rc = getattr(lib, fn)(*ptrs, T, H, D, bs, N, S, MB, *plan,
+                          float(scale), kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out
@@ -216,9 +330,7 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
     H, D = q.shape[-2:]
     N, bs = k_pages.shape[0], k_pages.shape[1]
     dev = q.device
-    if D not in (32, 64, 128, 256):
-        raise ValueError(f"paged attention kernel takes head_dim 32, 64, "
-                         f"128 or 256, got {D}")
+    _check_head_dim(D)
     req = kernels.require
     req(q, "q", torch.float32, (S, Q, H, D) if chunked else (S, H, D), dev)
     req(k_pages, "k_pages", torch.float32, (N, bs, H, D), dev)
@@ -237,7 +349,9 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
         rc = lib.mxt_ragged_chunk_f32(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
-            out.data_ptr(), S, Q, H, D, bs, N, MB, float(scale), stream)
+            out.data_ptr(), S, Q, H, D, bs, N, MB,
+            *paged_plan(S, Q, H, D, bs, MB, torch.float32), float(scale),
+            stream)
     else:
         fn, counter = "mxt_ragged_decode_f32", DECODE_KERNEL
         rc = lib.mxt_ragged_decode_f32(

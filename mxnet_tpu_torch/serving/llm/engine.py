@@ -128,6 +128,9 @@ class LLMEngine:
     Config resolution: constructor arg > ``MXNET_TPU_LLM_*`` env var >
     default. ``max_context`` must be a multiple of ``block_size``;
     ``num_blocks`` must leave room for one full-context sequence.
+    ``dtype`` is the float type of the KV pools and the fallback of
+    ``kv_dtype``, in the reference's position: ``"float32"`` only
+    (bf16 pools raise ``NotImplementedError``).
     ``kv_dtype`` (``MXNET_TPU_LLM_KV_DTYPE``): ``float32`` (default),
     ``int8`` or ``fp8``; ``weight_dtype``
     (``MXNET_TPU_LLM_WEIGHT_DTYPE``): ``int8`` or ``fp8`` quantizes a
@@ -137,11 +140,11 @@ class LLMEngine:
 
     def __init__(self, model, params, max_seqs=None, block_size=None,
                  num_blocks=None, max_context=None, prefill_chunk=None,
-                 stats=None, breaker=None,
-                 prefix_cache=None, kv_dtype=None, weight_dtype=None,
-                 weight_calib=None, device="cuda", draft_model=None,
-                 draft_params=None, spec_k=None, draft_weight_dtype=None,
-                 adapter_bank=None, mesh=None):
+                 draft_model=None, draft_params=None, spec_k=None,
+                 stats=None, dtype="float32", breaker=None,
+                 prefix_cache=None, kv_dtype=None, adapter_bank=None,
+                 mesh=None, weight_dtype=None, weight_calib=None,
+                 draft_weight_dtype=None, device="cuda"):
         deferred = dict(draft_model=draft_model, draft_params=draft_params,
                         spec_k=spec_k,
                         draft_weight_dtype=draft_weight_dtype,
@@ -151,6 +154,12 @@ class LLMEngine:
                 raise NotImplementedError(
                     f"{arg}=: {_DEFERRED[arg]} is not ported to the "
                     f"PyTorch engine yet (ROADMAP.md, section 1)")
+        if dtype not in ("float32", torch.float32):
+            raise NotImplementedError(
+                f"dtype={dtype!r}: the KV pools and paged kernels take "
+                f"float32 (or int8/fp8 through kv_dtype) only; bf16 KV "
+                f"pages are queued in ROADMAP.md section 2 (bf16 KV pages "
+                f"for K1, K4 and K5)")
         self.device = resolve_device(device)
         if getattr(model, "device", self.device) != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

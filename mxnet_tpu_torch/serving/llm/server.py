@@ -80,7 +80,7 @@ class LLMServer:
     ``model``/``params``: a :class:`~.model.TinyDecoder` and its param
     tree (or a :class:`~.quant.QuantizedWeights`). Engine kwargs
     (``max_seqs``, ``block_size``, ``num_blocks``, ``max_context``,
-    ``prefill_chunk``, ``kv_dtype``, ``weight_dtype``,
+    ``prefill_chunk``, ``dtype``, ``kv_dtype``, ``weight_dtype``,
     ``prefix_cache``, ``device``) pass through to
     :class:`~.engine.LLMEngine`. Overload knobs: ``max_queue``
     (``MXNET_TPU_SERVE_MAX_QUEUE``), ``deadline_ms``

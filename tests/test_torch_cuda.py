@@ -170,11 +170,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         tra.ragged_flat_attention(**dict(
             t, block_tables=t["block_tables"].long()))
+    # every head dim up to 256 is taken; 264 is not
+    big = _attention_inputs("float32", cuda, H=2, D=264, n_blocks=32)
     with pytest.raises(ValueError, match="head_dim"):
-        tra.ragged_flat_attention(**dict(
-            t, q=t["q"][..., :16].contiguous(),
-            k_pages=t["k_pages"][..., :16].contiguous(),
-            v_pages=t["v_pages"][..., :16].contiguous()))
+        tra.ragged_flat_attention(**big)
     q, s = tquant.quantize_leaf(np.eye(64, dtype=np.float32), "int8")
     with pytest.raises(ValueError, match="on cpu"):
         tqz.quantized_matmul(torch.ones(2, 64, device=cuda), q, s)
@@ -331,9 +330,10 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         tfa.flash_forward(q.double(), k.double(), v.double(), None, False,
                           None)
+    # every head dim up to 128 is taken (padded); 256 is not
+    q2, k2, v2, _, _ = _flash_inputs(cuda, 1, 2, 8, 8, 256, False)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_forward(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                          v[..., :48].contiguous(), None, False, None)
+        tfa.flash_forward(q2, k2, v2, None, False, None)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v, bias, False, None)
@@ -417,10 +417,9 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda, chunk):
     with pytest.raises(ValueError, match="contiguous"):
         call(**dict(t, k_pages=t["k_pages"].transpose(2, 3)
                     .contiguous().transpose(2, 3)))
+    big = _paged_inputs(cuda, chunk, H=1, D=264)
     with pytest.raises(ValueError, match="head_dim"):
-        call(**dict(t, q=t["q"][..., :16].contiguous(),
-                    k_pages=t["k_pages"][..., :16].contiguous(),
-                    v_pages=t["v_pages"][..., :16].contiguous()))
+        call(**big)
 
 
 @pytest.fixture
@@ -469,3 +468,151 @@ def test_rtc_square_gradient_and_no_second_build(cuda, rtc_ops):
         from mxnet_tpu_torch.ops.registry import _REGISTRY
         for n in again.values():
             _REGISTRY.pop(n, None)
+
+
+# -------------------------------------------- every head dim up to 256 --
+def _ring_flat_case(dev, dtype, D, H=4, seed=0):
+    """Packed tokens over fragmented tables at kv lengths 15/16/17/1024
+    (positions 14/15/16/1023) and mid-page, one corrupt table entry
+    (clamped into the pool by the kernel; the plain twin gets the clamped
+    table)."""
+    rng = np.random.RandomState(seed)
+    S, MB = 4, 64
+    N = S * MB + 3
+    tables = rng.permutation(np.arange(1, N)).astype(np.int32)[
+        :S * MB].reshape(S, MB)
+    seq_ids = np.array([0, 1, 2, 3, 3, 2, 1], np.int32)
+    positions = np.array([14, 15, 16, 1023, 700, 33, 0], np.int32)
+    q = rng.randn(len(seq_ids), H, D).astype(np.float32)
+    kf, vf = (torch.from_numpy(rng.randn(N, BS, H, D).astype(np.float32))
+              for _ in range(2))
+    t = dict(q=torch.from_numpy(q), seq_ids=torch.from_numpy(seq_ids),
+             positions=torch.from_numpy(positions))
+    if dtype == "float32":
+        t["k_pages"], t["v_pages"] = kf, vf
+    else:
+        dt = torch.int8 if dtype == "int8" else torch.float8_e4m3fn
+        for name, x in (("k", kf), ("v", vf)):
+            xq, sc = _quantize_kv(x.reshape(-1, H, D), dt)
+            t[f"{name}_pages"] = xq.reshape(N, BS, H, D)
+            t[f"{name}_scales"] = sc.reshape(N, BS, H)
+    clamped = torch.from_numpy(tables.copy())
+    tables[3, 10] = 10 ** 7
+    tables[3, 11] = -5
+    clamped[3, 10], clamped[3, 11] = N - 1, 0
+    t["block_tables"] = torch.from_numpy(tables)
+    t = {k: v.to(dev) for k, v in t.items()}
+    return t, dict(t, block_tables=clamped.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(16, 4), (48, 4), (64, 4), (96, 4),
+                                 (256, 4), (15, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "fp8"])
+def test_flat_kernels_every_head_dim(cuda, D, H, dtype):
+    """K1 (f32) and the staged K2 (int8, fp8) against the plain twin;
+    two launches give the same bits. At D=15 with 3 heads a staged slot
+    run is 45 bytes: the pages are copied a byte at a time."""
+    t, ref = _ring_flat_case(cuda, dtype, D, H=H)
+    name = tra.kernel_name(t["k_pages"].dtype)
+    before = kernels.launch_counts().get(name, 0)
+    got = tra.ragged_flat_attention(**t)
+    again = tra.ragged_flat_attention(**t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    want = tra.ragged_flat_attention_reference(**ref)
+    assert float((got - want).abs().max()) < ATT_TOL
+    assert torch.equal(got, again)
+
+
+def _ring_chunk_case(dev, D, Q, H=4, seed=1):
+    """Chunk rows at kv lengths 15/16/17/1024 and 40 with q_len 0 (no
+    output contract), fragmented tables, a corrupt entry past the live
+    pages of row 0 (never read)."""
+    rng = np.random.RandomState(seed)
+    S, MB = 5, 64
+    N = S * MB + 2
+    tables = rng.permutation(np.arange(1, N)).astype(np.int32)[
+        :S * MB].reshape(S, MB)
+    tables[0, 5] = 10 ** 7
+    kv = np.array([15, 16, 17, 1024, 40], np.int32)
+    ql = np.minimum(Q, kv).astype(np.int32)
+    ql[4] = 0
+    t = dict(q=torch.from_numpy(rng.randn(S, Q, H, D).astype(np.float32)),
+             k_pages=torch.from_numpy(
+                 rng.randn(N, BS, H, D).astype(np.float32)),
+             v_pages=torch.from_numpy(
+                 rng.randn(N, BS, H, D).astype(np.float32)),
+             block_tables=torch.from_numpy(tables),
+             kv_lens=torch.from_numpy(kv), q_lens=torch.from_numpy(ql))
+    return {k: v.to(dev) for k, v in t.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 48, 64, 96, 256])
+@pytest.mark.parametrize("Q", [1, 16, 20])
+def test_chunk_kernel_every_head_dim(cuda, D, Q):
+    """The staged K4 on its valid tokens against the plain twin; two
+    launches give the same bits; K5 on the same pools at Q=1."""
+    t = _ring_chunk_case(cuda, D, Q)
+    before = kernels.launch_counts().get(tra.CHUNK_KERNEL, 0)
+    got = tra.ragged_paged_attention(**t)
+    again = tra.ragged_paged_attention(**t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[tra.CHUNK_KERNEL] == before + 2
+    ref = dict(t, block_tables=t["block_tables"].clamp(
+        0, t["k_pages"].shape[0] - 1))
+    want = tra.ragged_chunk_attention_reference(**ref)
+    assert float((_valid(t, got) - _valid(t, want)).abs().max()) < ATT_TOL
+    assert torch.equal(got, again)
+    if Q == 1:
+        d = dict(ref, q=t["q"][:, 0].contiguous())
+        d.pop("q_lens")
+        got = tra.ragged_paged_attention(**d)
+        want = tra.ragged_attention_reference(**d)
+        assert float((got - want).abs().max()) < ATT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_pad_other_head_dims(cuda, D, causal):
+    q, k, v, bias, dout = _flash_inputs(cuda, 2, 3, 70, 90, D, True)
+    scale = D ** -0.5
+    out, lse = tfa.flash_forward(q, k, v, bias, causal, None)
+    assert out.shape == q.shape and out.is_contiguous()
+    wo, wl = tfa.flash_forward_reference(q, k, v, bias, causal, scale)
+    assert _rel(out, wo) < FLASH_TOL
+    assert _rel(lse, wl) < FLASH_TOL
+    got = tfa.flash_backward(q, k, v, bias, out, lse, dout, causal, None)
+    want = tfa.flash_backward_reference(q, k, v, bias, wo, wl, dout,
+                                        causal, scale)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel(a, b) < FLASH_TOL
+
+
+@pytest.mark.cuda
+def test_default_decoder_config_serves_through_the_kernels(cuda):
+    """The reference's default DecoderConfig (head dim 16) through
+    LLMServer with dtype="float32": the greedy oracle's streams."""
+    from mxnet_tpu_torch.serving.llm import (LLMServer, TinyDecoder,
+                                             greedy_decode_reference)
+    model = TinyDecoder(device=cuda)
+    params = model.init_params_numpy(0)
+    srv = LLMServer(model, params, max_seqs=4, block_size=BS,
+                    dtype="float32", device=cuda)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (1, 15, 17, 40)]
+    srv.start()
+    before = kernels.launch_counts().get("flat_attention", 0)
+    try:
+        got = [f.result(timeout=120).tokens
+               for f in [srv.submit(p, 12) for p in prompts]]
+    finally:
+        srv.shutdown()
+    assert kernels.launch_counts()["flat_attention"] > before
+    p = srv.engine.params
+    assert got == [greedy_decode_reference(model, p, pr, 12)
+                   for pr in prompts]
