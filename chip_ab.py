@@ -63,7 +63,9 @@ print("AB_ROWS " + json.dumps(
                             "library_ms", "max_abs_err")} for r in rows]),
     flush=True)
 # device time of each group of kernels (by name, in either tree's design;
-# the paged kernels by template, demangled or not)
+# the paged kernels by template and query type, demangled or not: K1 is
+# paged_attention_kernel with FlatQuery before the staged design and
+# paged_ring_kernel with FlatTiles after it)
 PAGED = ("paged_attention_kernel", "paged_ring_kernel")
 
 
@@ -75,7 +77,7 @@ def paged(types, queries):
 
 FLOAT = ("kernel<float", "kernelIf")
 BYTES = ("kernel<signed char", "kernelIa", "__nv_fp8_e4m3")
-GROUPS = {"quant": {"K1": paged(FLOAT, ("FlatQuery",)),
+GROUPS = {"quant": {"K1": paged(FLOAT, ("FlatQuery", "FlatTiles")),
                     "K2": paged(BYTES, ("FlatQuery", "FlatTiles")),
                     "K3": ("wq_mma_kernel", "wq_matmul_kernel",
                            "split_sum_kernel")},

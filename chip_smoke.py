@@ -17,11 +17,14 @@ Phases, one line of output each (or more), in order:
    launches), and the least time the card could take; the flash
    attention kernels at BERT-base shapes without a mask, with the
    padding mask and causal, and for each mask the two backward kernels'
-   sum beside the library's backward (one call for dq, dk and dv); the
-   chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged attention
-   kernels at the decode phase's shapes; the staged kernels' rows (the
-   quantised flat and the chunk kernel) carry their launch plan, shared
-   bytes per CTA and ptxas's registers (a spill fails the run);
+   sum beside the library's backward (one call for dq, dk and dv), then
+   at head dims 256 (padding mask, causal) and 192 (no mask, padded to
+   256); the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
+   attention kernels at the decode phase's shapes; every paged row
+   (flat, chunk, decode: one staged kernel) carries its launch plan,
+   shared bytes per CTA and ptxas's registers (a spill at D=64 fails the
+   run); the flat and decode kernels and the D=256 flash kernels give
+   the same bits on two launches;
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -267,7 +270,8 @@ def attention_case(torch, T, page_dtype, rng):
     """Inputs of one flat-attention launch at the main path's shapes:
     8 sequences with fragmented block tables over a 513-block pool,
     T packed tokens (T/8 consecutive positions per sequence, one block
-    boundary crossed or more), positions up to 1023."""
+    boundary crossed or more: a decode step at T=8, a pack of 16-token
+    prefill chunks at T=128), positions up to 1023."""
     H, D, bs, MB, S = 12, 64, BLOCK_SIZE, 64, MAX_SEQS
     N = S * MB + 1
     perm = rng.permutation(np.arange(1, N)).astype(np.int32)
@@ -327,15 +331,19 @@ def run_kernel_phase(torch, timer, rng):
             def plain():
                 return ra.ragged_flat_attention_reference(**args)
             out_k = kern()
+            again = kern()
             torch.cuda.synchronize()
             err = float((out_k - plain()).abs().max())
             b_ms, b_by, b_f32 = bound(nbytes, flops)
             name = ra.kernel_name(args["k_pages"].dtype)
-            extra, note = {}, ""
-            if page_dtype != "float32":
-                extra, note = ring_note(kernels, ra, page_dtype, T, 1, 12,
-                                        64, BLOCK_SIZE, 64)
-                note = "; " + note
+            check(torch.equal(out_k, again), f"{name} T={T}: two launches "
+                  f"gave different bits")
+            extra, note = ring_note(kernels, ra, page_dtype, "FlatTiles",
+                                    ra.flat_plan(T, MAX_SEQS, 12, 64,
+                                                 BLOCK_SIZE, 64,
+                                                 args["k_pages"].dtype),
+                                    64, BLOCK_SIZE, 64)
+            note = "; " + note
             res = dict(name=name, route="cuda",
                        source="mxnet_tpu_torch/csrc/ragged_flat.cu",
                        replaces=("mxnet_tpu/ops/ragged_attention.py:158"
@@ -399,13 +407,13 @@ def run_kernel_phase(torch, timer, rng):
     return results
 
 
-def flash_case(torch, rng, padding, causal):
-    """Inputs of one attention layer of the BERT-base training step
-    (B=8, H=12, T=512, D=64): q, k, v and dout, with the padding bias of
-    ``valid_length`` drawn in [T/4, T] = [128, 512] or none; and the
+def flash_case(torch, rng, padding, causal, shape):
+    """Inputs of one attention layer at ``shape`` (B, H, T, D; the BERT-
+    base training step's is (8, 12, 512, 64)): q, k, v and dout, with the
+    padding bias of ``valid_length`` drawn in [T/4, T] or none; and the
     (query, key) pairs the function must visit (pairs a mask drops need
     no work)."""
-    B, H, T, D = BERT_BATCH, BERT_BASE["num_heads"], BERT_T, 64
+    B, H, T, D = shape
     q, k, v, dout = (torch.from_numpy(
         rng.randn(B, H, T, D).astype(np.float32)).to(DEVICE)
         for _ in range(4))
@@ -427,23 +435,37 @@ def rel_err(got, want):
     return err, err / max(1.0, float(want.abs().max()))
 
 
+# the flash kernel phase's shapes: BERT-base's attention layer, then head
+# dim 256 (the 32-row-tile instantiation) and 192 (padded to 256) at a
+# size that keeps the phase short
+BERT_ATTENTION = (BERT_BATCH, BERT_BASE["num_heads"], BERT_T, 64)
+FLASH_WIDE = ((2, 8, 512, 256), (2, 8, 512, 192))
+
+
 def run_flash_kernel_phase(torch, timer, rng):
-    """K6 (forward), K7a (dK/dV/dbias) and K7b (dQ) at BERT-base shapes
-    against their plain twins; library: torch's fused attention (SDPA)
-    with the same additive mask, and that call's backward (which
-    computes dq, dk and dv together: it is set beside both K7 rows)."""
+    """K6 (forward), K7a (dK/dV/dbias) and K7b (dQ) at BERT-base shapes,
+    then at head dims 256 and 192, against their plain twins (at D=256
+    also: two launches give the same bits); library: torch's fused
+    attention (SDPA) with the same additive mask, and that call's
+    backward (which computes dq, dk and dv together: it is set beside
+    both K7 rows)."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, H, T, D = BERT_BATCH, BERT_BASE["num_heads"], BERT_T, 64
-    scale = 1.0 / D ** 0.5
     src = "mxnet_tpu_torch/csrc/flash_attention.cu"
     tpu = "mxnet_tpu/ops/flash_attention.py"
-    bhtd = 4 * B * H * T * D
     results = []
-    for label, padding, causal in (("no mask", False, False),
-                                   ("padding mask", True, False),
-                                   ("causal", False, True)):
-        a, dout, pairs = flash_case(torch, rng, padding, causal)
+    wide256, wide192 = FLASH_WIDE
+    for label, padding, causal, shape in (
+            ("no mask", False, False, BERT_ATTENTION),
+            ("padding mask", True, False, BERT_ATTENTION),
+            ("causal", False, True, BERT_ATTENTION),
+            ("padding mask", True, False, wide256),
+            ("causal", False, True, wide256),
+            ("no mask", False, False, wide192)):
+        B, H, T, D = shape
+        scale = 1.0 / D ** 0.5
+        bhtd = 4 * B * H * T * D
+        a, dout, pairs = flash_case(torch, rng, padding, causal, shape)
         bias = a["bias"]
         bias_bytes = 0 if bias is None else 4 * B * T
         out, lse = fa.flash_forward(**a, scale=scale)
@@ -457,6 +479,15 @@ def run_flash_kernel_phase(torch, timer, rng):
         torch.cuda.synchronize()
         ref_kv = fa.flash_bwd_dkv_reference(**bw, want_dbias=want_db)
         ref_q = fa.flash_bwd_dq_reference(**bw)
+        if D == 256:
+            again = (fa.flash_forward(**a, scale=scale)
+                     + fa.flash_bwd_dkv(**bw, want_dbias=want_db)
+                     + (fa.flash_bwd_dq(**bw),))
+            first = (out, lse) + tuple(got_kv) + (got_q,)
+            check(all(x is None and y is None or torch.equal(x, y)
+                      for x, y in zip(first, again)),
+                  f"flash kernels at D=256, {label}: two launches gave "
+                  f"different bits")
         errs = {
             "flash_fwd": [rel_err(out, ref_out), rel_err(lse, ref_lse)],
             "flash_bwd_dkv": [rel_err(g, r) for g, r in
@@ -590,16 +621,19 @@ def run_paged_kernel_phase(torch, timer, rng):
                 return ra.ragged_attention_reference(**args)
             return ra.ragged_chunk_attention_reference(**args)
         out_k = kern()
+        again = kern()
         torch.cuda.synchronize()
         err = float((out_k - plain())[valid].abs().max())
         b_ms, b_by, b_f32 = bound(nbytes, flops)
         shape = (f"S={S}," + ("" if Q is None else f"Q={Q},")
                  + "H=12,D=64,bs=16,MB=64")
-        extra, note = {}, ""
-        if Q is not None:
-            extra, note = ring_note(kernels, ra, "float32", S, Q, 12, 64,
-                                    BLOCK_SIZE, 64)
-            note = "; " + note
+        check(torch.equal(out_k, again), f"{name} {shape}: two launches "
+              f"gave different bits")
+        extra, note = ring_note(
+            kernels, ra, "float32", "ChunkTiles", (min(Q or 1, 16),)
+            + ra.paged_plan(S, Q or 1, 12, 64, BLOCK_SIZE, 64,
+                            torch.float32), 64, BLOCK_SIZE, 64)
+        note = "; " + note
         res = dict(name=name, route="cuda",
                    source="mxnet_tpu_torch/csrc/ragged_flat.cu",
                    replaces="mxnet_tpu/ops/ragged_attention.py" + line,
@@ -782,12 +816,23 @@ def run_f32_phase(torch, rng, np_params, kernels):
         f"{server.engine.weight_bytes / 1e9:.3f} GB")
     builds = compile_count()
     prompts, shared = prompts_for(rng, model.vocab_size)
+    # the packed length of each dispatch (one flat attention launch per
+    # layer each), tallied where the engine fills the step's batch
+    rungs = {}
+    build_batch = server.engine._build_batch
+
+    def tally(rows, plans, t, mb):
+        rungs[t] = rungs.get(t, 0) + 1
+        return build_batch(rows, plans, t, mb)
+    server.engine._build_batch = tally
     server.start()
     kernels.reset_launch_counts()
     res, wall = serve(torch, server, prompts, sampled_idx=(1, 5),
                       late=(3, shared))
     launches = kernels.launch_counts()
     server.shutdown()
+    server.engine._build_batch = build_batch
+    per_rung = {t: n * model.num_layers for t, n in sorted(rungs.items())}
     st = server.stats()
     n_tok = sum(len(r.tokens) for r in res)
     log(f"f32: served {len(res)} requests, {n_tok} tokens in "
@@ -797,7 +842,10 @@ def run_f32_phase(torch, rng, np_params, kernels):
         f" prefix hits {st['prefix_hits']}, COW copies "
         f"{st['kv_cache']['cow_copies']}, preemptions {st['preemptions']}")
     log(f"f32: launches {launches}, builds after warmup "
-        f"{compile_count() - builds}")
+        f"{compile_count() - builds}; flat attention launches per packed "
+        f"length {per_rung}")
+    check(sum(per_rung.values()) == launches.get("flat_attention", 0),
+          "f32: flat attention launches do not match the dispatches")
     check(all(len(r.tokens) == NEW_TOKENS for r in res),
           "f32: a request stopped short")
     check(launches.get("flat_attention", 0) > 0,
@@ -1387,15 +1435,15 @@ def kernel_name(mangled):
     return mangled
 
 
-def ring_usage(kernels, page_dtype, chunk, D=64):
+def ring_usage(kernels, page_dtype, tiles, D=64):
     """``(registers, (spill stores, spill loads))`` of the staged paged
-    kernel's instantiation for ``page_dtype`` pages at head dim ``D``,
-    from this process's build log, or None where it built nothing."""
+    kernel's instantiation for ``page_dtype`` pages, query tiles
+    ``tiles`` ("FlatTiles" or "ChunkTiles") and head dim ``D``, from
+    this process's build log, or None where it built nothing."""
     t = {"float32": "f32", "int8": "int8",
          "float8_e4m3fn": "__nv_fp8_e4m3"}[page_dtype]
     name = (f"paged_ring_kernel<{t},{int(page_dtype != 'float32')},"
-            f"{-(-D // 32)},{int(D % 32 != 0)},"
-            f"{'ChunkTiles' if chunk else 'FlatTiles'}>")
+            f"{-(-D // 32)},{int(D % 32 != 0)},{tiles}>")
     for k, regs, spill in ptxas_usage(kernels.build_logs.get(
             "ragged_flat", "")):
         if k == name:
@@ -1403,24 +1451,23 @@ def ring_usage(kernels, page_dtype, chunk, D=64):
     return None
 
 
-def ring_note(kernels, ra, page_dtype, rows, Q, H, D, bs, MB):
-    """The staged kernel's plan, shared bytes per CTA, registers and
-    spills for one launch, as a dict and as text; fails on a spill."""
+def ring_note(kernels, ra, page_dtype, tiles, plan, D, bs, MB):
+    """The staged kernel's ``plan`` (tile tokens, heads, splits, stages,
+    subs), shared bytes per CTA, registers and spills for one launch, as
+    a dict and as text; fails on a spill."""
     import torch
     dt = {"float32": torch.float32, "int8": torch.int8,
           "float8_e4m3fn": torch.float8_e4m3fn}[page_dtype]
-    heads, splits, stages, subs = ra.paged_plan(rows, Q, H, D, bs, MB, dt)
-    smem = ra.ring_smem_bytes(bs, heads, D, dt, min(Q, 16), stages, MB,
-                              subs)[1]
-    use = ring_usage(kernels, page_dtype, Q > 1 or page_dtype == "float32",
-                     D)
-    note = dict(plan=dict(heads=heads, splits=splits, stages=stages,
+    qt, heads, splits, stages, subs = plan
+    smem = ra.ring_smem_bytes(bs, heads, D, dt, qt, stages, MB, subs)[1]
+    use = ring_usage(kernels, page_dtype, tiles, D)
+    note = dict(plan=dict(qt=qt, heads=heads, splits=splits, stages=stages,
                           subs=subs), smem_bytes=smem,
                 registers=None if use is None else use[0],
                 spill_bytes=None if use is None else [int(x) for x in
                                                       use[1]])
-    text = (f"plan heads={heads} splits={splits} stages={stages} "
-            f"subs={subs}, {smem} B shared per CTA, "
+    text = (f"{tiles} plan qt={qt} heads={heads} splits={splits} "
+            f"stages={stages} subs={subs}, {smem} B shared per CTA, "
             + ("registers not in this build's log" if use is None else
                f"{use[0]} registers, spill stores/loads "
                f"{use[1][0]}/{use[1][1]} B"))
@@ -1478,7 +1525,9 @@ def main():
     t0 = time.monotonic()
     kernels.build_all()
     log(f"build: {sorted(kernels.SOURCES)} in "
-        f"{time.monotonic() - t0:.2f}s")
+        f"{time.monotonic() - t0:.2f}s (each: " + ", ".join(
+            f"{n} {t:.2f}s" for n, t in sorted(
+                kernels.build_seconds.items())) + ")")
     for name, text in sorted(kernels.build_logs.items()):
         for kernel, regs, spill in ptxas_usage(text):
             log(f"build: {name}: {kernel}: {regs} registers, spill "

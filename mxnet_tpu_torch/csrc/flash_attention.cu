@@ -38,13 +38,20 @@
 // into their accumulator, so the large and small terms go to separate
 // accumulators, started afresh for each tile of the walked operand and
 // folded into the running sums by f32 adds: no accumulator chains more
-// than D/8 (score products) or 8 (output products) large MMAs.
+// than 16 (score products: D/8, in two chains at D = 256) or 8 (output
+// products) large MMAs.
 //
-// One CTA of 4 warps per (64-row tile, b*h); warp w owns rows
-// 16w..16w+15 of the CTA's tile, the A operand of its products, and walks
-// the other operand's tiles through a 2-stage cp.async ring, carrying
-// its accumulators in registers (the TPU kernels walk the sequential
-// innermost grid axis with carried scratch instead):
+// One CTA of 4 warps per (row tile, b*h). A tile is 64 rows, or 32 at D
+// = 256, where 64 rows would need ~333 KB of shared memory in the
+// forward and 256 registers a thread for dK and dV. Warp w owns rows
+// 16(w % R)..16(w % R)+15 of the CTA's tile (R = rows / 16 row warps),
+// the A operand of its products, and columns of part w / R of the head
+// dim in the output products: at 64 rows each warp takes all of D; at
+// 32 rows two warps share each 16 rows, both form the same score tile
+// (the same instructions, so the same bits) and each accumulates half of
+// D. Each walks the other operand's tiles through a 2-stage cp.async
+// ring, carrying its accumulators in registers (the TPU kernels walk the
+// sequential innermost grid axis with carried scratch instead):
 //   forward and dQ: a query tile; Q (and dO) stay in shared memory, the
 //     ring carries K and V; dQ walks the key tiles up to the diagonal
 //     when causal, the latest query tiles (the longest walks) first.
@@ -71,17 +78,22 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;   // _NEG_INF of ops/flash_attention.py
-constexpr int kTile = 64;           // query and key tile
-constexpr int kThreads = 128;       // 4 warps, 16 rows of the tile each
+constexpr int kThreads = 128;       // 4 warps
+constexpr int kWarps = kThreads / 32;
 
-// A padded 64 x D tile in shared memory, and each kernel's shared bytes:
+// The tiles of head dim D: kRows query or key rows, each padded to D + 4
+// floats; warp w owns rows 16 (w % kRowWarps) .. + 15 and output columns
+// kCols (w / kRowWarps) .. + kCols - 1. Each kernel's shared bytes:
 // forward: Q + 2 x (K, V); dK/dV: K, V + 2 x (Q, dO, lse, delta); dQ: Q,
-// dO + 2 x (K, V)
+// dO + 2 x (K, V). At D = 256 (32 rows): 166 KB, 200 KB, 200 KB.
 template <int D>
 struct Tiles {
+  static constexpr int kRows = D > 128 ? 32 : 64;
+  static constexpr int kRowWarps = kRows / 16;
+  static constexpr int kCols = D / (kWarps / kRowWarps);
   static constexpr int kLd = D + 4;
-  static constexpr int kFloats = kTile * kLd;
-  static constexpr int kDkvStage = 2 * kFloats + 2 * kTile;
+  static constexpr int kFloats = kRows * kLd;
+  static constexpr int kDkvStage = 2 * kFloats + 2 * kRows;
   static constexpr size_t kFwdSmem = sizeof(float) * 5 * kFloats;
   static constexpr size_t kDkvSmem =
       sizeof(float) * (2 * kFloats + 2 * kDkvStage);
@@ -89,13 +101,14 @@ struct Tiles {
 };
 
 // Output products (P V, P^T dO, dS^T Q, dS K) run in this many parts of
-// D / parts columns, each from its own fresh accumulators (warp_mma3): at
-// D = 128 whole products would leave too few registers for the running
-// sums (dK and dV alone are 128 a thread). Score products run whole: at
-// D = 64 the dK/dV kernel then takes all 255 registers a thread may have
-// with no spill, where halving its score products made ptxas spill.
+// kCols / parts columns, each from its own fresh accumulators (warp_mma3):
+// at 128 columns a warp whole products would leave too few registers for
+// the running sums (dK and dV alone are 128 a thread). Score products run
+// whole: at D = 64 the dK/dV kernel then takes all 255 registers a thread
+// may have with no spill, where halving its score products made ptxas
+// spill.
 template <int D>
-constexpr int kOutParts = D >= 128 ? 4 : 1;
+constexpr int kOutParts = Tiles<D>::kCols >= 128 ? 4 : 1;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
@@ -213,40 +226,60 @@ __device__ __forceinline__ void a_frag(const float* p, int ld, int g, int t,
   split_tf32(p[(g + 8) * ld + t + 4], hi[3], lo[3]);
 }
 
-// A score tile S = A B^T of one warp (16 x 64), each element to fold(j,
-// i, x) as warp_mma3 gives it: A the warp's 16 rows at `a`, B the 64
-// rows at `b`, both padded tiles read as they lie (B(d, n) = b[n][d]);
-// each operand is split at the read. C fragment j holds rows g and g+8,
-// columns 8j + 2t and 8j + 2t + 1.
+// A score tile S = A B^T of one warp (16 x kRows), each element to
+// fold(j, i, x) as warp_mma3 gives it: A the warp's 16 rows at `a`, B the
+// kRows rows at `b`, both padded tiles read as they lie (B(d, n) =
+// b[n][d]); each operand is split at the read. C fragment j holds rows g
+// and g+8, columns 8j + 2t and 8j + 2t + 1.
 template <int D, typename Fold>
 __device__ __forceinline__ void score_mma(const float* a, const float* b,
                                           int g, int t, Fold fold) {
-  constexpr int kLd = Tiles<D>::kLd;
-  warp_mma3<D / 8, 8, 1>(
-      [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-        a_frag(a + 8 * kc, kLd, g, t, hi, lo);
-      },
-      [&](int kc, int nt, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-        const float* p = b + (8 * nt + g) * kLd + 8 * kc + t;
-        split_tf32(p[0], hi[0], lo[0]);
-        split_tf32(p[4], hi[1], lo[1]);
-      },
-      fold);
+  constexpr int kLd = Tiles<D>::kLd, NK = Tiles<D>::kRows / 8;
+  // k-chunks per accumulator chain
+  constexpr int KS = D / 8, KP = KS > 16 ? 16 : KS;
+  auto chain = [&](int k0, auto part_fold) {
+    warp_mma3<KP, NK, 1>(
+        [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+          a_frag(a + 8 * (k0 + kc), kLd, g, t, hi, lo);
+        },
+        [&](int kc, int nt, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+          const float* p = b + (8 * nt + g) * kLd + 8 * (k0 + kc) + t;
+          split_tf32(p[0], hi[0], lo[0]);
+          split_tf32(p[4], hi[1], lo[1]);
+        },
+        part_fold);
+  };
+  if constexpr (KP == KS) {
+    chain(0, fold);
+  } else {
+    // each chain from fresh accumulators, the chains summed in f32
+    float sum[NK][4];
+#pragma unroll
+    for (int k0 = 0; k0 < KS; k0 += KP)
+      chain(k0, [&](int j, int i, float x) {
+        sum[j][i] = k0 == 0 ? x : sum[j][i] + x;
+      });
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fold(j, i, sum[j][i]);
+  }
 }
 
 // The product P B of one warp, each element to fold(j, i, x): P (16 x
-// 64) in the C layout of score_mma and B the padded 64 x D tile at `b`
-// read across (B(n, d) = b[n][d]). P's C fragment holds positions 2t and
+// kRows) in the C layout of score_mma and B the kCols columns at `b` of a
+// padded kRows x D tile, read across (B(n, d) = b[n][d]); fold's j counts
+// 8-column chunks from `b`. P's C fragment holds positions 2t and
 // 2t+1 of each 8-wide chunk, where an A fragment wants t and t+4; a
 // product may take its contracted index in any order, so A's column t is
 // position 2t and column t+4 is 2t+1, and B's rows follow: b0 = b[2t],
 // b1 = b[2t+1]. P passes from the C to the A layout in registers.
 template <int D, typename Fold>
-__device__ __forceinline__ void out_mma(const float (&p)[8][4],
-                                        const float* b, int g, int t,
-                                        Fold fold) {
+__device__ __forceinline__ void out_mma(
+    const float (&p)[Tiles<D>::kRows / 8][4], const float* b, int g, int t,
+    Fold fold) {
   constexpr int kLd = Tiles<D>::kLd;
-  warp_mma3<8, D / 8, kOutParts<D>>(
+  warp_mma3<Tiles<D>::kRows / 8, Tiles<D>::kCols / 8, kOutParts<D>>(
       [&](int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
         split_tf32(p[kc][0], hi[0], lo[0]);
         split_tf32(p[kc][2], hi[1], lo[1]);
@@ -261,14 +294,14 @@ __device__ __forceinline__ void out_mma(const float (&p)[8][4],
       fold);
 }
 
-// rows row0 .. row0+63 of a [rows, D] f32 matrix into a padded tile by
-// 16-byte cp.async; rows past nrows are zero-filled
+// rows row0 .. row0 + kRows - 1 of a [rows, D] f32 matrix into a padded
+// tile by 16-byte cp.async; rows past nrows are zero-filled
 template <int D>
 __device__ __forceinline__ void load_tile_async(float* dst,
                                                 const float* __restrict__ src,
                                                 int row0, int nrows) {
   constexpr int V = D / 4;
-  for (int f = threadIdx.x; f < kTile * V; f += kThreads) {
+  for (int f = threadIdx.x; f < Tiles<D>::kRows * V; f += kThreads) {
     const int r = f / V, c = f % V;
     const bool ok = row0 + r < nrows;
     cp_async16(dst + r * Tiles<D>::kLd + 4 * c,
@@ -280,11 +313,12 @@ __device__ __forceinline__ void load_tile_async(float* dst,
 // the bias of this thread's score columns k0 + 8j + 2t (+1) of row
 // `bias` (0 without one and past Tk); read before the score product, so
 // the loads are in flight during its MMAs
+template <int NK>
 __device__ __forceinline__ void key_bias(const float* __restrict__ bias,
                                          int Tk, int k0, int t,
-                                         float (&bj)[8][2]) {
+                                         float (&bj)[NK][2]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NK; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = k0 + 8 * j + 2 * t + e;
@@ -292,10 +326,23 @@ __device__ __forceinline__ void key_bias(const float* __restrict__ bias,
     }
 }
 
+// The first of warp w's 16 rows in its tile, and the first of its output
+// columns (0 where each warp takes all of D, as below D = 256)
+template <int D>
+__device__ __forceinline__ int warp_row0(int warp) {
+  return 16 * (Tiles<D>::kRowWarps == kWarps ? warp
+                                             : warp % Tiles<D>::kRowWarps);
+}
+template <int D>
+__device__ __forceinline__ int warp_col0(int warp) {
+  return Tiles<D>::kRowWarps == kWarps
+             ? 0 : (warp / Tiles<D>::kRowWarps) * Tiles<D>::kCols;
+}
+
 // ------------------------------------------------------------- forward --
-// K6: warp w owns query rows 16w..16w+15 and walks the key tiles with its
-// S (16 x 64) and O (16 x D) accumulators in registers. Shared: the Q
-// tile, then a 2-stage ring of (K tile, V tile).
+// K6: warp w owns query rows warp_row0 .. + 15 and walks the key tiles
+// with its S (16 x kRows) and O (16 x kCols) accumulators in registers.
+// Shared: the Q tile, then a 2-stage ring of (K tile, V tile).
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -303,19 +350,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ out, float* __restrict__ lse, int H,
                  int Tq, int Tk, int causal, float scale) {
   constexpr int kLd = Tiles<D>::kLd, kTf = Tiles<D>::kFloats;
-  constexpr int ND = D / 8;  // 8-wide chunks of the head dim
+  constexpr int kRows = Tiles<D>::kRows, NK = kRows / 8;
+  constexpr int NC = Tiles<D>::kCols / 8;  // 8-wide chunks of the columns
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp_row0<D>(warp), c0 = warp_col0<D>(warp);
   const float* kb = k + static_cast<size_t>(bh) * Tk * D;
   const float* vb = v + static_cast<size_t>(bh) * Tk * D;
   const float* brow =
       bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Tk;
   // causal: key tiles at or past the last query row + 1 are fully masked
-  const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
-  const int tiles = (k_end + kTile - 1) / kTile;
+  const int k_end = causal ? min(Tk, q0 + kRows) : Tk;
+  const int tiles = (k_end + kRows - 1) / kRows;
 
   load_tile_async<D>(smem, q + static_cast<size_t>(bh) * Tq * D, q0, Tq);
   if (tiles > 0) {
@@ -326,18 +375,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // this warp's 16 query rows, split at each read (split fragments held
   // in registers for the whole walk would leave too few for the
   // accumulators below)
-  const float* qw = smem + 16 * warp * kLd;
+  const float* qw = smem + r0 * kLd;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[ND][4];
+  float o[NC][4];
   zero(o);
 
   for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kTile;
+    const int k0 = it * kRows;
     if (it + 1 < tiles) {
       float* nk = smem + (1 + 2 * ((it + 1) & 1)) * kTf;
-      load_tile_async<D>(nk, kb, k0 + kTile, Tk);
-      load_tile_async<D>(nk + kTf, vb, k0 + kTile, Tk);
+      load_tile_async<D>(nk, kb, k0 + kRows, Tk);
+      load_tile_async<D>(nk + kTf, vb, k0 + kRows, Tk);
     }
     cp_commit();
     cp_wait<1>();
@@ -348,15 +397,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // S = Q K^T, then the online softmax on the C fragments: this thread
     // holds rows g and g+8, keys k0 + 8j + 2t (+1); the quad of a row
     // reduces by shuffles
-    float s[8][4], alpha[2], bj[8][2];
+    float s[NK][4], alpha[2], bj[NK][2];
     key_bias(brow, Tk, k0, t, bj);
     score_mma<D>(qw, ks_, g, t, [&](int j, int i, float x) { s[j][i] = x; });
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = q0 + 16 * warp + g + 8 * r;
+      const int row = q0 + r0 + g + 8 * r;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k0 + 8 * j + 2 * t + e;
@@ -372,7 +421,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       alpha[r] = expf(m[r] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NK; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = expf(s[j][2 * r + e] - m_new);
@@ -385,7 +434,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[r] = m_new;
     }
     // O = alpha O + P V, the tile's product from fresh accumulators
-    out_mma<D>(s, vs, g, t, [&](int j, int i, float x) {
+    out_mma<D>(s, vs + c0, g, t, [&](int j, int i, float x) {
       o[j][i] = fmaf(o[j][i], alpha[i >> 1], x);
     });
     __syncthreads();  // this stage is consumed before it is refilled
@@ -394,22 +443,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + g + 8 * r;
+    const int row = q0 + r0 + g + 8 * r;
     if (row >= Tq) continue;
     const float l_safe = fmaxf(l[r], 1e-30f);
-    float* orow = out + (static_cast<size_t>(bh) * Tq + row) * D;
+    float* orow = out + (static_cast<size_t>(bh) * Tq + row) * D + c0;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
+    for (int j = 0; j < NC; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
           make_float2(o[j][2 * r] / l_safe, o[j][2 * r + 1] / l_safe);
-    if (t == 0) lse[static_cast<size_t>(bh) * Tq + row] = m[r] + logf(l_safe);
+    if (t == 0 && c0 == 0) lse[static_cast<size_t>(bh) * Tq + row] = m[r] + logf(l_safe);
   }
 }
 
 // ---------------------------------------------------------- backward dKV --
-// K7a: one CTA per (b*h, key tile); warp w owns keys 16w..16w+15 and walks
-// the query tiles that can see them, with dK and dV (16 x D each) and the
-// bias gradient of its rows in registers. Shared: the K and V tiles (the
+// K7a: one CTA per (b*h, key tile); warp w owns keys warp_row0 .. + 15
+// and walks the query tiles that can see them, with its columns of dK and
+// dV (16 x kCols each) and the bias gradient of its rows in registers. Shared: the K and V tiles (the
 // A operands of S^T = K Q^T and dP^T = V dO^T), then a 2-stage ring of
 // (Q tile, dO tile, lse and delta of the tile's queries); Q and dO are
 // read as they lie as the B operands of the score products, and across
@@ -424,12 +473,14 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dv, float* __restrict__ dbias, int H,
                  int Tq, int Tk, int causal, float scale) {
   constexpr int kLd = Tiles<D>::kLd, kTf = Tiles<D>::kFloats;
-  constexpr int kStage = Tiles<D>::kDkvStage, ND = D / 8;
+  constexpr int kStage = Tiles<D>::kDkvStage, kRows = Tiles<D>::kRows;
+  constexpr int NK = kRows / 8, NC = Tiles<D>::kCols / 8;
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x, b = bh / H;
-  const int k0 = blockIdx.y * kTile;
+  const int k0 = blockIdx.y * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp_row0<D>(warp), c0 = warp_col0<D>(warp);
   const size_t qoff = static_cast<size_t>(bh) * Tq;
   const size_t koff = static_cast<size_t>(bh) * Tk;
   const float* qb = q + qoff * D;
@@ -437,68 +488,72 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ring = smem + 2 * kTf;
   // causal: query tiles wholly before this key tile see none of it
   const int q_begin = causal ? k0 : 0;
-  const int tiles = q_begin < Tq ? (Tq - q_begin + kTile - 1) / kTile : 0;
+  const int tiles = q_begin < Tq ? (Tq - q_begin + kRows - 1) / kRows : 0;
 
   // stage s <- the query tile at q0: Q, dO, then lse and delta (one float
-  // per thread: threads 0..63 lse, 64..127 delta)
+  // per thread: threads 0..kRows-1 lse, kRows..2kRows-1 delta)
   auto load_stage = [&](int s, int q0) {
     float* st = ring + s * kStage;
     load_tile_async<D>(st, qb, q0, Tq);
     load_tile_async<D>(st + kTf, dob, q0, Tq);
-    const int i = threadIdx.x % kTile, row = q0 + i;
-    const int which = threadIdx.x / kTile;
-    const float* src = (which == 0 ? lse : delta) + qoff;
-    cp_async4(st + 2 * kTf + which * kTile + i, row < Tq ? src + row : src,
-              row < Tq ? 4 : 0);
+    if (2 * kRows >= kThreads || threadIdx.x < 2 * kRows) {
+      const int i = threadIdx.x % kRows, row = q0 + i;
+      const int which = threadIdx.x / kRows;
+      const float* src = (which == 0 ? lse : delta) + qoff;
+      cp_async4(st + 2 * kTf + which * kRows + i,
+                row < Tq ? src + row : src, row < Tq ? 4 : 0);
+    }
   };
   load_tile_async<D>(smem, k + koff * D, k0, Tk);
   load_tile_async<D>(smem + kTf, v + koff * D, k0, Tk);
   if (tiles > 0) load_stage(0, q_begin);
   cp_commit();
   // this warp's 16 keys in the K and V tiles, split at each read
-  const float* kw = smem + 16 * warp * kLd;
+  const float* kw = smem + r0 * kLd;
   const float* vw = kw + kTf;
   int key[2];
   float bk[2], dbs[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    key[r] = k0 + 16 * warp + g + 8 * r;
+    key[r] = k0 + r0 + g + 8 * r;
     bk[r] = (bias != nullptr && key[r] < Tk) ? bias[b * Tk + key[r]] : 0.f;
   }
-  float dka[ND][4], dva[ND][4];
+  float dka[NC][4], dva[NC][4];
   zero(dka);
   zero(dva);
 
   for (int it = 0; it < tiles; ++it) {
-    const int q0 = q_begin + it * kTile;
-    if (it + 1 < tiles) load_stage((it + 1) & 1, q0 + kTile);
+    const int q0 = q_begin + it * kRows;
+    if (it + 1 < tiles) load_stage((it + 1) & 1, q0 + kRows);
     cp_commit();
     cp_wait<1>();
     __syncthreads();  // query tile `it` (and at it = 0 K and V) landed
     const float* qs = ring + (it & 1) * kStage;
     const float* dos = qs + kTf;
     const float* ls = dos + kTf;
-    const float* dls = ls + kTile;
+    const float* dls = ls + kRows;
 
     // P^T = exp(S^T * scale + bias[key] - lse[query]), S^T = K Q^T: this
     // thread holds keys (rows) g and g+8, queries q0 + 8j + 2t (+1)
-    float p[8][4];
+    float p[NK][4];
     score_mma<D>(kw, qs, g, t, [&](int j, int i, float x) {
       const int r = i >> 1, e = i & 1, row = q0 + 8 * j + 2 * t + e;
       const bool ok = row < Tq && key[r] < Tk && (!causal || row >= key[r]);
       p[j][i] = ok ? expf(x * scale + bk[r] - ls[8 * j + 2 * t + e]) : 0.f;
     });
     // dV += P^T dO
-    out_mma<D>(p, dos, g, t, [&](int j, int i, float x) { dva[j][i] += x; });
+    out_mma<D>(p, dos + c0, g, t,
+               [&](int j, int i, float x) { dva[j][i] += x; });
     // dS^T = P^T * (dP^T - delta[query]), dP^T = V dO^T; the bias
     // gradient sums dS^T over the queries of each key row
-    float ds[8][4];
+    float ds[NK][4];
     score_mma<D>(vw, dos, g, t, [&](int j, int i, float x) {
       ds[j][i] = p[j][i] * (x - dls[8 * j + 2 * t + (i & 1)]);
       dbs[i >> 1] += ds[j][i];
     });
     // dK += dS^T Q (scaled once, at the end)
-    out_mma<D>(ds, qs, g, t, [&](int j, int i, float x) { dka[j][i] += x; });
+    out_mma<D>(ds, qs + c0, g, t,
+               [&](int j, int i, float x) { dka[j][i] += x; });
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_wait<0>();
@@ -511,22 +566,22 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= Tk) continue;
-    const size_t off = (koff + key[r]) * D;
+    const size_t off = (koff + key[r]) * D + c0;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
+    for (int j = 0; j < NC; ++j) {
       *reinterpret_cast<float2*>(dk + off + 8 * j + 2 * t) = make_float2(
           scale * dka[j][2 * r], scale * dka[j][2 * r + 1]);
       *reinterpret_cast<float2*>(dv + off + 8 * j + 2 * t) =
           make_float2(dva[j][2 * r], dva[j][2 * r + 1]);
     }
-    if (dbias != nullptr && t == 0) dbias[koff + key[r]] = dbs[r];
+    if (dbias != nullptr && t == 0 && c0 == 0) dbias[koff + key[r]] = dbs[r];
   }
 }
 
 // ----------------------------------------------------------- backward dQ --
-// K7b: one CTA per (b*h, query tile); warp w owns queries 16w..16w+15 and
-// walks the key tiles it sees, with dQ (16 x D) in registers and lse and
-// delta of its rows. Shared: the Q and dO tiles (the A operands of S = Q
+// K7b: one CTA per (b*h, query tile); warp w owns queries warp_row0 ..
+// + 15 and walks the key tiles it sees, with its columns of dQ (16 x
+// kCols) in registers and lse and delta of its rows. Shared: the Q and dO tiles (the A operands of S = Q
 // K^T and dP = dO V^T), then a 2-stage ring of (K tile, V tile); K is
 // read as it lies as the B operand of S and across as that of dQ += dS K.
 template <int D>
@@ -538,14 +593,16 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ bias, float* __restrict__ dq, int H,
                 int Tq, int Tk, int causal, float scale) {
   constexpr int kLd = Tiles<D>::kLd, kTf = Tiles<D>::kFloats;
-  constexpr int ND = D / 8;
+  constexpr int kRows = Tiles<D>::kRows, NK = kRows / 8;
+  constexpr int NC = Tiles<D>::kCols / 8;
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x, b = bh / H;
   // the last query tiles first: under the causal mask they walk the most
   // key tiles
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp_row0<D>(warp), c0 = warp_col0<D>(warp);
   const size_t qoff = static_cast<size_t>(bh) * Tq;
   const float* kb = k + static_cast<size_t>(bh) * Tk * D;
   const float* vb = v + static_cast<size_t>(bh) * Tk * D;
@@ -553,8 +610,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Tk;
   float* ring = smem + 2 * kTf;
   // causal: key tiles at or past the last query row + 1 are fully masked
-  const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
-  const int tiles = (k_end + kTile - 1) / kTile;
+  const int k_end = causal ? min(Tk, q0 + kRows) : Tk;
+  const int tiles = (k_end + kRows - 1) / kRows;
 
   load_tile_async<D>(smem, q + qoff * D, q0, Tq);
   load_tile_async<D>(smem + kTf, dout + qoff * D, q0, Tq);
@@ -564,25 +621,25 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_commit();
   // this warp's 16 query rows of Q and dO, split at each read
-  const float* qw = smem + 16 * warp * kLd;
+  const float* qw = smem + r0 * kLd;
   const float* dow = qw + kTf;
   int row[2];
   float lr[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    row[r] = q0 + 16 * warp + g + 8 * r;
+    row[r] = q0 + r0 + g + 8 * r;
     lr[r] = row[r] < Tq ? lse[qoff + row[r]] : 0.f;
     dr[r] = row[r] < Tq ? delta[qoff + row[r]] : 0.f;
   }
-  float dqa[ND][4];
+  float dqa[NC][4];
   zero(dqa);
 
   for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kTile;
+    const int k0 = it * kRows;
     if (it + 1 < tiles) {
       float* nk = ring + 2 * ((it + 1) & 1) * kTf;
-      load_tile_async<D>(nk, kb, k0 + kTile, Tk);
-      load_tile_async<D>(nk + kTf, vb, k0 + kTile, Tk);
+      load_tile_async<D>(nk, kb, k0 + kRows, Tk);
+      load_tile_async<D>(nk + kTf, vb, k0 + kRows, Tk);
     }
     cp_commit();
     cp_wait<1>();
@@ -592,7 +649,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // P = exp(S * scale + bias[key] - lse[row]), S = Q K^T: this thread
     // holds rows g and g+8, keys k0 + 8j + 2t (+1)
-    float p[8][4], bj[8][2];
+    float p[NK][4], bj[NK][2];
     key_bias(brow, Tk, k0, t, bj);
     score_mma<D>(qw, ks_, g, t, [&](int j, int i, float x) {
       const int r = i >> 1, e = i & 1, col = k0 + 8 * j + 2 * t + e;
@@ -600,12 +657,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       p[j][i] = ok ? expf(x * scale + bj[j][e] - lr[r]) : 0.f;
     });
     // dS = P * (dP - delta[row]), dP = dO V^T
-    float ds[8][4];
+    float ds[NK][4];
     score_mma<D>(dow, vs, g, t, [&](int j, int i, float x) {
       ds[j][i] = p[j][i] * (x - dr[i >> 1]);
     });
     // dQ += dS K (scaled once, at the end)
-    out_mma<D>(ds, ks_, g, t, [&](int j, int i, float x) { dqa[j][i] += x; });
+    out_mma<D>(ds, ks_ + c0, g, t,
+               [&](int j, int i, float x) { dqa[j][i] += x; });
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_wait<0>();
@@ -613,9 +671,9 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= Tq) continue;
-    float* orow = dq + (qoff + row[r]) * D;
+    float* orow = dq + (qoff + row[r]) * D + c0;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
+    for (int j = 0; j < NC; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = make_float2(
           scale * dqa[j][2 * r], scale * dqa[j][2 * r + 1]);
   }
@@ -648,7 +706,8 @@ int launch_fwd(const float* q, const float* k, const float* v,
   if (int rc = allow_smem(flash_fwd_kernel<D>, smem, &ready)) return rc;
   if (!aligned16(q, k, v, out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const dim3 grid((Tq + kTile - 1) / kTile, BH);
+  constexpr int kRows = Tiles<D>::kRows;
+  const dim3 grid((Tq + kRows - 1) / kRows, BH);
   flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(
       q, k, v, bias, out, lse, H, Tq, Tk, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -666,7 +725,8 @@ int launch_dkv(const float* q, const float* k, const float* v,
   if (!aligned16(q, k, v, dout, dk, dv))
     return static_cast<int>(cudaErrorMisalignedAddress);
   // b*h fastest: every CTA of key tile 0 (the longest causal walk) first
-  const dim3 grid(BH, (Tk + kTile - 1) / kTile);
+  constexpr int kRows = Tiles<D>::kRows;
+  const dim3 grid(BH, (Tk + kRows - 1) / kRows);
   flash_dkv_kernel<D><<<grid, kThreads, smem, st>>>(
       q, k, v, dout, lse, delta, bias, dk, dv, dbias, H, Tq, Tk, causal,
       scale);
@@ -683,7 +743,8 @@ int launch_dq(const float* q, const float* k, const float* v,
   if (int rc = allow_smem(flash_dq_kernel<D>, smem, &ready)) return rc;
   if (!aligned16(q, k, v, dout, dq))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const dim3 grid(BH, (Tq + kTile - 1) / kTile);
+  constexpr int kRows = Tiles<D>::kRows;
+  const dim3 grid(BH, (Tq + kRows - 1) / kRows);
   flash_dq_kernel<D><<<grid, kThreads, smem, st>>>(
       q, k, v, dout, lse, delta, bias, dq, H, Tq, Tk, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -695,6 +756,7 @@ int launch_dq(const float* q, const float* k, const float* v,
     case 32: return CALL(32);                      \
     case 64: return CALL(64);                      \
     case 128: return CALL(128);                    \
+    case 256: return CALL(256);                    \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 

@@ -7,8 +7,9 @@
 //                            head) f32 scales, dequantised in-tile)
 //   K4  _chunk_kernel       (Q query tokens per sequence, f32 pages)
 //   K5  _decode_kernel      (one query token per sequence, f32 pages)
-// with two kernel templates: paged_attention_kernel (K1, K5) and
-// paged_ring_kernel (K2, K4).
+// with one kernel template, paged_ring_kernel, and two query-tile types:
+// FlatTiles (K1, K2) and ChunkTiles (K4, and K5 as a chunk of one token
+// a row).
 //
 // What they compute: query token t belongs to row `row` of block_tables
 // and attends over the positions 0..horizon of that row's paged history;
@@ -27,10 +28,10 @@
 // which is the whole point of K2: the scale multiplies the reduced score
 // (K) and the softmax weight (V), so the dequantised page never exists.
 //
-// Every head dim from 1 to 256: a lane owns elements lane + 32e of a
-// head (e < kEpl = ceil(D / 32)); only instantiations with D % 32 != 0
-// (kPred) test lane + 32e < D, so D = 32, 64, 128, 256 compile as they
-// would with D fixed.
+// Every head dim from 1 to 256, instantiated by kEpl = ceil(D / 32)
+// elements a lane; only instantiations with D % 32 != 0 (kPred) test an
+// element against D, so D = 32, 64, 128, 256 compile as they would with
+// D fixed.
 //
 // What bounds them on the card: bytes. Every K/V byte of the live pages
 // is used for 2 flops per query token (one multiply-add in the score, one
@@ -42,22 +43,25 @@
 // its scores across the warp, rescale, accumulate), so the card needs
 // many short walks in flight and each step short.
 //
-// paged_attention_kernel (K1, K5): one CTA per (token, head), 8 warps.
-// The CTA reads the token's block-table row itself (the TPU kernel got
-// the page ids by scalar prefetch) and stops at the last page that holds
-// a position <= horizon. Warp w walks pages w, w + 8, ... with its own
-// online-softmax state in registers, slots taken 8 at a time so their
-// loads are in flight together, and the warps' states are merged through
-// shared memory at the end. Masked slots are neither loaded nor
-// accumulated.
-//
-// paged_ring_kernel (K2, K4): the work unit is (query tile, head group,
-// kv split), from the plan of ops/ragged_attention.py paged_plan.
-// - Query tile: one packed token (K2), or up to 16 query tokens of one
-//   chunk row (K4), so every query token of the row reads each staged
-//   page from shared memory: a chunk no longer re-reads its pages once
-//   per token through L2 (the TPU kernel stages a page in VMEM for the
-//   whole chunk the same way).
+// paged_ring_kernel: the work unit is (query tile, head group, kv
+// split), from the plan of ops/ragged_attention.py paged_plan (flat_plan
+// for K1/K2).
+// - Query tile: up to 16 tokens of one table row at consecutive
+//   horizons, so every token of the tile reads each staged page from
+//   shared memory, not once per token through L2 (the TPU kernel stages
+//   a page in VMEM for the whole chunk the same way). K4: up to 16
+//   tokens of one chunk row; K5: the same with one token a row, at
+//   horizon kv_len - 1. K1/K2: a piece of a run of the pack, consecutive
+//   packed tokens of one seq_id, each at its own position (a serving
+//   step packs each row's tokens so, and its padding tokens repeat one
+//   stale entry: a prefill chunk is one run, the padding another). The
+//   host cannot see the pack without a sync, so the kernel finds the
+//   runs itself: CTA x takes slot x of the pack, qt tokens (qt from
+//   flat_plan: the pack's mean tokens per row, at most 16), and a tile
+//   starts at the slot's first token and at every token of the slot
+//   whose seq_id differs from the one before it. The tile stages the
+//   pages up to its largest position, and each token masks by its own:
+//   any pack comes out right, and a CTA walks its slot's tiles in turn.
 // - Head group: `heads` consecutive heads. A page [bs, H, D] is one
 //   contiguous block of the pool, so a group's slot row is one run of
 //   heads * D elements.
@@ -100,11 +104,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float kNegInf = -1e30f;   // _NEG_INF of ops/flash_attention.py
-constexpr int kWarps = 8;           // warps splitting one token-head's pages
-constexpr int kGroup = 8;           // slots in flight per warp
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kQTile = 16;          // ring kernel: query tokens per CTA
-constexpr int kRingWarps = 8;       // ring kernel: most warps per CTA
+constexpr int kQTile = 16;          // most query tokens per CTA
+constexpr int kRingWarps = 8;       // most warps per CTA
 constexpr int kMaxSmem = 232448;    // an H100 block's shared memory
 constexpr int kMaxCluster = 8;      // the portable cluster size
 
@@ -114,12 +116,6 @@ __device__ __forceinline__ float to_float(int8_t v) {
 }
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 v) {
   return static_cast<float>(v);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
 }
 
 // The head-dim instantiation: kEpl = ceil(D / 32) elements per lane,
@@ -144,176 +140,6 @@ int by_head_dim(int D, Fn&& fn) {
     case 8: return p ? fn(HeadDim<8, true>{}) : fn(HeadDim<8, false>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// ------------------------------------------ paged_attention_kernel --
-// How query token t finds its block-table row and its causal horizon
-// (the last position it may see).
-struct FlatQuery {      // K1: packed tokens, any sequence, any position
-  const int32_t* seq_ids;     // [T]
-  const int32_t* positions;   // [T]
-  int S;
-  __device__ __forceinline__ void locate(int t, int& row,
-                                         int& horizon) const {
-    row = min(max(seq_ids[t], 0), S - 1);
-    horizon = positions[t];
-  }
-};
-
-struct DecodeQuery {    // K5: q [S, H, D]
-  const int32_t* kv_lens;     // [S]
-  __device__ __forceinline__ void locate(int t, int& row,
-                                         int& horizon) const {
-    row = t;
-    horizon = kv_lens[row] - 1;
-  }
-};
-
-template <typename PageT, bool kScaled, int kEpl, bool kPred,
-          typename Query>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const float* __restrict__ q,          // [T, H, D]
-                       const PageT* __restrict__ k_pages,    // [N, bs, H, D]
-                       const PageT* __restrict__ v_pages,    // [N, bs, H, D]
-                       const float* __restrict__ k_scales,   // [N, bs, H]
-                       const float* __restrict__ v_scales,   // [N, bs, H]
-                       const int32_t* __restrict__ block_tables,  // [S, MB]
-                       Query query,
-                       float* __restrict__ out,              // [T, H, D]
-                       int H, int D_arg, int bs, int N, int MB,
-                       float scale) {
-  const int D = kPred ? D_arg : kEpl * 32;
-  __shared__ float s_acc[kWarps][kEpl * 32];
-  __shared__ float s_m[kWarps];
-  __shared__ float s_l[kWarps];
-  const int t = blockIdx.x;
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  float qv[kEpl], acc[kEpl];
-  const float* qrow = q + (static_cast<size_t>(t) * H + h) * D;
-#pragma unroll
-  for (int e = 0; e < kEpl; ++e) {
-    qv[e] = !kPred || lane + 32 * e < D ? qrow[lane + 32 * e] : 0.f;
-    acc[e] = 0.f;
-  }
-  int row, qpos;
-  query.locate(t, row, qpos);
-  const int32_t* table = block_tables + static_cast<size_t>(row) * MB;
-  float m = kNegInf;
-  float l = 0.f;
-
-  for (int j = warp; j < MB && j * bs <= qpos; j += kWarps) {
-    // a corrupt table entry must not read outside the pool (the TPU path
-    // clamps out-of-range indices the same way)
-    const int pid = min(max(table[j], 0), N - 1);
-    const size_t page = static_cast<size_t>(pid) * bs;
-    for (int s0 = 0; s0 < bs; s0 += kGroup) {
-      float sc[kGroup], ksc[kGroup];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int slot = s0 + g;
-        float part = 0.f;
-        ksc[g] = 1.f;
-        if (slot < bs && j * bs + slot <= qpos) {
-          const PageT* kr = k_pages + ((page + slot) * H + h) * D;
-          if (kScaled) ksc[g] = k_scales[(page + slot) * H + h];
-#pragma unroll
-          for (int e = 0; e < kEpl; ++e)
-            if (!kPred || lane + 32 * e < D)
-              part += qv[e] * to_float(kr[lane + 32 * e]);
-        }
-        sc[g] = part;
-      }
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) sc[g] = warp_sum(sc[g]);
-      float gmax = kNegInf;
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int slot = s0 + g;
-        const bool live = slot < bs && j * bs + slot <= qpos;
-        const float s = kScaled ? sc[g] * ksc[g] : sc[g];
-        sc[g] = live ? s * scale : kNegInf;
-        gmax = fmaxf(gmax, sc[g]);
-      }
-      const float m_new = fmaxf(m, gmax);
-      const float alpha = expf(m - m_new);
-#pragma unroll
-      for (int e = 0; e < kEpl; ++e) acc[e] *= alpha;
-      float psum = 0.f;
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int slot = s0 + g;
-        const bool live = slot < bs && j * bs + slot <= qpos;
-        // a masked slot weighs exactly 0, even while the running max is
-        // still -1e30 (exp(-1e30 - -1e30) is 1): multiplied by the mask
-        // as the TPU kernel does, not branched around, so the V loads
-        // below stay predicated and in flight together
-        const float p = expf(sc[g] - m_new) * (live ? 1.f : 0.f);
-        psum += p;
-        if (live) {
-          float pv = p;
-          if (kScaled) pv *= v_scales[(page + slot) * H + h];
-          const PageT* vr = v_pages + ((page + slot) * H + h) * D;
-#pragma unroll
-          for (int e = 0; e < kEpl; ++e)
-            if (!kPred || lane + 32 * e < D)
-              acc[e] += pv * to_float(vr[lane + 32 * e]);
-        }
-      }
-      l = l * alpha + psum;
-      m = m_new;
-    }
-  }
-
-  // merge the warps' softmax states: a warp that saw no page holds
-  // (m, l, acc) = (-1e30, 0, 0) and weighs nothing once any warp has a
-  // real maximum
-#pragma unroll
-  for (int e = 0; e < kEpl; ++e) s_acc[warp][lane + 32 * e] = acc[e];
-  if (lane == 0) {
-    s_m[warp] = m;
-    s_l[warp] = l;
-  }
-  __syncthreads();
-  float m_all = kNegInf;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, s_m[w]);
-  float l_all = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) l_all += s_l[w] * expf(s_m[w] - m_all);
-  const float l_safe = fmaxf(l_all, 1e-30f);
-  float* orow = out + (static_cast<size_t>(t) * H + h) * D;
-  for (int d = threadIdx.x; d < D; d += kWarps * 32) {
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += s_acc[w][d] * expf(s_m[w] - m_all);
-    orow[d] = o / l_safe;
-  }
-}
-
-// T query tokens (grid.x) by H heads (grid.y)
-template <typename PageT, bool kScaled, typename Query>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* k_scales, const void* v_scales,
-           const void* block_tables, Query query, void* out, int T, int H,
-           int D, int bs, int N, int MB, float scale, void* stream) {
-  const dim3 grid(T, H);
-  const dim3 block(kWarps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_head_dim(D, [&](auto hd) {
-    using HD = decltype(hd);
-    paged_attention_kernel<PageT, kScaled, HD::kEpl, HD::kPred, Query>
-        <<<grid, block, 0, st>>>(
-            static_cast<const float*>(q), static_cast<const PageT*>(k_pages),
-            static_cast<const PageT*>(v_pages),
-            static_cast<const float*>(k_scales),
-            static_cast<const float*>(v_scales),
-            static_cast<const int32_t*>(block_tables), query,
-            static_cast<float*>(out), H, D, bs, N, MB, scale);
-    return static_cast<int>(cudaGetLastError());
-  });
 }
 
 // ----------------------------------------------- paged_ring_kernel --
@@ -391,46 +217,75 @@ struct RingLayout {
 
 // What a CTA's query tile is: tokens tok0 .. tok0 + nout - 1 of q/out
 // seen as [tokens, H, D], of table row `row`; the first nq of them have a
-// contract, token i at causal horizon hz0 + i.
+// contract, hz_max the largest causal horizon among them. A tile type
+// gives tile `it` of CTA x (locate), token i's horizon (horizon) and,
+// unless each CTA has one tile (kOneTile), the number of CTA x's tiles
+// (count); all are called by whole warps and give every lane the same
+// values.
 struct Tile {
-  int row, tok0, nout, nq, hz0;
+  int row, tok0, nout, nq, hz0, hz_max;
 };
 
-struct FlatTiles {      // K2: one packed token per tile
+struct FlatTiles {      // K1, K2: pieces of the pack's runs
   const int32_t* seq_ids;     // [T]
   const int32_t* positions;   // [T]
-  int S;
-  __host__ __device__ int qt() const { return 1; }
-  __device__ __forceinline__ void locate(int x, Tile& t) const {
-    t.row = min(max(seq_ids[x], 0), S - 1);
-    t.tok0 = x;
-    t.nout = 1;
-    t.nq = 1;
-    t.hz0 = positions[x];
+  int S, T, cap;              // cap: tokens per slot, 1 .. kQTile
+  static constexpr bool kOneTile = false;
+  __host__ __device__ int qt() const { return cap; }
+  // bit i: token x * cap + i starts a tile (it is the slot's first, or
+  // its seq_id differs from the token's before it)
+  __device__ __forceinline__ unsigned starts(int x, int lane) const {
+    const int y = x * cap + lane;
+    bool start = lane == 0;
+    if (lane > 0 && lane < cap && y < T)
+      start = seq_ids[y - 1] != seq_ids[y];
+    return __ballot_sync(kFull, start);
+  }
+  __device__ __forceinline__ int count(int x, int lane) const {
+    return __popc(starts(x, lane));
+  }
+  __device__ __forceinline__ void locate(int x, int it, int lane,
+                                         Tile& t) const {
+    unsigned m = starts(x, lane);
+    for (int i = 0; i < it; ++i) m &= m - 1;
+    const int first = __ffs(m) - 1;
+    const unsigned rest = m & (m - 1);
+    const int end = rest ? __ffs(rest) - 1 : min(cap, T - x * cap);
+    t.tok0 = x * cap + first;
+    t.row = min(max(seq_ids[t.tok0], 0), S - 1);
+    t.nout = end - first;
+    t.nq = t.nout;
+    t.hz0 = positions[t.tok0];
+    t.hz_max = __reduce_max_sync(
+        kFull, lane < t.nout ? positions[t.tok0 + lane] : t.hz0);
+  }
+  __device__ __forceinline__ int horizon(const Tile& t, int i) const {
+    return warp_uniform(positions[t.tok0 + i]);
   }
 };
 
-struct ChunkTiles {     // K4: up to kQTile tokens of one chunk row
+struct ChunkTiles {     // K4, K5: up to kQTile tokens of one chunk row
   const int32_t* kv_lens;     // [S], this chunk's tokens included
-  const int32_t* q_lens;      // [S]
+  const int32_t* q_lens;      // [S], or null: Q tokens in every row (K5)
   int Q, tiles;               // tiles = ceil(Q / kQTile) per row
+  static constexpr bool kOneTile = true;
   __host__ __device__ int qt() const { return Q < kQTile ? Q : kQTile; }
-  __device__ __forceinline__ void locate(int x, Tile& t) const {
+  __device__ __forceinline__ void locate(int x, int, int, Tile& t) const {
     const int s = x / tiles;
     const int q0 = (x - s * tiles) * kQTile;
-    const int ql = q_lens[s];
+    const int ql = q_lens != nullptr ? q_lens[s] : Q;
     t.row = s;
     t.tok0 = s * Q + q0;
     t.nout = min(kQTile, Q - q0);
     t.nq = max(0, min(t.nout, ql - q0));
     t.hz0 = kv_lens[s] - ql + q0;
+    t.hz_max = t.hz0 + t.nq - 1;
+  }
+  __device__ __forceinline__ int horizon(const Tile& t, int i) const {
+    return t.hz0 + i;
   }
 };
 
-// Stage page `pid`'s K, V (and scales) of heads h0 .. h0 + heads - 1:
-// bs runs of heads * D elements, one per slot, H * D elements apart in
-// the pool; `vec` bytes a copy (vec divides the run and both pools'
-// addresses).
 // Stage page `pid`'s K, V (and scales) of heads h0 .. h0 + heads - 1:
 // bs runs of heads * D elements, one per slot, H * D elements apart in
 // the pool; `vec` bytes a copy (vec divides the run and both pools'
@@ -490,7 +345,7 @@ __device__ __forceinline__ void stage_page(
 // consecutive elements, chunk c at element (l + 32c) * kV, so a warp
 // reads a K or V row with kC vector loads of kV elements, conflict-free.
 // kV is 1 where D % 32 != 0 or kEpl is not a power of two (elements l +
-// 32e, as in paged_attention_kernel), else kEpl up to 16 bytes a load.
+// 32e), else kEpl up to 16 bytes a load.
 template <typename PageT, int kEpl, bool kPred>
 struct Own {
   static constexpr bool kPow2 = (kEpl & (kEpl - 1)) == 0;
@@ -691,10 +546,13 @@ __device__ __forceinline__ void attend_page(
   }
 }
 
-// grid (query tiles, H / heads, splits), cluster (1, 1, splits)
+// grid (query tiles, H / heads, splits), cluster (1, 1, splits). Two
+// CTAs an SM bound the registers (128 a thread). With the block size
+// alone, ptxas may cut a kernel to 64 or 80 registers, spilling, to fit
+// more CTAs; with three, the int8/fp8 kernels spill at D = 64.
 template <typename PageT, bool kScaled, int kEpl, bool kPred,
           typename Tiles>
-__global__ void __launch_bounds__(kRingWarps * 32)
+__global__ void __launch_bounds__(kRingWarps * 32, 2)
 paged_ring_kernel(const float* __restrict__ q,
                   const PageT* __restrict__ k_pages,    // [N, bs, H, D]
                   const PageT* __restrict__ v_pages,    // [N, bs, H, D]
@@ -710,13 +568,6 @@ paged_ring_kernel(const float* __restrict__ q,
   const int nthreads = blockDim.x;
   const int warp = warp_uniform(tid >> 5), lane = tid & 31;
   const int warps = nthreads >> 5;
-  Tile t;
-  tiles.locate(blockIdx.x, t);
-  t.row = warp_uniform(t.row);
-  t.tok0 = warp_uniform(t.tok0);
-  t.nout = warp_uniform(t.nout);
-  t.nq = warp_uniform(t.nq);
-  t.hz0 = warp_uniform(t.hz0);
   const int qt = tiles.qt();
   const int pairs = qt * heads;
   const int states = subs * pairs;     // (sub, pair) online-softmax states
@@ -730,138 +581,161 @@ paged_ring_kernel(const float* __restrict__ q,
   int* s_pid = reinterpret_cast<int*>(s_l + states);
   unsigned char* ring = smem + L.state;
 
-  // this CTA's share of the row's live pages (those holding a position
-  // some token of the tile may see), by its rank in the cluster
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int hz_last = t.hz0 + t.nq - 1;
-  const int live = t.nq > 0 && hz_last >= 0 ? min(MB, hz_last / bs + 1) : 0;
-  const int share = (live + ranks - 1) / ranks;
-  const int p0 = min(live, rank * share);
-  const int n = min(live, p0 + share) - p0;
-  const int32_t* table = block_tables + static_cast<size_t>(t.row) * MB;
+  // one query tile, the it-th of this CTA
+  auto run_tile = [&](int it) {
+    Tile t;
+    tiles.locate(blockIdx.x, it, lane, t);
+    t.row = warp_uniform(t.row);
+    t.tok0 = warp_uniform(t.tok0);
+    t.nout = warp_uniform(t.nout);
+    t.nq = warp_uniform(t.nq);
+    t.hz0 = warp_uniform(t.hz0);
+    t.hz_max = warp_uniform(t.hz_max);
+    // this CTA's share of the row's live pages (those holding a position
+    // some token of the tile may see), by its rank in the cluster
+    const int live =
+        t.nq > 0 && t.hz_max >= 0 ? min(MB, t.hz_max / bs + 1) : 0;
+    const int share = (live + ranks - 1) / ranks;
+    const int p0 = min(live, rank * share);
+    const int n = min(live, p0 + share) - p0;
+    const int32_t* table = block_tables + static_cast<size_t>(t.row) * MB;
 
-  for (int i = tid; i < pairs * D; i += nthreads) {
-    const int pr = i / D;
-    const int qi = pr / heads;
-    s_q[i] = qi < t.nq
-                 ? q[(static_cast<size_t>(t.tok0 + qi) * H + h0 +
-                      (pr - qi * heads)) * D + (i - pr * D)]
-                 : 0.f;
-  }
-  for (int i = tid; i < states * D; i += nthreads) s_acc[i] = 0.f;
-  for (int i = tid; i < states; i += nthreads) {
-    s_m[i] = kNegInf;
-    s_l[i] = 0.f;
-  }
-  // the share's page ids, read once; a corrupt table entry must not read
-  // outside the pool (the TPU path clamps out-of-range indices the same
-  // way)
-  for (int i = tid; i < n; i += nthreads)
-    s_pid[i] = min(max(table[p0 + i], 0), N - 1);
-  __syncthreads();
-
-  // stage k holds pages k * subs .. k * subs + subs - 1 of the share
-  const int groups = (n + subs - 1) / subs;
-  auto load = [&](int k) {
-    for (int s = 0; s < subs && k * subs + s < n; ++s)
-      stage_page<PageT, kScaled>(
-          ring + (k % stages) * L.stage + s * L.page, L, k_pages, v_pages,
-          k_scales, v_scales, s_pid[k * subs + s], h0, heads, H, D, bs, vec,
-          tid, nthreads);
-  };
-  for (int k = 0; k < stages - 1; ++k) {
-    if (k < groups) load(k);
-    cp_commit();
-  }
-  for (int k = 0; k < groups; ++k) {
-    cp_wait_most(stages - 2);   // stage k has landed
-    __syncthreads();            // ... for every thread; stage k - 1 is free
-    if (k + stages - 1 < groups) load(k + stages - 1);
-    cp_commit();
-    const unsigned char* st = ring + (k % stages) * L.stage;
-    for (int w = warp; w < states; w += warps) {   // (sub-walk, pair)
-      const int sub = w / pairs, pr = w - sub * pairs;
-      const int i = k * subs + sub;
-      const int qi = pr / heads;
-      if (i < n && qi < t.nq)
-        attend_page<PageT, kScaled, kEpl, kPred>(
-            st + sub * L.page, L, s_q, s_acc + sub * pairs * D,
-            s_m + sub * pairs, s_l + sub * pairs, pr, heads, D, bs,
-            (p0 + i) * bs, t.hz0 + qi, scale, lane);
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  // fold the sub-walks' states into sub-walk 0's, in sub-walk order: a
-  // state that saw no page holds (m, l, acc) = (-1e30, 0, 0) and weighs
-  // nothing once any has a real maximum. A thread per pair turns the l's
-  // into the weights exp(m - m_all) and parks (m_all, l_all) in sub-walk
-  // 1's m; then a thread per element folds acc; then l_all goes home.
-  if (subs > 1) {
-    for (int pr = tid; pr < pairs; pr += nthreads) {
-      float m_all = kNegInf;
-      for (int s = 0; s < subs; ++s) m_all = fmaxf(m_all, s_m[s * pairs + pr]);
-      float l_all = 0.f;
-      for (int s = 0; s < subs; ++s) {
-        const float w = expf(s_m[s * pairs + pr] - m_all);
-        l_all += s_l[s * pairs + pr] * w;
-        s_l[s * pairs + pr] = w;
-      }
-      s_m[pr] = m_all;
-      s_m[pairs + pr] = l_all;
-    }
-    __syncthreads();
     for (int i = tid; i < pairs * D; i += nthreads) {
       const int pr = i / D;
-      float o = 0.f;
-      for (int s = 0; s < subs; ++s)
-        o += s_acc[s * pairs * D + i] * s_l[s * pairs + pr];
-      s_acc[i] = o;
+      const int qi = pr / heads;
+      s_q[i] = qi < t.nq
+                   ? q[(static_cast<size_t>(t.tok0 + qi) * H + h0 +
+                        (pr - qi * heads)) * D + (i - pr * D)]
+                   : 0.f;
     }
+    for (int i = tid; i < states * D; i += nthreads) s_acc[i] = 0.f;
+    for (int i = tid; i < states; i += nthreads) {
+      s_m[i] = kNegInf;
+      s_l[i] = 0.f;
+    }
+    // the share's page ids, read once; a corrupt table entry must not
+    // read outside the pool (the TPU path clamps out-of-range indices the
+    // same way)
+    for (int i = tid; i < n; i += nthreads)
+      s_pid[i] = min(max(table[p0 + i], 0), N - 1);
     __syncthreads();
-    for (int pr = tid; pr < pairs; pr += nthreads) s_l[pr] = s_m[pairs + pr];
-  }
 
-  // merge the CTAs' states in rank order, a warp per output (token,
-  // head) with every rank's loads issued together; with no state that saw
-  // a page, the output is 0
-  cluster.sync();
-  for (int pr = rank + ranks * warp; pr < t.nout * heads;
-       pr += ranks * warps) {
-    float mr[kMaxCluster], w[kMaxCluster];
-    float m_all = kNegInf;
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) {
-      mr[r] = r < ranks ? cluster.map_shared_rank(s_m, r)[pr] : kNegInf;
-      m_all = fmaxf(m_all, mr[r]);
+    // stage k holds pages k * subs .. k * subs + subs - 1 of the share
+    const int groups = (n + subs - 1) / subs;
+    auto load = [&](int k) {
+      for (int s = 0; s < subs && k * subs + s < n; ++s)
+        stage_page<PageT, kScaled>(
+            ring + (k % stages) * L.stage + s * L.page, L, k_pages,
+            v_pages, k_scales, v_scales, s_pid[k * subs + s], h0, heads, H,
+            D, bs, vec, tid, nthreads);
+    };
+    for (int k = 0; k < stages - 1; ++k) {
+      if (k < groups) load(k);
+      cp_commit();
     }
-    float l_all = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) {
-      w[r] = r < ranks ? expf(mr[r] - m_all) : 0.f;
-      if (r < ranks) l_all += cluster.map_shared_rank(s_l, r)[pr] * w[r];
+    for (int k = 0; k < groups; ++k) {
+      cp_wait_most(stages - 2);  // stage k has landed
+      __syncthreads();           // ... for every thread; stage k - 1 is free
+      if (k + stages - 1 < groups) load(k + stages - 1);
+      cp_commit();
+      const unsigned char* st = ring + (k % stages) * L.stage;
+      for (int w = warp; w < states; w += warps) {   // (sub-walk, pair)
+        const int sub = w / pairs, pr = w - sub * pairs;
+        const int i = k * subs + sub;
+        const int qi = pr / heads;
+        if (i < n && qi < t.nq)
+          attend_page<PageT, kScaled, kEpl, kPred>(
+              st + sub * L.page, L, s_q, s_acc + sub * pairs * D,
+              s_m + sub * pairs, s_l + sub * pairs, pr, heads, D, bs,
+              (p0 + i) * bs, tiles.horizon(t, qi), scale, lane);
+      }
     }
-    const float l_safe = fmaxf(l_all, 1e-30f);
-    const int qi = pr / heads;
-    float* orow = out + (static_cast<size_t>(t.tok0 + qi) * H + h0 +
-                         (pr - qi * heads)) * D;
-    for (int d = lane; d < D; d += 32) {
-      float o = 0.f;
-#pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r)
-        if (r < ranks)
-          o += cluster.map_shared_rank(s_acc, r)[pr * D + d] * w[r];
-      orow[d] = o / l_safe;
+    cp_wait<0>();
+    __syncthreads();
+
+    // fold the sub-walks' states into sub-walk 0's, in sub-walk order: a
+    // state that saw no page holds (m, l, acc) = (-1e30, 0, 0) and weighs
+    // nothing once any has a real maximum. A thread per pair turns the
+    // l's into the weights exp(m - m_all) and parks (m_all, l_all) in
+    // sub-walk 1's m; then a thread per element folds acc; then l_all
+    // goes home.
+    if (subs > 1) {
+      for (int pr = tid; pr < pairs; pr += nthreads) {
+        float m_all = kNegInf;
+        for (int s = 0; s < subs; ++s)
+          m_all = fmaxf(m_all, s_m[s * pairs + pr]);
+        float l_all = 0.f;
+        for (int s = 0; s < subs; ++s) {
+          const float w = expf(s_m[s * pairs + pr] - m_all);
+          l_all += s_l[s * pairs + pr] * w;
+          s_l[s * pairs + pr] = w;
+        }
+        s_m[pr] = m_all;
+        s_m[pairs + pr] = l_all;
+      }
+      __syncthreads();
+      for (int i = tid; i < pairs * D; i += nthreads) {
+        const int pr = i / D;
+        float o = 0.f;
+        for (int s = 0; s < subs; ++s)
+          o += s_acc[s * pairs * D + i] * s_l[s * pairs + pr];
+        s_acc[i] = o;
+      }
+      __syncthreads();
+      for (int pr = tid; pr < pairs; pr += nthreads)
+        s_l[pr] = s_m[pairs + pr];
     }
+
+    // merge the CTAs' states in rank order, a warp per output (token,
+    // head) with every rank's loads issued together; with no state that
+    // saw a page, the output is 0
+    cluster.sync();
+    for (int pr = rank + ranks * warp; pr < t.nout * heads;
+         pr += ranks * warps) {
+      float mr[kMaxCluster], w[kMaxCluster];
+      float m_all = kNegInf;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        mr[r] = r < ranks ? cluster.map_shared_rank(s_m, r)[pr] : kNegInf;
+        m_all = fmaxf(m_all, mr[r]);
+      }
+      float l_all = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        w[r] = r < ranks ? expf(mr[r] - m_all) : 0.f;
+        if (r < ranks) l_all += cluster.map_shared_rank(s_l, r)[pr] * w[r];
+      }
+      const float l_safe = fmaxf(l_all, 1e-30f);
+      const int qi = pr / heads;
+      float* orow = out + (static_cast<size_t>(t.tok0 + qi) * H + h0 +
+                           (pr - qi * heads)) * D;
+      for (int d = lane; d < D; d += 32) {
+        float o = 0.f;
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r)
+          if (r < ranks)
+            o += cluster.map_shared_rank(s_acc, r)[pr * D + d] * w[r];
+        orow[d] = o / l_safe;
+      }
+    }
+    // no CTA leaves, or takes its next tile, while another reads its state
+    cluster.sync();
+  };
+  if constexpr (Tiles::kOneTile) {
+    run_tile(0);
+  } else {
+    // the CTAs of a cluster share blockIdx.x, so they walk the same tiles
+    const int ntiles = warp_uniform(tiles.count(blockIdx.x, lane));
+    for (int it = 0; it < ntiles; ++it) run_tile(it);
   }
-  cluster.sync();  // no CTA leaves while another reads its state
 }
 
-// ctas query tiles by H / heads head groups by `splits`, one cluster per
-// (tile, group); the plan (heads, splits, stages) from paged_plan
+// ctas query tiles (or slots) by H / heads head groups by `splits`, one
+// cluster per (tile, group); the plan (heads, splits, stages, subs) from
+// paged_plan
 template <typename PageT, bool kScaled, typename Tiles>
 int launch_ring(const void* q, const void* k_pages, const void* v_pages,
                 const void* k_scales, const void* v_scales,
@@ -922,52 +796,54 @@ int launch_ring(const void* q, const void* k_pages, const void* v_pages,
   });
 }
 
-template <typename PageT>
-int launch_flat_quant(const void* q, const void* k_pages,
-                      const void* v_pages, const void* k_scales,
-                      const void* v_scales, const void* block_tables,
-                      const void* seq_ids, const void* positions, void* out,
-                      int T, int H, int D, int bs, int N, int S, int MB,
-                      int heads, int splits, int stages, int subs,
-                      float scale, void* stream) {
+// K1 / K2: ceil(T / qt) slots of the pack (FlatTiles)
+template <typename PageT, bool kScaled>
+int launch_flat(const void* q, const void* k_pages, const void* v_pages,
+                const void* k_scales, const void* v_scales,
+                const void* block_tables, const void* seq_ids,
+                const void* positions, void* out, int T, int H, int D,
+                int bs, int N, int S, int MB, int qt, int heads, int splits,
+                int stages, int subs, float scale, void* stream) {
+  if (T <= 0 || S <= 0 || qt < 1 || qt > kQTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   const FlatTiles tiles{static_cast<const int32_t*>(seq_ids),
-                        static_cast<const int32_t*>(positions), S};
-  return launch_ring<PageT, true>(q, k_pages, v_pages, k_scales, v_scales,
-                                  block_tables, tiles, out, T, H, D, bs, N,
-                                  MB, heads, splits, stages, subs, scale,
-                                  stream);
+                        static_cast<const int32_t*>(positions), S, T, qt};
+  return launch_ring<PageT, kScaled>(
+      q, k_pages, v_pages, k_scales, v_scales, block_tables, tiles, out,
+      (T + qt - 1) / qt, H, D, bs, N, MB, heads, splits, stages, subs, scale,
+      stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1: q/out [T, H, D], pages [N, bs, H, D] f32
+// K1: q/out [T, H, D], pages [N, bs, H, D] f32; plan (qt, heads, splits,
+// stages, subs) from flat_plan
 int mxt_ragged_flat_f32(const void* q, const void* k_pages,
                         const void* v_pages, const void* block_tables,
                         const void* seq_ids, const void* positions,
                         void* out, int T, int H, int D, int bs, int N, int S,
-                        int MB, float scale, void* stream) {
-  const FlatQuery query{static_cast<const int32_t*>(seq_ids),
-                        static_cast<const int32_t*>(positions), S};
-  return launch<float, false>(q, k_pages, v_pages, nullptr, nullptr,
-                              block_tables, query, out, T, H, D, bs, N, MB,
-                              scale, stream);
+                        int MB, int qt, int heads, int splits, int stages,
+                        int subs, float scale, void* stream) {
+  return launch_flat<float, false>(
+      q, k_pages, v_pages, nullptr, nullptr, block_tables, seq_ids,
+      positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages, subs,
+      scale, stream);
 }
 
-// K2: as K1 with int8 / fp8 pages and scales [N, bs, H] f32; plan
-// (heads, splits, stages, subs) from paged_plan
+// K2: as K1 with int8 / fp8 pages and scales [N, bs, H] f32
 int mxt_ragged_flat_int8(const void* q, const void* k_pages,
                          const void* v_pages, const void* k_scales,
                          const void* v_scales, const void* block_tables,
                          const void* seq_ids, const void* positions,
                          void* out, int T, int H, int D, int bs, int N, int S,
-                         int MB, int heads, int splits, int stages, int subs,
-                         float scale, void* stream) {
-  return launch_flat_quant<int8_t>(q, k_pages, v_pages, k_scales, v_scales,
-                                   block_tables, seq_ids, positions, out, T,
-                                   H, D, bs, N, S, MB, heads, splits, stages,
-                                   subs, scale, stream);
+                         int MB, int qt, int heads, int splits, int stages,
+                         int subs, float scale, void* stream) {
+  return launch_flat<int8_t, true>(
+      q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_ids,
+      positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages, subs,
+      scale, stream);
 }
 
 int mxt_ragged_flat_fp8(const void* q, const void* k_pages,
@@ -975,11 +851,11 @@ int mxt_ragged_flat_fp8(const void* q, const void* k_pages,
                         const void* v_scales, const void* block_tables,
                         const void* seq_ids, const void* positions,
                         void* out, int T, int H, int D, int bs, int N, int S,
-                        int MB, int heads, int splits, int stages, int subs,
-                        float scale, void* stream) {
-  return launch_flat_quant<__nv_fp8_e4m3>(
+                        int MB, int qt, int heads, int splits, int stages,
+                        int subs, float scale, void* stream) {
+  return launch_flat<__nv_fp8_e4m3, true>(
       q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_ids,
-      positions, out, T, H, D, bs, N, S, MB, heads, splits, stages, subs,
+      positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages, subs,
       scale, stream);
 }
 
@@ -1000,15 +876,20 @@ int mxt_ragged_chunk_f32(const void* q, const void* k_pages,
                                    scale, stream);
 }
 
-// K5: q/out [S, H, D], kv_lens [S]
+// K5: q/out [S, H, D], kv_lens [S]: a chunk of one token a row (a row
+// with kv_len 0 sees no position and gives 0); plan from paged_plan
+// (Q = 1)
 int mxt_ragged_decode_f32(const void* q, const void* k_pages,
                           const void* v_pages, const void* block_tables,
                           const void* kv_lens, void* out, int S, int H, int D,
-                          int bs, int N, int MB, float scale, void* stream) {
-  const DecodeQuery query{static_cast<const int32_t*>(kv_lens)};
-  return launch<float, false>(q, k_pages, v_pages, nullptr, nullptr,
-                              block_tables, query, out, S, H, D, bs, N, MB,
-                              scale, stream);
+                          int bs, int N, int MB, int heads, int splits,
+                          int stages, int subs, float scale, void* stream) {
+  const ChunkTiles decode{static_cast<const int32_t*>(kv_lens), nullptr, 1,
+                          1};
+  return launch_ring<float, false>(q, k_pages, v_pages, nullptr, nullptr,
+                                   block_tables, decode, out, S, H, D, bs, N,
+                                   MB, heads, splits, stages, subs, scale,
+                                   stream);
 }
 
 }  // extern "C"

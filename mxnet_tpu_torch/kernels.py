@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 __all__ = ["SOURCES", "build_all", "library", "rtc_library",
            "launch_counts", "reset_launch_counts", "count_launch",
@@ -40,11 +41,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launch's cudaError_t as an int)
 SOURCES = {
     "ragged_flat": {
-        "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
-        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 11 + [_F, _P],
-        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 11 + [_F, _P],
+        "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 12 + [_F, _P],
+        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 12 + [_F, _P],
+        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 12 + [_F, _P],
         "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 11 + [_F, _P],
-        "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 10 + [_F, _P],
     },
     "wq_matmul": {
         "mxt_wq_matmul_int8": [_P] * 4 + [_I] * 7 + [_P],
@@ -61,8 +62,10 @@ _lock = threading.Lock()
 _libs = {}                      # guarded-by: _lock
 _builds = [0]                   # guarded-by: _lock
 _launches = collections.Counter()
-# what nvcc/ptxas said for each source (registers, spills)
+# what nvcc/ptxas said for each source (registers, spills), and the
+# seconds its nvcc ran
 build_logs = {}
+build_seconds = {}
 
 
 def build_count():
@@ -101,15 +104,24 @@ def _target(name):
 
 def _start(src, out):
     """Start nvcc on ``src`` unless ``out`` is already built; returns
-    (popen and temporary path, or None)."""
+    (popen, temporary path, and the thread that collects nvcc's output
+    and its seconds into a dict), or None."""
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.monotonic()
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                             stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp
+    done = {}
+
+    def reap():
+        done["log"], _ = proc.communicate()
+        done["seconds"] = time.monotonic() - t0
+    reaper = threading.Thread(target=reap)
+    reaper.start()
+    return proc, tmp, reaper, done
 
 
 def _wait(name, started, out):
@@ -117,8 +129,10 @@ def _wait(name, started, out):
     (its output is in ``build_logs``)."""
     if started is None:
         return False
-    proc, tmp = started
-    build_logs[name], _ = proc.communicate()
+    proc, tmp, reaper, done = started
+    reaper.join()
+    build_logs[name] = done["log"]
+    build_seconds[name] = done["seconds"]
     if proc.returncode != 0:
         return True
     os.replace(tmp, out)

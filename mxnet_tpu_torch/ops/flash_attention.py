@@ -28,13 +28,13 @@ keys (``out`` is the mean of ``v``), as the JAX kernel gives when no key
 padding is added. The kernels mask the ragged edge themselves: keys past
 ``Tk`` and queries past ``Tq`` take no part, with no padded copy.
 
-The kernels are instantiated for head dims 16, 32, 64 and 128. Any other
-``D <= 128`` runs at the next of those: the wrappers zero-pad q, k, v
+The kernels are instantiated for head dims 16, 32, 64, 128 and 256 (at
+256 with 32-row tiles: a 64-row tile does not fit one SM's shared memory
+in the forward, nor dK/dV in the registers of the backward). Any other
+``D <= 256`` runs at the next of those: the wrappers zero-pad q, k, v
 (and dout) along ``D``, pass the scale of the true ``D`` and slice the
 outputs back. That is exact: zero columns add nothing to a score, and
-the padded output and gradient columns are dropped. ``D > 128`` raises
-(a 64-row tile at ``D = 256`` does not fit one SM's shared memory in the
-forward, nor dK/dV in the registers of the backward).
+the padded output and gradient columns are dropped. ``D > 256`` raises.
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ __all__ = ["attention_reference", "flash_forward_reference",
 _NEG_INF = -1e30
 # launch-counter names of the three kernels (forward, dK/dV, dQ)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def attention_reference(q, k, v, bias=None, causal=False, scale=None):
@@ -216,7 +216,7 @@ def _ptr(t):
 
 def kernel_head_dim(D):
     """The instantiated head dim a kernel runs ``D`` at: the least of
-    16, 32, 64, 128 that is ``>= D``."""
+    16, 32, 64, 128, 256 that is ``>= D``."""
     return next(d for d in _HEAD_DIMS if d >= D)
 
 

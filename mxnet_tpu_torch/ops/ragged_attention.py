@@ -27,10 +27,13 @@ pointing at the null block 0). Three shapes, one kernel source
   :func:`ragged_chunk_attention_reference`.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. The kernels take every head dim from 1 to 256. The quantised
-flat kernel and the chunk kernel stage pages through shared memory and
-split a row's pages over a thread-block cluster, by the launch plan of
-:func:`paged_plan`; :func:`page_shares` is the split the kernel makes.
+or raises. The kernels take every head dim from 1 to 256. All four are
+one staged kernel (``paged_ring_kernel``): a query tile of up to 16
+tokens of one table row reads each page once through shared memory, and
+a row's pages are split over a thread-block cluster, by the launch plan
+of :func:`paged_plan` (:func:`flat_plan` for the flat shape, whose tiles
+the kernel cuts from the pack's runs of consecutive tokens);
+:func:`page_shares` is the split the kernel makes.
 Each launch counts under its kernel's name in
 :func:`mxnet_tpu_torch.kernels.launch_counts`. ``ragged_paged_attention``
 is also the registered op ``nd.ragged_paged_attention``
@@ -56,8 +59,8 @@ from .registry import register
 __all__ = ["ragged_flat_attention", "ragged_flat_attention_reference",
            "ragged_paged_attention", "ragged_attention_reference",
            "ragged_chunk_attention_reference", "gather_rows",
-           "kernel_name", "paged_plan", "page_shares", "live_pages",
-           "ring_smem_bytes", "CHUNK_KERNEL", "DECODE_KERNEL"]
+           "kernel_name", "paged_plan", "flat_plan", "page_shares",
+           "live_pages", "ring_smem_bytes", "CHUNK_KERNEL", "DECODE_KERNEL"]
 
 # launch-counter names of the chunk (K4) and decode (K5) kernels
 CHUNK_KERNEL = "chunk_attention"
@@ -83,8 +86,9 @@ MAX_HEAD_DIM = 256
 # CTAs one launch should put on the card's 132 SMs (a CTA's page walk is
 # a chain of dependent steps, so the card wants many short walks in
 # flight: 8 an SM), the largest cluster (the portable size), the largest
-# stage of sub-walk pages; shared memory that lets two CTAs share an SM
-# (228 KB an SM, 1 KB reserved per CTA) and the most one CTA may take
+# stage of sub-walk pages; shared memory that lets two or three CTAs
+# share an SM (228 KB an SM, 1 KB reserved per CTA) and the most one CTA
+# may take
 _Q_TILE = 16
 _RING_WARPS = 8
 _MAX_HEADS = 4
@@ -94,6 +98,7 @@ _TARGET_CTAS = 8 * _SMS
 _MAX_SPLITS = 8
 _MAX_STAGE = 32 * 1024
 _TWO_PER_SM = 228 * 1024 // 2 - 1024
+_THREE_PER_SM = 228 * 1024 // 3 - 1024
 _MAX_SMEM = 232448
 
 
@@ -133,7 +138,11 @@ def paged_plan(rows, Q, H, D, bs, MB, page_dtype):
       gets up to ``8 // pairs`` warps (sub-walks, each taking every
       subs-th page of the share), as long as a stage of ``subs`` pages
       stays within 32 KB;
-    - stages: as many, up to 4, as that memory holds.
+    - stages: as many, up to 4, as that memory holds; in a launch of
+      more CTAs than two an SM take at once, as many as the memory that
+      lets three CTAs share an SM holds, where two or more fit (each
+      CTA's page walk waits on its own chain of steps, so more walks an
+      SM beat a deeper ring: K5 at 64 rows of f32 pages).
 
     Raises ``ValueError`` when one head of a page does not fit."""
     qt = min(Q, _Q_TILE)
@@ -161,7 +170,26 @@ def paged_plan(rows, Q, H, D, bs, MB, page_dtype):
                                      0, -1)
                     if n == 1 or (n * page <= _MAX_STAGE
                                   and stages_for(heads, n, _TWO_PER_SM)))
-    return heads, splits, stages_for(heads, subs, _TWO_PER_SM), subs
+    budget = _TWO_PER_SM
+    if ctas * splits > 2 * _SMS and stages_for(heads, subs, _THREE_PER_SM):
+        budget = _THREE_PER_SM
+    return heads, splits, stages_for(heads, subs, budget), subs
+
+
+def flat_plan(T, S, H, D, bs, MB, page_dtype):
+    """The flat kernel's launch plan for ``T`` packed tokens over ``S``
+    table rows: ``(qt, heads, splits, stages, subs)``.
+
+    The kernel cuts the pack into slots of ``qt`` tokens and each slot
+    into tiles at the starts of its runs (consecutive tokens of one
+    ``seq_id``; a tile reads the pages up to its largest position once,
+    each token masking by its own); the host cannot see the runs without
+    a sync, so ``qt`` is the pack's mean tokens per row, at most 16: 1
+    for a decode step (``T <= S``), 16 for a prefill pack of 16-token
+    chunks. The rest is :func:`paged_plan` sized for ``ceil(T / qt)``
+    tiles of ``qt`` tokens."""
+    qt = min(_Q_TILE, max(1, -(-T // max(S, 1))))
+    return (qt,) + paged_plan(-(-T // qt), qt, H, D, bs, MB, page_dtype)
 
 
 def live_pages(horizon, bs, MB):
@@ -250,8 +278,8 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
     ptrs += [block_tables.data_ptr(), seq_ids.data_ptr(),
              positions.data_ptr(), out.data_ptr()]
-    plan = paged_plan(T, 1, H, D, bs, MB, k_pages.dtype) if quant else ()
-    rc = getattr(lib, fn)(*ptrs, T, H, D, bs, N, S, MB, *plan,
+    rc = getattr(lib, fn)(*ptrs, T, H, D, bs, N, S, MB,
+                          *flat_plan(T, S, H, D, bs, MB, k_pages.dtype),
                           float(scale), kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
@@ -343,21 +371,20 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
     if out.numel() == 0:
         return out
     lib = kernels.library("ragged_flat")
-    stream = kernels.stream_handle(dev)
+    plan = paged_plan(S, Q, H, D, bs, MB, torch.float32)
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr()]
     if chunked:
         fn, counter = "mxt_ragged_chunk_f32", CHUNK_KERNEL
-        rc = lib.mxt_ragged_chunk_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(), q_lens.data_ptr(),
-            out.data_ptr(), S, Q, H, D, bs, N, MB,
-            *paged_plan(S, Q, H, D, bs, MB, torch.float32), float(scale),
-            stream)
+        rc = lib.mxt_ragged_chunk_f32(*ptrs, q_lens.data_ptr(),
+                                      out.data_ptr(), S, Q, H, D, bs, N, MB,
+                                      *plan, float(scale),
+                                      kernels.stream_handle(dev))
     else:
         fn, counter = "mxt_ragged_decode_f32", DECODE_KERNEL
-        rc = lib.mxt_ragged_decode_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            S, H, D, bs, N, MB, float(scale), stream)
+        rc = lib.mxt_ragged_decode_f32(*ptrs, out.data_ptr(), S, H, D, bs,
+                                       N, MB, *plan, float(scale),
+                                       kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out

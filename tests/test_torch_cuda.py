@@ -330,8 +330,8 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         tfa.flash_forward(q.double(), k.double(), v.double(), None, False,
                           None)
-    # every head dim up to 128 is taken (padded); 256 is not
-    q2, k2, v2, _, _ = _flash_inputs(cuda, 1, 2, 8, 8, 256, False)
+    # every head dim up to 256 is taken (padded); 264 is not
+    q2, k2, v2, _, _ = _flash_inputs(cuda, 1, 2, 8, 8, 264, False)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_forward(q2, k2, v2, None, False, None)
     with pytest.raises(ValueError, match="contiguous"):
@@ -616,3 +616,195 @@ def test_default_decoder_config_serves_through_the_kernels(cuda):
     p = srv.engine.params
     assert got == [greedy_decode_reference(model, p, pr, 12)
                    for pr in prompts]
+
+
+# ------------------- K1 and K5 on the staged kernel, flash at D <= 256 --
+def _run(seq, p0, n):
+    return [seq] * n, list(range(p0, p0 + n))
+
+
+def _packed(*runs):
+    ids, pos = [], []
+    for a, b in runs:
+        ids += a
+        pos += b
+    return ids, pos
+
+
+# (seq_ids, positions), table rows: block 16, 64 table columns
+_PACKS = {
+    # a prefill pack: 8 rows' 16-token chunks, across page edges
+    "prefill": (_packed(*(_run(s, 16 * s + 7 * s, 16) for s in range(8))),
+                8),
+    # 7 decode tokens, a 16-token chunk and a 5-token prompt tail
+    "mixed": (_packed(_run(0, 1023, 1), _run(1, 15, 1), _run(2, 100, 16),
+                      _run(3, 16, 1), _run(4, 0, 5), _run(5, 511, 1),
+                      _run(6, 700, 1), _run(7, 47, 1)), 8),
+    # three 16-token chunks, then the step's padding: one stale entry
+    # (a fresh buffer's zeros) repeated
+    "padded": (_packed(_run(0, 0, 16), _run(3, 16, 16), _run(5, 40, 16),
+                       ([0] * 80, [0] * 80)), 8),
+    # unsorted, repeated, gapped, stale padding, rows out of range, a run
+    # of 40
+    "adversarial": (_packed(_run(1, 9, 1), _run(1, 8, 1), _run(1, 7, 1),
+                            _run(0, 5, 3), _run(0, 7, 2),
+                            ([2, 2, 2], [3, 5, 6]), _run(9, 31, 4),
+                            _run(-3, 64, 2), _run(3, 200, 40),
+                            _run(0, 0, 1), _run(0, 0, 1)), 4),
+}
+
+
+def _pack_case(dev, dtype, D, pack, H=4, seed=2):
+    """Pools and q for a pack of ``_PACKS``; returns the kernel's
+    arguments and the plain twin's (seq_ids clamped into the table, as
+    the kernel clamps them)."""
+    (seq_ids, positions), S = _PACKS[pack]
+    rng = np.random.RandomState(seed)
+    MB = 64
+    N = S * MB + 1
+    tables = rng.permutation(np.arange(1, N)).astype(np.int32)[
+        :S * MB].reshape(S, MB)
+    t = dict(q=torch.from_numpy(
+                 rng.randn(len(seq_ids), H, D).astype(np.float32)),
+             block_tables=torch.from_numpy(tables),
+             seq_ids=torch.tensor(seq_ids, dtype=torch.int32),
+             positions=torch.tensor(positions, dtype=torch.int32))
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.randn(N, BS, H, D).astype(np.float32))
+        if dtype == "float32":
+            t[f"{name}_pages"] = x
+        else:
+            xq, sc = _quantize_kv(x.reshape(-1, H, D), torch.int8)
+            t[f"{name}_pages"] = xq.reshape(N, BS, H, D)
+            t[f"{name}_scales"] = sc.reshape(N, BS, H)
+    t = {k: v.to(dev) for k, v in t.items()}
+    return t, dict(t, seq_ids=t["seq_ids"].clamp(0, S - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 33, 64, 96, 128, 256])
+@pytest.mark.parametrize("pack", sorted(_PACKS))
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_flat_kernels_tile_the_pack_by_runs(cuda, D, pack, dtype):
+    """K1 (and K2, which shares its tiles) on the staged kernel, whose
+    query tiles are the pack's runs of one seq_id cut into slots:
+    engine-shaped (padding included) and adversarial packs against the
+    plain twin; two launches give the same bits."""
+    t, ref = _pack_case(cuda, dtype, D, pack)
+    name = tra.kernel_name(t["k_pages"].dtype)
+    before = kernels.launch_counts().get(name, 0)
+    got = tra.ragged_flat_attention(**t)
+    again = tra.ragged_flat_attention(**t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    want = tra.ragged_flat_attention_reference(**ref)
+    assert float((got - want).abs().max()) < ATT_TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 33, 64, 96, 128, 256])
+def test_decode_kernel_every_head_dim(cuda, D):
+    """K5 on the staged kernel: rows at kv lengths 1, 15, 16, 17, 300,
+    1024 against the plain twin, rows with kv_len 0 give exactly 0, a
+    corrupt table entry past a row's live pages is never read; two
+    launches give the same bits."""
+    rng = np.random.RandomState(D)
+    H, MB = 4, 64
+    kv = np.array([0, 1, 15, 16, 17, 1024, 300, 0], np.int32)
+    S = len(kv)
+    N = S * MB + 1
+    tables = rng.permutation(np.arange(1, N)).astype(np.int32)[
+        :S * MB].reshape(S, MB)
+    tables[2, 1] = 10 ** 7
+    t = dict(q=torch.from_numpy(rng.randn(S, H, D).astype(np.float32)),
+             k_pages=torch.from_numpy(
+                 rng.randn(N, BS, H, D).astype(np.float32)),
+             v_pages=torch.from_numpy(
+                 rng.randn(N, BS, H, D).astype(np.float32)),
+             block_tables=torch.from_numpy(tables),
+             kv_lens=torch.from_numpy(kv))
+    t = {k: v.to(cuda) for k, v in t.items()}
+    before = kernels.launch_counts().get(tra.DECODE_KERNEL, 0)
+    got = tra.ragged_paged_attention(**t)
+    again = tra.ragged_paged_attention(**t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[tra.DECODE_KERNEL] == before + 2
+    assert torch.equal(got, again)
+    live = torch.from_numpy(kv > 0).to(cuda)
+    assert not got[~live].any()
+    want = tra.ragged_attention_reference(**dict(
+        t, block_tables=t["block_tables"].clamp(0, N - 1)))
+    assert float((got[live] - want[live]).abs().max()) < ATT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [129, 192, 256])
+@pytest.mark.parametrize("padding,causal", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_flash_kernels_wide_head_dims(cuda, D, padding, causal):
+    """Head dims 129 to 256 (the 256 instantiation, 32-row tiles; 129
+    and 192 zero-padded to it): forward, dK/dV(/dbias) and dQ against
+    the plain twins, ragged Tq != Tk; two launches give the same bits."""
+    q, k, v, bias, dout = _flash_inputs(cuda, 2, 3, 70, 90, D, padding,
+                                        seed=D)
+    scale = D ** -0.5
+    before = kernels.launch_counts()
+    out, lse = tfa.flash_forward(q, k, v, bias, causal, None)
+    wo, wl = tfa.flash_forward_reference(q, k, v, bias, causal, scale)
+    assert out.shape == q.shape
+    assert _rel(out, wo) < FLASH_TOL
+    assert _rel(lse, wl) < FLASH_TOL
+    delta = (dout * wo).sum(-1).reshape(-1, q.shape[2])
+    args = (q, k, v, bias, dout, wl, delta, causal, scale)
+    got = _flash_backward(args, padding)
+    want = tfa.flash_bwd_dkv_reference(*args, want_dbias=padding) + (
+        tfa.flash_bwd_dq_reference(*args),)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.shape == w.shape
+            assert _rel(g, w) < FLASH_TOL
+    after = kernels.launch_counts()
+    for name in tfa.KERNEL_NAMES:
+        assert after[name] == before.get(name, 0) + 1
+    out2, lse2 = tfa.flash_forward(q, k, v, bias, causal, None)
+    again = _flash_backward(args, padding)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["default", "gpt2_small"])
+def test_llm_server_serves_the_oracle_streams_after_warmup(cuda, config):
+    """``LLMServer`` on the reference's default config (head dim 16) and
+    at GPT-2-small widths: greedy streams equal
+    ``greedy_decode_reference`` (or leave it only on a near tie, as
+    chip_smoke.check_greedy allows), no kernel build after
+    ``warmup()``, and the flat kernel ran."""
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    kw = {} if config == "default" else chip_smoke.GPT2_SMALL
+    model = TinyDecoder(device=cuda, **kw)
+    params = model.init_params_numpy(0)
+    srv = LLMServer(model, params, max_seqs=8, block_size=BS,
+                    dtype="float32", device=cuda)
+    srv.warmup()
+    compiles = srv.stats()["compiles"]
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (1, 15, 16, 17, 40, 100)]
+    before = kernels.launch_counts().get("flat_attention", 0)
+    srv.start()
+    try:
+        got = [f.result(timeout=300).tokens
+               for f in [srv.submit(p, 8) for p in prompts]]
+    finally:
+        srv.shutdown()
+    assert kernels.launch_counts()["flat_attention"] > before
+    assert srv.stats()["compiles"] == compiles
+    p = srv.engine.params
+    for i, (prompt, toks) in enumerate(zip(prompts, got)):
+        chip_smoke.check_greedy(model, p, prompt, toks,
+                                chip_smoke.F32_LOGIT_TOL,
+                                f"{config} request {i}")

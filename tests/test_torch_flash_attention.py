@@ -34,12 +34,12 @@ GRAD_TOL = 2e-5
 B, H, D = 2, 2, 16
 
 
-def _case(seed, tq, tk, with_bias, lengths=None):
+def _case(seed, tq, tk, with_bias, lengths=None, d=D):
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, H, tq, D).astype(np.float32)
-    k = rng.randn(B, H, tk, D).astype(np.float32)
-    v = rng.randn(B, H, tk, D).astype(np.float32)
-    g = rng.randn(B, H, tq, D).astype(np.float32)
+    q = rng.randn(B, H, tq, d).astype(np.float32)
+    k = rng.randn(B, H, tk, d).astype(np.float32)
+    v = rng.randn(B, H, tk, d).astype(np.float32)
+    g = rng.randn(B, H, tq, d).astype(np.float32)
     bias = None
     if with_bias:
         lengths = lengths if lengths is not None else (tk, max(1, tk // 3))
@@ -104,6 +104,24 @@ def test_flash_matches_jax_flash_forward_lse_and_grads(tq, tk, with_bias,
                                  tb, causal, None)
     _close(t_lse.numpy(), j_lse, OUT_TOL, "lse")
     assert len(t_grads) == len(j_grads)
+    for a, b, name in zip(t_grads, j_grads, ["dq", "dk", "dv", "dbias"]):
+        _close(a, b, GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_matches_jax_flash_at_wide_head_dims(d, causal):
+    """Head dims above 128, which the card's kernels take at 256 (160
+    zero-padded to it): the port's op against JAX's flash kernel on the
+    same inputs, forward, lse and every gradient."""
+    q, k, v, g, bias = _case(d + int(causal), 12, 20, True, d=d)
+    j_out, j_lse, j_grads = _jax(q, k, v, g, bias, causal)
+    t_out, t_grads = _port(q, k, v, g, bias, causal)
+    _close(t_out, j_out, OUT_TOL, "out")
+    _, t_lse = tfa.flash_forward(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 torch.from_numpy(bias), causal, None)
+    _close(t_lse.numpy(), j_lse, OUT_TOL, "lse")
+    assert tfa.kernel_head_dim(d) == 256
     for a, b, name in zip(t_grads, j_grads, ["dq", "dk", "dv", "dbias"]):
         _close(a, b, GRAD_TOL, name)
 

@@ -1,12 +1,14 @@
-"""PyTorch port: the launch plan and the split-and-merge arithmetic of
-the staged paged-attention kernel (``paged_ring_kernel`` in
-``mxnet_tpu_torch/csrc/ragged_flat.cu``: the quantised flat kernel and
-the chunk kernel), and the head-dim padding of the flash kernels' wrappers.
+"""PyTorch port: the launch plan, the query tiles and the split-and-merge
+arithmetic of the staged paged-attention kernel (``paged_ring_kernel`` in
+``mxnet_tpu_torch/csrc/ragged_flat.cu``: the flat kernels, f32 and
+quantised, the chunk and the decode kernel), and the head-dim padding of
+the flash kernels' wrappers.
 
 The kernel runs only on the card. What these CPU tests hold:
 
-- ``paged_plan``: its choices at the main path's shapes, every stage
-  within the shared memory it budgets, and the kv split
+- ``paged_plan`` and ``flat_plan``: their choices at the main path's
+  shapes, every stage within the shared memory it budgets, and the kv
+  split
   (``page_shares``, then sub-walks taking every subs-th page of a share)
   covering each live page of a row exactly once;
 - the kernel's arithmetic, written once here in float64 numpy
@@ -20,9 +22,16 @@ The kernel runs only on the card. What these CPU tests hold:
   ``ragged_flat_attention`` / ``ragged_paged_attention`` (through their
   references) at D = 16 and D = 64, int8/fp8 scales included. Tolerance
   1e-5: f32 inputs, sums in another order, outputs O(1);
+- the flat kernels' query tiles (``flat_tiles``, the kernel's
+  ``FlatTiles`` in Python): slots of ``qt`` tokens cut at the starts of
+  the pack's runs. Every token lies in exactly one tile of consecutive
+  positions of one row, and the staged arithmetic over those tiles
+  agrees with both references on engine-shaped packs (runs of 16, of 1,
+  mixed) and adversarial ones (unsorted, repeated tokens, gaps, stale
+  padding, out-of-range seq_ids, runs longer than 16);
 - the flash pad identity: the plain forward and backward on q, k, v
   (and dout) zero-padded to the next instantiated head dim, with the
-  scale of the true D, equal the unpadded results at D = 48 and 80
+  scale of the true D, equal the unpadded results at D = 48, 80 and 160
   (tolerance 1e-5, the same sums with zero terms added).
 """
 import os
@@ -49,23 +58,26 @@ NEG = -1e30
 SLOTS = 16                   # slots per softmax step of the kernel
 # the card's budget: shared memory for two CTAs an SM, and one CTA's most
 TWO_PER_SM = 228 * 1024 // 2 - 1024
+THREE_PER_SM = 228 * 1024 // 3 - 1024
 MAX_SMEM = 232448
 
 
 # ------------------------------------------------------------- plan --
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
 def test_plan_quantised_flat_at_the_main_path_shapes(dtype):
-    """GPT-2-small widths (H=12, D=64, block 16, 64 table columns):
-    a decode step of 8 tokens gets 8 rows x 3 head groups x 8 splits =
-    192 CTAs of 4 heads, each pair walked by 2 warps (a stage of two
-    pages, 17 KB); a 128-token prefill pack already has 384 CTAs and
-    splits 3 ways (8 x 132 wanted), one warp a pair."""
-    heads, splits, stages, subs = tra.paged_plan(8, 1, 12, 64, 16, 64, dtype)
-    assert (heads, splits, subs) == (4, 8, 2)
+    """GPT-2-small widths (H=12, D=64, block 16, 64 table columns, 8
+    rows): a decode step of 8 tokens gets one-token tiles, 8 rows x 3
+    head groups x 8 splits = 192 CTAs of 4 heads, each pair walked by 2
+    warps (a stage of two pages, 17 KB); a 128-token prefill pack gets
+    16-token tiles (16 tokens a row on average), one head a CTA, 8 x 12
+    x 8 = 768 CTAs, one warp per 2 pairs."""
+    qt, heads, splits, stages, subs = tra.flat_plan(8, 8, 12, 64, 16, 64,
+                                                    dtype)
+    assert (qt, heads, splits, subs) == (1, 4, 8, 2)
     assert 8 * (12 // heads) * splits == 192
     assert stages == 4
-    assert tra.paged_plan(128, 1, 12, 64, 16, 64, dtype) == (4, 3, 4, 1)
-    heads, splits, _, _ = tra.paged_plan(4096, 1, 12, 64, 16, 64, dtype)
+    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype) == (16, 1, 8, 4, 1)
+    _, heads, splits, _, _ = tra.flat_plan(4096, 8, 12, 64, 16, 64, dtype)
     assert splits == 1
 
 
@@ -99,6 +111,38 @@ def test_plan_stays_within_shared_memory(dtype, Q, H, D, bs):
     # the stage holds subs pages of K and V (and scales) for the group
     elem = dtype.itemsize
     assert stage >= subs * 2 * bs * heads * D * elem
+
+
+@pytest.mark.parametrize("T,plan", [
+    (8, (1, 4, 8, 3, 1)),     # a decode step: K4's Q=1 plan
+    (64, (8, 2, 8, 4, 1)),    # 8 tokens a row: 2 heads x 8 tokens a CTA
+    (128, (16, 1, 8, 4, 1)),  # 16-token chunks: K4's Q=16 plan
+])
+def test_plan_f32_flat_at_the_main_path_shapes(T, plan):
+    """K1 at GPT-2-small widths over 8 rows: slots of the mean tokens per
+    row, each at the chunk kernel's plan for that many tokens."""
+    assert tra.flat_plan(T, 8, 12, 64, 16, 64, torch.float32) == plan
+    qt = plan[0]
+    assert plan[1:] == tra.paged_plan(-(-T // qt), qt, 12, 64, 16, 64,
+                                      torch.float32)
+
+
+@pytest.mark.parametrize("S,plan", [
+    (8, (4, 8, 3, 1)),    # 24 clusters of 8: 192 CTAs, one wave
+    (64, (4, 6, 2, 1)),   # 192 clusters of 6: 1152 CTAs
+    (128, (4, 3, 2, 1)),  # 384 clusters of 3: 1152 CTAs
+])
+def test_plan_decode_at_the_main_path_shapes(S, plan):
+    """K5: one token a row, so the chunk kernel's Q=1 plan; splits fill
+    the card (8 x 132 CTAs wanted) up to 8 a cluster. A launch of more
+    CTAs than two an SM take at once keeps two stages, so that three
+    CTAs share an SM."""
+    assert tra.paged_plan(S, 1, 12, 64, 16, 64, torch.float32) == plan
+    heads, splits, stages = plan[:3]
+    assert S * (12 // heads) * splits >= min(8 * 132, S * 3 * 8)
+    smem = tra.ring_smem_bytes(16, heads, 64, torch.float32, 1, stages,
+                               64)[1]
+    assert smem <= (TWO_PER_SM if stages == 3 else THREE_PER_SM)
 
 
 def test_plan_refuses_a_page_that_does_not_fit():
@@ -180,20 +224,21 @@ def _merge(ranks):
 
 def staged_attention(q, kp, vp, tables, tiles, scale, plan, ks=None,
                      vs=None):
-    """The kernel's result for query tiles ``[(token indices, table row,
-    horizon of the first token, tokens with a contract)]`` over q ``[T,
-    H, D]``: per tile the live pages of its last valid token, split by
-    ``plan``'s (splits, subs), each token masking by its own horizon."""
+    """The kernel's result for query tiles ``[(indices of the tokens with
+    a contract, table row, their horizons)]`` over q ``[T, H, D]``: per
+    tile the live pages of its largest horizon, split by ``plan``'s
+    (splits, subs), each token masking by its own horizon; other tokens
+    give 0."""
     _, splits, _, subs = plan
     T, H, D = q.shape
     bs, MB = kp.shape[1], tables.shape[1]
     out = np.zeros((T, H, D))
-    for toks, row, hz0, nq in tiles:
-        n_live = tra.live_pages(hz0 + nq - 1, bs, MB) if nq else 0
+    for toks, row, hz in tiles:
+        n_live = tra.live_pages(max(hz), bs, MB) if toks else 0
         walks = _walks(n_live, splits, subs)
-        for i in range(nq):
+        for i in range(len(toks)):
             for h in range(H):
-                states = [[_state(q[toks[i], h], w, hz0 + i, kp[:, :, h],
+                states = [[_state(q[toks[i], h], w, hz[i], kp[:, :, h],
                                   vp[:, :, h],
                                   None if ks is None else ks[:, :, h],
                                   None if vs is None else vs[:, :, h],
@@ -229,44 +274,164 @@ def _to_jax(t):
     return jnp.asarray(t.numpy())
 
 
+def flat_tiles(seq_ids, positions, qt, S):
+    """The flat kernels' query tiles (``FlatTiles``): slot x holds tokens
+    x*qt .. x*qt + qt - 1; a tile starts at the slot's first token and
+    at each token whose seq_id differs from the one before it, and ends
+    at the next start. ``[(token indices, table row, their
+    positions)]``."""
+    T = len(seq_ids)
+    tiles = []
+    for x0 in range(0, T, qt):
+        end = min(T, x0 + qt)
+        starts = [y for y in range(x0, end)
+                  if y == x0 or seq_ids[y - 1] != seq_ids[y]]
+        for a, b in zip(starts, starts[1:] + [end]):
+            row = min(max(int(seq_ids[a]), 0), S - 1)
+            tiles.append((list(range(a, b)), row,
+                          [int(positions[y]) for y in range(a, b)]))
+    return tiles
+
+
+def _flat_case(dtype, D, seq_ids, positions, S, seed):
+    """Pools, q and both references' outputs for a flat pack; the
+    references get the kernel's clamped seq_ids."""
+    rng = np.random.RandomState(seed)
+    H, bs, MB = 2, 8, 6
+    tables, kp, vp, ks, vs, kt, vt = _pool(rng, D, H, bs, MB, S, dtype)
+    seq_ids = np.asarray(seq_ids, np.int32)
+    positions = np.asarray(positions, np.int32)
+    rows = np.clip(seq_ids, 0, S - 1).astype(np.int32)
+    q = rng.randn(len(seq_ids), H, D).astype(np.float32)
+    scale = float(D ** -0.5)
+    quant = ks is not None
+    kw, jkw = {}, {}
+    if quant:
+        kw = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+        jkw = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    want = tra.ragged_flat_attention_reference(
+        torch.from_numpy(q), kt if quant else torch.from_numpy(kp),
+        vt if quant else torch.from_numpy(vp), torch.from_numpy(tables),
+        torch.from_numpy(rows), torch.from_numpy(positions), scale,
+        **kw).numpy()
+    jwant = np.asarray(jra.ragged_flat_attention(
+        jnp.asarray(q), _to_jax(kt) if quant else jnp.asarray(kp),
+        _to_jax(vt) if quant else jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(rows), jnp.asarray(positions), scale=scale,
+        use_pallas=False, **jkw))
+    return q, kp, vp, ks, vs, tables, scale, want, jwant
+
+
+_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+           "float32": torch.float32}
+
+
 @pytest.mark.parametrize("D", [16, 64])
 @pytest.mark.parametrize("dtype", ["int8", "fp8", "float32"])
 def test_staged_flat_arithmetic_matches_references(D, dtype):
-    rng = np.random.RandomState(D)
-    H, bs, MB, S = 2, 8, 6, 3
-    tables, kp, vp, ks, vs, kt, vt = _pool(rng, D, H, bs, MB, S, dtype)
-    T = 7
+    S, bs, MB = 3, 8, 6
     seq_ids = np.array([0, 0, 1, 2, 2, 1, 0], np.int32)
     positions = np.array([bs - 1, bs, 0, 2 * bs + 1, MB * bs - 1, 33, 5],
                          np.int32)
-    q = rng.randn(T, H, D).astype(np.float32)
-    scale = float(D ** -0.5)
-    plan = tra.paged_plan(T, 1, H, D, bs, MB,
-                          {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
-                           "float32": torch.float32}[dtype])
-    tiles = [([t], int(seq_ids[t]), int(positions[t]), 1) for t in range(T)]
+    T = len(seq_ids)
+    q, kp, vp, ks, vs, tables, scale, want, jwant = _flat_case(
+        dtype, D, seq_ids, positions, S, D)
+    H = q.shape[1]
+    qt, *plan = tra.flat_plan(T, S, H, D, bs, MB, _DTYPES[dtype])
+    tiles = flat_tiles(seq_ids, positions, qt, S)
     for splits, subs in ((plan[1], plan[3]), (3, 2), (8, 1), (1, 1)):
         got = staged_attention(q, kp, vp, tables, tiles, scale,
                                (plan[0], splits, plan[2], subs), ks, vs)
-        kw = {}
-        if ks is not None:
-            kw = dict(k_scales=torch.from_numpy(ks),
-                      v_scales=torch.from_numpy(vs))
-        want = tra.ragged_flat_attention_reference(
-            torch.from_numpy(q), kt if ks is not None else torch.from_numpy(kp),
-            vt if ks is not None else torch.from_numpy(vp),
-            torch.from_numpy(tables), torch.from_numpy(seq_ids),
-            torch.from_numpy(positions), scale, **kw).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-        jkw = {}
-        if ks is not None:
-            jkw = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
-        jwant = np.asarray(jra.ragged_flat_attention(
-            jnp.asarray(q), _to_jax(kt) if ks is not None else jnp.asarray(kp),
-            _to_jax(vt) if ks is not None else jnp.asarray(vp),
-            jnp.asarray(tables), jnp.asarray(seq_ids),
-            jnp.asarray(positions), scale=scale, use_pallas=False, **jkw))
         np.testing.assert_allclose(got, jwant, rtol=0, atol=TOL)
+
+
+def _run(seq, p0, n):
+    """n tokens of row ``seq`` at positions p0 .. p0 + n - 1."""
+    return [seq] * n, list(range(p0, p0 + n))
+
+
+def _pack(*runs):
+    ids, pos = [], []
+    for a, b in runs:
+        ids += a
+        pos += b
+    return ids, pos
+
+
+# (name, seq_ids, positions, table rows); bs 8, 6 table columns: positions
+# up to 47
+_PACKS = {
+    # engine packs: each row's tokens contiguous, in position order
+    "runs_of_16": (_pack(_run(0, 0, 16), _run(1, 20, 16), _run(2, 31, 16),
+                         _run(3, 7, 16)), 4),
+    "runs_of_1": (_pack(*(_run(s, 3 * s + 5, 1) for s in range(8))), 8),
+    "mixed": (_pack(_run(0, 40, 1), _run(1, 9, 1), _run(2, 16, 16),
+                    _run(3, 47, 1), _run(4, 0, 5), _run(5, 30, 1),
+                    _run(6, 12, 1), _run(7, 2, 1)), 8),
+    # engine padding: the valid tokens, then the same stale entry
+    # repeated (a fresh buffer's zeros), or stale tokens of an earlier step
+    "padding": (_pack(_run(1, 3, 9), _run(2, 30, 3), ([0] * 12, [0] * 12)),
+                3),
+    "stale_padding": (_pack(_run(1, 3, 9), _run(0, 0, 1), _run(0, 0, 1),
+                            _run(2, 30, 4), _run(0, 0, 1)), 3),
+    # adversarial packs
+    "unsorted": (_pack(_run(0, 9, 1), _run(0, 8, 1), _run(0, 7, 1),
+                       _run(1, 20, 1), _run(0, 10, 1), _run(1, 19, 1)), 2),
+    "repeated": (_pack(_run(0, 5, 3), _run(0, 7, 1), _run(0, 7, 2),
+                       _run(1, 4, 1), _run(1, 4, 1)), 2),
+    "gapped": (_pack(([0, 0, 0, 0, 1, 1], [3, 5, 6, 8, 1, 2])), 2),
+    "out_of_range_rows": (_pack(_run(7, 4, 3), _run(-2, 4, 3),
+                                _run(1, 11, 3)), 3),
+    "run_of_40": (_pack(_run(1, 2, 40), _run(0, 20, 3)), 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PACKS))
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_flat_tiles_cover_the_pack_and_match_references(name, dtype):
+    """K1's (and K2's) query tiles over engine-shaped and adversarial
+    packs: each token in exactly one tile, a tile at most qt consecutive
+    tokens of one seq_id within one slot; the staged arithmetic over
+    those tiles (pages up to the tile's largest position, each token
+    masked by its own) agrees with both references, at the plan's kv
+    split and at others."""
+    (seq_ids, positions), S = _PACKS[name]
+    D, bs, MB = 16, 8, 6
+    T = len(seq_ids)
+    qt, *plan = tra.flat_plan(T, S, 2, D, bs, MB, _DTYPES[dtype])
+    tiles = flat_tiles(seq_ids, positions, qt, S)
+    covered = sorted(t for toks, _, _ in tiles for t in toks)
+    assert covered == list(range(T))
+    for toks, row, hz in tiles:
+        assert 1 <= len(toks) <= qt
+        assert toks == list(range(toks[0], toks[0] + len(toks)))
+        assert toks[0] // qt == toks[-1] // qt
+        assert len({seq_ids[t] for t in toks}) == 1
+        assert min(max(seq_ids[toks[0]], 0), S - 1) == row
+        assert hz == [positions[t] for t in toks]
+    q, kp, vp, ks, vs, tables, scale, want, jwant = _flat_case(
+        dtype, D, seq_ids, positions, S, len(name))
+    for splits, subs in ((plan[1], plan[3]), (3, 2), (1, 1)):
+        got = staged_attention(q, kp, vp, tables, tiles, scale,
+                               (plan[0], splits, plan[2], subs), ks, vs)
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+        np.testing.assert_allclose(got, jwant, rtol=0, atol=TOL)
+
+
+def test_flat_tiles_of_engine_packs():
+    """Runs of 16 aligned to the slots give one tile a slot (a 16-token
+    chunk reads its pages once); a decode step gives one tile a token; a
+    run of 40 splits at the slot edges; a step's padding (the same stale
+    entry repeated) fills its slots with one tile each."""
+    (ids, pos), S = _PACKS["runs_of_16"]
+    assert [len(t[0]) for t in flat_tiles(ids, pos, 16, S)] == [16] * 4
+    (ids, pos), S = _PACKS["runs_of_1"]
+    assert [len(t[0]) for t in flat_tiles(ids, pos, 1, S)] == [1] * 8
+    (ids, pos), S = _PACKS["run_of_40"]
+    assert [len(t[0]) for t in flat_tiles(ids, pos, 16, S)] == [16, 16, 8, 3]
+    ids, pos = _pack(_run(0, 9, 16), _run(1, 3, 16), ([0] * 32, [0] * 32))
+    assert [len(t[0]) for t in flat_tiles(ids, pos, 16, 8)] == [16] * 4
 
 
 @pytest.mark.parametrize("D", [16, 64])
@@ -287,8 +452,9 @@ def test_staged_chunk_arithmetic_matches_references(D, Q):
     for s in range(S):
         for q0 in range(0, Q, 16):
             nq = max(0, min(min(16, Q - q0), int(ql[s]) - q0))
-            toks = [s * Q + q0 + i for i in range(min(16, Q - q0))]
-            tiles.append((toks, s, int(kv[s] - ql[s]) + q0, nq))
+            hz0 = int(kv[s] - ql[s]) + q0
+            tiles.append(([s * Q + q0 + i for i in range(nq)], s,
+                          [hz0 + i for i in range(nq)]))
     for splits, subs in ((plan[1], plan[3]), (3, 2), (8, 4)):
         got = staged_attention(q.reshape(S * Q, H, D), kp, vp, tables, tiles,
                                scale, (plan[0], splits, plan[2], subs))
@@ -309,14 +475,14 @@ def test_staged_chunk_arithmetic_matches_references(D, Q):
 
 
 # ------------------------------------------------------- flash padding --
-@pytest.mark.parametrize("D", [48, 80])
+@pytest.mark.parametrize("D", [48, 80, 160])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_pad_identity(D, causal):
     """What the flash wrappers do for a head dim the kernels are not
     instantiated for: zero-pad to the next one, keep the true scale,
     slice the outputs back."""
     Dp = tfa.kernel_head_dim(D)
-    assert Dp == {48: 64, 80: 128}[D]
+    assert Dp == {48: 64, 80: 128, 160: 256}[D]
     g = torch.Generator().manual_seed(D)
     B, H, T = 2, 2, 24
     q, k, v, dout = (torch.randn(B, H, T, D, generator=g) for _ in range(4))
@@ -345,3 +511,9 @@ def test_flash_pad_identity(D, causal):
 def test_flash_kernel_head_dims():
     assert [tfa.kernel_head_dim(d) for d in (1, 16, 17, 33, 64, 65, 128)] \
         == [16, 16, 32, 64, 64, 128, 128]
+
+
+def test_flash_kernel_head_dims_above_128():
+    """129 to 256 run at the 256 instantiation (32-row tiles)."""
+    assert [tfa.kernel_head_dim(d) for d in (129, 160, 192, 255, 256)] \
+        == [256] * 5
