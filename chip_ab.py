@@ -18,15 +18,21 @@ the tree's kernels and runs the named kernel phases of the tree's
 ``run_flash_kernel_phase``, K6/K7; ``paged``: ``run_paged_kernel_phase``,
 K4/K5), each phase from ``np.random.RandomState(0)``, so both trees time
 the same inputs. ``--order`` lists the turns by tree letter (A the first
-``--tree``). With ``--profile``, each tree then serves the same traffic
-with f32 KV and weights, then its int8 and fp8 phases
-(``run_quant_phase``), once, and the device time of the flat attention
-kernels (K1, K2) and the quantized matmul (K3) in each profiled pass is
-printed beside the pass's device time. With ``--profile-paged``, each
-turn of ``--order`` also decodes chip_smoke's paged phase (``paged_greedy``:
-chunked prefill at Q=16, then 32 ``decode_step``s at Q=1) under the
-profiler, prefill alone and then prefill and decode, and K4's device ms
-per ``decode_chunk`` step and per ``decode_step`` step are printed. With ``--profile-bert``, each tree then trains BERT-base
+``--tree``). With ``--profile``, each tree then serves, in the turns of
+``--order``, chip_smoke's f32 traffic (8 prompts of 15-700 tokens, two
+sampled, 32 new tokens each) through ``LLMServer`` with f32, int8 and
+fp8 KV and weights: end-to-end tokens/s and TTFT p50, then host ms per
+step of the idle engine driven on the turn's thread without the
+profiler, then a profiled pass of the same traffic, whose device busy
+ms, idle share and the device time of the flat attention kernels (K1,
+K2) and the quantized matmul (K3) are printed. With ``--profile-paged``,
+each turn of ``--order`` also decodes chip_smoke's paged phase
+(``paged_greedy``: chunked prefill at Q=16, then 32 ``decode_step``s at
+Q=1; each step replayed from a CUDA graph where the tree's
+``paged_greedy`` takes ``graphs``): host ms per ``decode_step`` step
+without the profiler, then under the profiler, prefill alone and then
+prefill and decode, and K4's device ms per ``decode_chunk`` step and per
+``decode_step`` step are printed. With ``--profile-bert``, each tree then trains BERT-base
 (``run_bert_phase``) in the turns of ``--order``, and its profiled pass
 gives device ms per step, the flash kernels' device ms per step
 (forward; dK/dV and dQ) and the device's idle share. Prints the card
@@ -41,12 +47,13 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, os, sys, time
+import inspect, json, os, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
 import chip_smoke
 from mxnet_tpu_torch import kernels
+from mxnet_tpu_torch.serving.llm import Sequence
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kernels.build_all()
@@ -108,25 +115,56 @@ if profile:
         return report(prof, wall, steps)
     chip_smoke.report_profile = report_groups
 if profile == "quant":
+    # the same traffic through LLMServer with f32, int8 and fp8 KV and
+    # weights, by calls both trees have: served end to end (tokens/s,
+    # TTFT), then through the idle engine on this thread without the
+    # profiler (host ms per step; warmup() first, since a server may
+    # release its graphs at shutdown), then under the profiler
     from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
     np_params = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL
                             ).init_params_numpy(0)
-    # f32 KV and weights: the same traffic as the quantized passes
-    print("AB_DTYPE float32", flush=True)
-    rng = np.random.RandomState(1)
-    model = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL)
-    server = LLMServer(model, np_params, max_seqs=chip_smoke.MAX_SEQS,
-                       block_size=chip_smoke.BLOCK_SIZE, device="cuda")
-    server.warmup()
-    chip_smoke.profile_engine(
-        torch, server.engine, [rng.randint(0, model.vocab_size, size=n)
-                               .tolist() for n in (17, 64, 200)])
-    del server, model
-    torch.cuda.empty_cache()
-    for dtype in ("int8", "float8_e4m3fn"):
+    for dtype in ("float32", "int8", "float8_e4m3fn"):
         print(f"AB_DTYPE {dtype}", flush=True)
-        chip_smoke.run_quant_phase(torch, np.random.RandomState(1),
-                                   np_params, kernels, dtype)
+        rng = np.random.RandomState(1)
+        model = TinyDecoder(device="cuda", **chip_smoke.GPT2_SMALL)
+        quant = {} if dtype == "float32" else dict(kv_dtype=dtype,
+                                                   weight_dtype=dtype)
+        server = LLMServer(model, np_params, max_seqs=chip_smoke.MAX_SEQS,
+                           block_size=chip_smoke.BLOCK_SIZE, device="cuda",
+                           **quant)
+        t0 = time.monotonic()
+        server.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        server.start()
+        res, wall = chip_smoke.serve(
+            torch, server, chip_smoke.prompts_for(rng, model.vocab_size)[0],
+            sampled_idx=(1, 5))
+        server.shutdown()
+        st = server.stats()
+        engine = server.engine
+        engine.warmup()
+        seqs = [Sequence(p, chip_smoke.NEW_TOKENS) for p in
+                chip_smoke.prompts_for(rng, model.vocab_size)[0]]
+        t0 = time.monotonic()
+        for q in seqs:
+            engine.add(q)
+        steps = 0
+        while engine.has_work():
+            engine.step()
+            steps += 1
+        torch.cuda.synchronize()
+        host_s = time.monotonic() - t0
+        engine.pop_finished()
+        n_tok = sum(len(r.tokens) for r in res)
+        print("AB_SERVE " + json.dumps(dict(
+            warmup_s=warm_s, tokens=n_tok, tokens_per_s=n_tok / wall,
+            ttft_p50_ms=st["ttft_ms"]["p50"], steps=steps,
+            host_ms_per_step=host_s / steps * 1e3)), flush=True)
+        chip_smoke.profile_engine(
+            torch, engine, chip_smoke.prompts_for(rng, model.vocab_size)[0])
+        del server, engine, model
+        torch.cuda.empty_cache()
 elif profile == "paged":
     # chunked prefill alone, then prefill and decode: the difference is
     # the decode steps
@@ -137,7 +175,18 @@ elif profile == "paged":
     params = params_from_numpy(model.init_params_numpy(0), model.device)
     prompts, _ = chip_smoke.prompts_for(np.random.RandomState(1),
                                         model.vocab_size)
-    chip_smoke.paged_greedy(torch, model, params, prompts, 2)   # warm up
+    # a tree whose paged_greedy replays each step from a CUDA graph
+    # does so here (captured at each kind's first step, inside the
+    # profiled window)
+    graphs = {"graphs": True} if "graphs" in inspect.signature(
+        chip_smoke.paged_greedy).parameters else {}
+    chip_smoke.paged_greedy(torch, model, params, prompts, 2, **graphs)
+    out = chip_smoke.paged_greedy(torch, model, params, prompts,
+                                  chip_smoke.DECODE_STEPS, **graphs)
+    step_s = out[3] if graphs else out[3] / chip_smoke.DECODE_STEPS
+    print("AB_PAGED " + json.dumps(dict(graphs=bool(graphs),
+                                        decode_ms_per_step=step_s * 1e3)),
+          flush=True)
     for label, new in (("decode_chunk", 0),
                        ("decode_chunk+decode_step",
                         chip_smoke.DECODE_STEPS)):
@@ -145,7 +194,8 @@ elif profile == "paged":
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            out = chip_smoke.paged_greedy(torch, model, params, prompts, new)
+            out = chip_smoke.paged_greedy(torch, model, params, prompts, new,
+                                          **graphs)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         chip_smoke.report_profile(prof, wall, out[2] + new)
@@ -172,8 +222,10 @@ def turn(root, phases, profile, log):
             rows = json.loads(line[8:])
         elif line.startswith("AB_DTYPE "):
             dtype = line[9:]
-        elif line.startswith("AB_PROFILE "):
-            prof.append(dict(json.loads(line[11:]), dtype=dtype))
+        elif line.startswith(("AB_PROFILE ", "AB_SERVE ", "AB_PAGED ")):
+            kind, _, body = line.partition(" ")
+            prof.append(dict(json.loads(body), dtype=dtype,
+                             kind=kind[3:].lower()))
     return rows, prof
 
 
@@ -184,7 +236,9 @@ def main():
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--phases", default="kernel,flash")
     ap.add_argument("--profile", action="store_true",
-                    help="K3's share of the int8/fp8 serving passes")
+                    help="f32/int8/fp8 serving in the turns of --order: "
+                         "tokens/s, TTFT, host ms per step, profiled "
+                         "passes with K1/K2/K3's device ms")
     ap.add_argument("--profile-bert", action="store_true",
                     help="the flash kernels in BERT-base training's pass")
     ap.add_argument("--profile-paged", action="store_true",
@@ -215,7 +269,8 @@ def main():
                 table.setdefault(key, []).append(
                     (label, r["ms"], r["max_abs_err"], r["library_ms"]))
         if args.profile:
-            for label, root in trees:
+            for letter in args.order:
+                label, root = trees[ord(letter) - ord("A")]
                 _, prof = turn(os.path.abspath(root), "", "quant", log)
                 profiles += [dict(p, tree=label) for p in prof]
         if args.profile_bert:
@@ -231,6 +286,20 @@ def main():
         print(f"ab {name} {shape}: {turns} (ms, in turn order); "
               f"library {lib_s}; max_abs_err {errs:.3e}", flush=True)
     for p in profiles:
+        if p["kind"] == "serve":
+            print(f"ab serve {p['tree']} {p['dtype']}: {p['tokens']} tokens "
+                  f"at {p['tokens_per_s']:.1f} tokens/s end to end, TTFT "
+                  f"p50 {p['ttft_p50_ms']:.2f} ms; idle engine "
+                  f"{p['steps']} steps at {p['host_ms_per_step']:.3f} ms "
+                  f"per step without the profiler; warmup "
+                  f"{p['warmup_s']:.2f}s", flush=True)
+            continue
+        if p["kind"] == "paged":
+            print(f"ab paged {p['tree']}: decode "
+                  f"{p['decode_ms_per_step']:.3f} ms per decode_step step "
+                  f"without the profiler ({'graphs' if p['graphs'] else 'eager'})",
+                  flush=True)
+            continue
         n = p["steps"]
         parts = ", ".join(
             f"{k} {g['ms']:.2f} ms in {g['launches']} launches "
@@ -241,6 +310,7 @@ def main():
               f"{p['idle']:.3f}; {parts}", flush=True)
     for label, _ in trees:
         runs = [p for p in profiles if p["tree"] == label
+                and p["kind"] == "profile"
                 and p["dtype"].startswith("decode_chunk")]
         for a, b in zip(runs[0::2], runs[1::2]):
             chunk = a["groups"]["K4"]

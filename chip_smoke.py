@@ -34,9 +34,15 @@ Phases, one line of output each (or more), in order:
 5. main path quantized — the same server with int8 KV + int8 weights,
    then fp8 KV + fp8 weights, on a few requests; logits held against the
    port's plain path (the same step on the CPU);
-   each serving phase ends with a pass of the same traffic through the
-   idle engine under ``torch.profiler``: device busy share and the
-   kernels that took the most device time;
+   every serving phase (and the default config's, below) serves through
+   CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
+   seconds and the graph pool's bytes are printed), and the phase checks
+   that every dispatch was one replay, that ``decode_flat`` never ran in
+   Python after warmup and that nothing was built or captured; each
+   serving phase ends with the same traffic through the idle engine,
+   timed without the profiler (host ms per step), then under
+   ``torch.profiler``: device busy share and the kernels that took the
+   most device time;
 6. paged decode through the model interface — ``TinyDecoder`` at the
    same widths prefills the same 8 prompts in chunks of 16 through
    ``decode_chunk`` over a ``PagedKVCache`` (rows done with their prompt
@@ -44,9 +50,11 @@ Phases, one line of output each (or more), in order:
    ``decode_step``: every stream against ``greedy_decode_reference``,
    each prompt's last chunk against the dense ``forward``, 12 chunk
    kernel launches per step, no kernel build after the first step; then
-   the reference's default ``DecoderConfig()`` (head dim 16) served
-   through ``LLMServer(..., dtype="float32")``, streams against the
-   oracle and one step against the same step on the CPU;
+   the same decode with each step replayed from a CUDA graph captured at
+   its first step (the same streams, ms per step beside the eager
+   figure); then the reference's default ``DecoderConfig()`` (head dim
+   16) served through ``LLMServer(..., dtype="float32")``, streams
+   against the oracle and one step against the same step on the CPU;
 7. op front end — ``nd.ragged_paged_attention`` on the decode phase's
    pools with a 3-D q (the decode kernel) and a 4-D q (the chunk
    kernel), ``nd.scaled_dot_product_attention``, and three user CUDA
@@ -59,12 +67,15 @@ Phases, one line of output each (or more), in order:
    of the example's synthetic corpus with ``valid_length`` in [128,
    512], through gluon, the flash attention kernels, ``backward()`` and
    ``Trainer.step`` (Adam, lr 1e-4): one step's loss and gradients with
-   the kernels against the op's plain path (``flash=False``); 10 steps at
+   the kernels against the op's plain path (``flash=False``; where a
+   ReLU gate of the MLM transform flips between the two on a tie, on
+   the flash path's gates); 10 steps at
    dropout 0.1 with falling loss, 12 launches per step of each flash
    kernel and no kernel build after the first step; step ms and
    tokens/s, then two steps under ``torch.profiler``;
-9. one JSON line listing every kernel: launches on the main paths (the
-   flash kernels': the 10 training steps and the op phase's call), max
+9. one JSON line listing every kernel: launches on the main paths,
+   counted through graph replays (the flash kernels': the 10 training
+   steps and the op phase's call), max
    error, times, bound (the quantized matmul's and the flash kernels'
    operations on the TF32 tensor cores, 2 and 3 passes for f32
    accuracy) and, beside it, the f32 CUDA-core bound;
@@ -124,6 +135,12 @@ FLASH_REL_TOL = 2e-5
 # carry the last-bit differences of attention
 BERT_LOSS_REL_TOL = 1e-5
 BERT_GRAD_REL_TOL = 1e-3
+# a ReLU gate of the MLM transform whose pre-activation changes sign
+# between the two paths sends that token's gradient through the unit in
+# one path only; as check_greedy treats a near tie, such a flip is taken
+# as a tie where |pre-activation| is below this share of the largest
+# one, and the gradients are then compared on the flash path's gates
+BERT_TIE_REL_TOL = 1e-5
 # user CUDA kernels vs their plain versions, relative to the largest
 # magnitude of the output: one rounding (2x + y fused into an FMA) or a
 # sum of 8192 terms in another order
@@ -755,27 +772,106 @@ def check_greedy(model, params, prompt, tokens, tol, label):
     return "identical"
 
 
+def drive_engine(torch, engine, prompts):
+    """Drive ``engine`` (idle, warmed) through ``prompts`` on this thread
+    to the end; returns (steps, wall seconds)."""
+    from mxnet_tpu_torch.serving.llm import Sequence
+    seqs = [Sequence(p, NEW_TOKENS) for p in prompts]
+    t0 = time.monotonic()
+    for s in seqs:
+        engine.add(s)
+    steps = 0
+    while engine.has_work():
+        engine.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    engine.pop_finished()
+    return steps, wall
+
+
 def profile_engine(torch, engine, prompts):
     """Drive ``engine`` (idle, warmed) through ``prompts`` on this thread
     under ``torch.profiler``; print the device busy share of the wall
     time and the kernels that took the most device time. Returns the
     busy share, or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
-    from mxnet_tpu_torch.serving.llm import Sequence
-    seqs = [Sequence(p, NEW_TOKENS) for p in prompts]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for s in seqs:
-            engine.add(s)
-        steps = 0
-        while engine.has_work():
-            engine.step()
-            steps += 1
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    engine.pop_finished()
+        steps, wall = drive_engine(torch, engine, prompts)
     return report_profile(prof, wall, steps)
+
+
+def warm_server(torch, server, tag):
+    """``server.warmup()``, which captures the step's graph at every
+    rung: prints the graphs, the capture seconds and the graph pool's
+    bytes (device memory before and after), checks one graph a rung.
+    Returns (compile count after warmup, the engine's programs(), the
+    counter of ``decode_flat`` calls from Python from here on)."""
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    engine = server.engine
+    torch.cuda.synchronize()
+    alloc, reserved = (torch.cuda.memory_allocated(),
+                       torch.cuda.memory_reserved())
+    t0 = time.monotonic()
+    server.warmup()
+    torch.cuda.synchronize()
+    progs = engine.programs()
+    rungs = 2 * len(progs["t_buckets"]) * len(progs["mb_widths"])
+    log(f"{tag}: warmup {time.monotonic() - t0:.2f}s: {progs['graphs']} "
+        f"graphs captured ({rungs} rungs: packed lengths "
+        f"{progs['t_buckets']} x table widths {progs['mb_widths']} x "
+        f"greedy/sampled) in {progs['capture_seconds']:.2f}s; graph pool "
+        f"{engine.graph_pool_bytes() / 1e6:.1f} MB; device memory "
+        f"allocated {(torch.cuda.memory_allocated() - alloc) / 1e6:+.1f} "
+        f"MB, reserved {(torch.cuda.memory_reserved() - reserved) / 1e6:+.1f}"
+        f" MB over the warmup")
+    check(progs["graphs"] == progs["step_variants"] == rungs,
+          f"{tag}: {progs['graphs']} graphs after warmup, {rungs} rungs")
+    return compile_count(), progs, count_calls(engine.model, "decode_flat")
+
+
+def count_calls(obj, name):
+    """Count the Python calls of ``obj.name`` (an instance attribute
+    wraps the method); returns the one-element counter."""
+    calls = [0]
+    fn = getattr(obj, name)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fn(*args, **kw)
+    setattr(obj, name, counted)
+    return calls
+
+
+def check_graph_steps(tag, engine, before, calls, compiles):
+    """After serving: every dispatch was one graph replay, the model
+    step never ran in Python, nothing was built or captured. Prints the
+    replays and dispatches and restores ``decode_flat``."""
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    del engine.model.decode_flat
+    progs = engine.programs()
+    replays = progs["replays"] - before["replays"]
+    dispatches = progs["dispatches"] - before["dispatches"]
+    log(f"{tag}: {dispatches} dispatches, {replays} graph replays; "
+        f"decode_flat ran {calls[0]} times in Python after warmup; "
+        f"builds + captures after warmup {compile_count() - compiles}")
+    check(dispatches > 0 and replays == dispatches,
+          f"{tag}: {replays} replays for {dispatches} dispatches")
+    check(calls[0] == 0, f"{tag}: decode_flat ran {calls[0]} times in "
+          "Python after warmup")
+    check(compile_count() == compiles, f"{tag}: a kernel was built or a "
+          "graph captured after warmup")
+
+
+def host_ms_per_step(torch, server, prompts, tag):
+    """Capture the idle server's graphs again (shutdown released them)
+    and drive ``prompts`` through its engine on this thread without the
+    profiler; prints host ms per step."""
+    server.engine.warmup()
+    steps, wall = drive_engine(torch, server.engine, prompts)
+    log(f"{tag}: {steps} steps in {wall:.3f}s without the profiler: host "
+        f"{wall / steps * 1e3:.2f} ms/step")
 
 
 def report_profile(prof, wall, steps):
@@ -803,18 +899,13 @@ def report_profile(prof, wall, steps):
 
 def run_f32_phase(torch, rng, np_params, kernels):
     from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
-    from mxnet_tpu_torch.serving.telemetry import compile_count
     model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
     server = LLMServer(model, np_params, name="gpt2-f32",
                        max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
                        device=DEVICE)
-    t0 = time.monotonic()
-    server.warmup()
-    torch.cuda.synchronize()
-    log(f"f32: warmup {time.monotonic() - t0:.2f}s, kv pool "
-        f"{server.engine.cache.nbytes() / 1e9:.3f} GB, weights "
-        f"{server.engine.weight_bytes / 1e9:.3f} GB")
-    builds = compile_count()
+    builds, progs, calls = warm_server(torch, server, "f32")
+    log(f"f32: kv pool {server.engine.cache.nbytes() / 1e9:.3f} GB, "
+        f"weights {server.engine.weight_bytes / 1e9:.3f} GB")
     prompts, shared = prompts_for(rng, model.vocab_size)
     # the packed length of each dispatch (one flat attention launch per
     # layer each), tallied where the engine fills the step's batch
@@ -841,17 +932,15 @@ def run_f32_phase(torch, rng, np_params, kernels):
         f"{st['ttft_ms']['p50']:.2f} ms p99 {st['ttft_ms']['p99']:.2f} ms;"
         f" prefix hits {st['prefix_hits']}, COW copies "
         f"{st['kv_cache']['cow_copies']}, preemptions {st['preemptions']}")
-    log(f"f32: launches {launches}, builds after warmup "
-        f"{compile_count() - builds}; flat attention launches per packed "
+    log(f"f32: launches {launches}; flat attention launches per packed "
         f"length {per_rung}")
+    check_graph_steps("f32", server.engine, progs, calls, builds)
     check(sum(per_rung.values()) == launches.get("flat_attention", 0),
           "f32: flat attention launches do not match the dispatches")
     check(all(len(r.tokens) == NEW_TOKENS for r in res),
           "f32: a request stopped short")
     check(launches.get("flat_attention", 0) > 0,
           "f32: the flat attention kernel never ran on the main path")
-    check(compile_count() == builds, "f32: a kernel was built after "
-          "warmup")
     check(st["prefix_hits"] >= 1 and st["kv_cache"]["cow_copies"] >= 1,
           "f32: the prefix cache / copy-on-write path was not taken")
     params = server.engine.params
@@ -881,7 +970,12 @@ def run_f32_phase(torch, rng, np_params, kernels):
         f"max_abs_err={err:.3e} (tol {F32_LOGIT_TOL})")
     check(err <= F32_LOGIT_TOL, "f32: decode_flat disagrees with forward")
     # where the time goes: the same traffic (fresh prompts, so no prefix
-    # hits) through the idle engine on this thread, profiled
+    # hits) through the idle engine on this thread, without the profiler
+    # (prompts from a generator of its own: the later phases draw their
+    # inputs from ``rng`` as they did before this pass existed), then
+    # with it
+    host_ms_per_step(torch, server, prompts_for(
+        np.random.RandomState(1), model.vocab_size)[0], "f32")
     profile_engine(torch, server.engine,
                    prompts_for(rng, model.vocab_size)[0])
     return launches, st, n_tok / wall
@@ -904,7 +998,7 @@ def run_default_config_phase(torch, rng, kernels):
     server = LLMServer(model, np_params, name="default-f32", max_seqs=4,
                        block_size=BLOCK_SIZE, dtype="float32",
                        device=DEVICE)
-    server.warmup()
+    compiles, progs, calls = warm_server(torch, server, "default config")
     prompts = [rng.randint(0, c.vocab_size, size=n).tolist()
                for n in (1, 15, 17, 40)]
     server.start()
@@ -912,6 +1006,8 @@ def run_default_config_phase(torch, rng, kernels):
     res, wall = serve(torch, server, prompts, sampled_idx=())
     launches = kernels.launch_counts()
     server.shutdown()
+    check_graph_steps("default config", server.engine, progs, calls,
+                      compiles)
     check(launches.get("flat_attention", 0) > 0,
           "default config: the flat attention kernel never ran")
     params = server.engine.params
@@ -941,15 +1037,13 @@ def run_default_config_phase(torch, rng, kernels):
 def run_quant_phase(torch, rng, np_params, kernels, dtype):
     from mxnet_tpu_torch.serving.llm import (LLMServer, TinyDecoder,
                                              quantize_weights)
-    from mxnet_tpu_torch.serving.telemetry import compile_count
     tag = "int8" if dtype == "int8" else "fp8"
     qw = quantize_weights(np_params, dtype=dtype)
     model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
     server = LLMServer(model, qw, name=f"gpt2-{tag}", max_seqs=MAX_SEQS,
                        block_size=BLOCK_SIZE, kv_dtype=dtype,
                        device=DEVICE)
-    server.warmup()
-    builds = compile_count()
+    builds, progs, calls = warm_server(torch, server, tag)
     prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
                for n in (17, 64, 200)]
     server.start()
@@ -961,14 +1055,12 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
     n_tok = sum(len(r.tokens) for r in res)
     log(f"{tag}: served {len(res)} requests, {n_tok} tokens in "
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; TTFT p50 "
-        f"{st['ttft_ms']['p50']:.2f} ms; launches {launches}; builds "
-        f"after warmup {compile_count() - builds}; weights "
+        f"{st['ttft_ms']['p50']:.2f} ms; launches {launches}; weights "
         f"{st['weight_bytes'] / 1e9:.3f} GB")
+    check_graph_steps(tag, server.engine, progs, calls, builds)
     check(launches.get(f"flat_attention_quant.{tag}", 0) > 0
           and launches.get(f"wq_matmul.{tag}", 0) > 0,
           f"{tag}: a quantized kernel never ran on the main path")
-    check(compile_count() == builds, f"{tag}: a kernel was built after "
-          "warmup")
     # the same quantized step on the CPU (every kernel's plain version)
     cpu_model = TinyDecoder(device="cpu", **GPT2_SMALL)
     batch, _ = mixed_batch(model, rng, DEVICE)
@@ -984,23 +1076,64 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
         f"packed batch: max_abs_err={err:.3e} (tol {tol})")
     check(bool(torch.isfinite(got[:n]).all()), f"{tag}: non-finite logits")
     check(err <= tol, f"{tag}: kernel path disagrees with the plain path")
+    own = np.random.RandomState(1)          # as in run_f32_phase
+    host_ms_per_step(torch, server,
+                     [own.randint(0, model.vocab_size, size=n).tolist()
+                      for n in (17, 64, 200)], tag)
     profile_engine(torch, server.engine,
                    [rng.randint(0, model.vocab_size, size=n).tolist()
                     for n in (17, 64, 200)])
     return launches
 
 
+class GraphedStep:
+    """``fn`` replayed from a CUDA graph over static device copies of
+    its int32 inputs, captured at the first call: the caller's side of
+    the reference's ``jax.jit`` of the model interface's pure steps. The
+    first call's warm run and capture run ``fn`` on that call's inputs:
+    ``decode_chunk``/``decode_step`` write the same K/V each time.
+    Returns ``fn``'s first output (the logits, the graph's static
+    output: read it before the next call)."""
+
+    def __init__(self, torch, fn, device, stream, pool, what):
+        self.torch, self.fn, self.device = torch, fn, device
+        self.stream, self.pool, self.what = stream, pool, what
+        self.graph = None
+
+    def __call__(self, *arrays):
+        from mxnet_tpu_torch import kernels
+        torch = self.torch
+        if self.graph is None:
+            self.inputs = [torch.from_numpy(np.asarray(a, np.int32)).to(
+                self.device) for a in arrays]
+            self.out = [None]
+
+            def body():
+                self.out[0] = self.fn(*self.inputs)[0]
+            self.graph = kernels.capture(body, self.stream, self.pool,
+                                         what=self.what)
+        else:
+            for dst, a in zip(self.inputs, arrays):
+                dst.copy_(torch.from_numpy(np.asarray(a, np.int32)))
+        self.graph.replay()
+        return self.out[0]
+
+
 def paged_greedy(torch, model, params, prompts, new_steps, chunk=CHUNK_Q,
-                 block_size=BLOCK_SIZE, on_first_step=None):
+                 block_size=BLOCK_SIZE, on_first_step=None, graphs=False):
     """Greedy decoding of ``prompts`` through the model interface alone:
     the rows prefill together in chunks of ``chunk`` tokens through
     ``decode_chunk`` (a row whose prompt is done sits in the batch at
     q_len 0), the first token comes from each prompt's last chunk, then
     ``new_steps`` steps of ``decode_step`` each add one token per row.
-    Pools and tables come from the port's ``PagedKVCache``.
+    Pools and tables come from the port's ``PagedKVCache``. With
+    ``graphs`` each step replays a CUDA graph (:class:`GraphedStep`) of
+    ``decode_chunk`` at (rows, Q, table width) or of ``decode_step`` at
+    (rows, table width), captured at its first step.
     ``on_first_step()`` runs after the first step. Returns (streams,
-    last-chunk logits per row, prefill steps, decode step seconds,
-    cache, block tables, kv lens)."""
+    last-chunk logits per row, prefill steps, seconds per decode step
+    after the first (host clock; each ends in the tokens' copy to the
+    host), cache, block tables, kv lens)."""
     from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
     c, dev = model.config, model.device
     S = len(prompts)
@@ -1015,6 +1148,26 @@ def paged_greedy(torch, model, params, prompts, new_steps, chunk=CHUNK_Q,
 
     def t32(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    def eager_chunk(toks, pos, ql, kv):
+        return model.decode_chunk(params, t32(toks), t32(pos), t32(ql),
+                                  cache.k_pages, cache.v_pages, bt,
+                                  t32(kv))[0]
+
+    def eager_step(toks, pos, kv):
+        return model.decode_step(params, t32(toks), t32(pos), cache.k_pages,
+                                 cache.v_pages, bt, t32(kv))[0]
+    run_chunk, run_step = eager_chunk, eager_step
+    if graphs:
+        side = (torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+        run_chunk = GraphedStep(
+            torch, lambda *a: model.decode_chunk(
+                params, *a[:3], cache.k_pages, cache.v_pages, bt, a[3]),
+            dev, *side, f"decode_chunk at S={S} Q={chunk}")
+        run_step = GraphedStep(
+            torch, lambda *a: model.decode_step(
+                params, *a[:2], cache.k_pages, cache.v_pages, bt, a[2]),
+            dev, *side, f"decode_step at S={S}")
     done, last = [0] * S, [None] * S
     steps = 0
     while min(d - n for d, n in zip(done, lens)) < 0:
@@ -1027,29 +1180,27 @@ def paged_greedy(torch, model, params, prompts, new_steps, chunk=CHUNK_Q,
             pos[i, :n] = np.arange(done[i], done[i] + n)
             ql[i] = n
             done[i] += n
-        logits, _, _ = model.decode_chunk(
-            params, t32(toks), t32(pos), t32(ql), cache.k_pages,
-            cache.v_pages, bt, t32(done))
+        logits = run_chunk(toks, pos, ql, done)
         for i in range(S):
             if ql[i] and done[i] == lens[i]:
-                last[i] = logits[i, :ql[i]]
+                last[i] = logits[i, :ql[i]].clone()
         steps += 1
         if steps == 1 and on_first_step is not None:
             on_first_step()
     streams = [[int(torch.argmax(last[i][-1]))] for i in range(S)]
-    t0 = time.monotonic()
-    for _ in range(new_steps):
+    t0 = None
+    for k in range(new_steps):
+        if k == 1:                  # after the step that captures
+            t0 = time.monotonic()
         pos = [lens[i] + len(streams[i]) - 1 for i in range(S)]
-        logits, _, _ = model.decode_step(
-            params, t32([s[-1] for s in streams]), t32(pos), cache.k_pages,
-            cache.v_pages, bt, t32([p + 1 for p in pos]))
+        logits = run_step([s[-1] for s in streams], pos,
+                          [p + 1 for p in pos])
         for i, t in enumerate(logits.argmax(-1).tolist()):
             streams[i].append(t)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    decode_s = time.monotonic() - t0
+    step_s = None if t0 is None else (
+        (time.monotonic() - t0) / (new_steps - 1))
     kv = t32([lens[i] + len(streams[i]) - 1 for i in range(S)])
-    return streams, last, steps, decode_s, cache, bt, kv
+    return streams, last, steps, step_s, cache, bt, kv
 
 
 def run_paged_decode_phase(torch, rng, np_params, kernels):
@@ -1057,8 +1208,10 @@ def run_paged_decode_phase(torch, rng, np_params, kernels):
     ``decode_chunk`` and greedy decode through ``decode_step``, every
     stream against ``greedy_decode_reference``, each prompt's last chunk
     against the dense ``forward``, 12 chunk-kernel launches per step and
-    no build after the first step. Returns (launches, (cache, tables, kv
-    lens, model))."""
+    no build after the first step; then the same decode with each step
+    replayed from a CUDA graph: the same streams, ms per step beside the
+    eager figure, 12 launches per step counted through the replays.
+    Returns (launches of both passes, (cache, tables, kv lens, model))."""
     from mxnet_tpu_torch.convert import params_from_numpy
     from mxnet_tpu_torch.ops.ragged_attention import CHUNK_KERNEL
     from mxnet_tpu_torch.serving.llm import TinyDecoder
@@ -1068,7 +1221,7 @@ def run_paged_decode_phase(torch, rng, np_params, kernels):
     builds = []
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    streams, last, pre_steps, decode_s, cache, bt, kv = paged_greedy(
+    streams, last, pre_steps, step_s, cache, bt, kv = paged_greedy(
         torch, model, params, prompts, DECODE_STEPS,
         on_first_step=lambda: builds.append(kernels.build_count()))
     wall = time.monotonic() - t0
@@ -1079,8 +1232,8 @@ def run_paged_decode_phase(torch, rng, np_params, kernels):
         f"{max(map(len, prompts))} tokens) prefilled in {pre_steps} "
         f"decode_chunk steps of Q={CHUNK_Q}, then {DECODE_STEPS} "
         f"decode_step steps: {wall:.3f}s in all (host clock); decode "
-        f"{decode_s / DECODE_STEPS * 1e3:.2f} ms/step = "
-        f"{S * DECODE_STEPS / decode_s:.1f} tokens/s (host clock, 8 rows); "
+        f"{step_s * 1e3:.2f} ms/step = {S / step_s:.1f} tokens/s (host "
+        f"clock, 8 rows, steps 2-{DECODE_STEPS}); "
         f"launches {launches}; builds after the first step "
         f"{kernels.build_count() - builds[0]}")
     check(launches.get(CHUNK_KERNEL, 0) == GPT2_SMALL["num_layers"] * steps,
@@ -1102,6 +1255,37 @@ def run_paged_decode_phase(torch, rng, np_params, kernels):
     log(f"paged: last prefill chunk vs dense forward: max_abs_err="
         f"{err:.3e} (tol {F32_LOGIT_TOL})")
     check(err <= F32_LOGIT_TOL, "paged: decode_chunk disagrees with forward")
+    # the same decode, each step one replay of a graph captured at its
+    # first step (the caller's side of the reference's jit)
+    kernels.reset_launch_counts()
+    captures = kernels.capture_count()
+    builds = kernels.build_count()
+    g_streams, g_last, g_steps, g_step_s, _, _, _ = paged_greedy(
+        torch, model, params, prompts, DECODE_STEPS, graphs=True)
+    g_launches = kernels.launch_counts()
+    g_steps += DECODE_STEPS
+    warm = 2                    # one warm run before each capture
+    log(f"paged: graphs (decode_chunk at S={S} Q={CHUNK_Q}, decode_step "
+        f"at S={S}, table width {bt.shape[1]}): decode "
+        f"{g_step_s * 1e3:.2f} ms/step = {S / g_step_s:.1f} tokens/s, "
+        f"eager {step_s * 1e3:.2f} ms/step in this run (host clock, 8 "
+        f"rows, steps 2-{DECODE_STEPS}); captures {kernels.capture_count() - captures}, "
+        f"builds {kernels.build_count() - builds}; launches {g_launches}")
+    check(g_streams == streams, "paged: the graphs' streams differ from "
+          "the eager decode's")
+    err = max(float((a - b).abs().max()) for a, b in zip(g_last, last))
+    check(err <= F32_LOGIT_TOL, f"paged: the graphs' last-chunk logits "
+          f"differ from the eager decode's by {err:.3e}")
+    check(kernels.capture_count() - captures == 2
+          and kernels.build_count() == builds,
+          "paged: a build, or a capture beyond one per step kind")
+    check(g_launches.get(CHUNK_KERNEL, 0)
+          == GPT2_SMALL["num_layers"] * (g_steps + warm),
+          f"paged: under graphs {CHUNK_KERNEL} launched "
+          f"{g_launches.get(CHUNK_KERNEL, 0)} times in {g_steps} steps and "
+          f"{warm} warm runs, expected 12 per step")
+    for k, v in g_launches.items():
+        launches[k] = launches.get(k, 0) + v
     return launches, (cache, bt, kv, model)
 
 
@@ -1264,7 +1448,8 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
                    seqlen=BERT_T, steps=BERT_STEPS):
     """BERT masked-LM training through gluon, the flash kernels and Adam:
     (a) one step's loss and gradients with the flash kernels against the
-    op's plain path (flash=False), dropout 0; (b) ``steps`` Trainer steps
+    op's plain path (flash=False), dropout 0 (on a ReLU gate flip at a
+    tie: on the flash path's gates); (b) ``steps`` Trainer steps
     at dropout 0.1 with falling loss, (c) 12 launches per step of each
     flash kernel, (d) no kernel build after the first step; then a
     profiled pass of two more steps. Returns the launch counts of (b)."""
@@ -1285,25 +1470,43 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
         f"{n_params / 1e6:.1f}M parameters, seed 0, batch {batch} x "
         f"{seqlen}, set up in {time.monotonic() - t0:.2f}s")
     # (a) flash kernels vs the plain op path, same weights and batch
-    grads, one = {}, {}
-    for flash in (True, False):
+    grads, one, pre = {}, {}, {}
+    act = net.transform.act                 # the MLM transform's ReLU
+
+    def step_grads(flash, gate=None):
+        """One forward and backward; keeps the ReLU's input in
+        ``pre[flash]``, or with ``gate`` applies that gate instead of
+        the ReLU's own."""
+        def hook(mod, inputs, out):
+            if gate is None:
+                pre[flash] = inputs[0].detach()
+                return None
+            return inputs[0] * gate
         set_flash(net, flash)
+        handle = act.register_forward_hook(hook)
         with ag.record():
             loss = mlm_loss(net, loss_fn, data[0], vocab)
+        handle.remove()
         loss.backward()
-        one[flash] = float(loss.detach())
-        grads[flash] = {n: p.grad().clone()
-                        for n, p in net.collect_params().items()}
+        return float(loss.detach()), {
+            n: p.grad().clone() for n, p in net.collect_params().items()}
+
+    def worst_error(got, want):
+        gmax = max(float(g.abs().max()) for g in want.values())
+        worst, skipped = (-1.0, ""), 0
+        for name, g in want.items():
+            ref = float(g.abs().max())
+            if ref < 1e-6 * gmax:
+                skipped += 1
+                continue
+            err = float((got[name] - g).abs().max()) / ref
+            worst = max(worst, (err, name))
+        return worst, skipped
+
+    for flash in (True, False):
+        one[flash], grads[flash] = step_grads(flash)
     loss_rel = abs(one[True] - one[False]) / abs(one[False])
-    gmax = max(float(g.abs().max()) for g in grads[False].values())
-    worst, skipped = (-1.0, ""), 0
-    for name, g in grads[False].items():
-        ref = float(g.abs().max())
-        if ref < 1e-6 * gmax:
-            skipped += 1
-            continue
-        err = float((grads[True][name] - g).abs().max()) / ref
-        worst = max(worst, (err, name))
+    worst, skipped = worst_error(grads[True], grads[False])
     log(f"bert: one step flash vs flash=False: loss {one[True]:.6f} vs "
         f"{one[False]:.6f} (relative {loss_rel:.3e}, tol "
         f"{BERT_LOSS_REL_TOL}); max relative gradient error "
@@ -1313,9 +1516,31 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
           "bert: non-finite loss")
     check(loss_rel <= BERT_LOSS_REL_TOL, "bert: flash and plain losses "
           "disagree")
+    # the ReLU gates that differ between the paths at tokens the loss
+    # weighs (elsewhere no gradient reaches the transform)
+    weighed = data[0][2].bool()[..., None]
+    flips = ((pre[True] > 0) != (pre[False] > 0)) & weighed
+    n_flips = int(flips.sum())
+    top = float(pre[False].abs().max())
+    tie = max(float(p.abs()[flips].max()) for p in pre.values()) \
+        if n_flips else 0.0
+    log(f"bert: MLM transform pre-activations differ by up to "
+        f"{float((pre[True] - pre[False]).abs().max()):.3e} (largest "
+        f"{top:.3e}); ReLU gates flipped at weighed tokens {n_flips}"
+        + (f", |pre-activation| <= {tie:.3e} there (tie below "
+           f"{BERT_TIE_REL_TOL} of the largest)" if n_flips else ""))
+    if n_flips and worst[0] > BERT_GRAD_REL_TOL:
+        check(tie <= BERT_TIE_REL_TOL * top, "bert: a ReLU gate flipped "
+              "between the paths away from a tie")
+        _, gated = step_grads(False, gate=(pre[True] > 0).to(
+            pre[True].dtype))
+        worst, skipped = worst_error(grads[True], gated)
+        log(f"bert: flash vs flash=False on the flash path's gates: max "
+            f"relative gradient error {worst[0]:.3e} ({worst[1]}; tol "
+            f"{BERT_GRAD_REL_TOL})")
     check(worst[0] <= BERT_GRAD_REL_TOL, "bert: flash and plain gradients "
           "disagree")
-    del net, grads
+    del net, grads, pre
     torch.cuda.empty_cache()
     # (b)-(d) training at dropout 0.1 through the kernels
     net = make_bert_mlm(0.1, **cfg)

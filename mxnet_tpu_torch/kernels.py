@@ -9,11 +9,17 @@ source at once. Nothing is built or loaded at import: the first launch
 of a kernel builds its library, or :func:`build_all` builds them all up
 front.
 
-Two process-wide counters: :func:`build_count` counts library builds and
-loads (the port's ``compile_count``; it must not move after an engine's
-``warmup()``), and :func:`launch_counts` counts kernel launches per
-kernel, incremented by each wrapper where it launches its kernel and
-nowhere else.
+Process-wide counters: :func:`build_count` counts library builds and
+loads and :func:`capture_count` CUDA graph captures (together the port's
+``compile_count``; neither may move after an engine's ``warmup()``), and
+:func:`launch_counts` counts kernel launches per kernel, incremented by
+each wrapper where it launches its kernel and nowhere else.
+
+Under a CUDA graph a wrapper's Python runs once, at the capture, and the
+kernel at every replay. So :func:`capture` records the launches of its
+capture into the graph's tally instead of the counters, and each
+:meth:`CapturedGraph.replay` adds that tally: the counts stay the
+kernels' launches on the card.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import time
 
 __all__ = ["SOURCES", "build_all", "library", "rtc_library",
            "launch_counts", "reset_launch_counts", "count_launch",
-           "build_count", "check", "require", "stream_handle"]
+           "build_count", "capture_count", "capture", "CapturedGraph",
+           "check", "require", "stream_handle"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -61,7 +68,10 @@ SOURCES = {
 _lock = threading.Lock()
 _libs = {}                      # guarded-by: _lock
 _builds = [0]                   # guarded-by: _lock
+_captures = [0]                 # guarded-by: _lock
 _launches = collections.Counter()
+# the launch tally of the graph capture running on this thread, if any
+_capturing = threading.local()
 # what nvcc/ptxas said for each source (registers, spills), and the
 # seconds its nvcc ran
 build_logs = {}
@@ -73,8 +83,16 @@ def build_count():
     return _builds[0]
 
 
+def capture_count():
+    """CUDA graph captures (:func:`capture`) in this process."""
+    return _captures[0]
+
+
 def count_launch(name):
-    _launches[name] += 1
+    """One launch of kernel ``name``: counted, or, while this thread
+    captures a graph, tallied for the graph's replays."""
+    tally = getattr(_capturing, "tally", None)
+    (_launches if tally is None else tally)[name] += 1
 
 
 def launch_counts():
@@ -234,6 +252,61 @@ def rtc_library(source, kernel_name):
                     f"{build_logs[name]}")
             _load(name, out, _RTC_ENTRIES)
         return _libs[name]
+
+
+class CapturedGraph:
+    """A captured ``torch.cuda.CUDAGraph`` and the kernel launches its
+    capture recorded (``tally``, by kernel name); :meth:`replay` adds the
+    tally to :func:`launch_counts` each time."""
+
+    def __init__(self, graph, tally):
+        self.graph = graph
+        self.tally = dict(tally)
+
+    def replay(self):
+        self.graph.replay()
+        _launches.update(self.tally)
+
+
+def capture(fn, stream, pool=None, what="the function"):
+    """Capture ``fn()`` into a CUDA graph on the side stream ``stream``
+    and return it as a :class:`CapturedGraph`.
+
+    One eager warm run of ``fn`` on ``stream`` comes first (PyTorch's
+    recipe): it builds and loads every kernel ``fn`` launches, so no
+    build runs inside the capture, and its launches count. Captures
+    that share a graph memory pool ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``; graphs that never replay at once
+    may share one) share ``stream`` too: the stream's library state
+    (cuBLAS's workspace) is set up once, by the first warm run, outside
+    any capture. The capture runs with
+    ``capture_error_mode="thread_local"``, so it may run on a server's
+    thread; its launches go to the graph's tally, not the counters, and
+    it counts once in :func:`capture_count`. The warm run is a real
+    run: what ``fn`` reads must already hold what the caller means, and
+    what it writes stays written. Tensors ``fn`` reads must stay where
+    they are: the graph replays on their addresses. A failed
+    capture raises ``RuntimeError`` naming ``what``."""
+    import torch
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        fn()
+    current.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    _capturing.tally = tally = collections.Counter()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            fn()
+    except Exception as exc:
+        raise RuntimeError(
+            f"CUDA graph capture of {what} failed: {exc}") from exc
+    finally:
+        _capturing.tally = None
+    with _lock:
+        _captures[0] += 1
+    return CapturedGraph(graph, tally)
 
 
 def stream_handle(device):

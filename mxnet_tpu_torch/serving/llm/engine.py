@@ -28,8 +28,20 @@ One engine iteration (:meth:`LLMEngine.step`):
    last-position logits; ONE device-to-host copy (the step's only
    synchronisation) brings the committed tokens back. The packed length
    and the table width are bucketed on small ladders (pure decode, the
-   commonest mixed steps, full prefill; half and full table width) that
-   :meth:`warmup` runs once each, building every kernel the steps use.
+   commonest mixed steps, full prefill; half and full table width).
+
+The step program (the port of the reference's ``_make_step_fn`` and its
+per-variant jit cache): one :class:`_StepProgram` per (packed length,
+table width, greedy|sampled) rung holds the rung's static batch buffers
+and output and, on CUDA, a ``torch.cuda.CUDAGraph`` of the whole step
+over them, captured by :meth:`LLMEngine.warmup` (or at the rung's first
+use, as the reference jits lazily). A capture counts as a compile
+(:func:`~..telemetry.compile_count`), so after ``warmup()`` a step is:
+fill the rung's pinned host buffer, one host-to-device copy, one graph
+replay, one device-to-host copy; no model code runs in Python. A capture
+that fails raises, naming the rung: the engine never steps eagerly on
+the card. On the CPU there is nothing to capture, and the same step
+function runs eagerly on the same static buffers.
 
 Single-threaded by design: :class:`~.server.LLMServer` owns the thread,
 the queue and the futures; the engine owns device state and
@@ -46,6 +58,7 @@ import warnings
 import numpy as np
 import torch
 
+from ... import kernels
 from ..._device import resolve_device
 from ...convert import params_from_numpy
 from ..envutil import env_int as _env_int, env_str as _env_str
@@ -72,7 +85,14 @@ class _StepBuffers:
     """Host batch arrays of one (packed length ``t``, table width
     ``mb``) rung, all views into ONE int32 buffer (pinned when the
     engine runs on CUDA) so a step's batch reaches the device in one
-    copy; :meth:`to_device` returns the matching device views."""
+    copy, and the matching views of its static device twin
+    (``device_views``), which a captured step reads: :meth:`upload`
+    copies the host buffer into it. On the CPU the twin is the host
+    buffer.
+
+    The host writes the pinned buffer only between steps: each step ends
+    in a device-to-host copy that waits for the whole stream, the upload
+    included."""
 
     _INT_FIELDS = ("tokens", "positions", "seq_ids", "valid", "tables",
                    "win_idx", "top_k", "seeds", "counters")
@@ -84,36 +104,123 @@ class _StepBuffers:
         sizes.update(dict.fromkeys(("win_idx", "top_k", "seeds",
                                     "counters", "temperature", "top_p"),
                                    S))
-        self._slices = {}
+        slices = {}
         off = 0
         for name in self._INT_FIELDS + self._F32_FIELDS:
-            self._slices[name] = (off, off + sizes[name])
+            slices[name] = (off, off + sizes[name])
             off += sizes[name]
-        self._shapes = {"tables": (S, mb)}
+        shapes = {"tables": (S, mb)}
         host = torch.zeros(off, dtype=torch.int32)
         if device.type == "cuda":
             host = host.pin_memory()
         self._host = host
-        self._device = device
+        self._dev = host if device.type == "cpu" else torch.zeros_like(
+            host, device=device)
+        self.device_views = {}
         flat = host.numpy()
-        for name, (a, b) in self._slices.items():
-            view = flat[a:b]
+        for name, (a, b) in slices.items():
+            shape = shapes.get(name, (b - a,))
+            view, dview = flat[a:b], self._dev[a:b]
             if name in self._F32_FIELDS:
-                view = view.view(np.float32)
-            setattr(self, name, view.reshape(self._shapes.get(name,
-                                                              (b - a,))))
+                view, dview = view.view(np.float32), dview.view(
+                    torch.float32)
+            setattr(self, name, view.reshape(shape))
+            self.device_views[name] = dview.view(shape)
         self.tables.fill(NULL_BLOCK)
         self.top_p.fill(1.0)
 
-    def to_device(self):
-        dev = self._host.to(self._device, non_blocking=True)
-        out = {}
-        for name, (a, b) in self._slices.items():
-            v = dev[a:b]
-            if name in self._F32_FIELDS:
-                v = v.view(torch.float32)
-            out[name] = v.view(self._shapes.get(name, (b - a,)))
-        return out
+    def upload(self):
+        if self._dev is not self._host:
+            self._dev.copy_(self._host, non_blocking=True)
+
+
+def _make_step_fn(model, sampled):
+    """The step program body of one variant (the port of the
+    reference's ``_make_step_fn`` at ``spec_k = 0``): the flat ragged
+    step over a packed batch, then each row's token from its scored
+    position — the raw argmax (``sampled`` False: no sampling
+    arithmetic) or the accept rule with position-keyed noise.
+
+    ``step(params, kv, no_draft, b, out)`` reads only tensors: the
+    params, ``kv`` (the pools and their scales, and ``w_scales``, as
+    ``decode_flat`` keywords; written in place), the empty draft inputs
+    and the batch views ``b`` of :class:`_StepBuffers`; it writes the
+    tokens and the accepted counts into ``out [S, 2]`` int32. It reads
+    nothing back to the host and its shapes depend on the rung alone,
+    so on CUDA it is captured as it is."""
+    def step(params, kv, no_draft, b, out):
+        logits = model.decode_flat(
+            params, b["tokens"], b["positions"], b["seq_ids"], b["valid"],
+            block_tables=b["tables"], **kv)
+        win = logits[b["win_idx"].long()][:, None, :]       # [S, 1, V]
+        d_toks, d_probs, n_draft = no_draft
+        if not sampled:
+            toks, n_acc = spec_accept_greedy(win, d_toks, n_draft)
+        else:
+            ctr = b["counters"][:, None]
+            seeds = b["seeds"][:, None]
+            toks, n_acc = spec_accept(
+                win, d_toks, d_probs, n_draft, b["temperature"],
+                b["top_k"], b["top_p"],
+                row_keys(seeds[:, :0], ctr[:, :0], TAG_ACCEPT),
+                row_keys(seeds, ctr, TAG_SAMPLE))
+        out[:, :1].copy_(toks)
+        out[:, 1].copy_(n_acc)
+    return step
+
+
+class _StepProgram:
+    """The step at one (packed length, table width, greedy|sampled)
+    rung: the rung's static batch (its :class:`_StepBuffers`, shared by
+    both variants of the rung), its static output and, once
+    :meth:`capture` ran, the CUDA graph of the step over them.
+
+    :meth:`run`: one host-to-device copy of the batch, then one graph
+    replay (the CPU: the step function, eagerly), then ONE
+    device-to-host copy of the tokens, the step's only synchronisation.
+    The copies stay outside the graph: the graph reads only device
+    memory, and the pinned buffer is the host's to fill between steps."""
+
+    def __init__(self, rung, step, args, bufs, S, device):
+        self.rung = rung
+        self.bufs = bufs
+        self.device = device
+        out = torch.zeros((S, 2), dtype=torch.int32, device=device)
+        self._out = out
+        self._host_out = out if device.type == "cpu" else torch.zeros(
+            (S, 2), dtype=torch.int32).pin_memory()
+        self.fn = lambda: step(*args, bufs.device_views, out)
+        self.graph = None
+        self.runs = 0
+        self.replays = 0
+
+    def __str__(self):
+        t, mb, sampled = self.rung
+        return f"t{t}mb{mb}_{'sampled' if sampled else 'greedy'}"
+
+    def capture(self, stream, pool):
+        """Capture the step into a CUDA graph on the engine's side
+        ``stream`` in its ``pool``; raises naming the rung when the
+        capture fails."""
+        self.graph = kernels.capture(self.fn, stream, pool,
+                                     what=f"the step rung {self}")
+
+    def run(self):
+        """Returns host arrays (tokens [S, 1], n_accepted [S])."""
+        self.bufs.upload()
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+        elif self.device.type == "cpu":
+            self.fn()
+        else:
+            raise RuntimeError(f"step rung {self} has no captured graph")
+        self.runs += 1
+        if self._host_out is not self._out:
+            self._host_out.copy_(self._out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        both = self._host_out.numpy().copy()
+        return both[:, :1], both[:, 1]
 
 
 class LLMEngine:
@@ -261,7 +368,22 @@ class LLMEngine:
             torch.zeros((S, 0, V), dtype=torch.float32,
                         device=self.device),
             torch.zeros(S, dtype=torch.int64, device=self.device))
-        self._bufs = {}
+        # every rung's buffers now: a pinned allocation must never run
+        # inside a capture
+        self._bufs = {(t, mb): _StepBuffers(t, mb, S, self.device)
+                      for t in self._t_buckets for mb in self._mb_widths}
+        self._kv = {"k_pages": self.cache.k_pages,
+                    "v_pages": self.cache.v_pages}
+        if self.quantized:
+            self._kv.update(k_scales=self.cache.k_scales,
+                            v_scales=self.cache.v_scales)
+        if self.w_scales is not None:
+            self._kv["w_scales"] = self.w_scales
+        self._programs = {}
+        # one graph memory pool and one capture stream an engine, made
+        # at its first capture
+        self._graph_pool = self._capture_stream = None
+        self.capture_seconds = 0.0
         self._arange = np.arange(self.q_tokens, dtype=np.int32)
         self._breaker = breaker
         # sequences finished but not yet handed to the caller — kept
@@ -298,36 +420,64 @@ class LLMEngine:
                                 percentile=pct)
 
     # ------------------------------------------------ the device step --
-    def _call_step(self, sampled, bufs):
-        """Run the step on the batch in ``bufs``: copy it to the device,
-        run the model (KV written in place), pick each row's token.
-        Returns device tensors (tokens [S, 1], n_accepted [S])."""
-        b = bufs.to_device()
-        c = self.cache
-        kw = {}
-        if self.quantized:
-            kw.update(k_scales=c.k_scales, v_scales=c.v_scales)
-        if self.w_scales is not None:
-            kw["w_scales"] = self.w_scales
-        logits = self.model.decode_flat(
-            self.params, b["tokens"], b["positions"], b["seq_ids"],
-            b["valid"], c.k_pages, c.v_pages, b["tables"], **kw)
-        win = logits[b["win_idx"].long()][:, None, :]       # [S, 1, V]
-        d_toks, d_probs, n_draft = self._no_draft
-        if not sampled:
-            return spec_accept_greedy(win, d_toks, n_draft)
-        ctr = b["counters"][:, None]
-        seeds = b["seeds"][:, None]
-        return spec_accept(
-            win, d_toks, d_probs, n_draft, b["temperature"], b["top_k"],
-            b["top_p"], row_keys(seeds[:, :0], ctr[:, :0], TAG_ACCEPT),
-            row_keys(seeds, ctr, TAG_SAMPLE))
+    def _program(self, t, mb, sampled):
+        """The rung's step program, built (and on CUDA captured) at its
+        first use. The capture's warm run steps on the rung's device
+        batch, so the batch the host has just filled is uploaded first:
+        the warm run then writes only the K/V that the step itself
+        writes again, the same values, and never through an older
+        step's tables into blocks that may belong to another sequence
+        since."""
+        key = (t, mb, sampled)
+        prog = self._programs.get(key)
+        if prog is None:
+            step = _make_step_fn(self.model, sampled)
+            prog = _StepProgram(key, step,
+                                (self.params, self._kv, self._no_draft),
+                                self._bufs[(t, mb)], self.max_seqs,
+                                self.device)
+            self._programs[key] = prog
+        if prog.graph is None and self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            t0 = time.monotonic()
+            prog.bufs.upload()
+            prog.capture(self._capture_stream, self._graph_pool)
+            self.capture_seconds += time.monotonic() - t0
+        return prog
 
-    @staticmethod
-    def _device_get(toks, n_acc):
-        """The step's one device-to-host copy (and synchronisation)."""
-        both = torch.cat([toks, n_acc[:, None]], dim=1).cpu().numpy()
-        return both[:, :-1], both[:, -1]
+    def release_graphs(self):
+        """Drop every captured graph and the engine's graph memory pool
+        (the server does it at shutdown); a later step captures its
+        rung again, counted as a compile."""
+        for prog in self._programs.values():
+            prog.graph = None
+        self._graph_pool = self._capture_stream = None
+
+    def graph_pool_bytes(self):
+        """Device bytes the engine's graph memory pool holds (0 on the
+        CPU or with no graph held)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def programs(self):
+        """The step programs, as the reference's statusz reports them:
+        the ladders, the step variants built (one per rung reached;
+        each a captured graph on CUDA), the graphs held, the replays and
+        the dispatches (every step program run), and the seconds spent
+        capturing."""
+        progs = self._programs.values()
+        return {"t_buckets": list(self._t_buckets),
+                "mb_widths": list(self._mb_widths),
+                "step_variants": len(self._programs),
+                "graphs": sum(p.graph is not None for p in progs),
+                "replays": sum(p.replays for p in progs),
+                "dispatches": sum(p.runs for p in progs),
+                "capture_seconds": self.capture_seconds}
 
     # ------------------------------------------------ prefix caching --
     def _prefix_lookup(self, seq):
@@ -392,22 +542,23 @@ class LLMEngine:
 
     # ------------------------------------------------------- warmup --
     def warmup(self):
-        """Run the step once at every (packed length, table width,
-        greedy|sampled) rung steady state can reach, and the
-        copy-on-write once, so every kernel the engine launches is built
-        and loaded before serving. Returns {rung: seconds}."""
+        """Build the step program of every (packed length, table width,
+        greedy|sampled) rung steady state can reach — on CUDA, capture
+        its graph, whose warm run builds and loads every kernel it
+        launches — and run it once; then the copy-on-write once. After
+        this no traffic the ladders cover builds or captures anything.
+        Returns {rung: seconds}."""
         timings = {}
         for T in self._t_buckets:
             for MB in self._mb_widths:
-                bufs = self._batch_buffers(T, MB)
+                bufs = self._bufs[(T, MB)]
                 bufs.valid.fill(0)
                 bufs.tables.fill(NULL_BLOCK)
                 for sampled in (False, True):
                     t0 = time.monotonic()
-                    self._device_get(*self._call_step(sampled, bufs))
-                    tag = "sampled" if sampled else "greedy"
-                    timings[f"step_t{T}mb{MB}_{tag}"] = \
-                        time.monotonic() - t0
+                    prog = self._program(T, MB, sampled)
+                    prog.run()
+                    timings[f"step_{prog}"] = time.monotonic() - t0
         if self.prefix_enabled:
             t0 = time.monotonic()
             self.cache.copy_block(NULL_BLOCK, NULL_BLOCK)
@@ -616,20 +767,13 @@ class LLMEngine:
             seq.block_ids.extend(self.cache.allocator.alloc(need))
 
     # ------------------------------------------------- the one step --
-    def _batch_buffers(self, t, mb):
-        bufs = self._bufs.get((t, mb))
-        if bufs is None:
-            bufs = _StepBuffers(t, mb, self.max_seqs, self.device)
-            self._bufs[(t, mb)] = bufs
-        return bufs
-
     def _build_batch(self, rows, plans, t, mb):
         """Fill the rung's host buffers. ``valid`` is reset EVERY
         dispatch — a stale valid flag would scatter garbage K/V through
         a stale (seq_id, position, table) combination into blocks
         another sequence may own now; everything else stale is masked
         or discarded."""
-        b = self._batch_buffers(t, mb)
+        b = self._bufs[(t, mb)]
         b.valid.fill(0)
         off = 0
         for seq in rows:
@@ -665,8 +809,8 @@ class LLMEngine:
             s.seq_len + plans[s]["ntok"]) for s in rows)
         mb = next(w for w in self._mb_widths if w >= mb_need)
         sampled = any(s.sampling.temperature > 0 for s in rows)
-        batch = self._build_batch(rows, plans, t, mb)
-        return self._device_get(*self._call_step(sampled, batch))
+        self._build_batch(rows, plans, t, mb)
+        return self._program(t, mb, sampled).run()
 
     def _sites(self, rows, plans):
         return {"prefill" if plans[s]["kind"] == "prefill" else "decode"

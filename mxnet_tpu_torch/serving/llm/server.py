@@ -3,8 +3,10 @@ port of ``mxnet_tpu/serving/llm/server.py``, one engine on one device).
 
 Many threads submit prompts and get Futures; ONE worker thread drives
 the engine loop (admit → step → retire, every iteration); ``warmup()``
-builds every kernel the steps launch before serving begins; drain on
-shutdown resolves EVERY Future.
+builds every kernel the steps launch and, on CUDA, captures the step's
+graph at every rung before serving begins (``stats()["compiles"]``
+counts both and must not move after it); drain on shutdown resolves
+EVERY Future and then releases the engine's graphs.
 
 Drain semantics: an in-flight sequence is minutes of state, so drain
 runs the engine until every live sequence completes OR a deadline
@@ -125,8 +127,8 @@ class LLMServer:
         return self
 
     def warmup(self):
-        """Run every step rung once so every kernel is built before
-        serving. Must run BEFORE ``start()`` — the engine thread owns
+        """Build (on CUDA: capture) and run every step rung once, so no
+        kernel is built and no graph captured while serving. Must run BEFORE ``start()`` — the engine thread owns
         the KV pools once serving begins. Returns {rung: seconds}."""
         if self._started:
             raise RuntimeError(
@@ -234,6 +236,7 @@ class LLMServer:
         eng = self._engine
         snap = self._stats.snapshot()
         snap["compiles"] = compile_count()
+        snap["programs"] = eng.programs()
         snap["kv_cache"] = eng.cache.stats()
         snap["prefill_chunk"] = eng.prefill_chunk
         snap["spec_k"] = eng.spec_k
@@ -257,7 +260,8 @@ class LLMServer:
         ``MXNET_TPU_SERVE_DRAIN_DEADLINE_MS`` env > unbounded); past it
         — or immediately with ``drain=False`` — live sequences resolve
         with :class:`SequenceEvictedError` carrying their tokens so
-        far. Idempotent; every Future resolves either way."""
+        far. Idempotent; every Future resolves either way. The engine's
+        graphs are released once the worker has stopped."""
         if not self._started:
             return
         if deadline_ms is None:
@@ -277,6 +281,7 @@ class LLMServer:
             self._cv.notify_all()
         if self._worker is not None:
             self._worker.join()
+        self._engine.release_graphs()
 
     # --------------------------------------------------- worker loop --
     def _resolve_finished(self, seq):

@@ -4,10 +4,11 @@ The JAX package keeps these series on its observability registry; the
 port keeps the same numbers in-process, enough for
 ``LLMServer.stats()``:
 
-- :func:`compile_count` — kernel library builds and loads in this
-  process (:func:`mxnet_tpu_torch.kernels.build_count`). PyTorch runs
-  eagerly, so nothing else compiles; the serving contract is that it
-  does not move after ``warmup()``.
+- :func:`compile_count` — kernel library builds and loads
+  (:func:`mxnet_tpu_torch.kernels.build_count`) plus CUDA graph captures
+  (:func:`mxnet_tpu_torch.kernels.capture_count`) in this process, as
+  the JAX package's ``CompileCounter`` counts XLA compiles; the serving
+  contract is that it does not move after ``warmup()``.
 - :class:`Histogram` — a bounded sample window with percentiles.
 - :class:`OverloadStats` / :class:`TenantStats` — shed, deadline,
   poison and breaker counters, and per-tenant outcomes.
@@ -25,8 +26,8 @@ __all__ = ["compile_count", "Histogram", "OverloadStats", "TenantStats"]
 
 
 def compile_count():
-    """Kernel builds and loads in this process."""
-    return kernels.build_count()
+    """Kernel builds and loads plus graph captures in this process."""
+    return kernels.build_count() + kernels.capture_count()
 
 
 class Histogram:

@@ -776,35 +776,204 @@ def test_flash_kernels_wide_head_dims(cuda, D, padding, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("config", ["default", "gpt2_small"])
+@pytest.mark.parametrize("config", ["default", "gpt2_small",
+                                    "gpt2_small_int8"])
 def test_llm_server_serves_the_oracle_streams_after_warmup(cuda, config):
-    """``LLMServer`` on the reference's default config (head dim 16) and
-    at GPT-2-small widths: greedy streams equal
+    """``LLMServer`` on the reference's default config (head dim 16), at
+    GPT-2-small widths, and there with int8 KV + int8 weights, serving
+    greedy and sampled requests. Greedy streams equal
     ``greedy_decode_reference`` (or leave it only on a near tie, as
-    chip_smoke.check_greedy allows), no kernel build after
-    ``warmup()``, and the flat kernel ran."""
-    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    chip_smoke.check_greedy allows); int8's oracle is the same engine
+    on the CPU (every kernel's plain version); a sampled stream repeats
+    under its seed. Every dispatch after ``warmup()`` is one graph
+    replay: ``decode_flat`` never runs in Python, nothing is built or
+    captured, and the flat kernel launched once a layer a dispatch,
+    counted through the replays."""
+    from mxnet_tpu_torch.serving.llm import (LLMEngine, LLMServer,
+                                             Sequence, TinyDecoder)
     kw = {} if config == "default" else chip_smoke.GPT2_SMALL
+    quant = dict(kv_dtype="int8", weight_dtype="int8") \
+        if config.endswith("int8") else {}
     model = TinyDecoder(device=cuda, **kw)
     params = model.init_params_numpy(0)
     srv = LLMServer(model, params, max_seqs=8, block_size=BS,
-                    dtype="float32", device=cuda)
+                    dtype="float32", device=cuda, **quant)
     srv.warmup()
     compiles = srv.stats()["compiles"]
+    before = srv.stats()["programs"]
+    assert before["graphs"] == before["step_variants"] == 2 * len(
+        before["t_buckets"]) * len(before["mb_widths"])
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
                for n in (1, 15, 16, 17, 40, 100)]
-    before = kernels.launch_counts().get("flat_attention", 0)
+    name = tra.kernel_name(srv.engine.cache.k_pages.dtype)
+    launched = kernels.launch_counts().get(name, 0)
+    calls = []
+    step = model.decode_flat
+    model.decode_flat = lambda *a, **k: (calls.append(1), step(*a, **k))[1]
+    samp = dict(temperature=0.8, top_p=0.9, seed=7)
     srv.start()
     try:
-        got = [f.result(timeout=300).tokens
-               for f in [srv.submit(p, 8) for p in prompts]]
+        futs = [srv.submit(p, 8) for p in prompts]
+        futs += [srv.submit(prompts[4], 8, sampling=samp) for _ in range(2)]
+        got = [f.result(timeout=300).tokens for f in futs]
     finally:
         srv.shutdown()
-    assert kernels.launch_counts()["flat_attention"] > before
+        del model.decode_flat
+    after = srv.stats()["programs"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    assert dispatches > 0
+    assert after["replays"] - before["replays"] == dispatches
+    assert calls == []
     assert srv.stats()["compiles"] == compiles
+    assert kernels.launch_counts()[name] - launched == \
+        dispatches * model.num_layers
+    assert got[-1] == got[-2]
+    if quant:
+        cpu = LLMEngine(TinyDecoder(device="cpu", **kw), params,
+                        max_seqs=8, block_size=BS, device="cpu", **quant)
+        seqs = [Sequence(p, 8) for p in prompts]
+        for s in seqs:
+            cpu.add(s)
+        while cpu.has_work():
+            cpu.step()
+        assert got[:len(prompts)] == [s.output_tokens() for s in seqs]
+        return
     p = srv.engine.params
     for i, (prompt, toks) in enumerate(zip(prompts, got)):
         chip_smoke.check_greedy(model, p, prompt, toks,
                                 chip_smoke.F32_LOGIT_TOL,
                                 f"{config} request {i}")
+
+
+@pytest.mark.cuda
+def test_lazy_captures_step_on_the_batch_they_are_given(cuda):
+    """An engine with no ``warmup()`` captures each rung at its first
+    use. Greedy traffic runs and frees its blocks; then greedy and
+    sampled requests reuse those blocks, each sampled rung captured in
+    the middle of the traffic: every greedy stream equals the oracle's
+    and the sampled pair agrees. Then, with the graphs released and
+    every block but the null one zeroed, ``warmup()`` captures all
+    rungs again: its warm run steps on the all-padding batch it filled,
+    not on the last batch a rung uploaded, so no block but the null one
+    is written."""
+    from mxnet_tpu_torch.serving.llm import LLMEngine, Sequence, TinyDecoder
+    from mxnet_tpu_torch.serving.llm.sampling import SamplingParams
+    model = TinyDecoder(device=cuda, vocab_size=512, d_model=64,
+                        num_heads=4, d_ff=128, max_context=64)
+    params = model.init_params_numpy(0)
+    eng = LLMEngine(model, params, max_seqs=4, block_size=BS,
+                    prefill_chunk=16, prefix_cache=False, device=cuda)
+    rng = np.random.RandomState(11)
+
+    def serve(seqs):
+        for s in seqs:
+            eng.add(s)
+        while eng.has_work():
+            eng.step()
+        return [s.output_tokens() for s in seqs]
+
+    short = [rng.randint(0, model.vocab_size, size=n).tolist()
+             for n in (20, 9, 26, 3)]
+    long = [rng.randint(0, model.vocab_size, size=n).tolist()
+            for n in (40, 33, 47)]
+    first = serve([Sequence(p, 8) for p in short])
+    greedy_graphs = eng.programs()["graphs"]
+    samp = SamplingParams(temperature=0.8, top_p=0.9, seed=7)
+    second = serve([Sequence(p, 8) for p in long]
+                   + [Sequence(long[0], 8, sampling=samp) for _ in "ab"])
+    progs = eng.programs()
+    assert progs["graphs"] > greedy_graphs
+    assert progs["replays"] == progs["dispatches"]
+    assert second[-1] == second[-2]
+    for i, (prompt, toks) in enumerate(zip(short + long,
+                                           first + second[:-2])):
+        chip_smoke.check_greedy(model, eng.params, prompt, toks,
+                                chip_smoke.F32_LOGIT_TOL, f"request {i}")
+    eng.release_graphs()
+    for pages in (eng.cache.k_pages, eng.cache.v_pages):
+        pages[:, 1:].zero_()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm = eng.programs()
+    assert warm["graphs"] == warm["step_variants"] == 2 * len(
+        warm["t_buckets"]) * len(warm["mb_widths"])
+    for pages in (eng.cache.k_pages, eng.cache.v_pages):
+        assert not pages[:, 1:].any()
+
+
+# ---------------------------------- the serving step under CUDA graphs --
+def _step_pack(dev, dtype, T, H=12, D=64, S=8, MB=64, seed=3):
+    """A packed step of ``T`` tokens over ``S`` rows of fragmented
+    64-page tables: runs of ``T / S`` consecutive positions a row, at
+    random depths (one token a row at T = S: a decode step)."""
+    rng = np.random.RandomState(seed)
+    N = S * MB + 1
+    tables = rng.permutation(np.arange(1, N)).astype(np.int32).reshape(
+        S, MB)
+    run = T // S
+    starts = rng.randint(0, MB * BS - run, size=S)
+    seq_ids = np.repeat(np.arange(S, dtype=np.int32), run)
+    positions = (starts[:, None] + np.arange(run)[None, :]).reshape(-1)
+    t = dict(q=torch.from_numpy(rng.randn(T, H, D).astype(np.float32)),
+             block_tables=torch.from_numpy(tables),
+             seq_ids=torch.from_numpy(seq_ids),
+             positions=torch.from_numpy(positions.astype(np.int32)))
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.randn(N, BS, H, D).astype(np.float32))
+        if dtype == "float32":
+            t[f"{name}_pages"] = x
+        else:
+            dt = torch.int8 if dtype == "int8" else torch.float8_e4m3fn
+            xq, sc = _quantize_kv(x.reshape(-1, H, D), dt)
+            t[f"{name}_pages"] = xq.reshape(x.shape)
+            t[f"{name}_scales"] = sc.reshape(x.shape[:-1])
+    return {k: v.to(dev) for k, v in t.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flat.float32", "flat.int8", "flat.fp8",
+                                    "wq.int8", "wq.fp8"])
+@pytest.mark.parametrize("T", [8, 128])
+def test_step_kernels_replay_their_eager_bits_under_capture(cuda, kernel, T):
+    """Each kernel of the serving step (K1, K2 int8/fp8, K3 int8/fp8:
+    cluster launches through ``cudaLaunchKernelEx``) captured alone in a
+    CUDA graph at the step's shapes (T = 8 decode, T = 128 prefill; K3
+    at the MLP's 768 x 3072 and, at T = 8, the LM head's 50257 columns
+    split over a cluster): a replay gives the eager launch's bits. The
+    warm run counts as a launch, the capture adds nothing, each replay
+    adds the capture's one launch."""
+    family, dtype = kernel.split(".")
+    if family == "flat":
+        t = _step_pack(cuda, dtype, T)
+        name = tra.kernel_name(t["k_pages"].dtype)
+        shapes = [t]
+
+        def op(t):
+            return tra.ragged_flat_attention(**t)
+    else:
+        shapes = [_wq_case(cuda, dtype, T, 768, 3072)]
+        if T == 8:
+            shapes.append(_wq_case(cuda, dtype, T, 768, 50257))
+        name = tqz.kernel_name(shapes[0][1].dtype)
+
+        def op(t):
+            return tqz.quantized_matmul(*t)
+    for args in shapes:
+        eager = op(args)
+        res = {}
+
+        def fn():
+            res["out"] = op(args)
+        before = kernels.launch_counts().get(name, 0)
+        captures = kernels.capture_count()
+        g = kernels.capture(fn, torch.cuda.Stream(cuda), what=kernel)
+        assert kernels.capture_count() == captures + 1
+        assert kernels.launch_counts()[name] == before + 1
+        assert g.tally == {name: 1}
+        res["out"].fill_(float("nan"))
+        for i in range(2):
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(res["out"], eager)
+            assert kernels.launch_counts()[name] == before + 2 + i
