@@ -19,7 +19,11 @@ Phases, one line of output each (or more), in order:
    padding mask and causal, and for each mask the two backward kernels'
    sum beside the library's backward (one call for dq, dk and dv), then
    at head dims 256 (padding mask, causal) and 192 (no mask, padded to
-   256); the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
+   256); the same three flash kernels on bf16 and f16 inputs
+   (``csrc/flash_attention_lp.cu``, the AMP path's) at BERT-base shapes
+   (no mask, padding mask, causal) and at head dim 256 (padding mask,
+   causal), each giving the same bits on two launches, beside SDPA in
+   the same dtype; the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
    attention kernels at the decode phase's shapes; every paged row
    (flat, chunk, decode: one staged kernel) carries its launch plan,
    shared bytes per CTA and ptxas's registers (a spill at D=64 fails the
@@ -73,12 +77,23 @@ Phases, one line of output each (or more), in order:
    dropout 0.1 with falling loss, 12 launches per step of each flash
    kernel and no kernel build after the first step; step ms and
    tokens/s, then two steps under ``torch.profiler``;
+   then the same training under AMP (``amp.init()``, bf16, with
+   ``amp.init_trainer``; int32 token ids): one step with the bf16 flash
+   kernels against the plain op path under AMP (the loss, each
+   gradient's norm-relative error, the query/key projections reported,
+   the last attention layer's kernels against the f64 twin), 10 steps
+   with falling loss and 12 launches per step of each bf16 kernel, step
+   ms, tokens/s, peak memory and a profiled pass beside the f32 phase's;
+   then ``amp.init(target_dtype="float16")`` with a fresh
+   ``init_trainer`` (loss scale 2^16): 3 steps through the f16 kernels,
+   each step's scale and whether it was skipped;
 9. one JSON line listing every kernel: launches on the main paths,
    counted through graph replays (the flash kernels': the 10 training
    steps and the op phase's call), max
    error, times, bound (the quantized matmul's and the flash kernels'
    operations on the TF32 tensor cores, 2 and 3 passes for f32
-   accuracy) and, beside it, the f32 CUDA-core bound;
+   accuracy; the 16-bit flash kernels' at the dense bf16/f16 rate, one
+   pass) and, beside the f32 rows' bound, the f32 CUDA-core bound;
 then the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. The script needs
@@ -91,6 +106,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -101,6 +117,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+# dense bf16 and f16 tensor-core rate, one pass (the 16-bit flash rows)
+LP_FLOPS_PER_S = 989e12
 # TF32 tensor-core passes per product at f32 accuracy (split-TF32): the
 # quantized matmul splits only x (its weights are exact in TF32), the
 # flash kernels split both operands (hi*hi + hi*lo + lo*hi). The flash
@@ -127,6 +145,13 @@ QUANT_LOGIT_TOL = {"int8": 0.05, "float8_e4m3fn": 0.25}
 # of the output: f32 sums over up to 512 keys (forward, dQ) or queries
 # (dK, dV, dbias) in another order, online softmax against one softmax
 FLASH_REL_TOL = 2e-5
+# the bf16 and f16 flash kernels vs their twins, relative to the largest
+# magnitude of each result: both round P (P^T, dS) and the outputs to the
+# input dtype from f32 sums taken in another order (online softmax
+# against one softmax), so a value on a rounding boundary lands one ulp
+# apart: 2^-8 relative in bf16, 2^-11 in f16 (this phase reads at most
+# 7.8e-3 and 2.0e-3 on an H100)
+FLASH_LP_REL_TOL = {"bfloat16": 2e-2, "float16": 5e-3}
 # BERT-base training step, flash kernels vs the op's plain path
 # (flash=False), both f32 with TF32 off: the loss, relative; and every
 # parameter gradient, relative to its own largest entry (gradients that
@@ -145,6 +170,31 @@ BERT_TIE_REL_TOL = 1e-5
 # magnitude of the output: one rounding (2x + y fused into an FMA) or a
 # sum of 8192 terms in another order
 RTC_REL_TOL = 1e-5
+# BERT-base under AMP (bf16), one step with the flash kernels against the
+# op's plain path (flash=False, also under AMP). The loss, relative: both
+# run bf16 matmuls and attention that round at different places (the
+# plain path rounds the scores and probabilities, the kernels P and dS).
+AMP_LOSS_REL_TOL = 1e-3
+# Each parameter's gradient, as the norm of the difference over its own
+# norm (bf16 rounds each element, so the largest-entry measure of the
+# f32 check reads rounding noise): the two paths' roundings leave a few
+# percent between them (5.0e-2 at most on an H100 at BERT-base).
+AMP_GRAD_REL_TOL = 0.1
+# ... except the attention query and key projections, which are reported
+# and not held to it: at BERT's init their gradient is a small
+# difference of large terms (the deep layers' token representations
+# nearly coincide), and the flash backward takes delta = rowsum(dO * O)
+# from the bf16 output O, as the reference's _flash_backward does, whose
+# rounding then dominates dQ and dK (the plain path's softmax backward
+# sums in f32). The kernels themselves are held on the last layer's
+# attention inputs and output gradient: dq, dk, dv with delta from the
+# exact (f64) output within this norm-relative distance of the f64 twin;
+# the same with the reference's delta is printed beside it.
+AMP_LAYER_REL_TOL = 2e-2
+# a ReLU gate flip between the two AMP paths counts as a tie where
+# |pre-activation| is within 2^-7 of the largest (two bf16 ulps)
+AMP_TIE_REL_TOL = 2.0 ** -7
+AMP_F16_STEPS = 3
 
 DEVICE = "cuda"
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, num_layers=12,
@@ -572,6 +622,122 @@ def run_flash_kernel_phase(torch, timer, rng):
     return results
 
 
+def bound_lp(nbytes, flops):
+    """The least time the card could take for a 16-bit flash launch:
+    ``(ms, "bytes" or "operations")``, bytes at the HBM rate, products at
+    the dense bf16/f16 tensor-core rate, one pass."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / LP_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_flash_lp_kernel_phase(torch, timer, rng):
+    """K6, K7a and K7b on bf16 and f16 inputs (the AMP training path's
+    kernels, csrc/flash_attention_lp.cu) at BERT-base shapes (no mask,
+    padding mask, causal) and at head dim 256 (padding, causal), against
+    their twins on the same inputs, each giving the same bits on two
+    launches; library: SDPA in the same dtype with the same mask, and
+    its one-call backward."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    src = "mxnet_tpu_torch/csrc/flash_attention_lp.cu"
+    tpu = "mxnet_tpu/ops/flash_attention.py"
+    wide256 = FLASH_WIDE[0]
+    results = []
+    for dtype in ("bfloat16", "float16"):
+        dt, tol = getattr(torch, dtype), FLASH_LP_REL_TOL[dtype]
+        for label, padding, causal, shape in (
+                ("no mask", False, False, BERT_ATTENTION),
+                ("padding mask", True, False, BERT_ATTENTION),
+                ("causal", False, True, BERT_ATTENTION),
+                ("padding mask", True, False, wide256),
+                ("causal", False, True, wide256)):
+            B, H, T, D = shape
+            scale = 1.0 / D ** 0.5
+            a, dout, pairs = flash_case(torch, rng, padding, causal, shape)
+            a = dict(a, q=a["q"].to(dt), k=a["k"].to(dt), v=a["v"].to(dt))
+            dout = dout.to(dt)
+            bias = a["bias"]
+            bhtd = 2 * B * H * T * D          # bytes of one 16-bit tensor
+            bias_bytes = 0 if bias is None else 4 * B * T
+            want_db = bias is not None
+            ref_out, ref_lse = fa.flash_forward_reference(**a, scale=scale)
+            delta = (dout.float() * ref_out.float()).sum(-1).reshape(
+                B * H, T)
+            bw = dict(a, dout=dout, lse=ref_lse, delta=delta, scale=scale)
+            mask = None if bias is None else bias[:, None, None, :].to(dt)
+            lq, lk, lv = (t.detach().clone().requires_grad_()
+                          for t in (a["q"], a["k"], a["v"]))
+            lib_out = sdpa(lq, lk, lv, attn_mask=mask, is_causal=causal,
+                           scale=scale)
+
+            def lib_fwd():
+                return sdpa(a["q"], a["k"], a["v"], attn_mask=mask,
+                            is_causal=causal, scale=scale)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (lq, lk, lv), dout,
+                                           retain_graph=True)
+            lib_bwd_ms = timer.ms(lib_bwd)
+            cases = [
+                ("flash_fwd", ":89",
+                 lambda: fa.flash_forward(**a, scale=scale),
+                 lambda: fa.flash_forward_reference(**a, scale=scale),
+                 bound_lp(bhtd * 4 + 4 * B * H * T + bias_bytes,
+                          4 * D * pairs), timer.ms(lib_fwd)),
+                ("flash_bwd_dkv", ":254",
+                 lambda: fa.flash_bwd_dkv(**bw, want_dbias=want_db),
+                 lambda: fa.flash_bwd_dkv_reference(**bw,
+                                                    want_dbias=want_db),
+                 bound_lp(bhtd * 6 + 8 * B * H * T + bias_bytes
+                          + (4 * B * H * T if want_db else 0),
+                          8 * D * pairs), lib_bwd_ms),
+                ("flash_bwd_dq", ":292", lambda: fa.flash_bwd_dq(**bw),
+                 lambda: fa.flash_bwd_dq_reference(**bw),
+                 bound_lp(bhtd * 5 + 8 * B * H * T + bias_bytes,
+                          6 * D * pairs), lib_bwd_ms),
+            ]
+            rows = []
+            for base, line, kern, plain, (b_ms, b_by), lib_ms in cases:
+                name = fa.kernel_name(base, dt)
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                want = plain()
+                got, again, want = ((x if isinstance(x, tuple) else (x,))
+                                    for x in (got, again, want))
+                same = all(x is None and y is None or torch.equal(x, y)
+                           for x, y in zip(got, again))
+                errs = [rel_err(g.float(), w.float())
+                        for g, w in zip(got, want) if w is not None]
+                err = max(e[0] for e in errs)
+                rel = max(e[1] for e in errs)
+                res = dict(name=name, route="cuda", source=src,
+                           replaces=tpu + line,
+                           shape=f"B={B},H={H},T={T},D={D},{label}",
+                           max_abs_err=err, tol=tol, ms=timer.ms(kern),
+                           plain_ms=timer.ms(plain), bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms)
+                log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
+                    f"(relative {rel:.3e}, tol {tol}) same bits twice "
+                    f"{same} kernel_ms={res['ms']:.4f} plain_ms="
+                    f"{res['plain_ms']:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by})")
+                check(rel <= tol, f"{name} {res['shape']} disagrees with "
+                      f"its plain twin: {rel} > {tol}")
+                check(same, f"{name} {res['shape']}: two launches gave "
+                      f"different bits")
+                rows.append(res)
+            bwd_ms = rows[1]["ms"] + rows[2]["ms"]
+            log(f"kernel flash_bwd_dkv + flash_bwd_dq {dtype} "
+                f"B={B},H={H},T={T},D={D},{label}: kernel_ms={bwd_ms:.4f} "
+                f"library_ms={lib_bwd_ms:.4f} (the library's backward, dq, "
+                f"dk and dv in one call): {bwd_ms / lib_bwd_ms:.3f}x the "
+                f"library")
+            results += rows
+            del lib_out
+    return results
+
+
 def paged_case(torch, rng, S, Q):
     """Inputs of one chunk (``Q`` set) or decode (``Q`` None) paged
     attention launch at the decode phase's shapes: ``S`` rows with kv
@@ -874,14 +1040,19 @@ def host_ms_per_step(torch, server, prompts, tag):
         f"{wall / steps * 1e3:.2f} ms/step")
 
 
+def device_rows(prof):
+    """The profiler's rows with device time, and their sum in us."""
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+    return rows, sum(e.self_device_time_total for e in rows)
+
+
 def report_profile(prof, wall, steps):
     """Print the device busy share of ``wall`` seconds (``steps`` steps)
     and the kernels that took the most device time; returns the share,
     or None when the profiler saw no device time."""
-    rows = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in rows)
+    rows, busy_us = device_rows(prof)
     if not rows:
         log("profile: the profiler saw no device time (not measured)")
         return None
@@ -1383,10 +1554,12 @@ def run_op_phase(torch, timer, rng, decoded):
 def make_bert_mlm(dropout, **cfg):
     """``BertForMLM`` of examples/bert_pretrain_mlm.py on the port: BERT
     plus a Dense/LayerNorm transform and the decoder tied to the word
-    embedding, taking ``valid_length``."""
+    embedding (``dot``, a low-precision op under AMP, as the example's
+    ``nd.dot``), taking ``valid_length``."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.gluon import nn
     from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.ops import nn as F
 
     class BertForMLM(gluon.HybridBlock):
         def __init__(self):
@@ -1401,8 +1574,9 @@ def make_bert_mlm(dropout, **cfg):
             seq, _ = self.bert(tokens, None, valid_length)
             h = self.ln(self.transform(seq))
             w = self.bert.word_embed.weight.data()
-            return (h.reshape(-1, h.shape[-1]) @ w.t()).reshape(
-                h.shape[0], h.shape[1], -1)
+            return F.dot(h.reshape(-1, h.shape[-1]), w,
+                         transpose_b=True).reshape(h.shape[0], h.shape[1],
+                                                   -1)
     return BertForMLM()
 
 
@@ -1444,6 +1618,119 @@ def set_flash(net, flash):
             m._flash = flash
 
 
+def bert_step_grads(net, loss_fn, batch_data, vocab, flash, pre, gate=None,
+                    record=None):
+    """One forward and backward of the masked-LM loss with the flash
+    kernels or the op's plain path (``flash``); keeps the MLM
+    transform ReLU's input (in f32) in ``pre[flash]``, or with ``gate``
+    multiplies that input by the gate instead of applying the ReLU. With
+    ``record`` (a dict), also keeps the last attention call's inputs and
+    the gradient of its output there (:class:`recording_attention`).
+    Returns the loss and every parameter's gradient."""
+    from mxnet_tpu_torch import autograd as ag
+
+    def hook(mod, inputs, out):
+        if gate is None:
+            pre[flash] = inputs[0].detach().float()
+            return None
+        return inputs[0] * gate.to(inputs[0].dtype)
+    set_flash(net, flash)
+    handle = net.transform.act.register_forward_hook(hook)
+    with recording_attention() as rec, ag.record():
+        loss = mlm_loss(net, loss_fn, batch_data, vocab)
+    handle.remove()
+    if record is not None:
+        record.update(rec)
+        rec["out"].register_hook(
+            lambda g: record.__setitem__("dout", g.detach()))
+    loss.backward()
+    return float(loss.detach()), {
+        n: p.grad().clone() for n, p in net.collect_params().items()}
+
+
+def relu_flips(pre, weighed):
+    """The MLM transform's ReLU gates that differ between the two paths
+    at tokens the loss weighs (elsewhere no gradient reaches the
+    transform): (count, largest |pre-activation| at a flip, largest
+    |pre-activation| of the plain path)."""
+    flips = ((pre[True] > 0) != (pre[False] > 0)) & weighed[..., None]
+    n = int(flips.sum())
+    tie = max(float(p.abs()[flips].max()) for p in pre.values()) if n \
+        else 0.0
+    return n, tie, float(pre[False].abs().max())
+
+
+def bert_train(torch, kernels, net, trainer, loss_fn, data, vocab, label,
+               names, layers, amp=None):
+    """Train ``net`` one step per batch of ``data`` but the last two
+    (dropout masks from seed 0; under AMP through ``amp.scale_loss``),
+    then two more steps under the profiler. Checks a finite, falling
+    loss, ``layers`` launches a step of each kernel in ``names`` and no
+    kernel build after the first step. Returns the launch counts of the
+    first steps and a summary (step ms, tokens/s, peak GB, profiled
+    device ms per step, idle share)."""
+    from mxnet_tpu_torch import autograd as ag
+    batch, seqlen = data[0][0].shape
+    steps = len(data) - 2
+
+    def step(d):
+        with ag.record():
+            loss = mlm_loss(net, loss_fn, d, vocab)
+            scaled = loss
+            if amp is not None:
+                with amp.scale_loss(loss, trainer) as scaled:
+                    pass
+        scaled.backward()
+        trainer.step(batch)
+        return float(loss.detach())
+    torch.manual_seed(0)                  # dropout masks
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, builds = [], [], None
+    for i, d in enumerate(data[:steps]):
+        t0 = time.monotonic()
+        losses.append(step(d))
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        if i == 0:
+            builds = kernels.build_count()
+    launches = kernels.launch_counts()
+    step_ms = float(np.median(times[1:])) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    valid = sum(float(d[3].sum()) for d in data[1:steps])
+    log(f"{label}: {steps} Adam steps (lr {BERT_LR}, dropout 0.1): losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    log(f"{label}: step {step_ms:.2f} ms (median of steps 2-{steps}; first "
+        f"{times[0] * 1e3:.1f} ms); {batch * seqlen / step_ms * 1e3:.0f} "
+        f"tokens/s ({valid / (sum(times[1:])):.0f} valid tokens/s); peak "
+        f"memory {peak_gb:.2f} GB; launches {launches}; builds after the "
+        f"first step {kernels.build_count() - builds}")
+    check(all(np.isfinite(losses)), f"{label}: non-finite training loss")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall over "
+          f"{steps} steps ({losses[0]} -> {losses[-1]})")
+    for name in names:
+        check(launches.get(name, 0) == layers * steps,
+              f"{label}: {name} launched {launches.get(name, 0)} times in "
+              f"{steps} steps, expected {layers} per step")
+    check(kernels.build_count() == builds, f"{label}: a kernel was built "
+          "after the first step")
+    # where the time goes: two more steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for d in data[steps:]:
+            step(d)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    share = report_profile(prof, wall, 2)
+    return launches, dict(step_ms=step_ms,
+                          tokens_s=batch * seqlen / step_ms * 1e3,
+                          peak_gb=peak_gb,
+                          device_ms=device_rows(prof)[1] / 1e3 / 2,
+                          idle=None if share is None else 1 - share)
+
+
 def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
                    seqlen=BERT_T, steps=BERT_STEPS):
     """BERT masked-LM training through gluon, the flash kernels and Adam:
@@ -1452,10 +1739,13 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
     tie: on the flash path's gates); (b) ``steps`` Trainer steps
     at dropout 0.1 with falling loss, (c) 12 launches per step of each
     flash kernel, (d) no kernel build after the first step; then a
-    profiled pass of two more steps. Returns the launch counts of (b)."""
+    profiled pass of two more steps. Returns the launch counts of (b)
+    and a summary (step ms, tokens/s, peak GB, profiled device ms per
+    step and idle share)."""
     from mxnet_tpu_torch import autograd as ag
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.ops.flash_attention import KERNEL_NAMES
     vocab, layers = cfg["vocab_size"], cfg["num_layers"]
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     data = bert_batches(torch, rng, steps + 3, vocab, batch, seqlen, DEVICE)
@@ -1471,25 +1761,6 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
         f"{seqlen}, set up in {time.monotonic() - t0:.2f}s")
     # (a) flash kernels vs the plain op path, same weights and batch
     grads, one, pre = {}, {}, {}
-    act = net.transform.act                 # the MLM transform's ReLU
-
-    def step_grads(flash, gate=None):
-        """One forward and backward; keeps the ReLU's input in
-        ``pre[flash]``, or with ``gate`` applies that gate instead of
-        the ReLU's own."""
-        def hook(mod, inputs, out):
-            if gate is None:
-                pre[flash] = inputs[0].detach()
-                return None
-            return inputs[0] * gate
-        set_flash(net, flash)
-        handle = act.register_forward_hook(hook)
-        with ag.record():
-            loss = mlm_loss(net, loss_fn, data[0], vocab)
-        handle.remove()
-        loss.backward()
-        return float(loss.detach()), {
-            n: p.grad().clone() for n, p in net.collect_params().items()}
 
     def worst_error(got, want):
         gmax = max(float(g.abs().max()) for g in want.values())
@@ -1504,7 +1775,8 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
         return worst, skipped
 
     for flash in (True, False):
-        one[flash], grads[flash] = step_grads(flash)
+        one[flash], grads[flash] = bert_step_grads(net, loss_fn, data[0],
+                                                   vocab, flash, pre)
     loss_rel = abs(one[True] - one[False]) / abs(one[False])
     worst, skipped = worst_error(grads[True], grads[False])
     log(f"bert: one step flash vs flash=False: loss {one[True]:.6f} vs "
@@ -1516,14 +1788,7 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
           "bert: non-finite loss")
     check(loss_rel <= BERT_LOSS_REL_TOL, "bert: flash and plain losses "
           "disagree")
-    # the ReLU gates that differ between the paths at tokens the loss
-    # weighs (elsewhere no gradient reaches the transform)
-    weighed = data[0][2].bool()[..., None]
-    flips = ((pre[True] > 0) != (pre[False] > 0)) & weighed
-    n_flips = int(flips.sum())
-    top = float(pre[False].abs().max())
-    tie = max(float(p.abs()[flips].max()) for p in pre.values()) \
-        if n_flips else 0.0
+    n_flips, tie, top = relu_flips(pre, data[0][2].bool())
     log(f"bert: MLM transform pre-activations differ by up to "
         f"{float((pre[True] - pre[False]).abs().max()):.3e} (largest "
         f"{top:.3e}); ReLU gates flipped at weighed tokens {n_flips}"
@@ -1532,8 +1797,8 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
     if n_flips and worst[0] > BERT_GRAD_REL_TOL:
         check(tie <= BERT_TIE_REL_TOL * top, "bert: a ReLU gate flipped "
               "between the paths away from a tie")
-        _, gated = step_grads(False, gate=(pre[True] > 0).to(
-            pre[True].dtype))
+        _, gated = bert_step_grads(net, loss_fn, data[0], vocab, False, pre,
+                                   gate=pre[True] > 0)
         worst, skipped = worst_error(grads[True], gated)
         log(f"bert: flash vs flash=False on the flash path's gates: max "
             f"relative gradient error {worst[0]:.3e} ({worst[1]}; tol "
@@ -1548,55 +1813,222 @@ def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
                    generator=torch.Generator().manual_seed(0))
     trainer = gluon.Trainer(net.collect_params(), "adam",
                             {"learning_rate": BERT_LR})
-    torch.manual_seed(0)                  # dropout masks
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    losses, times, builds = [], [], None
-    for i in range(steps):
-        t0 = time.monotonic()
-        with ag.record():
-            loss = mlm_loss(net, loss_fn, data[1 + i], vocab)
-        loss.backward()
-        trainer.step(batch)
-        losses.append(float(loss.detach()))
-        torch.cuda.synchronize()
-        times.append(time.monotonic() - t0)
-        if i == 0:
-            builds = kernels.build_count()
-    launches = kernels.launch_counts()
-    step_ms = float(np.median(times[1:])) * 1e3
-    valid = sum(float(d[3].sum()) for d in data[2:1 + steps])
-    log(f"bert: {steps} Adam steps (lr {BERT_LR}, dropout 0.1): losses "
-        + " ".join(f"{v:.4f}" for v in losses))
-    log(f"bert: step {step_ms:.2f} ms (median of steps 2-{steps}; first "
-        f"{times[0] * 1e3:.1f} ms); {batch * seqlen / step_ms * 1e3:.0f} "
-        f"tokens/s ({valid / (sum(times[1:])):.0f} valid tokens/s); peak "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-        f"launches {launches}; builds after the first step "
-        f"{kernels.build_count() - builds}")
-    check(all(np.isfinite(losses)), "bert: non-finite training loss")
-    check(losses[-1] < losses[0], f"bert: loss did not fall over {steps} "
-          f"steps ({losses[0]} -> {losses[-1]})")
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        check(launches.get(name, 0) == layers * steps,
-              f"bert: {name} launched {launches.get(name, 0)} times in "
-              f"{steps} steps, expected {layers} per step")
-    check(kernels.build_count() == builds, "bert: a kernel was built "
-          "after the first step")
-    # where the time goes: two more steps under the profiler
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for d in data[1 + steps:]:
+    return bert_train(torch, kernels, net, trainer, loss_fn, data[1:], vocab,
+                      "bert", KERNEL_NAMES, layers)
+
+
+def norm_rel(got, want):
+    """|got - want| / |want| in the 2-norm, in f64."""
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(
+        1e-300))
+
+
+class recording_attention:
+    """Within ``with``, the attention op of the port's gluon attention
+    layer records the inputs of its last call (``args``: q, k, v and
+    the mask as passed, ``kw``) and its output (``out``)."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.gluon.nn import attention as att
+        self._att, self._op = att, att.scaled_dot_product_attention
+        rec = self.rec = {}
+
+        def recorded(q, k, v, bias=None, **kw):
+            out = self._op(q, k, v, bias, **kw)
+            rec.update(args=tuple(None if t is None else t.detach()
+                                  for t in (q, k, v, bias)), kw=kw,
+                       out=out)
+            return out
+        att.scaled_dot_product_attention = recorded
+        return rec
+
+    def __exit__(self, *exc):
+        self._att.scaled_dot_product_attention = self._op
+
+
+def amp_layer_check(torch, rec):
+    """The last attention layer of an AMP step on its own: the kernels'
+    dq, dk, dv against the f64 twin, with the reference's delta (from
+    the bf16 output) and with delta from the f64 output. Returns the
+    norm-relative errors of each, and the mean cosine of the layer's
+    value rows to their mean (near 1 where the tokens' representations
+    coincide, as in BERT's deep layers at init)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    q, k, v, bias = (None if t is None else t.contiguous()
+                     for t in rec["args"])
+    bias = bias.to(q.dtype)                  # as AMP casts the mask
+    dout = rec["dout"].contiguous()
+    causal = rec["kw"].get("causal", False)
+    B, H, T, D = q.shape
+    sc = 1.0 / D ** 0.5
+    w = [t.double() for t in (q, k, v, bias, dout)]
+    out64, lse64 = fa.flash_forward_reference(*w[:4], causal, sc)
+    exact = fa.flash_backward_reference(*w[:4], out64, lse64, w[4], causal,
+                                        sc, want_dbias=False)[:3]
+    out, lse = fa.flash_forward(q, k, v, bias, causal, sc)
+    ref_delta = fa.flash_backward(q, k, v, bias, out, lse, dout, causal, sc,
+                                  want_dbias=False)[:3]
+    delta = (w[4] * out64).sum(-1).reshape(B * H, T).float()
+    dk, dv, _ = fa.flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal,
+                                 sc)
+    dq = fa.flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal, sc)
+    errs = [[norm_rel(g, e) for g, e in zip(got, exact)]
+            for got in (ref_delta, (dq, dk, dv))]
+    vf = v.float()
+    cos = torch.nn.functional.cosine_similarity(
+        vf, vf.mean(2, keepdim=True).expand_as(vf), dim=-1).mean()
+    return errs, float(cos)
+
+
+def run_bert_amp_phase(torch, rng, kernels, f32, cfg=BERT_BASE,
+                       batch=BERT_BATCH, seqlen=BERT_T, steps=BERT_STEPS):
+    """BERT masked-LM training under AMP (``amp.init()``, bf16, with
+    ``amp.init_trainer``), int32 token ids: (a) one step's loss and
+    gradients with the bf16 flash kernels against the op's plain path
+    (flash=False, also under AMP), dropout 0 (on a ReLU gate flip at a
+    tie: on the flash path's gates), and the last attention layer's
+    kernels against the f64 twin (:func:`amp_layer_check`); (b) ``steps``
+    steps at dropout 0.1 with falling loss, (c) 12 launches per step of
+    each bf16 flash kernel, (d) no kernel build after the first step,
+    then a profiled pass of two more steps, printed beside the f32
+    phase's summary ``f32``; (e) ``amp.init(target_dtype="float16")``
+    with a fresh ``init_trainer`` (loss scale 2^16): AMP_F16_STEPS steps
+    through the f16 kernels, printing the scale and whether each step
+    was skipped. Returns the launch counts of (b) and (e)."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.ops.flash_attention import KERNEL_NAMES, kernel_name
+    vocab, layers = cfg["vocab_size"], cfg["num_layers"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    data = [(x.int(), y, w, vl) for x, y, w, vl in bert_batches(
+        torch, rng, steps + 3 + AMP_F16_STEPS, vocab, batch, seqlen,
+        DEVICE)]
+    amp.init()
+    try:
+        net = make_bert_mlm(0.0, **cfg)
+        net.initialize(Xavier(), device=DEVICE,
+                       generator=torch.Generator().manual_seed(0))
+        with ag.pause():
+            mlm_loss(net, loss_fn, data[0], vocab)
+        log(f"bert amp: amp.init() (bf16), {layers} layers, batch {batch} "
+            f"x {seqlen}, int32 token ids")
+        # (a) flash kernels vs the plain op path, both under AMP
+        grads, one, pre, rec = {}, {}, {}, {}
+
+        def worst_error(got, want):
+            worst, held = (-1.0, ""), (-1.0, "")
+            for name, g in want.items():
+                if float(g.norm()) == 0.0:
+                    continue
+                err = (norm_rel(got[name], g), name)
+                worst = max(worst, err)
+                if "attn_query_" not in name and "attn_key_" not in name:
+                    held = max(held, err)
+            return worst, held
+
+        for flash in (True, False):
+            one[flash], grads[flash] = bert_step_grads(
+                net, loss_fn, data[0], vocab, flash, pre,
+                record=rec if flash else None)
+        loss_rel = abs(one[True] - one[False]) / abs(one[False])
+        worst, held = worst_error(grads[True], grads[False])
+        log(f"bert amp: one step flash vs flash=False: loss {one[True]:.6f}"
+            f" vs {one[False]:.6f} (relative {loss_rel:.3e}, tol "
+            f"{AMP_LOSS_REL_TOL}); gradient error (norm) {held[0]:.3e} "
+            f"({held[1]}; tol {AMP_GRAD_REL_TOL}); query/key projections "
+            f"up to {worst[0]:.3e} ({worst[1]}; not held)")
+        check(all(np.isfinite(v) for v in one.values()),
+              "bert amp: non-finite loss")
+        check(loss_rel <= AMP_LOSS_REL_TOL, "bert amp: flash and plain "
+              "losses disagree")
+        n_flips, tie, top = relu_flips(pre, data[0][2].bool())
+        log(f"bert amp: MLM transform ReLU gates flipped at weighed tokens "
+            f"{n_flips}" + (f", |pre-activation| <= {tie:.3e} there "
+                            f"(largest {top:.3e})" if n_flips else ""))
+        if n_flips and held[0] > AMP_GRAD_REL_TOL:
+            check(tie <= AMP_TIE_REL_TOL * top, "bert amp: a ReLU gate "
+                  "flipped between the paths away from a tie")
+            _, gated = bert_step_grads(net, loss_fn, data[0], vocab, False,
+                                       pre, gate=pre[True] > 0)
+            worst, held = worst_error(grads[True], gated)
+            log(f"bert amp: flash vs flash=False on the flash path's gates:"
+                f" gradient error (norm) {held[0]:.3e} ({held[1]})")
+        check(held[0] <= AMP_GRAD_REL_TOL, "bert amp: flash and plain "
+              "gradients disagree")
+        ((r_dq, r_dk, r_dv), (e_dq, e_dk, e_dv)), cos = amp_layer_check(
+            torch, rec)
+        log(f"bert amp: last attention layer vs the f64 twin (norm): "
+            f"kernels with the reference's delta (bf16 output) dq {r_dq:.3e}"
+            f" dk {r_dk:.3e} dv {r_dv:.3e}; with delta from the exact "
+            f"output dq {e_dq:.3e} dk {e_dk:.3e} dv {e_dv:.3e} (tol "
+            f"{AMP_LAYER_REL_TOL}); value rows at mean cosine {cos:.4f} to "
+            f"their mean")
+        check(max(e_dq, e_dk, e_dv) <= AMP_LAYER_REL_TOL, "bert amp: the "
+              "last layer's flash kernels disagree with the f64 twin")
+        del net, grads, pre, rec
+        torch.cuda.empty_cache()
+        # (b)-(d) training at dropout 0.1 through the bf16 kernels
+        net = make_bert_mlm(0.1, **cfg)
+        net.initialize(Xavier(), device=DEVICE,
+                       generator=torch.Generator().manual_seed(0))
+        trainer = amp.init_trainer(gluon.Trainer(
+            net.collect_params(), "adam", {"learning_rate": BERT_LR}))
+        launches, summary = bert_train(
+            torch, kernels, net, trainer, loss_fn, data[1:3 + steps], vocab,
+            "bert amp", [kernel_name(n, torch.bfloat16)
+                         for n in KERNEL_NAMES], layers, amp=amp)
+        for name in KERNEL_NAMES:
+            check(launches.get(name, 0) == 0, f"bert amp: the f32 kernel "
+                  f"{name} ran under AMP")
+
+        def vs(key, fmt):
+            a, b = summary[key], f32[key]
+            return ("not measured" if a is None else format(a, fmt)) + \
+                " (f32 " + ("not measured" if b is None
+                            else format(b, fmt)) + ")"
+        log(f"bert amp: beside f32: step ms {vs('step_ms', '.2f')}, tokens/s "
+            f"{vs('tokens_s', '.0f')}, peak GB {vs('peak_gb', '.2f')}, "
+            f"profiled device ms a step {vs('device_ms', '.2f')}, idle "
+            f"{vs('idle', '.3f')}; loss scale "
+            f"{trainer._amp_loss_scaler.loss_scale:g}")
+        # (e) float16: a fresh init_trainer, loss scale 2^16
+        amp.uninit()
+        amp.init(target_dtype="float16")
+        trainer16 = amp.init_trainer(gluon.Trainer(
+            net.collect_params(), "adam", {"learning_rate": BERT_LR}))
+        scaler = trainer16._amp_loss_scaler
+        check(scaler.loss_scale == 2.0 ** 16, "bert amp: the f16 loss "
+              "scale does not start at 2^16")
+        kernels.reset_launch_counts()
+        for d in data[3 + steps:]:
+            before = scaler.loss_scale
             with ag.record():
                 loss = mlm_loss(net, loss_fn, d, vocab)
-            loss.backward()
-            trainer.step(batch)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    report_profile(prof, wall, len(data) - 1 - steps)
-    return launches
+                with amp.scale_loss(loss, trainer16) as scaled:
+                    pass
+            scaled.backward()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                trainer16.step(batch)
+            log(f"bert amp f16: loss {float(loss.detach()):.4f}, scale "
+                f"{before:g} -> {scaler.loss_scale:g}, step "
+                + ("skipped (overflow)" if scaler.loss_scale < before
+                   else "applied"))
+            check(np.isfinite(float(loss.detach())), "bert amp f16: "
+                  "non-finite loss")
+        launches16 = kernels.launch_counts()
+        for base in KERNEL_NAMES:
+            name = kernel_name(base, torch.float16)
+            check(launches16.get(name, 0) == layers * AMP_F16_STEPS,
+                  f"bert amp f16: {name} launched "
+                  f"{launches16.get(name, 0)} times in {AMP_F16_STEPS} "
+                  f"steps, expected {layers} per step")
+    finally:
+        amp.uninit()
+    return {**launches, **launches16}
 
 
 # template arguments that are builtin types, as the Itanium ABI mangles them
@@ -1762,6 +2194,9 @@ def main():
     # 3. kernels
     results = run_kernel_phase(torch, timer, rng)
     results += run_flash_kernel_phase(torch, timer, rng)
+    # its own generator: the later phases draw what they drew before
+    results += run_flash_lp_kernel_phase(torch, timer,
+                                         np.random.RandomState(9))
     results += run_paged_kernel_phase(torch, timer, rng)
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
@@ -1790,8 +2225,11 @@ def main():
     results += rtc_rows
     del decoded, timer
     torch.cuda.empty_cache()
-    # 8. main path, training
-    add(run_bert_phase(torch, rng, kernels))
+    # 8. main path, training: f32, then under AMP (bf16, then f16)
+    counts, f32_bert = run_bert_phase(torch, rng, kernels)
+    add(counts)
+    torch.cuda.empty_cache()
+    add(run_bert_amp_phase(torch, rng, kernels, f32_bert))
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -16,7 +16,10 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   and decode paged-attention kernels; the op front end
   (:mod:`~mxnet_tpu_torch.ops.registry`, ``nd``, exported here as
   :mod:`~mxnet_tpu_torch.ndarray` and ``nd``) and :mod:`~mxnet_tpu_torch.rtc`,
-  which registers a user's CUDA kernel as an op.
+  which registers a user's CUDA kernel as an op;
+- mixed-precision training (:mod:`~mxnet_tpu_torch.amp`: the op
+  chokepoint's casts by the reference's lists, ``LossScaler``,
+  ``init_trainer``) with the flash attention kernels in bf16 and f16.
 
 See ROADMAP.md for what remains.
 
@@ -28,7 +31,7 @@ version runs instead. This package never imports ``jax`` or
 """
 __version__ = "0.1.0"
 
-from . import ndarray, rtc  # noqa: E402
+from . import amp, ndarray, rtc  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 
-__all__ = ["ndarray", "nd", "rtc"]
+__all__ = ["amp", "ndarray", "nd", "rtc"]

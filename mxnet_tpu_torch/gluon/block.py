@@ -142,6 +142,14 @@ class Block(torch.nn.Module):
         without their own initializer. Draws come from ``generator``."""
         self.collect_params().initialize(init, device, generator)
 
+    def cast(self, dtype):
+        """Cast every parameter of the tree to ``dtype`` (see
+        :meth:`.Parameter.cast`)."""
+        for child in self._modules.values():
+            child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
+
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity; compiles nothing in this slice.
 

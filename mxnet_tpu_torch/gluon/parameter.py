@@ -71,11 +71,13 @@ class Parameter:
     def grad_req(self, req):
         if req not in ("write", "add", "null"):
             raise ValueError(f"grad_req must be write/add/null, got {req}")
-        self._grad_req = req
+        prev, self._grad_req = self._grad_req, req
         if self._data is not None:
             self._data.requires_grad_(req != "null")
             if req == "null":
                 self._data.grad = None
+            elif prev == "null":
+                self._adopt(self._data)   # the write hook needs the grad
 
     @property
     def shape(self):
@@ -148,7 +150,8 @@ class Parameter:
             if owner is not None and owner._grad_req == "write":
                 p.grad = None
             return grad
-        p.register_hook(write_hook)
+        if p.requires_grad:             # grad_req "null" takes no hook
+            p.register_hook(write_hook)
         self._data = p
         for block_ref, attr in self._owners:
             block = block_ref()
@@ -183,6 +186,24 @@ class Parameter:
         if d.grad is None:
             d.grad = torch.zeros_like(d)
         return d.grad
+
+    def cast(self, dtype):
+        """Cast the data (and a fresh zero gradient) to ``dtype`` (a name
+        of ``float32``, ``float16``, ``bfloat16``, ``float64`` or a torch
+        dtype); a parameter without data yet is made in ``dtype``."""
+        if isinstance(dtype, torch.dtype):
+            dtype = next(n for n, t in _DTYPES.items() if t == dtype)
+        if dtype not in _DTYPES:
+            raise ValueError(f"cannot cast Parameter '{self.name}' to "
+                             f"{dtype!r}")
+        self.dtype = dtype
+        if self._data is None:
+            return
+        p = torch.nn.Parameter(self._data.detach().to(_DTYPES[dtype]),
+                               requires_grad=self._grad_req != "null")
+        if self._grad_req != "null":
+            p.grad = torch.zeros_like(p)
+        self._adopt(p)
 
     def set_data(self, data):
         """Copy ``data`` into the parameter (kept for the deferred init

@@ -1,6 +1,6 @@
 """Gluon ``Trainer`` of the port (mirrors ``mxnet_tpu/gluon/trainer.py``),
-for one device: ``step(batch_size)`` sets ``rescale_grad = scale /
-batch_size`` and applies the optimizer to every parameter with a
+for one device: ``step(batch_size, ignore_stale_grad=False)`` sets
+``rescale_grad = scale / batch_size`` and applies the optimizer to every parameter with a
 gradient, in index order (parameters sorted by name). One device: no
 kvstore, fused updater or fault hooks in this slice.
 
@@ -51,9 +51,15 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
-    def step(self, batch_size):
+    def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer update of every parameter, gradients rescaled by
-        ``1 / batch_size``."""
+        ``1 / batch_size``. ``ignore_stale_grad=True`` (skip parameters
+        whose gradient no backward refreshed) is not ported yet
+        (ROADMAP.md §1 item 13) and raises."""
+        if ignore_stale_grad:
+            raise NotImplementedError(
+                "Trainer.step(ignore_stale_grad=True) is not ported yet "
+                "(ROADMAP.md §1 item 13, training path)")
         optim = self._optimizer
         optim.rescale_grad = self._scale / batch_size
         for i, param in enumerate(self._params):

@@ -63,6 +63,14 @@ SOURCES = {
         "mxt_flash_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
         "mxt_flash_dq_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
+    # the same three kernels on 16-bit q/k/v/dout (bf16 and f16)
+    "flash_attention_lp": {
+        f"mxt_flash_{kernel}_{dt}": args
+        for dt in ("bf16", "f16")
+        for kernel, args in (("fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),
+                             ("dkv", [_P] * 10 + [_I] * 6 + [_F, _P]),
+                             ("dq", [_P] * 8 + [_I] * 6 + [_F, _P]))
+    },
 }
 
 _lock = threading.Lock()

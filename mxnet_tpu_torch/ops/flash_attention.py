@@ -11,14 +11,25 @@ twins, and the attention op (mirrors ``mxnet_tpu/ops/flash_attention.py``).
   (:func:`flash_bwd_dq_reference`), so that each kernel has its own twin.
 - :func:`flash_forward`, :func:`flash_bwd_dkv`, :func:`flash_bwd_dq` — the
   kernel wrappers. A CPU tensor takes the twin; a CUDA tensor launches
-  ``csrc/flash_attention.cu`` (``flash_fwd``, the port of ``_fwd_kernel``;
-  ``flash_bwd_dkv`` and ``flash_bwd_dq``, the ports of ``_dkv_kernel`` and
-  ``_dq_kernel``) or raises. Each launch counts under that name in
-  :func:`mxnet_tpu_torch.kernels.launch_counts`.
+  ``csrc/flash_attention.cu`` for f32 (``flash_fwd``, the port of
+  ``_fwd_kernel``; ``flash_bwd_dkv`` and ``flash_bwd_dq``, the ports of
+  ``_dkv_kernel`` and ``_dq_kernel``) or ``csrc/flash_attention_lp.cu``
+  for bf16 and f16, or raises. Each launch counts in
+  :func:`mxnet_tpu_torch.kernels.launch_counts` under
+  :func:`kernel_name`: the f32 kernels under those names, the 16-bit ones
+  as ``flash_fwd.bf16``, ``flash_bwd_dkv.f16`` and so on.
 - :func:`flash_attention` — the ``custom_vjp`` pair as one
   ``torch.autograd.Function``; :func:`scaled_dot_product_attention` — the
   op (``flash=False`` is :func:`attention_reference`), registered as
   ``nd.scaled_dot_product_attention``.
+
+16-bit inputs (bf16 or f16 q, k, v and dout, all of one dtype) follow
+the TPU kernels' native-rate path: scores, softmax statistics and every
+accumulator in f32; P rounded to V's dtype before ``P V``, P^T and dS^T
+to q's dtype before dV and dK, dS to k's dtype before dQ; out, dq, dk
+and dv in the input dtype; lse, delta and the per-head bias gradient in
+f32. The bias may be f32 or the 16-bit type (AMP casts the mask too);
+the wrappers widen it to f32 once, which is exact.
 
 Semantics kept from the JAX flash path: the causal mask compares absolute
 query and key positions (``row >= col``, also when ``Tq != Tk``); masked
@@ -41,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .invoke import amp_cast
 from .registry import register
 
 __all__ = ["attention_reference", "flash_forward_reference",
@@ -48,12 +60,24 @@ __all__ = ["attention_reference", "flash_forward_reference",
            "flash_bwd_dq_reference", "flash_forward", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_backward", "flash_attention",
            "scaled_dot_product_attention", "kernel_head_dim",
-           "KERNEL_NAMES"]
+           "kernel_name", "KERNEL_NAMES"]
 
 _NEG_INF = -1e30
-# launch-counter names of the three kernels (forward, dK/dV, dQ)
+# launch-counter names of the three f32 kernels (forward, dK/dV, dQ)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+# the dtypes the kernels take: (entry-point suffix, library)
+_ROUTES = {torch.float32: ("f32", "flash_attention"),
+           torch.bfloat16: ("bf16", "flash_attention_lp"),
+           torch.float16: ("f16", "flash_attention_lp")}
+
+
+def kernel_name(base, dtype):
+    """The launch-counter name of kernel ``base`` (one of
+    :data:`KERNEL_NAMES`) on ``dtype`` inputs: ``base`` for f32,
+    ``base + ".bf16"`` or ``".f16"`` for the 16-bit kernels."""
+    tag = _ROUTES[dtype][0]
+    return base if tag == "f32" else f"{base}.{tag}"
 
 
 def attention_reference(q, k, v, bias=None, causal=False, scale=None):
@@ -86,6 +110,19 @@ def _wide(x):
     return x if x.dtype == torch.float64 else x.float()
 
 
+def _lowp(x):
+    """The 16-bit type the TPU kernels round P and dS to for ``x``'s
+    dtype (bf16 or f16), else None: f32 and f64 round nothing."""
+    return x.dtype if x.dtype in (torch.bfloat16, torch.float16) else None
+
+
+def _round(x, dtype):
+    """``x`` rounded to ``dtype`` and widened back to f32, as a product
+    operand the TPU kernels cast with ``astype``; ``x`` itself where
+    ``dtype`` is None."""
+    return x if dtype is None else x.to(dtype).float()
+
+
 def _scores(q, k, bias, scale):
     """``q k^T * scale + bias`` in f32 (f64 for f64 q), (B, H, Tq, Tk)."""
     s = torch.einsum("bhqd,bhkd->bhqk", _wide(q), _wide(k)) * scale
@@ -112,7 +149,8 @@ def flash_forward_reference(q, k, v, bias, causal, scale):
     m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, _wide(v)) / l_safe
+    out = torch.einsum("bhqk,bhkd->bhqd", _round(p, _lowp(v)),
+                       _wide(v)) / l_safe
     lse = (m + torch.log(l_safe)).reshape(B * H, Tq)
     return out.to(q.dtype), lse
 
@@ -138,12 +176,13 @@ def _dscores(q, k, v, bias, dout, lse, delta, causal, scale):
 def flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta, causal,
                             scale, want_dbias=False):
     """Plain twin of the dK/dV kernel: ``(dk, dv, dbias)`` with ``dbias``
-    per head, ``(B*H, Tk)`` f32 (f64 for f64 inputs), or None unless
-    ``want_dbias``."""
+    per head, ``(B*H, Tk)`` f32 (f64 for f64 inputs) from the unrounded
+    dS, or None unless ``want_dbias``."""
     B, H, _, _ = q.shape
+    lp = _lowp(q)
     p, ds = _dscores(q, k, v, bias, dout, lse, delta, causal, scale)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, _wide(dout))
-    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q))
+    dv = torch.einsum("bhqk,bhqd->bhkd", _round(p, lp), _wide(dout))
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", _round(ds, lp), _wide(q))
     dbias = ds.sum(dim=2).reshape(B * H, -1) if want_dbias else None
     return dk.to(k.dtype), dv.to(v.dtype), dbias
 
@@ -151,8 +190,8 @@ def flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta, causal,
 def flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta, causal, scale):
     """Plain twin of the dQ kernel."""
     _, ds = _dscores(q, k, v, bias, dout, lse, delta, causal, scale)
-    return (scale * torch.einsum("bhqk,bhkd->bhqd", ds, _wide(k))).to(
-        q.dtype)
+    return (scale * torch.einsum("bhqk,bhkd->bhqd", _round(ds, _lowp(k)),
+                                 _wide(k))).to(q.dtype)
 
 
 def _delta(out, dout):
@@ -189,7 +228,10 @@ def flash_backward_reference(q, k, v, bias, out, lse, dout, causal, scale,
 # ---------------------------------------------------------------- kernels --
 
 def _check_cuda(q, k, v, bias, dout=None, lse=None, delta=None):
-    """Validate what the kernels take; returns (B, H, Tq, Tk, D)."""
+    """Validate what the kernels take: q, k, v (and dout) of one dtype
+    the kernels have (f32, bf16, f16), a bias of f32 or that dtype, f32
+    lse and delta. Returns ``(B, H, Tq, Tk, D, bias as f32, entry-point
+    suffix, library)``."""
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for {q.device}")
     B, H, Tq, D = q.shape
@@ -197,17 +239,22 @@ def _check_cuda(q, k, v, bias, dout=None, lse=None, delta=None):
     if not 1 <= D <= _HEAD_DIMS[-1]:
         raise ValueError(f"flash attention kernels take head_dim 1 to "
                          f"{_HEAD_DIMS[-1]}, got {D}")
+    dt = q.dtype
+    if dt not in _ROUTES:
+        raise TypeError(f"flash attention kernels take float32, bfloat16 "
+                        f"or float16 q, got {dt}")
     dev, f32, req = q.device, torch.float32, kernels.require
-    req(q, "q", f32, (B, H, Tq, D), dev)
-    req(k, "k", f32, (B, H, Tk, D), dev)
-    req(v, "v", f32, (B, H, Tk, D), dev)
+    req(q, "q", dt, (B, H, Tq, D), dev)
+    req(k, "k", dt, (B, H, Tk, D), dev)
+    req(v, "v", dt, (B, H, Tk, D), dev)
     if bias is not None:
-        req(bias, "bias", f32, (B, Tk), dev)
+        req(bias, "bias", dt if bias.dtype == dt else f32, (B, Tk), dev)
+        bias = bias.float()
     if dout is not None:
-        req(dout, "dout", f32, (B, H, Tq, D), dev)
+        req(dout, "dout", dt, (B, H, Tq, D), dev)
         req(lse, "lse", f32, (B * H, Tq), dev)
         req(delta, "delta", f32, (B * H, Tq), dev)
-    return B, H, Tq, Tk, D
+    return (B, H, Tq, Tk, D, bias) + _ROUTES[dt]
 
 
 def _ptr(t):
@@ -233,25 +280,25 @@ def _unpad(x, D):
 
 def flash_forward(q, k, v, bias, causal, scale):
     """Forward kernel wrapper: ``(out, lse (B*H, Tq))``. CPU tensors take
-    the plain twin; CUDA tensors (f32, contiguous) launch ``flash_fwd``
-    or raise."""
+    the plain twin; CUDA tensors (f32, bf16 or f16, contiguous) launch
+    the forward kernel of their dtype or raise."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, bias, causal, scale)
-    B, H, Tq, Tk, D = _check_cuda(q, k, v, bias)
+    B, H, Tq, Tk, D, bias, tag, libname = _check_cuda(q, k, v, bias)
     Dp = kernel_head_dim(D)
     q, k, v = (_pad(t, Dp) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     if B * H * Tq == 0:
         return _unpad(out, D), lse
-    lib = kernels.library("flash_attention")
-    rc = lib.mxt_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               _ptr(bias), out.data_ptr(), lse.data_ptr(),
-                               B * H, H, Tq, Tk, Dp, int(bool(causal)),
-                               scale, kernels.stream_handle(q.device))
-    kernels.check(rc, "mxt_flash_fwd_f32")
-    kernels.count_launch("flash_fwd")
+    entry = f"mxt_flash_fwd_{tag}"
+    rc = getattr(kernels.library(libname), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+        out.data_ptr(), lse.data_ptr(), B * H, H, Tq, Tk, Dp,
+        int(bool(causal)), scale, kernels.stream_handle(q.device))
+    kernels.check(rc, entry)
+    kernels.count_launch(kernel_name("flash_fwd", q.dtype))
     return _unpad(out, D), lse
 
 
@@ -265,7 +312,8 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
                                        causal, scale, want_dbias)
     if want_dbias and bias is None:
         raise ValueError("want_dbias needs a bias")
-    B, H, Tq, Tk, D = _check_cuda(q, k, v, bias, dout, lse, delta)
+    B, H, Tq, Tk, D, bias, tag, libname = _check_cuda(q, k, v, bias, dout,
+                                                      lse, delta)
     Dp = kernel_head_dim(D)
     q, k, v, dout = (_pad(t, Dp) for t in (q, k, v, dout))
     dk = torch.empty_like(k)
@@ -274,14 +322,14 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
                          device=q.device) if want_dbias else None)
     if B * H * Tk == 0:
         return _unpad(dk, D), _unpad(dv, D), dbias
-    lib = kernels.library("flash_attention")
-    rc = lib.mxt_flash_dkv_f32(
+    entry = f"mxt_flash_dkv_{tag}"
+    rc = getattr(kernels.library(libname), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dk.data_ptr(),
         dv.data_ptr(), _ptr(dbias), B * H, H, Tq, Tk, Dp,
         int(bool(causal)), scale, kernels.stream_handle(q.device))
-    kernels.check(rc, "mxt_flash_dkv_f32")
-    kernels.count_launch("flash_bwd_dkv")
+    kernels.check(rc, entry)
+    kernels.count_launch(kernel_name("flash_bwd_dkv", q.dtype))
     return _unpad(dk, D), _unpad(dv, D), dbias
 
 
@@ -291,20 +339,21 @@ def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta,
                                       causal, scale)
-    B, H, Tq, Tk, D = _check_cuda(q, k, v, bias, dout, lse, delta)
+    B, H, Tq, Tk, D, bias, tag, libname = _check_cuda(q, k, v, bias, dout,
+                                                      lse, delta)
     Dp = kernel_head_dim(D)
     q, k, v, dout = (_pad(t, Dp) for t in (q, k, v, dout))
     dq = torch.empty_like(q)
     if B * H * Tq == 0:
         return _unpad(dq, D)
-    lib = kernels.library("flash_attention")
-    rc = lib.mxt_flash_dq_f32(
+    entry = f"mxt_flash_dq_{tag}"
+    rc = getattr(kernels.library(libname), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(bias), dq.data_ptr(),
         B * H, H, Tq, Tk, Dp, int(bool(causal)), scale,
         kernels.stream_handle(q.device))
-    kernels.check(rc, "mxt_flash_dq_f32")
-    kernels.count_launch("flash_bwd_dq")
+    kernels.check(rc, entry)
+    kernels.count_launch(kernel_name("flash_bwd_dq", q.dtype))
     return _unpad(dq, D)
 
 
@@ -350,11 +399,13 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None):
 
 
 @register("scaled_dot_product_attention")
+@amp_cast("scaled_dot_product_attention")
 def scaled_dot_product_attention(q, k, v, bias=None, *, causal=False,
                                  scale=None, flash=True):
     """The attention op: the flash kernels (their plain twins on the
     CPU), or with ``flash=False`` :func:`attention_reference`. Inputs
-    (B, H, T, D)."""
+    (B, H, T, D); under AMP q, k, v and the bias run in the target
+    dtype."""
     if not flash:
         return attention_reference(q, k, v, bias, causal, scale)
     return flash_attention(q, k, v, bias=bias, causal=causal, scale=scale)

@@ -8,14 +8,25 @@ on the autograd tape; ``out=`` copies the results into the given
 tensors, untaped. Autograd itself is torch's (recording is
 :mod:`mxnet_tpu_torch.autograd`'s scopes).
 
-Not ported yet (ROADMAP.md, framework core): the AMP input casts (the
-port has no AMP), in-place ``mutates`` ops, ``host_op`` rerouting, random
-keys (``needs_rng``), the training flag (``needs_train``), list inputs
-(``variadic``) and sparse Embedding gradients. An op that asks for one of
-them raises ``NotImplementedError``.
+Under :func:`mxnet_tpu_torch.amp.init` the chokepoint casts each
+op's tensor inputs by its name (:func:`_amp_cast_inputs`, the
+reference's rule): an op in the low-precision list gets its f32 inputs
+in the target dtype, one in the f32 list its target-dtype inputs in
+f32; anything else passes through. Gluon layers call the functions of
+:mod:`.nn` (and the attention op) directly, not through
+:func:`apply_op`, so those functions apply the same cast under their
+registered names (:func:`amp_cast`). The cast is ``Tensor.to``, which
+autograd differentiates: f32 master weights get f32 gradients.
+
+Not ported yet (ROADMAP.md, framework core): in-place ``mutates`` ops,
+``host_op`` rerouting, random keys (``needs_rng``), the training flag
+(``needs_train``), list inputs (``variadic``) and sparse Embedding
+gradients. An op that asks for one of them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -23,7 +34,41 @@ import torch
 from .. import autograd
 from .registry import Operator, get as get_op
 
-__all__ = ["apply_op"]
+__all__ = ["apply_op", "amp_cast"]
+
+# AMP state, set by mxnet_tpu_torch.amp.init / uninit (the reference's
+# mxnet_tpu/ops/invoke.py _AMP): the target dtype and the op-name lists
+_AMP = {"active": False, "dtype": None, "lp_ops": frozenset(),
+        "f32_ops": frozenset()}
+
+
+def _amp_cast_inputs(op_name, inputs):
+    """``inputs`` with each float32 or target-dtype tensor cast to the
+    dtype op ``op_name`` runs in under AMP (the target for a
+    low-precision op, f32 for an f32 op); other inputs, and every input
+    of an op in neither list, pass through."""
+    if op_name in _AMP["lp_ops"]:
+        target = _AMP["dtype"]
+    elif op_name in _AMP["f32_ops"]:
+        target = torch.float32
+    else:
+        return inputs
+    return [x.to(target) if isinstance(x, torch.Tensor)
+            and x.dtype in (torch.float32, _AMP["dtype"]) else x
+            for x in inputs]
+
+
+def amp_cast(op_name):
+    """Decorator: the function's positional tensor inputs take the AMP
+    cast of op ``op_name`` while AMP is on (a no-op otherwise)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            if _AMP["active"]:
+                args = _amp_cast_inputs(op_name, args)
+            return fn(*args, **kwargs)
+        return wrapped
+    return deco
 
 
 def _unported(op, what):
@@ -38,6 +83,8 @@ def apply_op(op, inputs: Sequence, params: Optional[dict] = None,
     if not isinstance(op, Operator):
         op = get_op(op)
     params = dict(params) if params else {}
+    if _AMP["active"]:
+        inputs = _amp_cast_inputs(op.name, inputs)
     if op.mutates:
         _unported(op, "in-place updates of its inputs (mutates)")
     if op.host_op:

@@ -19,7 +19,11 @@ drop only lo*lo, ~2^-22 of each product), also against the twins
 evaluated in float64; ``FLASH_GRAD_TOL = 1e-4`` for the
 autograd Function against autograd through ``attention_reference``
 (the reference differentiates softmax itself instead of working from
-the saved logsumexp, which reorders more sums). The chunk and decode
+the saved logsumexp, which reorders more sums); ``FLASH_LP_TOL`` (bf16
+``2e-2``, f16 ``5e-3`` of each result's magnitude) for the bf16 and f16
+flash kernels against their twins (both round P, dS and the outputs to
+the input dtype from f32 sums taken in another order: one ulp, 2^-8 or
+2^-11 relative, where a value sits on a rounding boundary). The chunk and decode
 paged attention kernels take ``ATT_TOL`` too; the user kernels of
 ``chip_smoke.RTC_SOURCES`` registered through ``rtc`` take ``RTC_TOL =
 1e-5`` of the output's magnitude (``2x + y`` fused into one FMA, a row
@@ -48,6 +52,7 @@ ATT_TOL = 2e-5
 WQ_TOL = 1e-5
 FLASH_TOL = 2e-5
 FLASH_GRAD_TOL = 1e-4
+FLASH_LP_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3}
 RTC_TOL = 1e-5
 BS = 16
 
@@ -337,6 +342,145 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_forward(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v, bias, False, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["none", "padding", "causal"])
+@pytest.mark.parametrize("D", [16, 33, 64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_flash_16bit_kernels_match_twins(cuda, dtype, D, mask):
+    """The bf16 and f16 forward, dK/dV and dQ kernels against their twins
+    (which round P and dS where the TPU kernels do) over head dims that
+    hit every instantiation (33 and 192 zero-padded), ragged tiles (Tq
+    100, Tk 130) and each mask; two launches give the same bits, and
+    each launch counts under its dtype's name."""
+    causal, padding = mask == "causal", mask == "padding"
+    B, H, Tq, Tk = 2, 3, 100, 100 if causal else 130
+    q, k, v, bias, dout = _flash_inputs(cuda, B, H, Tq, Tk, D, padding,
+                                        seed=D)
+    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    scale = D ** -0.5
+    before = kernels.launch_counts()
+    out, lse = tfa.flash_forward(q, k, v, bias, causal, scale)
+    again = tfa.flash_forward(q, k, v, bias, causal, scale)
+    ref_out, ref_lse = tfa.flash_forward_reference(q, k, v, bias, causal,
+                                                   scale)
+    torch.cuda.synchronize()
+    tol = FLASH_LP_TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert _rel(out.float(), ref_out.float()) < tol
+    assert _rel(lse, ref_lse) < FLASH_TOL
+    delta = (dout.float() * ref_out.float()).sum(-1).reshape(B * H, Tq)
+    args = (q, k, v, bias, dout, ref_lse, delta, causal, scale)
+    got = _flash_backward(args, padding)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, _flash_backward(args, padding)))
+    dk, dv, db = tfa.flash_bwd_dkv_reference(*args, want_dbias=padding)
+    want = (dk, dv, db, tfa.flash_bwd_dq_reference(*args))
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype
+            assert _rel(g.float(), w.float()) < tol
+    after = kernels.launch_counts()
+    for name in tfa.KERNEL_NAMES:
+        lp = tfa.kernel_name(name, dtype)
+        assert after[lp] == before.get(lp, 0) + 2
+        assert after.get(name, 0) == before.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_dtypes_without_a_kernel(cuda):
+    """No quiet upcast: a CUDA tensor in a dtype without a kernel (f64),
+    or q, k, v, dout of mixed dtypes, or a bias in another 16-bit type,
+    raises, and nothing launches."""
+    q, k, v, bias, dout = _flash_inputs(cuda, 1, 2, 8, 8, 64, True)
+    bf = [t.bfloat16() for t in (q, k, v, dout)]
+    lse = torch.zeros(2, 8, device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        tfa.flash_forward(q.double(), k.double(), v.double(), None, False,
+                          None)
+    with pytest.raises(TypeError):
+        tfa.flash_forward(bf[0], k, v, None, False, None)
+    with pytest.raises(TypeError):
+        tfa.flash_forward(bf[0], bf[1], v.half(), None, False, None)
+    with pytest.raises(TypeError):
+        tfa.flash_forward(*bf[:3], bias.half(), False, None)
+    with pytest.raises(TypeError):
+        tfa.flash_bwd_dq(*bf[:3], None, dout, lse, lse, False, None)
+    with pytest.raises(TypeError):
+        tfa.flash_bwd_dkv(*bf[:3], None, bf[3], lse.bfloat16(), lse, False,
+                          None)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.double(), k.double(), v.double())
+    assert kernels.launch_counts() == before
+    # the 16-bit bias AMP passes is taken (widened once, exactly)
+    out, _ = tfa.flash_forward(*bf[:3], bias.bfloat16(), False, None)
+    ref, _ = tfa.flash_forward(*bf[:3], bias.bfloat16().float(), False,
+                               None)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_small_bert_under_amp_matches_its_plain_path(cuda):
+    """A 2-layer BERT (units 64, 4 heads, T 128) under ``amp.init()``:
+    one step through the bf16 flash kernels against the op's plain path
+    under AMP, on the flash path's ReLU gates (a gate at a bf16 tie may
+    flip between the paths): the loss within 1e-3, every gradient within
+    chip_smoke's ``AMP_GRAD_REL_TOL`` (norm-relative); each bf16 kernel
+    launched once a layer. The key projections' biases are left out:
+    their gradient is zero in exact arithmetic (softmax does not move
+    when a constant is added to a query's every score), so both paths
+    give rounding noise."""
+    from mxnet_tpu_torch import amp, gluon
+    from mxnet_tpu_torch.initializer import Xavier
+    cfg = dict(vocab_size=30522, units=64, hidden_size=128, num_layers=2,
+               num_heads=4, max_length=128)
+    rng = np.random.RandomState(0)
+    data = [(x.int(), y, w, vl) for x, y, w, vl in chip_smoke.bert_batches(
+        torch, rng, 1, cfg["vocab_size"], 4, 128, cuda)]
+    net = chip_smoke.make_bert_mlm(0.0, **cfg)
+    net.initialize(Xavier(), device=cuda,
+                   generator=torch.Generator().manual_seed(0))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    gate = {}
+
+    def hook(mod, inputs, out):
+        if "g" not in gate:
+            gate["g"] = inputs[0] > 0
+            return None
+        return inputs[0] * gate["g"].to(inputs[0].dtype)
+    handle = net.transform.act.register_forward_hook(hook)
+    amp.init()
+    try:
+        res = {}
+        for flash in (True, False):
+            chip_smoke.set_flash(net, flash)
+            before = kernels.launch_counts()
+            with ag.record():
+                loss = chip_smoke.mlm_loss(net, loss_fn, data[0],
+                                           cfg["vocab_size"])
+            loss.backward()
+            after = kernels.launch_counts()
+            for name in tfa.KERNEL_NAMES:
+                lp = tfa.kernel_name(name, torch.bfloat16)
+                assert after.get(lp, 0) - before.get(lp, 0) == (
+                    2 if flash else 0)
+            res[flash] = (float(loss.detach()), {
+                n: p.grad().clone() for n, p in
+                net.collect_params().items()})
+    finally:
+        amp.uninit()
+        handle.remove()
+    assert abs(res[True][0] - res[False][0]) <= 1e-3 * abs(res[False][0])
+    for name, g in res[False][1].items():
+        assert res[True][1][name].dtype == torch.float32
+        if not name.endswith("attn_key_bias"):
+            assert chip_smoke.norm_rel(res[True][1][name], g) <= \
+                chip_smoke.AMP_GRAD_REL_TOL, name
 
 
 def _paged_inputs(dev, chunk, H=4, D=64, n_blocks=40):

@@ -10,6 +10,12 @@ Tolerances, each with its reason:
 - ``GRAD_TOL = 2e-5`` — dq/dk/dv/dbias: sums over up to 40 queries or keys
   of O(1) products in another order (JAX's own kernel-vs-reference test
   allows 1e-4).
+- ``LP_TOL`` — bf16 ``2e-2``, f16 ``5e-3``, relative to the largest
+  magnitude of each result: the 16-bit twins against JAX's kernels on
+  16-bit inputs. Both round P, P^T, dS^T and the outputs to the input
+  dtype from f32 sums taken in another order, so a value on a rounding
+  boundary lands one ulp apart (bf16: 2^-8 relative, f16: 2^-11), and
+  delta carries that into dS. lse stays f32 (``OUT_TOL``).
 """
 import os
 import sys
@@ -31,6 +37,7 @@ torch.set_num_threads(2)
 
 OUT_TOL = 1e-5
 GRAD_TOL = 2e-5
+LP_TOL = {"bfloat16": 2e-2, "float16": 5e-3}
 B, H, D = 2, 2, 16
 
 
@@ -183,3 +190,100 @@ def test_backward_twin_splits_into_the_kernels_twins():
     assert tfa.flash_backward(tq, tk, tv, tb, out, lse, tg, True, None,
                               want_dbias=False)[3] is None
     assert kernels.launch_counts() == before
+
+
+def _lp_rel(got, want):
+    """max |got - want| over max(1, max |want|), both widened to f32."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max()) / max(1.0,
+                                                  float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d,tq,tk,with_bias,causal", [
+    (64, 16, 16, False, False),
+    (64, 20, 36, True, False),   # Tq != Tk, padding bias
+    (64, 13, 13, False, True),   # causal, not a multiple of 8
+    (64, 20, 36, True, True),
+    (256, 12, 20, True, False),
+    (256, 12, 20, False, True),
+])
+def test_flash_16bit_twins_match_jax_flash(dtype, d, tq, tk, with_bias,
+                                           causal):
+    """bf16 and f16 q, k, v, dout (and a bias in the same dtype, as AMP
+    casts the mask): the port's op (its kernels' twins) against JAX's
+    flash kernels in interpret mode on the same 16-bit inputs. out, dq,
+    dk, dv and dbias come back in the input dtype, lse in f32; the
+    twins round P and dS where the TPU kernels do."""
+    q, k, v, g, bias = _case(d * 7 + tq + int(causal), tq, tk, with_bias,
+                             d=d)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jargs = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    if bias is not None:
+        jargs.append(jnp.asarray(bias, jdt))
+
+    def f(*a):
+        return jfa.flash_attention(*a[:3], bias=a[3] if len(a) > 3 else None,
+                                   causal=causal)
+    j_out, vjp = jax.vjp(f, *jargs)
+    j_grads = vjp(jnp.asarray(g, jdt))
+    _, j_lse = jfa._flash_forward(
+        *jargs[:3], jargs[3] if bias is not None else None, causal, None,
+        min(jfa.DEFAULT_BLOCK_Q, max(tq, 8)),
+        min(jfa.DEFAULT_BLOCK_K, max(tk, 8)), True, want_lse=True)
+
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    tb = (None if bias is None
+          else torch.from_numpy(bias).to(tdt).requires_grad_())
+    t_out = tfa.scaled_dot_product_attention(*ts, tb, causal=causal)
+    t_out.backward(torch.from_numpy(g).to(tdt))
+    _, t_lse = tfa.flash_forward(*(t.detach() for t in ts),
+                                 None if tb is None else tb.detach(),
+                                 causal, None)
+    t_grads = [t.grad for t in ts] + ([] if tb is None else [tb.grad])
+    assert t_out.dtype == tdt and t_lse.dtype == torch.float32
+    assert all(t.dtype == tdt for t in t_grads)
+    tol = LP_TOL[dtype]
+    assert _lp_rel(t_out.detach().float(), j_out.astype(jnp.float32)) \
+        < tol, "out"
+    _close(t_lse.numpy(), np.asarray(j_lse)[:, :tq, 0], OUT_TOL, "lse")
+    assert len(t_grads) == len(j_grads)
+    for a, b, name in zip(t_grads, j_grads, ["dq", "dk", "dv", "dbias"]):
+        assert _lp_rel(a.float(), b.astype(jnp.float32)) < tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16bit_twins_round_p_and_ds_where_the_kernels_do(dtype):
+    """The 16-bit twins equal an f32 computation whose P, P^T and dS are
+    rounded to the input dtype at the product (and only there), and
+    differ from the unrounded one; f32 inputs round nothing."""
+    q, k, v, g, bias = _case(5, 20, 36, True, d=64)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
+    tb = torch.from_numpy(bias)
+    scale = 0.125
+    out, lse = tfa.flash_forward_reference(tq, tk, tv, tb, False, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", tq.float(), tk.float()) * scale \
+        + tb[:, None, None, :]
+    p = torch.exp(s - lse.reshape(B, H, 20, 1))
+    lp = lambda x: x.to(dtype).float()     # noqa: E731
+    m = s.amax(-1, keepdim=True)
+    pe = torch.exp(s - m)
+    want = (torch.einsum("bhqk,bhkd->bhqd", lp(pe), tv.float())
+            / pe.sum(-1, keepdim=True)).to(dtype)
+    assert torch.equal(out, want)
+    unrounded = (torch.einsum("bhqk,bhkd->bhqd", pe, tv.float())
+                 / pe.sum(-1, keepdim=True)).to(dtype)
+    assert not torch.equal(out, unrounded)
+    delta = (tg.float() * out.float()).sum(-1).reshape(B * H, 20)
+    dk, dv, _ = tfa.flash_bwd_dkv_reference(tq, tk, tv, tb, tg, lse, delta,
+                                            False, scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", tg.float(), tv.float())
+    ds = p * (dp - delta.reshape(B, H, 20, 1))
+    assert torch.equal(dv, torch.einsum("bhqk,bhqd->bhkd", lp(p),
+                                        tg.float()).to(dtype))
+    assert torch.equal(dk, (scale * torch.einsum(
+        "bhqk,bhqd->bhkd", lp(ds), tq.float())).to(dtype))
+    dq = tfa.flash_bwd_dq_reference(tq, tk, tv, tb, tg, lse, delta, False,
+                                    scale)
+    assert torch.equal(dq, (scale * torch.einsum(
+        "bhqk,bhkd->bhqd", lp(ds), tk.float())).to(dtype))

@@ -164,7 +164,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.ops.flash_attention, "
             "mxnet_tpu_torch.ops.registry, mxnet_tpu_torch.ops.invoke, "
             "mxnet_tpu_torch.ndarray, mxnet_tpu_torch.ndarray.register, "
-            "mxnet_tpu_torch.rtc, chip_smoke; "
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.amp, "
+            "mxnet_tpu_torch.amp.loss_scaler, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.') or m == 'ml_dtypes']; "
