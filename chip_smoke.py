@@ -28,7 +28,11 @@ Phases, one line of output each (or more), in order:
    (flat, chunk, decode: one staged kernel) carries its launch plan,
    shared bytes per CTA and ptxas's registers (a spill at D=64 fails the
    run); the flat and decode kernels and the D=256 flash kernels give
-   the same bits on two launches;
+   the same bits on two launches; then the flat (T=8, 128), chunk and
+   decode kernels over bf16 and f16 pages (``csrc/ragged_flat_lp.cu``)
+   at the same shapes against their twins on the same 16-bit pages,
+   bound at 2-byte pages, and the chunk (Q=16) and decode (S=8) kernels
+   once more with q in the pages' dtype (one ulp of it);
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -37,7 +41,12 @@ Phases, one line of output each (or more), in order:
    mixed packed ``decode_flat`` batch against the dense ``forward``;
 5. main path quantized — the same server with int8 KV + int8 weights,
    then fp8 KV + fp8 weights, on a few requests; logits held against the
-   port's plain path (the same step on the CPU);
+   port's plain path (the same step on the CPU); then over 16-bit pools:
+   ``dtype="bfloat16"`` with the f32 phase's traffic, ``dtype="float16"``
+   on 3 requests, every greedy stream held token by token against the
+   port's plain step on the CPU over pools of the same dtype
+   (``check_greedy_plain``) and a mixed packed step against the same
+   step on the CPU;
    every serving phase (and the default config's, below) serves through
    CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
    seconds and the graph pool's bytes are printed), and the phase checks
@@ -56,12 +65,15 @@ Phases, one line of output each (or more), in order:
    kernel launches per step, no kernel build after the first step; then
    the same decode with each step replayed from a CUDA graph captured at
    its first step (the same streams, ms per step beside the eager
-   figure); then the reference's default ``DecoderConfig()`` (head dim
+   figure), and again from graphs over bf16 pools (the bf16 chunk
+   kernel; streams against the plain step over bf16 pools); then the
+   reference's default ``DecoderConfig()`` (head dim
    16) served through ``LLMServer(..., dtype="float32")``, streams
    against the oracle and one step against the same step on the CPU;
 7. op front end — ``nd.ragged_paged_attention`` on the decode phase's
    pools with a 3-D q (the decode kernel) and a 4-D q (the chunk
-   kernel), ``nd.scaled_dot_product_attention``, and three user CUDA
+   kernel), and on the same pools and q in bf16 and in f16 (the 16-bit
+   kernels), ``nd.scaled_dot_product_attention``, and three user CUDA
    kernels registered through ``rtc.register_cuda_op`` (``scale_add``,
    ``square`` with its gradient, ``rowsum`` with its own output shape)
    at 8192 x 8192 f32, each against its plain version;
@@ -89,7 +101,8 @@ Phases, one line of output each (or more), in order:
    each step's scale and whether it was skipped;
 9. one JSON line listing every kernel: launches on the main paths,
    counted through graph replays (the flash kernels': the 10 training
-   steps and the op phase's call), max
+   steps and the op phase's call; the 16-bit paged kernels': the bf16
+   and f16 serving, the bf16 paged decode and the op phase), max
    error, times, bound (the quantized matmul's and the flash kernels'
    operations on the TF32 tensor cores, 2 and 3 passes for f32
    accuracy; the 16-bit flash kernels' at the dense bf16/f16 rate, one
@@ -137,6 +150,13 @@ WQ_REL_TOL = 1e-5
 # f32 logits of the kernel path vs the plain dense forward after 12
 # layers: sums reordered in every matmul and in attention
 F32_LOGIT_TOL = 2e-3
+# 16-bit KV (bf16, f16 pools): the kernel path's logits vs the port's
+# plain step on the CPU over pools of the same dtype. Both round their own
+# f32 K/V to 16 bits, and those differ in the last f32 bits (matmuls
+# summed in another order), so a value on a rounding boundary lands one
+# 16-bit ulp apart (2^-8 relative in bf16, 2^-11 in f16) and carries
+# through 12 layers: the int8 tolerance for bf16, an eighth of it for f16
+LP_LOGIT_TOL = {"bfloat16": 0.05, "float16": 0.05 / 8}
 # quantized kernel path vs the same quantized step's plain version: the
 # tolerance table of tests/test_kv_quant.py / tests/test_weight_quant.py
 # (int8 0.05; fp8 KV 0.15 and fp8 weights 0.25, so 0.25 with both)
@@ -334,7 +354,8 @@ def bound(nbytes, flops, passes=None):
 
 # ------------------------------------------------------ kernel phase --
 def attention_case(torch, T, page_dtype, rng):
-    """Inputs of one flat-attention launch at the main path's shapes:
+    """Inputs of one flat-attention launch at the main path's shapes
+    (pages of ``page_dtype``: f32, bf16, f16, or int8/fp8 with scales):
     8 sequences with fragmented block tables over a 513-block pool,
     T packed tokens (T/8 consecutive positions per sequence, one block
     boundary crossed or more: a decode step at T=8, a pack of 16-token
@@ -356,10 +377,11 @@ def attention_case(torch, T, page_dtype, rng):
                 block_tables=torch.from_numpy(tables).to(dev),
                 seq_ids=torch.from_numpy(seq_ids).to(dev),
                 positions=torch.from_numpy(positions).to(dev))
-    if page_dtype == "float32":
-        args["k_pages"] = torch.from_numpy(kf).to(dev)
-        args["v_pages"] = torch.from_numpy(vf).to(dev)
-        elem, scale_bytes = 4, 0
+    if page_dtype in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, page_dtype)
+        args["k_pages"] = torch.from_numpy(kf).to(dev).to(dt)
+        args["v_pages"] = torch.from_numpy(vf).to(dev).to(dt)
+        elem, scale_bytes = dt.itemsize, 0
     else:
         from mxnet_tpu_torch.serving.llm.model import _quantize_kv
         dt = (torch.int8 if page_dtype == "int8"
@@ -738,9 +760,10 @@ def run_flash_lp_kernel_phase(torch, timer, rng):
     return results
 
 
-def paged_case(torch, rng, S, Q):
+def paged_case(torch, rng, S, Q, page_dtype="float32"):
     """Inputs of one chunk (``Q`` set) or decode (``Q`` None) paged
-    attention launch at the decode phase's shapes: ``S`` rows with kv
+    attention launch at the decode phase's shapes, pages of
+    ``page_dtype`` (f32, bf16 or f16; f32 q): ``S`` rows with kv
     lengths over 15..1024 (``PAGED_KV_LENS``, then random), fragmented
     tables over an (S * 64 + 1)-block pool; chunk rows query their last
     min(Q, kv_len) positions, one row fewer (a padded tail). Returns the
@@ -771,12 +794,15 @@ def paged_case(torch, rng, S, Q):
         args["q_lens"] = torch.from_numpy(ql.astype(np.int32))
         valid = np.arange(Q)[None, :] < ql[:, None]
     args = {k: v.to(dev) for k, v in args.items()}
+    dt = getattr(torch, page_dtype)
+    args["k_pages"] = args["k_pages"].to(dt)
+    args["v_pages"] = args["v_pages"].to(dt)
     # every valid token's horizon lies below kv_len: each row's first
     # ceil(kv_len / bs) pages, read once, plus q, out, tables and lengths
     pages = int(np.sum(-(-kv // bs)))
     nq = int(np.prod(qshape))
-    nbytes = (2 * nq * 4 + 2 * pages * bs * H * D * 4 + 4 * S * MB
-              + 4 * S * (1 if Q is None else 2))
+    nbytes = (2 * nq * 4 + 2 * pages * bs * H * D * dt.itemsize
+              + 4 * S * MB + 4 * S * (1 if Q is None else 2))
     # token t of a row sees kv_len - q_len + t + 1 positions
     seen = sum(int(k - q + t + 1) for k, q in zip(kv, ql)
                for t in range(int(q)))
@@ -830,6 +856,101 @@ def run_paged_kernel_phase(torch, timer, rng):
         check(err <= ATT_TOL, f"{name} {shape} disagrees with its plain "
               f"version: {err} > {ATT_TOL}")
         results.append(res)
+    return results
+
+
+def run_paged_lp_kernel_phase(torch, timer, seed):
+    """K1 (T=8, 128), K4 (S=8, Q=16 and Q=1) and K5 (S=8, S=64) over bf16
+    and f16 pages (``csrc/ragged_flat_lp.cu``) at the f32 rows' shapes,
+    each against its plain twin on the same 16-bit pages (both read them
+    as f32: ``ATT_TOL``), its bound at 2-byte pages; then K4 (Q=16) and
+    K5 (S=8) once more with q in the pages' dtype, against the twin
+    within one ulp of that dtype. Library none, as for the f32 rows.
+    Case i draws its inputs from ``RandomState(seed + i)`` for bf16, for
+    f16 and, pages in f32, for the f32 kernel, whose time on the same
+    inputs each row carries as ``f32_ms``."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import ragged_attention as ra
+    results = []
+    src = "mxnet_tpu_torch/csrc/ragged_flat_lp.cu"
+    cases = [("flat", ":158", T, None, False) for T in (8, 128)]
+    cases += [("chunk", ":412", MAX_SEQS, Q, False) for Q in (CHUNK_Q, 1)]
+    cases += [("decode", ":512", S, None, False) for S in (MAX_SEQS, 64)]
+    cases += [("chunk", ":412", MAX_SEQS, CHUNK_Q, True),
+              ("decode", ":512", MAX_SEQS, None, True)]
+    for page_dtype in ("bfloat16", "float16"):
+        dt = getattr(torch, page_dtype)
+        for i, (kind, line, n, Q, q16) in enumerate(cases):
+            def inputs(pd):
+                rng = np.random.RandomState(seed + i)
+                if kind == "flat":
+                    return attention_case(torch, n, pd, rng) + (None,)
+                return paged_case(torch, rng, n,
+                                  Q if kind == "chunk" else None, pd)
+            args32 = inputs("float32")[0]
+            args, nbytes, flops, valid = inputs(page_dtype)
+            if kind == "flat":
+                shape = f"T={n},H=12,D=64,bs=16,MB=64"
+                plan = ra.flat_plan(n, MAX_SEQS, 12, 64, BLOCK_SIZE, 64, dt)
+                tiles = "FlatTiles"
+
+                def kern(a=args):
+                    return ra.ragged_flat_attention(**a)
+
+                def plain():
+                    return ra.ragged_flat_attention_reference(**args)
+            else:
+                if q16:
+                    # q and out at 2 bytes an element, not 4
+                    nbytes -= args["q"].numel() * 4
+                    args["q"] = args["q"].to(dt)
+                shape = (f"S={n}," + (f"Q={Q}," if kind == "chunk" else "")
+                         + "H=12,D=64,bs=16,MB=64"
+                         + (f",q={page_dtype}" if q16 else ""))
+                plan = (min(Q or 1, 16),) + ra.paged_plan(
+                    n, Q or 1, 12, 64, BLOCK_SIZE, 64, dt)
+                tiles = "ChunkTiles"
+
+                def kern(a=args):
+                    return ra.ragged_paged_attention(**a)
+
+                def plain():
+                    if kind == "decode":
+                        return ra.ragged_attention_reference(**args)
+                    return ra.ragged_chunk_attention_reference(**args)
+            name = ra.kernel_name(dt, kind)
+            out_k = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            diff = (out_k.float() - want.float())
+            err = float((diff if valid is None else diff[valid]).abs().max())
+            tol = ATT_TOL
+            if q16:
+                tol = float(torch.finfo(dt).eps) * float(
+                    want.float().abs().max())
+            check(torch.equal(out_k, again), f"{name} {shape}: two launches "
+                  f"gave different bits")
+            check(out_k.dtype == args["q"].dtype, f"{name} {shape}: output "
+                  f"dtype {out_k.dtype}, q {args['q'].dtype}")
+            b_ms, b_by, b_f32 = bound(nbytes, flops)
+            extra, note = ring_note(kernels, ra, page_dtype, tiles, plan, 64,
+                                    BLOCK_SIZE, 64)
+            res = dict(name=name, route="cuda", source=src,
+                       replaces="mxnet_tpu/ops/ragged_attention.py" + line,
+                       shape=shape, max_abs_err=err, tol=tol,
+                       ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                       bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
+                       library_ms=None,
+                       f32_ms=timer.ms(lambda: kern(args32)), **extra)
+            log(f"kernel {name} {shape}: max_abs_err={err:.3e} (tol "
+                f"{tol:.3e}) kernel_ms={res['ms']:.4f} "
+                f"plain_ms={res['plain_ms']:.4f} library: none "
+                f"bound_ms={b_ms:.4f} ({b_by}); the f32-page kernel on "
+                f"the same inputs {res['f32_ms']:.4f} ms; {note}")
+            check(err <= tol, f"{name} {shape} disagrees with its plain "
+                  f"version: {err} > {tol}")
+            results.append(res)
     return results
 
 
@@ -1068,15 +1189,72 @@ def report_profile(prof, wall, steps):
     return share
 
 
-def run_f32_phase(torch, rng, np_params, kernels):
+def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
+                       label, chunk=64):
+    """Hold a served greedy stream over ``kv_dtype`` pools against the
+    port's plain step over pools of the same dtype: ``model``/``params``
+    on the CPU (every kernel's plain version) run ``decode_flat`` over
+    the prompt and the served tokens, ``chunk`` positions a call (as a
+    prefill does); the logits at each position must pick the served
+    token, or may pick another only where their top-2 gap is below
+    ``tol`` (a near tie). Every token is checked: the plain step reads
+    the served stream, not its own. Returns a verdict."""
+    import torch
+    from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
+    c = model.config
+    seq = list(prompt) + list(tokens[:-1])
+    n = len(seq)
+    mb = -(-n // BLOCK_SIZE)
+    cache = PagedKVCache(c.num_layers, c.num_heads, c.head_dim,
+                         BLOCK_SIZE, mb + 1, c.max_context, dtype=kv_dtype,
+                         device="cpu")
+    tables = torch.arange(1, mb + 1, dtype=torch.int32)[None, :]
+    picked = []
+    with torch.no_grad():
+        for p0 in range(0, n, chunk):
+            pos = torch.arange(p0, min(n, p0 + chunk), dtype=torch.int32)
+            logits = model.decode_flat(
+                params, torch.tensor(seq[p0:p0 + chunk], dtype=torch.int32),
+                pos, torch.zeros_like(pos), torch.ones_like(pos),
+                cache.k_pages, cache.v_pages, tables)
+            for i, p in enumerate(pos.tolist()):
+                if p >= len(prompt) - 1:
+                    picked.append(logits[i])
+    ties = []
+    for i, (tok, lg) in enumerate(zip(tokens, picked)):
+        top2 = lg.topk(2)
+        if int(top2.indices[0]) != tok:
+            gap = float(top2.values[0] - lg[tok])
+            check(gap < tol, f"{label}: token {i} is {tok}, the plain step "
+                  f"picks {int(top2.indices[0])} by {gap} >= {tol}")
+            ties.append(f"{i} (gap {gap:.2e})")
+    return ("identical" if not ties else
+            f"another pick on near ties at {', '.join(ties)}")
+
+
+def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
+    """``LLMServer`` at GPT-2-small widths over ``dtype`` pools (f32,
+    or bf16 through ``dtype="bfloat16"``): 9 requests, greedy and
+    sampled, a prefix hit with copy-on-write, every dispatch one graph
+    replay. f32 greedy streams are held against the dense oracle and a
+    mixed packed step against the dense forward; 16-bit ones against
+    the port's plain step on the CPU over pools of the same dtype
+    (:func:`check_greedy_plain`, :func:`step_logits`). Returns (launches,
+    stats, tokens/s)."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.ops.ragged_attention import kernel_name
     from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    tag = {"float32": "f32", "bfloat16": "bf16"}[dtype]
+    flat = kernel_name(getattr(torch, dtype))
     model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
-    server = LLMServer(model, np_params, name="gpt2-f32",
+    server = LLMServer(model, np_params, name=f"gpt2-{tag}",
                        max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
-                       device=DEVICE)
-    builds, progs, calls = warm_server(torch, server, "f32")
-    log(f"f32: kv pool {server.engine.cache.nbytes() / 1e9:.3f} GB, "
-        f"weights {server.engine.weight_bytes / 1e9:.3f} GB")
+                       dtype=dtype, device=DEVICE)
+    check(server.engine.cache.k_pages.dtype == getattr(torch, dtype),
+          f"{tag}: pools of {server.engine.cache.k_pages.dtype}")
+    builds, progs, calls = warm_server(torch, server, tag)
+    log(f"{tag}: kv pool {server.engine.cache.nbytes() / 1e9:.3f} GB "
+        f"({dtype}), weights {server.engine.weight_bytes / 1e9:.3f} GB")
     prompts, shared = prompts_for(rng, model.vocab_size)
     # the packed length of each dispatch (one flat attention launch per
     # layer each), tallied where the engine fills the step's batch
@@ -1097,56 +1275,81 @@ def run_f32_phase(torch, rng, np_params, kernels):
     per_rung = {t: n * model.num_layers for t, n in sorted(rungs.items())}
     st = server.stats()
     n_tok = sum(len(r.tokens) for r in res)
-    log(f"f32: served {len(res)} requests, {n_tok} tokens in "
+    log(f"{tag}: served {len(res)} requests, {n_tok} tokens in "
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s (end to end); "
         f"decode EMA {st['tokens_per_sec']:.1f} tokens/s; TTFT p50 "
         f"{st['ttft_ms']['p50']:.2f} ms p99 {st['ttft_ms']['p99']:.2f} ms;"
         f" prefix hits {st['prefix_hits']}, COW copies "
         f"{st['kv_cache']['cow_copies']}, preemptions {st['preemptions']}")
-    log(f"f32: launches {launches}; flat attention launches per packed "
+    log(f"{tag}: launches {launches}; flat attention launches per packed "
         f"length {per_rung}")
-    check_graph_steps("f32", server.engine, progs, calls, builds)
-    check(sum(per_rung.values()) == launches.get("flat_attention", 0),
-          "f32: flat attention launches do not match the dispatches")
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    check(st["kv_dtype"] == dtype, f"{tag}: stats kv_dtype "
+          f"{st['kv_dtype']}")
+    check(sum(per_rung.values()) == launches.get(flat, 0),
+          f"{tag}: flat attention launches do not match the dispatches")
     check(all(len(r.tokens) == NEW_TOKENS for r in res),
-          "f32: a request stopped short")
-    check(launches.get("flat_attention", 0) > 0,
-          "f32: the flat attention kernel never ran on the main path")
+          f"{tag}: a request stopped short")
+    check(launches.get(flat, 0) > 0,
+          f"{tag}: the flat attention kernel never ran on the main path")
     check(st["prefix_hits"] >= 1 and st["kv_cache"]["cow_copies"] >= 1,
-          "f32: the prefix cache / copy-on-write path was not taken")
+          f"{tag}: the prefix cache / copy-on-write path was not taken")
     params = server.engine.params
     greedy = [i for i in range(len(res)) if i not in (1, 5)]
     all_prompts = prompts + [shared]
+    if dtype != "float32":
+        cpu_model = TinyDecoder(device="cpu", **GPT2_SMALL)
+        cpu_params = params_from_numpy(np_params, "cpu")
     for i in greedy:
-        verdict = check_greedy(model, params, all_prompts[i],
-                               res[i].tokens, F32_LOGIT_TOL,
-                               f"f32 request {i}")
-        log(f"f32: request {i} (prompt {len(all_prompts[i])}) greedy vs "
-            f"oracle: {verdict}")
+        if dtype == "float32":
+            verdict = check_greedy(model, params, all_prompts[i],
+                                   res[i].tokens, F32_LOGIT_TOL,
+                                   f"f32 request {i}")
+            oracle = "oracle"
+        else:
+            verdict = check_greedy_plain(
+                cpu_model, cpu_params, all_prompts[i], res[i].tokens,
+                dtype, LP_LOGIT_TOL[dtype], f"{tag} request {i}")
+            oracle = f"the plain step over {dtype} pools (CPU)"
+        log(f"{tag}: request {i} (prompt {len(all_prompts[i])}) greedy vs "
+            f"{oracle}: {verdict}")
     for i in (1, 5):
         toks = res[i].tokens
         check(all(0 <= t < model.vocab_size for t in toks),
-              f"f32: sampled request {i} emitted an out-of-vocab token")
+              f"{tag}: sampled request {i} emitted an out-of-vocab token")
     batch, seqs = mixed_batch(model, rng, DEVICE)
-    logits = step_logits(model, params, batch, "float32", None)
-    off, err = 0, 0.0
-    for s in seqs:
-        dense, _, _ = model.forward(
-            params, torch.tensor([s], device=DEVICE))
-        err = max(err, float((logits[off:off + len(s)]
-                              - dense[0]).abs().max()))
-        off += len(s)
-    check(bool(torch.isfinite(logits).all()), "f32: non-finite logits")
-    log(f"f32: decode_flat vs dense forward on a mixed packed batch: "
-        f"max_abs_err={err:.3e} (tol {F32_LOGIT_TOL})")
-    check(err <= F32_LOGIT_TOL, "f32: decode_flat disagrees with forward")
+    logits = step_logits(model, params, batch, dtype, None)
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    if dtype == "float32":
+        off, err = 0, 0.0
+        for s in seqs:
+            dense, _, _ = model.forward(
+                params, torch.tensor([s], device=DEVICE))
+            err = max(err, float((logits[off:off + len(s)]
+                                  - dense[0]).abs().max()))
+            off += len(s)
+        log(f"f32: decode_flat vs dense forward on a mixed packed batch: "
+            f"max_abs_err={err:.3e} (tol {F32_LOGIT_TOL})")
+        check(err <= F32_LOGIT_TOL,
+              "f32: decode_flat disagrees with forward")
+    else:
+        want = step_logits(cpu_model, cpu_params,
+                           {k: v.cpu() for k, v in batch.items()}, dtype,
+                           None)
+        n = int(batch["valid"].sum())
+        err = float((logits[:n].cpu() - want[:n]).abs().max())
+        log(f"{tag}: decode_flat kernel path vs plain path (CPU) over "
+            f"{dtype} pools on a mixed packed batch: max_abs_err={err:.3e} "
+            f"(tol {LP_LOGIT_TOL[dtype]})")
+        check(err <= LP_LOGIT_TOL[dtype],
+              f"{tag}: kernel path disagrees with the plain path")
     # where the time goes: the same traffic (fresh prompts, so no prefix
     # hits) through the idle engine on this thread, without the profiler
     # (prompts from a generator of its own: the later phases draw their
     # inputs from ``rng`` as they did before this pass existed), then
     # with it
     host_ms_per_step(torch, server, prompts_for(
-        np.random.RandomState(1), model.vocab_size)[0], "f32")
+        np.random.RandomState(1), model.vocab_size)[0], tag)
     profile_engine(torch, server.engine,
                    prompts_for(rng, model.vocab_size)[0])
     return launches, st, n_tok / wall
@@ -1206,14 +1409,29 @@ def run_default_config_phase(torch, rng, kernels):
 
 
 def run_quant_phase(torch, rng, np_params, kernels, dtype):
+    """``LLMServer`` at GPT-2-small widths on 3 greedy requests: int8 or
+    fp8 KV with weights of the same dtype (``kv_dtype=``), or f16 pools
+    with f32 weights (``dtype="float16"``). A mixed packed step against
+    the same step on the CPU (every kernel's plain version); f16's
+    streams also against the plain step over f16 pools. Returns the
+    launch counts."""
+    from mxnet_tpu_torch.convert import params_from_numpy
     from mxnet_tpu_torch.serving.llm import (LLMServer, TinyDecoder,
                                              quantize_weights)
-    tag = "int8" if dtype == "int8" else "fp8"
-    qw = quantize_weights(np_params, dtype=dtype)
+    quant = dtype != "float16"
+    tag = {"int8": "int8", "float8_e4m3fn": "fp8", "float16": "f16"}[dtype]
+    if quant:
+        weights = quantize_weights(np_params, dtype=dtype)
+        cpu_params, w_scales = weights.params, weights.scales
+        kw = dict(kv_dtype=dtype)
+    else:
+        weights = np_params
+        cpu_params, w_scales = params_from_numpy(np_params, "cpu"), None
+        kw = dict(dtype=dtype)
     model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
-    server = LLMServer(model, qw, name=f"gpt2-{tag}", max_seqs=MAX_SEQS,
-                       block_size=BLOCK_SIZE, kv_dtype=dtype,
-                       device=DEVICE)
+    server = LLMServer(model, weights, name=f"gpt2-{tag}",
+                       max_seqs=MAX_SEQS,
+                       block_size=BLOCK_SIZE, device=DEVICE, **kw)
     builds, progs, calls = warm_server(torch, server, tag)
     prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
                for n in (17, 64, 200)]
@@ -1226,27 +1444,40 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
     n_tok = sum(len(r.tokens) for r in res)
     log(f"{tag}: served {len(res)} requests, {n_tok} tokens in "
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; TTFT p50 "
-        f"{st['ttft_ms']['p50']:.2f} ms; launches {launches}; weights "
-        f"{st['weight_bytes'] / 1e9:.3f} GB")
+        f"{st['ttft_ms']['p50']:.2f} ms; launches {launches}; kv pool "
+        f"{server.engine.cache.nbytes() / 1e9:.3f} GB ({st['kv_dtype']}); "
+        f"weights {st['weight_bytes'] / 1e9:.3f} GB")
     check_graph_steps(tag, server.engine, progs, calls, builds)
-    check(launches.get(f"flat_attention_quant.{tag}", 0) > 0
-          and launches.get(f"wq_matmul.{tag}", 0) > 0,
-          f"{tag}: a quantized kernel never ran on the main path")
-    # the same quantized step on the CPU (every kernel's plain version)
+    if quant:
+        check(launches.get(f"flat_attention_quant.{tag}", 0) > 0
+              and launches.get(f"wq_matmul.{tag}", 0) > 0,
+              f"{tag}: a quantized kernel never ran on the main path")
+    else:
+        check(st["kv_dtype"] == dtype
+              and launches.get(f"flat_attention.{tag}", 0) > 0,
+              f"{tag}: the f16 flat kernel never ran on the main path")
+    # the same step on the CPU (every kernel's plain version)
     cpu_model = TinyDecoder(device="cpu", **GPT2_SMALL)
     batch, _ = mixed_batch(model, rng, DEVICE)
     got = step_logits(model, server.engine.params, batch, dtype,
                       server.engine.w_scales)
-    want = step_logits(cpu_model, qw.params,
+    want = step_logits(cpu_model, cpu_params,
                        {k: v.cpu() for k, v in batch.items()}, dtype,
-                       qw.scales)
+                       w_scales)
     n = int(batch["valid"].sum())
     err = float((got[:n].cpu() - want[:n]).abs().max())
-    tol = QUANT_LOGIT_TOL[dtype]
+    tol = QUANT_LOGIT_TOL[dtype] if quant else LP_LOGIT_TOL[dtype]
     log(f"{tag}: decode_flat kernel path vs plain path (CPU) on a mixed "
         f"packed batch: max_abs_err={err:.3e} (tol {tol})")
     check(bool(torch.isfinite(got[:n]).all()), f"{tag}: non-finite logits")
     check(err <= tol, f"{tag}: kernel path disagrees with the plain path")
+    if not quant:
+        for i, (p, r) in enumerate(zip(prompts, res)):
+            verdict = check_greedy_plain(cpu_model, cpu_params, p,
+                                         r.tokens, dtype, tol,
+                                         f"{tag} request {i}")
+            log(f"{tag}: request {i} (prompt {len(p)}) greedy vs the plain "
+                f"step over {dtype} pools (CPU): {verdict}")
     own = np.random.RandomState(1)          # as in run_f32_phase
     host_ms_per_step(torch, server,
                      [own.randint(0, model.vocab_size, size=n).tolist()
@@ -1291,13 +1522,15 @@ class GraphedStep:
 
 
 def paged_greedy(torch, model, params, prompts, new_steps, chunk=CHUNK_Q,
-                 block_size=BLOCK_SIZE, on_first_step=None, graphs=False):
+                 block_size=BLOCK_SIZE, on_first_step=None, graphs=False,
+                 kv_dtype="float32"):
     """Greedy decoding of ``prompts`` through the model interface alone:
     the rows prefill together in chunks of ``chunk`` tokens through
     ``decode_chunk`` (a row whose prompt is done sits in the batch at
     q_len 0), the first token comes from each prompt's last chunk, then
     ``new_steps`` steps of ``decode_step`` each add one token per row.
-    Pools and tables come from the port's ``PagedKVCache``. With
+    Pools (of ``kv_dtype``) and tables come from the port's
+    ``PagedKVCache``. With
     ``graphs`` each step replays a CUDA graph (:class:`GraphedStep`) of
     ``decode_chunk`` at (rows, Q, table width) or of ``decode_step`` at
     (rows, table width), captured at its first step.
@@ -1311,7 +1544,8 @@ def paged_greedy(torch, model, params, prompts, new_steps, chunk=CHUNK_Q,
     lens = [len(p) for p in prompts]
     need = [-(-(n + new_steps + 1) // block_size) for n in lens]
     cache = PagedKVCache(c.num_layers, c.num_heads, c.head_dim, block_size,
-                         1 + sum(need), c.max_context, device=dev)
+                         1 + sum(need), c.max_context, dtype=kv_dtype,
+                         device=dev)
     tables = np.zeros((S, cache.max_blocks_per_seq), np.int32)
     for i, nb in enumerate(need):
         tables[i, :nb] = cache.allocator.alloc(nb)
@@ -1381,10 +1615,14 @@ def run_paged_decode_phase(torch, rng, np_params, kernels):
     against the dense ``forward``, 12 chunk-kernel launches per step and
     no build after the first step; then the same decode with each step
     replayed from a CUDA graph: the same streams, ms per step beside the
-    eager figure, 12 launches per step counted through the replays.
-    Returns (launches of both passes, (cache, tables, kv lens, model))."""
+    eager figure, 12 launches per step counted through the replays; then
+    the same decode over bf16 pools from graphs (the bf16 chunk kernel,
+    12 launches a step), each stream against the plain step on the CPU
+    over bf16 pools. Returns (launches of the three passes, (the f32
+    cache, tables, kv lens, model))."""
     from mxnet_tpu_torch.convert import params_from_numpy
-    from mxnet_tpu_torch.ops.ragged_attention import CHUNK_KERNEL
+    from mxnet_tpu_torch.ops.ragged_attention import (CHUNK_KERNEL,
+                                                      kernel_name)
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
     params = params_from_numpy(np_params, model.device)
@@ -1457,6 +1695,43 @@ def run_paged_decode_phase(torch, rng, np_params, kernels):
           f"{warm} warm runs, expected 12 per step")
     for k, v in g_launches.items():
         launches[k] = launches.get(k, 0) + v
+    # the same decode over bf16 pools, from graphs (the bf16 chunk
+    # kernel), each stream held against the plain step on the CPU over
+    # bf16 pools
+    chunk16 = kernel_name(torch.bfloat16, "chunk")
+    kernels.reset_launch_counts()
+    captures = kernels.capture_count()
+    b_streams, _, b_steps, b_step_s, b_cache, _, _ = paged_greedy(
+        torch, model, params, prompts, DECODE_STEPS, graphs=True,
+        kv_dtype="bfloat16")
+    b_launches = kernels.launch_counts()
+    b_steps += DECODE_STEPS
+    log(f"paged bf16: graphs over bf16 pools ({b_cache.nbytes() / 1e9:.3f} "
+        f"GB, f32 {cache.nbytes() / 1e9:.3f} GB): decode "
+        f"{b_step_s * 1e3:.2f} ms/step = {S / b_step_s:.1f} tokens/s (f32 "
+        f"graphs {g_step_s * 1e3:.2f} ms/step in this run; host clock, 8 "
+        f"rows, steps 2-{DECODE_STEPS}); captures "
+        f"{kernels.capture_count() - captures}; launches {b_launches}")
+    check(b_cache.k_pages.dtype == torch.bfloat16, "paged bf16: pools of "
+          f"{b_cache.k_pages.dtype}")
+    check(kernels.capture_count() - captures == 2,
+          "paged bf16: a capture beyond one per step kind")
+    check(b_launches.get(chunk16, 0)
+          == GPT2_SMALL["num_layers"] * (b_steps + warm),
+          f"paged bf16: {chunk16} launched {b_launches.get(chunk16, 0)} "
+          f"times in {b_steps} steps and {warm} warm runs, expected 12 per "
+          f"step")
+    cpu_model = TinyDecoder(device="cpu", **GPT2_SMALL)
+    cpu_params = params_from_numpy(np_params, "cpu")
+    for i, p in enumerate(prompts):
+        verdict = check_greedy_plain(
+            cpu_model, cpu_params, p, b_streams[i], "bfloat16",
+            LP_LOGIT_TOL["bfloat16"], f"paged bf16 row {i}")
+        log(f"paged bf16: row {i} (prompt {len(p)}) {len(b_streams[i])} "
+            f"greedy tokens vs the plain step over bf16 pools (CPU): "
+            f"{verdict}")
+    for k, v in b_launches.items():
+        launches[k] = launches.get(k, 0) + v
     return launches, (cache, bt, kv, model)
 
 
@@ -1479,6 +1754,9 @@ def run_op_phase(torch, timer, rng, decoded):
     q4 = torch.from_numpy(
         rng.randn(S, CHUNK_Q, H, D).astype(np.float32)).to(DEVICE)
     ql = torch.full((S,), CHUNK_Q, dtype=torch.int32, device=DEVICE)
+    # the same pools, and q, in bf16 and f16: the 16-bit kernels
+    lowp = {dt: (kp.to(dt), vp.to(dt), q3.to(dt), q4.to(dt))
+            for dt in (torch.bfloat16, torch.float16)}
     sdpa_in = [torch.from_numpy(rng.randn(2, H, 128, D).astype(
         np.float32)).to(DEVICE) for _ in range(3)]
     names, plain = register_rtc_ops("rtc_")
@@ -1488,6 +1766,9 @@ def run_op_phase(torch, timer, rng, decoded):
     kernels.reset_launch_counts()
     got3 = nd.ragged_paged_attention(q3, kp, vp, bt, kv)
     got4 = nd.ragged_paged_attention(q4, kp, vp, bt, kv, q_lens=ql)
+    got16 = {dt: (nd.ragged_paged_attention(a3, k16, v16, bt, kv),
+                  nd.ragged_paged_attention(a4, k16, v16, bt, kv, q_lens=ql))
+             for dt, (k16, v16, a3, a4) in lowp.items()}
     got_sdpa = nd.scaled_dot_product_attention(*sdpa_in)
     got_rtc = {"scale_add": getattr(nd, names["scale_add"])(x, y),
                "rowsum": getattr(nd, names["rowsum"])(x)}
@@ -1499,10 +1780,11 @@ def run_op_phase(torch, timer, rng, decoded):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"ops: launches {launches}")
-    for kname, n in ((ra.DECODE_KERNEL, 1), (ra.CHUNK_KERNEL, 1),
-                     ("flash_fwd", 1)):
-        check(launches.get(kname, 0) == n, f"ops: {kname} launched "
-              f"{launches.get(kname, 0)} times, expected {n}")
+    names16 = [ra.kernel_name(dt, kind) for dt in lowp
+               for kind in ("decode", "chunk")]
+    for kname in [ra.DECODE_KERNEL, ra.CHUNK_KERNEL, "flash_fwd"] + names16:
+        check(launches.get(kname, 0) == 1, f"ops: {kname} launched "
+              f"{launches.get(kname, 0)} times, expected 1")
     e3 = float((got3 - ra.ragged_attention_reference(
         q3, kp, vp, bt, kv)).abs().max())
     e4 = float((got4 - ra.ragged_chunk_attention_reference(
@@ -1514,6 +1796,20 @@ def run_op_phase(torch, timer, rng, decoded):
         f"{es:.3e} (relative tol {FLASH_REL_TOL})")
     check(max(e3, e4) <= ATT_TOL, "ops: nd.ragged_paged_attention "
           "disagrees with its plain twin")
+    for dt, (k16, v16, a3, a4) in lowp.items():
+        g3, g4 = got16[dt]
+        w3 = ra.ragged_attention_reference(a3, k16, v16, bt, kv)
+        w4 = ra.ragged_chunk_attention_reference(a4, k16, v16, bt, kv, ql)
+        check(g3.dtype == g4.dtype == dt, f"ops: {dt} q gave "
+              f"{g3.dtype}/{g4.dtype} out")
+        for what, g, w in (("3-D", g3, w3), ("4-D", g4, w4)):
+            err = float((g.float() - w.float()).abs().max())
+            tol = float(torch.finfo(dt).eps) * float(w.float().abs().max())
+            log(f"ops: nd.ragged_paged_attention {what} q, {dt} pages and q:"
+                f" max_abs_err={err:.3e} (one ulp at the largest output, "
+                f"{tol:.3e})")
+            check(err <= tol, f"ops: nd.ragged_paged_attention {what} over "
+                  f"{dt} pages disagrees with its plain twin")
     check(es <= FLASH_REL_TOL * max(1.0, float(got_sdpa.abs().max())),
           "ops: nd.scaled_dot_product_attention disagrees")
     gerr = float((xg.grad - 2 * x).abs().max())
@@ -2098,11 +2394,14 @@ def ring_usage(kernels, page_dtype, tiles, D=64):
     ``tiles`` ("FlatTiles" or "ChunkTiles") and head dim ``D``, from
     this process's build log, or None where it built nothing."""
     t = {"float32": "f32", "int8": "int8",
-         "float8_e4m3fn": "__nv_fp8_e4m3"}[page_dtype]
-    name = (f"paged_ring_kernel<{t},{int(page_dtype != 'float32')},"
+         "float8_e4m3fn": "__nv_fp8_e4m3", "bfloat16": "__nv_bfloat16",
+         "float16": "__half"}[page_dtype]
+    scaled = int(page_dtype in ("int8", "float8_e4m3fn"))
+    lib = ("ragged_flat_lp" if page_dtype in ("bfloat16", "float16")
+           else "ragged_flat")
+    name = (f"paged_ring_kernel<{t},{scaled},"
             f"{-(-D // 32)},{int(D % 32 != 0)},{tiles}>")
-    for k, regs, spill in ptxas_usage(kernels.build_logs.get(
-            "ragged_flat", "")):
+    for k, regs, spill in ptxas_usage(kernels.build_logs.get(lib, "")):
         if k == name:
             return regs, spill
     return None
@@ -2113,8 +2412,7 @@ def ring_note(kernels, ra, page_dtype, tiles, plan, D, bs, MB):
     subs), shared bytes per CTA, registers and spills for one launch, as
     a dict and as text; fails on a spill."""
     import torch
-    dt = {"float32": torch.float32, "int8": torch.int8,
-          "float8_e4m3fn": torch.float8_e4m3fn}[page_dtype]
+    dt = getattr(torch, page_dtype)
     qt, heads, splits, stages, subs = plan
     smem = ra.ring_smem_bytes(bs, heads, D, dt, qt, stages, MB, subs)[1]
     use = ring_usage(kernels, page_dtype, tiles, D)
@@ -2198,6 +2496,7 @@ def main():
     results += run_flash_lp_kernel_phase(torch, timer,
                                          np.random.RandomState(9))
     results += run_paged_kernel_phase(torch, timer, rng)
+    results += run_paged_lp_kernel_phase(torch, timer, 10)
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()
@@ -2213,6 +2512,13 @@ def main():
     # 5. main path, quantized
     for dtype in ("int8", "float8_e4m3fn"):
         add(run_quant_phase(torch, rng, np_params, kernels, dtype))
+    # 5b. main path over 16-bit pools: bf16 at the f32 phase's traffic,
+    # then f16 on 3 requests (generators of their own: the later phases
+    # draw what they drew before)
+    add(run_f32_phase(torch, np.random.RandomState(12), np_params, kernels,
+                      dtype="bfloat16")[0])
+    add(run_quant_phase(torch, np.random.RandomState(13), np_params,
+                        kernels, "float16"))
     # 6. paged decode through the model interface
     counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)
     add(counts)

@@ -4,10 +4,12 @@
 ``mxnet_tpu.serving.llm.TinyDecoder.init_params`` (nested dicts and
 lists of float32 arrays), or a quantized checkpoint (any object with
 ``params``, ``scales`` and ``dtype``, such as the JAX package's
-``QuantizedWeights``), into the port's tensors on ``device``. fp8 leaves
-(``ml_dtypes.float8_e4m3fn`` on the JAX side) arrive as raw bytes and
-are viewed as ``torch.float8_e4m3fn``, so no ``ml_dtypes`` is needed
-where the port runs.
+``QuantizedWeights``), into the port's tensors on ``device``. fp8 and
+bf16 leaves (``ml_dtypes.float8_e4m3fn`` / ``ml_dtypes.bfloat16`` on the
+JAX side; bf16 also as the raw ``|V2`` it becomes where ``ml_dtypes`` is
+not loaded) arrive as raw bytes and are viewed as
+``torch.float8_e4m3fn`` / ``torch.bfloat16``, so no ``ml_dtypes`` is
+needed where the port runs.
 
 :func:`load_gluon_params` copies a gluon parameter set, as numpy arrays
 by name (the JAX package's ``net.collect_params()``), into a port block,
@@ -22,17 +24,25 @@ import torch
 
 __all__ = ["params_from_numpy", "tensor_from_numpy", "load_gluon_params"]
 
+# numpy dtype names that torch.from_numpy does not take -> (the numpy
+# integer type of their bytes, the torch dtype to view them as); a raw
+# 2-byte void (``|V2``) is a bf16 element that lost its dtype
+_RAW = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+        "bfloat16": (np.int16, torch.bfloat16),
+        "void16": (np.int16, torch.bfloat16)}
+
 
 def tensor_from_numpy(a, device):
-    """One leaf: numpy array (fp8 viewed from its bytes) or tensor →
-    tensor on ``device``."""
+    """One leaf: numpy array (fp8 and bf16 viewed from their bytes) or
+    tensor → tensor on ``device``."""
     if isinstance(a, torch.Tensor):
         return a.to(device)
-    a = np.asarray(a)
-    if a.dtype.name == "float8_e4m3fn":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8))
-        return t.view(torch.float8_e4m3fn).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    a = np.ascontiguousarray(a)
+    raw = _RAW.get(a.dtype.name)
+    if raw is not None:
+        bits, dtype = raw
+        return torch.from_numpy(a.view(bits)).view(dtype).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _tree(tree, device):

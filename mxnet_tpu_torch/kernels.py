@@ -4,8 +4,9 @@ Each source in ``csrc/`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with :mod:`ctypes`. Libraries land in ``_build/``
 beside this file, named by a hash of the source, so an unchanged source
-is compiled once per checkout; :func:`build_all` starts one ``nvcc`` per
-source at once. Nothing is built or loaded at import: the first launch
+is compiled once per checkout (the hash covers the shared headers,
+``csrc/*.cuh``, too); :func:`build_all` starts one ``nvcc`` per source
+at once. Nothing is built or loaded at import: the first launch
 of a kernel builds its library, or :func:`build_all` builds them all up
 front.
 
@@ -53,6 +54,15 @@ SOURCES = {
         "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 12 + [_F, _P],
         "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 11 + [_F, _P],
         "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 10 + [_F, _P],
+    },
+    # the same kernels over bf16 and f16 pages, q f32 or in the pages'
+    # dtype (the int before the scale)
+    "ragged_flat_lp": {
+        f"mxt_ragged_{kernel}_{dt}": args
+        for dt in ("bf16", "f16")
+        for kernel, args in (("flat", [_P] * 7 + [_I] * 13 + [_F, _P]),
+                             ("chunk", [_P] * 7 + [_I] * 12 + [_F, _P]),
+                             ("decode", [_P] * 6 + [_I] * 11 + [_F, _P]))
     },
     "wq_matmul": {
         "mxt_wq_matmul_int8": [_P] * 4 + [_I] * 7 + [_P],
@@ -122,8 +132,11 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"{name}-{digest.hexdigest()[:16]}.so")
 

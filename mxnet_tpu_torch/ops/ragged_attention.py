@@ -3,8 +3,13 @@
 
 Query tokens attend over a paged KV pool ``[N, bs, H, D]`` through
 per-sequence block tables ``[S, MB]`` (int32 page ids, unused entries
-pointing at the null block 0). Three shapes, one kernel source
-(``csrc/ragged_flat.cu``):
+pointing at the null block 0). Pages are f32, bf16 or f16 (the TPU
+kernels cast any float page to f32 in the kernel; so do these), or, in
+the flat shape, int8/fp8 with scales. ``q`` is f32 or, over 16-bit
+pages, the pages' dtype; the output takes ``q``'s dtype. Three shapes,
+one kernel template (``csrc/paged_ring.cuh``, built from
+``csrc/ragged_flat.cu`` for f32/int8/fp8 pages and
+``csrc/ragged_flat_lp.cu`` for bf16/f16 pages):
 
 - flat: a packed ``[T, H, D]`` batch; token ``t`` belongs to row
   ``seq_ids[t]`` and sits at absolute position ``positions[t]``,
@@ -12,8 +17,9 @@ pointing at the null block 0). Three shapes, one kernel source
   ``k_scales``/``v_scales`` ``[N, bs, H]`` f32 the pages are int8 or
   fp8-e4m3 and are dequantised per slot and head.
   :func:`ragged_flat_attention` (kernel ``flat_attention``, the port of
-  ``_flat_kernel``; quantised pages ``flat_attention_quant.int8`` /
-  ``.fp8``, the port of ``_flat_quant_kernel``) and its plain version
+  ``_flat_kernel``, ``flat_attention.bf16`` / ``.f16`` over 16-bit
+  pages; quantised pages ``flat_attention_quant.int8`` / ``.fp8``, the
+  port of ``_flat_quant_kernel``) and its plain version
   :func:`ragged_flat_attention_reference`.
 - decode: ``q [S, H, D]``, one query per row over its ``kv_lens[i]``
   valid tokens. :func:`ragged_paged_attention` with a 3-D ``q`` (kernel
@@ -35,9 +41,11 @@ of :func:`paged_plan` (:func:`flat_plan` for the flat shape, whose tiles
 the kernel cuts from the pack's runs of consecutive tokens);
 :func:`page_shares` is the split the kernel makes.
 Each launch counts under its kernel's name in
-:func:`mxnet_tpu_torch.kernels.launch_counts`. ``ragged_paged_attention``
-is also the registered op ``nd.ragged_paged_attention``
-(non-differentiable, as in the JAX package).
+:func:`mxnet_tpu_torch.kernels.launch_counts` (:func:`kernel_name`; the
+16-bit chunk and decode kernels' names end in ``.bf16`` or ``.f16``).
+``ragged_paged_attention`` is also the registered op
+``nd.ragged_paged_attention`` (non-differentiable, as in the JAX
+package).
 
 Outputs with no contract, discarded by callers as on the TPU: tokens
 whose table row is padding (flat), padded chunk tokens (``t >=
@@ -62,26 +70,43 @@ __all__ = ["ragged_flat_attention", "ragged_flat_attention_reference",
            "kernel_name", "paged_plan", "flat_plan", "page_shares",
            "live_pages", "ring_smem_bytes", "CHUNK_KERNEL", "DECODE_KERNEL"]
 
-# launch-counter names of the chunk (K4) and decode (K5) kernels
+# launch-counter names of the chunk (K4) and decode (K5) kernels over
+# f32 pages
 CHUNK_KERNEL = "chunk_attention"
 DECODE_KERNEL = "decode_attention"
 
-# page dtype -> (C entry point, launch-counter name)
+# page dtype -> (library, C entry point, launch-counter name) of the flat
+# kernel
 _KERNELS = {
-    torch.float32: ("mxt_ragged_flat_f32", "flat_attention"),
-    torch.int8: ("mxt_ragged_flat_int8", "flat_attention_quant.int8"),
-    torch.float8_e4m3fn: ("mxt_ragged_flat_fp8",
+    torch.float32: ("ragged_flat", "mxt_ragged_flat_f32", "flat_attention"),
+    torch.int8: ("ragged_flat", "mxt_ragged_flat_int8",
+                 "flat_attention_quant.int8"),
+    torch.float8_e4m3fn: ("ragged_flat", "mxt_ragged_flat_fp8",
                           "flat_attention_quant.fp8"),
 }
+# the 16-bit page dtypes and their entry-point and counter suffixes: the
+# flat, chunk and decode kernels of csrc/ragged_flat_lp.cu
+_LOWP = {torch.bfloat16: "bf16", torch.float16: "f16"}
+_KERNELS.update({dt: ("ragged_flat_lp", f"mxt_ragged_flat_{sfx}",
+                       f"flat_attention.{sfx}")
+                  for dt, sfx in _LOWP.items()})
+_QUANT = (torch.int8, torch.float8_e4m3fn)
+# the float page dtypes the chunk and decode kernels take
+_FLOAT_PAGES = (torch.float32,) + tuple(_LOWP)
 
 
-def kernel_name(page_dtype):
-    """Launch-counter name of the kernel for pages of ``page_dtype``."""
-    return _KERNELS[page_dtype][1]
+def kernel_name(page_dtype, shape="flat"):
+    """Launch-counter name of the ``shape`` ("flat", "chunk" or
+    "decode") kernel for pages of ``page_dtype``."""
+    if shape == "flat":
+        return _KERNELS[page_dtype][2]
+    base = CHUNK_KERNEL if shape == "chunk" else DECODE_KERNEL
+    return base if page_dtype == torch.float32 else \
+        f"{base}.{_LOWP[page_dtype]}"
 
 
 MAX_HEAD_DIM = 256
-# the staged kernel (csrc/ragged_flat.cu paged_ring_kernel): query
+# the staged kernel (csrc/paged_ring.cuh paged_ring_kernel): query
 # tokens per CTA, warps per CTA, most heads per CTA, ring stages, the
 # CTAs one launch should put on the card's 132 SMs (a CTA's page walk is
 # a chain of dependent steps, so the card wants many short walks in
@@ -108,15 +133,16 @@ def _a16(n):
 
 def ring_smem_bytes(bs, heads, D, page_dtype, qt, stages, MB, subs=1):
     """``(stage bytes, shared bytes per CTA)`` of the staged kernel
-    (``RingLayout`` in ``csrc/ragged_flat.cu``): a stage holds one page
+    (``RingLayout`` in ``csrc/paged_ring.cuh``): a stage holds one page
     per sub-walk, each page's K and V for ``heads`` heads (and, for
-    int8/fp8 pages, both ``[bs, heads]`` f32 scale tiles); the CTA adds
+    int8/fp8 pages, both ``[bs, heads]`` f32 scale tiles; bf16/f16 pages
+    take 2 bytes an element and no scales); the CTA adds
     its q tile, the (m, l, acc) of each of the ``subs`` sub-walks of its
     ``qt * heads`` (token, head) pairs and its share's page ids (at most
     ``MB``)."""
     elem = page_dtype.itemsize
     pairs = qt * heads
-    sc = 0 if page_dtype == torch.float32 else _a16(bs * heads * 4)
+    sc = _a16(bs * heads * 4) if page_dtype in _QUANT else 0
     stage = subs * (2 * _a16(bs * heads * D * elem) + 2 * sc)
     state = _a16(4 * (pairs * D * (1 + subs) + 2 * subs * pairs + MB))
     return stage, state + stages * stage
@@ -255,12 +281,13 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
     dev = q.device
     quant = k_scales is not None
     _check_head_dim(D)
-    fn, counter = _KERNELS.get(k_pages.dtype, (None, None))
-    if fn is None or (k_pages.dtype == torch.float32) == quant:
+    lib, fn, counter = _KERNELS.get(k_pages.dtype, (None, None, None))
+    if fn is None or (k_pages.dtype in _QUANT) != quant:
         raise TypeError(f"unsupported page dtype {k_pages.dtype} "
                         f"({'with' if quant else 'without'} scales)")
+    _check_q_dtype(q, k_pages.dtype)
     req = kernels.require
-    req(q, "q", torch.float32, (T, H, D), dev)
+    req(q, "q", q.dtype, (T, H, D), dev)
     req(k_pages, "k_pages", k_pages.dtype, (N, bs, H, D), dev)
     req(v_pages, "v_pages", k_pages.dtype, (N, bs, H, D), dev)
     req(block_tables, "block_tables", torch.int32, (S, MB), dev)
@@ -269,18 +296,18 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
     if quant:
         req(k_scales, "k_scales", torch.float32, (N, bs, H), dev)
         req(v_scales, "v_scales", torch.float32, (N, bs, H), dev)
-    out = torch.empty((T, H, D), dtype=torch.float32, device=dev)
+    out = torch.empty((T, H, D), dtype=q.dtype, device=dev)
     if T == 0:
         return out
-    lib = kernels.library("ragged_flat")
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
     if quant:
         ptrs += [k_scales.data_ptr(), v_scales.data_ptr()]
     ptrs += [block_tables.data_ptr(), seq_ids.data_ptr(),
              positions.data_ptr(), out.data_ptr()]
-    rc = getattr(lib, fn)(*ptrs, T, H, D, bs, N, S, MB,
-                          *flat_plan(T, S, H, D, bs, MB, k_pages.dtype),
-                          float(scale), kernels.stream_handle(dev))
+    rc = getattr(kernels.library(lib), fn)(
+        *ptrs, T, H, D, bs, N, S, MB,
+        *flat_plan(T, S, H, D, bs, MB, k_pages.dtype),
+        *_q_lp(q, k_pages.dtype), float(scale), kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out
@@ -291,7 +318,8 @@ def ragged_flat_attention(q, k_pages, v_pages, block_tables, seq_ids,
                           v_scales=None):
     """Flat ragged paged attention. CPU tensors take the plain version;
     CUDA tensors launch the kernel (int32 tables/ids/positions, f32
-    ``q``, contiguous) or raise."""
+    ``q`` or, over bf16/f16 pages, ``q`` in the pages' dtype,
+    contiguous) or raise."""
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
     if (k_scales is None) != (v_scales is None):
@@ -351,18 +379,36 @@ def ragged_chunk_attention_reference(q, k_pages, v_pages, block_tables,
     return out.to(q.dtype)
 
 
+def _check_q_dtype(q, page_dtype):
+    if not (q.dtype == torch.float32 or (page_dtype in _LOWP
+                                         and q.dtype == page_dtype)):
+        raise TypeError(
+            f"q has dtype {q.dtype}: the kernel over {page_dtype} pages "
+            f"takes float32 q" + (f" or {page_dtype} q"
+                                  if page_dtype in _LOWP else ""))
+
+
+def _q_lp(q, page_dtype):
+    """The 16-bit kernels' q_lp argument (1: q and out in the pages'
+    dtype), or nothing for the other kernels."""
+    if page_dtype not in _LOWP:
+        return ()
+    return (int(q.dtype != torch.float32),)
+
+
 def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
     chunked = q.dim() == 4
     S, MB = block_tables.shape
     Q = q.shape[1] if chunked else 1
     H, D = q.shape[-2:]
     N, bs = k_pages.shape[0], k_pages.shape[1]
+    dt = k_pages.dtype
     dev = q.device
     _check_head_dim(D)
     req = kernels.require
-    req(q, "q", torch.float32, (S, Q, H, D) if chunked else (S, H, D), dev)
-    req(k_pages, "k_pages", torch.float32, (N, bs, H, D), dev)
-    req(v_pages, "v_pages", torch.float32, (N, bs, H, D), dev)
+    req(q, "q", q.dtype, (S, Q, H, D) if chunked else (S, H, D), dev)
+    req(k_pages, "k_pages", dt, (N, bs, H, D), dev)
+    req(v_pages, "v_pages", dt, (N, bs, H, D), dev)
     req(block_tables, "block_tables", torch.int32, (S, MB), dev)
     req(kv_lens, "kv_lens", torch.int32, (S,), dev)
     if chunked:
@@ -370,21 +416,21 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = kernels.library("ragged_flat")
-    plan = paged_plan(S, Q, H, D, bs, MB, torch.float32)
+    lib = kernels.library("ragged_flat" if dt == torch.float32
+                          else "ragged_flat_lp")
+    sfx = _LOWP.get(dt, "f32")
+    plan = paged_plan(S, Q, H, D, bs, MB, dt)
+    tail = (*plan, *_q_lp(q, dt), float(scale), kernels.stream_handle(dev))
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr()]
     if chunked:
-        fn, counter = "mxt_ragged_chunk_f32", CHUNK_KERNEL
-        rc = lib.mxt_ragged_chunk_f32(*ptrs, q_lens.data_ptr(),
-                                      out.data_ptr(), S, Q, H, D, bs, N, MB,
-                                      *plan, float(scale),
-                                      kernels.stream_handle(dev))
+        fn, counter = f"mxt_ragged_chunk_{sfx}", kernel_name(dt, "chunk")
+        rc = getattr(lib, fn)(*ptrs, q_lens.data_ptr(), out.data_ptr(), S,
+                              Q, H, D, bs, N, MB, *tail)
     else:
-        fn, counter = "mxt_ragged_decode_f32", DECODE_KERNEL
-        rc = lib.mxt_ragged_decode_f32(*ptrs, out.data_ptr(), S, H, D, bs,
-                                       N, MB, *plan, float(scale),
-                                       kernels.stream_handle(dev))
+        fn, counter = f"mxt_ragged_decode_{sfx}", kernel_name(dt, "decode")
+        rc = getattr(lib, fn)(*ptrs, out.data_ptr(), S, H, D, bs, N, MB,
+                              *tail)
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out
@@ -398,22 +444,25 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
     tokens (the decode kernel). ``q [S, Q, H, D]`` with ``q_lens [S]``:
     up to Q query tokens per row, token ``t`` at absolute position
     ``kv_lens[i] - q_lens[i] + t``, causal (the chunk kernel). Pages
-    ``[N, bs, H, D]`` f32, ``block_tables [S, MB]``, ``kv_lens`` counting
-    this chunk's tokens. CPU tensors take the plain versions; CUDA
-    tensors launch the kernel (int32 tables and lengths, f32 ``q``,
-    contiguous) or raise."""
+    ``[N, bs, H, D]`` f32, bf16 or f16 (read as f32, as the TPU kernels
+    read them), ``block_tables [S, MB]``, ``kv_lens`` counting this
+    chunk's tokens; ``q`` f32 or in the pages' 16-bit dtype, and the
+    output in ``q``'s dtype; any other page or ``q`` dtype raises
+    ``TypeError``. CPU tensors take the plain versions; CUDA tensors
+    launch the kernel (int32 tables and lengths, contiguous) or
+    raise."""
     if q.dim() not in (3, 4):
         raise ValueError(f"q must be (S, H, D) or (S, Q, H, D), got shape "
                          f"{tuple(q.shape)}")
     chunked = q.dim() == 4
     if chunked and q_lens is None:
         raise ValueError("chunk-shaped q (S, Q, H, D) requires q_lens")
-    for name, p in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if p.dtype != torch.float32:
-            raise TypeError(
-                f"{name} has dtype {p.dtype}: the chunk and decode kernels "
-                f"take f32 pages (bf16 pages wait for the AMP item of "
-                f"ROADMAP.md)")
+    if k_pages.dtype not in _FLOAT_PAGES or v_pages.dtype != k_pages.dtype:
+        raise TypeError(
+            f"pages of dtype {k_pages.dtype} / {v_pages.dtype}: the chunk "
+            f"and decode kernels take float32, bfloat16 or float16 pages, "
+            f"K and V alike")
+    _check_q_dtype(q, k_pages.dtype)
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
     if q.device.type == "cpu":

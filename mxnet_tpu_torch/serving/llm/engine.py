@@ -64,7 +64,8 @@ from ...convert import params_from_numpy
 from ..envutil import env_int as _env_int, env_str as _env_str
 from .kv_cache import (PagedKVCache, KVCacheError, NULL_BLOCK,
                        prefix_block_hashes)
-from .quant import quantize_weights, flatten_params, resolve_weight_dtype
+from .quant import (FP8_NAME, fp8_supported, quantize_weights,
+                    flatten_params, resolve_weight_dtype)
 from .scheduler import Scheduler, Sequence, RUNNING, FINISHED, EVICTED
 from .sampling import (TAG_SAMPLE, TAG_ACCEPT, row_keys, spec_accept,
                        spec_accept_greedy)
@@ -79,6 +80,32 @@ _DEFERRED = {
     "adapter_bank": "multi-LoRA adapter banks",
     "mesh": "tensor-parallel meshes",
 }
+
+
+# the float types of the KV pools that ``dtype=`` takes
+_POOL_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def _dtype_name(dtype):
+    """``"bfloat16"`` for ``"bfloat16"`` or ``torch.bfloat16``."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(dtype)
+
+
+def _resolve_kv_dtype(name):
+    """Map an ``fp8`` KV-dtype request onto torch (the port of the
+    reference's ``_resolve_kv_dtype``): returns ``(dtype_name,
+    fell_back)``, ``float8_e4m3fn`` where torch carries the dtype, else
+    ``int8`` with ``fell_back=True`` (the caller counts a warning).
+    Other names, and torch dtypes by their names, pass through."""
+    name = _dtype_name(name)
+    if name.strip().lower() in ("fp8", "float8", "e4m3", "float8_e4m3",
+                                FP8_NAME):
+        if fp8_supported():
+            return FP8_NAME, False
+        return "int8", True
+    return name, False
 
 
 class _StepBuffers:
@@ -236,10 +263,14 @@ class LLMEngine:
     default. ``max_context`` must be a multiple of ``block_size``;
     ``num_blocks`` must leave room for one full-context sequence.
     ``dtype`` is the float type of the KV pools and the fallback of
-    ``kv_dtype``, in the reference's position: ``"float32"`` only
-    (bf16 pools raise ``NotImplementedError``).
-    ``kv_dtype`` (``MXNET_TPU_LLM_KV_DTYPE``): ``float32`` (default),
-    ``int8`` or ``fp8``; ``weight_dtype``
+    ``kv_dtype``, in the reference's position: ``"float32"`` (default),
+    ``"bfloat16"`` or ``"float16"``, or their ``torch.dtype``; 16-bit
+    pools store K/V rounded to nearest even and the paged kernels read
+    them as f32 (weights, activations and logits stay f32, as in the
+    reference).
+    ``kv_dtype`` (``MXNET_TPU_LLM_KV_DTYPE``, else ``dtype``): a pool
+    dtype above, ``int8`` or ``fp8`` (``float8_e4m3fn``; int8 with a
+    counted warning where torch lacks it); ``weight_dtype``
     (``MXNET_TPU_LLM_WEIGHT_DTYPE``): ``int8`` or ``fp8`` quantizes a
     f32 tree per output channel.
     ``device`` defaults to ``"cuda"`` and must be the model's.
@@ -261,12 +292,11 @@ class LLMEngine:
                 raise NotImplementedError(
                     f"{arg}=: {_DEFERRED[arg]} is not ported to the "
                     f"PyTorch engine yet (ROADMAP.md, section 1)")
-        if dtype not in ("float32", torch.float32):
-            raise NotImplementedError(
-                f"dtype={dtype!r}: the KV pools and paged kernels take "
-                f"float32 (or int8/fp8 through kv_dtype) only; bf16 KV "
-                f"pages are queued in ROADMAP.md section 2 (bf16 KV pages "
-                f"for K1, K4 and K5)")
+        if _dtype_name(dtype) not in _POOL_DTYPES:
+            raise ValueError(
+                f"dtype={dtype!r}: the KV pools take "
+                f"{', '.join(_POOL_DTYPES)} (or int8/fp8 through "
+                f"kv_dtype)")
         self.device = resolve_device(device)
         if getattr(model, "device", self.device) != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -320,8 +350,10 @@ class LLMEngine:
             prefix_cache = bool(_env_int("MXNET_TPU_LLM_PREFIX_CACHE", 1))
         self.prefix_enabled = bool(prefix_cache)
         if kv_dtype is None:
-            kv_dtype = _env_str("MXNET_TPU_LLM_KV_DTYPE", "float32")
-        kv_dtype, kv_fell_back = resolve_weight_dtype(kv_dtype)
+            kv_dtype = _env_str("MXNET_TPU_LLM_KV_DTYPE",
+                                _dtype_name(dtype))
+        kv_dtype, kv_fell_back = _resolve_kv_dtype(kv_dtype)
+        self.kv_dtype_fallbacks = int(kv_fell_back)
         if kv_fell_back:
             if stats is not None:
                 stats.record_quant_fallback()
@@ -331,7 +363,7 @@ class LLMEngine:
         self.cache = PagedKVCache(
             model.num_layers, model.num_heads, model.head_dim,
             block_size, num_blocks, max_context,
-            dtype=kv_dtype or "float32", prefix_cache=self.prefix_enabled,
+            dtype=kv_dtype, prefix_cache=self.prefix_enabled,
             device=self.device)
         self.quantized = self.cache.quantized
         self.scheduler = Scheduler(self.max_seqs)

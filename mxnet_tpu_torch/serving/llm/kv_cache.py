@@ -293,7 +293,8 @@ class BlockAllocator:
         return True
 
 
-_TORCH_DTYPES = {"float32": torch.float32, "int8": torch.int8,
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16, "int8": torch.int8,
                  "float8_e4m3fn": torch.float8_e4m3fn}
 
 
@@ -303,7 +304,10 @@ class PagedKVCache:
 
     K and V pages are torch tensors of shape ``[num_layers, num_blocks,
     block_size, num_heads, head_dim]`` on ``device``, written in place
-    by the model's step.
+    by the model's step, in ``dtype``: ``"float32"``, or ``"bfloat16"``
+    / ``"float16"`` (2 bytes an element; the step rounds K/V to nearest
+    even on write and the kernels read them as f32), or a quantized
+    dtype below.
 
     ``dtype="int8"`` selects quantized storage: pages hold int8 values
     and per-(layer, block, slot, head) f32 scales ride in
@@ -333,7 +337,7 @@ class PagedKVCache:
         self.max_context = int(max_context)
         if dtype not in _TORCH_DTYPES:
             raise ValueError(f"unsupported KV dtype {dtype!r} (expected "
-                             f"float32, int8 or float8_e4m3fn)")
+                             f"one of {', '.join(_TORCH_DTYPES)})")
         self.dtype_name = dtype
         self.dtype = _TORCH_DTYPES[dtype]
         self.quantized = dtype in self.QUANTIZED_DTYPES

@@ -7,12 +7,12 @@
   batch of query tokens from many sequences writes its K/V into the
   paged pools IN PLACE and attends over them through
   :func:`~mxnet_tpu_torch.ops.ragged_attention.ragged_flat_attention`
-  (f32, int8 or fp8 pages), with int8/fp8 weights routed through
-  :func:`~mxnet_tpu_torch.ops.quantization.quantized_matmul`;
+  (f32, bf16, f16, int8 or fp8 pages), with int8/fp8 weights routed
+  through :func:`~mxnet_tpu_torch.ops.quantization.quantized_matmul`;
 - :meth:`TinyDecoder.decode_chunk` / :meth:`TinyDecoder.decode_step` —
   the model interface's paged step: up to Q tokens per sequence (decode
-  is the Q=1 slice) write their K/V into f32 pools in place and attend
-  through :func:`~mxnet_tpu_torch.ops.ragged_attention
+  is the Q=1 slice) write their K/V into f32, bf16 or f16 pools in
+  place and attend through :func:`~mxnet_tpu_torch.ops.ragged_attention
   .ragged_paged_attention` (the chunk kernel);
 - :func:`greedy_decode_reference` — per-sequence greedy decoding over a
   dense cache, the oracle continuous batching must match.
@@ -192,7 +192,9 @@ class TinyDecoder:
         int32 [S, MB]. Token ``t`` attends over positions ``<=
         positions[t]`` of sequence ``seq_ids[t]``; callers pack each
         sequence's tokens in position order. The K/V of every token is
-        written into the pools IN PLACE before the layer's attention.
+        written into the pools IN PLACE before the layer's attention,
+        cast to the pools' dtype (bf16/f16 pools: rounded to nearest
+        even, as ``astype`` rounds in the reference; q stays f32).
         Returns logits [T, V].
 
         Quantized KV: with ``k_scales``/``v_scales`` ``[L, N, bs, H]``
@@ -269,7 +271,8 @@ class TinyDecoder:
         Q=1 slice) and speculative verify run through.
 
         tokens/positions: int32 [S, Q]; q_lens: int32 [S] valid token
-        counts (0 = inactive row); pools ``[L, N, bs, H, Dh]`` f32;
+        counts (0 = inactive row); pools ``[L, N, bs, H, Dh]`` f32, bf16
+        or f16 (K/V rounded to nearest even on write, q f32);
         block_tables: int32 [S, MB]; kv_lens: int32 [S], the valid length
         including this chunk's tokens (token ``t`` of row ``i`` sits at
         ``kv_lens[i] - q_lens[i] + t``, which ``positions[i, t]`` must

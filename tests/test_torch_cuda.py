@@ -24,7 +24,11 @@ the saved logsumexp, which reorders more sums); ``FLASH_LP_TOL`` (bf16
 flash kernels against their twins (both round P, dS and the outputs to
 the input dtype from f32 sums taken in another order: one ulp, 2^-8 or
 2^-11 relative, where a value sits on a rounding boundary). The chunk and decode
-paged attention kernels take ``ATT_TOL`` too; the user kernels of
+paged attention kernels take ``ATT_TOL`` too, and so do the paged kernels
+over bf16/f16 pages with f32 q (kernel and twin read the same 16-bit
+values as f32); with q in the pages' 16-bit dtype, both round the f32
+result to it, so they agree within one ulp of that dtype at the output's
+largest magnitude (``_lp_tol``); the user kernels of
 ``chip_smoke.RTC_SOURCES`` registered through ``rtc`` take ``RTC_TOL =
 1e-5`` of the output's magnitude (``2x + y`` fused into one FMA, a row
 sum in another order).
@@ -551,9 +555,9 @@ def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda, chunk):
     call = tra.ragged_paged_attention
     with pytest.raises(TypeError):
         call(**dict(t, kv_lens=t["kv_lens"].long()))
-    with pytest.raises(TypeError, match="AMP"):
-        call(**dict(t, k_pages=t["k_pages"].half(),
-                    v_pages=t["v_pages"].half()))
+    with pytest.raises(TypeError, match="bfloat16 or float16 pages"):
+        call(**dict(t, k_pages=t["k_pages"].double(),
+                    v_pages=t["v_pages"].double()))
     with pytest.raises(ValueError, match="shape"):
         call(**dict(t, block_tables=t["block_tables"][:2]))
     with pytest.raises(ValueError, match="on cpu"):
@@ -1121,3 +1125,137 @@ def test_step_kernels_replay_their_eager_bits_under_capture(cuda, kernel, T):
             torch.cuda.synchronize()
             assert torch.equal(res["out"], eager)
             assert kernels.launch_counts()[name] == before + 2 + i
+
+
+# ------------------------------------------------ bf16 and f16 pages --
+LP_PAGES = [torch.bfloat16, torch.float16]
+
+
+def _lp_tol(want):
+    """One ulp of ``want``'s 16-bit dtype at its largest magnitude."""
+    return torch.finfo(want.dtype).eps * float(want.float().abs().max())
+
+
+def _lp_case(dev, shape, dtype, q16, D, H=4):
+    """The every-head-dim cases above (fragmented 64-page tables, kv
+    lengths 15/16/17/1024, corrupt table entries) with the pages, and
+    with ``q16`` q too, in ``dtype``: ``(kernel args, twin args)``."""
+    if shape == "flat":
+        t, ref = _ring_flat_case(dev, "float32", D, H=H)
+    else:
+        t = _ring_chunk_case(dev, D, 16 if shape == "chunk16" else 1, H=H)
+        if shape == "decode":
+            t["q"] = t["q"][:, 0].contiguous()
+            t.pop("q_lens")
+        ref = dict(t, block_tables=t["block_tables"].clamp(
+            0, t["k_pages"].shape[0] - 1))
+    cast = ["k_pages", "v_pages"] + (["q"] if q16 else [])
+    lp = {k: t[k].to(dtype) for k in cast}
+    return dict(t, **lp), dict(ref, **lp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 64, 128])
+@pytest.mark.parametrize("q16", [False, True], ids=["q32", "q16"])
+@pytest.mark.parametrize("dtype", LP_PAGES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape", ["flat", "chunk16", "chunk1", "decode"])
+def test_paged_kernels_over_16bit_pages_match_plain(cuda, shape, dtype, q16,
+                                                    D):
+    """K1, K4 (Q=16 and Q=1) and K5 over bf16/f16 pages, q f32 or in the
+    pages' dtype, against their plain twins on the same 16-bit values;
+    the output in q's dtype; two launches give the same bits; one
+    launch counted under the 16-bit kernel's name. D=24: a 16-bit page
+    row of 48 bytes, the predicated path."""
+    t, ref = _lp_case(cuda, shape, dtype, q16, D)
+    kind = {"flat": "flat", "decode": "decode"}.get(shape, "chunk")
+    name = tra.kernel_name(dtype, kind)
+    before = kernels.launch_counts().get(name, 0)
+    if kind == "flat":
+        got = tra.ragged_flat_attention(**t)
+        again = tra.ragged_flat_attention(**t)
+        want = tra.ragged_flat_attention_reference(**ref)
+    else:
+        got = tra.ragged_paged_attention(**t)
+        again = tra.ragged_paged_attention(**t)
+        want = (tra.ragged_chunk_attention_reference(**ref)
+                if kind == "chunk" else tra.ragged_attention_reference(**ref))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    assert got.dtype == want.dtype == (dtype if q16 else torch.float32)
+    tol = _lp_tol(want) if q16 else ATT_TOL
+    assert float((_valid(t, got).float()
+                  - _valid(t, want).float()).abs().max()) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LP_PAGES, ids=["bf16", "f16"])
+def test_16bit_wrappers_reject_what_the_kernels_do_not_take(cuda, dtype):
+    """f64 pages, K and V of two dtypes, and q of the other 16-bit dtype
+    (or f64) raise ``TypeError``, in all three shapes."""
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+    for shape in ("flat", "chunk16", "decode"):
+        t, _ = _lp_case(cuda, shape, dtype, False, 64)
+        call = (tra.ragged_flat_attention if shape == "flat"
+                else tra.ragged_paged_attention)
+        for bad in (dict(k_pages=t["k_pages"].double(),
+                         v_pages=t["v_pages"].double()),
+                    dict(v_pages=t["v_pages"].to(other)),
+                    dict(q=t["q"].to(other)), dict(q=t["q"].double())):
+            with pytest.raises(TypeError):
+                call(**dict(t, **bad))
+
+
+@pytest.mark.cuda
+def test_llm_server_bf16_pools_serve_the_plain_step(cuda):
+    """``LLMServer(dtype="bfloat16")`` at GPT-2-small widths: bf16
+    pools; after ``warmup()`` every dispatch is one graph replay,
+    ``decode_flat`` never runs in Python, nothing is built or captured,
+    and the bf16 flat kernel launches once a layer a dispatch. Each
+    greedy stream is held, token by token, against the port's plain step
+    on the CPU over bf16 pools (``chip_smoke.check_greedy_plain``); one
+    mixed packed step against the same step on the CPU."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    model = TinyDecoder(device=cuda, **chip_smoke.GPT2_SMALL)
+    params = model.init_params_numpy(0)
+    srv = LLMServer(model, params, max_seqs=8, block_size=BS,
+                    dtype="bfloat16", device=cuda)
+    assert srv.engine.cache.k_pages.dtype == torch.bfloat16
+    srv.warmup()
+    compiles = srv.stats()["compiles"]
+    before = srv.stats()["programs"]
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (1, 15, 16, 17, 40, 100)]
+    name = tra.kernel_name(torch.bfloat16)
+    launched = kernels.launch_counts().get(name, 0)
+    srv.start()
+    try:
+        got = [f.result(timeout=300).tokens
+               for f in [srv.submit(p, 8) for p in prompts]]
+    finally:
+        srv.shutdown()
+    after = srv.stats()["programs"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    assert dispatches > 0
+    assert after["replays"] - before["replays"] == dispatches
+    assert srv.stats()["compiles"] == compiles
+    assert srv.stats()["kv_dtype"] == "bfloat16"
+    assert kernels.launch_counts()[name] - launched == \
+        dispatches * model.num_layers
+    cpu = TinyDecoder(device="cpu", **chip_smoke.GPT2_SMALL)
+    cpu_params = params_from_numpy(params, "cpu")
+    for i, (prompt, toks) in enumerate(zip(prompts, got)):
+        chip_smoke.check_greedy_plain(
+            cpu, cpu_params, prompt, toks, "bfloat16",
+            chip_smoke.LP_LOGIT_TOL["bfloat16"], f"bf16 request {i}")
+    batch, _ = chip_smoke.mixed_batch(model, rng, cuda)
+    mine = chip_smoke.step_logits(model, srv.engine.params, batch,
+                                  "bfloat16", None)
+    want = chip_smoke.step_logits(cpu, cpu_params,
+                                  {k: v.cpu() for k, v in batch.items()},
+                                  "bfloat16", None)
+    n = int(batch["valid"].sum())
+    assert float((mine[:n].cpu() - want[:n]).abs().max()) <= \
+        chip_smoke.LP_LOGIT_TOL["bfloat16"]

@@ -5,8 +5,10 @@ dtype="float32", ...)`` takes ``dtype`` (the KV pools' float type and
 the fallback of ``kv_dtype``); the port takes the same positional order,
 with its own ``device`` last. ``dtype="float32"``, passed by position or
 by keyword (also through ``LLMServer``), serves the JAX engine's greedy
-streams token for token (the argmax is exact at these widths); bf16
-pools raise until they are ported.
+streams token for token (the argmax is exact at these widths), and so
+does ``dtype="bfloat16"`` (or ``torch.bfloat16``) the JAX engine's bf16
+streams, over bf16 pools (tests/test_torch_kv16.py holds f16 and the
+pools themselves).
 """
 import os
 import sys
@@ -40,7 +42,10 @@ def setup():
     # the reference's positional order up to dtype
     eng = jllm.LLMEngine(jm, npp, 4, BS, None, None, 8, None, None, None,
                          None, "float32")
-    return tm, npp, prompts, _drain(eng, jllm.Sequence, prompts)
+    bf16 = jllm.LLMEngine(jm, npp, 4, BS, None, None, 8, None, None, None,
+                          None, "bfloat16")
+    return (tm, npp, prompts, _drain(eng, jllm.Sequence, prompts),
+            _drain(bf16, jllm.Sequence, prompts))
 
 
 def _drain(engine, seq_cls, prompts):
@@ -57,7 +62,7 @@ def _drain(engine, seq_cls, prompts):
 
 
 def test_positional_dtype_serves_the_jax_engines_streams(setup):
-    tm, npp, prompts, want = setup
+    tm, npp, prompts, want, _ = setup
     eng = tllm.LLMEngine(tm, npp, 4, BS, None, None, 8, None, None, None,
                          None, "float32", device="cpu")
     assert eng.cache.dtype_name == "float32"
@@ -65,14 +70,14 @@ def test_positional_dtype_serves_the_jax_engines_streams(setup):
 
 
 def test_keyword_dtype_serves_the_jax_engines_streams(setup):
-    tm, npp, prompts, want = setup
+    tm, npp, prompts, want, _ = setup
     eng = tllm.LLMEngine(tm, npp, max_seqs=4, block_size=BS,
                          prefill_chunk=8, dtype="float32", device="cpu")
     assert _drain(eng, tllm.Sequence, prompts) == want
 
 
 def test_server_passes_dtype_through(setup):
-    tm, npp, prompts, want = setup
+    tm, npp, prompts, want, _ = setup
     srv = tllm.LLMServer(tm, npp, max_seqs=4, block_size=BS,
                          prefill_chunk=8, dtype="float32", device="cpu")
     srv.start()
@@ -86,7 +91,13 @@ def test_server_passes_dtype_through(setup):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", torch.bfloat16])
 def test_bf16_pools_raise(setup, dtype):
-    tm, npp, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllm.LLMEngine(tm, npp, max_seqs=2, block_size=BS, dtype=dtype,
-                       device="cpu")
+    """bf16 pools serve the JAX engine's bf16 streams, which differ from
+    the f32 ones (the name is kept from when bf16 pools raised)."""
+    tm, npp, prompts, f32, want = setup
+    eng = tllm.LLMEngine(tm, npp, 4, BS, None, None, 8, None, None, None,
+                         None, dtype, device="cpu")
+    assert eng.cache.k_pages.dtype == torch.bfloat16
+    assert eng.cache.dtype_name == "bfloat16"
+    got = _drain(eng, tllm.Sequence, prompts)
+    assert got == want
+    assert got != f32

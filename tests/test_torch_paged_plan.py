@@ -20,8 +20,9 @@ The kernel runs only on the card. What these CPU tests hold:
   plain ``ragged_flat_attention_reference`` /
   ``ragged_chunk_attention_reference`` and with the JAX package's
   ``ragged_flat_attention`` / ``ragged_paged_attention`` (through their
-  references) at D = 16 and D = 64, int8/fp8 scales included. Tolerance
-  1e-5: f32 inputs, sums in another order, outputs O(1);
+  references) at D = 16 and D = 64, int8/fp8 scales and bf16/f16 pages
+  (read as f32) included. Tolerance 1e-5: f32 inputs, sums in another
+  order, outputs O(1);
 - the flat kernels' query tiles (``flat_tiles``, the kernel's
   ``FlatTiles`` in Python): slots of ``qt`` tokens cut at the starts of
   the pack's runs. Every token lies in exactly one tile of consecutive
@@ -92,7 +93,8 @@ def test_plan_chunk_at_the_main_path_shapes():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8,
-                                   torch.float8_e4m3fn])
+                                   torch.float8_e4m3fn, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("Q", [1, 4, 16, 20])
 @pytest.mark.parametrize("H,D,bs", [(12, 64, 16), (2, 16, 8), (4, 48, 5),
                                     (16, 128, 16), (3, 256, 16),
@@ -143,6 +145,24 @@ def test_plan_decode_at_the_main_path_shapes(S, plan):
     smem = tra.ring_smem_bytes(16, heads, 64, torch.float32, 1, stages,
                                64)[1]
     assert smem <= (TWO_PER_SM if stages == 3 else THREE_PER_SM)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_plan_16bit_pages_at_the_main_path_shapes(dtype):
+    """bf16/f16 pages take 2 bytes an element and no scale tiles, so a
+    stage of 4 heads is half the f32 one: a decode step's one-token
+    tiles (K1 at T=8, K4 at Q=1, K5 at 8 rows) get 2 sub-walk warps a
+    pair and a 3-stage ring of 32 KB stages, as K2 gets them; the
+    16-token tiles (K1 at T=128, K4 at Q=16) keep the f32 plan; K5 at 64
+    rows takes 4 stages."""
+    assert tra.ring_smem_bytes(16, 4, 64, dtype, 1, 3, 64, 2) == \
+        (2 * 2 * 16 * 4 * 64 * 2, 4 * (4 * 64 * 3 + 2 * 2 * 4 + 64)
+         + 3 * 2 * 2 * 16 * 4 * 64 * 2)
+    assert tra.flat_plan(8, 8, 12, 64, 16, 64, dtype) == (1, 4, 8, 3, 2)
+    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype) == (16, 1, 8, 4, 1)
+    assert tra.paged_plan(8, 16, 12, 64, 16, 64, dtype) == (1, 8, 4, 1)
+    assert tra.paged_plan(8, 1, 12, 64, 16, 64, dtype) == (4, 8, 3, 2)
+    assert tra.paged_plan(64, 1, 12, 64, 16, 64, dtype) == (4, 6, 4, 1)
 
 
 def test_plan_refuses_a_page_that_does_not_fit():
@@ -256,6 +276,12 @@ def _pool(rng, D, H=2, bs=8, MB=6, S=3, dtype="float32"):
     vf = rng.randn(N, bs, H, D).astype(np.float32)
     if dtype == "float32":
         return tables, kf, vf, None, None, kf, vf
+    if dtype in ("bfloat16", "float16"):
+        # the pages as the kernel reads them: the 16-bit values, widened
+        kt, vt = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in (kf, vf))
+        return (tables, kt.double().numpy(), vt.double().numpy(), None,
+                None, kt, vt)
     dt = torch.int8 if dtype == "int8" else torch.float8_e4m3fn
     out = []
     for x in (kf, vf):
@@ -268,6 +294,9 @@ def _pool(rng, D, H=2, bs=8, MB=6, S=3, dtype="float32"):
 
 
 def _to_jax(t):
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.view(torch.int16).numpy().view(
+            ml_dtypes.bfloat16))
     if t.dtype == torch.float8_e4m3fn:
         return jnp.asarray(t.view(torch.uint8).numpy().view(
             ml_dtypes.float8_e4m3fn))
@@ -305,29 +334,32 @@ def _flat_case(dtype, D, seq_ids, positions, S, seed):
     q = rng.randn(len(seq_ids), H, D).astype(np.float32)
     scale = float(D ** -0.5)
     quant = ks is not None
+    raw = dtype != "float32"     # the references take the stored pages
     kw, jkw = {}, {}
     if quant:
         kw = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
         jkw = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
     want = tra.ragged_flat_attention_reference(
-        torch.from_numpy(q), kt if quant else torch.from_numpy(kp),
-        vt if quant else torch.from_numpy(vp), torch.from_numpy(tables),
+        torch.from_numpy(q), kt if raw else torch.from_numpy(kp),
+        vt if raw else torch.from_numpy(vp), torch.from_numpy(tables),
         torch.from_numpy(rows), torch.from_numpy(positions), scale,
         **kw).numpy()
     jwant = np.asarray(jra.ragged_flat_attention(
-        jnp.asarray(q), _to_jax(kt) if quant else jnp.asarray(kp),
-        _to_jax(vt) if quant else jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(q), _to_jax(kt) if raw else jnp.asarray(kp),
+        _to_jax(vt) if raw else jnp.asarray(vp), jnp.asarray(tables),
         jnp.asarray(rows), jnp.asarray(positions), scale=scale,
         use_pallas=False, **jkw))
     return q, kp, vp, ks, vs, tables, scale, want, jwant
 
 
 _DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
-           "float32": torch.float32}
+           "float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 @pytest.mark.parametrize("D", [16, 64])
-@pytest.mark.parametrize("dtype", ["int8", "fp8", "float32"])
+@pytest.mark.parametrize("dtype", ["int8", "fp8", "float32", "bfloat16",
+                                   "float16"])
 def test_staged_flat_arithmetic_matches_references(D, dtype):
     S, bs, MB = 3, 8, 6
     seq_ids = np.array([0, 0, 1, 2, 2, 1, 0], np.int32)

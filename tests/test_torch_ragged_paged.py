@@ -10,7 +10,11 @@ against its dense oracle): the same f32 math, dot products and softmax
 summed in another order (the Pallas kernels' online softmax walks the
 pages one at a time); outputs are O(1). Only valid tokens are compared:
 padded chunk tokens have no contract. Masking is held exactly: poisoned
-pages leave every valid output bit for bit as it was.
+pages leave every valid output bit for bit as it was. bf16 and f16 pages
+are read as f32 on both sides (the same tolerance); with q in the pages'
+16-bit dtype, both round the f32 result to it, so the outputs agree
+within one ulp of that dtype at the largest output. Pages of any other
+dtype raise ``TypeError``.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
@@ -18,6 +22,7 @@ card by ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
 import os
 import sys
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -27,6 +32,7 @@ import torch  # noqa: E402
 
 from mxnet_tpu.ops import ragged_attention as jra  # noqa: E402
 from mxnet_tpu_torch import kernels  # noqa: E402
+from mxnet_tpu_torch.convert import tensor_from_numpy  # noqa: E402
 from mxnet_tpu_torch.ops import ragged_attention as tra  # noqa: E402
 
 torch.set_num_threads(2)
@@ -158,13 +164,36 @@ def test_chunk_requires_q_lens():
         _port(dict(c, q=c["q"][:, None]))
 
 
+_NP16 = {"bfloat16": ml_dtypes.bfloat16, "float16": np.float16}
+
+
+@pytest.mark.parametrize("q16", [False, True], ids=["q32", "q16"])
+@pytest.mark.parametrize("dtype", sorted(_NP16))
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_16bit_pages_match_jax(chunk, dtype, q16):
+    c = _case(CHUNK_KV, CHUNK_Q if chunk else None, seed=7)
+    cast = ["k_pages", "v_pages"] + (["q"] if q16 else [])
+    c = dict(c, **{k: c[k].astype(_NP16[dtype]) for k in cast})
+    got = tra.ragged_paged_attention(
+        **{k: tensor_from_numpy(v, "cpu") for k, v in c.items()})
+    assert got.dtype == (getattr(torch, dtype) if q16 else torch.float32)
+    want = np.asarray(_jax(c, "pallas")).astype(np.float32)
+    got = got.float().numpy()
+    tol = (float(ml_dtypes.finfo(_NP16[dtype]).eps) * np.abs(want).max()
+           if q16 else ATOL)
+    rows = CHUNK_Q if chunk else [None] * len(CHUNK_KV)
+    for i, qn in enumerate(rows):
+        np.testing.assert_allclose(got[i, :qn], want[i, :qn],
+                                   rtol=0 if q16 else RTOL, atol=tol)
+
+
 def test_non_f32_pages_raise():
+    """Pages of a dtype no kernel takes (f64) raise; bf16 and f16 pages
+    are taken (``test_16bit_pages_match_jax``)."""
     c = {k: torch.from_numpy(v) for k, v in _case([5, 9]).items()}
-    for dt in (torch.bfloat16, torch.float16):
-        with pytest.raises(TypeError, match="AMP"):
-            tra.ragged_paged_attention(**dict(
-                c, k_pages=c["k_pages"].to(dt),
-                v_pages=c["v_pages"].to(dt)))
+    with pytest.raises(TypeError, match="bfloat16 or float16 pages"):
+        tra.ragged_paged_attention(**dict(
+            c, k_pages=c["k_pages"].double(), v_pages=c["v_pages"].double()))
 
 
 def test_cpu_tensors_never_launch_a_kernel():
