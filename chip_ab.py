@@ -11,13 +11,18 @@ the other tree unpacked under a git-ignored directory:
         --order ABBA --phases flash --profile-bert
     python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
         --order ABBA --phases kernel,paged --profile --profile-paged
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases flash_lp,paged_lp
 
 Each turn is its own process, started from that tree's root: it builds
 the tree's kernels and runs the named kernel phases of the tree's
 ``chip_smoke.py`` (``kernel``: ``run_kernel_phase``, K1-K3; ``flash``:
 ``run_flash_kernel_phase``, K6/K7; ``paged``: ``run_paged_kernel_phase``,
-K4/K5), each phase from ``np.random.RandomState(0)``, so both trees time
-the same inputs. ``--order`` lists the turns by tree letter (A the first
+K4/K5; ``flash_lp``: ``run_flash_lp_kernel_phase``, K6/K7 in bf16 and
+f16; ``paged_lp``: ``run_paged_lp_kernel_phase``, K1/K4/K5 over bf16 and
+f16 pages), each phase from ``np.random.RandomState(0)`` (``paged_lp``
+from seed 10, as ``chip_smoke.py`` runs it), so both trees time the same
+inputs; a row only one tree has is printed with that tree's turns. ``--order`` lists the turns by tree letter (A the first
 ``--tree``). With ``--profile``, each tree then serves, in the turns of
 ``--order``, chip_smoke's f32 traffic (8 prompts of 15-700 tokens, two
 sampled, 32 new tokens each) through ``LLMServer`` with f32, int8 and
@@ -57,14 +62,22 @@ from mxnet_tpu_torch.serving.llm import Sequence
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kernels.build_all()
-phases = {"kernel": "run_kernel_phase", "flash": "run_flash_kernel_phase",
-          "paged": "run_paged_kernel_phase"}
+# phase -> (chip_smoke function, its last argument: a generator, or the
+# seed the function takes itself)
+phases = {"kernel": ("run_kernel_phase", lambda: np.random.RandomState(0)),
+          "flash": ("run_flash_kernel_phase",
+                    lambda: np.random.RandomState(0)),
+          "paged": ("run_paged_kernel_phase",
+                    lambda: np.random.RandomState(0)),
+          "flash_lp": ("run_flash_lp_kernel_phase",
+                       lambda: np.random.RandomState(0)),
+          "paged_lp": ("run_paged_lp_kernel_phase", lambda: 10)}
 timer = chip_smoke.Timer(torch)
 rows = []
 for ph in sys.argv[1].split(","):
     if ph:
-        rows += getattr(chip_smoke, phases[ph])(
-            torch, timer, np.random.RandomState(0))
+        fn, arg = phases[ph]
+        rows += getattr(chip_smoke, fn)(torch, timer, arg())
 print("AB_ROWS " + json.dumps(
     [{k: r.get(k) for k in ("name", "shape", "ms", "plain_ms",
                             "library_ms", "max_abs_err")} for r in rows]),

@@ -19,11 +19,12 @@ Phases, one line of output each (or more), in order:
    padding mask and causal, and for each mask the two backward kernels'
    sum beside the library's backward (one call for dq, dk and dv), then
    at head dims 256 (padding mask, causal) and 192 (no mask, padded to
-   256); the same three flash kernels on bf16 and f16 inputs
-   (``csrc/flash_attention_lp.cu``, the AMP path's) at BERT-base shapes
-   (no mask, padding mask, causal) and at head dim 256 (padding mask,
-   causal), each giving the same bits on two launches, beside SDPA in
-   the same dtype; the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
+   256); the same three flash kernels on bf16 and f16 inputs (the AMP
+   path's: the forward ``csrc/flash_fwd_lp_sm90.cu``, the backward
+   ``csrc/flash_attention_lp.cu``) at BERT-base shapes (no mask, padding
+   mask, causal) and at head dim 256 (padding mask, causal), each giving
+   the same bits on two launches, beside SDPA in the same dtype, and the
+   forward alone at a ragged tile edge (T=500) and at Tq != Tk; the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
    attention kernels at the decode phase's shapes; every paged row
    (flat, chunk, decode: one staged kernel) carries its launch plan,
    shared bytes per CTA and ptxas's registers (a spill at D=64 fails the
@@ -32,7 +33,12 @@ Phases, one line of output each (or more), in order:
    decode kernels over bf16 and f16 pages (``csrc/ragged_flat_lp.cu``)
    at the same shapes against their twins on the same 16-bit pages,
    bound at 2-byte pages, and the chunk (Q=16) and decode (S=8) kernels
-   once more with q in the pages' dtype (one ulp of it);
+   once more with q in the pages' dtype (one ulp of it); then the input
+   dtypes the TPU kernels take beyond those: the flat kernels (K1, K2)
+   with bf16 q over f32 and int8 pages, the chunk and decode kernels
+   with f16 q over bf16 pages and over bf16 K and f16 V pages (widened
+   to f32 by the wrapper: the row also times the kernel on pools widened
+   beforehand), and the quantized matmul with bf16 and f16 x;
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -73,7 +79,10 @@ Phases, one line of output each (or more), in order:
 7. op front end — ``nd.ragged_paged_attention`` on the decode phase's
    pools with a 3-D q (the decode kernel) and a 4-D q (the chunk
    kernel), and on the same pools and q in bf16 and in f16 (the 16-bit
-   kernels), ``nd.scaled_dot_product_attention``, and three user CUDA
+   kernels), with f16 q over bf16 pools and with bf16 K and f16 V pools;
+   ``ragged_flat_attention`` with bf16 q over the f32 pools and their
+   int8 quantization, ``quantized_matmul`` with bf16 and f16 x;
+   ``nd.scaled_dot_product_attention``, and three user CUDA
    kernels registered through ``rtc.register_cuda_op`` (``scale_add``,
    ``square`` with its gradient, ``rowsum`` with its own output shape)
    at 8192 x 8192 f32, each against its plain version;
@@ -655,14 +664,18 @@ def bound_lp(nbytes, flops):
 
 def run_flash_lp_kernel_phase(torch, timer, rng):
     """K6, K7a and K7b on bf16 and f16 inputs (the AMP training path's
-    kernels, csrc/flash_attention_lp.cu) at BERT-base shapes (no mask,
-    padding mask, causal) and at head dim 256 (padding, causal), against
-    their twins on the same inputs, each giving the same bits on two
-    launches; library: SDPA in the same dtype with the same mask, and
-    its one-call backward."""
+    kernels: the forward of csrc/flash_fwd_lp_sm90.cu, the backward of
+    csrc/flash_attention_lp.cu) at BERT-base shapes (no mask, padding
+    mask, causal) and at head dim 256 (padding, causal), against their
+    twins on the same inputs, each giving the same bits on two launches;
+    library: SDPA in the same dtype with the same mask, and its one-call
+    backward. Then the forward alone, for correctness only
+    (:func:`flash_lp_edge_checks`), at a ragged tile edge and at Tq !=
+    Tk."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     src = "mxnet_tpu_torch/csrc/flash_attention_lp.cu"
+    fwd_src = "mxnet_tpu_torch/csrc/flash_fwd_lp_sm90.cu"
     tpu = "mxnet_tpu/ops/flash_attention.py"
     wide256 = FLASH_WIDE[0]
     results = []
@@ -733,7 +746,8 @@ def run_flash_lp_kernel_phase(torch, timer, rng):
                         for g, w in zip(got, want) if w is not None]
                 err = max(e[0] for e in errs)
                 rel = max(e[1] for e in errs)
-                res = dict(name=name, route="cuda", source=src,
+                res = dict(name=name, route="cuda",
+                           source=fwd_src if base == "flash_fwd" else src,
                            replaces=tpu + line,
                            shape=f"B={B},H={H},T={T},D={D},{label}",
                            max_abs_err=err, tol=tol, ms=timer.ms(kern),
@@ -757,7 +771,51 @@ def run_flash_lp_kernel_phase(torch, timer, rng):
                 f"library")
             results += rows
             del lib_out
+    flash_lp_edge_checks(torch, np.random.RandomState(19))
     return results
+
+
+def flash_lp_edge_checks(torch, rng):
+    """The 16-bit forward against its twin where its TMA tiles meet a
+    ragged edge (Tq = Tk = 500, 12 heads, padding mask: the last query and
+    key tiles run past T and are zero-filled) and with Tq != Tk (128
+    queries over 512 keys, no mask and causal), in bf16 and f16: out
+    within ``FLASH_LP_REL_TOL``, lse within ``FLASH_REL_TOL``, the same
+    bits twice. Correctness only: no kernel row."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    for dtype in ("bfloat16", "float16"):
+        dt, tol = getattr(torch, dtype), FLASH_LP_REL_TOL[dtype]
+        for label, Tq, Tk, padding, causal in (
+                ("T=500 padding", 500, 500, True, False),
+                ("Tq=128 Tk=512", 128, 512, False, False),
+                ("Tq=128 Tk=512 causal", 128, 512, False, True)):
+            B, H, D = 2, 12, 64
+            q, k, v = (torch.from_numpy(rng.randn(B, H, n, D).astype(
+                np.float32)).to(DEVICE).to(dt) for n in (Tq, Tk, Tk))
+            bias = None
+            if padding:
+                vlen = rng.randint(Tk // 4, Tk + 1, size=B)
+                bias = torch.from_numpy(np.where(
+                    np.arange(Tk)[None, :] < vlen[:, None], 0.0,
+                    -1e30).astype(np.float32)).to(DEVICE)
+            scale = 1.0 / D ** 0.5
+            out, lse = fa.flash_forward(q, k, v, bias, causal, scale)
+            again = fa.flash_forward(q, k, v, bias, causal, scale)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = fa.flash_forward_reference(q, k, v, bias,
+                                                          causal, scale)
+            err, rel = rel_err(out.float(), ref_out.float())
+            lse_rel = rel_err(lse, ref_lse)[1]
+            same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            log(f"kernel {fa.kernel_name('flash_fwd', dt)} B={B},H={H},"
+                f"D={D},{label}: max_abs_err={err:.3e} (relative "
+                f"{rel:.3e}, tol {tol}; lse relative {lse_rel:.3e}, tol "
+                f"{FLASH_REL_TOL}) same bits twice {same} (correctness "
+                f"only)")
+            check(rel <= tol and lse_rel <= FLASH_REL_TOL,
+                  f"flash_fwd {dtype} {label} disagrees with its twin")
+            check(same, f"flash_fwd {dtype} {label}: two launches gave "
+                  f"different bits")
 
 
 def paged_case(torch, rng, S, Q, page_dtype="float32"):
@@ -950,6 +1008,164 @@ def run_paged_lp_kernel_phase(torch, timer, seed):
                 f"the same inputs {res['f32_ms']:.4f} ms; {note}")
             check(err <= tol, f"{name} {shape} disagrees with its plain "
                   f"version: {err} > {tol}")
+            results.append(res)
+    results += run_paged_dtype_mix_rows(torch, timer, seed + 100)
+    return results
+
+
+# the input dtypes the TPU kernels take beyond q f32 or in the pages' own
+# dtype: (kind, TPU kernel line, tokens or rows, Q, q, K pages, V pages)
+PAGED_DTYPE_MIXES = (
+    ("flat", ":158", 8, None, "bfloat16", "float32", "float32"),
+    ("flat", ":244", 8, None, "bfloat16", "int8", "int8"),
+    ("chunk", ":412", MAX_SEQS, CHUNK_Q, "float16", "bfloat16", "bfloat16"),
+    ("decode", ":512", MAX_SEQS, None, "float16", "bfloat16", "bfloat16"),
+    ("chunk", ":412", MAX_SEQS, CHUNK_Q, "float32", "bfloat16", "float16"),
+    ("decode", ":512", MAX_SEQS, None, "float32", "bfloat16", "float16"))
+
+
+def run_paged_dtype_mix_rows(torch, timer, seed):
+    """K1 and K2 with bf16 q over f32 and int8 pages, K4 (Q=16) and K5
+    (S=8) with f16 q over bf16 pages and with f32 q over bf16 K and f16 V
+    pages, at the f32 rows' shapes, each against its plain twin on the
+    same tensors (16-bit q: within one ulp of q's dtype; f32 q:
+    ``ATT_TOL``), its bound from the bytes of the inputs as given. K and V
+    of two dtypes run the f32-page kernel on pools the wrapper widens to
+    f32: such a row also carries ``f32_ms``, the kernel alone on pools
+    widened beforehand, so ``ms - f32_ms`` is what the widening costs the
+    op. Case i draws from ``RandomState(seed + i)``."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import ragged_attention as ra
+    results = []
+    for i, (kind, line, n, Q, qd, kd, vd) in enumerate(PAGED_DTYPE_MIXES):
+        rng = np.random.RandomState(seed + i)
+        if kind == "flat":
+            args, nbytes, flops = attention_case(torch, n, kd, rng)
+            valid = None
+            shape = f"T={n},H=12,D=64,bs=16,MB=64"
+            plan = ra.flat_plan(n, MAX_SEQS, 12, 64, BLOCK_SIZE, 64,
+                                args["k_pages"].dtype)
+        else:
+            # both pools at 2 bytes an element; V then in its own dtype
+            # (bf16 values are exact in f16)
+            args, nbytes, flops, valid = paged_case(
+                torch, rng, n, Q if kind == "chunk" else None, kd)
+            args["v_pages"] = args["v_pages"].to(getattr(torch, vd))
+            shape = (f"S={n}," + (f"Q={Q}," if kind == "chunk" else "")
+                     + "H=12,D=64,bs=16,MB=64")
+            plan = (min(Q or 1, 16),) + ra.paged_plan(
+                n, Q or 1, 12, 64, BLOCK_SIZE, 64,
+                torch.float32 if kd != vd else getattr(torch, kd))
+        shape += f",q={qd},k={kd},v={vd}"
+        if qd != "float32":
+            nbytes -= args["q"].numel() * 4   # q and out at 2 bytes, not 4
+            args["q"] = args["q"].to(getattr(torch, qd))
+        call = (ra.ragged_flat_attention if kind == "flat"
+                else ra.ragged_paged_attention)
+        twin = {"flat": ra.ragged_flat_attention_reference,
+                "chunk": ra.ragged_chunk_attention_reference,
+                "decode": ra.ragged_attention_reference}[kind]
+        page_dt = args["k_pages"].dtype if kd == vd else torch.float32
+        name = ra.kernel_name(page_dt, kind)
+
+        def kern(a=args):
+            return call(**a)
+
+        def plain():
+            return twin(**args)
+        out_k = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        diff = out_k.float() - want.float()
+        err = float((diff if valid is None else diff[valid]).abs().max())
+        tol = ATT_TOL if qd == "float32" else float(
+            torch.finfo(want.dtype).eps) * float(want.float().abs().max())
+        check(torch.equal(out_k, again), f"{name} {shape}: two launches "
+              f"gave different bits")
+        check(out_k.dtype == want.dtype == args["q"].dtype,
+              f"{name} {shape}: output dtype {out_k.dtype}")
+        b_ms, b_by, b_f32 = bound(nbytes, flops)
+        src = ("mxnet_tpu_torch/csrc/ragged_flat_lp.cu"
+               if page_dt in (torch.bfloat16, torch.float16)
+               else "mxnet_tpu_torch/csrc/ragged_flat.cu")
+        extra, note = ring_note(kernels, ra, str(page_dt)[6:],
+                                "FlatTiles" if kind == "flat"
+                                else "ChunkTiles",
+                                plan, 64, BLOCK_SIZE, 64)
+        res = dict(name=name, route="cuda", source=src,
+                   replaces="mxnet_tpu/ops/ragged_attention.py" + line,
+                   shape=shape, max_abs_err=err, tol=tol,
+                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                   bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
+                   library_ms=None, **extra)
+        widen = ""
+        if kd != vd:
+            wide = dict(args, k_pages=args["k_pages"].float(),
+                        v_pages=args["v_pages"].float())
+            res["f32_ms"] = timer.ms(lambda: kern(wide))
+            widen = (f"; on pools widened beforehand {res['f32_ms']:.4f} "
+                     f"ms (the widening: "
+                     f"{res['ms'] - res['f32_ms']:.4f} ms)")
+            del wide
+        log(f"kernel {name} {shape}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+            f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"library: none bound_ms={b_ms:.4f} ({b_by}){widen}; {note}")
+        check(err <= tol, f"{name} {shape} disagrees with its plain "
+              f"version: {err} > {tol}")
+        results.append(res)
+    return results
+
+
+def run_wq_x16_rows(torch, timer, rng):
+    """K3 with bf16 and f16 x at T=8, K=768, N=3072 (the step's MLP up
+    projection shape), int8 and fp8 weights, against the plain twin on
+    the same tensors (f32 out, ``WQ_REL_TOL``); bound from x at 2 bytes;
+    library: ``x.float() @ (q.float() * s)``."""
+    from mxnet_tpu_torch.ops import quantization as qz
+    from mxnet_tpu_torch.serving.llm.quant import quantize_leaf
+    results = []
+    T, K, N = 8, 768, 3072
+    for wdt in ("int8", "float8_e4m3fn"):
+        w = rng.randn(K, N).astype(np.float32) / np.sqrt(K)
+        q, s = (t.to(DEVICE) for t in quantize_leaf(w, wdt))
+        x32 = torch.from_numpy(rng.randn(T, K).astype(np.float32)).to(DEVICE)
+        for xdt in ("bfloat16", "float16"):
+            x = x32.to(getattr(torch, xdt))
+
+            def kern():
+                return qz.quantized_matmul(x, q, s)
+
+            def plain():
+                return qz.quantized_matmul_reference(x, q, s)
+
+            def library():
+                return x.float() @ (q.float() * s)
+            out_k = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = float((out_k - ref).abs().max())
+            tol = WQ_REL_TOL * max(1.0, float(ref.abs().max()))
+            check(out_k.dtype == torch.float32, f"K3 {xdt} x gave "
+                  f"{out_k.dtype}")
+            # a 16-bit x is exact in TF32: one pass
+            b_ms, b_by, b_f32 = bound(2 * T * K + K * N + 4 * N + 4 * T * N,
+                                      2 * T * K * N, 1)
+            name = qz.kernel_name(q.dtype)
+            res = dict(name=name, route="cuda",
+                       source="mxnet_tpu_torch/csrc/wq_matmul.cu",
+                       replaces="mxnet_tpu/ops/quantization.py:297",
+                       shape=f"T={T},K={K},N={N},x={xdt}", max_abs_err=err,
+                       tol=tol, ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                       bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
+                       library_ms=timer.ms(library))
+            log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}) kernel_ms={res['ms']:.4f} "
+                f"plain_ms={res['plain_ms']:.4f} "
+                f"library_ms={res['library_ms']:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by})")
+            check(err <= tol, f"{name} {res['shape']} disagrees with its "
+                  f"plain version: {err} > {tol}")
             results.append(res)
     return results
 
@@ -1741,8 +1957,10 @@ def run_op_phase(torch, timer, rng, decoded):
     twin, each moving its kernel's count by one),
     ``nd.scaled_dot_product_attention`` (one ``flash_fwd``), and the
     three ``rtc`` kernels through ``nd`` at 8192 x 8192 f32 against their
-    plain versions, with ``square``'s gradient under ``record()``.
-    Returns (launches of those calls, kernel rows for the rtc kernels)."""
+    plain versions, with ``square``'s gradient under ``record()``; and
+    the input dtypes the TPU kernels take beyond q in the pages' own
+    dtype (``op_dtype_mixes``). Returns (launches of those calls, kernel
+    rows for the rtc kernels)."""
     from mxnet_tpu_torch import autograd as ag
     from mxnet_tpu_torch import kernels, nd
     from mxnet_tpu_torch.ops import ragged_attention as ra
@@ -1762,6 +1980,9 @@ def run_op_phase(torch, timer, rng, decoded):
     names, plain = register_rtc_ops("rtc_")
     x, y = (torch.from_numpy(rng.randn(RTC_N, RTC_N).astype(
         np.float32)).to(DEVICE) for _ in range(2))
+    # its own generator: the later phases draw what they drew before
+    mixes = op_dtype_mixes(torch, np.random.RandomState(14), decoded, q3, q4,
+                           ql)
     # the path: every call below once, counted
     kernels.reset_launch_counts()
     got3 = nd.ragged_paged_attention(q3, kp, vp, bt, kv)
@@ -1769,6 +1990,7 @@ def run_op_phase(torch, timer, rng, decoded):
     got16 = {dt: (nd.ragged_paged_attention(a3, k16, v16, bt, kv),
                   nd.ragged_paged_attention(a4, k16, v16, bt, kv, q_lens=ql))
              for dt, (k16, v16, a3, a4) in lowp.items()}
+    got_mix = {k: call() for k, (call, _, _) in mixes.items()}
     got_sdpa = nd.scaled_dot_product_attention(*sdpa_in)
     got_rtc = {"scale_add": getattr(nd, names["scale_add"])(x, y),
                "rowsum": getattr(nd, names["rowsum"])(x)}
@@ -1780,11 +2002,31 @@ def run_op_phase(torch, timer, rng, decoded):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"ops: launches {launches}")
-    names16 = [ra.kernel_name(dt, kind) for dt in lowp
-               for kind in ("decode", "chunk")]
-    for kname in [ra.DECODE_KERNEL, ra.CHUNK_KERNEL, "flash_fwd"] + names16:
-        check(launches.get(kname, 0) == 1, f"ops: {kname} launched "
-              f"{launches.get(kname, 0)} times, expected 1")
+    want_launches = {ra.DECODE_KERNEL: 1, ra.CHUNK_KERNEL: 1,
+                     "flash_fwd": 1}
+    for dt in lowp:
+        for kind in ("decode", "chunk"):
+            want_launches[ra.kernel_name(dt, kind)] = 1
+    for _, _, kname in mixes.values():
+        want_launches[kname] = want_launches.get(kname, 0) + 1
+    for kname, n in want_launches.items():
+        check(launches.get(kname, 0) == n, f"ops: {kname} launched "
+              f"{launches.get(kname, 0)} times, expected {n}")
+    for what, (_, twin, _) in mixes.items():
+        got, want = got_mix[what], twin()
+        check(got.dtype == want.dtype, f"ops: {what} gave {got.dtype}, "
+              f"its twin {want.dtype}")
+        err = float((got.float() - want.float()).abs().max())
+        if what.startswith("quantized_matmul"):
+            tol = WQ_REL_TOL * max(1.0, float(want.abs().max()))
+        elif want.dtype == torch.float32:
+            tol = ATT_TOL
+        else:
+            tol = float(torch.finfo(want.dtype).eps) * float(
+                want.float().abs().max())
+        log(f"ops: {what}: {got.dtype} out, max_abs_err={err:.3e} (tol "
+            f"{tol:.3e})")
+        check(err <= tol, f"ops: {what} disagrees with its plain twin")
     e3 = float((got3 - ra.ragged_attention_reference(
         q3, kp, vp, bt, kv)).abs().max())
     e4 = float((got4 - ra.ragged_chunk_attention_reference(
@@ -1844,6 +2086,76 @@ def run_op_phase(torch, timer, rng, decoded):
               f"plain version: {rel[1]} > {RTC_REL_TOL}")
         results.append(res)
     return launches, results
+
+
+def op_dtype_mixes(torch, rng, decoded, q3, q4, ql):
+    """The input dtypes the TPU kernels take beyond q in the pages' own
+    dtype, on the decode phase's layer-0 pools: ``nd.ragged_paged_attention``
+    (3-D and 4-D q) with f16 q over bf16 pools and with f32 q over bf16 K
+    and f16 V pools; ``ragged_flat_attention`` (one token a row at its
+    last position) with bf16 q over the f32 pools and over their int8
+    quantization; ``quantized_matmul`` with bf16 and f16 x at T=8, K=768,
+    N=3072. ``{what: (call, plain twin, launch-counter name)}``."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import quantization as qz
+    from mxnet_tpu_torch.ops import ragged_attention as ra
+    from mxnet_tpu_torch.serving.llm.model import _quantize_kv
+    from mxnet_tpu_torch.serving.llm.quant import quantize_leaf
+    cache, bt, kv, model = decoded
+    kp, vp = cache.k_pages[0], cache.v_pages[0]
+    N, bs, H, D = kp.shape
+    kb, vb, vh = kp.bfloat16(), vp.bfloat16(), vp.half()
+    q3h, q4h, qf = q3.half(), q4.half(), q3.bfloat16()
+    seq = torch.arange(bt.shape[0], dtype=torch.int32, device=DEVICE)
+    pos = (kv - 1).to(torch.int32)
+    quant = {}
+    for name, pool in (("k", kp), ("v", vp)):
+        xq, sc = _quantize_kv(pool.reshape(N * bs, H, D), torch.int8)
+        quant[f"{name}_pages"] = xq.reshape(N, bs, H, D).contiguous()
+        quant[f"{name}_scales"] = sc.reshape(N, bs, H).contiguous()
+    w, ws = quantize_leaf((rng.randn(768, 3072) / np.sqrt(768)).astype(
+        np.float32), "int8")
+    w, ws = w.to(DEVICE), ws.to(DEVICE)
+    x = torch.from_numpy(rng.randn(8, 768).astype(np.float32)).to(DEVICE)
+    xs = {dt: x.to(dt) for dt in (torch.bfloat16, torch.float16)}
+    dec, chk = ra.ragged_attention_reference, \
+        ra.ragged_chunk_attention_reference
+    mixes = {
+        "nd.ragged_paged_attention 3-D f16 q, bf16 pages": (
+            lambda: nd.ragged_paged_attention(q3h, kb, vb, bt, kv),
+            lambda: dec(q3h, kb, vb, bt, kv),
+            ra.kernel_name(torch.bfloat16, "decode")),
+        "nd.ragged_paged_attention 4-D f16 q, bf16 pages": (
+            lambda: nd.ragged_paged_attention(q4h, kb, vb, bt, kv,
+                                              q_lens=ql),
+            lambda: chk(q4h, kb, vb, bt, kv, ql),
+            ra.kernel_name(torch.bfloat16, "chunk")),
+        "nd.ragged_paged_attention 3-D f32 q, bf16 K, f16 V": (
+            lambda: nd.ragged_paged_attention(q3, kb, vh, bt, kv),
+            lambda: dec(q3, kb, vh, bt, kv), ra.DECODE_KERNEL),
+        "nd.ragged_paged_attention 4-D f32 q, bf16 K, f16 V": (
+            lambda: nd.ragged_paged_attention(q4, kb, vh, bt, kv,
+                                              q_lens=ql),
+            lambda: chk(q4, kb, vh, bt, kv, ql), ra.CHUNK_KERNEL),
+        "ragged_flat_attention bf16 q, f32 pages": (
+            lambda: ra.ragged_flat_attention(qf, kp, vp, bt, seq, pos),
+            lambda: ra.ragged_flat_attention_reference(qf, kp, vp, bt, seq,
+                                                       pos),
+            ra.kernel_name(torch.float32)),
+        "ragged_flat_attention bf16 q, int8 pages": (
+            lambda: ra.ragged_flat_attention(qf, block_tables=bt,
+                                             seq_ids=seq, positions=pos,
+                                             **quant),
+            lambda: ra.ragged_flat_attention_reference(
+                qf, block_tables=bt, seq_ids=seq, positions=pos, **quant),
+            ra.kernel_name(torch.int8)),
+    }
+    for dt, xd in xs.items():
+        mixes[f"quantized_matmul {str(dt)[6:]} x"] = (
+            lambda xd=xd: qz.quantized_matmul(xd, w, ws),
+            lambda xd=xd: qz.quantized_matmul_reference(xd, w, ws),
+            qz.kernel_name(torch.int8))
+    return mixes
 
 
 # ------------------------------------------------------ training phase --
@@ -2497,6 +2809,7 @@ def main():
                                          np.random.RandomState(9))
     results += run_paged_kernel_phase(torch, timer, rng)
     results += run_paged_lp_kernel_phase(torch, timer, 10)
+    results += run_wq_x16_rows(torch, timer, np.random.RandomState(11))
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()

@@ -1,9 +1,10 @@
-// Flash attention forward and backward in bf16 and f16, for NVIDIA Hopper
-// (sm_90a): the 16-bit twins of csrc/flash_attention.cu.
+// Flash attention backward in bf16 and f16, for NVIDIA Hopper (sm_90a):
+// the 16-bit twins of csrc/flash_attention.cu's backward. The 16-bit
+// forward (K6, mxnet_tpu/ops/flash_attention.py:89 _fwd_kernel) is
+// csrc/flash_fwd_lp_sm90.cu (TMA and wgmma); these kernels read its lse.
 //
 // Replaces the TPU kernels in mxnet_tpu/ops/flash_attention.py on their
 // native-rate path (16-bit operands, `_prec` None, f32 accumulation):
-//   K6  _fwd_kernel   (flash_fwd_lp_kernel: out and logsumexp)
 //   K7a _dkv_kernel   (flash_dkv_lp_kernel: dK, dV and the per-head bias
 //                      gradient of one key tile)
 //   K7b _dq_kernel    (flash_dq_lp_kernel: dQ of one query tile)
@@ -14,11 +15,6 @@
 //   causal: s = -1e30 where query row < key col (absolute positions, as
 //           the TPU kernel masks them; key tiles wholly above the diagonal
 //           are skipped)
-//   forward: online softmax over key tiles from m = -1e30 (never -inf);
-//            P rounded to T before P V (the TPU kernel's
-//            `p.astype(v_blk.dtype)`, :123), f32 accumulation; out =
-//            acc / max(l, 1e-30) rounded to T, lse = m + log(max(l,
-//            1e-30)) in f32
 //   backward, from the saved lse and delta = rowsum(dout * out):
 //            p = exp(s - lse) (0 where causal drops the pair),
 //            dv = T(p)^T dout, ds = p * (dout v^T - delta),
@@ -26,14 +22,14 @@
 //            kernels' `lp(pT)`, `lp(dsT)`, :274-276, :311-312), dbias =
 //            colsum(ds) from the unrounded f32 ds
 // Keys past Tk and queries past Tq take no part: the kernels mask the
-// ragged edge themselves (zero-filled tiles, absent keys at -inf in the
-// forward, p = 0 in the backward) and need no padded copy.
+// ragged edge themselves (zero-filled tiles, p = 0) and need no padded
+// copy.
 //
 // What bounds them on the card: operations. At BERT-base shapes (B=8,
-// H=12, T=512, D=64) the forward does ~6.4 GFLOP, the dK/dV kernel ~12.9
-// (four products per (query, key) pair: S^T, dV, dP^T, dK) and the dQ
-// kernel ~9.7 (S, dP, dQ), against ~25-38 MB of 16-bit q/k/v/dout/out:
-// ~6.5-13 us at the 989 TFLOP/s dense bf16/f16 rate, ~8-11 us of bytes.
+// H=12, T=512, D=64) the dK/dV kernel does ~12.9 GFLOP (four products
+// per (query, key) pair: S^T, dV, dP^T, dK) and the dQ kernel ~9.7 (S,
+// dP, dQ), against ~32-38 MB of 16-bit q/k/v/dout: ~10-13 us at the 989
+// TFLOP/s dense bf16/f16 rate, ~10-11 us of bytes.
 //
 // Every product is one pass of mma.sync.aligned.m16n8k16 with f32
 // accumulators: the operands are already 16-bit, as on the TPU's
@@ -41,14 +37,13 @@
 // runs three passes). The structure is the f32 kernels': one CTA of 4
 // warps per (row tile, b*h); a tile is 64 rows, or 32 at D = 256, where
 // two warps share each 16 rows and split the head dim of the output
-// products. At 16 bits shared memory would take 64-row tiles at D = 256
-// (169 KB in the forward), but registers would not: dK and dV of 16 rows
-// x 256 columns are 256 f32 accumulators a thread. Each warp walks the
-// other operand's tiles through a 2-stage cp.async ring, carrying its
-// accumulators in registers:
-//   forward and dQ: a query tile; Q (and dO) stay in shared memory, the
-//     ring carries K and V; dQ walks the latest query tiles (the longest
-//     causal walks) first.
+// products: registers would not take 64-row tiles at D = 256, where dK
+// and dV of 16 rows x 256 columns are 256 f32 accumulators a thread. Each
+// warp walks the other operand's tiles through a 2-stage cp.async ring,
+// carrying its accumulators in registers:
+//   dQ: a query tile; Q and dO stay in shared memory, the ring carries K
+//     and V; it walks the latest query tiles (the longest causal walks)
+//     first.
 //   dK/dV: a key tile; K and V stay in shared memory, the ring carries
 //     Q, dO and the tile's lse and delta; scores are transposed (rows =
 //     keys), as in the TPU kernel, so the per-key bias and bias gradient
@@ -71,7 +66,6 @@
 
 namespace {
 
-constexpr float kNegInf = -1e30f;   // _NEG_INF of ops/flash_attention.py
 constexpr int kThreads = 128;       // 4 warps
 constexpr int kWarps = kThreads / 32;
 
@@ -121,9 +115,9 @@ struct Lp<__half> {
 // The tiles of head dim D: kRows query or key rows of 16-bit elements,
 // each padded to D + 8; warp w owns rows 16 (w % kRowWarps) .. + 15 and
 // output columns kCols (w / kRowWarps) .. + kCols - 1. Each kernel's
-// shared bytes: forward: Q + 2 x (K, V); dK/dV: K, V + 2 x (Q, dO, lse,
-// delta); dQ: Q, dO + 2 x (K, V). At D = 64: 45, 55, 54 KB; at D = 256
-// (32 rows): 83, 99, 99 KB; two CTAs an SM at every D.
+// shared bytes: dK/dV: K, V + 2 x (Q, dO, lse, delta); dQ: Q, dO + 2 x
+// (K, V). At D = 64: 55, 54 KB; at D = 256 (32 rows): 99, 99 KB; two CTAs
+// an SM at every D.
 template <int D>
 struct Tiles {
   static constexpr int kRows = D > 128 ? 32 : 64;
@@ -133,7 +127,6 @@ struct Tiles {
   static constexpr int kElems = kRows * kLd;
   static constexpr int kTileBytes = 2 * kElems;
   static constexpr int kDkvStageBytes = 2 * kTileBytes + 8 * kRows;
-  static constexpr size_t kFwdSmem = 5 * kTileBytes;
   static constexpr size_t kDkvSmem = 2 * kTileBytes + 2 * kDkvStageBytes;
   static constexpr size_t kDqSmem = 6 * kTileBytes;
 };
@@ -299,125 +292,6 @@ __device__ __forceinline__ int warp_col0(int warp) {
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = Lp<T>::pack(a, b);
-}
-
-// ------------------------------------------------------------- forward --
-// K6: warp w owns query rows warp_row0 .. + 15 and walks the key tiles
-// with its S (16 x kRows) and O (16 x kCols) accumulators in registers.
-// Shared: the Q tile, then a 2-stage ring of (K tile, V tile).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_lp_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const float* __restrict__ bias, T* __restrict__ out,
-                    float* __restrict__ lse, int H, int Tq, int Tk,
-                    int causal, float scale) {
-  constexpr int kLd = Tiles<D>::kLd, kTe = Tiles<D>::kElems;
-  constexpr int kRows = Tiles<D>::kRows, NK = kRows / 8;
-  constexpr int NC = Tiles<D>::kCols / 8;  // 8-wide chunks of the columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp_row0<D>(warp), c0 = warp_col0<D>(warp);
-  const T* kb = k + static_cast<size_t>(bh) * Tk * D;
-  const T* vb = v + static_cast<size_t>(bh) * Tk * D;
-  const float* brow =
-      bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Tk;
-  // causal: key tiles at or past the last query row + 1 are fully masked
-  const int k_end = causal ? min(Tk, q0 + kRows) : Tk;
-  const int tiles = (k_end + kRows - 1) / kRows;
-
-  load_tile_async<T, D>(smem, q + static_cast<size_t>(bh) * Tq * D, q0,
-                        Tq);
-  if (tiles > 0) {
-    load_tile_async<T, D>(smem + kTe, kb, 0, Tk);
-    load_tile_async<T, D>(smem + 2 * kTe, vb, 0, Tk);
-  }
-  cp_commit();
-  const T* qw = smem + r0 * kLd;  // this warp's 16 query rows
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[NC][4];
-  zero(o);
-
-  for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kRows;
-    if (it + 1 < tiles) {
-      T* nk = smem + (1 + 2 * ((it + 1) & 1)) * kTe;
-      load_tile_async<T, D>(nk, kb, k0 + kRows, Tk);
-      load_tile_async<T, D>(nk + kTe, vb, k0 + kRows, Tk);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();  // key tile `it` (and at it = 0 the Q tile) landed
-    const T* ks_ = smem + (1 + 2 * (it & 1)) * kTe;
-    const T* vs = ks_ + kTe;
-
-    // S = Q K^T, then the online softmax on the C fragments: this thread
-    // holds rows g and g+8, keys k0 + 8j + 2t (+1); the quad of a row
-    // reduces by shuffles
-    float s[NK][4], alpha[2], bj[NK][2];
-    key_bias(brow, Tk, k0, t, bj);
-    score_mma<T, D>(qw, ks_, lane, s);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + r0 + g + 8 * r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * j + 2 * t + e;
-          float x = s[j][2 * r + e] * scale + bj[j][e];
-          if (causal && row < col) x = kNegInf;
-          if (col >= Tk) x = -INFINITY;  // absent key: weighs exactly 0
-          s[j][2 * r + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      alpha[r] = expf(m[r] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[j][2 * r + e] - m_new);
-          s[j][2 * r + e] = p;
-          ps += p;
-        }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      l[r] = l[r] * alpha[r] + ps;
-      m[r] = m_new;
-    }
-    // O = alpha O + T(P) V
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[j][i] *= alpha[i >> 1];
-    out_mma<T, D>(s, vs + c0, lane, o);
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-  cp_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + g + 8 * r;
-    if (row >= Tq) continue;
-    const float l_safe = fmaxf(l[r], 1e-30f);
-    T* orow = out + (static_cast<size_t>(bh) * Tq + row) * D + c0;
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      store2(orow + 8 * j + 2 * t, o[j][2 * r] / l_safe,
-             o[j][2 * r + 1] / l_safe);
-    if (t == 0 && c0 == 0)
-      lse[static_cast<size_t>(bh) * Tq + row] = m[r] + logf(l_safe);
-  }
 }
 
 // ---------------------------------------------------------- backward dKV --
@@ -685,26 +559,6 @@ bool aligned16(const Ptr*... p) {
 }
 
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v,
-               const void* bias, void* out, void* lse, int BH, int H,
-               int Tq, int Tk, int causal, float scale, cudaStream_t st) {
-  static bool ready = false;
-  const size_t smem = Tiles<D>::kFwdSmem;
-  if (int rc = allow_smem(flash_fwd_lp_kernel<T, D>, smem, &ready))
-    return rc;
-  if (!aligned16(q, k, v, out))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  constexpr int kRows = Tiles<D>::kRows;
-  const dim3 grid((Tq + kRows - 1) / kRows, BH);
-  flash_fwd_lp_kernel<T, D><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), static_cast<float*>(lse), H, Tq, Tk, causal,
-      scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* bias, void* dk, void* dv, void* dbias, int BH,
@@ -762,17 +616,6 @@ int launch_dq(const void* q, const void* k, const void* v,
   }
 
 template <typename T>
-int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
-              void* out, void* lse, int BH, int H, int Tq, int Tk, int D,
-              int causal, float scale, void* stream) {
-#define MXT_CALL(DD)                                                     \
-  launch_fwd<T, DD>(q, k, v, bias, out, lse, BH, H, Tq, Tk, causal, scale, \
-                    static_cast<cudaStream_t>(stream))
-  MXT_HEAD_DIM_SWITCH(D, MXT_CALL)
-#undef MXT_CALL
-}
-
-template <typename T>
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* bias,
               void* dk, void* dv, void* dbias, int BH, int H, int Tq,
@@ -804,13 +647,6 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 #define MXT_ENTRIES(SUFFIX, TYPE)                                           \
-  int mxt_flash_fwd_##SUFFIX(const void* q, const void* k, const void* v,   \
-                             const void* bias, void* out, void* lse,        \
-                             int BH, int H, int Tq, int Tk, int D,          \
-                             int causal, float scale, void* stream) {       \
-    return flash_fwd<TYPE>(q, k, v, bias, out, lse, BH, H, Tq, Tk, D,       \
-                           causal, scale, stream);                          \
-  }                                                                         \
   int mxt_flash_dkv_##SUFFIX(const void* q, const void* k, const void* v,   \
                              const void* dout, const void* lse,             \
                              const void* delta, const void* bias,           \

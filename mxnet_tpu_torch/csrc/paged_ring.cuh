@@ -13,12 +13,17 @@
 //                            f16 pages)
 // with one kernel template, paged_ring_kernel, and two query-tile types:
 // FlatTiles (K1, K2) and ChunkTiles (K4, and K5 as a chunk of one token
-// a row). The TPU kernels cast whatever float page they are given to f32
-// in the kernel and write the output in q's dtype; so do these: q is f32
-// or, over 16-bit pages, the pages' dtype (q_lp), read into the f32 q
-// tile; a 16-bit page element becomes f32 where the ring's consumers read
-// it (load_run); the output is f32, or q's 16-bit dtype rounded to
-// nearest even from the f32 result.
+// a row). The TPU kernels cast whatever float q and page they are given
+// to f32 in the kernel and write the output in q's dtype; so do these:
+// q is f32, bf16 or f16 over any page dtype (q_dtype: 0, 1, 2, a runtime
+// argument, not a template parameter, which would triple the build),
+// widened into the f32 q tile where it is loaded; a 16-bit page element
+// becomes f32 where the ring's consumers read it (load_run); the output
+// is f32, or q's 16-bit dtype rounded to nearest even from the f32
+// result. K and V pages of two float dtypes are widened by the caller
+// (ops/ragged_attention.py) to their common dtype, f32, before the
+// launch: exact, since the kernel widens every page element to f32
+// anyway, at the cost of one copy of a pool, on the op path only.
 //
 // What they compute: query token t belongs to row `row` of block_tables
 // and attends over the positions 0..horizon of that row's paged history;
@@ -137,10 +142,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 __device__ __forceinline__ float to_float(__half v) {
   return __half2float(v);
 }
-
-// the 16-bit page types (bf16, f16): q and the output may take them too
-template <typename PageT>
-constexpr bool kHalfWidth = sizeof(PageT) == 2;
 
 // v rounded to nearest even, as astype does on the TPU
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
@@ -603,26 +604,28 @@ __device__ __forceinline__ void attend_page(
   }
 }
 
-// element i of q (f32, or the pages' 16-bit dtype where q_lp), as f32
-template <typename PageT>
-__device__ __forceinline__ float q_elem(const void* q, size_t i, int q_lp) {
-  if constexpr (kHalfWidth<PageT>) {
-    if (q_lp) return to_float(static_cast<const PageT*>(q)[i]);
-  }
+// q's dtype (the q_dtype argument of every entry point): q and the
+// output are f32, bf16 or f16, whatever the pages' dtype
+constexpr int kQF32 = 0, kQBf16 = 1, kQF16 = 2;
+
+// element i of q, in q_dtype, as f32
+__device__ __forceinline__ float q_elem(const void* q, size_t i,
+                                        int q_dtype) {
+  if (q_dtype == kQBf16)
+    return to_float(static_cast<const __nv_bfloat16*>(q)[i]);
+  if (q_dtype == kQF16) return to_float(static_cast<const __half*>(q)[i]);
   return static_cast<const float*>(q)[i];
 }
 
-// out[i] = v, in f32 or, where q_lp, in the pages' 16-bit dtype
-template <typename PageT>
+// out[i] = v, in q_dtype
 __device__ __forceinline__ void store_out(void* out, size_t i, float v,
-                                          int q_lp) {
-  if constexpr (kHalfWidth<PageT>) {
-    if (q_lp) {
-      store_as(static_cast<PageT*>(out) + i, v);
-      return;
-    }
-  }
-  static_cast<float*>(out)[i] = v;
+                                          int q_dtype) {
+  if (q_dtype == kQBf16)
+    store_as(static_cast<__nv_bfloat16*>(out) + i, v);
+  else if (q_dtype == kQF16)
+    store_as(static_cast<__half*>(out) + i, v);
+  else
+    static_cast<float*>(out)[i] = v;
 }
 
 // grid (query tiles, H / heads, splits), cluster (1, 1, splits). Two
@@ -632,7 +635,7 @@ __device__ __forceinline__ void store_out(void* out, size_t i, float v,
 template <typename PageT, bool kScaled, int kEpl, bool kPred,
           typename Tiles>
 __global__ void __launch_bounds__(kRingWarps * 32, 2)
-paged_ring_kernel(const void* __restrict__ q,   // f32, or PageT (q_lp)
+paged_ring_kernel(const void* __restrict__ q,   // q_dtype
                   const PageT* __restrict__ k_pages,    // [N, bs, H, D]
                   const PageT* __restrict__ v_pages,    // [N, bs, H, D]
                   const float* __restrict__ k_scales,   // [N, bs, H]
@@ -640,7 +643,7 @@ paged_ring_kernel(const void* __restrict__ q,   // f32, or PageT (q_lp)
                   const int32_t* __restrict__ block_tables,  // [S, MB]
                   Tiles tiles, void* __restrict__ out,  // q's dtype
                   int H, int D_arg, int bs, int N, int MB, int heads,
-                  int stages, int subs, int vec, int q_lp, float scale) {
+                  int stages, int subs, int vec, int q_dtype, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = kPred ? D_arg : kEpl * 32;
   const int tid = threadIdx.x;
@@ -686,11 +689,10 @@ paged_ring_kernel(const void* __restrict__ q,   // f32, or PageT (q_lp)
       const int pr = i / D;
       const int qi = pr / heads;
       s_q[i] = qi < t.nq
-                   ? q_elem<PageT>(q,
-                                   (static_cast<size_t>(t.tok0 + qi) * H +
-                                    h0 + (pr - qi * heads)) * D +
-                                       (i - pr * D),
-                                   q_lp)
+                   ? q_elem(q,
+                            (static_cast<size_t>(t.tok0 + qi) * H + h0 +
+                             (pr - qi * heads)) * D + (i - pr * D),
+                            q_dtype)
                    : 0.f;
     }
     for (int i = tid; i < states * D; i += nthreads) s_acc[i] = 0.f;
@@ -800,7 +802,7 @@ paged_ring_kernel(const void* __restrict__ q,   // f32, or PageT (q_lp)
         for (int r = 0; r < kMaxCluster; ++r)
           if (r < ranks)
             o += cluster.map_shared_rank(s_acc, r)[pr * D + d] * w[r];
-        store_out<PageT>(out, orow + d, o / l_safe, q_lp);
+        store_out(out, orow + d, o / l_safe, q_dtype);
       }
     }
     // no CTA leaves, or takes its next tile, while another reads its state
@@ -823,12 +825,13 @@ int launch_ring(const void* q, const void* k_pages, const void* v_pages,
                 const void* k_scales, const void* v_scales,
                 const void* block_tables, Tiles tiles, void* out, int ctas,
                 int H, int D, int bs, int N, int MB, int heads, int splits,
-                int stages, int subs, int q_lp, float scale, void* stream) {
+                int stages, int subs, int q_dtype, float scale,
+                void* stream) {
   const int qt = tiles.qt();
   if (ctas <= 0 || H <= 0 || D < 1 || D > 256 || bs <= 0 || N <= 0 ||
       MB <= 0 || heads < 1 || H % heads != 0 || splits < 1 || splits > 8 ||
       stages < 2 || stages > 4 || subs < 1 || subs * qt * heads > 64 ||
-      (q_lp != 0 && !kHalfWidth<PageT>))
+      q_dtype < kQF32 || q_dtype > kQF16)
     return static_cast<int>(cudaErrorInvalidValue);
   const RingLayout L(bs, heads, D, static_cast<int>(sizeof(PageT)),
                      kScaled, qt, subs, MB);
@@ -871,7 +874,7 @@ int launch_ring(const void* q, const void* k_pages, const void* v_pages,
         static_cast<const float*>(k_scales),
         static_cast<const float*>(v_scales),
         static_cast<const int32_t*>(block_tables), tiles, out, H, D, bs, N,
-        MB, heads, stages, subs, vec, q_lp, scale);
+        MB, heads, stages, subs, vec, q_dtype, scale);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     return static_cast<int>(cudaGetLastError());
   });
@@ -884,15 +887,16 @@ int launch_flat(const void* q, const void* k_pages, const void* v_pages,
                 const void* block_tables, const void* seq_ids,
                 const void* positions, void* out, int T, int H, int D,
                 int bs, int N, int S, int MB, int qt, int heads, int splits,
-                int stages, int subs, int q_lp, float scale, void* stream) {
+                int stages, int subs, int q_dtype, float scale,
+                void* stream) {
   if (T <= 0 || S <= 0 || qt < 1 || qt > kQTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const FlatTiles tiles{static_cast<const int32_t*>(seq_ids),
                         static_cast<const int32_t*>(positions), S, T, qt};
   return launch_ring<PageT, kScaled>(
       q, k_pages, v_pages, k_scales, v_scales, block_tables, tiles, out,
-      (T + qt - 1) / qt, H, D, bs, N, MB, heads, splits, stages, subs, q_lp,
-      scale, stream);
+      (T + qt - 1) / qt, H, D, bs, N, MB, heads, splits, stages, subs,
+      q_dtype, scale, stream);
 }
 
 // K4: q/out [S, Q, H, D], kv_lens/q_lens [S] (ChunkTiles)
@@ -901,7 +905,7 @@ int launch_chunk(const void* q, const void* k_pages, const void* v_pages,
                  const void* block_tables, const void* kv_lens,
                  const void* q_lens, void* out, int S, int Q, int H, int D,
                  int bs, int N, int MB, int heads, int splits, int stages,
-                 int subs, int q_lp, float scale, void* stream) {
+                 int subs, int q_dtype, float scale, void* stream) {
   if (Q <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (Q + kQTile - 1) / kQTile;
   const ChunkTiles chunk{static_cast<const int32_t*>(kv_lens),
@@ -909,7 +913,7 @@ int launch_chunk(const void* q, const void* k_pages, const void* v_pages,
   return launch_ring<PageT, false>(q, k_pages, v_pages, nullptr, nullptr,
                                    block_tables, chunk, out, S * tiles, H, D,
                                    bs, N, MB, heads, splits, stages, subs,
-                                   q_lp, scale, stream);
+                                   q_dtype, scale, stream);
 }
 
 // K5: q/out [S, H, D], kv_lens [S]: a chunk of one token a row (a row
@@ -918,13 +922,13 @@ template <typename PageT>
 int launch_decode(const void* q, const void* k_pages, const void* v_pages,
                   const void* block_tables, const void* kv_lens, void* out,
                   int S, int H, int D, int bs, int N, int MB, int heads,
-                  int splits, int stages, int subs, int q_lp, float scale,
+                  int splits, int stages, int subs, int q_dtype, float scale,
                   void* stream) {
   const ChunkTiles decode{static_cast<const int32_t*>(kv_lens), nullptr, 1,
                           1};
   return launch_ring<PageT, false>(q, k_pages, v_pages, nullptr, nullptr,
                                    block_tables, decode, out, S, H, D, bs, N,
-                                   MB, heads, splits, stages, subs, q_lp,
+                                   MB, heads, splits, stages, subs, q_dtype,
                                    scale, stream);
 }
 

@@ -1,7 +1,9 @@
 // Weight-only quantised matmul for NVIDIA Hopper (sm_90a):
 //   out[t, c] = (sum_k x[t, k] * qw[k, c]) * s[c]
-// x f32 [T, K]; qw int8 or fp8-e4m3 [K, N]; s f32 [N] (one scale per
-// output column); out f32 [T, N].
+// x f32, bf16 or f16 [T, K] (x_dtype 0, 1, 2); qw int8 or fp8-e4m3 [K,
+// N]; s f32 [N] (one scale per output column); out f32 [T, N]. The TPU
+// kernel widens any float x to f32 (`x_ref[...].astype(jnp.float32)`);
+// so does this one, where it reads x's fragments.
 //
 // Replaces the TPU kernel K3, _wq_matmul_kernel in
 // mxnet_tpu/ops/quantization.py, whose point is that the f32 weight
@@ -17,7 +19,9 @@
 // f32 and passes to the tensor cores exactly. Only x is split, once per
 // fragment, into hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x = hi + lo
 // to ~2^-22 relative), and each fragment pair is two MMAs, lo*w then
-// hi*w. The tensor cores truncate each sum into their f32 accumulator,
+// hi*w. A bf16 or f16 x is exact in TF32 (8 and 11 significant bits), so
+// it needs no split: its fragments are the widened values, one pass. The
+// tensor cores truncate each sum into their f32 accumulator,
 // so each 32-deep step's MMAs go to a fresh accumulator that f32 adds
 // fold into the running one: f32 accuracy (the tolerance is 1e-5 of the
 // output's magnitude) at the tensor cores' rate.
@@ -32,7 +36,8 @@
 //   tile (f32, rows padded for conflict-free fragment reads) and the 32 x
 //   kBN weight bytes, neighbouring threads copying neighbouring 16-byte
 //   chunks, so 3 to 5 steps of weights are in flight per CTA while one
-//   is multiplied.
+//   is multiplied. A 16-bit x tile is staged as it lies (rows of kBK + 8
+//   elements, 16-byte copies where K and x allow, else plain loads).
 // - mma.sync m16n8k8 TF32. The weight columns are permuted so that the
 //   eight bytes a thread needs for the B fragments of all eight 8-column
 //   MMA tiles of its warp's 64 columns lie together: one 8-byte shared
@@ -68,6 +73,10 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kBK = 32;        // K rows per ring stage; K slices are whole
                                // steps (ops/quantization.py wq_plan)
 constexpr int kXLd = kBK + 4;  // x stage row stride (floats)
+// the same for a 16-bit x (elements): 80-byte rows, so the fragment
+// reads of a warp's 8 rows fall in distinct banks
+constexpr int kXLd16 = kBK + 8;
+constexpr int kXF32 = 0, kXBf16 = 1, kXF16 = 2;  // x_dtype
 
 // A CTA's tile is kBM x 64*kWN: kBM/16 warps along M, kWN along N (64
 // columns each) and the rest along K (each takes some of a step's four
@@ -182,12 +191,20 @@ __device__ __forceinline__ void widen(uint2 v, uint32_t (&f)[8],
   }
 }
 
+// element i of a 16-bit x tile, widened exactly
+__device__ __forceinline__ float widen_x(const uint16_t* x, int i,
+                                         int x_dtype) {
+  const uint16_t b = x[i];
+  return x_dtype == kXBf16 ? __uint_as_float(static_cast<uint32_t>(b) << 16)
+                           : __half2float(__ushort_as_half(b));
+}
+
 template <typename WT, int kBM, int kWN, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-wq_mma_kernel(const float* __restrict__ x,
+wq_mma_kernel(const void* __restrict__ x_arg,
               const unsigned char* __restrict__ qw,
               const float* __restrict__ s, float* __restrict__ out, int T,
-              int K, int N, int k_per_slice, int x_vec) {
+              int K, int N, int k_per_slice, int x_vec, int x_dtype) {
   using P = Plan<kBM, kWN, kAligned>;
   constexpr int kBN = P::kBN, kRedLd = P::kRedLd;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -199,11 +216,32 @@ wq_mma_kernel(const float* __restrict__ x,
   const int steps = (k_end - k_begin + kBK - 1) / kBK;
   const size_t w_total = static_cast<size_t>(K) * N;
 
+  const float* x = static_cast<const float*>(x_arg);
+  const uint16_t* x16 = static_cast<const uint16_t*>(x_arg);
   auto load = [&](int slot, int step) {
     const int k0 = k_begin + step * kBK;
     unsigned char* st = smem + slot * P::kStageBytes;
     float* xd = reinterpret_cast<float*>(st);
-    if (x_vec) {
+    uint16_t* xd16 = reinterpret_cast<uint16_t*>(st);
+    if (x_dtype != kXF32 && x_vec) {
+      for (int c = tid; c < kBM * (kBK / 8); c += kThreads) {
+        const int r = c / (kBK / 8), kc = 8 * (c % (kBK / 8));
+        const int gm = m0 + r, gk = k0 + kc;
+        const int n = gm < T ? min(8, max(0, k_end - gk)) : 0;
+        cp_async16(xd16 + r * kXLd16 + kc,
+                   n ? x16 + static_cast<size_t>(gm) * K + gk : x16, 2 * n);
+      }
+    } else if (x_dtype != kXF32) {
+      // odd K or an unaligned x: plain loads, seen by every thread after
+      // the barrier that precedes this stage's use
+      for (int c = tid; c < kBM * kBK; c += kThreads) {
+        const int r = c / kBK, kc = c % kBK;
+        const int gm = m0 + r, gk = k0 + kc;
+        xd16[r * kXLd16 + kc] =
+            gm < T && gk < k_end ? x16[static_cast<size_t>(gm) * K + gk]
+                                 : static_cast<uint16_t>(0);
+      }
+    } else if (x_vec) {
       for (int c = tid; c < kBM * (kBK / 4); c += kThreads) {
         const int r = c / (kBK / 4), kc = 4 * (c % (kBK / 4));
         const int gm = m0 + r, gk = k0 + kc;
@@ -258,6 +296,8 @@ wq_mma_kernel(const float* __restrict__ x,
     cp_commit();
     const unsigned char* st = smem + (step % P::kStages) * P::kStageBytes;
     const float* xa = reinterpret_cast<const float*>(st) + 16 * wm * kXLd;
+    const uint16_t* xa16 =
+        reinterpret_cast<const uint16_t*>(st) + 16 * wm * kXLd16;
     const unsigned char* wb = st + P::kXBytes;
     const int k0 = k_begin + step * kBK;
     // this step's products go to a fresh accumulator, folded into acc by
@@ -272,10 +312,19 @@ wq_mma_kernel(const float* __restrict__ x,
     for (int i = 0; i < kBK / 8 / P::kWarpsK; ++i) {
       const int kk = 8 * (wk + i * P::kWarpsK);
       uint32_t ah[4], al[4];
-      split_tf32(xa[gid * kXLd + kk + tig], ah[0], al[0]);
-      split_tf32(xa[(gid + 8) * kXLd + kk + tig], ah[1], al[1]);
-      split_tf32(xa[gid * kXLd + kk + tig + 4], ah[2], al[2]);
-      split_tf32(xa[(gid + 8) * kXLd + kk + tig + 4], ah[3], al[3]);
+      if (x_dtype == kXF32) {
+        split_tf32(xa[gid * kXLd + kk + tig], ah[0], al[0]);
+        split_tf32(xa[(gid + 8) * kXLd + kk + tig], ah[1], al[1]);
+        split_tf32(xa[gid * kXLd + kk + tig + 4], ah[2], al[2]);
+        split_tf32(xa[(gid + 8) * kXLd + kk + tig + 4], ah[3], al[3]);
+      } else {
+        // exact in TF32: hi is the value, lo is zero
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ah[e] = __float_as_uint(widen_x(
+              xa16, (gid + 8 * (e & 1)) * kXLd16 + kk + tig + 4 * (e >> 1),
+              x_dtype));
+      }
       uint32_t b0[8], b1[8];
       widen(row_bytes<kAligned, P::kWLd>(wb, kk + tig, k0 + kk + tig, N, n0,
                                          64 * wn, gid),
@@ -285,8 +334,10 @@ wq_mma_kernel(const float* __restrict__ x,
             b1, WT());
       // pass-major (the eight accumulators' MMAs are independent), the
       // small terms first
+      if (x_dtype == kXF32) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) mma_tf32(part[j], al, b0[j], b1[j]);
+        for (int j = 0; j < 8; ++j) mma_tf32(part[j], al, b0[j], b1[j]);
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) mma_tf32(part[j], ah, b0[j], b1[j]);
     }
@@ -349,9 +400,9 @@ wq_mma_kernel(const float* __restrict__ x,
 }
 
 template <typename WT, int kBM, int kWN, bool kAligned>
-int launch(const float* x, const unsigned char* qw, const float* s,
+int launch(const void* x, const unsigned char* qw, const float* s,
            float* out, int T, int K, int N, int cluster, int k_per_slice,
-           int x_vec, cudaStream_t st) {
+           int x_vec, int x_dtype, cudaStream_t st) {
   using P = Plan<kBM, kWN, kAligned>;
   auto kernel = wq_mma_kernel<WT, kBM, kWN, kAligned>;
   static bool ready = false;
@@ -375,69 +426,74 @@ int launch(const float* x, const unsigned char* qw, const float* s,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, x, qw, s, out, T,
-                                            K, N, k_per_slice, x_vec);
+                                            K, N, k_per_slice, x_vec,
+                                            x_dtype);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT, int kBM, int kWN>
-int launch_aligned(const float* x, const unsigned char* qw, const float* s,
+int launch_aligned(const void* x, const unsigned char* qw, const float* s,
                    float* out, int T, int K, int N, int cluster,
-                   int k_per_slice, int x_vec, cudaStream_t st) {
+                   int k_per_slice, int x_vec, int x_dtype,
+                   cudaStream_t st) {
   return N % 16 == 0
              ? launch<WT, kBM, kWN, true>(x, qw, s, out, T, K, N, cluster,
-                                          k_per_slice, x_vec, st)
+                                          k_per_slice, x_vec, x_dtype, st)
              : launch<WT, kBM, kWN, false>(x, qw, s, out, T, K, N, cluster,
-                                           k_per_slice, x_vec, st);
+                                           k_per_slice, x_vec, x_dtype, st);
 }
 
 template <typename WT>
 int run(const void* x, const void* qw, const void* s, void* out, int T,
         int K, int N, int m_tile, int n_tile, int cluster, int k_per_slice,
-        void* stream) {
+        int x_dtype, void* stream) {
   const long long depth = static_cast<long long>(k_per_slice);
   const bool tile_ok = (m_tile == 16 && (n_tile == 64 || n_tile == 256)) ||
                        (m_tile == 64 && n_tile == 64);
   if (T <= 0 || K <= 0 || N <= 0 || !tile_ok ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
       depth <= 0 || depth % kBK != 0 || cluster * depth < K ||
-      (cluster - 1) * depth >= K)
+      (cluster - 1) * depth >= K || x_dtype < kXF32 || x_dtype > kXF16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(qw) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const float* xf = static_cast<const float*>(x);
   const unsigned char* w = static_cast<const unsigned char*>(qw);
   const float* sf = static_cast<const float*>(s);
   float* o = static_cast<float*>(out);
-  const int x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // 16-byte copies of x: 4 f32 or 8 16-bit elements
+  const int x_vec = K % (x_dtype == kXF32 ? 4 : 8) == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m_tile == 64)
-    return launch_aligned<WT, 64, 1>(xf, w, sf, o, T, K, N, cluster,
-                                     k_per_slice, x_vec, st);
+    return launch_aligned<WT, 64, 1>(x, w, sf, o, T, K, N, cluster,
+                                     k_per_slice, x_vec, x_dtype, st);
   if (n_tile == 256)
-    return launch_aligned<WT, 16, 4>(xf, w, sf, o, T, K, N, cluster,
-                                     k_per_slice, x_vec, st);
-  return launch_aligned<WT, 16, 1>(xf, w, sf, o, T, K, N, cluster,
-                                   k_per_slice, x_vec, st);
+    return launch_aligned<WT, 16, 4>(x, w, sf, o, T, K, N, cluster,
+                                     k_per_slice, x_vec, x_dtype, st);
+  return launch_aligned<WT, 16, 1>(x, w, sf, o, T, K, N, cluster,
+                                   k_per_slice, x_vec, x_dtype, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// x_dtype: 0 f32, 1 bf16, 2 f16
 int mxt_wq_matmul_int8(const void* x, const void* qw, const void* s,
                        void* out, int T, int K, int N, int m_tile,
-                       int n_tile, int cluster, int k_per_slice,
+                       int n_tile, int cluster, int k_per_slice, int x_dtype,
                        void* stream) {
   return run<int8_t>(x, qw, s, out, T, K, N, m_tile, n_tile, cluster,
-                     k_per_slice, stream);
+                     k_per_slice, x_dtype, stream);
 }
 
 int mxt_wq_matmul_fp8(const void* x, const void* qw, const void* s,
                       void* out, int T, int K, int N, int m_tile, int n_tile,
-                      int cluster, int k_per_slice, void* stream) {
+                      int cluster, int k_per_slice, int x_dtype,
+                      void* stream) {
   return run<__nv_fp8_e4m3>(x, qw, s, out, T, K, N, m_tile, n_tile, cluster,
-                            k_per_slice, stream);
+                            k_per_slice, x_dtype, stream);
 }
 
 }  // extern "C"

@@ -48,15 +48,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points per source: name -> argtypes (every one returns the
 # launch's cudaError_t as an int)
 SOURCES = {
+    # the paged kernels over f32, int8 and fp8 pages; q's dtype (0 f32, 1
+    # bf16, 2 f16) is the int before the scale
     "ragged_flat": {
-        "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 12 + [_F, _P],
-        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 12 + [_F, _P],
-        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 12 + [_F, _P],
-        "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 11 + [_F, _P],
-        "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 10 + [_F, _P],
+        "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 13 + [_F, _P],
+        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 13 + [_F, _P],
+        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 13 + [_F, _P],
+        "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 12 + [_F, _P],
+        "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 11 + [_F, _P],
     },
-    # the same kernels over bf16 and f16 pages, q f32 or in the pages'
-    # dtype (the int before the scale)
+    # the same kernels over bf16 and f16 pages, with the same q dtypes
     "ragged_flat_lp": {
         f"mxt_ragged_{kernel}_{dt}": args
         for dt in ("bf16", "f16")
@@ -64,22 +65,27 @@ SOURCES = {
                              ("chunk", [_P] * 7 + [_I] * 12 + [_F, _P]),
                              ("decode", [_P] * 6 + [_I] * 11 + [_F, _P]))
     },
+    # x's dtype (0 f32, 1 bf16, 2 f16) is the int before the stream
     "wq_matmul": {
-        "mxt_wq_matmul_int8": [_P] * 4 + [_I] * 7 + [_P],
-        "mxt_wq_matmul_fp8": [_P] * 4 + [_I] * 7 + [_P],
+        "mxt_wq_matmul_int8": [_P] * 4 + [_I] * 8 + [_P],
+        "mxt_wq_matmul_fp8": [_P] * 4 + [_I] * 8 + [_P],
     },
     "flash_attention": {
         "mxt_flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
         "mxt_flash_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
         "mxt_flash_dq_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
-    # the same three kernels on 16-bit q/k/v/dout (bf16 and f16)
+    # the backward kernels on 16-bit q/k/v/dout (bf16 and f16)
     "flash_attention_lp": {
         f"mxt_flash_{kernel}_{dt}": args
         for dt in ("bf16", "f16")
-        for kernel, args in (("fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),
-                             ("dkv", [_P] * 10 + [_I] * 6 + [_F, _P]),
+        for kernel, args in (("dkv", [_P] * 10 + [_I] * 6 + [_F, _P]),
                              ("dq", [_P] * 8 + [_I] * 6 + [_F, _P]))
+    },
+    # the 16-bit forward (TMA and wgmma)
+    "flash_fwd_lp_sm90": {
+        f"mxt_flash_fwd_{dt}": [_P] * 6 + [_I] * 6 + [_F, _P]
+        for dt in ("bf16", "f16")
     },
 }
 

@@ -13,8 +13,9 @@ twins, and the attention op (mirrors ``mxnet_tpu/ops/flash_attention.py``).
   kernel wrappers. A CPU tensor takes the twin; a CUDA tensor launches
   ``csrc/flash_attention.cu`` for f32 (``flash_fwd``, the port of
   ``_fwd_kernel``; ``flash_bwd_dkv`` and ``flash_bwd_dq``, the ports of
-  ``_dkv_kernel`` and ``_dq_kernel``) or ``csrc/flash_attention_lp.cu``
-  for bf16 and f16, or raises. Each launch counts in
+  ``_dkv_kernel`` and ``_dq_kernel``) or, for bf16 and f16, the forward
+  of ``csrc/flash_fwd_lp_sm90.cu`` (TMA copies and warpgroup MMAs) and
+  the backward of ``csrc/flash_attention_lp.cu``, or raises. Each launch counts in
   :func:`mxnet_tpu_torch.kernels.launch_counts` under
   :func:`kernel_name`: the f32 kernels under those names, the 16-bit ones
   as ``flash_fwd.bf16``, ``flash_bwd_dkv.f16`` and so on.
@@ -39,9 +40,11 @@ keys (``out`` is the mean of ``v``), as the JAX kernel gives when no key
 padding is added. The kernels mask the ragged edge themselves: keys past
 ``Tk`` and queries past ``Tq`` take no part, with no padded copy.
 
-The kernels are instantiated for head dims 16, 32, 64, 128 and 256 (at
-256 with 32-row tiles: a 64-row tile does not fit one SM's shared memory
-in the forward, nor dK/dV in the registers of the backward). Any other
+The kernels are instantiated for head dims 16, 32, 64, 128 and 256 (the
+``mma.sync`` kernels at 256 with 32-row tiles: a 64-row tile does not
+fit one SM's shared memory in the f32 forward, nor dK/dV in the
+registers of the backward; the 16-bit forward keeps 64 query rows). Any
+other
 ``D <= 256`` runs at the next of those: the wrappers zero-pad q, k, v
 (and dout) along ``D``, pass the scale of the true ``D`` and slice the
 outputs back. That is exact: zero columns add nothing to a score, and
@@ -70,6 +73,10 @@ _HEAD_DIMS = (16, 32, 64, 128, 256)
 _ROUTES = {torch.float32: ("f32", "flash_attention"),
            torch.bfloat16: ("bf16", "flash_attention_lp"),
            torch.float16: ("f16", "flash_attention_lp")}
+# the forward's library, where it is not the backward's: the 16-bit
+# forward is its own source (TMA and wgmma)
+_FWD_LIBS = {torch.bfloat16: "flash_fwd_lp_sm90",
+             torch.float16: "flash_fwd_lp_sm90"}
 
 
 def kernel_name(base, dtype):
@@ -293,6 +300,7 @@ def flash_forward(q, k, v, bias, causal, scale):
     if B * H * Tq == 0:
         return _unpad(out, D), lse
     entry = f"mxt_flash_fwd_{tag}"
+    libname = _FWD_LIBS.get(q.dtype, libname)
     rc = getattr(kernels.library(libname), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
         out.data_ptr(), lse.data_ptr(), B * H, H, Tq, Tk, Dp,

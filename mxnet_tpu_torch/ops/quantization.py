@@ -1,9 +1,10 @@
 """Weight-only quantised matmul (the port of the serving matmul in
 ``mxnet_tpu/ops/quantization.py``).
 
-``out[t, c] = (sum_k x[t, k] * qw[k, c]) * w_scale[c]`` with f32
-activations, int8 or fp8-e4m3 weights and one f32 scale per output
-column. :func:`quantized_matmul` takes the plain version for CPU tensors
+``out[t, c] = (sum_k x[t, k] * qw[k, c]) * w_scale[c]`` with f32, bf16
+or f16 activations (widened to f32, as the TPU kernel widens them), int8
+or fp8-e4m3 weights, one f32 scale per output column and an f32
+output. :func:`quantized_matmul` takes the plain version for CPU tensors
 and launches ``csrc/wq_matmul.cu`` (kernel ``wq_matmul.int8`` /
 ``wq_matmul.fp8``, the port of ``_wq_matmul_kernel``; each launch counts
 under that name in :func:`mxnet_tpu_torch.kernels.launch_counts`) for
@@ -22,6 +23,8 @@ __all__ = ["quantized_matmul", "quantized_matmul_reference",
 # weight dtype -> (C entry point, launch-counter name)
 _KERNELS = {torch.int8: ("mxt_wq_matmul_int8", "wq_matmul.int8"),
             torch.float8_e4m3fn: ("mxt_wq_matmul_fp8", "wq_matmul.fp8")}
+# x's dtype -> the kernel's x_dtype code
+_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def kernel_name(weight_dtype):
@@ -63,9 +66,9 @@ def wq_plan(T, K, N):
 
 
 def quantized_matmul_reference(x, qw, w_scale):
-    """Plain version: widen the weights, one matmul, scale each output
-    column after the accumulation."""
-    return (x @ qw.float()) * w_scale
+    """Plain version: widen x and the weights to f32, one matmul, scale
+    each output column after the accumulation; f32 out."""
+    return (x.float() @ qw.float()) * w_scale
 
 
 def _wq_cuda(x, qw, w_scale):
@@ -76,7 +79,10 @@ def _wq_cuda(x, qw, w_scale):
     if fn is None:
         raise TypeError(f"quantized_matmul takes int8 or float8_e4m3fn "
                         f"weights, got {qw.dtype}")
-    kernels.require(x, "x", torch.float32, (T, K), dev)
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"quantized_matmul takes float32, bfloat16 or "
+                        f"float16 x, got {x.dtype}")
+    kernels.require(x, "x", x.dtype, (T, K), dev)
     kernels.require(qw, "qw", qw.dtype, (K, N), dev)
     kernels.require(w_scale, "w_scale", torch.float32, (N,), dev)
     if qw.data_ptr() % 16:
@@ -90,15 +96,17 @@ def _wq_cuda(x, qw, w_scale):
     lib = kernels.library("wq_matmul")
     rc = getattr(lib, fn)(x.data_ptr(), qw.data_ptr(), w_scale.data_ptr(),
                           out.data_ptr(), T, K, N, m_tile, n_tile, cluster,
-                          depth, kernels.stream_handle(dev))
+                          depth, _X_DTYPES[x.dtype],
+                          kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out
 
 
 def quantized_matmul(x, qw, w_scale):
-    """Per-output-channel weight-only quantised matmul. x: f32 ``[T,
-    K]``; qw: int8 or float8_e4m3fn ``[K, N]``; w_scale: f32 ``[N]``."""
+    """Per-output-channel weight-only quantised matmul. x: f32, bf16 or
+    f16 ``[T, K]``; qw: int8 or float8_e4m3fn ``[K, N]``; w_scale: f32
+    ``[N]``; out f32 ``[T, N]``."""
     if x.device.type == "cpu":
         return quantized_matmul_reference(x, qw, w_scale)
     if x.device.type != "cuda":

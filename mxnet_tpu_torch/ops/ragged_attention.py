@@ -5,8 +5,12 @@ Query tokens attend over a paged KV pool ``[N, bs, H, D]`` through
 per-sequence block tables ``[S, MB]`` (int32 page ids, unused entries
 pointing at the null block 0). Pages are f32, bf16 or f16 (the TPU
 kernels cast any float page to f32 in the kernel; so do these), or, in
-the flat shape, int8/fp8 with scales. ``q`` is f32 or, over 16-bit
-pages, the pages' dtype; the output takes ``q``'s dtype. Three shapes,
+the flat shape, int8/fp8 with scales. ``q`` is f32, bf16 or f16 over
+any of them (the TPU kernels cast q to f32 too), and the output takes
+``q``'s dtype. K and V float pages may differ in dtype: the wrappers
+widen both to f32 for the kernel, which is exact (the kernels read every
+page element as f32) and costs one copy of a pool; the serving path's
+pools are always alike. Three shapes,
 one kernel template (``csrc/paged_ring.cuh``, built from
 ``csrc/ragged_flat.cu`` for f32/int8/fp8 pages and
 ``csrc/ragged_flat_lp.cu`` for bf16/f16 pages):
@@ -93,6 +97,8 @@ _KERNELS.update({dt: ("ragged_flat_lp", f"mxt_ragged_flat_{sfx}",
 _QUANT = (torch.int8, torch.float8_e4m3fn)
 # the float page dtypes the chunk and decode kernels take
 _FLOAT_PAGES = (torch.float32,) + tuple(_LOWP)
+# q's dtype -> the kernels' q_dtype code (q and the output)
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def kernel_name(page_dtype, shape="flat"):
@@ -281,11 +287,12 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
     dev = q.device
     quant = k_scales is not None
     _check_head_dim(D)
+    if not quant:
+        k_pages, v_pages = _alike(k_pages, v_pages)
     lib, fn, counter = _KERNELS.get(k_pages.dtype, (None, None, None))
     if fn is None or (k_pages.dtype in _QUANT) != quant:
         raise TypeError(f"unsupported page dtype {k_pages.dtype} "
                         f"({'with' if quant else 'without'} scales)")
-    _check_q_dtype(q, k_pages.dtype)
     req = kernels.require
     req(q, "q", q.dtype, (T, H, D), dev)
     req(k_pages, "k_pages", k_pages.dtype, (N, bs, H, D), dev)
@@ -307,7 +314,7 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
     rc = getattr(kernels.library(lib), fn)(
         *ptrs, T, H, D, bs, N, S, MB,
         *flat_plan(T, S, H, D, bs, MB, k_pages.dtype),
-        *_q_lp(q, k_pages.dtype), float(scale), kernels.stream_handle(dev))
+        _Q_DTYPES[q.dtype], float(scale), kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out
@@ -317,13 +324,14 @@ def ragged_flat_attention(q, k_pages, v_pages, block_tables, seq_ids,
                           positions, scale=None, k_scales=None,
                           v_scales=None):
     """Flat ragged paged attention. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (int32 tables/ids/positions, f32
-    ``q`` or, over bf16/f16 pages, ``q`` in the pages' dtype,
-    contiguous) or raise."""
+    CUDA tensors launch the kernel (int32 tables/ids/positions, ``q``
+    f32, bf16 or f16, contiguous; float pages of any two of f32, bf16
+    and f16, or int8/fp8 pages, K and V alike, with scales) or raise."""
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales or neither")
+    _check_q_dtype(q)
     if q.device.type == "cpu":
         return ragged_flat_attention_reference(
             q, k_pages, v_pages, block_tables, seq_ids, positions, scale,
@@ -379,21 +387,21 @@ def ragged_chunk_attention_reference(q, k_pages, v_pages, block_tables,
     return out.to(q.dtype)
 
 
-def _check_q_dtype(q, page_dtype):
-    if not (q.dtype == torch.float32 or (page_dtype in _LOWP
-                                         and q.dtype == page_dtype)):
-        raise TypeError(
-            f"q has dtype {q.dtype}: the kernel over {page_dtype} pages "
-            f"takes float32 q" + (f" or {page_dtype} q"
-                                  if page_dtype in _LOWP else ""))
+def _check_q_dtype(q):
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}: the paged attention "
+                        f"kernels take float32, bfloat16 or float16 q")
 
 
-def _q_lp(q, page_dtype):
-    """The 16-bit kernels' q_lp argument (1: q and out in the pages'
-    dtype), or nothing for the other kernels."""
-    if page_dtype not in _LOWP:
-        return ()
-    return (int(q.dtype != torch.float32),)
+def _alike(k_pages, v_pages):
+    """K and V float pools in one dtype, as the kernels take them: two
+    of f32, bf16 and f16 both widened to f32 (exact: the kernels read
+    every page element as f32); any other pair as it is, for the
+    kernels' checks to refuse."""
+    pair = {k_pages.dtype, v_pages.dtype}
+    if len(pair) == 1 or not pair <= set(_FLOAT_PAGES):
+        return k_pages, v_pages
+    return k_pages.float(), v_pages.float()
 
 
 def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
@@ -402,6 +410,7 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
     Q = q.shape[1] if chunked else 1
     H, D = q.shape[-2:]
     N, bs = k_pages.shape[0], k_pages.shape[1]
+    k_pages, v_pages = _alike(k_pages, v_pages)
     dt = k_pages.dtype
     dev = q.device
     _check_head_dim(D)
@@ -420,7 +429,8 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, kv_lens, q_lens, scale):
                           else "ragged_flat_lp")
     sfx = _LOWP.get(dt, "f32")
     plan = paged_plan(S, Q, H, D, bs, MB, dt)
-    tail = (*plan, *_q_lp(q, dt), float(scale), kernels.stream_handle(dev))
+    tail = (*plan, _Q_DTYPES[q.dtype], float(scale),
+            kernels.stream_handle(dev))
     ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr()]
     if chunked:
@@ -444,25 +454,24 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
     tokens (the decode kernel). ``q [S, Q, H, D]`` with ``q_lens [S]``:
     up to Q query tokens per row, token ``t`` at absolute position
     ``kv_lens[i] - q_lens[i] + t``, causal (the chunk kernel). Pages
-    ``[N, bs, H, D]`` f32, bf16 or f16 (read as f32, as the TPU kernels
-    read them), ``block_tables [S, MB]``, ``kv_lens`` counting this
-    chunk's tokens; ``q`` f32 or in the pages' 16-bit dtype, and the
-    output in ``q``'s dtype; any other page or ``q`` dtype raises
-    ``TypeError``. CPU tensors take the plain versions; CUDA tensors
-    launch the kernel (int32 tables and lengths, contiguous) or
-    raise."""
+    ``[N, bs, H, D]`` f32, bf16 or f16, K and V in the same or two of
+    these dtypes (read as f32, as the TPU kernels read them),
+    ``block_tables [S, MB]``, ``kv_lens`` counting this chunk's tokens;
+    ``q`` f32, bf16 or f16, and the output in ``q``'s dtype; any other
+    page or ``q`` dtype raises ``TypeError``. CPU tensors take the plain
+    versions; CUDA tensors launch the kernel (int32 tables and lengths,
+    contiguous) or raise."""
     if q.dim() not in (3, 4):
         raise ValueError(f"q must be (S, H, D) or (S, Q, H, D), got shape "
                          f"{tuple(q.shape)}")
     chunked = q.dim() == 4
     if chunked and q_lens is None:
         raise ValueError("chunk-shaped q (S, Q, H, D) requires q_lens")
-    if k_pages.dtype not in _FLOAT_PAGES or v_pages.dtype != k_pages.dtype:
+    if k_pages.dtype not in _FLOAT_PAGES or v_pages.dtype not in _FLOAT_PAGES:
         raise TypeError(
             f"pages of dtype {k_pages.dtype} / {v_pages.dtype}: the chunk "
-            f"and decode kernels take float32, bfloat16 or float16 pages, "
-            f"K and V alike")
-    _check_q_dtype(q, k_pages.dtype)
+            f"and decode kernels take float32, bfloat16 or float16 pages")
+    _check_q_dtype(q)
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
     if q.device.type == "cpu":

@@ -1188,22 +1188,175 @@ def test_paged_kernels_over_16bit_pages_match_plain(cuda, shape, dtype, q16,
     assert torch.equal(got, again)
 
 
+def _paged_call(shape):
+    """(kernel wrapper, plain twin, launch-counter kind) of a case of
+    ``_lp_case``."""
+    if shape == "flat":
+        return (tra.ragged_flat_attention,
+                tra.ragged_flat_attention_reference, "flat")
+    if shape == "decode":
+        return (tra.ragged_paged_attention, tra.ragged_attention_reference,
+                "decode")
+    return (tra.ragged_paged_attention,
+            tra.ragged_chunk_attention_reference, "chunk")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", LP_PAGES, ids=["bf16", "f16"])
 def test_16bit_wrappers_reject_what_the_kernels_do_not_take(cuda, dtype):
-    """f64 pages, K and V of two dtypes, and q of the other 16-bit dtype
-    (or f64) raise ``TypeError``, in all three shapes."""
+    """f64 pages (K and V, or K beside 16-bit V, which the wrapper must
+    not narrow) and f64 q raise ``TypeError``, in all three shapes. K and
+    V of two dtypes and q of the other 16-bit dtype were refused too until
+    the kernels took every dtype the TPU kernels take: they now launch
+    (V pages of another dtype: both pools widened to f32, the f32-page
+    kernel) and agree with the plain twin, the output in q's dtype."""
     other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
     for shape in ("flat", "chunk16", "decode"):
-        t, _ = _lp_case(cuda, shape, dtype, False, 64)
-        call = (tra.ragged_flat_attention if shape == "flat"
-                else tra.ragged_paged_attention)
+        t, ref = _lp_case(cuda, shape, dtype, False, 64)
+        call, twin, kind = _paged_call(shape)
         for bad in (dict(k_pages=t["k_pages"].double(),
                          v_pages=t["v_pages"].double()),
-                    dict(v_pages=t["v_pages"].to(other)),
-                    dict(q=t["q"].to(other)), dict(q=t["q"].double())):
+                    dict(k_pages=t["k_pages"].double()),
+                    dict(q=t["q"].double())):
             with pytest.raises(TypeError):
                 call(**dict(t, **bad))
+        for mix, page_dt in ((dict(v_pages=t["v_pages"].to(other)),
+                              torch.float32),
+                             (dict(q=t["q"].to(other)), dtype)):
+            name = tra.kernel_name(page_dt, kind)
+            before = kernels.launch_counts().get(name, 0)
+            got = call(**dict(t, **mix))
+            want = twin(**dict(ref, **mix))
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()[name] == before + 1
+            assert got.dtype == want.dtype == mix.get("q", t["q"]).dtype
+            tol = _lp_tol(want) if "q" in mix else ATT_TOL
+            assert float((_valid(t, got).float()
+                          - _valid(t, want).float()).abs().max()) <= tol
+
+
+# ------------------------------ every input dtype the TPU kernels take --
+# (q, K pages, V pages) beyond q f32 or in the pages' own dtype
+DTYPE_MIXES = [(torch.bfloat16, torch.float32, torch.float32),
+               (torch.float16, torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float16, torch.float16),
+               (torch.float32, torch.bfloat16, torch.float16),
+               (torch.float32, torch.float32, torch.bfloat16),
+               (torch.float16, torch.float32, torch.bfloat16)]
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16",
+          torch.float16: "f16"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 64, 128])
+@pytest.mark.parametrize("mix", DTYPE_MIXES, ids=[
+    "q{}-k{}-v{}".format(*(_SHORT[d] for d in m)) for m in DTYPE_MIXES])
+@pytest.mark.parametrize("shape", ["flat", "chunk16", "decode"])
+def test_paged_kernels_take_every_q_and_page_dtype(cuda, shape, mix, D):
+    """K1, K4 and K5 with q of any float dtype over K and V pages of any
+    float dtypes, against the plain twin on the same tensors: the output
+    in q's dtype (within one ulp of it for 16-bit q, ATT_TOL for f32);
+    K and V of two dtypes run the f32-page kernel on pools widened to
+    f32 (exact); two launches give the same bits."""
+    qd, kd, vd = mix
+    t, ref = _lp_case(cuda, shape, torch.float32, False, D)
+    cast = dict(q=t["q"].to(qd), k_pages=t["k_pages"].to(kd),
+                v_pages=t["v_pages"].to(vd))
+    t, ref = dict(t, **cast), dict(ref, **cast)
+    call, twin, kind = _paged_call(shape)
+    name = tra.kernel_name(kd if kd == vd else torch.float32, kind)
+    before = kernels.launch_counts().get(name, 0)
+    got, again = call(**t), call(**t)
+    want = twin(**ref)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    assert got.dtype == want.dtype == qd
+    tol = ATT_TOL if qd == torch.float32 else _lp_tol(want)
+    assert float((_valid(t, got).float()
+                  - _valid(t, want).float()).abs().max()) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 24, 64, 128])
+@pytest.mark.parametrize("q_dtype", LP_PAGES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_flat_kernel_takes_16bit_q(cuda, dtype, q_dtype, D):
+    """K2 with bf16 / f16 q: the output in q's dtype, within one ulp of
+    it of the plain twin."""
+    t, ref = _ring_flat_case(cuda, dtype, D)
+    t = dict(t, q=t["q"].to(q_dtype))
+    ref = dict(ref, q=t["q"])
+    name = tra.kernel_name(t["k_pages"].dtype)
+    before = kernels.launch_counts().get(name, 0)
+    got = tra.ragged_flat_attention(**t)
+    want = tra.ragged_flat_attention_reference(**ref)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    assert got.dtype == want.dtype == q_dtype
+    assert float((got.float() - want.float()).abs().max()) <= _lp_tol(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", LP_PAGES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("T", [1, 8, 17, 128])
+@pytest.mark.parametrize("K,N", [(768, 3072), (768, 50257), (203, 130)])
+def test_wq_matmul_kernel_takes_16bit_x(cuda, dtype, x_dtype, T, K, N):
+    """K3 with bf16 / f16 x (exact in TF32: one pass) against the twin,
+    which widens x to f32: f32 out within WQ_TOL; K = 203 takes the
+    element-wise x loads."""
+    x, q, s = _wq_case(cuda, dtype, T, K, N)
+    x = x.to(x_dtype)
+    name = tqz.kernel_name(q.dtype)
+    before = kernels.launch_counts().get(name, 0)
+    got = tqz.quantized_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    want = tqz.quantized_matmul_reference(x, q, s)
+    assert got.dtype == want.dtype == torch.float32
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) < WQ_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 100, 130), (1, 2, 500, 500),
+                                   (1, 2, 128, 512)],
+                         ids=["ragged", "T500", "Tq128-Tk512"])
+@pytest.mark.parametrize("mask", ["none", "padding", "causal"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", LP_PAGES, ids=["bf16", "f16"])
+def test_flash_16bit_forward_matches_twin(cuda, dtype, D, mask, shape):
+    """The TMA / wgmma forward against its twin at every instantiated head
+    dim, each mask, ragged tile edges (Tq = Tk = 500) and Tq != Tk: out
+    within FLASH_LP_TOL, lse within FLASH_TOL, the same bits twice, one
+    ``flash_fwd.bf16`` / ``.f16`` launch a call; and the 16-bit backward
+    kernels give the same gradients from its lse as from the twin's."""
+    B, H, Tq, Tk = shape
+    causal, padding = mask == "causal", mask == "padding"
+    q, k, v, bias, dout = _flash_inputs(cuda, B, H, Tq, Tk, D, padding,
+                                        seed=D + Tq)
+    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+    scale = D ** -0.5
+    name = tfa.kernel_name("flash_fwd", dtype)
+    before = kernels.launch_counts().get(name, 0)
+    out, lse = tfa.flash_forward(q, k, v, bias, causal, scale)
+    again = tfa.flash_forward(q, k, v, bias, causal, scale)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    ref_out, ref_lse = tfa.flash_forward_reference(q, k, v, bias, causal,
+                                                   scale)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert _rel(out.float(), ref_out.float()) < FLASH_LP_TOL[dtype]
+    assert _rel(lse, ref_lse) < FLASH_TOL
+    delta = (dout.float() * ref_out.float()).sum(-1).reshape(B * H, Tq)
+    grads = [_flash_backward((q, k, v, bias, dout, l, delta, causal, scale),
+                             padding) for l in (lse, ref_lse)]
+    for g, w in zip(*grads):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert _rel(g.float(), w.float()) < FLASH_LP_TOL[dtype]
 
 
 @pytest.mark.cuda

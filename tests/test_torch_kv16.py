@@ -373,13 +373,26 @@ def test_plain_kernels_over_16bit_pages_match_the_jax_kernels(shape, dtype,
 
 @pytest.mark.parametrize("dtype", LOWP)
 def test_plain_kernels_refuse_mixed_16bit_dtypes(dtype):
+    """Mixed 16-bit dtypes were refused until the kernels took every
+    dtype the TPU kernels take: q of the other 16-bit dtype, and V pages
+    of the other 16-bit dtype, now give what the JAX kernels give (q's
+    dtype; more mixes in ``test_torch_kernel_dtypes.py``). f64 q, which
+    no kernel takes, is still refused."""
     other = "float16" if dtype == "bfloat16" else "bfloat16"
     c = _with_q(_paged_case(dtype, False), other, True)
-    with pytest.raises(TypeError, match="q has dtype"):
-        _port(tra.ragged_paged_attention, c)
+    got = _port(tra.ragged_paged_attention, c)
+    want = jra.ragged_paged_attention(**c, use_pallas=True, interpret=True)
+    assert got.dtype == getattr(torch, other)
+    _close(got.float().numpy(), np.asarray(want).astype(np.float32),
+           NP_DTYPES[other])
     c = _paged_case(dtype, False)
     c["v_pages"] = c["v_pages"].astype(NP_DTYPES[other])
-    with pytest.raises(TypeError, match="K and V alike"):
+    got = _port(tra.ragged_paged_attention, c)
+    want = jra.ragged_paged_attention(**c, use_pallas=True, interpret=True)
+    assert got.dtype == torch.float32
+    _close(got.numpy(), np.asarray(want), None)
+    c["q"] = c["q"].astype(np.float64)
+    with pytest.raises(TypeError, match="q has dtype"):
         _port(tra.ragged_paged_attention, c)
 
 
