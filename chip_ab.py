@@ -13,6 +13,8 @@ the other tree unpacked under a git-ignored directory:
         --order ABBA --phases kernel,paged --profile --profile-paged
     python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
         --order ABBA --phases flash_lp,paged_lp
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases flash_lp --profile-bert-amp
 
 Each turn is its own process, started from that tree's root: it builds
 the tree's kernels and runs the named kernel phases of the tree's
@@ -40,7 +42,12 @@ prefill and decode, and K4's device ms per ``decode_chunk`` step and per
 ``decode_step`` step are printed. With ``--profile-bert``, each tree then trains BERT-base
 (``run_bert_phase``) in the turns of ``--order``, and its profiled pass
 gives device ms per step, the flash kernels' device ms per step
-(forward; dK/dV and dQ) and the device's idle share. Prints the card
+(forward; dK/dV and dQ) and the device's idle share; with
+``--profile-bert-amp`` the same for BERT-base under AMP
+(``run_bert_amp_phase``: its bf16 steps' profiled pass), with the 16-bit
+flash kernels' device ms per step (forward, dK/dV, dQ, in either tree's
+design) and that of the delta pass (``rowsum(dout * out)`` in torch,
+timed as the kernels launched inside a profiler range around it). Prints the card
 line, one line per (kernel, shape) with every turn's ms, the profile
 lines and one JSON line of it all; ``--log FILE`` keeps the turns' full
 output. Exits non-zero if a turn fails.
@@ -104,15 +111,24 @@ GROUPS = {"quant": {"K1": paged(FLOAT, ("FlatQuery", "FlatTiles")),
           "paged": {"K4": paged(FLOAT, ("ChunkQuery", "ChunkTiles"))},
           "bert": {"flash_fwd": ("flash_fwd_kernel",),
                    "flash_bwd_dkv": ("flash_dkv_kernel",),
-                   "flash_bwd_dq": ("flash_dq_kernel",)}}
+                   "flash_bwd_dq": ("flash_dq_kernel",)},
+          "bert_amp": {"flash_fwd.lp": ("flash_fwd_sm90_kernel",),
+                       "flash_bwd_dkv.lp": ("flash_dkv_lp_kernel",
+                                            "flash_dkv_sm90_kernel"),
+                       "flash_bwd_dq.lp": ("flash_dq_lp_kernel",
+                                           "flash_dq_sm90_kernel")}}
+# the profiler range around the backward's delta pass (bert_amp)
+DELTA = "ab_flash_delta"
 profile = sys.argv[2]
 if profile:
     report = chip_smoke.report_profile
 
     def report_groups(prof, wall, steps):
-        rows = [e for e in prof.key_averages()
+        events = prof.key_averages()
+        rows = [e for e in events
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
-                and getattr(e, "self_device_time_total", 0) > 0]
+                and getattr(e, "self_device_time_total", 0) > 0
+                and e.key != DELTA]
         busy = sum(e.self_device_time_total for e in rows)
         groups = {}
         for label, names in GROUPS[profile].items():
@@ -121,6 +137,13 @@ if profile:
             ev = [e for e in rows if match(e.key)]
             groups[label] = dict(
                 ms=sum(e.self_device_time_total for e in ev) / 1e3,
+                launches=sum(e.count for e in ev))
+        if profile == "bert_amp":
+            # the device time of the kernels launched inside the range
+            ev = [e for e in events if e.key == DELTA
+                  and not str(getattr(e, "device_type", "")).endswith("CUDA")]
+            groups["delta"] = dict(
+                ms=sum(e.device_time_total for e in ev) / 1e3,
                 launches=sum(e.count for e in ev))
         print("AB_PROFILE " + json.dumps(dict(
             steps=steps, wall_s=wall, busy_ms=busy / 1e3,
@@ -215,12 +238,27 @@ elif profile == "paged":
 elif profile == "bert":
     print("AB_DTYPE bert", flush=True)
     chip_smoke.run_bert_phase(torch, np.random.RandomState(1), kernels)
+elif profile == "bert_amp":
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    delta = fa._delta
+
+    def ranged_delta(out, dout):
+        with torch.profiler.record_function(DELTA):
+            return delta(out, dout)
+    fa._delta = ranged_delta
+    print("AB_DTYPE bert_amp", flush=True)
+    # no f32 phase in this process: its summary prints as not measured
+    chip_smoke.run_bert_amp_phase(
+        torch, np.random.RandomState(1), kernels,
+        dict(step_ms=None, tokens_s=None, peak_gb=None, device_ms=None,
+             idle=None))
 """
 
 
 def turn(root, phases, profile, log):
     """One process in ``root``: the kernel ``phases``, then the profiled
-    pass named by ``profile`` ("", "quant", "paged" or "bert")."""
+    pass named by ``profile`` ("", "quant", "paged", "bert" or
+    "bert_amp")."""
     proc = subprocess.run([sys.executable, "-c", CHILD, phases, profile],
                           cwd=root, capture_output=True, text=True)
     log.write(f"===== {root} phases={phases} profile={profile} "
@@ -254,6 +292,10 @@ def main():
                          "passes with K1/K2/K3's device ms")
     ap.add_argument("--profile-bert", action="store_true",
                     help="the flash kernels in BERT-base training's pass")
+    ap.add_argument("--profile-bert-amp", action="store_true",
+                    help="the 16-bit flash kernels and the delta pass in "
+                         "BERT-base training under AMP, in the turns of "
+                         "--order")
     ap.add_argument("--profile-paged", action="store_true",
                     help="K4's device ms per decode_chunk / decode_step "
                          "step of the paged decode pass, in the turns of "
@@ -286,10 +328,13 @@ def main():
                 label, root = trees[ord(letter) - ord("A")]
                 _, prof = turn(os.path.abspath(root), "", "quant", log)
                 profiles += [dict(p, tree=label) for p in prof]
-        if args.profile_bert:
+        for flag, kind in ((args.profile_bert, "bert"),
+                           (args.profile_bert_amp, "bert_amp")):
+            if not flag:
+                continue
             for letter in args.order:
                 label, root = trees[ord(letter) - ord("A")]
-                _, prof = turn(os.path.abspath(root), "", "bert", log)
+                _, prof = turn(os.path.abspath(root), "", kind, log)
                 profiles += [dict(p, tree=label) for p in prof]
     for (name, shape), cells in table.items():
         turns = " ".join(f"{label}={ms:.4f}" for label, ms, _, _ in cells)

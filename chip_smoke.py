@@ -21,10 +21,10 @@ Phases, one line of output each (or more), in order:
    at head dims 256 (padding mask, causal) and 192 (no mask, padded to
    256); the same three flash kernels on bf16 and f16 inputs (the AMP
    path's: the forward ``csrc/flash_fwd_lp_sm90.cu``, the backward
-   ``csrc/flash_attention_lp.cu``) at BERT-base shapes (no mask, padding
+   ``csrc/flash_bwd_lp_sm90.cu``) at BERT-base shapes (no mask, padding
    mask, causal) and at head dim 256 (padding mask, causal), each giving
    the same bits on two launches, beside SDPA in the same dtype, and the
-   forward alone at a ragged tile edge (T=500) and at Tq != Tk; the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
+   three of them at a ragged tile edge (T=500) and at Tq != Tk; the chunk (Q=16 and Q=1) and decode (S=8 and S=64) paged
    attention kernels at the decode phase's shapes; every paged row
    (flat, chunk, decode: one staged kernel) carries its launch plan,
    shared bytes per CTA and ptxas's registers (a spill at D=64 fails the
@@ -665,16 +665,16 @@ def bound_lp(nbytes, flops):
 def run_flash_lp_kernel_phase(torch, timer, rng):
     """K6, K7a and K7b on bf16 and f16 inputs (the AMP training path's
     kernels: the forward of csrc/flash_fwd_lp_sm90.cu, the backward of
-    csrc/flash_attention_lp.cu) at BERT-base shapes (no mask, padding
+    csrc/flash_bwd_lp_sm90.cu) at BERT-base shapes (no mask, padding
     mask, causal) and at head dim 256 (padding, causal), against their
     twins on the same inputs, each giving the same bits on two launches;
     library: SDPA in the same dtype with the same mask, and its one-call
-    backward. Then the forward alone, for correctness only
+    backward. Then the three kernels, for correctness only
     (:func:`flash_lp_edge_checks`), at a ragged tile edge and at Tq !=
     Tk."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    src = "mxnet_tpu_torch/csrc/flash_attention_lp.cu"
+    src = "mxnet_tpu_torch/csrc/flash_bwd_lp_sm90.cu"
     fwd_src = "mxnet_tpu_torch/csrc/flash_fwd_lp_sm90.cu"
     tpu = "mxnet_tpu/ops/flash_attention.py"
     wide256 = FLASH_WIDE[0]
@@ -776,12 +776,14 @@ def run_flash_lp_kernel_phase(torch, timer, rng):
 
 
 def flash_lp_edge_checks(torch, rng):
-    """The 16-bit forward against its twin where its TMA tiles meet a
-    ragged edge (Tq = Tk = 500, 12 heads, padding mask: the last query and
-    key tiles run past T and are zero-filled) and with Tq != Tk (128
-    queries over 512 keys, no mask and causal), in bf16 and f16: out
-    within ``FLASH_LP_REL_TOL``, lse within ``FLASH_REL_TOL``, the same
-    bits twice. Correctness only: no kernel row."""
+    """The 16-bit forward and backward against their twins where their
+    TMA tiles meet a ragged edge (Tq = Tk = 500, 12 heads, padding mask:
+    the last query and key tiles run past T and are zero-filled) and with
+    Tq != Tk (128 queries over 512 keys, no mask and causal), in bf16 and
+    f16: out, dq, dk, dv (and dbias with the mask) within
+    ``FLASH_LP_REL_TOL``, lse within ``FLASH_REL_TOL``, the same bits
+    twice; the backward from the twin's lse and delta. Correctness only:
+    no kernel row."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     for dtype in ("bfloat16", "float16"):
         dt, tol = getattr(torch, dtype), FLASH_LP_REL_TOL[dtype]
@@ -816,6 +818,30 @@ def flash_lp_edge_checks(torch, rng):
                   f"flash_fwd {dtype} {label} disagrees with its twin")
             check(same, f"flash_fwd {dtype} {label}: two launches gave "
                   f"different bits")
+            dout = torch.from_numpy(rng.randn(B, H, Tq, D).astype(
+                np.float32)).to(DEVICE).to(dt)
+            delta = (dout.float() * ref_out.float()).sum(-1).reshape(
+                B * H, Tq)
+            bw = (q, k, v, bias, dout, ref_lse, delta, causal, scale)
+            want_db = bias is not None
+            got, again = ((fa.flash_bwd_dkv(*bw, want_dbias=want_db)
+                           + (fa.flash_bwd_dq(*bw),)) for _ in range(2))
+            torch.cuda.synchronize()
+            want = (fa.flash_bwd_dkv_reference(*bw, want_dbias=want_db)
+                    + (fa.flash_bwd_dq_reference(*bw),))
+            errs = [rel_err(g.float(), w.float())
+                    for g, w in zip(got, want) if w is not None]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            same = all(x is None and y is None or torch.equal(x, y)
+                       for x, y in zip(got, again))
+            log(f"kernel {fa.kernel_name('flash_bwd_dkv', dt)} + "
+                f"{fa.kernel_name('flash_bwd_dq', dt)} B={B},H={H},D={D},"
+                f"{label}: max_abs_err={err:.3e} (relative {rel:.3e}, tol "
+                f"{tol}) same bits twice {same} (correctness only)")
+            check(rel <= tol, f"flash backward {dtype} {label} disagrees "
+                  f"with its twins")
+            check(same, f"flash backward {dtype} {label}: two launches "
+                  f"gave different bits")
 
 
 def paged_case(torch, rng, S, Q, page_dtype="float32"):

@@ -75,8 +75,8 @@ SOURCES = {
         "mxt_flash_dkv_f32": [_P] * 10 + [_I] * 6 + [_F, _P],
         "mxt_flash_dq_f32": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
-    # the backward kernels on 16-bit q/k/v/dout (bf16 and f16)
-    "flash_attention_lp": {
+    # the 16-bit backward (TMA and wgmma) on bf16 and f16 q/k/v/dout
+    "flash_bwd_lp_sm90": {
         f"mxt_flash_{kernel}_{dt}": args
         for dt in ("bf16", "f16")
         for kernel, args in (("dkv", [_P] * 10 + [_I] * 6 + [_F, _P]),

@@ -14,8 +14,9 @@ twins, and the attention op (mirrors ``mxnet_tpu/ops/flash_attention.py``).
   ``csrc/flash_attention.cu`` for f32 (``flash_fwd``, the port of
   ``_fwd_kernel``; ``flash_bwd_dkv`` and ``flash_bwd_dq``, the ports of
   ``_dkv_kernel`` and ``_dq_kernel``) or, for bf16 and f16, the forward
-  of ``csrc/flash_fwd_lp_sm90.cu`` (TMA copies and warpgroup MMAs) and
-  the backward of ``csrc/flash_attention_lp.cu``, or raises. Each launch counts in
+  of ``csrc/flash_fwd_lp_sm90.cu`` and the backward of
+  ``csrc/flash_bwd_lp_sm90.cu`` (TMA copies and warpgroup MMAs), or
+  raises. Each launch counts in
   :func:`mxnet_tpu_torch.kernels.launch_counts` under
   :func:`kernel_name`: the f32 kernels under those names, the 16-bit ones
   as ``flash_fwd.bf16``, ``flash_bwd_dkv.f16`` and so on.
@@ -41,10 +42,10 @@ padding is added. The kernels mask the ragged edge themselves: keys past
 ``Tk`` and queries past ``Tq`` take no part, with no padded copy.
 
 The kernels are instantiated for head dims 16, 32, 64, 128 and 256 (the
-``mma.sync`` kernels at 256 with 32-row tiles: a 64-row tile does not
+f32 ``mma.sync`` kernels at 256 with 32-row tiles: a 64-row tile does not
 fit one SM's shared memory in the f32 forward, nor dK/dV in the
-registers of the backward; the 16-bit forward keeps 64 query rows). Any
-other
+registers of the backward; the 16-bit kernels keep 64 rows a CTA, the
+backward streaming 32-row tiles where registers need it). Any other
 ``D <= 256`` runs at the next of those: the wrappers zero-pad q, k, v
 (and dout) along ``D``, pass the scale of the true ``D`` and slice the
 outputs back. That is exact: zero columns add nothing to a score, and
@@ -69,12 +70,13 @@ _NEG_INF = -1e30
 # launch-counter names of the three f32 kernels (forward, dK/dV, dQ)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 _HEAD_DIMS = (16, 32, 64, 128, 256)
-# the dtypes the kernels take: (entry-point suffix, library)
+# the dtypes the kernels take: (entry-point suffix, the backward's
+# library)
 _ROUTES = {torch.float32: ("f32", "flash_attention"),
-           torch.bfloat16: ("bf16", "flash_attention_lp"),
-           torch.float16: ("f16", "flash_attention_lp")}
+           torch.bfloat16: ("bf16", "flash_bwd_lp_sm90"),
+           torch.float16: ("f16", "flash_bwd_lp_sm90")}
 # the forward's library, where it is not the backward's: the 16-bit
-# forward is its own source (TMA and wgmma)
+# forward and backward are sources of their own (TMA and wgmma)
 _FWD_LIBS = {torch.bfloat16: "flash_fwd_lp_sm90",
              torch.float16: "flash_fwd_lp_sm90"}
 

@@ -1360,6 +1360,53 @@ def test_flash_16bit_forward_matches_twin(cuda, dtype, D, mask, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 100, 130), (2, 2, 500, 500),
+                                   (2, 2, 128, 512), (2, 3, 130, 130)],
+                         ids=["ragged", "T500", "Tq128-Tk512", "T130"])
+@pytest.mark.parametrize("mask", ["none", "padding", "causal"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", LP_PAGES, ids=["bf16", "f16"])
+def test_flash_16bit_backward_matches_twins(cuda, dtype, D, mask, shape):
+    """The TMA / wgmma backward (dK/dV/dbias and dQ) against its twins at
+    every instantiated head dim, each mask, ragged tile edges (Tq = Tk =
+    500), Tq != Tk and T = 130 (Tq % 4 != 0: rows of lse and delta that
+    are not 16-byte aligned), from the twin's lse and delta; with the
+    padding mask the second batch row has valid length 0 (its lse is
+    -1e30, and every key weighs alike): finite gradients within
+    FLASH_LP_TOL, the same bits twice, one ``flash_bwd_dkv`` and one
+    ``flash_bwd_dq`` launch of the dtype a call."""
+    B, H, Tq, Tk = shape
+    causal, padding = mask == "causal", mask == "padding"
+    q, k, v, bias, dout = _flash_inputs(cuda, B, H, Tq, Tk, D, padding,
+                                        seed=D + Tq + Tk)
+    if padding:
+        bias[1] = -1e30
+    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+    scale = D ** -0.5
+    ref_out, ref_lse = tfa.flash_forward_reference(q, k, v, bias, causal,
+                                                   scale)
+    delta = (dout.float() * ref_out.float()).sum(-1).reshape(B * H, Tq)
+    args = (q, k, v, bias, dout, ref_lse, delta, causal, scale)
+    names = [tfa.kernel_name(n, dtype) for n in ("flash_bwd_dkv",
+                                                 "flash_bwd_dq")]
+    before = kernels.launch_counts()
+    got = _flash_backward(args, padding)
+    after = kernels.launch_counts()
+    assert [after.get(n, 0) - before.get(n, 0) for n in names] == [1, 1]
+    again = _flash_backward(args, padding)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again))
+    dk, dv, db = tfa.flash_bwd_dkv_reference(*args, want_dbias=padding)
+    want = (dk, dv, db, tfa.flash_bwd_dq_reference(*args))
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype
+            assert bool(torch.isfinite(g).all())
+            assert _rel(g.float(), w.float()) < FLASH_LP_TOL[dtype]
+
+
+@pytest.mark.cuda
 def test_llm_server_bf16_pools_serve_the_plain_step(cuda):
     """``LLMServer(dtype="bfloat16")`` at GPT-2-small widths: bf16
     pools; after ``warmup()`` every dispatch is one graph replay,
