@@ -15,6 +15,8 @@ the other tree unpacked under a git-ignored directory:
         --order ABBA --phases flash_lp,paged_lp
     python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
         --order ABBA --phases flash_lp --profile-bert-amp
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases optimizer --split-bert
 
 Each turn is its own process, started from that tree's root: it builds
 the tree's kernels and runs the named kernel phases of the tree's
@@ -22,7 +24,9 @@ the tree's kernels and runs the named kernel phases of the tree's
 ``run_flash_kernel_phase``, K6/K7; ``paged``: ``run_paged_kernel_phase``,
 K4/K5; ``flash_lp``: ``run_flash_lp_kernel_phase``, K6/K7 in bf16 and
 f16; ``paged_lp``: ``run_paged_lp_kernel_phase``, K1/K4/K5 over bf16 and
-f16 pages), each phase from ``np.random.RandomState(0)`` (``paged_lp``
+f16 pages; ``optimizer``: ``run_optimizer_kernel_phase``, the
+multi-tensor update kernel's rules at BERT-base's parameter shapes, in
+a tree that has it), each phase from ``np.random.RandomState(0)`` (``paged_lp``
 from seed 10, as ``chip_smoke.py`` runs it), so both trees time the same
 inputs; a row only one tree has is printed with that tree's turns. ``--order`` lists the turns by tree letter (A the first
 ``--tree``). With ``--profile``, each tree then serves, in the turns of
@@ -47,7 +51,14 @@ gives device ms per step, the flash kernels' device ms per step
 (``run_bert_amp_phase``: its bf16 steps' profiled pass), with the 16-bit
 flash kernels' device ms per step (forward, dK/dV, dQ, in either tree's
 design) and that of the delta pass (``rowsum(dout * out)`` in torch,
-timed as the kernels launched inside a profiler range around it). Prints the card
+timed as the kernels launched inside a profiler range around it), then
+the split below under AMP. With ``--split-bert`` each tree trains
+BERT-base in f32 and then under AMP, in the turns of ``--order``, by
+calls both trees have (``split_run`` in the child): two warm steps,
+then five steps timing forward, backward and ``trainer.step`` on the
+host, each closed by ``torch.cuda.synchronize()`` (medians printed),
+then two steps whose ``trainer.step`` alone runs under the profiler: its
+device ms, kernel launches and copies a step, and its top kernels. Prints the card
 line, one line per (kernel, shape) with every turn's ms, the profile
 lines and one JSON line of it all; ``--log FILE`` keeps the turns' full
 output. Exits non-zero if a turn fails.
@@ -80,11 +91,13 @@ phases = {"kernel": ("run_kernel_phase", lambda: np.random.RandomState(0)),
                        lambda: np.random.RandomState(0)),
           "paged_lp": ("run_paged_lp_kernel_phase", lambda: 10)}
 timer = chip_smoke.Timer(torch)
+phases["optimizer"] = ("run_optimizer_kernel_phase", lambda: 14)
 rows = []
 for ph in sys.argv[1].split(","):
     if ph:
         fn, arg = phases[ph]
-        rows += getattr(chip_smoke, fn)(torch, timer, arg())
+        if hasattr(chip_smoke, fn):         # a phase only one tree has
+            rows += getattr(chip_smoke, fn)(torch, timer, arg())
 print("AB_ROWS " + json.dumps(
     [{k: r.get(k) for k in ("name", "shape", "ms", "plain_ms",
                             "library_ms", "max_abs_err")} for r in rows]),
@@ -120,6 +133,91 @@ GROUPS = {"quant": {"K1": paged(FLOAT, ("FlatQuery", "FlatTiles")),
 # the profiler range around the backward's delta pass (bert_amp)
 DELTA = "ab_flash_delta"
 profile = sys.argv[2]
+
+
+# BERT-base training (chip_smoke's BertForMLM, Adam, batch 8 x 512,
+# dropout 0.1; under AMP with amp.init() and init_trainer), by calls both
+# trees have: two warm steps, then the host ms of forward, backward and
+# trainer.step over `steps` steps, each part closed by a synchronize,
+# then `profiled` steps whose trainer.step alone runs under the profiler:
+# its device ms, kernel launches and copies a step, and its top kernels
+def split_run(label, use_amp, steps=5, profiled=2):
+    from mxnet_tpu_torch import amp as tamp
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.initializer import Xavier
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    cfg = chip_smoke.BERT_BASE
+    vocab, batch = cfg["vocab_size"], chip_smoke.BERT_BATCH
+    data = chip_smoke.bert_batches(torch, np.random.RandomState(1),
+                                   2 + steps + profiled, vocab, batch,
+                                   chip_smoke.BERT_T, "cuda")
+    if use_amp:
+        data = [(x.int(), y, w, vl) for x, y, w, vl in data]
+        tamp.init()
+    try:
+        net = chip_smoke.make_bert_mlm(0.1, **cfg)
+        net.initialize(Xavier(), device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": chip_smoke.BERT_LR})
+        if use_amp:
+            trainer = tamp.init_trainer(trainer)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        parts = {"forward_ms": [], "backward_ms": [], "trainer_step_ms": []}
+        dev_us, launches, copies, top = 0.0, 0, 0, {}
+        torch.manual_seed(0)
+        for i, d in enumerate(data):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ag.record():
+                loss = chip_smoke.mlm_loss(net, loss_fn, d, vocab)
+                scaled = loss
+                if use_amp:
+                    with tamp.scale_loss(loss, trainer) as scaled:
+                        pass
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            scaled.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i < 2 + steps:
+                trainer.step(batch)
+                torch.cuda.synchronize()
+            else:
+                with tprofile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    trainer.step(batch)
+                    torch.cuda.synchronize()
+                for e in prof.key_averages():
+                    us = getattr(e, "self_device_time_total", 0)
+                    if not (str(getattr(e, "device_type", "")).endswith(
+                            "CUDA") and us > 0):
+                        continue
+                    dev_us += us
+                    if "Memcpy" in e.key or "Memset" in e.key:
+                        copies += e.count
+                    else:
+                        launches += e.count
+                    top[e.key[:60]] = top.get(e.key[:60], 0.0) + us
+            t3 = time.perf_counter()
+            if 2 <= i < 2 + steps:
+                for key, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                    parts[key].append(t * 1e3)
+        best = sorted(top.items(), key=lambda kv: -kv[1])[:3]
+        print("AB_SPLIT " + json.dumps(dict(
+            label=label, loss=float(loss.detach()),
+            **{k: float(np.median(v)) for k, v in parts.items()},
+            per_step={k: v for k, v in parts.items()},
+            opt_device_ms=dev_us / 1e3 / profiled,
+            opt_launches=launches / profiled, opt_copies=copies / profiled,
+            opt_top=[(k, v / 1e3 / profiled) for k, v in best])),
+            flush=True)
+        del net, trainer, data
+        torch.cuda.empty_cache()
+    finally:
+        if use_amp:
+            tamp.uninit()
 if profile:
     report = chip_smoke.report_profile
 
@@ -252,6 +350,11 @@ elif profile == "bert_amp":
         torch, np.random.RandomState(1), kernels,
         dict(step_ms=None, tokens_s=None, peak_gb=None, device_ms=None,
              idle=None))
+    torch.cuda.empty_cache()
+    split_run("amp", True)
+elif profile == "split":
+    split_run("f32", False)
+    split_run("amp", True)
 """
 
 
@@ -273,7 +376,8 @@ def turn(root, phases, profile, log):
             rows = json.loads(line[8:])
         elif line.startswith("AB_DTYPE "):
             dtype = line[9:]
-        elif line.startswith(("AB_PROFILE ", "AB_SERVE ", "AB_PAGED ")):
+        elif line.startswith(("AB_PROFILE ", "AB_SERVE ", "AB_PAGED ",
+                              "AB_SPLIT ")):
             kind, _, body = line.partition(" ")
             prof.append(dict(json.loads(body), dtype=dtype,
                              kind=kind[3:].lower()))
@@ -300,6 +404,11 @@ def main():
                     help="K4's device ms per decode_chunk / decode_step "
                          "step of the paged decode pass, in the turns of "
                          "--order")
+    ap.add_argument("--split-bert", action="store_true",
+                    help="BERT-base training in f32 and under AMP in the "
+                         "turns of --order: host ms of forward, backward "
+                         "and trainer.step, and trainer.step's device ms "
+                         "and launches")
     ap.add_argument("--log", help="file for the turns' full output")
     args = ap.parse_args()
     trees = [t.split("=", 1) for t in args.tree]
@@ -329,7 +438,8 @@ def main():
                 _, prof = turn(os.path.abspath(root), "", "quant", log)
                 profiles += [dict(p, tree=label) for p in prof]
         for flag, kind in ((args.profile_bert, "bert"),
-                           (args.profile_bert_amp, "bert_amp")):
+                           (args.profile_bert_amp, "bert_amp"),
+                           (args.split_bert, "split")):
             if not flag:
                 continue
             for letter in args.order:
@@ -351,6 +461,17 @@ def main():
                   f"{p['steps']} steps at {p['host_ms_per_step']:.3f} ms "
                   f"per step without the profiler; warmup "
                   f"{p['warmup_s']:.2f}s", flush=True)
+            continue
+        if p["kind"] == "split":
+            top = "; ".join(f"{k} {ms:.3f} ms" for k, ms in p["opt_top"])
+            print(f"ab split {p['tree']} {p['label']}: forward "
+                  f"{p['forward_ms']:.2f} ms, backward "
+                  f"{p['backward_ms']:.2f} ms, trainer.step "
+                  f"{p['trainer_step_ms']:.2f} ms (host, medians); "
+                  f"trainer.step on the device {p['opt_device_ms']:.3f} ms "
+                  f"in {p['opt_launches']:.0f} kernel launches and "
+                  f"{p['opt_copies']:.0f} copies a step; top: {top}",
+                  flush=True)
             continue
         if p["kind"] == "paged":
             print(f"ab paged {p['tree']}: decode "

@@ -38,7 +38,11 @@ Phases, one line of output each (or more), in order:
    with bf16 q over f32 and int8 pages, the chunk and decode kernels
    with f16 q over bf16 pages and over bf16 K and f16 V pages (widened
    to f32 by the wrapper: the row also times the kernel on pools widened
-   beforehand), and the quantized matmul with bf16 and f16 x;
+   beforehand), and the quantized matmul with bf16 and f16 x; then the
+   multi-tensor optimizer update (``csrc/multi_tensor_update.cu``), each
+   update rule in one launch over BERT-base's 203 parameter tensors (the
+   mp rules with bf16 weights), bit for bit against its twin, the twin
+   timed parameter by parameter;
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -91,13 +95,17 @@ Phases, one line of output each (or more), in order:
    tied masked-LM head of examples/bert_pretrain_mlm.py, batch 8 x 512
    of the example's synthetic corpus with ``valid_length`` in [128,
    512], through gluon, the flash attention kernels, ``backward()`` and
-   ``Trainer.step`` (Adam, lr 1e-4): one step's loss and gradients with
+   ``Trainer.step`` (Adam, lr 1e-4, one fused launch of the update
+   kernel a step): one step's loss and gradients with
    the kernels against the op's plain path (``flash=False``; where a
    ReLU gate of the MLM transform flips between the two on a tie, on
    the flash path's gates); 10 steps at
    dropout 0.1 with falling loss, 12 launches per step of each flash
-   kernel and no kernel build after the first step; step ms and
-   tokens/s, then two steps under ``torch.profiler``;
+   kernel, one ``adam_update`` launch a step (``last_dispatches`` 1, no
+   fallback) and no kernel build after the first step; step ms and
+   tokens/s, the host ms of forward, backward and ``trainer.step`` (each
+   closed by a synchronize, two more steps), then two steps under
+   ``torch.profiler``;
    then the same training under AMP (``amp.init()``, bf16, with
    ``amp.init_trainer``; int32 token ids): one step with the bf16 flash
    kernels against the plain op path under AMP (the loss, each
@@ -107,7 +115,12 @@ Phases, one line of output each (or more), in order:
    ms, tokens/s, peak memory and a profiled pass beside the f32 phase's;
    then ``amp.init(target_dtype="float16")`` with a fresh
    ``init_trainer`` (loss scale 2^16): 3 steps through the f16 kernels,
-   each step's scale and whether it was skipped;
+   each step's scale and whether it was skipped; then BERT-base's
+   gradients of one f32 step through a Trainer for each update rule (SGD
+   with and without momentum, NAG, Adam, AdamW, AdaGrad, RMSProp plain
+   and centered, Ftrl, SignSGD, Signum, and SGD with
+   ``multi_precision`` on bf16 weights, with and without momentum), two
+   steps each, each step one launch of its rule and nothing else;
 9. one JSON line listing every kernel: launches on the main paths,
    counted through graph replays (the flash kernels': the 10 training
    steps and the op phase's call; the 16-bit paged kernels': the bf16
@@ -241,6 +254,51 @@ CHUNK_Q, DECODE_STEPS = 16, 32
 # with block edges, H=12, D=64, block 16, 64 table columns (context 1024)
 PAGED_KV_LENS = (15, 16, 17, 255, 256, 511, 700, 1024)
 RTC_N = 8192
+# the optimizer phases: the update ops' hyperparameters (every scalar of
+# each rule's row away from its default, the gradient clip in play), the
+# kernel's operations per element (counted from its code; sqrt and div
+# as one each), and the Trainer configurations that take BERT-base's
+# gradients through each update rule (dtype: the weights' for the mp
+# rules)
+UPDATE_KW = dict(lr=0.01, wd=1e-3, rescale_grad=0.125, clip_gradient=2.0)
+UPDATE_EXTRA = {
+    "sgd_mom_update": dict(momentum=0.9),
+    "nag_mom_update": dict(momentum=0.9),
+    "mp_sgd_mom_update": dict(momentum=0.9),
+    "adam_update": dict(beta1=0.8, beta2=0.99, epsilon=1e-6),
+    "_adamw_update": dict(beta1=0.8, beta2=0.99, epsilon=1e-6, eta=0.5),
+    "rmsprop_update": dict(rho=0.8, epsilon=1e-6, clip_weights=3.0),
+    "rmspropalex_update": dict(rho=0.8, momentum=0.9, epsilon=1e-6,
+                               clip_weights=3.0),
+    "ftrl_update": dict(lamda1=0.05, beta=1.5),
+    "signum_update": dict(momentum=0.9, wd_lh=0.05),
+    "_adagrad_update": dict(epsilon=1e-6),
+}
+UPDATE_FLOPS = {"sgd_update": 7, "sgd_mom_update": 9, "nag_mom_update": 11,
+                "mp_sgd_update": 7, "mp_sgd_mom_update": 9,
+                "adam_update": 17, "_adamw_update": 18,
+                "rmsprop_update": 16, "rmspropalex_update": 23,
+                "ftrl_update": 22, "signsgd_update": 9,
+                "signum_update": 14, "_adagrad_update": 12}
+OPT_PATHS = (
+    ("sgd", dict(learning_rate=1e-4), None, "sgd_update"),
+    ("sgd", dict(learning_rate=1e-4, momentum=0.9), None, "sgd_mom_update"),
+    ("nag", dict(learning_rate=1e-4, momentum=0.9), None, "nag_mom_update"),
+    ("adam", dict(learning_rate=1e-4, wd=0.01), None, "adam_update"),
+    ("adamw", dict(learning_rate=1e-4, wd=0.01), None, "_adamw_update"),
+    ("adagrad", dict(learning_rate=1e-3), None, "_adagrad_update"),
+    ("rmsprop", dict(learning_rate=1e-4), None, "rmsprop_update"),
+    ("rmsprop", dict(learning_rate=1e-4, centered=True), None,
+     "rmspropalex_update"),
+    ("ftrl", dict(learning_rate=0.1, beta=1.0), None, "ftrl_update"),
+    ("signsgd", dict(learning_rate=1e-4), None, "signsgd_update"),
+    ("signum", dict(learning_rate=1e-4, wd_lh=0.01), None, "signum_update"),
+    ("sgd", dict(learning_rate=1e-4, multi_precision=True), "bfloat16",
+     "mp_sgd_update"),
+    ("sgd", dict(learning_rate=1e-4, momentum=0.9, multi_precision=True),
+     "bfloat16", "mp_sgd_mom_update"),
+)
+OPT_PATH_STEPS = 2
 
 # the three user kernels of tests/test_rtc.py, in CUDA C, in the calling
 # convention of mxnet_tpu_torch.rtc: input pointers, the output pointer,
@@ -2328,6 +2386,10 @@ def bert_train(torch, kernels, net, trainer, loss_fn, data, vocab, label,
         times.append(time.monotonic() - t0)
         if i == 0:
             builds = kernels.build_count()
+        fused = trainer._fused
+        check(fused.fallbacks == {} and fused.last_dispatches == 1,
+              f"{label}: step {i} did not take the fused update (fallbacks "
+              f"{dict(fused.fallbacks)}, {fused.last_dispatches} launches)")
     launches = kernels.launch_counts()
     step_ms = float(np.median(times[1:])) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2346,8 +2408,24 @@ def bert_train(torch, kernels, net, trainer, loss_fn, data, vocab, label,
         check(launches.get(name, 0) == layers * steps,
               f"{label}: {name} launched {launches.get(name, 0)} times in "
               f"{steps} steps, expected {layers} per step")
+    check(launches.get("adam_update", 0) == steps, f"{label}: adam_update "
+          f"launched {launches.get('adam_update', 0)} times in {steps} "
+          "steps, expected one a step (the fused update)")
+    check(trainer._fused.programs_built == 1 and
+          trainer._fused.tables_built == 1, f"{label}: the fused update "
+          f"built {trainer._fused.programs_built} programs and "
+          f"{trainer._fused.tables_built} launch tables in {steps} steps, "
+          "expected one each")
     check(kernels.build_count() == builds, f"{label}: a kernel was built "
           "after the first step")
+    # the host's split of a step: forward, backward and trainer.step, each
+    # closed by a synchronize, over the profiled pass's batches
+    split = step_split(torch, net, trainer, loss_fn, data[steps:], vocab,
+                       amp)
+    log(f"{label}: step split (median of {len(data) - steps}, each part "
+        f"closed by a synchronize): forward {split['forward_ms']:.2f} ms, "
+        f"backward {split['backward_ms']:.2f} ms, trainer.step "
+        f"{split['trainer_step_ms']:.2f} ms")
     # where the time goes: two more steps under the profiler
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2362,7 +2440,37 @@ def bert_train(torch, kernels, net, trainer, loss_fn, data, vocab, label,
                           tokens_s=batch * seqlen / step_ms * 1e3,
                           peak_gb=peak_gb,
                           device_ms=device_rows(prof)[1] / 1e3 / 2,
-                          idle=None if share is None else 1 - share)
+                          idle=None if share is None else 1 - share,
+                          **split)
+
+
+def step_split(torch, net, trainer, loss_fn, data, vocab, amp=None):
+    """Median host ms of a training step's forward (under record),
+    backward and ``trainer.step`` over ``data``, each part closed by
+    ``torch.cuda.synchronize()``."""
+    from mxnet_tpu_torch import autograd as ag
+    batch = data[0][0].shape[0]
+    parts = {"forward_ms": [], "backward_ms": [], "trainer_step_ms": []}
+    for d in data:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ag.record():
+            loss = mlm_loss(net, loss_fn, d, vocab)
+            scaled = loss
+            if amp is not None:
+                with amp.scale_loss(loss, trainer) as scaled:
+                    pass
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scaled.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(t * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
 
 
 def run_bert_phase(torch, rng, kernels, cfg=BERT_BASE, batch=BERT_BATCH,
@@ -2619,14 +2727,15 @@ def run_bert_amp_phase(torch, rng, kernels, f32, cfg=BERT_BASE,
                   f"{name} ran under AMP")
 
         def vs(key, fmt):
-            a, b = summary[key], f32[key]
+            a, b = summary.get(key), f32.get(key)
             return ("not measured" if a is None else format(a, fmt)) + \
                 " (f32 " + ("not measured" if b is None
                             else format(b, fmt)) + ")"
         log(f"bert amp: beside f32: step ms {vs('step_ms', '.2f')}, tokens/s "
             f"{vs('tokens_s', '.0f')}, peak GB {vs('peak_gb', '.2f')}, "
             f"profiled device ms a step {vs('device_ms', '.2f')}, idle "
-            f"{vs('idle', '.3f')}; loss scale "
+            f"{vs('idle', '.3f')}, trainer.step ms "
+            f"{vs('trainer_step_ms', '.2f')}; loss scale "
             f"{trainer._amp_loss_scaler.loss_scale:g}")
         # (e) float16: a fresh init_trainer, loss scale 2^16
         amp.uninit()
@@ -2662,7 +2771,234 @@ def run_bert_amp_phase(torch, rng, kernels, f32, cfg=BERT_BASE,
                   f"steps, expected {layers} per step")
     finally:
         amp.uninit()
-    return {**launches, **launches16}
+    return {k: launches.get(k, 0) + launches16.get(k, 0)
+            for k in set(launches) | set(launches16)}
+
+
+# -------------------------------------------------- optimizer phases --
+def update_kwargs(name, k=0):
+    """Op ``name``'s kwargs for the k-th tensor of a launch: every scalar
+    of the rule's row in play, lr and wd differing by tensor (the rows
+    differ), the gradient clip on for even k and off for odd k."""
+    kw = dict(UPDATE_KW, **UPDATE_EXTRA.get(name, {}))
+    kw["lr"] *= 1 + 0.5 * k
+    kw["wd"] *= 1 + k % 3
+    if k % 2:
+        kw["clip_gradient"] = -1.0
+    return kw
+
+
+def update_case(torch, name, shapes, wdtype, dev, seed, offset=0):
+    """Op ``name``'s tensor inputs for each shape, made on ``dev`` from
+    ``seed``: weight and gradient (in ``wdtype`` for an mp op, whose f32
+    master copy is the weight's value), f32 states in their valid range
+    (second moments positive, rmspropalex's mean gradient small against
+    its mean square). Each tensor is a view ``offset`` elements into its
+    own buffer (1: off the 16-byte alignment)."""
+    from mxnet_tpu_torch.ops.optimizer_ops import RULES
+    rule = RULES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(shape, kind, dtype=torch.float32):
+        if kind == "normal":
+            x = torch.randn(shape, generator=gen, device=dev)
+        elif kind == "positive":
+            x = torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.1
+        else:                                    # small
+            x = (torch.rand(shape, generator=gen, device=dev) - 0.5) * 0.2
+        n = x.numel()
+        buf = torch.empty(n + offset, dtype=dtype, device=dev)
+        out = buf[offset:].view(shape)
+        out.copy_(x)
+        return out
+
+    lists = []
+    for shape in shapes:
+        if rule.mp:
+            w32 = make(shape, "normal")
+            w = make(shape, "normal", wdtype)
+            w.copy_(w32)
+            xs = [w, make(shape, "normal", wdtype)]
+            if name == "mp_sgd_mom_update":
+                xs.append(make(shape, "small"))
+            xs.append(w32)
+        else:
+            xs = [make(shape, "normal"), make(shape, "normal")]
+            kinds = {"rmspropalex_update": ("positive", "small", "small"),
+                     "ftrl_update": ("normal", "positive")}.get(name)
+            if kinds is None:
+                kinds = ("small" if "mom" in name or name == "signum_update"
+                         else "positive", "positive")
+            xs += [make(shape, k) for k in kinds[:rule.n_in - 2]]
+        lists.append(xs)
+    return lists
+
+
+def mismatches(torch, got, want):
+    """(elements whose bits differ, max |got - want|, NaNs) of two
+    tensors; NaN on both sides at one place is not a mismatch."""
+    a, b = got.float(), want.float()
+    nan = torch.isnan(a) & torch.isnan(b)
+    diff = (a != b) & ~nan
+    err = float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+    return int(diff.sum()), err, int(nan.sum())
+
+
+def kernel_vs_twin(torch, name, lists, kws):
+    """Op ``name``'s twin on clones of ``lists``, then one kernel launch
+    on ``lists`` in place: (mismatched elements, max abs error, NaNs)
+    over every written tensor."""
+    from mxnet_tpu_torch.ops import optimizer_ops as ops
+    rule = ops.RULES[name]
+    want = []
+    for xs, kw in zip(lists, kws):
+        out = rule.twin(*[x.clone() for x in xs], **kw)
+        want.append((out,) if isinstance(out, torch.Tensor) else out)
+    ops.multi_update(name, lists, kws)
+    torch.cuda.synchronize()
+    bad, worst, nans = 0, 0.0, 0
+    for xs, outs in zip(lists, want):
+        for m, w in zip(rule.mutates, outs):
+            b, e, n = mismatches(torch, xs[m], w)
+            bad, worst, nans = bad + b, max(worst, e), nans + n
+    return bad, worst, nans
+
+
+def bert_base_params(torch, cfg=BERT_BASE, dropout=0.0):
+    """BERT-base with the masked-LM head on the card (seeded Xavier), its
+    deferred shapes set by one forward of a 1 x 8 batch: (net, loss_fn,
+    parameters in the Trainer's order, sorted by name)."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.initializer import Xavier
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net = make_bert_mlm(dropout, **cfg)
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    tiny = bert_batches(torch, np.random.RandomState(0), 1,
+                        cfg["vocab_size"], 1, 8, DEVICE)[0]
+    with ag.pause():
+        mlm_loss(net, loss_fn, tiny, cfg["vocab_size"])
+    params = net.collect_params()
+    return net, loss_fn, [params[k] for k in sorted(params.keys())]
+
+
+def run_optimizer_kernel_phase(torch, timer, seed=14):
+    """Each update rule's kernel over BERT-base's parameter shapes (one
+    launch over every tensor, f32; the mp rules with bf16 weights and
+    gradients) against its twin on the same inputs, bit for bit, with
+    the kernel's and the twin's (parameter by parameter) ms, median of
+    30 after the L2 flush, and the bound in bytes."""
+    from mxnet_tpu_torch.ops import optimizer_ops as ops
+    net, _, params = bert_base_params(torch)
+    shapes = [tuple(p.shape) for p in params]
+    del net, params
+    torch.cuda.empty_cache()
+    numel = sum(int(np.prod(s)) for s in shapes)
+    results = []
+    for k, name in enumerate(sorted(ops.RULES)):
+        rule = ops.RULES[name]
+        wdtype = torch.bfloat16 if rule.mp else torch.float32
+        lists = update_case(torch, name, shapes, wdtype, DEVICE, seed + k)
+        kws = [update_kwargs(name, i) for i in range(len(lists))]
+        bad, err, nans = kernel_vs_twin(torch, name, lists, kws)
+        table = ops.UpdateTable(name, lists)
+        rows = ops._upload(table.rows(kws, [xs[1] for xs in lists]), DEVICE)
+
+        def kern():
+            table.launch(rows)
+
+        def plain():
+            for xs, kw in zip(lists, kws):
+                rule.twin(*xs, **kw)
+        nbytes = numel * ops.bytes_per_element(name, wdtype)
+        b_ms, b_by, b_f32 = bound(nbytes, numel * UPDATE_FLOPS[name])
+        res = dict(name=name, route="cuda",
+                   source="mxnet_tpu_torch/csrc/multi_tensor_update.cu",
+                   replaces="none (the reference's update is one XLA "
+                            "program: mxnet_tpu/optimizer/fused.py:223)",
+                   shape=f"BERT-base {len(shapes)} tensors "
+                         f"{numel / 1e6:.1f}M {str(wdtype)[6:]}",
+                   max_abs_err=err, tol=0.0, mismatched=bad,
+                   ms=timer.ms(kern), plain_ms=timer.ms(plain),
+                   bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_f32,
+                   library_ms=None)
+        log(f"kernel {name} {res['shape']}: {bad} elements differ from the "
+            f"twin (max_abs_err={err:.3e}, NaN on both {nans}) "
+            f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB) library "
+            f"none")
+        check(bad == 0 and nans == 0, f"{name}: the kernel disagrees with "
+              f"its twin at BERT-base shapes ({bad} elements, {nans} NaN)")
+        results.append(res)
+        del lists, table, rows
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_optimizer_path_phase(torch, rng, kernels, cfg=BERT_BASE,
+                             batch=BERT_BATCH, seqlen=BERT_T):
+    """BERT-base's Trainer through each fusable optimizer (every update
+    rule): one forward and backward gives real gradients, then for each
+    optimizer a fresh Trainer takes OPT_PATH_STEPS steps on them (the mp
+    rules on the parameters cast to bf16, gradients cast alike), each
+    step one launch of its rule and no other, ``last_dispatches`` 1, no
+    fallback, no kernel build after the first step, finite weights.
+    Returns the launch counts."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops.optimizer_ops import RULES
+    net, loss_fn, params = bert_base_params(torch, cfg)
+    d = bert_batches(torch, rng, 1, cfg["vocab_size"], batch, seqlen,
+                     DEVICE)[0]
+    with ag.record():
+        loss = mlm_loss(net, loss_fn, d, cfg["vocab_size"])
+    loss.backward()
+    grads = [p.grad().clone() for p in params]
+    totals, builds, host = {}, None, {}
+    for opt, kw, dtype, rule in OPT_PATHS:
+        if dtype is not None and params[0].data().dtype != getattr(
+                torch, dtype):
+            for p in params:
+                p.cast(dtype)
+        trainer = gluon.Trainer(net.collect_params(), opt, dict(kw))
+        for _ in range(OPT_PATH_STEPS):
+            for p, g in zip(params, grads):
+                p.grad().copy_(g)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            host.setdefault(rule, []).append(time.perf_counter() - t0)
+            counts = kernels.launch_counts()
+            if builds is None:
+                builds = kernels.build_count()
+            fused = trainer._fused
+            check(fused.fallbacks == {} and fused.last_dispatches == 1,
+                  f"optimizer {opt} {kw}: fallbacks {dict(fused.fallbacks)}"
+                  f", {fused.last_dispatches} launches")
+            upd = {k: v for k, v in counts.items() if k in RULES}
+            check(upd == {rule: 1}, f"optimizer {opt} {kw}: update "
+                  f"launches {upd}, expected {{{rule!r}: 1}}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        check(all(bool(torch.isfinite(p.data()).all()) for p in params),
+              f"optimizer {opt} {kw}: non-finite weights")
+        log(f"optimizer path {opt} {kw}" + (f" ({dtype} weights)"
+                                             if dtype else "")
+            + f": {OPT_PATH_STEPS} Trainer steps on BERT-base gradients, "
+            f"one {rule} launch each, trainer.step "
+            + " ".join(f"{t * 1e3:.2f}" for t in host[rule]) + " ms")
+        del trainer
+        torch.cuda.empty_cache()
+    check(kernels.build_count() == builds, "optimizer path: a kernel was "
+          "built after the first step")
+    check(set(totals) >= set(RULES), "optimizer path: rules never "
+          f"launched: {sorted(set(RULES) - set(totals))}")
+    del net, params, grads
+    torch.cuda.empty_cache()
+    return totals
 
 
 # template arguments that are builtin types, as the Itanium ABI mangles them
@@ -2836,6 +3172,7 @@ def main():
     results += run_paged_kernel_phase(torch, timer, rng)
     results += run_paged_lp_kernel_phase(torch, timer, 10)
     results += run_wq_x16_rows(torch, timer, np.random.RandomState(11))
+    results += run_optimizer_kernel_phase(torch, timer)
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()
@@ -2875,6 +3212,9 @@ def main():
     add(counts)
     torch.cuda.empty_cache()
     add(run_bert_amp_phase(torch, rng, kernels, f32_bert))
+    torch.cuda.empty_cache()
+    # 8b. the Trainer through every update rule on BERT-base's gradients
+    add(run_optimizer_path_phase(torch, np.random.RandomState(15), kernels))
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

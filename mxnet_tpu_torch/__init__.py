@@ -19,7 +19,12 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   which registers a user's CUDA kernel as an op;
 - mixed-precision training (:mod:`~mxnet_tpu_torch.amp`: the op
   chokepoint's casts by the reference's lists, ``LossScaler``,
-  ``init_trainer``) with the flash attention kernels in bf16 and f16.
+  ``init_trainer``) with the flash attention kernels in bf16 and f16;
+- the optimizer package (:mod:`~mxnet_tpu_torch.optimizer`: nine
+  optimizers, ``Updater``, ``FusedUpdater``; the update ops of
+  :mod:`~mxnet_tpu_torch.ops.optimizer_ops`; the lr schedulers of
+  :mod:`~mxnet_tpu_torch.lr_scheduler`), whose fused Trainer update is
+  one launch of the multi-tensor update kernel per (op, dtype) group.
 
 See ROADMAP.md for what remains.
 

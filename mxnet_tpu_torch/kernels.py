@@ -87,6 +87,12 @@ SOURCES = {
         f"mxt_flash_fwd_{dt}": [_P] * 6 + [_I] * 6 + [_F, _P]
         for dt in ("bf16", "f16")
     },
+    # the optimizer update ops over a launch table: rule, weight dtype,
+    # table, tensors, chunks, scalar rows, stream
+    "multi_tensor_update": {
+        "mxt_multi_tensor_update": [_I, _I, _P, _I, ctypes.c_longlong, _P,
+                                    _P],
+    },
 }
 
 _lock = threading.Lock()

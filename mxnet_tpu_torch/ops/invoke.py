@@ -18,23 +18,64 @@ f32; anything else passes through. Gluon layers call the functions of
 registered names (:func:`amp_cast`). The cast is ``Tensor.to``, which
 autograd differentiates: f32 master weights get f32 gradients.
 
-Not ported yet (ROADMAP.md, framework core): in-place ``mutates`` ops,
-``host_op`` rerouting, random keys (``needs_rng``), the training flag
-(``needs_train``), list inputs (``variadic``) and sparse Embedding
-gradients. An op that asks for one of them raises
-``NotImplementedError``.
+A ``mutates`` op (the optimizer updates of :mod:`.optimizer_ops`)
+writes its results into the inputs it names, in place: the port's
+weights and states stay where they are, so there is nothing to donate.
+While ``optimizer.fused`` records a step, :data:`_FUSED_RECORDER` holds
+its recorder and a mutates op is handed to it instead of running (the
+reference's chokepoint hook, ``mxnet_tpu/ops/invoke.py:202-250``).
+
+Not ported yet (ROADMAP.md, framework core): ``host_op`` rerouting,
+random keys (``needs_rng``), the training flag (``needs_train``), list
+inputs (``variadic``) and sparse Embedding gradients. An op that asks
+for one of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import autograd
 from .registry import Operator, get as get_op
 
-__all__ = ["apply_op", "amp_cast"]
+__all__ = ["apply_op", "amp_cast", "TRACED_HYPERPARAMS"]
+
+# Per-step hyperparameters of the update ops: a recorded step keeps them
+# out of its signature, so an lr/wd/momentum schedule or a loss scale
+# change reuses the recorded program (optimizer/fused.py). Other kwargs
+# (clip bounds, betas, epsilon) are part of the signature.
+TRACED_HYPERPARAMS = frozenset({"lr", "wd", "momentum", "rescale_grad"})
+
+# Set by optimizer.fused while it records an update step: apply_op hands
+# each mutates-op call to the recorder instead of running it.
+_FUSED_RECORDER = threading.local()
+
+
+def _is_dynamic(v):
+    """A hyperparameter that is itself a tensor (a device value the
+    host cannot read without a sync)."""
+    return isinstance(v, torch.Tensor)
+
+
+def _split_hyper(params):
+    """(static kwargs, per-step keys, per-step values) of one
+    mutates-op call: plain floats under :data:`TRACED_HYPERPARAMS` are
+    per-step; everything else (bools, ints, None, the other floats) is
+    static and keys the recorded program."""
+    static, tkeys, tvals = [], [], []
+    for k in sorted(params):
+        v = params[k]
+        if k in TRACED_HYPERPARAMS and isinstance(v, (float, np.floating)) \
+                and not isinstance(v, bool):
+            tkeys.append(k)
+            tvals.append(float(v))
+        else:
+            static.append((k, v))
+    return tuple(static), tuple(tkeys), tvals
 
 # AMP state, set by mxnet_tpu_torch.amp.init / uninit (the reference's
 # mxnet_tpu/ops/invoke.py _AMP): the target dtype and the op-name lists
@@ -85,8 +126,20 @@ def apply_op(op, inputs: Sequence, params: Optional[dict] = None,
     params = dict(params) if params else {}
     if _AMP["active"]:
         inputs = _amp_cast_inputs(op.name, inputs)
-    if op.mutates:
-        _unported(op, "in-place updates of its inputs (mutates)")
+    if op.mutates and not op.variadic:
+        recorder = getattr(_FUSED_RECORDER, "rec", None)
+        if recorder is not None:
+            return recorder.record(op, inputs, params)
+        with torch.no_grad():
+            outs = op.impl(*inputs, **params)
+            outs_t = (outs,) if not isinstance(outs, (tuple, list)) \
+                else tuple(outs)
+            results = []
+            for o, m in zip(outs_t, op.mutates):
+                if o is not inputs[m]:
+                    inputs[m].copy_(o)
+                results.append(inputs[m])
+        return results[0] if len(results) == 1 else tuple(results)
     if op.host_op:
         _unported(op, "host-callback rerouting (host_op)")
     if op.needs_rng:

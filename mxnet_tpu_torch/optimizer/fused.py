@@ -1,0 +1,316 @@
+"""The whole optimizer step over a Trainer's parameters as one launch of
+the multi-tensor update kernel per (op, dtype) group (mirrors
+``mxnet_tpu/optimizer/fused.py``).
+
+The port's per-parameter loop launches one update kernel per parameter
+(about 200 for BERT-base). This module applies the same step as one
+launch of ``csrc/multi_tensor_update.cu`` for each (update op, weight
+dtype) pair the step uses: one launch for an all-f32 Adam model,
+whatever its parameter count. It is the port's counterpart of the
+reference's one-dispatch fused apply and of MXNet's multi-tensor
+``multi_sgd_*`` kernels.
+
+How it stays bit-exact with the loop
+------------------------------------
+Each step the per-parameter updater runs once in *record mode*: the
+``ops.invoke`` chokepoint hands each update op's call (op, the roles of
+its tensors, its kwargs) to a recorder instead of running it. All host
+bookkeeping (update counts, lr schedules, Adam's bias correction, lr/wd
+multipliers, the loss scaler's rescale) runs exactly as in the loop, in
+float64. The recorded calls are then replayed grouped by (op, weight
+dtype): each group's per-parameter scalars (and gradient addresses:
+autograd hands out new gradient tensors every backward) become 64-byte
+rows of one table uploaded once a step from pinned memory, for all
+groups, and each group is one launch over a table of the weights' and
+states' pointers and sizes that is kept while those ``data_ptr``s and
+sizes stay the same (the update is in place, so they stay put). The
+loop launches the same kernel over one parameter with the same row, so
+both give the same bits; on the CPU both run the op's twin with the
+same Python scalars.
+
+The recorded program is cached on (optimizer class, the recorded ops
+with their static kwargs and tensor roles, the weights' dtypes); lr, wd,
+momentum and rescale_grad (``invoke.TRACED_HYPERPARAMS``) change every
+step without a new program, and nothing is ever compiled after the
+kernel's first build.
+
+Fallbacks to the loop, each with its reason label (``Trainer`` counts
+them in ``FusedUpdater.fallbacks``): ``env_disabled``
+(``MXNET_TPU_FUSED_UPDATE=0``), ``ignore_stale_grad``, ``optimizer`` (an
+optimizer outside the fusable set, or generic multi-precision, whose
+master-weight casts happen outside the op chokepoint), ``unrecordable``
+(an update op touched a tensor that is not the parameter's weight,
+gradient or state, or took a tensor or int static hyperparameter) and
+``aliased`` (two parameters' tensors overlap in memory, found by their
+``data_ptr`` ranges: one launch would update them in a race). A kernel
+that fails to build or launch raises; it never gives way to the loop.
+
+The reference's ``fold_reduce`` (the gradient sum across device
+replicas folded into the update) and its multi-context replicas have no
+counterpart on one device and are left out, as are its sparse-gradient
+fallback (the port has no row-sparse gradients) and its
+``bind_entries``/``apply_entries`` for ``jit.CompiledTrainStep``, which
+is not ported (ROADMAP.md §1 item 13).
+"""
+from __future__ import annotations
+
+import collections
+import os
+
+import numpy as np
+
+from ..ops import invoke as _invoke
+from ..ops import optimizer_ops as _ops
+from . import optimizer as _opt
+
+__all__ = ["FusedUpdater", "fusable", "prepare_states", "build_roles",
+           "record_program", "rollback_counts"]
+
+# Optimizers whose update is one registered update op per parameter,
+# with no host sync and no per-call Python state: the recorded program
+# describes the step completely.
+_FUSABLE_TYPES = (_opt.SGD, _opt.NAG, _opt.Adam, _opt.AdamW, _opt.AdaGrad,
+                  _opt.RMSProp, _opt.Ftrl, _opt.Signum, _opt.SignSGD)
+
+
+def fusable(optimizer):
+    """True when this optimizer instance may take the fused path."""
+    if type(optimizer) not in _FUSABLE_TYPES:
+        return False
+    if optimizer.multi_precision and type(optimizer) is not _opt.SGD:
+        # the generic mp path casts master weights outside apply_op; only
+        # SGD updates 16-bit weights through its own ops (mp_sgd_*)
+        return False
+    return True
+
+
+class _Recorder:
+    """Captures each update op's call as (op name, input roles, static
+    kwargs), with its kwargs. ``roles`` maps id(tensor) -> ('w'|'g'|'s',
+    position)."""
+
+    def __init__(self, roles):
+        self.roles = roles
+        self.program = []       # (op_name, roles, static kwargs)
+        self.params = []        # each call's kwargs
+        self.ok = True
+
+    def record(self, op, inputs, params):
+        entry_roles = []
+        for x in inputs:
+            r = self.roles.get(id(x))
+            if r is None:
+                self.ok = False  # the op touched a tensor we don't track
+            entry_roles.append(r)
+        static_kw, _, _ = _invoke._split_hyper(params)
+        for _, v in static_kw:
+            if _invoke._is_dynamic(v):
+                self.ok = False
+            if isinstance(v, int) and not isinstance(v, bool):
+                self.ok = False  # a per-step int would key a program a step
+        self.program.append((op.name, tuple(entry_roles), static_kw))
+        self.params.append(params)
+        results = [inputs[m] for m in op.mutates]
+        return results[0] if len(results) == 1 else tuple(results)
+
+
+def _leaves(state):
+    """The tensors of a state tree, in order (None contributes none)."""
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [leaf for s in state for leaf in _leaves(s)]
+    return [state]
+
+
+def prepare_states(optimizer, updater, work):
+    """Create (or move to their weights' device) the states of ``work``
+    ([(index, Parameter)]) before the roles are built over them."""
+    for i, param in work:
+        w = param.data()
+        if i not in updater.states:
+            updater.states[i] = optimizer.create_state_multi_precision(i, w)
+            updater.states_synced[i] = True
+        elif not updater.states_synced[i]:
+            updater.states[i] = updater.sync_state_context(
+                updater.states[i], w.device)
+            updater.states_synced[i] = True
+
+
+def build_roles(updater, work):
+    """Map id(tensor) -> role for every weight, gradient and state of
+    ``work``. Returns (roles, weights, grads, state leaves)."""
+    roles = {}
+    weights, grads, leaves = [], [], []
+    for k, (i, param) in enumerate(work):
+        w, g = param.data(), param.grad()
+        roles[id(w)] = ("w", k)
+        roles[id(g)] = ("g", k)
+        for leaf in _leaves(updater.states[i]):
+            roles[id(leaf)] = ("s", len(leaves))
+            leaves.append(leaf)
+        weights.append(w)
+        grads.append(g)
+    return roles, weights, grads, leaves
+
+
+def record_program(updater, work, grads, weights, roles):
+    """Drive the per-parameter updater once with the op chokepoint in
+    record mode: the host bookkeeping advances as in the loop, the
+    device work is recorded. Returns the recorder (check ``.ok``; when
+    it is not, the caller must :func:`rollback_counts`)."""
+    rec = _Recorder(roles)
+    _invoke._FUSED_RECORDER.rec = rec
+    try:
+        for k, (i, _) in enumerate(work):
+            updater(i, grads[k], weights[k])
+    finally:
+        _invoke._FUSED_RECORDER.rec = None
+    return rec
+
+
+def rollback_counts(optimizer, work):
+    """Undo the recording's count advance, so the loop that runs instead
+    does not count the step twice."""
+    for i, _ in work:
+        if i in optimizer._index_update_count:
+            optimizer._index_update_count[i] -= 1
+    optimizer.num_update = max([optimizer.begin_num_update]
+                               + list(optimizer._index_update_count.values()))
+
+
+def _span(t):
+    start = t.data_ptr()
+    return start, start + t.numel() * t.element_size()
+
+
+def _aliased(tensors):
+    """True when two of ``tensors`` overlap in memory."""
+    end = 0
+    for start, stop in sorted(_span(t) for t in tensors if t.numel()):
+        if start < end:
+            return True
+        end = max(end, stop)
+    return False
+
+
+class _Program:
+    """A recorded step grouped for replay: per (op, weight dtype) group
+    the indices of its calls, in recording order; on the card, each
+    group's launch table for the tensors' current layout."""
+
+    def __init__(self, program, weights):
+        groups = {}
+        for e, (name, entry_roles, _) in enumerate(program):
+            dtype = weights[entry_roles[0][1]].dtype
+            groups.setdefault((name, dtype), []).append(e)
+        self.groups = [(name, entries)
+                       for (name, _), entries in groups.items()]
+        self.roles = [entry_roles for _, entry_roles, _ in program]
+        self.layout = None
+        self.tables = None
+
+
+class FusedUpdater:
+    """One launch per (op, dtype) group for ``gluon.Trainer``'s step.
+
+    ``step(params)`` applies the whole update and returns True, or
+    returns False (reason in ``last_fallback_reason``) so the caller runs
+    the per-parameter loop. ``last_dispatches`` is the number of kernel
+    launches (on the CPU: twin passes) of the last fused step;
+    ``programs_built`` counts recorded programs and ``tables_built`` the
+    launch tables uploaded, neither of which moves while the step's
+    signature and tensors stay the same."""
+
+    def __init__(self, optimizer, updater):
+        self._optimizer = optimizer
+        self._updater = updater
+        self._cache = {}
+        self._disabled = None   # sticky reason once found unrecordable
+        self._layout = None     # the last layout seen, and whether it
+        self._layout_aliased = False  # overlaps
+        self.last_dispatches = 0
+        self.last_fallback_reason = None
+        self.programs_built = 0
+        self.tables_built = 0
+        self.fallbacks = collections.Counter()
+
+    def why_ineligible(self, params, ignore_stale_grad):
+        """None if the fused path may run now, else a reason label."""
+        if os.environ.get("MXNET_TPU_FUSED_UPDATE", "1") == "0":
+            return "env_disabled"
+        if self._disabled is not None:
+            return self._disabled
+        if ignore_stale_grad:
+            return "ignore_stale_grad"
+        if not fusable(self._optimizer):
+            return "optimizer"
+        return None
+
+    def step(self, params):
+        """Apply one fused update over ``params`` (a list of
+        Parameters); False when the loop must run instead."""
+        opt, upd = self._optimizer, self._updater
+        self.last_dispatches = 0
+        self.last_fallback_reason = None
+        work = [(i, p) for i, p in enumerate(params)
+                if p.grad_req != "null" and p._data is not None]
+        if not work:
+            return True  # nothing to update: handled, no launch
+        prepare_states(opt, upd, work)
+        roles, weights, grads, leaves = build_roles(upd, work)
+        # the written tensors (weights, states) stay put between steps;
+        # gradients are read only, and move (their addresses go with
+        # each step's rows)
+        layout = tuple((t.data_ptr(), t.numel()) for t in (*weights, *leaves))
+        if layout != self._layout:
+            self._layout = layout
+            self._layout_aliased = _aliased(weights + leaves)
+        if self._layout_aliased:
+            self.last_fallback_reason = "aliased"
+            return False
+
+        # record: the host bookkeeping advances as in the loop
+        rec = record_program(upd, work, grads, weights, roles)
+        if not rec.ok:
+            self._disabled = self.last_fallback_reason = "unrecordable"
+            rollback_counts(opt, work)
+            return False
+        key = (type(opt), tuple(rec.program),
+               tuple(w.dtype for w in weights))
+        prog = self._cache.get(key)
+        if prog is None:
+            prog = self._cache[key] = _Program(rec.program, weights)
+            self.programs_built += 1
+
+        bufs = {}
+        for k, w in enumerate(weights):
+            bufs[("w", k)] = w
+            bufs[("g", k)] = grads[k]
+        for j, leaf in enumerate(leaves):
+            bufs[("s", j)] = leaf
+
+        def inputs(entries):
+            return [[bufs[r] for r in prog.roles[e]] for e in entries]
+
+        if weights[0].device.type == "cpu":
+            for name, entries in prog.groups:
+                _ops.multi_update(name, inputs(entries),
+                                  [rec.params[e] for e in entries])
+        else:
+            if prog.layout != layout:
+                prog.tables = [_ops.UpdateTable(name, inputs(entries))
+                               for name, entries in prog.groups]
+                prog.layout = layout
+                self.tables_built += len(prog.tables)
+            rows = np.concatenate([
+                table.rows([rec.params[e] for e in entries],
+                           [grads[prog.roles[e][1][1]] for e in entries])
+                for (_, entries), table in zip(prog.groups, prog.tables)])
+            dev_rows = _ops._upload(rows, weights[0].device)
+            base, offset = dev_rows.data_ptr(), 0
+            for (_, entries), table in zip(prog.groups, prog.tables):
+                table.launch(base + offset * rows.itemsize * rows.shape[1])
+                offset += len(entries)
+        self.last_dispatches = len(prog.groups)
+        return True

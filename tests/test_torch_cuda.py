@@ -31,7 +31,9 @@ result to it, so they agree within one ulp of that dtype at the output's
 largest magnitude (``_lp_tol``); the user kernels of
 ``chip_smoke.RTC_SOURCES`` registered through ``rtc`` take ``RTC_TOL =
 1e-5`` of the output's magnitude (``2x + y`` fused into one FMA, a row
-sum in another order).
+sum in another order). The optimizer update kernel
+(``csrc/multi_tensor_update.cu``) is held to its twins bit for bit, and
+the fused Trainer step to the per-parameter loop.
 """
 import os
 import sys
@@ -49,6 +51,9 @@ from mxnet_tpu_torch import kernels, nd  # noqa: E402
 from mxnet_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from mxnet_tpu_torch.ops import ragged_attention as tra  # noqa: E402
 from mxnet_tpu_torch.ops import quantization as tqz  # noqa: E402
+from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
+from mxnet_tpu_torch.ops import optimizer_ops as topt_ops  # noqa: E402
+from mxnet_tpu_torch.ops.invoke import apply_op  # noqa: E402
 from mxnet_tpu_torch.serving.llm import quant as tquant  # noqa: E402
 from mxnet_tpu_torch.serving.llm.model import _quantize_kv  # noqa: E402
 
@@ -1459,3 +1464,155 @@ def test_llm_server_bf16_pools_serve_the_plain_step(cuda):
     n = int(batch["valid"].sum())
     assert float((mine[:n].cpu() - want[:n]).abs().max()) <= \
         chip_smoke.LP_LOGIT_TOL["bfloat16"]
+
+
+# ------------------------------------------------ optimizer update kernel --
+UPDATE_SIZES = ((1,), (3,), (4099,), (7, 11), (2 * 32768 + 5,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("name", sorted(topt_ops.RULES))
+def test_update_kernel_matches_twin_bitwise(cuda, name, offset):
+    """Each update op's kernel, one launch over tensors of odd sizes (one
+    over two chunks), each with its own scalar row and the gradient clip
+    on and off, against its twin on the same CUDA tensors: the same bits
+    in every written tensor; 16-byte aligned and misaligned views; the mp
+    ops on bf16 and f16 weights. One launch, counted under the op."""
+    rule = topt_ops.RULES[name]
+    for wdtype in ((torch.bfloat16, torch.float16) if rule.mp
+                   else (torch.float32,)):
+        lists = chip_smoke.update_case(torch, name, UPDATE_SIZES, wdtype,
+                                       cuda, seed=len(name), offset=offset)
+        assert offset == 0 or lists[2][0].data_ptr() % 16 != 0
+        kws = [chip_smoke.update_kwargs(name, k) for k in range(len(lists))]
+        before = kernels.launch_counts().get(name, 0)
+        bad, err, nans = chip_smoke.kernel_vs_twin(torch, name, lists, kws)
+        assert (bad, nans) == (0, 0), f"{name} {wdtype}: {bad} elements " \
+            f"differ (max {err})"
+        assert kernels.launch_counts()[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam_update", "mp_sgd_mom_update"])
+def test_update_op_takes_the_kernel_per_parameter(cuda, name):
+    """Through ``apply_op`` (the loop's path) a CUDA parameter takes the
+    kernel over one tensor, in place, with the bits of the launch over
+    many."""
+    rule = topt_ops.RULES[name]
+    wdtype = torch.bfloat16 if rule.mp else torch.float32
+    many = chip_smoke.update_case(torch, name, UPDATE_SIZES, wdtype, cuda, 3)
+    one = [[x.clone() for x in xs] for xs in many]
+    kws = [chip_smoke.update_kwargs(name, k) for k in range(len(many))]
+    topt_ops.multi_update(name, many, kws)
+    before = kernels.launch_counts().get(name, 0)
+    for xs, kw in zip(one, kws):
+        ids = [id(x) for x in xs]
+        got = apply_op(name, xs, kw)
+        got = got if isinstance(got, tuple) else (got,)
+        assert [id(g) for g in got] == [ids[m] for m in rule.mutates]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + len(one)
+    for xs, ys in zip(many, one):
+        for m in rule.mutates:
+            assert torch.equal(xs[m], ys[m])
+
+
+@pytest.mark.cuda
+def test_update_kernel_raises_on_dtypes_without_a_kernel(cuda):
+    """No quiet cast: f64 or 16-bit weights for an f32 rule, an mp rule
+    on f32 weights or with mixed 16-bit dtypes raise, nothing launches."""
+    w = torch.ones(8, device=cuda)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        apply_op("sgd_update", [w.double(), w.double()], {"lr": 0.1})
+    with pytest.raises(TypeError):
+        apply_op("adam_update", [w.bfloat16(), w.bfloat16(), w, w], {})
+    with pytest.raises(TypeError):
+        apply_op("mp_sgd_update", [w, w, w.clone()], {})
+    with pytest.raises(TypeError):
+        apply_op("mp_sgd_update", [w.bfloat16(), w.half(), w.clone()], {})
+    with pytest.raises(TypeError):
+        topt_ops.multi_update("sgd_update", [[w.clone(), w], [w.half(),
+                                                              w.half()]],
+                              [{}, {}])
+    assert kernels.launch_counts() == before
+
+
+def _bert_trainer_run(cuda, params, init, grads, fused, opt, kw, steps=2):
+    os.environ["MXNET_TPU_FUSED_UPDATE"] = "1" if fused else "0"
+    try:
+        for p, w in zip(params, init):
+            p.set_data(w)
+        trainer = tgluon.Trainer(params, opt, dict(kw))
+        launches = []
+        for s in range(steps):
+            # a new gradient tensor a step, as a backward hands out
+            for p, g in zip(params, grads):
+                p.data().grad = g * (1 + s)
+            before = kernels.launch_counts()
+            trainer.step(8)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            launches.append({k: v - before.get(k, 0) for k, v in after.items()
+                             if v != before.get(k, 0)})
+            if s == 0:
+                builds = kernels.build_count()
+        assert kernels.build_count() == builds
+        return ([p.data().detach().clone() for p in params],
+                trainer, launches)
+    finally:
+        del os.environ["MXNET_TPU_FUSED_UPDATE"]
+
+
+@pytest.mark.cuda
+def test_fused_matches_loop_on_bert_base_params(cuda):
+    """BERT-base's parameters (203 tensors, 110.1M f32) with seeded
+    gradients: two Adam steps fused (one launch a step, nothing built
+    after the first) and through the loop (one launch per parameter) give
+    the same bits in weights and states."""
+    _, _, params = chip_smoke.bert_base_params(torch)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    init = [p.data().detach().clone() for p in params]
+    grads = [torch.randn(p.shape, generator=gen, device=cuda) * 1e-2
+             for p in params]
+    kw = {"learning_rate": 1e-3, "wd": 0.01, "clip_gradient": 0.02}
+    a, ta, la = _bert_trainer_run(cuda, params, init, grads, True, "adam",
+                                  kw)
+    b, tb, lb = _bert_trainer_run(cuda, params, init, grads, False, "adam",
+                                  kw)
+    assert la == [{"adam_update": 1}] * 2
+    assert ta._fused.last_dispatches == 1 and ta._fused.fallbacks == {}
+    assert ta._fused.tables_built == 1
+    assert lb == [{"adam_update": len(params)}] * 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for i in ta._updaters[0].states:
+        for x, y in zip(ta._updaters[0].states[i], tb._updaters[0].states[i]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fused_launches_once_per_op_and_dtype_group(cuda):
+    """SGD with momentum and multi_precision over f32 and bf16
+    parameters: two groups, two launches a step (``sgd_mom_update``,
+    ``mp_sgd_mom_update``), the loop's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params, init, grads = [], [], []
+    for i, n in enumerate((5, 4099, 70000, 33, 12)):
+        dtype = "bfloat16" if i % 2 else "float32"
+        p = tgluon.Parameter(f"p{i}", shape=(n,), dtype=dtype)
+        p.initialize(device=cuda)
+        params.append(p)
+        init.append(torch.randn(n, generator=gen, device=cuda).to(
+            p.data().dtype))
+        grads.append(torch.randn(n, generator=gen, device=cuda).to(
+            p.data().dtype))
+    kw = {"learning_rate": 0.05, "momentum": 0.9, "multi_precision": True}
+    a, ta, la = _bert_trainer_run(cuda, params, init, grads, True, "sgd", kw)
+    b, _, lb = _bert_trainer_run(cuda, params, init, grads, False, "sgd", kw)
+    assert la == [{"sgd_mom_update": 1, "mp_sgd_mom_update": 1}] * 2
+    assert ta._fused.last_dispatches == 2 and ta._fused.tables_built == 2
+    assert lb == [{"sgd_mom_update": 3, "mp_sgd_mom_update": 2}] * 2
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
