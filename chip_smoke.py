@@ -42,7 +42,9 @@ Phases, one line of output each (or more), in order:
    multi-tensor optimizer update (``csrc/multi_tensor_update.cu``), each
    update rule in one launch over BERT-base's 203 parameter tensors (the
    mp rules with bf16 weights), bit for bit against its twin, the twin
-   timed parameter by parameter;
+   timed parameter by parameter; then the flat kernel (K1, f32 pages)
+   at speculative decoding's packs: the verify's (T=24, 8 rows of 3)
+   and the draft round's (T=16, 8 rows of 2);
 4. main path f32 — ``LLMServer`` on ``TinyDecoder`` at GPT-2-small widths
    (vocab 50257, d_model 768, 12 layers, 12 heads, d_ff 3072, context
    1024; seeded random weights) serves 8 requests (prompts of 15 to 700
@@ -57,6 +59,18 @@ Phases, one line of output each (or more), in order:
    port's plain step on the CPU over pools of the same dtype
    (``check_greedy_plain``) and a mixed packed step against the same
    step on the CPU;
+   5c. speculative decoding (``spec_k=2``, the draft the target truncated
+   to 6 layers sharing its parameters, as the reference's serving bench
+   runs it): ``LLMServer`` over f32 pools on the f32 phase's traffic,
+   greedy streams against the oracle, 32 graphs (16 of the draft's
+   ladder), every verify and draft round one replay, no degraded step;
+   proposed, accepted and the accept rate, tokens/s, TTFT p50, host ms
+   per step, verify dispatches per committed token, the draft rounds'
+   and verifies' device ms (profiler ranges and CUDA events), beside
+   the f32 phase's numbers; then the target as its own draft on 3
+   requests (proposals accepted, fewer verifies than tokens), then fp8
+   weights for target and draft on 3 requests, streams against the
+   plain step on the CPU with the same weights;
    every serving phase (and the default config's, below) serves through
    CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
    seconds and the graph pool's bytes are printed), and the phase checks
@@ -122,7 +136,8 @@ Phases, one line of output each (or more), in order:
    ``multi_precision`` on bf16 weights, with and without momentum), two
    steps each, each step one launch of its rule and nothing else;
 9. one JSON line listing every kernel: launches on the main paths,
-   counted through graph replays (the flash kernels': the 10 training
+   counted through graph replays (the speculative phase's verifies and
+   draft rounds included; the flash kernels': the 10 training
    steps and the op phase's call; the 16-bit paged kernels': the bf16
    and f16 serving, the bf16 paged decode and the op phase), max
    error, times, bound (the quantized matmul's and the flash kernels'
@@ -242,6 +257,10 @@ DEVICE = "cuda"
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, num_layers=12,
                   num_heads=12, d_ff=3072, max_context=1024)
 MAX_SEQS, BLOCK_SIZE, NEW_TOKENS = 8, 16, 32
+# speculative decoding: proposals a row a step and the draft's layers
+# (the target truncated to half its depth, sharing its parameters), the
+# reference serving bench's knob and draft
+SPEC_K, DRAFT_LAYERS = 2, 6
 # BERT-base (the published config; gluon/model_zoo/bert.py "bert_base"),
 # trained as a masked LM with the tied decoder of
 # examples/bert_pretrain_mlm.py at batch 8 x 512 tokens
@@ -1001,6 +1020,56 @@ def run_paged_kernel_phase(torch, timer, rng):
     return results
 
 
+def run_spec_kernel_rows(torch, timer, seed):
+    """K1 (f32 pages) at speculative decoding's packs: the verify's
+    (T=24: 8 rows of spec_k + 1 = 3 tokens) and the draft round's (T=16:
+    8 rows of 2, a catch-up token and the proposal input), each against
+    its plain twin with its bound and launch plan, giving the same bits
+    on two launches. Case i draws its inputs from ``RandomState(seed +
+    i)``."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import ragged_attention as ra
+    results = []
+    for i, (T, pack) in enumerate(((MAX_SEQS * (SPEC_K + 1), "verify"),
+                                   (MAX_SEQS * 2, "draft"))):
+        args, nbytes, flops = attention_case(
+            torch, T, "float32", np.random.RandomState(seed + i))
+
+        def kern():
+            return ra.ragged_flat_attention(**args)
+
+        def plain():
+            return ra.ragged_flat_attention_reference(**args)
+        out_k = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        err = float((out_k - plain()).abs().max())
+        name = ra.kernel_name(torch.float32)
+        check(torch.equal(out_k, again), f"{name} T={T}: two launches "
+              f"gave different bits")
+        b_ms, b_by, b_f32 = bound(nbytes, flops)
+        extra, note = ring_note(kernels, ra, "float32", "FlatTiles",
+                                ra.flat_plan(T, MAX_SEQS, 12, 64,
+                                             BLOCK_SIZE, 64, torch.float32),
+                                64, BLOCK_SIZE, 64)
+        res = dict(name=name, route="cuda",
+                   source="mxnet_tpu_torch/csrc/ragged_flat.cu",
+                   replaces="mxnet_tpu/ops/ragged_attention.py:158",
+                   shape=f"T={T},H=12,D=64,bs=16,MB=64 ({pack} pack, "
+                         f"{T // MAX_SEQS} tokens a row)",
+                   max_abs_err=err, tol=ATT_TOL, ms=timer.ms(kern),
+                   plain_ms=timer.ms(plain), bound_ms=b_ms, bound_by=b_by,
+                   bound_f32_ms=b_f32, library_ms=None, **extra)
+        log(f"kernel {name} {res['shape']}: max_abs_err={err:.3e} "
+            f"(tol {ATT_TOL}) kernel_ms={res['ms']:.4f} "
+            f"plain_ms={res['plain_ms']:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}); {note}")
+        check(err <= ATT_TOL, f"{name} {res['shape']} disagrees with its "
+              f"plain version: {err} > {ATT_TOL}")
+        results.append(res)
+    return results
+
+
 def run_paged_lp_kernel_phase(torch, timer, seed):
     """K1 (T=8, 128), K4 (S=8, Q=16 and Q=1) and K5 (S=8, S=64) over bf16
     and f16 pages (``csrc/ragged_flat_lp.cu``) at the f32 rows' shapes,
@@ -1391,10 +1460,12 @@ def profile_engine(torch, engine, prompts):
 
 def warm_server(torch, server, tag):
     """``server.warmup()``, which captures the step's graph at every
-    rung: prints the graphs, the capture seconds and the graph pool's
-    bytes (device memory before and after), checks one graph a rung.
-    Returns (compile count after warmup, the engine's programs(), the
-    counter of ``decode_flat`` calls from Python from here on)."""
+    rung (and, with a draft model, the draft round's at every rung of
+    its own ladder): prints the graphs, the capture seconds and the
+    graph pool's bytes (device memory before and after), checks one
+    graph a rung. Returns (compile count after warmup, the engine's
+    programs(), the counter of ``decode_flat`` calls from Python, the
+    target's and the draft's, from here on)."""
     from mxnet_tpu_torch.serving.telemetry import compile_count
     engine = server.engine
     torch.cuda.synchronize()
@@ -1404,24 +1475,35 @@ def warm_server(torch, server, tag):
     server.warmup()
     torch.cuda.synchronize()
     progs = engine.programs()
-    rungs = 2 * len(progs["t_buckets"]) * len(progs["mb_widths"])
+    n_mb = len(progs["mb_widths"])
+    rungs = 2 * n_mb * (len(progs["t_buckets"])
+                        + len(progs["draft_t_buckets"]))
+    draft = (f"; draft packed lengths {progs['draft_t_buckets']} x the "
+             f"same widths x greedy/sampled" if progs["draft_t_buckets"]
+             else "")
     log(f"{tag}: warmup {time.monotonic() - t0:.2f}s: {progs['graphs']} "
         f"graphs captured ({rungs} rungs: packed lengths "
         f"{progs['t_buckets']} x table widths {progs['mb_widths']} x "
-        f"greedy/sampled) in {progs['capture_seconds']:.2f}s; graph pool "
+        f"greedy/sampled{draft}) in {progs['capture_seconds']:.2f}s; "
+        f"graph pool "
         f"{engine.graph_pool_bytes() / 1e6:.1f} MB; device memory "
         f"allocated {(torch.cuda.memory_allocated() - alloc) / 1e6:+.1f} "
         f"MB, reserved {(torch.cuda.memory_reserved() - reserved) / 1e6:+.1f}"
         f" MB over the warmup")
-    check(progs["graphs"] == progs["step_variants"] == rungs,
+    check(progs["graphs"] == progs["step_variants"]
+          + progs["draft_variants"] == rungs,
           f"{tag}: {progs['graphs']} graphs after warmup, {rungs} rungs")
-    return compile_count(), progs, count_calls(engine.model, "decode_flat")
+    calls = count_calls(engine.model, "decode_flat")
+    if engine.draft_model not in (None, engine.model):
+        count_calls(engine.draft_model, "decode_flat", calls)
+    return compile_count(), progs, calls
 
 
-def count_calls(obj, name):
+def count_calls(obj, name, calls=None):
     """Count the Python calls of ``obj.name`` (an instance attribute
-    wraps the method); returns the one-element counter."""
-    calls = [0]
+    wraps the method) in ``calls`` (a new one-element counter if None);
+    returns the counter."""
+    calls = [0] if calls is None else calls
     fn = getattr(obj, name)
 
     def counted(*args, **kw):
@@ -1434,9 +1516,12 @@ def count_calls(obj, name):
 def check_graph_steps(tag, engine, before, calls, compiles):
     """After serving: every dispatch was one graph replay, the model
     step never ran in Python, nothing was built or captured. Prints the
-    replays and dispatches and restores ``decode_flat``."""
+    replays and dispatches and restores ``decode_flat`` (the target's
+    and the draft's)."""
     from mxnet_tpu_torch.serving.telemetry import compile_count
-    del engine.model.decode_flat
+    for m in {id(m): m for m in (engine.model, engine.draft_model)
+              if m is not None}.values():
+        m.__dict__.pop("decode_flat", None)
     progs = engine.programs()
     replays = progs["replays"] - before["replays"]
     dispatches = progs["dispatches"] - before["dispatches"]
@@ -1451,6 +1536,14 @@ def check_graph_steps(tag, engine, before, calls, compiles):
           "graph captured after warmup")
 
 
+def verify_dispatches(engine, before):
+    """Step (verify) dispatches since ``before`` (an earlier
+    ``programs()``), draft rounds not counted."""
+    now = engine.programs()
+    return (now["dispatches"] - now["draft_dispatches"]
+            - before["dispatches"] + before["draft_dispatches"])
+
+
 def host_ms_per_step(torch, server, prompts, tag):
     """Capture the idle server's graphs again (shutdown released them)
     and drive ``prompts`` through its engine on this thread without the
@@ -1459,13 +1552,17 @@ def host_ms_per_step(torch, server, prompts, tag):
     steps, wall = drive_engine(torch, server.engine, prompts)
     log(f"{tag}: {steps} steps in {wall:.3f}s without the profiler: host "
         f"{wall / steps * 1e3:.2f} ms/step")
+    return wall / steps * 1e3
 
 
 def device_rows(prof):
-    """The profiler's rows with device time, and their sum in us."""
+    """The profiler's rows with device time, and their sum in us (the
+    ``spec.*`` ranges of :func:`profile_spec`, which span their
+    dispatches on the device timeline, not counted)."""
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and getattr(e, "self_device_time_total", 0) > 0]
+            and getattr(e, "self_device_time_total", 0) > 0
+            and not e.key.startswith("spec.")]
     return rows, sum(e.self_device_time_total for e in rows)
 
 
@@ -1490,7 +1587,7 @@ def report_profile(prof, wall, steps):
 
 
 def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
-                       label, chunk=64):
+                       label, chunk=64, w_scales=None):
     """Hold a served greedy stream over ``kv_dtype`` pools against the
     port's plain step over pools of the same dtype: ``model``/``params``
     on the CPU (every kernel's plain version) run ``decode_flat`` over
@@ -1498,7 +1595,8 @@ def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
     prefill does); the logits at each position must pick the served
     token, or may pick another only where their top-2 gap is below
     ``tol`` (a near tie). Every token is checked: the plain step reads
-    the served stream, not its own. Returns a verdict."""
+    the served stream, not its own. ``w_scales``: quantized weights'
+    scales (``params`` then the quantized tree). Returns a verdict."""
     import torch
     from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
     c = model.config
@@ -1509,6 +1607,7 @@ def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
                          BLOCK_SIZE, mb + 1, c.max_context, dtype=kv_dtype,
                          device="cpu")
     tables = torch.arange(1, mb + 1, dtype=torch.int32)[None, :]
+    kw = {} if w_scales is None else {"w_scales": w_scales}
     picked = []
     with torch.no_grad():
         for p0 in range(0, n, chunk):
@@ -1516,7 +1615,7 @@ def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
             logits = model.decode_flat(
                 params, torch.tensor(seq[p0:p0 + chunk], dtype=torch.int32),
                 pos, torch.zeros_like(pos), torch.ones_like(pos),
-                cache.k_pages, cache.v_pages, tables)
+                cache.k_pages, cache.v_pages, tables, **kw)
             for i, p in enumerate(pos.tolist()):
                 if p >= len(prompt) - 1:
                     picked.append(logits[i])
@@ -1540,7 +1639,9 @@ def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
     mixed packed step against the dense forward; 16-bit ones against
     the port's plain step on the CPU over pools of the same dtype
     (:func:`check_greedy_plain`, :func:`step_logits`). Returns (launches,
-    stats, tokens/s)."""
+    stats, tokens/s, a summary for the speculative phase: the traffic,
+    tokens/s, TTFT p50, host ms per step, verify dispatches per
+    committed token)."""
     from mxnet_tpu_torch.convert import params_from_numpy
     from mxnet_tpu_torch.ops.ragged_attention import kernel_name
     from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
@@ -1571,6 +1672,7 @@ def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
                       late=(3, shared))
     launches = kernels.launch_counts()
     server.shutdown()
+    verifies = verify_dispatches(server.engine, progs)
     server.engine._build_batch = build_batch
     per_rung = {t: n * model.num_layers for t, n in sorted(rungs.items())}
     st = server.stats()
@@ -1648,11 +1750,14 @@ def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
     # (prompts from a generator of its own: the later phases draw their
     # inputs from ``rng`` as they did before this pass existed), then
     # with it
-    host_ms_per_step(torch, server, prompts_for(
+    host_ms = host_ms_per_step(torch, server, prompts_for(
         np.random.RandomState(1), model.vocab_size)[0], tag)
     profile_engine(torch, server.engine,
                    prompts_for(rng, model.vocab_size)[0])
-    return launches, st, n_tok / wall
+    summary = dict(prompts=prompts, shared=shared, tokens_s=n_tok / wall,
+                   ttft_p50=st["ttft_ms"]["p50"], host_ms=host_ms,
+                   per_token=verifies / n_tok)
+    return launches, st, n_tok / wall, summary
 
 
 def run_default_config_phase(torch, rng, kernels):
@@ -1786,6 +1891,226 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
                    [rng.randint(0, model.vocab_size, size=n).tolist()
                     for n in (17, 64, 200)])
     return launches
+
+
+def profile_spec(torch, engine, prompts):
+    """Drive ``engine`` (idle, warmed) through ``prompts`` under
+    ``torch.profiler`` with each draft round and each verify inside a
+    ``record_function`` range (``spec.draft``, ``spec.verify``). Prints
+    the profile (:func:`report_profile`); returns {"draft"|"verify"|
+    "other": (device ms, dispatches)}: every device activity (kernels
+    and copies) of the pass, by the range whose host interval holds its
+    start (a dispatch ends in a synchronize, so its device work runs
+    inside its range), and the steps."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for attr, kind in (("_draft_dispatch", "draft"), ("_dispatch", "verify")):
+        fn = getattr(engine, attr)
+
+        def ranged(*a, _fn=fn, _kind=kind, **k):
+            with record_function(f"spec.{_kind}"):
+                return _fn(*a, **k)
+        setattr(engine, attr, ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps, wall = drive_engine(torch, engine, prompts)
+    finally:
+        for attr in ("_draft_dispatch", "_dispatch"):
+            engine.__dict__.pop(attr, None)
+    report_profile(prof, wall, steps)
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[5:])
+                   for e in events if e.name in ("spec.draft", "spec.verify")
+                   and not str(e.device_type).endswith("CUDA"))
+    starts = [a for a, _, _ in spans]
+    out = {"draft": [0.0, 0], "verify": [0.0, 0], "other": [0.0, 0]}
+    for _, _, kind in spans:
+        out[kind][1] += 1
+    for e in events:
+        if (not str(e.device_type).endswith("CUDA")
+                or e.name.startswith("spec.")):
+            continue
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        kind = spans[i][2] if i >= 0 and t <= spans[i][1] else "other"
+        out[kind][0] += (e.time_range.end - t) / 1e3
+    return {k: tuple(v) for k, v in out.items()}, steps
+
+
+def spec_server(torch, model, params, draft, dparams, tag, **kw):
+    """``LLMServer`` with ``draft`` as its draft model at ``SPEC_K``,
+    warmed (:func:`warm_server`); the graphs of both ladders are checked
+    (16 rungs each at these widths). Returns (server, compile count,
+    programs(), the ``decode_flat`` call counter)."""
+    from mxnet_tpu_torch.serving.llm import LLMServer
+    server = LLMServer(model, params, name=f"gpt2-{tag}",
+                       max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                       draft_model=draft, draft_params=dparams,
+                       spec_k=SPEC_K, device=DEVICE, **kw)
+    builds, progs, calls = warm_server(torch, server, tag)
+    check(progs["graphs"] == 32 and progs["draft_graphs"] == 16,
+          f"{tag}: {progs['graphs']} graphs ({progs['draft_graphs']} of "
+          f"the draft) after warmup, expected 32 (16)")
+    return server, builds, progs, calls
+
+
+def spec_served(torch, kernels, server, prompts, sampled_idx, late=None):
+    """Serve ``prompts`` (:func:`serve`) and shut the server down;
+    returns (results, wall, launches, stats, verify dispatches, draft
+    dispatches)."""
+    before = server.engine.programs()
+    server.start()
+    kernels.reset_launch_counts()
+    res, wall = serve(torch, server, prompts, sampled_idx, late=late)
+    launches = kernels.launch_counts()
+    server.shutdown()
+    after = server.engine.programs()
+    return (res, wall, launches, server.stats(),
+            verify_dispatches(server.engine, before),
+            after["draft_dispatches"] - before["draft_dispatches"])
+
+
+def spec_line(tag, res, wall, st, verifies, drafts):
+    n_tok = sum(len(r.tokens) for r in res)
+    log(f"{tag}: served {len(res)} requests, {n_tok} tokens in {wall:.3f}s"
+        f" = {n_tok / wall:.1f} tokens/s (end to end); TTFT p50 "
+        f"{st['ttft_ms']['p50']:.2f} ms; spec_k {st['spec_k']}, proposed "
+        f"{st['spec_proposed']}, accepted {st['spec_accepted']} (rate "
+        f"{st['spec_accept_rate']:.4f}), degraded {st['spec_degraded']}; "
+        f"{verifies} verify dispatches ({verifies / n_tok:.3f} per "
+        f"committed token), {drafts} draft rounds; prefix hits "
+        f"{st['prefix_hits']}, COW copies {st['kv_cache']['cow_copies']}; "
+        f"weights {st['weight_dtype']}, draft {st['draft_weight_dtype']}")
+    check(st["spec_degraded"] == 0, f"{tag}: {st['spec_degraded']} steps "
+          "degraded to plain decode")
+    check(all(len(r.tokens) == NEW_TOKENS for r in res),
+          f"{tag}: a request stopped short")
+    return n_tok
+
+
+def run_spec_phase(torch, rng, np_params, kernels, f32):
+    """Speculative decoding at GPT-2-small widths (the reference serving
+    bench's knobs: ``spec_k`` 2, the draft the target truncated to 6
+    layers sharing its parameters):
+
+    (a) ``LLMServer`` over f32 pools on the f32 phase's traffic (``f32``:
+    its summary): greedy streams against ``greedy_decode_reference``,
+    32 graphs, every dispatch (verify or draft round) one replay,
+    nothing built or captured after warmup, no degraded step; the
+    idle engine's host ms per step and a profiled pass with each draft
+    round's and verify's device ms; the f32 phase's numbers beside;
+    (b) the target as its own draft on 3 requests: proposals accepted
+    and fewer verify dispatches than committed tokens;
+    (c) fp8 weights for target and draft over f32 pools on 3 requests:
+    streams against the port's plain step on the CPU with the same
+    weights (:func:`check_greedy_plain`).
+    Returns the launch counts of the served traffic."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.ops.quantization import kernel_name as wq_name
+    from mxnet_tpu_torch.serving.llm import TinyDecoder, quantize_weights
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+    draft = TinyDecoder(device=DEVICE,
+                        **dict(GPT2_SMALL, num_layers=DRAFT_LAYERS))
+    params = params_from_numpy(np_params, DEVICE)
+    dparams = dict(params, layers=params["layers"][:DRAFT_LAYERS])
+    # (a)
+    tag = "spec"
+    server, builds, progs, calls = spec_server(torch, model, params, draft,
+                                               dparams, tag)
+    prompts, shared = f32["prompts"], f32["shared"]
+    res, wall, launches, st, verifies, drafts = spec_served(
+        torch, kernels, server, prompts, (1, 5), late=(3, shared))
+    add(launches)
+    n_tok = spec_line(tag, res, wall, st, verifies, drafts)
+    log(f"{tag}: launches {launches}")
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    check(launches.get("flat_attention", 0) > 0,
+          f"{tag}: the flat attention kernel never ran")
+    check(st["prefix_hits"] >= 1 and st["kv_cache"]["cow_copies"] >= 1,
+          f"{tag}: the prefix cache / copy-on-write path was not taken")
+    all_prompts = prompts + [shared]
+    for i in [i for i in range(len(res)) if i not in (1, 5)]:
+        verdict = check_greedy(model, params, all_prompts[i], res[i].tokens,
+                               F32_LOGIT_TOL, f"{tag} request {i}")
+        log(f"{tag}: request {i} (prompt {len(all_prompts[i])}) greedy vs "
+            f"oracle: {verdict}")
+    host_ms = host_ms_per_step(torch, server, prompts_for(
+        np.random.RandomState(1), model.vocab_size)[0], tag)
+    dev, steps = profile_spec(torch, server.engine, prompts_for(
+        np.random.RandomState(2), model.vocab_size)[0])
+    busy = sum(ms for ms, _ in dev.values())
+    if busy == 0:
+        log(f"{tag}: draft and verify device ms: not measured (the "
+            f"profiler saw no device time)")
+    for kind, (ms, n) in dev.items():
+        if busy and kind != "other":
+            log(f"{tag}: {kind}: {n} dispatches in {steps} steps, device "
+                f"{ms:.2f} ms by the profiler ({ms / max(n, 1):.3f} ms a "
+                f"dispatch, {ms / steps:.3f} ms a step; {ms / busy:.3f} of "
+                f"the pass's device time)")
+    if busy:
+        log(f"{tag}: device time outside the dispatches "
+            f"{dev['other'][0]:.2f} ms")
+    log(f"{tag}: beside the f32 phase on the same traffic: tokens/s "
+        f"{n_tok / wall:.1f} vs {f32['tokens_s']:.1f}; TTFT p50 "
+        f"{st['ttft_ms']['p50']:.2f} vs {f32['ttft_p50']:.2f} ms; host "
+        f"ms/step {host_ms:.2f} vs {f32['host_ms']:.2f}; verify dispatches "
+        f"per committed token {verifies / n_tok:.3f} vs "
+        f"{f32['per_token']:.3f}")
+    del server
+    # (b) self-draft
+    tag = "spec self-draft"
+    server, builds, progs, calls = spec_server(torch, model, params, model,
+                                               params, "spec-self")
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (17, 64, 200)]
+    res, wall, launches, st, verifies, drafts = spec_served(
+        torch, kernels, server, prompts, ())
+    add(launches)
+    n_tok = spec_line(tag, res, wall, st, verifies, drafts)
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    check(st["spec_accepted"] > 0, f"{tag}: no proposal accepted")
+    check(n_tok > verifies, f"{tag}: {verifies} verify dispatches for "
+          f"{n_tok} committed tokens")
+    verdicts = [check_greedy(model, params, p, r.tokens, F32_LOGIT_TOL,
+                             f"{tag} request {i}")
+                for i, (p, r) in enumerate(zip(prompts, res))]
+    log(f"{tag}: greedy vs oracle: {', '.join(verdicts)}")
+    del server
+    # (c) fp8 weights for target and draft, f32 pools
+    tag = "spec fp8"
+    fp8 = "float8_e4m3fn"
+    np_draft = dict(np_params, layers=np_params["layers"][:DRAFT_LAYERS])
+    server, builds, progs, calls = spec_server(
+        torch, model, np_params, draft, np_draft, "spec-fp8",
+        weight_dtype=fp8, draft_weight_dtype=fp8)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (17, 64, 200)]
+    res, wall, launches, st, verifies, drafts = spec_served(
+        torch, kernels, server, prompts, ())
+    add(launches)
+    spec_line(tag, res, wall, st, verifies, drafts)
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    check(st["weight_dtype"] == st["draft_weight_dtype"] == fp8,
+          f"{tag}: weights {st['weight_dtype']}, draft "
+          f"{st['draft_weight_dtype']}")
+    check(launches.get(wq_name(torch.float8_e4m3fn), 0) > 0,
+          f"{tag}: the quantized matmul never ran")
+    cpu_model = TinyDecoder(device="cpu", **GPT2_SMALL)
+    qw = quantize_weights(np_params, dtype=fp8)
+    for i, (p, r) in enumerate(zip(prompts, res)):
+        verdict = check_greedy_plain(
+            cpu_model, qw.params, p, r.tokens, "float32",
+            QUANT_LOGIT_TOL[fp8], f"{tag} request {i}", w_scales=qw.scales)
+        log(f"{tag}: request {i} (prompt {len(p)}) greedy vs the plain step "
+            f"with the same fp8 weights (CPU): {verdict}")
+    return counts
 
 
 class GraphedStep:
@@ -3173,6 +3498,7 @@ def main():
     results += run_paged_lp_kernel_phase(torch, timer, 10)
     results += run_wq_x16_rows(torch, timer, np.random.RandomState(11))
     results += run_optimizer_kernel_phase(torch, timer)
+    results += run_spec_kernel_rows(torch, timer, 17)
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()
@@ -3184,7 +3510,9 @@ def main():
     def add(counts):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-    add(run_f32_phase(torch, rng, np_params, kernels)[0])
+    counts, _, _, f32_serving = run_f32_phase(torch, rng, np_params,
+                                              kernels)
+    add(counts)
     # 5. main path, quantized
     for dtype in ("int8", "float8_e4m3fn"):
         add(run_quant_phase(torch, rng, np_params, kernels, dtype))
@@ -3195,6 +3523,10 @@ def main():
                       dtype="bfloat16")[0])
     add(run_quant_phase(torch, np.random.RandomState(13), np_params,
                         kernels, "float16"))
+    # 5c. speculative decoding (its own generator, as 5b)
+    add(run_spec_phase(torch, np.random.RandomState(16), np_params, kernels,
+                       f32_serving))
+    del f32_serving
     # 6. paged decode through the model interface
     counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)
     add(counts)

@@ -36,7 +36,7 @@ import time
 __all__ = ["SOURCES", "build_all", "library", "rtc_library",
            "launch_counts", "reset_launch_counts", "count_launch",
            "build_count", "capture_count", "capture", "CapturedGraph",
-           "check", "require", "stream_handle"]
+           "CaptureError", "check", "require", "stream_handle"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -287,6 +287,11 @@ def rtc_library(source, kernel_name):
         return _libs[name]
 
 
+class CaptureError(RuntimeError):
+    """A CUDA graph capture, or the warm run before it (which builds
+    and loads the kernels the graph launches), failed."""
+
+
 class CapturedGraph:
     """A captured ``torch.cuda.CUDAGraph`` and the kernel launches its
     capture recorded (``tally``, by kernel name); :meth:`replay` adds the
@@ -318,13 +323,17 @@ def capture(fn, stream, pool=None, what="the function"):
     it counts once in :func:`capture_count`. The warm run is a real
     run: what ``fn`` reads must already hold what the caller means, and
     what it writes stays written. Tensors ``fn`` reads must stay where
-    they are: the graph replays on their addresses. A failed
-    capture raises ``RuntimeError`` naming ``what``."""
+    they are: the graph replays on their addresses. A failed warm run
+    or capture raises :class:`CaptureError` naming ``what``."""
     import torch
     current = torch.cuda.current_stream(stream.device)
     stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        fn()
+    try:
+        with torch.cuda.stream(stream):
+            fn()
+    except Exception as exc:
+        raise CaptureError(f"the warm run before the CUDA graph capture "
+                           f"of {what} failed: {exc}") from exc
     current.wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     _capturing.tally = tally = collections.Counter()
@@ -333,7 +342,7 @@ def capture(fn, stream, pool=None, what="the function"):
                               capture_error_mode="thread_local"):
             fn()
     except Exception as exc:
-        raise RuntimeError(
+        raise CaptureError(
             f"CUDA graph capture of {what} failed: {exc}") from exc
     finally:
         _capturing.tally = None

@@ -12,42 +12,66 @@ One engine iteration (:meth:`LLMEngine.step`):
    The rest of the prompt is written in CHUNKS of ``prefill_chunk``
    tokens scheduled into the regular step;
 2. **plan + allocate** — each running sequence declares this step's
-   query tokens (its next prompt chunk, or its one decode token);
-   blocks covering the step's KV writes are allocated up front, and a
-   write into a block still shared with another sequence is preceded by
-   a copy-on-write. Under KV pressure the newest sequence is preempted
-   (blocks freed, generation folded into its prompt, requeued — the
-   position-keyed sampling noise resumes the exact stream);
-3. **step** — ONE launch sequence for the whole mixed batch in the FLAT
+   query tokens (its next prompt chunk, its one decode token, or, in
+   speculative decode, its last committed token and up to ``spec_k``
+   draft proposals); blocks covering the step's KV writes are allocated
+   up front, and a write into a block still shared with another
+   sequence is preceded by a copy-on-write. Under KV pressure the
+   newest sequence is preempted (blocks freed, generation folded into
+   its prompt, requeued — the position-keyed sampling noise resumes the
+   exact stream);
+3. **draft** (with a draft model) — the draft mirrors prefill chunks
+   into its own pools, catches its committed prefix up and proposes up
+   to ``spec_k`` tokens a speculating row, one draft dispatch a round;
+4. **step** — ONE launch sequence for the whole mixed batch in the FLAT
    ragged layout: every row's query tokens packed into one
    ``[total_q_tokens]`` batch (tokens / positions / seq_ids / valid) +
    ``[max_seqs, mb]`` block tables, copied to the device in one
    transfer; :meth:`~.model.TinyDecoder.decode_flat` writes the KV in
-   place and attends through the flat ragged kernel; greedy argmax or
-   temperature / top-k / top-p sampling runs on the device on each row's
-   last-position logits; ONE device-to-host copy (the step's only
+   place and attends through the flat ragged kernel; the accept rule
+   (greedy argmax, or temperature / top-k / top-p sampling with
+   position-keyed noise) runs on the device over each row's ``K + 1``
+   scored positions; ONE device-to-host copy (the step's only
    synchronisation) brings the committed tokens back. The packed length
-   and the table width are bucketed on small ladders (pure decode, the
-   commonest mixed steps, full prefill; half and full table width).
+   and the table width are bucketed on small ladders (pure decode or
+   verify, the commonest mixed steps, full prefill; half and full table
+   width).
 
-The step program (the port of the reference's ``_make_step_fn`` and its
-per-variant jit cache): one :class:`_StepProgram` per (packed length,
-table width, greedy|sampled) rung holds the rung's static batch buffers
-and output and, on CUDA, a ``torch.cuda.CUDAGraph`` of the whole step
+Speculative decoding: a small DRAFT model proposes up to ``spec_k``
+tokens a sequence, its KV pages indexed by the SAME block ids the
+target allocator hands out (one strict accounting for both pools); the
+step scores all ``K + 1`` positions in one target dispatch and the
+accept rule commits ``n_acc + 1`` tokens. Rejected draft KV is rolled
+back by trimming the sequence's surplus blocks through the strict
+allocator, and the draft's committed-prefix watermark
+(``Sequence.draft_len``) rolls back with them. A failing draft dispatch
+degrades that step to plain decode (counted in ``spec_degraded``); a
+graph capture or a kernel build never degrades, it raises. The draft's
+probabilities stay on the device: each sampled draft round's ``[S, V]``
+output is copied, device to device, into a static ``[S, K, V]`` tensor
+that the verify step reads (the reference carries them through the
+host).
+
+The programs (the port of the reference's ``_make_step_fn`` /
+``_make_draft_fn`` and their per-variant jit caches): one
+:class:`_StepProgram` per (packed length, table width, greedy|sampled)
+rung of the target's ladder and, with a draft, one per rung of the
+draft's own ladder, each holding the rung's static batch buffers and
+output and, on CUDA, a ``torch.cuda.CUDAGraph`` of the whole program
 over them, captured by :meth:`LLMEngine.warmup` (or at the rung's first
 use, as the reference jits lazily). A capture counts as a compile
-(:func:`~..telemetry.compile_count`), so after ``warmup()`` a step is:
-fill the rung's pinned host buffer, one host-to-device copy, one graph
-replay, one device-to-host copy; no model code runs in Python. A capture
-that fails raises, naming the rung: the engine never steps eagerly on
-the card. On the CPU there is nothing to capture, and the same step
-function runs eagerly on the same static buffers.
+(:func:`~..telemetry.compile_count`), so after ``warmup()`` a verify or
+a draft round is: fill the rung's pinned host buffer, one host-to-device
+copy, one graph replay, one device-to-host copy; no model code runs in
+Python. A capture that fails raises, naming the rung: the engine never
+steps eagerly on the card. On the CPU there is nothing to capture, and
+the same functions run eagerly on the same static buffers.
 
 Single-threaded by design: :class:`~.server.LLMServer` owns the thread,
 the queue and the futures; the engine owns device state and
-determinism. Speculative decoding (a draft model), multi-LoRA adapter
-banks and tensor-parallel meshes are not ported yet (ROADMAP.md §1);
-asking for one raises ``NotImplementedError``.
+determinism. Multi-LoRA adapter banks and tensor-parallel meshes are
+not ported yet (ROADMAP.md §1); asking for one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,16 +91,12 @@ from .kv_cache import (PagedKVCache, KVCacheError, NULL_BLOCK,
 from .quant import (FP8_NAME, fp8_supported, quantize_weights,
                     flatten_params, resolve_weight_dtype)
 from .scheduler import Scheduler, Sequence, RUNNING, FINISHED, EVICTED
-from .sampling import (TAG_SAMPLE, TAG_ACCEPT, row_keys, spec_accept,
-                       spec_accept_greedy)
+from .sampling import (TAG_SAMPLE, TAG_ACCEPT, TAG_DRAFT, row_keys,
+                       sample_and_probs, spec_accept, spec_accept_greedy)
 
 __all__ = ["LLMEngine"]
 
 _DEFERRED = {
-    "draft_model": "speculative decoding (a draft model)",
-    "draft_params": "speculative decoding (a draft model)",
-    "spec_k": "speculative decoding (a draft model)",
-    "draft_weight_dtype": "speculative decoding (a draft model)",
     "adapter_bank": "multi-LoRA adapter banks",
     "mesh": "tensor-parallel meshes",
 }
@@ -108,35 +128,37 @@ def _resolve_kv_dtype(name):
     return name, False
 
 
-class _StepBuffers:
+class _Buffers:
     """Host batch arrays of one (packed length ``t``, table width
     ``mb``) rung, all views into ONE int32 buffer (pinned when the
-    engine runs on CUDA) so a step's batch reaches the device in one
+    engine runs on CUDA) so a dispatch's batch reaches the device in one
     copy, and the matching views of its static device twin
-    (``device_views``), which a captured step reads: :meth:`upload`
+    (``device_views``), which a captured program reads: :meth:`upload`
     copies the host buffer into it. On the CPU the twin is the host
-    buffer.
+    buffer. Subclasses name the fields and their shapes.
 
-    The host writes the pinned buffer only between steps: each step ends
-    in a device-to-host copy that waits for the whole stream, the upload
-    included."""
+    The host writes the pinned buffer only between dispatches: each
+    dispatch ends in a device-to-host copy that waits for the whole
+    stream, the upload included."""
 
-    _INT_FIELDS = ("tokens", "positions", "seq_ids", "valid", "tables",
-                   "win_idx", "top_k", "seeds", "counters")
+    _INT_FIELDS = ()
     _F32_FIELDS = ("temperature", "top_p")
 
-    def __init__(self, t, mb, S, device):
-        sizes = {"tokens": t, "positions": t, "seq_ids": t, "valid": t,
-                 "tables": S * mb}
-        sizes.update(dict.fromkeys(("win_idx", "top_k", "seeds",
-                                    "counters", "temperature", "top_p"),
-                                   S))
+    def _shapes(self, t, mb, S, K):
+        shapes = {"tokens": (t,), "positions": (t,), "seq_ids": (t,),
+                  "valid": (t,), "tables": (S, mb)}
+        shapes.update(dict.fromkeys(("top_k", "seeds", "counters",
+                                     "temperature", "top_p"), (S,)))
+        return shapes
+
+    def __init__(self, t, mb, S, device, K=0):
+        shapes = self._shapes(t, mb, S, K)
         slices = {}
         off = 0
         for name in self._INT_FIELDS + self._F32_FIELDS:
-            slices[name] = (off, off + sizes[name])
-            off += sizes[name]
-        shapes = {"tables": (S, mb)}
+            n = int(np.prod(shapes[name]))
+            slices[name] = (off, off + n)
+            off += n
         host = torch.zeros(off, dtype=torch.int32)
         if device.type == "cuda":
             host = host.pin_memory()
@@ -146,13 +168,12 @@ class _StepBuffers:
         self.device_views = {}
         flat = host.numpy()
         for name, (a, b) in slices.items():
-            shape = shapes.get(name, (b - a,))
             view, dview = flat[a:b], self._dev[a:b]
             if name in self._F32_FIELDS:
                 view, dview = view.view(np.float32), dview.view(
                     torch.float32)
-            setattr(self, name, view.reshape(shape))
-            self.device_views[name] = dview.view(shape)
+            setattr(self, name, view.reshape(shapes[name]))
+            self.device_views[name] = dview.view(shapes[name])
         self.tables.fill(NULL_BLOCK)
         self.top_p.fill(1.0)
 
@@ -161,62 +182,131 @@ class _StepBuffers:
             self._dev.copy_(self._host, non_blocking=True)
 
 
-def _make_step_fn(model, sampled):
-    """The step program body of one variant (the port of the
-    reference's ``_make_step_fn`` at ``spec_k = 0``): the flat ragged
-    step over a packed batch, then each row's token from its scored
-    position — the raw argmax (``sampled`` False: no sampling
-    arithmetic) or the accept rule with position-keyed noise.
+class _StepBuffers(_Buffers):
+    """The verify step's batch: the packed tokens and tables, each row's
+    ``K + 1`` scored positions (``win_idx [S, K+1]``: flat indices into
+    the pack), its draft proposals (``draft_tokens [S, K]``) and their
+    count (``n_draft [S]``, 0 on a plain row), and the sampling
+    vectors."""
 
-    ``step(params, kv, no_draft, b, out)`` reads only tensors: the
+    _INT_FIELDS = ("tokens", "positions", "seq_ids", "valid", "tables",
+                   "win_idx", "draft_tokens", "n_draft", "top_k", "seeds",
+                   "counters")
+
+    def _shapes(self, t, mb, S, K):
+        shapes = super()._shapes(t, mb, S, K)
+        shapes.update(win_idx=(S, K + 1), draft_tokens=(S, K),
+                      n_draft=(S,))
+        return shapes
+
+
+class _DraftBuffers(_Buffers):
+    """A draft round's batch: the packed feed tokens and tables, the
+    flat index of each row's last fed token (``last_idx [S]``) and the
+    sampling vectors."""
+
+    _INT_FIELDS = ("tokens", "positions", "seq_ids", "valid", "tables",
+                   "last_idx", "top_k", "seeds", "counters")
+
+    def _shapes(self, t, mb, S, K):
+        shapes = super()._shapes(t, mb, S, K)
+        shapes["last_idx"] = (S,)
+        return shapes
+
+
+def _make_step_fn(model, spec_k, sampled):
+    """The step program body of one variant (the port of the
+    reference's ``_make_step_fn``): the flat ragged step over a packed
+    batch, then the accept rule over each row's ``K + 1`` scored
+    positions — the raw argmax (``sampled`` False: no sampling
+    arithmetic) or the speculative-sampling rule with position-keyed
+    noise (accept keys at the first ``K`` positions, sample keys at all
+    ``K + 1``). A plain row (``n_draft`` 0) commits one token.
+
+    ``step(params, kv, draft_probs, b, out)`` reads only tensors: the
     params, ``kv`` (the pools and their scales, and ``w_scales``, as
-    ``decode_flat`` keywords; written in place), the empty draft inputs
-    and the batch views ``b`` of :class:`_StepBuffers`; it writes the
-    tokens and the accepted counts into ``out [S, 2]`` int32. It reads
-    nothing back to the host and its shapes depend on the rung alone,
-    so on CUDA it is captured as it is."""
-    def step(params, kv, no_draft, b, out):
+    ``decode_flat`` keywords; written in place), the draft's adjusted
+    probabilities ``[S, K, V]`` and the batch views ``b`` of
+    :class:`_StepBuffers`; it writes the committed tokens and the
+    accepted counts into ``out [S, K+2]`` int32 (tokens in the first
+    ``K + 1`` columns). It reads nothing back to the host and its
+    shapes depend on the rung alone, so on CUDA it is captured as it
+    is."""
+    K = spec_k
+
+    def step(params, kv, draft_probs, b, out):
         logits = model.decode_flat(
             params, b["tokens"], b["positions"], b["seq_ids"], b["valid"],
             block_tables=b["tables"], **kv)
-        win = logits[b["win_idx"].long()][:, None, :]       # [S, 1, V]
-        d_toks, d_probs, n_draft = no_draft
+        win = logits[b["win_idx"].long()]                   # [S, K+1, V]
         if not sampled:
-            toks, n_acc = spec_accept_greedy(win, d_toks, n_draft)
+            toks, n_acc = spec_accept_greedy(win, b["draft_tokens"],
+                                             b["n_draft"])
         else:
-            ctr = b["counters"][:, None]
-            seeds = b["seeds"][:, None]
+            ctr = b["counters"][:, None].long() + torch.arange(
+                K + 1, device=win.device)
+            seeds = b["seeds"][:, None].expand(-1, K + 1)
             toks, n_acc = spec_accept(
-                win, d_toks, d_probs, n_draft, b["temperature"],
-                b["top_k"], b["top_p"],
-                row_keys(seeds[:, :0], ctr[:, :0], TAG_ACCEPT),
+                win, b["draft_tokens"], draft_probs, b["n_draft"],
+                b["temperature"], b["top_k"], b["top_p"],
+                row_keys(seeds[:, :K], ctr[:, :K], TAG_ACCEPT),
                 row_keys(seeds, ctr, TAG_SAMPLE))
-        out[:, :1].copy_(toks)
-        out[:, 1].copy_(n_acc)
+        out[:, :K + 1].copy_(toks)
+        out[:, K + 1].copy_(n_acc)
     return step
 
 
+def _make_draft_fn(model, sampled):
+    """The draft program body of one variant (the port of the
+    reference's ``_make_draft_fn``): the flat step against the draft's
+    pools, then one proposal a row from its last fed position — the raw
+    argmax (greedy: the greedy accept rule reads no probabilities, so
+    none are produced) or a draw under ``TAG_DRAFT`` keys of (seed,
+    counter) together with the full adjusted probability vector.
+
+    ``draft(params, kv, probs, b, out)`` writes the proposals into
+    ``out [S, 1]`` int32 and, sampled, the probabilities into the static
+    ``probs [S, V]``; like the step it reads nothing back to the host."""
+    def draft(params, kv, probs, b, out):
+        logits = model.decode_flat(
+            params, b["tokens"], b["positions"], b["seq_ids"], b["valid"],
+            block_tables=b["tables"], **kv)
+        last = logits[b["last_idx"].long()]                 # [S, V]
+        if not sampled:
+            out[:, 0].copy_(torch.argmax(last, dim=-1))
+            return
+        toks, p = sample_and_probs(
+            last, b["temperature"], b["top_k"], b["top_p"],
+            row_keys(b["seeds"], b["counters"], TAG_DRAFT))
+        out[:, 0].copy_(toks)
+        probs.copy_(p)
+    return draft
+
+
 class _StepProgram:
-    """The step at one (packed length, table width, greedy|sampled)
-    rung: the rung's static batch (its :class:`_StepBuffers`, shared by
-    both variants of the rung), its static output and, once
-    :meth:`capture` ran, the CUDA graph of the step over them.
+    """A program at one (packed length, table width, greedy|sampled)
+    rung — the verify step's, or with ``kind="draft"`` a draft round's:
+    the rung's static batch (its buffers, shared by both variants of the
+    rung), its static output ``[S, width]`` int32 and, once
+    :meth:`capture` ran, the CUDA graph of the program over them.
 
     :meth:`run`: one host-to-device copy of the batch, then one graph
-    replay (the CPU: the step function, eagerly), then ONE
-    device-to-host copy of the tokens, the step's only synchronisation.
-    The copies stay outside the graph: the graph reads only device
-    memory, and the pinned buffer is the host's to fill between steps."""
+    replay (the CPU: the function, eagerly), then ONE device-to-host
+    copy of the output, the dispatch's only synchronisation. The copies
+    stay outside the graph: the graph reads only device memory, and the
+    pinned buffer is the host's to fill between dispatches."""
 
-    def __init__(self, rung, step, args, bufs, S, device):
+    def __init__(self, rung, fn, args, bufs, width, S, device,
+                 kind="step"):
         self.rung = rung
+        self.kind = kind
         self.bufs = bufs
         self.device = device
-        out = torch.zeros((S, 2), dtype=torch.int32, device=device)
+        out = torch.zeros((S, width), dtype=torch.int32, device=device)
         self._out = out
         self._host_out = out if device.type == "cpu" else torch.zeros(
-            (S, 2), dtype=torch.int32).pin_memory()
-        self.fn = lambda: step(*args, bufs.device_views, out)
+            (S, width), dtype=torch.int32).pin_memory()
+        self.fn = lambda: fn(*args, bufs.device_views, out)
         self.graph = None
         self.runs = 0
         self.replays = 0
@@ -226,14 +316,15 @@ class _StepProgram:
         return f"t{t}mb{mb}_{'sampled' if sampled else 'greedy'}"
 
     def capture(self, stream, pool):
-        """Capture the step into a CUDA graph on the engine's side
+        """Capture the program into a CUDA graph on the engine's side
         ``stream`` in its ``pool``; raises naming the rung when the
         capture fails."""
         self.graph = kernels.capture(self.fn, stream, pool,
-                                     what=f"the step rung {self}")
+                                     what=f"the {self.kind} rung {self}")
 
     def run(self):
-        """Returns host arrays (tokens [S, 1], n_accepted [S])."""
+        """Returns host arrays (tokens [S, K+1], n_accepted [S]); a
+        draft round's: the proposals [S]."""
         self.bufs.upload()
         if self.graph is not None:
             self.graph.replay()
@@ -241,13 +332,16 @@ class _StepProgram:
         elif self.device.type == "cpu":
             self.fn()
         else:
-            raise RuntimeError(f"step rung {self} has no captured graph")
+            raise RuntimeError(f"{self.kind} rung {self} has no captured "
+                               f"graph")
         self.runs += 1
         if self._host_out is not self._out:
             self._host_out.copy_(self._out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
-        both = self._host_out.numpy().copy()
-        return both[:, :1], both[:, 1]
+        out = self._host_out.numpy().copy()
+        if self.kind == "draft":
+            return out[:, 0]
+        return out[:, :-1], out[:, -1]
 
 
 class LLMEngine:
@@ -274,6 +368,14 @@ class LLMEngine:
     (``MXNET_TPU_LLM_WEIGHT_DTYPE``): ``int8`` or ``fp8`` quantizes a
     f32 tree per output channel.
     ``device`` defaults to ``"cuda"`` and must be the model's.
+
+    Speculative decoding: ``draft_model`` / ``draft_params`` (a smaller
+    model of the same vocab whose ``max_context`` covers the engine's)
+    and ``spec_k`` (``MXNET_TPU_LLM_SPEC_K``, else 3 with a draft and 0
+    without; proposals a row a step); ``draft_weight_dtype``
+    (``MXNET_TPU_LLM_DRAFT_WEIGHT_DTYPE``) quantizes the draft's f32
+    tree as ``weight_dtype`` does the target's. The draft's pools take
+    the target's KV dtype and block ids.
     """
 
     def __init__(self, model, params, max_seqs=None, block_size=None,
@@ -283,12 +385,8 @@ class LLMEngine:
                  prefix_cache=None, kv_dtype=None, adapter_bank=None,
                  mesh=None, weight_dtype=None, weight_calib=None,
                  draft_weight_dtype=None, device="cuda"):
-        deferred = dict(draft_model=draft_model, draft_params=draft_params,
-                        spec_k=spec_k,
-                        draft_weight_dtype=draft_weight_dtype,
-                        adapter_bank=adapter_bank, mesh=mesh)
-        for arg, value in deferred.items():
-            if value is not None and not (arg == "spec_k" and value == 0):
+        for arg, value in (("adapter_bank", adapter_bank), ("mesh", mesh)):
+            if value is not None:
                 raise NotImplementedError(
                     f"{arg}=: {_DEFERRED[arg]} is not ported to the "
                     f"PyTorch engine yet (ROADMAP.md, section 1)")
@@ -298,9 +396,11 @@ class LLMEngine:
                 f"{', '.join(_POOL_DTYPES)} (or int8/fp8 through "
                 f"kv_dtype)")
         self.device = resolve_device(device)
-        if getattr(model, "device", self.device) != self.device:
-            raise ValueError(f"model is on {model.device}, engine on "
-                             f"{self.device}")
+        for which, m in (("model", model), ("draft_model", draft_model)):
+            if m is not None and getattr(m, "device",
+                                         self.device) != self.device:
+                raise ValueError(f"{which} is on {m.device}, engine on "
+                                 f"{self.device}")
         self.model = model
         if max_seqs is None:
             max_seqs = _env_int("MXNET_TPU_LLM_MAX_SEQS", 8)
@@ -333,17 +433,35 @@ class LLMEngine:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = min(int(prefill_chunk), self.max_context)
-        self.spec_k = 0
-        self.q_tokens = self.prefill_chunk
-        # packed-length ladder: all-rows decode, the EXACT lengths of
-        # the commonest mixed steps (one or two rows mid-prefill while
-        # the rest decode, so those dispatch pad-free), full prefill;
-        # table-width ladder: half and full table
-        t_lo = self.max_seqs
+        if spec_k is None:
+            spec_k = _env_int("MXNET_TPU_LLM_SPEC_K",
+                              3 if draft_model is not None else 0)
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.spec_k = int(spec_k) if draft_model is not None else 0
+        self.draft_model = draft_model if self.spec_k > 0 else None
+        # per-row query budget: a prefill chunk or a K+1-position
+        # speculative verify, whichever is wider
+        self.q_tokens = max(self.prefill_chunk, self.spec_k + 1)
+        # packed-length ladder: all-rows decode/verify, the EXACT
+        # lengths of the commonest mixed steps (one or two rows
+        # mid-prefill while the rest decode/verify, so those dispatch
+        # pad-free), full prefill; table-width ladder: half and full
+        # table
+        K1 = self.spec_k + 1
+        t_lo = self.max_seqs * K1
         t_hi = max(t_lo, self.max_seqs * self.q_tokens)
-        mids = {min(t_hi, i * self.q_tokens + (self.max_seqs - i))
+        mids = {min(t_hi, i * self.q_tokens + (self.max_seqs - i) * K1)
                 for i in (1, 2) if i <= self.max_seqs}
         self._t_buckets = sorted({t_lo, t_hi} | mids)
+        # draft feeds are 1-2 tokens a row in steady state (catch-up +
+        # proposal) and chunk-wide while they mirror prefill
+        if self.draft_model is not None:
+            d_lo = self.max_seqs * min(2, self.q_tokens)
+            self._draft_t_buckets = sorted(
+                {d_lo, t_hi} | {max(d_lo, m) for m in mids})
+        else:
+            self._draft_t_buckets = []
         mb = max_context // block_size
         self._mb_widths = sorted({max(1, -(-mb // 2)), mb})
         if prefix_cache is None:
@@ -374,46 +492,49 @@ class LLMEngine:
         self.prefix_hits = 0
         self.prefill_tokens_saved = 0
         qw = self._resolve_weight_input(params, weight_dtype,
-                                        weight_calib)
+                                        weight_calib,
+                                        "MXNET_TPU_LLM_WEIGHT_DTYPE")
+        self.params, self.w_scales, qw = self._place_weights(params, qw)
         if qw is None:
-            self.params = params_from_numpy(params, self.device)
-            self.w_scales = None
             leaves = list(flatten_params(self.params).values())
             self.weight_dtype = "float32"
             self.weight_bytes = int(sum(a.numel() * a.element_size()
                                         for a in leaves))
             self.weight_params = int(sum(a.numel() for a in leaves))
         else:
-            qw = params_from_numpy(qw, self.device)
-            self.params, self.w_scales = qw.params, qw.scales
             self.weight_dtype = qw.dtype
             self.weight_bytes = qw.nbytes()
             self.weight_params = qw.num_params()
+        self.weight_quantized = qw is not None
         if self._stats is not None:
             self._stats.record_weight_quant(
                 self.weight_dtype, self.weight_bytes, self.weight_params)
-        S, V = self.max_seqs, model.vocab_size
-        # the accept rule's draft inputs: empty (no draft model), built
-        # once
-        self._no_draft = (
-            torch.zeros((S, 0), dtype=torch.int32, device=self.device),
-            torch.zeros((S, 0, V), dtype=torch.float32,
-                        device=self.device),
-            torch.zeros(S, dtype=torch.int64, device=self.device))
+        S, V, K = self.max_seqs, model.vocab_size, self.spec_k
+        self._kv = self._kv_args(self.cache, self.w_scales)
+        self.draft_cache = self.draft_params = self.draft_w_scales = None
+        self.draft_weight_dtype = None
+        self.draft_weight_quantized = False
+        if self.draft_model is not None:
+            self._init_draft(draft_model, draft_params, draft_weight_dtype,
+                             weight_calib, block_size, num_blocks,
+                             max_context, kv_dtype)
+        # the verify step reads the draft's adjusted probabilities from
+        # here: each sampled draft round copies its [S, V] output into
+        # its column (device to device); empty without a draft
+        self._draft_probs = torch.zeros((S, K, V), dtype=torch.float32,
+                                        device=self.device)
         # every rung's buffers now: a pinned allocation must never run
         # inside a capture
-        self._bufs = {(t, mb): _StepBuffers(t, mb, S, self.device)
+        self._bufs = {(t, mb): _StepBuffers(t, mb, S, self.device, K)
                       for t in self._t_buckets for mb in self._mb_widths}
-        self._kv = {"k_pages": self.cache.k_pages,
-                    "v_pages": self.cache.v_pages}
-        if self.quantized:
-            self._kv.update(k_scales=self.cache.k_scales,
-                            v_scales=self.cache.v_scales)
-        if self.w_scales is not None:
-            self._kv["w_scales"] = self.w_scales
+        self._draft_bufs = {(t, mb): _DraftBuffers(t, mb, S, self.device)
+                            for t in self._draft_t_buckets
+                            for mb in self._mb_widths}
         self._programs = {}
-        # one graph memory pool and one capture stream an engine, made
-        # at its first capture
+        self._draft_programs = {}
+        # one graph memory pool and one capture stream an engine (the
+        # step's and the draft's graphs alike), made at its first
+        # capture
         self._graph_pool = self._capture_stream = None
         self.capture_seconds = 0.0
         self._arange = np.arange(self.q_tokens, dtype=np.int32)
@@ -427,15 +548,71 @@ class LLMEngine:
         # (seq, exc) isolated out of a failing dispatch
         self._poison_pending = []
 
-    def _resolve_weight_input(self, params, weight_dtype, weight_calib):
+    def _init_draft(self, draft_model, draft_params, draft_weight_dtype,
+                    weight_calib, block_size, num_blocks, max_context,
+                    kv_dtype):
+        """The draft model's pools, weights and round-output tensor."""
+        if draft_model.vocab_size != self.model.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_model.vocab_size} != target vocab "
+                f"{self.model.vocab_size}")
+        if draft_model.max_context < self.max_context:
+            raise ValueError(
+                f"draft max_context {draft_model.max_context} < engine "
+                f"max_context {self.max_context}")
+        # the draft's pages are indexed by the SAME block ids the target
+        # allocator hands out — its own allocator is never touched, so
+        # there is exactly one strict accounting
+        self.draft_cache = PagedKVCache(
+            draft_model.num_layers, draft_model.num_heads,
+            draft_model.head_dim, block_size, num_blocks, max_context,
+            dtype=kv_dtype, device=self.device)
+        # a quantized draft is the cheap-draft lever: its quality moves
+        # only the accept rate, never the committed stream
+        dqw = self._resolve_weight_input(
+            draft_params, draft_weight_dtype, weight_calib,
+            "MXNET_TPU_LLM_DRAFT_WEIGHT_DTYPE")
+        self.draft_weight_dtype = "float32" if dqw is None else dqw.dtype
+        self.draft_weight_quantized = dqw is not None
+        self.draft_params, self.draft_w_scales, _ = self._place_weights(
+            draft_params, dqw)
+        self._draft_kv = self._kv_args(self.draft_cache,
+                                       self.draft_w_scales)
+        # a sampled draft round's adjusted probabilities [S, V]
+        self._draft_round_probs = torch.zeros(
+            (self.max_seqs, self.model.vocab_size), dtype=torch.float32,
+            device=self.device)
+
+    def _place_weights(self, params, qw):
+        """``(params, w_scales, checkpoint)`` on the engine's device: the
+        f32 tree (``qw`` None: no scales, no checkpoint) or the quantized
+        checkpoint ``qw``."""
+        if qw is None:
+            return params_from_numpy(params, self.device), None, None
+        qw = params_from_numpy(qw, self.device)
+        return qw.params, qw.scales, qw
+
+    @staticmethod
+    def _kv_args(cache, w_scales):
+        """``decode_flat``'s keywords for ``cache``'s pools (and scales)
+        and the weights' scales."""
+        kv = {"k_pages": cache.k_pages, "v_pages": cache.v_pages}
+        if cache.quantized:
+            kv.update(k_scales=cache.k_scales, v_scales=cache.v_scales)
+        if w_scales is not None:
+            kv["w_scales"] = w_scales
+        return kv
+
+    def _resolve_weight_input(self, params, weight_dtype, weight_calib,
+                              env_name):
         """A quantized checkpoint (the port's or the JAX package's
         ``QuantizedWeights``) passes through; a f32 tree is quantized
-        here when ``weight_dtype`` (or ``MXNET_TPU_LLM_WEIGHT_DTYPE``)
-        asks; ``None`` = full precision."""
+        here when ``weight_dtype`` (or the ``env_name`` env var) asks;
+        ``None`` = full precision."""
         if all(hasattr(params, a) for a in ("params", "scales", "dtype")):
             return params
         req = weight_dtype if weight_dtype is not None \
-            else _env_str("MXNET_TPU_LLM_WEIGHT_DTYPE", "")
+            else _env_str(env_name, "")
         wd, fell_back = resolve_weight_dtype(req)
         if fell_back:
             if self._stats is not None:
@@ -463,12 +640,30 @@ class LLMEngine:
         key = (t, mb, sampled)
         prog = self._programs.get(key)
         if prog is None:
-            step = _make_step_fn(self.model, sampled)
+            step = _make_step_fn(self.model, self.spec_k, sampled)
             prog = _StepProgram(key, step,
-                                (self.params, self._kv, self._no_draft),
-                                self._bufs[(t, mb)], self.max_seqs,
-                                self.device)
+                                (self.params, self._kv, self._draft_probs),
+                                self._bufs[(t, mb)], self.spec_k + 2,
+                                self.max_seqs, self.device)
             self._programs[key] = prog
+        return self._captured(prog)
+
+    def _draft_program(self, t, mb, sampled):
+        """The draft rung's program, built (and on CUDA captured) at its
+        first use, as :meth:`_program` builds the step's."""
+        key = (t, mb, sampled)
+        prog = self._draft_programs.get(key)
+        if prog is None:
+            draft = _make_draft_fn(self.draft_model, sampled)
+            prog = _StepProgram(key, draft,
+                                (self.draft_params, self._draft_kv,
+                                 self._draft_round_probs),
+                                self._draft_bufs[(t, mb)], 1,
+                                self.max_seqs, self.device, kind="draft")
+            self._draft_programs[key] = prog
+        return self._captured(prog)
+
+    def _captured(self, prog):
         if prog.graph is None and self.device.type == "cuda":
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
@@ -479,11 +674,15 @@ class LLMEngine:
             self.capture_seconds += time.monotonic() - t0
         return prog
 
+    def _all_programs(self):
+        return list(self._programs.values()) + list(
+            self._draft_programs.values())
+
     def release_graphs(self):
         """Drop every captured graph and the engine's graph memory pool
-        (the server does it at shutdown); a later step captures its
+        (the server does it at shutdown); a later dispatch captures its
         rung again, counted as a compile."""
-        for prog in self._programs.values():
+        for prog in self._all_programs():
             prog.graph = None
         self._graph_pool = self._capture_stream = None
 
@@ -497,18 +696,24 @@ class LLMEngine:
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def programs(self):
-        """The step programs, as the reference's statusz reports them:
-        the ladders, the step variants built (one per rung reached;
-        each a captured graph on CUDA), the graphs held, the replays and
-        the dispatches (every step program run), and the seconds spent
-        capturing."""
-        progs = self._programs.values()
+        """The programs, as the reference's statusz reports them: the
+        step's and the draft's ladders, the step and draft variants
+        built (one per rung reached; each a captured graph on CUDA), the
+        graphs held, the replays and the dispatches (every program run,
+        verify steps and draft rounds; the draft's also apart), and the
+        seconds spent capturing."""
+        progs = self._all_programs()
+        drafts = self._draft_programs.values()
         return {"t_buckets": list(self._t_buckets),
                 "mb_widths": list(self._mb_widths),
+                "draft_t_buckets": list(self._draft_t_buckets),
                 "step_variants": len(self._programs),
+                "draft_variants": len(self._draft_programs),
                 "graphs": sum(p.graph is not None for p in progs),
+                "draft_graphs": sum(p.graph is not None for p in drafts),
                 "replays": sum(p.replays for p in progs),
                 "dispatches": sum(p.runs for p in progs),
+                "draft_dispatches": sum(p.runs for p in drafts),
                 "capture_seconds": self.capture_seconds}
 
     # ------------------------------------------------ prefix caching --
@@ -555,15 +760,20 @@ class LLMEngine:
         for k in range(n_full):
             self.cache.register(hashes[k], seq.block_ids[k])
 
+    def _caches(self):
+        return [self.cache] + ([self.draft_cache]
+                               if self.draft_cache is not None else [])
+
     def _cow_block(self, seq, bi):
         """Copy-on-write block ``seq.block_ids[bi]``: allocate a private
-        copy, copy the page row in every pool in place, repoint the
-        sequence's table and drop one reference on the shared
-        original."""
+        copy, copy the page row in every pool in place (the target's
+        and the draft's, with their scales), repoint the sequence's
+        table and drop one reference on the shared original."""
         old = seq.block_ids[bi]
         new = self.cache.allocator.alloc(1)[0]
         try:
-            self.cache.copy_block(old, new)
+            for cache in self._caches():
+                cache.copy_block(old, new)
         except BaseException:
             # the private block is in no table yet: nothing else frees it
             self.cache.allocator.free([new])
@@ -574,26 +784,34 @@ class LLMEngine:
 
     # ------------------------------------------------------- warmup --
     def warmup(self):
-        """Build the step program of every (packed length, table width,
-        greedy|sampled) rung steady state can reach — on CUDA, capture
-        its graph, whose warm run builds and loads every kernel it
-        launches — and run it once; then the copy-on-write once. After
-        this no traffic the ladders cover builds or captures anything.
-        Returns {rung: seconds}."""
+        """Build the program of every rung steady state can reach — the
+        draft's (packed length, table width, greedy|sampled) rungs with
+        a draft model, then the step's — on CUDA, capture its graph,
+        whose warm run builds and loads every kernel it launches, and
+        run it once; then the copy-on-write once. After this no traffic
+        the ladders cover builds or captures anything; a rung that fails
+        raises, naming it. Returns {rung: seconds}."""
         timings = {}
-        for T in self._t_buckets:
-            for MB in self._mb_widths:
-                bufs = self._bufs[(T, MB)]
-                bufs.valid.fill(0)
-                bufs.tables.fill(NULL_BLOCK)
-                for sampled in (False, True):
-                    t0 = time.monotonic()
-                    prog = self._program(T, MB, sampled)
-                    prog.run()
-                    timings[f"step_{prog}"] = time.monotonic() - t0
+        for kind, ladder, bufs_of, program in (
+                ("draft", self._draft_t_buckets, self._draft_bufs,
+                 self._draft_program),
+                ("step", self._t_buckets, self._bufs, self._program)):
+            for T in ladder:
+                for MB in self._mb_widths:
+                    bufs = bufs_of[(T, MB)]
+                    bufs.valid.fill(0)
+                    bufs.tables.fill(NULL_BLOCK)
+                    if kind == "step":
+                        bufs.n_draft.fill(0)
+                    for sampled in (False, True):
+                        t0 = time.monotonic()
+                        prog = program(T, MB, sampled)
+                        prog.run()
+                        timings[f"{kind}_{prog}"] = time.monotonic() - t0
         if self.prefix_enabled:
             t0 = time.monotonic()
-            self.cache.copy_block(NULL_BLOCK, NULL_BLOCK)
+            for cache in self._caches():
+                cache.copy_block(NULL_BLOCK, NULL_BLOCK)
             timings["cow_copy"] = time.monotonic() - t0
         return timings
 
@@ -675,6 +893,7 @@ class LLMEngine:
             self.scheduler.place(seq, slot)
             seq.block_ids = list(hit)
             seq.seq_len = hit_tokens
+            seq.draft_len = 0
             seq.cache_hit_tokens = hit_tokens
             if self.prefix_enabled:
                 self.prefix_lookups += 1
@@ -752,18 +971,32 @@ class LLMEngine:
         """This step's work for one running sequence: its next prompt
         chunk while the prompt is being written (preemption folds the
         generation into the prompt, so an empty generation list means
-        "prompt not complete"), else its one decode token."""
+        "prompt not complete"), else its decode token and, with a draft,
+        how many proposals it may verify (``k``): a row speculates when
+        the draft's committed prefix can catch up within ONE feed
+        (steady state: 1-2 tokens behind; a degraded draft recovers over
+        catch-up-only feeds first)."""
         if not seq.generated:
             committed = seq.prompt
             cl = len(committed)
             ntok = min(self.prefill_chunk, cl - seq.seq_len)
             return {"kind": "prefill",
                     "tokens": committed[seq.seq_len:seq.seq_len + ntok],
-                    "ntok": ntok, "cl": cl,
-                    "emit": seq.seq_len + ntok == cl}
-        return {"kind": "decode", "tokens": [seq.last_token], "ntok": 1,
-                "cl": len(seq.prompt) + len(seq.generated),
-                "emit": True}
+                    "ntok": ntok, "cl": cl, "committed": committed,
+                    "k": 0, "emit": seq.seq_len + ntok == cl,
+                    "draft_tokens": []}
+        cl = len(seq.prompt) + len(seq.generated)
+        k = 0
+        committed = None
+        if self.draft_model is not None:
+            committed = seq.prompt + seq.generated
+            if cl - seq.draft_len <= self.q_tokens:
+                rem_new = seq.max_new_tokens - seq.num_generated
+                k = max(0, min(self.spec_k, rem_new - 1,
+                               self.max_context - 1 - seq.seq_len))
+        return {"kind": "decode", "tokens": [seq.last_token],
+                "ntok": 1 + k, "cl": cl, "committed": committed,
+                "k": k, "emit": True, "draft_tokens": []}
 
     def _allocate(self, seq, plan, events):
         """Blocks covering this step's KV writes (positions ``seq_len ..
@@ -798,15 +1031,153 @@ class LLMEngine:
         if need > 0:
             seq.block_ids.extend(self.cache.allocator.alloc(need))
 
+    # -------------------------------------------------- draft phase --
+    def _draft_dispatch(self, rows, feeds, counters_v, r):
+        """One draft round (narrow rungs for 1-2-token proposal feeds,
+        chunk-wide while mirroring prefill). ``feeds``: {seq: (tokens,
+        start_pos)}; rows not in it ride along inactive. A sampled
+        round's probabilities go, device to device, into column ``r`` of
+        the verify's draft probabilities. Returns the proposals [S] as a
+        host array."""
+        t_need = sum(len(t) for t, _ in feeds.values())
+        t = next(w for w in self._draft_t_buckets if w >= t_need)
+        mb_need = max(self.cache.blocks_for(start + len(toks))
+                      for toks, start in feeds.values())
+        mb = next(w for w in self._mb_widths if w >= mb_need)
+        b = self._draft_bufs[(t, mb)]
+        b.valid.fill(0)         # see _build_batch: never-stale writes
+        off = 0
+        for seq in rows:
+            feed = feeds.get(seq)
+            if feed is None:
+                continue
+            toks, start = feed
+            i, n = seq.slot, len(toks)
+            b.tokens[off:off + n] = toks
+            b.positions[off:off + n] = start + self._arange[:n]
+            b.seq_ids[off:off + n] = i
+            b.valid[off:off + n] = 1
+            b.last_idx[i] = off + n - 1
+            nb = min(len(seq.block_ids), mb)
+            b.tables[i, :nb] = seq.block_ids[:nb]
+            b.tables[i, nb:] = NULL_BLOCK
+            sp = seq.sampling
+            b.temperature[i] = sp.temperature
+            b.top_k[i] = sp.top_k
+            b.top_p[i] = sp.top_p
+            b.seeds[i] = sp.seed
+            b.counters[i] = counters_v.get(seq, 0)
+            off += n
+        sampled = any(s.sampling.temperature > 0 for s in feeds)
+        tok = self._draft_program(t, mb, sampled).run()
+        if sampled:
+            self._draft_probs[:, r].copy_(self._draft_round_probs)
+        return tok
+
+    def _draft_propose(self, rows, plans):
+        """Run the draft model: mirror prefill chunks into the draft
+        pools, catch its committed prefix up, and propose up to K tokens
+        a speculating row (kept on the row's plan; their probabilities
+        stay on the device). A failing draft dispatch DEGRADES the step
+        to plain decode — never poisons, never leaks (the draft's pages
+        share the target's block accounting); a graph capture (which
+        builds the kernels it launches) raises instead.
+
+        Prefix-cache interaction: catch-up feeds for a cache-hit
+        sequence write DRAFT-pool KV into rows of blocks whose TARGET KV
+        is shared, without a copy-on-write. This rests on the draft KV
+        of position p being a pure function of the committed prefix, so
+        every owner of a shared block writes the same draft rows. Only
+        the TARGET pool is strictly immutable under sharing: its writes
+        carry new per-sequence content and always copy first
+        (:meth:`_allocate`)."""
+        if self.draft_model is None:
+            return
+        feeds, counters, proposing = {}, {}, []
+        for seq in rows:
+            plan = plans[seq]
+            if plan["kind"] == "prefill":
+                # mirror the target's chunk. Normally draft_len ==
+                # seq_len and this IS the same chunk; after a degraded
+                # draft step the mirror restarts from the draft's own
+                # watermark so its KV prefix never gaps
+                end = min(seq.seq_len + plan["ntok"],
+                          seq.draft_len + self.q_tokens)
+                feeds[seq] = (plan["committed"][seq.draft_len:end],
+                              seq.draft_len)
+                plan["draft_fed"] = end - seq.draft_len
+            elif plan["k"] > 0:
+                # catch-up (<= 2 tokens in steady state) + the proposal
+                # input
+                feed = plan["committed"][seq.draft_len:plan["cl"]]
+                feeds[seq] = (feed, seq.draft_len)
+                plan["draft_fed"] = len(feed)
+                counters[seq] = plan["cl"]
+                proposing.append(seq)
+            elif seq.draft_len < plan["cl"]:
+                # a draft that fell behind (an earlier degraded step):
+                # catch-up-only feed, one chunk a step, until the
+                # speculation gate in _plan opens again
+                end = min(plan["cl"], seq.draft_len + self.q_tokens)
+                feeds[seq] = (plan["committed"][seq.draft_len:end],
+                              seq.draft_len)
+                plan["draft_fed"] = end - seq.draft_len
+        if not feeds:
+            return
+        try:
+            tok = self._draft_dispatch(rows, feeds, counters, 0)
+            for seq in proposing:
+                plans[seq]["draft_tokens"].append(int(tok[seq.slot]))
+            for r in range(1, self.spec_k):
+                feeds, counters = {}, {}
+                for seq in proposing:
+                    plan = plans[seq]
+                    if plan["k"] <= r:
+                        continue
+                    feeds[seq] = ([plan["draft_tokens"][-1]],
+                                  plan["cl"] + r - 1)
+                    counters[seq] = plan["cl"] + r
+                    plan["draft_fed"] += 1
+                if not feeds:
+                    break
+                tok = self._draft_dispatch(rows, feeds, counters, r)
+                for seq in feeds:
+                    plans[seq]["draft_tokens"].append(int(tok[seq.slot]))
+        except kernels.CaptureError:
+            raise
+        except Exception:
+            # degrade: this step decodes without speculation; the draft
+            # prefix watermark is simply not advanced, so the next
+            # step's catch-up re-feeds deterministically
+            for seq in rows:
+                plan = plans[seq]
+                if plan["kind"] == "decode":
+                    plan["k"] = 0
+                    plan["ntok"] = 1
+                    plan["tokens"] = [seq.last_token]
+                    plan["draft_tokens"] = []
+                plan.pop("draft_fed", None)
+            if self._stats:
+                self._stats.record_spec_degraded()
+        else:
+            for seq in proposing:
+                plan = plans[seq]
+                plan["k"] = len(plan["draft_tokens"])
+                plan["ntok"] = 1 + plan["k"]
+                plan["tokens"] = [seq.last_token] + plan["draft_tokens"]
+
     # ------------------------------------------------- the one step --
     def _build_batch(self, rows, plans, t, mb):
-        """Fill the rung's host buffers. ``valid`` is reset EVERY
-        dispatch — a stale valid flag would scatter garbage K/V through
-        a stale (seq_id, position, table) combination into blocks
-        another sequence may own now; everything else stale is masked
-        or discarded."""
+        """Fill the rung's host buffers. ``valid`` and ``n_draft`` are
+        reset EVERY dispatch — a stale valid flag would scatter garbage
+        K/V through a stale (seq_id, position, table) combination into
+        blocks another sequence may own now, a stale draft count would
+        verify another step's proposals; everything else stale is
+        masked or discarded."""
         b = self._bufs[(t, mb)]
         b.valid.fill(0)
+        b.n_draft.fill(0)
+        K1 = self.spec_k + 1
         off = 0
         for seq in rows:
             plan = plans[seq]
@@ -815,8 +1186,13 @@ class LLMEngine:
             b.positions[off:off + n] = seq.seq_len + self._arange[:n]
             b.seq_ids[off:off + n] = i
             b.valid[off:off + n] = 1
-            # the scored position is this row's last token
-            b.win_idx[i] = off + n - 1
+            # the K+1 scored positions end at this row's last token
+            k = plan["k"]
+            b.win_idx[i] = np.clip(off + n - 1 - k + self._arange[:K1], 0,
+                                   t - 1)
+            b.n_draft[i] = k
+            if k:
+                b.draft_tokens[i, :k] = plan["draft_tokens"]
             # blocks past the sliced width only cover positions the
             # causal mask can never reach — truncation is invisible
             nb = min(len(seq.block_ids), mb)
@@ -833,8 +1209,10 @@ class LLMEngine:
 
     def _dispatch(self, rows, plans):
         """ONE step for ``rows`` (slots not in ``rows`` ride along
-        inactive on the null block). Failures propagate to the isolation
-        logic in :meth:`step`."""
+        inactive on the null block). Returns host arrays (tokens [S,
+        K+1], n_accepted [S]); row i commits ``tokens[i, :n_accepted[i]
+        + 1]``. Failures propagate to the isolation logic in
+        :meth:`step`."""
         t_need = sum(len(plans[s]["tokens"]) for s in rows)
         t = next(w for w in self._t_buckets if w >= t_need)
         mb_need = max(self.cache.blocks_for(
@@ -857,16 +1235,19 @@ class LLMEngine:
             else:
                 self._breaker.record_failure(site=site)
 
-    def _commit(self, rows, plans, toks, events):
+    def _commit(self, rows, plans, toks, n_acc, events):
         """Apply one successful dispatch's results to host state.
-        Returns the number of committed decode tokens (the throughput
-        numerator; chunk-emitted first tokens count as prefill)."""
+        Returns the number of committed decode/verify tokens (the
+        throughput numerator; chunk-emitted first tokens count as
+        prefill)."""
         decoded = 0
         for seq in rows:
             plan = plans[seq]
-            tok = int(toks[seq.slot, 0])
+            cl = plan["cl"]
             if plan["kind"] == "prefill":
                 seq.seq_len += plan["ntok"]
+                if "draft_fed" in plan:
+                    seq.draft_len += plan["draft_fed"]
                 if self._stats:
                     self._stats.record_prefill_chunk(plan["ntok"])
                 if not plan["emit"]:
@@ -875,12 +1256,12 @@ class LLMEngine:
                 # blocks, then commit the first generated token (from
                 # this chunk's last position)
                 self._register_blocks(seq)
+                tok = int(toks[seq.slot, 0])
                 seq.generated.append(tok)
                 seq.last_token = tok
                 events.append(("token", seq))
                 if self._stats:
-                    self._stats.record_prefill(
-                        plan["cl"] - seq.cache_hit_tokens)
+                    self._stats.record_prefill(cl - seq.cache_hit_tokens)
                     self._stats.record_prefill_token()
                 if seq.t_first_token is None:
                     seq.t_first_token = time.monotonic()
@@ -890,11 +1271,37 @@ class LLMEngine:
                 if seq.done or seq.seq_len + 1 >= self.max_context:
                     self._finish(seq, events)
                 continue
-            seq.generated.append(tok)
-            seq.last_token = tok
-            events.append(("token", seq))
-            seq.seq_len += 1
-            decoded += 1
+            # decode / speculative verify: commit the accepted drafts
+            # plus the replacement/bonus token, stopping at stop /
+            # max_new_tokens
+            acc = int(n_acc[seq.slot])
+            kept = 0
+            for j in range(acc + 1):
+                tok = int(toks[seq.slot, j])
+                seq.generated.append(tok)
+                seq.last_token = tok
+                kept += 1
+                events.append(("token", seq))
+                if seq.done:
+                    break
+            seq.seq_len += kept
+            decoded += kept
+            if plan["k"]:
+                if self._stats:
+                    self._stats.record_spec(plan["k"], acc)
+                # roll rejected draft KV back through the STRICT
+                # allocator: blocks past the committed length return to
+                # the pool (their garbage is never read: attention stops
+                # at each token's position, and a block handed out again
+                # is written before any position reaches it)
+                seq.draft_len = min(cl + plan["k"] - 1, cl + kept - 1)
+                keep_blocks = self.cache.blocks_for(max(seq.seq_len, 1))
+                if len(seq.block_ids) > keep_blocks:
+                    self.cache.allocator.free(seq.block_ids[keep_blocks:])
+                    del seq.block_ids[keep_blocks:]
+            elif "draft_fed" in plan:
+                # a catch-up-only feed advanced the draft prefix
+                seq.draft_len += plan["draft_fed"]
             if seq.done or seq.seq_len + 1 >= self.max_context:
                 self._finish(seq, events)
         return decoded
@@ -906,22 +1313,22 @@ class LLMEngine:
         committed decode-token count."""
         if len(rows) == 1:
             try:
-                toks, _ = self._dispatch(rows, plans)
+                toks, n_acc = self._dispatch(rows, plans)
             except Exception as exc:
                 self._poison(rows[0], exc, events)
                 return 0
             self._record_breaker(rows, plans, True)
-            return self._commit(rows, plans, toks, events)
+            return self._commit(rows, plans, toks, n_acc, events)
         decoded = 0
         mid = len(rows) // 2
         for half in (rows[:mid], rows[mid:]):
             try:
-                toks, _ = self._dispatch(half, plans)
+                toks, n_acc = self._dispatch(half, plans)
             except Exception:
                 decoded += self._isolate(half, plans, events)
             else:
                 self._record_breaker(half, plans, True)
-                decoded += self._commit(half, plans, toks, events)
+                decoded += self._commit(half, plans, toks, n_acc, events)
         return decoded
 
     # --------------------------------------------------------- step --
@@ -945,15 +1352,16 @@ class LLMEngine:
         if not rows:
             self._record_block_gauges()
             return events
+        self._draft_propose(rows, plans)
         t0 = time.monotonic()
         try:
-            toks, _ = self._dispatch(rows, plans)
+            toks, n_acc = self._dispatch(rows, plans)
         except Exception:
             self._record_breaker(rows, plans, False)
             decoded = self._isolate(rows, plans, events)
         else:
             self._record_breaker(rows, plans, True)
-            decoded = self._commit(rows, plans, toks, events)
+            decoded = self._commit(rows, plans, toks, n_acc, events)
         step_s = time.monotonic() - t0
         if self._stats and any(plans[s]["kind"] == "decode"
                                for s in rows):

@@ -18,7 +18,8 @@ _COUNTERS = ("submitted", "completed", "failed", "tokens",
              "prefill_tokens", "prefills", "prefill_chunks",
              "prefill_chunk_tokens", "decode_steps", "preemptions",
              "prefix_lookups", "prefix_hits", "prefix_evicts",
-             "prefill_saved", "quant_fallbacks")
+             "prefill_saved", "quant_fallbacks", "spec_proposed",
+             "spec_accepted", "spec_degraded")
 
 
 class LLMStats:
@@ -102,6 +103,18 @@ class LLMStats:
         self._inc("prefill_chunks")
         self._inc("prefill_chunk_tokens", tokens)
 
+    def record_spec(self, proposed, accepted):
+        """One verified row: ``proposed`` draft tokens, ``accepted`` of
+        them taken by the target."""
+        with self._lock:
+            self._c["spec_proposed"] += int(proposed)
+            self._c["spec_accepted"] += int(accepted)
+
+    def record_spec_degraded(self):
+        """A step that fell back to plain decode after a draft dispatch
+        failed."""
+        self._inc("spec_degraded")
+
     def record_preemption(self):
         self._inc("preemptions")
 
@@ -158,6 +171,12 @@ class LLMStats:
             "prefills": c["prefills"],
             "prefill_chunks": c["prefill_chunks"],
             "prefill_chunk_tokens": c["prefill_chunk_tokens"],
+            "spec_proposed": c["spec_proposed"],
+            "spec_accepted": c["spec_accepted"],
+            "spec_degraded": c["spec_degraded"],
+            # cumulative accepted / proposed (0 before any proposal)
+            "spec_accept_rate": (c["spec_accepted"] / c["spec_proposed"]
+                                 if c["spec_proposed"] else 0.0),
             "decode_steps": c["decode_steps"],
             "preemptions": c["preemptions"],
             "prefix_lookups": c["prefix_lookups"],

@@ -16,8 +16,8 @@ batch's device.
 - :func:`sample_tokens` / :func:`sample_and_probs` — Gumbel-max draws,
   with ``temperature <= 0`` rows returning the bit-exact raw argmax;
 - :func:`spec_accept` / :func:`spec_accept_greedy` — the speculative
-  accept rule over ``K + 1`` scored positions (with ``K = 0``, as in
-  this port's engine, one sampled or argmax token per row).
+  accept rule over ``K + 1`` scored positions (``K = 0`` on an engine
+  without a draft: one sampled or argmax token per row).
 """
 from __future__ import annotations
 
@@ -146,7 +146,11 @@ def adjusted_log_probs(logits, temperature, top_k, top_p):
     # top-k: keep scores >= the k-th largest (0 = keep all)
     k_eff = torch.where(top_k <= 0, V, torch.clamp(top_k, 1, V)).long()
     desc = torch.sort(scaled, dim=-1, descending=True).values
-    kth = torch.gather(desc, -1, (k_eff - 1)[..., None])
+    # the index takes the logits' leading shape: gather, unlike
+    # take_along_axis, does not broadcast it (a [S, 1] top_k over an
+    # [S, K+1, V] window would read position 0's k-th score for all)
+    kth = torch.gather(desc, -1, torch.broadcast_to(
+        k_eff - 1, desc.shape[:-1])[..., None])
     neg = float("-inf")
     masked = torch.where(scaled >= kth, scaled, neg)
     # top-p over the top-k-masked distribution: keep the smallest prefix

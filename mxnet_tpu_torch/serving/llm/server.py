@@ -4,7 +4,8 @@ port of ``mxnet_tpu/serving/llm/server.py``, one engine on one device).
 Many threads submit prompts and get Futures; ONE worker thread drives
 the engine loop (admit → step → retire, every iteration); ``warmup()``
 builds every kernel the steps launch and, on CUDA, captures the step's
-graph at every rung before serving begins (``stats()["compiles"]``
+graph at every rung (and the draft's at every rung of its ladder)
+before serving begins (``stats()["compiles"]``
 counts both and must not move after it); drain on shutdown resolves
 EVERY Future and then releases the engine's graphs.
 
@@ -83,8 +84,9 @@ class LLMServer:
     tree (or a :class:`~.quant.QuantizedWeights`). Engine kwargs
     (``max_seqs``, ``block_size``, ``num_blocks``, ``max_context``,
     ``prefill_chunk``, ``dtype``, ``kv_dtype``, ``weight_dtype``,
-    ``prefix_cache``, ``device``) pass through to
-    :class:`~.engine.LLMEngine`. Overload knobs: ``max_queue``
+    ``prefix_cache``, ``device``, and ``draft_model`` / ``draft_params``
+    / ``spec_k`` / ``draft_weight_dtype`` for speculative decoding) pass
+    through to :class:`~.engine.LLMEngine`. Overload knobs: ``max_queue``
     (``MXNET_TPU_SERVE_MAX_QUEUE``), ``deadline_ms``
     (``MXNET_TPU_SERVE_DEADLINE_MS``), ``breaker_threshold`` /
     ``breaker_cooldown_ms`` (``MXNET_TPU_SERVE_BREAKER_*``).
@@ -245,6 +247,7 @@ class LLMServer:
         snap["prefix_cache"] = eng.prefix_enabled
         snap["kv_dtype"] = eng.cache.dtype_name
         snap["weight_dtype"] = eng.weight_dtype
+        snap["draft_weight_dtype"] = eng.draft_weight_dtype
         snap["weight_bytes"] = eng.weight_bytes
         snap["weight_params_per_chip"] = eng.weight_params
         lookups = snap["prefix_lookups"]

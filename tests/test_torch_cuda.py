@@ -1616,3 +1616,208 @@ def test_fused_launches_once_per_op_and_dtype_group(cuda):
     assert lb == [{"sgd_mom_update": 3, "mp_sgd_mom_update": 2}] * 2
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+# --------------------------------------------- speculative decoding --
+_SPEC_CFG = dict(vocab_size=48, d_model=32, num_layers=2, num_heads=2,
+                 d_ff=64, max_context=64)
+
+
+def _spec_engine(dev, **kw):
+    """A small speculative engine on ``dev``: the target of ``_SPEC_CFG``
+    and its truncation to one layer as the draft, ``spec_k`` 2, two
+    rows. Returns (engine, stats)."""
+    from mxnet_tpu_torch.serving.llm import LLMEngine, LLMStats, TinyDecoder
+    model = TinyDecoder(device=dev, **_SPEC_CFG)
+    draft = TinyDecoder(device=dev, **dict(_SPEC_CFG, num_layers=1))
+    params = model.init_params_numpy(0)
+    stats = LLMStats()
+    eng = LLMEngine(model, params, max_seqs=2, block_size=BS,
+                    draft_model=draft,
+                    draft_params=dict(params, layers=params["layers"][:1]),
+                    spec_k=2, stats=stats, device=dev, **kw)
+    return eng, stats
+
+
+def _spec_drain(eng, prompts, n, sampling=None):
+    from mxnet_tpu_torch.serving.llm import Sequence
+    seqs = [Sequence(p, n, sampling=sampling) for p in prompts]
+    for s in seqs:
+        eng.add(s)
+    while eng.has_work():
+        eng.step()
+    eng.pop_finished()
+    return [s.output_tokens() for s in seqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"kv_dtype": "int8"},
+                                {"draft_weight_dtype": "int8"}],
+                         ids=["f32", "int8_kv", "int8_draft"])
+def test_spec_engine_on_the_card_matches_the_cpu(cuda, kw):
+    """A small speculative engine on the card, after ``warmup()``: its
+    greedy streams equal the same engine's on the CPU (every kernel's
+    plain version); the compile count does not move; every verify and
+    every draft round is one graph replay (the draft's ladder captured
+    too) and no ``decode_flat`` runs in Python; a sampled stream repeats
+    under its seed; nothing degrades."""
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    eng, stats = _spec_engine(cuda, **kw)
+    eng.warmup()
+    progs = eng.programs()
+    assert progs["graphs"] == progs["step_variants"] + \
+        progs["draft_variants"] == 2 * len(progs["mb_widths"]) * (
+            len(progs["t_buckets"]) + len(progs["draft_t_buckets"]))
+    compiles = compile_count()
+    calls = []
+    for m in (eng.model, eng.draft_model):
+        fn = m.decode_flat
+        m.decode_flat = lambda *a, _fn=fn, **k: (calls.append(1),
+                                                 _fn(*a, **k))[1]
+    launched = kernels.launch_counts()
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 48, size=n).tolist()
+               for n in (1, 7, 16, 17, 30)]
+    samp = dict(temperature=0.8, top_p=0.9, seed=4)
+    from mxnet_tpu_torch.serving.llm import SamplingParams
+    try:
+        got = _spec_drain(eng, prompts, 12)
+        sampled = [_spec_drain(eng, prompts[2:3], 12,
+                               SamplingParams(**samp)) for _ in range(2)]
+    finally:
+        for m in (eng.model, eng.draft_model):
+            del m.decode_flat
+    after = eng.programs()
+    assert after["draft_dispatches"] > progs["draft_dispatches"]
+    assert after["replays"] - progs["replays"] == \
+        after["dispatches"] - progs["dispatches"]
+    assert calls == []
+    assert compile_count() == compiles
+    counts = kernels.launch_counts()
+    flat = tra.kernel_name(eng.cache.k_pages.dtype)
+    assert counts[flat] > launched.get(flat, 0)
+    if "draft_weight_dtype" in kw:
+        wq = tqz.kernel_name(torch.int8)
+        assert counts[wq] > launched.get(wq, 0)
+    snap = stats.snapshot()
+    assert snap["spec_proposed"] > 0 and snap["spec_degraded"] == 0
+    assert sampled[0] == sampled[1]
+    cpu, _ = _spec_engine(torch.device("cpu"), **kw)
+    assert got == _spec_drain(cpu, prompts, 12)
+    eng.release_graphs()
+
+
+def _row_pack(dev, n_row, beside, seed=3, H=12, D=64, dtype="float32"):
+    """Flat attention inputs of one row (seq 0, ``n_row`` tokens ending
+    at position 300) packed alone, and packed between rows of other
+    lengths (``beside``: token counts of seqs 1.., placed around it).
+    Returns (alone kwargs, beside kwargs, the row's slice in the second
+    pack)."""
+    rng = np.random.RandomState(seed)
+    S, MB = 8, 64
+    N = S * MB + 1
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N)).astype(
+        np.int32)[:S * MB].reshape(S, MB))
+    pools = {}
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.randn(N, BS, H, D).astype(np.float32))
+        if dtype == "float32":
+            pools[f"{name}_pages"] = x
+        else:
+            xq, sc = _quantize_kv(x.reshape(-1, H, D), torch.int8)
+            pools[f"{name}_pages"] = xq.reshape(N, BS, H, D)
+            pools[f"{name}_scales"] = sc.reshape(N, BS, H)
+    q_row = torch.from_numpy(rng.randn(n_row, H, D).astype(np.float32))
+    pos_row = list(range(301 - n_row, 301))
+    ids, pos, qs = [], [], []
+    half = len(beside) // 2
+    row_at, sid = None, 0
+    for m in beside[:half] + [None] + beside[half:]:
+        if m is None:
+            row_at = len(ids)
+            ids += [0] * n_row
+            pos += pos_row
+            qs.append(q_row)
+            continue
+        sid += 1
+        end = int(rng.randint(m, MB * BS))
+        ids += [sid] * m
+        pos += list(range(end - m, end))
+        qs.append(torch.from_numpy(rng.randn(m, H, D).astype(np.float32)))
+
+    def pack(i, p, q):
+        return dict(q=q, seq_ids=torch.tensor(i, dtype=torch.int32),
+                    positions=torch.tensor(p, dtype=torch.int32),
+                    block_tables=tables, **pools)
+    alone = pack([0] * n_row, pos_row, q_row)
+    mixed = pack(ids, pos, torch.cat(qs))
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
+    return to(alone), to(mixed), slice(row_at, row_at + n_row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("n_row,beside", [
+    (3, [3] * 7),                   # the verify pack (spec_k 2)
+    (2, [2] * 7),                   # the draft round's pack
+    (1, [2, 1, 2, 1, 2, 1, 2]),     # catch-up and proposal feeds
+    (2, [16, 1, 3, 16, 2, 9]),      # beside prefill mirrors
+    (16, [1] * 7)])                 # a mirrored prefill chunk
+def test_flat_kernel_row_is_the_same_alone_and_in_a_pack(cuda, dtype, n_row,
+                                                         beside):
+    """K1 (and K2) give a row the same bits whether it is packed alone
+    or beside rows of other lengths, as the draft's KV writes into
+    shared prefix blocks assume: the plan (``qt``, splits) follows the
+    pack."""
+    alone, mixed, sl = _row_pack(cuda, n_row, beside, dtype=dtype)
+    a = tra.ragged_flat_attention(**alone)
+    b = tra.ragged_flat_attention(**mixed)[sl]
+    torch.cuda.synchronize()
+    want = tra.ragged_flat_attention_reference(**alone)
+    assert float((a - want).abs().max()) < ATT_TOL
+    assert torch.equal(a, b), (
+        f"max difference {float((a - b).abs().max()):.3e}; plans "
+        f"{tra.flat_plan(a.shape[0], 8, 12, 64, BS, 64, torch.float32)} "
+        f"alone, {tra.flat_plan(mixed['q'].shape[0], 8, 12, 64, BS, 64, torch.float32)} "
+        f"packed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_row,beside", [(2, [2] * 7), (1, [16, 3, 1])])
+def test_draft_step_writes_a_rows_kv_alone_as_in_a_pack(cuda, n_row,
+                                                        beside):
+    """The whole draft step at GPT-2-small widths (one layer): the K/V
+    a row writes and its logits have the same bits whether the row is
+    fed alone or beside others (the matmuls see another row count)."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
+    cfg = dict(chip_smoke.GPT2_SMALL, num_layers=1)
+    model = TinyDecoder(device=cuda, **cfg)
+    params = params_from_numpy(model.init_params_numpy(0), cuda)
+    runs = []
+    for feeds in ([n_row], beside[:len(beside) // 2] + [n_row]
+                  + beside[len(beside) // 2:]):
+        row = feeds.index(n_row) if len(feeds) == 1 else len(beside) // 2
+        cache = PagedKVCache(1, 12, 64, BS, 65, 1024, device=cuda)
+        tables = torch.zeros((8, 8), dtype=torch.int32)
+        tok, pos, sid = [], [], []
+        for j, m in enumerate(feeds):
+            tables[j] = torch.arange(1 + 8 * j, 9 + 8 * j)
+            r = np.random.RandomState(100 + (0 if j == row else j + 1))
+            tok += r.randint(0, cfg["vocab_size"], size=m).tolist()
+            pos += list(range(40, 40 + m))
+            sid += [j] * m
+        logits = model.decode_flat(
+            params, torch.tensor(tok, dtype=torch.int32, device=cuda),
+            torch.tensor(pos, dtype=torch.int32, device=cuda),
+            torch.tensor(sid, dtype=torch.int32, device=cuda),
+            torch.ones(len(tok), dtype=torch.int32, device=cuda),
+            cache.k_pages, cache.v_pages, tables.to(cuda))
+        off = sum(feeds[:row])
+        blk = 1 + 8 * row + 40 // BS
+        runs.append((logits[off:off + n_row],
+                     cache.k_pages[:, blk].clone(),
+                     cache.v_pages[:, blk].clone()))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y), float((x - y).abs().max())

@@ -294,8 +294,7 @@ def test_entry_points_default_to_cuda(pair, entry):
             getattr(tllm, entry)(tm, npp)
 
 
-@pytest.mark.parametrize("kw", [{"draft_model": object()},
-                                {"adapter_bank": object()},
+@pytest.mark.parametrize("kw", [{"adapter_bank": object()},
                                 {"mesh": "tp=2"}])
 def test_unported_features_raise(pair, kw):
     _, tm, npp, _ = pair

@@ -107,7 +107,9 @@ def _batch(t, mb, sampled, seed):
     b = dict(tokens=np.zeros(t, np.int32), positions=np.zeros(t, np.int32),
              seq_ids=np.zeros(t, np.int32), valid=np.zeros(t, np.int32),
              tables=np.zeros((S, mb), np.int32),
-             win_idx=np.zeros(S, np.int32), top_k=np.zeros(S, np.int32),
+             win_idx=np.zeros((S, 1), np.int32),
+             draft_tokens=np.zeros((S, 0), np.int32),
+             n_draft=np.zeros(S, np.int32), top_k=np.zeros(S, np.int32),
              seeds=rng.randint(0, 2 ** 31, size=S).astype(np.int32),
              counters=rng.randint(0, 1000, size=S).astype(np.int32),
              temperature=np.zeros(S, np.float32),
@@ -198,7 +200,7 @@ def test_step_program_matches_the_reference_step(models, engines, rung):
                                       "valid", "tables")]
     (jt, jn, jkp, jvp), jlogits = _jax_step(jm, sampled)(
         npp, jnp.asarray(pools[0]), jnp.asarray(pools[1]), *jb,
-        jnp.asarray(b["win_idx"][:, None]), jnp.zeros((S, 0), jnp.int32),
+        jnp.asarray(b["win_idx"]), jnp.zeros((S, 0), jnp.int32),
         jnp.zeros((S, 0, V), jnp.float32), jnp.zeros(S, jnp.int32),
         *(jnp.asarray(b[k]) for k in ("temperature", "top_k", "top_p",
                                       "seeds", "counters")))
@@ -210,7 +212,7 @@ def test_step_program_matches_the_reference_step(models, engines, rung):
     if free:
         # fully random rows: the port's accept rule on the reference's
         # logits draws the port's token
-        win = torch.from_numpy(jlogits[b["win_idx"][free]])
+        win = torch.from_numpy(jlogits[b["win_idx"][free, 0]])
         f = torch.tensor(free)
         keys = row_keys(torch.from_numpy(b["seeds"])[f],
                         torch.from_numpy(b["counters"])[f], TAG_SAMPLE)
