@@ -17,6 +17,8 @@ the other tree unpacked under a git-ignored directory:
         --order ABBA --phases flash_lp --profile-bert-amp
     python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
         --order ABBA --phases optimizer --split-bert
+    python3 chip_ab.py --tree parent=_checkout/parent --tree change=. \\
+        --order ABBA --phases kernel --profile-spec
 
 Each turn is its own process, started from that tree's root: it builds
 the tree's kernels and runs the named kernel phases of the tree's
@@ -58,7 +60,15 @@ calls both trees have (``split_run`` in the child): two warm steps,
 then five steps timing forward, backward and ``trainer.step`` on the
 host, each closed by ``torch.cuda.synchronize()`` (medians printed),
 then two steps whose ``trainer.step`` alone runs under the profiler: its
-device ms, kernel launches and copies a step, and its top kernels. Prints the card
+device ms, kernel launches and copies a step, and its top kernels. With
+``--profile-spec`` each tree, in the turns of ``--order``, drives
+chip_smoke's second f32 traffic (``prompts_for`` of seed 2, 32 new
+tokens) through a warmed ``LLMEngine`` at GPT-2-small widths under the
+profiler, without a draft (device ms per step and idle share; in a tree
+whose model has ``DENSE_ROWS``, once more with the target's steps on the
+draft's pack-independent route, ``decode_flat(dense_rows=DENSE_ROWS)``:
+its cost on a plain step), then with chip_smoke's 6-layer draft at ``spec_k`` 2
+(``profile_spec``: device ms per draft round and per verify). Prints the card
 line, one line per (kernel, shape) with every turn's ms, the profile
 lines and one JSON line of it all; ``--log FILE`` keeps the turns' full
 output. Exits non-zero if a turn fails.
@@ -70,7 +80,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import inspect, json, os, sys, time
+import functools, inspect, json, os, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
@@ -218,7 +228,7 @@ def split_run(label, use_amp, steps=5, profiled=2):
     finally:
         if use_amp:
             tamp.uninit()
-if profile:
+if profile in GROUPS:
     report = chip_smoke.report_profile
 
     def report_groups(prof, wall, steps):
@@ -355,6 +365,55 @@ elif profile == "bert_amp":
 elif profile == "split":
     split_run("f32", False)
     split_run("amp", True)
+elif profile == "spec":
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.llm import LLMEngine, TinyDecoder
+    from mxnet_tpu_torch.serving.llm import model as model_mod
+    cs = chip_smoke
+    model = TinyDecoder(device="cuda", **cs.GPT2_SMALL)
+    params = params_from_numpy(model.init_params_numpy(0), "cuda")
+    prompts = cs.prompts_for(np.random.RandomState(2), model.vocab_size)[0]
+    variants = [("plain", None)]
+    if hasattr(model_mod, "DENSE_ROWS"):
+        variants.append(("plain_dense_rows", model_mod.DENSE_ROWS))
+    for label, rows in variants:
+        # the target step on the draft's pack-independent route: the
+        # model's decode_flat with dense_rows given, for this engine
+        if rows is not None:
+            model.decode_flat = functools.partial(
+                TinyDecoder.decode_flat, model, dense_rows=rows)
+        try:
+            eng = LLMEngine(model, params, max_seqs=cs.MAX_SEQS,
+                            block_size=cs.BLOCK_SIZE, device="cuda")
+            eng.warmup()
+            cs.drive_engine(torch, eng, prompts[:2])
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                steps, wall = cs.drive_engine(torch, eng, prompts)
+        finally:
+            model.__dict__.pop("decode_flat", None)
+        _, busy = cs.device_rows(prof)
+        print("AB_SPEC " + json.dumps(dict(
+            label=label, steps=steps, device_ms=busy / 1e3 / steps,
+            idle=1 - busy / (wall * 1e6))), flush=True)
+        eng.release_graphs()
+        del eng
+        torch.cuda.empty_cache()
+    draft = TinyDecoder(device="cuda", **dict(cs.GPT2_SMALL,
+                                              num_layers=cs.DRAFT_LAYERS))
+    dparams = dict(params, layers=params["layers"][:cs.DRAFT_LAYERS])
+    eng = LLMEngine(model, params, max_seqs=cs.MAX_SEQS,
+                    block_size=cs.BLOCK_SIZE, draft_model=draft,
+                    draft_params=dparams, spec_k=cs.SPEC_K, device="cuda")
+    eng.warmup()
+    dev, steps = cs.profile_spec(torch, eng, prompts)
+    print("AB_SPEC " + json.dumps(dict(
+        label="spec", steps=steps,
+        draft_ms=dev["draft"][0] / max(1, dev["draft"][1]),
+        drafts=dev["draft"][1],
+        verify_ms=dev["verify"][0] / max(1, dev["verify"][1]),
+        verifies=dev["verify"][1])), flush=True)
 """
 
 
@@ -377,7 +436,7 @@ def turn(root, phases, profile, log):
         elif line.startswith("AB_DTYPE "):
             dtype = line[9:]
         elif line.startswith(("AB_PROFILE ", "AB_SERVE ", "AB_PAGED ",
-                              "AB_SPLIT ")):
+                              "AB_SPLIT ", "AB_SPEC ")):
             kind, _, body = line.partition(" ")
             prof.append(dict(json.loads(body), dtype=dtype,
                              kind=kind[3:].lower()))
@@ -409,6 +468,11 @@ def main():
                          "turns of --order: host ms of forward, backward "
                          "and trainer.step, and trainer.step's device ms "
                          "and launches")
+    ap.add_argument("--profile-spec", action="store_true",
+                    help="device ms per plain f32 step (and, where the "
+                         "tree has it, at the fixed dense row count) and "
+                         "per draft round and verify of speculative "
+                         "decoding, in the turns of --order")
     ap.add_argument("--log", help="file for the turns' full output")
     args = ap.parse_args()
     trees = [t.split("=", 1) for t in args.tree]
@@ -439,7 +503,8 @@ def main():
                 profiles += [dict(p, tree=label) for p in prof]
         for flag, kind in ((args.profile_bert, "bert"),
                            (args.profile_bert_amp, "bert_amp"),
-                           (args.split_bert, "split")):
+                           (args.split_bert, "split"),
+                           (args.profile_spec, "spec")):
             if not flag:
                 continue
             for letter in args.order:
@@ -472,6 +537,17 @@ def main():
                   f"in {p['opt_launches']:.0f} kernel launches and "
                   f"{p['opt_copies']:.0f} copies a step; top: {top}",
                   flush=True)
+            continue
+        if p["kind"] == "spec":
+            if p["label"] == "spec":
+                print(f"ab spec {p['tree']}: {p['steps']} steps, "
+                      f"{p['drafts']} draft rounds at {p['draft_ms']:.3f} "
+                      f"device ms each, {p['verifies']} verifies at "
+                      f"{p['verify_ms']:.3f} device ms each", flush=True)
+            else:
+                print(f"ab spec {p['tree']} {p['label']}: {p['steps']} "
+                      f"steps at {p['device_ms']:.3f} device ms a step, "
+                      f"idle {p['idle']:.3f}", flush=True)
             continue
         if p["kind"] == "paged":
             print(f"ab paged {p['tree']}: decode "

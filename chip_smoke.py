@@ -71,6 +71,16 @@ Phases, one line of output each (or more), in order:
    requests (proposals accepted, fewer verifies than tokens), then fp8
    weights for target and draft on 3 requests, streams against the
    plain step on the CPU with the same weights;
+   5d. multi-LoRA: ``LLMServer(..., adapter_bank=)`` over f32 pools with
+   a bank of 4 adapters x 2 pages of rank 4 holding three seeded
+   adapters (rank 4, rank 8, rank 8) serves the f32 phase's traffic
+   under them (two base-model rows), greedy streams against
+   ``greedy_decode_reference(lora=bank.adapter_arrays(name))``; adapter
+   churn (evict, republish, publish) builds and captures nothing; the
+   prefix cache is namespaced by adapter; tokens/s, TTFT p50, host ms
+   per step and a profiled pass beside the f32 phase's, and the bank's
+   bytes; then int8 KV and weights under adapters on 3 requests and
+   speculative decoding (the base draft) under adapters on 3 requests;
    every serving phase (and the default config's, below) serves through
    CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
    seconds and the graph pool's bytes are printed), and the phase checks
@@ -150,6 +160,7 @@ Any failed check exits non-zero before the last line. The script needs
 the checkout's ``mxnet_tpu_torch`` package beside it and a CUDA device;
 without either it exits 2 and prints no result.
 """
+import itertools
 import json
 import os
 import re
@@ -496,12 +507,16 @@ def run_kernel_phase(torch, timer, rng):
     from mxnet_tpu_torch.ops import quantization as qz
     from mxnet_tpu_torch.serving.llm.quant import quantize_leaf
     results = []
-    for page_dtype in ("float32", "int8", "float8_e4m3fn"):
-        for T in (8, 128):
-            args, nbytes, flops = attention_case(torch, T, page_dtype, rng)
-
+    # each case under the target step's plan (the pack's), then on the
+    # same inputs under the draft's pack-independent one (pages dealt to
+    # the ranks)
+    for page_dtype, T in itertools.product(
+            ("float32", "int8", "float8_e4m3fn"), (8, 128)):
+        args, nbytes, flops = attention_case(torch, T, page_dtype, rng)
+        for fixed in (False, True):
             def kern():
-                return ra.ragged_flat_attention(**args)
+                return ra.ragged_flat_attention(**args,
+                                                pack_independent=fixed)
 
             def plain():
                 return ra.ragged_flat_attention_reference(**args)
@@ -516,7 +531,8 @@ def run_kernel_phase(torch, timer, rng):
             extra, note = ring_note(kernels, ra, page_dtype, "FlatTiles",
                                     ra.flat_plan(T, MAX_SEQS, 12, 64,
                                                  BLOCK_SIZE, 64,
-                                                 args["k_pages"].dtype),
+                                                 args["k_pages"].dtype,
+                                                 fixed),
                                     64, BLOCK_SIZE, 64)
             note = "; " + note
             res = dict(name=name, route="cuda",
@@ -524,7 +540,8 @@ def run_kernel_phase(torch, timer, rng):
                        replaces=("mxnet_tpu/ops/ragged_attention.py:158"
                                  if page_dtype == "float32" else
                                  "mxnet_tpu/ops/ragged_attention.py:244"),
-                       shape=f"T={T},H=12,D=64,bs=16,MB=64",
+                       shape=f"T={T},H=12,D=64,bs=16,MB=64"
+                             + (",pack-independent" if fixed else ""),
                        max_abs_err=err, tol=ATT_TOL, ms=timer.ms(kern),
                        plain_ms=timer.ms(plain), bound_ms=b_ms,
                        bound_by=b_by, bound_f32_ms=b_f32, library_ms=None,
@@ -1034,9 +1051,10 @@ def run_spec_kernel_rows(torch, timer, seed):
                                    (MAX_SEQS * 2, "draft"))):
         args, nbytes, flops = attention_case(
             torch, T, "float32", np.random.RandomState(seed + i))
+        fixed = pack == "draft"     # the draft's pack-independent plan
 
         def kern():
-            return ra.ragged_flat_attention(**args)
+            return ra.ragged_flat_attention(**args, pack_independent=fixed)
 
         def plain():
             return ra.ragged_flat_attention_reference(**args)
@@ -1050,7 +1068,8 @@ def run_spec_kernel_rows(torch, timer, seed):
         b_ms, b_by, b_f32 = bound(nbytes, flops)
         extra, note = ring_note(kernels, ra, "float32", "FlatTiles",
                                 ra.flat_plan(T, MAX_SEQS, 12, 64,
-                                             BLOCK_SIZE, 64, torch.float32),
+                                             BLOCK_SIZE, 64, torch.float32,
+                                             fixed),
                                 64, BLOCK_SIZE, 64)
         res = dict(name=name, route="cuda",
                    source="mxnet_tpu_torch/csrc/ragged_flat.cu",
@@ -1102,11 +1121,13 @@ def run_paged_lp_kernel_phase(torch, timer, seed):
             args, nbytes, flops, valid = inputs(page_dtype)
             if kind == "flat":
                 shape = f"T={n},H=12,D=64,bs=16,MB=64"
-                plan = ra.flat_plan(n, MAX_SEQS, 12, 64, BLOCK_SIZE, 64, dt)
+                plan = ra.flat_plan(n, MAX_SEQS, 12, 64, BLOCK_SIZE, 64, dt,
+                                    False)
                 tiles = "FlatTiles"
 
-                def kern(a=args):
-                    return ra.ragged_flat_attention(**a)
+                def kern(a=args):     # the target step's plan
+                    return ra.ragged_flat_attention(**a,
+                                                    pack_independent=False)
 
                 def plain():
                     return ra.ragged_flat_attention_reference(**args)
@@ -1356,7 +1377,8 @@ def mixed_batch(model, rng, dev):
     return t, seqs
 
 
-def step_logits(model, params, batch, kv_dtype, w_scales, num_blocks=64):
+def step_logits(model, params, batch, kv_dtype, w_scales, num_blocks=64,
+                adapter=None):
     from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
     c = model.config
     cache = PagedKVCache(c.num_layers, c.num_heads, c.head_dim,
@@ -1365,6 +1387,8 @@ def step_logits(model, params, batch, kv_dtype, w_scales, num_blocks=64):
     kw = {} if w_scales is None else {"w_scales": w_scales}
     if cache.quantized:
         kw.update(k_scales=cache.k_scales, v_scales=cache.v_scales)
+    if adapter is not None:
+        kw["adapter"] = adapter
     return model.decode_flat(params, batch["tokens"], batch["positions"],
                              batch["seq_ids"], batch["valid"],
                              cache.k_pages, cache.v_pages,
@@ -1409,13 +1433,15 @@ def serve(torch, server, prompts, sampled_idx, late=None):
     return res, time.monotonic() - t0
 
 
-def check_greedy(model, params, prompt, tokens, tol, label):
+def check_greedy(model, params, prompt, tokens, tol, label, lora=None):
     """The served greedy stream must equal the plain oracle's, except
     that it may leave it at a step where the oracle's top-2 logit gap
-    is below ``tol`` (a near tie that float reordering can flip)."""
+    is below ``tol`` (a near tie that float reordering can flip).
+    ``lora``: the adapter's ``bank.adapter_arrays(name)``."""
     from mxnet_tpu_torch.serving.llm import greedy_decode_reference
     ref, logits = greedy_decode_reference(model, params, prompt,
-                                          len(tokens), return_logits=True)
+                                          len(tokens), return_logits=True,
+                                          lora=lora)
     for i, (a, b) in enumerate(zip(tokens, ref)):
         if a != b:
             top2 = logits[i].topk(2).values
@@ -1428,11 +1454,14 @@ def check_greedy(model, params, prompt, tokens, tol, label):
     return "identical"
 
 
-def drive_engine(torch, engine, prompts):
-    """Drive ``engine`` (idle, warmed) through ``prompts`` on this thread
-    to the end; returns (steps, wall seconds)."""
+def drive_engine(torch, engine, prompts, adapters=None):
+    """Drive ``engine`` (idle, warmed) through ``prompts`` (under
+    ``adapters``, one name or None a prompt) on this thread to the end;
+    returns (steps, wall seconds)."""
     from mxnet_tpu_torch.serving.llm import Sequence
-    seqs = [Sequence(p, NEW_TOKENS) for p in prompts]
+    adapters = adapters or [None] * len(prompts)
+    seqs = [Sequence(p, NEW_TOKENS, adapter=a)
+            for p, a in zip(prompts, adapters)]
     t0 = time.monotonic()
     for s in seqs:
         engine.add(s)
@@ -1446,15 +1475,16 @@ def drive_engine(torch, engine, prompts):
     return steps, wall
 
 
-def profile_engine(torch, engine, prompts):
-    """Drive ``engine`` (idle, warmed) through ``prompts`` on this thread
-    under ``torch.profiler``; print the device busy share of the wall
-    time and the kernels that took the most device time. Returns the
-    busy share, or None when the profiler saw no device time."""
+def profile_engine(torch, engine, prompts, adapters=None):
+    """Drive ``engine`` (idle, warmed) through ``prompts`` (under
+    ``adapters``) on this thread under ``torch.profiler``; print the
+    device busy share of the wall time and the kernels that took the
+    most device time. Returns the busy share, or None when the profiler
+    saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        steps, wall = drive_engine(torch, engine, prompts)
+        steps, wall = drive_engine(torch, engine, prompts, adapters)
     return report_profile(prof, wall, steps)
 
 
@@ -1544,12 +1574,12 @@ def verify_dispatches(engine, before):
             - before["dispatches"] + before["draft_dispatches"])
 
 
-def host_ms_per_step(torch, server, prompts, tag):
+def host_ms_per_step(torch, server, prompts, tag, adapters=None):
     """Capture the idle server's graphs again (shutdown released them)
-    and drive ``prompts`` through its engine on this thread without the
-    profiler; prints host ms per step."""
+    and drive ``prompts`` (under ``adapters``) through its engine on
+    this thread without the profiler; prints host ms per step."""
     server.engine.warmup()
-    steps, wall = drive_engine(torch, server.engine, prompts)
+    steps, wall = drive_engine(torch, server.engine, prompts, adapters)
     log(f"{tag}: {steps} steps in {wall:.3f}s without the profiler: host "
         f"{wall / steps * 1e3:.2f} ms/step")
     return wall / steps * 1e3
@@ -1566,15 +1596,22 @@ def device_rows(prof):
     return rows, sum(e.self_device_time_total for e in rows)
 
 
+# the last profiled pass's device busy ms, steps and wall seconds
+PROFILED = {}
+
+
 def report_profile(prof, wall, steps):
     """Print the device busy share of ``wall`` seconds (``steps`` steps)
     and the kernels that took the most device time; returns the share,
-    or None when the profiler saw no device time."""
+    or None when the profiler saw no device time (the numbers also go
+    to ``PROFILED``)."""
     rows, busy_us = device_rows(prof)
+    PROFILED.clear()
     if not rows:
         log("profile: the profiler saw no device time (not measured)")
         return None
     share = busy_us / (wall * 1e6)
+    PROFILED.update(busy_ms=busy_us / 1e3, steps=steps, wall=wall)
     log(f"profile: {steps} steps in {wall:.3f}s under the profiler "
         f"({wall / steps * 1e3:.2f} ms/step); device busy "
         f"{busy_us / 1e3:.1f} ms = {share:.3f} of wall, idle "
@@ -1587,7 +1624,7 @@ def report_profile(prof, wall, steps):
 
 
 def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
-                       label, chunk=64, w_scales=None):
+                       label, chunk=64, w_scales=None, adapter=None):
     """Hold a served greedy stream over ``kv_dtype`` pools against the
     port's plain step over pools of the same dtype: ``model``/``params``
     on the CPU (every kernel's plain version) run ``decode_flat`` over
@@ -1596,7 +1633,9 @@ def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
     token, or may pick another only where their top-2 gap is below
     ``tol`` (a near tie). Every token is checked: the plain step reads
     the served stream, not its own. ``w_scales``: quantized weights'
-    scales (``params`` then the quantized tree). Returns a verdict."""
+    scales (``params`` then the quantized tree). ``adapter``: ``(bank,
+    name)``, a CPU bank holding the stream's adapter, whose delta the
+    plain step adds. Returns a verdict."""
     import torch
     from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
     c = model.config
@@ -1608,6 +1647,15 @@ def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
                          device="cpu")
     tables = torch.arange(1, mb + 1, dtype=torch.int32)[None, :]
     kw = {} if w_scales is None else {"w_scales": w_scales}
+    if cache.k_scales is not None:
+        kw.update(k_scales=cache.k_scales, v_scales=cache.v_scales)
+    handle = None
+    if adapter is not None:
+        bank, name = adapter
+        handle = bank.acquire(name)
+        kw["adapter"] = (bank, torch.tensor([handle.pages_padded],
+                                            dtype=torch.int32),
+                         torch.tensor([handle.scale], dtype=torch.float32))
     picked = []
     with torch.no_grad():
         for p0 in range(0, n, chunk):
@@ -1619,6 +1667,8 @@ def check_greedy_plain(model, params, prompt, tokens, kv_dtype, tol,
             for i, p in enumerate(pos.tolist()):
                 if p >= len(prompt) - 1:
                     picked.append(logits[i])
+    if handle is not None:
+        bank.release(handle)
     ties = []
     for i, (tok, lg) in enumerate(zip(tokens, picked)):
         top2 = lg.topk(2)
@@ -1756,7 +1806,7 @@ def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
                    prompts_for(rng, model.vocab_size)[0])
     summary = dict(prompts=prompts, shared=shared, tokens_s=n_tok / wall,
                    ttft_p50=st["ttft_ms"]["p50"], host_ms=host_ms,
-                   per_token=verifies / n_tok)
+                   per_token=verifies / n_tok, profiled=dict(PROFILED))
     return launches, st, n_tok / wall, summary
 
 
@@ -2110,6 +2160,322 @@ def run_spec_phase(torch, rng, np_params, kernels, f32):
             QUANT_LOGIT_TOL[fp8], f"{tag} request {i}", w_scales=qw.scales)
         log(f"{tag}: request {i} (prompt {len(p)}) greedy vs the plain step "
             f"with the same fp8 weights (CPU): {verdict}")
+    return counts
+
+
+# multi-LoRA (phase 5d): the bank's geometry and its seeded adapters,
+# (name, rank, alpha, seed): one of rank 4 (one page of rank 4) and two of
+# rank 8 (two pages); the f32 traffic's 8 requests and the late prefix
+# hit under these adapters (None: the base model)
+LORA_BANK = dict(max_adapters=4, page_rank=4, max_pages_per_adapter=2)
+LORA_ADAPTERS = (("ada", 4, None, 31), ("bob", 8, 4.0, 32),
+                 ("cal", 8, None, 33))
+LORA_TRAFFIC = ("ada", "bob", None, "cal", "bob", None, "cal", "ada", "cal")
+LORA_SCALE = 0.08
+
+
+def lora_factors(seed, rank, cfg=None):
+    """Seeded LoRA factors ``[L, 4, d, rank]``, ``[L, 4, rank, d]`` for
+    ``cfg`` (GPT-2-small widths by default)."""
+    cfg = cfg or GPT2_SMALL
+    r = np.random.RandomState(seed)
+    L, d = cfg["num_layers"], cfg["d_model"]
+    return ((r.randn(L, 4, d, rank) * LORA_SCALE).astype(np.float32),
+            (r.randn(L, 4, rank, d) * LORA_SCALE).astype(np.float32))
+
+
+def lora_bank(device, adapters=LORA_ADAPTERS, cfg=None):
+    """An ``AdapterBank`` of ``LORA_BANK``'s geometry on ``device`` with
+    ``adapters`` published."""
+    from mxnet_tpu_torch.serving.adapters import AdapterBank
+    cfg = cfg or GPT2_SMALL
+    bank = AdapterBank(cfg["num_layers"], cfg["d_model"], device=device,
+                       **LORA_BANK)
+    for name, rank, alpha, seed in adapters:
+        bank.publish(name, *lora_factors(seed, rank, cfg), alpha=alpha)
+    return bank
+
+
+def adapter_rows(torch, bank, names):
+    """Pin ``names`` (one a table row, None: the base model) in ``bank``:
+    returns the step's ``adapter=`` argument (the bank, each row's page
+    table ``[MAX_SEQS, P]`` and scale) and the handles to release."""
+    handles = [None if n is None else bank.acquire(n) for n in names]
+    tables = np.zeros((MAX_SEQS, bank.max_pages_per_adapter), np.int32)
+    scales = np.zeros(MAX_SEQS, np.float32)
+    for i, h in enumerate(handles):
+        if h is not None:
+            tables[i], scales[i] = h.pages_padded, h.scale
+    return ((bank, torch.from_numpy(tables).to(bank.device),
+             torch.from_numpy(scales).to(bank.device)),
+            [h for h in handles if h is not None])
+
+
+def serve_lora(torch, server, prompts, adapters):
+    """Submit every prompt under its adapter at once (greedy); returns
+    (results, wall seconds, the sequences)."""
+    t0 = time.monotonic()
+    futs = [server.submit(p, NEW_TOKENS, adapter=a)
+            for p, a in zip(prompts, adapters)]
+    res = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    return res, time.monotonic() - t0, [f._mxt_seq for f in futs]
+
+
+def run_lora_phase(torch, rng, np_params, kernels, f32):
+    """Multi-LoRA serving at GPT-2-small widths through ``LLMServer(...,
+    adapter_bank=)`` and ``submit(adapter=)``:
+
+    (a) f32 pools, a bank of ``LORA_BANK``'s geometry with the three
+    ``LORA_ADAPTERS``: the f32 phase's 8 requests and its late prefix
+    hit (``f32``: its summary) under ``LORA_TRAFFIC`` (two base-model
+    rows), greedy, every stream held against ``greedy_decode_reference(
+    lora=bank.adapter_arrays(name))`` on the card; 16 graphs, every
+    dispatch one replay, nothing built or captured after warmup;
+    (b) churn between waves (evict a cold adapter, republish a live one,
+    publish a new one): ``compiles`` and the graphs do not move; then a
+    wave whose repeat under the same adapter hits the prefix cache and
+    whose same prompt under another adapter or the base model does not;
+    the idle engine's host ms per step and a profiled pass on the f32
+    traffic under adapters, beside the f32 phase's numbers, and the
+    bank's bytes;
+    (c) int8 KV and int8 weights under adapters on 3 requests, and one
+    mixed packed step under adapters against the same step on the CPU
+    (every kernel's plain version, the same weights, a CPU bank of the
+    same factors), as ``run_quant_phase`` holds int8 serving;
+    (d) speculative decoding under adapters on 3 requests (``spec_k``
+    2, the 6-layer base draft): streams against the oracle.
+    Returns the launch counts of the served traffic."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.ops.quantization import kernel_name as wq_name
+    from mxnet_tpu_torch.ops.ragged_attention import kernel_name
+    from mxnet_tpu_torch.serving.llm import (LLMServer, TinyDecoder,
+                                             greedy_decode_reference,
+                                             quantize_weights)
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+    params = params_from_numpy(np_params, DEVICE)
+    # (a)
+    tag = "lora"
+    bank = lora_bank(DEVICE)
+    server = LLMServer(model, params, name="gpt2-lora", max_seqs=MAX_SEQS,
+                       block_size=BLOCK_SIZE, adapter_bank=bank,
+                       device=DEVICE)
+    builds, progs, calls = warm_server(torch, server, tag)
+    check(progs["graphs"] == 16, f"{tag}: {progs['graphs']} graphs")
+    log(f"{tag}: bank of {bank.num_pages} pages of rank {bank.page_rank} "
+        f"({bank.max_adapters} adapters x {bank.max_pages_per_adapter} "
+        f"pages + the null page): {bank.nbytes() / 1e6:.1f} MB on the "
+        f"device; adapters {[(n, r) for n, r, _, _ in LORA_ADAPTERS]}")
+    prompts = f32["prompts"] + [f32["shared"]]
+    adapters = list(LORA_TRAFFIC)
+    # the oracles of wave 1 read the factors it was served with: before
+    # the churn below replaces any of them
+    arrays = {n: bank.adapter_arrays(n) for n in bank.names()}
+    server.start()
+    kernels.reset_launch_counts()
+    res, wall, seqs = serve_lora(torch, server, prompts, adapters)
+    launches = kernels.launch_counts()
+    st = server.stats()
+    ttft = st["ttft_ms"]["p50"]
+    n_tok = sum(len(r.tokens) for r in res)
+    log(f"{tag}: served {len(res)} requests under adapters "
+        f"{adapters}, {n_tok} tokens in {wall:.3f}s = {n_tok / wall:.1f} "
+        f"tokens/s (end to end); TTFT p50 {st['ttft_ms']['p50']:.2f} ms; "
+        f"prefix hits {st['prefix_hits']}; adapter requests "
+        f"{st['adapter_requests']}; bank {st['adapters']}")
+    log(f"{tag}: launches {launches}")
+    check(all(len(r.tokens) == NEW_TOKENS for r in res),
+          f"{tag}: a request stopped short")
+    check(launches.get("flat_attention", 0) > 0,
+          f"{tag}: the flat attention kernel never ran")
+    check(seqs[-1].cache_hit_tokens > 0, f"{tag}: the late request under "
+          f"{adapters[-1]!r} did not hit its adapter's prefix")
+    for i, (p, r, a) in enumerate(zip(prompts, res, adapters)):
+        verdict = check_greedy(model, params, p, r.tokens, F32_LOGIT_TOL,
+                               f"{tag} request {i} ({a})",
+                               lora=None if a is None else arrays[a])
+        log(f"{tag}: request {i} (prompt {len(p)}, adapter {a}) greedy vs "
+            f"oracle: {verdict}")
+    base, base_logits = greedy_decode_reference(
+        model, params, prompts[0], NEW_TOKENS, return_logits=True)
+    _, ada_logits = greedy_decode_reference(
+        model, params, prompts[0], 1, return_logits=True, lora=arrays["ada"])
+    moved = float((ada_logits[0] - base_logits[0]).abs().max())
+    log(f"{tag}: request 0 under 'ada' vs the base model: first logits "
+        f"{moved:.3e} apart at most, "
+        f"{sum(a != b for a, b in zip(res[0].tokens, base))} of "
+        f"{NEW_TOKENS} tokens differ")
+    check(moved > 1e-2, f"{tag}: the adapter moved the logits by {moved}")
+    # (b) churn, then the namespaced prefix cache
+    graphs = server.engine.programs()["graphs"]
+    bank.evict("cal")
+    v_ada = bank.publish("ada", *lora_factors(41, 4))
+    bank.publish("dan", *lora_factors(42, 4))
+    check(compile_count() == builds and
+          server.engine.programs()["graphs"] == graphs,
+          f"{tag}: adapter churn built or captured something")
+    log(f"{tag}: churn: evicted 'cal', republished 'ada' (v{v_ada}), "
+        f"published 'dan'; bank {bank.stats()}; builds + captures "
+        f"{compile_count() - builds}, graphs {graphs}")
+    wave = [(prompts[4], "bob"), (prompts[4], "dan"), (prompts[4], None),
+            (prompts[5], "ada")]
+    res2, _, seqs2 = serve_lora(torch, server, [p for p, _ in wave],
+                                [a for _, a in wave])
+    hits = [q.cache_hit_tokens for q in seqs2]
+    log(f"{tag}: wave 2 {[(len(p), a) for p, a in wave]}: prefix hit "
+        f"tokens {hits} (a repeat under 'bob' hits; 'dan', the base model "
+        f"and 'ada' v{v_ada} do not)")
+    check(hits[0] > 0 and hits[1:] == [0, 0, 0],
+          f"{tag}: the prefix cache is not namespaced by adapter: {hits}")
+    for (p, a), r in zip(wave, res2):
+        verdict = check_greedy(model, params, p, r.tokens, F32_LOGIT_TOL,
+                               f"{tag} wave 2 ({a})", lora=None if a is None
+                               else bank.adapter_arrays(a))
+        log(f"{tag}: wave 2 (prompt {len(p)}, adapter {a}) greedy vs "
+            f"oracle: {verdict}")
+    server.shutdown()
+    add(kernels.launch_counts())     # both waves
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    st = server.stats()
+    check(st["adapters"]["in_use"] == 0 and bank.check(),
+          f"{tag}: the bank did not drain: {st['adapters']}")
+    # where the time goes, beside the f32 phase's
+    names = ["ada", "bob", None, "dan", "bob", None, "dan", "ada"]
+    traffic = prompts_for(np.random.RandomState(1), model.vocab_size)[0]
+    host_ms = host_ms_per_step(torch, server, traffic, tag, names)
+    share = profile_engine(torch, server.engine, prompts_for(
+        np.random.RandomState(2), model.vocab_size)[0], names)
+    mine, theirs = dict(PROFILED), f32.get("profiled") or {}
+
+    def dev(p):
+        if not p:
+            return "not measured"
+        return (f"{p['busy_ms'] / p['steps']:.3f} device ms a step, idle "
+                f"{1 - p['busy_ms'] / (p['wall'] * 1e3):.3f}")
+    log(f"{tag}: beside the f32 phase on the same traffic: tokens/s "
+        f"{n_tok / wall:.1f} vs {f32['tokens_s']:.1f}; TTFT p50 "
+        f"{ttft:.2f} vs {f32['ttft_p50']:.2f} ms; host "
+        f"ms/step {host_ms:.2f} vs {f32['host_ms']:.2f}; profiled: "
+        f"{dev(mine)} vs {dev(theirs)}; bank {bank.nbytes() / 1e6:.1f} MB")
+    del server, share, mine, theirs
+    # (c) int8 KV + int8 weights under adapters
+    tag = "lora int8"
+    server = LLMServer(model, np_params, name="gpt2-lora-int8",
+                       max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                       adapter_bank=bank, kv_dtype="int8",
+                       weight_dtype="int8", device=DEVICE)
+    builds, progs, calls = warm_server(torch, server, tag)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (17, 64, 200)]
+    adapters = ["bob", None, "dan"]
+    server.start()
+    kernels.reset_launch_counts()
+    res, wall, _ = serve_lora(torch, server, prompts, adapters)
+    launches = kernels.launch_counts()
+    server.shutdown()
+    add(launches)
+    log(f"{tag}: served {len(res)} requests under {adapters}, "
+        f"{sum(len(r.tokens) for r in res)} tokens in {wall:.3f}s; "
+        f"launches {launches}")
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    check(launches.get(kernel_name(torch.int8), 0) > 0
+          and launches.get(wq_name(torch.int8), 0) > 0,
+          f"{tag}: the int8 flat attention or matmul kernel never ran")
+    check(all(len(r.tokens) == NEW_TOKENS and
+              all(0 <= t < model.vocab_size for t in r.tokens) for r in res),
+          f"{tag}: a stream stopped short or left the vocabulary")
+    # the same prompts through a bank-less int8 server: its streams must
+    # be the base row's bit for bit
+    plain_server = LLMServer(model, np_params, name="gpt2-int8-nobank",
+                             max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                             kv_dtype="int8", weight_dtype="int8",
+                             device=DEVICE)
+    plain_server.start()
+    res0, _, _ = serve_lora(torch, plain_server, prompts, [None] * 3)
+    plain_server.shutdown()
+    check(res[1].tokens == res0[1].tokens, f"{tag}: the base row's "
+          f"stream differs from a bank-less engine's")
+    # every stream, with and without the bank, against the plain step
+    # over int8 pools on the CPU (every kernel's plain version) with the
+    # same weights and, under an adapter, the same factors in a CPU bank
+    cpu_model = TinyDecoder(device="cpu", **GPT2_SMALL)
+    cpu_bank = lora_bank("cpu", (("bob", 8, 4.0, 32), ("dan", 4, None,
+                                                       42)))
+    qw = quantize_weights(np_params, dtype="int8")
+    for i, (p, a) in enumerate(zip(prompts, adapters)):
+        for r, ad, what in ((res[i], a, f"under {a}"),
+                            (res0[i], None, "without a bank")):
+            verdict = check_greedy_plain(
+                cpu_model, qw.params, p, r.tokens, "int8",
+                QUANT_LOGIT_TOL["int8"], f"{tag} request {i} {what}",
+                w_scales=qw.scales,
+                adapter=None if ad is None else (cpu_bank, ad))
+            log(f"{tag}: request {i} (prompt {len(p)}) {what}: greedy vs "
+                f"the plain step over int8 pools (CPU): {verdict}")
+    del plain_server, res0
+    # as run_quant_phase holds int8 serving: one mixed packed step under
+    # adapters (rows of 'bob', the base model, 'dan'), the kernels
+    # against their plain versions on the CPU with the same weights and
+    # factors
+    batch, _ = mixed_batch(model, rng, DEVICE)
+    ad, pins = adapter_rows(torch, bank, adapters)
+    cpu_ad, cpu_pins = adapter_rows(torch, cpu_bank, adapters)
+    got = step_logits(model, server.engine.params, batch, "int8",
+                      server.engine.w_scales, adapter=ad)
+    want = step_logits(cpu_model, qw.params,
+                       {k: v.cpu() for k, v in batch.items()}, "int8",
+                       qw.scales, adapter=cpu_ad)
+    for b, hs in ((bank, pins), (cpu_bank, cpu_pins)):
+        for h in hs:
+            b.release(h)
+    n = int(batch["valid"].sum())
+    err = float((got[:n].cpu() - want[:n]).abs().max())
+    log(f"{tag}: decode_flat kernel path vs plain path (CPU) on a mixed "
+        f"packed batch under {adapters}: max_abs_err={err:.3e} (tol "
+        f"{QUANT_LOGIT_TOL['int8']})")
+    check(bool(torch.isfinite(got[:n]).all()) and
+          err <= QUANT_LOGIT_TOL["int8"],
+          f"{tag}: kernel path disagrees with the plain path")
+    del server, cpu_model, cpu_bank, qw
+    # (d) speculative decoding under adapters: the base draft proposes
+    tag = "lora spec"
+    draft = TinyDecoder(device=DEVICE,
+                        **dict(GPT2_SMALL, num_layers=DRAFT_LAYERS))
+    dparams = dict(params, layers=params["layers"][:DRAFT_LAYERS])
+    server, builds, progs, calls = spec_server(
+        torch, model, params, draft, dparams, "lora-spec",
+        adapter_bank=bank)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in (17, 64, 200)]
+    adapters = ["ada", "bob", None]
+    server.start()
+    kernels.reset_launch_counts()
+    res, wall, _ = serve_lora(torch, server, prompts, adapters)
+    launches = kernels.launch_counts()
+    server.shutdown()
+    add(launches)
+    st = server.stats()
+    log(f"{tag}: served {len(res)} requests under {adapters}, "
+        f"{sum(len(r.tokens) for r in res)} tokens in {wall:.3f}s; "
+        f"proposed {st['spec_proposed']}, accepted {st['spec_accepted']}, "
+        f"degraded {st['spec_degraded']}")
+    check_graph_steps(tag, server.engine, progs, calls, builds)
+    check(st["spec_proposed"] > 0 and st["spec_degraded"] == 0,
+          f"{tag}: no proposal made, or a step degraded")
+    for i, (p, r, a) in enumerate(zip(prompts, res, adapters)):
+        verdict = check_greedy(model, params, p, r.tokens, F32_LOGIT_TOL,
+                               f"{tag} request {i}", lora=None if a is None
+                               else bank.adapter_arrays(a))
+        log(f"{tag}: request {i} (prompt {len(p)}, adapter {a}) greedy vs "
+            f"oracle: {verdict}")
+    check(bank.stats()["in_use"] == 0 and bank.check(),
+          f"{tag}: the bank did not drain")
     return counts
 
 
@@ -3525,6 +3891,9 @@ def main():
                         kernels, "float16"))
     # 5c. speculative decoding (its own generator, as 5b)
     add(run_spec_phase(torch, np.random.RandomState(16), np_params, kernels,
+                       f32_serving))
+    # 5d. multi-LoRA (its own generator, as 5b)
+    add(run_lora_phase(torch, np.random.RandomState(18), np_params, kernels,
                        f32_serving))
     del f32_serving
     # 6. paged decode through the model interface

@@ -88,18 +88,28 @@
 //   waits on a softmax. The share's page ids are read into shared memory
 //   once, so no copy waits on a table load.
 // - The kv split, merged in one launch: the `splits` CTAs of a (tile,
-//   group) take contiguous shares of the row's own live pages (horizon /
-//   bs + 1, computed here), so a long and a short row both finish in
-//   about one share's time, and form a thread-block cluster. Each keeps
-//   its (m, l, acc) per (token, head) in shared memory; after a cluster
-//   barrier one warp per (token, head) merges every CTA's state through
-//   distributed shared memory in rank order (as csrc/wq_matmul.cu's
-//   split-K), all ranks' loads issued together: deterministic, no second
-//   launch, no scratch tensor.
+//   group) form a thread-block cluster and share the row's own live
+//   pages (horizon / bs + 1, computed here), so a long and a short row
+//   both finish in about one share's time. By default each rank takes a
+//   contiguous share of ceil(live / splits) pages. K1/K2 launched with
+//   `dealt` deal the pages out in turn instead: rank r takes pages r,
+//   r + splits, r + 2 splits, ... Then which CTA reads a page, and in
+//   what order, depends on the page alone: a token's arithmetic is the
+//   same whatever other tokens share its tile (a page past its own
+//   horizon leaves its state as it was), so a row gets the same bits
+//   alone and in any pack as long as the plan keeps `splits` and `subs`
+//   (flat_plan's pack-independent plan fixes both for a page geometry).
+//   Dealt pages slow 16-token tiles of int8/fp8 pages on an H100
+//   (PERF.md), so only the launches whose rows must not move with the
+//   pack deal them. Each CTA keeps its (m, l, acc) per (token, head) in
+//   shared memory; after a cluster barrier one warp per (token, head)
+//   merges every CTA's state through distributed shared memory in rank
+//   order (as csrc/wq_matmul.cu's split-K), all ranks' loads issued
+//   together: deterministic, no second launch, no scratch tensor.
 // - Sub-walks: in a small launch of few (token, head) pairs per CTA (a
 //   decode step of int8/fp8 pages), each pair gets `subs` warps, each
-//   walking every subs-th page of the share with its own state, folded
-//   in order before the cluster merge; a ring stage holds `subs` pages.
+//   walking every subs-th page of the CTA's share with its own state,
+//   folded in order before the cluster merge; a ring stage holds `subs` pages.
 // - Lanes own runs of head elements read by vector loads from shared
 //   memory; the 16 partial scores of a slot group are reduced by a
 //   transposing butterfly (16 shuffles for 16 slots, after which lanes 2g
@@ -263,6 +273,7 @@ struct FlatTiles {      // K1, K2: pieces of the pack's runs
   const int32_t* seq_ids;     // [T]
   const int32_t* positions;   // [T]
   int S, T, cap;              // cap: tokens per slot, 1 .. kQTile
+  int dealt;                  // 1: pages dealt to the ranks in turn
   static constexpr bool kOneTile = false;
   __host__ __device__ int qt() const { return cap; }
   // bit i: token x * cap + i starts a tile (it is the slot's first, or
@@ -301,6 +312,7 @@ struct ChunkTiles {     // K4, K5: up to kQTile tokens of one chunk row
   const int32_t* kv_lens;     // [S], this chunk's tokens included
   const int32_t* q_lens;      // [S], or null: Q tokens in every row (K5)
   int Q, tiles;               // tiles = ceil(Q / kQTile) per row
+  static constexpr int dealt = 0;      // contiguous shares
   static constexpr bool kOneTile = true;
   __host__ __device__ int qt() const { return Q < kQTile ? Q : kQTile; }
   __device__ __forceinline__ void locate(int x, int, int, Tile& t) const {
@@ -677,12 +689,21 @@ paged_ring_kernel(const void* __restrict__ q,   // q_dtype
     t.hz0 = warp_uniform(t.hz0);
     t.hz_max = warp_uniform(t.hz_max);
     // this CTA's share of the row's live pages (those holding a position
-    // some token of the tile may see), by its rank in the cluster
+    // some token of the tile may see): pages p0, p0 + stride, ..., n of
+    // them (dealt: p0 = rank, stride = ranks; else a contiguous share)
     const int live =
         t.nq > 0 && t.hz_max >= 0 ? min(MB, t.hz_max / bs + 1) : 0;
-    const int share = (live + ranks - 1) / ranks;
-    const int p0 = min(live, rank * share);
-    const int n = min(live, p0 + share) - p0;
+    int p0, stride, n;
+    if (tiles.dealt) {
+      p0 = rank;
+      stride = ranks;
+      n = live > rank ? (live - rank + ranks - 1) / ranks : 0;
+    } else {
+      const int share = (live + ranks - 1) / ranks;
+      p0 = min(live, rank * share);
+      stride = 1;
+      n = min(live, p0 + share) - p0;
+    }
     const int32_t* table = block_tables + static_cast<size_t>(t.row) * MB;
 
     for (int i = tid; i < pairs * D; i += nthreads) {
@@ -704,7 +725,7 @@ paged_ring_kernel(const void* __restrict__ q,   // q_dtype
     // read outside the pool (the TPU path clamps out-of-range indices the
     // same way)
     for (int i = tid; i < n; i += nthreads)
-      s_pid[i] = min(max(table[p0 + i], 0), N - 1);
+      s_pid[i] = min(max(table[p0 + stride * i], 0), N - 1);
     __syncthreads();
 
     // stage k holds pages k * subs .. k * subs + subs - 1 of the share
@@ -734,7 +755,7 @@ paged_ring_kernel(const void* __restrict__ q,   // q_dtype
           attend_page<PageT, kScaled, kEpl, kPred>(
               st + sub * L.page, L, s_q, s_acc + sub * pairs * D,
               s_m + sub * pairs, s_l + sub * pairs, pr, heads, D, bs,
-              (p0 + i) * bs, tiles.horizon(t, qi), scale, lane);
+              (p0 + stride * i) * bs, tiles.horizon(t, qi), scale, lane);
       }
     }
     cp_wait<0>();
@@ -880,19 +901,21 @@ int launch_ring(const void* q, const void* k_pages, const void* v_pages,
   });
 }
 
-// K1 / K2: ceil(T / qt) slots of the pack (FlatTiles)
+// K1 / K2: ceil(T / qt) slots of the pack (FlatTiles); dealt: 1 deals
+// the live pages to the ranks in turn, 0 gives them contiguous shares
 template <typename PageT, bool kScaled>
 int launch_flat(const void* q, const void* k_pages, const void* v_pages,
                 const void* k_scales, const void* v_scales,
                 const void* block_tables, const void* seq_ids,
                 const void* positions, void* out, int T, int H, int D,
                 int bs, int N, int S, int MB, int qt, int heads, int splits,
-                int stages, int subs, int q_dtype, float scale,
+                int stages, int subs, int dealt, int q_dtype, float scale,
                 void* stream) {
-  if (T <= 0 || S <= 0 || qt < 1 || qt > kQTile)
+  if (T <= 0 || S <= 0 || qt < 1 || qt > kQTile || dealt < 0 || dealt > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const FlatTiles tiles{static_cast<const int32_t*>(seq_ids),
-                        static_cast<const int32_t*>(positions), S, T, qt};
+                        static_cast<const int32_t*>(positions), S, T, qt,
+                        dealt};
   return launch_ring<PageT, kScaled>(
       q, k_pages, v_pages, k_scales, v_scales, block_tables, tiles, out,
       (T + qt - 1) / qt, H, D, bs, N, MB, heads, splits, stages, subs,

@@ -9,18 +9,19 @@
 extern "C" {
 
 // K1: q/out [T, H, D], pages [N, bs, H, D] f32; plan (qt, heads, splits,
-// stages, subs) from flat_plan
+// stages, subs) from flat_plan, then dealt (1: the pack-independent
+// page order)
 int mxt_ragged_flat_f32(const void* q, const void* k_pages,
                         const void* v_pages, const void* block_tables,
                         const void* seq_ids, const void* positions,
                         void* out, int T, int H, int D, int bs, int N, int S,
                         int MB, int qt, int heads, int splits, int stages,
-                        int subs, int q_dtype, float scale,
+                        int subs, int dealt, int q_dtype, float scale,
                         void* stream) {
   return launch_flat<float, false>(
       q, k_pages, v_pages, nullptr, nullptr, block_tables, seq_ids,
       positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages, subs,
-      q_dtype, scale, stream);
+      dealt, q_dtype, scale, stream);
 }
 
 // K2: as K1 with int8 / fp8 pages and scales [N, bs, H] f32
@@ -30,12 +31,12 @@ int mxt_ragged_flat_int8(const void* q, const void* k_pages,
                          const void* seq_ids, const void* positions,
                          void* out, int T, int H, int D, int bs, int N, int S,
                          int MB, int qt, int heads, int splits, int stages,
-                         int subs, int q_dtype, float scale,
+                         int subs, int dealt, int q_dtype, float scale,
                          void* stream) {
   return launch_flat<int8_t, true>(
       q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_ids,
       positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages, subs,
-      q_dtype, scale, stream);
+      dealt, q_dtype, scale, stream);
 }
 
 int mxt_ragged_flat_fp8(const void* q, const void* k_pages,
@@ -44,12 +45,12 @@ int mxt_ragged_flat_fp8(const void* q, const void* k_pages,
                         const void* seq_ids, const void* positions,
                         void* out, int T, int H, int D, int bs, int N, int S,
                         int MB, int qt, int heads, int splits, int stages,
-                        int subs, int q_dtype, float scale,
+                        int subs, int dealt, int q_dtype, float scale,
                         void* stream) {
   return launch_flat<__nv_fp8_e4m3, true>(
       q, k_pages, v_pages, k_scales, v_scales, block_tables, seq_ids,
       positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages, subs,
-      q_dtype, scale, stream);
+      dealt, q_dtype, scale, stream);
 }
 
 // K4: q/out [S, Q, H, D], kv_lens/q_lens [S]; plan from paged_plan

@@ -16,17 +16,17 @@
 
 #define MXT_PAGED_LP(SUFFIX, PAGE_T)                                        \
   /* K1: q/out [T, H, D] in q_dtype, pages [N, bs, H, D] PAGE_T; plan from  \
-     flat_plan */                                                           \
+     flat_plan, then dealt (1: the pack-independent page order) */       \
   int mxt_ragged_flat_##SUFFIX(                                             \
       const void* q, const void* k_pages, const void* v_pages,              \
       const void* block_tables, const void* seq_ids, const void* positions, \
       void* out, int T, int H, int D, int bs, int N, int S, int MB, int qt, \
-      int heads, int splits, int stages, int subs, int q_dtype,             \
+      int heads, int splits, int stages, int subs, int dealt, int q_dtype,  \
       float scale, void* stream) {                                          \
     return launch_flat<PAGE_T, false>(                                      \
         q, k_pages, v_pages, nullptr, nullptr, block_tables, seq_ids,       \
         positions, out, T, H, D, bs, N, S, MB, qt, heads, splits, stages,   \
-        subs, q_dtype, scale, stream);                                      \
+        subs, dealt, q_dtype, scale, stream);                               \
   }                                                                         \
   /* K4: q/out [S, Q, H, D], kv_lens/q_lens [S]; plan from paged_plan */    \
   int mxt_ragged_chunk_##SUFFIX(                                            \

@@ -49,11 +49,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launch's cudaError_t as an int)
 SOURCES = {
     # the paged kernels over f32, int8 and fp8 pages; q's dtype (0 f32, 1
-    # bf16, 2 f16) is the int before the scale
+    # bf16, 2 f16) is the int before the scale, the flat kernels' page
+    # order (1 dealt) the int before it
     "ragged_flat": {
-        "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 13 + [_F, _P],
-        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 13 + [_F, _P],
-        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 13 + [_F, _P],
+        "mxt_ragged_flat_f32": [_P] * 7 + [_I] * 14 + [_F, _P],
+        "mxt_ragged_flat_int8": [_P] * 9 + [_I] * 14 + [_F, _P],
+        "mxt_ragged_flat_fp8": [_P] * 9 + [_I] * 14 + [_F, _P],
         "mxt_ragged_chunk_f32": [_P] * 7 + [_I] * 12 + [_F, _P],
         "mxt_ragged_decode_f32": [_P] * 6 + [_I] * 11 + [_F, _P],
     },
@@ -61,7 +62,7 @@ SOURCES = {
     "ragged_flat_lp": {
         f"mxt_ragged_{kernel}_{dt}": args
         for dt in ("bf16", "f16")
-        for kernel, args in (("flat", [_P] * 7 + [_I] * 13 + [_F, _P]),
+        for kernel, args in (("flat", [_P] * 7 + [_I] * 14 + [_F, _P]),
                              ("chunk", [_P] * 7 + [_I] * 12 + [_F, _P]),
                              ("decode", [_P] * 6 + [_I] * 11 + [_F, _P]))
     },

@@ -71,8 +71,9 @@ from .registry import register
 __all__ = ["ragged_flat_attention", "ragged_flat_attention_reference",
            "ragged_paged_attention", "ragged_attention_reference",
            "ragged_chunk_attention_reference", "gather_rows",
-           "kernel_name", "paged_plan", "flat_plan", "page_shares",
-           "live_pages", "ring_smem_bytes", "CHUNK_KERNEL", "DECODE_KERNEL"]
+           "kernel_name", "paged_plan", "flat_plan", "flat_subs",
+           "page_shares", "live_pages", "ring_smem_bytes", "CHUNK_KERNEL",
+           "DECODE_KERNEL"]
 
 # launch-counter names of the chunk (K4) and decode (K5) kernels over
 # f32 pages
@@ -131,6 +132,8 @@ _MAX_STAGE = 32 * 1024
 _TWO_PER_SM = 228 * 1024 // 2 - 1024
 _THREE_PER_SM = 228 * 1024 // 3 - 1024
 _MAX_SMEM = 232448
+# the most (sub-walk, pair) states a CTA takes (the kernel's launch check)
+_MAX_STATES = 64
 
 
 def _a16(n):
@@ -208,7 +211,7 @@ def paged_plan(rows, Q, H, D, bs, MB, page_dtype):
     return heads, splits, stages_for(heads, subs, budget), subs
 
 
-def flat_plan(T, S, H, D, bs, MB, page_dtype):
+def flat_plan(T, S, H, D, bs, MB, page_dtype, pack_independent=True):
     """The flat kernel's launch plan for ``T`` packed tokens over ``S``
     table rows: ``(qt, heads, splits, stages, subs)``.
 
@@ -218,10 +221,55 @@ def flat_plan(T, S, H, D, bs, MB, page_dtype):
     each token masking by its own); the host cannot see the runs without
     a sync, so ``qt`` is the pack's mean tokens per row, at most 16: 1
     for a decode step (``T <= S``), 16 for a prefill pack of 16-token
-    chunks. The rest is :func:`paged_plan` sized for ``ceil(T / qt)``
-    tiles of ``qt`` tokens."""
+    chunks.
+
+    ``pack_independent=False``: the rest is :func:`paged_plan` sized for
+    ``ceil(T / qt)`` tiles of ``qt`` tokens, and the kernel gives each
+    cluster rank a contiguous share of a row's live pages. Splits,
+    sub-walks and shares then follow the pack, and so do a row's bits.
+
+    ``pack_independent=True`` (a draft writes its KV into prefix blocks
+    other sequences share): the kernel deals the live pages to the
+    cluster's ranks in turn (:func:`page_shares` with ``dealt``), so a
+    token's arithmetic depends only on ``splits`` and ``subs``, and
+    those are fixed for the page geometry whatever ``T``: 8 splits, and
+    the sub-walks a one-token tile takes (:func:`flat_subs`); ``heads``
+    and ``stages`` are sized for ``ceil(T / qt)`` tiles as
+    :func:`paged_plan` sizes them."""
     qt = min(_Q_TILE, max(1, -(-T // max(S, 1))))
-    return (qt,) + paged_plan(-(-T // qt), qt, H, D, bs, MB, page_dtype)
+    if not pack_independent:
+        return (qt,) + paged_plan(-(-T // qt), qt, H, D, bs, MB, page_dtype)
+    subs = flat_subs(H, D, bs, MB, page_dtype)
+
+    def stages_for(heads, budget):
+        return next((n for n in range(_MAX_STAGES, 1, -1)
+                     if ring_smem_bytes(bs, heads, D, page_dtype, qt, n, MB,
+                                        subs)[1] <= budget), None)
+    heads = next((h for h in range(min(H, _MAX_HEADS), 0, -1)
+                  if H % h == 0 and (h == 1 or qt * h <= _Q_TILE)
+                  and stages_for(h, _TWO_PER_SM)), None)
+    if heads is None:
+        if stages_for(1, _MAX_SMEM) is None:
+            raise ValueError(
+                f"block_size {bs} x head_dim {D}: two pages of one head "
+                f"do not fit the paged kernel's shared memory")
+        return qt, 1, _MAX_SPLITS, 2, subs
+    ctas = -(-T // qt) * (H // heads)
+    budget = _TWO_PER_SM
+    if ctas * _MAX_SPLITS > 2 * _SMS and stages_for(heads, _THREE_PER_SM):
+        budget = _THREE_PER_SM
+    return qt, heads, _MAX_SPLITS, stages_for(heads, budget), subs
+
+
+@functools.lru_cache(maxsize=256)
+def flat_subs(H, D, bs, MB, page_dtype):
+    """The flat kernel's sub-walks a pair, for any pack: those of a
+    one-token tile (the decode step, where the CTA holds fewest pairs),
+    as :func:`paged_plan` gives a launch too small to fill the card, at
+    most 4 (so that 16-token tiles keep 64 or fewer (sub-walk, pair)
+    states)."""
+    subs = paged_plan(1, 1, H, D, bs, MB, page_dtype)[3]
+    return min(subs, _MAX_STATES // _Q_TILE)
 
 
 def live_pages(horizon, bs, MB):
@@ -230,12 +278,18 @@ def live_pages(horizon, bs, MB):
     return 0 if horizon < 0 else min(MB, horizon // bs + 1)
 
 
-def page_shares(n_pages, splits):
-    """The kernel's kv split: ``[(first, end), ...]`` per cluster rank,
-    contiguous shares of ``ceil(n_pages / splits)`` pages (the last ones
-    shorter or empty)."""
+def page_shares(n_pages, splits, dealt=False):
+    """The kernel's kv split: the page indices of each cluster rank.
+    Contiguous shares of ``ceil(n_pages / splits)`` pages (the last ones
+    shorter or empty); ``dealt`` (the flat kernel's pack-independent
+    plan): ``[r, r + splits, r + 2 splits, ...]`` below ``n_pages``,
+    dealt in turn, so rank ``r`` reads the same pages, in the same
+    order, for any count of live pages past them."""
+    if dealt:
+        return [list(range(r, n_pages, splits)) for r in range(splits)]
     share = -(-n_pages // splits)
-    return [(min(n_pages, r * share), min(n_pages, (r + 1) * share))
+    return [list(range(min(n_pages, r * share),
+                       min(n_pages, (r + 1) * share)))
             for r in range(splits)]
 
 
@@ -280,7 +334,7 @@ def ragged_flat_attention_reference(q, k_pages, v_pages, block_tables,
 
 
 def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
-               scale, k_scales, v_scales):
+               scale, k_scales, v_scales, pack_independent):
     T, H, D = q.shape
     N, bs = k_pages.shape[0], k_pages.shape[1]
     S, MB = block_tables.shape
@@ -313,8 +367,9 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
              positions.data_ptr(), out.data_ptr()]
     rc = getattr(kernels.library(lib), fn)(
         *ptrs, T, H, D, bs, N, S, MB,
-        *flat_plan(T, S, H, D, bs, MB, k_pages.dtype),
-        _Q_DTYPES[q.dtype], float(scale), kernels.stream_handle(dev))
+        *flat_plan(T, S, H, D, bs, MB, k_pages.dtype, pack_independent),
+        int(pack_independent), _Q_DTYPES[q.dtype], float(scale),
+        kernels.stream_handle(dev))
     kernels.check(rc, fn)
     kernels.count_launch(counter)
     return out
@@ -322,11 +377,14 @@ def _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids, positions,
 
 def ragged_flat_attention(q, k_pages, v_pages, block_tables, seq_ids,
                           positions, scale=None, k_scales=None,
-                          v_scales=None):
+                          v_scales=None, pack_independent=True):
     """Flat ragged paged attention. CPU tensors take the plain version;
     CUDA tensors launch the kernel (int32 tables/ids/positions, ``q``
     f32, bf16 or f16, contiguous; float pages of any two of f32, bf16
-    and f16, or int8/fp8 pages, K and V alike, with scales) or raise."""
+    and f16, or int8/fp8 pages, K and V alike, with scales) or raise.
+    ``pack_independent``: the kernel's plan (:func:`flat_plan`); with
+    it a token's output has the same bits whatever else is packed
+    beside it, without it the plan follows the pack, for speed."""
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
     if (k_scales is None) != (v_scales is None):
@@ -339,7 +397,8 @@ def ragged_flat_attention(q, k_pages, v_pages, block_tables, seq_ids,
     if q.device.type != "cuda":
         raise ValueError(f"no flat attention kernel for {q.device}")
     return _flat_cuda(q, k_pages, v_pages, block_tables, seq_ids,
-                      positions, scale, k_scales, v_scales)
+                      positions, scale, k_scales, v_scales,
+                      pack_independent)
 
 
 def _gather_pages(pages, block_tables):

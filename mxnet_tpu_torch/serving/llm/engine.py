@@ -67,11 +67,32 @@ Python. A capture that fails raises, naming the rung: the engine never
 steps eagerly on the card. On the CPU there is nothing to capture, and
 the same functions run eagerly on the same static buffers.
 
+Multi-LoRA: with an :class:`~..adapters.AdapterBank` (``adapter_bank=``)
+every rung's graph also reads the bank's factor pools (fixed storage,
+installed into in place) and two more static buffers, each row's adapter
+page table and scale (``a_tables [S, P]``, ``a_scales [S]``), filled per
+row like the sampling vectors: the null page and scale 0 on a base-model
+row, whose delta is then exactly zero. A sequence pins its adapter
+version at admission, before the prefix lookup (the pinned
+``name@version`` salts its prefix hashes, so adapter KV never aliases
+base-model or other-version KV), and releases it on every terminal
+state; preemption keeps it. The draft model of speculative decoding
+proposes without an adapter; the adapter-bearing target verifies.
+
+Row bits: the draft's steps take ``decode_flat``'s pack-independent
+route (the dense part at :data:`~.model.DENSE_ROWS` rows, the attention
+kernels' pack-independent plan) and the LM head on the rows they
+propose from, so a row's draft KV and proposals do not depend on the
+rows packed beside it (the draft writes into prefix blocks whose target
+KV other sequences share). The target's steps run at the pack's own row
+count and the plan chosen for the pack (``dense_rows=None``): their
+writes into shared blocks are copied on write first, and the fixed
+route would cost a plain step time (PERF.md §6).
+
 Single-threaded by design: :class:`~.server.LLMServer` owns the thread,
 the queue and the futures; the engine owns device state and
-determinism. Multi-LoRA adapter banks and tensor-parallel meshes are
-not ported yet (ROADMAP.md §1); asking for one raises
-``NotImplementedError``.
+determinism. Tensor-parallel meshes are not ported yet (ROADMAP.md
+§1); asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -86,8 +107,10 @@ from ... import kernels
 from ..._device import resolve_device
 from ...convert import params_from_numpy
 from ..envutil import env_int as _env_int, env_str as _env_str
+from ..adapters.bank import AdapterError, NULL_ADAPTER_PAGE
 from .kv_cache import (PagedKVCache, KVCacheError, NULL_BLOCK,
                        prefix_block_hashes)
+from .model import DENSE_ROWS
 from .quant import (FP8_NAME, fp8_supported, quantize_weights,
                     flatten_params, resolve_weight_dtype)
 from .scheduler import Scheduler, Sequence, RUNNING, FINISHED, EVICTED
@@ -97,10 +120,8 @@ from .sampling import (TAG_SAMPLE, TAG_ACCEPT, TAG_DRAFT, row_keys,
 __all__ = ["LLMEngine"]
 
 _DEFERRED = {
-    "adapter_bank": "multi-LoRA adapter banks",
     "mesh": "tensor-parallel meshes",
 }
-
 
 # the float types of the KV pools that ``dtype=`` takes
 _POOL_DTYPES = ("float32", "bfloat16", "float16")
@@ -144,18 +165,21 @@ class _Buffers:
     _INT_FIELDS = ()
     _F32_FIELDS = ("temperature", "top_p")
 
-    def _shapes(self, t, mb, S, K):
+    def _shapes(self, t, mb, S, K, P):
         shapes = {"tokens": (t,), "positions": (t,), "seq_ids": (t,),
                   "valid": (t,), "tables": (S, mb)}
         shapes.update(dict.fromkeys(("top_k", "seeds", "counters",
                                      "temperature", "top_p"), (S,)))
         return shapes
 
-    def __init__(self, t, mb, S, device, K=0):
-        shapes = self._shapes(t, mb, S, K)
+    def __init__(self, t, mb, S, device, K=0, P=0):
+        shapes = self._shapes(t, mb, S, K, P)
+        fields = self._INT_FIELDS + self._F32_FIELDS
+        if P:
+            fields += ("a_tables", "a_scales")
         slices = {}
         off = 0
-        for name in self._INT_FIELDS + self._F32_FIELDS:
+        for name in fields:
             n = int(np.prod(shapes[name]))
             slices[name] = (off, off + n)
             off += n
@@ -169,7 +193,7 @@ class _Buffers:
         flat = host.numpy()
         for name, (a, b) in slices.items():
             view, dview = flat[a:b], self._dev[a:b]
-            if name in self._F32_FIELDS:
+            if name in self._F32_FIELDS + ("a_scales",):
                 view, dview = view.view(np.float32), dview.view(
                     torch.float32)
             setattr(self, name, view.reshape(shapes[name]))
@@ -186,17 +210,19 @@ class _StepBuffers(_Buffers):
     """The verify step's batch: the packed tokens and tables, each row's
     ``K + 1`` scored positions (``win_idx [S, K+1]``: flat indices into
     the pack), its draft proposals (``draft_tokens [S, K]``) and their
-    count (``n_draft [S]``, 0 on a plain row), and the sampling
-    vectors."""
+    count (``n_draft [S]``, 0 on a plain row), the sampling vectors and,
+    with an adapter bank (``P`` its pages an adapter), each row's
+    adapter page table and scale (``a_tables [S, P]``, the null page 0
+    on a base-model row; ``a_scales [S]``, 0 there)."""
 
     _INT_FIELDS = ("tokens", "positions", "seq_ids", "valid", "tables",
                    "win_idx", "draft_tokens", "n_draft", "top_k", "seeds",
                    "counters")
 
-    def _shapes(self, t, mb, S, K):
-        shapes = super()._shapes(t, mb, S, K)
+    def _shapes(self, t, mb, S, K, P):
+        shapes = super()._shapes(t, mb, S, K, P)
         shapes.update(win_idx=(S, K + 1), draft_tokens=(S, K),
-                      n_draft=(S,))
+                      n_draft=(S,), a_tables=(S, P), a_scales=(S,))
         return shapes
 
 
@@ -208,13 +234,13 @@ class _DraftBuffers(_Buffers):
     _INT_FIELDS = ("tokens", "positions", "seq_ids", "valid", "tables",
                    "last_idx", "top_k", "seeds", "counters")
 
-    def _shapes(self, t, mb, S, K):
-        shapes = super()._shapes(t, mb, S, K)
+    def _shapes(self, t, mb, S, K, P):
+        shapes = super()._shapes(t, mb, S, K, P)
         shapes["last_idx"] = (S,)
         return shapes
 
 
-def _make_step_fn(model, spec_k, sampled):
+def _make_step_fn(model, spec_k, sampled, bank=None):
     """The step program body of one variant (the port of the
     reference's ``_make_step_fn``): the flat ragged step over a packed
     batch, then the accept rule over each row's ``K + 1`` scored
@@ -231,13 +257,20 @@ def _make_step_fn(model, spec_k, sampled):
     accepted counts into ``out [S, K+2]`` int32 (tokens in the first
     ``K + 1`` columns). It reads nothing back to the host and its
     shapes depend on the rung alone, so on CUDA it is captured as it
-    is."""
+    is.
+
+    ``bank`` (the reference's ``lora`` variant): the
+    :class:`~..adapters.AdapterBank` whose pools the step reads, with
+    each row's pages and scale from the batch (``a_tables``,
+    ``a_scales``)."""
     K = spec_k
 
     def step(params, kv, draft_probs, b, out):
+        lora = {} if bank is None else {
+            "adapter": (bank, b["a_tables"], b["a_scales"])}
         logits = model.decode_flat(
             params, b["tokens"], b["positions"], b["seq_ids"], b["valid"],
-            block_tables=b["tables"], **kv)
+            block_tables=b["tables"], **lora, **kv)
         win = logits[b["win_idx"].long()]                   # [S, K+1, V]
         if not sampled:
             toks, n_acc = spec_accept_greedy(win, b["draft_tokens"],
@@ -266,12 +299,16 @@ def _make_draft_fn(model, sampled):
 
     ``draft(params, kv, probs, b, out)`` writes the proposals into
     ``out [S, 1]`` int32 and, sampled, the probabilities into the static
-    ``probs [S, V]``; like the step it reads nothing back to the host."""
+    ``probs [S, V]``; like the step it reads nothing back to the host.
+    The draft takes ``decode_flat``'s pack-independent route (its dense
+    part at :data:`~.model.DENSE_ROWS` rows) and its LM head on the
+    ``S`` proposing rows alone, so a row's draft KV and proposal have
+    the same bits in every pack."""
     def draft(params, kv, probs, b, out):
-        logits = model.decode_flat(
+        last = model.decode_flat(
             params, b["tokens"], b["positions"], b["seq_ids"], b["valid"],
-            block_tables=b["tables"], **kv)
-        last = logits[b["last_idx"].long()]                 # [S, V]
+            block_tables=b["tables"], dense_rows=DENSE_ROWS,
+            out_rows=b["last_idx"], **kv)                   # [S, V]
         if not sampled:
             out[:, 0].copy_(torch.argmax(last, dim=-1))
             return
@@ -376,6 +413,11 @@ class LLMEngine:
     (``MXNET_TPU_LLM_DRAFT_WEIGHT_DTYPE``) quantizes the draft's f32
     tree as ``weight_dtype`` does the target's. The draft's pools take
     the target's KV dtype and block ids.
+
+    Multi-LoRA: ``adapter_bank``, an
+    :class:`~..adapters.AdapterBank` shaped for the model (its layers
+    and ``d_model``) on the engine's device; a sequence's ``adapter``
+    names a published adapter.
     """
 
     def __init__(self, model, params, max_seqs=None, block_size=None,
@@ -385,17 +427,28 @@ class LLMEngine:
                  prefix_cache=None, kv_dtype=None, adapter_bank=None,
                  mesh=None, weight_dtype=None, weight_calib=None,
                  draft_weight_dtype=None, device="cuda"):
-        for arg, value in (("adapter_bank", adapter_bank), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{arg}=: {_DEFERRED[arg]} is not ported to the "
-                    f"PyTorch engine yet (ROADMAP.md, section 1)")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh=: {_DEFERRED['mesh']} is not ported to the "
+                f"PyTorch engine yet (ROADMAP.md, section 1)")
+        if adapter_bank is not None:
+            d_model = model.num_heads * model.head_dim
+            if (adapter_bank.num_layers != model.num_layers
+                    or adapter_bank.d_model != d_model):
+                raise ValueError(
+                    f"adapter bank shaped for {adapter_bank.num_layers}"
+                    f" layers x d_model {adapter_bank.d_model}, model "
+                    f"has {model.num_layers} x {d_model}")
+        self.bank = adapter_bank
         if _dtype_name(dtype) not in _POOL_DTYPES:
             raise ValueError(
                 f"dtype={dtype!r}: the KV pools take "
                 f"{', '.join(_POOL_DTYPES)} (or int8/fp8 through "
                 f"kv_dtype)")
         self.device = resolve_device(device)
+        if adapter_bank is not None and adapter_bank.device != self.device:
+            raise ValueError(f"adapter_bank is on {adapter_bank.device}, "
+                             f"engine on {self.device}")
         for which, m in (("model", model), ("draft_model", draft_model)):
             if m is not None and getattr(m, "device",
                                          self.device) != self.device:
@@ -486,6 +539,8 @@ class LLMEngine:
         self.quantized = self.cache.quantized
         self.scheduler = Scheduler(self.max_seqs)
         self._stats = stats
+        if adapter_bank is not None and stats is not None:
+            adapter_bank.attach_stats(stats)
         if self.prefix_enabled:
             self.cache.on_prefix_evict = self._on_prefix_evict
         self.prefix_lookups = 0
@@ -525,7 +580,8 @@ class LLMEngine:
                                         device=self.device)
         # every rung's buffers now: a pinned allocation must never run
         # inside a capture
-        self._bufs = {(t, mb): _StepBuffers(t, mb, S, self.device, K)
+        P = 0 if self.bank is None else self.bank.max_pages_per_adapter
+        self._bufs = {(t, mb): _StepBuffers(t, mb, S, self.device, K, P)
                       for t in self._t_buckets for mb in self._mb_widths}
         self._draft_bufs = {(t, mb): _DraftBuffers(t, mb, S, self.device)
                             for t in self._draft_t_buckets
@@ -640,7 +696,8 @@ class LLMEngine:
         key = (t, mb, sampled)
         prog = self._programs.get(key)
         if prog is None:
-            step = _make_step_fn(self.model, self.spec_k, sampled)
+            step = _make_step_fn(self.model, self.spec_k, sampled,
+                                 bank=self.bank)
             prog = _StepProgram(key, step,
                                 (self.params, self._kv, self._draft_probs),
                                 self._bufs[(t, mb)], self.spec_k + 2,
@@ -717,6 +774,15 @@ class LLMEngine:
                 "capture_seconds": self.capture_seconds}
 
     # ------------------------------------------------ prefix caching --
+    def _prefix_salt(self, seq):
+        """The sequence's prefix-cache namespace. Adapter KV is not
+        base-model KV (the LoRA delta rides the K/V projections), so
+        cached blocks are reusable only under the same adapter name and
+        version: the pinned handle's identity seeds the hash chain.
+        Base-model sequences share the unsalted namespace."""
+        h = seq.adapter_handle
+        return b"" if h is None else f"{h.name}@{h.version}".encode()
+
     def _prefix_lookup(self, seq):
         """Longest chain of registered blocks matching the prompt's
         full-block prefix. Pure read — no refcounts move until the
@@ -730,7 +796,8 @@ class LLMEngine:
         T = len(seq.prompt)
         bs = self.cache.block_size
         if seq.prefix_hashes is None:
-            seq.prefix_hashes = prefix_block_hashes(seq.prompt, bs)
+            seq.prefix_hashes = prefix_block_hashes(
+                seq.prompt, bs, salt=self._prefix_salt(seq))
         hit = []
         for h in seq.prefix_hashes:
             bid = self.cache.prefix_get(h)
@@ -755,7 +822,8 @@ class LLMEngine:
             return
         hashes = seq.prefix_hashes or []
         if len(hashes) < n_full:
-            hashes = prefix_block_hashes(tokens[:n_full * bs], bs)
+            hashes = prefix_block_hashes(tokens[:n_full * bs], bs,
+                                         salt=self._prefix_salt(seq))
             seq.prefix_hashes = hashes
         for k in range(n_full):
             self.cache.register(hashes[k], seq.block_ids[k])
@@ -790,8 +858,13 @@ class LLMEngine:
         whose warm run builds and loads every kernel it launches, and
         run it once; then the copy-on-write once. After this no traffic
         the ladders cover builds or captures anything; a rung that fails
-        raises, naming it. Returns {rung: seconds}."""
+        raises, naming it. With an adapter bank, its install path runs
+        first (``adapter_install``). Returns {rung: seconds}."""
         timings = {}
+        if self.bank is not None:
+            t0 = time.monotonic()
+            self.bank.warmup()
+            timings["adapter_install"] = time.monotonic() - t0
         for kind, ladder, bufs_of, program in (
                 ("draft", self._draft_t_buckets, self._draft_bufs,
                  self._draft_program),
@@ -803,6 +876,9 @@ class LLMEngine:
                     bufs.tables.fill(NULL_BLOCK)
                     if kind == "step":
                         bufs.n_draft.fill(0)
+                        if self.bank is not None:
+                            bufs.a_tables.fill(NULL_ADAPTER_PAGE)
+                            bufs.a_scales.fill(0.0)
                     for sampled in (False, True):
                         t0 = time.monotonic()
                         prog = program(T, MB, sampled)
@@ -831,11 +907,6 @@ class LLMEngine:
         if bad:
             raise ValueError(
                 f"prompt tokens {bad[:4]} out of vocab [0, {vocab})")
-        if seq.adapter is not None:
-            raise NotImplementedError(
-                f"adapter={seq.adapter!r}: {_DEFERRED['adapter_bank']} "
-                f"is not ported to the PyTorch engine yet (ROADMAP.md, "
-                f"section 1)")
         return seq
 
     def add(self, seq):
@@ -868,6 +939,21 @@ class LLMEngine:
             if slot is None:
                 break
             seq = self.scheduler.peek_waiting()
+            if (self.bank is not None and seq.adapter is not None
+                    and seq.adapter_handle is None):
+                # pin the adapter version BEFORE the prefix lookup: the
+                # pinned (name, version) salts the hash chain. A failed
+                # pin (unknown name) poisons the sequence without
+                # touching cache state; a later KV gate break leaves the
+                # pin on the waiting sequence, reused at its next
+                # admission and released on its terminal state
+                try:
+                    seq.adapter_handle = self.bank.acquire(
+                        seq.adapter, tenant=seq.tenant)
+                except AdapterError as exc:
+                    self.scheduler.waiting.popleft()
+                    self._poison(seq, exc, events)
+                    continue
             T = len(seq.prompt)
             hit, hit_tokens = ([], 0)
             if self.prefix_enabled:
@@ -904,10 +990,20 @@ class LLMEngine:
                     self._stats.record_prefix_lookup(hit_tokens)
             events.append(("admitted", seq))
 
+    def _release_adapter(self, seq):
+        """Drop the sequence's adapter pin on a terminal release.
+        Preemption keeps it: the pinned version is what makes a
+        preempted sequence's re-prefill bit-identical even if the
+        adapter was republished in between."""
+        if seq.adapter_handle is not None and self.bank is not None:
+            self.bank.release(seq.adapter_handle)
+            seq.adapter_handle = None
+
     def _finish(self, seq, events):
         self._register_blocks(seq)
         self.cache.allocator.free(seq.block_ids)
         seq.block_ids = []
+        self._release_adapter(seq)
         reason = ("stop_token" if (seq.stop_token is not None
                                    and seq.generated
                                    and seq.generated[-1]
@@ -931,6 +1027,7 @@ class LLMEngine:
         if seq.block_ids:
             self.cache.allocator.free(seq.block_ids)
             seq.block_ids = []
+        self._release_adapter(seq)
         self.scheduler.release(seq, EVICTED, "poison")
         self._poison_pending.append((seq, exc))
         if self._stats:
@@ -951,6 +1048,7 @@ class LLMEngine:
                 if reason is None:
                     keep.append(seq)
                     continue
+                self._release_adapter(seq)
                 self.scheduler.release(seq, EVICTED, reason)
                 self._dead_pending.append((seq, reason))
                 events.append(("expired", seq))
@@ -962,6 +1060,7 @@ class LLMEngine:
                 continue
             self.cache.allocator.free(seq.block_ids)
             seq.block_ids = []
+            self._release_adapter(seq)
             self.scheduler.release(seq, EVICTED, reason)
             self._dead_pending.append((seq, reason))
             events.append(("expired", seq))
@@ -1204,6 +1303,17 @@ class LLMEngine:
             b.top_p[i] = sp.top_p
             b.seeds[i] = sp.seed
             b.counters[i] = plan["cl"]
+            if self.bank is not None:
+                # each row's adapter rides the batch like the sampling
+                # vectors: its pages and scale, or the all-zero null page
+                # and scale 0 on a base-model row (an exactly-zero delta)
+                h = seq.adapter_handle
+                if h is None:
+                    b.a_tables[i] = NULL_ADAPTER_PAGE
+                    b.a_scales[i] = 0.0
+                else:
+                    b.a_tables[i] = h.pages_padded
+                    b.a_scales[i] = h.scale
             off += n
         return b
 
@@ -1395,10 +1505,12 @@ class LLMEngine:
         for seq in self.scheduler.running():
             self.cache.allocator.free(seq.block_ids)
             seq.block_ids = []
+            self._release_adapter(seq)
             self.scheduler.release(seq, EVICTED, reason)
             out.append(seq)
         while self.scheduler.waiting:
             seq = self.scheduler.waiting.popleft()
+            self._release_adapter(seq)
             self.scheduler.release(seq, EVICTED, reason)
             out.append(seq)
         self._record_block_gauges()

@@ -4,7 +4,9 @@ returns, on plain counters (the JAX package keeps the same numbers as
 
 Headline numbers: ``tokens_per_sec`` (decode throughput, an EMA over
 decode steps) and ``ttft_ms`` (submit -> first generated token, i.e.
-queue wait + prefill).
+queue wait + prefill). Multi-LoRA adds the adapter series: adapters
+resident, publishes, evictions by reason, admissions by adapter and by
+tenant and adapter.
 """
 from __future__ import annotations
 
@@ -41,6 +43,13 @@ class LLMStats:
                         "kv_blocks_free": 0, "weight_bytes": 0,
                         "weight_params_per_chip": 0}
         self._weight_dtype = {}
+        # adapter series (the reference's mxtpu_llm_adapter_*): evictions
+        # by reason, admissions by adapter and by (tenant, adapter)
+        self._adapters_resident = 0                  # guarded-by: _lock
+        self._adapter_publishes = 0                  # guarded-by: _lock
+        self._adapter_evictions = {}                 # guarded-by: _lock
+        self._adapter_requests = {}                  # guarded-by: _lock
+        self._tenant_adapter_requests = {}           # guarded-by: _lock
         self._tps = 0.0
         self._ttft = Histogram()
         self._latency = Histogram()
@@ -137,6 +146,31 @@ class LLMStats:
     def record_quant_fallback(self, n=1):
         self._inc("quant_fallbacks", n)
 
+    # ------------------------------------------------ adapter series --
+    def record_adapters_resident(self, n):
+        with self._lock:
+            self._adapters_resident = int(n)
+
+    def record_adapter_evicted(self, reason, n=1):
+        with self._lock:
+            r = str(reason)
+            self._adapter_evictions[r] = self._adapter_evictions.get(r, 0) + n
+
+    def record_adapter_request(self, adapter, tenant=None):
+        """One generation admitted under ``adapter``, attributed per
+        tenant too when the request is tenant-tagged."""
+        with self._lock:
+            a = str(adapter)
+            self._adapter_requests[a] = self._adapter_requests.get(a, 0) + 1
+            if tenant is not None:
+                key = (str(tenant), a)
+                self._tenant_adapter_requests[key] = \
+                    self._tenant_adapter_requests.get(key, 0) + 1
+
+    def record_adapter_publish(self, n=1):
+        with self._lock:
+            self._adapter_publishes += n
+
     def record_tenant(self, tenant, outcome, n=1):
         self._tenants.record(tenant, outcome, n)
 
@@ -161,6 +195,14 @@ class LLMStats:
             c = dict(self._c)
             evicted = sum(self._evicted.values())
             tps = self._tps
+            adapters = {
+                "adapters_resident": self._adapters_resident,
+                "adapter_publishes": self._adapter_publishes,
+                "adapter_evictions": dict(self._adapter_evictions),
+                "adapter_requests": dict(self._adapter_requests),
+                "tenant_adapter_requests": {
+                    f"{t}/{a}": n for (t, a), n in
+                    self._tenant_adapter_requests.items()}}
         snap = {
             "requests_submitted": c["submitted"],
             "requests_completed": c["completed"],
@@ -192,5 +234,6 @@ class LLMStats:
             "weight_dtype": dict(self._weight_dtype),
             "tenants": self._tenants.snapshot(),
         }
+        snap.update(adapters)
         snap.update(self._gauges)
         return self._overload.snapshot_into(snap)

@@ -30,11 +30,28 @@ import torch
 from ..._device import resolve_device
 from ...convert import params_from_numpy
 from ...ops.flash_attention import _NEG_INF, attention_reference
+from ...ops.lora import (PROJ_K, PROJ_O, PROJ_Q, PROJ_V, page_mask,
+                         paged_lora_delta, pool_lora_delta)
 from ...ops.quantization import quantized_matmul
 from ...ops.ragged_attention import (gather_rows, ragged_flat_attention,
                                      ragged_paged_attention)
 
-__all__ = ["DecoderConfig", "TinyDecoder", "greedy_decode_reference"]
+__all__ = ["DecoderConfig", "TinyDecoder", "greedy_decode_reference",
+           "DENSE_ROWS"]
+
+# The row count of a flat step's pack-independent route
+# (``decode_flat(dense_rows=DENSE_ROWS)``): the dense part (layer norms,
+# projections, the LM head) runs on the pack padded with zero rows to a
+# multiple of it, each product taking it rows at a time. A library
+# product picks its algorithm, and a row reduction its lane split, by the
+# row count, so a row's bits would follow the pack's size; at one count
+# they do not, and with the attention kernels' pack-independent plan a
+# row writes the same KV and logits alone and in any pack. The engine's
+# draft steps take this route (they write into prefix blocks other
+# sequences share); its target steps run at the pack's own count
+# (``dense_rows=None``, the default: their shared blocks are copied on
+# write).
+DENSE_ROWS = 128
 
 
 class DecoderConfig:
@@ -79,6 +96,31 @@ def _mlp(h, lp, mm):
     in the JAX package's order)."""
     x2 = _layer_norm(h, lp["ln2_g"], lp["ln2_b"])
     return mm(_gelu(mm(x2, "w1") + lp["b1"]), "w2")
+
+
+def _lora_all_rows(x2d, a_sel, b_sel, li, proj, scale):
+    """Single-adapter LoRA delta for every row of ``x2d [N, d]``: the
+    oracle's twin of the flat step's per-token pages. ``a_sel``/``b_sel``
+    ``[P, L, 4, d|r, r|d]`` are one adapter's padded factor pages
+    (:meth:`AdapterBank.adapter_arrays`), broadcast to every row so the
+    einsum is :func:`~mxnet_tpu_torch.ops.lora.paged_lora_delta`'s, as
+    in the JAX package."""
+    n = x2d.shape[0]
+    a = a_sel[:, li, proj]                       # [P, d, r]
+    b = b_sel[:, li, proj]                       # [P, r, d]
+    return paged_lora_delta(
+        x2d, a[None].expand((n,) + a.shape), b[None].expand((n,) + b.shape),
+        torch.full((n,), float(scale), dtype=x2d.dtype, device=x2d.device))
+
+
+def _by_rows(fn, rows, *xs):
+    """``fn(*xs)`` taken ``rows`` rows of each of ``xs`` at a time (they
+    have the same multiple of ``rows`` rows; ``rows`` None: at once)."""
+    n = xs[0].shape[0]
+    if rows is None or n <= rows:
+        return fn(*xs)
+    return torch.cat([fn(*(x[i:i + rows] for x in xs))
+                      for i in range(0, n, rows)])
 
 
 class TinyDecoder:
@@ -152,26 +194,45 @@ class TinyDecoder:
         return params_from_numpy(self.init_params_numpy(seed), self.device)
 
     # ------------------------------------------------------ prefill --
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, lora=None):
         """Dense causal forward. tokens: int [B, T] (T <= max_context).
-        Returns (logits [B, T, V], k, v) with k/v [L, B, T, H, Dh]."""
+        Returns (logits [B, T, V], k, v) with k/v [L, B, T, H, Dh].
+
+        ``lora``: optional single-adapter factors ``(a_sel, b_sel,
+        scale)`` as :meth:`AdapterBank.adapter_arrays` returns them,
+        applied to every row (the per-adapter oracle of the flat step's
+        per-token adapters)."""
         c = self.config
         B, T = tokens.shape
         tokens = tokens.long()
         h = params["embed"][tokens] + params["pos"][:T][None, :, :]
+
+        def delta(x, li, proj):
+            return _lora_all_rows(x.reshape(B * T, c.d_model), *lora[:2],
+                                  li, proj, lora[2]).reshape(B, T, c.d_model)
         ks, vs = [], []
-        for lp in params["layers"]:
+        for li, lp in enumerate(params["layers"]):
             x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"])
-            q = (x @ lp["wq"]).reshape(B, T, c.num_heads, c.head_dim)
-            k = (x @ lp["wk"]).reshape(B, T, c.num_heads, c.head_dim)
-            v = (x @ lp["wv"]).reshape(B, T, c.num_heads, c.head_dim)
+            q = x @ lp["wq"]
+            k = x @ lp["wk"]
+            v = x @ lp["wv"]
+            if lora is not None:
+                q = q + delta(x, li, PROJ_Q)
+                k = k + delta(x, li, PROJ_K)
+                v = v + delta(x, li, PROJ_V)
+            q = q.reshape(B, T, c.num_heads, c.head_dim)
+            k = k.reshape(B, T, c.num_heads, c.head_dim)
+            v = v.reshape(B, T, c.num_heads, c.head_dim)
             ks.append(k)
             vs.append(v)
             att = attention_reference(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True)
             att = att.transpose(1, 2).reshape(B, T, c.d_model)
-            h = h + att @ lp["wo"]
+            o = att @ lp["wo"]
+            if lora is not None:
+                o = o + delta(att, li, PROJ_O)
+            h = h + o
             h = h + _mlp(h, lp, lambda a, n, _lp=lp: a @ _lp[n]) \
                 + lp["b2"]
         logits = _layer_norm(h, params["lnf_g"],
@@ -181,7 +242,8 @@ class TinyDecoder:
     # ------------------------------------------------------- decode --
     def decode_flat(self, params, tokens, positions, seq_ids, valid,
                     k_pages, v_pages, block_tables, k_scales=None,
-                    v_scales=None, w_scales=None):
+                    v_scales=None, w_scales=None, adapter=None,
+                    dense_rows=None, out_rows=None):
         """The FLAT ragged step over a packed ``[T]`` batch of query
         tokens from many sequences.
 
@@ -195,7 +257,16 @@ class TinyDecoder:
         written into the pools IN PLACE before the layer's attention,
         cast to the pools' dtype (bf16/f16 pools: rounded to nearest
         even, as ``astype`` rounds in the reference; q stays f32).
-        Returns logits [T, V].
+        Returns logits [T, V] (``out_rows``: the logits of those rows of
+        the pack only, the LM head taken on them alone).
+
+        ``dense_rows`` (:data:`DENSE_ROWS`, the draft's route): the
+        layer norms, projections and LM head run on the pack padded with
+        zero rows to a multiple of it, that many rows a product, and the
+        attention kernels take their pack-independent plan, so a row's
+        KV and logits have the same bits alone and in any pack; ``None``
+        (the target's): the pack's own row count and the plan chosen for
+        the pack.
 
         Quantized KV: with ``k_scales``/``v_scales`` ``[L, N, bs, H]``
         the pools are int8 or fp8; each token's K/V is quantized per
@@ -206,12 +277,31 @@ class TinyDecoder:
         f32}`` dict of a :class:`~.quant.QuantizedWeights`; matching
         ``params`` leaves are int8/fp8 and every base matmul goes
         through ``quantized_matmul``, the embedding/position gathers
-        dequantize after the lookup."""
+        dequantize after the lookup. LoRA deltas stay f32, added after
+        the base product.
+
+        Multi-LoRA: ``adapter = (bank, a_tables, a_scales)``, the
+        :class:`~mxnet_tpu_torch.serving.adapters.AdapterBank` whose
+        pools the deltas read, each row's page table ``a_tables [S, P]``
+        int32 and scale ``a_scales [S]`` f32. Each token takes its row's
+        pages and adds the low-rank delta to the four attention
+        projections (:func:`~mxnet_tpu_torch.ops.lora.pool_lora_delta`:
+        one product with the whole pool, a page mask, the second
+        product, the scale); a row whose table holds only the null page
+        (scale 0) gets an exactly-zero delta, so one graph serves any
+        adapter mix."""
         c = self.config
         T = tokens.shape[0]
         bs = k_pages.shape[2]
         MB = block_tables.shape[1]
         quantized = k_scales is not None
+        fixed = dense_rows is not None
+        R = T if not fixed else -(-T // dense_rows) * dense_rows
+        if R > T:
+            def pad(x):
+                return torch.cat([x, x.new_zeros(R - T)])
+            tokens, positions, seq_ids, valid = (
+                pad(x) for x in (tokens, positions, seq_ids, valid))
         vmask = valid.bool()
         pos_l = positions.long()
         # padded tokens may carry stale positions: clamp the table
@@ -227,18 +317,39 @@ class TinyDecoder:
             g = gather_rows(params[name], idx)
             return g if s is None else g.float() * s
 
+        def rows(fn, *xs):
+            return _by_rows(fn, dense_rows, *xs)
+
+        if adapter is not None:
+            bank, a_tables, a_scales = adapter
+            sid = seq_ids.long()
+            mask = page_mask(a_tables[sid], bank.num_pages)     # [R, P]
+            scale_tok = a_scales[sid]                           # [R]
+
+            def delta(x2d, li, proj):
+                a_pool, b_pool = bank.step_pools(li, proj)
+                return rows(lambda z, m, sc: pool_lora_delta(
+                    z, a_pool, b_pool, m, sc), x2d, mask, scale_tok)
+
         h = lookup("embed", tokens.long()) + lookup("pos", pos_l)
         for li, lp in enumerate(params["layers"]):
             def mm(x2d, name, _li=li, _lp=lp):
                 s = ws.get(f"layers.{_li}.{name}")
                 if s is None:
-                    return x2d @ _lp[name]
-                return quantized_matmul(x2d, _lp[name], s)
+                    return rows(lambda z: z @ _lp[name], x2d)
+                return rows(lambda z: quantized_matmul(z, _lp[name], s), x2d)
 
-            x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"])
-            q = mm(x, "wq").reshape(T, c.num_heads, c.head_dim)
-            k = mm(x, "wk").reshape(T, c.num_heads, c.head_dim)
-            v = mm(x, "wv").reshape(T, c.num_heads, c.head_dim)
+            x = rows(lambda z: _layer_norm(z, lp["ln1_g"], lp["ln1_b"]), h)
+            q = mm(x, "wq")
+            k = mm(x, "wk")
+            v = mm(x, "wv")
+            if adapter is not None:
+                q = q + delta(x, li, PROJ_Q)
+                k = k + delta(x, li, PROJ_K)
+                v = v + delta(x, li, PROJ_V)
+            q = q.reshape(R, c.num_heads, c.head_dim)
+            k = k.reshape(R, c.num_heads, c.head_dim)
+            v = v.reshape(R, c.num_heads, c.head_dim)
             if quantized:
                 kq, ksc = _quantize_kv(k, k_pages.dtype)
                 vq, vsc = _quantize_kv(v, v_pages.dtype)
@@ -247,22 +358,34 @@ class TinyDecoder:
                 k_scales[li, bidx, slot] = ksc
                 v_scales[li, bidx, slot] = vsc
                 att = ragged_flat_attention(
-                    q, k_pages[li], v_pages[li], block_tables, seq_ids,
-                    positions, k_scales=k_scales[li],
-                    v_scales=v_scales[li])
+                    q[:T], k_pages[li], v_pages[li], block_tables,
+                    seq_ids[:T], positions[:T], k_scales=k_scales[li],
+                    v_scales=v_scales[li], pack_independent=fixed)
             else:
                 _write(k_pages[li], bidx, slot, k.to(k_pages.dtype))
                 _write(v_pages[li], bidx, slot, v.to(v_pages.dtype))
-                att = ragged_flat_attention(q, k_pages[li], v_pages[li],
-                                            block_tables, seq_ids,
-                                            positions)
-            h = h + mm(att.reshape(T, c.d_model), "wo")
-            h = h + _mlp(h, lp, mm) + lp["b2"]
-        x = _layer_norm(h, params["lnf_g"], params["lnf_b"])
+                att = ragged_flat_attention(q[:T], k_pages[li], v_pages[li],
+                                            block_tables, seq_ids[:T],
+                                            positions[:T],
+                                            pack_independent=fixed)
+            att = att.reshape(T, c.d_model)
+            if R > T:
+                att = torch.cat([att, att.new_zeros(R - T, c.d_model)])
+            o = mm(att, "wo")
+            if adapter is not None:
+                o = o + delta(att, li, PROJ_O)
+            h = h + o
+            h = h + rows(lambda z: _mlp(z, lp, mm), h) + lp["b2"]
         s = ws.get("head")
-        if s is None:
-            return x @ params["head"]
-        return quantized_matmul(x, params["head"], s)
+
+        def head(z):
+            z = _layer_norm(z, params["lnf_g"], params["lnf_b"])
+            if s is None:
+                return z @ params["head"]
+            return quantized_matmul(z, params["head"], s)
+        if out_rows is not None:
+            return head(h[out_rows.long()])
+        return rows(head, h)[:T]
 
     def decode_chunk(self, params, tokens, positions, q_lens, k_pages,
                      v_pages, block_tables, kv_lens):
@@ -353,43 +476,68 @@ def _write(pool, bidx, slot, val):
         pool[bidx, slot] = val
 
 
-def _incremental_step(model, params, token, pos, k_cache, v_cache):
+def _incremental_step(model, params, token, pos, k_cache, v_cache,
+                      lora=None):
     """One appended token against a dense KV cache ``[L, max_context,
     H, Dh]`` (written in place at ``pos``); attends over positions
-    ``<= pos``. token/pos: python ints. Returns logits [V]."""
+    ``<= pos``. token/pos: python ints. ``lora``: optional ``(a_sel,
+    b_sel, scale)`` single-adapter factors (as :meth:`TinyDecoder
+    .forward` takes them). Returns logits [V]."""
     c = model.config
     scale = 1.0 / (c.head_dim ** 0.5)
     mask = torch.arange(c.max_context, device=k_cache.device) <= pos
+
+    def delta(x1d, li, proj):
+        return _lora_all_rows(x1d[None], lora[0], lora[1], li, proj,
+                              lora[2])[0]
     h = params["embed"][token] + params["pos"][pos]
     for li, lp in enumerate(params["layers"]):
         x = _layer_norm(h, lp["ln1_g"], lp["ln1_b"])
-        q = (x @ lp["wq"]).reshape(c.num_heads, c.head_dim)
-        k_cache[li, pos] = (x @ lp["wk"]).reshape(c.num_heads, c.head_dim)
-        v_cache[li, pos] = (x @ lp["wv"]).reshape(c.num_heads, c.head_dim)
+        q = x @ lp["wq"]
+        k = x @ lp["wk"]
+        v = x @ lp["wv"]
+        if lora is not None:
+            q = q + delta(x, li, PROJ_Q)
+            k = k + delta(x, li, PROJ_K)
+            v = v + delta(x, li, PROJ_V)
+        q = q.reshape(c.num_heads, c.head_dim)
+        k_cache[li, pos] = k.reshape(c.num_heads, c.head_dim)
+        v_cache[li, pos] = v.reshape(c.num_heads, c.head_dim)
         s = torch.einsum("hd,thd->ht", q, k_cache[li]) * scale
         s = torch.where(mask[None, :], s, _NEG_INF)
         p = torch.softmax(s, dim=-1)
         att = torch.einsum("ht,thd->hd", p, v_cache[li]).reshape(c.d_model)
-        h = h + att @ lp["wo"]
+        o = att @ lp["wo"]
+        if lora is not None:
+            o = o + delta(att, li, PROJ_O)
+        h = h + o
         h = h + _mlp(h, lp, lambda a, n, _lp=lp: a @ _lp[n]) + lp["b2"]
     return _layer_norm(h, params["lnf_g"], params["lnf_b"]) @ params["head"]
 
 
 def greedy_decode_reference(model, params, prompt_tokens, max_new_tokens,
-                            stop_token=None, return_logits=False):
+                            stop_token=None, return_logits=False,
+                            lora=None):
     """Per-sequence eager greedy decoding — the oracle continuous
     batching must match token for token. One dense causal forward over
     the ``max_context``-padded prompt fills the KV cache and emits the
     first token; each later token is one incremental step. Returns the
     generated tokens (prompt excluded); with ``return_logits`` also the
-    logits each token was chosen from."""
+    logits each token was chosen from.
+
+    ``lora``: optional single-adapter ``(a_sel, b_sel, scale)`` from
+    :meth:`AdapterBank.adapter_arrays` (tensors or numpy arrays): the
+    per-adapter oracle of mixed-adapter engine batches."""
     toks = [int(t) for t in prompt_tokens]
     out, chosen_from = [], []
     ctx = model.max_context
     dev = params["embed"].device
+    if lora is not None:
+        lora = (torch.as_tensor(lora[0], device=dev),
+                torch.as_tensor(lora[1], device=dev), float(lora[2]))
     padded = torch.zeros((1, ctx), dtype=torch.int64, device=dev)
     padded[0, :len(toks)] = torch.tensor(toks, device=dev)
-    logits, k, v = model.forward(params, padded)
+    logits, k, v = model.forward(params, padded, lora=lora)
     # positions past the prompt hold pad garbage; each is overwritten by
     # the incremental step that lands there before any mask exposes it
     k_cache, v_cache = k[:, 0].contiguous(), v[:, 0].contiguous()
@@ -404,7 +552,7 @@ def greedy_decode_reference(model, params, prompt_tokens, max_new_tokens,
         if len(toks) >= ctx or i == max_new_tokens - 1:
             break
         cur = _incremental_step(model, params, nxt, len(toks) - 1,
-                                k_cache, v_cache)
+                                k_cache, v_cache, lora=lora)
     if return_logits:
         return out, torch.stack(chosen_from)
     return out

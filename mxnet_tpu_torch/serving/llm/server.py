@@ -47,6 +47,7 @@ import numpy as np
 from ..envutil import env_float as _env_float
 from ..errors import (DeadlineExceededError, Overloaded,
                       SequenceEvictedError, ServerClosed)
+from ..adapters.bank import UnknownAdapterError
 from ..overload import (CircuitBreaker, resolve_deadline,
                         resolve_overload_knobs, shed_if_breaker_open)
 from ..telemetry import compile_count
@@ -84,9 +85,10 @@ class LLMServer:
     tree (or a :class:`~.quant.QuantizedWeights`). Engine kwargs
     (``max_seqs``, ``block_size``, ``num_blocks``, ``max_context``,
     ``prefill_chunk``, ``dtype``, ``kv_dtype``, ``weight_dtype``,
-    ``prefix_cache``, ``device``, and ``draft_model`` / ``draft_params``
-    / ``spec_k`` / ``draft_weight_dtype`` for speculative decoding) pass
-    through to :class:`~.engine.LLMEngine`. Overload knobs: ``max_queue``
+    ``prefix_cache``, ``device``, ``draft_model`` / ``draft_params``
+    / ``spec_k`` / ``draft_weight_dtype`` for speculative decoding, and
+    ``adapter_bank`` for multi-LoRA serving) pass through to
+    :class:`~.engine.LLMEngine`. Overload knobs: ``max_queue``
     (``MXNET_TPU_SERVE_MAX_QUEUE``), ``deadline_ms``
     (``MXNET_TPU_SERVE_DEADLINE_MS``), ``breaker_threshold`` /
     ``breaker_cooldown_ms`` (``MXNET_TPU_SERVE_BREAKER_*``).
@@ -144,7 +146,8 @@ class LLMServer:
         return len(self._pending) + self._engine.scheduler.num_waiting
 
     def submit(self, prompt_tokens, max_new_tokens, stop_token=None,
-               deadline_ms=None, tenant=None, sampling=None):
+               deadline_ms=None, tenant=None, sampling=None,
+               adapter=None):
         """Enqueue one prompt; returns a Future resolving to a
         :class:`GenerationResult` (or raising a typed
         :class:`~..errors.ServingError` subclass; at submit time
@@ -152,11 +155,29 @@ class LLMServer:
 
         ``sampling``: a :class:`~.sampling.SamplingParams` or a dict of
         its kwargs (default greedy). ``tenant`` attributes this
-        generation's outcome and tokens per tenant."""
+        generation's outcome and tokens per tenant.
+
+        ``adapter``: the name of a published LoRA adapter to decode
+        under (``None``: the base model). It needs an
+        :class:`~..adapters.AdapterBank` on the engine (``adapter_bank=``)
+        and a resident name, checked here on the caller's thread
+        (``ValueError`` without a bank, :class:`UnknownAdapterError` for
+        an unknown name), so a typo raises at submit, not mid-batch. The
+        adapter rides the step's batch as data: mixed-adapter packs and
+        base-model rows run in the same captured graphs."""
         if isinstance(sampling, dict):
             sampling = SamplingParams(**sampling)
         if not self._started:
             raise RuntimeError("server not started; call start()")
+        if adapter is not None:
+            bank = self._engine.bank
+            if bank is None:
+                raise ValueError(
+                    f"adapter={adapter!r} but the engine has no "
+                    "AdapterBank (pass adapter_bank= at construction)")
+            if not bank.known(adapter):
+                raise UnknownAdapterError(
+                    f"adapter {adapter!r} is not resident in the bank")
         try:
             shed_if_breaker_open(self._breaker, self._stats)
             deadline = resolve_deadline(deadline_ms,
@@ -171,7 +192,7 @@ class LLMServer:
         prompt = [int(t) for t in np.asarray(prompt_tokens).ravel()]
         seq = Sequence(prompt, max_new_tokens, stop_token=stop_token,
                        deadline=deadline, tenant=tenant,
-                       sampling=sampling)
+                       sampling=sampling, adapter=adapter)
         # validate shape/vocab NOW, on the caller's thread
         self._engine.add_validate(seq)
         seq.future = Future()
@@ -211,7 +232,7 @@ class LLMServer:
 
     def generate(self, prompt_tokens, max_new_tokens, stop_token=None,
                  timeout=None, deadline_ms=None, reap_timeout=5.0,
-                 tenant=None, sampling=None):
+                 tenant=None, sampling=None, adapter=None):
         """Blocking single-prompt decode through the batcher. On
         ``timeout`` the sequence is CANCELLED (its KV blocks and slot
         are released) and the typed :class:`DeadlineExceededError`
@@ -219,7 +240,7 @@ class LLMServer:
         wait for the engine to resolve the cancel."""
         fut = self.submit(prompt_tokens, max_new_tokens,
                           stop_token=stop_token, deadline_ms=deadline_ms,
-                          tenant=tenant, sampling=sampling)
+                          tenant=tenant, sampling=sampling, adapter=adapter)
         try:
             return fut.result(timeout=timeout)
         except FuturesTimeout:
@@ -254,6 +275,8 @@ class LLMServer:
         snap["prefix_hit_rate"] = (snap["prefix_hits"] / lookups
                                    if lookups else 0.0)
         snap["device"] = str(eng.device)
+        if eng.bank is not None:
+            snap["adapters"] = eng.bank.stats()
         return snap
 
     # --------------------------------------------------------- drain --

@@ -55,7 +55,8 @@ from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
 from mxnet_tpu_torch.ops import optimizer_ops as topt_ops  # noqa: E402
 from mxnet_tpu_torch.ops.invoke import apply_op  # noqa: E402
 from mxnet_tpu_torch.serving.llm import quant as tquant  # noqa: E402
-from mxnet_tpu_torch.serving.llm.model import _quantize_kv  # noqa: E402
+from mxnet_tpu_torch.serving.llm.model import (  # noqa: E402
+    DENSE_ROWS, _quantize_kv)
 
 ATT_TOL = 2e-5
 WQ_TOL = 1e-5
@@ -1786,9 +1787,10 @@ def test_flat_kernel_row_is_the_same_alone_and_in_a_pack(cuda, dtype, n_row,
 @pytest.mark.parametrize("n_row,beside", [(2, [2] * 7), (1, [16, 3, 1])])
 def test_draft_step_writes_a_rows_kv_alone_as_in_a_pack(cuda, n_row,
                                                         beside):
-    """The whole draft step at GPT-2-small widths (one layer): the K/V
-    a row writes and its logits have the same bits whether the row is
-    fed alone or beside others (the matmuls see another row count)."""
+    """The whole draft step at GPT-2-small widths (one layer), on the
+    draft's route (``dense_rows=DENSE_ROWS``): the K/V a row writes and
+    its logits have the same bits whether the row is fed alone or beside
+    others (the matmuls see another row count)."""
     from mxnet_tpu_torch.convert import params_from_numpy
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
@@ -1813,7 +1815,8 @@ def test_draft_step_writes_a_rows_kv_alone_as_in_a_pack(cuda, n_row,
             torch.tensor(pos, dtype=torch.int32, device=cuda),
             torch.tensor(sid, dtype=torch.int32, device=cuda),
             torch.ones(len(tok), dtype=torch.int32, device=cuda),
-            cache.k_pages, cache.v_pages, tables.to(cuda))
+            cache.k_pages, cache.v_pages, tables.to(cuda),
+            dense_rows=DENSE_ROWS)
         off = sum(feeds[:row])
         blk = 1 + 8 * row + 40 // BS
         runs.append((logits[off:off + n_row],
@@ -1821,3 +1824,238 @@ def test_draft_step_writes_a_rows_kv_alone_as_in_a_pack(cuda, n_row,
                      cache.v_pages[:, blk].clone()))
     for x, y in zip(*runs):
         assert torch.equal(x, y), float((x - y).abs().max())
+
+
+# ------------------------------------------------------ multi-LoRA --
+_LORA_CFG = dict(vocab_size=48, d_model=32, num_layers=2, num_heads=2,
+                 d_ff=64, max_context=64)
+
+
+def _lora_factors(seed, rank, L=2, d=32, scale=0.05):
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(L, 4, d, rank) * scale).astype(np.float32),
+            (rng.randn(L, 4, rank, d) * scale).astype(np.float32))
+
+
+def _lora_engine(dev, bank, **kw):
+    from mxnet_tpu_torch.serving.llm import LLMEngine, TinyDecoder
+    model = TinyDecoder(device=dev, **_LORA_CFG)
+    return LLMEngine(model, model.init_params_numpy(0), max_seqs=4,
+                     block_size=BS, adapter_bank=bank, device=dev, **kw)
+
+
+def _lora_drain(eng, cases):
+    from mxnet_tpu_torch.serving.llm import Sequence
+    seqs = [Sequence(p, n, adapter=a) for p, n, a in cases]
+    for s in seqs:
+        eng.add(s)
+    while eng.has_work():
+        eng.step()
+    eng.pop_finished()
+    return [s.output_tokens() for s in seqs]
+
+
+@pytest.mark.cuda
+def test_bank_install_is_seen_by_an_already_captured_graph(cuda):
+    """Graphs captured in ``warmup()`` before any adapter exists serve
+    adapters published afterwards (the install copies into the pools'
+    storage in place): the streams equal the oracle with the factors the
+    bank holds, the CPU engine's with the same bank contents, and
+    nothing is built or captured."""
+    from mxnet_tpu_torch.serving.adapters import AdapterBank
+    from mxnet_tpu_torch.serving.llm import greedy_decode_reference
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    bank = AdapterBank(2, 32, max_adapters=3, page_rank=4, device=cuda)
+    eng = _lora_engine(cuda, bank)
+    eng.warmup()
+    compiles, progs = compile_count(), eng.programs()
+    bank.publish("ada", *_lora_factors(1, 4))
+    bank.publish("bob", *_lora_factors(2, 8), alpha=4.0)
+    rng = np.random.RandomState(3)
+    cases = [(rng.randint(0, 48, size=n).tolist(), 10, a)
+             for n, a in ((5, "ada"), (17, "bob"), (9, None), (30, "ada"))]
+    got = _lora_drain(eng, cases)
+    assert compile_count() == compiles
+    after = eng.programs()
+    assert after["graphs"] == progs["graphs"]
+    assert after["replays"] - progs["replays"] == \
+        after["dispatches"] - progs["dispatches"] > 0
+    params = {k: v for k, v in eng.params.items()}
+    for (p, n, a), toks in zip(cases, got):
+        lora = None if a is None else bank.adapter_arrays(a)
+        assert toks == greedy_decode_reference(eng.model, params, p, n,
+                                               lora=lora)
+    cpu_bank = AdapterBank(2, 32, max_adapters=3, page_rank=4, device="cpu")
+    cpu_bank.publish("ada", *_lora_factors(1, 4))
+    cpu_bank.publish("bob", *_lora_factors(2, 8), alpha=4.0)
+    assert got == _lora_drain(_lora_engine(torch.device("cpu"), cpu_bank),
+                              cases)
+    eng.release_graphs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_base_rows_are_the_same_with_and_without_a_bank(cuda, kv_dtype):
+    """On the card, a base-model row beside adapter rows has the same
+    tokens and the same KV bytes as in the same traffic through an
+    engine without a bank (the null page's delta is exactly zero)."""
+    from mxnet_tpu_torch.serving.adapters import AdapterBank
+    bank = AdapterBank(2, 32, max_adapters=3, page_rank=4, device=cuda)
+    bank.publish("ada", *_lora_factors(1, 4))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 48, size=n).tolist() for n in (6, 19, 11)]
+    runs = []
+    for b, ads in ((bank, ("ada", None, "ada")), (None, (None,) * 3)):
+        eng = _lora_engine(cuda, b, kv_dtype=kv_dtype, prefix_cache=False)
+        eng.warmup()
+        blocks = {}
+        finish = eng._finish
+
+        def kept(seq, events, _finish=finish, _blocks=blocks):
+            _blocks[seq.seq_id] = list(seq.block_ids)
+            return _finish(seq, events)
+        eng._finish = kept
+        toks = _lora_drain(eng, [(p, 8, a) for p, a in zip(prompts, ads)])
+        base = blocks[sorted(blocks)[1]]
+        runs.append((toks, base, eng.cache.k_pages[:, base].clone(),
+                     eng.cache.v_pages[:, base].clone()))
+        eng.release_graphs()
+    (ta, ba, ka, va), (tb, bb, kb, vb) = runs
+    assert ta[1] == tb[1] and ta[0] != tb[0]
+    # the same lengths allocate the same blocks in both engines
+    assert ba == bb
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_row,beside", [(2, [2] * 7), (1, [16, 3, 1]),
+                                          (16, [1] * 7)])
+def test_adapter_rows_are_the_same_alone_and_in_a_pack(cuda, n_row, beside):
+    """``decode_flat`` at GPT-2-small widths (one layer) with an adapter
+    bank, on the draft's pack-independent route (``dense_rows=
+    DENSE_ROWS``; the engine's target steps run at the pack's own row
+    count and copy shared blocks on write): an adapter row's logits and
+    KV have the same bits fed alone and beside rows of other lengths and
+    adapters (the fixed dense row count covers the delta's products
+    too)."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.adapters import AdapterBank
+    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
+    cfg = dict(chip_smoke.GPT2_SMALL, num_layers=1)
+    model = TinyDecoder(device=cuda, **cfg)
+    params = params_from_numpy(model.init_params_numpy(0), cuda)
+    bank = AdapterBank(1, 768, max_adapters=4, page_rank=4, device=cuda)
+    handles = []
+    for i, rank in enumerate((4, 8, 4, 6)):
+        a, b = _lora_factors(10 + i, rank, L=1, d=768)
+        bank.publish(f"a{i}", a, b)
+        handles.append(bank.acquire(f"a{i}"))
+    tables = torch.tensor([list(h.pages_padded) for h in handles] * 2,
+                          dtype=torch.int32, device=cuda)
+    scales = torch.tensor([h.scale for h in handles] * 2,
+                          dtype=torch.float32, device=cuda)
+    runs = []
+    for feeds in ([n_row], beside[:len(beside) // 2] + [n_row]
+                  + beside[len(beside) // 2:]):
+        row = 0 if len(feeds) == 1 else len(beside) // 2
+        cache = PagedKVCache(1, 12, 64, BS, 65, 1024, device=cuda)
+        btables = torch.zeros((8, 8), dtype=torch.int32)
+        tok, pos, sid = [], [], []
+        for j, m in enumerate(feeds):
+            btables[j] = torch.arange(1 + 8 * j, 9 + 8 * j)
+            r = np.random.RandomState(100 + (0 if j == row else j + 1))
+            tok += r.randint(0, cfg["vocab_size"], size=m).tolist()
+            pos += list(range(40, 40 + m))
+            sid += [j] * m
+        # the row always takes adapter a1; its neighbours the others
+        order = [1] + [k for k in range(8) if k != 1]
+        t_tab = torch.stack([tables[order[0]] if j == row else
+                             tables[order[1 + j % 7]] for j in range(8)])
+        t_sc = torch.stack([scales[order[0]] if j == row else
+                            scales[order[1 + j % 7]] for j in range(8)])
+        logits = model.decode_flat(
+            params, torch.tensor(tok, dtype=torch.int32, device=cuda),
+            torch.tensor(pos, dtype=torch.int32, device=cuda),
+            torch.tensor(sid, dtype=torch.int32, device=cuda),
+            torch.ones(len(tok), dtype=torch.int32, device=cuda),
+            cache.k_pages, cache.v_pages, btables.to(cuda),
+            adapter=(bank, t_tab, t_sc), dense_rows=DENSE_ROWS)
+        off = sum(feeds[:row])
+        blk = 1 + 8 * row + 40 // BS
+        runs.append((logits[off:off + n_row],
+                     cache.k_pages[:, blk].clone(),
+                     cache.v_pages[:, blk].clone()))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y), float((x - y).abs().max())
+    for h in handles:
+        bank.release(h)
+
+
+@pytest.mark.cuda
+def test_a_huge_cold_adapter_reaches_no_other_row(cuda):
+    """On the card, a resident cold adapter whose ``x @ A`` overflows
+    (finite factors of +-3e38) leaves the base row and the other
+    adapters' rows with the bits they get from a bank without it: the
+    step's logits and KV (``decode_flat``) and the streams served
+    through captured graphs. A NaN factor is refused."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.adapters import AdapterBank, AdapterError
+    from mxnet_tpu_torch.serving.llm import TinyDecoder
+    from mxnet_tpu_torch.serving.llm.kv_cache import PagedKVCache
+    banks = []
+    for huge in (False, True):
+        bank = AdapterBank(2, 32, max_adapters=3, page_rank=4, device=cuda)
+        bank.publish("ada", *_lora_factors(1, 4))
+        bank.publish("bob", *_lora_factors(2, 8), alpha=4.0)
+        if huge:
+            a, b = _lora_factors(3, 8)
+            bank.publish("big", np.sign(a) * np.float32(3e38), b)
+            bank.release(bank.acquire("big"))          # used, now cold
+            a[0, 1, 2, 3] = np.nan
+            with pytest.raises(AdapterError, match="finite"):
+                bank.publish("nan", a, b)
+        banks.append(bank)
+    a_pool, _ = banks[1].step_pools(0, 0)
+    x = torch.ones(1, 32, device=cuda)
+    assert not bool(torch.isfinite(x @ a_pool.reshape(32, -1)).all())
+    model = TinyDecoder(device=cuda, **_LORA_CFG)
+    params = params_from_numpy(model.init_params_numpy(0), cuda)
+    rng = np.random.RandomState(5)
+    btables = torch.zeros((4, 4), dtype=torch.int32)
+    tok, pos, sid = [], [], []
+    for j, m in enumerate((6, 4, 10)):
+        btables[j] = torch.arange(1 + 4 * j, 5 + 4 * j)
+        tok += rng.randint(0, 48, size=m).tolist()
+        pos += list(range(m))
+        sid += [j] * m
+    feed = [torch.tensor(v, dtype=torch.int32, device=cuda)
+            for v in (tok, pos, sid, [1] * len(tok))]
+    runs = []
+    for bank in banks:
+        hs = [bank.acquire("ada"), bank.acquire("bob")]
+        tables = torch.zeros((4, 2), dtype=torch.int32)
+        scales = torch.zeros(4)
+        for i, h in enumerate(hs, start=1):
+            tables[i] = torch.tensor(h.pages_padded)
+            scales[i] = h.scale
+        cache = PagedKVCache(2, 2, 16, BS, 17, 64, device=cuda)
+        logits = model.decode_flat(
+            params, *feed, cache.k_pages, cache.v_pages, btables.to(cuda),
+            adapter=(bank, tables.to(cuda), scales.to(cuda)))
+        runs.append((logits, cache.k_pages.clone(), cache.v_pages.clone()))
+        for h in hs:
+            bank.release(h)
+    (la, ka, va), (lb, kb, vb) = runs
+    assert bool(torch.isfinite(la).all())
+    assert torch.equal(la, lb)
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+    cases = [(rng.randint(0, 48, size=n).tolist(), 8, a)
+             for n, a in ((5, None), (13, "ada"), (9, "bob"), (20, None))]
+    streams = []
+    for bank in banks:
+        eng = _lora_engine(cuda, bank)
+        eng.warmup()
+        streams.append(_lora_drain(eng, cases))
+        eng.release_graphs()
+    assert streams[0] == streams[1]

@@ -294,9 +294,19 @@ def test_entry_points_default_to_cuda(pair, entry):
             getattr(tllm, entry)(tm, npp)
 
 
-@pytest.mark.parametrize("kw", [{"adapter_bank": object()},
+@pytest.mark.parametrize("kw", [{"adapter_bank": "mis-shaped"},
                                 {"mesh": "tp=2"}])
 def test_unported_features_raise(pair, kw):
+    """A mesh is not ported yet (``NotImplementedError`` naming ROADMAP);
+    an adapter bank is, and one shaped for another model raises
+    ``ValueError`` naming the layers, as the reference does."""
     _, tm, npp, _ = pair
+    if "adapter_bank" in kw:
+        from mxnet_tpu_torch.serving.adapters import AdapterBank
+        bank = AdapterBank(tm.num_layers + 1, tm.config.d_model,
+                           max_adapters=1, device="cpu")
+        with pytest.raises(ValueError, match="layers"):
+            tllm.LLMEngine(tm, npp, device="cpu", adapter_bank=bank)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tllm.LLMEngine(tm, npp, device="cpu", **kw)

@@ -9,8 +9,11 @@ The kernel runs only on the card. What these CPU tests hold:
 - ``paged_plan`` and ``flat_plan``: their choices at the main path's
   shapes, every stage within the shared memory it budgets, and the kv
   split
-  (``page_shares``, then sub-walks taking every subs-th page of a share)
-  covering each live page of a row exactly once;
+  (``page_shares``: contiguous shares, or pages dealt to the cluster's
+  ranks in turn under the pack-independent plan, then sub-walks taking
+  every subs-th page of a share) covering each live page of a row
+  exactly once, a token seeing the same pages in each dealt walk
+  whatever its tile;
 - the kernel's arithmetic, written once here in float64 numpy
   (``staged_attention``): per (split, sub-walk), an online softmax over
   its pages 16 slots at a time, the scale on the reduced score and on
@@ -71,15 +74,24 @@ def test_plan_quantised_flat_at_the_main_path_shapes(dtype):
     head groups x 8 splits = 192 CTAs of 4 heads, each pair walked by 2
     warps (a stage of two pages, 17 KB); a 128-token prefill pack gets
     16-token tiles (16 tokens a row on average), one head a CTA, 8 x 12
-    x 8 = 768 CTAs, one warp per 2 pairs."""
+    x 8 = 768 CTAs, one warp per 2 pairs. The pack-independent plan (the
+    draft's) keeps the decode step's splits and sub-walks at any pack,
+    so that a row's bits do not move with it, even at 4096 tokens."""
     qt, heads, splits, stages, subs = tra.flat_plan(8, 8, 12, 64, 16, 64,
-                                                    dtype)
+                                                    dtype, False)
     assert (qt, heads, splits, subs) == (1, 4, 8, 2)
     assert 8 * (12 // heads) * splits == 192
     assert stages == 4
-    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype) == (16, 1, 8, 4, 1)
-    _, heads, splits, _, _ = tra.flat_plan(4096, 8, 12, 64, 16, 64, dtype)
+    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype, False) == \
+        (16, 1, 8, 4, 1)
+    _, heads, splits, _, _ = tra.flat_plan(4096, 8, 12, 64, 16, 64, dtype,
+                                           False)
     assert splits == 1
+    assert tra.flat_plan(8, 8, 12, 64, 16, 64, dtype) == (1, 4, 8, 4, 2)
+    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype) == (16, 1, 8, 4, 2)
+    _, heads, splits, _, subs = tra.flat_plan(4096, 8, 12, 64, 16, 64,
+                                              dtype)
+    assert (splits, subs) == (8, 2)
 
 
 def test_plan_chunk_at_the_main_path_shapes():
@@ -153,13 +165,18 @@ def test_plan_16bit_pages_at_the_main_path_shapes(dtype):
     stage of 4 heads is half the f32 one: a decode step's one-token
     tiles (K1 at T=8, K4 at Q=1, K5 at 8 rows) get 2 sub-walk warps a
     pair and a 3-stage ring of 32 KB stages, as K2 gets them; the
-    16-token tiles (K1 at T=128, K4 at Q=16) keep the f32 plan; K5 at 64
-    rows takes 4 stages."""
+    16-token tiles (K1 at T=128, K4 at Q=16) keep the f32 plan, but for
+    K1's pack-independent plan, which keeps the decode step's 2
+    sub-walks at any pack; K5 at 64 rows takes 4 stages."""
     assert tra.ring_smem_bytes(16, 4, 64, dtype, 1, 3, 64, 2) == \
         (2 * 2 * 16 * 4 * 64 * 2, 4 * (4 * 64 * 3 + 2 * 2 * 4 + 64)
          + 3 * 2 * 2 * 16 * 4 * 64 * 2)
-    assert tra.flat_plan(8, 8, 12, 64, 16, 64, dtype) == (1, 4, 8, 3, 2)
-    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype) == (16, 1, 8, 4, 1)
+    for fixed in (False, True):
+        assert tra.flat_plan(8, 8, 12, 64, 16, 64, dtype, fixed) == \
+            (1, 4, 8, 3, 2)
+    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype, False) == \
+        (16, 1, 8, 4, 1)
+    assert tra.flat_plan(128, 8, 12, 64, 16, 64, dtype) == (16, 1, 8, 4, 2)
     assert tra.paged_plan(8, 16, 12, 64, 16, 64, dtype) == (1, 8, 4, 1)
     assert tra.paged_plan(8, 1, 12, 64, 16, 64, dtype) == (4, 8, 3, 2)
     assert tra.paged_plan(64, 1, 12, 64, 16, 64, dtype) == (4, 6, 4, 1)
@@ -170,26 +187,46 @@ def test_plan_refuses_a_page_that_does_not_fit():
         tra.paged_plan(8, 1, 2, 256, 1024, 4, torch.float32)
 
 
-def _walks(n_live, splits, subs):
+def _walks(n_live, splits, subs, dealt=False):
     """The pages each (rank, sub-walk) reads, as the kernel assigns
-    them: the rank's share, then every subs-th page of it; one list of
-    sub-walks per rank."""
-    return [[list(range(first + s, end, subs)) for s in range(subs)]
-            for first, end in tra.page_shares(n_live, splits)]
+    them: the rank's share (contiguous, or ``dealt`` to the ranks in
+    turn), then every subs-th page of it; one list of sub-walks per
+    rank."""
+    return [[share[s::subs] for s in range(subs)]
+            for share in tra.page_shares(n_live, splits, dealt)]
 
 
 @pytest.mark.parametrize("n_live", [0, 1, 2, 7, 8, 9, 63, 64])
 @pytest.mark.parametrize("splits", [1, 3, 8])
 @pytest.mark.parametrize("subs", [1, 2, 8])
-def test_every_live_page_is_read_exactly_once(n_live, splits, subs):
-    pages = sorted(p for rank in _walks(n_live, splits, subs)
+@pytest.mark.parametrize("dealt", [False, True])
+def test_every_live_page_is_read_exactly_once(n_live, splits, subs, dealt):
+    pages = sorted(p for rank in _walks(n_live, splits, subs, dealt)
                    for w in rank for p in w)
     assert pages == list(range(n_live))
-    shares = tra.page_shares(n_live, splits)
+    shares = tra.page_shares(n_live, splits, dealt)
     assert len(shares) == splits
-    assert all(a <= b for a, b in shares)
-    assert [b - a for a, b in shares if b > a] == sorted(
-        (b - a for a, b in shares if b > a), reverse=True)
+    assert all(share == sorted(share) for share in shares)
+    assert [len(s) for s in shares] == sorted(
+        (len(s) for s in shares), reverse=True)
+    if not dealt:
+        assert [p for share in shares for p in share] == list(range(n_live))
+
+
+@pytest.mark.parametrize("splits,subs", [(1, 1), (3, 2), (8, 1), (8, 2)])
+def test_a_tokens_walks_do_not_depend_on_its_tile(splits, subs):
+    """Pages dealt to the ranks in turn (the pack-independent plan): the
+    pages a token sees in each (rank, sub-walk), in walk order, are the
+    same whatever the largest horizon of the tile it rides in (its
+    pack): a page past its own horizon changes no state, so its bits do
+    not move with the pack."""
+    for own in range(0, 40):
+        alone = _walks(own, splits, subs, True)
+        for tile in range(own, 64):
+            packed = _walks(tile, splits, subs, True)
+            seen = [[[p for p in w if p < own] for w in rank]
+                    for rank in packed]
+            assert seen == alone, (own, tile)
 
 
 def test_live_pages_follow_the_horizon():
@@ -243,19 +280,19 @@ def _merge(ranks):
 
 
 def staged_attention(q, kp, vp, tables, tiles, scale, plan, ks=None,
-                     vs=None):
+                     vs=None, dealt=False):
     """The kernel's result for query tiles ``[(indices of the tokens with
     a contract, table row, their horizons)]`` over q ``[T, H, D]``: per
     tile the live pages of its largest horizon, split by ``plan``'s
-    (splits, subs), each token masking by its own horizon; other tokens
-    give 0."""
+    (splits, subs) in contiguous or ``dealt`` shares, each token masking
+    by its own horizon; other tokens give 0."""
     _, splits, _, subs = plan
     T, H, D = q.shape
     bs, MB = kp.shape[1], tables.shape[1]
     out = np.zeros((T, H, D))
     for toks, row, hz in tiles:
         n_live = tra.live_pages(max(hz), bs, MB) if toks else 0
-        walks = _walks(n_live, splits, subs)
+        walks = _walks(n_live, splits, subs, dealt)
         for i in range(len(toks)):
             for h in range(H):
                 states = [[_state(q[toks[i], h], w, hz[i], kp[:, :, h],
@@ -369,13 +406,15 @@ def test_staged_flat_arithmetic_matches_references(D, dtype):
     q, kp, vp, ks, vs, tables, scale, want, jwant = _flat_case(
         dtype, D, seq_ids, positions, S, D)
     H = q.shape[1]
-    qt, *plan = tra.flat_plan(T, S, H, D, bs, MB, _DTYPES[dtype])
-    tiles = flat_tiles(seq_ids, positions, qt, S)
-    for splits, subs in ((plan[1], plan[3]), (3, 2), (8, 1), (1, 1)):
-        got = staged_attention(q, kp, vp, tables, tiles, scale,
-                               (plan[0], splits, plan[2], subs), ks, vs)
-        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-        np.testing.assert_allclose(got, jwant, rtol=0, atol=TOL)
+    for dealt in (False, True):
+        qt, *plan = tra.flat_plan(T, S, H, D, bs, MB, _DTYPES[dtype], dealt)
+        tiles = flat_tiles(seq_ids, positions, qt, S)
+        for splits, subs in ((plan[1], plan[3]), (3, 2), (8, 1), (1, 1)):
+            got = staged_attention(q, kp, vp, tables, tiles, scale,
+                                   (plan[0], splits, plan[2], subs), ks, vs,
+                                   dealt)
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+            np.testing.assert_allclose(got, jwant, rtol=0, atol=TOL)
 
 
 def _run(seq, p0, n):
@@ -444,11 +483,13 @@ def test_flat_tiles_cover_the_pack_and_match_references(name, dtype):
         assert hz == [positions[t] for t in toks]
     q, kp, vp, ks, vs, tables, scale, want, jwant = _flat_case(
         dtype, D, seq_ids, positions, S, len(name))
-    for splits, subs in ((plan[1], plan[3]), (3, 2), (1, 1)):
-        got = staged_attention(q, kp, vp, tables, tiles, scale,
-                               (plan[0], splits, plan[2], subs), ks, vs)
-        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-        np.testing.assert_allclose(got, jwant, rtol=0, atol=TOL)
+    for dealt in (False, True):
+        for splits, subs in ((plan[1], plan[3]), (3, 2), (1, 1)):
+            got = staged_attention(q, kp, vp, tables, tiles, scale,
+                                   (plan[0], splits, plan[2], subs), ks, vs,
+                                   dealt)
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+            np.testing.assert_allclose(got, jwant, rtol=0, atol=TOL)
 
 
 def test_flat_tiles_of_engine_packs():

@@ -512,7 +512,14 @@ def test_server_serves_speculatively(pair, oracle):
 
 
 def test_adapter_bank_and_mesh_still_raise(pair):
-    """The slices not ported yet still refuse, with a draft too."""
-    for kw in ({"adapter_bank": object()}, {"mesh": "tp=2"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(pair, **kw)
+    """With a draft too: a mesh, not ported yet, still refuses; an
+    adapter bank shaped for another model raises ``ValueError`` naming
+    the layers, as the reference does."""
+    from mxnet_tpu_torch.serving.adapters import AdapterBank
+    _, _, tm, _, _, _ = pair
+    bank = AdapterBank(tm.num_layers + 1, tm.config.d_model,
+                       max_adapters=1, device="cpu")
+    with pytest.raises(ValueError, match="layers"):
+        _engine(pair, adapter_bank=bank)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine(pair, mesh="tp=2")
