@@ -236,7 +236,10 @@ if profile in GROUPS:
         rows = [e for e in events
                 if str(getattr(e, "device_type", "")).endswith("CUDA")
                 and getattr(e, "self_device_time_total", 0) > 0
-                and e.key != DELTA]
+                and e.key != DELTA
+                # ranges laid over the kernels they enclose, in either
+                # tree (chip_smoke.is_range in a tree that has it)
+                and not e.key.startswith(("spec.", "mxtpu."))]
         busy = sum(e.self_device_time_total for e in rows)
         groups = {}
         for label, names in GROUPS[profile].items():
@@ -303,7 +306,8 @@ if profile == "quant":
         n_tok = sum(len(r.tokens) for r in res)
         print("AB_SERVE " + json.dumps(dict(
             warmup_s=warm_s, tokens=n_tok, tokens_per_s=n_tok / wall,
-            ttft_p50_ms=st["ttft_ms"]["p50"], steps=steps,
+            ttft_p50_ms=float(np.percentile([r.ttft_s for r in res], 50))
+            * 1e3, steps=steps,
             host_ms_per_step=host_s / steps * 1e3)), flush=True)
         chip_smoke.profile_engine(
             torch, engine, chip_smoke.prompts_for(rng, model.vocab_size)[0])

@@ -81,6 +81,14 @@ Phases, one line of output each (or more), in order:
    per step and a profiled pass beside the f32 phase's, and the bank's
    bytes; then int8 KV and weights under adapters on 3 requests and
    speculative decoding (the base draft) under adapters on 3 requests;
+   5e. faults, the tracer and the flight recorder on the captured step
+   (``run_chaos_phase``): one scripted ``llm.decode`` raise (streams
+   bit-identical to the fault-free run), three raises with four rows in
+   the pack (one row isolated), worker death, a SIGUSR1 preemption
+   drain, then the f32 phase's traffic shape with the tracer and the
+   recorder off and on (tokens/s, host ms per step), a validated chrome
+   trace, a flight bundle ``tools/flight_inspect.py`` checks, and
+   ``mxtpu.llm.step`` ranges in a profiled pass;
    every serving phase (and the default config's, below) serves through
    CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
    seconds and the graph pool's bytes are printed), and the phase checks
@@ -1433,6 +1441,13 @@ def serve(torch, server, prompts, sampled_idx, late=None):
     return res, time.monotonic() - t0
 
 
+def ttft_ms(results, q=50):
+    """The ``q``-th percentile of ``results``' TTFT in ms, each from its
+    request's own submit and first-token times (``stats()["ttft_ms"]``
+    interpolates inside the registry histogram's fixed buckets)."""
+    return float(np.percentile([r.ttft_s for r in results], q)) * 1e3
+
+
 def check_greedy(model, params, prompt, tokens, tol, label, lora=None):
     """The served greedy stream must equal the plain oracle's, except
     that it may leave it at a step where the oracle's top-2 logit gap
@@ -1585,14 +1600,21 @@ def host_ms_per_step(torch, server, prompts, tag, adapters=None):
     return wall / steps * 1e3
 
 
+def is_range(name):
+    """A ``record_function`` range, not a kernel: the ``spec.*`` ranges
+    of :func:`profile_spec` and the tracer's ``mxtpu.*`` spans, which the
+    profiler also lays on the device timeline over the kernels they
+    enclose."""
+    return name.startswith(("spec.", "mxtpu."))
+
+
 def device_rows(prof):
-    """The profiler's rows with device time, and their sum in us (the
-    ``spec.*`` ranges of :func:`profile_spec`, which span their
-    dispatches on the device timeline, not counted)."""
+    """The profiler's rows with device time, and their sum in us
+    (ranges, :func:`is_range`, not counted)."""
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and getattr(e, "self_device_time_total", 0) > 0
-            and not e.key.startswith("spec.")]
+            and not is_range(e.key)]
     return rows, sum(e.self_device_time_total for e in rows)
 
 
@@ -1730,7 +1752,7 @@ def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
     log(f"{tag}: served {len(res)} requests, {n_tok} tokens in "
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s (end to end); "
         f"decode EMA {st['tokens_per_sec']:.1f} tokens/s; TTFT p50 "
-        f"{st['ttft_ms']['p50']:.2f} ms p99 {st['ttft_ms']['p99']:.2f} ms;"
+        f"{ttft_ms(res):.2f} ms p99 {ttft_ms(res, 99):.2f} ms;"
         f" prefix hits {st['prefix_hits']}, COW copies "
         f"{st['kv_cache']['cow_copies']}, preemptions {st['preemptions']}")
     log(f"{tag}: launches {launches}; flat attention launches per packed "
@@ -1805,7 +1827,7 @@ def run_f32_phase(torch, rng, np_params, kernels, dtype="float32"):
     profile_engine(torch, server.engine,
                    prompts_for(rng, model.vocab_size)[0])
     summary = dict(prompts=prompts, shared=shared, tokens_s=n_tok / wall,
-                   ttft_p50=st["ttft_ms"]["p50"], host_ms=host_ms,
+                   ttft_p50=ttft_ms(res), host_ms=host_ms,
                    per_token=verifies / n_tok, profiled=dict(PROFILED))
     return launches, st, n_tok / wall, summary
 
@@ -1899,7 +1921,7 @@ def run_quant_phase(torch, rng, np_params, kernels, dtype):
     n_tok = sum(len(r.tokens) for r in res)
     log(f"{tag}: served {len(res)} requests, {n_tok} tokens in "
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; TTFT p50 "
-        f"{st['ttft_ms']['p50']:.2f} ms; launches {launches}; kv pool "
+        f"{ttft_ms(res):.2f} ms; launches {launches}; kv pool "
         f"{server.engine.cache.nbytes() / 1e9:.3f} GB ({st['kv_dtype']}); "
         f"weights {st['weight_bytes'] / 1e9:.3f} GB")
     check_graph_steps(tag, server.engine, progs, calls, builds)
@@ -1978,8 +2000,7 @@ def profile_spec(torch, engine, prompts):
     for _, _, kind in spans:
         out[kind][1] += 1
     for e in events:
-        if (not str(e.device_type).endswith("CUDA")
-                or e.name.startswith("spec.")):
+        if not str(e.device_type).endswith("CUDA") or is_range(e.name):
             continue
         t = e.time_range.start
         i = bisect.bisect_right(starts, t) - 1
@@ -2025,7 +2046,7 @@ def spec_line(tag, res, wall, st, verifies, drafts):
     n_tok = sum(len(r.tokens) for r in res)
     log(f"{tag}: served {len(res)} requests, {n_tok} tokens in {wall:.3f}s"
         f" = {n_tok / wall:.1f} tokens/s (end to end); TTFT p50 "
-        f"{st['ttft_ms']['p50']:.2f} ms; spec_k {st['spec_k']}, proposed "
+        f"{ttft_ms(res):.2f} ms; spec_k {st['spec_k']}, proposed "
         f"{st['spec_proposed']}, accepted {st['spec_accepted']} (rate "
         f"{st['spec_accept_rate']:.4f}), degraded {st['spec_degraded']}; "
         f"{verifies} verify dispatches ({verifies / n_tok:.3f} per "
@@ -2109,7 +2130,7 @@ def run_spec_phase(torch, rng, np_params, kernels, f32):
             f"{dev['other'][0]:.2f} ms")
     log(f"{tag}: beside the f32 phase on the same traffic: tokens/s "
         f"{n_tok / wall:.1f} vs {f32['tokens_s']:.1f}; TTFT p50 "
-        f"{st['ttft_ms']['p50']:.2f} vs {f32['ttft_p50']:.2f} ms; host "
+        f"{ttft_ms(res):.2f} vs {f32['ttft_p50']:.2f} ms; host "
         f"ms/step {host_ms:.2f} vs {f32['host_ms']:.2f}; verify dispatches "
         f"per committed token {verifies / n_tok:.3f} vs "
         f"{f32['per_token']:.3f}")
@@ -2282,11 +2303,11 @@ def run_lora_phase(torch, rng, np_params, kernels, f32):
     res, wall, seqs = serve_lora(torch, server, prompts, adapters)
     launches = kernels.launch_counts()
     st = server.stats()
-    ttft = st["ttft_ms"]["p50"]
+    ttft = ttft_ms(res)
     n_tok = sum(len(r.tokens) for r in res)
     log(f"{tag}: served {len(res)} requests under adapters "
         f"{adapters}, {n_tok} tokens in {wall:.3f}s = {n_tok / wall:.1f} "
-        f"tokens/s (end to end); TTFT p50 {st['ttft_ms']['p50']:.2f} ms; "
+        f"tokens/s (end to end); TTFT p50 {ttft_ms(res):.2f} ms; "
         f"prefix hits {st['prefix_hits']}; adapter requests "
         f"{st['adapter_requests']}; bank {st['adapters']}")
     log(f"{tag}: launches {launches}")
@@ -2477,6 +2498,313 @@ def run_lora_phase(torch, rng, np_params, kernels, f32):
     check(bank.stats()["in_use"] == 0 and bank.check(),
           f"{tag}: the bank did not drain")
     return counts
+
+
+# ------------------------------------------ chaos and observability --
+CHAOS_PROMPTS = (5, 9, 12, 15)      # under a block: no prefix hit
+
+
+def submit_together(server, prompts, n=NEW_TOKENS):
+    """Submit ``prompts`` (greedy, ``n`` tokens each) so the worker takes
+    them in one pull: the server's admission lock is held (re-entrantly)
+    across the submits, so every run of the same prompts admits them in
+    one step and packs the same rows each step. Returns the Futures."""
+    with server._cv:
+        return [server.submit(p, n) for p in prompts]
+
+
+def outcomes(futs, timeout=600):
+    """(results, errors) of ``futs``: every Future resolves."""
+    res, errs = [], []
+    for f in futs:
+        try:
+            res.append(f.result(timeout=timeout))
+        except BaseException as exc:       # a typed resolution
+            errs.append(exc)
+    return res, errs
+
+
+def check_pool_clean(tag, engine):
+    a = engine.cache.allocator
+    check(a.num_used == 0 and engine.cache.check(live_block_ids=[]),
+          f"{tag}: the pool is not clean ({a.num_used} blocks in use)")
+
+
+def wait_stopped(server):
+    deadline = time.monotonic() + 60
+    while server.running and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return not server.running
+
+
+def load_tool(name):
+    """``tools/<name>.py`` of the checkout, loaded by path (the tools
+    read bundles and expositions with the standard library only)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_smoke", os.path.join(HERE, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_chaos_phase(torch, rng, np_params, kernels, f32):
+    """The fault switchboard, the tracer and the flight recorder on the
+    captured serving step: ``LLMServer`` over f32 pools at GPT-2-small
+    widths (``f32``: the f32 phase's summary), after ``warmup()``.
+
+    (a) one scripted ``llm.decode`` raise mid-stream on
+    ``CHAOS_PROMPTS``: the greedy streams are bit-identical to the same
+    prompts' streams without a fault (the bisect re-dispatches each half
+    through its rung's graph); (b) three scripted raises while two rows
+    share the pack (the top dispatch, the first half, its leaf retry),
+    parked first on a ``block_at`` gate: exactly one row fails with the
+    original exception, the other finishes bit-identical, ``poison_isolated`` 1, the pool clean; every dispatch
+    of (a), (b) and (e)'s serving one replay, nothing built or captured;
+    (c) ``crash_at_point("llm.worker", nth=2)`` on a second server: every
+    Future resolves typed, the pool is clean, a later ``submit`` raises
+    ``ServerClosed``; (d) a ``PreemptionGuard`` on SIGUSR1 with
+    ``attach_preemption_guard(deadline_ms=0)`` and 20 ms injected into
+    each decode on a third: every Future resolves served or evicted, one
+    eviction at least with partial tokens, the pool clean; (e) the f32
+    phase's traffic shape (fresh prompts a pass) with the tracer and the
+    recorder off, on, on, off: tokens/s through the server, then host ms
+    per step through the idle engine; the chrome trace validated, a
+    flight bundle that ``tools/flight_inspect.py`` checks with every
+    request's timeline and a TTFT exemplar joined back to a request,
+    ``debug_status()`` JSON-serialisable, and a profiled pass whose
+    trace holds ``mxtpu.llm.step`` ranges. Returns the launch counts of
+    the served traffic."""
+    import shutil
+    import signal
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.observability import (
+        get_flightrecorder, get_registry, get_tracer, validate_chrome_trace)
+    from mxnet_tpu_torch.observability.exemplars import collect
+    from mxnet_tpu_torch.resilience import PreemptionGuard, faults
+    from mxnet_tpu_torch.serving import SequenceEvictedError, ServerClosed
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    tag = "chaos"
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+    params = params_from_numpy(np_params, DEVICE)
+    tracer, fl = get_tracer(), get_flightrecorder()
+    check(not tracer.enabled and not fl.enabled,
+          f"{tag}: the tracer or the recorder is on before the phase")
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in CHAOS_PROMPTS]
+    faults.reset()
+
+    def server(name):
+        return LLMServer(model, params, name=name, max_seqs=MAX_SEQS,
+                         block_size=BLOCK_SIZE, device=DEVICE)
+    srv = server("gpt2-chaos")
+    builds, progs, calls = warm_server(torch, srv, tag)
+    srv.start()
+    kernels.reset_launch_counts()
+    # (a) transient
+    plain = [r.tokens for r in outcomes(submit_together(srv, prompts))[0]]
+    faults.script("llm.decode", [None] * 3 + [RuntimeError("transient")])
+    res, errs = outcomes(submit_together(srv, prompts))
+    faults.reset()
+    same = [r.tokens for r in res] == plain
+    log(f"{tag}: (a) one llm.decode raise at the 4th decode dispatch of "
+        f"{len(prompts)} requests: {len(res)} served, {len(errs)} failed; "
+        f"streams bit-identical to the fault-free run: {same}")
+    check(not errs and same and srv.stats()["poison_isolated"] == 0,
+          f"{tag}: (a) a transient fault changed a stream or failed a row")
+    # (b) persistent, two rows in the pack: the top dispatch, the first
+    # half (one row) and its leaf retry raise; the survivor is held
+    # against the same two prompts served without a fault (a pack of
+    # other rows takes other rungs and plans)
+    plain = [r.tokens for r in
+             outcomes(submit_together(srv, prompts[:2]))[0]]
+    gate = faults.block_at("llm.decode")
+    futs = submit_together(srv, prompts[:2])
+    check(gate.wait_reached(120), f"{tag}: (b) no decode reached the gate")
+    faults.script("llm.decode", [RuntimeError("poison-decode")] * 3)
+    gate.release()
+    res, errs = [], []
+    for i, f in enumerate(futs):
+        try:
+            res.append((i, f.result(timeout=600).tokens))
+        except RuntimeError as exc:
+            errs.append((i, exc))
+    faults.reset()
+    st = srv.stats()
+    survivors = all(t == plain[i] for i, t in res)
+    log(f"{tag}: (b) three llm.decode raises with 2 rows in "
+        f"the pack: row(s) {[i for i, _ in errs]} failed with "
+        f"{[repr(e) for _, e in errs]}, {len(res)} finished, bit-identical"
+        f" to the fault-free run: {survivors}; poison_isolated "
+        f"{st['poison_isolated']}")
+    check(len(errs) == 1 and "poison-decode" in str(errs[0][1])
+          and survivors and st["poison_isolated"] == 1,
+          f"{tag}: (b) not exactly one row isolated with the original "
+          "exception")
+    check_pool_clean(f"{tag} (b)", srv.engine)
+    # (e) observability on the f32 phase's traffic shape
+    bundle_dir = tempfile.mkdtemp(prefix="chaos-flight-")
+    passes = []
+    for k, on in enumerate((False, True, True, False)):
+        if on:
+            tracer.enable()
+            fl.enable(out_dir=bundle_dir)
+        traffic, shared = prompts_for(np.random.RandomState(30 + k),
+                                      model.vocab_size)
+        out, wall = serve(torch, srv, traffic, sampled_idx=(1, 5),
+                          late=(3, shared))
+        n_tok = sum(len(r.tokens) for r in out)
+        passes.append((on, n_tok / wall))
+        log(f"{tag}: (e) tracer and recorder {'on' if on else 'off'}: "
+            f"served {len(out)} requests, {n_tok} tokens in {wall:.3f}s = "
+            f"{n_tok / wall:.1f} tokens/s (end to end)")
+        tracer.disable()
+        fl.disable()
+    launches = kernels.launch_counts()
+    status = srv.debug_status()
+    json.dumps(status)
+    check(status["engine"]["programs"]["warmed"]
+          and status["engine"]["mesh"] is None,
+          f"{tag}: debug_status {status['engine']['programs']}")
+    srv.shutdown()
+    check_graph_steps(tag, srv.engine, progs, calls, builds)
+    spans = tracer.snapshot()
+    names = [s["name"] for s in spans]
+    n_events = validate_chrome_trace(tracer.to_chrome_trace())
+    check(n_events == len(spans) and names.count("mxtpu.llm.request") == 18
+          and "mxtpu.llm.step" in names,
+          f"{tag}: the trace holds {names.count('mxtpu.llm.request')} "
+          f"request spans and {names.count('mxtpu.llm.step')} step spans")
+    events = fl.snapshot()
+    timelines = {}
+    for e in events:
+        if e["req"]:
+            timelines.setdefault(e["req"], set()).add(e["kind"])
+    want = {"llm.submit", "llm.admit", "llm.prefill", "llm.served"}
+    exm = collect(get_registry(), ("mxtpu_llm_ttft_seconds",))
+    ttft_reqs = {e["req"] for row in exm.get("mxtpu_llm_ttft_seconds", [])
+                 if row["labels"].get("server") == "gpt2-chaos"
+                 for bkt in row["buckets"].values() for e in bkt}
+    bundle = fl.dump(trigger="manual", reason="chip_smoke chaos phase")
+    fi = load_tool("flight_inspect")
+    problems = fi.check(bundle)
+    req = sorted(ttft_reqs & set(timelines))[:1]
+    view = fi.render_request(bundle, req[0]) if req else ""
+    log(f"{tag}: (e) trace: {len(spans)} spans "
+        f"({names.count('mxtpu.llm.step')} mxtpu.llm.step), chrome trace "
+        f"valid; flight: {len(events)} "
+        f"events over {len(timelines)} requests, bundle "
+        f"{os.path.basename(bundle)} check {problems or 'clean'}; TTFT "
+        f"exemplars name {len(ttft_reqs)} requests; statusz "
+        f"{len(json.dumps(status))} bytes of JSON")
+    check(len(timelines) == 18 and all(want <= k for k in
+                                       timelines.values()),
+          f"{tag}: a request's timeline lacks one of {sorted(want)}")
+    check(not problems and req and "llm.served" in view,
+          f"{tag}: the bundle does not check ({problems}) or no TTFT "
+          "exemplar joins back to a request")
+    fl.clear()
+    tracer.clear()
+    # (e) host ms per step through the idle engine (shutdown released
+    # the graphs: captured once more, then every pass replays them)
+    srv.engine.warmup()
+    host = []
+    for k, on in enumerate((False, True, True, False)):
+        if on:
+            tracer.enable()
+            fl.enable(out_dir=bundle_dir)
+        traffic = prompts_for(np.random.RandomState(40 + k),
+                              model.vocab_size)[0]
+        steps, wall = drive_engine(torch, srv.engine, traffic)
+        host.append((on, wall / steps * 1e3))
+        log(f"{tag}: (e) tracer and recorder {'on' if on else 'off'}: "
+            f"{steps} steps in {wall:.3f}s without the profiler: host "
+            f"{wall / steps * 1e3:.2f} ms/step")
+        tracer.disable()
+        fl.disable()
+    tracer.clear()
+    fl.clear()
+    off = [v for on, v in host if not on]
+    on_ = [v for on, v in host if on]
+    tps_off = [v for on, v in passes if not on]
+    tps_on = [v for on, v in passes if on]
+    log(f"{tag}: (e) summary: host ms/step off {off[0]:.3f}/{off[1]:.3f}, "
+        f"on {on_[0]:.3f}/{on_[1]:.3f}; tokens/s off "
+        f"{tps_off[0]:.1f}/{tps_off[1]:.1f}, on {tps_on[0]:.1f}/"
+        f"{tps_on[1]:.1f} (f32 phase: {f32['tokens_s']:.1f} tokens/s, "
+        f"host {f32['host_ms']:.2f} ms/step)")
+    tracer.enable()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps, wall = drive_engine(torch, srv.engine, prompts_for(
+            np.random.RandomState(44), model.vocab_size)[0])
+    tracer.disable()
+    tracer.clear()
+    ranges = [e for e in prof.key_averages() if e.key == "mxtpu.llm.step"]
+    log(f"{tag}: (e) profiled pass, tracer on: {steps} steps, "
+        f"mxtpu.llm.step ranges {ranges[0].count if ranges else 0}")
+    check(ranges and ranges[0].count == steps,
+          f"{tag}: the profiler's trace lacks the mxtpu.llm.step ranges")
+    srv.engine.release_graphs()
+    del srv
+    torch.cuda.empty_cache()
+    shutil.rmtree(bundle_dir)
+    # (c) worker death
+    srv = server("gpt2-chaos-death")
+    srv.warmup()
+    srv.start()
+    faults.crash_at_point("llm.worker", nth=2)
+    res, errs = outcomes(submit_together(srv, prompts))
+    faults.reset()
+    stopped = wait_stopped(srv)
+    try:
+        srv.submit(prompts[0], 1)
+        closed = False
+    except ServerClosed:
+        closed = True
+    log(f"{tag}: (c) crash at the 2nd llm.worker point: {len(res)} served,"
+        f" {len(errs)} failed {sorted({type(e).__name__ for e in errs})}; "
+        f"worker stopped {stopped}; a later submit raises ServerClosed "
+        f"{closed}")
+    check(len(res) + len(errs) == len(prompts) and stopped and closed
+          and all(isinstance(e, ServerClosed) for e in errs),
+          f"{tag}: (c) worker death left a Future or the server open")
+    check_pool_clean(f"{tag} (c)", srv.engine)
+    srv.shutdown()
+    del srv
+    # (d) preemption mid-drain under injected latency
+    srv = server("gpt2-chaos-preempt")
+    srv.warmup()
+    guard = PreemptionGuard(signals=(signal.SIGUSR1,)).install()
+    try:
+        srv.start()
+        srv.attach_preemption_guard(guard, poll_s=0.01, deadline_ms=0.0)
+        faults.delay_at("llm.decode", 0.02)
+        futs = submit_together(srv, prompts, n=200)
+        deadline = time.monotonic() + 60
+        while (srv.stats()["tokens_generated"] < 2 * len(prompts)
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        os.kill(os.getpid(), signal.SIGUSR1)
+        res, errs = outcomes(futs)
+        stopped = wait_stopped(srv)
+    finally:
+        faults.reset()
+        guard.uninstall()
+    partial = [len(e.tokens) for e in errs
+               if isinstance(e, SequenceEvictedError)]
+    log(f"{tag}: (d) SIGUSR1 with 20 ms a decode: {len(res)} served, "
+        f"{len(errs)} evicted with {partial} tokens; worker stopped "
+        f"{stopped}")
+    check(len(res) + len(errs) == len(prompts) and stopped and errs
+          and len(partial) == len(errs) and any(partial),
+          f"{tag}: (d) the preemption drain left a Future or evicted "
+          "nothing with partial tokens")
+    check_pool_clean(f"{tag} (d)", srv.engine)
+    srv.shutdown()
+    return launches
 
 
 class GraphedStep:
@@ -3535,17 +3863,18 @@ def mismatches(torch, got, want):
     return int(diff.sum()), err, int(nan.sum())
 
 
-def kernel_vs_twin(torch, name, lists, kws):
+def kernel_vs_twin(torch, name, lists, kws, table=None):
     """Op ``name``'s twin on clones of ``lists``, then one kernel launch
-    on ``lists`` in place: (mismatched elements, max abs error, NaNs)
-    over every written tensor."""
+    on ``lists`` in place (over ``table``, a cached launch table, if
+    given): (mismatched elements, max abs error, NaNs) over every written
+    tensor."""
     from mxnet_tpu_torch.ops import optimizer_ops as ops
     rule = ops.RULES[name]
     want = []
     for xs, kw in zip(lists, kws):
         out = rule.twin(*[x.clone() for x in xs], **kw)
         want.append((out,) if isinstance(out, torch.Tensor) else out)
-    ops.multi_update(name, lists, kws)
+    ops.multi_update(name, lists, kws, table=table)
     torch.cuda.synchronize()
     bad, worst, nans = 0, 0.0, 0
     for xs, outs in zip(lists, want):
@@ -3553,6 +3882,30 @@ def kernel_vs_twin(torch, name, lists, kws):
             b, e, n = mismatches(torch, xs[m], w)
             bad, worst, nans = bad + b, max(worst, e), nans + n
     return bad, worst, nans
+
+
+def adamw_rescale_check(torch, lists, seed):
+    """``_adamw_update`` with its rescale array (``rescale_grad_arr``: one
+    f32 element on the card a tensor, a new tensor each call, beside a
+    float ``rescale_grad`` it replaces) against its twin, in a fresh
+    launch table and then in two steps through one cached table: the
+    summed (mismatched elements, max abs error, NaNs) and the launches."""
+    from mxnet_tpu_torch.ops.optimizer_ops import UpdateTable
+    name = "_adamw_update"
+    dev = lists[0][0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def kws():
+        return [dict(update_kwargs(name, k), rescale_grad=64.0,
+                     rescale_grad_arr=torch.rand(1, generator=gen,
+                                                 device=dev) + 0.25)
+                for k in range(len(lists))]
+    bad, worst, nans = kernel_vs_twin(torch, name, lists, kws())
+    table = UpdateTable(name, lists)
+    for _ in range(2):
+        b, e, n = kernel_vs_twin(torch, name, lists, kws(), table=table)
+        bad, worst, nans = bad + b, max(worst, e), nans + n
+    return bad, worst, nans, 3
 
 
 def bert_base_params(torch, cfg=BERT_BASE, dropout=0.0):
@@ -3579,7 +3932,8 @@ def run_optimizer_kernel_phase(torch, timer, seed=14):
     launch over every tensor, f32; the mp rules with bf16 weights and
     gradients) against its twin on the same inputs, bit for bit, with
     the kernel's and the twin's (parameter by parameter) ms, median of
-    30 after the L2 flush, and the bound in bytes."""
+    30 after the L2 flush, and the bound in bytes; ``_adamw_update``
+    also with its rescale array (:func:`adamw_rescale_check`)."""
     from mxnet_tpu_torch.ops import optimizer_ops as ops
     net, _, params = bert_base_params(torch)
     shapes = [tuple(p.shape) for p in params]
@@ -3621,6 +3975,14 @@ def run_optimizer_kernel_phase(torch, timer, seed=14):
             f"none")
         check(bad == 0 and nans == 0, f"{name}: the kernel disagrees with "
               f"its twin at BERT-base shapes ({bad} elements, {nans} NaN)")
+        if name == "_adamw_update":
+            rb, re_, rn, _ = adamw_rescale_check(torch, lists, seed)
+            log(f"kernel {name} with rescale_grad_arr (fresh table, then "
+                f"a cached one twice, a new array each step): {rb} "
+                f"elements differ from the twin (max_abs_err={re_:.3e}, "
+                f"NaN on both {rn})")
+            check(rb == 0 and rn == 0, f"{name}: the kernel with a rescale "
+                  f"array disagrees with its twin ({rb} elements)")
         results.append(res)
         del lists, table, rows
         torch.cuda.empty_cache()
@@ -3895,6 +4257,10 @@ def main():
     # 5d. multi-LoRA (its own generator, as 5b)
     add(run_lora_phase(torch, np.random.RandomState(18), np_params, kernels,
                        f32_serving))
+    # 5e. faults, the tracer and the flight recorder on the captured step
+    # (its own generator, as 5b)
+    add(run_chaos_phase(torch, np.random.RandomState(19), np_params,
+                        kernels, f32_serving))
     del f32_serving
     # 6. paged decode through the model interface
     counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)

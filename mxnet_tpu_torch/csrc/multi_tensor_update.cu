@@ -12,7 +12,11 @@
 // place); each step uploads only the rows: per tensor its scalars (lr, wd,
 // betas, ...: lr_mult, wd_mult and each index's step count make them
 // differ) and its gradient's address (autograd hands out a new gradient
-// tensor every backward). Each CTA takes chunks of kChunk
+// tensor every backward). _adamw_update's rescale_grad_arr, a one-element
+// f32 tensor on the card, rides its row as an address too (int64 word
+// kRescaleWord; 0: the row's float rescale): the kernel reads the scale on
+// the device, so nothing syncs and a captured step reads what the tensor
+// holds when it replays. Each CTA takes chunks of kChunk
 // elements, finds its tensor by a binary search over the first chunks, and
 // streams the chunk with 16-byte loads of f32 (8-byte of 16-bit) buffers
 // where all of the tensor's pointers are so aligned, element by element
@@ -42,6 +46,9 @@ constexpr int kThreads = 256;
 constexpr long long kChunk = 32768;  // ops/optimizer_ops.py CHUNK
 constexpr int kRow = 16;             // ops/optimizer_ops.py SCALAR_ROW
 constexpr int kScalars = kRow - 2;   // then the gradient's address
+// the int64 word of a row that holds _adamw_update's rescale array's
+// address (ops/optimizer_ops.py RESCALE_WORD), past its ten scalars
+constexpr int kRescaleWord = 5;
 
 // one tensor of the launch table: eight int64 words packed by the host
 // (ops/optimizer_ops.py UpdateTable); p[1], the gradient's slot, is unused
@@ -237,6 +244,11 @@ multi_update_kernel(const Entry* __restrict__ tab, int ntensors,
     float s[kScalars];
 #pragma unroll
     for (int k = 0; k < kScalars; ++k) s[k] = row[k];
+    if constexpr (R == kAdamW) {  // the rescale array replaces s[8]
+      const float* const rs = reinterpret_cast<const float*>(
+          reinterpret_cast<const long long*>(row)[kRescaleWord]);
+      if (rs != nullptr) s[8] = *rs;
+    }
     void* const pw = e.p[0];
     const void* const pg = reinterpret_cast<const void*>(
         reinterpret_cast<const long long*>(row)[kRow / 2 - 1]);

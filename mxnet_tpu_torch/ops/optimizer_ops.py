@@ -39,12 +39,16 @@ from .. import kernels
 from .registry import _REGISTRY, Operator
 
 __all__ = ["RULES", "multi_update", "UpdateTable", "scalar_rows",
-           "SCALAR_ROW", "CHUNK", "bytes_per_element"]
+           "SCALAR_ROW", "CHUNK", "RESCALE_WORD", "bytes_per_element"]
 
 # floats per row of the scalar table, and elements a CTA takes at a time
 # (both as in csrc/multi_tensor_update.cu)
 SCALAR_ROW = 16
 CHUNK = 32768
+# the int64 word of a row (floats 10-11, past _adamw_update's ten
+# scalars) that holds the device address of _adamw_update's rescale
+# array; 0: the row's float rescale_grad
+RESCALE_WORD = 5
 _LOW = (torch.bfloat16, torch.float16)
 _WDTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -296,15 +300,23 @@ def scalar_rows(name, kwargs_list, grads):
     per call, ``SCALAR_ROW - 2`` float32 scalars (each computed in
     float64, rounded once) and, in the last eight bytes, the address of
     the call's gradient (``grads``), which moves from step to step as
-    autograd hands out a new gradient tensor."""
+    autograd hands out a new gradient tensor. A ``_adamw_update`` call
+    given ``rescale_grad_arr`` (a one-element f32 tensor on the card)
+    has its address in int64 word :data:`RESCALE_WORD`: the kernel reads
+    the scale from it on the device, in place of ``rescale_grad``, so no
+    host sync reads it and a captured step takes whatever it holds."""
     rule = RULES[name]
     rows = np.zeros((len(kwargs_list), SCALAR_ROW), np.float64)
     for k, kw in enumerate(kwargs_list):
         vals = rule.scalars(kw)
         rows[k, :len(vals)] = vals
     rows = rows.astype(np.float32)
-    rows.view(np.int64)[:, SCALAR_ROW // 2 - 1] = [g.data_ptr()
-                                                   for g in grads]
+    words = rows.view(np.int64)
+    words[:, SCALAR_ROW // 2 - 1] = [g.data_ptr() for g in grads]
+    for k, kw in enumerate(kwargs_list):
+        arr = kw.get("rescale_grad_arr")
+        if arr is not None:
+            words[k, RESCALE_WORD] = arr.data_ptr()
     return rows
 
 
@@ -383,7 +395,9 @@ class UpdateTable:
 
     def rows(self, kwargs_list, grads):
         """This step's rows (:func:`scalar_rows`), after checking that
-        each gradient is what the kernel takes."""
+        each gradient is what the kernel takes, and each rescale array
+        (``_adamw_update``'s ``rescale_grad_arr``) one f32 element on the
+        table's device."""
         for g, (n, dtype) in zip(grads, self.grad_meta, strict=True):
             if g.device != self.device or g.dtype != dtype or \
                     g.numel() != n or not g.is_contiguous():
@@ -391,6 +405,19 @@ class UpdateTable:
                     f"{self.name}: a gradient ({g.dtype}, {g.numel()} "
                     f"elements on {g.device}) is not the contiguous "
                     f"{dtype} of {n} elements on {self.device} the kernel "
+                    "takes")
+        for kw in kwargs_list:
+            arr = kw.get("rescale_grad_arr")
+            if arr is None:
+                continue
+            if self.name != "_adamw_update":
+                raise TypeError(f"{self.name} takes no rescale_grad_arr")
+            if arr.device != self.device or arr.dtype != torch.float32 \
+                    or arr.numel() != 1:
+                raise ValueError(
+                    f"_adamw_update: rescale_grad_arr ({arr.dtype}, "
+                    f"{arr.numel()} elements on {arr.device}) is not the "
+                    f"one float32 element on {self.device} the kernel "
                     "takes")
         return scalar_rows(self.name, kwargs_list, grads)
 
@@ -442,11 +469,10 @@ def _op(rule):
     def impl(*xs, **kw):
         if xs[0].device.type == "cpu":
             return rule.twin(*xs, **kw)
-        if rule.name == "_adamw_update" and len(xs) > rule.n_in:
-            if xs[rule.n_in] is not None:
-                raise NotImplementedError(
-                    "_adamw_update with a rescale_grad array takes the "
-                    "kernel only with a float rescale_grad")
+        if len(xs) > rule.n_in:
+            # _adamw_update's fifth input, rescale_grad_arr, rides the
+            # row (scalar_rows) as the address the kernel reads it from
+            kw = dict(kw, rescale_grad_arr=xs[rule.n_in])
             xs = xs[:rule.n_in]
         multi_update(rule.name, [xs], [kw])
         out = tuple(xs[m] for m in rule.mutates)

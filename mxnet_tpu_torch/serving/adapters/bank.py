@@ -50,11 +50,13 @@ stream after an admission reads the installed factors; pages that
 in-flight requests use are never rewritten, so a step racing a publish
 reads valid factors for every row of its batch.
 
+Every retirement drops an ``adapter.evict`` event into the flight
+recorder (reason, version, users left).
+
 Not ported yet (ROADMAP.md, section 1 item 6b): the on-disk
-``AdapterRegistry`` (``registry=`` raises ``NotImplementedError``), the
-fine-tune-and-publish loop, and the flight recorder's ``adapter.evict``
-/ ``adapter.fault_in`` events, which wait with the port's flight
-recorder (item 7).
+``AdapterRegistry`` (``registry=`` raises ``NotImplementedError``), with
+the fault-in path whose ``adapter.fault_in`` event it carries, and the
+fine-tune-and-publish loop.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ import numpy as np
 import torch
 
 from ..._device import resolve_device
+from ...observability.flightrecorder import get_flightrecorder
 from ...ops.lora import NUM_PROJ
 from ..envutil import env_int
 from ..llm.kv_cache import BlockAllocator, NoFreeBlocksError
@@ -209,6 +212,7 @@ class AdapterBank:
         self._evictions = {"capacity": 0, "explicit": 0,
                            "republish": 0}             # guarded-by: _lock
         self._stats = stats                            # guarded-by: _lock
+        self._flight = get_flightrecorder()
         self._warmed = False                           # guarded-by: _lock
 
     # -------------------------------------------------------- metrics --
@@ -383,6 +387,11 @@ class AdapterBank:
         self._evictions[reason] += 1
         if self._stats is not None:
             self._stats.record_adapter_evicted(reason)
+        if self._flight.enabled:
+            self._flight.event(
+                "adapter.evict",
+                attrs={"adapter": rec.name, "version": rec.version,
+                       "reason": reason, "users": rec.users})
         self._gauge_locked()
 
     def evict(self, name, reason="explicit"):

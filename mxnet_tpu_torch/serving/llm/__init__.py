@@ -14,8 +14,9 @@ on PyTorch and CUDA (the port of ``mxnet_tpu.serving.llm``).
   counter-based Philox noise keyed by (seed, position);
 - :mod:`.quant` — per-output-channel int8/fp8 weight quantization;
 - :mod:`.server` — :class:`~.server.LLMServer`: Futures in, generations
-  out, typed drain/overload/deadline outcomes; :mod:`.metrics` keeps
-  the counters ``stats()`` reports.
+  out, typed drain/overload/deadline outcomes, quiesce/resume, the
+  preemption drain and the statusz surface; :mod:`.metrics` keeps the
+  ``mxtpu_llm_*`` registry series ``stats()`` reports.
 """
 from ..errors import (DeadlineExceededError, Overloaded,
                       SequenceEvictedError)

@@ -89,6 +89,20 @@ count and the plan chosen for the pack (``dense_rows=None``): their
 writes into shared blocks are copied on write first, and the fixed
 route would cost a plain step time (PERF.md §6).
 
+Observability and chaos: the engine's fault sites (``llm.prefill`` once
+per admission, ``llm.draft`` before each draft round's replay,
+``llm.decode`` before each step's replay while a decode row is in the
+pack; :mod:`mxnet_tpu_torch.resilience.faults`) sit on the host before
+``_StepProgram.run``, never in a captured body, so a scripted raise
+fires on every dispatch it is armed for and leaves the step buffers as
+``_build_batch`` wrote them; the bisect's re-dispatch rebuilds them for
+each half. The step runs under ``mxtpu.llm.step`` (and a failing one's
+isolation under ``mxtpu.llm.isolate``) tracer spans, and the engine
+drops ``llm.admit`` / ``llm.prefill`` / ``llm.preempt`` / ``llm.step`` /
+``kv.cow`` / ``kv.reclaim`` events into the flight recorder. Their
+attributes are host-side plan values: nothing reads the device.
+:meth:`LLMEngine.debug_status` is the statusz surface.
+
 Single-threaded by design: :class:`~.server.LLMServer` owns the thread,
 the queue and the futures; the engine owns device state and
 determinism. Tensor-parallel meshes are not ported yet (ROADMAP.md
@@ -106,6 +120,9 @@ import torch
 from ... import kernels
 from ..._device import resolve_device
 from ...convert import params_from_numpy
+from ...observability.flightrecorder import get_flightrecorder
+from ...observability.tracing import get_tracer
+from ...resilience import faults
 from ..envutil import env_int as _env_int, env_str as _env_str
 from ..adapters.bank import AdapterError, NULL_ADAPTER_PAGE
 from .kv_cache import (PagedKVCache, KVCacheError, NULL_BLOCK,
@@ -539,6 +556,7 @@ class LLMEngine:
         self.quantized = self.cache.quantized
         self.scheduler = Scheduler(self.max_seqs)
         self._stats = stats
+        self._flight = get_flightrecorder()
         if adapter_bank is not None and stats is not None:
             adapter_bank.attach_stats(stats)
         if self.prefix_enabled:
@@ -549,6 +567,7 @@ class LLMEngine:
         qw = self._resolve_weight_input(params, weight_dtype,
                                         weight_calib,
                                         "MXNET_TPU_LLM_WEIGHT_DTYPE")
+        self.weight_calib = None if qw is None else qw.method
         self.params, self.w_scales, qw = self._place_weights(params, qw)
         if qw is None:
             leaves = list(flatten_params(self.params).values())
@@ -593,6 +612,7 @@ class LLMEngine:
         # capture
         self._graph_pool = self._capture_stream = None
         self.capture_seconds = 0.0
+        self._warmed = False
         self._arange = np.arange(self.q_tokens, dtype=np.int32)
         self._breaker = breaker
         # sequences finished but not yet handed to the caller — kept
@@ -849,6 +869,10 @@ class LLMEngine:
         seq.block_ids[bi] = new
         self.cache.allocator.free([old])
         self.cache.cow_count += 1
+        fl = self._flight
+        if fl.enabled:
+            fl.event("kv.cow", req=f"llm:{seq.seq_id}", tenant=seq.tenant,
+                     attrs={"old": old, "new": new})
 
     # ------------------------------------------------------- warmup --
     def warmup(self):
@@ -889,6 +913,7 @@ class LLMEngine:
             for cache in self._caches():
                 cache.copy_block(NULL_BLOCK, NULL_BLOCK)
             timings["cow_copy"] = time.monotonic() - t0
+        self._warmed = True
         return timings
 
     # ---------------------------------------------------- admission --
@@ -926,8 +951,13 @@ class LLMEngine:
                 self.scheduler.num_waiting, self.scheduler.num_running)
 
     def _on_prefix_evict(self, n=1):
+        """Prefix-cache LRU reclaim: the counter, and a ``kv.reclaim``
+        decision in the flight ring."""
         if self._stats:
             self._stats.record_prefix_evict(n)
+        fl = self._flight
+        if fl.enabled:
+            fl.event("kv.reclaim", attrs={"blocks": n})
 
     def _admit(self, events):
         """Place waiting sequences into free slots. The KV gate (the
@@ -980,6 +1010,7 @@ class LLMEngine:
             seq.block_ids = list(hit)
             seq.seq_len = hit_tokens
             seq.draft_len = 0
+            seq.prefill_started = False
             seq.cache_hit_tokens = hit_tokens
             if self.prefix_enabled:
                 self.prefix_lookups += 1
@@ -987,8 +1018,16 @@ class LLMEngine:
                     self.prefix_hits += 1
                     self.prefill_tokens_saved += hit_tokens
                 if self._stats:
-                    self._stats.record_prefix_lookup(hit_tokens)
+                    self._stats.record_prefix_lookup(hit_tokens,
+                                                     tenant=seq.tenant)
             events.append(("admitted", seq))
+            fl = self._flight
+            if fl.enabled:
+                fl.event("llm.admit", req=f"llm:{seq.seq_id}",
+                         tenant=seq.tenant,
+                         attrs={"slot": slot, "prompt": T,
+                                "cache_hit": hit_tokens,
+                                "adapter": seq.adapter})
 
     def _release_adapter(self, seq):
         """Drop the sequence's adapter pin on a terminal release.
@@ -1020,6 +1059,12 @@ class LLMEngine:
         self.scheduler.preempt(seq)
         if self._stats:
             self._stats.record_preemption()
+        fl = self._flight
+        if fl.enabled:
+            fl.event("llm.preempt", req=f"llm:{seq.seq_id}",
+                     tenant=seq.tenant,
+                     attrs={"preemptions": seq.preemptions,
+                            "seq_len": seq.seq_len})
 
     def _poison(self, seq, exc, events):
         """Release ``seq`` as poison-isolated: blocks freed, slot freed,
@@ -1066,7 +1111,7 @@ class LLMEngine:
             events.append(("expired", seq))
 
     # ----------------------------------------------------- planning --
-    def _plan(self, seq):
+    def _plan(self, seq, events):
         """This step's work for one running sequence: its next prompt
         chunk while the prompt is being written (preemption folds the
         generation into the prompt, so an empty generation list means
@@ -1074,10 +1119,23 @@ class LLMEngine:
         how many proposals it may verify (``k``): a row speculates when
         the draft's committed prefix can catch up within ONE feed
         (steady state: 1-2 tokens behind; a degraded draft recovers over
-        catch-up-only feeds first)."""
+        catch-up-only feeds first). Returns None when the sequence was
+        poison-isolated at the start of its prefill."""
         if not seq.generated:
             committed = seq.prompt
             cl = len(committed)
+            if not seq.prefill_started:
+                seq.prefill_started = True
+                try:
+                    # chaos site, once per admission (a prefix-cache hit
+                    # starts mid-prompt, so the flag marks the start):
+                    # a scripted raise isolates exactly this sequence
+                    faults.check("llm.prefill")
+                except Exception as exc:
+                    self._poison(seq, exc, events)
+                    if self._breaker is not None:
+                        self._breaker.record_failure(site="prefill")
+                    return None
             ntok = min(self.prefill_chunk, cl - seq.seq_len)
             return {"kind": "prefill",
                     "tokens": committed[seq.seq_len:seq.seq_len + ntok],
@@ -1168,6 +1226,9 @@ class LLMEngine:
             b.counters[i] = counters_v.get(seq, 0)
             off += n
         sampled = any(s.sampling.temperature > 0 for s in feeds)
+        # chaos site: scripted raises / injected latency / worker death
+        # mid-verify, on the host before the round's replay
+        faults.check("llm.draft")
         tok = self._draft_program(t, mb, sampled).run()
         if sampled:
             self._draft_probs[:, r].copy_(self._draft_round_probs)
@@ -1323,6 +1384,10 @@ class LLMEngine:
         K+1], n_accepted [S]); row i commits ``tokens[i, :n_accepted[i]
         + 1]``. Failures propagate to the isolation logic in
         :meth:`step`."""
+        if any(plans[s]["kind"] == "decode" for s in rows):
+            # chaos site: scripted raises / injected latency, on the
+            # host before the build and the replay
+            faults.check("llm.decode")
         t_need = sum(len(plans[s]["tokens"]) for s in rows)
         t = next(w for w in self._t_buckets if w >= t_need)
         mb_need = max(self.cache.blocks_for(
@@ -1360,6 +1425,13 @@ class LLMEngine:
                     seq.draft_len += plan["draft_fed"]
                 if self._stats:
                     self._stats.record_prefill_chunk(plan["ntok"])
+                fl = self._flight
+                if fl.enabled:
+                    fl.event("llm.prefill", req=f"llm:{seq.seq_id}",
+                             tenant=seq.tenant,
+                             attrs={"ntok": plan["ntok"],
+                                    "seq_len": seq.seq_len,
+                                    "emit": plan["emit"]})
                 if not plan["emit"]:
                     continue
                 # the prompt completed: register its full immutable
@@ -1376,8 +1448,16 @@ class LLMEngine:
                 if seq.t_first_token is None:
                     seq.t_first_token = time.monotonic()
                     if self._stats:
+                        # the exemplar joins this TTFT observation back
+                        # to the request's flight timeline / trace span
+                        ex = None
+                        if fl.enabled:
+                            ex = (f"llm:{seq.seq_id}",
+                                  seq.span.span_id
+                                  if seq.span is not None else None)
                         self._stats.record_first_token(
-                            seq.t_first_token - seq.t_submit)
+                            seq.t_first_token - seq.t_submit,
+                            exemplar=ex)
                 if seq.done or seq.seq_len + 1 >= self.max_context:
                     self._finish(seq, events)
                 continue
@@ -1446,6 +1526,7 @@ class LLMEngine:
         """One engine iteration. Returns events:
         ``[("admitted"|"token"|"finished"|"preempted"|"expired"|
         "poisoned", Sequence)]``."""
+        tracer = get_tracer()
         events = []
         self._expire(events)
         self._admit(events)
@@ -1455,7 +1536,9 @@ class LLMEngine:
         for seq in running:
             if seq.state != RUNNING:
                 continue            # preempted by an earlier victim
-            plan = self._plan(seq)
+            plan = self._plan(seq, events)
+            if plan is None:
+                continue            # poison-isolated at prefill start
             self._allocate(seq, plan, events)
             plans[seq] = plan
         rows = [s for s in running if s.state == RUNNING and s in plans]
@@ -1463,19 +1546,31 @@ class LLMEngine:
             self._record_block_gauges()
             return events
         self._draft_propose(rows, plans)
+        prefilling = sum(1 for s in rows if plans[s]["kind"] == "prefill")
         t0 = time.monotonic()
-        try:
-            toks, n_acc = self._dispatch(rows, plans)
-        except Exception:
-            self._record_breaker(rows, plans, False)
-            decoded = self._isolate(rows, plans, events)
-        else:
-            self._record_breaker(rows, plans, True)
-            decoded = self._commit(rows, plans, toks, n_acc, events)
+        with tracer.span("mxtpu.llm.step", "llm") as sp:
+            sp.set("running", len(rows))
+            sp.set("prefilling", prefilling)
+            try:
+                toks, n_acc = self._dispatch(rows, plans)
+            except Exception as exc:
+                sp.set("error", repr(exc))
+                self._record_breaker(rows, plans, False)
+                with tracer.span("mxtpu.llm.isolate", "llm") as isp:
+                    isp.set("n", len(rows))
+                    decoded = self._isolate(rows, plans, events)
+            else:
+                self._record_breaker(rows, plans, True)
+                decoded = self._commit(rows, plans, toks, n_acc, events)
         step_s = time.monotonic() - t0
-        if self._stats and any(plans[s]["kind"] == "decode"
-                               for s in rows):
+        if self._stats and prefilling < len(rows):
             self._stats.record_decode_step(decoded, step_s)
+        fl = self._flight
+        if fl.enabled:
+            fl.event("llm.step",
+                     attrs={"running": len(rows), "prefilling": prefilling,
+                            "decoded": decoded,
+                            "step_ms": round(step_s * 1e3, 3)})
         self._record_block_gauges()
         return events
 
@@ -1515,3 +1610,58 @@ class LLMEngine:
             out.append(seq)
         self._record_block_gauges()
         return out
+
+    # ------------------------------------------------------ statusz --
+    def debug_status(self):
+        """Point-in-time engine state for the flight recorder's statusz
+        surface (the reference's keys): queue depths, the KV partition,
+        the programs (``step_variants``: the step's programs built, each
+        a captured graph on CUDA), prefix-cache counters, weights and KV
+        dtypes, the adapter bank and the live sequences. Plain host
+        state, JSON-ready; an advisory read from a dump path may see a
+        torn count but never touches the device. ``mesh`` is None until
+        tensor parallelism is ported."""
+        a = self.cache.allocator
+        now = time.monotonic()
+        seqs = []
+        for seq in list(self.scheduler.running()) + \
+                list(self.scheduler.waiting):
+            seqs.append({
+                "seq_id": seq.seq_id, "state": seq.state,
+                "tenant": seq.tenant, "adapter": seq.adapter,
+                "slot": seq.slot, "seq_len": seq.seq_len,
+                "generated": len(seq.generated),
+                "preemptions": seq.preemptions,
+                "cache_hit_tokens": seq.cache_hit_tokens,
+                "age_s": round(now - seq.t_submit, 3)})
+        return {
+            "waiting": self.scheduler.num_waiting,
+            "running": self.scheduler.num_running,
+            "kv_blocks": {"used": a.num_used, "usable": a.num_usable,
+                          "cached": a.num_cached,
+                          "shared": a.num_shared,
+                          "free": a.num_free - a.num_cached,
+                          "cow_count": self.cache.cow_count},
+            "programs": {"t_buckets": list(self._t_buckets),
+                         "mb_widths": list(self._mb_widths),
+                         "warmed": self._warmed,
+                         "step_variants": len(self._programs),
+                         "spec_k": self.spec_k,
+                         "prefill_chunk": self.prefill_chunk},
+            "prefix_cache": {"enabled": self.prefix_enabled,
+                             "lookups": self.prefix_lookups,
+                             "hits": self.prefix_hits,
+                             "tokens_saved": self.prefill_tokens_saved},
+            "weights": {"dtype": self.weight_dtype,
+                        "calib": self.weight_calib,
+                        "bytes": self.weight_bytes,
+                        "params": self.weight_params,
+                        "params_per_chip": self.weight_params,
+                        "draft_dtype": self.draft_weight_dtype,
+                        "kv_dtype": self.cache.dtype_name,
+                        "kv_dtype_fallbacks": self.kv_dtype_fallbacks},
+            "adapters": self.bank.stats() if self.bank is not None
+            else None,
+            "mesh": None,
+            "sequences": seqs,
+        }

@@ -242,8 +242,8 @@ class TinyDecoder:
     # ------------------------------------------------------- decode --
     def decode_flat(self, params, tokens, positions, seq_ids, valid,
                     k_pages, v_pages, block_tables, k_scales=None,
-                    v_scales=None, w_scales=None, adapter=None,
-                    dense_rows=None, out_rows=None):
+                    v_scales=None, adapter=None, axis_name=None,
+                    w_scales=None, *, dense_rows=None, out_rows=None):
         """The FLAT ragged step over a packed ``[T]`` batch of query
         tokens from many sequences.
 
@@ -280,16 +280,29 @@ class TinyDecoder:
         dequantize after the lookup. LoRA deltas stay f32, added after
         the base product.
 
-        Multi-LoRA: ``adapter = (bank, a_tables, a_scales)``, the
+        Multi-LoRA: ``adapter = (a_pages, b_pages, a_tables, a_scales)``,
+        the reference's form: the factor pools ``a_pages [P, L, 4, d, r]``
+        and ``b_pages [P, L, 4, r, d]``, each row's page table ``a_tables
+        [S, P]`` int32 and scale ``a_scales [S]`` f32; or ``(bank,
+        a_tables, a_scales)``, an
         :class:`~mxnet_tpu_torch.serving.adapters.AdapterBank` whose
-        pools the deltas read, each row's page table ``a_tables [S, P]``
-        int32 and scale ``a_scales [S]`` f32. Each token takes its row's
-        pages and adds the low-rank delta to the four attention
-        projections (:func:`~mxnet_tpu_torch.ops.lora.pool_lora_delta`:
-        one product with the whole pool, a page mask, the second
-        product, the scale); a row whose table holds only the null page
-        (scale 0) gets an exactly-zero delta, so one graph serves any
-        adapter mix."""
+        pools (:attr:`~.AdapterBank.a_pages` / ``b_pages``, views of its
+        storage) the deltas read. Each token takes its row's pages and
+        adds the low-rank delta to the four attention projections
+        (:func:`~mxnet_tpu_torch.ops.lora.pool_lora_delta`: one product
+        with the whole pool of a (layer, projection), a page mask, the
+        second product, the scale); over the bank's views the pool of a
+        (layer, projection) is a view of its storage, copied nowhere. A
+        row whose table holds only the null page (scale 0) gets an
+        exactly-zero delta, so one graph serves any adapter mix.
+
+        ``axis_name`` (the reference's tensor-parallel shard body) must
+        be None: the port has no tensor-parallel step yet (ROADMAP.md
+        §1 item 9)."""
+        if axis_name is not None:
+            raise NotImplementedError(
+                f"axis_name={axis_name!r}: the tensor-parallel step is "
+                "not ported yet (ROADMAP.md, section 1 item 9)")
         c = self.config
         T = tokens.shape[0]
         bs = k_pages.shape[2]
@@ -321,13 +334,20 @@ class TinyDecoder:
             return _by_rows(fn, dense_rows, *xs)
 
         if adapter is not None:
-            bank, a_tables, a_scales = adapter
+            if len(adapter) == 3:               # (bank, tables, scales)
+                bank, a_tables, a_scales = adapter
+                a_pages, b_pages = bank.a_pages, bank.b_pages
+            else:
+                a_pages, b_pages, a_tables, a_scales = adapter
             sid = seq_ids.long()
-            mask = page_mask(a_tables[sid], bank.num_pages)     # [R, P]
+            mask = page_mask(a_tables[sid], a_pages.shape[0])   # [R, P]
             scale_tok = a_scales[sid]                           # [R]
 
             def delta(x2d, li, proj):
-                a_pool, b_pool = bank.step_pools(li, proj)
+                # [d, P, r] and [P, r, d]: over the bank's views, its
+                # storage of this (layer, projection) as it lies
+                a_pool = a_pages[:, li, proj].permute(1, 0, 2)
+                b_pool = b_pages[:, li, proj]
                 return rows(lambda z, m, sc: pool_lora_delta(
                     z, a_pool, b_pool, m, sc), x2d, mask, scale_tok)
 

@@ -33,8 +33,25 @@ Overload & failure semantics:
   trip the :class:`~..overload.CircuitBreaker` and submits fail fast
   with :class:`~..errors.CircuitOpenError` until a half-open probe
   heals;
-- a dying worker resolves every live Future and frees every KV block
-  before the thread exits.
+- a dying worker writes a flight bundle (``crash_dump``, while the
+  dying state is visible), then resolves every live Future and frees
+  every KV block before the thread exits.
+
+Lifecycle: :meth:`LLMServer.quiesce` stops admission and waits for every
+admitted Future while the worker, the pools and the captured graphs stay
+warm; :meth:`LLMServer.resume` re-opens admission;
+:meth:`LLMServer.attach_preemption_guard` drains on a
+:class:`~mxnet_tpu_torch.resilience.PreemptionGuard`'s signal.
+
+Observability: a per-request hand-off span (``mxtpu.llm.request``) opened
+at submit under the caller's context and finished at resolution, the
+engine's step spans, the flight recorder's request events
+(``llm.submit`` / ``llm.shed`` / ``llm.served`` / ``llm.evicted`` /
+``llm.expired`` / ``llm.poisoned``, and ``breaker`` transitions), the
+statusz surface (:meth:`LLMServer.debug_status`, registered with the
+recorder as ``llm:<name>``) and the ``mxtpu_llm_*`` /
+``mxtpu_serving_*`` registry series. The worker loop carries the
+``llm.worker`` fault site.
 """
 from __future__ import annotations
 
@@ -51,6 +68,9 @@ from ..adapters.bank import UnknownAdapterError
 from ..overload import (CircuitBreaker, resolve_deadline,
                         resolve_overload_knobs, shed_if_breaker_open)
 from ..telemetry import compile_count
+from ...observability.flightrecorder import get_flightrecorder
+from ...observability.tracing import get_tracer
+from ...resilience import faults
 from .engine import LLMEngine
 from .metrics import LLMStats
 from .sampling import SamplingParams
@@ -99,12 +119,16 @@ class LLMServer:
                  breaker_cooldown_ms=None, **engine_kw):
         self.name = name
         self._stats = LLMStats(server=name)
+        self._flight = get_flightrecorder()
         self._breaker = CircuitBreaker(
             threshold=breaker_threshold,
             cooldown_ms=breaker_cooldown_ms,
-            on_state=self._stats.record_breaker_state)
+            on_state=self._on_breaker_state)
         self._engine = LLMEngine(model, params, stats=self._stats,
                                  breaker=self._breaker, **engine_kw)
+        # one engine: the reference's dp replica groups arrive with the
+        # tensor-parallel step (ROADMAP.md §1 item 9)
+        self.dp = 1
         self.max_queue, self.default_deadline_ms = \
             resolve_overload_knobs(max_queue, deadline_ms)
         self._cv = threading.Condition()
@@ -112,12 +136,33 @@ class LLMServer:
         self._closed = False          # guarded-by: _cv
         self._drain = True            # guarded-by: _cv
         self._deadline = None         # guarded-by: _cv
+        # quiesce/resume: an admission gate and the exact count of live
+        # Futures (done-callbacks), so the gap between popping _pending
+        # and engine.add() can never look drained
+        self._quiesced = False        # guarded-by: _cv
+        self._live = 0                # guarded-by: _cv
         self._worker = None
         self._started = False
+        self._guard_watcher = None
+        self._guard_stop = threading.Event()
+        self._flight.register(f"llm:{name}", self)
+
+    def _on_breaker_state(self, state):
+        """Breaker transition: the gauge and one flight control-plane
+        event."""
+        self._stats.record_breaker_state(state)
+        fl = self._flight
+        if fl.enabled:
+            fl.event("breaker", attrs={"server": self.name,
+                                       "state": state})
 
     @property
     def engine(self):
         return self._engine
+
+    @property
+    def max_context(self):
+        return self._engine.max_context
 
     # ----------------------------------------------------- lifecycle --
     def start(self):
@@ -129,6 +174,18 @@ class LLMServer:
             daemon=True)
         self._worker.start()
         return self
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.shutdown()
+        return False
+
+    @property
+    def running(self):
+        with self._cv:
+            return self._started and not self._closed
 
     def warmup(self):
         """Build (on CUDA: capture) and run every step rung once, so no
@@ -185,9 +242,11 @@ class LLMServer:
                                         self._stats)
         except Overloaded:              # breaker_open shed
             self._stats.record_tenant(tenant, "shed")
+            self._shed_event(tenant, "breaker_open")
             raise
         except DeadlineExceededError:   # budget spent at submit
             self._stats.record_tenant(tenant, "expired")
+            self._shed_event(tenant, "deadline_at_submit")
             raise
         prompt = [int(t) for t in np.asarray(prompt_tokens).ravel()]
         seq = Sequence(prompt, max_new_tokens, stop_token=stop_token,
@@ -197,24 +256,57 @@ class LLMServer:
         self._engine.add_validate(seq)
         seq.future = Future()
         seq.future._mxt_seq = seq          # generate-timeout cancel hook
+        tracer = get_tracer()
+        if tracer.enabled:
+            seq.span = tracer.begin("mxtpu.llm.request", "llm",
+                                    tracer.current())
+            seq.span.set("seq_id", seq.seq_id)
+            seq.span.set("prompt", len(prompt))
         with self._cv:
             if self._closed:
+                self._close_span(seq, error="ServerClosed")
+                self._shed_event(tenant, "closed")
                 raise ServerClosed(
                     "server is draining; no new sequences admitted")
+            if self._quiesced:
+                self._close_span(seq, error="ServerClosed")
+                self._shed_event(tenant, "quiesced")
+                raise ServerClosed(
+                    "server is quiesced; admission paused "
+                    "(resume() re-opens)")
             if (self.max_queue is not None
                     and self._queue_depth() >= self.max_queue):
                 depth = self._queue_depth()
                 self._stats.record_shed("queue_full")
                 self._stats.record_tenant(tenant, "shed")
+                self._close_span(seq, error="Overloaded")
+                self._shed_event(tenant, "queue_full", depth=depth)
                 raise Overloaded(
                     f"admission queue full ({depth} >= max_queue "
                     f"{self.max_queue}); request shed",
                     reason="queue_full", depth=depth)
             self._pending.append(seq)
+            self._live += 1
             self._cv.notify_all()
+        seq.future.add_done_callback(self._live_dec)
         self._stats.record_submit()
         self._stats.record_tenant(tenant, "submitted")
+        fl = self._flight
+        if fl.enabled:
+            fl.event("llm.submit", req=f"llm:{seq.seq_id}",
+                     tenant=tenant,
+                     attrs={"server": self.name, "prompt": len(prompt),
+                            "adapter": adapter,
+                            "span_id": seq.span.span_id
+                            if seq.span is not None else None})
         return seq.future
+
+    def _shed_event(self, tenant, reason, **attrs):
+        fl = self._flight
+        if fl.enabled:
+            fl.event("llm.shed", tenant=tenant,
+                     attrs={"server": self.name, "reason": reason,
+                            **attrs})
 
     def cancel(self, future):
         """Cancel the sequence behind a Future from :meth:`submit`: the
@@ -279,6 +371,32 @@ class LLMServer:
             snap["adapters"] = eng.bank.stats()
         return snap
 
+    def debug_status(self):
+        """Live state for the flight recorder's statusz surface:
+        admission and lifecycle flags read under the server lock, and
+        the engine's :meth:`~.engine.LLMEngine.debug_status`. JSON-ready
+        and free of side effects, so a dump may call it while the
+        worker is dying."""
+        with self._cv:
+            pending = len(self._pending)
+            closed, quiesced = self._closed, self._quiesced
+            live = self._live
+        return {
+            "kind": "llm",
+            "server": self.name,
+            "started": self._started,
+            "closed": closed,
+            "quiesced": quiesced,
+            "live_futures": live,
+            "pending": pending,
+            "queue_depth": pending + self._engine.scheduler.num_waiting,
+            "max_queue": self.max_queue,
+            "breaker_state": self._breaker.state,
+            "dp": self.dp,
+            "mesh": None,
+            "engine": self._engine.debug_status(),
+        }
+
     # --------------------------------------------------------- drain --
     def shutdown(self, drain=True, deadline_ms=None):
         """Stop admitting. With ``drain``, run every live sequence to
@@ -307,24 +425,123 @@ class LLMServer:
             self._cv.notify_all()
         if self._worker is not None:
             self._worker.join()
+        self._guard_stop.set()
         self._engine.release_graphs()
 
+    close = shutdown
+
+    # ------------------------------------------------------- quiesce --
+    def _live_dec(self, _fut=None):
+        """Done-callback: one admitted generation's Future resolved."""
+        with self._cv:
+            self._live -= 1
+            self._cv.notify_all()
+
+    def quiesce(self, timeout=None):
+        """Stop admitting NEW sequences and wait until every admitted
+        Future has resolved (any typed outcome). Unlike :meth:`shutdown`
+        the worker, the KV pools and the captured graphs stay warm:
+        :meth:`resume` re-opens admission without building or capturing
+        anything. While quiesced, ``submit`` raises
+        :class:`ServerClosed`.
+
+        Returns True once drained; False if ``timeout`` (seconds)
+        expired with sequences still live. The server stays quiesced
+        either way; the caller picks :meth:`resume` or :meth:`shutdown`
+        (whose drain evicts stragglers typed, with partial tokens)."""
+        deadline = (time.monotonic() + timeout
+                    if timeout is not None else None)
+        with self._cv:
+            self._quiesced = True
+            while self._live > 0:
+                rem = (None if deadline is None
+                       else deadline - time.monotonic())
+                if rem is not None and rem <= 0:
+                    return False
+                self._cv.wait(rem if rem is not None else 0.5)
+            return True
+
+    def resume(self):
+        """Re-open admission after :meth:`quiesce`. Idempotent."""
+        with self._cv:
+            self._quiesced = False
+
+    @property
+    def admitting(self):
+        with self._cv:
+            return not self._quiesced and not self._closed
+
+    def attach_preemption_guard(self, guard, poll_s=0.05,
+                                deadline_ms=None):
+        """Drain on preemption: once ``guard`` (a
+        :class:`~mxnet_tpu_torch.resilience.PreemptionGuard`) trips, a
+        watcher thread stops admission and drains under
+        ``deadline_ms``; sequences that cannot finish in time are
+        evicted WITH their partial tokens. Returns the server."""
+        if self._guard_watcher is not None:
+            return self
+
+        def _watch():
+            while not self._guard_stop.is_set():
+                if guard.wait(poll_s):
+                    self.shutdown(drain=True, deadline_ms=deadline_ms)
+                    return
+
+        self._guard_watcher = threading.Thread(
+            target=_watch, name=f"mxt-{self.name}-preempt-watch",
+            daemon=True)
+        self._guard_watcher.start()
+        return self
+
     # --------------------------------------------------- worker loop --
+    def _close_span(self, seq, **attrs):
+        if seq.span is not None:
+            for k, v in attrs.items():
+                seq.span.set(k, v)
+            seq.span.finish()
+            seq.span = None
+
     def _resolve_finished(self, seq):
         ttft = (seq.t_first_token - seq.t_submit
                 if seq.t_first_token else None)
         res = GenerationResult(seq.output_tokens(), seq.seq_id, ttft,
                                seq.finish_reason)
-        self._stats.record_completed(time.monotonic() - seq.t_submit)
+        latency = time.monotonic() - seq.t_submit
+        ex = None
+        fl = self._flight
+        if fl.enabled:
+            key = f"llm:{seq.seq_id}"
+            ex = (key, seq.span.span_id if seq.span is not None else None)
+            fl.event("llm.served", req=key, tenant=seq.tenant,
+                     attrs={"server": self.name,
+                            "tokens": len(res.tokens),
+                            "finish": seq.finish_reason,
+                            "latency_ms": round(latency * 1e3, 3),
+                            "ttft_ms": round(ttft * 1e3, 3)
+                            if ttft is not None else None})
+        self._stats.record_completed(latency, exemplar=ex)
         self._stats.record_tenant(seq.tenant, "served")
         self._stats.record_tenant_tokens(seq.tenant, len(res.tokens))
+        span_attrs = {"tokens": len(res.tokens)}
+        if ttft is not None:
+            span_attrs["ttft_ms"] = round(ttft * 1e3, 3)
+        self._close_span(seq, finish=seq.finish_reason, **span_attrs)
         seq.future.set_result(res)
+
+    def _lifecycle_event(self, kind, seq, **attrs):
+        fl = self._flight
+        if fl.enabled:
+            fl.event(kind, req=f"llm:{seq.seq_id}", tenant=seq.tenant,
+                     attrs={"server": self.name, **attrs})
 
     def _resolve_evicted(self, seq, reason):
         toks = seq.output_tokens()
         self._stats.record_evicted(reason)
         self._stats.record_tenant(seq.tenant, "evicted")
         self._stats.record_tenant_tokens(seq.tenant, len(toks))
+        self._lifecycle_event("llm.evicted", seq, reason=reason,
+                              tokens=len(toks))
+        self._close_span(seq, error=reason, tokens=len(toks))
         seq.future.set_exception(SequenceEvictedError(
             f"sequence {seq.seq_id} evicted ({reason}) after "
             f"{len(toks)} tokens", tokens=toks, seq_id=seq.seq_id,
@@ -340,6 +557,9 @@ class LLMServer:
             self._stats.record_evicted(reason)
         self._stats.record_tenant(seq.tenant, "expired")
         self._stats.record_tenant_tokens(seq.tenant, len(toks))
+        self._lifecycle_event("llm.expired", seq, reason=reason,
+                              tokens=len(toks))
+        self._close_span(seq, error=reason, tokens=len(toks))
         seq.future.set_exception(DeadlineExceededError(
             f"sequence {seq.seq_id} {reason} after {len(toks)} tokens",
             tokens=toks, seq_id=seq.seq_id, reason=reason))
@@ -349,6 +569,8 @@ class LLMServer:
         exception."""
         self._stats.record_failure()
         self._stats.record_tenant(seq.tenant, "failed")
+        self._lifecycle_event("llm.poisoned", seq, error=repr(exc))
+        self._close_span(seq, error=repr(exc))
         seq.future.set_exception(exc)
 
     def _flush_engine(self):
@@ -376,14 +598,18 @@ class LLMServer:
                 continue
             self._stats.record_failure()
             self._stats.record_tenant(seq.tenant, "failed")
+            self._close_span(seq, error=repr(exc))
             seq.future.set_exception(err)
 
     def _run_loop(self):
         try:
             self._run_loop_inner()
         except BaseException as exc:
-            # close admission FIRST so no submit can enqueue onto a dead
-            # loop, then resolve every live Future
+            # the flight bundle FIRST, while the dying state (queue
+            # depths, live sequences, KV partition) is still visible;
+            # crash_dump never raises. Then close admission so no submit
+            # can enqueue onto a dead loop, and resolve every live Future
+            self._flight.crash_dump(exc, server=self.name)
             self._fail_everything(exc)
             raise
 
@@ -399,6 +625,8 @@ class LLMServer:
                 deadline = self._deadline
             for seq in pending:
                 eng.add(seq)
+            # chaos site: crash_at_point("llm.worker") kills the loop
+            faults.point("llm.worker")
             if closed:
                 expired = (deadline is not None
                            and time.monotonic() >= deadline)

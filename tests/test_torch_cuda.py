@@ -1520,6 +1520,32 @@ def test_update_op_takes_the_kernel_per_parameter(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_update_kernel_takes_the_rescale_array(cuda, offset):
+    """``_adamw_update``'s rescale array on the card: the kernel reads
+    the scale from the one-element tensor (a new one each step, beside a
+    float ``rescale_grad`` it replaces), in a fresh launch table and in a
+    cached one, with the twin's bits; through ``nd`` the fifth input
+    takes the kernel too."""
+    name = "_adamw_update"
+    lists = chip_smoke.update_case(torch, name, UPDATE_SIZES, torch.float32,
+                                   cuda, seed=3, offset=offset)
+    before = kernels.launch_counts().get(name, 0)
+    bad, err, nans, n = chip_smoke.adamw_rescale_check(torch, lists, 5)
+    assert (bad, nans) == (0, 0), f"{bad} elements differ (max {err})"
+    assert kernels.launch_counts()[name] == before + n
+    xs = [x.clone() for x in lists[3]]
+    r = torch.tensor([0.375], device=cuda)
+    want = topt_ops.RULES[name].twin(*[x.clone() for x in xs], r,
+                                     **chip_smoke.update_kwargs(name))
+    got = nd._adamw_update(*xs, r, **chip_smoke.update_kwargs(name))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + n + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_update_kernel_raises_on_dtypes_without_a_kernel(cuda):
     """No quiet cast: f64 or 16-bit weights for an f32 rule, an mp rule
     on f32 weights or with mixed 16-bit dtypes raise, nothing launches."""
@@ -2059,3 +2085,77 @@ def test_a_huge_cold_adapter_reaches_no_other_row(cuda):
         streams.append(_lora_drain(eng, cases))
         eng.release_graphs()
     assert streams[0] == streams[1]
+
+
+# ------------------------------------- chaos and observability on graphs --
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fault", "tracer", "recorder"])
+def test_captured_step_under_faults_tracer_and_recorder(cuda, mode,
+                                                        tmp_path):
+    """``LLMServer`` on the card after ``warmup()``: the same prompts
+    served plainly, then with one scripted ``llm.decode`` raise (the
+    bisect re-dispatches each half through its own graph), with the
+    tracer on, or with the flight recorder on: the same greedy streams,
+    no build or capture (``compile_count`` flat), one replay per
+    dispatch; the spans and events land, and the pool is clean."""
+    from mxnet_tpu_torch.observability import (
+        get_flightrecorder, get_tracer, validate_chrome_trace)
+    from mxnet_tpu_torch.resilience import faults
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    model = TinyDecoder(device=cuda, **_SPEC_CFG)
+    srv = LLMServer(model, model.init_params_numpy(0), name=f"cc_{mode}",
+                    max_seqs=2, block_size=BS, device=cuda)
+    srv.warmup()
+    srv.start()
+    rng = np.random.RandomState(8)
+    # under one block: no prefix hit between the passes
+    prompts = [rng.randint(0, 48, size=n).tolist() for n in (5, 13)]
+    tracer, fl = get_tracer(), get_flightrecorder()
+
+    def serve():
+        futs = chip_smoke.submit_together(srv, prompts, 10)
+        return [f.result(timeout=300).tokens for f in futs]
+    try:
+        plain = serve()
+        compiles = compile_count()
+        before = srv.stats()["programs"]
+        faults.reset()
+        if mode == "fault":
+            faults.script("llm.decode", [None, RuntimeError("transient")])
+            got = serve()
+        elif mode == "tracer":
+            tracer.clear()
+            tracer.enable()
+            got = serve()
+        else:
+            fl.clear()
+            fl.enable(out_dir=str(tmp_path))
+            got = serve()
+    finally:
+        faults.reset()
+        tracer.disable()
+        fl.disable()
+        srv.shutdown()
+    after = srv.stats()["programs"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    assert got == plain
+    assert compile_count() == compiles
+    assert dispatches > 0
+    assert after["replays"] - before["replays"] == dispatches
+    if mode == "fault":
+        assert srv.stats()["poison_isolated"] == 0
+    elif mode == "tracer":
+        names = [s["name"] for s in tracer.snapshot()]
+        assert names.count("mxtpu.llm.request") == 2
+        assert names.count("mxtpu.llm.step") == dispatches
+        assert validate_chrome_trace(tracer.to_chrome_trace()) == len(names)
+        tracer.clear()
+    else:
+        kinds = [e["kind"] for e in fl.snapshot()]
+        assert kinds.count("llm.step") == dispatches
+        assert {"llm.submit", "llm.admit", "llm.prefill",
+                "llm.served"} <= set(kinds)
+        fl.clear()
+    assert srv.engine.cache.allocator.num_used == 0
+    assert srv.engine.cache.check(live_block_ids=[])

@@ -394,3 +394,74 @@ def test_a_huge_cold_adapter_leaves_every_other_row_as_it_was(models):
     assert torch.equal(la, lb)
     assert torch.equal(ca.k_pages, cb.k_pages)
     assert torch.equal(ca.v_pages, cb.v_pages)
+
+
+# ------------------------------------------ the reference's signature --
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("form", ["bank", "views", "arrays"])
+def test_decode_flat_takes_the_reference_positional_order(models, banks,
+                                                          form, quant):
+    """Both packages' ``decode_flat`` called positionally in the
+    reference's order (``k_scales, v_scales, adapter, axis_name,
+    w_scales``), int8 KV and int8 weights or none, with the adapter as the
+    bank form ``(bank, a_tables, a_scales)`` or the reference's 4-tuple
+    ``(a_pages, b_pages, a_tables, a_scales)`` (the bank's views of its
+    storage, or the pools as plain arrays): the same logits within
+    ``LOGIT_TOL``, and the same bits for each form."""
+    jm, tm, npp, params = models
+    jb, tb = banks
+    rng = np.random.RandomState(21)
+    batch = _flat_batch(rng, (7, 4, 11, 2))
+    tables = np.zeros((4, 2), np.int32)
+    scales = np.zeros(4, np.float32)
+    handles = []
+    for i, name in enumerate(("bob", "ada", "cal", None)):
+        if name is not None:
+            h = tb.acquire(name)
+            handles.append(h)
+            tables[i] = h.pages_padded
+            scales[i] = h.scale
+    t_tab, t_sc = torch.from_numpy(tables), torch.from_numpy(scales)
+    adapter = {"bank": (tb, t_tab, t_sc),
+               "views": (tb.a_pages, tb.b_pages, t_tab, t_sc),
+               "arrays": (tb.a_pages.contiguous(), tb.b_pages.contiguous(),
+                          t_tab, t_sc)}[form]
+    if quant:
+        jqw = jllm.quantize_weights(npp, dtype="int8")
+        tqw = params_from_numpy(jqw, "cpu")
+        jparams, jws, tparams, tws = jqw.params, jqw.scales, tqw.params, \
+            tqw.scales
+    else:
+        jparams, jws, tparams, tws = npp, None, params, None
+    t = [torch.from_numpy(v) for v in batch]
+    caches = [PagedKVCache(L, 2, D // 2, BS, 17, CTX, device="cpu",
+                           dtype="int8" if quant else "float32")
+              for _ in range(2)]
+    cache, ref_cache = caches
+    scale_kw = ({"k_scales": ref_cache.k_scales,
+                 "v_scales": ref_cache.v_scales} if quant else {})
+    try:
+        got = tm.decode_flat(
+            tparams, *t[:4], cache.k_pages, cache.v_pages, t[4],
+            cache.k_scales if quant else None,
+            cache.v_scales if quant else None, adapter, None, tws)
+        ref = tm.decode_flat(
+            tparams, *t[:4], ref_cache.k_pages, ref_cache.v_pages, t[4],
+            adapter=(tb, t_tab, t_sc), w_scales=tws, **scale_kw)
+    finally:
+        for h in handles:
+            tb.release(h)
+    shape = (L, 17, BS, 2, D // 2)
+    jks = jnp.ones(shape[:-1], jnp.float32) if quant else None
+    jc = jnp.zeros(shape, jnp.int8 if quant else jnp.float32)
+    want = jm.decode_flat(
+        jparams, *(jnp.asarray(v) for v in batch[:4]), jc, jc,
+        jnp.asarray(batch[4]), jks, jks,
+        (jb.a_pages, jb.b_pages, jnp.asarray(tables), jnp.asarray(scales)),
+        None, jws)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_TOL,
+                               rtol=0)
+    assert torch.equal(got, ref)
+    with pytest.raises(NotImplementedError, match="axis_name"):
+        tm.decode_flat(tparams, *t[:4], cache.k_pages, cache.v_pages, t[4],
+                       None, None, None, "tp")
