@@ -89,6 +89,22 @@ Phases, one line of output each (or more), in order:
    recorder off and on (tokens/s, host ms per step), a validated chrome
    trace, a flight bundle ``tools/flight_inspect.py`` checks, and
    ``mxtpu.llm.step`` ranges in a profiled pass;
+   5f. the adapter registry (``run_registry_phase``): a bank of 5d's
+   geometry (8 pages) over an ``AdapterRegistry`` of six adapters (10
+   pages, 2 shards each) and nothing published; three waves of eight
+   requests under four adapters each fault adapters in at admission
+   (every wave after the first two, evicting two cold ones for
+   capacity), each fault-in's host ms (disk read, install, synchronise)
+   logged, ``registry_loads``, evictions and ``adapter.fault_in`` events
+   counted; every wave's streams bit for bit against a bank without a
+   registry holding the wave's adapters at the same pages, and against
+   the oracle; a wave under int8 KV and weights (K2, K3) faulting in,
+   bit for bit against the same wave with the adapters published;
+   5g. the decoder artifact (``run_artifact_phase``): ``export_decoder``
+   of the f32 params and of int8 and fp8 ``QuantizedWeights``,
+   ``load_decoder`` onto the card, the loaded weights the in-memory
+   ones' bits, greedy streams bit-identical to a server on the in-memory
+   params; artifact bytes, export and load ms;
    every serving phase (and the default config's, below) serves through
    CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
    seconds and the graph pool's bytes are printed), and the phase checks
@@ -152,11 +168,21 @@ Phases, one line of output each (or more), in order:
    with and without momentum, NAG, Adam, AdamW, AdaGrad, RMSProp plain
    and centered, Ftrl, SignSGD, Signum, and SGD with
    ``multi_precision`` on bf16 weights, with and without momentum), two
-   steps each, each step one launch of its rule and nothing else;
+   steps each, each step one launch of its rule and nothing else; then
+   (8c, ``run_trainer_ckpt_phase``) the Trainer's full-state
+   checkpoints on BERT-base, f32 and under AMP bf16: 3 steps, an async
+   ``save_state(num_shards=4)`` (critical-path and background ms, the
+   checkpoint's bytes), 2 steps over the write, a fresh Trainer's
+   ``restore_state`` taking the same 2 steps twice (their spread; the
+   resumed weights and Adam slots against the uninterrupted run's, bit
+   for bit or within that spread), a sync save's wall ms, and a save
+   killed at byte 2^20 of a shard leaving the previous checkpoint to
+   restore;
 9. one JSON line listing every kernel: launches on the main paths,
    counted through graph replays (the speculative phase's verifies and
-   draft rounds included; the flash kernels': the 10 training
-   steps and the op phase's call; the 16-bit paged kernels': the bf16
+   draft rounds included, the registry and artifact phases' too; the
+   flash kernels': the 10 training
+   steps, 8c's steps and the op phase's call; the 16-bit paged kernels': the bf16
    and f16 serving, the bf16 paged decode and the op phase), max
    error, times, bound (the quantized matmul's and the flash kernels'
    operations on the TF32 tensor cores, 2 and 3 passes for f32
@@ -2504,13 +2530,16 @@ def run_lora_phase(torch, rng, np_params, kernels, f32):
 CHAOS_PROMPTS = (5, 9, 12, 15)      # under a block: no prefix hit
 
 
-def submit_together(server, prompts, n=NEW_TOKENS):
-    """Submit ``prompts`` (greedy, ``n`` tokens each) so the worker takes
-    them in one pull: the server's admission lock is held (re-entrantly)
-    across the submits, so every run of the same prompts admits them in
-    one step and packs the same rows each step. Returns the Futures."""
+def submit_together(server, prompts, n=NEW_TOKENS, adapters=None):
+    """Submit ``prompts`` (greedy, ``n`` tokens each; under ``adapters``,
+    one name or None a prompt) so the worker takes them in one pull: the
+    server's admission lock is held (re-entrantly) across the submits,
+    so every run of the same prompts admits them in one step and packs
+    the same rows each step. Returns the Futures."""
+    adapters = adapters or [None] * len(prompts)
     with server._cv:
-        return [server.submit(p, n) for p in prompts]
+        return [server.submit(p, n, adapter=a)
+                for p, a in zip(prompts, adapters)]
 
 
 def outcomes(futs, timeout=600):
@@ -2805,6 +2834,400 @@ def run_chaos_phase(torch, rng, np_params, kernels, f32):
     check_pool_clean(f"{tag} (d)", srv.engine)
     srv.shutdown()
     return launches
+
+
+# ------------------------------------------ the adapter registry (5f) --
+# six adapters on disk, more pages (10) than LORA_BANK holds (8): the
+# three of LORA_ADAPTERS and three more, (name, rank, alpha, seed)
+REGISTRY_ADAPTERS = LORA_ADAPTERS + (("dee", 8, 2.0, 34),
+                                     ("eli", 8, None, 35),
+                                     ("fox", 4, None, 36))
+# waves of two requests an adapter, four adapters a wave, in submit order
+# with prompts growing along it (so the adapters go cold in that order):
+# every wave after the first pins two residents, then faults in two
+# names that evict two cold ones for capacity
+REGISTRY_WAVES = (("fox", "ada", "bob", "cal"), ("bob", "ada", "dee", "eli"),
+                  ("eli", "bob", "cal", "fox"))
+REGISTRY_INT8_WAVE = ("ada", "dee", "fox", "cal")
+REGISTRY_PROMPT_LENS = (5, 9, 17, 30, 70, 100, 190, 260)
+
+
+def time_fault_ins(bank):
+    """Wrap ``bank``'s fault-in to time each one on the host: the disk
+    reads (the registry's ``has`` and ``load``), the installs' copies and
+    the synchronise that ends them. Returns the list it appends a dict a
+    fault-in to."""
+    rows, cur = [], {}
+    reg = bank._registry
+    has, load = reg.has, reg.load
+    sync, fault = bank._installed_locked, bank._fault_in_locked
+
+    def timed(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                if "name" in cur:
+                    cur[key] = cur.get(key, 0.0) + \
+                        (time.perf_counter() - t0) * 1e3
+        return run
+
+    def fault_in(name):
+        cur.clear()
+        cur["name"] = name
+        t0 = time.perf_counter()
+        rec = fault(name)
+        total = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(name=name, pages=len(rec.pages),
+                         read_ms=cur.get("read", 0.0),
+                         sync_ms=cur.get("sync", 0.0),
+                         install_ms=total - cur.get("read", 0.0)
+                         - cur.get("sync", 0.0), total_ms=total))
+        cur.clear()
+        return rec
+    reg.has, reg.load = timed(has, "read"), timed(load, "read")
+    bank._installed_locked = timed(sync, "sync")
+    bank._fault_in_locked = fault_in
+    return rows
+
+
+def publish_at(bank, layout, factors):
+    """Publish ``layout``'s adapters (``{name: pages}``, in order) into
+    ``bank`` (no registry) at exactly those pages: every resident is
+    evicted and the free list ordered so the allocator hands each
+    adapter its pages. The same adapters at the same pages give a pack
+    the same bits as the bank they were read from."""
+    for name in bank.names():
+        bank.evict(name)
+    want = [p for pages in layout.values() for p in pages]
+    free = bank._alloc._free
+    rest = [p for p in free if p not in want]
+    free.clear()
+    free.extend(want + rest)
+    for name in layout:
+        a, b, alpha = factors[name]
+        bank.publish(name, a, b, alpha=alpha)
+    got = {n: bank._resident[n].pages for n in layout}
+    check(got == layout, f"publish_at: pages {got}, wanted {layout}")
+
+
+def run_registry_phase(torch, rng, np_params, kernels, f32):
+    """Multi-LoRA serving with the on-disk tier at GPT-2-small widths:
+    ``LLMServer(..., adapter_bank=AdapterBank(registry=
+    AdapterRegistry(tmp, num_shards=2)))`` over f32 pools, the bank of
+    ``LORA_BANK``'s geometry (8 pages), the registry holding the six
+    ``REGISTRY_ADAPTERS`` (10 pages) and no adapter published.
+
+    (a) the ``REGISTRY_WAVES``, each eight requests under four adapters
+    (``submit_together``): every adapter a wave needs and the bank lacks
+    faults in at admission on the engine thread (disk read, in-place
+    install, synchronise), evicting cold residents; after the first,
+    every wave faults in two and evicts two for capacity; nothing built
+    or captured after warmup, one replay a dispatch; each fault-in's
+    host ms (disk read, install, synchronise), ``registry_loads``,
+    ``evictions`` and the ``adapter.fault_in`` flight events logged;
+    tokens/s of each wave beside the f32 phase's (``f32``);
+    (b) every wave's streams bit for bit against the same prompts in the
+    same packs through a second server whose bank (no registry, the same
+    geometry) holds the wave's adapters published resident at the same
+    pages (:func:`publish_at`), and against ``greedy_decode_reference(
+    lora=bank.adapter_arrays(name))`` as phase 5d holds them;
+    (c) a wave under int8 KV and int8 weights on a third server with a
+    bank of its own over the same registry: the int8 flat attention (K2)
+    and quantized matmul (K3) kernels run with every adapter faulted in;
+    its streams bit for bit against the same wave on the same server
+    after the adapters are published resident at the same pages.
+    Returns the launch counts of the served traffic."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.observability import get_flightrecorder
+    from mxnet_tpu_torch.ops.quantization import kernel_name as wq_name
+    from mxnet_tpu_torch.ops.ragged_attention import kernel_name
+    from mxnet_tpu_torch.serving.adapters import (AdapterBank,
+                                                  AdapterRegistry)
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    tag = "registry"
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+    params = params_from_numpy(np_params, DEVICE)
+    L, d = GPT2_SMALL["num_layers"], GPT2_SMALL["d_model"]
+    root = tempfile.mkdtemp(prefix="mxt-registry-")
+    fl = get_flightrecorder()
+    try:
+        factors = {}
+        t0 = time.monotonic()
+        writer = AdapterRegistry(root, num_shards=2)
+        for name, rank, alpha, seed in REGISTRY_ADAPTERS:
+            a, b = lora_factors(seed, rank)
+            factors[name] = (a, b, alpha)
+            writer.save(name, a, b, alpha=alpha)
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(root) for f in fs)
+        log(f"{tag}: registry of {len(REGISTRY_ADAPTERS)} adapters "
+            f"{[(n, r) for n, r, _, _ in REGISTRY_ADAPTERS]} (10 pages "
+            f"of rank 4, the bank holds 8), 2 shards each, {nbytes / 1e6:.1f}"
+            f" MB on disk, written in {time.monotonic() - t0:.2f}s")
+        bank = AdapterBank(L, d, device=DEVICE, registry=AdapterRegistry(
+            root, num_shards=2), **LORA_BANK)
+        timings = time_fault_ins(bank)
+        server = LLMServer(model, params, name="gpt2-registry",
+                           max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                           adapter_bank=bank, device=DEVICE)
+        _, progs, calls = warm_server(torch, server, tag)
+        ref_bank = AdapterBank(L, d, device=DEVICE, **LORA_BANK)
+        # a model object of its own: warm_server counts decode_flat's
+        # Python calls on the model
+        ref = LLMServer(TinyDecoder(device=DEVICE, **GPT2_SMALL), params,
+                        name="gpt2-registry-resident", max_seqs=MAX_SEQS,
+                        block_size=BLOCK_SIZE, adapter_bank=ref_bank,
+                        device=DEVICE)
+        _, ref_progs, ref_calls = warm_server(torch, ref, f"{tag} resident")
+        builds = compile_count()
+        server.start()
+        ref.start()
+        fl.clear()
+        fl.enable()
+        # (a) + (b)
+        kernels.reset_launch_counts()
+        events = []
+        for w, wave in enumerate(REGISTRY_WAVES):
+            names = [n for n in wave for _ in (0, 1)]
+            prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+                       for n in REGISTRY_PROMPT_LENS]
+            before = bank.stats()
+            n_faults = len(timings)
+            t0 = time.monotonic()
+            res = [f.result(timeout=600) for f in submit_together(
+                server, prompts, adapters=names)]
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            # read the ring a wave: the two servers' step events are many
+            events += [e for e in fl.snapshot()
+                       if e["kind"] == "adapter.fault_in"]
+            fl.clear()
+            st = bank.stats()
+            loads = st["registry_loads"] - before["registry_loads"]
+            evicted = (st["evictions"]["capacity"]
+                       - before["evictions"]["capacity"])
+            n_tok = sum(len(r.tokens) for r in res)
+            log(f"{tag}: wave {w + 1} under {list(wave)}: {n_tok} tokens in "
+                f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s (end to end; the "
+                f"f32 phase's traffic: {f32['tokens_s']:.1f}); registry "
+                f"loads {loads}, capacity evictions {evicted}; residents "
+                f"{bank.names()}")
+            for t in timings[n_faults:]:
+                log(f"{tag}: fault-in of {t['name']} ({t['pages']} pages): "
+                    f"{t['total_ms']:.3f} host ms = disk read "
+                    f"{t['read_ms']:.3f} + install {t['install_ms']:.3f} + "
+                    f"synchronise {t['sync_ms']:.3f}")
+            check(loads == len(timings) - n_faults and loads >= (
+                4 if w == 0 else 2), f"{tag}: wave {w + 1} faulted in "
+                f"{loads} adapters")
+            check(w == 0 or evicted >= 2, f"{tag}: wave {w + 1} evicted "
+                  f"{evicted} cold adapters for capacity")
+            check(all(len(r.tokens) == NEW_TOKENS for r in res),
+                  f"{tag}: wave {w + 1}: a request stopped short")
+            layout = {n: bank._resident[n].pages for n in wave}
+            arrays = {n: bank.adapter_arrays(n) for n in wave}
+            publish_at(ref_bank, layout, factors)
+            want = [f.result(timeout=600) for f in submit_together(
+                ref, prompts, adapters=names)]
+            same = sum(a.tokens == b.tokens for a, b in zip(res, want))
+            log(f"{tag}: wave {w + 1} at pages {layout}: {same} of "
+                f"{len(res)} streams bit-identical to the resident bank's")
+            check(same == len(res), f"{tag}: wave {w + 1}: streams differ "
+                  "from the resident bank's")
+            for i, (p, r, a) in enumerate(zip(prompts, res, names)):
+                verdict = check_greedy(model, params, p, r.tokens,
+                                       F32_LOGIT_TOL,
+                                       f"{tag} wave {w + 1} request {i}",
+                                       lora=arrays[a])
+                if verdict != "identical":
+                    log(f"{tag}: wave {w + 1} request {i} ({a}) greedy vs "
+                        f"oracle: {verdict}")
+        launches = kernels.launch_counts()
+        add(launches)
+        fl.disable()
+        server.shutdown()
+        ref.shutdown()
+        st = bank.stats()
+        log(f"{tag}: bank {st}; adapter.fault_in events {len(events)} "
+            f"(last {events[-1]['attrs'] if events else None}); launches "
+            f"{launches}")
+        check(len(events) == st["registry_loads"] == len(timings),
+              f"{tag}: {len(events)} fault-in events for "
+              f"{st['registry_loads']} registry loads")
+        check(launches.get("flat_attention", 0) > 0,
+              f"{tag}: the flat attention kernel never ran")
+        check_graph_steps(tag, server.engine, progs, calls, builds)
+        check_graph_steps(f"{tag} resident", ref.engine, ref_progs,
+                          ref_calls, builds)
+        check(st["in_use"] == 0 and bank.check(),
+              f"{tag}: the bank did not drain")
+        read = [t["read_ms"] for t in timings]
+        total = [t["total_ms"] for t in timings]
+        log(f"{tag}: {len(timings)} fault-ins: host ms p50 "
+            f"{np.percentile(total, 50):.3f} max {max(total):.3f}; disk "
+            f"read p50 {np.percentile(read, 50):.3f} ms")
+        del server, ref, ref_bank
+        # (c) int8 KV + int8 weights under fault-in
+        tag = "registry int8"
+        bank8 = AdapterBank(L, d, device=DEVICE, registry=AdapterRegistry(
+            root, num_shards=2), **LORA_BANK)
+        timings = time_fault_ins(bank8)
+        server = LLMServer(model, np_params, name="gpt2-registry-int8",
+                           max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                           adapter_bank=bank8, kv_dtype="int8",
+                           weight_dtype="int8", device=DEVICE)
+        builds, progs, calls = warm_server(torch, server, tag)
+        names = [n for n in REGISTRY_INT8_WAVE for _ in (0, 1)]
+        prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+                   for n in REGISTRY_PROMPT_LENS]
+        server.start()
+        kernels.reset_launch_counts()
+        res = [f.result(timeout=600) for f in submit_together(
+            server, prompts, adapters=names)]
+        launches = kernels.launch_counts()
+        add(launches)
+        layout = {n: bank8._resident[n].pages for n in REGISTRY_INT8_WAVE}
+        for t in timings:
+            log(f"{tag}: fault-in of {t['name']} ({t['pages']} pages): "
+                f"{t['total_ms']:.3f} host ms = disk read "
+                f"{t['read_ms']:.3f} + install {t['install_ms']:.3f} + "
+                f"synchronise {t['sync_ms']:.3f}")
+        loads = bank8.stats()["registry_loads"]
+        # the same wave again, every adapter published resident (no
+        # registry read) at the pages the fault-ins gave it
+        bank8._registry = None
+        publish_at(bank8, layout, factors)
+        again = [f.result(timeout=600) for f in submit_together(
+            server, prompts, adapters=names)]
+        server.shutdown()
+        same = sum(a.tokens == b.tokens for a, b in zip(res, again))
+        log(f"{tag}: {len(res)} requests under {list(REGISTRY_INT8_WAVE)}, "
+            f"{loads} registry loads; launches {launches}; {same} of "
+            f"{len(res)} streams bit-identical to the same wave over the "
+            f"adapters published resident at the same pages")
+        check(loads == len(REGISTRY_INT8_WAVE),
+              f"{tag}: {loads} registry loads")
+        check(launches.get(kernel_name(torch.int8), 0) > 0
+              and launches.get(wq_name(torch.int8), 0) > 0,
+              f"{tag}: the int8 flat attention or matmul kernel never ran")
+        check(same == len(res) and all(
+            len(r.tokens) == NEW_TOKENS and all(
+                0 <= t < model.vocab_size for t in r.tokens) for r in res),
+            f"{tag}: the fault-in streams differ from the resident ones "
+            "or left the vocabulary")
+        check_graph_steps(tag, server.engine, progs, calls, builds)
+        check(bank8.stats()["in_use"] == 0 and bank8.check(),
+              f"{tag}: the bank did not drain")
+    finally:
+        fl.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+# ------------------------------------------- the decoder artifact (5g) --
+ARTIFACT_PROMPT_LENS = (15, 64, 200, 511)
+
+
+def run_artifact_phase(torch, rng, np_params, kernels):
+    """The decoder artifact at GPT-2-small widths: ``deploy.
+    export_decoder`` of the f32 params and of int8 and fp8
+    ``QuantizedWeights`` to a file, ``deploy.load_decoder`` onto the
+    card, an ``LLMServer`` over what it loaded: the loaded weights are
+    the in-memory ones' bits on the card, and the greedy streams
+    (``submit_together``) bit-identical to a server built on the
+    in-memory params with the same packs; every dispatch one replay,
+    nothing built or captured after warmup. Logs each artifact's bytes
+    and the export and load ms. Returns the launch counts."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import deploy
+    from mxnet_tpu_torch.ops.quantization import kernel_name as wq_name
+    from mxnet_tpu_torch.serving.llm import (LLMServer, TinyDecoder,
+                                             quantize_weights)
+    from mxnet_tpu_torch.serving.llm.quant import flatten_params
+    counts = {}
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+    prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+               for n in ARTIFACT_PROMPT_LENS]
+    root = tempfile.mkdtemp(prefix="mxt-artifact-")
+    try:
+        for wd in (None, "int8", "float8_e4m3fn"):
+            tag = f"artifact {wd or 'f32'}"
+            params = np_params if wd is None else quantize_weights(
+                np_params, dtype=wd)
+            path = os.path.join(root, "decoder.mxtpu")
+            t0 = time.monotonic()
+            deploy.export_decoder(model, params, path)
+            t_export = time.monotonic() - t0
+            t0 = time.monotonic()
+            m2, p2 = deploy.load_decoder(path, device=DEVICE)
+            torch.cuda.synchronize()
+            t_load = time.monotonic() - t0
+            log(f"{tag}: {os.path.getsize(path) / 1e6:.1f} MB artifact, "
+                f"export {t_export * 1e3:.0f} ms, load onto the card "
+                f"{t_load * 1e3:.0f} ms; config {m2.config.to_dict()}")
+            check(m2.config.to_dict() == model.config.to_dict(),
+                  f"{tag}: the config did not round-trip")
+            streams = {}
+            for label, (mm, pp) in (("artifact", (m2, p2)),
+                                    ("in-memory", (model, params))):
+                server = LLMServer(mm, pp, name=f"gpt2-{label}-{wd}",
+                                   max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                                   device=DEVICE)
+                builds, progs, calls = warm_server(torch, server,
+                                                   f"{tag} {label}")
+                server.start()
+                kernels.reset_launch_counts()
+                res = [f.result(timeout=600) for f in
+                       submit_together(server, prompts)]
+                launches = kernels.launch_counts()
+                server.shutdown()
+                check_graph_steps(f"{tag} {label}", server.engine, progs,
+                                  calls, builds)
+                streams[label] = [r.tokens for r in res]
+                if label == "artifact":
+                    for k, v in launches.items():
+                        counts[k] = counts.get(k, 0) + v
+                    loaded = server.engine
+                    log(f"{tag}: launches {launches}")
+                    check(wd is None or launches.get(
+                        wq_name(getattr(torch, wd)), 0) > 0,
+                        f"{tag}: the quantized matmul never ran")
+                else:
+                    mine = flatten_params(server.engine.params)
+                    theirs = flatten_params(loaded.params)
+                    diff = [k for k in mine if not torch.equal(
+                        mine[k].view(torch.uint8), theirs[k].view(
+                            torch.uint8))]
+                    if server.engine.w_scales is not None:
+                        diff += [k for k, v in server.engine.w_scales
+                                 .items() if not torch.equal(
+                                     v, loaded.w_scales[k])]
+                    check(not diff, f"{tag}: loaded weights differ from "
+                          f"the in-memory ones at {diff[:4]}")
+                del server
+            same = sum(a == b for a, b in zip(streams["artifact"],
+                                              streams["in-memory"]))
+            log(f"{tag}: {same} of {len(prompts)} greedy streams "
+                f"bit-identical to the in-memory params' server")
+            check(same == len(prompts) and all(
+                len(t) == NEW_TOKENS for t in streams["artifact"]),
+                f"{tag}: the artifact's streams differ")
+            del loaded, m2, p2
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
 
 
 class GraphedStep:
@@ -4055,6 +4478,218 @@ def run_optimizer_path_phase(torch, rng, kernels, cfg=BERT_BASE,
 
 
 # template arguments that are builtin types, as the Itanium ABI mangles them
+# --------------------------------------- the Trainer checkpoint (8c) --
+CKPT_SHARDS, CKPT_KEEP = 4, 2
+
+
+def _train_state(trainer):
+    """Every weight and optimizer slot of ``trainer``, cloned (slots a
+    restore left on the host as numpy, until the next update moves
+    them, as tensors)."""
+    import torch
+    out = [p.data().detach().clone() for p in trainer._params]
+    for i in sorted(trainer._updaters[0].states):
+        st = trainer._updaters[0].states[i]
+        out += [torch.as_tensor(np.array(s)) if isinstance(s, np.ndarray)
+                else s.detach().clone()
+                for s in (st if isinstance(st, (tuple, list)) else [st])]
+    return out
+
+
+def _max_diff(a, b):
+    """Largest absolute difference over two lists of tensors, and how
+    many of the tensors differ at all."""
+    worst, n = 0.0, 0
+    for x, y in zip(a, b):
+        x = x.to(y.device)
+        if not x.equal(y):
+            n += 1
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst, n
+
+
+def run_trainer_ckpt_phase(torch, rng, kernels, cfg=BERT_BASE,
+                           batch=BERT_BATCH, seqlen=BERT_T):
+    """The Trainer's full-state checkpoints on BERT-base (the f32 phase's
+    model at dropout 0.1, then under AMP bf16 with its loss scaler), in
+    a temporary run directory the phase removes (``keep=2``, 4 shards):
+    (a) 3 Adam steps, ``save_state(num_shards=4)`` with
+    ``MXNET_TPU_CKPT_ASYNC=1`` (the critical path: the blocking snapshot
+    and the optimizer blob; the write on the background thread), 2 more
+    steps while it writes (the overlap counter), ``ckpt_wait()``;
+    (b) a fresh model and Trainer ``restore_state`` and take the same 2
+    steps, twice from the one checkpoint: the two resumed runs give the
+    spread of the path's launches (where they differ, the parameters
+    whose gradients differ after one step are named), and the resumed
+    weights and Adam slots equal the original run's bit for bit, or
+    within that spread and never looser;
+    (c) a sync ``save_state`` (wall ms and the checkpoint's bytes), then a
+    save killed at byte 2^20 of a shard through the fault switchboard:
+    the partial directory does not validate and ``restore_state`` brings
+    back the previous checkpoint's bits. Returns the launch counts."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.error import CheckpointCorruptError
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.resilience import async_writer
+    from mxnet_tpu_torch.resilience import checkpoint as ckpt
+    from mxnet_tpu_torch.resilience import faults
+    vocab = cfg["vocab_size"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    data = bert_batches(torch, rng, 5, vocab, batch, seqlen, DEVICE)
+    # the async writer's series on the registry (mxtpu_ckpt_async_*)
+    series = async_writer._obs()
+    write_s, snap_s = series["write_secs"], series["snapshot_secs"]
+    overlap = series["overlap_steps"]
+    env = os.environ.get("MXNET_TPU_CKPT_ASYNC")
+    counts = {}
+    for use_amp in (False, True):
+        tag = "ckpt amp bf16" if use_amp else "ckpt f32"
+        dd = [(x.int(), y, w, vl) for x, y, w, vl in data] if use_amp \
+            else data
+        root = tempfile.mkdtemp(prefix="mxt-ckpt-")
+        if use_amp:
+            amp.init()
+        try:
+            def make():
+                net = make_bert_mlm(0.1, **cfg)
+                net.initialize(Xavier(), device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+                tr = gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": BERT_LR})
+                if use_amp:
+                    amp.init_trainer(tr)
+                return net, tr
+
+            def step(net, tr, d):
+                with ag.record():
+                    loss = mlm_loss(net, loss_fn, d, vocab)
+                    scaled = loss
+                    if use_amp:
+                        with amp.scale_loss(loss, tr) as scaled:
+                            pass
+                scaled.backward()
+                tr.step(batch)
+                return float(loss.detach())
+            # (a)
+            torch.manual_seed(0)              # dropout masks
+            net, tr = make()
+            kernels.reset_launch_counts()
+            losses = [step(net, tr, d) for d in dd[:3]]
+            os.environ["MXNET_TPU_CKPT_ASYNC"] = "1"
+            w0, s0, o0 = write_s.sum, snap_s.sum, overlap.value
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            handle = tr.save_state(root, keep=CKPT_KEEP,
+                                   num_shards=CKPT_SHARDS)
+            crit_ms = (time.monotonic() - t0) * 1e3
+            losses += [step(net, tr, d) for d in dd[3:5]]
+            torch.cuda.synchronize()
+            steps_done = time.monotonic()
+            tr.ckpt_wait()
+            tail_ms = (time.monotonic() - steps_done) * 1e3
+            path = handle.result(0)
+            manifest = ckpt.validate_checkpoint(path)
+            nbytes = sum(int(r["nbytes"])
+                         for r in manifest["files"].values())
+            log(f"{tag}: 3 steps, async save_state(num_shards="
+                f"{CKPT_SHARDS}) of step {manifest['step']}: "
+                f"{nbytes / 1e9:.3f} GB in {len(manifest['files'])} files; "
+                f"critical path {crit_ms:.1f} ms (snapshot "
+                f"{(snap_s.sum - s0) * 1e3:.1f} ms of it), background "
+                f"write {(write_s.sum - w0) * 1e3:.1f} ms; 2 steps "
+                f"overlapped the write ({overlap.value - o0:.0f} counted), "
+                f"ckpt_wait after them {tail_ms:.1f} ms; losses "
+                + " ".join(f"{v:.4f}" for v in losses))
+            check(all(np.isfinite(losses)), f"{tag}: non-finite loss")
+            check(manifest["step"] == 3 and manifest["format"] ==
+                  ckpt.FORMAT_SHARDED, f"{tag}: checkpoint {manifest['step']}"
+                  f" {manifest['format']}")
+            want = _train_state(tr)
+            # (b) two resumed runs from the one checkpoint
+            net2, tr2 = make()
+            runs, grads, restore_ms = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                m = tr2.restore_state(root)
+                torch.cuda.synchronize()
+                restore_ms.append((time.monotonic() - t0) * 1e3)
+                check(m["step"] == 3 and tr2._step_count == 3,
+                      f"{tag}: restored step {m['step']}")
+                step(net2, tr2, dd[3])
+                grads.append([p.grad().detach().clone()
+                              for p in tr2._params])
+                step(net2, tr2, dd[4])
+                runs.append(_train_state(tr2))
+            spread, n_spread = _max_diff(runs[0], runs[1])
+            err, n_err = _max_diff(want, runs[0])
+            names = [p.name for p, a, b in zip(tr2._params, *grads)
+                     if not torch.equal(a, b)]
+            log(f"{tag}: restore_state {restore_ms[0]:.1f} ms (then "
+                f"{restore_ms[1]:.1f} ms); 2 resumed steps twice from it: "
+                f"{n_spread} of {len(runs[0])} tensors differ between the "
+                f"two, by {spread:.3e} at most" + (
+                    f" (gradients that differ after one step: {names})"
+                    if names else "") + f"; against the uninterrupted run "
+                f"{n_err} differ, by {err:.3e} at most")
+            check(err <= spread, f"{tag}: the resumed run is {err} from the "
+                  f"uninterrupted one, beyond the resume's own spread "
+                  f"{spread}")
+            del runs, grads
+            # (c) a sync save, then a save killed at byte N
+            os.environ["MXNET_TPU_CKPT_ASYNC"] = "0"
+            t0 = time.monotonic()
+            path = tr.save_state(root, keep=CKPT_KEEP,
+                                 num_shards=CKPT_SHARDS)
+            sync_ms = (time.monotonic() - t0) * 1e3
+            committed = _train_state(tr)
+            faults.kill_write_at("shard-00002-of-00004", 1 << 20)
+            try:
+                killed = False
+                try:
+                    tr.save_state(root, step=6, keep=CKPT_KEEP,
+                                  num_shards=CKPT_SHARDS)
+                except faults.InjectedCrash:
+                    killed = True
+            finally:
+                faults.reset()
+            partial = os.path.join(root, ckpt.checkpoint_dirname(6))
+            try:
+                ckpt.validate_checkpoint(partial)
+                valid = True
+            except CheckpointCorruptError:
+                valid = False
+            m = tr2.restore_state(root)
+            err, n_err = _max_diff(committed, _train_state(tr2))
+            log(f"{tag}: sync save_state of step 5: {sync_ms:.1f} ms wall; "
+                f"a save of step 6 killed at byte {1 << 20} of shard 2: "
+                f"killed {killed}, its directory valid {valid}; "
+                f"restore_state brought back step {m['step']}, {n_err} "
+                f"tensors differ from it; directories "
+                f"{[st for st, _ in ckpt.list_checkpoints(root)]} (keep "
+                f"{CKPT_KEEP}, and the killed save's)")
+            check(killed and not valid and m["step"] == 5 and n_err == 0,
+                  f"{tag}: the killed save left something other than the "
+                  "previous checkpoint to restore")
+            for k, v in kernels.launch_counts().items():
+                counts[k] = counts.get(k, 0) + v
+            del net, tr, net2, tr2, want, committed
+        finally:
+            if env is None:
+                os.environ.pop("MXNET_TPU_CKPT_ASYNC", None)
+            else:
+                os.environ["MXNET_TPU_CKPT_ASYNC"] = env
+            if use_amp:
+                amp.uninit()
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+    return counts
+
+
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
 
 
@@ -4194,6 +4829,10 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from mxnet_tpu_torch import kernels
+    started = time.monotonic()
+
+    def lap(phase):
+        log(f"time: {phase} done at {time.monotonic() - started:.1f}s")
     # 1. card
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4214,6 +4853,7 @@ def main():
         for kernel, regs, spill in ptxas_usage(text):
             log(f"build: {name}: {kernel}: {regs} registers, spill "
                 f"stores/loads {spill[0]}/{spill[1]} bytes")
+    lap("build")
     rng = np.random.RandomState(0)
     timer = Timer(torch)
     # 3. kernels
@@ -4227,6 +4867,7 @@ def main():
     results += run_wq_x16_rows(torch, timer, np.random.RandomState(11))
     results += run_optimizer_kernel_phase(torch, timer)
     results += run_spec_kernel_rows(torch, timer, 17)
+    lap("3 kernels")
     # 4. main path, f32
     from mxnet_tpu_torch.serving.llm import TinyDecoder
     t0 = time.monotonic()
@@ -4241,6 +4882,7 @@ def main():
     counts, _, _, f32_serving = run_f32_phase(torch, rng, np_params,
                                               kernels)
     add(counts)
+    lap("4 f32 serving")
     # 5. main path, quantized
     for dtype in ("int8", "float8_e4m3fn"):
         add(run_quant_phase(torch, rng, np_params, kernels, dtype))
@@ -4251,37 +4893,59 @@ def main():
                       dtype="bfloat16")[0])
     add(run_quant_phase(torch, np.random.RandomState(13), np_params,
                         kernels, "float16"))
+    lap("5, 5b quantized and 16-bit serving")
     # 5c. speculative decoding (its own generator, as 5b)
     add(run_spec_phase(torch, np.random.RandomState(16), np_params, kernels,
                        f32_serving))
+    lap("5c speculative")
     # 5d. multi-LoRA (its own generator, as 5b)
     add(run_lora_phase(torch, np.random.RandomState(18), np_params, kernels,
                        f32_serving))
+    lap("5d multi-LoRA")
     # 5e. faults, the tracer and the flight recorder on the captured step
     # (its own generator, as 5b)
     add(run_chaos_phase(torch, np.random.RandomState(19), np_params,
                         kernels, f32_serving))
+    lap("5e chaos")
+    # 5f. the adapter registry: fault-ins beside the captured step (its
+    # own generator, as 5b)
+    add(run_registry_phase(torch, np.random.RandomState(20), np_params,
+                           kernels, f32_serving))
     del f32_serving
+    lap("5f registry")
+    # 5g. the decoder artifact (its own generator, as 5b)
+    add(run_artifact_phase(torch, np.random.RandomState(21), np_params,
+                           kernels))
+    torch.cuda.empty_cache()
+    lap("5g artifact")
     # 6. paged decode through the model interface
     counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)
     add(counts)
     # 6b. the reference's default config (head dim 16), dtype="float32"
     add(run_default_config_phase(torch, rng, kernels))
     del np_params
+    lap("6, 6b paged decode")
     # 7. op front end and rtc
     counts, rtc_rows = run_op_phase(torch, timer, rng, decoded)
     add(counts)
     results += rtc_rows
     del decoded, timer
     torch.cuda.empty_cache()
+    lap("7 op front end")
     # 8. main path, training: f32, then under AMP (bf16, then f16)
     counts, f32_bert = run_bert_phase(torch, rng, kernels)
     add(counts)
     torch.cuda.empty_cache()
     add(run_bert_amp_phase(torch, rng, kernels, f32_bert))
     torch.cuda.empty_cache()
+    lap("8 BERT f32 and AMP")
     # 8b. the Trainer through every update rule on BERT-base's gradients
     add(run_optimizer_path_phase(torch, np.random.RandomState(15), kernels))
+    torch.cuda.empty_cache()
+    lap("8b update rules")
+    # 8c. the Trainer's full-state checkpoints (its own generator, as 5b)
+    add(run_trainer_ckpt_phase(torch, np.random.RandomState(22), kernels))
+    lap("8c checkpoints")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -6,8 +6,9 @@ lists of float32 arrays), or a quantized checkpoint (any object with
 ``params``, ``scales`` and ``dtype``, such as the JAX package's
 ``QuantizedWeights``), into the port's tensors on ``device``. fp8 and
 bf16 leaves (``ml_dtypes.float8_e4m3fn`` / ``ml_dtypes.bfloat16`` on the
-JAX side; bf16 also as the raw ``|V2`` it becomes where ``ml_dtypes`` is
-not loaded) arrive as raw bytes and are viewed as
+JAX side; also as the raw ``|V1`` / ``|V2`` they become where
+``ml_dtypes`` is not loaded, as in a decoder artifact's npz) arrive as
+raw bytes and are viewed as
 ``torch.float8_e4m3fn`` / ``torch.bfloat16``, so no ``ml_dtypes`` is
 needed where the port runs.
 
@@ -26,9 +27,11 @@ __all__ = ["params_from_numpy", "tensor_from_numpy", "load_gluon_params"]
 
 # numpy dtype names that torch.from_numpy does not take -> (the numpy
 # integer type of their bytes, the torch dtype to view them as); a raw
-# 2-byte void (``|V2``) is a bf16 element that lost its dtype
+# 1-byte void (``|V1``) is an fp8 e4m3 element, a raw 2-byte void
+# (``|V2``) a bf16 element, that lost its dtype
 _RAW = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
         "bfloat16": (np.int16, torch.bfloat16),
+        "void8": (np.uint8, torch.float8_e4m3fn),
         "void16": (np.int16, torch.bfloat16)}
 
 

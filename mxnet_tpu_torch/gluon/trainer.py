@@ -18,12 +18,25 @@ Parameters are read at each step, not at construction, so a ``Dense``
 whose shape is deferred until the first forward is updated once it
 exists (the JAX Trainer's ``_params_to_init``); until then it is
 skipped.
+
+Checkpoints: ``save_states``/``load_states`` write and read the
+optimizer's states alone (atomically); ``save_state``/``restore_state``/
+``ckpt_wait`` the full training state through the checkpoint stack of
+:mod:`mxnet_tpu_torch.resilience` (the reference's directory layout and
+formats), for a bit-exact resume after a restart.
 """
 from __future__ import annotations
 
-import os
+import pickle
+
+import numpy as np
+import torch
 
 from .. import optimizer as opt
+from ..resilience import async_writer as _aw
+from ..resilience import checkpoint as _ckpt
+from ..resilience import faults
+from ..resilience.atomic import atomic_write
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -45,6 +58,8 @@ class Trainer:
                     "First argument must be a list or dict of Parameters, "
                     f"got list of {type(p)}.")
         self._params = list(params)
+        self._step_count = 0
+        self._ckpt_mgrs = {}   # realpath(run_dir) -> CheckpointManager
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
@@ -86,6 +101,9 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self._update(ignore_stale_grad)
+        self._step_count += 1
+        _aw.note_step_overlap()
+        faults.on_step(self._step_count)
 
     def allreduce_grads(self):
         """Sum the gradients across devices: nothing to do on one."""
@@ -111,11 +129,11 @@ class Trainer:
 
     def save_states(self, fname):
         """Write the optimizer's states (numpy arrays, see
-        ``optimizer/updater.py``) to ``fname``, atomically."""
-        tmp = f"{fname}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
+        ``optimizer/updater.py``) to ``fname`` through ``atomic_write``
+        (temp file + fsync + rename): a crash mid-write leaves the
+        previous file."""
+        with atomic_write(fname) as f:
             f.write(self._updaters[0].get_states(dump_optimizer=False))
-        os.replace(tmp, fname)
 
     def load_states(self, fname):
         """Read states written by :meth:`save_states`; they move to
@@ -126,3 +144,123 @@ class Trainer:
         self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._fused = None  # the optimizer object may have been replaced
+
+    # -------------------------------------------------- full-state ckpt --
+    def save_state(self, run_dir, step=None, epoch=None, keep=5,
+                   num_shards=None):
+        """Commit the full training state to a crash-safe checkpoint
+        directory (reference: ``mxnet_tpu/gluon/trainer.py save_state``):
+        parameter values, optimizer slots and update counts, the AMP loss
+        scaler's state, torch's CPU and CUDA generator states (dropout
+        draws from them) and the step counter. With :meth:`restore_state`
+        a run resumes bit for bit across a restart.
+
+        ``MXNET_TPU_CKPT_SHARDED`` (or ``num_shards=``) writes the
+        parallel per-shard v2 layout; ``MXNET_TPU_CKPT_ASYNC=1`` snapshots
+        the state to the host here (blocking copies: the step boundary is
+        consistent) and serializes it on a background writer, returning
+        an :class:`~mxnet_tpu_torch.resilience.AsyncSaveHandle` instead of
+        the path (:meth:`ckpt_wait` joins; a failed background write
+        raises ``CheckpointWriteError`` on the next save or wait).
+        Returns None on non-zero ranks of a process group."""
+        # keyed by position, not name: name prefixes count up per process
+        arrays = {f"param:{i}": p._data for i, p in enumerate(self._params)
+                  if p._data is not None}
+        # the Adam-family bias corrections count on the optimizer itself
+        blob = pickle.dumps({
+            "updater": self._updaters[0].get_states(dump_optimizer=False),
+            "optimizer": type(self._optimizer).__name__,
+            "index_update_count": dict(
+                self._optimizer._index_update_count),
+            "num_update": self._optimizer.num_update,
+            "rng": _rng_state()})
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        extra = {
+            "trainer": "gluon",
+            "step_count": self._step_count,
+            "scaler": scaler.state_dict() if scaler is not None else None,
+            "param_names": [p.name for p in self._params],
+        }
+        mgr = _ckpt.manager_for(self._ckpt_mgrs, run_dir, keep=keep,
+                                num_shards=num_shards)
+        return mgr.save(arrays,
+                        step=self._step_count if step is None else step,
+                        epoch=epoch, extra=extra,
+                        blobs={_ckpt.TRAINER_FILE: blob})
+
+    def ckpt_wait(self):
+        """Join every in-flight async checkpoint save this trainer
+        started; drains all run dirs before raising the first failure.
+        A no-op when async checkpointing is off."""
+        first = None
+        for mgr in self._ckpt_mgrs.values():
+            try:
+                mgr.wait()
+            except BaseException as exc:   # noqa: B036 — InjectedCrash
+                if first is None:
+                    first = exc
+        if first is not None:
+            raise first
+
+    def restore_state(self, run_dir):
+        """Restore from the newest valid checkpoint under ``run_dir``
+        (corrupt or partial ones are skipped); reads the reference's
+        checkpoints too (their RNG entry and ``compiled_step`` entry do
+        not apply here and are ignored). Returns the manifest, whose
+        ``step``/``extra`` tell the loop where to resume. Raises
+        ``CheckpointCorruptError`` if nothing restorable exists and
+        ``InternalError`` on a missing or mis-shaped parameter."""
+        from .. import error
+        path, manifest = _ckpt.latest_checkpoint(run_dir)
+        if path is None:
+            raise error.CheckpointCorruptError(
+                f"'{run_dir}': no restorable checkpoint found")
+        arrays = _ckpt.read_arrays(path, manifest)
+        for i, p in enumerate(self._params):
+            v = arrays.get(f"param:{i}")
+            if v is None:
+                if p._data is not None:
+                    raise error.InternalError(
+                        f"checkpoint '{path}' is missing parameter #{i} "
+                        f"('{p.name}')")
+                continue
+            if p._data is not None and tuple(p.shape) != tuple(v.shape):
+                raise error.InternalError(
+                    f"checkpoint '{path}' parameter #{i} ('{p.name}') has "
+                    f"shape {tuple(v.shape)}, trainer expects {p.shape}")
+            p.set_data(v)
+        blob = pickle.loads(_ckpt.read_blob(path, _ckpt.TRAINER_FILE,
+                                            manifest))
+        self._updaters[0].set_states(blob["updater"])
+        self._updaters[0].optimizer = self._optimizer
+        self._optimizer._index_update_count = {
+            int(k): int(v)
+            for k, v in blob.get("index_update_count", {}).items()}
+        self._optimizer.num_update = int(
+            blob.get("num_update", self._optimizer.num_update))
+        self._fused = None   # its tables point at the replaced states
+        if blob.get("rng") is not None:
+            _set_rng_state(blob["rng"])
+        extra = manifest.get("extra", {})
+        self._step_count = int(extra.get("step_count",
+                                         manifest.get("step", 0)))
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and extra.get("scaler") is not None:
+            scaler.load_state_dict(extra["scaler"])
+        return manifest
+
+
+def _rng_state():
+    """torch's CPU generator state and, once CUDA is in use, each
+    card's, as uint8 numpy arrays."""
+    cuda = None
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        cuda = [s.numpy() for s in torch.cuda.get_rng_state_all()]
+    return {"cpu": torch.get_rng_state().numpy(), "cuda": cuda}
+
+
+def _set_rng_state(state):
+    torch.set_rng_state(torch.from_numpy(np.array(state["cpu"])))
+    if state.get("cuda") is not None and torch.cuda.is_available():
+        for i, s in enumerate(state["cuda"][:torch.cuda.device_count()]):
+            torch.cuda.set_rng_state(torch.from_numpy(np.array(s)), i)

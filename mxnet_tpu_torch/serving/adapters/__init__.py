@@ -9,9 +9,15 @@ pools in place, so publishing, evicting or switching adapters captures
 and builds nothing. Per-request adapters ride the step's batch as
 tensors (``ops/lora.py``): see ``LLMServer.submit(adapter=...)``.
 
-The reference's ``AdapterRegistry`` and ``LoRAFineTuneJob`` /
-``AdapterFineTunePublisher`` are not ported yet (ROADMAP.md, section 1
-item 6b).
+:class:`AdapterRegistry` (``registry.py``) is the on-disk tier below the
+bank: sharded checkpoint manifests per adapter (the reference's layout),
+more adapters than the bank has pages; the bank faults cold adapters in
+from it, evicting cold residents.
+
+Not ported yet: the reference's ``LoRAFineTuneJob`` /
+``AdapterFineTunePublisher`` (``training.py``), which train through
+``Trainer.compile_step``, a compiled train step the port's Trainer does
+not have yet (ROADMAP.md, section 1 item 13).
 """
 # the engine imports the bank: load the LLM package first, so that an
 # import of this package first finds it whole
@@ -19,9 +25,10 @@ from .. import llm as _llm  # noqa: F401
 from .bank import (AdapterBank, AdapterHandle, AdapterError,
                    UnknownAdapterError, NoFreeAdapterPagesError,
                    AdapterAccountingError, NULL_ADAPTER_PAGE)
+from .registry import AdapterRegistry
 
 __all__ = [
-    "AdapterBank", "AdapterHandle",
+    "AdapterBank", "AdapterHandle", "AdapterRegistry",
     "AdapterError", "UnknownAdapterError", "NoFreeAdapterPagesError",
     "AdapterAccountingError", "NULL_ADAPTER_PAGE",
 ]

@@ -16,9 +16,9 @@ refcounted :class:`~..llm.kv_cache.BlockAllocator`:
   admission, released on finish, evict or expiry, kept across
   preemption, so a restarted request keeps the factors it started with);
 - a resident adapter with no in-flight user is cold: it parks in an
-  adapter-level LRU and is reclaimed, oldest first, when a publish
-  outgrows the pool (``evictions["capacity"]``), the whole multi-page
-  adapter at once;
+  adapter-level LRU and is reclaimed, oldest first, when a publish or a
+  registry fault-in outgrows the pool (``evictions["capacity"]``), the
+  whole multi-page adapter at once;
 - republishing a live adapter never blocks: the new version installs
   into fresh pages and the name flips; the old version's pages are
   detached (baseline dropped, in-flight users keep theirs) and drain to
@@ -50,13 +50,17 @@ stream after an admission reads the installed factors; pages that
 in-flight requests use are never rewritten, so a step racing a publish
 reads valid factors for every row of its batch.
 
-Every retirement drops an ``adapter.evict`` event into the flight
-recorder (reason, version, users left).
+With a :class:`~.registry.AdapterRegistry` (``registry=``), publishes
+persist to disk first and :meth:`acquire` faults a registered,
+non-resident adapter in: the disk read, then the same in-place install
+and synchronise as a publish, all under the bank's lock on the thread
+that admits the request (the engine's), evicting cold residents when
+the pool is full. Pages an in-flight row holds are never evicted (they
+have users), so a fault-in never rewrites what a replay reads.
 
-Not ported yet (ROADMAP.md, section 1 item 6b): the on-disk
-``AdapterRegistry`` (``registry=`` raises ``NotImplementedError``), with
-the fault-in path whose ``adapter.fault_in`` event it carries, and the
-fine-tune-and-publish loop.
+Every retirement drops an ``adapter.evict`` event into the flight
+recorder (reason, version, users left), every fault-in an
+``adapter.fault_in`` event.
 """
 from __future__ import annotations
 
@@ -79,26 +83,21 @@ __all__ = ["AdapterBank", "AdapterHandle", "AdapterError",
 # page 0 is reserved and all-zero: the null adapter's factor source
 NULL_ADAPTER_PAGE = 0
 
-_DEFERRED = {
-    "registry": "the adapter registry (it needs the port's "
-                "resilience/checkpoint.py)",
-}
-
 
 class AdapterError(RuntimeError):
     """Base class for adapter-bank failures."""
 
 
 class UnknownAdapterError(AdapterError, KeyError):
-    """The adapter name is not resident."""
+    """The adapter name is neither resident nor in the registry."""
 
     def __str__(self):          # KeyError quotes its arg; keep prose
         return RuntimeError.__str__(self)
 
 
 class NoFreeAdapterPagesError(AdapterError):
-    """publish could not get pages even after evicting every cold
-    adapter: the pool is pinned by in-flight requests."""
+    """publish or a fault-in could not get pages even after evicting
+    every cold adapter: the pool is pinned by in-flight requests."""
 
 
 class AdapterAccountingError(AdapterError):
@@ -154,17 +153,15 @@ class AdapterBank:
     ``page_rank`` is the rank of one page (env
     ``MXNET_TPU_LLM_ADAPTER_RANK``, default 4); ``max_pages_per_adapter``
     caps one adapter's rank at ``page_rank * max_pages_per_adapter``.
-    ``dtype`` is the pools' float type (``"float32"`` default).
-    Thread-safe."""
+    ``registry`` is an optional :class:`~.registry.AdapterRegistry`:
+    publishes persist to it and unknown but registered names fault in on
+    demand (evicting cold residents). ``dtype`` is the pools' float type
+    (``"float32"`` default). Thread-safe."""
 
     def __init__(self, num_layers, d_model, max_adapters=None,
                  page_rank=None, max_pages_per_adapter=2,
                  registry=None, stats=None, dtype="float32",
                  device="cuda"):
-        if registry is not None:
-            raise NotImplementedError(
-                f"registry=: {_DEFERRED['registry']} is not ported to the "
-                f"PyTorch bank yet (ROADMAP.md, section 1)")
         if max_adapters is None:
             max_adapters = env_int("MXNET_TPU_LLM_MAX_ADAPTERS", 8)
         if page_rank is None:
@@ -188,6 +185,7 @@ class AdapterBank:
         name = dtype if isinstance(dtype, str) else \
             str(dtype).removeprefix("torch.")
         self.dtype = getattr(torch, name)
+        self._registry = registry
         self._lock = threading.Lock()
 
         L, d, r, P = (self.num_layers, self.d_model, self.page_rank,
@@ -208,6 +206,7 @@ class AdapterBank:
         self._detached = []                            # guarded-by: _lock
         self._versions = {}                            # guarded-by: _lock
         self._publishes = 0                            # guarded-by: _lock
+        self._loads = 0                                # guarded-by: _lock
         self._acquires = 0                             # guarded-by: _lock
         self._evictions = {"capacity": 0, "explicit": 0,
                            "republish": 0}             # guarded-by: _lock
@@ -281,8 +280,9 @@ class AdapterBank:
         """Install adapter ``name`` (factors ``a [L, 4, d, R]``, ``b [L,
         4, R, d]``) into the bank; returns the new version. A republish
         of a live name detaches the old version's pages to its in-flight
-        users and flips the name. ``persist`` is the reference's
-        registry flag (no registry here: nothing to persist)."""
+        users and flips the name. With a registry attached (and
+        ``persist``), the factors are checkpointed first, so a later
+        capacity eviction can always fault the adapter back in."""
         L, d = self.num_layers, self.d_model
         a = np.asarray(a, np.float32)
         b = np.asarray(b, np.float32)
@@ -314,6 +314,9 @@ class AdapterBank:
                 f"adapter {name!r}: factors and alpha must be finite")
         with self._lock:
             version = self._versions.get(name, 0) + 1
+            if persist and self._registry is not None:
+                self._registry.save(name, a, b, alpha=alpha,
+                                    version=version)
             return self._publish_locked(name, a, b, rank, scale, version)
 
     # guarded-by: caller
@@ -412,21 +415,24 @@ class AdapterBank:
 
     # -------------------------------------------------------- serving --
     def known(self, name):
-        """True when ``name`` can be acquired (resident now). The server
-        checks ``submit(adapter=...)`` here, on the caller's thread."""
+        """True when ``name`` can be acquired: resident now, or loadable
+        from the registry. The server checks ``submit(adapter=...)``
+        here, on the caller's thread."""
         with self._lock:
-            return name in self._resident
+            if name in self._resident:
+                return True
+        return self._registry is not None and self._registry.has(name)
 
     def acquire(self, name, tenant=None):
         """Pin adapter ``name`` for one in-flight request: +1 user, +1
-        allocator reference a page. Returns an :class:`AdapterHandle`;
-        every successful acquire is paired with one :meth:`release`."""
+        allocator reference a page. Faults the adapter in from the
+        registry when it is not resident (evicting cold residents on a
+        full pool). Returns an :class:`AdapterHandle`; every successful
+        acquire is paired with one :meth:`release`."""
         with self._lock:
             rec = self._resident.get(name)
             if rec is None:
-                raise UnknownAdapterError(
-                    f"adapter {name!r} is not resident (and the port's "
-                    f"bank has no registry to load it from)")
+                rec = self._fault_in_locked(name)
             self._acquires += 1
             rec.users += 1
             self._cold.pop(name, None)
@@ -437,6 +443,33 @@ class AdapterBank:
             pad = (NULL_ADAPTER_PAGE,) * (self.max_pages_per_adapter
                                           - len(rec.pages))
             return AdapterHandle(rec, rec.pages + pad)
+
+    # guarded-by: caller
+    def _fault_in_locked(self, name):
+        if self._registry is None or not self._registry.has(name):
+            raise UnknownAdapterError(
+                f"adapter {name!r} is neither resident nor in the "
+                "registry")
+        a, b, alpha, version = self._registry.load(name)
+        rank = a.shape[3]
+        scale = (float(alpha) if alpha is not None else float(rank)) \
+            / float(rank)
+        # as publish refuses them: one non-finite page reaches every row
+        if not (np.isfinite(a).all() and np.isfinite(b).all()
+                and np.isfinite(scale)):
+            raise AdapterError(
+                f"adapter {name!r}: the registry's factors or alpha are "
+                "not finite")
+        self._loads += 1
+        self._publish_locked(name, a, b, rank, scale,
+                             max(version, self._versions.get(name, 0)))
+        rec = self._resident[name]
+        if self._flight.enabled:
+            self._flight.event(
+                "adapter.fault_in",
+                attrs={"adapter": name, "version": rec.version,
+                       "rank": rank, "pages": len(rec.pages)})
+        return rec
 
     def release(self, handle):
         """Drop one request's pin. The last release of a current version
@@ -499,10 +532,10 @@ class AdapterBank:
                 "pages_free": self._alloc.num_free,
                 "publishes": self._publishes,
                 "acquires": self._acquires,
-                # every acquire finds its adapter resident: the port has
-                # no registry to fault one in from
-                "acquire_hits": self._acquires,
-                "registry_loads": 0,
+                # residency hits: acquires that found the adapter in
+                # the pool (faults are the registry_loads)
+                "acquire_hits": self._acquires - self._loads,
+                "registry_loads": self._loads,
                 "evictions": dict(self._evictions),
                 "max_adapters": self.max_adapters,
                 "page_rank": self.page_rank,

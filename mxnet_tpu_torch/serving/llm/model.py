@@ -55,7 +55,8 @@ DENSE_ROWS = 128
 
 
 class DecoderConfig:
-    """Shape of a :class:`TinyDecoder`."""
+    """Shape of a :class:`TinyDecoder` (serializable for deploy: the
+    reference's dict, so either package reads the other's artifacts)."""
 
     FIELDS = ("vocab_size", "d_model", "num_layers", "num_heads",
               "d_ff", "max_context")
@@ -75,6 +76,13 @@ class DecoderConfig:
             raise ValueError(
                 f"d_model {d_model} not divisible by heads {num_heads}")
         self.head_dim = self.d_model // self.num_heads
+
+    def to_dict(self):
+        return {f: getattr(self, f) for f in self.FIELDS}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(**{f: d[f] for f in cls.FIELDS})
 
     def __repr__(self):
         return ("DecoderConfig(" + ", ".join(

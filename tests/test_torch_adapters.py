@@ -41,8 +41,8 @@ from mxnet_tpu.serving import llm as jllm  # noqa: E402
 from mxnet_tpu.serving.adapters import AdapterBank as JBank  # noqa: E402
 from mxnet_tpu_torch.serving import llm as tllm  # noqa: E402
 from mxnet_tpu_torch.serving.adapters import (  # noqa: E402
-    AdapterBank, AdapterAccountingError, NoFreeAdapterPagesError,
-    UnknownAdapterError)
+    AdapterBank, AdapterAccountingError, AdapterRegistry,
+    NoFreeAdapterPagesError, UnknownAdapterError)
 from mxnet_tpu_torch.serving.llm.metrics import LLMStats  # noqa: E402
 from mxnet_tpu_torch.serving.telemetry import compile_count  # noqa: E402
 
@@ -314,10 +314,15 @@ def test_submit_adapter_needs_a_bank_and_a_known_name(world):
     assert tb.stats()["in_use"] == 0 and tb.check()
 
 
-def test_bank_and_engine_refuse_what_they_do_not_take(world):
+def test_bank_and_engine_refuse_what_they_do_not_take(world, tmp_path):
     _, tm, npp, _, _, _, _, _ = world
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdapterBank(L, D, registry=object(), device="cpu")
+    # a registry is taken (tests/test_torch_registry.py); a name it does
+    # not hold stays unknown
+    reg_bank = AdapterBank(L, D, registry=AdapterRegistry(str(tmp_path)),
+                           device="cpu")
+    assert not reg_bank.known("ghost")
+    with pytest.raises(UnknownAdapterError):
+        reg_bank.acquire("ghost")
     bad = AdapterBank(L + 1, D, max_adapters=1, device="cpu")
     with pytest.raises(ValueError, match="layers"):
         tllm.LLMEngine(tm, npp, max_seqs=2, block_size=BS,

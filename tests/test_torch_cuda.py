@@ -2159,3 +2159,148 @@ def test_captured_step_under_faults_tracer_and_recorder(cuda, mode,
         fl.clear()
     assert srv.engine.cache.allocator.num_used == 0
     assert srv.engine.cache.check(live_block_ids=[])
+
+
+# ------------------------------------------------------ the on-disk tier --
+@pytest.mark.cuda
+def test_nd_save_of_cuda_tensors(cuda, tmp_path):
+    """``nd.save`` of CUDA tensors (bf16 through its bytes) writes the
+    file of the same tensors on the host but for each record's ctx code
+    (2, the reference's gpu); ``load(device=)`` brings the same bits back
+    to the card."""
+    rng = np.random.RandomState(0)
+    host = {"bf": torch.from_numpy(rng.randn(3, 5).astype(np.float32)).to(
+                torch.bfloat16),
+            "f32": torch.from_numpy(rng.randn(4).astype(np.float32)),
+            "i8": torch.arange(-3, 3, dtype=torch.int8),
+            "zero_d": torch.tensor(2.5, dtype=torch.bfloat16)}
+    pc, pd = str(tmp_path / "c.params"), str(tmp_path / "d.params")
+    mc = nd.save(pc, host)
+    md = nd.save(pd, {k: v.to(cuda) for k, v in host.items()})
+    assert mc["arrays"] == md["arrays"]
+    a, b = open(pc, "rb").read(), open(pd, "rb").read()
+    assert len(a) == len(b)
+    diff = [i for i in range(len(a)) if a[i] != b[i]]
+    assert len(diff) == len(host)        # one ctx byte a record
+    assert all(a[i] == 1 and b[i] == 2 for i in diff)
+    back = nd.load(pd, manifest=md["arrays"], device=cuda)
+    for k, v in host.items():
+        assert back[k].device.type == "cuda" and back[k].dtype == v.dtype
+        assert torch.equal(back[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_snapshot_is_immune_to_the_fused_update(cuda, tmp_path,
+                                                monkeypatch):
+    """An async ``save_state`` snapshots on the card's step boundary; the
+    fused update kernel then rewrites weights and Adam slots in place
+    while the writer is parked: the checkpoint holds the bits of the
+    saved step (restored into a fresh Trainer), not the later ones."""
+    from mxnet_tpu_torch import resilience as rz
+    from mxnet_tpu_torch.gluon.parameter import Parameter
+    from mxnet_tpu_torch.resilience import async_writer as aw
+    from mxnet_tpu_torch.resilience import faults
+    monkeypatch.setenv("MXNET_TPU_CKPT_ASYNC", "1")
+    monkeypatch.setenv("MXNET_TPU_FUSED_UPDATE", "1")
+
+    def make(seed):
+        rs = np.random.RandomState(seed)
+        params = []
+        for i in range(6):
+            p = Parameter(f"w{i}", shape=(256 + 64 * i, 96))
+            p.initialize(device=cuda)
+            p.set_data(torch.from_numpy(rs.randn(*p.shape).astype(
+                np.float32)))
+            params.append(p)
+        return params, tgluon.Trainer(params, "adam",
+                                      {"learning_rate": 1e-2})
+
+    def step(params, tr, seed):
+        rs = np.random.RandomState(seed)
+        for p in params:
+            p.grad().copy_(torch.from_numpy(rs.randn(*p.shape).astype(
+                np.float32)))
+        tr.step(4)
+    params, tr = make(0)
+    step(params, tr, 1)
+    want = [p.data().detach().clone() for p in params]
+    want += [s.clone() for i in sorted(tr._updaters[0].states)
+             for s in tr._updaters[0].states[i]]
+    run = str(tmp_path / "run")
+    gate = faults.block_at("checkpoint.write")
+    try:
+        handle = tr.save_state(run, num_shards=2)
+        assert gate.wait_reached()
+        launches = kernels.launch_counts().get("adam_update", 0)
+        for s in range(3):
+            step(params, tr, 2 + s)     # in place, while the save waits
+        assert kernels.launch_counts().get("adam_update", 0) > launches
+        assert tr._fused.last_dispatches == 1
+        assert not torch.equal(params[0].data(), want[0])
+        gate.release()
+        handle.result(120)
+    finally:
+        faults.reset()
+        aw._reset_for_tests()
+    params2, tr2 = make(9)
+    tr2.restore_state(run)
+    step(params2, tr2, 2)       # moves the restored slots to the card
+    got = [p.data().detach() for p in params2]
+    params3, tr3 = make(9)
+    tr3.restore_state(run)
+    for p, w in zip(params3, want[:len(params)]):
+        assert torch.equal(p.data().detach(), w)
+    slots = [torch.as_tensor(np.asarray(s)) for i in
+             sorted(tr3._updaters[0].states)
+             for s in tr3._updaters[0].states[i]]
+    for s, w in zip(slots, want[len(params):]):
+        assert torch.equal(s.cpu(), w.cpu())
+    params4, tr4 = make(0)
+    step(params4, tr4, 1)
+    step(params4, tr4, 2)
+    for a, b in zip(got, params4):
+        assert torch.equal(a, b.data().detach())
+
+
+@pytest.mark.cuda
+def test_registry_fault_in_under_the_captured_step(cuda, tmp_path):
+    """Graphs captured before any adapter is resident; adapters only the
+    registry holds (and one evicted for capacity) fault in at admission,
+    copied into the pools in place and synchronised before the replay
+    that reads them: the streams equal a CPU engine's over a bank with
+    the same factors published, nothing is built or captured, one
+    replay a dispatch, and ``registry_loads`` counts every fault-in."""
+    from mxnet_tpu_torch.serving.adapters import (AdapterBank,
+                                                  AdapterRegistry)
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    reg = AdapterRegistry(str(tmp_path / "reg"), num_shards=2)
+    names = {"ada": (1, 4), "bob": (2, 8), "cal": (3, 8), "dan": (4, 8)}
+    for n, (seed, rank) in names.items():
+        reg.save(n, *_lora_factors(seed, rank))
+    bank = AdapterBank(2, 32, max_adapters=3, page_rank=4, registry=reg,
+                       device=cuda)
+    eng = _lora_engine(cuda, bank)
+    eng.warmup()
+    compiles, progs = compile_count(), eng.programs()
+    rng = np.random.RandomState(5)
+    waves = [("ada", "bob", None), ("cal", "dan", "ada"),
+             ("bob", None, "cal")]
+    cases = [[(rng.randint(0, 48, size=n).tolist(), 8, a)
+              for n, a in zip((5, 17, 9), w)] for w in waves]
+    got = [_lora_drain(eng, c) for c in cases]
+    st = bank.stats()
+    assert st["registry_loads"] == 7 and st["evictions"]["capacity"] == 4
+    assert eng.pop_poison() == []
+    assert compile_count() == compiles
+    after = eng.programs()
+    assert after["graphs"] == progs["graphs"]
+    assert after["replays"] - progs["replays"] == \
+        after["dispatches"] - progs["dispatches"] > 0
+    cpu_bank = AdapterBank(2, 32, max_adapters=4, page_rank=4,
+                           max_pages_per_adapter=2, device="cpu")
+    for n, (seed, rank) in names.items():
+        cpu_bank.publish(n, *_lora_factors(seed, rank))
+    cpu = _lora_engine(torch.device("cpu"), cpu_bank)
+    assert got == [_lora_drain(cpu, c) for c in cases]
+    assert bank.check() and bank.stats()["in_use"] == 0
+    eng.release_graphs()
