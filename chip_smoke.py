@@ -105,6 +105,22 @@ Phases, one line of output each (or more), in order:
    ``load_decoder`` onto the card, the loaded weights the in-memory
    ones' bits, greedy streams bit-identical to a server on the in-memory
    params; artifact bytes, export and load ms;
+   5h. the fleet (``run_fleet_phase``): one ``FleetRouter`` over the
+   chat ``LLMServer`` (GPT-2-small widths, f32 pools) and an encode
+   ``ModelServer`` over BERT-base returning the pooled output of 128
+   token ids (buckets 1, 2, 4, 8, one CUDA graph each): ragged bursts
+   of encode requests (each batch row bit-identical to the sample alone
+   through its bucket's graph, every output against the plain path,
+   one replay a batch); chat v2 published from a 2-shard checkpoint
+   while two threads per model submit (every Future typed, post-swap
+   streams against the oracle over v2); the encoder fine-tuned (2 Adam
+   steps of ``L2Loss``, v1 serving its snapshot meanwhile) and
+   published through ``FineTunePublisher`` (served against the trained
+   block); no build, and captures only in each publish's warm phase;
+   a publish killed at its drain rolls back; the quota sheds one
+   tenant; each publish's phase seconds and graph pools (both replicas'
+   during the drain), tokens/s and encode requests/s before, during
+   and after the swap, encode p50/p99 latency, a profiled encode pass;
    every serving phase (and the default config's, below) serves through
    CUDA graphs: ``warmup()`` captures one a rung (the graphs, capture
    seconds and the graph pool's bytes are printed), and the phase checks
@@ -312,6 +328,15 @@ SPEC_K, DRAFT_LAYERS = 2, 6
 BERT_BASE = dict(vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512)
 BERT_BATCH, BERT_T, BERT_LR, BERT_STEPS = 8, 512, 1e-4, 10
+# phase 5h, the fleet: the encode model's items (token ids a request) and
+# buckets, the chat traffic's new tokens, the seconds of traffic before
+# and after the chat swap, and the tolerance of a served pooled output
+# against the plain path (flash=False), relative to the output's largest
+# magnitude: K6's own (the rest of the forward is the same f32 ops on
+# both paths; the tanh pooler keeps the output O(1))
+ENCODE_T, ENCODE_BUCKETS, FLEET_NEW_TOKENS, FLEET_PUMP_S = \
+    128, (1, 2, 4, 8), 16, 2.0
+ENCODE_REL_TOL = FLASH_REL_TOL
 # paged decode through the model interface: prefill chunk, decode steps
 CHUNK_Q, DECODE_STEPS = 16, 32
 # the chunk and decode kernels' rows: S rows of kv lengths over 15..1024
@@ -3230,6 +3255,587 @@ def run_artifact_phase(torch, rng, np_params, kernels):
     return counts
 
 
+# ----------------------------------------------------- the fleet (5h) --
+def make_bert_encoder(flash=True, **cfg):
+    """BERT (dropout off) serving its pooled output: ``forward(token ids
+    (B, T), int) -> pooled (B, units)``, phase 5h's encode model."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+
+    class PooledBert(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.bert = BERTModel(dropout=0.0, flash=flash, **cfg)
+
+        def forward(self, tokens):
+            return self.bert(tokens)[1]
+    return PooledBert()
+
+
+def encode_server(block, name):
+    """``ModelServer`` over an encoder block: items of ``ENCODE_T`` int32
+    token ids, buckets ``ENCODE_BUCKETS``."""
+    from mxnet_tpu_torch.serving import ModelServer
+    return ModelServer(block, buckets=list(ENCODE_BUCKETS),
+                       max_delay_ms=2.0, item_shape=(ENCODE_T,),
+                       dtype="int32", name=name)
+
+
+def encode_builder(cfg, name):
+    """The encode entry's builder: a fresh encoder on the card with the
+    published arrays (host numpy by name) copied in, behind a new
+    server."""
+    from mxnet_tpu_torch.convert import load_gluon_params
+    from mxnet_tpu_torch.initializer import Zero
+
+    def build(arrays):
+        block = make_bert_encoder(**cfg)
+        block.initialize(Zero(), device=DEVICE)
+        load_gluon_params(block, arrays)
+        return encode_server(block, name)
+    return build
+
+
+def replica(server):
+    """What holds a replica's graphs: an ``LLMServer``'s engine, or the
+    ``ModelServer`` itself (``programs()``, ``graph_pool_bytes()``)."""
+    return server.engine if hasattr(server, "engine") else server
+
+
+def graphs_of(server):
+    return replica(server).programs()["graphs"]
+
+
+def capture_seconds(server):
+    cs = replica(server).programs()["capture_seconds"]
+    return sum(cs.values()) if isinstance(cs, dict) else cs
+
+
+def replays_are_dispatches(tag, server):
+    """Every dispatch of ``server`` (an LLM engine's steps, a model
+    server's batches) was one graph replay."""
+    progs = replica(server).programs()
+    check(progs["dispatches"] > 0 and progs["replays"]
+          == progs["dispatches"], f"{tag}: {progs['replays']} replays for "
+          f"{progs['dispatches']} dispatches")
+    return progs
+
+
+def gated_publish(torch, router, model, publish):
+    """Run ``publish()`` (a ``router.publish`` or a publisher's round)
+    on a thread of its own, parked at the ``fleet.drain`` point (the
+    route already on the new replica, the old not yet quiesced) while
+    both replicas' graph pools, capture seconds and the device's
+    allocated bytes are read. Returns (publish's result, the reading,
+    the publish's wall seconds)."""
+    import threading
+    from mxnet_tpu_torch.resilience import faults
+    gate = faults.block_at("fleet.drain")
+    out = {}
+
+    def run():
+        try:
+            out["result"] = publish()
+        except BaseException as exc:       # re-raised on this thread
+            out["error"] = exc
+    t0 = time.monotonic()
+    th = threading.Thread(target=run, name="mxt-smoke-publish")
+    th.start()
+    seen = None
+    try:
+        if gate.wait_reached(900):
+            entry = router._models[model]
+            old, new = entry.active.server, entry.route.server
+            torch.cuda.synchronize()
+            seen = dict(old_pool=replica(old).graph_pool_bytes(),
+                        new_pool=replica(new).graph_pool_bytes(),
+                        new_graphs=graphs_of(new),
+                        capture_s=capture_seconds(new),
+                        allocated=torch.cuda.memory_allocated())
+    finally:
+        gate.release()
+        th.join(900)
+        faults.reset()
+    if "error" in out:
+        raise out["error"]
+    check(seen is not None, f"{model}: the publish never reached its "
+          "drain")
+    return out["result"], seen, time.monotonic() - t0
+
+
+def publish_line(tag, router, seen, wall):
+    log_ = router.last_publish
+    log(f"{tag}: publish v{log_['version']} in {wall:.2f}s: phases "
+        + ", ".join(f"{p} {s:.3f}s" for p, s in log_["phases"].items())
+        + f"; builds + captures by phase {log_['compiles']}; the new "
+        f"replica's {seen['new_graphs']} graphs captured in "
+        f"{seen['capture_s']:.2f}s, graph pool "
+        f"{seen['new_pool'] / 1e6:.1f} MB; during the drain the old "
+        f"replica's pool {seen['old_pool'] / 1e6:.1f} MB beside it, device "
+        f"memory allocated {seen['allocated'] / 1e9:.2f} GB")
+
+
+class FleetPump:
+    """Threads submitting through a router until stopped: ``chat``
+    threads 2 prompts at a time (8 to 96 tokens, ``FLEET_NEW_TOKENS``
+    greedy), ``encode`` threads bursts of 4 samples; each waits for its
+    own. Every request lands in ``records`` as (done time, kind,
+    outcome, tokens, latency s): outcome ``served``, ``shed``,
+    ``evicted``, ``expired`` or ``error:<type>``."""
+
+    def __init__(self, router, vocab, seed):
+        import threading
+        self.router, self.vocab, self.seed = router, vocab, seed
+        self.stop = threading.Event()
+        self.lock = threading.Lock()
+        self.records = []
+        self.threads = []
+
+    def start(self, kind):
+        """Two threads submitting ``kind`` requests."""
+        import threading
+        for i in range(2):
+            th = threading.Thread(target=self._run, args=(
+                kind, self.seed + len(self.threads)),
+                name=f"mxt-smoke-{kind}{i}")
+            self.threads.append(th)
+            th.start()
+
+    def _record(self, kind, outcome, tokens, t0):
+        now = time.monotonic()
+        with self.lock:
+            self.records.append((now, kind, outcome, tokens, now - t0))
+
+    def _run(self, kind, seed):
+        from mxnet_tpu_torch.serving import (
+            DeadlineExceededError, Overloaded, SequenceEvictedError)
+        rng = np.random.RandomState(seed)
+        while not self.stop.is_set():
+            if kind == "chat":
+                args = [(rng.randint(0, self.vocab, size=rng.randint(
+                    8, 97)).tolist(), FLEET_NEW_TOKENS) for _ in range(2)]
+            else:
+                args = [(rng.randint(0, BERT_BASE["vocab_size"],
+                                     size=ENCODE_T).astype(np.int32),)
+                        for _ in range(4)]
+            pending = []
+            for a in args:
+                t0 = time.monotonic()
+                try:
+                    pending.append((self.router.submit(kind, *a), t0))
+                except Overloaded:
+                    self._record(kind, "shed", 0, t0)
+                except Exception as exc:
+                    self._record(kind, f"error:{exc!r}", 0, t0)
+            for fut, t0 in pending:
+                try:
+                    res = fut.result(timeout=600)
+                    self._record(kind, "served", len(res.tokens)
+                                 if kind == "chat" else 1, t0)
+                except SequenceEvictedError:
+                    self._record(kind, "evicted", 0, t0)
+                except DeadlineExceededError:
+                    self._record(kind, "expired", 0, t0)
+                except Overloaded:
+                    self._record(kind, "shed", 0, t0)
+                except Exception as exc:
+                    self._record(kind, f"error:{exc!r}", 0, t0)
+
+    def finish(self):
+        self.stop.set()
+        for th in self.threads:
+            th.join(900)
+            check(not th.is_alive(), f"{th.name} did not stop")
+
+    def rates(self, kind, windows):
+        """Per window ``(name, t0, t1)``: served tokens (chat) or
+        requests (encode) a second."""
+        return {name: sum(r[3] for r in self.records if r[1] == kind
+                          and r[2] == "served" and t0 <= r[0] < t1)
+                / max(t1 - t0, 1e-9) for name, t0, t1 in windows}
+
+
+def run_fleet_phase(torch, rng, np_params, kernels):
+    """Phase 5h: one ``FleetRouter`` over two full-width models, the chat
+    ``LLMServer`` at GPT-2-small widths (f32 pools, ``np_params``, the f32
+    phase's ``MAX_SEQS``/``BLOCK_SIZE``; K1 through its captured step)
+    and the encode ``ModelServer`` over BERT-base (seeded Xavier as
+    phase 8, dropout off) serving the pooled ``(B, 768)`` output of 128
+    int32 token ids, buckets 1, 2, 4, 8 (K6 inside each bucket's graph).
+
+    (a) ragged bursts of 1 to 8 concurrent encode requests: each batch
+    row bit-identical to the same sample alone through the same bucket's
+    graph, every output within ``ENCODE_REL_TOL`` (K6's) of the plain path
+    (``flash=False``, eager), no build or capture, one replay a batch,
+    ``bucket_hits`` summing to the batches;
+    (b) chat v2 (seed 1) written through a 2-shard checkpoint and
+    published with ``ckpt_dir=`` while two threads per model submit:
+    every Future typed, the partition summing to what was submitted, the
+    post-swap greedy streams the oracle's over v2, the pool clean;
+    (c) ``FineTunePublisher`` on the encoder v1 serves: 2 Adam steps of
+    ``L2Loss`` on the pooled outputs against seeded targets (K6, K7a,
+    K7b, one update launch a step; the v1 replica keeps serving its
+    snapshot bit for bit meanwhile), a sync 2-shard checkpoint, the
+    publish; the served outputs the trained block's within
+    ``ENCODE_REL_TOL``, the same bits on two replays;
+    (d) across (b) and (c): no build, captures only in each publish's
+    warm phase (the new replica's graphs), every dispatch of every
+    replica one replay;
+    (e) a publish killed at ``fleet.publish:drain`` rolls back (the same
+    streams before and after, admission open); the router's quota sheds
+    a greedy tenant typed while another tenant's streams stay the same;
+    (f) each publish's phase seconds, capture seconds and graph pools
+    (both replicas' during the drain), tokens/s and encode requests/s
+    before, during and after the swap, encode p50/p99 latency and the
+    device busy share of a profiled encode pass. Returns the launch
+    counts of the phase's serving and training."""
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import deploy, gluon
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.ops.flash_attention import KERNEL_NAMES
+    from mxnet_tpu_torch.ops.ragged_attention import kernel_name
+    from mxnet_tpu_torch.resilience import CheckpointManager, faults
+    from mxnet_tpu_torch.resilience.faults import InjectedCrash
+    from mxnet_tpu_torch.serving import (FineTunePublisher, FleetRouter,
+                                         Overloaded, pad_batch)
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    cfg = dict(BERT_BASE, max_length=ENCODE_T)
+    flat, fwd = kernel_name(torch.float32), KERNEL_NAMES[0]
+    model = TinyDecoder(device=DEVICE, **GPT2_SMALL)
+
+    def chat_builder(name):
+        def build(arrays):
+            return LLMServer(model, deploy.params_from_arrays(arrays),
+                             name=name, max_seqs=MAX_SEQS,
+                             block_size=BLOCK_SIZE, device=DEVICE)
+        return build
+    t0 = time.monotonic()
+    chat = chat_builder("fleet-chat-v1")(deploy.flatten_params(np_params))
+    chat.warmup()
+    enc = make_bert_encoder(**cfg)
+    enc.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    with ag.pause():                     # materialise the deferred shapes
+        enc(torch.zeros((1, ENCODE_T), dtype=torch.int32, device=DEVICE))
+    encode = encode_server(enc, "fleet-encode-v1")
+    encode.warmup()
+    check(graphs_of(encode) == len(ENCODE_BUCKETS),
+          f"fleet: {graphs_of(encode)} encode graphs after warmup")
+    router = FleetRouter(name="fleet-5h", quota_rps=0.05, quota_burst=3)
+    router.add_model("chat", chat.start(), version=1,
+                     builder=chat_builder("fleet-chat"))
+    router.add_model("encode", encode.start(), version=1,
+                     builder=encode_builder(cfg, "fleet-encode"))
+    log(f"fleet: chat v1 ({graphs_of(chat)} graphs captured idle in "
+        f"{capture_seconds(chat):.2f}s, pool "
+        f"{replica(chat).graph_pool_bytes() / 1e6:.1f} MB) and encode v1 "
+        f"(buckets "
+        f"{list(ENCODE_BUCKETS)} x {ENCODE_T} tokens, {graphs_of(encode)} "
+        f"graphs in {capture_seconds(encode):.2f}s, pool "
+        f"{encode.graph_pool_bytes() / 1e6:.1f} MB) behind one router, "
+        f"set up "
+        f"in {time.monotonic() - t0:.2f}s")
+    root = tempfile.mkdtemp(prefix="mxt-fleet-")
+    try:
+        # (a) batching is invisible
+        backend = encode._fn
+        seen = []
+
+        def recorded(batch):
+            out = backend(batch)
+            seen.append((batch.copy(), out.copy()))
+            return out
+        encode._fn = recorded
+        samples = rng.randint(0, cfg["vocab_size"], size=(
+            72, ENCODE_T)).astype(np.int32)
+        compiles, st0 = compile_count(), encode.stats()
+        progs0 = encode.programs()
+        kernels.reset_launch_counts()
+        served, i = [], 0
+        for k in itertools.chain(range(1, 9), range(8, 0, -1)):
+            futs = [router.submit("encode", x) for x in samples[i:i + k]]
+            served += [f.result(timeout=600) for f in futs]
+            i += k
+        launches = kernels.launch_counts()
+        add(launches)
+        encode._fn = backend
+        st, progs = encode.stats(), encode.programs()
+        batches = st["batches"] - st0["batches"]
+        replays = progs["replays"] - progs0["replays"]
+        check(compile_count() == compiles, "fleet (a): a build or capture "
+              "after warmup")
+        check(replays == batches == progs["dispatches"]
+              - progs0["dispatches"] == len(seen),
+              f"fleet (a): {replays} replays for {batches} batches")
+        check(sum(st["bucket_hits"].values()) == st["batches"],
+              "fleet (a): bucket hits do not sum to the batches")
+        check(launches.get(fwd, 0) == cfg["num_layers"] * replays,
+              f"fleet (a): {launches.get(fwd, 0)} {fwd} launches for "
+              f"{replays} replays")
+        same = rows = 0
+        for padded, out in seen:
+            n = next((j for j in range(len(padded), 0, -1)
+                      if padded[j - 1].any()), 0)
+            for j in range(n):
+                alone = backend(pad_batch(padded[j:j + 1], len(padded)))
+                rows += 1
+                same += bool(np.array_equal(alone[0], out[j]))
+        set_flash(enc, False)
+        with ag.pause():
+            plain = enc(torch.from_numpy(samples[:i]).to(DEVICE)) \
+                .cpu().numpy()
+        set_flash(enc, True)
+        err = float(np.abs(np.stack(served) - plain).max()
+                    / np.abs(plain).max())
+        log(f"fleet (a): {i} encode requests in bursts of 1..8..1: "
+            f"{batches} batches, bucket hits {st['bucket_hits']}, "
+            f"{replays} replays, {launches.get(fwd, 0)} {fwd} launches; "
+            f"{same} of {rows} batch rows bit-identical to the sample "
+            f"alone through its bucket's graph; served vs the plain path "
+            f"(flash=False): max relative error {err:.3e} (tol "
+            f"{ENCODE_REL_TOL})")
+        check(same == rows == i, "fleet (a): a batched row differs from "
+              "the sample alone through the same graph")
+        check(err <= ENCODE_REL_TOL, "fleet (a): served encodings "
+              "disagree with the plain path")
+        # (b) chat v2 through a 2-shard checkpoint, under load
+        builds, compiles = kernels.build_count(), compile_count()
+        old_chat, old_encode = chat, encode
+        np_v2 = model.init_params_numpy(1)
+        t0 = time.monotonic()
+        ckpt = CheckpointManager(os.path.join(root, "chat"), async_=False,
+                                 num_shards=2).save(
+            deploy.flatten_params(np_v2), step=1)
+        log(f"fleet (b): chat v2 (seed 1) written as a 2-shard "
+            f"checkpoint in {time.monotonic() - t0:.2f}s")
+        del np_v2
+        kernels.reset_launch_counts()
+        pump = FleetPump(router, model.vocab_size, 50)
+        t_start = time.monotonic()
+        pump.start("chat")
+        pump.start("encode")
+        time.sleep(FLEET_PUMP_S)
+        t_pub = time.monotonic()
+        _, chat_seen, chat_wall = gated_publish(
+            torch, router, "chat",
+            lambda: router.publish("chat", 2, ckpt_dir=ckpt))
+        t_done = time.monotonic()
+        time.sleep(FLEET_PUMP_S)
+        pump.finish()
+        t_end = time.monotonic()
+        publish_line("fleet (b) chat", router, chat_seen, chat_wall)
+        chat_log = router.last_publish
+        parts = {}
+        for r in pump.records:
+            parts[(r[1], r[2])] = parts.get((r[1], r[2]), 0) + 1
+        log(f"fleet (b): outcomes {dict(sorted(parts.items()))}")
+        check(not [k for k in parts if k[1].startswith("error")],
+              "fleet (b): a request resolved untyped")
+        check(sum(parts.values()) == len(pump.records) and all(
+            parts.get((k, "served"), 0) > 0 for k in ("chat", "encode")),
+            "fleet (b): the partition does not cover the traffic")
+        windows = (("before", t_start, t_pub), ("during", t_pub, t_done),
+                   ("after", t_done, t_end))
+        tok, req = pump.rates("chat", windows), pump.rates("encode",
+                                                           windows)
+        lat = [r[4] for r in pump.records
+               if r[1] == "encode" and r[2] == "served"]
+        log("fleet (b): chat tokens/s " + ", ".join(
+            f"{k} {v:.1f}" for k, v in tok.items()) + "; encode "
+            "requests/s " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      req.items())
+            + f"; encode latency p50 {np.percentile(lat, 50) * 1e3:.2f} "
+            f"ms p99 {np.percentile(lat, 99) * 1e3:.2f} ms "
+            f"({len(lat)} requests)")
+        new_chat = router.server("chat")
+        check(router.active_version("chat") == 2 and new_chat
+              is not old_chat, "fleet (b): chat v2 is not serving")
+        v2 = new_chat.engine.params
+        for j, n in enumerate((15, 40, 100)):
+            prompt = rng.randint(0, model.vocab_size, size=n).tolist()
+            toks = router.generate("chat", prompt, FLEET_NEW_TOKENS,
+                                   timeout=600).tokens
+            verdict = check_greedy(model, v2, prompt, toks, F32_LOGIT_TOL,
+                                   f"fleet (b) v2 request {j}")
+            log(f"fleet (b): v2 request {j} (prompt {n}) greedy vs the "
+                f"oracle over v2: {verdict}")
+        check(new_chat.engine.cache.check(live_block_ids=[]),
+              "fleet (b): the v2 pool is not clean")
+        # (c) fine-tune the encoder v1 serves, publish it
+        probe = samples[:1][0]
+        before = router.predict("encode", probe, timeout=600)
+        trainer = gluon.Trainer(enc.collect_params(), "adam",
+                                {"learning_rate": BERT_LR})
+        loss_fn = gluon.loss.L2Loss()
+        x_train = torch.from_numpy(samples[:8]).to(DEVICE)
+        y_train = torch.from_numpy(rng.randn(8, cfg["units"]).astype(
+            np.float32)).to(DEVICE)
+        losses, steps, during = [], {}, []
+
+        def train_step():
+            c0 = kernels.launch_counts()
+            with ag.record():
+                out = loss_fn(enc(x_train), y_train)
+            out.backward(torch.ones_like(out))
+            trainer.step(len(x_train))
+            losses.append(float(out.detach().mean()))
+            c1 = kernels.launch_counts()
+            for k in c1:
+                steps[k] = steps.get(k, []) + [c1[k] - c0.get(k, 0)]
+            # v1 serves its snapshot, not the block being trained
+            during.append(router.predict("encode", probe, timeout=600))
+
+        def get_arrays():
+            return {k: p.data().detach()
+                    for k, p in enc.collect_params().items()}
+        pub = FineTunePublisher(router, "encode", train_step, get_arrays,
+                                os.path.join(root, "encode"),
+                                steps_per_publish=2, num_shards=2,
+                                version_start=2)
+        _, enc_seen, enc_wall = gated_publish(torch, router, "encode",
+                                              pub.run_once)
+        check(len(during) == 2 and all(np.array_equal(before, d)
+                                       for d in during),
+              "fleet (c): a Trainer step on the block changed what v1 "
+              "serves")
+        publish_line("fleet (c) encode", router, enc_seen, enc_wall)
+        enc_log = router.last_publish
+        log(f"fleet (c): 2 Adam steps, loss {losses[0]:.5f} -> "
+            f"{losses[1]:.5f}; launches a step "
+            + ", ".join(f"{k} {v}" for k, v in sorted(steps.items())))
+        for k in KERNEL_NAMES:
+            check(steps.get(k) == [cfg["num_layers"]] * 2,
+                  f"fleet (c): {k} launched {steps.get(k)} times a step")
+        check(steps.get("adam_update") == [1, 1], "fleet (c): "
+              f"adam_update launched {steps.get('adam_update')} a step")
+        new_enc = router.server("encode")
+        check(router.active_version("encode") == 2 and new_enc
+              is not old_encode, "fleet (c): encode v2 is not serving")
+        probes = samples[8:16]
+        got = np.stack([router.predict("encode", x, timeout=600)
+                        for x in probes])
+        again = np.stack([router.predict("encode", x, timeout=600)
+                          for x in probes])
+        add(kernels.launch_counts())
+        with ag.pause():
+            want = enc(torch.from_numpy(probes).to(DEVICE)).cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        same = np.array_equal(got, again)
+        log(f"fleet (c): encode v2 served vs the trained block's forward: "
+            f"max relative error {err:.3e} (tol {ENCODE_REL_TOL}); two "
+            f"replays {'bit-identical' if same else 'DIFFER'}")
+        check(err <= ENCODE_REL_TOL, "fleet (c): encode v2 does not serve "
+              "the trained weights")
+        check(same, "fleet (c): two replays of a bucket differ")
+        # (d) counting across (b) and (c)
+        warm = chat_log["compiles"]["warm"] + enc_log["compiles"]["warm"]
+        log(f"fleet (d): builds {kernels.build_count() - builds}, captures "
+            f"{compile_count() - compiles} (warm phases: chat "
+            f"{chat_log['compiles']['warm']} = its ladder "
+            f"{chat_seen['new_graphs']}, encode "
+            f"{enc_log['compiles']['warm']} = its buckets "
+            f"{enc_seen['new_graphs']})")
+        check(kernels.build_count() == builds, "fleet (d): a kernel was "
+              "built")
+        check(compile_count() - compiles == warm
+              and chat_log["compiles"]["warm"] == chat_seen["new_graphs"]
+              and enc_log["compiles"]["warm"] == enc_seen["new_graphs"]
+              == len(ENCODE_BUCKETS)
+              and not any(v for lg in (chat_log, enc_log)
+                          for p, v in lg["compiles"].items()
+                          if p != "warm"),
+              "fleet (d): a capture outside a publish's warm phase")
+        for tag, srv in (("chat v1", old_chat), ("chat v2", new_chat),
+                         ("encode v1", old_encode),
+                         ("encode v2", new_enc)):
+            progs = replays_are_dispatches(f"fleet (d) {tag}", srv)
+            log(f"fleet (d): {tag}: {progs['dispatches']} dispatches, "
+                f"{progs['replays']} replays")
+        # where the time goes: one profiled encode pass (6 bursts of 8;
+        # the wall from inside the profiler, its start and stop left out)
+        st0 = new_enc.stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for b in range(6):
+                futs = [router.submit("encode", x)
+                        for x in samples[16 + 8 * b:24 + 8 * b]]
+                for f in futs:
+                    f.result(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        report_profile(prof, wall,
+                       new_enc.stats()["batches"] - st0["batches"])
+        # (e) a killed publish rolls back; the quota sheds one tenant
+        prompts = [rng.randint(0, model.vocab_size, size=n).tolist()
+                   for n in CHAOS_PROMPTS[:3]]   # no prefix hit
+
+        def streams(tenant=None):
+            srv = router.server("chat")
+            with srv._cv:        # one admission: the same packs each run
+                futs = [router.submit("chat", p, FLEET_NEW_TOKENS,
+                                      tenant=tenant) for p in prompts]
+            return [f.result(timeout=600).tokens for f in futs]
+        kernels.reset_launch_counts()
+        first = streams()
+        faults.crash_at_point("fleet.publish:drain")
+        try:
+            router.publish("chat", 3,
+                           arrays=deploy.flatten_params(np_params))
+            check(False, "fleet (e): the publish was not killed")
+        except InjectedCrash:
+            pass
+        finally:
+            faults.reset()
+        killed = router.last_publish
+        check(router.active_version("chat") == 2 and router.server("chat")
+              is new_chat and new_chat.admitting, "fleet (e): the killed "
+              "publish did not roll back")
+        rolled = streams()
+        greedy_futs, shed = [], 0
+        for _ in range(4):
+            try:
+                greedy_futs.append(router.submit(
+                    "chat", prompts[0], FLEET_NEW_TOKENS, tenant="greedy"))
+            except Overloaded as exc:
+                check(exc.reason == "quota", f"fleet (e): shed {exc.reason}")
+                shed += 1
+        for f in greedy_futs:
+            f.result(timeout=600)
+        polite = streams("polite")
+        add(kernels.launch_counts())
+        log(f"fleet (e): publish killed at drain after phases "
+            f"{list(killed['phases'])} (builds + captures "
+            f"{killed['compiles']}); streams after the rollback "
+            f"{'bit-identical' if rolled == first else 'DIFFER'}; greedy "
+            f"tenant: {len(greedy_futs)} admitted, {shed} shed (quota); "
+            f"the polite tenant's streams "
+            f"{'bit-identical' if polite == first else 'DIFFER'}")
+        check(rolled == first, "fleet (e): streams changed across the "
+              "rolled-back publish")
+        check(shed == 1 and polite == first, "fleet (e): the quota did "
+              "not isolate the greedy tenant")
+        check(new_chat.engine.cache.check(live_block_ids=[]),
+              "fleet (e): the pool is not clean")
+        check(counts.get(flat, 0) > 0 and counts.get(fwd, 0) > 0,
+              "fleet: K1 or K6 never ran")
+    finally:
+        router.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 class GraphedStep:
     """``fn`` replayed from a CUDA graph over static device copies of
     its int32 inputs, captured at the first call: the caller's side of
@@ -4918,6 +5524,11 @@ def main():
                            kernels))
     torch.cuda.empty_cache()
     lap("5g artifact")
+    # 5h. the fleet: chat and encode behind one router, hot swaps (its
+    # own generator, as 5b)
+    add(run_fleet_phase(torch, np.random.RandomState(23), np_params,
+                        kernels))
+    lap("5h fleet")
     # 6. paged decode through the model interface
     counts, decoded = run_paged_decode_phase(torch, rng, np_params, kernels)
     add(counts)

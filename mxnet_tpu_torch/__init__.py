@@ -25,6 +25,17 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   :mod:`~mxnet_tpu_torch.ops.optimizer_ops`; the lr schedulers of
   :mod:`~mxnet_tpu_torch.lr_scheduler`), whose fused Trainer update is
   one launch of the multi-tensor update kernel per (op, dtype) group.
+- the rest of serving (:mod:`mxnet_tpu_torch.serving`): ``ModelServer``
+  with ``MicroBatchQueue`` and shape bucketing (one CUDA graph per
+  bucket, over the server's own copy of a gluon block's parameters;
+  ``Block.serve``), and the fleet (:mod:`~mxnet_tpu_torch.serving.fleet`:
+  ``FleetRouter``'s hot swap of ``LLMServer`` and ``ModelServer``
+  entries, quotas and lanes, ``FineTunePublisher``); with speculative
+  decoding, multi-LoRA serving (``AdapterBank``, ``AdapterRegistry``),
+  the fault switchboard, tracer, flight recorder and metrics registry
+  (:mod:`~mxnet_tpu_torch.resilience`,
+  :mod:`~mxnet_tpu_torch.observability`) and the on-disk tier
+  (``nd.save``/``load``, checkpoints, decoder artifacts).
 
 See ROADMAP.md for what remains.
 

@@ -23,7 +23,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "tensor_from_numpy", "load_gluon_params"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "numpy_from_tensor",
+           "load_gluon_params"]
 
 # numpy dtype names that torch.from_numpy does not take -> (the numpy
 # integer type of their bytes, the torch dtype to view them as); a raw
@@ -46,6 +47,25 @@ def tensor_from_numpy(a, device):
         bits, dtype = raw
         return torch.from_numpy(a.view(bits)).view(dtype).to(device)
     return torch.from_numpy(a).to(device)
+
+
+# torch dtypes numpy has no name for -> the integer type of their bytes
+# and the void type they travel as
+_VOID = {torch.float8_e4m3fn: (torch.uint8, "V1"),
+         torch.bfloat16: (torch.int16, "V2")}
+
+
+def numpy_from_tensor(leaf):
+    """A host numpy array of ``leaf``'s bytes (the inverse of
+    :func:`tensor_from_numpy`): fp8 and bfloat16 tensors as ``|V1`` /
+    ``|V2`` views; a numpy array passes through."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    t = leaf.detach().cpu().contiguous()
+    if t.dtype in _VOID:
+        bits, void = _VOID[t.dtype]
+        return t.view(bits).numpy().view(void)
+    return t.numpy()
 
 
 def _tree(tree, device):

@@ -27,7 +27,8 @@ import struct
 import numpy as _np
 import torch
 
-from .convert import params_from_numpy, tensor_from_numpy
+from .convert import numpy_from_tensor, params_from_numpy, \
+    tensor_from_numpy
 from .resilience.atomic import atomic_write
 from .serving.llm.quant import unflatten_params
 
@@ -40,10 +41,6 @@ _FORMAT = "mxtpu-llm-decoder/npz"
 # contains "." so flatten_params can never produce a colliding path (it
 # refuses dotted dict keys)
 _SCALE_PREFIX = "scale."
-# torch dtypes numpy has no name for -> the integer type of their bytes
-# and the void type the npz stores them as
-_VOID = {torch.float8_e4m3fn: (torch.uint8, "V1"),
-         torch.bfloat16: (torch.int16, "V2")}
 
 
 def flatten_params(tree, prefix=""):
@@ -76,18 +73,6 @@ def flatten_params(tree, prefix=""):
     return out
 
 
-def _to_numpy(leaf):
-    """A host numpy array of ``leaf``'s bytes: fp8 and bfloat16 tensors
-    as ``|V1`` / ``|V2`` views."""
-    if not isinstance(leaf, torch.Tensor):
-        return _np.asarray(leaf)
-    t = leaf.detach().cpu().contiguous()
-    if t.dtype in _VOID:
-        bits, void = _VOID[t.dtype]
-        return t.view(bits).numpy().view(void)
-    return t.numpy()
-
-
 def _is_quantized(params):
     return all(hasattr(params, a) for a in ("params", "scales", "dtype"))
 
@@ -102,7 +87,8 @@ def export_decoder(model, params, path=None):
     qw = None
     if _is_quantized(params):
         qw, params = params, params.params
-    flat = {k: _to_numpy(v) for k, v in flatten_params(params).items()}
+    flat = {k: numpy_from_tensor(v)
+            for k, v in flatten_params(params).items()}
     if qw is not None:
         meta["weight_dtype"] = qw.dtype
         meta["weight_calib"] = qw.method
@@ -110,7 +96,7 @@ def export_decoder(model, params, path=None):
             meta["weight_methods"] = dict(qw.methods)
         meta["scales"] = sorted(qw.scales)
         for k, v in qw.scales.items():
-            flat[_SCALE_PREFIX + k] = _to_numpy(v)
+            flat[_SCALE_PREFIX + k] = numpy_from_tensor(v)
     buf = io.BytesIO()
     _np.savez(buf, **flat)
     meta["arrays"] = sorted(flat)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import re
 import threading
 
+import numpy as np
 import torch
 
 from ..ops import nn as _F
@@ -149,6 +150,46 @@ class Block(torch.nn.Module):
             child.cast(dtype)
         for param in self.params.values():
             param.cast(dtype)
+
+    def _serving_device(self):
+        """The device of the tree's parameters: of the first with data,
+        else the one its deferred initialization names; the CPU for a
+        block without parameters."""
+        for p in self.collect_params().values():
+            if p._data is not None:
+                return p._data.device
+            if p._deferred_init:
+                return p._deferred_init[1]
+        return torch.device("cpu")
+
+    def serve(self, example_input=None, **server_kwargs):
+        """Serve this block's forward directly through a
+        :class:`mxnet_tpu_torch.serving.ModelServer`: dynamic
+        micro-batching of concurrent requests, bucket padding, and on
+        the card one CUDA graph per bucket, captured by ``warmup()``.
+
+        ``example_input`` (a single sample, NO batch dim; numpy or a
+        tensor) resolves any deferred parameter shapes and pins the
+        server's item shape/dtype so ``warmup()`` works before the first
+        request. Returns an **unstarted** server — call ``start()`` (or
+        use it as a context manager)::
+
+            with net.serve(example_input=x0, max_batch_size=16) as srv:
+                srv.warmup()
+                fut = srv.submit(x0)
+        """
+        from .. import autograd
+        from ..serving import ModelServer
+        if example_input is not None:
+            ex = (example_input.detach().cpu().numpy()
+                  if isinstance(example_input, torch.Tensor)
+                  else np.asarray(example_input))
+            with autograd.pause(train_mode=False):
+                # resolve deferred shapes
+                self(torch.from_numpy(ex[None]).to(self._serving_device()))
+            server_kwargs.setdefault("item_shape", ex.shape)
+            server_kwargs.setdefault("dtype", ex.dtype)
+        return ModelServer(self, **server_kwargs)
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity; compiles nothing in this slice.

@@ -1,11 +1,11 @@
 """Loss blocks of the port (mirrors ``mxnet_tpu/gluon/loss.py``): the base
-``Loss`` and ``SoftmaxCrossEntropyLoss``. A loss returns one value per
-sample: the mean over every axis but ``batch_axis``."""
+``Loss``, ``L2Loss`` and ``SoftmaxCrossEntropyLoss``. A loss returns one
+value per sample: the mean over every axis but ``batch_axis``."""
 from __future__ import annotations
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -30,6 +30,19 @@ class Loss(HybridBlock):
         super().__init__(**kwargs)
         self._weight = weight
         self._batch_axis = batch_axis
+
+
+class L2Loss(Loss):
+    """``weight / 2 * (pred - label) ** 2``, the label reshaped to the
+    prediction's shape."""
+
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = (label.reshape(pred.shape) - pred).square()
+        loss = _apply_weighting(loss, self._weight / 2, sample_weight)
+        return _mean_except(loss, self._batch_axis)
 
 
 class SoftmaxCrossEntropyLoss(Loss):

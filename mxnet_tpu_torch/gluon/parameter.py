@@ -18,9 +18,15 @@ Gradients keep MXNet's ``grad_req``:
 
 ``grad()`` starts as zeros, as MXNet's gradient buffer does, so a
 parameter no backward reaches keeps a zero (or its last) gradient.
+
+:func:`param_values` substitutes other tensors for parameters' data on
+the calling thread (the reference's ``functional_call`` substitution):
+``ModelServer`` serves a block from its own snapshot that way.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 from collections import OrderedDict
 
@@ -29,10 +35,28 @@ import torch
 from .. import initializer
 from .._device import resolve_device
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
+           "param_values"]
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16, "float64": torch.float64}
+
+# {Parameter: tensor} that data() returns on this thread instead of the
+# parameter's own tensor (None outside a param_values scope)
+_SUBSTITUTES = threading.local()
+
+
+@contextlib.contextmanager
+def param_values(values):
+    """Within the block, on the calling thread only, each
+    :class:`Parameter` key of ``values`` reads (``data()``) as its
+    tensor; other threads keep reading the parameters' own data."""
+    prev = getattr(_SUBSTITUTES, "values", None)
+    _SUBSTITUTES.values = values
+    try:
+        yield
+    finally:
+        _SUBSTITUTES.values = prev
 
 
 class DeferredInitializationError(RuntimeError):
@@ -164,7 +188,13 @@ class Parameter:
 
     # -------------------------------------------------------------- data --
     def data(self):
-        """The parameter's ``torch.nn.Parameter``."""
+        """The parameter's ``torch.nn.Parameter`` (or, inside
+        :func:`param_values`, the tensor substituted for it)."""
+        values = getattr(_SUBSTITUTES, "values", None)
+        if values is not None:
+            sub = values.get(self)
+            if sub is not None:
+                return sub
         if self._data is not None:
             return self._data
         if self._deferred_init:

@@ -2304,3 +2304,190 @@ def test_registry_fault_in_under_the_captured_step(cuda, tmp_path):
     assert got == [_lora_drain(cpu, c) for c in cases]
     assert bank.check() and bank.stats()["in_use"] == 0
     eng.release_graphs()
+
+
+# ----------------------------- single-shot serving and the fleet --
+_ENC_CFG = dict(vocab_size=30522, units=64, hidden_size=128, num_layers=2,
+                num_heads=4, max_length=32)
+
+
+def _encoder(dev):
+    """chip_smoke's encode model (pooled BERT output) at small widths,
+    seeded Xavier, deferred shapes set."""
+    from mxnet_tpu_torch.initializer import Xavier
+    enc = chip_smoke.make_bert_encoder(**_ENC_CFG)
+    enc.initialize(Xavier(), device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    with ag.pause():
+        enc(torch.zeros((1, 32), dtype=torch.int32, device=dev))
+    return enc
+
+
+@pytest.mark.cuda
+def test_model_server_captures_one_graph_per_bucket(cuda):
+    """``ModelServer`` over a 2-layer BERT encoder: ``warmup()`` captures
+    one graph a bucket (and counts each once); ragged traffic builds and
+    captures nothing, each batch is one replay launching the flash
+    forward once a layer; each output is within K6's tolerance
+    (chip_smoke's ``ENCODE_REL_TOL``) of the plain path; a ``Trainer.step``
+    on the block after the server is built leaves what it serves
+    unchanged, bit for bit."""
+    from mxnet_tpu_torch import gluon, serving
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    enc = _encoder(cuda)
+    srv = serving.ModelServer(enc, buckets=[1, 2, 4], max_delay_ms=2.0,
+                              item_shape=(32,), dtype="int32",
+                              name="cuda_encode")
+    compiles = compile_count()
+    srv.warmup()
+    assert compile_count() - compiles == 3
+    assert srv.programs()["graphs"] == 3 and srv.graph_pool_bytes() > 0
+    srv.start()
+    rng = np.random.RandomState(3)
+    x = rng.randint(0, 30522, size=(14, 32)).astype(np.int32)
+    compiles, before = compile_count(), srv.programs()
+    launched = kernels.launch_counts().get("flash_fwd", 0)
+    got, i = [], 0
+    for k in (1, 3, 4, 2, 4):
+        futs = [srv.submit(r) for r in x[i:i + k]]
+        got += [f.result(timeout=300) for f in futs]
+        i += k
+    after = srv.programs()
+    batches = srv.stats()["batches"]
+    assert compile_count() == compiles
+    assert after["replays"] - before["replays"] == batches == \
+        after["dispatches"] - before["dispatches"]
+    assert kernels.launch_counts()["flash_fwd"] - launched == 2 * batches
+    chip_smoke.set_flash(enc, False)
+    with ag.pause():
+        plain = enc(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    chip_smoke.set_flash(enc, True)
+    assert np.abs(np.stack(got) - plain).max() <= \
+        chip_smoke.ENCODE_REL_TOL * np.abs(plain).max()
+    trainer = gluon.Trainer(enc.collect_params(), "adam",
+                            {"learning_rate": 1e-2})
+    with ag.record():
+        out = gluon.loss.L2Loss()(enc(torch.from_numpy(x[:4]).to(cuda)),
+                                  torch.ones(4, 64, device=cuda))
+    out.backward(torch.ones_like(out))
+    trainer.step(4)
+    with ag.pause():
+        moved = enc(torch.from_numpy(x[:1]).to(cuda)).cpu().numpy()[0]
+    assert np.abs(moved - got[0]).max() > 1e-4
+    assert np.array_equal(srv.predict(x[0], timeout=300), got[0])
+    srv.shutdown()
+    assert srv.programs()["graphs"] == 0
+
+
+@pytest.mark.cuda
+def test_model_server_batch_rows_are_the_same_alone(cuda):
+    """A bucket of 4: a sample's row is the same bits batched with any
+    others as alone (padded with zeros) through the same graph."""
+    from mxnet_tpu_torch import serving
+    srv = serving.ModelServer(_encoder(cuda), buckets=[4],
+                              max_delay_ms=20.0, item_shape=(32,),
+                              dtype="int32", name="cuda_rows")
+    srv.warmup()
+    srv.start()
+    x = np.random.RandomState(4).randint(0, 30522, size=(10, 32)) \
+        .astype(np.int32)
+    got = [f.result(timeout=300) for f in [srv.submit(r) for r in x]]
+    for r, g in zip(x, got):
+        assert np.array_equal(srv._fn(serving.pad_batch(r[None], 4))[0], g)
+    srv.shutdown()
+
+
+@pytest.mark.cuda
+def test_model_server_capture_failure_names_the_bucket(cuda):
+    """A forward that fails under capture (its warm run passes) makes
+    ``warmup()`` raise ``CaptureError`` naming the bucket; nothing steps
+    eagerly in its place."""
+    from mxnet_tpu_torch import gluon, serving
+    from mxnet_tpu_torch.gluon import nn
+
+    class Refuses(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.dense = nn.Dense(4, in_units=4)
+
+        def forward(self, x):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("refused under capture")
+            return self.dense(x)
+    blk = Refuses()
+    blk.initialize(device=cuda)
+    srv = serving.ModelServer(blk, buckets=[2], item_shape=(4,),
+                              dtype="float32", name="cuda_refuses")
+    with pytest.raises(kernels.CaptureError, match="bucket 2"):
+        srv.warmup()
+    srv.start()
+    with pytest.raises(kernels.CaptureError, match="bucket 2"):
+        srv.predict(np.ones(4, np.float32), timeout=300)
+    assert srv.programs()["graphs"] == 0
+    srv.shutdown()
+
+
+@pytest.mark.cuda
+def test_chat_hot_swap_captures_only_in_the_warm_phase(cuda):
+    """A ``FleetRouter`` hot swap of a small decoder under two submitting
+    threads: nothing is built; the only captures are the new replica's
+    ladder, in the publish's warm phase; every dispatch of both
+    replicas is one replay; every Future typed; the post-swap greedy
+    streams the oracle's over v2."""
+    import threading
+    from mxnet_tpu_torch import deploy, serving
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    from mxnet_tpu_torch.serving.telemetry import compile_count
+    model = TinyDecoder(device=cuda, **_SPEC_CFG)
+    p1, p2 = model.init_params_numpy(0), model.init_params_numpy(1)
+
+    def build(arrays):
+        return LLMServer(model, deploy.params_from_arrays(arrays),
+                         name="cuda_fleet_chat", max_seqs=4,
+                         block_size=BS, device=cuda)
+    old = build(deploy.flatten_params(p1))
+    old.warmup()
+    router = serving.FleetRouter(name="cuda_fleet")
+    router.add_model("chat", old.start(), version=1, builder=build)
+    builds, compiles = kernels.build_count(), compile_count()
+    stop, futs, lock = threading.Event(), [], threading.Lock()
+
+    def pump(seed):
+        rng = np.random.RandomState(seed)
+        while not stop.is_set():
+            p = rng.randint(0, 48, size=rng.randint(3, 20)).tolist()
+            f = router.submit("chat", p, 6)
+            with lock:
+                futs.append(f)
+            f.result(timeout=300)
+    threads = [threading.Thread(target=pump, args=(s,)) for s in (1, 2)]
+    for th in threads:
+        th.start()
+    try:
+        assert router.publish("chat", 2,
+                              arrays=deploy.flatten_params(p2)) == 2
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(300)
+    assert not any(th.is_alive() for th in threads)
+    for f in futs:
+        assert f.result(timeout=300).tokens is not None
+    new = router.server("chat")
+    log = router.last_publish
+    assert kernels.build_count() == builds
+    assert log["compiles"]["warm"] == new.engine.programs()["graphs"] > 0
+    assert compile_count() - compiles == log["compiles"]["warm"]
+    assert not any(v for p, v in log["compiles"].items() if p != "warm")
+    rng = np.random.RandomState(9)
+    for n in (5, 17, 30):
+        prompt = rng.randint(0, 48, size=n).tolist()
+        toks = router.generate("chat", prompt, 8, timeout=300).tokens
+        chip_smoke.check_greedy(model, new.engine.params, prompt, toks,
+                                chip_smoke.F32_LOGIT_TOL, f"v2 prompt {n}")
+    for srv in (old, new):
+        progs = srv.engine.programs()
+        assert progs["replays"] == progs["dispatches"] > 0
+    router.shutdown()
+    assert new.engine.cache.check(live_block_ids=[])
