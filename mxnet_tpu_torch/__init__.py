@@ -35,7 +35,12 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   the fault switchboard, tracer, flight recorder and metrics registry
   (:mod:`~mxnet_tpu_torch.resilience`,
   :mod:`~mxnet_tpu_torch.observability`) and the on-disk tier
-  (``nd.save``/``load``, checkpoints, decoder artifacts).
+  (``nd.save``/``load``, checkpoints, decoder artifacts);
+- the framework core, part 1: the :class:`~mxnet_tpu_torch.nd.NDArray`
+  class, ``autograd`` (``backward``, ``grad``, ``mark_variables``),
+  ``mx.random`` (:mod:`~mxnet_tpu_torch._rng`'s ``(seed, position)``
+  draws) and the elementwise, reduction, shape, linalg, random and nn
+  op families, with the multi-tensor update tail on the update kernel.
 
 See ROADMAP.md for what remains.
 
@@ -47,7 +52,8 @@ version runs instead. This package never imports ``jax`` or
 """
 __version__ = "0.1.0"
 
-from . import amp, ndarray, rtc  # noqa: E402
+from . import amp, autograd, ndarray, rtc  # noqa: E402
 from . import ndarray as nd  # noqa: E402
+from .ndarray import random  # noqa: E402  (mx.random: nd.random)
 
-__all__ = ["amp", "ndarray", "nd", "rtc"]
+__all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc"]

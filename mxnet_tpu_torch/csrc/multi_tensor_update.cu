@@ -16,7 +16,13 @@
 // f32 tensor on the card, rides its row as an address too (int64 word
 // kRescaleWord; 0: the row's float rescale): the kernel reads the scale on
 // the device, so nothing syncs and a captured step reads what the tensor
-// holds when it replays. Each CTA takes chunks of kChunk
+// holds when it replays. The SGD rules (sgd, sgd_mom and their mp forms)
+// read a per-tensor lr and wd the same way where the row holds their
+// addresses (int64 words kLrWord and kWdWord; 0: the row's floats): the
+// preloaded_multi_* ops take lrs and wds as arrays on the card. The mp
+// NAG and mp AdamW rules are the port's mp_nag_mom_update and
+// _mp_adamw_update, and FTML is ftml_update (mxnet_tpu/ops/extra.py).
+// Each CTA takes chunks of kChunk
 // elements, finds its tensor by a binary search over the first chunks, and
 // streams the chunk with 16-byte loads of f32 (8-byte of 16-bit) buffers
 // where all of the tensor's pointers are so aligned, element by element
@@ -49,6 +55,10 @@ constexpr int kScalars = kRow - 2;   // then the gradient's address
 // the int64 word of a row that holds _adamw_update's rescale array's
 // address (ops/optimizer_ops.py RESCALE_WORD), past its ten scalars
 constexpr int kRescaleWord = 5;
+// the int64 words of an SGD rule's row that hold the addresses of its lr
+// and wd (ops/optimizer_ops.py LR_WORD, WD_WORD), past its five scalars
+constexpr int kLrWord = 3;
+constexpr int kWdWord = 4;
 
 // one tensor of the launch table: eight int64 words packed by the host
 // (ops/optimizer_ops.py UpdateTable); p[1], the gradient's slot, is unused
@@ -63,17 +73,24 @@ static_assert(sizeof(Entry) == 64, "the host packs eight words a tensor");
 // the rule numbers of ops/optimizer_ops.py RULES
 enum Rule {
   kSgd = 0, kSgdMom, kNagMom, kMpSgd, kMpSgdMom, kAdam, kAdamW, kRmsProp,
-  kRmsPropAlex, kFtrl, kSignSgd, kSignum, kAdaGrad
+  kRmsPropAlex, kFtrl, kSignSgd, kSignum, kAdaGrad, kMpNagMom, kMpAdamW, kFtml
 };
 
 __host__ __device__ constexpr int n_states(int r) {
   return r == kSgd || r == kSignSgd ? 0
        : r == kSgdMom || r == kNagMom || r == kMpSgd || r == kRmsProp ||
          r == kSignum || r == kAdaGrad ? 1
-       : r == kRmsPropAlex ? 3 : 2;
+       : r == kRmsPropAlex || r == kMpAdamW || r == kFtml ? 3 : 2;
 }
 __host__ __device__ constexpr bool is_mp(int r) {
-  return r == kMpSgd || r == kMpSgdMom;
+  return r == kMpSgd || r == kMpSgdMom || r == kMpNagMom || r == kMpAdamW;
+}
+// the SGD rules, whose lr (s[0]) and wd may come from addresses in the row
+__host__ __device__ constexpr bool reads_lr_wd(int r) {
+  return r == kSgd || r == kSgdMom || r == kMpSgd || r == kMpSgdMom;
+}
+__host__ __device__ constexpr int wd_slot(int r) {
+  return r == kSgd || r == kMpSgd ? 1 : 2;
 }
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -172,6 +189,30 @@ __device__ __forceinline__ void apply(const float* s, float& w, float gr,
     const float g = add(prep(gr, s[3], s[4]), mul(s[2], w));
     st[0] = add(st[0], mul(g, g));
     w = sub(w, dvd(mul(s[0], g), add(sqr(st[0]), s[1])));
+  } else if constexpr (R == kMpNagMom) {
+    // lr momentum wd rescale clip; st: mom, w32
+    const float g = add(prep(gr, s[3], s[4]), mul(s[2], st[1]));
+    st[0] = sub(mul(s[1], st[0]), mul(s[0], g));
+    st[1] = sub(add(st[1], mul(s[1], st[0])), mul(s[0], g));
+    w = st[1];
+  } else if constexpr (R == kMpAdamW) {
+    // lr b1 1-b1 b2 1-b2 eps wd eta rescale clip; st: mean, var, w32
+    const float g = prep(gr, s[8], s[9]);
+    st[0] = add(mul(s[1], st[0]), mul(s[2], g));
+    st[1] = add(mul(s[3], st[1]), mul(s[4], mul(g, g)));
+    st[2] = sub(st[2], mul(s[7], add(dvd(mul(s[0], st[0]),
+                                         add(sqr(st[1]), s[5])),
+                                     mul(s[6], st[2]))));
+    w = st[2];
+  } else if constexpr (R == kFtml) {
+    // b1 1-b1 b2 1-b2 eps wd rescale clip (1-b1^t)/lr 1-b2^t; st: d, v, z
+    const float g = add(prep(gr, s[6], s[7]), mul(s[5], w));
+    st[1] = add(mul(s[2], st[1]), mul(s[3], mul(g, g)));
+    const float dt = mul(s[8], add(sqr(dvd(st[1], s[9])), s[4]));
+    st[2] = sub(add(mul(s[0], st[2]), mul(s[1], g)),
+                mul(sub(dt, mul(s[0], st[0])), w));
+    st[0] = dt;
+    w = dvd(-st[2], dt);
   }
 }
 
@@ -244,14 +285,21 @@ multi_update_kernel(const Entry* __restrict__ tab, int ntensors,
     float s[kScalars];
 #pragma unroll
     for (int k = 0; k < kScalars; ++k) s[k] = row[k];
-    if constexpr (R == kAdamW) {  // the rescale array replaces s[8]
-      const float* const rs = reinterpret_cast<const float*>(
-          reinterpret_cast<const long long*>(row)[kRescaleWord]);
+    const long long* const words = reinterpret_cast<const long long*>(row);
+    if constexpr (R == kAdamW || R == kMpAdamW) {
+      // the rescale array replaces s[8]
+      const float* const rs =
+          reinterpret_cast<const float*>(words[kRescaleWord]);
       if (rs != nullptr) s[8] = *rs;
     }
+    if constexpr (reads_lr_wd(R)) {  // lr and wd arrays replace theirs
+      const float* const lr = reinterpret_cast<const float*>(words[kLrWord]);
+      const float* const wd = reinterpret_cast<const float*>(words[kWdWord]);
+      if (lr != nullptr) s[0] = *lr;
+      if (wd != nullptr) s[wd_slot(R)] = *wd;
+    }
     void* const pw = e.p[0];
-    const void* const pg = reinterpret_cast<const void*>(
-        reinterpret_cast<const long long*>(row)[kRow / 2 - 1]);
+    const void* const pg = reinterpret_cast<const void*>(words[kRow / 2 - 1]);
     float* st_p[S > 0 ? S : 1];
 #pragma unroll
     for (int j = 0; j < S; ++j) st_p[j] = static_cast<float*>(e.p[2 + j]);
@@ -351,7 +399,7 @@ extern "C" int mxt_multi_tensor_update(int rule, int wdtype,
     break;
     MXT_F32(kSgd) MXT_F32(kSgdMom) MXT_F32(kNagMom) MXT_F32(kAdam)
     MXT_F32(kAdamW) MXT_F32(kRmsProp) MXT_F32(kRmsPropAlex) MXT_F32(kFtrl)
-    MXT_F32(kSignSgd) MXT_F32(kSignum) MXT_F32(kAdaGrad)
+    MXT_F32(kSignSgd) MXT_F32(kSignum) MXT_F32(kAdaGrad) MXT_F32(kFtml)
 #undef MXT_F32
     case kMpSgd:
       e = launch_mp<kMpSgd>(wdtype, table, ntensors, nchunks, scalars, st);
@@ -359,6 +407,14 @@ extern "C" int mxt_multi_tensor_update(int rule, int wdtype,
     case kMpSgdMom:
       e = launch_mp<kMpSgdMom>(wdtype, table, ntensors, nchunks, scalars,
                                st);
+      break;
+    case kMpNagMom:
+      e = launch_mp<kMpNagMom>(wdtype, table, ntensors, nchunks, scalars,
+                               st);
+      break;
+    case kMpAdamW:
+      e = launch_mp<kMpAdamW>(wdtype, table, ntensors, nchunks, scalars,
+                              st);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -18,6 +18,7 @@ import threading
 import numpy as np
 import torch
 
+from ..ndarray.ndarray import unwrap
 from ..ops import nn as _F
 from .parameter import DeferredInitializationError, Parameter, \
     ParameterDict
@@ -81,6 +82,10 @@ class Block(torch.nn.Module):
 
     def _alias(self):
         return self.__class__.__name__.lower()
+
+    def __call__(self, *args, **kwargs):
+        # NDArrays are unwrapped once, here: blocks compute on tensors
+        return super().__call__(*unwrap(args), **unwrap(kwargs))
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):

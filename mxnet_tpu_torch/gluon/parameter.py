@@ -34,6 +34,7 @@ import torch
 
 from .. import initializer
 from .._device import resolve_device
+from ..ndarray.ndarray import unwrap
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
            "param_values"]
@@ -238,7 +239,7 @@ class Parameter:
     def set_data(self, data):
         """Copy ``data`` into the parameter (kept for the deferred init
         while the parameter has no data yet)."""
-        data = torch.as_tensor(data)
+        data = torch.as_tensor(unwrap(data))
         self.shape = data.shape
         if self._data is not None:
             with torch.no_grad():

@@ -1,11 +1,15 @@
-"""``nd``: the imperative array API of the port (a subset of
-``mxnet_tpu/ndarray``): ``array``, ``zeros``, ``ones``, ``waitall``,
-``save``/``load`` (the reference's ``MXTPU1`` container, byte for byte)
-and the op namespace generated from the registry (every op of
-:mod:`mxnet_tpu_torch.ops`, and those :mod:`mxnet_tpu_torch.rtc`
-registers at run time).
+"""``nd``: the imperative array API of the port (mirrors
+``mxnet_tpu/ndarray``): the :class:`NDArray` class, the creation
+functions (``array``, ``zeros``, ``ones``, ``full``, ``empty``,
+``arange``, ``linspace``, ``eye``), ``concatenate``, ``waitall``,
+``imperative_invoke``, ``save``/``load`` (the reference's ``MXTPU1``
+container, byte for byte), the op namespace generated from the registry
+(every op of :mod:`mxnet_tpu_torch.ops`, and those
+:mod:`mxnet_tpu_torch.rtc` registers at run time), and the
+sub-namespaces ``nd.random``, ``nd.linalg`` (``nd.linalg.gemm2`` is
+``_linalg_gemm2``) and ``nd.op``.
 
-Arrays are ``torch.Tensor``s (see :mod:`.register`). ``ctx`` is
+Every function here returns NDArrays (see :mod:`.ndarray`). ``ctx`` is
 ``"cpu"``, ``"cuda"`` or a ``torch.device``; it defaults to the card and
 raises without CUDA unless ``ctx="cpu"``.
 """
@@ -21,9 +25,13 @@ from .. import ops as _ops  # noqa: F401  (registers the ported ops)
 from .._device import resolve_device
 from ..base import dtype_code, dtype_name, torch_dtype
 from ..error import CheckpointCorruptError
+from ..ops.invoke import apply_op
 from . import register as _register
+from .ndarray import NDArray
 
-__all__ = ["array", "zeros", "ones", "waitall", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "linspace", "eye", "concatenate", "waitall", "imperative_invoke",
+           "save", "load"]
 
 
 def _device(ctx):
@@ -31,33 +39,80 @@ def _device(ctx):
 
 
 def _dtype(dtype):
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    return getattr(torch, np.dtype(dtype).name)
+    return None if dtype is None else torch_dtype(dtype)
 
 
 def array(source_array, ctx=None, dtype=None):
-    """A tensor on ``ctx`` holding ``source_array``: numpy arrays and
-    tensors keep their dtype (float64 becomes float32), anything else
-    defaults to float32."""
+    """An NDArray on ``ctx`` holding a copy of ``source_array``: numpy
+    arrays, tensors and NDArrays keep their dtype (float64 becomes
+    float32), anything else defaults to float32."""
     dev = _device(ctx)
+    if isinstance(source_array, NDArray):
+        source_array = source_array._data
     if isinstance(source_array, torch.Tensor):
-        t = source_array
+        # a copy, as the reference's: the array does not alias its source
+        t = source_array.detach().clone()
     else:
         if dtype is None and not isinstance(source_array, np.ndarray):
             dtype = np.float32
         t = torch.from_numpy(np.array(source_array))
     if dtype is None and t.dtype == torch.float64:
         dtype = np.float32
-    return t.to(device=dev, dtype=_dtype(dtype))
+    return NDArray(t.to(device=dev, dtype=_dtype(dtype)))
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
 def zeros(shape, ctx=None, dtype="float32"):
-    return torch.zeros(shape, dtype=_dtype(dtype), device=_device(ctx))
+    return NDArray(torch.zeros(_shape(shape), dtype=_dtype(dtype),
+                               device=_device(ctx)))
 
 
 def ones(shape, ctx=None, dtype="float32"):
-    return torch.ones(shape, dtype=_dtype(dtype), device=_device(ctx))
+    return NDArray(torch.ones(_shape(shape), dtype=_dtype(dtype),
+                              device=_device(ctx)))
+
+
+def full(shape, val, ctx=None, dtype="float32"):
+    return NDArray(torch.full(_shape(shape), val, dtype=_dtype(dtype),
+                              device=_device(ctx)))
+
+
+def empty(shape, ctx=None, dtype="float32"):
+    """A zeroed array, as the reference's (its buffers are initialised)."""
+    return zeros(shape, ctx, dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    return NDArray(apply_op("_arange", [], {
+        "start": start, "stop": stop, "step": step, "repeat": repeat,
+        "ctx": _device(ctx), "dtype": dtype}))
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype="float32"):
+    vals = np.linspace(start, stop, num, endpoint=endpoint)
+    return NDArray(torch.from_numpy(vals).to(device=_device(ctx),
+                                             dtype=_dtype(dtype)))
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    return NDArray(apply_op("_eye", [], {"N": N, "M": M, "k": k,
+                                         "ctx": _device(ctx),
+                                         "dtype": dtype}))
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    return NDArray(apply_op("concat", list(arrays), {"dim": axis}))
+
+
+def imperative_invoke(op_name, *args, **kwargs):
+    """Invoke the registered op ``op_name`` on the arrays among ``args``
+    (the reference's ``MXImperativeInvokeEx``)."""
+    from .ndarray import _wrap
+    arrays = [a for a in args if isinstance(a, (NDArray, torch.Tensor))]
+    return _wrap(apply_op(op_name, arrays, kwargs))
 
 
 def waitall():
@@ -74,8 +129,11 @@ _DEVTYPE = {"cpu": 1, "cuda": 2}
 
 
 def _host(arr):
-    """(torch dtype, shape, raw bytes, devtype code) of one array: a
-    tensor on any device (copied to the host) or anything numpy takes."""
+    """(torch dtype, shape, raw bytes, devtype code) of one array: an
+    NDArray or a tensor on any device (copied to the host) or anything
+    numpy takes."""
+    if isinstance(arr, NDArray):
+        arr = arr._data
     if isinstance(arr, torch.Tensor):
         t = arr.detach()
         dev = _DEVTYPE["cuda" if t.is_cuda else "cpu"]
@@ -97,7 +155,8 @@ def save(fname: str, data):
     reference's codes, :mod:`mxnet_tpu_torch.base`), ctx devtype u32 (1
     host, 2 a CUDA tensor), ndim u32, shape i64 each, nbytes u64, raw
     buffer. ``data`` is a dict of named arrays, a list of unnamed ones
-    or one tensor; arrays are tensors on any device or host numpy. For
+    or one array; arrays are NDArrays or tensors on any device, or host
+    numpy. For
     host inputs the file is the reference's for the same arrays, byte
     for byte.
 
@@ -110,7 +169,7 @@ def save(fname: str, data):
          "arrays": {name: {"crc32", "nbytes", "shape", "dtype"}}}
     """
     from ..resilience.atomic import atomic_write
-    if isinstance(data, (torch.Tensor, np.ndarray)):
+    if isinstance(data, (NDArray, torch.Tensor, np.ndarray)):
         items = [("", data)]
     elif isinstance(data, dict):
         items = list(data.items())
@@ -159,8 +218,19 @@ def _from_bytes(raw, dtype, shape):
 
 def load(fname: str, manifest=None, device=None):
     """Load a container saved by :func:`save` (or by the reference's
-    ``nd.save``): a dict of tensors by name, or a list when no array is
-    named. Tensors land on the CPU unless ``device`` is given.
+    ``nd.save``): a dict of NDArrays by name, or a list when no array is
+    named, as the reference's. They land on the CPU unless ``device`` is
+    given. ``manifest`` as :func:`load_tensors`'s."""
+    loaded = load_tensors(fname, manifest, device)
+    if isinstance(loaded, dict):
+        return {k: NDArray(v) for k, v in loaded.items()}
+    return [NDArray(v) for v in loaded]
+
+
+def load_tensors(fname: str, manifest=None, device=None):
+    """:func:`load` returning tensors (the checkpoint stack's loader):
+    a dict of tensors by name, or a list when no array is named.
+    Tensors land on the CPU unless ``device`` is given.
 
     ``manifest`` (optional) is the ``"arrays"`` metadata :func:`save`
     returned: each array's raw buffer is then CRC32-checked against it.
@@ -210,3 +280,22 @@ def load(fname: str, manifest=None, device=None):
 
 
 _register.populate(globals())
+
+
+class _SubNamespace:
+    """Attribute view over the registry ops a name maps to."""
+
+    def __init__(self, names):
+        self._names = names
+
+    def __getattr__(self, item):
+        from ..ops.registry import _REGISTRY
+        for cand in self._names(item):
+            if cand in _REGISTRY:
+                return _register.make_op_func(_REGISTRY[cand])
+        raise AttributeError(item)
+
+
+linalg = _SubNamespace(lambda n: (f"_linalg_{n}", f"linalg_{n}", n))
+op = _SubNamespace(lambda n: (n,))
+from . import random  # noqa: E402,F401  (nd.random)

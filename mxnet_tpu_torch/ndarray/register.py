@@ -1,15 +1,16 @@
 """Generation of the ``nd.*`` op namespace from the registry (the port of
 ``mxnet_tpu/ndarray/register.py``).
 
-The port's NDArray is ``torch.Tensor``, as in its gluon: an array input
-is a tensor or a numpy array (moved to the device of the call's first
-tensor, else to the card), and ops return tensors. The MXNet-only
-methods of the JAX package's NDArray class (``asnumpy``,
-``attach_grad``, ``wait_to_read``, ...) wait for the framework-core item
-of ROADMAP.md.
+A generated function takes NDArrays, tensors or numpy arrays (numpy
+arrays go to the device of the call's first array, else to the card),
+calls :func:`~mxnet_tpu_torch.ops.invoke.apply_op` and returns NDArrays
+(:class:`~.ndarray.NDArray`). A ``mutates`` op returns the arrays it
+wrote, as given (tensors stay tensors); ``out=`` returns the ``out``
+arrays, as given.
 
 Positional arguments follow the reference convention: leading positional
-arrays are the op's inputs; any further positionals map onto the impl's
+arrays are the op's inputs (a variadic op takes them, or one list of
+them, as its list); any further positionals map onto the impl's
 parameters in declaration order (``nd.dot(a, b, True)`` sets
 ``transpose_a=True``).
 """
@@ -23,14 +24,15 @@ import torch
 from .._device import resolve_device
 from ..ops.invoke import apply_op
 from ..ops.registry import _REGISTRY, Operator
+from .ndarray import NDArray, _wrap
 
 __all__ = ["make_op_func", "populate"]
 
-_INTERNAL_PARAMS = ("rng", "_training")
+_INTERNAL_PARAMS = ("rng", "_training", "out")
 
 
 def _array_like(x):
-    return isinstance(x, (torch.Tensor, np.ndarray))
+    return isinstance(x, (NDArray, torch.Tensor, np.ndarray))
 
 
 def _sig_params(op: Operator):
@@ -51,15 +53,17 @@ def _sig_params(op: Operator):
     return names, n_pos
 
 
-def _as_tensors(arrays):
-    """Tensors stay as they are; numpy arrays go to the device of the
-    first tensor among ``arrays``, or to the card."""
-    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)),
+def _as_inputs(arrays):
+    """NDArrays and tensors stay as they are; numpy arrays go to the
+    device of the first NDArray or tensor among ``arrays``, or to the
+    card."""
+    dev = next((a.context if isinstance(a, NDArray) else a.device
+                for a in arrays if isinstance(a, (NDArray, torch.Tensor))),
                None)
-    if dev is None and arrays:
+    if dev is None and any(isinstance(a, np.ndarray) for a in arrays):
         dev = resolve_device()
-    return [a if isinstance(a, torch.Tensor)
-            else torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+    return [torch.from_numpy(np.array(a)).to(dev)
+            if isinstance(a, np.ndarray) else a for a in arrays]
 
 
 def make_op_func(op: Operator):
@@ -67,18 +71,33 @@ def make_op_func(op: Operator):
 
     def fn(*args, out=None, **kwargs):
         i = 0
-        while i < len(args) and _array_like(args[i]):
-            i += 1
-        arrays = list(args[:i])
+        if op.variadic and args and isinstance(args[0], (list, tuple)):
+            arrays = list(args[0])
+            i = 1
+        else:
+            while i < len(args) and _array_like(args[i]):
+                i += 1
+            arrays = list(args[:i])
         params = dict(kwargs)
         # remaining positionals fill the impl's parameters after the ones
-        # the arrays bind: one each for plain signatures, none for *args
-        # impls (variadic ops are not ported: apply_op refuses them)
-        skip = min(len(arrays), n_pos)
+        # the arrays bind: one each for plain signatures, the list
+        # parameter for variadic ops, none for *args impls
+        skip = 1 if op.variadic else min(len(arrays), n_pos)
         for v, name in zip(args[i:], pnames[skip:]):
             params.setdefault(name, v)
         params.pop("name", None)  # symbol-compat kwarg, ignored eagerly
-        return apply_op(op, _as_tensors(arrays), params, out=out)
+        inputs = _as_inputs(arrays)
+        res = apply_op(op, inputs, params, out=out)
+        if out is not None:
+            return out
+        if op.mutates:
+            # the written arrays as given (a numpy input's copy wrapped)
+            res = res if isinstance(res, tuple) else (res,)
+            picked = tuple(
+                arrays[m] if isinstance(arrays[m], (NDArray, torch.Tensor))
+                else NDArray(r) for m, r in zip(op.mutates, res))
+            return picked[0] if len(picked) == 1 else picked
+        return _wrap(res)
 
     fn.__name__ = op.name
     fn.__qualname__ = op.name

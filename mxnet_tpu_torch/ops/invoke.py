@@ -1,12 +1,27 @@
 """Eager op invocation (the port of ``mxnet_tpu/ops/invoke.py``
-``apply_op``, the subset the ported ops need).
+``apply_op``).
 
-:func:`apply_op` is the one chokepoint every generated ``nd.*``
-function goes through. It calls ``op.impl(*tensors, **params)``; a
-non-differentiable op runs under ``torch.no_grad()``, so it never lands
-on the autograd tape; ``out=`` copies the results into the given
-tensors, untaped. Autograd itself is torch's (recording is
+:func:`apply_op` is the one chokepoint every generated ``nd.*`` function
+and every computing :class:`~mxnet_tpu_torch.ndarray.NDArray` method goes
+through. It unwraps NDArray inputs to their tensors and calls
+``op.impl(*tensors, **params)`` (a ``variadic`` op: ``impl(list(tensors),
+**params)``); a non-differentiable op runs under ``torch.no_grad()``, so
+it never lands on the autograd tape; ``out=`` copies the results into
+the given tensors, untaped (an impl marked ``writes_out``, the update
+tail's, takes the targets itself). It returns tensors: ``nd.*`` and the
+NDArray methods wrap them. Autograd itself is torch's (recording is
 :mod:`mxnet_tpu_torch.autograd`'s scopes).
+
+The registry's invocation features, as the reference's chokepoint has
+them:
+
+- ``needs_rng``: the op gets ``rng=``, the generator of the next draw of
+  :mod:`mxnet_tpu_torch._rng` on the op's device (its first tensor's,
+  else its ``ctx``, else the card), unless the caller passed one;
+- ``needs_train``: the op gets ``_training=autograd.is_training()``;
+- ``host_op`` (an op whose output shape depends on its data): runs
+  eagerly, a torch tensor's host round trip built in; inside a CUDA-graph
+  capture it raises and names the op rather than synchronise.
 
 Under :func:`mxnet_tpu_torch.amp.init` the chokepoint casts each
 op's tensor inputs by its name (:func:`_amp_cast_inputs`, the
@@ -22,13 +37,14 @@ A ``mutates`` op (the optimizer updates of :mod:`.optimizer_ops`)
 writes its results into the inputs it names, in place: the port's
 weights and states stay where they are, so there is nothing to donate.
 While ``optimizer.fused`` records a step, :data:`_FUSED_RECORDER` holds
-its recorder and a mutates op is handed to it instead of running (the
-reference's chokepoint hook, ``mxnet_tpu/ops/invoke.py:202-250``).
+its recorder and a mutates op (single or variadic) is handed to it
+instead of running (the reference's chokepoint hook,
+``mxnet_tpu/ops/invoke.py:202-250``).
 
-Not ported yet (ROADMAP.md, framework core): ``host_op`` rerouting,
-random keys (``needs_rng``), the training flag (``needs_train``), list
-inputs (``variadic``) and sparse Embedding gradients. An op that asks
-for one of them raises ``NotImplementedError``.
+Left for ``ndarray/sparse`` (ROADMAP.md, framework core): sparse
+Embedding gradients. ``Embedding(sparse_grad=True)`` and
+``_contrib_SparseEmbedding`` run forward, and raise
+``NotImplementedError`` under ``autograd.record()``.
 """
 from __future__ import annotations
 
@@ -39,10 +55,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import _rng, autograd
+from .._device import resolve_device
 from .registry import Operator, get as get_op
 
-__all__ = ["apply_op", "amp_cast", "TRACED_HYPERPARAMS"]
+__all__ = ["apply_op", "amp_cast", "as_tensor", "TRACED_HYPERPARAMS"]
 
 # Per-step hyperparameters of the update ops: a recorded step keeps them
 # out of its signature, so an lr/wd/momentum schedule or a loss scale
@@ -112,26 +129,60 @@ def amp_cast(op_name):
     return deco
 
 
-def _unported(op, what):
+def _ndarray_cls():
+    from ..ndarray.ndarray import NDArray
+    return NDArray
+
+
+def as_tensor(x):
+    """An NDArray's tensor; anything else as it is."""
+    return x._data if isinstance(x, _ndarray_cls()) else x
+
+
+def _draw_device(inputs, params):
+    """The device a random op draws on: its first tensor input's, else
+    its ``ctx`` parameter, else the card."""
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    ctx = params.get("ctx")
+    return resolve_device("cuda" if ctx is None else ctx)
+
+
+def _sparse_grad_refused(op):
     raise NotImplementedError(
-        f"op {op.name!r} needs {what}, which the PyTorch port does not "
-        f"have yet (ROADMAP.md, framework core)")
+        f"op {op.name!r} under autograd.record() needs sparse embedding "
+        "gradients, which the PyTorch port does not have yet (ROADMAP.md, "
+        "framework core: ndarray/sparse)")
+
+
+def _call(op, inputs, params):
+    if op.variadic:
+        return op.impl(list(inputs), **params)
+    return op.impl(*inputs, **params)
 
 
 def apply_op(op, inputs: Sequence, params: Optional[dict] = None,
              out=None):
-    """Invoke a registered op (or its name) on tensor inputs."""
+    """Invoke a registered op (or its name) on tensor or NDArray inputs;
+    returns tensors."""
     if not isinstance(op, Operator):
         op = get_op(op)
     params = dict(params) if params else {}
+    NDArray = _ndarray_cls()
+    inputs = [as_tensor(x) for x in inputs]
     if _AMP["active"]:
         inputs = _amp_cast_inputs(op.name, inputs)
-    if op.mutates and not op.variadic:
+    if op.needs_rng and params.get("rng") is None:
+        params["rng"] = _rng.next_generator(_draw_device(inputs, params))
+    if op.needs_train and "_training" not in params:
+        params["_training"] = autograd.is_training()
+    if op.mutates:
         recorder = getattr(_FUSED_RECORDER, "rec", None)
         if recorder is not None:
             return recorder.record(op, inputs, params)
         with torch.no_grad():
-            outs = op.impl(*inputs, **params)
+            outs = _call(op, inputs, params)
             outs_t = (outs,) if not isinstance(outs, (tuple, list)) \
                 else tuple(outs)
             results = []
@@ -140,28 +191,34 @@ def apply_op(op, inputs: Sequence, params: Optional[dict] = None,
                     inputs[m].copy_(o)
                 results.append(inputs[m])
         return results[0] if len(results) == 1 else tuple(results)
-    if op.host_op:
-        _unported(op, "host-callback rerouting (host_op)")
-    if op.needs_rng:
-        _unported(op, "a random key (needs_rng)")
-    if op.needs_train:
-        _unported(op, "the training flag (needs_train)")
-    if op.variadic:
-        _unported(op, "a list of inputs (variadic)")
+    if op.host_op and torch.cuda.is_available() \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"op {op.name!r} reads its data on the host to size its output "
+            "(host_op) and cannot run inside a CUDA-graph capture")
     if ((op.name == "Embedding" and params.get("sparse_grad"))
             or op.name == "_contrib_SparseEmbedding") \
             and autograd.is_recording():
-        _unported(op, "sparse embedding gradients")
+        _sparse_grad_refused(op)
+    if out is not None:
+        single_out = isinstance(out, (torch.Tensor, NDArray))
+        targets = (out,) if single_out else tuple(out)
+        targets = tuple(as_tensor(t) for t in targets)
+        if getattr(op.impl, "writes_out", False):
+            # the op writes its targets itself (the update tail: in place
+            # when they are its own inputs)
+            with torch.no_grad():
+                _call(op, inputs, dict(params, out=list(targets)))
+            return targets[0] if single_out else targets
     if op.differentiable:
-        outs = op.impl(*inputs, **params)
+        outs = _call(op, inputs, params)
     else:
         with torch.no_grad():
-            outs = op.impl(*inputs, **params)
+            outs = _call(op, inputs, params)
     if out is None:
         return outs
     single = not isinstance(outs, (tuple, list))
     outs_t = (outs,) if single else tuple(outs)
-    targets = (out,) if isinstance(out, torch.Tensor) else tuple(out)
     with torch.no_grad():
         for t, o in zip(targets, outs_t):
             t.copy_(o)

@@ -23,6 +23,14 @@ which nvcc never contracts. Torch's CUDA division by a Python scalar
 multiplies by its reciprocal, so the twin divides by a 0-d tensor of the
 scalar instead (:func:`_div`), which both devices divide exactly.
 
+:func:`multi_apply` is the functional form the multi-tensor ops of
+:mod:`.extra` run on: the results in fresh tensors (or in given ones,
+in place where those are the inputs), one launch. Beside the 13 rules of
+``mxnet_tpu/ops/optimizer_ops.py`` the kernel has three of
+``mxnet_tpu/ops/extra.py``: ``mp_nag_mom_update``, ``_mp_adamw_update``
+and ``ftml_update`` (there a clip bound of 0 or less means none:
+:func:`clip_bound`).
+
 The ``lamb_update_phase*`` ops are not here: LAMB's two phases need a
 norm between them on the host, so LAMB is not fusable and waits with
 the other optimizers (ROADMAP.md §1 item 13).
@@ -38,8 +46,9 @@ import torch
 from .. import kernels
 from .registry import _REGISTRY, Operator
 
-__all__ = ["RULES", "multi_update", "UpdateTable", "scalar_rows",
-           "SCALAR_ROW", "CHUNK", "RESCALE_WORD", "bytes_per_element"]
+__all__ = ["RULES", "multi_update", "multi_apply", "UpdateTable",
+           "scalar_rows", "SCALAR_ROW", "CHUNK", "RESCALE_WORD", "LR_WORD",
+           "WD_WORD", "bytes_per_element"]
 
 # floats per row of the scalar table, and elements a CTA takes at a time
 # (both as in csrc/multi_tensor_update.cu)
@@ -49,6 +58,14 @@ CHUNK = 32768
 # scalars) that holds the device address of _adamw_update's rescale
 # array; 0: the row's float rescale_grad
 RESCALE_WORD = 5
+# the int64 words of an SGD rule's row (sgd, sgd_mom and their mp forms;
+# floats 6-9, past their five scalars) that hold the device addresses of
+# its lr and wd, read in place of the row's floats: the preloaded_multi_*
+# ops take lrs and wds as arrays on the card; 0: the row's floats
+LR_WORD, WD_WORD = 3, 4
+_RESCALE_ARR_OPS = ("_adamw_update", "_mp_adamw_update")
+_LR_WD_OPS = ("sgd_update", "sgd_mom_update", "mp_sgd_update",
+              "mp_sgd_mom_update")
 _LOW = (torch.bfloat16, torch.float16)
 _WDTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -190,6 +207,46 @@ def _adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
     return weight - lr * g / (torch.sqrt(new_h) + epsilon), new_h
 
 
+# the update ops of mxnet_tpu/ops/extra.py; there a clip bound of 0 or
+# less means none (:func:`clip_bound` maps it to -1 for the kernel)
+def _mp_nag_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep(grad.to(torch.float32), rescale_grad,
+              clip_bound(clip_gradient)) + wd * weight32
+    new_mom = momentum * mom - lr * g
+    w32 = weight32 + momentum * new_mom - lr * g
+    return w32.to(weight.dtype), new_mom, w32
+
+
+def _mp_adamw_update(weight, grad, mean, var, weight32, rescale_grad=1.0,
+                     lr=0.01, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=0.0,
+                     eta=1.0, clip_gradient=-1.0, rescale_grad_arr=None):
+    rs = rescale_grad_arr if rescale_grad_arr is not None else rescale_grad
+    g = _prep(grad.to(torch.float32), rs, clip_bound(clip_gradient))
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * (g * g)
+    w32 = weight32 - eta * (lr * m / (torch.sqrt(v) + epsilon)
+                            + wd * weight32)
+    return w32.to(weight.dtype), m, v, w32
+
+
+def _ftml_update(weight, grad, d, v, z, lr=0.01, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, t=1, wd=0.0, rescale_grad=1.0,
+                 clip_grad=-1.0):
+    g = _prep(grad, rescale_grad, clip_bound(clip_grad)) + wd * weight
+    new_v = beta2 * v + (1 - beta2) * (g * g)
+    d_t = (1 - beta1 ** t) / lr * (torch.sqrt(_div(new_v, 1 - beta2 ** t))
+                                   + epsilon)
+    new_z = beta1 * z + (1 - beta1) * g - (d_t - beta1 * d) * weight
+    return -new_z / d_t, d_t, new_v, new_z
+
+
+def clip_bound(c):
+    """A clip bound of the ``mxnet_tpu/ops/extra.py`` ops (none unless
+    positive) as the kernel's rows read one (none when negative)."""
+    return -1.0 if c is None or c <= 0 else float(c)
+
+
 # --------------------------------------------- the kernel's scalar rows --
 # each rule's row of the scalar table, in csrc/multi_tensor_update.cu's
 # layout, from the op's keyword arguments with the twin's defaults (f64)
@@ -243,6 +300,25 @@ def _row_adagrad(k):
             _clip_or_off(k["clip_gradient"]))
 
 
+def _row_mp_nag(k):
+    return (k["lr"], k["momentum"], k["wd"], k["rescale_grad"],
+            clip_bound(k["clip_gradient"]))
+
+
+def _row_mp_adamw(k):
+    return (k["lr"], k["beta1"], 1 - k["beta1"], k["beta2"], 1 - k["beta2"],
+            k["epsilon"], k["wd"], k["eta"], k["rescale_grad"],
+            clip_bound(k["clip_gradient"]))
+
+
+def _row_ftml(k):
+    t = k["t"]
+    return (k["beta1"], 1 - k["beta1"], k["beta2"], 1 - k["beta2"],
+            k["epsilon"], k["wd"], k["rescale_grad"],
+            clip_bound(k["clip_grad"]), (1 - k["beta1"] ** t) / k["lr"],
+            1 - k["beta2"] ** t)
+
+
 class _Rule:
     """One update op: its twin, its rule number in the kernel, the
     number of tensor inputs it takes and the indices it writes, and its
@@ -282,6 +358,11 @@ RULES = {r.name: r for r in (
     _Rule("signsgd_update", 10, _signsgd_update, 2, _row_sgd),
     _Rule("signum_update", 11, _signum_update, 3, _row_signum),
     _Rule("_adagrad_update", 12, _adagrad_update, 3, _row_adagrad),
+    _Rule("mp_nag_mom_update", 13, _mp_nag_mom_update, 4, _row_mp_nag,
+          mp=True),
+    _Rule("_mp_adamw_update", 14, _mp_adamw_update, 5, _row_mp_adamw,
+          mp=True),
+    _Rule("ftml_update", 15, _ftml_update, 5, _row_ftml),
 )}
 
 
@@ -300,11 +381,14 @@ def scalar_rows(name, kwargs_list, grads):
     per call, ``SCALAR_ROW - 2`` float32 scalars (each computed in
     float64, rounded once) and, in the last eight bytes, the address of
     the call's gradient (``grads``), which moves from step to step as
-    autograd hands out a new gradient tensor. A ``_adamw_update`` call
-    given ``rescale_grad_arr`` (a one-element f32 tensor on the card)
-    has its address in int64 word :data:`RESCALE_WORD`: the kernel reads
-    the scale from it on the device, in place of ``rescale_grad``, so no
-    host sync reads it and a captured step takes whatever it holds."""
+    autograd hands out a new gradient tensor. A ``_adamw_update`` or
+    ``_mp_adamw_update`` call given ``rescale_grad_arr`` (a one-element
+    f32 tensor on the card) has its address in int64 word
+    :data:`RESCALE_WORD`: the kernel reads the scale from it on the
+    device, in place of ``rescale_grad``, so no host sync reads it and a
+    captured step takes whatever it holds. An SGD rule's call given
+    ``lr_arr`` or ``wd_arr`` (one f32 element each) has their addresses
+    in words :data:`LR_WORD` and :data:`WD_WORD` alike."""
     rule = RULES[name]
     rows = np.zeros((len(kwargs_list), SCALAR_ROW), np.float64)
     for k, kw in enumerate(kwargs_list):
@@ -314,9 +398,11 @@ def scalar_rows(name, kwargs_list, grads):
     words = rows.view(np.int64)
     words[:, SCALAR_ROW // 2 - 1] = [g.data_ptr() for g in grads]
     for k, kw in enumerate(kwargs_list):
-        arr = kw.get("rescale_grad_arr")
-        if arr is not None:
-            words[k, RESCALE_WORD] = arr.data_ptr()
+        for key, word in (("rescale_grad_arr", RESCALE_WORD),
+                          ("lr_arr", LR_WORD), ("wd_arr", WD_WORD)):
+            arr = kw.get(key)
+            if arr is not None:
+                words[k, word] = arr.data_ptr()
     return rows
 
 
@@ -407,23 +493,25 @@ class UpdateTable:
                     f"{dtype} of {n} elements on {self.device} the kernel "
                     "takes")
         for kw in kwargs_list:
-            arr = kw.get("rescale_grad_arr")
-            if arr is None:
-                continue
-            if self.name != "_adamw_update":
-                raise TypeError(f"{self.name} takes no rescale_grad_arr")
-            if arr.device != self.device or arr.dtype != torch.float32 \
-                    or arr.numel() != 1:
-                raise ValueError(
-                    f"_adamw_update: rescale_grad_arr ({arr.dtype}, "
-                    f"{arr.numel()} elements on {arr.device}) is not the "
-                    f"one float32 element on {self.device} the kernel "
-                    "takes")
+            for key, ops in (("rescale_grad_arr", _RESCALE_ARR_OPS),
+                             ("lr_arr", _LR_WD_OPS), ("wd_arr", _LR_WD_OPS)):
+                arr = kw.get(key)
+                if arr is None:
+                    continue
+                if self.name not in ops:
+                    raise TypeError(f"{self.name} takes no {key}")
+                if arr.device != self.device or \
+                        arr.dtype != torch.float32 or arr.numel() != 1:
+                    raise ValueError(
+                        f"{self.name}: {key} ({arr.dtype}, {arr.numel()} "
+                        f"elements on {arr.device}) is not the one float32 "
+                        f"element on {self.device} the kernel takes")
         return scalar_rows(self.name, kwargs_list, grads)
 
-    def launch(self, rows):
+    def launch(self, rows, counter=None):
         """One launch over the table with this step's ``rows`` (a CUDA
-        tensor of :meth:`rows`, or an address into one)."""
+        tensor of :meth:`rows`, or an address into one), counted under
+        ``counter`` (default: the op's name)."""
         if not self.ntensors:
             return
         lib = kernels.library("multi_tensor_update")
@@ -433,7 +521,7 @@ class UpdateTable:
             self.ntensors, self.nchunks, ctypes.c_void_p(ptr),
             kernels.stream_handle(self.device))
         kernels.check(rc, f"multi_tensor_update ({self.name})")
-        kernels.count_launch(self.name)
+        kernels.count_launch(counter or self.name)
 
 
 def _write_back(rule, xs, outs):
@@ -462,6 +550,40 @@ def multi_update(name, tensor_lists, kwargs_list, table=None):
     return table
 
 
+def multi_apply(name, tensor_lists, kwargs_list, counter=None, out=None):
+    """The functional form of :func:`multi_update`: op ``name`` over
+    every parameter of ``tensor_lists``, its results in fresh tensors
+    (or in ``out``: per parameter the tensors to write, in the op's
+    ``mutates`` order) and its inputs left as they were, unless ``out``
+    names them. The weight and states are copied to the results (one
+    ``_foreach_copy_``; an mp op's 16-bit weight, which the kernel only
+    writes, is not; a result that is its own input is not) and the
+    update runs on the results in place: on the card one launch of the
+    kernel over them, counted under ``counter``. Returns, per parameter,
+    the tensors written, in the op's ``mutates`` order."""
+    rule = RULES[name]
+    dsts, srcs, results = [], [], []
+    for k, xs in enumerate(tensor_lists):
+        ys = list(xs)
+        for j, m in enumerate(rule.mutates):
+            ys[m] = torch.empty_like(xs[m]) if out is None else out[k][j]
+            if ys[m] is not xs[m] and not (rule.mp and m == 0):
+                dsts.append(ys[m])
+                srcs.append(xs[m])
+        results.append(ys)
+    if dsts:
+        with torch.no_grad():
+            torch._foreach_copy_(dsts, srcs)
+    if results and results[0][0].device.type == "cpu":
+        for ys, kw in zip(results, kwargs_list):
+            _write_back(rule, ys, rule.twin(*ys, **kw))
+    elif results:
+        table = UpdateTable(name, results)
+        rows = table.rows(kwargs_list, [ys[1] for ys in results])
+        table.launch(_upload(rows, table.device), counter)
+    return [[ys[m] for m in rule.mutates] for ys in results]
+
+
 def _op(rule):
     """The registered impl: the twin on the CPU, the kernel over one
     parameter on the card (which updates in place and returns the
@@ -474,6 +596,10 @@ def _op(rule):
             # row (scalar_rows) as the address the kernel reads it from
             kw = dict(kw, rescale_grad_arr=xs[rule.n_in])
             xs = xs[:rule.n_in]
+        if isinstance(kw.get("rescale_grad"), torch.Tensor):
+            # _mp_adamw_update's rescale_grad given as an array: the same
+            kw = dict(kw, rescale_grad_arr=kw["rescale_grad"],
+                      rescale_grad=1.0)
         multi_update(rule.name, [xs], [kw])
         out = tuple(xs[m] for m in rule.mutates)
         return out[0] if len(out) == 1 else out

@@ -459,7 +459,7 @@ def read_arrays(ckpt_dir, manifest=None, verify_arrays=False):
             span.set("bytes", nbytes)
             obs["read_bytes"].inc(nbytes)
         else:
-            from ..ndarray import load as nd_load
+            from ..ndarray import load_tensors as nd_load
             out = nd_load(os.path.join(ckpt_dir, DATA_FILE),
                           manifest=manifest.get("arrays") if verify_arrays
                           else None)

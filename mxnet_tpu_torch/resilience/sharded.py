@@ -211,7 +211,7 @@ class _ShardCache:
 
     def get(self, k):
         if k not in self._loaded:
-            from ..ndarray import load as nd_load
+            from ..ndarray import load_tensors as nd_load
             self._loaded[k] = nd_load(
                 os.path.join(self._dir, shard_filename(k, self._n)))
         return self._loaded[k]

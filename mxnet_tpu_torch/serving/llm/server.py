@@ -222,6 +222,8 @@ class LLMServer:
         an unknown name), so a typo raises at submit, not mid-batch. The
         adapter rides the step's batch as data: mixed-adapter packs and
         base-model rows run in the same captured graphs."""
+        if hasattr(prompt_tokens, "asnumpy"):       # an NDArray
+            prompt_tokens = prompt_tokens.asnumpy().tolist()
         if isinstance(sampling, dict):
             sampling = SamplingParams(**sampling)
         if not self._started:

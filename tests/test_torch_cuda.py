@@ -2185,8 +2185,9 @@ def test_nd_save_of_cuda_tensors(cuda, tmp_path):
     assert all(a[i] == 1 and b[i] == 2 for i in diff)
     back = nd.load(pd, manifest=md["arrays"], device=cuda)
     for k, v in host.items():
-        assert back[k].device.type == "cuda" and back[k].dtype == v.dtype
-        assert torch.equal(back[k].cpu(), v), k
+        t = torch.from_dlpack(back[k])        # the NDArray's tensor
+        assert t.device.type == "cuda" and t.dtype == v.dtype
+        assert torch.equal(t.cpu(), v), k
 
 
 @pytest.mark.cuda
@@ -2491,3 +2492,151 @@ def test_chat_hot_swap_captures_only_in_the_warm_phase(cuda):
         assert progs["replays"] == progs["dispatches"] > 0
     router.shutdown()
     assert new.engine.cache.check(live_block_ids=[])
+
+
+# ----------------------------------------- framework core: update tail --
+MULTI_OPS = (
+    # op, the rule it runs, inputs per weight, 16-bit weight dtype or None
+    ("multi_sgd_update", "sgd_update", 2, None),
+    ("multi_sgd_mom_update", "sgd_mom_update", 3, None),
+    ("multi_mp_sgd_update", "mp_sgd_update", 3, torch.bfloat16),
+    ("multi_mp_sgd_mom_update", "mp_sgd_mom_update", 4, torch.float16),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preloaded", [False, True],
+                         ids=["host_lists", "preloaded"])
+@pytest.mark.parametrize("op,rule,n_per,low", MULTI_OPS,
+                         ids=[m[0] for m in MULTI_OPS])
+def test_variadic_update_op_is_one_launch_and_leaves_inputs(cuda, op, rule,
+                                                           n_per, low,
+                                                           preloaded):
+    """A ``multi_*`` / ``preloaded_multi_*`` op on the card: one launch of
+    the update kernel, counted under the op's name; its outputs the bits
+    of the rule's twin on clones (with per-weight lr and wd, from host
+    lists or from arrays on the card); its inputs unchanged."""
+    lists = chip_smoke.update_case(torch, rule, UPDATE_SIZES,
+                                   low or torch.float32, cuda, seed=21)
+    lrs = [0.01 * (1 + k) for k in range(len(lists))]
+    wds = [1e-3 * (1 + k % 3) for k in range(len(lists))]
+    common = dict(rescale_grad=0.125, clip_gradient=2.0)
+    if "mom" in rule:
+        common["momentum"] = 0.9
+    flat = [x for xs in lists for x in xs]
+    before = [x.clone() for x in flat]
+    name = ("preloaded_" if preloaded else "") + op
+    n0 = kernels.launch_counts().get(name, 0)
+    if preloaded:
+        got = getattr(nd, name)(*flat, torch.tensor(lrs, device=cuda),
+                                torch.tensor(wds, device=cuda), **common)
+    else:
+        got = getattr(nd, name)(*flat, num_weights=len(lists), lrs=lrs,
+                                wds=wds, **common)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == n0 + 1
+    want = []
+    for k, xs in enumerate(lists):
+        lr = torch.tensor(lrs[k], device=cuda) if preloaded else lrs[k]
+        wd = torch.tensor(wds[k], device=cuda) if preloaded else wds[k]
+        out = topt_ops.RULES[rule].twin(*[x.clone() for x in xs], lr=lr,
+                                        wd=wd, **common)
+        want += list(out if isinstance(out, tuple) else (out,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g._data, w)
+    for x, b in zip(flat, before):
+        assert torch.equal(x, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp", [False, True], ids=["f32", "mp_bf16"])
+def test_multi_adamw_reads_the_rescale_array_on_the_card(cuda, mp):
+    rule = "_mp_adamw_update" if mp else "_adamw_update"
+    lists = chip_smoke.update_case(torch, rule, UPDATE_SIZES,
+                                   torch.bfloat16 if mp else torch.float32,
+                                   cuda, seed=22)
+    rescale = torch.tensor([0.375], device=cuda)
+    kw = dict(lrs=[0.01] * len(lists), wds=[0.001] * len(lists),
+              etas=[0.5] * len(lists), beta1=0.8, beta2=0.99, epsilon=1e-6)
+    flat = [x for xs in lists for x in xs]
+    name = "_multi_mp_adamw_update" if mp else "_multi_adamw_update"
+    n0 = kernels.launch_counts().get(name, 0)
+    got = getattr(nd, name)(*flat, rescale, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == n0 + 1
+    twin = topt_ops.RULES[rule].twin
+    want = []
+    for xs in lists:
+        want += list(twin(*[x.clone() for x in xs], lr=0.01, wd=0.001,
+                          eta=0.5, beta1=0.8, beta2=0.99, epsilon=1e-6,
+                          rescale_grad_arr=rescale))
+    for g, w in zip(got, want):
+        assert torch.equal(g._data, w)
+
+
+@pytest.mark.cuda
+def test_host_op_raises_under_capture(cuda):
+    """An op that sizes its output from its data (``host_op``) raises,
+    naming itself, inside a CUDA-graph capture; outside it runs."""
+    from mxnet_tpu_torch.ops import registry as treg
+    name = "_cuda_test_host_op"
+    treg._REGISTRY[name] = treg.Operator(
+        name, lambda x: x[x > 0], differentiable=False, host_op=True)
+    try:
+        x = torch.tensor([1.0, -2.0, 3.0], device=cuda)
+        assert apply_op(name, [x]).shape == (2,)
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            with pytest.raises(RuntimeError, match=name):
+                with torch.cuda.graph(graph, stream=side):
+                    apply_op(name, [x])
+        torch.cuda.synchronize()
+    finally:
+        treg._REGISTRY.pop(name, None)
+
+
+@pytest.mark.cuda
+def test_nd_random_on_the_card_keeps_seed_and_position(cuda):
+    from mxnet_tpu_torch import _rng
+    from mxnet_tpu_torch.ndarray import random as ndr
+    ndr.seed(17)
+    a = ndr.normal(shape=(4096,), ctx=cuda).asnumpy()
+    b = ndr.uniform(shape=(4096,), ctx=cuda).asnumpy()
+    assert _rng.get_state() == {"seed": 17, "draws": 2}
+    ndr.seed(17)
+    assert np.array_equal(ndr.normal(shape=(4096,), ctx=cuda).asnumpy(), a)
+    state = _rng.get_state()
+    c = ndr.gamma(2.0, shape=(4096,), ctx=cuda).asnumpy()
+    _rng.set_state(state)
+    assert np.array_equal(ndr.gamma(2.0, shape=(4096,), ctx=cuda).asnumpy(),
+                          c)
+    ndr.seed(18)
+    assert not np.array_equal(ndr.normal(shape=(4096,), ctx=cuda).asnumpy(),
+                              a)
+    assert not np.array_equal(a[:16], b[:16])
+
+
+@pytest.mark.cuda
+def test_update_tail_out_as_its_inputs_updates_in_place(cuda):
+    """``out=`` the op's own weights and momenta: one launch updates them
+    in place, to the twin's bits (the reference's ``out=weights``)."""
+    lists = chip_smoke.update_case(torch, "sgd_mom_update", UPDATE_SIZES,
+                                   torch.float32, cuda, seed=23)
+    want = []
+    for xs in lists:
+        want += list(topt_ops.RULES["sgd_mom_update"].twin(
+            *[x.clone() for x in xs], lr=0.01, wd=0.001, momentum=0.9))
+    flat = [x for xs in lists for x in xs]
+    own = [x for xs in lists for x in (xs[0], xs[2])]
+    n0 = kernels.launch_counts().get("multi_sgd_mom_update", 0)
+    res = nd.multi_sgd_mom_update(*flat, num_weights=len(lists),
+                                  lrs=[0.01] * len(lists),
+                                  wds=[0.001] * len(lists), momentum=0.9,
+                                  out=own)
+    torch.cuda.synchronize()
+    assert res is own
+    assert kernels.launch_counts()["multi_sgd_mom_update"] == n0 + 1
+    for o, w in zip(own, want):
+        assert torch.equal(o, w)

@@ -167,7 +167,7 @@ def test_lora_delta_through_the_registry_and_nd():
     got_nd = nd.lora_delta(torch.from_numpy(x), torch.from_numpy(a),
                            torch.from_numpy(b), alpha=3.0)
     for got in (got_op, got_nd):
-        np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5,
+        np.testing.assert_allclose(np.asarray(got.detach()), want, atol=1e-5,
                                    rtol=1e-5)
 
 

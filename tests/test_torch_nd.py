@@ -91,7 +91,7 @@ def test_positional_arguments_map_like_jax(scratch_ops, extra, kw):
                                        **kw)
     want = j_make(jreg.get(name))(mx.nd.array(x), mx.nd.array(y), *extra,
                                   **kw)
-    np.testing.assert_array_equal(got.numpy(), want.asnumpy())
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
 
 
 def _paged(seed, chunk):
@@ -114,13 +114,13 @@ def test_nd_ragged_paged_attention_matches_jax(chunk):
     # the first input a CPU tensor, the rest numpy: moved to its device
     got = nd.ragged_paged_attention(torch.from_numpy(arrays[0]),
                                     *arrays[1:], **kw)
-    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert isinstance(got, nd.NDArray) and got.context.type == "cpu"
     if chunk:
         for i, n in enumerate(kw["q_lens"]):
-            np.testing.assert_allclose(got[i, :n].numpy(), want[i, :n],
+            np.testing.assert_allclose(got[i, :n].asnumpy(), want[i, :n],
                                        rtol=ATT_RTOL, atol=ATT_ATOL)
     else:
-        np.testing.assert_allclose(got.numpy(), want, rtol=ATT_RTOL,
+        np.testing.assert_allclose(got.asnumpy(), want, rtol=ATT_RTOL,
                                    atol=ATT_ATOL)
 
 
@@ -133,7 +133,7 @@ def test_nd_scaled_dot_product_attention_matches_jax():
         *(mx.nd.array(a) for a in (q, k, v, bias))).asnumpy()
     got = nd.scaled_dot_product_attention(
         *(torch.from_numpy(a) for a in (q, k, v, bias)))
-    np.testing.assert_allclose(got.detach().numpy(), want, atol=FLASH_TOL,
+    np.testing.assert_allclose(got.asnumpy(), want, atol=FLASH_TOL,
                                rtol=0)
 
 
@@ -141,11 +141,11 @@ def test_nd_array_defaults_to_the_card(monkeypatch):
     for src in ([1, 2], np.arange(3, dtype=np.int32), np.ones(2)):
         got = nd.array(src, ctx="cpu")
         want = mx.nd.array(src)
-        assert got.device.type == "cpu"
+        assert got.context.type == "cpu"
         assert str(got.dtype).replace("torch.", "") == str(want.dtype)
-        np.testing.assert_array_equal(got.numpy(), want.asnumpy())
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
     assert nd.zeros((2, 3), ctx=torch.device("cpu")).sum() == 0
-    assert nd.ones(4, ctx="cpu", dtype="int32").dtype == torch.int32
+    assert nd.ones(4, ctx="cpu", dtype="int32").dtype == np.int32
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: nd.array([1.0]), lambda: nd.zeros(2),
                  lambda: nd.ones(2),
@@ -162,8 +162,8 @@ def test_non_differentiable_op_stays_off_the_tape():
     with ag.record():
         out = nd.ragged_paged_attention(q, *rest)
         att = nd.scaled_dot_product_attention(q[None], q[None], q[None])
-    assert out.grad_fn is None and not out.requires_grad
-    assert att.grad_fn is not None
+    assert out._data.grad_fn is None and not out._data.requires_grad
+    assert att._data.grad_fn is not None
 
 
 def test_out_writes_the_given_tensor():
@@ -175,16 +175,57 @@ def test_out_writes_the_given_tensor():
     assert torch.equal(buf, nd.ragged_paged_attention(*t, **kw))
 
 
+def _feature_op(flag):
+    """A scratch op of one invocation feature (the same impl serves both
+    packages): a variadic mutates op writing its first input, an op of a
+    random key or of the training flag, a variadic op."""
+    if flag == "mutates":
+        return dict(variadic=True, mutates=(0,)), \
+            (lambda xs: xs[0] + xs[1])
+    if flag == "needs_rng":
+        # the key's bits are not compared (the packages' streams differ),
+        # only that the op got one
+        return dict(needs_rng=True), \
+            (lambda x, rng=None: x + float(rng is not None))
+    if flag == "needs_train":
+        return dict(needs_train=True), \
+            (lambda x, _training=False: x * (2.0 if _training else 3.0))
+    return dict(variadic=True), (lambda xs: xs[0] * xs[1] - xs[2])
+
+
 @pytest.mark.parametrize("flag", ["mutates", "needs_rng", "needs_train",
                                   "variadic"])
-def test_unported_invoke_features_raise(scratch_ops, flag):
+def test_invoke_features_work_as_jax(scratch_ops, flag):
+    """Each invocation feature of the registry runs through apply_op as
+    through the JAX package's: the same result (under record(), so the
+    training flag is set), and a mutates op writes its input in place in
+    both."""
+    from mxnet_tpu.ops.invoke import apply_op as japply_op
     name = f"_nd_test_{flag}"
     scratch_ops.append(name)
-    kw = {flag: (0,) if flag == "mutates" else True}
+    kw, impl = _feature_op(flag)
+    treg.register(name, **kw)(impl)
+    jreg.register(name, **kw)(impl)
+    arrays = [np.arange(4, dtype=np.float32) + k for k in range(3)]
+    n_in = 2 if flag == "mutates" else 3 if flag == "variadic" else 1
+    tx = [nd.array(a, ctx="cpu") for a in arrays[:n_in]]
+    jx = [mx.nd.array(a) for a in arrays[:n_in]]
+    with ag.record(), mx.autograd.record():
+        got = apply_op(name, tx)
+        want = japply_op(name, jx)
+    np.testing.assert_array_equal(got.detach().numpy(), want.asnumpy())
     if flag == "mutates":
-        # in-place ops are ported (ops/optimizer_ops.py); one over a list
-        # of inputs (the multi_sgd_* ops) is not
-        kw["variadic"] = True
-    treg.register(name, **kw)(lambda x: x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_op(name, [torch.ones(2)])
+        np.testing.assert_array_equal(tx[0].asnumpy(), jx[0].asnumpy())
+        np.testing.assert_array_equal(tx[0].asnumpy(),
+                                      arrays[0] + arrays[1])
+
+
+def test_sparse_embedding_gradients_still_raise():
+    weight = torch.ones(4, 3, requires_grad=True)
+    ids = torch.tensor([0.0, 2.0])
+    assert apply_op("_contrib_SparseEmbedding", [ids, weight]).shape == (2, 3)
+    with ag.record():
+        with pytest.raises(NotImplementedError, match="sparse"):
+            apply_op("_contrib_SparseEmbedding", [ids, weight])
+        with pytest.raises(NotImplementedError, match="sparse"):
+            apply_op("Embedding", [ids, weight], {"sparse_grad": True})

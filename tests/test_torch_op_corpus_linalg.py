@@ -1,0 +1,21 @@
+"""PyTorch port, the op corpus: the linalg family's cases and those of ops outside the JAX family modules (attention, LoRA) against
+the JAX package's ops, forward and VJP (the cases, the tolerances and
+the comparison of tests/test_torch_op_corpus.py, loaded by path)."""
+import importlib.util
+import os
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+_spec = importlib.util.spec_from_file_location(
+    "_corpus_main", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "test_torch_op_corpus.py"))
+_corpus = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_corpus)
+_CASES, _IDS = _corpus.cases_of(("linalg", None))
+
+
+@pytest.mark.parametrize("name,inputs,kwargs", _CASES, ids=_IDS)
+def test_op_matches_jax(name, inputs, kwargs):
+    _corpus.run_case(name, inputs, kwargs)

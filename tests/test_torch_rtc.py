@@ -75,14 +75,14 @@ def test_outputs_agree_with_the_pallas_ops(ops):
     got = getattr(nd, ops["scale_add"])(torch.from_numpy(a),
                                         torch.from_numpy(b))
     want = getattr(mx.nd, ops["scale_add"])(mx.nd.array(a), mx.nd.array(b))
-    np.testing.assert_array_equal(got.numpy(), want.asnumpy())
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
     got = getattr(nd, ops["square"])(torch.from_numpy(a))
     want = getattr(mx.nd, ops["square"])(mx.nd.array(a))
-    np.testing.assert_array_equal(got.numpy(), want.asnumpy())
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
     got = getattr(nd, ops["rowsum"])(torch.from_numpy(a))
     want = getattr(mx.nd, ops["rowsum"])(mx.nd.array(a))
     assert got.shape == (3,)
-    np.testing.assert_allclose(got.numpy(), want.asnumpy(), atol=SUM_TOL,
+    np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), atol=SUM_TOL,
                                rtol=0)
     assert kernels.launch_counts() == before
 
