@@ -178,6 +178,37 @@ Phases, one line of output each (or more), in order:
    against a Trainer with SGD(momentum=0.9), bit for bit; (d) under
    ``amp.init(target_dtype="float16")`` an f16 NDArray's ``sum()`` and
    ``mean()`` return f32; each part's seconds;
+   7c. the rest of the op registry (``run_op_tail_phase``): (a) every
+   case of ``TAIL_CORPUS`` (the four aliases, the tail of
+   ``ops/extra.py``, the detection, quantization and RNN ops; the CPU
+   parity tests hold the same cases against the JAX ops) through
+   ``nd``/``nd.contrib`` on CUDA and on CPU NDArrays, outputs and
+   gradients within ``tail_tol``, each host op raising inside a CUDA-graph
+   capture, ``_npi_uniform_n``/``_npi_normal_n`` at 2^20 draws; (b)
+   SSD-300 on VOC at batch 32: ``MultiBoxPrior`` over the six maps (8732
+   anchors), ``MultiBoxTarget`` with 3:1 negative mining,
+   ``MultiBoxLoss``'s arithmetic through ``nd`` and its backward,
+   ``MultiBoxDetection`` (NMS 0.45, top 400), against the CPU (a
+   cls_target or detection-row flip allowed only where its probability
+   lies within an ulp of a neighbour's, and printed); (c) Faster R-CNN's
+   test settings on a 600x1000 image: ``MultiProposal`` (batch 2, 6000 ->
+   300), ``ROIAlign``, ``PSROIPooling`` (R-FCN, 21 x 7 x 7),
+   ``RROIAlign``, the two deformable convolutions (512 -> 512, 3x3,
+   dilate 2) forward and backward, ``mrcnn_mask_target`` (28 x 28), each
+   against the CPU on one image or 24 rois; (d) the PTB medium LSTM
+   (vocab 10000, 2 x 650, 35 steps, batch 20) through ``nd.Embedding``,
+   ``nd.RNN`` and ``nd.FullyConnected`` at p=0 against the CPU, 3 SGD
+   steps at p=0.5 clipped to norm 5 through ``nd.multi_sum_sq`` (falling
+   loss, keep fraction within 4 standard errors), GRU and the vanilla
+   modes bidirectional against the CPU; (e) ``nd.contrib.quantized_matmul``
+   (K3) at BERT-base's four projections on a 1024-token batch, int8 and
+   fp8, against the twin, with kernel, plain and library ms and bound;
+   the int8 chain ``quantize_v2`` -> ``quantized_fully_connected`` ->
+   ``requantize`` -> ``dequantize`` and ResNet-50's res2 int8 convolution
+   bit for bit with the CPU; (f) ``foreach`` over the PTB model's first
+   LSTM layer against ``nd.RNN``, ``while_loop`` captured in a CUDA graph,
+   ``cond`` both ways and raising inside a capture; each op's ms and each
+   part's seconds;
 8. main path training — BERT-base (vocab 30522, 12 layers, 768 units,
    3072 hidden, 12 heads, 512 positions; seeded Xavier weights) with the
    tied masked-LM head of examples/bert_pretrain_mlm.py, batch 8 x 512
@@ -219,8 +250,8 @@ Phases, one line of output each (or more), in order:
    killed at byte 2^20 of a shard leaving the previous checkpoint to
    restore;
 9. one JSON line listing every kernel (the update tail's ops of phase
-   7b among them): launches on the main paths (phase 7b's flash and
-   update launches added),
+   7b among them, K3's rows of phase 7c): launches on the main paths
+   (phase 7b's flash and update launches added, and 7c's K3 launches),
    counted through graph replays (the speculative phase's verifies and
    draft rounds included, the registry and artifact phases' too; the
    flash kernels': the 10 training
@@ -859,6 +890,445 @@ def _corpus():
 
 
 CORPUS = _corpus()
+
+
+def _cboxes(n, seed=0, lead=(), lo=0.0, span=1.0):
+    """``n`` corner boxes [x1, y1, x2, y2] inside [lo, lo + span]^2."""
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(lo, lo + 0.7 * span, size=lead + (n, 2))
+    wh = rs.uniform(0.08 * span, 0.3 * span, size=lead + (n, 2))
+    return np.concatenate([xy, xy + wh], axis=-1)
+
+
+def _rois(n, seed, batch, size):
+    """``n`` rois [b, x1, y1, x2, y2] inside an (h, w) = ``size`` image."""
+    rs = np.random.RandomState(seed)
+    h, w = size
+    x1 = rs.uniform(0, 0.6 * w, n)
+    y1 = rs.uniform(0, 0.6 * h, n)
+    x2 = x1 + rs.uniform(0.1 * w, 0.4 * w, n)
+    y2 = y1 + rs.uniform(0.1 * h, 0.4 * h, n)
+    return np.stack([rs.randint(0, batch, n), x1, y1, x2, y2], axis=1)
+
+
+def _rnn_case(mode, layers, bidir, seed, t=5, n=2, i=3, h=4):
+    """Inputs and kwargs of one fused RNN case at p=0 (the flat vector's
+    size as ``rnn_param_size`` counts it)."""
+    d = 2 if bidir else 1
+    g = {"lstm": 4, "gru": 3}.get(mode, 1)
+    size = sum(d * (g * h * ((i if k == 0 else h * d) + h) + 2 * g * h)
+               for k in range(layers))
+    inputs = [_cr(t, n, i, seed=seed), _cr(size, seed=seed + 1, scale=0.3),
+              _cr(layers * d, n, h, seed=seed + 2, scale=0.5)]
+    if mode == "lstm":
+        inputs.append(_cr(layers * d, n, h, seed=seed + 3, scale=0.5))
+    return inputs, {"state_size": h, "num_layers": layers, "mode": mode,
+                    "bidirectional": bidir, "p": 0.0}
+
+
+def _tail_corpus():
+    """The cases of phase 7c (a), which the CPU parity tests hold against
+    the JAX ops: every op of the op tail, the detection, quantization and
+    RNN modules, (name, inputs, kwargs, family). ``_dtypes`` names each
+    input's numpy dtype (None: float32); the family picks the tolerance
+    (:func:`corpus_tol`)."""
+    out = []
+
+    def add(family, name, inputs, kwargs=None):
+        out.append((name, inputs, kwargs or {}, family))
+    el, sh, nn = "elemwise", "shape_ops", "nn"
+    x34 = _cr(3, 4, seed=3)
+    lab = _cr(3, 4, seed=4)
+    # the four aliases
+    add(el, "MakeLoss", [x34])
+    add(nn, "BatchNorm_v1", [_cr(2, 3, 4, 4), _cpos(3), _cr(3, seed=1),
+                             _cr(3, seed=2, scale=0.3), _cpos(3, seed=3)],
+        {"fix_gamma": False, "use_global_stats": True,
+         "_grad_inputs": (0, 1, 2)})
+    add(nn, "Convolution_v1", [_cr(1, 2, 5, 5), _cr(3, 2, 3, 3, seed=1,
+                                                    scale=0.5),
+                               _cr(3, seed=2)],
+        {"kernel": (3, 3), "num_filter": 3, "pad": (1, 1)})
+    add(nn, "Pooling_v1", [_cpos(1, 2, 7, 7, shift=0.1)],
+        {"kernel": (3, 3), "stride": (2, 2), "pool_type": "max",
+         "pad": (1, 1)})
+    # output layers with their own backward
+    for n in ("LinearRegressionOutput", "LogisticRegressionOutput",
+              "MAERegressionOutput"):
+        add(el, n, [x34, lab], {"grad_scale": 0.5, "_grad_inputs": (0,)})
+    svm_lab = np.array([0.0, 2.0, 4.0, 1.0])
+    add(el, "SVMOutput", [_cr(4, 5, seed=5), svm_lab],
+        {"margin": 1.0, "regularization_coefficient": 0.5,
+         "_grad_inputs": (0,)})
+    add(el, "SVMOutput", [_cr(4, 5, seed=5), svm_lab],
+        {"use_linear": True, "_grad_inputs": (0,)})
+    add(el, "SoftmaxActivation", [_cr(2, 3, 4, seed=6)])
+    add(el, "SoftmaxActivation", [_cr(2, 3, 4, seed=6)], {"mode": "channel"})
+    add(el, "IdentityAttachKLSparseReg", [x34])
+    add(el, "_contrib_gradientmultiplier", [x34], {"scalar": 3.0})
+    add(el, "_contrib_round_ste", [_cr(3, 4, seed=7, scale=3.0)])
+    add(el, "_contrib_sign_ste", [x34])
+    # spatial ops
+    add(nn, "GridGenerator", [_cr(2, 6, seed=8)], {"target_shape": (3, 4)})
+    add(nn, "GridGenerator", [_cr(2, 2, 3, 4, seed=8)],
+        {"transform_type": "warp", "target_shape": (3, 4)})
+    grid = np.random.RandomState(9).uniform(-1.1, 1.1, (2, 2, 4, 5))
+    add(nn, "BilinearSampler", [_cr(2, 3, 5, 6, seed=10), grid])
+    theta = np.array([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]] * 2) + \
+        _cr(2, 6, seed=11, scale=0.1)
+    add(nn, "SpatialTransformer", [_cr(2, 3, 5, 6, seed=10), theta],
+        {"target_shape": (4, 5)})
+    add(nn, "ROIPooling", [_cr(2, 3, 8, 8, seed=12),
+                           np.array([[0.0, 1, 1, 6, 5], [1, 0, 2, 7, 7],
+                                     [0, 3, 3, 4, 4]])],
+        {"pooled_size": (2, 2), "spatial_scale": 1.0, "_grad_inputs": (0,)})
+    add(sh, "Crop", [_cr(2, 3, 6, 6, seed=13)],
+        {"h_w": (3, 4), "offset": (1, 2)})
+    add(sh, "Crop", [_cr(2, 3, 6, 6, seed=13), _cr(1, 1, 4, 4)],
+        {"center_crop": True, "num_args": 2, "_grad_inputs": (0,)})
+    add(sh, "im2col", [_cr(2, 3, 5, 5, seed=14)],
+        {"kernel": (3, 3), "stride": (1, 1), "pad": (1, 1),
+         "dilate": (1, 1)})
+    add(sh, "im2col", [_cr(1, 2, 7, 6, seed=14)],
+        {"kernel": (2, 3), "stride": (2, 1), "dilate": (2, 1)})
+    add(nn, "col2im", [_cr(2, 27, 25, seed=15)],
+        {"output_size": (5, 5), "kernel": (3, 3), "pad": (1, 1)})
+    # the index and shape tail
+    add(sh, "_split_v2", [_cr(6, 4, seed=16)], {"indices": (2, 5)})
+    add(sh, "_split_v2", [_cr(3, 4, seed=16)],
+        {"sections": 4, "axis": 1, "squeeze_axis": True})
+    add(sh, "_unravel_index", [np.array([3.0, 5.0, 0.0, 4.0])],
+        {"shape": (2, 3)})
+    add(sh, "_ravel_multi_index", [np.array([[0.0, 1.0, 3.0],
+                                             [1.0, 2.0, -1.0]])],
+        {"shape": (2, 3)})
+    add(sh, "_slice_assign", [_cr(4, 5, seed=17), _cr(2, 3, seed=18)],
+        {"begin": (1, 1), "end": (3, 4), "step": ()})
+    add(sh, "_slice_assign", [_cr(4, 5, seed=17), _cr(2, 2, seed=18)],
+        {"begin": (3, 4), "end": (None, 0), "step": (-2, -2)})
+    add(sh, "_slice_assign_scalar", [_cr(4, 5, seed=17)],
+        {"scalar": 2.5, "begin": (0, 1), "end": (4, 5), "step": (2, 2)})
+    add(sh, "_histogram", [_cr(50, seed=19)],
+        {"bin_cnt": 7, "range": (-2.0, 2.0)})
+    add(sh, "_histogram", [_cr(40, seed=20)], {"bin_cnt": 5})
+    add(sh, "_linspace", [], {"start": 0.0, "stop": 3.0, "num": 7,
+                              "ctx": "cpu"})
+    add(sh, "_linspace", [], {"start": -1.0, "stop": 2.0, "num": 6,
+                              "endpoint": False, "ctx": "cpu"})
+    add(sh, "_zeros_without_dtype", [], {"shape": (2, 3), "ctx": "cpu"})
+    add(sh, "_contrib_arange_like", [x34], {"start": 1.0, "step": 0.5,
+                                            "repeat": 2})
+    add(sh, "_contrib_arange_like", [x34], {"axis": 1})
+    add(sh, "_contrib_allclose", [x34, x34 + 1e-7])
+    add(sh, "_contrib_allclose", [x34, lab])
+    add(el, "_contrib_div_sqrt_dim", [_cr(2, 3, 8, seed=21)])
+    add(el, "_contrib_quadratic", [x34], {"a": 1.5, "b": -2.0, "c": 0.5})
+    add(sh, "_contrib_index_array", [x34])
+    add(sh, "_contrib_index_array", [_cr(2, 3, 2)], {"axes": (0, 2)})
+    add(sh, "_contrib_index_copy", [_cr(5, 3, seed=22),
+                                    np.array([4.0, 0.0, 2.0]),
+                                    _cr(3, 3, seed=23)],
+        {"_grad_inputs": (0, 2)})
+    add(sh, "_contrib_edge_id", [_cr(4, 4, seed=24), np.array([0.0, 1, 3]),
+                                 np.array([2.0, 3, 0])])
+    add(sh, "_rnn_param_concat", [_cr(6), _cr(4, seed=1), _cr(3, seed=2)])
+    add(sh, "_rnn_param_concat", [_cr(2, 3), _cr(2, 2, seed=1)], {"dim": 1})
+    for kw in ({"offset": 0, "lower": True}, {"offset": 1, "lower": False},
+               {"offset": -1, "lower": True}):
+        add(sh, "_linalg_extracttrian", [_cr(2, 4, 4, seed=25)], kw)
+    add(sh, "_linalg_maketrian", [_cr(2, 10, seed=26)])
+    add(sh, "_linalg_maketrian", [_cr(2, 6, seed=26)],
+        {"offset": 1, "lower": False})
+    add(sh, "_scatter_set_nd", [_cr(3, 4, seed=27), _cr(2, seed=28),
+                                np.array([[0.0, 2.0], [1.0, 3.0]])],
+        {"_grad_inputs": (0, 1)})
+    sparse = _cr(3, 4, seed=29) * (np.arange(12).reshape(3, 4) % 3 > 0)
+    add(el, "_scatter_elemwise_div", [sparse, _cpos(3, 4, seed=30)])
+    add(el, "_scatter_minus_scalar", [sparse], {"scalar": 0.7})
+    add(el, "_scatter_plus_scalar", [sparse], {"scalar": 0.7})
+    # contribs
+    add(nn, "_contrib_box_encode",
+        [np.array([[1.0, 0.0, 1.0, 1.0], [0.0, 1.0, 1.0, 0.0]]),
+         np.array([[0.0, 1.0, -1.0, 2.0], [2.0, 0.0, 1.0, -1.0]]),
+         _cboxes(4, seed=31, lead=(2,)), _cboxes(3, seed=32, lead=(2,))])
+    add(nn, "_contrib_box_decode", [_cr(2, 4, 4, seed=33, scale=0.3),
+                                    _cboxes(4, seed=34, lead=(1,))],
+        {"std0": 0.1, "std1": 0.1, "std2": 0.2, "std3": 0.2})
+    add(nn, "_contrib_box_decode", [_cr(2, 4, 4, seed=33), _cpos(1, 4, 4)],
+        {"format": "center", "clip": 1.0})
+    add(nn, "_contrib_fft", [_cr(3, 8, seed=35)])
+    add(nn, "_contrib_ifft", [_cr(3, 16, seed=36)])
+    add(nn, "_contrib_interleaved_matmul_selfatt_qk",
+        [_cr(5, 2, 24, seed=37)], {"heads": 2})
+    add(nn, "_contrib_interleaved_matmul_selfatt_valatt",
+        [_cr(5, 2, 24, seed=37), _cr(4, 5, 5, seed=38)], {"heads": 2})
+    add(nn, "_contrib_interleaved_matmul_encdec_qk",
+        [_cr(4, 2, 8, seed=39), _cr(5, 2, 16, seed=40)], {"heads": 2})
+    add(nn, "_contrib_interleaved_matmul_encdec_valatt",
+        [_cr(5, 2, 16, seed=40), _cr(4, 4, 5, seed=41)], {"heads": 2})
+    add(nn, "_contrib_count_sketch",
+        [_cr(3, 6, seed=42), np.array([0.0, 2, 1, 2, 0, 3]),
+         np.array([1.0, -1, 1, 1, -1, 1])],
+        {"out_dim": 4, "_grad_inputs": (0,)})
+    add(sh, "_contrib_getnnz", [sparse])
+    add(sh, "_contrib_getnnz", [sparse], {"axis": 0})
+    add(sh, "_contrib_boolean_mask", [_cr(4, 3, seed=43),
+                                      np.array([1.0, 0.0, 1.0, 1.0])])
+    add(sh, "_contrib_boolean_mask", [_cr(4, 3, seed=43),
+                                      np.array([0.0, 1.0, 0.0, 1.0])],
+        {"size": 3})
+    add(sh, "_contrib_bipartite_matching", [_cr(2, 3, 4, seed=44)],
+        {"threshold": 0.1})
+    add(sh, "_contrib_bipartite_matching", [_cr(3, 4, seed=45)],
+        {"threshold": 0.5, "is_ascend": True, "topk": 2})
+    # image ops
+    img = np.random.RandomState(46).uniform(0, 255, (8, 10, 3))
+    add(sh, "_image_crop", [img], {"x": 1, "y": 2, "width": 3, "height": 2})
+    add(sh, "_image_crop", [np.stack([img, img[::-1]])],
+        {"x": 2, "y": 1, "width": 4, "height": 5})
+    for size in ((5, 4), (13, 11), (6, 12)):
+        add(nn, "_image_resize", [img], {"size": size})
+    add(nn, "_image_resize", [np.stack([img, img[::-1]])], {"size": (4, 6)})
+    add(sh, "_image_resize", [img], {"size": (7, 5), "interp": 0})
+    add(sh, "_image_resize", [np.floor(img)], {"size": (6, 12),
+                                               "_int_input": True})
+    add(nn, "_image_to_tensor", [img])
+    add(nn, "_image_to_tensor", [np.stack([img, img])])
+    add(el, "_image_normalize", [_cr(3, 4, 5, seed=47)],
+        {"mean": (0.1, 0.2, 0.3), "std": (1.1, 0.9, 1.2)})
+    add(el, "_image_normalize", [_cr(2, 3, 4, 5, seed=47)],
+        {"mean": 0.5, "std": 2.0})
+    # the _npx_ / _npi_ tails
+    add(sh, "_npx_reshape", [_cr(2, 3, 4, seed=48)], {"newshape": (0, -1)})
+    add(sh, "_npx_reshape", [_cr(2, 3, 4, seed=48)],
+        {"newshape": (-1, 0), "reverse": True})
+    add(sh, "_npx_reshape", [_cr(2, 3, 4, seed=48)], {"newshape": (-2, 1)})
+    add(el, "_npx_relu", [x34])
+    add(el, "_npx_sigmoid", [x34])
+    add(sh, "_npx_constraint_check", [_cpos(3, 4)])
+    add(sh, "_npx_nonzero", [sparse])
+    cond = (np.arange(12).reshape(3, 4) % 2).astype(np.float64)
+    add(el, "_npi_where_lscalar", [cond, x34], {"scalar": 2.0,
+                                                "_grad_inputs": (1,)})
+    add(el, "_npi_where_rscalar", [cond, x34], {"scalar": -1.5,
+                                                "_grad_inputs": (1,)})
+    add(sh, "_npi_where_scalar2", [cond], {"x": 1.5, "y": -2.0})
+    add(el, "_npi_powerd", [_cpos(3, 4, seed=49)], {"exp": 2.5})
+    add(nn, "_npi_matmul", [_cr(2, 3, 4, seed=50), _cr(4, 5, seed=51)])
+    add(nn, "_npi_matmul", [_cr(2, 1, 3, 4, seed=50),
+                            _cr(3, 4, 2, seed=51)])
+    add(nn, "_npi_tensordot_int_axes", [_cr(2, 3, 4, seed=52),
+                                        _cr(3, 4, 5, seed=53)], {"axes": 2})
+    add(sh, "_npi_matrix_rank_none_tol", [_cr(4, 3, seed=54)])
+    add(sh, "_npi_matrix_rank_none_tol",
+        [_cr(4, 2, seed=55) @ _cr(2, 4, seed=56)])
+    add(nn, "_npi_pinv_scalar_rcond", [_cr(4, 3, seed=57)])
+    add(el, "_npi_boolean_mask_assign_scalar", [x34, cond],
+        {"value": 5.0, "_grad_inputs": (0,)})
+    add(sh, "_npi_boolean_mask_assign_tensor", [x34, cond, _cr(6, seed=58)])
+    add(sh, "_npi_insert_slice", [x34], {"obj": 1, "values": 2.0,
+                                         "axis": 0})
+    add(sh, "_npi_insert_slice", [x34], {"obj": 3, "values": -1.0})
+    add(sh, "_npi_insert_tensor", [x34, np.array([0.0, 2.0])],
+        {"values": 7.0, "axis": 1})
+    add(sh, "_npi_share_memory", [x34, lab])
+    # detection
+    add(nn, "_contrib_box_iou", [_cboxes(3, seed=60, lead=(2,)),
+                                 _cboxes(5, seed=61, lead=(2,))])
+    add(nn, "_contrib_box_iou", [_cboxes(3, seed=60), _cboxes(4, seed=61)],
+        {"format": "center"})
+    add(sh, "_contrib_MultiBoxPrior", [np.zeros((1, 3, 4, 5))],
+        {"sizes": (0.2, 0.3), "ratios": (1.0, 2.0, 0.5)})
+    add(sh, "_contrib_MultiBoxPrior", [np.zeros((1, 3, 3, 3))],
+        {"sizes": (0.5,), "ratios": (1.0, 3.0), "clip": True,
+         "steps": (0.3, 0.3), "offsets": (0.4, 0.6)})
+    mb_anchor = _cboxes(30, seed=62)[None]
+    mb_label = np.full((2, 4, 5), -1.0)
+    for i, nb in enumerate((3, 2)):
+        mb_label[i, :nb, 0] = np.random.RandomState(63 + i).randint(0, 3, nb)
+        mb_label[i, :nb, 1:] = _cboxes(nb, seed=65 + i)
+    add(sh, "_contrib_MultiBoxTarget",
+        [mb_anchor, mb_label, _cr(2, 4, 30, seed=67)],
+        {"negative_mining_ratio": 3.0, "minimum_negative_samples": 2})
+    add(sh, "_contrib_MultiBoxTarget",
+        [mb_anchor, mb_label, _cr(2, 4, 30, seed=67)],
+        {"overlap_threshold": 0.3})
+    probs = np.exp(_cr(2, 4, 30, seed=68))
+    probs /= probs.sum(axis=1, keepdims=True)
+    add(sh, "_contrib_MultiBoxDetection",
+        [probs, _cr(2, 120, seed=69, scale=0.2), mb_anchor],
+        {"nms_threshold": 0.5, "nms_topk": 20, "threshold": 0.2})
+    add(sh, "_contrib_MultiBoxDetection",
+        [probs, _cr(2, 120, seed=69, scale=0.2), mb_anchor],
+        {"force_suppress": True, "clip": False})
+    nms = np.concatenate([
+        np.random.RandomState(70).randint(0, 2, (2, 10, 1)),
+        np.random.RandomState(71).uniform(0, 1, (2, 10, 1)),
+        _cboxes(10, seed=72, lead=(2,))], axis=-1)
+    add(sh, "_contrib_box_nms", [nms],
+        {"overlap_thresh": 0.3, "topk": 8, "id_index": 0})
+    add(sh, "_contrib_box_nms", [nms],
+        {"overlap_thresh": 0.3, "valid_thresh": 0.3, "in_format": "center",
+         "out_format": "corner", "force_suppress": True})
+    add(nn, "_contrib_ROIAlign", [_cr(2, 4, 8, 9, seed=73),
+                                  _rois(3, 74, 2, (16, 18))],
+        {"pooled_size": (2, 3), "spatial_scale": 0.5, "sample_ratio": 2,
+         "_grad_inputs": (0,)})
+    add(nn, "_contrib_ROIAlign", [_cr(2, 8, 8, 9, seed=73),
+                                  _rois(3, 75, 2, (8, 9))],
+        {"pooled_size": (2, 2), "position_sensitive": True,
+         "aligned": True, "_grad_inputs": (0,)})
+    # the detection tail
+    rpn_kw = {"scales": (2.0, 4.0), "ratios": (0.5, 1.0, 2.0),
+              "feature_stride": 4, "rpn_pre_nms_top_n": 50,
+              "rpn_post_nms_top_n": 10, "threshold": 0.7,
+              "rpn_min_size": 2, "output_score": True}
+    rpn_in = [np.random.RandomState(76).uniform(0, 1, (2, 12, 5, 6)),
+              _cr(2, 24, 5, 6, seed=77, scale=0.2),
+              np.array([[20.0, 24.0, 1.0], [18.0, 22.0, 1.0]])]
+    add(sh, "_contrib_Proposal", [a[:1] for a in rpn_in], rpn_kw)
+    add(sh, "_contrib_MultiProposal", rpn_in, rpn_kw)
+    add(sh, "_contrib_MultiProposal", rpn_in,
+        dict(rpn_kw, output_score=False, iou_loss=True))
+    add(nn, "_contrib_PSROIPooling", [_cr(2, 18, 8, 9, seed=78),
+                                      _rois(3, 79, 2, (16, 18))],
+        {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 3,
+         "_grad_inputs": (0,)})
+    dcn = [_cr(2, 4, 6, 7, seed=80), _cr(2, 18, 6, 7, seed=81, scale=0.7),
+           _cr(3, 4, 3, 3, seed=82, scale=0.3), _cr(3, seed=83)]
+    add(nn, "_contrib_DeformableConvolution", dcn,
+        {"kernel": (3, 3), "pad": (1, 1), "num_filter": 3})
+    add(nn, "_contrib_DeformableConvolution",
+        [dcn[0], _cr(2, 36, 3, 3, seed=84, scale=0.7),
+         _cr(4, 2, 3, 3, seed=85, scale=0.3)],
+        {"kernel": (3, 3), "pad": (2, 2), "dilate": (2, 2),
+         "stride": (2, 3), "num_filter": 4, "num_group": 2,
+         "num_deformable_group": 2, "no_bias": True})
+    add(nn, "_contrib_ModulatedDeformableConvolution",
+        [dcn[0], dcn[1],
+         np.random.RandomState(86).uniform(0, 1, (2, 9, 6, 7)), dcn[2],
+         dcn[3]], {"kernel": (3, 3), "pad": (1, 1), "num_filter": 3})
+    add(nn, "_contrib_DeformablePSROIPooling",
+        [_cr(2, 18, 8, 9, seed=87), _rois(3, 88, 2, (16, 18)),
+         _cr(3, 2, 3, 3, seed=89)],
+        {"spatial_scale": 0.5, "output_dim": 2, "group_size": 3,
+         "pooled_size": 3, "part_size": 3, "sample_per_part": 2,
+         "trans_std": 0.1, "_grad_inputs": (0, 2)})
+    add(nn, "_contrib_DeformablePSROIPooling",
+        [_cr(2, 18, 8, 9, seed=87), _rois(3, 88, 2, (16, 18))],
+        {"spatial_scale": 0.5, "output_dim": 2, "group_size": 3,
+         "pooled_size": 3, "no_trans": True, "_grad_inputs": (0,)})
+    rr = _rois(3, 90, 2, (16, 18))
+    rrois = np.stack([rr[:, 0], (rr[:, 1] + rr[:, 3]) / 2,
+                      (rr[:, 2] + rr[:, 4]) / 2, rr[:, 3] - rr[:, 1],
+                      rr[:, 4] - rr[:, 2], np.array([0.0, 30.0, -75.0])],
+                     axis=1)
+    add(nn, "_contrib_RROIAlign", [_cr(2, 3, 8, 9, seed=91), rrois],
+        {"pooled_size": (2, 3), "spatial_scale": 0.5, "sampling_ratio": 2,
+         "_grad_inputs": (0,)})
+    add(nn, "_contrib_mrcnn_mask_target",
+        [_rois(3, 92, 1, (8, 8))[:, 1:][None].repeat(2, 0),
+         (np.random.RandomState(93).uniform(0, 1, (2, 2, 8, 8)) > 0.5)
+         .astype(np.float64),
+         np.array([[0.0, 1.0, 1.0], [1.0, 0.0, 1.0]]),
+         np.array([[0.0, 1.0, 2.0], [2.0, 2.0, 0.0]])],
+        {"num_rois": 3, "num_classes": 3, "mask_size": (4, 4),
+         "sample_ratio": 2})
+    lags = _cpos(2, 5, seed=94, shift=0.1)
+    add(nn, "_contrib_hawkesll",
+        [_cpos(2, 3, seed=95, shift=0.2),
+         np.random.RandomState(96).uniform(0.1, 0.9, 3),
+         _cpos(3, seed=97, shift=0.5), _cpos(2, 3, seed=98, shift=0.0) * 0.3,
+         lags, np.array([[0.0, 1, 2, 1, 0], [2.0, 2, 1, 0, 1]]),
+         np.array([5.0, 3.0]), lags.sum(axis=1) + 1.0],
+        {"_dtypes": (None,) * 5 + ("int32",),
+         "_grad_inputs": (0, 1, 2, 3, 4, 7)})
+    # quantization
+    q8 = np.random.RandomState(99).randint(-127, 128, (3, 4))
+    rng_ = (np.array([-1.5]), np.array([2.0]))
+    add(sh, "_contrib_quantize", [_cr(3, 4, seed=100), *rng_])
+    add(sh, "_contrib_quantize", [_cr(3, 4, seed=100), *rng_],
+        {"out_type": "uint8"})
+    add(sh, "_contrib_quantize_v2", [_cr(3, 4, seed=101)])
+    add(sh, "_contrib_quantize_v2", [_cr(3, 4, seed=101)],
+        {"min_calib_range": -1.0, "max_calib_range": 1.2})
+    add(sh, "_contrib_dequantize", [q8, *rng_], {"_dtypes": ("int8",)})
+    add(sh, "_contrib_dequantize", [q8 + 127, *rng_], {"_dtypes": ("uint8",)})
+    acc = np.random.RandomState(102).randint(-60000, 60000, (3, 4))
+    add(sh, "_contrib_requantize", [acc, np.array([-3.0]), np.array([3.0])],
+        {"_dtypes": ("int32",)})
+    add(sh, "_contrib_requantize", [acc, np.array([-3.0]), np.array([3.0])],
+        {"min_calib_range": -1.5, "max_calib_range": 1.5,
+         "_dtypes": ("int32",)})
+    add(sh, "_contrib_requantize", [q8, np.array([-3.0]), np.array([3.0])],
+        {"_dtypes": ("int8",)})
+    qx = np.random.RandomState(103).randint(-127, 128, (4, 16))
+    qw = np.random.RandomState(104).randint(-127, 128, (5, 16))
+    add(sh, "_contrib_quantized_fully_connected", [qx, qw],
+        {"x_scale": 0.02, "w_scale": 0.03, "_dtypes": ("int8", "int8")})
+    add(sh, "_contrib_quantized_fully_connected", [qx, qw],
+        {"x_scale": 0.02, "w_scale": (0.01, 0.02, 0.03, 0.04, 0.05),
+         "_dtypes": ("int8", "int8")})
+    add(sh, "_contrib_quantized_conv",
+        [np.random.RandomState(105).randint(-127, 128, (2, 6, 6, 3)),
+         np.random.RandomState(106).randint(-127, 128, (3, 3, 3, 4))],
+        {"kernel": (3, 3), "stride": (1, 1), "pad": (1, 1), "x_scale": 0.1,
+         "w_scale": 0.05, "_dtypes": ("int8", "int8")})
+    mm = (np.array([-2.0]), np.array([2.5]))
+    add(sh, "_contrib_quantized_act", [q8, *mm], {"_dtypes": ("int8",)})
+    qimg = np.random.RandomState(107).randint(-127, 128, (1, 2, 6, 6))
+    add(sh, "_contrib_quantized_pooling", [qimg, *mm],
+        {"kernel": (2, 2), "stride": (2, 2), "_dtypes": ("int8",)})
+    add(sh, "_contrib_quantized_pooling", [qimg, *mm],
+        {"kernel": (3, 3), "stride": (1, 1), "pool_type": "avg",
+         "_dtypes": ("int8",)})
+    add(sh, "_contrib_quantized_flatten",
+        [np.random.RandomState(108).randint(-127, 128, (2, 3, 4)), *mm],
+        {"_dtypes": ("int8",)})
+    add(sh, "_contrib_quantized_concat",
+        [q8, np.random.RandomState(109).randint(-127, 128, (3, 2)),
+         np.array([-1.0]), np.array([-3.0]), np.array([2.0]),
+         np.array([0.5])],
+        {"dim": 1, "num_args": 2, "_dtypes": ("int8", "int8")})
+    q8b = np.random.RandomState(110).randint(-127, 128, (3, 4))
+    for n in ("_contrib_quantized_elemwise_add",
+              "_contrib_quantized_elemwise_mul"):
+        add(sh, n, [q8, q8b, np.array([-1.0]), np.array([2.0]),
+                    np.array([-3.0]), np.array([0.5])],
+            {"_dtypes": ("int8", "int8")})
+    qbn = [np.random.RandomState(111).randint(-127, 128, (2, 3, 4)),
+           _cpos(3), _cr(3, seed=112), _cr(3, seed=113, scale=0.3),
+           _cpos(3, seed=114), np.array([-2.0]), np.array([2.0])]
+    add(sh, "_contrib_quantized_batch_norm", qbn, {"_dtypes": ("int8",)})
+    add(sh, "_contrib_quantized_batch_norm", qbn,
+        {"min_calib_range": -3.0, "max_calib_range": 2.0,
+         "_dtypes": ("int8",)})
+    add(sh, "_contrib_quantized_embedding",
+        [np.array([0.0, 4.0, 2.0]),
+         np.random.RandomState(115).randint(-127, 128, (5, 4)), *mm],
+        {"input_dim": 5, "output_dim": 4, "_dtypes": (None, "int8")})
+    wq = np.random.RandomState(116).randint(-127, 128, (16, 8))
+    for n in ("_contrib_quantized_matmul", "quantized_matmul"):
+        add(nn, n, [_cr(6, 16, seed=117), wq, _cpos(8, seed=118) * 0.01],
+            {"_dtypes": (None, "int8")})
+    add(nn, "_contrib_quantized_matmul",
+        [_cr(6, 16, seed=117), wq, _cpos(8, seed=118) * 0.01],
+        {"use_pallas": False, "block_t": 64, "_dtypes": (None, "int8")})
+    hist, edges = np.histogram(np.random.RandomState(119).randn(4000),
+                               bins=511, range=(-4.0, 4.0))
+    add(sh, "_contrib_calibrate_entropy", [hist.astype(np.float64), edges],
+        {"num_quantized_bins": 255})
+    # the fused RNN at p=0 (the draws at p > 0 are held by their
+    # statistics)
+    for i, (mode, layers, bidir) in enumerate(
+            (("lstm", 2, True), ("gru", 2, False), ("rnn_tanh", 1, True),
+             ("rnn_relu", 2, False), ("lstm", 1, False))):
+        inputs, kw = _rnn_case(mode, layers, bidir, seed=120 + 4 * i)
+        add(nn, "RNN" if i < 4 else "rnn", inputs, kw)
+    return out
+
+
+TAIL_CORPUS = _tail_corpus()
 # card-vs-CPU and port-vs-JAX tolerances of a family's forward (rtol,
 # atol); every VJP and the nn and linalg families take VJP_TOL; the
 # shape family and every non-differentiable op are exact
@@ -882,7 +1352,24 @@ WIDER_TOL = {
                                   "weights summed in another order"),
     "CTCLoss": (1e-4, 1e-4, "the alphas summed in another order"),
     "ctc_loss": (1e-4, 1e-4, "the alphas summed in another order"),
+    "_linspace": (1e-6, 1e-7, "jnp.linspace is one fused XLA loop whose "
+                  "multiply-adds may contract to FMAs: the last bit of "
+                  "start*(1-t) + stop*t differs"),
+    "_contrib_box_encode": (1e-5, 1e-6, "float arithmetic (log, "
+                            "division), not an index: the elementwise "
+                            "tolerance"),
 }
+# K3's registered op: an f32 product, summed in the kernel's (or the
+# library's) order; held within 1e-5 of the output's scale
+WIDER_TOL["_contrib_quantized_matmul"] = (1e-5, 1e-5, "f32 products "
+                                          "summed in another order")
+# the detection ops whose box coordinates go through exp or log (two
+# libraries' approximations: an edge can move an ulp); their classes,
+# masks and kept rows are integers, which these tolerances hold exactly
+for _n in ("_contrib_MultiBoxTarget", "_contrib_MultiBoxDetection",
+           "_contrib_Proposal", "_contrib_MultiProposal"):
+    WIDER_TOL[_n] = (1e-5, 1e-6, "box coordinates through exp/log of "
+                     "two libraries")
 
 
 def corpus_tol(op, family, forward):
@@ -6136,6 +6623,807 @@ def run_op_corpus_phase(torch, timer, kernels):
     return counts, rows
 
 
+# ------------------------------ phase 7c: the rest of the op registry --
+# SSD-300 on VOC (ssd_300_vgg16_reduced(classes=20)): the six maps, their
+# anchor sizes and ratios (mxnet_tpu/gluon/model_zoo/ssd.py:198-202)
+SSD_MAPS = (38, 19, 10, 5, 3, 1)
+SSD_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+             (0.71, 0.79), (0.88, 0.961))
+SSD_RATIOS = ((1.0, 2.0, 0.5),) + ((1.0, 2.0, 0.5, 3.0, 1.0 / 3),) * 3 + \
+    ((1.0, 2.0, 0.5),) * 2
+SSD_STEPS = (8 / 300, 16 / 300, 32 / 300, 64 / 300, 100 / 300, 1.0)
+SSD_BATCH, SSD_GT, SSD_CLASSES = 32, 16, 20
+# Faster R-CNN's test settings on a 600x1000 image (stride 16)
+RCNN_IMAGE, RCNN_STRIDE, RCNN_BATCH = (600, 1000), 16, 2
+RCNN_RPN = dict(scales=(8, 16, 32), ratios=(0.5, 1, 2), feature_stride=16,
+                rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300,
+                threshold=0.7, rpn_min_size=16)
+# rois held against the CPU (the rest run on the card alone)
+RCNN_CPU_ROIS = 24
+# the PTB "medium" LSTM language model (Zaremba et al. 2014)
+PTB = dict(vocab=10000, units=650, layers=2, steps=35, batch=20,
+           dropout=0.5, lr=1.0, clip=5.0, init=0.05)
+PTB_TRAIN_STEPS = 3
+# BERT-base's four projections (K, N) and phase 5h's encode batch
+BERT_PROJ = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+ENCODE_TOKENS = 8 * 128
+# ResNet-50's res2 3x3 convolution, NHWC
+RES2 = dict(n=8, hw=56, c=64)
+
+
+def tail_tol(op, family, forward, is_float):
+    """(rtol, atol) of a 7c (a) comparison, card against CPU: integers
+    and booleans exact, floats as :func:`corpus_tol`, except that a
+    float the CPU tests hold exactly (a non-differentiable op's) takes
+    the elementwise tolerance here: the card's exp, log and fused
+    multiply-adds round the last bit another way."""
+    if forward and not is_float:
+        return 0.0, 0.0
+    rtol, atol = corpus_tol(op, family, forward)
+    if (rtol, atol) == (0.0, 0.0):
+        return FAMILY_TOL["elemwise"]
+    return rtol, atol
+
+
+def tail_arrays(inputs, kwargs):
+    """A tail case's inputs as numpy arrays of their ``_dtypes`` (int32
+    with ``_int_input``, else float32)."""
+    dtypes = kwargs.get("_dtypes") or ()
+    base = np.int32 if kwargs.get("_int_input") else np.float32
+    return [np.asarray(a, dtypes[i] if i < len(dtypes) and dtypes[i]
+                       else base) for i, a in enumerate(inputs)]
+
+
+def nd_fn(nd, name):
+    """The op as a user reaches it: ``nd.contrib.X`` for ``_contrib_X``,
+    else ``nd.X``."""
+    if name.startswith("_contrib_"):
+        return getattr(nd.contrib, name[len("_contrib_"):])
+    return getattr(nd, name)
+
+
+def tail_run(torch, nd, ag, op, name, inputs, kwargs, dev):
+    """A tail case through ``nd``/``nd.contrib`` on ``dev``: outputs as
+    (shape, dtype, host float64, is float) and, for a differentiable op,
+    the gradients on a seeded cotangent."""
+    kw = {k: v for k, v in kwargs.items() if not k.startswith("_")}
+    if "ctx" in kw:
+        kw["ctx"] = dev
+    arrays = tail_arrays(inputs, kwargs)
+    xs = [nd.array(a, ctx=dev) for a in arrays]
+    grad_inputs = kwargs.get("_grad_inputs", tuple(
+        i for i, a in enumerate(arrays) if a.dtype == np.float32))
+    diff = op.differentiable and bool(grad_inputs)
+    if diff:
+        for i in grad_inputs:
+            xs[i].attach_grad()
+    with ag.record(train_mode=False) if diff else ag.pause():
+        out = nd_fn(nd, name)(*xs, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    host = [(o.shape, str(o.dtype), o.asnumpy().astype(np.float64),
+             o._data.is_floating_point()) for o in outs]
+    grads = []
+    floats = [o for o in outs if o._data.is_floating_point()
+              and o._data.requires_grad]
+    if diff and floats:
+        rs = np.random.RandomState(7)
+        cots = [nd.array(np.asarray(rs.randn(*o.shape), np.float32),
+                         ctx=dev) for o in floats]
+        got = ag.grad(floats, [xs[i] for i in grad_inputs],
+                      head_grads=cots)
+        grads = [g.asnumpy().astype(np.float64) for g in got]
+    return host, grads
+
+
+def in_capture_raises(torch, fn):
+    """True when ``fn`` raises a RuntimeError inside a CUDA-graph
+    capture."""
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    raised = False
+    with torch.cuda.stream(side):
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                fn()
+        except RuntimeError:
+            raised = True
+    torch.cuda.synchronize()
+    return raised
+
+
+def run_tail_cases(torch, nd, ag, registry):
+    """7c (a): every case of ``TAIL_CORPUS`` through ``nd``/``nd.contrib``
+    on CUDA and on CPU NDArrays; each host op raises inside a capture;
+    the two samplers at 2^20 draws. Returns (cases, ops, failures)."""
+    failed, names = [], set()
+    for name, inputs, kwargs, family in TAIL_CORPUS:
+        op = registry.get(name)
+        names.add(name)
+        try:
+            got, ggot = tail_run(torch, nd, ag, op, name, inputs, kwargs,
+                                 DEVICE)
+            want, gwant = tail_run(torch, nd, ag, op, name, inputs, kwargs,
+                                   "cpu")
+            ok = len(got) == len(want) and len(ggot) == len(gwant)
+            for (gs, gd, g, fl), (ws, wd, w, _) in zip(got, want):
+                rtol, atol = tail_tol(op, family, True, fl)
+                ok = ok and gs == ws and gd == wd and _close(g, w, rtol,
+                                                             atol)
+            rtol, atol = tail_tol(op, family, False, True)
+            for g, w in zip(ggot, gwant):
+                ok = ok and g.shape == w.shape and _close(g, w, rtol, atol)
+            if op.host_op:
+                xs = [nd.array(a, ctx=DEVICE)
+                      for a in tail_arrays(inputs, kwargs)]
+                kw = {k: v for k, v in kwargs.items()
+                      if not k.startswith("_")}
+                ok = ok and in_capture_raises(
+                    torch, lambda: nd_fn(nd, name)(*xs, **kw))
+        except Exception as exc:       # named below, then the phase fails
+            log(f"7c: {name} raised {type(exc).__name__}: {exc}")
+            ok = False
+        if not ok:
+            failed.append(name)
+    from mxnet_tpu_torch import _rng
+    for name, kw, mean, var in (
+            ("_npi_uniform_n", {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12),
+            ("_npi_normal_n", {"loc": 0.5, "scale": 2.0}, 0.5, 4.0)):
+        names.add(name)
+        _rng.seed(5)
+        a = getattr(nd, name)(size=(DRAWS,), ctx=DEVICE, **kw).asnumpy()
+        _rng.seed(5)
+        b = getattr(nd, name)(size=(DRAWS,), ctx=DEVICE, **kw).asnumpy()
+        if not (_moment_check(a, mean, var) and np.array_equal(a, b)):
+            failed.append(name)
+    return len(TAIL_CORPUS) + 2, len(names), failed
+
+
+def ssd_inputs(rng):
+    """SSD-300's anchors' feature maps, seeded labels (1 to 8 boxes an
+    image, padded with -1), class and box predictions."""
+    label = np.full((SSD_BATCH, SSD_GT, 6), -1.0, np.float32)
+    for i in range(SSD_BATCH):
+        nb = rng.randint(1, 9)
+        label[i, :nb, 0] = rng.randint(0, SSD_CLASSES, nb)
+        label[i, :nb, 1:5] = _cboxes(nb, seed=1000 + i)
+        label[i, :nb, 5] = 0.0
+    a = sum(m * m * (len(s) + len(r) - 1) for m, s, r in
+            zip(SSD_MAPS, SSD_SIZES, SSD_RATIOS))
+    cls = rng.randn(SSD_BATCH, SSD_CLASSES + 1, a).astype(np.float32)
+    loc = (rng.randn(SSD_BATCH, a * 4) * 0.1).astype(np.float32)
+    return label, cls, loc
+
+
+def ssd_anchors(nd, dev):
+    return nd.concat(*[
+        nd.contrib.MultiBoxPrior(nd.zeros((1, 1, m, m), ctx=dev),
+                                 sizes=s, ratios=r, steps=(st, st),
+                                 clip=False)
+        for m, s, r, st in zip(SSD_MAPS, SSD_SIZES, SSD_RATIOS, SSD_STEPS)],
+        dim=1)
+
+
+def multibox_loss(nd, cls_preds, loc_preds, loc_t, loc_m, cls_t):
+    """``MultiBoxLoss``'s arithmetic (ssd.py:168-185) through ``nd``:
+    softmax cross entropy ignoring ``cls_t == -1``, smooth L1 on the
+    positives; (N,)."""
+    logp = nd.log_softmax(cls_preds.transpose((0, 2, 1)), axis=-1)
+    tgt = nd.maximum(cls_t, nd.zeros_like(cls_t))
+    picked = -nd.pick(logp, tgt, axis=-1)
+    keep = cls_t >= 0
+    cls_loss = (picked * keep).sum(axis=-1) / nd.maximum(
+        keep.sum(axis=-1), nd.ones_like(keep.sum(axis=-1)))
+    loc_loss = (nd.smooth_l1(loc_preds - loc_t, scalar=1.0) * loc_m).sum(
+        axis=-1) / nd.maximum(loc_m.sum(axis=-1),
+                              nd.ones_like(loc_m.sum(axis=-1)))
+    return cls_loss + loc_loss
+
+
+def timed_ms(torch, fn):
+    """One call's wall ms, synchronized (the op, its host steps and its
+    launches: what a caller waits for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def flips(got, want, near):
+    """The indices where ``got`` and ``want`` differ, and whether each
+    sits where ``near`` says a one-ulp move decides it."""
+    idx = np.argwhere(got != want)
+    return [(tuple(i), bool(near(tuple(i)))) for i in idx]
+
+
+def run_ssd_phase(torch, nd, ag, rng):
+    """7c (b): SSD-300 on VOC at batch 32."""
+    anchors = ssd_anchors(nd, DEVICE)
+    check(anchors.shape == (1, 8732, 4), f"SSD-300 anchors: "
+          f"{anchors.shape}, want (1, 8732, 4)")
+    anchors_cpu = ssd_anchors(nd, "cpu")
+    check(np.array_equal(anchors.asnumpy(), anchors_cpu.asnumpy()),
+          "SSD-300 anchors differ from the CPU's")
+    label, cls_np, loc_np = ssd_inputs(rng)
+    lab = nd.array(label, ctx=DEVICE)
+    cls_p = nd.array(cls_np, ctx=DEVICE)
+    loc_p = nd.array(loc_np, ctx=DEVICE)
+    kw = dict(overlap_threshold=0.5, negative_mining_ratio=3.0,
+              negative_mining_thresh=0.5)
+    (loc_t, loc_m, cls_t), t_ms = timed_ms(
+        torch, lambda: nd.contrib.MultiBoxTarget(anchors, lab, cls_p, **kw))
+    c_loc, c_m, c_cls = nd.contrib.MultiBoxTarget(
+        anchors_cpu, nd.array(label, ctx="cpu"), nd.array(cls_np, ctx="cpu"),
+        **kw)
+    g_cls, w_cls = cls_t.asnumpy(), c_cls.asnumpy()
+    bg = np.exp(cls_np - cls_np.max(axis=1, keepdims=True))
+    bg = (bg / bg.sum(axis=1, keepdims=True))[:, 0]
+
+    def near(i):
+        # a negative-mining swap: the background probability one ulp
+        # from another candidate's
+        n, a = i
+        p = bg[n, a]
+        return np.min(np.abs(np.delete(bg[n], a) - p)) <= \
+            2 * np.spacing(np.float32(p))
+    fl = flips(g_cls, w_cls, near)
+    for f in fl:
+        log(f"7c (b): cls_target flip at {f[0]}: card "
+            f"{g_cls[f[0]]}, CPU {w_cls[f[0]]}, within an ulp: {f[1]}")
+    check(len(fl) <= 1 and all(f[1] for f in fl),
+          f"SSD-300 cls_target differs from the CPU's at {fl}")
+    mask_same = np.array_equal(loc_m.asnumpy(), c_m.asnumpy())
+    loc_err = float(np.abs(loc_t.asnumpy() - c_loc.asnumpy()).max())
+    check(mask_same or fl, "SSD-300 loc_mask differs from the CPU's")
+    check(loc_err <= 1e-5 * max(1.0, float(np.abs(c_loc.asnumpy()).max()))
+          or fl, f"SSD-300 loc_target error {loc_err}")
+    cls_p.attach_grad()
+    loc_p.attach_grad()
+    with ag.record():
+        loss = multibox_loss(nd, cls_p, loc_p, loc_t, loc_m, cls_t)
+        total = loss.mean()
+    _, b_ms = timed_ms(torch, total.backward)
+    g1, g2 = cls_p.grad.asnumpy(), loc_p.grad.asnumpy()
+    check(np.isfinite(g1).all() and np.abs(g1).sum() > 0 and
+          np.isfinite(g2).all() and np.abs(g2).sum() > 0,
+          "MultiBoxLoss: backward() reached no prediction")
+    probs = nd.softmax(cls_p.detach(), axis=1)
+    det_kw = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+    det, d_ms = timed_ms(torch, lambda: nd.contrib.MultiBoxDetection(
+        probs, loc_p.detach(), anchors, **det_kw))
+    # the CPU decodes the card's probabilities: a softmax an ulp off would
+    # reorder near-equal scores, which says nothing of the op
+    c_det = nd.contrib.MultiBoxDetection(
+        nd.array(probs.asnumpy(), ctx="cpu"), nd.array(loc_np, ctx="cpu"),
+        anchors_cpu, **det_kw).asnumpy()
+    g_det = det.asnumpy()
+    kept_same = np.array_equal(g_det[..., 0], c_det[..., 0])
+    sc = c_det[..., 1]
+
+    def near_score(i):
+        n, a = i[:2]
+        p = sc[n, a]
+        return np.min(np.abs(np.delete(sc[n], a) - p)) <= \
+            2 * np.spacing(np.float32(abs(p)) + np.float32(1e-30))
+    dfl = [] if kept_same else flips(g_det[..., 0], c_det[..., 0],
+                                     near_score)
+    for f in dfl:
+        log(f"7c (b): detection row flip at {f[0]}, within an ulp: {f[1]}")
+    det_err = float(np.abs(g_det - c_det).max()) if kept_same else 0.0
+    check(kept_same or (len(dfl) <= 2 and all(f[1] for f in dfl)),
+          f"SSD-300 detections keep other rows than the CPU: {dfl}")
+    check(det_err <= 1e-5, f"SSD-300 detection rows error {det_err}")
+    n_det = int((g_det[..., 0] >= 0).sum())
+    log(f"7c (b): SSD-300 batch {SSD_BATCH}: 8732 anchors; MultiBoxTarget "
+        f"{t_ms:.2f} ms ({int((g_cls > 0).sum())} positives, "
+        f"{int((g_cls == 0).sum())} mined negatives, flips {len(fl)}), "
+        f"loc_target err {loc_err:.2e}; MultiBoxLoss backward {b_ms:.2f} "
+        f"ms; MultiBoxDetection {d_ms:.2f} ms ({n_det} rows kept, row err "
+        f"{det_err:.2e}); against the CPU")
+    return {"MultiBoxTarget": t_ms, "MultiBoxLoss backward": b_ms,
+            "MultiBoxDetection": d_ms}
+
+
+def rcnn_inputs(rng):
+    h = RCNN_IMAGE[0] // RCNN_STRIDE + (RCNN_IMAGE[0] % RCNN_STRIDE > 0)
+    w = RCNN_IMAGE[1] // RCNN_STRIDE + (RCNN_IMAGE[1] % RCNN_STRIDE > 0)
+    a = len(RCNN_RPN["scales"]) * len(RCNN_RPN["ratios"])
+    cls = rng.uniform(0, 1, (RCNN_BATCH, 2 * a, h, w)).astype(np.float32)
+    bbox = (rng.randn(RCNN_BATCH, 4 * a, h, w) * 0.1).astype(np.float32)
+    info = np.array([[RCNN_IMAGE[0], RCNN_IMAGE[1], 1.0]] * RCNN_BATCH,
+                    np.float32)
+    return cls, bbox, info, (h, w)
+
+
+def card_and_cpu(torch, nd, ag, fn, arrays, grad=(), seed=8):
+    """``fn(*NDArrays)`` on the card and on the CPU: (card outputs, CPU
+    outputs, card grads, CPU grads, card wall ms) as numpy, the grads of
+    the inputs ``grad`` on a seeded cotangent of the first output."""
+    res = []
+    for dev in (DEVICE, "cpu"):
+        xs = [nd.array(a, ctx=dev) for a in arrays]
+        for i in grad:
+            xs[i].attach_grad()
+        with ag.record() if grad else ag.pause():
+            out, ms = timed_ms(torch, lambda: fn(*xs)) if dev == DEVICE \
+                else (fn(*xs), 0.0)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        grads = []
+        if grad:
+            cot = nd.array(np.random.RandomState(seed).randn(
+                *outs[0].shape).astype(np.float32), ctx=dev)
+            (outs[0] * cot).sum().backward()
+            grads = [xs[i].grad.asnumpy() for i in grad]
+        res.append(([o.asnumpy() for o in outs], grads, ms))
+    return res[0][0], res[1][0], res[0][1], res[1][1], res[0][2]
+
+
+def rel_max(got, want):
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def run_rcnn_phase(torch, nd, ag, rng):
+    """7c (c): the R-CNN family at Faster R-CNN's test settings on a
+    600x1000 image; each op against the CPU on one image or a slice of
+    the rois, and its ms."""
+    cls, bbox, info, (h, w) = rcnn_inputs(rng)
+    ms = {}
+    args = [nd.array(a, ctx=DEVICE) for a in (cls, bbox, info)]
+    (rois, scores), ms["MultiProposal"] = timed_ms(
+        torch, lambda: nd.contrib.MultiProposal(*args, output_score=True,
+                                                **RCNN_RPN))
+    c_rois, c_sc = nd.contrib.MultiProposal(
+        *[nd.array(a[:1], ctx="cpu") for a in (cls, bbox, info)],
+        output_score=True, **RCNN_RPN)
+    p = RCNN_RPN["rpn_post_nms_top_n"]
+    g_rois = rois.asnumpy()
+    check(g_rois.shape == (RCNN_BATCH * p, 5), f"MultiProposal: rois "
+          f"{g_rois.shape}")
+    err = rel_max(g_rois[:p], c_rois.asnumpy())
+    check(err <= 1e-5 and np.array_equal(scores.asnumpy()[:p],
+                                         c_sc.asnumpy()),
+          f"MultiProposal image 0 against the CPU: rois err {err}")
+    log(f"7c (c): MultiProposal batch {RCNN_BATCH} (K=6000 -> 300, a "
+        f"{h}x{w} map, 9 anchors): {ms['MultiProposal']:.2f} ms; image 0 "
+        f"against the CPU: scores exact, rois err {err:.2e}")
+    feat = (rng.randn(RCNN_BATCH, 1024, h, w) * 0.5).astype(np.float32)
+    roi_np = g_rois
+    sl = np.r_[0:RCNN_CPU_ROIS // 2, p:p + RCNN_CPU_ROIS // 2]
+    for name, fn, data, roi_in, kw, grad in (
+            ("ROIAlign", nd.contrib.ROIAlign, feat, roi_np,
+             dict(pooled_size=(7, 7), spatial_scale=1.0 / RCNN_STRIDE,
+                  sample_ratio=2), (0,)),
+            ("PSROIPooling", nd.contrib.PSROIPooling,
+             (rng.randn(RCNN_BATCH, 21 * 49, h, w) * 0.5).astype(np.float32),
+             roi_np, dict(spatial_scale=1.0 / RCNN_STRIDE, output_dim=21,
+                          pooled_size=7), (0,)),
+            ("RROIAlign", nd.contrib.RROIAlign, feat,
+             np.concatenate([roi_np[:, :1],
+                             (roi_np[:, 1:3] + roi_np[:, 3:5]) / 2,
+                             roi_np[:, 3:5] - roi_np[:, 1:3] + 1,
+                             rng.uniform(-90, 90, (len(roi_np), 1))],
+                            axis=1).astype(np.float32),
+             dict(pooled_size=(7, 7), spatial_scale=1.0 / RCNN_STRIDE,
+                  sampling_ratio=2), (0,))):
+        xs = [nd.array(data, ctx=DEVICE), nd.array(roi_in, ctx=DEVICE)]
+        xs[0].attach_grad()
+        with ag.record():
+            out, f_ms = timed_ms(torch, lambda: fn(*xs, **kw))
+        _, b_ms = timed_ms(torch, lambda: out.backward(nd.ones_like(out)))
+        check(np.isfinite(xs[0].grad.asnumpy()).all(),
+              f"{name}: gradient not finite")
+        got, want, gg, gw, _ = card_and_cpu(
+            torch, nd, ag, lambda d, r: fn(d, r, **kw),
+            [data, roi_in[sl]], grad=grad)
+        err, gerr = rel_max(got[0], want[0]), rel_max(gg[0], gw[0])
+        check(err <= 1e-4 and gerr <= 1e-4, f"{name} against the CPU: "
+              f"out {err}, grad {gerr}")
+        ms[name] = f_ms
+        ms[name + " backward"] = b_ms
+        log(f"7c (c): {name} {tuple(out.shape)} over ({RCNN_BATCH}, "
+            f"{data.shape[1]}, {h}, {w}): forward {f_ms:.2f} ms, backward "
+            f"{b_ms:.2f} ms; {RCNN_CPU_ROIS} rois against the CPU: out "
+            f"{err:.2e}, grad {gerr:.2e}")
+    x = (rng.randn(RCNN_BATCH, 512, h, w) * 0.5).astype(np.float32)
+    off = (rng.randn(RCNN_BATCH, 18, h, w) * 0.5).astype(np.float32)
+    mask = rng.uniform(0, 1, (RCNN_BATCH, 9, h, w)).astype(np.float32)
+    wt = (rng.randn(512, 512, 3, 3) / np.sqrt(512 * 9)).astype(np.float32)
+    bias = (rng.randn(512) * 0.1).astype(np.float32)
+    dkw = dict(kernel=(3, 3), dilate=(2, 2), pad=(2, 2), num_filter=512)
+    for name, fn, arrays in (
+            ("DeformableConvolution", nd.contrib.DeformableConvolution,
+             [x, off, wt, bias]),
+            ("ModulatedDeformableConvolution",
+             nd.contrib.ModulatedDeformableConvolution,
+             [x, off, mask, wt, bias])):
+        xs = [nd.array(a, ctx=DEVICE) for a in arrays]
+        for v in xs:
+            v.attach_grad()
+        with ag.record():
+            out, f_ms = timed_ms(torch, lambda: fn(*xs, **dkw))
+        _, b_ms = timed_ms(torch, lambda: out.backward(nd.ones_like(out)))
+        one = [a[:1] if a.ndim == 4 else a for a in arrays]
+        got, want, gg, gw, _ = card_and_cpu(
+            torch, nd, ag, lambda *v: fn(*v, **dkw), one,
+            grad=tuple(range(len(one))))
+        err = rel_max(got[0], want[0])
+        gerr = max(rel_max(g, w_) for g, w_ in zip(gg, gw))
+        check(err <= 1e-4 and gerr <= 1e-4, f"{name} against the CPU: out "
+              f"{err}, grads {gerr}")
+        ms[name] = f_ms
+        ms[name + " backward"] = b_ms
+        log(f"7c (c): {name} 512->512 3x3 dilate 2 on ({RCNN_BATCH}, 512, "
+            f"{h}, {w}): forward {f_ms:.2f} ms, backward {b_ms:.2f} ms; "
+            f"one image against the CPU: out {err:.2e}, grads {gerr:.2e}")
+    m = 8
+    masks = (rng.uniform(0, 1, (RCNN_BATCH, m) + RCNN_IMAGE) > 0.5).astype(
+        np.float32)
+    mrois = roi_np[:, 1:].reshape(RCNN_BATCH, p, 4)
+    matches = rng.randint(0, m, (RCNN_BATCH, p)).astype(np.float32)
+    cls_t = rng.randint(0, 21, (RCNN_BATCH, p)).astype(np.float32)
+    mkw = dict(num_rois=p, num_classes=21, mask_size=(28, 28),
+               sample_ratio=2)
+    args = [nd.array(a, ctx=DEVICE) for a in (mrois, masks, matches, cls_t)]
+    (mt, mc), ms["mrcnn_mask_target"] = timed_ms(
+        torch, lambda: nd.contrib.mrcnn_mask_target(*args, **mkw))
+    k = RCNN_CPU_ROIS
+    c_mt, c_mc = nd.contrib.mrcnn_mask_target(
+        *[nd.array(a, ctx="cpu") for a in (mrois[:1, :k], masks[:1],
+                                           matches[:1, :k], cls_t[:1, :k])],
+        **dict(mkw, num_rois=k))
+    err = rel_max(mt.asnumpy()[:1, :k], c_mt.asnumpy())
+    # a resampling (the tolerance of the other roi ops): a sample's
+    # position, ~600 in magnitude, moves by its ulp (6e-5) between the
+    # two devices' divisions, and a 0/1 mask's bilinear value with it
+    check(err <= 1e-4 and np.array_equal(mc.asnumpy()[:1, :k],
+                                         c_mc.asnumpy()),
+          f"mrcnn_mask_target against the CPU: {err}")
+    log(f"7c (c): mrcnn_mask_target {tuple(mt.shape)}: "
+        f"{ms['mrcnn_mask_target']:.2f} ms; {k} rois against the CPU: "
+        f"targets {err:.2e}, class masks exact")
+    return ms
+
+
+def ptb_params(rng):
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+    u, v, s = PTB["units"], PTB["vocab"], PTB["init"]
+    size = rnn_param_size(u, u, PTB["layers"], "lstm")
+    return [rng.uniform(-s, s, (v, u)).astype(np.float32),
+            rng.uniform(-s, s, size).astype(np.float32),
+            rng.uniform(-s, s, (v, u)).astype(np.float32),
+            np.zeros(v, np.float32)]
+
+
+def ptb_loss(nd, params, ids, labels, p, state):
+    """The language model through ``nd``: Embedding, the fused 2-layer
+    LSTM, the decoder, softmax cross entropy (mean per token); the
+    embedding's dropout (and the RNN's between its layers) at ``p``."""
+    emb_w, rnn_w, dec_w, dec_b = params
+    u, v = PTB["units"], PTB["vocab"]
+    x = nd.Embedding(ids, emb_w, input_dim=v, output_dim=u)
+    if p > 0:
+        x = nd.Dropout(x, p=p)
+    out, ht, ct = nd.RNN(x, rnn_w, state[0], state[1], state_size=u,
+                         num_layers=PTB["layers"], mode="lstm", p=p)
+    logits = nd.FullyConnected(out.reshape((-1, u)), dec_w, dec_b,
+                               num_hidden=v)
+    loss = nd.softmax_cross_entropy(logits, labels.reshape((-1,))) / \
+        labels.size
+    return loss, out, ht, ct, x
+
+
+def run_ptb_phase(torch, nd, ag, rng):
+    """7c (d): the PTB medium LSTM: p=0 against the CPU, then 3 SGD steps
+    at p=0.5 with the gradients clipped to norm 5 (``multi_sum_sq``),
+    then GRU and the vanilla modes, bidirectional, against the CPU."""
+    T, N, u, L = PTB["steps"], PTB["batch"], PTB["units"], PTB["layers"]
+    params_np = ptb_params(rng)
+    ids_np = rng.randint(0, PTB["vocab"], (T, N)).astype(np.float32)
+    lab_np = rng.randint(0, PTB["vocab"], (T, N)).astype(np.float32)
+    zeros = np.zeros((L, N, u), np.float32)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        ps = [nd.array(a, ctx=dev) for a in params_np]
+        for q in ps:
+            q.attach_grad()
+        state = [nd.array(zeros, ctx=dev), nd.array(zeros, ctx=dev)]
+        with ag.record():
+            loss, out, ht, ct, _ = ptb_loss(nd, ps, nd.array(ids_np, ctx=dev),
+                                            nd.array(lab_np, ctx=dev), 0.0,
+                                            state)
+        loss.backward()
+        res[dev] = [a.asnumpy() for a in (out, ht, ct, loss)] + \
+            [q.grad.asnumpy() for q in ps]
+    errs = [rel_max(g, w) for g, w in zip(res[DEVICE], res["cpu"])]
+    names = ("out", "hT", "cT", "loss", "d embedding", "d rnn", "d decoder",
+             "d bias")
+    check(max(errs) <= 1e-4, "PTB LSTM at p=0 against the CPU: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in zip(names, errs)))
+    log(f"7c (d): PTB medium LSTM (vocab {PTB['vocab']}, {L} x {u}, {T} "
+        f"steps, batch {N}) at p=0 against the CPU, max error over the "
+        "largest magnitude: " + ", ".join(f"{n} {e:.1e}" for n, e in
+                                          zip(names, errs)))
+    ps = [nd.array(a, ctx=DEVICE) for a in params_np]
+    for q in ps:
+        q.attach_grad()
+    state = [nd.array(zeros, ctx=DEVICE), nd.array(zeros, ctx=DEVICE)]
+    ids, labs = nd.array(ids_np, ctx=DEVICE), nd.array(lab_np, ctx=DEVICE)
+    losses, step_ms, keep = [], [], []
+    for _ in range(PTB_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ag.record():
+            loss, _, _, _, x = ptb_loss(nd, ps, ids, labs, PTB["dropout"],
+                                        state)
+        loss.backward()
+        grads = [q.grad for q in ps]
+        sq = nd.multi_sum_sq(*grads, num_arrays=len(grads))
+        norm = float(np.sqrt(sum(float(s.asnumpy()[0]) for s in sq)))
+        scale = PTB["lr"] * min(1.0, PTB["clip"] / max(norm, 1e-12))
+        for q, g in zip(ps, grads):
+            q._data.data.sub_(scale * g._data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.asnumpy()))
+        keep.append(float((x.asnumpy() != 0).mean()))
+    check(losses[-1] < losses[0], f"PTB LSTM: loss did not fall: {losses}")
+    se = np.sqrt(0.25 / (T * N * u))
+    check(all(abs(k - 0.5) <= 4 * se for k in keep),
+          f"PTB LSTM: dropout keep fractions {keep}, 4 standard errors "
+          f"{4 * se:.1e}")
+    log(f"7c (d): 3 SGD steps at p=0.5 (lr 1, clipped to norm 5 through "
+        f"multi_sum_sq): losses {[round(v, 4) for v in losses]}, keep "
+        f"fractions {[round(k, 4) for k in keep]}, step ms "
+        f"{[round(m, 2) for m in step_ms]}")
+    x_np = (rng.randn(T, N, u) * 0.5).astype(np.float32)
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+    for mode in ("gru", "rnn_tanh", "rnn_relu"):
+        size = rnn_param_size(u, u, L, mode, True)
+        w_np = rng.uniform(-0.05, 0.05, size).astype(np.float32)
+        h0 = np.zeros((2 * L, N, u), np.float32)
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            o = nd.RNN(nd.array(x_np, ctx=dev), nd.array(w_np, ctx=dev),
+                       nd.array(h0, ctx=dev), state_size=u, num_layers=L,
+                       mode=mode, bidirectional=True)
+            outs[dev] = [a.asnumpy() for a in o[:2]]
+        err = max(rel_max(g, w) for g, w in zip(outs[DEVICE], outs["cpu"]))
+        check(err <= 1e-4, f"PTB widths, {mode} bidirectional against the "
+              f"CPU: {err}")
+        log(f"7c (d): {mode} bidirectional, {L} x {u}, {T} steps: against "
+            f"the CPU {err:.1e}")
+    return {"PTB step (fwd+bwd+clip+SGD)": float(np.median(step_ms))}, \
+        params_np, ids_np
+
+
+def run_quant_k3_phase(torch, nd, timer, rng):
+    """7c (e): ``nd.contrib.quantized_matmul`` (K3) at BERT-base's four
+    projections on the 1024-token encode batch, int8 and fp8, against the
+    twin on the card; the int8 x int8 chain and ResNet-50's res2
+    convolution bit for bit against the CPU. Returns (K3's launches from
+    the nd calls, the kernel rows, ms)."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import quantization as qz
+    from mxnet_tpu_torch.serving.llm.quant import quantize_leaf
+    T = ENCODE_TOKENS
+    counts, rows, ms = {}, [], {}
+    for wdt in ("int8", "float8_e4m3fn"):
+        for K, N in BERT_PROJ:
+            w = rng.randn(K, N).astype(np.float32) / np.sqrt(K)
+            q, s = quantize_leaf(w, wdt)
+            q, s = q.to(DEVICE), s.to(DEVICE)
+            x = nd.array(rng.randn(T, K).astype(np.float32), ctx=DEVICE)
+            name = qz.kernel_name(q.dtype)
+            n0 = kernels.launch_counts().get(name, 0)
+            out = nd.contrib.quantized_matmul(x, q, s)
+            torch.cuda.synchronize()
+            n1 = kernels.launch_counts().get(name, 0)
+            check(n1 == n0 + 1, f"nd.contrib.quantized_matmul: {n1 - n0} "
+                  f"launches of {name}, want 1")
+            counts[name] = counts.get(name, 0) + 1
+            xt = x._data
+            ref = qz.quantized_matmul_reference(xt, q, s)
+            err = float((out._data - ref).abs().max())
+            tol = WQ_REL_TOL * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"K3 at T={T}, K={K}, N={N} {wdt}: {err} > "
+                  f"{tol}")
+
+            def kern():
+                return nd.contrib.quantized_matmul(x, q, s)
+
+            def plain():
+                return qz.quantized_matmul_reference(xt, q, s)
+
+            def library():
+                return xt @ (q.float() * s)
+            b_ms, b_by, b_f32 = bound(4 * T * K + K * N + 4 * N + 4 * T * N,
+                                      2 * T * K * N, WQ_PASSES)
+            row = dict(name=name, route="cuda",
+                       source="mxnet_tpu_torch/csrc/wq_matmul.cu",
+                       replaces="mxnet_tpu/ops/quantization.py:297",
+                       shape=f"T={T},K={K},N={N},nd.contrib",
+                       max_abs_err=err, tol=tol, ms=timer.ms(kern),
+                       plain_ms=timer.ms(plain), bound_ms=b_ms,
+                       bound_by=b_by, bound_f32_ms=b_f32,
+                       library_ms=timer.ms(library))
+            log(f"kernel {name} {row['shape']}: max_abs_err={err:.3e} (tol "
+                f"{tol:.3e}) kernel_ms={row['ms']:.4f} plain_ms="
+                f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) bound_f32_ms={b_f32:.4f}")
+            rows.append(row)
+    # the int8 x int8 chain at the same shapes, bit for bit with the CPU
+    chain_ms = 0.0
+    for K, N in BERT_PROJ:
+        x_np = rng.randn(T, K).astype(np.float32)
+        w_np = (rng.randn(N, K) / np.sqrt(K)).astype(np.float32)
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            def chain():
+                qx, xmn, xmx = nd.contrib.quantize_v2(nd.array(x_np,
+                                                               ctx=dev))
+                qw, wmn, wmx = nd.contrib.quantize_v2(nd.array(w_np,
+                                                               ctx=dev))
+                acc = nd.contrib.quantized_fully_connected(qx, qw)
+                t = (xmx * wmx).asnumpy()
+                q8, mn, mx_ = nd.contrib.requantize(
+                    acc.astype("int32"), nd.array(-t, ctx=dev),
+                    nd.array(t, ctx=dev))
+                return [v.asnumpy() for v in (qx, acc, q8, nd.contrib.
+                                               dequantize(q8, mn, mx_))]
+            if dev == DEVICE:
+                outs[dev], t_ms = timed_ms(torch, chain)
+                chain_ms += t_ms
+            else:
+                outs[dev] = chain()
+        same = all(np.array_equal(g, w) for g, w in zip(outs[DEVICE],
+                                                        outs["cpu"]))
+        check(same, f"int8 chain K={K} N={N}: the card's bits differ from "
+              f"the CPU's")
+    ms["int8 chain (4 projections)"] = chain_ms
+    log(f"7c (e): quantize_v2 -> quantized_fully_connected -> requantize -> "
+        f"dequantize at the four projections, T={T}: bit for bit with the "
+        f"CPU, {chain_ms:.2f} ms")
+    n, hw, c = RES2["n"], RES2["hw"], RES2["c"]
+    qx = rng.randint(-127, 128, (n, hw, hw, c)).astype(np.int8)
+    qw = rng.randint(-127, 128, (3, 3, c, c)).astype(np.int8)
+    ckw = dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1), x_scale=0.02,
+               w_scale=0.01)
+    got, ms["quantized_conv res2"] = timed_ms(
+        torch, lambda: nd.contrib.quantized_conv(
+            nd.array(qx, ctx=DEVICE), nd.array(qw, ctx=DEVICE), **ckw))
+    want = nd.contrib.quantized_conv(nd.array(qx, ctx="cpu"),
+                                     nd.array(qw, ctx="cpu"), **ckw)
+    check(np.array_equal(got.asnumpy(), want.asnumpy()),
+          "quantized_conv res2: the card's bits differ from the CPU's")
+    log(f"7c (e): quantized_conv ResNet-50 res2 3x3 ({n}, {hw}, {hw}, {c}) "
+        f"NHWC: bit for bit with the CPU, {ms['quantized_conv res2']:.2f} "
+        f"ms")
+    return counts, rows, ms
+
+
+def run_control_flow_phase(torch, nd, ag, params_np, ids_np):
+    """7c (f): ``foreach`` over the PTB model's first LSTM layer against
+    ``nd.RNN``, ``while_loop`` captured, ``cond`` both ways and in a
+    capture."""
+    from mxnet_tpu_torch.ops.rnn import rnn_cell_step
+    u, N = PTB["units"], PTB["batch"]
+    g = 4 * u
+    flat = params_np[1]
+    # the first layer's [Wx, Wh] (the flat vector's first block) and its
+    # [bx, bh] (after both layers' weights)
+    w_end = 2 * (2 * g * u)
+    one_layer = np.concatenate([flat[:2 * g * u], flat[w_end:w_end + 2 * g]])
+    emb = params_np[0][ids_np.astype(np.int64)]
+    h0 = np.zeros((1, N, u), np.float32)
+    res = {}
+    for mode in ("rnn", "foreach"):
+        x = nd.array(emb, ctx=DEVICE)
+        w = nd.array(one_layer, ctx=DEVICE)
+        x.attach_grad()
+        w.attach_grad()
+        with ag.record():
+            if mode == "rnn":
+                out = nd.RNN(x, w, nd.array(h0, ctx=DEVICE),
+                             nd.array(h0, ctx=DEVICE), state_size=u,
+                             num_layers=1, mode="lstm")[0]
+            else:
+                wx = w[:g * u].reshape((g, u))
+                wh = w[g * u:2 * g * u].reshape((g, u))
+                bx, bh = w[2 * g * u:2 * g * u + g], w[2 * g * u + g:]
+                xproj = nd.dot(x.reshape((-1, u)), wx, transpose_b=True) + bx
+
+                def body(xp, states):
+                    o, h, c = rnn_cell_step("lstm", xp._data,
+                                            states[0]._data,
+                                            states[1]._data, wh._data,
+                                            bh._data)
+                    return nd.NDArray(o), [nd.NDArray(h), nd.NDArray(c)]
+                out, _ = nd.contrib.foreach(
+                    body, xproj.reshape((PTB["steps"], N, g)),
+                    [nd.array(h0[0], ctx=DEVICE), nd.array(h0[0],
+                                                           ctx=DEVICE)])
+            loss = (out * out).sum()
+        loss.backward()
+        res[mode] = [out.asnumpy(), x.grad.asnumpy(), w.grad.asnumpy()]
+    errs = [rel_max(a, b) for a, b in zip(res["foreach"], res["rnn"])]
+    check(errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4,
+          f"foreach over the LSTM layer against nd.RNN: {errs}")
+    log(f"7c (f): foreach over PTB's first LSTM layer (35 rnn_cell_steps) "
+        f"against nd.RNN: out {errs[0]:.1e}, d input {errs[1]:.1e}, d "
+        f"weights {errs[2]:.1e}")
+    i0 = torch.zeros((), device=DEVICE)
+    s0 = torch.ones((), device=DEVICE)
+
+    def loop():
+        outs, (fi, fs) = nd.contrib.while_loop(
+            lambda i, s: i < 5, lambda i, s: (s + i, (i + 1, s + i)),
+            [nd.NDArray(i0), nd.NDArray(s0)], max_iterations=8)
+        return outs._data, fi._data, fs._data
+    eager = [t.clone() for t in loop()]
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        loop()
+        with torch.cuda.graph(graph, stream=side):
+            static = loop()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(static, eager)) and
+          not eager[0][5:].any() and float(eager[1]) == 5.0,
+          "while_loop: the captured run differs or the tail is not zero")
+    log(f"7c (f): while_loop exits after 5 of 8 steps, rows 5-7 zero, "
+        f"captured in one CUDA graph and replayed to the eager bits")
+    x = nd.NDArray(torch.tensor([1.0, -2.0, 3.0], device=DEVICE))
+    a = nd.contrib.cond(lambda v: v.sum() > 0, lambda v: v * 2,
+                        lambda v: v * 0, [x]).asnumpy()
+    b = nd.contrib.cond(lambda v: v.sum() > 5, lambda v: v * 2,
+                        lambda v: v * 0, [x]).asnumpy()
+    raised = in_capture_raises(torch, lambda: nd.contrib.cond(
+        lambda v: v.sum() > 0, lambda v: v * 2, lambda v: v, [x]))
+    check(np.array_equal(a, [2.0, -4.0, 6.0]) and not b.any() and raised,
+          "cond: a branch was wrong or it ran inside a capture")
+    log("7c (f): cond picks each branch and raises inside a capture")
+
+
+def run_op_tail_phase(torch, timer, rng):
+    """Phase 7c: (a) the tail corpus, (b) SSD-300, (c) the R-CNN family,
+    (d) the PTB LSTM, (e) K3 and the int8 ops at BERT-base widths, (f)
+    control flow. Returns (K3's launches, K3's rows)."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import registry
+    seconds, op_ms = {}, {}
+    t0 = time.monotonic()
+    n_cases, n_ops, failed = run_tail_cases(torch, nd, ag, registry)
+    seconds["a"] = time.monotonic() - t0
+    log(f"7c (a): {n_cases} cases over {n_ops} ops through nd/nd.contrib "
+        f"on the card against the CPU (host ops raising inside a capture, "
+        f"the two samplers at 2^20 draws): {len(failed)} failed"
+        + (f": {sorted(set(failed))}" if failed else ""))
+    check(not failed, f"7c: ops failed on the card: {sorted(set(failed))}")
+    for part, fn in (("b", run_ssd_phase), ("c", run_rcnn_phase)):
+        t0 = time.monotonic()
+        op_ms.update(fn(torch, nd, ag, rng))
+        seconds[part] = time.monotonic() - t0
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ms, params_np, ids_np = run_ptb_phase(torch, nd, ag, rng)
+    op_ms.update(ms)
+    seconds["d"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    counts, rows, ms = run_quant_k3_phase(torch, nd, timer, rng)
+    op_ms.update(ms)
+    seconds["e"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    run_control_flow_phase(torch, nd, ag, params_np, ids_np)
+    seconds["f"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    log("7c ms: " + ", ".join(f"{k} {v:.2f}" for k, v in op_ms.items()))
+    log("7c seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in
+                                   seconds.items()))
+    return counts, rows
+
+
 def _train_state(trainer):
     """Every weight and optimizer slot of ``trainer``, cloned (slots a
     restore left on the host as numpy, until the next update moves
@@ -6596,9 +7884,18 @@ def main():
     counts, tail_rows = run_op_corpus_phase(torch, timer, kernels)
     add(counts)
     results += tail_rows
-    del timer
     torch.cuda.empty_cache()
     lap("7b framework core")
+    # 7c. the rest of the op registry: the tail corpus, SSD-300, the R-CNN
+    # family, the PTB LSTM, K3 and the int8 ops at BERT-base widths,
+    # control flow (its own generator, as 5b)
+    counts, k3_rows = run_op_tail_phase(torch, timer,
+                                        np.random.RandomState(24))
+    add(counts)
+    results += k3_rows
+    del timer
+    torch.cuda.empty_cache()
+    lap("7c op registry tail")
     # 8. main path, training: f32, then under AMP (bf16, then f16)
     counts, f32_bert = run_bert_phase(torch, rng, kernels)
     add(counts)

@@ -7,7 +7,8 @@ container, byte for byte), the op namespace generated from the registry
 (every op of :mod:`mxnet_tpu_torch.ops`, and those
 :mod:`mxnet_tpu_torch.rtc` registers at run time), and the
 sub-namespaces ``nd.random``, ``nd.linalg`` (``nd.linalg.gemm2`` is
-``_linalg_gemm2``) and ``nd.op``.
+``_linalg_gemm2``), ``nd.op`` and ``nd.contrib`` (``foreach``,
+``while_loop``, ``cond``; ``nd.contrib.box_nms`` is ``_contrib_box_nms``).
 
 Every function here returns NDArrays (see :mod:`.ndarray`). ``ctx`` is
 ``"cpu"``, ``"cuda"`` or a ``torch.device``; it defaults to the card and
@@ -299,3 +300,6 @@ class _SubNamespace:
 linalg = _SubNamespace(lambda n: (f"_linalg_{n}", f"linalg_{n}", n))
 op = _SubNamespace(lambda n: (n,))
 from . import random  # noqa: E402,F401  (nd.random)
+# nd.contrib: foreach, while_loop, cond and the _contrib_* ops by their
+# short names (the module's __getattr__)
+from . import contrib  # noqa: E402,F401

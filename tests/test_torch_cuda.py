@@ -33,7 +33,10 @@ largest magnitude (``_lp_tol``); the user kernels of
 1e-5`` of the output's magnitude (``2x + y`` fused into one FMA, a row
 sum in another order). The optimizer update kernel
 (``csrc/multi_tensor_update.cu``) is held to its twins bit for bit, and
-the fused Trainer step to the per-parameter loop.
+the fused Trainer step to the per-parameter loop. The registered K3
+(``nd.contrib.quantized_matmul``) gives the function's bits; the int8
+products accumulate to the CPU's int32 bits; detection rows on a tie keep
+the CPU's rows, within 1e-6 (the card's exp in the box decode).
 """
 import os
 import sys
@@ -2640,3 +2643,148 @@ def test_update_tail_out_as_its_inputs_updates_in_place(cuda):
     assert kernels.launch_counts()["multi_sgd_mom_update"] == n0 + 1
     for o, w in zip(own, want):
         assert torch.equal(o, w)
+
+
+# --------------------------- the op registry's tail (detection, int8, K3) --
+def _impl(name):
+    from mxnet_tpu_torch.ops import registry as treg
+    return treg.get(name).impl
+
+
+def _graph_raises(fn, match):
+    """``fn`` raises a RuntimeError matching ``match`` inside a CUDA-graph
+    capture."""
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match=match):
+            with torch.cuda.graph(graph, stream=side):
+                fn()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_registered_quantized_matmul_launches_k3(cuda):
+    """``nd.contrib.quantized_matmul`` (the registered K3) launches the
+    kernel once and gives the function's bits; ``use_pallas=False`` is
+    the twin, with no launch."""
+    rng = np.random.RandomState(31)
+    for wdt in ("int8", "float8_e4m3fn"):
+        w = rng.randn(768, 256).astype(np.float32) / np.sqrt(768)
+        q, s = tquant.quantize_leaf(w, wdt)
+        q, s = q.to(cuda), s.to(cuda)
+        x = torch.from_numpy(rng.randn(64, 768).astype(np.float32)).to(cuda)
+        name = tqz.kernel_name(q.dtype)
+        n0 = kernels.launch_counts().get(name, 0)
+        got = nd.contrib.quantized_matmul(nd.NDArray(x), q, s)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == n0 + 1
+        assert torch.equal(got._data, tqz.quantized_matmul(x, q, s))
+        plain = nd.quantized_matmul(nd.NDArray(x), q, s, use_pallas=False)
+        assert kernels.launch_counts()[name] == n0 + 2
+        ref = tqz.quantized_matmul_reference(x, q, s)
+        assert torch.equal(plain._data, ref)
+        tol = WQ_TOL * max(1.0, float(ref.abs().max()))
+        assert float((got._data - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_int8_fc_and_conv_bit_for_bit_with_the_cpu(cuda):
+    """The int8 x int8 products accumulate to the CPU's int32 bits (f64
+    products, exact below 2^53) at BERT-base's K = 3072."""
+    rng = np.random.RandomState(32)
+    qx = torch.from_numpy(rng.randint(-127, 128, (64, 3072)).astype(
+        np.int8))
+    qw = torch.from_numpy(rng.randint(-127, 128, (96, 3072)).astype(
+        np.int8))
+    fc = _impl("_contrib_quantized_fully_connected")
+    assert torch.equal(fc(qx.to(cuda), qw.to(cuda), x_scale=0.01,
+                          w_scale=0.02).cpu(),
+                       fc(qx, qw, x_scale=0.01, w_scale=0.02))
+    cx = torch.from_numpy(rng.randint(-127, 128, (2, 14, 14, 64)).astype(
+        np.int8))
+    cw = torch.from_numpy(rng.randint(-127, 128, (3, 3, 64, 64)).astype(
+        np.int8))
+    conv = _impl("_contrib_quantized_conv")
+    kw = dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1), x_scale=0.1,
+              w_scale=0.05)
+    assert torch.equal(conv(cx.to(cuda), cw.to(cuda), **kw).cpu(),
+                       conv(cx, cw, **kw))
+
+
+@pytest.mark.cuda
+def test_detection_keeps_the_cpu_rows_on_a_tie(cuda):
+    """Equal scores everywhere: MultiBoxDetection and box_nms keep the
+    same rows on the card as on the CPU (stable sorts), the rows within
+    1e-6."""
+    rng = np.random.RandomState(33)
+    A = 48
+    anchors = torch.from_numpy(chip_smoke._cboxes(A, seed=34)[None].astype(
+        np.float32))
+    probs = torch.full((2, 3, A), 1.0 / 3)
+    loc = torch.from_numpy(rng.randn(2, A * 4).astype(np.float32) * 0.1)
+    det = _impl("_contrib_MultiBoxDetection")
+    kw = dict(nms_threshold=0.3, nms_topk=16, threshold=0.1)
+    got = det(probs.to(cuda), loc.to(cuda), anchors.to(cuda), **kw).cpu()
+    want = det(probs, loc, anchors, **kw)
+    assert torch.equal(got[..., 0], want[..., 0])
+    assert float((got - want).abs().max()) <= 1e-6
+    rows = torch.cat([torch.zeros(1, 12, 1), torch.full((1, 12, 1), 0.5),
+                      torch.from_numpy(chip_smoke._cboxes(
+                          12, seed=35)[None].astype(np.float32))], dim=-1)
+    nms = _impl("_contrib_box_nms")
+    got = nms(rows.to(cuda), overlap_thresh=0.3, id_index=0).cpu()
+    want = nms(rows, overlap_thresh=0.3, id_index=0)
+    assert torch.equal(got[..., 0], want[..., 0])
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_while_loop_captures(cuda):
+    """``nd.contrib.while_loop`` reads nothing on the host: its fixed trip
+    captures in a CUDA graph, and a replay on new inputs gives the eager
+    result (the rows after the exit zero)."""
+    from mxnet_tpu_torch.ndarray import contrib
+    i0 = torch.zeros((), device=cuda)
+    s0 = torch.ones((), device=cuda)
+
+    def run():
+        outs, (fi, fs) = contrib.while_loop(
+            lambda i, s: i < 5, lambda i, s: (s + i, (i + 1, s + i)),
+            [nd.NDArray(i0), nd.NDArray(s0)], max_iterations=8)
+        return outs._data, fi._data, fs._data
+    eager = [t.clone() for t in run()]
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+        with torch.cuda.graph(graph, stream=side):
+            static = run()
+    torch.cuda.synchronize()
+    i0.fill_(2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    i0.fill_(0.0)
+    want = run()
+    assert not torch.equal(static[0], want[0])
+    i0.fill_(0.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for s, e in zip(static, eager):
+        assert torch.equal(s, e)
+    assert not eager[0][5:].any()
+
+
+@pytest.mark.cuda
+def test_cond_and_a_host_op_raise_inside_a_capture(cuda):
+    x = nd.NDArray(torch.tensor([1.0, -2.0, 3.0], device=cuda))
+    m = nd.NDArray(torch.tensor([1.0, 0.0, 1.0], device=cuda))
+    _graph_raises(lambda: nd.contrib.cond(
+        lambda a: a.sum() > 0, lambda a: a * 2, lambda a: a, [x]), "cond")
+    _graph_raises(lambda: nd.contrib.boolean_mask(x, m),
+                  "_contrib_boolean_mask")
+    _graph_raises(lambda: nd._npx_nonzero(x), "_npx_nonzero")
+    # outside a capture both run
+    assert nd.contrib.cond(lambda a: a.sum() > 0, lambda a: a * 2,
+                           lambda a: a, [x]).shape == (3,)
+    assert nd._npx_nonzero(x).shape == (3, 1)

@@ -86,6 +86,12 @@ for _n in ("multi_sgd_update", "multi_sgd_mom_update", "multi_mp_sgd_update",
     ELSEWHERE[_n] = "update tail: tests/test_torch_multi_update.py"
 ELSEWHERE["ragged_paged_attention"] = "tests/test_torch_nd.py, " \
     "tests/test_torch_ragged_paged.py"
+# the op tail, detection, quantization and RNN ops (chip_smoke.py's
+# TAIL_CORPUS) and the tail's two samplers
+for _n in [c[0] for c in chip_smoke.TAIL_CORPUS] + ["_npi_uniform_n",
+                                                    "_npi_normal_n"]:
+    ELSEWHERE[_n] = "tests/test_torch_op_tail.py and the files it " \
+        "names (detection, quantization, RNN)"
 
 _FAMILIES = ("elemwise", "reduce", "shape_ops", "linalg", "random_ops", "nn")
 MODULE14 = (
