@@ -249,8 +249,28 @@ Phases, one line of output each (or more), in order:
    for bit or within that spread), a sync save's wall ms, and a save
    killed at byte 2^20 of a shard leaving the previous checkpoint to
    restore;
+   8d. the vision path (``run_vision_phase``): (a) every ``get_model``
+   constructor (34) at batch 8 on the card, 224x224 (Inception V3
+   299x299), eval: (8, 1000) finite logits; the first of each family
+   also on the CPU from the card net's parameter file, within
+   ``ZOO_REL_TOL``; (b) ResNet-50 v1, f32 NCHW, TF32 off, as
+   ``bench.py`` sets it up (Xavier after ``mx.random.seed(0)``; the
+   per-sample NLL of the f32 log-softmax through ``pick``; SGD lr 1e-3,
+   momentum 0.9; ``trainer.step(batch)``): one step at batch 4 on the
+   card and on the CPU from the same weights (losses, every update,
+   the running statistics), then 10 steps at batch 32 (step ms, images/s,
+   peak GB, kernels a step, one fused update launch a step) and two
+   profiled steps (device ms, idle, split into convolutions,
+   reductions, elementwise, the update kernel, other); (c) ``bench.py``'s
+   default, ``resnet50_v1(layout="NHWC", stem_s2d=True)``: its f32
+   forward at batch 4 against (b)'s net on the same weights (OIHW ->
+   OHWI), then cast to bf16: the update kernel's bf16 ``sgd_mom_update``
+   over its bf16 weights against the twin (a kernel row), then 10 steps
+   at batch 128 (finite losses, two update launches a step: the bf16
+   weights and the f32 BatchNorm group) and the same numbers as (b);
 9. one JSON line listing every kernel (the update tail's ops of phase
-   7b among them, K3's rows of phase 7c): launches on the main paths
+   7b among them, K3's rows of phase 7c, 8d's bf16 update row): launches
+   on the main paths
    (phase 7b's flash and update launches added, and 7c's K3 launches),
    counted through graph replays (the speculative phase's verifies and
    draft rounds included, the registry and artifact phases' too; the
@@ -886,9 +906,25 @@ def _corpus():
     add(nn, "Correlation", [_cr(1, 2, 5, 5), _cr(1, 2, 5, 5, seed=1)],
         {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
          "pad_size": 2, "is_multiply": False})
+    # jnp.sign's and jnp.maximum(x, 0)'s NaN, zeros and infinities;
+    # forward only (jnp.maximum's gradient splits a tie at 0, the port's
+    # relu takes torch.relu's), appended so earlier case ids stay
+    for n in ("sign", "cbrt", "relu"):
+        add("elemwise", n, [SPECIALS], {"_grad_inputs": ()})
+    add(nn, "Activation", [SPECIALS], {"act_type": "relu",
+                                       "_grad_inputs": ()})
+    # topk's ties: the lower index first (lax.top_k), for is_ascend too
+    for x, k in ((TIES, 3), (np.zeros(64), 3), (SPECIALS, 7)):
+        for asc in (False, True):
+            for typ in ("value", "indices", "both"):
+                add(s, "topk", [x], {"k": k, "ret_typ": typ,
+                                     "is_ascend": asc})
     return out
 
 
+# the special values of sign, relu and the sign-taking update rules
+SPECIALS = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 2.0])
+TIES = np.array([1.0, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 1.0])
 CORPUS = _corpus()
 
 
@@ -5300,6 +5336,7 @@ def bert_step_grads(net, loss_fn, batch_data, vocab, flash, pre, gate=None,
     ``record`` (a dict), also keeps the last attention call's inputs and
     the gradient of its output there (:class:`recording_attention`).
     Returns the loss and every parameter's gradient."""
+    import torch
     from mxnet_tpu_torch import autograd as ag
 
     def hook(mod, inputs, out):
@@ -5308,7 +5345,9 @@ def bert_step_grads(net, loss_fn, batch_data, vocab, flash, pre, gate=None,
             return None
         return inputs[0] * gate.to(inputs[0].dtype)
     set_flash(net, flash)
-    handle = net.transform.act.register_forward_hook(hook)
+    # torch's own hook (its return value replaces the output); gluon's
+    # register_forward_hook has the reference's, which ignores it
+    handle = torch.nn.Module.register_forward_hook(net.transform.act, hook)
     with recording_attention() as rec, ag.record():
         loss = mlm_loss(net, loss_fn, batch_data, vocab)
     handle.remove()
@@ -5774,7 +5813,8 @@ def update_kwargs(name, k=0):
 def update_case(torch, name, shapes, wdtype, dev, seed, offset=0):
     """Op ``name``'s tensor inputs for each shape, made on ``dev`` from
     ``seed``: weight and gradient (in ``wdtype`` for an mp op, whose f32
-    master copy is the weight's value), f32 states in their valid range
+    master copy is the weight's value, and for a low16 op, whose states
+    are in ``wdtype`` too), f32 states in their valid range
     (second moments positive, rmspropalex's mean gradient small against
     its mean square). Each tensor is a view ``offset`` elements into its
     own buffer (1: off the 16-byte alignment)."""
@@ -5808,7 +5848,9 @@ def update_case(torch, name, shapes, wdtype, dev, seed, offset=0):
             xs += [make(shape, k) for k in states.get(name, ())]
             xs.append(w32)
         else:
-            xs = [make(shape, "normal"), make(shape, "normal")]
+            # a low16 rule on 16-bit weights: every input in their dtype
+            dt = wdtype if rule.low16 else torch.float32
+            xs = [make(shape, "normal", dt), make(shape, "normal", dt)]
             kinds = {"rmspropalex_update": ("positive", "small", "small"),
                      "ftrl_update": ("normal", "positive"),
                      "ftml_update": ("positive", "positive", "small")
@@ -5816,7 +5858,7 @@ def update_case(torch, name, shapes, wdtype, dev, seed, offset=0):
             if kinds is None:
                 kinds = ("small" if "mom" in name or name == "signum_update"
                          else "positive", "positive")
-            xs += [make(shape, k) for k in kinds[:rule.n_in - 2]]
+            xs += [make(shape, k, dt) for k in kinds[:rule.n_in - 2]]
         lists.append(xs)
     return lists
 
@@ -7632,6 +7674,412 @@ def run_trainer_ckpt_phase(torch, rng, kernels, cfg=BERT_BASE,
     return counts
 
 
+# ------------------------------------------------- 8d: the vision path --
+ZOO_BATCH = 8
+# the first constructor of each family, held card against CPU
+ZOO_FIRSTS = ("resnet18_v1", "resnet18_v2", "vgg11_bn", "alexnet",
+              "squeezenet1_1", "densenet121", "mobilenet1_0",
+              "mobilenet_v2_1_0", "inception_v3")
+# card vs CPU logits, max |diff| / max |CPU|, f32 with TF32 off: cuDNN and
+# oneDNN sum each convolution in their own order, over up to 121 layers
+ZOO_REL_TOL = 1e-3
+RESNET_CHECK_BATCH = 4
+RESNET_F32_BATCH = 32
+RESNET_BF16_BATCH = 128
+RESNET_STEPS = 10
+RESNET_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+# one f32 step at batch 4, card vs CPU: the loss (per sample); each
+# parameter's update, |card - CPU| / |CPU update| in the 2-norm (a ReLU
+# gate that flips at a tie, |x| ~ 1e-6, moves a whole gradient entry and,
+# through the training-mode BatchNorms, the updates before it); the
+# running statistics. The biases of the convolutions under a BatchNorm
+# have a zero gradient in exact arithmetic (the normalisation removes
+# them): their updates, rounding noise below RESNET_ZERO_GRAD of the
+# largest update, are held to that bound instead
+RESNET_LOSS_REL_TOL = 1e-4
+RESNET_UPDATE_REL_TOL = 0.1
+RESNET_STAT_REL_TOL = 1e-4
+RESNET_ZERO_GRAD = 1e-5
+# the NHWC s2d-stem net against the NCHW net on the same weights (f32)
+LAYOUT_REL_TOL = 1e-4
+
+
+def zoo_size(name):
+    return 299 if name.startswith("inception") else 224
+
+
+def run_zoo_phase(torch, rng):
+    """(a) every ``get_model`` constructor on the card at batch 8, its
+    input size (299 Inception V3, 224 the rest), eval mode: logits of
+    shape (8, 1000), finite; the first of each family also on the CPU
+    from the same weights (the card net's ``save_parameters`` file,
+    ``load_parameters`` onto the CPU), within ZOO_REL_TOL."""
+    import tempfile
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.initializer import Xavier
+    names = sorted(n for n in vision._models if not n.startswith("get_"))
+    t0 = time.monotonic()
+    worst = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, name in enumerate(names):
+            size = zoo_size(name)
+            x = rng.randn(ZOO_BATCH, 3, size, size).astype(np.float32)
+            net = vision.get_model(name, prefix=f"{name}_")
+            net.initialize(Xavier(), device=DEVICE,
+                           generator=torch.Generator().manual_seed(k))
+            with ag.pause():
+                out = net(torch.from_numpy(x).to(DEVICE))
+            torch.cuda.synchronize()
+            check(tuple(out.shape) == (ZOO_BATCH, 1000) and
+                  bool(torch.isfinite(out).all()), f"8d zoo: {name} gave "
+                  f"{tuple(out.shape)} logits, finite "
+                  f"{bool(torch.isfinite(out).all())}")
+            if name in ZOO_FIRSTS:
+                path = os.path.join(tmp, f"{name}.params")
+                net.save_parameters(path)
+                cpu = vision.get_model(name, prefix=f"{name}_")
+                cpu.load_parameters(path, ctx="cpu")
+                with ag.pause():
+                    want = cpu(torch.from_numpy(x)).numpy()
+                got = out.cpu().numpy()
+                worst[name] = float(np.abs(got - want).max()
+                                    / np.abs(want).max())
+                del cpu
+            del net, out
+            torch.cuda.empty_cache()
+    log(f"8d (a): {len(names)} constructors at batch {ZOO_BATCH} (224x224, "
+        f"Inception V3 299x299) on the card: logits ({ZOO_BATCH}, 1000), "
+        f"finite; in "
+        f"{time.monotonic() - t0:.1f}s")
+    log("8d (a): card vs CPU, eval, same weights (max |diff| / max |CPU|, "
+        f"tol {ZOO_REL_TOL}): " + ", ".join(
+            f"{n} {e:.2e}" for n, e in worst.items()))
+    for name, err in worst.items():
+        check(err <= ZOO_REL_TOL, f"8d zoo: {name} card vs CPU {err:.3e}")
+
+
+def resnet_loss(nd, net, x, y):
+    """``bench.py``'s loss: per-sample NLL of the f32 log-softmax."""
+    logp = nd.log_softmax(net(x).float(), axis=-1)
+    return -nd.pick(logp, y, axis=1)
+
+
+def resnet_step(nd, ag, net, trainer, x, y):
+    with ag.record():
+        loss = resnet_loss(nd, net, x, y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def kernel_class(name):
+    """The split of a profiled ResNet step: convolutions (cuDNN and its
+    GEMMs), reductions (batch-norm statistics and their gradients,
+    pooling), elementwise (normalisation, ReLU, residual adds, casts
+    and their gradients), the update kernel, other (copies, layout
+    permutes)."""
+    n = name.lower()
+    if "multi_update_kernel" in n:
+        return "update"
+    if "reduce" in n:
+        return "reductions"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "wgrad",
+                            "dgrad", "fprop", "cutlass", "sm90_", "sm80_",
+                            "implicit")):
+        return "convolutions"
+    return "other"
+
+
+def resnet_train(torch, nd, ag, kernels, net, trainer, data, label,
+                 groups):
+    """``RESNET_STEPS`` steps over ``data`` (all but its last two
+    batches), then two under the profiler. Checks finite losses, the
+    fused update (``groups`` launches a step, no fallback), no kernel
+    build after the first step. Returns the update kernel's launch
+    counts of the timed steps and a summary (step ms: median of steps
+    2-10, images/s, peak GB, launches a step, profiled device ms a step,
+    idle share, the device split)."""
+    batch = data[0][0].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, builds = [], [], None
+    for i, (x, y) in enumerate(data[:-2]):
+        t0 = time.monotonic()
+        loss = resnet_step(nd, ag, net, trainer, x, y)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(loss.mean().asnumpy()))
+        if i == 0:
+            builds = kernels.build_count()
+        fused = trainer._fused
+        check(fused.fallbacks == {} and fused.last_dispatches == groups,
+              f"{label}: step {i} did not take the fused update (fallbacks "
+              f"{dict(fused.fallbacks)}, {fused.last_dispatches} launches, "
+              f"expected {groups})")
+    launches = kernels.launch_counts()
+    steps = len(data) - 2
+    step_ms = float(np.median(times[1:])) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    check(kernels.build_count() == builds, f"{label}: a kernel was built "
+          "after the first step")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for x, y in data[-2:]:
+            resnet_step(nd, ag, net, trainer, x, y)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    share = report_profile(prof, wall, 2)
+    rows, busy_us = device_rows(prof)
+    split = {}
+    for e in rows:
+        c = kernel_class(e.key)
+        split[c] = split.get(c, 0.0) + e.self_device_time_total / 1e3 / 2
+    per_step = sum(e.count for e in rows) / 2
+    summary = dict(step_ms=step_ms, images_s=batch / step_ms * 1e3,
+                   peak_gb=peak_gb, kernels_per_step=per_step,
+                   device_ms=busy_us / 1e3 / 2,
+                   idle=None if share is None else 1 - share, split=split)
+    log(f"{label}: {steps} SGD-momentum steps (lr 1e-3, momentum 0.9), "
+        f"batch {batch}: losses " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"{label}: step {step_ms:.2f} ms (median of steps 2-{steps}; first "
+        f"{times[0] * 1e3:.1f} ms); {summary['images_s']:.1f} images/s; "
+        f"peak memory {peak_gb:.2f} GB; {per_step:.0f} kernels a step "
+        f"(profiled); update launches {launches}")
+    log(f"{label}: profiled device {summary['device_ms']:.2f} ms a step, "
+        f"idle {summary['idle']}; split (ms a step): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(split.items())))
+    return launches, summary
+
+
+def resnet_data(torch, rng, n, batch, layout="NCHW", dtype=None):
+    """``n`` batches of seeded images (on the card, from one seed drawn
+    from ``rng``) and int32 labels of 1000 classes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.randint(2**31)))
+    shape = (batch, 3, 224, 224) if layout == "NCHW" else (batch, 224, 224,
+                                                           3)
+    return [(torch.randn(shape, generator=gen, device=DEVICE,
+                         dtype=dtype or torch.float32),
+             torch.randint(0, 1000, (batch,), generator=gen, device=DEVICE,
+                           dtype=torch.int32)) for _ in range(n)]
+
+
+def norm_ratio(a, b):
+    """|a - b| / |b| in the 2-norm, in f64 (0 over 0 is 0)."""
+    d = float((a.double() - b.double()).norm())
+    n = float(b.double().norm())
+    return d / n if n else d
+
+
+def resnet_step_check(torch, nd, ag, gluon, net, rng, tmp):
+    """One step at batch 4 on the card and on a CPU copy of ``net`` (its
+    ``save_parameters`` file): the per-sample losses, every parameter's
+    update and the BatchNorm running statistics."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    path = os.path.join(tmp, "r50.params")
+    net.save_parameters(path)
+    cpu = vision.resnet50_v1(prefix="r50_")
+    cpu.load_parameters(path, ctx="cpu")
+    before = {k: p.data().detach().clone()
+              for k, p in cpu._collect_params_with_prefix().items()}
+    x = torch.from_numpy(rng.randn(RESNET_CHECK_BATCH, 3, 224, 224)
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, RESNET_CHECK_BATCH)
+                         .astype(np.int32))
+    losses = []
+    for n, dev in ((net, DEVICE), (cpu, "cpu")):
+        tr = gluon.Trainer(n.collect_params(), "sgd", dict(RESNET_SGD))
+        losses.append(resnet_step(nd, ag, n, tr, x.to(dev), y.to(dev))
+                      .asnumpy())
+    loss_rel = float(np.abs(losses[0] - losses[1]).max()
+                     / np.abs(losses[1]).max())
+    card = net._collect_params_with_prefix()
+    upd, stat, errs = (0.0, ""), (0.0, ""), []
+    diffs = {}
+    for key, p in cpu._collect_params_with_prefix().items():
+        got = card[key].data().detach().cpu()
+        want = p.data().detach()
+        if p.grad_req == "null":
+            stat = max(stat, (norm_ratio(got, want), key))
+        else:
+            diffs[key] = (got - before[key], want - before[key])
+    top = max(float(w.norm()) for _, w in diffs.values())
+    zero, zero_err = [], 0.0
+    for key, (g, w) in diffs.items():
+        if float(w.norm()) < RESNET_ZERO_GRAD * top:
+            zero.append(key)
+            zero_err = max(zero_err, float((g - w).norm()) / top)
+        else:
+            errs.append(norm_ratio(g, w))
+            upd = max(upd, (errs[-1], key))
+    log(f"8d (b): one step at batch {RESNET_CHECK_BATCH}, card vs CPU: "
+        f"losses {losses[0].round(5).tolist()} vs "
+        f"{losses[1].round(5).tolist()} (max relative {loss_rel:.2e}, tol "
+        f"{RESNET_LOSS_REL_TOL}); updates (2-norm relative): median "
+        f"{np.median(errs):.2e}, worst {upd[0]:.2e} ({upd[1]}; tol "
+        f"{RESNET_UPDATE_REL_TOL}); {len(zero)} zero-gradient biases within "
+        f"{zero_err:.2e} of the largest update (tol {RESNET_ZERO_GRAD}); "
+        f"worst running statistic {stat[0]:.2e} ({stat[1]}; tol "
+        f"{RESNET_STAT_REL_TOL})")
+    check(loss_rel <= RESNET_LOSS_REL_TOL, "8d: ResNet-50's loss card vs "
+          "CPU")
+    check(upd[0] <= RESNET_UPDATE_REL_TOL and zero_err <= RESNET_ZERO_GRAD,
+          f"8d: ResNet-50's update of {upd[1]} card vs CPU")
+    check(stat[0] <= RESNET_STAT_REL_TOL, f"8d: ResNet-50's running "
+          f"statistic {stat[1]} card vs CPU")
+
+
+def update_bf16_row(torch, timer, net, seed):
+    """The update kernel's bf16 ``sgd_mom_update`` (new in this slice)
+    over ``net``'s bf16 parameters (ResNet-50's weights after the cast),
+    bit for bit against its twin on the card, with its time, the twin's
+    (parameter by parameter) and the bound in bytes."""
+    from mxnet_tpu_torch.ops import optimizer_ops as ops
+    name = "sgd_mom_update"
+    shapes = [tuple(p.shape) for p in net.collect_params().values()
+              if p.data().dtype == torch.bfloat16]
+    numel = sum(int(np.prod(s)) for s in shapes)
+    lists = update_case(torch, name, shapes, torch.bfloat16, DEVICE, seed)
+    kws = [update_kwargs(name, i) for i in range(len(lists))]
+    bad, err, nans = kernel_vs_twin(torch, name, lists, kws)
+    table = ops.UpdateTable(name, lists)
+    rows = ops._upload(table.rows(kws, [xs[1] for xs in lists]), DEVICE)
+    rule = ops.RULES[name]
+
+    def plain():
+        for xs, kw in zip(lists, kws):
+            rule.twin(*xs, **kw)
+    nbytes = numel * ops.bytes_per_element(name, torch.bfloat16)
+    b_ms, b_by, b_f32 = bound(nbytes, numel * UPDATE_FLOPS[name])
+    res = dict(name=table.counter, route="cuda",
+               source="mxnet_tpu_torch/csrc/multi_tensor_update.cu",
+               replaces="none (the reference's update is one XLA "
+                        "program: mxnet_tpu/optimizer/fused.py:223)",
+               shape=f"ResNet-50 {len(shapes)} bf16 tensors "
+                     f"{numel / 1e6:.1f}M",
+               max_abs_err=err, tol=0.0, mismatched=bad,
+               ms=timer.ms(lambda: table.launch(rows)),
+               plain_ms=timer.ms(plain), bound_ms=b_ms, bound_by=b_by,
+               bound_f32_ms=b_f32, library_ms=None)
+    log(f"kernel {res['name']} {res['shape']}: {bad} elements differ from "
+        f"the twin (max_abs_err={err:.3e}, NaN on both {nans}) "
+        f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB) library none")
+    check(bad == 0 and nans == 0, f"{res['name']}: the kernel disagrees with "
+          f"its twin at ResNet-50's shapes ({bad} elements)")
+    return res
+
+
+def nhwc_from_nchw(torch, src, dst):
+    """``dst`` (an NHWC net) takes ``src``'s (NCHW) weights, 4-D ones
+    OIHW -> OHWI; both keyed by structural path."""
+    theirs = src._collect_params_with_prefix()
+    for key, p in dst._collect_params_with_prefix().items():
+        w = theirs[key].data().detach()
+        p.set_data(w.permute(0, 2, 3, 1) if w.ndim == 4 else w)
+
+
+def run_resnet_phase(torch, rng, kernels):
+    """8d (b) ResNet-50 v1 f32 NCHW (TF32 off) as ``bench.py`` sets it up
+    (Xavier after ``mx.random.seed(0)``; the per-sample NLL of the f32
+    log-softmax; SGD lr 1e-3, momentum 0.9; ``trainer.step(batch)``):
+    one step at batch 4 card vs CPU, then RESNET_STEPS steps at batch 32;
+    (c) ``bench.py``'s default: ``resnet50_v1(layout="NHWC",
+    stem_s2d=True)``, its f32 forward at batch 4 held against (b)'s net
+    on the same weights, then cast to bf16, RESNET_STEPS steps at batch
+    128 (the bf16 weights through the update kernel's bf16 instantiation
+    beside the f32 BatchNorm group). Returns the launch counts of the
+    timed steps, the two summaries and the bf16 update kernel's row."""
+    import tempfile
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.initializer import Xavier
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    nd.random.seed(0)
+    net = vision.resnet50_v1(prefix="r50_")
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    with ag.pause():
+        net(torch.ones(1, 3, 224, 224, device=DEVICE))
+    n_params = sum(p.data().numel() for p in net.collect_params().values())
+    log(f"8d (b): ResNet-50 v1, {len(net.collect_params())} parameters, "
+        f"{n_params / 1e6:.2f}M elements")
+    with tempfile.TemporaryDirectory() as tmp:
+        resnet_step_check(torch, nd, ag, gluon, net, rng, tmp)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_SGD))
+    data = resnet_data(torch, rng, RESNET_STEPS + 2, RESNET_F32_BATCH)
+    c, f32 = resnet_train(torch, nd, ag, kernels, net, trainer, data,
+                          "8d (b) f32 NCHW", groups=1)
+    check(c.get("sgd_mom_update", 0) == RESNET_STEPS, f"8d (b): "
+          f"sgd_mom_update launched {c.get('sgd_mom_update', 0)} times in "
+          f"{RESNET_STEPS} steps, expected one a step")
+    add(c)
+    del data, trainer
+    torch.cuda.empty_cache()
+    # (c) bench.py's default configuration
+    s2d = vision.resnet50_v1(layout="NHWC", stem_s2d=True, prefix="r50s_")
+    s2d.initialize(device=DEVICE)
+    with ag.pause():
+        s2d(torch.ones(1, 224, 224, 3, device=DEVICE))
+    nhwc_from_nchw(torch, net, s2d)
+    x = torch.from_numpy(rng.randn(RESNET_CHECK_BATCH, 3, 224, 224)
+                         .astype(np.float32)).to(DEVICE)
+    with ag.pause():
+        want = net(x)
+        got = s2d(x.permute(0, 2, 3, 1).contiguous())
+    lay = float((got - want).abs().max() / want.abs().max())
+    log(f"8d (c): NHWC + s2d stem vs NCHW, f32 forward at batch "
+        f"{RESNET_CHECK_BATCH} on the same weights: max |diff| / max |NCHW| "
+        f"{lay:.2e} (tol {LAYOUT_REL_TOL})")
+    check(lay <= LAYOUT_REL_TOL, "8d: the NHWC s2d-stem net disagrees with "
+          "the NCHW net")
+    del net, want, got
+    torch.cuda.empty_cache()
+    s2d.cast("bfloat16")
+    timer = Timer(torch)
+    row = update_bf16_row(torch, timer, s2d, seed=26)
+    del timer
+    torch.cuda.empty_cache()
+    trainer = gluon.Trainer(s2d.collect_params(), "sgd", dict(RESNET_SGD))
+    data = resnet_data(torch, rng, RESNET_STEPS + 2, RESNET_BF16_BATCH,
+                       layout="NHWC", dtype=torch.bfloat16)
+    c, bf16 = resnet_train(torch, nd, ag, kernels, s2d, trainer, data,
+                           "8d (c) bf16 NHWC s2d", groups=2)
+    for name in ("sgd_mom_update", "sgd_mom_update.bf16"):
+        check(c.get(name, 0) == RESNET_STEPS, f"8d (c): {name} launched "
+              f"{c.get(name, 0)} times in {RESNET_STEPS} steps, expected one "
+              "a step")
+    add(c)
+    del data, trainer, s2d
+    torch.cuda.empty_cache()
+    return counts, f32, bf16, row
+
+
+def run_vision_phase(torch, rng, kernels):
+    """8d: the vision path — (a) the zoo, (b) ResNet-50 f32 NCHW, (c)
+    ``bench.py``'s bf16 NHWC s2d configuration. Returns the launch
+    counts of (b) and (c) and the bf16 update kernel's row."""
+    run_zoo_phase(torch, rng)
+    counts, f32, bf16, row = run_resnet_phase(torch, rng, kernels)
+    for label, s in (("f32 NCHW", f32), ("bf16 NHWC s2d", bf16)):
+        log(f"8d resnet50 {label}: " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in s.items() if k != "split"}
+            | {"split": {k: round(v, 3) for k, v in s["split"].items()}}))
+    return counts, row
+
+
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
 
 
@@ -7910,6 +8358,14 @@ def main():
     # 8c. the Trainer's full-state checkpoints (its own generator, as 5b)
     add(run_trainer_ckpt_phase(torch, np.random.RandomState(22), kernels))
     lap("8c checkpoints")
+    # 8d. the vision path: the zoo, ResNet-50 training in f32 NCHW and in
+    # bench.py's bf16 NHWC s2d configuration (its own generator, as 5b)
+    counts, update_row = run_vision_phase(torch, np.random.RandomState(25),
+                                          kernels)
+    add(counts)
+    results.append(update_row)
+    torch.cuda.empty_cache()
+    lap("8d vision path")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -54,6 +54,46 @@ __version__ = "0.1.0"
 
 from . import amp, autograd, ndarray, rtc  # noqa: E402
 from . import ndarray as nd  # noqa: E402
+from .base import MXNetError  # noqa: E402
+from .ndarray import NDArray  # noqa: E402
 from .ndarray import random  # noqa: E402  (mx.random: nd.random)
 
-__all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc"]
+__all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc",
+           "MXNetError", "NDArray", "waitall"]
+
+# The reference's lazy subpackages (``mxnet_tpu/__init__.py``
+# ``_LAZY_MODULES``, ``_ALIAS``): loaded at first touch. Those not yet
+# ported raise AttributeError naming their ROADMAP.md item.
+_LAZY_MODULES = ("gluon", "optimizer", "initializer", "lr_scheduler",
+                 "amp", "contrib", "error", "rtc", "deploy", "resilience",
+                 "serving", "observability")
+_NOT_PORTED = {name: "§1 item 14" for name in (
+    "numpy", "numpy_extension", "symbol", "module", "metric", "io",
+    "kvstore", "image", "parallel", "profiler", "callback", "test_utils",
+    "util", "runtime", "recordio", "executor", "monitor", "model",
+    "operator", "onnx", "native", "library", "visualization", "engine",
+    "attribute", "name", "rnn")}
+_NOT_PORTED["jit"] = "§1 item 13b"
+_ALIAS = {"np": "numpy", "npx": "numpy_extension", "sym": "symbol",
+          "viz": "visualization", "mod": "module", "kv": "kvstore"}
+
+
+def __getattr__(name):
+    target = _ALIAS.get(name, name)
+    if target in _LAZY_MODULES:
+        import importlib
+        mod = importlib.import_module(f".{target}", __name__)
+        globals()[name] = mod
+        return mod
+    if target in _NOT_PORTED:
+        raise AttributeError(
+            f"module 'mxnet_tpu_torch' has no attribute {name!r}: "
+            f"mxnet_tpu.{target} is not ported yet (ROADMAP.md "
+            f"{_NOT_PORTED[target]})")
+    raise AttributeError(f"module 'mxnet_tpu_torch' has no attribute "
+                         f"{name!r}")
+
+
+def waitall():
+    """Wait for all queued work on the card (``nd.waitall``)."""
+    nd.waitall()

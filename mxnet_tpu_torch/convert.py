@@ -108,8 +108,12 @@ def load_gluon_params(block, arrays):
     and, in ``arrays``, the same prefix with any counter (global name
     counters differ between processes, so ``bertformlm3_...`` matches
     ``bertformlm0_...``). A parameter whose shape is still deferred takes the array's shape
-    and is materialised on the device its ``initialize`` named. Raises
-    on a missing, extra or mis-shaped name.
+    and is materialised on the device its ``initialize`` named. Every
+    parameter takes its array, ``grad_req="null"`` ones (BatchNorm's
+    running statistics) and ``Constant``s too; arrays keep their layout
+    (an NHWC net's OHWI weights as they are) and bf16 arrays arrive
+    through :func:`tensor_from_numpy`. Raises on a missing, extra or
+    mis-shaped name.
     """
     ours = block.collect_params()
     root = block.prefix
@@ -137,5 +141,5 @@ def load_gluon_params(block, arrays):
         if tuple(param.shape) != arr.shape:
             raise ValueError(f"'{rel}': array shape {arr.shape}, "
                              f"parameter shape {param.shape}")
-        param.set_data(torch.tensor(arr))
+        param.set_data(tensor_from_numpy(arr, "cpu"))
         param._finish_deferred_init()

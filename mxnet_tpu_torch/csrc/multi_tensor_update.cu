@@ -28,6 +28,12 @@
 // where all of the tensor's pointers are so aligned, element by element
 // where they are not.
 //
+// Weights: f32 for every rule; bf16 or f16 for the mp rules (f32 states
+// and arithmetic, as their twins upcast) and for the rules of
+// kernel_takes_16bit (states of the weight's type, each operation's result
+// rounded to it, as torch rounds each op of the twin on 16-bit tensors:
+// a Trainer stepping a net cast to bfloat16 without multi_precision).
+//
 // Bound by bytes: each element reads the weight, the gradient and the
 // states once and writes the weight and the states once (Adam in f32: 28
 // bytes), a few operations per byte, far under the card's rate.
@@ -38,13 +44,15 @@
 // -O3 flags (hashed for every source) stay as they are. Every scalar comes
 // from the host, computed in float64 and rounded to f32 once, as torch
 // rounds a Python scalar: (1 - beta1) is a table entry, not 1.0f - beta1.
-// sign() is torch's ((0 < x) - (x < 0): +0 for either zero and NaN),
-// clamp() passes NaN through as torch's does, and 16-bit weights round to
-// nearest even as torch's .to() does.
+// sgn() is jnp.sign's (x itself where x is NaN or either zero, else +-1:
+// the twin's ops/elemwise.py sign), clamp() passes NaN through as torch's
+// does, and 16-bit values round to nearest even as torch's .to() does.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +93,16 @@ __host__ __device__ constexpr int n_states(int r) {
 __host__ __device__ constexpr bool is_mp(int r) {
   return r == kMpSgd || r == kMpSgdMom || r == kMpNagMom || r == kMpAdamW;
 }
+// the non-mp rules that take 16-bit weights (ops/optimizer_ops.py RULES'
+// low16): their twins use only Python scalars, so rounding each operation
+// to the weight's type gives the twin's bits; _adamw_update (its rescale
+// array promotes to f32), ftrl_update and ftml_update (they divide by a 0-d
+// tensor of the weight's type) take f32 only
+__host__ __device__ constexpr bool takes_16bit(int r) {
+  return r == kSgd || r == kSgdMom || r == kNagMom || r == kAdam ||
+         r == kRmsProp || r == kRmsPropAlex || r == kSignSgd ||
+         r == kSignum || r == kAdaGrad;
+}
 // the SGD rules, whose lr (s[0]) and wd may come from addresses in the row
 __host__ __device__ constexpr bool reads_lr_wd(int r) {
   return r == kSgd || r == kSgdMom || r == kMpSgd || r == kMpSgdMom;
@@ -93,126 +111,161 @@ __host__ __device__ constexpr int wd_slot(int r) {
   return r == kSgd || r == kMpSgd ? 1 : 2;
 }
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float sqr(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ float sgn(float x) {
-  return static_cast<float>((0.f < x) - (x < 0.f));
+// x rounded to CT (nearest even) and widened back: a torch op's result on
+// CT tensors, computed in f32
+template <typename CT> __device__ __forceinline__ float rnd(float x);
+template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
+template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
-// torch.clamp(x, -c, c), NaN passed through
-__device__ __forceinline__ float clamp(float x, float c) {
-  return isnan(x) ? x : fminf(fmaxf(x, -c), c);
-}
-// grad * rescale_grad, clipped where clip_gradient >= 0
-__device__ __forceinline__ float prep(float g, float rescale, float clip) {
-  g = mul(g, rescale);
-  return clip >= 0.f ? clamp(g, clip) : g;
+template <> __device__ __forceinline__ float rnd<__half>(float x) {
+  return __half2float(__float2half_rn(x));
 }
 
-// one element of rule R: w and the states st in and out, g in; s the row
-// (its layout is the rule's _row_* function in ops/optimizer_ops.py)
-template <int R>
+// the twin's operations on CT values: each in f32, rounded to CT
+template <typename CT> struct Ops {
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return rnd<CT>(__fmul_rn(a, b));
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return rnd<CT>(__fadd_rn(a, b));
+  }
+  static __device__ __forceinline__ float sub(float a, float b) {
+    return rnd<CT>(__fsub_rn(a, b));
+  }
+  static __device__ __forceinline__ float dvd(float a, float b) {
+    return rnd<CT>(__fdiv_rn(a, b));
+  }
+  static __device__ __forceinline__ float sqr(float a) {
+    return rnd<CT>(__fsqrt_rn(a));
+  }
+  // torch.clamp(x, -c, c), NaN passed through
+  static __device__ __forceinline__ float clamp(float x, float c) {
+    return isnan(x) ? x : rnd<CT>(fminf(fmaxf(x, -c), c));
+  }
+  // grad * rescale_grad, clipped where clip_gradient >= 0
+  static __device__ __forceinline__ float prep(float g, float rescale,
+                                               float clip) {
+    g = mul(g, rescale);
+    return clip >= 0.f ? clamp(g, clip) : g;
+  }
+};
+// jnp.sign: x itself where x is NaN or +-0, else +-1 (exact in any type)
+__device__ __forceinline__ float sgn(float x) {
+  return (isnan(x) || x == 0.f) ? x : (x > 0.f ? 1.f : -1.f);
+}
+
+// one element of rule R in the arithmetic of CT: w and the states st in
+// and out, g in; s the row (its layout is the rule's _row_* function in
+// ops/optimizer_ops.py)
+template <int R, typename CT>
 __device__ __forceinline__ void apply(const float* s, float& w, float gr,
                                       float* st) {
+  using O = Ops<CT>;
   if constexpr (R == kSgd || R == kSignSgd) {  // lr wd rescale clip
-    const float g = prep(gr, s[2], s[3]);
+    const float g = O::prep(gr, s[2], s[3]);
     const float d = R == kSgd ? g : sgn(g);
-    w = sub(w, mul(s[0], add(d, mul(s[1], w))));
+    w = O::sub(w, O::mul(s[0], O::add(d, O::mul(s[1], w))));
   } else if constexpr (R == kSgdMom) {  // lr momentum wd rescale clip
-    const float g = prep(gr, s[3], s[4]);
-    st[0] = sub(mul(s[1], st[0]), mul(s[0], add(g, mul(s[2], w))));
-    w = add(w, st[0]);
+    const float g = O::prep(gr, s[3], s[4]);
+    st[0] = O::sub(O::mul(s[1], st[0]),
+                   O::mul(s[0], O::add(g, O::mul(s[2], w))));
+    w = O::add(w, st[0]);
   } else if constexpr (R == kNagMom) {  // lr momentum wd rescale clip
-    const float g = add(prep(gr, s[3], s[4]), mul(s[2], w));
-    st[0] = add(mul(s[1], st[0]), g);
-    w = sub(w, mul(s[0], add(g, mul(s[1], st[0]))));
+    const float g = O::add(O::prep(gr, s[3], s[4]), O::mul(s[2], w));
+    st[0] = O::add(O::mul(s[1], st[0]), g);
+    w = O::sub(w, O::mul(s[0], O::add(g, O::mul(s[1], st[0]))));
   } else if constexpr (R == kMpSgd) {  // lr wd rescale clip; st: w32
-    const float g = prep(gr, s[2], s[3]);
-    st[0] = sub(st[0], mul(s[0], add(g, mul(s[1], st[0]))));
+    const float g = O::prep(gr, s[2], s[3]);
+    st[0] = O::sub(st[0], O::mul(s[0], O::add(g, O::mul(s[1], st[0]))));
     w = st[0];
   } else if constexpr (R == kMpSgdMom) {  // lr momentum wd rescale clip;
-    const float g = prep(gr, s[3], s[4]);  // st: mom, w32
-    st[0] = sub(mul(s[1], st[0]), mul(s[0], add(g, mul(s[2], st[1]))));
-    st[1] = add(st[1], st[0]);
+    const float g = O::prep(gr, s[3], s[4]);  // st: mom, w32
+    st[0] = O::sub(O::mul(s[1], st[0]),
+                   O::mul(s[0], O::add(g, O::mul(s[2], st[1]))));
+    st[1] = O::add(st[1], st[0]);
     w = st[1];
   } else if constexpr (R == kAdam) {
     // lr b1 1-b1 b2 1-b2 eps wd rescale clip; st: mean, var
-    const float g = add(prep(gr, s[7], s[8]), mul(s[6], w));
-    st[0] = add(mul(s[1], st[0]), mul(s[2], g));
-    st[1] = add(mul(s[3], st[1]), mul(s[4], mul(g, g)));
-    w = sub(w, dvd(mul(s[0], st[0]), add(sqr(st[1]), s[5])));
+    const float g = O::add(O::prep(gr, s[7], s[8]), O::mul(s[6], w));
+    st[0] = O::add(O::mul(s[1], st[0]), O::mul(s[2], g));
+    st[1] = O::add(O::mul(s[3], st[1]), O::mul(s[4], O::mul(g, g)));
+    w = O::sub(w,
+               O::dvd(O::mul(s[0], st[0]), O::add(O::sqr(st[1]), s[5])));
   } else if constexpr (R == kAdamW) {
     // lr b1 1-b1 b2 1-b2 eps wd eta rescale clip; st: mean, var
-    const float g = prep(gr, s[8], s[9]);
-    st[0] = add(mul(s[1], st[0]), mul(s[2], g));
-    st[1] = add(mul(s[3], st[1]), mul(s[4], mul(g, g)));
-    w = sub(w, mul(s[7], add(dvd(mul(s[0], st[0]), add(sqr(st[1]), s[5])),
-                             mul(s[6], w))));
+    const float g = O::prep(gr, s[8], s[9]);
+    st[0] = O::add(O::mul(s[1], st[0]), O::mul(s[2], g));
+    st[1] = O::add(O::mul(s[3], st[1]), O::mul(s[4], O::mul(g, g)));
+    w = O::sub(w, O::mul(s[7], O::add(O::dvd(O::mul(s[0], st[0]),
+                                             O::add(O::sqr(st[1]), s[5])),
+                                      O::mul(s[6], w))));
   } else if constexpr (R == kRmsProp) {
     // lr rho 1-rho eps wd rescale clip clip_weights; st: n
-    const float g = add(prep(gr, s[5], s[6]), mul(s[4], w));
-    st[0] = add(mul(s[1], st[0]), mul(s[2], mul(g, g)));
-    w = sub(w, dvd(mul(s[0], g), sqr(add(st[0], s[3]))));
-    if (s[7] > 0.f) w = clamp(w, s[7]);
+    const float g = O::add(O::prep(gr, s[5], s[6]), O::mul(s[4], w));
+    st[0] = O::add(O::mul(s[1], st[0]), O::mul(s[2], O::mul(g, g)));
+    w = O::sub(w, O::dvd(O::mul(s[0], g), O::sqr(O::add(st[0], s[3]))));
+    if (s[7] > 0.f) w = O::clamp(w, s[7]);
   } else if constexpr (R == kRmsPropAlex) {
     // lr rho 1-rho momentum eps wd rescale clip clip_weights;
     // st: n, g_avg, delta
-    const float g = add(prep(gr, s[6], s[7]), mul(s[5], w));
-    st[0] = add(mul(s[1], st[0]), mul(s[2], mul(g, g)));
-    st[1] = add(mul(s[1], st[1]), mul(s[2], g));
-    st[2] = sub(mul(s[3], st[2]),
-                dvd(mul(s[0], g),
-                    sqr(add(sub(st[0], mul(st[1], st[1])), s[4]))));
-    w = add(w, st[2]);
-    if (s[8] > 0.f) w = clamp(w, s[8]);
+    const float g = O::add(O::prep(gr, s[6], s[7]), O::mul(s[5], w));
+    st[0] = O::add(O::mul(s[1], st[0]), O::mul(s[2], O::mul(g, g)));
+    st[1] = O::add(O::mul(s[1], st[1]), O::mul(s[2], g));
+    st[2] = O::sub(O::mul(s[3], st[2]),
+                   O::dvd(O::mul(s[0], g),
+                          O::sqr(O::add(O::sub(st[0], O::mul(st[1], st[1])),
+                                        s[4]))));
+    w = O::add(w, st[2]);
+    if (s[8] > 0.f) w = O::clamp(w, s[8]);
   } else if constexpr (R == kFtrl) {
     // lr lamda1 beta wd rescale clip; st: z, n
-    const float g = prep(gr, s[4], s[5]);
-    const float n = add(st[1], mul(g, g));
-    const float root = sqr(n);
-    const float sigma = dvd(sub(root, sqr(st[1])), s[0]);
-    st[0] = sub(add(st[0], g), mul(sigma, w));
+    const float g = O::prep(gr, s[4], s[5]);
+    const float n = O::add(st[1], O::mul(g, g));
+    const float root = O::sqr(n);
+    const float sigma = O::dvd(O::sub(root, O::sqr(st[1])), s[0]);
+    st[0] = O::sub(O::add(st[0], g), O::mul(sigma, w));
     st[1] = n;
     const float z = st[0];
     w = fabsf(z) <= s[1]
             ? 0.f
-            : dvd(-sub(z, mul(sgn(z), s[1])),
-                  add(dvd(add(root, s[2]), s[0]), s[3]));
+            : O::dvd(-O::sub(z, O::mul(sgn(z), s[1])),
+                     O::add(O::dvd(O::add(root, s[2]), s[0]), s[3]));
   } else if constexpr (R == kSignum) {
     // lr momentum 1-momentum wd (1-lr*wd_lh) rescale clip; st: mom
-    const float g = prep(gr, s[5], s[6]);
-    st[0] = sub(mul(s[1], st[0]), mul(s[2], add(g, mul(s[3], w))));
-    w = add(mul(s[4], w), mul(s[0], sgn(st[0])));
+    const float g = O::prep(gr, s[5], s[6]);
+    st[0] = O::sub(O::mul(s[1], st[0]),
+                   O::mul(s[2], O::add(g, O::mul(s[3], w))));
+    w = O::add(O::mul(s[4], w), O::mul(s[0], sgn(st[0])));
   } else if constexpr (R == kAdaGrad) {  // lr eps wd rescale clip; st: h
-    const float g = add(prep(gr, s[3], s[4]), mul(s[2], w));
-    st[0] = add(st[0], mul(g, g));
-    w = sub(w, dvd(mul(s[0], g), add(sqr(st[0]), s[1])));
+    const float g = O::add(O::prep(gr, s[3], s[4]), O::mul(s[2], w));
+    st[0] = O::add(st[0], O::mul(g, g));
+    w = O::sub(w, O::dvd(O::mul(s[0], g), O::add(O::sqr(st[0]), s[1])));
   } else if constexpr (R == kMpNagMom) {
     // lr momentum wd rescale clip; st: mom, w32
-    const float g = add(prep(gr, s[3], s[4]), mul(s[2], st[1]));
-    st[0] = sub(mul(s[1], st[0]), mul(s[0], g));
-    st[1] = sub(add(st[1], mul(s[1], st[0])), mul(s[0], g));
+    const float g = O::add(O::prep(gr, s[3], s[4]), O::mul(s[2], st[1]));
+    st[0] = O::sub(O::mul(s[1], st[0]), O::mul(s[0], g));
+    st[1] = O::sub(O::add(st[1], O::mul(s[1], st[0])), O::mul(s[0], g));
     w = st[1];
   } else if constexpr (R == kMpAdamW) {
     // lr b1 1-b1 b2 1-b2 eps wd eta rescale clip; st: mean, var, w32
-    const float g = prep(gr, s[8], s[9]);
-    st[0] = add(mul(s[1], st[0]), mul(s[2], g));
-    st[1] = add(mul(s[3], st[1]), mul(s[4], mul(g, g)));
-    st[2] = sub(st[2], mul(s[7], add(dvd(mul(s[0], st[0]),
-                                         add(sqr(st[1]), s[5])),
-                                     mul(s[6], st[2]))));
+    const float g = O::prep(gr, s[8], s[9]);
+    st[0] = O::add(O::mul(s[1], st[0]), O::mul(s[2], g));
+    st[1] = O::add(O::mul(s[3], st[1]), O::mul(s[4], O::mul(g, g)));
+    st[2] = O::sub(st[2], O::mul(s[7], O::add(O::dvd(O::mul(s[0], st[0]),
+                                                     O::add(O::sqr(st[1]),
+                                                            s[5])),
+                                              O::mul(s[6], st[2]))));
     w = st[2];
   } else if constexpr (R == kFtml) {
     // b1 1-b1 b2 1-b2 eps wd rescale clip (1-b1^t)/lr 1-b2^t; st: d, v, z
-    const float g = add(prep(gr, s[6], s[7]), mul(s[5], w));
-    st[1] = add(mul(s[2], st[1]), mul(s[3], mul(g, g)));
-    const float dt = mul(s[8], add(sqr(dvd(st[1], s[9])), s[4]));
-    st[2] = sub(add(mul(s[0], st[2]), mul(s[1], g)),
-                mul(sub(dt, mul(s[0], st[0])), w));
+    const float g = O::add(O::prep(gr, s[6], s[7]), O::mul(s[5], w));
+    st[1] = O::add(O::mul(s[2], st[1]), O::mul(s[3], O::mul(g, g)));
+    const float dt = O::mul(s[8], O::add(O::sqr(O::dvd(st[1], s[9])), s[4]));
+    st[2] = O::sub(O::add(O::mul(s[0], st[2]), O::mul(s[1], g)),
+                   O::mul(O::sub(dt, O::mul(s[0], st[0])), w));
     st[0] = dt;
-    w = dvd(-st[2], dt);
+    w = O::dvd(-st[2], dt);
   }
 }
 
@@ -266,14 +319,15 @@ __device__ __forceinline__ bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// WT: the weight's and the gradient's type (16-bit only for the mp rules);
-// the states are f32
+// WT: the weight's and the gradient's type; the states are f32 for an mp
+// rule (its arithmetic too), else of type WT, as its arithmetic
 template <int R, typename WT>
 __global__ void __launch_bounds__(kThreads)
 multi_update_kernel(const Entry* __restrict__ tab, int ntensors,
                     long long nchunks, const float* __restrict__ scalars) {
   constexpr int S = n_states(R);
   constexpr bool kMp = is_mp(R);
+  using ST = typename std::conditional<kMp, float, WT>::type;
   for (long long c = blockIdx.x; c < nchunks; c += gridDim.x) {
     int lo = 0, hi = ntensors - 1;  // the last tensor whose chunk0 <= c
     while (lo < hi) {
@@ -300,14 +354,14 @@ multi_update_kernel(const Entry* __restrict__ tab, int ntensors,
     }
     void* const pw = e.p[0];
     const void* const pg = reinterpret_cast<const void*>(words[kRow / 2 - 1]);
-    float* st_p[S > 0 ? S : 1];
+    ST* st_p[S > 0 ? S : 1];
 #pragma unroll
-    for (int j = 0; j < S; ++j) st_p[j] = static_cast<float*>(e.p[2 + j]);
+    for (int j = 0; j < S; ++j) st_p[j] = static_cast<ST*>(e.p[2 + j]);
     const long long begin = (c - e.chunk0) * kChunk;
     const long long end = min(begin + kChunk, e.n);
     bool vec = aligned(pw, 4 * sizeof(WT)) && aligned(pg, 4 * sizeof(WT));
 #pragma unroll
-    for (int j = 0; j < S; ++j) vec = vec && aligned(st_p[j], 16);
+    for (int j = 0; j < S; ++j) vec = vec && aligned(st_p[j], 4 * sizeof(ST));
     long long tail = begin;
     if (vec) {  // begin is a multiple of 4: the chunk keeps the alignment
       tail = begin + ((end - begin) & ~3LL);
@@ -317,20 +371,20 @@ multi_update_kernel(const Entry* __restrict__ tab, int ntensors,
         if (!kMp) load4<WT>(pw, i, w);
         load4<WT>(pg, i, g);
 #pragma unroll
-        for (int j = 0; j < S; ++j) load4<float>(st_p[j], i, st[j]);
+        for (int j = 0; j < S; ++j) load4<ST>(st_p[j], i, st[j]);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float sk[S > 0 ? S : 1];
 #pragma unroll
           for (int j = 0; j < S; ++j) sk[j] = st[j][k];
           if (kMp) w[k] = 0.f;
-          apply<R>(s, w[k], g[k], sk);
+          apply<R, ST>(s, w[k], g[k], sk);
 #pragma unroll
           for (int j = 0; j < S; ++j) st[j][k] = sk[j];
         }
         store4<WT>(pw, i, w);
 #pragma unroll
-        for (int j = 0; j < S; ++j) store4<float>(st_p[j], i, st[j]);
+        for (int j = 0; j < S; ++j) store4<ST>(st_p[j], i, st[j]);
       }
     }
     for (long long i = tail + threadIdx.x; i < end; i += kThreads) {
@@ -338,11 +392,11 @@ multi_update_kernel(const Entry* __restrict__ tab, int ntensors,
       const float g = to_f(static_cast<const WT*>(pg)[i]);
       float st[S > 0 ? S : 1];
 #pragma unroll
-      for (int j = 0; j < S; ++j) st[j] = st_p[j][i];
-      apply<R>(s, w, g, st);
+      for (int j = 0; j < S; ++j) st[j] = to_f(st_p[j][i]);
+      apply<R, ST>(s, w, g, st);
       static_cast<WT*>(pw)[i] = from_f<WT>(w);
 #pragma unroll
-      for (int j = 0; j < S; ++j) st_p[j][i] = st[j];
+      for (int j = 0; j < S; ++j) st_p[j][i] = from_f<ST>(st[j]);
     }
   }
 }
@@ -368,10 +422,17 @@ cudaError_t launch_f32(int wdtype, const void* table, int ntensors,
   return launch<R, float>(table, ntensors, nchunks, scalars, stream);
 }
 
+// a rule of takes_16bit or an mp rule: f32 (not for the mp rules), bf16
+// or f16 weights
 template <int R>
-cudaError_t launch_mp(int wdtype, const void* table, int ntensors,
-                      long long nchunks, const float* scalars,
-                      cudaStream_t stream) {
+cudaError_t launch_any(int wdtype, const void* table, int ntensors,
+                       long long nchunks, const float* scalars,
+                       cudaStream_t stream) {
+  static_assert(takes_16bit(R) || is_mp(R), "an f32-only rule");
+  if constexpr (!is_mp(R)) {
+    if (wdtype == 0)
+      return launch<R, float>(table, ntensors, nchunks, scalars, stream);
+  }
   if (wdtype == 1)
     return launch<R, __nv_bfloat16>(table, ntensors, nchunks, scalars,
                                     stream);
@@ -383,9 +444,9 @@ cudaError_t launch_mp(int wdtype, const void* table, int ntensors,
 }  // namespace
 
 // rule: ops/optimizer_ops.py RULES' number; wdtype: the weight's dtype (0
-// f32, 1 bf16, 2 f16; 16-bit only for the mp rules); table: ntensors
-// entries; scalars: the step's rows the entries name, 64 bytes each (kRow
-// - 2 floats, then the gradient's address)
+// f32, 1 bf16, 2 f16; 16-bit for the mp rules and those of takes_16bit);
+// table: ntensors entries; scalars: the step's rows the entries name, 64
+// bytes each (kRow - 2 floats, then the gradient's address)
 extern "C" int mxt_multi_tensor_update(int rule, int wdtype,
                                        const void* table, int ntensors,
                                        long long nchunks,
@@ -397,25 +458,15 @@ extern "C" int mxt_multi_tensor_update(int rule, int wdtype,
 #define MXT_F32(R) \
   case R: e = launch_f32<R>(wdtype, table, ntensors, nchunks, scalars, st); \
     break;
-    MXT_F32(kSgd) MXT_F32(kSgdMom) MXT_F32(kNagMom) MXT_F32(kAdam)
-    MXT_F32(kAdamW) MXT_F32(kRmsProp) MXT_F32(kRmsPropAlex) MXT_F32(kFtrl)
-    MXT_F32(kSignSgd) MXT_F32(kSignum) MXT_F32(kAdaGrad) MXT_F32(kFtml)
+#define MXT_ANY(R) \
+  case R: e = launch_any<R>(wdtype, table, ntensors, nchunks, scalars, st); \
+    break;
+    MXT_ANY(kSgd) MXT_ANY(kSgdMom) MXT_ANY(kNagMom) MXT_ANY(kAdam)
+    MXT_F32(kAdamW) MXT_ANY(kRmsProp) MXT_ANY(kRmsPropAlex) MXT_F32(kFtrl)
+    MXT_ANY(kSignSgd) MXT_ANY(kSignum) MXT_ANY(kAdaGrad) MXT_F32(kFtml)
+    MXT_ANY(kMpSgd) MXT_ANY(kMpSgdMom) MXT_ANY(kMpNagMom) MXT_ANY(kMpAdamW)
 #undef MXT_F32
-    case kMpSgd:
-      e = launch_mp<kMpSgd>(wdtype, table, ntensors, nchunks, scalars, st);
-      break;
-    case kMpSgdMom:
-      e = launch_mp<kMpSgdMom>(wdtype, table, ntensors, nchunks, scalars,
-                               st);
-      break;
-    case kMpNagMom:
-      e = launch_mp<kMpNagMom>(wdtype, table, ntensors, nchunks, scalars,
-                               st);
-      break;
-    case kMpAdamW:
-      e = launch_mp<kMpAdamW>(wdtype, table, ntensors, nchunks, scalars,
-                              st);
-      break;
+#undef MXT_ANY
     default:
       e = cudaErrorInvalidValue;
   }

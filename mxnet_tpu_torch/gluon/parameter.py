@@ -19,6 +19,11 @@ Gradients keep MXNet's ``grad_req``:
 ``grad()`` starts as zeros, as MXNet's gradient buffer does, so a
 parameter no backward reaches keeps a zero (or its last) gradient.
 
+One device a parameter: ``list_data``, ``list_grad`` and ``list_ctx``
+return lists of one, and ``reset_ctx`` moves the data. ``var()`` waits
+for ``symbol/`` and ``row_sparse_data`` for ``ndarray/sparse.py``
+(ROADMAP.md §1 items 14 and 12): both raise ``NotImplementedError``.
+
 :func:`param_values` substitutes other tensors for parameters' data on
 the calling thread (the reference's ``functional_call`` substitution):
 ``ModelServer`` serves a block from its own snapshot that way.
@@ -32,15 +37,15 @@ from collections import OrderedDict
 
 import torch
 
+import numpy as np
+
 from .. import initializer
 from .._device import resolve_device
+from ..base import dtype_name, torch_dtype
 from ..ndarray.ndarray import unwrap
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict",
-           "param_values"]
-
-_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-           "bfloat16": torch.bfloat16, "float64": torch.float64}
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict", "param_values"]
 
 # {Parameter: tensor} that data() returns on this thread instead of the
 # parameter's own tensor (None outside a param_values scope)
@@ -65,20 +70,27 @@ class DeferredInitializationError(RuntimeError):
 
 
 class Parameter:
-    """A Block parameter: named, lazily shaped, on one device."""
+    """A Block parameter: named, lazily shaped, on one device.
+    ``differentiable=False`` holds ``grad_req`` at ``"null"``; ``stype``
+    and ``grad_stype`` are kept for the reference's signature (storage
+    is dense)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
         if shape is not None and not isinstance(shape, (tuple, list)):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
-        self.dtype = dtype
+        self.dtype = dtype_name(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
         self._allow_deferred_init = allow_deferred_init
+        self._differentiable = differentiable
+        self.stype = stype
+        self.grad_stype = grad_stype
         self._data = None            # torch.nn.Parameter once initialized
         self._grad_req = None
         self.grad_req = grad_req
@@ -86,6 +98,10 @@ class Parameter:
         self._deferred_init = ()
         # blocks holding this parameter: (weakref to block, attribute)
         self._owners = []
+
+    def __repr__(self):
+        return (f"Parameter {self.name} (shape={self.shape}, "
+                f"dtype={self.dtype})")
 
     # ------------------------------------------------------------- props --
     @property
@@ -96,6 +112,8 @@ class Parameter:
     def grad_req(self, req):
         if req not in ("write", "add", "null"):
             raise ValueError(f"grad_req must be write/add/null, got {req}")
+        if not self._differentiable:
+            req = "null"
         prev, self._grad_req = self._grad_req, req
         if self._data is not None:
             self._data.requires_grad_(req != "null")
@@ -154,10 +172,10 @@ class Parameter:
             raise DeferredInitializationError(
                 f"Parameter {self.name} has unresolved shape {self._shape}")
         if data is None:
-            data = torch.zeros(self._shape, dtype=_DTYPES[self.dtype])
+            data = torch.zeros(self._shape, dtype=torch_dtype(self.dtype))
             initializer.create(init)(self.name, data, generator)
         p = torch.nn.Parameter(
-            data.to(device=device, dtype=_DTYPES[self.dtype]).clone(),
+            data.to(device=device, dtype=torch_dtype(self.dtype)).clone(),
             requires_grad=self._grad_req != "null")
         if self._grad_req != "null":
             p.grad = torch.zeros_like(p)
@@ -207,6 +225,10 @@ class Parameter:
             f"Parameter '{self.name}' has not been initialized. Initialize "
             "it (or the block's collect_params()) first.")
 
+    def list_data(self):
+        """The data, as a list of one (one device)."""
+        return [self.data()]
+
     def grad(self):
         """The gradient tensor (zeros until a backward writes it)."""
         d = self.data()
@@ -218,23 +240,91 @@ class Parameter:
             d.grad = torch.zeros_like(d)
         return d.grad
 
+    def list_grad(self):
+        """The gradient, as a list of one (one device)."""
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient to zero in place (nothing without data or a
+        gradient)."""
+        if self._data is not None and self._data.grad is not None:
+            with torch.no_grad():
+                self._data.grad.zero_()
+
+    def list_ctx(self):
+        """The device the data is on (or will be, while deferred), as a
+        list of one."""
+        if self._data is not None:
+            return [self._data.device]
+        if self._deferred_init:
+            return [self._deferred_init[1]]
+        raise RuntimeError(f"Parameter '{self.name}' has not been "
+                           "initialized")
+
+    def reset_ctx(self, ctx):
+        """Move the data (and a fresh zero gradient) to device ``ctx``; a
+        deferred parameter is made there."""
+        device = resolve_device(ctx)
+        if self._data is not None:
+            p = torch.nn.Parameter(self._data.detach().to(device),
+                                   requires_grad=self._grad_req != "null")
+            if self._grad_req != "null":
+                p.grad = torch.zeros_like(p)
+            self._adopt(p)
+        elif self._deferred_init:
+            init, _, data, generator = self._deferred_init
+            self._deferred_init = (init, device, data, generator)
+        else:
+            raise ValueError(f"Cannot reset context for Parameter "
+                             f"'{self.name}' because it has not been "
+                             "initialized.")
+
+    def var(self):
+        """The reference's Symbol variable: ``symbol/`` is not ported."""
+        raise NotImplementedError(
+            "Parameter.var needs mxnet_tpu.symbol, not ported yet "
+            "(ROADMAP.md §1 item 14)")
+
+    def row_sparse_data(self, row_id):
+        """The reference's row-sparse view: not ported."""
+        raise NotImplementedError(
+            "Parameter.row_sparse_data needs ndarray/sparse.py, not ported "
+            "yet (ROADMAP.md §1 item 12)")
+
+    def list_row_sparse_data(self, row_id):
+        return [self.row_sparse_data(row_id)]
+
     def cast(self, dtype):
-        """Cast the data (and a fresh zero gradient) to ``dtype`` (a name
-        of ``float32``, ``float16``, ``bfloat16``, ``float64`` or a torch
-        dtype); a parameter without data yet is made in ``dtype``."""
-        if isinstance(dtype, torch.dtype):
-            dtype = next(n for n, t in _DTYPES.items() if t == dtype)
-        if dtype not in _DTYPES:
-            raise ValueError(f"cannot cast Parameter '{self.name}' to "
-                             f"{dtype!r}")
-        self.dtype = dtype
+        """Cast the data (and a fresh zero gradient) to ``dtype`` (a dtype
+        name, a numpy or a torch dtype); a parameter without data yet is
+        made in ``dtype``."""
+        self.dtype = dtype_name(dtype)
         if self._data is None:
             return
-        p = torch.nn.Parameter(self._data.detach().to(_DTYPES[dtype]),
-                               requires_grad=self._grad_req != "null")
+        p = torch.nn.Parameter(
+            self._data.detach().to(torch_dtype(self.dtype)),
+            requires_grad=self._grad_req != "null")
         if self._grad_req != "null":
             p.grad = torch.zeros_like(p)
         self._adopt(p)
+
+    def _load(self, value, ctx=None):
+        """Take ``value`` (a loaded tensor) as the data, in this
+        parameter's dtype: copied into the data, or, without data yet,
+        materialised on ``ctx`` (else the device its ``initialize``
+        named, else the card)."""
+        if self._data is not None:
+            self.set_data(value)
+            return
+        self.shape = value.shape
+        if self._deferred_init:
+            init, device, _, generator = self._deferred_init
+        else:
+            init, device, generator = None, None, None
+        if ctx is not None or device is None:
+            device = resolve_device("cuda" if ctx is None else ctx)
+        self._deferred_init = (init, device, value, generator)
+        self._finish_deferred_init()
 
     def set_data(self, data):
         """Copy ``data`` into the parameter (kept for the deferred init
@@ -252,12 +342,34 @@ class Parameter:
         self._deferred_init = (init, device, data, generator)
 
 
-class ParameterDict:
-    """Ordered dict of Parameters under a shared name prefix."""
+class Constant(Parameter):
+    """A non-trainable parameter holding ``value`` (``grad_req="null"``),
+    initialized to it whatever the initializer given."""
 
-    def __init__(self, prefix=""):
+    def __init__(self, name, value):
+        value = np.asarray(value.detach().cpu() if isinstance(
+            value, torch.Tensor) else unwrap(value))
+        self.value = value
+
+        class ConstInit(initializer.Initializer):
+            def _init_weight(self, _, arr, generator):
+                arr.copy_(torch.from_numpy(np.array(value)))
+
+            _init_default = _init_weight
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, differentiable=False,
+                         init=ConstInit())
+
+
+class ParameterDict:
+    """Ordered dict of Parameters under a shared name prefix; ``shared``
+    (another ParameterDict) lends its parameters by name."""
+
+    def __init__(self, prefix="", shared=None):
         self._prefix = prefix
         self._params = OrderedDict()
+        self._shared = shared
 
     def __getitem__(self, key):
         return self._params[key]
@@ -267,6 +379,10 @@ class ParameterDict:
 
     def __len__(self):
         return len(self._params)
+
+    def __repr__(self):
+        s = "\n".join(f"  {v}" for v in self._params.values())
+        return f"ParameterDict '{self._prefix}' (\n{s}\n)"
 
     def items(self):
         return self._params.items()
@@ -281,15 +397,55 @@ class ParameterDict:
     def prefix(self):
         return self._prefix
 
+    def _get_impl(self, name):
+        if name in self._params:
+            return self._params[name]
+        if self._shared is not None and name in self._shared._params:
+            self._params[name] = self._shared._params[name]
+            return self._params[name]
+        return None
+
     def get(self, name, **kwargs):
-        """Get-or-create the parameter ``prefix + name``; an existing one
-        takes a ``shape`` that fills its unknown (0) dims."""
+        """Get-or-create the parameter ``prefix + name`` (from the
+        shared dict too); an existing one takes a ``shape`` that fills
+        its unknown (0) dims and must agree on the other attributes
+        given."""
         name = self._prefix + name
-        param = self._params.get(name)
+        param = self._get_impl(name)
         if param is None:
             param = self._params[name] = Parameter(name, **kwargs)
-        elif kwargs.get("shape") is not None:
-            param.shape = kwargs["shape"]
+            return param
+        for k, v in kwargs.items():
+            existing = getattr(param, k, None)
+            if existing is None:
+                if hasattr(param, k):
+                    setattr(param, k, v)
+                continue
+            if k == "shape":
+                if v is not None:
+                    param.shape = v
+                continue
+            if k == "init" and v is None:
+                continue
+            if k == "dtype" and v is not None:
+                v = dtype_name(v)
+            if v is not None and v != existing:
+                raise AssertionError(
+                    f"Cannot retrieve Parameter '{name}' because desired "
+                    f"attribute does not match with stored for attribute "
+                    f"'{k}': desired '{v}' vs stored '{existing}'")
+        return param
+
+    def get_constant(self, name, value=None):
+        """Get-or-create the :class:`Constant` ``prefix + name``."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError(
+                    f"No constant named '{name}'. Please specify value "
+                    "if you want to create a new constant.")
+            param = self._params[name] = Constant(name, value)
         return param
 
     def update(self, other):
@@ -305,3 +461,62 @@ class ParameterDict:
         without their own initializer."""
         for v in self._params.values():
             v.initialize(None, device, init, generator=generator)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def list_ctx(self):
+        devices = set()
+        for v in self.values():
+            devices.update(v.list_ctx())
+        return sorted(devices, key=repr)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter (``grad_req``,
+        ``lr_mult`` ...)."""
+        for v in self.values():
+            setattr(v, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """``nd.save`` every parameter under its full name, less
+        ``strip_prefix``."""
+        from ..ndarray import save as nd_save
+        arg = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    f"Prefix '{strip_prefix}' is to be stripped before "
+                    f"saving, but Parameter's name '{param.name}' does not "
+                    f"start with '{strip_prefix}'")
+            arg[param.name[len(strip_prefix):]] = param.data().detach()
+        nd_save(filename, arg)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix="", cast_dtype=False,
+             dtype_source="current"):
+        """Load a file of :meth:`save` (names prefixed with
+        ``restore_prefix``; an ``arg:``/``aux:`` tag is dropped); a
+        parameter without data yet is made on ``ctx`` (default: the
+        card). Loaded values take each parameter's dtype."""
+        from ..ndarray import load_tensors
+        loaded = load_tensors(filename)
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise AssertionError(f"Parameter '{name}' is missing in "
+                                         f"file '{filename}'")
+        for name, v in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise ValueError(
+                        f"Parameter '{name}' loaded from file "
+                        f"'{filename}' is not present in this ParameterDict")
+                continue
+            self._params[name]._load(v, ctx)

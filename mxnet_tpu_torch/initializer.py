@@ -2,17 +2,20 @@
 
 An initializer fills a CPU tensor in place, dispatching on the
 parameter's name as MXNet does: ``*weight`` → the weight rule,
-``*bias``/``*beta`` → zeros, ``*gamma`` → ones, any other name (BERT's
-``position_embed``) → the weight rule. Random draws come from the
-``generator`` passed at the call (torch's default CPU generator when it
-is None), so values do not depend on the device the parameter lands on.
+``*bias``/``*beta`` → zeros, ``*gamma`` → ones, ``*running_mean`` /
+``*moving_mean``, ``*min`` and ``*max`` → zeros, ``*running_var`` /
+``*moving_var`` → ones, any other name (BERT's ``position_embed``,
+PReLU's ``alpha``) → ``_init_default``, the weight rule. Random draws
+come from the ``generator`` passed at the call (torch's default CPU
+generator when it is None), so values do not depend on the device the
+parameter lands on.
 """
 from __future__ import annotations
 
 import math
 
-__all__ = ["Initializer", "register", "create", "Zero", "One", "Uniform",
-           "Normal", "Xavier"]
+__all__ = ["Initializer", "register", "create", "Zero", "One", "Constant",
+           "Uniform", "Normal", "Xavier"]
 
 _INIT_REGISTRY = {}
 
@@ -33,15 +36,21 @@ class Initializer:
     """Base initializer: ``init(name, arr, generator=None)``."""
 
     def __call__(self, name, arr, generator=None):
-        if name.endswith("bias") or name.endswith("beta"):
+        if name.endswith("weight"):
+            self._init_weight(name, arr, generator)
+        elif name.endswith(("bias", "beta", "running_mean", "moving_mean",
+                            "min", "max")):
             arr.fill_(0.0)
-        elif name.endswith("gamma"):
+        elif name.endswith(("gamma", "running_var", "moving_var")):
             arr.fill_(1.0)
         else:
-            self._init_weight(name, arr, generator)
+            self._init_default(name, arr, generator)
 
     def _init_weight(self, name, arr, generator):
         raise NotImplementedError()
+
+    def _init_default(self, name, arr, generator):
+        self._init_weight(name, arr, generator)
 
 
 @register
@@ -60,6 +69,17 @@ class One(Initializer):
 
 
 _INIT_REGISTRY["ones"] = One
+
+
+@register
+class Constant(Initializer):
+    """Every weight ``value``."""
+
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _init_weight(self, _, arr, generator):
+        arr.fill_(self.value)
 
 
 @register

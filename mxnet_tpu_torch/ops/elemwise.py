@@ -7,6 +7,12 @@ reference's NDArray operators), not ``torch.bool``; ``isnan``,
 ``isinf`` and ``isfinite`` return booleans, as the JAX package's do.
 ``gelu`` is the tanh form (``jax.nn.gelu``'s default); ``Activation``'s
 ``gelu`` (in :mod:`.nn`) is the exact one.
+
+:func:`sign` and :func:`relu` keep ``jnp.sign``'s and
+``jnp.maximum(x, 0)``'s bits, which ``torch.sign`` and ``torch.relu`` do
+not: ``sign`` returns ``x`` itself where it is NaN or ±0, ``relu`` gives
++0 for -0 and NaN for NaN. The other op modules (and the update ops'
+twins) take them from here.
 """
 from __future__ import annotations
 
@@ -21,8 +27,37 @@ def _reg(name, fn, differentiable=True, variadic=False):
                                variadic=variadic)
 
 
+def sign(x):
+    """``jnp.sign``: -1, +1, or ``x`` itself where it is NaN or ±0
+    (``torch.sign`` gives +0 for both); gradient zero."""
+    s = torch.sign(x)
+    return torch.where(s == 0, x.detach(), s)
+
+
+class _Relu(torch.autograd.Function):
+    """``jnp.maximum(x, 0)``'s bits in one pass: +0 for -0 (``torch.relu``
+    keeps -0), NaN for NaN. The gradient is ``torch.relu``'s: the
+    incoming gradient where the output is positive, else 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.where(x <= 0, 0, x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        return torch.ops.aten.threshold_backward(g, out, 0)
+
+
+def relu(x):
+    """``max(x, 0)`` with ``jnp.maximum(x, 0)``'s bits."""
+    return _Relu.apply(x)
+
+
 def _cbrt(x):
-    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
+    return sign(x) * x.abs().pow(1.0 / 3.0)
 
 
 def _softplus(x):
@@ -32,7 +67,7 @@ def _softplus(x):
 
 # ----------------------------------------------------------------- unary ---
 _UNARY = {
-    "abs": torch.abs, "sign": torch.sign, "ceil": torch.ceil,
+    "abs": torch.abs, "sign": sign, "ceil": torch.ceil,
     "floor": torch.floor, "rint": torch.round, "round": torch.round,
     "trunc": torch.trunc, "fix": torch.trunc, "square": torch.square,
     "sqrt": torch.sqrt, "cbrt": _cbrt, "exp": torch.exp, "log": torch.log,
@@ -53,7 +88,7 @@ _reg("rsqrt", torch.rsqrt)
 _reg("rcbrt", lambda x: 1.0 / _cbrt(x))
 _reg("gamma", lambda x: torch.exp(torch.lgamma(x)))
 _reg("logical_not", lambda x: (x == 0).to(x.dtype), differentiable=False)
-_reg("relu", torch.relu)
+_reg("relu", relu)
 _reg("sigmoid", torch.sigmoid)
 _reg("softsign", lambda x: x / (1 + x.abs()))
 _reg("hard_sigmoid", lambda x, alpha=0.2, beta=0.5:

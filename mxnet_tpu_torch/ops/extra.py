@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..base import torch_dtype
+from .elemwise import relu, sign
 from .linalg import _f32_products
 from .optimizer_ops import RULES, clip_bound, multi_apply
 from .registry import _REGISTRY, Operator
@@ -332,7 +333,7 @@ _output_layer("LinearRegressionOutput", lambda x: x,
 _output_layer("LogisticRegressionOutput", torch.sigmoid,
               lambda out, lab: out - lab)
 _output_layer("MAERegressionOutput", lambda x: x,
-              lambda out, lab: torch.sign(out - lab))
+              lambda out, lab: sign(out - lab))
 
 
 class _SVMOutput(torch.autograd.Function):
@@ -399,7 +400,7 @@ class _Straight(torch.autograd.Function):
 _op("_contrib_gradientmultiplier",
     lambda data, scalar=1.0: _GradMult.apply(data, scalar))
 _op("_contrib_round_ste", lambda data: _Straight.apply(data, torch.round))
-_op("_contrib_sign_ste", lambda data: _Straight.apply(data, torch.sign))
+_op("_contrib_sign_ste", lambda data: _Straight.apply(data, sign))
 
 
 # ------------------------------------------------------- spatial ops ----
@@ -1126,7 +1127,7 @@ def _npi_normal_n(loc=0.0, scale=1.0, rng=None, size=None, dtype="float32",
                                      dtype=torch_dtype(dtype))
 
 
-_op("_npx_relu", lambda data: torch.clamp(data, min=0))
+_op("_npx_relu", lambda data: relu(data))
 _op("_npx_sigmoid", torch.sigmoid)
 _op("_npx_reshape", _npx_reshape)
 _op("_npx_nonzero", _npx_nonzero, host_op=True, differentiable=False)

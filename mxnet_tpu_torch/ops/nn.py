@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from .. import autograd
 from ..base import torch_dtype
+from .elemwise import relu
 from .invoke import amp_cast
 from .registry import _REGISTRY, Operator, alias
 
@@ -61,7 +62,7 @@ def LayerNorm(x, gamma, beta, axis=-1, eps=1e-5):
 
 
 _ACTIVATIONS = {
-    "relu": torch.relu,
+    "relu": relu,              # jnp.maximum(x, 0)'s bits
     "tanh": torch.tanh,
     # exact erf form, as jax.nn.gelu(approximate=False)
     "gelu": torch.nn.functional.gelu,
@@ -92,13 +93,17 @@ def Embedding(data, weight):
 
 
 @amp_cast("Dropout")
-def Dropout(x, p=0.5, generator=None):
+def Dropout(x, p=0.5, generator=None, axes=()):
     """Inverted dropout, active only in training mode
-    (``autograd.is_training()``). Draws from ``generator`` (default:
-    torch's generator of ``x``'s device)."""
+    (``autograd.is_training()``), one mask entry shared along ``axes``.
+    Draws from ``generator`` (default: torch's generator of ``x``'s
+    device)."""
     if p == 0 or not autograd.is_training():
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    shape = list(x.shape)
+    for a in axes or ():
+        shape[a] = 1
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
 
@@ -359,8 +364,8 @@ def _batch_norm(*args, eps=1e-3, momentum=0.9, fix_gamma=True,
 def _batch_norm_with_relu(*args, **kw):
     out = _batch_norm(*args, **kw)
     if isinstance(out, tuple):
-        return (torch.relu(out[0]),) + out[1:]
-    return torch.relu(out)
+        return (relu(out[0]),) + out[1:]
+    return relu(out)
 
 
 def _sync_batch_norm(*args, eps=1e-3, momentum=0.9, fix_gamma=True,

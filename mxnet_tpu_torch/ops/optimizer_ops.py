@@ -21,7 +21,11 @@ in float64 and rounded to float32 once, as torch rounds a Python scalar
 operation of the twin in its order with ``__fmul_rn``-style intrinsics,
 which nvcc never contracts. Torch's CUDA division by a Python scalar
 multiplies by its reciprocal, so the twin divides by a 0-d tensor of the
-scalar instead (:func:`_div`), which both devices divide exactly.
+scalar instead (:func:`_div`), which both devices divide exactly. On
+bf16 or f16 weights (a net cast to 16 bits, no ``multi_precision``) a
+``low16`` op keeps its states in the weight's dtype and the kernel
+rounds each operation's result to it, as torch rounds each op of the
+twin on such tensors.
 
 :func:`multi_apply` is the functional form the multi-tensor ops of
 :mod:`.extra` run on: the results in fresh tensors (or in given ones,
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from .elemwise import sign
 from .registry import _REGISTRY, Operator
 
 __all__ = ["RULES", "multi_update", "multi_apply", "UpdateTable",
@@ -181,7 +186,7 @@ def _ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
     new_z = z + g - sigma * weight
     w = torch.where(
         new_z.abs() <= lamda1, torch.zeros_like(weight),
-        -(new_z - torch.sign(new_z) * lamda1)
+        -(new_z - sign(new_z) * lamda1)
         / (_div(beta + torch.sqrt(new_n), lr) + wd))
     return w, new_z, new_n
 
@@ -189,14 +194,14 @@ def _ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
 def _signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
                     clip_gradient=-1.0):
     g = _prep(grad, rescale_grad, clip_gradient)
-    return weight - lr * (torch.sign(g) + wd * weight)
+    return weight - lr * (sign(g) + wd * weight)
 
 
 def _signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
     g = _prep(grad, rescale_grad, clip_gradient)
     new_mom = momentum * mom - (1 - momentum) * (g + wd * weight)
-    w = (1 - lr * wd_lh) * weight + lr * torch.sign(new_mom)
+    w = (1 - lr * wd_lh) * weight + lr * sign(new_mom)
     return w, new_mom
 
 
@@ -322,14 +327,18 @@ def _row_ftml(k):
 class _Rule:
     """One update op: its twin, its rule number in the kernel, the
     number of tensor inputs it takes and the indices it writes, and its
-    row of scalars."""
+    row of scalars. ``low16``: the kernel also takes it with bf16 or f16
+    weights, gradients and states (each operation rounded to their
+    dtype, as the twin's torch ops on such tensors round): a Trainer on a
+    net cast to 16 bits without ``multi_precision``."""
 
     __slots__ = ("name", "rule_id", "twin", "n_in", "mutates", "row", "mp",
-                 "defaults")
+                 "low16", "defaults")
 
-    def __init__(self, name, rule_id, twin, n_in, row, mp=False):
+    def __init__(self, name, rule_id, twin, n_in, row, mp=False,
+                 low16=False):
         self.name, self.rule_id, self.twin = name, rule_id, twin
-        self.n_in, self.row, self.mp = n_in, row, mp
+        self.n_in, self.row, self.mp, self.low16 = n_in, row, mp, low16
         # every input but the gradient (index 1) is written
         self.mutates = (0,) + tuple(range(2, n_in))
         self.defaults = {
@@ -341,23 +350,28 @@ class _Rule:
         return self.row({**self.defaults, **kw})
 
 
-# op name -> rule, in the kernel's rule numbering
+# op name -> rule, in the kernel's rule numbering. Not low16:
+# _adamw_update (its rescale array, an f32 tensor, promotes the twin's
+# arithmetic to f32), ftrl_update and ftml_update (they divide by a 0-d
+# tensor of the weight's dtype, which rounds the divisor first)
 RULES = {r.name: r for r in (
-    _Rule("sgd_update", 0, _sgd_update, 2, _row_sgd),
-    _Rule("sgd_mom_update", 1, _sgd_mom_update, 3, _row_mom),
-    _Rule("nag_mom_update", 2, _nag_mom_update, 3, _row_mom),
+    _Rule("sgd_update", 0, _sgd_update, 2, _row_sgd, low16=True),
+    _Rule("sgd_mom_update", 1, _sgd_mom_update, 3, _row_mom, low16=True),
+    _Rule("nag_mom_update", 2, _nag_mom_update, 3, _row_mom, low16=True),
     _Rule("mp_sgd_update", 3, _mp_sgd_update, 3, _row_sgd, mp=True),
     _Rule("mp_sgd_mom_update", 4, _mp_sgd_mom_update, 4, _row_mom,
           mp=True),
-    _Rule("adam_update", 5, _adam_update, 4, _row_adam),
+    _Rule("adam_update", 5, _adam_update, 4, _row_adam, low16=True),
     _Rule("_adamw_update", 6, _adamw_update, 4, _row_adamw),
-    _Rule("rmsprop_update", 7, _rmsprop_update, 3, _row_rmsprop),
+    _Rule("rmsprop_update", 7, _rmsprop_update, 3, _row_rmsprop,
+          low16=True),
     _Rule("rmspropalex_update", 8, _rmspropalex_update, 5,
-          _row_rmspropalex),
+          _row_rmspropalex, low16=True),
     _Rule("ftrl_update", 9, _ftrl_update, 4, _row_ftrl),
-    _Rule("signsgd_update", 10, _signsgd_update, 2, _row_sgd),
-    _Rule("signum_update", 11, _signum_update, 3, _row_signum),
-    _Rule("_adagrad_update", 12, _adagrad_update, 3, _row_adagrad),
+    _Rule("signsgd_update", 10, _signsgd_update, 2, _row_sgd, low16=True),
+    _Rule("signum_update", 11, _signum_update, 3, _row_signum, low16=True),
+    _Rule("_adagrad_update", 12, _adagrad_update, 3, _row_adagrad,
+          low16=True),
     _Rule("mp_nag_mom_update", 13, _mp_nag_mom_update, 4, _row_mp_nag,
           mp=True),
     _Rule("_mp_adamw_update", 14, _mp_adamw_update, 5, _row_mp_adamw,
@@ -369,11 +383,13 @@ RULES = {r.name: r for r in (
 def bytes_per_element(name, wdtype=torch.float32):
     """Bytes the op moves for one element of a parameter: each input
     read once (an mp op does not read its 16-bit weight) and each written
-    input written once."""
+    input written once (an mp op's states are f32, others' of the
+    weight's dtype)."""
     rule = RULES[name]
     wsize = torch.empty((), dtype=wdtype).element_size()
-    reads = (0 if rule.mp else wsize) + wsize + 4 * (rule.n_in - 2)
-    return reads + wsize + 4 * (rule.n_in - 2)
+    ssize = 4 if rule.mp else wsize
+    reads = (0 if rule.mp else wsize) + wsize + ssize * (rule.n_in - 2)
+    return reads + wsize + ssize * (rule.n_in - 2)
 
 
 def scalar_rows(name, kwargs_list, grads):
@@ -408,13 +424,17 @@ def scalar_rows(name, kwargs_list, grads):
 
 # ------------------------------------------------------------ the kernel --
 def _want_dtype(rule, xs, j):
-    return xs[0].dtype if rule.mp and j < 2 else torch.float32
+    if rule.mp:
+        return xs[0].dtype if j < 2 else torch.float32
+    return xs[0].dtype if rule.low16 and xs[0].dtype in _LOW \
+        else torch.float32
 
 
 def _check_inputs(rule, xs):
     """Raise unless ``xs`` is what the kernel takes for ``rule``: the op's
     tensor inputs on one CUDA device, contiguous, of one size, f32 (an
-    mp op: 16-bit weight and gradient of one dtype, f32 states)."""
+    mp op: 16-bit weight and gradient of one dtype, f32 states; a
+    ``low16`` op: all f32, or all bf16, or all f16)."""
     if len(xs) != rule.n_in:
         raise ValueError(f"{rule.name} takes {rule.n_in} tensors, got "
                          f"{len(xs)}")
@@ -467,6 +487,9 @@ class UpdateTable:
             kept += 1
         self.device = tensor_lists[0][0].device
         self.wdtype = _WDTYPE[tensor_lists[0][0].dtype]
+        # a non-mp rule on 16-bit weights counts apart: sgd_mom_update.bf16
+        self.counter = name if rule.mp or not self.wdtype else \
+            f"{name}.{('bf16', 'f16')[self.wdtype - 1]}"
         for xs in tensor_lists:
             if _WDTYPE[xs[0].dtype] != self.wdtype:
                 raise TypeError(f"{name}: one launch takes one weight dtype")
@@ -511,7 +534,8 @@ class UpdateTable:
     def launch(self, rows, counter=None):
         """One launch over the table with this step's ``rows`` (a CUDA
         tensor of :meth:`rows`, or an address into one), counted under
-        ``counter`` (default: the op's name)."""
+        ``counter`` (default: the op's name, with ``.bf16`` or ``.f16``
+        for a non-mp rule on 16-bit weights)."""
         if not self.ntensors:
             return
         lib = kernels.library("multi_tensor_update")
@@ -521,7 +545,7 @@ class UpdateTable:
             self.ntensors, self.nchunks, ctypes.c_void_p(ptr),
             kernels.stream_handle(self.device))
         kernels.check(rc, f"multi_tensor_update ({self.name})")
-        kernels.count_launch(counter or self.name)
+        kernels.count_launch(counter or self.counter)
 
 
 def _write_back(rule, xs, outs):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .elemwise import relu
 from .linalg import _f32_products
 from .registry import _REGISTRY, Operator, alias
 
@@ -83,7 +84,7 @@ def rnn_cell_step(mode, xproj, h, c, wh, bh):
         new_c = f * c + i * g
         new_h = o * torch.tanh(new_c)
         return new_h, new_h, new_c
-    new_h = torch.tanh(gates) if mode == "rnn_tanh" else torch.relu(gates)
+    new_h = torch.tanh(gates) if mode == "rnn_tanh" else relu(gates)
     return new_h, new_h, c
 
 

@@ -300,10 +300,37 @@ def _argsort(x, axis=-1, is_ascend=True, dtype="float32"):
 _reg("argsort", _argsort, differentiable=False)
 
 
+# the integer type whose order of a float's bits, after
+# :func:`_total_order`, is IEEE totalOrder
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+         torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _total_order(x):
+    """Integers that sort as ``lax.top_k`` compares floats: IEEE
+    totalOrder (-NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN);
+    integers as they are."""
+    bits = _BITS.get(x.dtype)
+    if bits is None:
+        return x
+    b = x.contiguous().view(bits)
+    return torch.where(b < 0, b ^ torch.iinfo(bits).max, b)
+
+
 def _topk(x, axis=-1, k=1, ret_typ="indices", is_ascend=False,
           dtype="float32"):
-    vals, idx = torch.topk(x, k, dim=axis, largest=not is_ascend,
-                           sorted=True)
+    # lax.top_k of x (of -x for is_ascend): a stable sort, descending,
+    # then a slice, so the lower index comes first among equal keys
+    # (torch.topk promises no order among ties). -x reverses the
+    # totalOrder of floats, so is_ascend takes ~key (the card's negation
+    # need not flip a NaN's sign bit)
+    ax = axis % x.ndim
+    key = _total_order(x)
+    if is_ascend:
+        key = ~key if x.is_floating_point() else -x
+    idx = torch.sort(key, dim=ax, descending=True,
+                     stable=True).indices.narrow(ax, 0, k)
+    vals = torch.gather(x, ax, idx)
     idx = idx.to(torch_dtype(dtype))
     if ret_typ == "value":
         return vals

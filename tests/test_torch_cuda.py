@@ -466,7 +466,9 @@ def test_small_bert_under_amp_matches_its_plain_path(cuda):
             gate["g"] = inputs[0] > 0
             return None
         return inputs[0] * gate["g"].to(inputs[0].dtype)
-    handle = net.transform.act.register_forward_hook(hook)
+    # torch's own hook (its return value replaces the output); gluon's
+    # register_forward_hook has the reference's, which ignores it
+    handle = torch.nn.Module.register_forward_hook(net.transform.act, hook)
     amp.init()
     try:
         res = {}
@@ -2788,3 +2790,225 @@ def test_cond_and_a_host_op_raise_inside_a_capture(cuda):
     assert nd.contrib.cond(lambda a: a.sum() > 0, lambda a: a * 2,
                            lambda a: a, [x]).shape == (3,)
     assert nd._npx_nonzero(x).shape == (3, 1)
+
+
+# ------------------------- sign, relu, topk's ties and the vision path --
+SPECIALS = chip_smoke.SPECIALS.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["signsgd_update", "signum_update",
+                                  "ftrl_update"])
+def test_update_kernel_keeps_the_twin_bits_on_nan_zeros_and_inf(cuda, name):
+    """NaN, ±0 and ±inf gradients (and states) through the sign-taking
+    rules: the kernel's sgn is jnp.sign's, as the twin's, bit for bit; a
+    NaN gradient gives a NaN weight."""
+    rule = topt_ops.RULES[name]
+    n = len(SPECIALS)
+    xs = [torch.ones(n, device=cuda), torch.tensor(SPECIALS, device=cuda)]
+    xs += [torch.tensor(np.roll(SPECIALS, k + 1), device=cuda)
+           for k in range(rule.n_in - 2)]
+    if name == "ftrl_update":
+        xs[3] = xs[3].abs()
+    kw = dict(lr=0.1, wd=0.0)
+    if name == "signum_update":
+        kw.update(momentum=0.9, wd_lh=0.01)
+    want = rule.twin(*[x.clone() for x in xs], **kw)
+    want = (want,) if isinstance(want, torch.Tensor) else want
+    topt_ops.multi_update(name, [xs], [kw])
+    torch.cuda.synchronize()
+    for m, w in zip(rule.mutates, want):
+        assert xs[m].cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+    if name == "signsgd_update":
+        assert torch.isnan(xs[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("name", sorted(
+    n for n, r in topt_ops.RULES.items() if r.low16))
+def test_update_kernel_on_16bit_weights_matches_twin_bitwise(cuda, name,
+                                                             wdtype, offset):
+    """A non-mp rule on bf16 / f16 weights, gradients and states (a net
+    cast to 16 bits without multi_precision): each operation rounded to
+    the dtype, as the twin's torch ops; bit for bit, counted under
+    ``<op>.bf16`` / ``<op>.f16``."""
+    lists = chip_smoke.update_case(torch, name, UPDATE_SIZES, wdtype, cuda,
+                                   seed=len(name) + 1, offset=offset)
+    assert all(x.dtype == wdtype for x in lists[0])
+    kws = [chip_smoke.update_kwargs(name, k) for k in range(len(lists))]
+    counter = f"{name}.{'bf16' if wdtype == torch.bfloat16 else 'f16'}"
+    before = kernels.launch_counts().get(counter, 0)
+    bad, err, nans = chip_smoke.kernel_vs_twin(torch, name, lists, kws)
+    assert (bad, nans) == (0, 0), f"{name} {wdtype}: {bad} elements " \
+        f"differ (max {err})"
+    assert kernels.launch_counts()[counter] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sign", "cbrt", "relu", "_npx_relu"])
+def test_sign_and_relu_keep_their_bits_on_the_card(cuda, name):
+    """NaN, ±0 and ±inf as on the CPU: the same bits (cbrt's finite
+    values within an ulp: the card's pow is not the CPU's)."""
+    got = getattr(nd, name)(nd.NDArray(torch.tensor(
+        SPECIALS, device=cuda))).asnumpy()
+    want = getattr(nd, name)(nd.NDArray(torch.tensor(SPECIALS))).asnumpy()
+    if name != "cbrt":
+        assert got.tobytes() == want.tobytes()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.signbit(got), np.signbit(want))
+    np.testing.assert_allclose(got, want, rtol=2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_ascend", [False, True])
+def test_topk_ties_on_the_card(cuda, is_ascend):
+    """The stable sort's order on the card: the lower index first among
+    ties, NaN and ±0 by totalOrder, as on the CPU."""
+    for x, k in ((chip_smoke.TIES, 3), (np.zeros(64), 3), (SPECIALS, 7)):
+        x = x.astype(np.float32)
+        for typ in ("value", "indices", "both"):
+            got = nd.topk(nd.NDArray(torch.tensor(x, device=cuda)), k=k,
+                          ret_typ=typ, is_ascend=is_ascend)
+            want = nd.topk(nd.NDArray(torch.tensor(x)), k=k, ret_typ=typ,
+                           is_ascend=is_ascend)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                assert g.asnumpy().tobytes() == w.asnumpy().tobytes()
+    ties = nd.NDArray(torch.tensor(chip_smoke.TIES, dtype=torch.float32,
+                                   device=cuda))
+    assert nd.topk(ties, k=3).asnumpy().tolist() == [0, 1, 2]
+
+
+def _layer_cases():
+    from mxnet_tpu_torch.gluon import nn
+    return [
+        ("conv1d", lambda: nn.Conv1D(4, 3, padding=1), (2, 3, 9)),
+        ("conv2d", lambda: nn.Conv2D(4, 3, strides=2, padding=1,
+                                     groups=1), (2, 6, 9, 9)),
+        ("conv2d_nhwc", lambda: nn.Conv2D(4, 3, padding=1, layout="NHWC",
+                                          activation="relu"), (2, 9, 9, 6)),
+        ("conv2d_groups", lambda: nn.Conv2D(6, 3, groups=3, dilation=2),
+         (2, 6, 9, 9)),
+        ("conv3d", lambda: nn.Conv3D(4, 3, padding=1), (2, 3, 5, 6, 7)),
+        ("conv1d_t", lambda: nn.Conv1DTranspose(4, 3, strides=2,
+                                                output_padding=1),
+         (2, 3, 7)),
+        ("conv2d_t", lambda: nn.Conv2DTranspose(4, 3, strides=2, padding=1,
+                                                output_padding=1),
+         (2, 3, 7, 7)),
+        ("conv3d_t", lambda: nn.Conv3DTranspose(2, 3, strides=2),
+         (1, 3, 4, 5, 5)),
+        ("maxpool2d_ceil", lambda: nn.MaxPool2D(3, 2, ceil_mode=True),
+         (2, 3, 10, 10)),
+        ("avgpool2d_nopad", lambda: nn.AvgPool2D(3, 2, 1,
+                                                 count_include_pad=False),
+         (2, 3, 9, 9)),
+        ("globalavg_nhwc", lambda: nn.GlobalAvgPool2D(layout="NHWC"),
+         (2, 5, 5, 3)),
+        ("globalmax3d", lambda: nn.GlobalMaxPool3D(), (2, 3, 4, 4, 4)),
+        ("avgpool1d", lambda: nn.AvgPool1D(2), (2, 3, 8)),
+        ("batchnorm", lambda: nn.BatchNorm(), (4, 3, 5, 5)),
+        ("batchnorm_nhwc", lambda: nn.BatchNorm(axis=3), (4, 5, 5, 3)),
+        ("instancenorm", lambda: nn.InstanceNorm(scale=True),
+         (2, 3, 5, 5)),
+        ("groupnorm", lambda: nn.GroupNorm(num_groups=2), (2, 4, 5, 5)),
+        ("reflectionpad", lambda: nn.ReflectionPad2D(2), (2, 3, 5, 5)),
+        ("leakyrelu", lambda: nn.LeakyReLU(0.1), (2, 3, 4)),
+        ("prelu", lambda: nn.PReLU(in_channels=3), (2, 3, 4)),
+        ("elu", lambda: nn.ELU(), (2, 3, 4)),
+        ("selu", lambda: nn.SELU(), (2, 3, 4)),
+        ("swish", lambda: nn.Swish(), (2, 3, 4)),
+        ("gelu", lambda: nn.GELU(), (2, 3, 4)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(24))
+def test_vision_layer_on_the_card_matches_the_cpu(cuda, case):
+    """Each new layer, forward (training mode) and backward on the card
+    against the same layer on the CPU from the same weights, TF32 off:
+    outputs, input gradients, parameter gradients, BatchNorm's running
+    statistics; within 1e-5 of each one's magnitude (f32 sums in cuDNN's
+    order against oneDNN's)."""
+    name, make, shape = _layer_cases()[case]
+    torch.backends.cudnn.allow_tf32 = False
+    x = np.random.RandomState(case).randn(*shape).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        layer = make()
+        layer.initialize(device=dev, generator=torch.Generator()
+                         .manual_seed(case))
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        with ag.record():
+            y = layer(xt)
+        y.backward(torch.ones_like(y))
+        params = layer._collect_params_with_prefix()
+        outs.append((y.detach().cpu(), xt.grad.cpu(),
+                     {k: (p.data().detach().cpu(),
+                          None if p.grad_req == "null" else
+                          p.grad().detach().cpu())
+                      for k, p in params.items()}))
+    (ya, ga, pa), (yb, gb, pb) = outs
+
+    def close(a, b):
+        return float((a - b).abs().max()) <= 1e-5 * max(
+            float(a.abs().max()), 1.0)
+    assert close(yb, ya) and close(gb, ga), name
+    for k in pa:
+        assert close(pb[k][0], pa[k][0]), (name, k)
+        if pa[k][1] is not None:
+            assert close(pb[k][1], pa[k][1]), (name, k)
+
+
+@pytest.mark.cuda
+def test_resnet18_thumbnail_step_on_the_card_matches_the_cpu(cuda,
+                                                              tmp_path):
+    """resnet18_v1(thumbnail=True), one SGD-momentum step of bench.py's
+    loss at batch 4 on 32x32 on the card against the CPU from the same
+    weights (the card net's parameter file), TF32 off: the per-sample
+    losses within 1e-5, each parameter's update within 0.1 of its
+    2-norm (a ReLU gate that flips at a tie moves a whole gradient
+    entry, and through the training-mode BatchNorms the updates before
+    it: a few percent at this batch), the running statistics within
+    1e-5; the update takes the fused kernel, one launch."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.initializer import Xavier
+    torch.backends.cudnn.allow_tf32 = False
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, 3, 32, 32).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4).astype(np.int32))
+    card = vision.resnet18_v1(thumbnail=True, classes=10, prefix="r18c_")
+    card.initialize(Xavier(), device=cuda,
+                    generator=torch.Generator().manual_seed(0))
+    with ag.pause():
+        card(x.to(cuda))
+    path = str(tmp_path / "r18.params")
+    card.save_parameters(path)
+    cpu = vision.resnet18_v1(thumbnail=True, classes=10, prefix="r18c_")
+    cpu.load_parameters(path, ctx="cpu")
+    before = {k: p.data().detach().clone()
+              for k, p in cpu._collect_params_with_prefix().items()}
+    losses = []
+    for net, dev in ((card, cuda), (cpu, "cpu")):
+        trainer = tgluon.Trainer(net.collect_params(), "sgd",
+                                 {"learning_rate": 1e-3, "momentum": 0.9})
+        launches = kernels.launch_counts().get("sgd_mom_update", 0)
+        losses.append(chip_smoke.resnet_step(nd, ag, net, trainer,
+                                             x.to(dev), y.to(dev))
+                      .asnumpy())
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["sgd_mom_update"] == launches + 1
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    mine = card._collect_params_with_prefix()
+    for key, p in cpu._collect_params_with_prefix().items():
+        got, want = mine[key].data().detach().cpu(), p.data().detach()
+        if p.grad_req == "null":
+            assert chip_smoke.norm_ratio(got, want) <= 1e-5, key
+        else:
+            assert chip_smoke.norm_ratio(got - before[key],
+                                         want - before[key]) <= 0.1, key

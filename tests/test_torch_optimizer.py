@@ -359,3 +359,81 @@ def test_trainer_save_and_load_states(tmp_path):
     for a, b in zip(pa, pb):
         assert torch.equal(a.data(), b.data())
     assert tb._fused.fallbacks == {}       # the loaded states, fused
+
+
+# ----------------------------------------------- sign's special values --
+SPECIALS = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, -1.0, 2.0],
+                    np.float32)
+
+
+@pytest.mark.parametrize("name", ["signsgd_update", "signum_update",
+                                  "ftrl_update"])
+def test_sign_rules_keep_the_jax_bits_on_nan_zeros_and_inf(name):
+    """NaN, ±0 and ±inf gradients (and states, for ftrl) through the
+    sign-taking rules: the twin gives the JAX op's bits (jnp.sign keeps
+    NaN and the sign of zero)."""
+    rule = tops.RULES[name]
+    arrays = [np.ones(7, np.float32), SPECIALS.copy()] + [
+        np.roll(SPECIALS, k + 1).copy() for k in range(rule.n_in - 2)]
+    if name == "ftrl_update":            # n, a sum of squares, >= 0
+        arrays[3] = np.abs(arrays[3])
+    kw = dict(lr=0.1, wd=0.0)
+    if name == "signum_update":
+        kw.update(momentum=0.9, wd_lh=0.01)
+    want = mx.nd.__dict__[name](*(mx.nd.array(a) for a in arrays), **kw)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    xs = [torch.from_numpy(a.copy()) for a in arrays]
+    got = getattr(tnd, name)(*xs, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want, strict=True):
+        assert g.numpy().tobytes() == np.asarray(
+            w.asnumpy(), np.float32).tobytes(), (name, g, w.asnumpy())
+
+
+def test_signsgd_nan_gradient_gives_a_nan_weight():
+    w = torch.ones(1)
+    tnd.signsgd_update(w, torch.tensor([np.nan]), lr=0.1)
+    jw = mx.nd.signsgd_update(mx.nd.array(np.ones(1, np.float32)),
+                              mx.nd.array(np.array([np.nan], np.float32)),
+                              lr=0.1)
+    assert np.isnan(jw.asnumpy()[0]) and torch.isnan(w).all()
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, r in tops.RULES.items() if r.low16))
+def test_low16_rules_take_16bit_weights_and_states(name):
+    """A net cast to bfloat16 steps SGD momentum (and the other low16
+    rules) on bf16 weights and states without multi_precision, as the
+    reference's Trainer does: the kernel's dtype contract and the twin on
+    the JAX op's bf16 results (XLA may keep a fused
+    chain in f32 where torch rounds each of its up to five ops, so the
+    bound is one bf16 ulp of the operands' scale, 1 here)."""
+    rule = tops.RULES[name]
+    bf = torch.bfloat16
+    xs = [torch.ones(4, dtype=bf) for _ in range(rule.n_in)]
+    tops._check_inputs(rule, xs)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tops._check_inputs(rule, [xs[0].float()] + xs[1:])
+    assert tops.bytes_per_element(name, bf) == 2 * (2 + 2 * (rule.n_in - 2)
+                                                     + 1)
+    rng = np.random.RandomState(3)
+    arrays = [rng.uniform(0.1, 1, (3, 5)).astype(np.float32)
+              for _ in range(rule.n_in)]
+    if name == "rmspropalex_update":
+        # a mean square at least the squared mean (as the states keep
+        # it): sqrt(n - g_avg^2 + eps) stays away from 0
+        arrays[2] += 1.0
+    kw = dict(lr=0.05, wd=0.01, rescale_grad=0.5)
+    if "mom" in name or name.startswith("signum") or "alex" in name:
+        kw["momentum"] = 0.9
+    want = mx.nd.__dict__[name](*(mx.nd.array(a).astype("bfloat16")
+                                  for a in arrays), **kw)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    got = getattr(tnd, name)(*(torch.from_numpy(a).to(bf)
+                               for a in arrays), **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == bf
+        w = np.asarray(w.astype("float32").asnumpy())
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=2 ** -7,
+                                   atol=2 ** -7)

@@ -1,0 +1,22 @@
+"""PyTorch port, the vision model zoo: ResNet V2, each
+constructor's eval forward against the JAX net's on the same weights
+(the helper, sizes and tolerance of tests/test_torch_vision_zoo.py,
+loaded by path)."""
+import importlib.util
+import os
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+_spec = importlib.util.spec_from_file_location(
+    "_zoo_main", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "test_torch_vision_zoo.py"))
+_zoo = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_zoo)
+
+
+@pytest.mark.parametrize("name", [n for n in _zoo.constructors("resnet")
+                                  if n.endswith("_v2")])
+def test_resnet_v2_eval_forward_matches_jax(name):
+    _zoo.check_model(name)
