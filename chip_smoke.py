@@ -19,7 +19,8 @@ Phases, one line of output each (or more), in order:
    padding mask and causal, and for each mask the two backward kernels'
    sum beside the library's backward (one call for dq, dk and dv), then
    at head dims 256 (padding mask, causal) and 192 (no mask, padded to
-   256); the same three flash kernels on bf16 and f16 inputs (the AMP
+   256) and at phase 5h's encode shape (8 x 128 tokens, no mask); the
+   same three flash kernels on bf16 and f16 inputs (the AMP
    path's: the forward ``csrc/flash_fwd_lp_sm90.cu``, the backward
    ``csrc/flash_bwd_lp_sm90.cu``) at BERT-base shapes (no mask, padding
    mask, causal) and at head dim 256 (padding mask, causal), each giving
@@ -268,11 +269,40 @@ Phases, one line of output each (or more), in order:
    over its bf16 weights against the twin (a kernel row), then 10 steps
    at batch 128 (finite losses, two update launches a step: the bf16
    weights and the f32 BatchNorm group) and the same numbers as (b);
+   8e. the compiled step (``run_compiled_phase``): (a) every case of
+   ``tests/test_hybridize_sweep.py`` hybridized on the card (one CUDA
+   graph per signature: one capture, none on a repeated call; recorded,
+   the forward and backward pair) against its eager call, outputs and
+   input gradients bit for bit, then ResNet-50 v1 eval at batch 8
+   hybridized: one capture, the eager bits, and new weights loaded in
+   place read by the next replay; (b) the reference's compiled-step MLP
+   cases (SGD momentum and Adam, with and without a BatchNorm): five
+   steps across lr and batch-size changes, bit for bit with the eager
+   step, one replay a steady step, two captures (buckets 32 and 16) and
+   none after across warm tails, the running statistics moving, and a
+   forced float16 overflow leaving every weight; (c) BERT-base as phase
+   8 trains it through ``Trainer.compile_step``, f32 and under AMP bf16:
+   one compiled step against one eager step from the same weights
+   (dropout 0; the loss and Adam's first moment, phase 8's tolerances),
+   then 10 steps at dropout 0.1 (falling loss, one capture, one replay a
+   step after the first, 12 launches a replay of each flash kernel and
+   one update launch, dropout masks that differ between replays) and two
+   profiled steps; (d) ResNet-50 v1 as ``bench.py`` trains it through
+   ``compile_step``: f32 NCHW at batch 32, then bf16 NHWC with the s2d
+   stem at batch 128 (10 steps, no fallback, one and two update launches
+   a step), each with step ms, images/s, peak GB, device ms, idle,
+   capture seconds and graph-pool GB beside 8d's eager numbers (and (c)'s
+   beside phase 8's); (e) ``LoRAFineTuneJob`` over the f32 GPT-2-small
+   serving decoder's frozen base and ``AdapterFineTunePublisher`` into
+   the bank of an ``LLMServer``: two rounds of 4 compiled steps and a
+   publish, the stream served under the adapter changing between them
+   and the base rows' streams not;
 9. one JSON line listing every kernel (the update tail's ops of phase
    7b among them, K3's rows of phase 7c, 8d's bf16 update row): launches
    on the main paths
    (phase 7b's flash and update launches added, and 7c's K3 launches),
-   counted through graph replays (the speculative phase's verifies and
+   counted through graph replays (8e's compiled steps, the speculative
+   phase's verifies and
    draft rounds included, the registry and artifact phases' too; the
    flash kernels': the 10 training
    steps, 8c's steps and the op phase's call; the 16-bit paged kernels': the bf16
@@ -1655,11 +1685,14 @@ def rel_err(got, want):
 # size that keeps the phase short
 BERT_ATTENTION = (BERT_BATCH, BERT_BASE["num_heads"], BERT_T, 64)
 FLASH_WIDE = ((2, 8, 512, 256), (2, 8, 512, 192))
+# phase 5h's encode requests: BERT-base over 8 x 128 token ids, no mask
+BERT_ENCODE = (8, BERT_BASE["num_heads"], 128, 64)
 
 
 def run_flash_kernel_phase(torch, timer, rng):
     """K6 (forward), K7a (dK/dV/dbias) and K7b (dQ) at BERT-base shapes,
-    then at head dims 256 and 192, against their plain twins (at D=256
+    then at head dims 256 and 192, then at phase 5h's encode shape
+    (BERT-base over 8 x 128 tokens), against their plain twins (at D=256
     also: two launches give the same bits); library: torch's fused
     attention (SDPA) with the same additive mask, and that call's
     backward (which computes dq, dk and dv together: it is set beside
@@ -1676,11 +1709,16 @@ def run_flash_kernel_phase(torch, timer, rng):
             ("causal", False, True, BERT_ATTENTION),
             ("padding mask", True, False, wide256),
             ("causal", False, True, wide256),
-            ("no mask", False, False, wide192)):
+            ("no mask", False, False, wide192),
+            ("no mask", False, False, BERT_ENCODE)):
         B, H, T, D = shape
         scale = 1.0 / D ** 0.5
         bhtd = 4 * B * H * T * D
-        a, dout, pairs = flash_case(torch, rng, padding, causal, shape)
+        # the encode shape draws from a generator of its own: the later
+        # phases draw what they drew before it was added
+        a, dout, pairs = flash_case(
+            torch, np.random.RandomState(27) if shape == BERT_ENCODE
+            else rng, padding, causal, shape)
         bias = a["bias"]
         bias_bytes = 0 if bias is None else 4 * B * T
         out, lse = fa.flash_forward(**a, scale=scale)
@@ -2635,6 +2673,9 @@ def device_rows(prof):
 
 # the last profiled pass's device busy ms, steps and wall seconds
 PROFILED = {}
+# the eager training phases' summaries by label (phase 8e prints the
+# compiled steps beside them)
+EAGER_ROWS = {}
 
 
 def report_profile(prof, wall, steps):
@@ -5456,12 +5497,11 @@ def bert_train(torch, kernels, net, trainer, loss_fn, data, vocab, label,
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     share = report_profile(prof, wall, 2)
-    return launches, dict(step_ms=step_ms,
-                          tokens_s=batch * seqlen / step_ms * 1e3,
-                          peak_gb=peak_gb,
-                          device_ms=device_rows(prof)[1] / 1e3 / 2,
-                          idle=None if share is None else 1 - share,
-                          **split)
+    EAGER_ROWS[label] = summary = dict(
+        step_ms=step_ms, tokens_s=batch * seqlen / step_ms * 1e3,
+        peak_gb=peak_gb, device_ms=device_rows(prof)[1] / 1e3 / 2,
+        idle=None if share is None else 1 - share, **split)
+    return launches, summary
 
 
 def step_split(torch, net, trainer, loss_fn, data, vocab, amp=None):
@@ -7855,6 +7895,7 @@ def resnet_train(torch, nd, ag, kernels, net, trainer, data, label,
     log(f"{label}: profiled device {summary['device_ms']:.2f} ms a step, "
         f"idle {summary['idle']}; split (ms a step): " + ", ".join(
             f"{k} {v:.2f}" for k, v in sorted(split.items())))
+    EAGER_ROWS[label] = summary
     return launches, summary
 
 
@@ -8078,6 +8119,600 @@ def run_vision_phase(torch, rng, kernels):
              for k, v in s.items() if k != "split"}
             | {"split": {k: round(v, 3) for k, v in s["split"].items()}}))
     return counts, row
+
+
+# ------------------------------------------------- 8e: the compiled step --
+# tests/test_hybridize_sweep.py's cases, on the port's layers
+HYBRID_CASES = (
+    ("dense", lambda nn: nn.Dense(8, activation="relu"), (4, 6)),
+    ("dense_nobias", lambda nn: nn.Dense(5, use_bias=False), (3, 7)),
+    ("conv2d", lambda nn: nn.Conv2D(6, 3, padding=1), (2, 3, 8, 8)),
+    ("conv2d_nhwc", lambda nn: nn.Conv2D(6, 3, padding=1, layout="NHWC"),
+     (2, 8, 8, 3)),
+    ("conv1d", lambda nn: nn.Conv1D(4, 3, padding=1), (2, 3, 9)),
+    ("conv2dT", lambda nn: nn.Conv2DTranspose(4, 2, strides=2),
+     (2, 3, 5, 5)),
+    ("maxpool", lambda nn: nn.MaxPool2D(2), (2, 3, 8, 8)),
+    ("avgpool", lambda nn: nn.AvgPool2D(2), (2, 3, 8, 8)),
+    ("gap", lambda nn: nn.GlobalAvgPool2D(), (2, 3, 6, 6)),
+    ("batchnorm", lambda nn: nn.BatchNorm(), (4, 3, 5)),
+    ("layernorm", lambda nn: nn.LayerNorm(), (4, 6)),
+    ("instancenorm", lambda nn: nn.InstanceNorm(), (3, 4, 6)),
+    ("dropout_eval", lambda nn: nn.Dropout(0.5), (4, 6)),
+    ("embedding", lambda nn: nn.Embedding(20, 5), (3, 4)),
+    ("leakyrelu", lambda nn: nn.LeakyReLU(0.1), (3, 5)),
+    ("prelu", lambda nn: nn.PReLU(), (3, 5)),
+    ("elu", lambda nn: nn.ELU(), (3, 5)),
+    ("swish", lambda nn: nn.Swish(), (3, 5)),
+    ("flatten", lambda nn: nn.Flatten(), (2, 3, 4)),
+)
+HYBRID_NO_GRAD = ("dropout_eval", "embedding")
+HYBRID_BATCH = 8
+# a graph replays the kernels the eager call launches, so hybridized
+# outputs and gradients, and compiled steps, are held to the eager
+# path's bits (max |diff| 0); a hybridized convolution may differ in the
+# last bits (cuDNN may pick another algorithm inside a capture, whose
+# workspace comes from the graph's pool): held to HYBRID_REL_TOL of the
+# eager result's largest magnitude instead, and reported
+HYBRID_REL_TOL = 1e-5
+MLP_SIZES, MLP_LRS = (32, 16, 32, 16, 32), (0.05, 0.02, 0.05, 0.01, 0.03)
+FT_STEPS, FT_LR, FT_ALPHA = 4, 0.05, 4096.0
+FT_PROMPTS = (9, 17, 30, 12)
+FT_ADAPTERS = ("ft", None, "ft", None)
+
+
+def max_diff(a, b):
+    """max |a - b| over tensors (0 for two Nones)."""
+    if a is None and b is None:
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def hybrid_diff(got, want):
+    """(max |got - want|, the same over want's largest magnitude)."""
+    d = max_diff(got, want)
+    return d, d / max(float(want.abs().max()), 1e-30)
+
+
+def hybrid_case(torch, ag, nn, kernels, name, fn, shape, k):
+    """One sweep case on the card: the hybridized call (twice: one
+    capture) and, unless in HYBRID_NO_GRAD, the recorded pair (the input
+    gradient), each against the eager call. Returns the largest (|diff|,
+    relative |diff|)."""
+    gen = torch.Generator().manual_seed(k)
+    net = fn(nn)
+    net.initialize(device=DEVICE, generator=gen)
+    x = (torch.randint(0, 20, shape, generator=gen).float()
+         if name == "embedding" else torch.randn(shape, generator=gen))
+    x = x.to(DEVICE)
+    with ag.pause():
+        eager = net(x)
+    net.hybridize()
+    c0 = kernels.capture_count()
+    with ag.pause():
+        h1, h2 = net(x), net(x)
+    check(kernels.capture_count() == c0 + 1, f"8e (a) {name}: "
+          f"{kernels.capture_count() - c0} captures for one signature")
+    worst = max(hybrid_diff(h1, eager), hybrid_diff(h2, eager))
+    if name not in HYBRID_NO_GRAD:
+        grads = []
+        for block in (net, None):
+            xi = x.clone().requires_grad_(True)
+            if block is None:
+                net.hybridize(active=False)
+            with ag.record():
+                loss = (net(xi) ** 2).sum()
+            ag.backward(loss)
+            grads.append(xi.grad)
+        worst = max(worst, hybrid_diff(*grads))
+    return worst
+
+
+def run_hybridize_sweep(torch, rng, kernels):
+    """8e (a): every case of tests/test_hybridize_sweep.py hybridized on
+    the card against its eager call (and, recorded, its input
+    gradient); ResNet-50 v1 eval at batch 8 hybridized: one capture,
+    none on a repeated call, the eager output's bits, and a reload of new
+    weights read by the next replay."""
+    import tempfile
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.initializer import Xavier
+    t0 = time.monotonic()
+    worst = {name: hybrid_case(torch, ag, nn, kernels, name, fn, shape, k)
+             for k, (name, fn, shape) in enumerate(HYBRID_CASES)}
+    exact = [n for n, (d, _) in worst.items() if d == 0.0]
+    log("8e (a): hybridized vs eager on the card, max |diff| (relative) "
+        "(outputs; recorded: the input gradient too): " + ", ".join(
+            f"{n} {d:.1e} ({r:.1e})" for n, (d, r) in worst.items())
+        + f"; {len(exact)} of {len(worst)} bit for bit (tol "
+        f"{HYBRID_REL_TOL} relative)")
+    check(all(r <= HYBRID_REL_TOL for _, r in worst.values()), "8e (a): a "
+          "hybridized layer's graph disagrees with its eager call")
+    net = vision.resnet50_v1(prefix="r50h_")
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(rng.randn(HYBRID_BATCH, 3, 224, 224)
+                         .astype(np.float32)).to(DEVICE)
+    with ag.pause():
+        eager = net(x)
+    net.hybridize()
+    c0 = kernels.capture_count()
+    t1 = time.monotonic()
+    with ag.pause():
+        h1 = net(x)
+    torch.cuda.synchronize()
+    first_s = time.monotonic() - t1
+    with ag.pause():
+        h2 = net(x)
+    check(kernels.capture_count() == c0 + 1, "8e (a): ResNet-50 eval "
+          "took more than one capture")
+    twin = vision.resnet50_v1(prefix="r50h_")
+    twin.initialize(Xavier(), device=DEVICE,
+                    generator=torch.Generator().manual_seed(2))
+    with ag.pause():
+        want = twin(x)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "r50h.params")
+        twin.save_parameters(path)
+        net.load_parameters(path)
+    with ag.pause():
+        h3 = net(x)
+    torch.cuda.synchronize()
+    diffs = (hybrid_diff(h1, eager), hybrid_diff(h2, eager),
+             hybrid_diff(h3, want))
+    log(f"8e (a): ResNet-50 v1 eval at batch {HYBRID_BATCH} hybridized: "
+        f"capture + first replay {first_s:.2f}s, "
+        f"{kernels.capture_count() - c0} capture, max |diff| (relative) vs "
+        f"eager {diffs[0][0]:.1e} ({diffs[0][1]:.1e}) / {diffs[1][0]:.1e}; "
+        f"after loading new weights in place {diffs[2][0]:.1e} "
+        f"({diffs[2][1]:.1e}; vs the new weights' eager net); "
+        f"{time.monotonic() - t0:.1f}s for (a)")
+    check(kernels.capture_count() == c0 + 1 and
+          max(r for _, r in diffs) <= HYBRID_REL_TOL,
+          "8e (a): hybridized ResNet-50 disagrees with its eager call")
+
+
+def compiled_mlp(torch, seed, bn=False):
+    """tests/test_compiled_step.py's ``_build`` on the card."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.initializer import Xavier
+    net = nn.HybridSequential(prefix=f"cs8e{seed}_")
+    with net.name_scope():
+        if bn:
+            net.add(nn.Dense(16), nn.BatchNorm(), nn.Activation("relu"),
+                    nn.Dense(4))
+        else:
+            net.add(nn.Dense(16, activation="relu"), nn.Dense(4))
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(seed))
+    with ag.pause():
+        net(torch.zeros(1, 6, device=DEVICE))
+    return net
+
+
+def params_of(net):
+    return {k: p.data().detach().clone()
+            for k, p in sorted(net.collect_params().items())}
+
+
+def run_compiled_mlp_cases(torch, kernels):
+    """8e (b): the reference's MLP cases compiled against eager on the
+    card: five steps across lr and batch-size changes (SGD momentum and
+    Adam, with and without a BatchNorm), the eager bits; one replay per
+    steady step, no capture after the two buckets' warm-up across warm
+    tails, ``cache_size() == 2``; the BatchNorm's running statistics
+    move; a forced float16 overflow leaves every weight."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    r = np.random.RandomState(7)
+    X = torch.from_numpy(r.randn(8, 32, 6).astype(np.float32)).to(DEVICE)
+    Y = torch.from_numpy((np.arange(256).reshape(8, 32) % 4)
+                         .astype(np.float32)).to(DEVICE)
+    rows = []
+    for opt, args in (("sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                               "wd": 1e-4}),
+                      ("adam", {"learning_rate": 1e-3, "wd": 1e-3})):
+        for bn in (False, True):
+            net_e, net_c = compiled_mlp(torch, 0, bn), compiled_mlp(
+                torch, 0, bn)
+            stats0 = {k: v for k, v in params_of(net_c).items()
+                      if "running" in k}
+            tr_e = gluon.Trainer(net_e.collect_params(), opt, dict(args))
+            tr_c = gluon.Trainer(net_c.collect_params(), opt, dict(args))
+            step = tr_c.compile_step(
+                lambda x, y, net=net_c: loss_fn(net(x), y))
+            c0, diff = kernels.capture_count(), 0.0
+            for s, n in enumerate(MLP_SIZES):
+                tr_e.set_learning_rate(MLP_LRS[s])
+                tr_c.set_learning_rate(MLP_LRS[s])
+                with ag.record():
+                    le = loss_fn(net_e(X[s][:n]), Y[s][:n])
+                ag.backward(le)
+                tr_e.step(n)
+                replays = step.replays
+                lc = step(X[s][:n], Y[s][:n])
+                diff = max(diff, max_diff(le.detach(), lc))
+                if s >= 2:
+                    check(step.replays == replays + 1, f"8e (b) {opt} bn="
+                          f"{bn}: step {s} took "
+                          f"{step.replays - replays} replays")
+            pe, pc = params_of(net_e), params_of(net_c)
+            diff = max(diff, max(max_diff(pe[k], pc[k]) for k in pe))
+            # tails padded to the warm buckets: no capture
+            for s, n in zip(range(5, 8), (20, 9, 19)):
+                step(X[s][:n], Y[s][:n])
+            moved = all(not torch.equal(v, pc[k]) for k, v in stats0.items())
+            rows.append(f"{opt}{' bn' if bn else ''} {diff:.1e}")
+            check(step.last_reason is None and step.cache_size() == 2
+                  and kernels.capture_count() == c0 + 2, f"8e (b) {opt} "
+                  f"bn={bn}: reason {step.last_reason}, "
+                  f"{step.cache_size()} graphs, "
+                  f"{kernels.capture_count() - c0} captures")
+            check(diff == 0.0, f"8e (b) {opt} bn={bn}: compiled and eager "
+                  f"differ by {diff}")
+            check(moved, f"8e (b) {opt} bn={bn}: the running statistics "
+                  "did not move")
+            step.release()
+    net = compiled_mlp(torch, 4)
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": .05})
+    amp.init_trainer(tr, loss_scaler=amp.LossScaler(
+        init_scale=1e39, target_dtype="float16"))
+    step = tr.compile_step(lambda x, y: loss_fn(net(x), y))
+    before = params_of(net)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for s in range(2):
+            step(X[s], Y[s])
+    after = params_of(net)
+    check(all(torch.equal(before[k], after[k]) for k in before) and
+          tr._step_count == 0 and step.cache_size() == 1,
+          "8e (b): a float16 overflow moved a weight or a step")
+    log("8e (b): the reference's MLP cases, compiled vs eager on the card "
+        f"(5 steps, lr and batch changes, then tails 20, 9, 19), max "
+        f"|diff| of losses and weights: {', '.join(rows)}; one replay a "
+        "steady step, 2 captures, cache_size 2; BN statistics moved; a "
+        f"forced f16 overflow (scale 1e39 -> {tr._amp_loss_scaler.loss_scale:g}"
+        ") left every weight and the step count")
+
+
+def compiled_summary(torch, step, times, prof, wall, batch, unit):
+    """Step ms (median of the timed steps but the first), rate, peak
+    GB, profiled device ms a step, idle, capture seconds and the graph
+    pool's GB of a compiled step's run."""
+    share = report_profile(prof, wall, 2)
+    step_ms = float(np.median(times[1:])) * 1e3
+    return {"step_ms": step_ms, unit: batch / step_ms * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device_ms": device_rows(prof)[1] / 1e3 / 2,
+            "idle": None if share is None else 1 - share,
+            "capture_s": sum(step.capture_seconds.values()),
+            "pool_gb": step.graph_pool_bytes() / 1e9,
+            "first_ms": times[0] * 1e3}
+
+
+def beside(label, got, eager, unit):
+    def fmt(v, f):
+        return "not measured" if v is None else format(v, f)
+    log(f"{label}: compiled step {fmt(got['step_ms'], '.2f')} ms (eager "
+        f"{fmt(eager.get('step_ms'), '.2f')}), {unit} "
+        f"{fmt(got[unit], '.1f')} (eager {fmt(eager.get(unit), '.1f')}), "
+        f"profiled device ms a step {fmt(got['device_ms'], '.2f')} (eager "
+        f"{fmt(eager.get('device_ms'), '.2f')}), idle "
+        f"{fmt(got['idle'], '.3f')} (eager {fmt(eager.get('idle'), '.3f')}),"
+        f" peak GB {got['peak_gb']:.2f} (eager "
+        f"{fmt(eager.get('peak_gb'), '.2f')}); warm run + capture "
+        f"{got['capture_s']:.2f}s (first call {got['first_ms']:.0f} ms), "
+        f"graph pool {got['pool_gb']:.2f} GB")
+    log(f"8e row {label}: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in got.items()}))
+
+
+def profiled(torch, fn, batches):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for b in batches:
+            fn(*b)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return prof, wall
+
+
+def run_compiled_bert(torch, rng, kernels, use_amp, cfg=BERT_BASE,
+                      batch=BERT_BATCH, seqlen=BERT_T, steps=BERT_STEPS):
+    """8e (c): BERT-base as phase 8 trains it, through ``compile_step``
+    (f32 with TF32 off, or under ``amp.init()`` bf16): one compiled step
+    against one eager step from the same weights at dropout 0 (the loss,
+    and each parameter's gradient as Adam's first moment after the
+    step, to phase 8's tolerances), then ``steps`` steps at dropout 0.1
+    with falling loss, one replay a step after the first, 12 launches a
+    replay of each flash kernel and one update launch, fresh dropout
+    masks at each replay, and two profiled steps. Returns the launch
+    counts of the timed steps."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.ops.flash_attention import KERNEL_NAMES, kernel_name
+    label = "8e (c) bert" + (" amp bf16" if use_amp else " f32")
+    vocab, layers = cfg["vocab_size"], cfg["num_layers"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    data = bert_batches(torch, rng, steps + 3, vocab, batch, seqlen, DEVICE)
+    if use_amp:
+        data = [(x.int(), y, w, vl) for x, y, w, vl in data]
+        amp.init()
+    names = [kernel_name(n, torch.bfloat16) if use_amp else n
+             for n in KERNEL_NAMES]
+    loss_tol = AMP_LOSS_REL_TOL if use_amp else BERT_LOSS_REL_TOL
+    grad_tol = AMP_GRAD_REL_TOL if use_amp else BERT_GRAD_REL_TOL
+    try:
+        def make(dropout):
+            net = make_bert_mlm(dropout, **cfg)
+            net.initialize(Xavier(), device=DEVICE,
+                           generator=torch.Generator().manual_seed(0))
+            with ag.pause():
+                mlm_loss(net, loss_fn, data[0], vocab)
+            tr = gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": BERT_LR})
+            if use_amp:
+                amp.init_trainer(tr)
+            return net, tr
+        # one step each from the same weights, dropout 0
+        (net_e, tr_e), (net_c, tr_c) = make(0.0), make(0.0)
+        with ag.record():
+            le = mlm_loss(net_e, loss_fn, data[0], vocab)
+        ag.backward(le)
+        tr_e.step(batch)
+        step = tr_c.compile_step(
+            lambda *d: mlm_loss(net_c, loss_fn, d, vocab), buckets=False)
+        lc = float(step(*data[0]))
+        le = float(le.detach())
+        loss_rel = abs(lc - le) / abs(le)
+        worst = (0.0, "")
+        se, sc = tr_e._updaters[0].states, tr_c._updaters[0].states
+        names_e = [p.name for p in tr_e._params]
+        for i in se:
+            m_e, m_c = se[i][0], sc[i][0]
+            if float(m_e.norm()) > 0:
+                worst = max(worst, (norm_rel(m_c, m_e), names_e[i]))
+        log(f"{label}: one compiled step vs one eager step, same weights, "
+            f"dropout 0: loss {lc:.6f} vs {le:.6f} (relative "
+            f"{loss_rel:.3e}, tol {loss_tol}); gradients through the "
+            f"update (Adam's first moment, norm-relative) worst "
+            f"{worst[0]:.3e} ({worst[1]}; tol {grad_tol})")
+        check(step.last_reason is None, f"{label}: fell back "
+              f"({step.last_reason})")
+        check(loss_rel <= loss_tol and worst[0] <= grad_tol,
+              f"{label}: the compiled step disagrees with the eager step")
+        step.release()
+        del net_e, tr_e, net_c, tr_c, step
+        torch.cuda.empty_cache()
+        # training at dropout 0.1
+        net, tr = make(0.1)
+        probe = {}
+        drop = next(m for m in net.modules() if isinstance(m, nn.Dropout))
+        torch.nn.Module.register_forward_hook(
+            drop, lambda m, i, o: probe.__setitem__("out", o))
+        step = tr.compile_step(
+            lambda *d: mlm_loss(net, loss_fn, d, vocab), buckets=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        c0, b0 = kernels.capture_count(), None
+        losses, times, masks = [], [], []
+        for i, d in enumerate(data[1:1 + steps]):
+            t0 = time.monotonic()
+            loss = step(*d)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            losses.append(float(loss))
+            if i == 0:
+                b0 = kernels.build_count()
+            if i in (1, 2):
+                masks.append((probe["out"] == 0).clone())
+        launches = kernels.launch_counts()
+        check(step.last_reason is None and step.replays == steps - 1
+              and kernels.capture_count() == c0 + 1
+              and step.cache_size() == 1
+              and kernels.build_count() == b0,
+              f"{label}: reason {step.last_reason}, {step.replays} replays "
+              f"in {steps} steps, {kernels.capture_count() - c0} captures")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{label}: losses {losses}")
+        for name in names:
+            check(launches.get(name, 0) == layers * steps, f"{label}: "
+                  f"{name} launched {launches.get(name, 0)} times in "
+                  f"{steps} steps (the first a warm run, the rest "
+                  f"replays), expected {layers} each")
+        check(launches.get("adam_update", 0) == steps, f"{label}: "
+              f"adam_update launched {launches.get('adam_update', 0)} "
+              f"times in {steps} steps")
+        check(not torch.equal(masks[0], masks[1]), f"{label}: two replays "
+              "drew the same dropout mask")
+        prof, wall = profiled(torch, step, data[1 + steps:3 + steps])
+        got = compiled_summary(torch, step, times, prof, wall,
+                               batch * seqlen, "tokens_s")
+        log(f"{label}: {steps} Adam steps (dropout 0.1): losses "
+            + " ".join(f"{v:.4f}" for v in losses) + f"; dropout masks of "
+            f"two replays differ in {int((masks[0] != masks[1]).sum())} "
+            f"of {masks[0].numel()} entries; launches {launches}")
+        beside(label, got, EAGER_ROWS.get("bert amp" if use_amp
+                                          else "bert", {}), "tokens_s")
+        step.release()
+        return launches
+    finally:
+        if use_amp:
+            amp.uninit()
+
+
+def run_compiled_resnet(torch, rng, kernels, bf16):
+    """8e (d): ResNet-50 v1 exactly as ``bench.py`` builds and trains it,
+    through ``compile_step``: bf16 NHWC with the s2d stem at batch 128
+    (``bf16``) or f32 NCHW at batch 32; bench.py's loss (the per-sample
+    NLL of the f32 log-softmax through ``pick``), SGD lr 1e-3 momentum
+    0.9. RESNET_STEPS steps: no fallback, finite losses, one replay a
+    step after the first, the update launches of a step (two in bf16:
+    the bf16 weights and the f32 BatchNorm group), then two profiled
+    steps. Returns the launch counts of the timed steps."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.initializer import Xavier
+    nd.random.seed(0)
+    if bf16:
+        label, batch, layout = "8e (d) bf16 NHWC s2d", RESNET_BF16_BATCH, \
+            "NHWC"
+        net = vision.resnet50_v1(layout="NHWC", stem_s2d=True,
+                                 prefix="r50e_")
+        shape = (1, 224, 224, 3)
+    else:
+        label, batch, layout = "8e (d) f32 NCHW", RESNET_F32_BATCH, "NCHW"
+        net = vision.resnet50_v1(prefix="r50f_")
+        shape = (1, 3, 224, 224)
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    with ag.pause():
+        net(torch.ones(shape, device=DEVICE))
+    if bf16:
+        net.cast("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_SGD))
+    step = trainer.compile_step(lambda x, y: resnet_loss(nd, net, x, y))
+    data = resnet_data(torch, rng, RESNET_STEPS + 2, batch, layout=layout,
+                       dtype=torch.bfloat16 if bf16 else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    c0 = kernels.capture_count()
+    losses, times = [], []
+    for x, y in data[:-2]:
+        t0 = time.monotonic()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(loss.mean().asnumpy()))
+    launches = kernels.launch_counts()
+    groups = ("sgd_mom_update", "sgd_mom_update.bf16") if bf16 else \
+        ("sgd_mom_update",)
+    check(step.last_reason is None and step.replays == RESNET_STEPS - 1
+          and kernels.capture_count() == c0 + 1, f"{label}: reason "
+          f"{step.last_reason}, {step.replays} replays, "
+          f"{kernels.capture_count() - c0} captures")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    for g in groups:
+        check(launches.get(g, 0) == RESNET_STEPS, f"{label}: {g} launched "
+              f"{launches.get(g, 0)} times in {RESNET_STEPS} steps")
+    prof, wall = profiled(torch, step, data[-2:])
+    got = compiled_summary(torch, step, times, prof, wall, batch,
+                           "images_s")
+    log(f"{label}: {RESNET_STEPS} SGD-momentum steps at batch {batch}: "
+        "losses " + " ".join(f"{v:.4f}" for v in losses)
+        + f"; update launches {[launches.get(g, 0) for g in groups]}")
+    eager = EAGER_ROWS.get("8d (c) bf16 NHWC s2d" if bf16
+                           else "8d (b) f32 NCHW", {})
+    beside(label, got, eager, "images_s")
+    step.release()
+    del net, trainer, step, data
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_lora_finetune_phase(torch, rng, kernels):
+    """8e (e): ``LoRAFineTuneJob`` on the f32 serving decoder's frozen
+    base (GPT-2-small widths, seeded weights) beside an ``LLMServer``
+    over a bank of ``LORA_BANK``'s geometry: ``AdapterFineTunePublisher``
+    rounds of FT_STEPS compiled steps each, then ``run_once``'s publish;
+    the stream served under the adapter changes between two published
+    versions, the base rows' streams do not; the job's step is one
+    capture and one replay a step after the first. Returns the launch
+    counts of the rounds and their serving."""
+    from mxnet_tpu_torch.convert import params_from_numpy
+    from mxnet_tpu_torch.serving.adapters import (
+        AdapterBank, AdapterFineTunePublisher, LoRAFineTuneJob)
+    from mxnet_tpu_torch.serving.llm import LLMServer, TinyDecoder
+    cfg = GPT2_SMALL
+    model = TinyDecoder(device=DEVICE, **cfg)
+    params = params_from_numpy(model.init_params_numpy(0), DEVICE)
+    bank = AdapterBank(cfg["num_layers"], cfg["d_model"], device=DEVICE,
+                       **LORA_BANK)
+    server = LLMServer(model, params, name="gpt2-finetune",
+                       max_seqs=MAX_SEQS, block_size=BLOCK_SIZE,
+                       adapter_bank=bank, device=DEVICE)
+    warm_server(torch, server, "8e (e)")
+    server.start()
+    job = LoRAFineTuneJob(model, params, "ft", rank=LORA_BANK["page_rank"],
+                          learning_rate=FT_LR, seed=5)
+    losses = []
+
+    def train_step():
+        losses.append(job.step(batch_size=8))
+    # published at FT_ALPHA: the few steps' factors move the served
+    # logits by a visible amount
+    pub = AdapterFineTunePublisher(bank, job.name, train_step, job.get_ab,
+                                   steps_per_publish=FT_STEPS,
+                                   alpha=FT_ALPHA)
+    prompts = [rng.randint(0, cfg["vocab_size"], size=n).tolist()
+               for n in FT_PROMPTS]
+    kernels.reset_launch_counts()
+    streams = []
+    for _ in range(2):
+        version = pub.run_once()
+        res, _, _ = serve_lora(torch, server, prompts, list(FT_ADAPTERS))
+        streams.append([r.tokens for r in res])
+    launches = kernels.launch_counts()
+    server.shutdown()
+    step = job.step_fn
+    changed = [a != b for a, b, n in zip(*streams, FT_ADAPTERS)
+               if n is not None]
+    same = [a == b for a, b, n in zip(*streams, FT_ADAPTERS) if n is None]
+    log(f"8e (e): LoRA fine-tune at GPT-2-small widths, rank "
+        f"{job.rank}: {2 * FT_STEPS} compiled steps, losses "
+        + " ".join(f"{v:.4g}" for v in losses) + f"; published versions "
+        f"up to {version}; adapter rows' streams changed {changed}, base "
+        f"rows' unchanged {same}; {step.replays} replays, "
+        f"{step.cache_size()} graph")
+    check(step.last_reason is None and step.cache_size() == 1 and
+          step.replays == 2 * FT_STEPS - 1, f"8e (e): the job's step "
+          f"(reason {step.last_reason}, {step.cache_size()} graphs, "
+          f"{step.replays} replays)")
+    check(all(np.isfinite(losses)), "8e (e): a non-finite fine-tune loss")
+    check(any(changed), "8e (e): no stream under the adapter changed "
+          "between the published versions")
+    check(all(same), "8e (e): a base row's stream changed")
+    return launches
+
+
+def run_compiled_phase(torch, rng, kernels):
+    """8e: the compiled step — (a) the hybridize sweep and ResNet-50
+    eval, (b) the reference's MLP cases, (c) BERT-base f32 and AMP bf16,
+    (d) ResNet-50 as bench.py trains it, (e) the LoRA fine-tune job.
+    Returns the launch counts of (c)-(e)."""
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    t0 = time.monotonic()
+    run_hybridize_sweep(torch, rng, kernels)
+    run_compiled_mlp_cases(torch, kernels)
+    log(f"time: 8e (a)-(b) {time.monotonic() - t0:.1f}s")
+    for use_amp in (False, True):
+        add(run_compiled_bert(torch, rng, kernels, use_amp))
+        torch.cuda.empty_cache()
+    log(f"time: 8e (c) {time.monotonic() - t0:.1f}s")
+    for bf16 in (False, True):
+        add(run_compiled_resnet(torch, rng, kernels, bf16))
+    log(f"time: 8e (d) {time.monotonic() - t0:.1f}s")
+    add(run_lora_finetune_phase(torch, rng, kernels))
+    torch.cuda.empty_cache()
+    return counts
 
 
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
@@ -8366,6 +9001,11 @@ def main():
     results.append(update_row)
     torch.cuda.empty_cache()
     lap("8d vision path")
+    # 8e. the compiled step: hybridize as CUDA graphs, compile_step on the
+    # MLP cases, BERT-base, ResNet-50 and the LoRA fine-tune job (its own
+    # generator, as 5b)
+    add(run_compiled_phase(torch, np.random.RandomState(28), kernels))
+    lap("8e compiled step")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -40,7 +40,10 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   class, ``autograd`` (``backward``, ``grad``, ``mark_variables``),
   ``mx.random`` (:mod:`~mxnet_tpu_torch._rng`'s ``(seed, position)``
   draws) and the elementwise, reduction, shape, linalg, random and nn
-  op families, with the multi-tensor update tail on the update kernel.
+  op families, with the multi-tensor update tail on the update kernel;
+- the compiled step (:mod:`~mxnet_tpu_torch.jit`): ``hybridize()`` as a
+  ``CachedOp`` of CUDA graphs and ``Trainer.compile_step`` as one graph
+  replay a training step.
 
 See ROADMAP.md for what remains.
 
@@ -66,14 +69,13 @@ __all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc",
 # ported raise AttributeError naming their ROADMAP.md item.
 _LAZY_MODULES = ("gluon", "optimizer", "initializer", "lr_scheduler",
                  "amp", "contrib", "error", "rtc", "deploy", "resilience",
-                 "serving", "observability")
+                 "serving", "observability", "jit")
 _NOT_PORTED = {name: "§1 item 14" for name in (
     "numpy", "numpy_extension", "symbol", "module", "metric", "io",
     "kvstore", "image", "parallel", "profiler", "callback", "test_utils",
     "util", "runtime", "recordio", "executor", "monitor", "model",
     "operator", "onnx", "native", "library", "visualization", "engine",
     "attribute", "name", "rnn")}
-_NOT_PORTED["jit"] = "§1 item 13b"
 _ALIAS = {"np": "numpy", "npx": "numpy_extension", "sym": "symbol",
           "viz": "visualization", "mod": "module", "kv": "kvstore"}
 

@@ -8,6 +8,22 @@ from ``(seed, position)`` (:func:`next_generator`): nothing reads or
 moves torch's global generators, and no generator is shared between
 draws. JAX's threefry bits are not reproduced: a seed gives the same
 stream in this package on one device, not the JAX package's numbers.
+
+A compiled region (a hybridized block's CUDA graph, a compiled training
+step) draws from one generator of its own instead, the counterpart of
+the reference's ``push_trace_key``/``pop_trace_key``: between
+:func:`push_trace_generator` and :func:`pop_trace_generator`, every draw
+on this thread through :func:`next_generator` (``nd.Dropout``,
+``nd.random.*`` inside a block) takes the pushed generator and reserves
+no position. A generator seeded on the host per draw would be frozen
+into a graph at its capture, so every replay would draw the capture's
+numbers; the pushed generator is registered with the graph
+(``CUDAGraph.register_generator_state``), so each replay advances its
+Philox offset and draws anew. The region itself advances the draw
+position once per call (:func:`reserve_draw`), as the reference's step
+takes one key a call, so a checkpoint's RNG entry keeps its meaning.
+gluon's ``nn.Dropout`` draws from torch's default generator of the
+device (``ops/nn.py`` ``Dropout``), which a capture registers itself.
 """
 from __future__ import annotations
 
@@ -17,7 +33,8 @@ import numpy as np
 import torch
 
 __all__ = ["seed", "get_state", "set_state", "next_generator",
-           "reserve_draw", "host_rng"]
+           "reserve_draw", "host_rng", "push_trace_generator",
+           "pop_trace_generator"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -46,6 +63,8 @@ class _Counter:
 _seed = 0
 _counter = _Counter()
 _host_rng = None
+# the generator of the compiled region running on this thread, if any
+_trace = threading.local()
 
 
 def seed(seed_state: int, ctx=None):
@@ -93,8 +112,29 @@ def generator_for(seed_state, position, device="cpu"):
 
 
 def next_generator(device="cpu"):
-    """A generator for the next draw, on ``device``."""
+    """A generator for the next draw, on ``device``: inside a compiled
+    region on this thread, the region's generator (if it is on
+    ``device``)."""
+    gen = getattr(_trace, "gen", None)
+    if gen is not None:
+        want = torch.device(device)
+        if gen.device.type == want.type and want.index in (
+                None, gen.device.index):
+            return gen
     return generator_for(_seed, reserve_draw(), device)
+
+
+def push_trace_generator(gen):
+    """Make ``gen`` the generator of every draw on this thread until
+    :func:`pop_trace_generator`; returns the one it replaces."""
+    old = getattr(_trace, "gen", None)
+    _trace.gen = gen
+    return old
+
+
+def pop_trace_generator(old):
+    """Restore the generator :func:`push_trace_generator` replaced."""
+    _trace.gen = old
 
 
 def host_rng():

@@ -155,16 +155,22 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         # NDArrays are unwrapped once, here: blocks compute on tensors
         args, kwargs = unwrap(args), unwrap(kwargs)
+        call = self._forward_call()
         if not (self._gluon_pre_hooks or self._gluon_hooks):
-            return super().__call__(*args, **kwargs)
+            return call(*args, **kwargs)
         # hooks see every input: keyword inputs appended as a dict
         hook_args = args + (kwargs,) if kwargs else args
         for hook in list(self._gluon_pre_hooks.values()):
             hook(self, hook_args)
-        out = super().__call__(*args, **kwargs)
+        out = call(*args, **kwargs)
         for hook in list(self._gluon_hooks.values()):
             hook(self, hook_args, out)
         return out
+
+    def _forward_call(self):
+        """What a call runs: ``torch.nn.Module``'s call of
+        :meth:`forward` (a hybridized block: its :class:`CachedOp`)."""
+        return super().__call__
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -247,27 +253,44 @@ class Block(torch.nn.Module):
         fn(self)
         return self
 
-    def initialize(self, init=None, device=None, generator=None):
+    def initialize(self, init=None, device=None, generator=None,
+                   force_reinit=False):
         """Initialize every parameter of the tree on ``device`` (default:
         the card); ``init`` (default ``Uniform()``) serves parameters
-        without their own initializer. Draws come from ``generator``."""
-        self.collect_params().initialize(init, device, generator)
+        without their own initializer. Draws come from ``generator``.
+        ``force_reinit`` draws initialized parameters anew (new tensors:
+        the tree's CUDA graphs are dropped)."""
+        self.collect_params().initialize(init, device, generator,
+                                         force_reinit=force_reinit)
+        if force_reinit:
+            self._drop_graphs()
+
+    def _drop_graphs(self):
+        """Drop the CUDA graphs of every hybridized block of the tree:
+        they replay on the parameters' addresses, which just changed."""
+        def drop(block):
+            if isinstance(block, HybridBlock):
+                block._cached_op = None
+        self.apply(drop)
 
     def cast(self, dtype):
         """Cast every parameter of the tree to ``dtype`` (see
-        :meth:`.Parameter.cast`)."""
+        :meth:`.Parameter.cast`); drops the tree's CUDA graphs."""
         for child in self._children_blocks():
             child.cast(dtype)
         for param in self.params.values():
             param.cast(dtype)
+        self._drop_graphs()
 
     def zero_grad(self):
         """Set every gradient of the tree to zero, in place."""
         self.collect_params().zero_grad()
 
     def reset_ctx(self, ctx):
-        """Move every parameter of the tree to device ``ctx``."""
+        """Move every parameter of the tree to device ``ctx`` (dropping
+        the tree's CUDA graphs)."""
         self.collect_params().reset_ctx(ctx)
+        self._drop_graphs()
 
     # ------------------------------------------------------------- state --
     def save_parameters(self, filename, deduplicate=False):
@@ -296,6 +319,10 @@ class Block(torch.nn.Module):
         params = self._collect_params_with_prefix()
         if not loaded and not params:
             return
+        if any(p._data is None for p in params.values()):
+            # a parameter without data is made anew: graphs over the
+            # tree would read stale addresses
+            self._drop_graphs()
         if not any("." in k for k in loaded):
             # legacy ParameterDict-format file (full-prefix names)
             del loaded
@@ -372,12 +399,13 @@ class Block(torch.nn.Module):
         return ModelServer(self, **server_kwargs)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity; compiles nothing in this slice.
-
-        Blocks run eagerly, one PyTorch call per operation. The JAX
-        package traces a hybridized block into one XLA program; the
-        port's counterpart (a CachedOp as a CUDA graph per input
-        signature) is later work (ROADMAP.md §1 item 13b)."""
+        """Hybridize (or, ``active=False``, un-hybridize) every
+        :class:`HybridBlock` of the tree: on the card a hybridized
+        block's call replays a CUDA graph per input signature
+        (:class:`CachedOp`); a plain ``Block`` only passes the flag to
+        its children, as in the reference."""
+        for child in self._children_blocks():
+            child.hybridize(active, **kwargs)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -470,12 +498,407 @@ def _brief_print_list(lst, limit=7):
     return ", ".join(f"'{s}'" for s in lst)
 
 
+def _flatten(obj):
+    """(leaves, structure) of nested lists and tuples: tensors are
+    ``"T"`` leaves, NDArrays ``"N"`` leaves (their tensors), anything
+    else (a dict too, as in the reference) an opaque ``"O"`` leaf."""
+    leaves = []
+
+    def walk(o):
+        if isinstance(o, NDArray):
+            leaves.append(o._data)
+            return "N"
+        if isinstance(o, torch.Tensor):
+            leaves.append(o)
+            return "T"
+        if isinstance(o, (list, tuple)):
+            return ("L" if isinstance(o, list) else "U",
+                    tuple(walk(v) for v in o))
+        leaves.append(o)
+        return "O"
+    return leaves, walk(obj)
+
+
+def _regroup(leaves, fmt):
+    """Rebuild :func:`_flatten`'s structure from its leaves (an ``"N"``
+    leaf as an NDArray over it)."""
+    it = iter(leaves)
+
+    def build(f):
+        if f == "N":
+            return NDArray(next(it))
+        if isinstance(f, str):
+            return next(it)
+        kids = [build(c) for c in f[1]]
+        return kids if f[0] == "L" else tuple(kids)
+    return build(fmt)
+
+
+class _SuspendTLS(threading.local):
+    def __init__(self):
+        self.blocks = set()
+
+
+_suspend_tls = _SuspendTLS()
+
+
+class _suspend_hybridization:
+    """Run a block's forward through the eager path instead of its
+    CachedOp, for the block and every descendant, on this thread only
+    (a per-thread set of block ids, not a flip of the shared flag: other
+    threads calling the same net keep replaying its graphs; reference:
+    ``src/imperative/cached_op_threadsafe.h``)."""
+
+    def __init__(self, block):
+        self._block = block
+        self._added = []
+
+    def __enter__(self):
+        suspended = _suspend_tls.blocks
+
+        def _save(b):
+            if isinstance(b, HybridBlock) and id(b) not in suspended:
+                suspended.add(id(b))
+                self._added.append(id(b))
+        self._block.apply(_save)
+
+    def __exit__(self, *exc):
+        _suspend_tls.blocks.difference_update(self._added)
+
+
+class _Graphs:
+    """One signature's CUDA graphs: the forward (and, for a call under
+    ``autograd.record()``, the backward, captured as a pair in one
+    pool), its static inputs and outputs, and the lock that serializes
+    its replays."""
+
+    __slots__ = ("static_in", "out_fmt", "outs", "tensor_idx", "fwd",
+                 "bwd", "gouts", "grads", "grad_of", "diff_idx", "lock",
+                 "layout", "gen", "generation")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.bwd = None
+        self.generation = 0
+
+
+class _Replay(torch.autograd.Function):
+    """A recorded call of a captured pair: the forward graph's replay,
+    then, at backward, the backward graph's. Inputs: the graphs, the
+    call's tensors, then the parameters that take gradients."""
+
+    @staticmethod
+    def forward(ctx, g, *tensors):
+        with g.lock:
+            for s, t in zip(g.static_in, tensors[:len(g.static_in)]):
+                s.copy_(t)
+            g.fwd.replay()
+            g.generation += 1
+            ctx.g, ctx.generation = g, g.generation
+            outs = tuple(g.outs[i].clone() for i in g.tensor_idx)
+        ctx.mark_non_differentiable(*[
+            o for k, o in zip(g.tensor_idx, outs) if k not in g.diff_idx])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        g = ctx.g
+        with g.lock:
+            if g.generation != ctx.generation:
+                raise RuntimeError(
+                    "a hybridized block's forward graph was replayed again "
+                    "before the backward of an earlier call: run backward "
+                    "before the next recorded call, or hybridize(active="
+                    "False) for this use")
+            for s, i in zip(g.gouts, g.diff_idx):
+                go = gouts[g.tensor_idx.index(i)]
+                if go is None:
+                    s.zero_()
+                else:
+                    s.copy_(go)
+            g.bwd.replay()
+            grads = [None if j is None else g.grads[j].clone()
+                     for j in g.grad_of]
+        return (None,) + tuple(grads)
+
+
+class CachedOp:
+    """A hybridized block's call (mirrors the reference's ``CachedOp``,
+    ``mxnet_tpu/gluon/block.py``): one CUDA graph per signature on the
+    card, the eager forward on the CPU.
+
+    A signature is the reference's key, ``(training, input structure,
+    opaque arguments)``, plus whether the call records for autograd, the
+    AMP state, and each input tensor's shape, dtype, device and
+    ``requires_grad``. Non-array arguments must be hashable (a
+    ``TypeError`` otherwise). ``signatures`` counts the signatures seen.
+
+    On the card the first call of a signature resolves deferred shapes
+    (one eager pass in predict mode), makes a warm run on a side stream
+    (it builds every kernel; its writes to parameters, such as running
+    statistics, are undone), captures the graph(s) through
+    :func:`~mxnet_tpu_torch.kernels.capture` and replays; later calls
+    copy their tensors into the graph's static inputs, replay under the
+    signature's lock and return copies of its outputs. Under
+    ``autograd.record()`` the forward and the backward are captured as a
+    pair (``torch.autograd.grad`` over the inputs that require gradients
+    and the block's parameters), replayed by an autograd function: its
+    backward must run before the signature's next recorded call. The
+    parameters are read by address: an in-place change (``set_data``,
+    a BatchNorm's running statistics) is seen by the next replay, and a
+    parameter that moves drops the graphs (a changed address is checked
+    at every call). Draws through :mod:`~mxnet_tpu_torch._rng` inside
+    the block take one generator registered with the graph; the call
+    advances the draw position once.
+
+    The graphs are bypassed (the eager forward runs) inside another
+    capture, inside a compiled training step, under
+    ``gluon.parameter.param_values`` (the graphs read the parameters'
+    own tensors) and on the CPU."""
+
+    def __init__(self, block, static_alloc=False, static_shape=False):
+        self._block = block
+        self._entries = {}          # signature -> _Graphs, or None (CPU)
+        self._trace_lock = threading.Lock()
+        self._stream = None
+        self._pool = None
+        self._param_list = None
+
+    @property
+    def signatures(self):
+        return len(self._entries)
+
+    @property
+    def graphs(self):
+        """CUDA graphs held (a recorded signature's pair counts two)."""
+        return sum(0 if g is None else 1 + (g.bwd is not None)
+                   for g in self._entries.values())
+
+    def _params(self):
+        # snapshot once, as the reference's CachedOp; hybridize() and
+        # cast() make a new CachedOp
+        if self._param_list is None:
+            self._param_list = list(self._block.collect_params().values())
+        return self._param_list
+
+    def _eager(self, args, kwargs):
+        with _suspend_hybridization(self._block):
+            return torch.nn.Module.__call__(self._block, *args, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        from .. import _rng, autograd, jit
+        from ..ops import invoke as _invoke
+        from .parameter import substituted
+        leaves, fmt = _flatten((args, tuple(kwargs.values())))
+        tensors = [v for v in leaves if isinstance(v, torch.Tensor)]
+        opaque = tuple(v for v in leaves if not isinstance(v, torch.Tensor))
+        fmt = (fmt, tuple(kwargs))
+        training = autograd.is_training()
+        recording = torch.is_grad_enabled() and (
+            any(t.requires_grad for t in tensors) or any(
+                p._data is not None and p._data.requires_grad
+                for p in self._params()))
+        amp = _invoke._AMP
+        key = (training, recording, fmt, opaque,
+               (amp["active"], amp["dtype"] if amp["active"] else None))
+        try:
+            hash(key)
+        except TypeError:
+            raise TypeError(
+                "hybridized blocks require non-array arguments to be "
+                f"hashable (got {opaque!r}); pass arrays or hashable "
+                "constants, or skip hybridize() for this block") from None
+        device = tensors[0].device if tensors else None
+        if device is None or device.type != "cuda" or \
+                jit.in_compiled_step() or substituted() or \
+                torch.cuda.is_current_stream_capturing():
+            if device is None or device.type != "cuda":
+                self._resolve_deferred(args, kwargs)
+                self._entries.setdefault(key + self._sig(tensors), None)
+            return self._eager(args, kwargs)
+        sig = key + self._sig(tensors)
+        pos = _rng.reserve_draw()            # one draw position a call
+        g = self._entries.get(sig)
+        if g is not None and g.layout != self._layout():
+            self._entries = {}               # a parameter moved
+            g = None
+        if g is None:
+            with self._trace_lock:
+                g = self._entries.get(sig)
+                if g is None:
+                    self._resolve_deferred(args, kwargs)
+                    g = self._capture(args, kwargs, tensors, recording,
+                                      pos)
+                    self._entries[sig] = g
+        if recording:
+            params = [p._data for p in self._params()
+                      if p._data is not None and p._data.requires_grad]
+            outs = _Replay.apply(g, *tensors, *params)
+        else:
+            with g.lock:
+                for s, t in zip(g.static_in, tensors):
+                    s.copy_(t)
+                g.fwd.replay()
+                outs = tuple(g.outs[i].clone() for i in g.tensor_idx)
+        flat = list(g.outs)
+        for i, o in zip(g.tensor_idx, outs):
+            flat[i] = o
+        return _regroup(flat, g.out_fmt)
+
+    @staticmethod
+    def _sig(tensors):
+        return tuple((tuple(t.shape), t.dtype, t.device, t.requires_grad)
+                     for t in tensors)
+
+    def _layout(self):
+        return tuple(p._data.data_ptr() if p._data is not None else 0
+                     for p in self._params())
+
+    def _resolve_deferred(self, args, kwargs):
+        """Deferred shapes resolve through one eager pass in predict mode
+        (no running-statistics writes), as the reference's warm-up."""
+        from .. import autograd
+        params = self._params()
+        if any(p._data is None and (p.shape is None or 0 in p.shape)
+               for p in params):
+            with autograd.pause(train_mode=False):
+                self._eager(args, kwargs)
+        for p in params:
+            p._finish_deferred_init()
+
+    def _capture(self, args, kwargs, tensors, recording, pos):
+        """Warm run, capture (a pair when ``recording``) and the static
+        buffers of one signature; its generator is draw ``pos``'s."""
+        from .. import _rng, autograd, kernels
+        from .parameter import track_access
+        block = self._block
+        dev = tensors[0].device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        g = _Graphs()
+        g.static_in = [torch.empty_like(
+            t, memory_format=torch.contiguous_format).copy_(t.detach())
+            .requires_grad_(t.requires_grad) for t in tensors]
+        g.gen = _rng.generator_for(_rng.get_state()["seed"], pos, dev)
+        leaves, fmt = _flatten((args, tuple(kwargs.values())))
+        names = tuple(kwargs)
+        training = autograd.is_training()
+        params = [p._data for p in self._params()
+                  if p._data is not None and p._data.requires_grad]
+        wrt = [s for s in g.static_in if s.requires_grad] + params
+
+        def forward():
+            it = iter(g.static_in)
+            a, kwv = _regroup([next(it) if isinstance(v, torch.Tensor)
+                               else v for v in leaves], fmt)
+            kw = dict(zip(names, kwv))
+            old = _rng.push_trace_generator(g.gen)
+            try:
+                with autograd._Scope(recording, training):
+                    out = self._eager(a, kw)
+            finally:
+                _rng.pop_trace_generator(old)
+            return _flatten(out)
+
+        def backward(outs, gouts):
+            diff = [outs[i] for i in g.diff_idx]
+            got = torch.autograd.grad(diff, wrt, gouts, allow_unused=True)
+            return list(got)
+
+        def warm():
+            outs, out_fmt = forward()
+            if recording:
+                diff = [i for i, o in enumerate(outs)
+                        if isinstance(o, torch.Tensor) and o.requires_grad]
+                if diff:
+                    g.diff_idx = diff
+                    backward(outs, [torch.ones_like(outs[i]) for i in diff])
+        what = f"hybridized block {block.name!r}"
+        with track_access() as access:
+            kernels.warm(warm, self._stream, what)
+        access.restore()                 # the warm run's writes
+        held = {}
+
+        def capture_fwd():
+            held["outs"], held["fmt"] = forward()
+        g.fwd = kernels.capture(capture_fwd, self._stream, self._pool,
+                                what=what, warmed=True, generators=(g.gen,))
+        outs, g.out_fmt = held["outs"], held["fmt"]
+        g.tensor_idx = [i for i, o in enumerate(outs)
+                        if isinstance(o, torch.Tensor)]
+        g.diff_idx = [i for i in g.tensor_idx if outs[i].requires_grad] \
+            if recording else []
+        g.outs = outs
+        if g.diff_idx:
+            g.gouts = [torch.empty_like(outs[i]) for i in g.diff_idx]
+
+            def capture_bwd():
+                held["grads"] = backward(outs, g.gouts)
+            g.bwd = kernels.capture(capture_bwd, self._stream,
+                                    g.fwd.graph.pool(), what=what + "'s "
+                                    "backward", warmed=True)
+            g.grads = held["grads"]
+            # the capture's autograd graph is done with: drop it, with the
+            # side stream's gradient accumulators it holds
+            g.outs = outs = [o.detach() if isinstance(o, torch.Tensor)
+                             else o for o in outs]
+            n_in = len(wrt) - len(params)
+            pos = iter(range(len(wrt)))
+            g.grad_of = [next(pos) if t.requires_grad else None
+                         for t in g.static_in] + [n_in + j for j in
+                                                  range(len(params))]
+            g.grad_of = [j if j is not None and g.grads[j] is not None
+                         else None for j in g.grad_of]
+        g.layout = self._layout()
+        return g
+
+
 class HybridBlock(Block):
     """A Block written as ``hybrid_forward(F, x, *args, **params)``: ``F``
     is the port's operator namespace on tensors (:class:`_OpNamespace`)
     and ``params`` this block's parameter tensors by attribute name.
     Deferred shapes are inferred from the first input
-    (``_infer_param_shapes``)."""
+    (``_infer_param_shapes``).
+
+    ``hybridize()`` makes the block's calls go through a
+    :class:`CachedOp`: one CUDA graph per input signature on the card
+    (the reference's one XLA program per signature), the eager forward
+    on the CPU. ``hybridize()`` again, ``cast``, ``reset_ctx``,
+    ``initialize(force_reinit=True)`` and a ``load_parameters`` that
+    makes parameters anew drop the graphs."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_op = None
+        self._cached_op_lock = threading.Lock()
+        self._flags = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        self._cached_op = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def _get_cached_op(self):
+        # double-checked: two threads' first calls must build one
+        # CachedOp (one trace lock)
+        if self._cached_op is None:
+            with self._cached_op_lock:
+                if self._cached_op is None:
+                    self._cached_op = CachedOp(self, **{
+                        k: v for k, v in self._flags.items()
+                        if k in ("static_alloc", "static_shape")})
+        return self._cached_op
+
+    def _forward_call(self):
+        if self._active and id(self) not in _suspend_tls.blocks:
+            return self._get_cached_op()
+        return super()._forward_call()
 
     def infer_shape(self, *args):
         """Infer deferred parameter shapes from inputs."""

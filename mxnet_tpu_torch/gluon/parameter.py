@@ -45,11 +45,55 @@ from ..base import dtype_name, torch_dtype
 from ..ndarray.ndarray import unwrap
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
-           "ParameterDict", "param_values"]
+           "ParameterDict", "param_values", "substituted", "track_access"]
 
 # {Parameter: tensor} that data() returns on this thread instead of the
 # parameter's own tensor (None outside a param_values scope)
 _SUBSTITUTES = threading.local()
+# the _Access of the track_access scope on this thread, if any
+_ACCESS = threading.local()
+
+
+def substituted():
+    """True inside a :func:`param_values` scope on this thread."""
+    return getattr(_SUBSTITUTES, "values", None) is not None
+
+
+class _Access:
+    """What a :func:`track_access` scope saw: ``reads`` (the parameters
+    whose data was read), ``saved`` (each parameter written through
+    ``set_data``, with a copy of its data before the first write) and
+    ``suppress`` (while set, ``set_data`` writes nothing)."""
+
+    __slots__ = ("reads", "saved", "suppress")
+
+    def __init__(self, suppress=False):
+        self.reads = set()
+        self.saved = {}
+        self.suppress = suppress
+
+    def restore(self):
+        """Put back what the scope's writes replaced."""
+        with torch.no_grad():
+            for p, old in self.saved.items():
+                p._data.copy_(old)
+        self.saved.clear()
+
+
+@contextlib.contextmanager
+def track_access(access=None):
+    """On this thread, record into ``access`` (a new ``_Access`` by
+    default; yielded) the parameters read and written in the scope. A
+    compiled region (a hybridized block's graph, a compiled training
+    step) reads its parameters by address: the reads say which addresses
+    its graph depends on, and the saved writes let its warm run be
+    undone."""
+    prev = getattr(_ACCESS, "rec", None)
+    _ACCESS.rec = access = access if access is not None else _Access()
+    try:
+        yield access
+    finally:
+        _ACCESS.rec = prev
 
 
 @contextlib.contextmanager
@@ -144,13 +188,18 @@ class Parameter:
 
     # -------------------------------------------------------------- init --
     def initialize(self, init=None, device=None, default_init=None,
-                   generator=None):
+                   generator=None, force_reinit=False):
         """Materialise the data on ``device`` (default: the card) with
         ``init`` (else this parameter's own ``init``, else
         ``default_init``, else ``Uniform()``); deferred until the first
-        forward while the shape has a 0. A no-op once initialized."""
+        forward while the shape has a 0. A no-op once initialized, unless
+        ``force_reinit``, which draws new data (a new tensor: CUDA graphs
+        over the old one must be dropped, as ``Block.initialize`` does)."""
         if self._data is not None:
-            return
+            if not force_reinit:
+                return
+            if device is None:
+                device = self._data.device
         device = resolve_device("cuda" if device is None else device)
         if init is None:
             init = self.init if self.init is not None else default_init
@@ -214,6 +263,9 @@ class Parameter:
             sub = values.get(self)
             if sub is not None:
                 return sub
+        access = getattr(_ACCESS, "rec", None)
+        if access is not None:
+            access.reads.add(self)
         if self._data is not None:
             return self._data
         if self._deferred_init:
@@ -332,6 +384,12 @@ class Parameter:
         data = torch.as_tensor(unwrap(data))
         self.shape = data.shape
         if self._data is not None:
+            access = getattr(_ACCESS, "rec", None)
+            if access is not None:
+                if access.suppress:
+                    return
+                if self not in access.saved:
+                    access.saved[self] = self._data.detach().clone()
             with torch.no_grad():
                 self._data.copy_(data)
             return
@@ -456,11 +514,13 @@ class ParameterDict:
                     f"different Parameters with the same name '{k}'")
             self._params[k] = v
 
-    def initialize(self, init=None, device=None, generator=None):
+    def initialize(self, init=None, device=None, generator=None,
+                   force_reinit=False):
         """Initialize every parameter: ``init`` is the default for those
         without their own initializer."""
         for v in self._params.values():
-            v.initialize(None, device, init, generator=generator)
+            v.initialize(None, device, init, generator=generator,
+                         force_reinit=force_reinit)
 
     def zero_grad(self):
         for v in self.values():

@@ -19,6 +19,10 @@ whose shape is deferred until the first forward is updated once it
 exists (the JAX Trainer's ``_params_to_init``); until then it is
 skipped.
 
+``compile_step(loss_fn)`` returns a :class:`mxnet_tpu_torch.jit.
+CompiledTrainStep`: forward, backward and this update as one CUDA-graph
+replay a step.
+
 Checkpoints: ``save_states``/``load_states`` write and read the
 optimizer's states alone (atomically); ``save_state``/``restore_state``/
 ``ckpt_wait`` the full training state through the checkpoint stack of
@@ -28,10 +32,12 @@ formats), for a bit-exact resume after a restart.
 from __future__ import annotations
 
 import pickle
+import weakref
 
 import numpy as np
 import torch
 
+from .. import _rng
 from .. import optimizer as opt
 from ..resilience import async_writer as _aw
 from ..resilience import checkpoint as _ckpt
@@ -60,6 +66,8 @@ class Trainer:
         self._params = list(params)
         self._step_count = 0
         self._ckpt_mgrs = {}   # realpath(run_dir) -> CheckpointManager
+        self._compiled_steps = weakref.WeakSet()
+        self._restored_step_state = None
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
@@ -94,6 +102,37 @@ class Trainer:
             self._fused = opt.FusedUpdater(self._optimizer,
                                            self._updaters[0])
         return self._fused
+
+    def compile_step(self, loss_fn, buckets=None, donate=True, remat=None,
+                     mesh=None, param_spec=None):
+        """The WHOLE training step — forward + loss + backward + this
+        optimizer update — as one CUDA-graph replay a call on the card
+        (:class:`mxnet_tpu_torch.jit.CompiledTrainStep`; on the CPU the
+        same step runs eagerly).
+
+        ``loss_fn(*batch)`` is ordinary Python calling the net; it
+        returns the per-sample loss, or a tuple ``(loss, *extras)``. The
+        returned step object replaces the ``record()/backward()/step()``
+        triple::
+
+            step = trainer.compile_step(lambda x, y: loss(net(x), y))
+            for x, y in loader:
+                l = step(x, y)           # one graph replay
+
+        Steps that cannot compile (sparse gradients, optimizers outside
+        the fused set, a host read inside ``loss_fn``,
+        ``grad_req='add'``) fall back to the eager path per step, counted
+        by reason on ``mxtpu_train_step_fallback_total``. ``buckets``
+        pads ragged batches to a few sizes (default
+        ``MXNET_TPU_STEP_BUCKETS``); ``remat`` ('full'/'dots') recomputes
+        the forward in the backward for memory headroom; ``donate`` is
+        accepted (the update is in place anyway). ``mesh``/
+        ``param_spec`` (the reference's SPMD step) are not ported yet
+        and raise ``NotImplementedError`` (ROADMAP.md §1 item 9)."""
+        from ..jit import CompiledTrainStep
+        return CompiledTrainStep(self, loss_fn, buckets=buckets,
+                                 donate=donate, remat=remat, mesh=mesh,
+                                 param_spec=param_spec)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer update of every parameter, gradients rescaled by
@@ -152,7 +191,9 @@ class Trainer:
         directory (reference: ``mxnet_tpu/gluon/trainer.py save_state``):
         parameter values, optimizer slots and update counts, the AMP loss
         scaler's state, torch's CPU and CUDA generator states (dropout
-        draws from them) and the step counter. With :meth:`restore_state`
+        draws from them), the process RNG's ``(seed, draws)``, the step
+        counter and the compiled steps' bucket warmth. With
+        :meth:`restore_state`
         a run resumes bit for bit across a restart.
 
         ``MXNET_TPU_CKPT_SHARDED`` (or ``num_shards=``) writes the
@@ -178,9 +219,17 @@ class Trainer:
         extra = {
             "trainer": "gluon",
             "step_count": self._step_count,
+            "rng": _rng.get_state(),
             "scaler": scaler.state_dict() if scaler is not None else None,
             "param_names": [p.name for p in self._params],
         }
+        # compiled-step bucket warmth rides along, so a resumed run pads
+        # ragged tails to the same buckets (the same numerics for
+        # batch-statistics nets, no cold captures on resume)
+        max_batch = max((s._max_batch for s in self._compiled_steps),
+                        default=0)
+        if max_batch:
+            extra["compiled_step"] = {"max_batch": int(max_batch)}
         mgr = _ckpt.manager_for(self._ckpt_mgrs, run_dir, keep=keep,
                                 num_shards=num_shards)
         return mgr.save(arrays,
@@ -205,8 +254,12 @@ class Trainer:
     def restore_state(self, run_dir):
         """Restore from the newest valid checkpoint under ``run_dir``
         (corrupt or partial ones are skipped); reads the reference's
-        checkpoints too (their RNG entry and ``compiled_step`` entry do
-        not apply here and are ignored). Returns the manifest, whose
+        checkpoints too. The process RNG's ``(seed, draws)`` entry is
+        restored (a compiled step advances it once a call, so a resumed
+        run draws from where the saved one stopped). The
+        ``compiled_step`` entry seeds the bucket warmth of
+        this trainer's compiled steps, live or made later. Returns the
+        manifest, whose
         ``step``/``extra`` tell the loop where to resume. Raises
         ``CheckpointCorruptError`` if nothing restorable exists and
         ``InternalError`` on a missing or mis-shaped parameter."""
@@ -244,9 +297,16 @@ class Trainer:
         extra = manifest.get("extra", {})
         self._step_count = int(extra.get("step_count",
                                          manifest.get("step", 0)))
+        if isinstance(extra.get("rng"), dict) and "draws" in extra["rng"]:
+            _rng.set_state(extra["rng"])
         scaler = getattr(self, "_amp_loss_scaler", None)
         if scaler is not None and extra.get("scaler") is not None:
             scaler.load_state_dict(extra["scaler"])
+        self._restored_step_state = extra.get("compiled_step") or None
+        if self._restored_step_state:
+            mb = int(self._restored_step_state.get("max_batch", 0) or 0)
+            for s in self._compiled_steps:
+                s.seed_bucket_state(mb)
         return manifest
 
 

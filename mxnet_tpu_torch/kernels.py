@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -35,7 +36,7 @@ import time
 
 __all__ = ["SOURCES", "build_all", "library", "rtc_library",
            "launch_counts", "reset_launch_counts", "count_launch",
-           "build_count", "capture_count", "capture", "CapturedGraph",
+           "build_count", "capture_count", "warm", "capture", "CapturedGraph",
            "CaptureError", "check", "require", "stream_handle"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +104,10 @@ _captures = [0]                 # guarded-by: _lock
 _launches = collections.Counter()
 # the launch tally of the graph capture running on this thread, if any
 _capturing = threading.local()
+# capture stream handle -> its tally: a launch from another thread onto a
+# capturing stream (the autograd engine's, running a captured backward)
+# goes to that capture's tally
+_stream_tallies = {}
 # what nvcc/ptxas said for each source (registers, spills), and the
 # seconds its nvcc ran
 build_logs = {}
@@ -121,8 +126,12 @@ def capture_count():
 
 def count_launch(name):
     """One launch of kernel ``name``: counted, or, while this thread
-    captures a graph, tallied for the graph's replays."""
+    captures a graph (or launches onto a stream another thread is
+    capturing), tallied for the graph's replays."""
     tally = getattr(_capturing, "tally", None)
+    if tally is None and _stream_tallies:
+        import torch
+        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
     (_launches if tally is None else tally)[name] += 1
 
 
@@ -307,37 +316,65 @@ class CapturedGraph:
         _launches.update(self.tally)
 
 
-def capture(fn, stream, pool=None, what="the function"):
-    """Capture ``fn()`` into a CUDA graph on the side stream ``stream``
-    and return it as a :class:`CapturedGraph`.
-
-    One eager warm run of ``fn`` on ``stream`` comes first (PyTorch's
-    recipe): it builds and loads every kernel ``fn`` launches, so no
-    build runs inside the capture, and its launches count. Captures
-    that share a graph memory pool ``pool`` (a
-    ``torch.cuda.graph_pool_handle()``; graphs that never replay at once
-    may share one) share ``stream`` too: the stream's library state
-    (cuBLAS's workspace) is set up once, by the first warm run, outside
-    any capture. The capture runs with
-    ``capture_error_mode="thread_local"``, so it may run on a server's
-    thread; its launches go to the graph's tally, not the counters, and
-    it counts once in :func:`capture_count`. The warm run is a real
-    run: what ``fn`` reads must already hold what the caller means, and
-    what it writes stays written. Tensors ``fn`` reads must stay where
-    they are: the graph replays on their addresses. A failed warm run
-    or capture raises :class:`CaptureError` naming ``what``."""
+def warm(fn, stream, what="the function"):
+    """Run ``fn()`` once, eagerly, on the side stream ``stream`` (ordered
+    after the current stream's work, and the current stream after it),
+    as the warm run before a capture on that stream: it builds and loads
+    every kernel ``fn`` launches and sets up the stream's library state
+    (cuBLAS's workspace) outside any capture. Returns what ``fn``
+    returns; an exception raises :class:`CaptureError` naming ``what``."""
     import torch
     current = torch.cuda.current_stream(stream.device)
     stream.wait_stream(current)
     try:
         with torch.cuda.stream(stream):
-            fn()
+            out = fn()
     except Exception as exc:
         raise CaptureError(f"the warm run before the CUDA graph capture "
                            f"of {what} failed: {exc}") from exc
-    current.wait_stream(stream)
+    finally:
+        current.wait_stream(stream)
+    return out
+
+
+def capture(fn, stream, pool=None, what="the function", warmed=False,
+            generators=()):
+    """Capture ``fn()`` into a CUDA graph on the side stream ``stream``
+    and return it as a :class:`CapturedGraph`.
+
+    One eager warm run of ``fn`` on ``stream`` comes first (PyTorch's
+    recipe, :func:`warm`) unless ``warmed`` says the caller made it on
+    ``stream`` already: it builds and loads every kernel ``fn`` launches,
+    so no build runs inside the capture, and its launches count. Captures
+    that share a graph memory pool ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``, or another graph's ``pool()``;
+    graphs that never replay at once may share one) share ``stream``
+    too: the stream's library state (cuBLAS's workspace) is set up once,
+    by the first warm run, outside any capture. ``generators`` (the CUDA
+    generators ``fn`` draws from besides torch's default one, which the
+    capture registers itself) are registered with the graph,
+    so each replay advances their offsets and draws anew. The capture
+    runs with ``capture_error_mode="thread_local"``, so it may run on a
+    server's thread; its launches go to the graph's tally, not the
+    counters, and it counts once in :func:`capture_count`. The warm run
+    is a real run: what ``fn`` reads must already hold what the caller
+    means, and what it writes stays written. Tensors ``fn`` reads must
+    stay where they are: the graph replays on their addresses. A failed
+    warm run or capture raises :class:`CaptureError` naming ``what``."""
+    import torch
+    if not warmed:
+        warm(fn, stream, what)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     _capturing.tally = tally = collections.Counter()
+    handle = getattr(stream, "cuda_stream", None)
+    if handle is not None:
+        _stream_tallies[handle] = tally
+    # no garbage collection inside the capture: a collected graph (say, a
+    # dropped block's) destroys itself with calls a capture forbids
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
@@ -346,7 +383,10 @@ def capture(fn, stream, pool=None, what="the function"):
         raise CaptureError(
             f"CUDA graph capture of {what} failed: {exc}") from exc
     finally:
+        if collecting:
+            gc.enable()
         _capturing.tally = None
+        _stream_tallies.pop(handle, None)
     with _lock:
         _captures[0] += 1
     return CapturedGraph(graph, tally)

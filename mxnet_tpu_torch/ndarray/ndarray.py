@@ -33,6 +33,7 @@ import torch
 
 from .. import autograd
 from .._device import resolve_device
+from ..jit import check_host_read
 from ..base import torch_dtype
 from ..ops.invoke import apply_op
 
@@ -161,7 +162,9 @@ class NDArray:
 
     # ------------------------------------------------------- sync points --
     def asnumpy(self) -> np.ndarray:
-        """A host copy (blocking); bfloat16 comes back as float32."""
+        """A host copy (blocking); bfloat16 comes back as float32. Inside
+        a compiled training step it raises ``jit.HostSyncError``."""
+        check_host_read("NDArray.asnumpy")
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -170,6 +173,7 @@ class NDArray:
     def asscalar(self):
         if self.size != 1:
             raise ValueError("The current array is not a scalar")
+        check_host_read("NDArray.asscalar")
         return self._data.detach().reshape(()).item()
 
     def item(self):
@@ -181,6 +185,7 @@ class NDArray:
     def wait_to_read(self):
         """Wait for the work that writes this array: a synchronize of the
         current stream of its device (nothing on the CPU)."""
+        check_host_read("NDArray.wait_to_read")
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
 

@@ -199,11 +199,11 @@ for _n, _f in [("_equal", torch.eq), ("_not_equal", torch.ne),
          differentiable=False)
 
 for _n, _f in [("_logical_and_scalar", lambda a, s: torch.logical_and(
-                    a, torch.tensor(s != 0, device=a.device))),
+                    a, torch.full((), s != 0, device=a.device))),
                ("_logical_or_scalar", lambda a, s: torch.logical_or(
-                   a, torch.tensor(s != 0, device=a.device))),
+                   a, torch.full((), s != 0, device=a.device))),
                ("_logical_xor_scalar", lambda a, s: torch.logical_xor(
-                   a != 0, torch.tensor(s != 0, device=a.device)))]:
+                   a != 0, torch.full((), s != 0, device=a.device)))]:
     _reg(_n, (lambda f: lambda a, scalar=0.0: f(a, scalar).to(a.dtype))(_f),
          differentiable=False)
 

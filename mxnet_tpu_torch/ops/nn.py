@@ -277,8 +277,10 @@ def _pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
         if pool_type == "sum":
             return s
         if count_include_pad:
-            return s / torch.tensor(math.prod(kernel), dtype=x.dtype,
-                                    device=x.device)
+            # a 0-d tensor (divided exactly, unlike a Python scalar on
+            # the card), filled on the device: a CUDA graph can carry it
+            return s / torch.full((), math.prod(kernel), dtype=x.dtype,
+                                  device=x.device)
         cnt = torch.sum(_windows(torch.ones_like(x), sp_axes, kernel,
                                  stride, pads, 0), dim=red)
         return s / cnt
@@ -430,8 +432,8 @@ def _softmax(x, axis=-1, temperature=None, length=None, use_length=False,
         mask = steps[None, :] < length[:, None]
         if x.ndim > 2:
             mask = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
-        x = torch.where(mask, x, torch.tensor(float("-inf"), dtype=x.dtype,
-                                              device=x.device))
+        x = torch.where(mask, x, torch.full((), float("-inf"),
+                                            dtype=x.dtype, device=x.device))
     out = torch.softmax(x, dim=axis)
     return out.to(torch_dtype(dtype)) if dtype else out
 

@@ -273,10 +273,10 @@ def _one_hot(indices, depth, on_value=1.0, off_value=0.0, dtype="float32"):
     d = torch_dtype(dtype)
     hit = _idx(indices).unsqueeze(-1) == torch.arange(depth,
                                                       device=indices.device)
-    return torch.where(hit, torch.tensor(on_value, dtype=d,
-                                         device=indices.device),
-                       torch.tensor(off_value, dtype=d,
-                                    device=indices.device))
+    return torch.where(hit, torch.full((), on_value, dtype=d,
+                                       device=indices.device),
+                       torch.full((), off_value, dtype=d,
+                                  device=indices.device))
 
 
 _reg("one_hot", _one_hot, differentiable=False)
@@ -394,8 +394,8 @@ def _sequence_mask(x, sequence_length=None, use_sequence_length=False,
         x = torch.swapaxes(x, 0, 1)
     mask = _steps(x) < sequence_length[None, :]
     mask = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
-    out = torch.where(mask, x, torch.tensor(value, dtype=x.dtype,
-                                            device=x.device))
+    out = torch.where(mask, x, torch.full((), value, dtype=x.dtype,
+                                          device=x.device))
     return torch.swapaxes(out, 0, 1) if axis == 1 else out
 
 

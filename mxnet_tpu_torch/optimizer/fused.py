@@ -20,8 +20,9 @@ multipliers, the loss scaler's rescale) runs exactly as in the loop, in
 float64. The recorded calls are then replayed grouped by (op, weight
 dtype): each group's per-parameter scalars (and gradient addresses:
 autograd hands out new gradient tensors every backward) become 64-byte
-rows of one table uploaded once a step from pinned memory, for all
-groups, and each group is one launch over a table of the weights' and
+rows of one table copied once a step from a persistent pinned buffer
+into the program's persistent device buffer (:class:`RowBuffer`), for
+all groups, and each group is one launch over a table of the weights' and
 states' pointers and sizes that is kept while those ``data_ptr``s and
 sizes stay the same (the update is in place, so they stay put). The
 loop launches the same kernel over one parameter with the same row, so
@@ -48,9 +49,16 @@ that fails to build or launch raises; it never gives way to the loop.
 The reference's ``fold_reduce`` (the gradient sum across device
 replicas folded into the update) and its multi-context replicas have no
 counterpart on one device and are left out, as are its sparse-gradient
-fallback (the port has no row-sparse gradients) and its
-``bind_entries``/``apply_entries`` for ``jit.CompiledTrainStep``, which
-is not ported (ROADMAP.md §1 item 13).
+fallback (the port has no row-sparse gradients).
+
+The counterpart of its ``bind_entries``/``apply_entries`` (the update
+folded into ``jit.CompiledTrainStep``'s program) is the same split used
+inside a CUDA graph: the step's :meth:`FusedUpdater.record` runs on the
+host every call, the rows it yields are written to the program's
+:class:`RowBuffer` before the replay, and the captured
+:meth:`_Program.launch` reads them there. Inside a graph the gradients
+come from the graph's pool and keep their addresses, so the rows carry
+the same gradient addresses every step.
 """
 from __future__ import annotations
 
@@ -63,8 +71,9 @@ from ..ops import invoke as _invoke
 from ..ops import optimizer_ops as _ops
 from . import optimizer as _opt
 
-__all__ = ["FusedUpdater", "fusable", "prepare_states", "build_roles",
-           "record_program", "rollback_counts"]
+__all__ = ["FusedUpdater", "Recorded", "RowBuffer", "fusable",
+           "prepare_states", "build_roles", "record_program",
+           "rollback_counts"]
 
 # Optimizers whose update is one registered update op per parameter,
 # with no host sync and no per-call Python state: the recorded program
@@ -137,13 +146,16 @@ def prepare_states(optimizer, updater, work):
             updater.states_synced[i] = True
 
 
-def build_roles(updater, work):
+def build_roles(updater, work, grads=None):
     """Map id(tensor) -> role for every weight, gradient and state of
-    ``work``. Returns (roles, weights, grads, state leaves)."""
+    ``work``; ``grads`` (one a parameter) stand in for
+    ``param.grad()``. Returns (roles, weights, grads, state leaves)."""
     roles = {}
+    stand_in = grads
     weights, grads, leaves = [], [], []
     for k, (i, param) in enumerate(work):
-        w, g = param.data(), param.grad()
+        w = param.data()
+        g = param.grad() if stand_in is None else stand_in[k]
         roles[id(w)] = ("w", k)
         roles[id(g)] = ("g", k)
         for leaf in _leaves(updater.states[i]):
@@ -194,10 +206,55 @@ def _aliased(tensors):
     return False
 
 
+class RowBuffer:
+    """One program's scalar rows on the card, refreshed by one copy a
+    step from a persistent pinned host buffer, so a launch captured in a
+    CUDA graph reads each step's rows from the same address.
+
+    Two pinned buffers take turns, each with the event of its last copy:
+    a write waits for the copy two steps back, not for the step in
+    flight. (A fresh pinned tensor a step, as ``ops.optimizer_ops.
+    _upload`` makes, would be freed while a graph's captured copy still
+    read it.) ``dev`` holds ``nfloats`` float32 words."""
+
+    def __init__(self, nfloats, device):
+        import torch
+        self.device = device
+        self.nfloats = nfloats
+        self.dev = torch.zeros(nfloats, dtype=torch.float32, device=device)
+        self._host = [torch.zeros(nfloats, dtype=torch.float32,
+                                  pin_memory=True) for _ in range(2)]
+        self._events = [None, None]
+        self._turn = 0
+
+    @property
+    def ptr(self):
+        return self.dev.data_ptr()
+
+    def write(self, *parts):
+        """Copy the float32 arrays ``parts``, back to back, to the
+        front of ``dev`` on the current stream (one copy)."""
+        import torch
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        host = self._host[i].numpy()
+        n = 0
+        for part in parts:
+            flat = np.ascontiguousarray(part).reshape(-1).view(np.float32)
+            host[n:n + flat.size] = flat
+            n += flat.size
+        self.dev[:n].copy_(self._host[i][:n], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._events[i] = ev
+
+
 class _Program:
     """A recorded step grouped for replay: per (op, weight dtype) group
     the indices of its calls, in recording order; on the card, each
-    group's launch table for the tensors' current layout."""
+    group's launch table for the tensors' current layout and the rows'
+    :class:`RowBuffer`."""
 
     def __init__(self, program, weights):
         groups = {}
@@ -209,6 +266,70 @@ class _Program:
         self.roles = [entry_roles for _, entry_roles, _ in program]
         self.layout = None
         self.tables = None
+        self.rows = None
+
+    def inputs(self, entries, bufs):
+        return [[bufs[r] for r in self.roles[e]] for e in entries]
+
+    def apply_twin(self, bufs, params):
+        """The step on the CPU: each group through the op's twin."""
+        for name, entries in self.groups:
+            _ops.multi_update(name, self.inputs(entries, bufs),
+                              [params[e] for e in entries])
+
+    def bind(self, bufs, layout, extra_rows=0):
+        """Build the launch tables over ``bufs`` (a gradient's entry only
+        sizes its check: each step's gradient addresses ride its rows)
+        and the row buffer, with ``extra_rows`` rows of SCALAR_ROW words
+        after the program's for the caller; unless ``layout`` is the one
+        already bound. Returns the number of tables built."""
+        if self.layout == layout:
+            return 0
+        self.tables = [_ops.UpdateTable(name, self.inputs(entries, bufs))
+                       for name, entries in self.groups]
+        nrows = sum(len(entries) for _, entries in self.groups)
+        self.rows = RowBuffer((nrows + extra_rows) * _ops.SCALAR_ROW,
+                              self.tables[0].device)
+        self.layout = layout
+        return len(self.tables)
+
+    def scalar_rows(self, params, grads):
+        """This step's rows for every group, in launch order, from the
+        recorded calls' kwargs and the gradients ``grads`` (by the
+        position of their parameter)."""
+        return np.concatenate([
+            table.rows([params[e] for e in entries],
+                       [grads[self.roles[e][1][1]] for e in entries])
+            for (_, entries), table in zip(self.groups, self.tables)])
+
+    def launch(self):
+        """One launch per group over the rows in :attr:`rows` (capturable:
+        every address it passes stays put)."""
+        offset = 0
+        for (_, entries), table in zip(self.groups, self.tables):
+            table.launch(self.rows.ptr + offset * 4 * _ops.SCALAR_ROW)
+            offset += len(entries)
+
+
+class Recorded:
+    """A step's host record pass (:meth:`FusedUpdater.record`): the
+    updated parameters ``work``, their weights, gradients and state
+    leaves, the recorder (``rec.params``: each call's kwargs) and the
+    program; ``bufs`` maps each role to its tensor."""
+
+    __slots__ = ("work", "weights", "grads", "leaves", "rec", "prog",
+                 "layout", "bufs")
+
+    def __init__(self, work, weights, grads, leaves, rec, prog, layout):
+        self.work, self.weights, self.grads = work, weights, grads
+        self.leaves, self.rec, self.prog = leaves, rec, prog
+        self.layout = layout
+        self.bufs = {}
+        for k, w in enumerate(weights):
+            self.bufs[("w", k)] = w
+            self.bufs[("g", k)] = grads[k]
+        for j, leaf in enumerate(leaves):
+            self.bufs[("s", j)] = leaf
 
 
 class FusedUpdater:
@@ -216,11 +337,17 @@ class FusedUpdater:
 
     ``step(params)`` applies the whole update and returns True, or
     returns False (reason in ``last_fallback_reason``) so the caller runs
-    the per-parameter loop. ``last_dispatches`` is the number of kernel
-    launches (on the CPU: twin passes) of the last fused step;
-    ``programs_built`` counts recorded programs and ``tables_built`` the
-    launch tables uploaded, neither of which moves while the step's
-    signature and tensors stay the same."""
+    the per-parameter loop. It is two parts: :meth:`record`, the host
+    pass (update counts, Adam's bias correction, lr/wd multipliers, the
+    loss scaler's rescale, in f64) that yields the step's scalar rows,
+    and the launch over the program's tables, which reads those rows
+    from the program's :class:`RowBuffer` (one copy a step) and can be
+    captured in a CUDA graph (``jit.CompiledTrainStep``).
+    ``last_dispatches`` is the number of kernel launches (on the CPU:
+    twin passes) of the last fused step; ``programs_built`` counts
+    recorded programs and ``tables_built`` the launch tables uploaded,
+    neither of which moves while the step's signature and tensors stay
+    the same."""
 
     def __init__(self, optimizer, updater):
         self._optimizer = optimizer
@@ -247,18 +374,23 @@ class FusedUpdater:
             return "optimizer"
         return None
 
-    def step(self, params):
-        """Apply one fused update over ``params`` (a list of
-        Parameters); False when the loop must run instead."""
+    def record(self, params, grads=None, work=None):
+        """The host record pass over ``params`` (or the ``work`` list of
+        (index, Parameter) given): the bookkeeping advances as in the
+        loop and the update ops are recorded. ``grads`` (one tensor per
+        updated parameter) stand in for ``param.grad()``. Returns a
+        :class:`Recorded`, None when there is nothing to update, or
+        False (reason in ``last_fallback_reason``; counts rolled back)
+        when the loop must run instead."""
         opt, upd = self._optimizer, self._updater
-        self.last_dispatches = 0
         self.last_fallback_reason = None
-        work = [(i, p) for i, p in enumerate(params)
-                if p.grad_req != "null" and p._data is not None]
+        if work is None:
+            work = [(i, p) for i, p in enumerate(params)
+                    if p.grad_req != "null" and p._data is not None]
         if not work:
-            return True  # nothing to update: handled, no launch
+            return None
         prepare_states(opt, upd, work)
-        roles, weights, grads, leaves = build_roles(upd, work)
+        roles, weights, grads, leaves = build_roles(upd, work, grads)
         # the written tensors (weights, states) stay put between steps;
         # gradients are read only, and move (their addresses go with
         # each step's rows)
@@ -269,8 +401,6 @@ class FusedUpdater:
         if self._layout_aliased:
             self.last_fallback_reason = "aliased"
             return False
-
-        # record: the host bookkeeping advances as in the loop
         rec = record_program(upd, work, grads, weights, roles)
         if not rec.ok:
             self._disabled = self.last_fallback_reason = "unrecordable"
@@ -282,35 +412,23 @@ class FusedUpdater:
         if prog is None:
             prog = self._cache[key] = _Program(rec.program, weights)
             self.programs_built += 1
+        return Recorded(work, weights, grads, leaves, rec, prog, layout)
 
-        bufs = {}
-        for k, w in enumerate(weights):
-            bufs[("w", k)] = w
-            bufs[("g", k)] = grads[k]
-        for j, leaf in enumerate(leaves):
-            bufs[("s", j)] = leaf
-
-        def inputs(entries):
-            return [[bufs[r] for r in prog.roles[e]] for e in entries]
-
-        if weights[0].device.type == "cpu":
-            for name, entries in prog.groups:
-                _ops.multi_update(name, inputs(entries),
-                                  [rec.params[e] for e in entries])
+    def step(self, params):
+        """Apply one fused update over ``params`` (a list of
+        Parameters); False when the loop must run instead."""
+        self.last_dispatches = 0
+        r = self.record(params)
+        if r is None:
+            return True  # nothing to update: handled, no launch
+        if r is False:
+            return False
+        prog = r.prog
+        if r.weights[0].device.type == "cpu":
+            prog.apply_twin(r.bufs, r.rec.params)
         else:
-            if prog.layout != layout:
-                prog.tables = [_ops.UpdateTable(name, inputs(entries))
-                               for name, entries in prog.groups]
-                prog.layout = layout
-                self.tables_built += len(prog.tables)
-            rows = np.concatenate([
-                table.rows([rec.params[e] for e in entries],
-                           [grads[prog.roles[e][1][1]] for e in entries])
-                for (_, entries), table in zip(prog.groups, prog.tables)])
-            dev_rows = _ops._upload(rows, weights[0].device)
-            base, offset = dev_rows.data_ptr(), 0
-            for (_, entries), table in zip(prog.groups, prog.tables):
-                table.launch(base + offset * rows.itemsize * rows.shape[1])
-                offset += len(entries)
+            self.tables_built += prog.bind(r.bufs, r.layout)
+            prog.rows.write(prog.scalar_rows(r.rec.params, r.grads))
+            prog.launch()
         self.last_dispatches = len(prog.groups)
         return True

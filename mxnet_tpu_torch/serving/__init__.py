@@ -14,15 +14,15 @@
 - :mod:`.errors` — one typed exception hierarchy under
   :class:`ServingError`; :mod:`.overload` — the :class:`CircuitBreaker`;
 - :mod:`.adapters` — multi-LoRA serving (:class:`~.adapters.AdapterBank`,
-  :class:`~.adapters.AdapterRegistry`);
+  :class:`~.adapters.AdapterRegistry`) and its fine-tune→publish loop
+  (:class:`~.adapters.LoRAFineTuneJob`, trained through
+  ``Trainer.compile_step``, and
+  :class:`~.adapters.AdapterFineTunePublisher`);
 - :mod:`.fleet` — N named models behind one router
   (:class:`~.fleet.FleetRouter`): atomic weight hot-swap from sharded
   checkpoints (publish→warm→drain→handover→prune), per-tenant
   token-bucket quotas + interactive/batch lanes, and the continuous
   fine-tune→publish loop (:class:`~.fleet.FineTunePublisher`).
-
-Not ported yet: ``LoRAFineTuneJob`` / ``AdapterFineTunePublisher``
-(they train through ``Trainer.compile_step``, ROADMAP.md §1 item 13).
 """
 from .errors import (ServingError, ServerClosed, Overloaded,
                      CircuitOpenError, DeadlineExceededError,
@@ -37,7 +37,8 @@ from .telemetry import (CompileCounter, EventLog, ServingStats,
 from . import llm
 from .llm import LLMServer, LLMEngine, GenerationResult
 from . import adapters
-from .adapters import AdapterBank, AdapterRegistry
+from .adapters import (AdapterBank, AdapterRegistry, LoRAFineTuneJob,
+                       AdapterFineTunePublisher)
 from . import fleet
 from .fleet import FleetRouter, FleetStats, FineTunePublisher
 
@@ -50,4 +51,5 @@ __all__ = ["ModelServer", "MicroBatchQueue", "Request",
            "CompileCounter", "EventLog", "ServingStats", "compile_count",
            "llm", "LLMServer", "LLMEngine", "GenerationResult",
            "adapters", "AdapterBank", "AdapterRegistry",
+           "LoRAFineTuneJob", "AdapterFineTunePublisher",
            "fleet", "FleetRouter", "FleetStats", "FineTunePublisher"]

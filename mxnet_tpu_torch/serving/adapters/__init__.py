@@ -14,10 +14,11 @@ bank: sharded checkpoint manifests per adapter (the reference's layout),
 more adapters than the bank has pages; the bank faults cold adapters in
 from it, evicting cold residents.
 
-Not ported yet: the reference's ``LoRAFineTuneJob`` /
-``AdapterFineTunePublisher`` (``training.py``), which train through
-``Trainer.compile_step``, a compiled train step the port's Trainer does
-not have yet (ROADMAP.md, section 1 item 13).
+:class:`LoRAFineTuneJob` / :class:`AdapterFineTunePublisher`
+(``training.py``) are the fine-tune→publish loop: the base weights
+frozen, only the A/B factors trained through ``Trainer.compile_step``
+(one CUDA-graph replay a step on the card), each round published into
+the bank (through its registry first, when it has one).
 """
 # the engine imports the bank: load the LLM package first, so that an
 # import of this package first finds it whole
@@ -26,9 +27,11 @@ from .bank import (AdapterBank, AdapterHandle, AdapterError,
                    UnknownAdapterError, NoFreeAdapterPagesError,
                    AdapterAccountingError, NULL_ADAPTER_PAGE)
 from .registry import AdapterRegistry
+from .training import LoRAFineTuneJob, AdapterFineTunePublisher
 
 __all__ = [
     "AdapterBank", "AdapterHandle", "AdapterRegistry",
     "AdapterError", "UnknownAdapterError", "NoFreeAdapterPagesError",
     "AdapterAccountingError", "NULL_ADAPTER_PAGE",
+    "LoRAFineTuneJob", "AdapterFineTunePublisher",
 ]

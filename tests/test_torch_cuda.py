@@ -3012,3 +3012,297 @@ def test_resnet18_thumbnail_step_on_the_card_matches_the_cpu(cuda,
         else:
             assert chip_smoke.norm_ratio(got - before[key],
                                          want - before[key]) <= 0.1, key
+
+
+# ------------------------------------------------- the compiled step --
+def _cs_mlp(cuda, seed=0, bn=False, dropout=0.0, prefix="cs"):
+    """The reference's compiled-step MLP on the card (seeded Xavier),
+    optionally with a BatchNorm or a gluon Dropout."""
+    from mxnet_tpu_torch.initializer import Xavier
+    net = tgluon.nn.HybridSequential(prefix=f"{prefix}{seed}_")
+    with net.name_scope():
+        net.add(tgluon.nn.Dense(16))
+        if bn:
+            net.add(tgluon.nn.BatchNorm())
+        net.add(tgluon.nn.Activation("relu"))
+        if dropout:
+            net.add(tgluon.nn.Dropout(dropout))
+        net.add(tgluon.nn.Dense(4))
+    net.initialize(Xavier(), device=cuda,
+                   generator=torch.Generator().manual_seed(seed))
+    with ag.pause():
+        net(torch.zeros(1, 6, device=cuda))
+    return net
+
+
+def _cs_data(cuda, steps=5, n=32):
+    rng = np.random.RandomState(7)
+    X = torch.from_numpy(rng.randn(steps, n, 6).astype(np.float32))
+    Y = torch.from_numpy((np.arange(steps * n).reshape(steps, n) % 4)
+                         .astype(np.float32))
+    return X.to(cuda), Y.to(cuda)
+
+
+def _cs_params(net):
+    return {k: p.data().detach().clone()
+            for k, p in sorted(net.collect_params().items())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [False, True], ids=["mlp", "bn"])
+@pytest.mark.parametrize("opt,args", [
+    ("sgd", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}),
+    ("adam", {"learning_rate": 1e-3, "wd": 1e-3})], ids=["sgd", "adam"])
+def test_compiled_step_graph_matches_eager_bit_for_bit(cuda, opt, args, bn):
+    """Five steps across lr and batch-size changes: the compiled step's
+    graphs give the eager record/backward/step's losses, weights and
+    running statistics bit for bit; one capture per bucket, one replay
+    per later step, the update kernel launched once a step (counted
+    through the replays), its rows read from one persistent buffer."""
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    sizes, lrs = [32, 16, 32, 16, 32], [0.05, 0.02, 0.05, 0.01, 0.03]
+    X, Y = _cs_data(cuda)
+    net_e = _cs_mlp(cuda, bn=bn)
+    tr_e = tgluon.Trainer(net_e.collect_params(), opt, dict(args))
+    el = []
+    for s, n in enumerate(sizes):
+        tr_e.set_learning_rate(lrs[s])
+        with ag.record():
+            loss = loss_fn(net_e(X[s][:n]), Y[s][:n])
+        ag.backward(loss)
+        tr_e.step(n)
+        el.append(loss.detach().clone())
+    net_c = _cs_mlp(cuda, bn=bn)
+    tr_c = tgluon.Trainer(net_c.collect_params(), opt, dict(args))
+    step = tr_c.compile_step(lambda x, y: loss_fn(net_c(x), y))
+    rule = "adam_update" if opt == "adam" else "sgd_mom_update"
+    captures, cl, rows = kernels.capture_count(), [], set()
+    for s, n in enumerate(sizes):
+        tr_c.set_learning_rate(lrs[s])
+        before = kernels.launch_counts().get(rule, 0)
+        replays = step.replays
+        cl.append(step(X[s][:n], Y[s][:n]))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[rule] == before + 1, s
+        if s >= 2:
+            assert step.replays == replays + 1
+        rows |= {e.prog.rows.ptr for e in step._cache.values()}
+    assert step.last_reason is None
+    assert kernels.capture_count() == captures + 2
+    assert step.cache_size() == 2 and len(rows) == 2
+    for s in range(5):
+        assert torch.equal(el[s], cl[s]), f"step {s} loss"
+    pe, pc = _cs_params(net_e), _cs_params(net_c)
+    for k in pe:
+        assert torch.equal(pe[k], pc[k]), k
+
+
+@pytest.mark.cuda
+def test_compiled_step_padded_tail_and_lr_never_recapture(cuda):
+    """Ragged tails pad to a warm bucket and lr changes ride the rows:
+    no capture after warmup; the tail's per-sample losses equal the
+    unpadded eager step's bit for bit."""
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    X, Y = _cs_data(cuda, 10)
+    net = _cs_mlp(cuda, 1)
+    ref = _cs_mlp(cuda, 1)
+    tr = tgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": .05})
+    tr_r = tgluon.Trainer(ref.collect_params(), "sgd",
+                          {"learning_rate": .05})
+    step = tr.compile_step(lambda x, y: loss_fn(net(x), y))
+    step(X[0], Y[0])
+    step(X[1][:7], Y[1][:7])                 # bucket 8
+    captures = kernels.capture_count()
+    for s, n in enumerate([20, 32, 7, 19, 32], start=2):
+        tr.set_learning_rate(0.01 * s)
+        tr_r.set_learning_rate(0.01 * s)
+        got = step(X[s][:n], Y[s][:n])
+        assert got.shape == (n,)
+    assert kernels.capture_count() == captures
+    assert step.cache_size() == 2
+    # an unpadded eager step from the same weights: the same tail losses
+    for p, q in zip(ref.collect_params().values(),
+                    net.collect_params().values()):
+        p.set_data(q.data().detach())
+    got = step(X[8][:20], Y[8][:20])
+    with ag.record():
+        want = loss_fn(ref(X[8][:20]), Y[8][:20])
+    assert torch.equal(got, want.detach())
+
+
+@pytest.mark.cuda
+def test_compiled_step_replays_draw_fresh_dropout_masks(cuda):
+    """gluon's Dropout (torch's default generator, registered by the
+    capture) and ``nd.Dropout`` (the step's own generator, registered
+    with the graph) draw new masks at every replay; one draw position a
+    call."""
+    from mxnet_tpu_torch import _rng
+    net = _cs_mlp(cuda, 2, dropout=0.5)
+    tr = tgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.0})
+    X, _ = _cs_data(cuda, 1)
+
+    def loss(x):
+        h = net(x)
+        return (h ** 2).sum(axis=1), nd.Dropout(nd.NDArray(h), p=0.5)._data
+    step = tr.compile_step(loss)
+    outs = [step(X[0]) for _ in range(4)]
+    torch.cuda.synchronize()
+    for a, b in zip(outs[1:], outs[2:]):
+        assert not torch.equal(a[0], b[0]), "gluon Dropout mask repeated"
+        assert not torch.equal(a[1] != 0, b[1] != 0), \
+            "nd.Dropout mask repeated"
+    assert step.replays == 3
+    d0 = _rng.get_state()["draws"]
+    step(X[0])
+    assert _rng.get_state()["draws"] == d0 + 1
+
+
+@pytest.mark.cuda
+def test_compiled_step_float16_scaler_skips_on_overflow(cuda):
+    """An engaged float16 loss scaler: two graphs (forward and backward
+    with the finiteness flag, then the update); bit for bit with the
+    eager AMP step at scale 64; at a scale past float32's range the
+    update graph does not replay, the weights stay, the scale halves."""
+    from mxnet_tpu_torch import amp
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    X, Y = _cs_data(cuda, 4, 16)
+    net_e, net_c = _cs_mlp(cuda, 3), _cs_mlp(cuda, 3)
+    tr_e = tgluon.Trainer(net_e.collect_params(), "sgd",
+                          {"learning_rate": .05})
+    amp.init_trainer(tr_e, loss_scaler=amp.LossScaler(
+        init_scale=64.0, target_dtype="float16"))
+    for s in range(4):
+        with ag.record():
+            loss = loss_fn(net_e(X[s]), Y[s])
+            with amp.scale_loss(loss, tr_e) as scaled:
+                pass
+        ag.backward(scaled)
+        tr_e.step(16)
+    tr_c = tgluon.Trainer(net_c.collect_params(), "sgd",
+                          {"learning_rate": .05})
+    amp.init_trainer(tr_c, loss_scaler=amp.LossScaler(
+        init_scale=64.0, target_dtype="float16"))
+    step = tr_c.compile_step(lambda x, y: loss_fn(net_c(x), y))
+    for s in range(4):
+        step(X[s], Y[s])
+    assert step.last_reason is None and step.cache_size() == 2
+    pe, pc = _cs_params(net_e), _cs_params(net_c)
+    for k in pe:
+        assert torch.equal(pe[k], pc[k]), k
+    net_o = _cs_mlp(cuda, 4)
+    tr_o = tgluon.Trainer(net_o.collect_params(), "sgd",
+                          {"learning_rate": .05})
+    amp.init_trainer(tr_o, loss_scaler=amp.LossScaler(
+        init_scale=1e39, target_dtype="float16"))
+    st = tr_o.compile_step(lambda x, y: loss_fn(net_o(x), y))
+    before = _cs_params(net_o)
+    for s in range(2):
+        with pytest.warns(UserWarning, match="overflow"):
+            st(X[s], Y[s])
+    assert tr_o._step_count == 0 and tr_o._amp_loss_scaler.loss_scale == \
+        2.5e38
+    after = _cs_params(net_o)
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_compiled_step_remat_on_the_card(cuda, remat):
+    """remat recomputes the forward inside the captured backward: the
+    same bits as the eager step, and the BatchNorm's running statistics
+    written once a step."""
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    X, Y = _cs_data(cuda, 3)
+    net_e, net_c = _cs_mlp(cuda, 5, bn=True), _cs_mlp(cuda, 5, bn=True)
+    tr_e = tgluon.Trainer(net_e.collect_params(), "sgd",
+                          {"learning_rate": .05})
+    for s in range(3):
+        with ag.record():
+            loss = loss_fn(net_e(X[s]), Y[s])
+        ag.backward(loss)
+        tr_e.step(32)
+    tr_c = tgluon.Trainer(net_c.collect_params(), "sgd",
+                          {"learning_rate": .05})
+    step = tr_c.compile_step(lambda x, y: loss_fn(net_c(x), y),
+                             remat=remat)
+    for s in range(3):
+        step(X[s], Y[s])
+    assert step.last_reason is None
+    pe, pc = _cs_params(net_e), _cs_params(net_c)
+    for k in pe:
+        assert torch.equal(pe[k], pc[k]), k
+
+
+@pytest.mark.cuda
+def test_compiled_step_host_read_is_trace_failed_on_the_card(cuda):
+    """A host read inside loss_fn is the sticky trace_failed fallback on
+    the card too (found in the warm run, before any capture); eager
+    training goes on."""
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    X, Y = _cs_data(cuda, 2)
+    net = _cs_mlp(cuda, 6)
+    tr = tgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": .05})
+
+    def branchy(x, y):
+        out = net(x)
+        if float(nd.sum(nd.NDArray(out)).asscalar()) > 1e9:
+            out = out * 2
+        return loss_fn(out, y)
+    step = tr.compile_step(branchy)
+    captures = kernels.capture_count()
+    w0 = _cs_params(net)
+    with pytest.warns(UserWarning, match="trace failed"):
+        step(X[0], Y[0])
+    step(X[1], Y[1])
+    assert step.last_reason == "trace_failed"
+    assert kernels.capture_count() == captures
+    assert any(not torch.equal(w0[k], v)
+               for k, v in _cs_params(net).items())
+
+
+@pytest.mark.cuda
+def test_hybridized_block_replays_its_graph_bit_for_bit(cuda, tmp_path):
+    """A hybridized block: one capture per signature (the forward, or
+    under record the forward and backward pair), none on a repeated
+    call; its outputs and gradients are the eager call's bits; a BN's
+    running statistics update once a training call; new weights loaded
+    in place are what the next replay computes with."""
+    net = _cs_mlp(cuda, 7, bn=True, prefix="hy")
+    ref = _cs_mlp(cuda, 7, bn=True, prefix="hy")
+    net.hybridize()
+    x = torch.randn(8, 6, device=cuda)
+    captures = kernels.capture_count()
+    with ag.pause():
+        want = ref(x)
+        got1, got2 = net(x), net(x)
+    assert kernels.capture_count() == captures + 1
+    assert torch.equal(got1, want) and torch.equal(got2, want)
+    assert got1.data_ptr() != got2.data_ptr()     # copies, not the buffer
+    for _ in range(2):
+        xe = x.clone().requires_grad_(True)
+        xh = x.clone().requires_grad_(True)
+        with ag.record():
+            le = (ref(xe) ** 2).sum()
+            lh = (net(xh) ** 2).sum()
+        ag.backward(le)
+        ag.backward(lh)
+        assert torch.equal(le, lh)
+        assert torch.equal(xe.grad, xh.grad)
+        for (k, p), q in zip(sorted(ref.collect_params().items()),
+                             [q for _, q in
+                              sorted(net.collect_params().items())]):
+            if p.grad_req != "null":
+                assert torch.equal(p.grad(), q.grad()), k
+            else:
+                assert torch.equal(p.data(), q.data()), k
+    assert kernels.capture_count() == captures + 3   # + fwd/bwd pair
+    path = str(tmp_path / "hy.params")
+    for p in ref.collect_params().values():
+        p.set_data(p.data().detach() * 0.5)
+    ref.save_parameters(path)
+    net.load_parameters(path)
+    with ag.pause():
+        assert torch.equal(net(x), ref(x))
+    assert kernels.capture_count() == captures + 3
+    assert net._cached_op.graphs == 3

@@ -40,7 +40,6 @@ import mxnet_tpu.autograd as jag  # noqa: E402
 from mxnet_tpu import gluon as jgluon, nd  # noqa: E402
 from mxnet_tpu.serving import llm as jllm  # noqa: E402
 from mxnet_tpu.serving.adapters import AdapterBank as JBank  # noqa: E402
-from mxnet_tpu_torch import autograd as tag  # noqa: E402
 from mxnet_tpu_torch import deploy, serving  # noqa: E402
 from mxnet_tpu_torch.convert import (load_gluon_params,  # noqa: E402
                                      tensor_from_numpy)
@@ -498,15 +497,15 @@ def test_env_var_config(monkeypatch):
 
 # ------------------------------------------- fine-tune -> publish ----
 def test_finetune_publish_loop(kit, tmp_path):
-    """Port Trainer steps (SGD, ``L2Loss``) -> sharded-manifest
-    checkpoint -> publish into the live router, whose builder serves a
-    fresh gluon ``Dense`` from the checkpoint's arrays; the served
-    output is the trained weights', and the trained weights are the JAX
-    Trainer's after the same 4 steps on the same data (1e-6: the same
-    f32 SGD arithmetic, sums in another order). The reference also
-    asserts ``mxtpu_train_step_dispatch_total`` on the registry; that
-    series belongs to ``Trainer.compile_step`` (ROADMAP.md §1 item 13)
-    and waits for it."""
+    """Port ``Trainer.compile_step`` steps (SGD, ``L2Loss``), as
+    ``tests/test_fleet.py`` trains -> sharded-manifest checkpoint ->
+    publish into the live router, whose builder serves a fresh gluon
+    ``Dense`` from the checkpoint's arrays; the served output is the
+    trained weights', and the trained weights are the JAX Trainer's
+    after the same 4 steps on the same data (1e-6: the same f32 SGD
+    arithmetic, sums in another order). One registry carries the
+    training steps (``mxtpu_train_step_dispatch_total``: one a step)
+    and the swaps."""
     mx.random.seed(3)
     # explicit prefixes: a root block named by the process-wide counter
     # would shift the names (and the sorted order) of later tests' blocks
@@ -524,12 +523,12 @@ def test_finetune_publish_loop(kit, tmp_path):
     load_gluon_params(net, arrays0)
     tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.05})
     loss = tloss.L2Loss()
+    step = tr.compile_step(lambda a, b: loss(net(a), b))
+    dispatch = get_registry().counter("mxtpu_train_step_dispatch_total")
+    d0 = dispatch.value
 
     def train_step():
-        with tag.record():
-            out = loss(net(torch.from_numpy(X)), torch.from_numpy(Y))
-        out.backward(torch.ones_like(out))  # MXNet's head gradient
-        tr.step(len(X))
+        step(torch.from_numpy(X), torch.from_numpy(Y))
 
     def get_arrays():
         return {k: p.data().detach().numpy().copy()
@@ -580,6 +579,10 @@ def test_finetune_publish_loop(kit, tmp_path):
            (("fleet", "fleet_ft"), ("model", "m"),
             ("outcome", "ok"), ("phase", "handover")))
     assert samples.get(key) == 2
+    assert step.last_reason is None
+    assert dispatch.value - d0 == 4
+    assert samples.get(("mxtpu_train_step_dispatch_total", ())) == \
+        dispatch.value
     router.shutdown()
 
 
