@@ -297,6 +297,29 @@ Phases, one line of output each (or more), in order:
    the bank of an ``LLMServer``: two rounds of 4 compiled steps and a
    publish, the stream served under the adapter changing between them
    and the base rows' streams not;
+   8f. the sparse tier and the optimizer tail (``run_sparse_phase``):
+   (a) the matrix-factorisation net of ``examples/recommender_mf.py``
+   with ``sparse_grad=True`` on both tables at MovieLens-20M's id counts
+   (138,493 users, 27,278 movies), rank 128, batch 1024, synthetic
+   ratings planted at rank 16, 20 Trainer steps each of lazy SGD with
+   momentum, lazy Adam and AdaGrad: the loss falls, untouched rows keep
+   their bits in the weights and the states, the last step equals the
+   same step on CPU copies, the fused updater counts ``sparse_grad`` and
+   ``compile_step`` falls back with it; step ms, device ms, idle; (b)
+   Adam on a 2^20 x 128 table, 4096 ids a batch, the lazy step beside
+   the dense one; (c) ``sparse.dot`` of a 1024 x 2^20 CSR batch (39
+   non-zeros a row, Criteo's field count) and a (2^20, 1) weight,
+   forward and gradient against CPU copies, beside ``torch.sparse.mm``;
+   (d) the eleven new optimizers through the Trainer on BERT-base's
+   gradients (8b's setup), 3 steps each, the first step's update of
+   every ninth tensor against the same update on CPU copies (SGLD by its
+   noise's mean and variance), the other two timed,
+   and ``_multi_lamb_update`` / ``_multi_mp_lamb_update`` over the 203
+   tensors against the per-tensor phases; (e) the kvstore on the card:
+   ``row_sparse_pull``, a sparse push, 2-bit compression bit for bit
+   with its CPU twin, a Trainer with a store instance bit for bit with
+   ``kvstore=None``; phase 7b also runs the LAMB and AdaGrad update
+   ops' corpus cases, card against CPU;
 9. one JSON line listing every kernel (the update tail's ops of phase
    7b among them, K3's rows of phase 7c, 8d's bf16 update row): launches
    on the main paths
@@ -949,6 +972,48 @@ def _corpus():
             for typ in ("value", "indices", "both"):
                 add(s, "topk", [x], {"k": k, "ret_typ": typ,
                                      "is_ascend": asc})
+    # the LAMB and AdaGrad update tail (appended, as above): every branch
+    # (bias correction, both bounds, a zero norm, clipping, zero rows),
+    # and tests/test_op_tail_r3.py's case of the two AdaGrads
+    u = "update"
+    lamb = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "t": 3,
+            "wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 1.0}
+
+    def wgmv(seed, shape=(4, 5)):
+        return [_cr(*shape, seed=seed), _cr(*shape, seed=seed + 1),
+                _cr(*shape, seed=seed + 2, scale=0.1),
+                _cpos(*shape, seed=seed + 3, shift=0.1)]
+    add(u, "lamb_update_phase1", wgmv(40), lamb)
+    add(u, "lamb_update_phase1", wgmv(44), dict(
+        lamb, t=1, bias_correction=False, clip_gradient=-1.0))
+    add(u, "mp_lamb_update_phase1", wgmv(48) + [_cr(4, 5, seed=48)], lamb)
+    for r1, lo, hi in ((2.5, -1.0, 2.0), (0.0, -1.0, -1.0), (0.2, 6.0, -1.0)):
+        bounds = {"lr": 0.05, "lower_bound": lo, "upper_bound": hi}
+        ws = [_cr(4, 5, seed=52), _cr(4, 5, seed=53), np.array(r1),
+              np.array(0.5)]
+        add(u, "lamb_update_phase2", ws, bounds)
+        add(u, "mp_lamb_update_phase2", ws + [_cr(4, 5, seed=52)], bounds)
+    multi = {"learning_rates": (0.01, 0.02), "wds": (0.0, 0.01),
+             "step_count": (1, 4), "beta1": 0.9, "beta2": 0.999,
+             "epsilon": 1e-6, "rescale_grad": 0.5, "clip_gradient": 1.0,
+             "lower_bound": 0.1, "upper_bound": 10.0}
+    add(u, "_multi_lamb_update", wgmv(56) + wgmv(60, (7,)), multi)
+    add(u, "_multi_mp_lamb_update", wgmv(64) + [_cr(4, 5, seed=64)]
+        + wgmv(68, (7,)) + [_cr(7, seed=68)], multi)
+    g_rows = _cr(5, 3, seed=72)
+    g_rows[[1, 3]] = 0.0
+    add(u, "_sparse_adagrad_update",
+        [_cr(5, 3, seed=71), g_rows, _cpos(5, 3, seed=73, shift=0.0)],
+        {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5, "clip_gradient": 1.0})
+    add(u, "_contrib_group_adagrad_update",
+        [_cr(5, 3, seed=74), _cr(5, 3, seed=75), _cpos(5, seed=76)],
+        {"lr": 0.1, "rescale_grad": 0.5, "clip_gradient": 1.0})
+    w1, g1 = np.ones((3, 2)), np.zeros((3, 2))
+    g1[1] = [1.0, -2.0]
+    add(u, "_sparse_adagrad_update", [w1, g1, np.zeros((3, 2))],
+        {"lr": 0.1})
+    add(u, "_contrib_group_adagrad_update", [w1, g1, np.zeros(3)],
+        {"lr": 0.1})
     return out
 
 
@@ -1425,6 +1490,14 @@ WIDER_TOL = {
                             "division), not an index: the elementwise "
                             "tolerance"),
 }
+# the LAMB and AdaGrad update tail: f32 update arithmetic (divisions,
+# square roots, LAMB's norms as sums) rounded by two libraries
+for _n in ("lamb_update_phase1", "lamb_update_phase2",
+           "mp_lamb_update_phase1", "mp_lamb_update_phase2",
+           "_multi_lamb_update", "_multi_mp_lamb_update",
+           "_sparse_adagrad_update", "_contrib_group_adagrad_update"):
+    WIDER_TOL[_n] = (1e-5, 1e-6, "update arithmetic and norms rounded "
+                     "by two libraries")
 # K3's registered op: an f32 product, summed in the kernel's (or the
 # library's) order; held within 1e-5 of the output's scale
 WIDER_TOL["_contrib_quantized_matmul"] = (1e-5, 1e-5, "f32 products "
@@ -8715,6 +8788,645 @@ def run_compiled_phase(torch, rng, kernels):
     return counts
 
 
+# ------------------------ phase 8f: the sparse tier and the optimizer tail --
+# (a) MovieLens-20M's id counts as GroupLens publishes them (138,493 users,
+# 27,278 movies), rank 128, batch 1024; ratings synthetic, planted at rank
+# 16 from the seed; ids drawn skewed (id = n * u^3: popular ids repeat in
+# a batch, as ratings do); MF_BATCHES fixed batches cycled over MF_STEPS
+# steps, so the loss on them falls and most rows are never touched
+ML20M_USERS, ML20M_MOVIES = 138493, 27278
+MF_RANK, MF_BATCH, MF_STEPS, MF_BATCHES, MF_PLANTED = 128, 1024, 20, 4, 16
+MF_OPTS = (("sgd", {"learning_rate": 5.0, "momentum": 0.9}),
+           ("adam", {"learning_rate": 0.01}),
+           ("adagrad", {"learning_rate": 0.1}))
+# (b) one table of 2^20 x 128 f32 under Adam, 4096 ids a batch
+LAZY_ROWS, LAZY_DIM, LAZY_IDS, LAZY_STEPS = 1 << 20, 128, 4096, 10
+# (c) CSR batches of 1024 rows over 2^20 features, 39 non-zeros a row (the
+# Criteo click logs' field count), times a dense (2^20, 1) weight
+CSR_ROWS, CSR_FEATURES, CSR_NNZ = 1024, 1 << 20, 39
+# (d) the eleven new optimizers on BERT-base's gradients (8b's setup)
+OPT_TAIL = (("adadelta", {}), ("adamax", {}), ("nadam", {}), ("ftml", {}),
+            ("lamb", {}), ("lars", {"momentum": 0.9}),
+            ("dcasgd", {"momentum": 0.9}), ("sgld", {}),
+            ("lbsgd", {"momentum": 0.9}), ("groupadagrad", {}),
+            ("test", {}))
+OPT_TAIL_STEPS = 3
+# card against CPU copies: a lazy step (the same operations in the same
+# order; the repeats summed in a fixed order) within 1e-6 of the weights'
+# scale; the optimizer tail's steps within 1e-5 of each tensor's scale
+# (LARS/LBSGD norms and GroupAdaGrad's row means are sums in another
+# order on the card); sparse.dot and its gradient (an atomic sum on the
+# card) within 1e-5 of the output's scale; the multi-tensor LAMB against
+# the per-tensor phases 1e-6
+SPARSE_CARD_TOL = 1e-6
+OPT_TAIL_REL_TOL = 1e-5
+SPARSE_DOT_TOL = 1e-5
+MULTI_LAMB_TOL = 1e-6
+
+
+def _cpu_state(torch, state):
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return type(state)(_cpu_state(torch, s) for s in state)
+    return state.detach().cpu().clone()
+
+
+def _state_leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [x for s in state for x in _state_leaves(s)]
+    return [state]
+
+
+def mf_net(torch, gluon, seed, users, movies, rank, dev):
+    """MFNet of ``examples/recommender_mf.py`` with ``sparse_grad=True`` on
+    both tables, weights N(0, 0.1) from ``seed`` (on the host)."""
+    class MFNet(gluon.Block):
+        def __init__(self):
+            super().__init__(prefix="mf_")
+            with self.name_scope():
+                self.user = gluon.nn.Embedding(users, rank, sparse_grad=True,
+                                               prefix="user_")
+                self.item = gluon.nn.Embedding(movies, rank,
+                                               sparse_grad=True,
+                                               prefix="item_")
+
+        def forward(self, u, i):
+            return (self.user(u) * self.item(i)).sum(dim=-1)
+    net = MFNet()
+    net.initialize(device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    for p in (net.user.weight, net.item.weight):
+        p.set_data(torch.randn(p.shape, generator=gen) * 0.1)
+    return net
+
+
+def mf_batches(torch, rng, users, movies, dev):
+    """MF_BATCHES (user ids, movie ids, planted ratings) on ``dev``."""
+    pu = rng.randn(users, MF_PLANTED).astype(np.float32) * 0.5
+    pv = rng.randn(movies, MF_PLANTED).astype(np.float32) * 0.5
+    out = []
+    for _ in range(MF_BATCHES):
+        u = (users * rng.rand(MF_BATCH) ** 3).astype(np.int64)
+        m = (movies * rng.rand(MF_BATCH) ** 3).astype(np.int64)
+        y = (pu[u] * pv[m]).sum(-1).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in (u, m, y)))
+    return out
+
+
+def lazy_cpu_step(torch, topt, tr, snap, grads):
+    """The Trainer's step again on CPU copies: the weights, gradients and
+    states ``snap``/``grads`` took before it, the optimizer's counts as
+    they stood. Returns the CPU updater (its states and weights)."""
+    opt = tr.optimizer
+    name = type(opt).__name__.lower()
+    upd = topt.get_updater(topt.create(name, **snap["kw"]))
+    upd.optimizer._index_update_count = dict(snap["counts"])
+    upd.optimizer.num_update = snap["num_update"]
+    upd.optimizer.rescale_grad = opt.rescale_grad
+    upd.states = dict(snap["states"])
+    upd.states_synced = dict.fromkeys(upd.states, True)
+    for i, (w, g) in enumerate(zip(snap["weights"], grads)):
+        upd(i, g, w)
+    return upd
+
+
+def run_mf_case(torch, nd, ag, gluon, topt, sparse, name, kw, batches,
+                dev):
+    """(a) one optimizer: MF_STEPS Trainer steps of the MF net; returns
+    its summary and fails on a check."""
+    loss_fn = gluon.loss.L2Loss()
+    net = mf_net(torch, gluon, 7, ML20M_USERS, ML20M_MOVIES, MF_RANK, dev)
+    params = [net.item.weight, net.user.weight]     # the Trainer's order
+    tr = gluon.Trainer(net.collect_params(), name, dict(kw))
+    w0 = [p.data().detach().clone() for p in params]
+    losses, times = [], []
+    snap = None
+    for s in range(MF_STEPS):
+        u, m, y = batches[s % MF_BATCHES]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ag.record():
+            loss = loss_fn(net(u, m), y)
+        ag.backward(loss)
+        if s == MF_STEPS - 1:
+            grads = [p.grad() for p in params]
+            check(all(isinstance(g, sparse.RowSparseNDArray) and
+                      not g.densified for g in grads),
+                  f"8f (a) {name}: a gradient was not row-sparse")
+            snap = {"kw": dict(kw),
+                    "counts": dict(tr.optimizer._index_update_count),
+                    "num_update": tr.optimizer.num_update,
+                    "weights": [p.data().detach().cpu().clone()
+                                for p in params],
+                    "states": {i: _cpu_state(torch, st) for i, st in
+                               tr._updaters[0].states.items()}}
+            cpu_grads = [sparse.RowSparseNDArray(
+                g._values.cpu(), g._indices.cpu(), g.shape) for g in grads]
+        tr.step(MF_BATCH)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach().mean()))
+    # untouched rows: weights and states keep their bits
+    touched = [torch.unique(torch.cat([b[k] for b in batches]))
+               for k in (1, 0)]
+    untouched_ok = True
+    for i, (p, w, t) in enumerate(zip(params, w0, touched)):
+        rest = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        rest[t] = False
+        untouched_ok &= bool(torch.equal(p.data().detach()[rest], w[rest]))
+        for st in _state_leaves(tr._updaters[0].states[i]):
+            untouched_ok &= not bool(st[rest].any())
+    # the last step on CPU copies
+    cpu = lazy_cpu_step(torch, topt, tr, snap, cpu_grads)
+    err, scale = 0.0, 0.0
+    for i, p in enumerate(params):
+        got = [p.data().detach()] + _state_leaves(tr._updaters[0].states[i])
+        want = [snap["weights"][i]] + _state_leaves(cpu.states[i])
+        for a, b in zip(got, want):
+            err = max(err, float((a.cpu() - b).abs().max()))
+        scale = max(scale, float(snap["weights"][i].abs().max()))
+    fallbacks = dict(tr._fused.fallbacks)
+    # the profiled steps (4, one of each batch), then the compiled step
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for u, m, y in batches:
+            with ag.record():
+                loss = loss_fn(net(u, m), y)
+            ag.backward(loss)
+            tr.step(MF_BATCH)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    share = report_profile(prof, wall, MF_BATCHES)
+    busy = PROFILED.get("busy_ms")
+    step = tr.compile_step(lambda u, m, y: loss_fn(net(u, m), y))
+    step(*batches[0])
+    first = float(np.mean(losses[:MF_BATCHES]))
+    last = float(np.mean(losses[-MF_BATCHES:]))
+    res = {"name": name, "step_ms": float(np.median(times[1:])) * 1e3,
+           "device_ms": None if busy is None else busy / MF_BATCHES,
+           "idle": None if share is None else 1 - share,
+           "first": first, "last": last, "err": err, "scale": scale,
+           "fallbacks": fallbacks, "compiled": step.last_reason,
+           "touched": [int(t.numel()) for t in touched]}
+    log(f"8f (a) {name} {kw}: MF net {ML20M_USERS} users x "
+        f"{ML20M_MOVIES} movies rank {MF_RANK}, batch {MF_BATCH}, "
+        f"{MF_STEPS} steps over {MF_BATCHES} batches ({res['touched'][1]} "
+        f"users, {res['touched'][0]} movies touched): loss {first:.5f} -> "
+        f"{last:.5f}; step {res['step_ms']:.2f} ms (median, forward + "
+        f"backward + Trainer.step), device "
+        + ("not measured" if busy is None else
+           f"{res['device_ms']:.3f} ms/step, idle {res['idle']:.3f}")
+        + f"; last step vs CPU copies max_abs_err={err:.3e} (weights' "
+        f"scale {scale:.3f}); untouched rows kept their bits "
+        f"{untouched_ok}; fused fallbacks {fallbacks}; compile_step "
+        f"{step.last_reason}")
+    check(last < first, f"8f (a) {name}: the loss did not fall "
+          f"({first} -> {last})")
+    check(untouched_ok, f"8f (a) {name}: an untouched row or its state "
+          "changed")
+    check(err <= SPARSE_CARD_TOL * scale, f"8f (a) {name}: the card's step "
+          f"differs from the CPU's by {err}")
+    check(fallbacks == {"sparse_grad": MF_STEPS}, f"8f (a) {name}: fused "
+          f"fallbacks {fallbacks}")
+    check(step.last_reason == "sparse_grad", f"8f (a) {name}: compile_step "
+          f"reason {step.last_reason}")
+    del net, tr, step
+    return res
+
+
+def run_lazy_vs_dense(torch, nd, ag, gluon, rng, dev):
+    """(b) a 2^20 x 128 table under Adam, LAZY_IDS ids a batch: the lazy
+    step (``sparse_grad=True``) against the dense one, from the same
+    weights and ids: median full-step and ``Trainer.step`` ms over
+    LAZY_STEPS steps; the same weights after the first step (within
+    1e-5 of their scale: two Adam implementations)."""
+    gen = torch.Generator().manual_seed(11)
+    w = (torch.randn(LAZY_ROWS, LAZY_DIM, generator=gen) * 0.02).to(dev)
+    ids = [torch.from_numpy(rng.randint(0, LAZY_ROWS, LAZY_IDS)).to(dev)
+           for _ in range(LAZY_STEPS + 1)]
+    out, first = {}, {}
+    for sparse_grad in (True, False):
+        emb = gluon.nn.Embedding(LAZY_ROWS, LAZY_DIM,
+                                 sparse_grad=sparse_grad,
+                                 prefix=f"lazy{int(sparse_grad)}_")
+        emb.initialize(device=dev)
+        emb.weight.set_data(w)
+        tr = gluon.Trainer(emb.collect_params(), "adam",
+                           {"learning_rate": 1e-3})
+        full, upd = [], []
+        for s, x in enumerate(ids):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ag.record():
+                loss = (emb(x) ** 2).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.step(LAZY_IDS)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if s == 0:
+                first[sparse_grad] = emb.weight.data().detach().clone()
+            else:
+                full.append(t2 - t0)
+                upd.append(t2 - t1)
+        out[sparse_grad] = (float(np.median(full)) * 1e3,
+                            float(np.median(upd)) * 1e3,
+                            dict(tr._fused.fallbacks))
+        del emb, tr
+        torch.cuda.empty_cache()
+    diff = float((first[True] - first[False]).abs().max())
+    scale = float(w.abs().max())
+    log(f"8f (b) Adam on one {LAZY_ROWS} x {LAZY_DIM} f32 table, "
+        f"{LAZY_IDS} ids a batch: lazy step {out[True][0]:.3f} ms "
+        f"(Trainer.step {out[True][1]:.3f} ms, fallbacks {out[True][2]}), "
+        f"dense step {out[False][0]:.3f} ms (Trainer.step "
+        f"{out[False][1]:.3f} ms, fallbacks {out[False][2]}); after one "
+        f"step max |lazy - dense| = {diff:.3e} (scale {scale:.3f})")
+    check(diff <= 1e-5 * scale, f"8f (b): the lazy and the dense Adam "
+          f"step differ by {diff}")
+    del w, first
+    torch.cuda.empty_cache()
+    return {"lazy_ms": out[True][0], "lazy_update_ms": out[True][1],
+            "dense_ms": out[False][0], "dense_update_ms": out[False][1]}
+
+
+def run_sparse_dot(torch, nd, ag, sparse, timer, rng, dev):
+    """(c) ``sparse.dot`` of a CSR batch (CSR_ROWS x CSR_FEATURES,
+    CSR_NNZ distinct columns a row) and a dense (CSR_FEATURES, 1)
+    weight: the forward and the weight's gradient against the same op on
+    CPU copies; forward and forward + backward ms, ``torch.sparse.mm``'s
+    ms, the bound."""
+    # CSR_NNZ distinct columns a row, sorted (the canonical CSR order)
+    cols = np.concatenate([np.unique(rng.randint(0, CSR_FEATURES,
+                                                 2 * CSR_NNZ))[:CSR_NNZ]
+                           for _ in range(CSR_ROWS)])
+    check(cols.size == CSR_ROWS * CSR_NNZ, "8f (c): a CSR row drew fewer "
+          "distinct columns than asked")
+    indptr = np.arange(0, CSR_ROWS * CSR_NNZ + 1, CSR_NNZ)
+    data = rng.randn(CSR_ROWS * CSR_NNZ).astype(np.float32)
+    w_np = (rng.randn(CSR_FEATURES, 1) * 0.01).astype(np.float32)
+    dy = rng.randn(CSR_ROWS, 1).astype(np.float32)
+    got = {}
+    for d in (dev, "cpu"):
+        csr = sparse.csr_matrix((data, cols, indptr),
+                                shape=(CSR_ROWS, CSR_FEATURES), ctx=d)
+        w = nd.array(w_np, ctx=d)
+        w.attach_grad()
+        with ag.record():
+            out = sparse.dot(csr, w)
+            loss = (out * nd.array(dy, ctx=d)).sum()
+        loss.backward()
+        got[str(d)] = (out.asnumpy(), w.grad.asnumpy(), csr.densified)
+    (o, g, dens), (oc, gc, _) = got[str(dev)], got["cpu"]
+    err_o = float(np.abs(o - oc).max()) / float(np.abs(oc).max())
+    err_g = float(np.abs(g - gc).max()) / float(np.abs(gc).max())
+    csr = sparse.csr_matrix((data, cols, indptr),
+                            shape=(CSR_ROWS, CSR_FEATURES), ctx=dev)
+    w = torch.from_numpy(w_np).to(dev)
+    wg = w.clone().requires_grad_(True)
+    dyt = torch.from_numpy(dy).to(dev)
+    lib = torch.sparse_csr_tensor(csr._indptr, csr._indices, csr._values,
+                                  (CSR_ROWS, CSR_FEATURES))
+    fwd_ms = timer.ms(lambda: sparse._csr_dot(csr, w, False))
+    bwd_ms = timer.ms(lambda: torch.autograd.grad(
+        sparse._csr_dot(csr, wg, False), wg, dyt))
+    lib_ms = timer.ms(lambda: torch.sparse.mm(lib, w))
+    nnz = CSR_ROWS * CSR_NNZ
+    # the values, their columns, the row pointers, the weight rows the
+    # values name and the output, each once
+    nbytes = nnz * 4 + nnz * 8 + (CSR_ROWS + 1) * 8 + nnz * 4 + CSR_ROWS * 4
+    b_ms, b_by, _ = bound(nbytes, 2 * nnz)
+    log(f"8f (c) sparse.dot CSR {CSR_ROWS} x {CSR_FEATURES} ({CSR_NNZ} "
+        f"non-zeros a row) times ({CSR_FEATURES}, 1): forward rel err "
+        f"{err_o:.2e}, weight gradient rel err {err_g:.2e} vs CPU copies; "
+        f"densified {dens}; forward {fwd_ms:.4f} ms, forward + backward "
+        f"{bwd_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+    check(not dens, "8f (c): sparse.dot densified its CSR operand")
+    check(err_o <= SPARSE_DOT_TOL and err_g <= SPARSE_DOT_TOL,
+          f"8f (c): sparse.dot differs from the CPU's ({err_o}, {err_g})")
+    return {"fwd_ms": fwd_ms, "fwd_bwd_ms": bwd_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms}
+
+
+def tail_twin_check(torch, opt, subset, errs):
+    """Wrap ``opt.update``: for each index of ``subset`` the same update
+    runs again on CPU copies of its inputs from a copy of the
+    optimizer's host state; ``errs`` gets each (max abs error over the
+    weight and states) / the weight's scale (its largest magnitude
+    before or after: a bias that starts at zero has the step's)."""
+    import copy
+    from mxnet_tpu_torch.optimizer.optimizer import _dense
+    orig = opt.update
+
+    def update(index, weight, grad, state):
+        if index not in subset:
+            return orig(index, weight, grad, state)
+        host = copy.deepcopy({k: v for k, v in opt.__dict__.items()
+                              if k not in ("param_dict", "update")})
+        w0 = weight.detach().cpu().clone()
+        g0 = _dense(grad).detach().cpu().clone()
+        s0 = _cpu_state(torch, state)
+        orig(index, weight, grad, state)
+        twin = type(opt).__new__(type(opt))
+        twin.__dict__.update(host)
+        twin.param_dict = {}
+        scale = max(float(w0.nan_to_num(0.0).abs().max()),
+                    float(weight.detach().nan_to_num(0.0).abs().max()),
+                    1e-30)
+        twin.update(index, w0, g0, s0)
+        err = max([nan_diff(torch, weight.detach().cpu(), w0)] +
+                  [nan_diff(torch, a.cpu(), b) for a, b in zip(
+                      _state_leaves(state), _state_leaves(s0))])
+        errs.append(err / scale)
+    opt.update = update
+
+
+def nan_diff(torch, a, b):
+    """max |a - b|, a NaN on both sides at one place counting 0 and a NaN
+    on one side infinity."""
+    both = torch.isnan(a) & torch.isnan(b)
+    d = (a - b).abs().masked_fill(both, 0.0)
+    return float(d.nan_to_num(float("inf")).max()) if d.numel() else 0.0
+
+
+def run_optimizer_tail_on_bert(torch, rng, kernels, nd, ag, gluon, timer,
+                               cfg=BERT_BASE, batch=BERT_BATCH,
+                               seqlen=BERT_T):
+    """(d) the eleven new optimizers through the Trainer on BERT-base's
+    gradients (8b's setup), OPT_TAIL_STEPS steps each: the first step's
+    update of every ninth tensor (up to 2.5M elements) checked against
+    the same update on CPU copies (SGLD: its noise's statistics on the
+    word embeddings), the later steps timed;
+    then the multi-tensor LAMB ops over the 203 tensors against the
+    per-tensor phases. Returns the step ms by optimizer."""
+    import mxnet_tpu_torch.optimizer.optimizer as optmod
+    from mxnet_tpu_torch.ops import optimizer_ops as ops
+    from mxnet_tpu_torch.ops.registry import get as get_op
+    net, loss_fn, params = bert_base_params(torch, cfg)
+    d = bert_batches(torch, rng, 1, cfg["vocab_size"], batch, seqlen,
+                     DEVICE)[0]
+    with ag.record():
+        loss = mlm_loss(net, loss_fn, d, cfg["vocab_size"])
+    loss.backward()
+    grads = [p.grad().clone() for p in params]
+    start = [p.data().detach().clone() for p in params]
+    subset = {i for i, p in enumerate(params)
+              if i % 9 == 0 and p.data().numel() <= 2_500_000}
+    big = max(range(len(params)), key=lambda i: params[i].data().numel())
+    reads = [0]
+    host_norm = optmod._host_norm
+
+    def counted(x):
+        reads[0] += 1
+        return host_norm(x)
+    optmod._host_norm = counted
+    rows = {}
+    try:
+        for name, kw in OPT_TAIL:
+            for p, s in zip(params, start):
+                p.set_data(s)
+            tr = gluon.Trainer(net.collect_params(), name, dict(kw))
+            errs, times, noise = [], [], None
+            if name != "sgld":
+                tail_twin_check(torch, tr.optimizer, subset, errs)
+            for k in range(OPT_TAIL_STEPS):
+                for p, g in zip(params, grads):
+                    p.grad().copy_(g)
+                before = params[big].data().detach().clone() \
+                    if name == "sgld" and k == 0 else None
+                if k == 1:
+                    # the first step is checked; the others are timed
+                    tr.optimizer.__dict__.pop("update", None)
+                    reads[0] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(batch)
+                torch.cuda.synchronize()
+                if k:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                if before is not None:
+                    o = tr.optimizer
+                    det = before - o.lr / 2 * (grads[big] * o.rescale_grad
+                                               + o.wd * before)
+                    noise = params[big].data().detach() - det
+            if name == "adamax":
+                # w -= lr * m / u divides 0 by 0 where a gradient entry
+                # was 0 at every step (as the reference's): NaN there only
+                finite = all(bool((torch.isfinite(p.data()) |
+                                   (g == 0)).all())
+                             for p, g in zip(params, grads))
+            else:
+                finite = all(bool(torch.isfinite(p.data()).all())
+                             for p in params)
+            worst = max(errs) if errs else None
+            line = (f"8f (d) {name} {kw}: {OPT_TAIL_STEPS} Trainer steps "
+                    f"on BERT-base gradients, trainer.step of steps 2-"
+                    f"{OPT_TAIL_STEPS} " + " ".join(f"{t:.2f}" for t in times)
+                    + f" ms; fused fallbacks {dict(tr._fused.fallbacks)}")
+            if reads[0]:
+                line += (f"; {reads[0] // len(times)} norms read on the "
+                         "host a step")
+            if noise is not None:
+                n = noise.numel()
+                lr = tr.optimizer.lr
+                mean, var = float(noise.mean()), float(noise.var())
+                line += (f"; noise on {n} elements mean {mean:.2e} var "
+                         f"{var:.5f} (lr {lr})")
+                check(abs(mean) < 4 * np.sqrt(lr / n) and
+                      abs(var - lr) < 4 * lr * np.sqrt(2.0 / n),
+                      f"8f (d) sgld: noise mean {mean}, var {var}")
+            else:
+                line += (f"; step 1's updates of {len(errs)} tensors vs CPU "
+                         f"copies, max rel err {worst:.2e}")
+                check(worst <= OPT_TAIL_REL_TOL, f"8f (d) {name}: the card "
+                      f"differs from the CPU copies by {worst}")
+            log(line)
+            check(finite, f"8f (d) {name}: non-finite weights")
+            check(dict(tr._fused.fallbacks) == {"optimizer": OPT_TAIL_STEPS},
+                  f"8f (d) {name}: fallbacks {dict(tr._fused.fallbacks)}")
+            rows[name] = float(np.median(times))
+            del tr
+    finally:
+        optmod._host_norm = host_norm
+    # the multi-tensor LAMB ops against the per-tensor phases
+    shapes = [tuple(p.shape) for p in params]
+    del net, params, start
+    torch.cuda.empty_cache()
+    for mp in (False, True):
+        gen = torch.Generator(device=DEVICE).manual_seed(30 + mp)
+        arrays, per = [], []
+        lrs = [1e-3 * (1 + k % 3) for k in range(len(shapes))]
+        wds = [0.01 * (k % 2) for k in range(len(shapes))]
+        steps = [1 + k % 4 for k in range(len(shapes))]
+        for k, (shape, g) in enumerate(zip(shapes, grads)):
+            w32 = torch.randn(shape, generator=gen, device=DEVICE) * 0.05
+            m = torch.randn(shape, generator=gen, device=DEVICE) * 1e-3
+            v = torch.rand(shape, generator=gen, device=DEVICE) * 1e-4
+            w = w32.to(torch.bfloat16) if mp else w32
+            gg = g.to(torch.bfloat16) if mp else g
+            arrays += [w, gg, m, v] + ([w32] if mp else [])
+            per.append((w32, gg, m, v))
+        name = "_multi_mp_lamb_update" if mp else "_multi_lamb_update"
+        kw = dict(learning_rates=lrs, wds=wds, step_count=steps,
+                  rescale_grad=1.0 / batch)
+        outs = get_op(name).impl(arrays, **kw)
+        n_out = 4 if mp else 3
+        err = 0.0
+
+        def per_tensor():
+            res = []
+            for k, (w32, gg, m, v) in enumerate(per):
+                step, m1, v1 = ops.lamb_phase1(
+                    w32, gg.float() if mp else gg, m, v, t=steps[k],
+                    wd=wds[k], rescale_grad=1.0 / batch)
+                r1 = torch.sqrt(torch.sum(w32 * w32))
+                r2 = torch.sqrt(torch.sum(step * step))
+                res.append((ops.lamb_phase2(w32, step, r1, r2, lr=lrs[k]),
+                            m1, v1))
+            return res
+        for k, (new, m1, v1) in enumerate(per_tensor()):
+            got = outs[k * n_out:k * n_out + 3]
+            ref = (new.to(torch.bfloat16) if mp else new, m1, v1)
+            for a, b in zip(got, ref):
+                scale = max(float(b.float().abs().max()), 1e-30)
+                err = max(err, float((a.float() - b.float()).abs().max())
+                          / scale)
+        multi_ms = timer.ms(lambda: get_op(name).impl(arrays, **kw), n=5)
+        per_ms = timer.ms(per_tensor, n=5)
+        tol = MULTI_LAMB_TOL if not mp else 2.0 ** -8
+        log(f"8f (d) {name} over {len(shapes)} BERT-base tensors"
+            + (" (bf16 weights and gradients)" if mp else "")
+            + f": vs the per-tensor phases max rel err {err:.2e} "
+            f"(tol {tol:g}); {multi_ms:.3f} ms, the per-tensor route "
+            f"{per_ms:.3f} ms (plain PyTorch both)")
+        check(err <= tol, f"8f (d) {name}: differs from the per-tensor "
+              f"phases by {err}")
+        rows[name] = multi_ms
+        del arrays, per, outs
+        torch.cuda.empty_cache()
+    del grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_kvstore_on_card(torch, nd, ag, gluon, sparse, dev):
+    """(e) the store on the card: ``row_sparse_pull`` and a sparse push;
+    2-bit compression against its CPU twin, bit for bit; a Trainer with
+    a local store instance steps bit for bit as one with
+    ``kvstore=None``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kvstore import compression as gc
+    gen = torch.Generator().manual_seed(12)
+    table = (torch.randn(ML20M_USERS, MF_RANK, generator=gen) * 0.1).to(dev)
+    kv = mx.kv.create("local")
+    kv.init("user", table)
+    ids = torch.randint(0, ML20M_USERS, (4096,), generator=gen).to(dev)
+    out = sparse.zeros("row_sparse", tuple(table.shape), ctx=dev)
+    kv.row_sparse_pull("user", out=out, row_ids=ids)
+    rows = torch.unique(ids)
+    pull_ok = torch.equal(out._indices, rows) and \
+        torch.equal(out._values, table[rows]) and not out.densified
+    a = sparse.RowSparseNDArray(torch.ones(3, MF_RANK, device=dev),
+                                torch.tensor([5, 9, 5], device=dev),
+                                tuple(table.shape))
+    b = sparse.RowSparseNDArray(torch.ones(1, MF_RANK, device=dev),
+                                torch.tensor([9], device=dev),
+                                tuple(table.shape))
+    kv.init("g", sparse.zeros("row_sparse", tuple(table.shape), ctx=dev))
+    kv.push("g", [a, b])
+    stored = kv._store["g"]
+    dense = torch.zeros_like(table)
+    kv.pull("g", out=dense)
+    push_ok = isinstance(stored, sparse.RowSparseNDArray) and \
+        stored._indices.tolist() == [5, 9, 5, 9] and \
+        float(dense[5, 0]) == 2.0 and float(dense[9, 0]) == 2.0 and \
+        int((dense != 0).any(dim=1).sum()) == 2
+    comp = gc.TwoBitCompression(0.5)
+    g = torch.randn(1 << 24, generator=gen) * 0.7
+    r = torch.randn(1 << 24, generator=gen) * 0.1
+    packed, res = comp.compress(g.to(dev), r.to(dev))
+    packed_c, res_c = comp.compress(g, r)
+    comp_ok = torch.equal(packed.cpu(), packed_c) and torch.equal(
+        res.cpu(), res_c)
+    nets = []
+    w = (torch.randn(1024, 1024, generator=gen) * 0.03).to(dev)
+    x = torch.randn(256, 1024, generator=gen).to(dev)
+    for store in (None, mx.kv.create("local")):
+        net = gluon.nn.Dense(1024, in_units=1024, prefix="kvnet_")
+        net.initialize(device=dev)
+        net.weight.set_data(w)
+        net.bias.set_data(w[0])
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 1e-3}, kvstore=store)
+        for _ in range(2):
+            with ag.record():
+                loss = (net(x) ** 2).sum()
+            loss.backward()
+            tr.step(256)
+        nets.append((net, tr))
+    (n0, t0_), (n1, t1_) = nets
+    same = all(torch.equal(a.data(), b.data()) for a, b in zip(
+        n0.collect_params().values(), n1.collect_params().values()))
+    log(f"8f (e) kvstore on the card: row_sparse_pull of 4096 ids "
+        f"({rows.numel()} rows) from the {ML20M_USERS} x {MF_RANK} table "
+        f"{'exact' if pull_ok else 'WRONG'}, a sparse push stays sparse "
+        f"and sums {'right' if push_ok else 'WRONG'}; 2-bit compression "
+        f"of 2^24 values: words and residual "
+        f"{'bit for bit' if comp_ok else 'DIFFER'} with the CPU twin; a "
+        f"Trainer with a local store (pushes and pulls each gradient, "
+        f"kvstore {type(t1_._kvstore).__name__}) steps "
+        f"{'bit for bit' if same else 'DIFFERENTLY'} as kvstore=None")
+    check(pull_ok and push_ok, "8f (e): the store's sparse pull or push")
+    check(comp_ok, "8f (e): 2-bit compression differs from the CPU twin")
+    check(same and t1_._kvstore is not None and t0_._kvstore is None,
+          "8f (e): the store instance's step differs from kvstore=None's")
+    del table, nets, g, r
+    torch.cuda.empty_cache()
+
+
+def run_sparse_phase(torch, rng, kernels):
+    """Phase 8f: (a) sparse-embedding training of the MF net at
+    MovieLens-20M's widths (lazy SGD with momentum, lazy Adam, AdaGrad);
+    (b) a lazy against a dense Adam step; (c) ``sparse.dot`` at the
+    Criteo field count; (d) the optimizer tail on BERT-base's
+    gradients; (e) the kvstore on the card. Returns the launch counts
+    (phase 8f's flash and update-kernel launches)."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ndarray import sparse
+    dev = torch.device(DEVICE)
+    timer = Timer(torch)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    batches = mf_batches(torch, rng, ML20M_USERS, ML20M_MOVIES, dev)
+    for name, kw in MF_OPTS:
+        run_mf_case(torch, nd, ag, gluon, topt, sparse, name, kw, batches,
+                    dev)
+        torch.cuda.empty_cache()
+    log(f"time: 8f (a) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    run_lazy_vs_dense(torch, nd, ag, gluon, rng, dev)
+    run_sparse_dot(torch, nd, ag, sparse, timer, rng, dev)
+    log(f"time: 8f (b), (c) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    run_optimizer_tail_on_bert(torch, rng, kernels, nd, ag, gluon, timer)
+    log(f"time: 8f (d) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    run_kvstore_on_card(torch, nd, ag, gluon, sparse, dev)
+    log(f"time: 8f (e) {time.monotonic() - t0:.1f}s")
+    del timer
+    torch.cuda.empty_cache()
+    return kernels.launch_counts()
+
+
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
 
 
@@ -9006,6 +9718,12 @@ def main():
     # generator, as 5b)
     add(run_compiled_phase(torch, np.random.RandomState(28), kernels))
     lap("8e compiled step")
+    # 8f. the sparse tier and the optimizer tail: sparse-embedding
+    # training at MovieLens-20M's widths, lazy against dense Adam,
+    # sparse.dot, the eleven new optimizers on BERT-base's gradients, the
+    # kvstore on the card (its own generator, as 5b)
+    add(run_sparse_phase(torch, np.random.RandomState(29), kernels))
+    lap("8f sparse tier and optimizer tail")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -43,7 +43,13 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   op families, with the multi-tensor update tail on the update kernel;
 - the compiled step (:mod:`~mxnet_tpu_torch.jit`): ``hybridize()`` as a
   ``CachedOp`` of CUDA graphs and ``Trainer.compile_step`` as one graph
-  replay a training step.
+  replay a training step;
+- the sparse tier and the optimizer tail: ``nd.sparse`` (row-sparse and
+  CSR arrays, ``sparse.dot``), row-sparse Embedding gradients and the
+  lazy SGD/Adam updates, the reference's 20 optimizers with the LAMB
+  ops, the initializer tail and the single-process ``mx.kv`` store
+  (2-bit gradient compression, ``row_sparse_pull``), which
+  ``gluon.Trainer(kvstore=...)`` takes as the reference's does.
 
 See ROADMAP.md for what remains.
 
@@ -69,10 +75,10 @@ __all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc",
 # ported raise AttributeError naming their ROADMAP.md item.
 _LAZY_MODULES = ("gluon", "optimizer", "initializer", "lr_scheduler",
                  "amp", "contrib", "error", "rtc", "deploy", "resilience",
-                 "serving", "observability", "jit")
+                 "serving", "observability", "jit", "kvstore")
 _NOT_PORTED = {name: "§1 item 14" for name in (
     "numpy", "numpy_extension", "symbol", "module", "metric", "io",
-    "kvstore", "image", "parallel", "profiler", "callback", "test_utils",
+    "image", "parallel", "profiler", "callback", "test_utils",
     "util", "runtime", "recordio", "executor", "monitor", "model",
     "operator", "onnx", "native", "library", "visualization", "engine",
     "attribute", "name", "rnn")}

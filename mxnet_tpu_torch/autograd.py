@@ -14,6 +14,13 @@ is torch's own: a recorded op's result carries its ``grad_fn``.
 ``grad_req`` is kept by :mod:`mxnet_tpu_torch.gluon.parameter`.
 ``grad(..., create_graph=True)`` records the gradient computation, so
 its result can be differentiated again.
+
+A sparse-gradient lookup (``Embedding(sparse_grad=True)``) gives its
+weight a hybrid COO gradient; ``backward`` and ``grad`` hand it on as an
+``nd.sparse.RowSparseNDArray`` (its ids as they stand, uncoalesced).
+Two such gradients of one variable concatenate (torch's accumulation);
+a sparse and a dense one sum densely, and so does ``grad_req="add"``
+into the dense zeros ``attach_grad`` starts from, as in the reference.
 """
 from __future__ import annotations
 
@@ -148,10 +155,20 @@ def _heads(heads, head_grads):
     return hs, gs
 
 
+def _as_array(g):
+    """A gradient tensor as an NDArray (a sparse one as a
+    RowSparseNDArray)."""
+    from .ndarray.ndarray import NDArray
+    if g.is_sparse:
+        from .ndarray.sparse import RowSparseNDArray
+        return RowSparseNDArray.from_coo(g)
+    return NDArray(g)
+
+
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to every attached variable,
     stored in each variable's ``.grad`` by its ``grad_req``."""
-    from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import add as _sparse_add, RowSparseNDArray
     hs, gs = _heads(heads, head_grads)
     leaves = [a for a in list(_LEAVES.values())
               if a._grad_req != "null" and a._data.requires_grad]
@@ -165,10 +182,14 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
             continue
         a._data.grad = None
         # a new gradient array each time, as the JAX package's
+        g = _as_array(g)
         if a._grad_req == "add" and a._grad is not None:
-            a._grad = NDArray(a._grad._data + g)
-        else:
-            a._grad = NDArray(g)
+            if isinstance(a._grad, RowSparseNDArray) and \
+                    isinstance(g, RowSparseNDArray):
+                g = _sparse_add(a._grad, g)
+            else:
+                g = _as_array(a._grad._data + g._data)
+        a._grad = g
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -188,7 +209,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         got = torch.autograd.grad(hs, xs, gs, retain_graph=retain_graph,
                                   create_graph=create_graph,
                                   allow_unused=True)
-    out = [NDArray(torch.zeros_like(x) if g is None else g)
+    out = [NDArray(torch.zeros_like(x)) if g is None else _as_array(g)
            for g, x in zip(got, xs)]
     return out[0] if single else out
 

@@ -239,7 +239,8 @@ class Embedding(HybridBlock):
 
     def hybrid_forward(self, F, x, weight=None):
         if self._sparse_grad:
-            # the op refuses sparse gradients under record (ops/invoke.py)
+            # under record the weight's gradient is row-sparse
+            # (ops/invoke.py _SparseEmbedding)
             return apply_op("Embedding", [x, weight],
                             dict(input_dim=self._input_dim,
                                  output_dim=self._output_dim,

@@ -19,10 +19,16 @@ Gradients keep MXNet's ``grad_req``:
 ``grad()`` starts as zeros, as MXNet's gradient buffer does, so a
 parameter no backward reaches keeps a zero (or its last) gradient.
 
+A parameter with ``grad_stype="row_sparse"`` (``Embedding(sparse_grad=
+True)``) gets a sparse gradient from its lookups: ``grad()`` returns it
+as an ``nd.sparse.RowSparseNDArray`` (dense zeros before any backward).
+``row_sparse_data(row_id)`` gathers the rows of a ``stype="row_sparse"``
+parameter's (dense) data as a RowSparseNDArray.
+
 One device a parameter: ``list_data``, ``list_grad`` and ``list_ctx``
 return lists of one, and ``reset_ctx`` moves the data. ``var()`` waits
-for ``symbol/`` and ``row_sparse_data`` for ``ndarray/sparse.py``
-(ROADMAP.md §1 items 14 and 12): both raise ``NotImplementedError``.
+for ``symbol/`` (ROADMAP.md §1 item 14) and raises
+``NotImplementedError``.
 
 :func:`param_values` substitutes other tensors for parameters' data on
 the calling thread (the reference's ``functional_call`` substitution):
@@ -117,7 +123,8 @@ class Parameter:
     """A Block parameter: named, lazily shaped, on one device.
     ``differentiable=False`` holds ``grad_req`` at ``"null"``; ``stype``
     and ``grad_stype`` are kept for the reference's signature (storage
-    is dense)."""
+    is dense; a ``grad_stype="row_sparse"`` parameter's gradient is
+    sparse)."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
@@ -282,7 +289,8 @@ class Parameter:
         return [self.data()]
 
     def grad(self):
-        """The gradient tensor (zeros until a backward writes it)."""
+        """The gradient tensor (zeros until a backward writes it); a
+        sparse gradient as a RowSparseNDArray."""
         d = self.data()
         if self._grad_req == "null":
             raise RuntimeError(
@@ -290,6 +298,9 @@ class Parameter:
                 "because grad_req='null'")
         if d.grad is None:
             d.grad = torch.zeros_like(d)
+        if d.grad.is_sparse:
+            from ..ndarray.sparse import RowSparseNDArray
+            return RowSparseNDArray.from_coo(d.grad)
         return d.grad
 
     def list_grad(self):
@@ -338,10 +349,19 @@ class Parameter:
             "(ROADMAP.md §1 item 14)")
 
     def row_sparse_data(self, row_id):
-        """The reference's row-sparse view: not ported."""
-        raise NotImplementedError(
-            "Parameter.row_sparse_data needs ndarray/sparse.py, not ported "
-            "yet (ROADMAP.md §1 item 12)")
+        """The rows ``row_id`` names (each once, sorted) of a
+        ``stype="row_sparse"`` parameter, gathered into a
+        RowSparseNDArray of the parameter's shape (the storage stays
+        dense)."""
+        if self.stype != "row_sparse":
+            raise RuntimeError(
+                f"Parameter '{self.name}' stype is {self.stype!r}; "
+                "row_sparse_data requires stype='row_sparse'")
+        from ..ndarray.sparse import RowSparseNDArray
+        src = self.data().detach()
+        rows = torch.unique(torch.as_tensor(
+            unwrap(row_id)).to(src.device).long().reshape(-1))
+        return RowSparseNDArray(src[rows], rows, tuple(src.shape))
 
     def list_row_sparse_data(self, row_id):
         return [self.row_sparse_data(row_id)]

@@ -12,12 +12,23 @@ every parameter with a gradient), ``MXNET_TPU_FUSED_UPDATE=0`` and the
 other fallbacks of ``optimizer/fused.py``; ``fused.fallbacks`` counts
 them by reason.
 
-One device: no kvstore, so ``allreduce_grads`` has nothing to reduce
-(the reference's does nothing without a kvstore on one context either).
-Parameters are read at each step, not at construction, so a ``Dense``
-whose shape is deferred until the first forward is updated once it
-exists (the JAX Trainer's ``_params_to_init``); until then it is
-skipped.
+The store (``kvstore=``, ``compression_params=``, ``update_on_kvstore=``,
+the reference's arguments) is made at the first step, as the
+reference's: on one device ``"device"``, ``"local"``, ``None``, ``""``
+and ``"nullkv"`` take no store and update in place; another type name
+makes ``mx.kv.create(name)`` (updating on the store when it can, unless
+``update_on_kvstore=False``); a store instance is used as given, with
+``update_on_kvstore`` as the caller sets it. With a store,
+``allreduce_grads`` pushes each gradient and pulls the sum back (or,
+updating on the store, ``step`` pulls the store's weights).
+``compression_params`` is kept and not applied, as the reference's
+Trainer keeps it: compression is set on a store
+(``set_gradient_compression``). Parameters
+are read at each step, not at construction, so a ``Dense`` whose shape
+is deferred until the first forward is updated once it exists (the JAX
+Trainer's ``_params_to_init``); until then it is skipped. A row-sparse
+gradient (``Embedding(sparse_grad=True)``) reaches the optimizer as an
+``nd.sparse.RowSparseNDArray`` through the loop (``sparse_grad``).
 
 ``compile_step(loss_fn)`` returns a :class:`mxnet_tpu_torch.jit.
 CompiledTrainStep`: forward, backward and this update as one CUDA-graph
@@ -51,7 +62,9 @@ __all__ = ["Trainer"]
 class Trainer:
     """Applies an optimizer to a set of Parameters."""
 
-    def __init__(self, params, optimizer, optimizer_params=None):
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
         if hasattr(params, "items"):
             params = [params[key] for key in sorted(params.keys())]
         if not isinstance(params, (list, tuple)):
@@ -68,9 +81,19 @@ class Trainer:
         self._ckpt_mgrs = {}   # realpath(run_dir) -> CheckpointManager
         self._compiled_steps = weakref.WeakSet()
         self._restored_step_state = None
+        self._compression_params = compression_params
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = None
+        # a parameter stored row-sparse (MXNet's flag; the storage here
+        # stays dense: Parameter.row_sparse_data gathers its rows)
+        self._contains_sparse_weight = any(
+            p.stype != "default" for p in self._params)
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -85,6 +108,34 @@ class Trainer:
                                          **optimizer_params)
         self._updaters = [opt.get_updater(self._optimizer)]
         self._fused = None
+
+    def _init_kvstore(self):
+        """Make the store (at the first step, as the reference's)."""
+        config = self._kvstore_params
+        kv = config["kvstore"]
+        if kv is None or kv in ("", "nullkv"):
+            self._kvstore, self._update_on_kvstore = None, False
+        elif isinstance(kv, str):
+            ctxs = self._params[0].list_ctx() if self._params else []
+            if kv in ("local", "device") and len(ctxs) <= 1:
+                # one device: a store adds nothing, update in place
+                self._kvstore, self._update_on_kvstore = None, False
+            else:
+                from .. import kvstore as kvs
+                self._kvstore = kvs.create(kv)
+                self._update_on_kvstore = (
+                    config["update_on_kvstore"]
+                    if config["update_on_kvstore"] is not None
+                    else self._kvstore.is_capable("optimizer"))
+                if self._update_on_kvstore:
+                    self._kvstore.set_optimizer(self._optimizer)
+        else:
+            self._kvstore = kv
+            self._update_on_kvstore = bool(config["update_on_kvstore"])
+        if self._kvstore is not None:
+            for i, param in enumerate(self._params):
+                self._kvstore.init(i, param.data())
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -137,22 +188,56 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer update of every parameter, gradients rescaled by
         ``1 / batch_size`` (allreduce + update)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
         self._step_count += 1
         _aw.note_step_overlap()
         faults.on_step(self._step_count)
 
     def allreduce_grads(self):
-        """Sum the gradients across devices: nothing to do on one."""
+        """Sum the gradients through the store (without one, on one
+        device, there is nothing to sum)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            raise AssertionError(
+                "allreduce_grads() when parameters are updated on kvstore "
+                "is not supported. Try setting `update_on_kvstore` to False "
+                "when creating trainer.")
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if self._kvstore is None:
+            return
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null" or param._data is None:
+                continue
+            self._kvstore.push(i, param.list_grad(), priority=-i)
+            if not self._update_on_kvstore:
+                self._kvstore.pull(i, param.list_grad(), priority=-i)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update of :meth:`step` without the allreduce."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        assert not self._update_on_kvstore, \
+            "update() when parameters are updated on kvstore is not " \
+            "supported. Try setting `update_on_kvstore` to False when " \
+            "creating trainer."
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        if self._update_on_kvstore:
+            # the store's updater stepped its copies at the push
+            for i, param in enumerate(self._params):
+                if param.grad_req == "null" or param._data is None:
+                    continue
+                self._kvstore.pull(i, param.list_data(), priority=-i)
+            return
         fused = self._fused_updater()
         reason = fused.why_ineligible(self._params, ignore_stale_grad)
         if reason is None:
@@ -171,12 +256,17 @@ class Trainer:
         ``optimizer/updater.py``) to ``fname`` through ``atomic_write``
         (temp file + fsync + rename): a crash mid-write leaves the
         previous file."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         with atomic_write(fname) as f:
-            f.write(self._updaters[0].get_states(dump_optimizer=False))
+            f.write(self._updaters[0].get_states(
+                dump_optimizer=bool(self._update_on_kvstore)))
 
     def load_states(self, fname):
         """Read states written by :meth:`save_states`; they move to
         their weights' device at the next update."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         with open(fname, "rb") as f:
             states = f.read()
         self._updaters[0].set_states(states)

@@ -318,6 +318,8 @@ class CompiledTrainStep:
     # ------------------------------------------------------------- call --
     def __call__(self, *args):
         tr = self._trainer
+        if not tr._kv_initialized:
+            tr._init_kvstore()       # a store falls back with "kvstore"
         obs = self._obs_metrics()
         with _tracer().span("mxtpu.train_step", "step", None, None,
                             tr._step_count):

@@ -7,8 +7,9 @@ container, byte for byte), the op namespace generated from the registry
 (every op of :mod:`mxnet_tpu_torch.ops`, and those
 :mod:`mxnet_tpu_torch.rtc` registers at run time), and the
 sub-namespaces ``nd.random``, ``nd.linalg`` (``nd.linalg.gemm2`` is
-``_linalg_gemm2``), ``nd.op`` and ``nd.contrib`` (``foreach``,
-``while_loop``, ``cond``; ``nd.contrib.box_nms`` is ``_contrib_box_nms``).
+``_linalg_gemm2``), ``nd.op``, ``nd.contrib`` (``foreach``,
+``while_loop``, ``cond``; ``nd.contrib.box_nms`` is ``_contrib_box_nms``)
+and ``nd.sparse`` (the row-sparse and CSR storage types).
 
 Every function here returns NDArrays (see :mod:`.ndarray`). ``ctx`` is
 ``"cpu"``, ``"cuda"`` or a ``torch.device``; it defaults to the card and
@@ -303,3 +304,5 @@ from . import random  # noqa: E402,F401  (nd.random)
 # nd.contrib: foreach, while_loop, cond and the _contrib_* ops by their
 # short names (the module's __getattr__)
 from . import contrib  # noqa: E402,F401
+# nd.sparse: the row-sparse and CSR storage types
+from . import sparse  # noqa: E402,F401

@@ -40,7 +40,8 @@ from .._device import resolve_device
 from ..base import torch_dtype
 from .elemwise import relu, sign
 from .linalg import _f32_products
-from .optimizer_ops import RULES, clip_bound, multi_apply
+from .optimizer_ops import (RULES, _clip, _div, clip_bound, lamb_ratio,
+                            multi_apply)
 from .registry import _REGISTRY, Operator
 
 __all__ = []
@@ -250,14 +251,143 @@ _reg("_multi_adamw_update", _multi_adamw_update)
 _reg("_multi_mp_adamw_update", _multi_mp_adamw_update)
 
 
+# ------------------------------------- the LAMB and AdaGrad update tail --
+# Plain PyTorch on either device, in the JAX ops' order (the mp ops scale
+# the 16-bit gradient in its dtype, then cast it to f32, as the JAX ops
+# do). Each is registered with the reference's nout and mutates; none is
+# differentiated.
+def _f32(x):
+    return x.to(torch.float32)
+
+
+def _mp_lamb_phase1(weight, grad, mean, var, weight32, beta1=0.9,
+                    beta2=0.999, epsilon=1e-6, t=1, bias_correction=True,
+                    wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """LAMB's phase 1 over an f32 master copy: (the step, the new mean,
+    the new var). The reference registers it with ``mutates=(2, 3)``, so
+    through ``apply_op`` its first two results land in ``mean`` and
+    ``var``, as they do there."""
+    g = _f32(_clip(grad * rescale_grad, clip_gradient))
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * torch.square(g)
+    if bias_correction:
+        mh, vh = _div(m, 1 - beta1 ** t), _div(v, 1 - beta2 ** t)
+    else:
+        mh, vh = m, v
+    return mh / (torch.sqrt(vh) + epsilon) + wd * weight32, m, v
+
+
+def _mp_lamb_phase2(weight, g, r1, r2, weight32, lr=0.01,
+                    lower_bound=-1.0, upper_bound=-1.0):
+    """LAMB's phase 2 on the master copy: (the weight in its dtype, the
+    new master copy)."""
+    w32 = weight32 - lr * lamb_ratio(r1, r2, lower_bound, upper_bound) * g
+    return w32.to(weight.dtype), w32
+
+
+def _lamb_step(w32, g, m, v, lr, wd, beta1, beta2, epsilon, t,
+               rescale_grad, clip_gradient, lower_bound, upper_bound):
+    """One tensor of the multi-tensor LAMB: phase 1, the norms and phase
+    2 in one (ratio 1 where the weight's norm is 0)."""
+    gg = _clip(_f32(g) * rescale_grad, clip_gradient)
+    m_new = beta1 * m + (1 - beta1) * gg
+    v_new = beta2 * v + (1 - beta2) * gg * gg
+    mhat = _div(m_new, 1 - beta1 ** t)
+    vhat = _div(v_new, 1 - beta2 ** t)
+    gdash = mhat / (torch.sqrt(vhat) + epsilon) + wd * w32
+    wnorm = torch.sqrt(torch.sum(w32 * w32))
+    gnorm = torch.sqrt(torch.sum(gdash * gdash))
+    one = torch.ones_like(wnorm)
+    ratio = torch.where(gnorm > 0, wnorm / gnorm, one)
+    if lower_bound > 0:
+        ratio = torch.clamp_min(ratio, lower_bound)
+    if upper_bound > 0:
+        ratio = torch.clamp_max(ratio, upper_bound)
+    ratio = torch.where(wnorm > 0, ratio, one)
+    return w32 - lr * ratio * gdash, m_new, v_new
+
+
+def _multi_lamb(arrays, n_per, mp, learning_rates, wds, step_count, **kw):
+    outs = []
+    for i, group in enumerate(_groups(arrays, n_per)):
+        w, g, m, v = group[:4]
+        w32 = group[4] if mp else _f32(w)
+        new32, m_new, v_new = _lamb_step(
+            w32, g, m, v, float(learning_rates[i]), float(wds[i]),
+            t=int(step_count[i]), **kw)
+        outs.extend([new32.to(w.dtype), m_new, v_new] +
+                    ([new32] if mp else []))
+    return tuple(outs)
+
+
+def _multi_lamb_update(arrays, learning_rates=(), wds=(), beta1=0.9,
+                       beta2=0.999, epsilon=1e-6, step_count=(),
+                       rescale_grad=1.0, clip_gradient=-1.0,
+                       lower_bound=-1.0, upper_bound=-1.0, **kw):
+    """LAMB over groups (weight, grad, mean, var): (weight, mean, var)
+    anew for each, in fresh tensors."""
+    return _multi_lamb(arrays, 4, False, learning_rates, wds, step_count,
+                       beta1=beta1, beta2=beta2, epsilon=epsilon,
+                       rescale_grad=rescale_grad,
+                       clip_gradient=clip_gradient,
+                       lower_bound=lower_bound, upper_bound=upper_bound)
+
+
+def _multi_mp_lamb_update(arrays, learning_rates=(), wds=(), beta1=0.9,
+                          beta2=0.999, epsilon=1e-6, step_count=(),
+                          rescale_grad=1.0, clip_gradient=-1.0,
+                          lower_bound=-1.0, upper_bound=-1.0, **kw):
+    """LAMB over groups (weight, grad, mean, var, weight32): (weight,
+    mean, var, weight32) anew for each."""
+    return _multi_lamb(arrays, 5, True, learning_rates, wds, step_count,
+                       beta1=beta1, beta2=beta2, epsilon=epsilon,
+                       rescale_grad=rescale_grad,
+                       clip_gradient=clip_gradient,
+                       lower_bound=lower_bound, upper_bound=upper_bound)
+
+
+def _sparse_adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7,
+                           wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """AdaGrad that leaves the rows whose gradient is all zero as they
+    were (the dense form of the reference's lazy AdaGrad)."""
+    g = _clip(grad * rescale_grad, clip_gradient)
+    row_nonzero = (g != 0).reshape(g.shape[0], -1).any(dim=1).reshape(
+        (-1,) + (1,) * (g.ndim - 1))
+    h_new = history + g * g
+    upd = lr * g / (torch.sqrt(h_new) + epsilon) + lr * wd * weight
+    return torch.where(row_nonzero, weight - upd, weight), h_new
+
+
+def _group_adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-5,
+                          rescale_grad=1.0, clip_gradient=-1.0):
+    """AdaGrad with one history value a row: the mean of the row's
+    squared gradient."""
+    g = _clip(grad * rescale_grad, clip_gradient)
+    red = tuple(range(1, g.ndim))
+    sq = g * g
+    h_new = history + (torch.mean(sq, dim=red) if red else sq).reshape(
+        history.shape)
+    scale = (torch.sqrt(h_new) + epsilon).reshape(
+        (-1,) + (1,) * (g.ndim - 1))
+    return weight - lr * g / scale, h_new
+
+
+for _name, _fn, _nout, _mut in (
+        ("mp_lamb_update_phase1", _mp_lamb_phase1, 3, (2, 3)),
+        ("mp_lamb_update_phase2", _mp_lamb_phase2, 2, (0, 4)),
+        ("_sparse_adagrad_update", _sparse_adagrad_update, 2, (0, 2)),
+        ("_contrib_group_adagrad_update", _group_adagrad_update, 2, (0, 2))):
+    _REGISTRY[_name] = Operator(_name, _fn, nout=_nout, differentiable=False,
+                                mutates=_mut)
+_reg("_multi_lamb_update", _multi_lamb_update)
+_reg("_multi_mp_lamb_update", _multi_mp_lamb_update)
+
+
 # =================================================================== the
 # rest of the JAX module: the aliases, the output layers with their own
 # backward, the spatial ops, the index and shape tail, the contribs, the
 # image ops and the _npx_/_npi_ tails. None has a kernel in the JAX
-# package: each is plain PyTorch here. The LAMB and AdaGrad update ops
-# (mp_lamb_update_phase1/2, _multi_lamb_update, _multi_mp_lamb_update,
-# _sparse_adagrad_update, _contrib_group_adagrad_update) wait with their
-# optimizers (ROADMAP.md, item 13).
+# package: each is plain PyTorch here.
 # =================================================================== ---
 from . import elemwise as _elemwise, nn as _nn  # noqa: E402,F401
 from .registry import alias  # noqa: E402

@@ -41,10 +41,18 @@ its recorder and a mutates op (single or variadic) is handed to it
 instead of running (the reference's chokepoint hook,
 ``mxnet_tpu/ops/invoke.py:202-250``).
 
-Left for ``ndarray/sparse`` (ROADMAP.md, framework core): sparse
-Embedding gradients. ``Embedding(sparse_grad=True)`` and
-``_contrib_SparseEmbedding`` run forward, and raise
-``NotImplementedError`` under ``autograd.record()``.
+Under ``autograd.record()``, ``Embedding(sparse_grad=True)`` and
+``_contrib_SparseEmbedding`` run :class:`_SparseEmbedding`, whose
+backward gives the weight a row-sparse gradient (the reference's
+``_embedding_sparse_grad``): a hybrid COO tensor of the looked-up ids in
+lookup order and the output's cotangent rows, not coalesced, with no
+(vocab, dim) scatter. ``Parameter.grad()`` and ``autograd.backward`` hand
+it on as an ``nd.sparse.RowSparseNDArray``. Inside a CUDA-graph capture
+the lookup takes the dense gradient, as the reference's does under
+tracing. Two lookups of one weight in one backward are accumulated by
+torch's engine: the port's gradient lists their ids lookup by lookup in
+forward order, the reference's in reverse order (the rows they sum to
+are the same).
 """
 from __future__ import annotations
 
@@ -149,11 +157,30 @@ def _draw_device(inputs, params):
     return resolve_device("cuda" if ctx is None else ctx)
 
 
-def _sparse_grad_refused(op):
-    raise NotImplementedError(
-        f"op {op.name!r} under autograd.record() needs sparse embedding "
-        "gradients, which the PyTorch port does not have yet (ROADMAP.md, "
-        "framework core: ndarray/sparse)")
+class _SparseEmbedding(torch.autograd.Function):
+    """Rows of ``weight`` at ``ids``; the weight's gradient is a hybrid
+    COO tensor (sparse dim 1) of ``ids`` in lookup order and the
+    cotangent's rows, uncoalesced."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        idx = ids.long()
+        ctx.save_for_backward(idx)
+        ctx.wshape = tuple(weight.shape)
+        return torch.nn.functional.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (idx,) = ctx.saved_tensors
+        n, d = ctx.wshape
+        gw = torch.sparse_coo_tensor(idx.reshape(1, -1), dy.reshape(-1, d),
+                                     (n, d), check_invariants=False)
+        return None, gw
+
+
+def _capturing():
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def _call(op, inputs, params):
@@ -198,8 +225,10 @@ def apply_op(op, inputs: Sequence, params: Optional[dict] = None,
             "(host_op) and cannot run inside a CUDA-graph capture")
     if ((op.name == "Embedding" and params.get("sparse_grad"))
             or op.name == "_contrib_SparseEmbedding") \
-            and autograd.is_recording():
-        _sparse_grad_refused(op)
+            and autograd.is_recording() and out is None \
+            and inputs[1].requires_grad and torch.is_grad_enabled() \
+            and not _capturing():
+        return _SparseEmbedding.apply(inputs[0], inputs[1])
     if out is not None:
         single_out = isinstance(out, (torch.Tensor, NDArray))
         targets = (out,) if single_out else tuple(out)

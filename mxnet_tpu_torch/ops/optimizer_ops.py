@@ -35,9 +35,12 @@ in place where those are the inputs), one launch. Beside the 13 rules of
 and ``ftml_update`` (there a clip bound of 0 or less means none:
 :func:`clip_bound`).
 
-The ``lamb_update_phase*`` ops are not here: LAMB's two phases need a
-norm between them on the host, so LAMB is not fusable and waits with
-the other optimizers (ROADMAP.md §1 item 13).
+``lamb_update_phase1`` / ``lamb_update_phase2`` are plain PyTorch on
+either device (the JAX ops are plain ``jnp``): LAMB's two phases take
+the weight's and the step's norms between them, so LAMB is not fusable
+and has no kernel rule. Phase 1 returns the step and the new moments
+without writing its inputs (the reference registers it with no
+``mutates``); its ``t`` is an int and stays a static kwarg.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from .elemwise import sign
 from .registry import _REGISTRY, Operator
 
 __all__ = ["RULES", "multi_update", "multi_apply", "UpdateTable",
+           "lamb_phase1", "lamb_phase2",
            "scalar_rows", "SCALAR_ROW", "CHUNK", "RESCALE_WORD", "LR_WORD",
            "WD_WORD", "bytes_per_element"]
 
@@ -638,3 +642,45 @@ for _rule in RULES.values():
     _REGISTRY[_rule.name] = Operator(
         _rule.name, _op(_rule), nout=len(_rule.mutates),
         differentiable=False, mutates=_rule.mutates)
+
+
+# ------------------------------------------------------------- LAMB --
+def lamb_phase1(weight, grad, mean, var, beta1=0.9, beta2=0.999,
+                epsilon=1e-6, t=1, bias_correction=True, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    """LAMB's step before the trust ratio: (the bias-corrected Adam
+    direction plus ``wd * weight``, the new mean, the new var)."""
+    g = _prep(grad, rescale_grad, clip_gradient)
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * torch.square(g)
+    if bias_correction:
+        mhat = _div(m, 1 - beta1 ** t)
+        vhat = _div(v, 1 - beta2 ** t)
+    else:
+        mhat, vhat = m, v
+    return mhat / (torch.sqrt(vhat) + epsilon) + wd * weight, m, v
+
+
+def lamb_ratio(r1, r2, lower_bound, upper_bound):
+    """The trust ratio ``r1 / r2`` (1 unless both norms are positive),
+    held within the bounds that are positive."""
+    ratio = torch.where((r1 > 0) & (r2 > 0), r1 / r2, torch.ones_like(r1))
+    if lower_bound is not None and lower_bound > 0:
+        ratio = torch.clamp_min(ratio, lower_bound)
+    if upper_bound is not None and upper_bound > 0:
+        ratio = torch.clamp_max(ratio, upper_bound)
+    return ratio
+
+
+def lamb_phase2(weight, g, r1, r2, lr=0.01, lower_bound=-1.0,
+                upper_bound=-1.0):
+    """``weight - lr * ratio * g`` with LAMB's trust ratio of the norms
+    ``r1`` (the weight's) and ``r2`` (the step's)."""
+    return weight - lr * lamb_ratio(r1, r2, lower_bound, upper_bound) * g
+
+
+_REGISTRY["lamb_update_phase1"] = Operator(
+    "lamb_update_phase1", lamb_phase1, nout=3, differentiable=False)
+_REGISTRY["lamb_update_phase2"] = Operator(
+    "lamb_update_phase2", lamb_phase2, nout=1, differentiable=False,
+    mutates=(0,))

@@ -38,7 +38,9 @@ kernel's first build.
 Fallbacks to the loop, each with its reason label (``Trainer`` counts
 them in ``FusedUpdater.fallbacks``): ``env_disabled``
 (``MXNET_TPU_FUSED_UPDATE=0``), ``ignore_stale_grad``, ``optimizer`` (an
-optimizer outside the fusable set, or generic multi-precision, whose
+optimizer outside the fusable set — the eleven whose update is tensor
+arithmetic or needs a norm between two ops are not in it, as in the
+reference — or generic multi-precision, whose
 master-weight casts happen outside the op chokepoint), ``unrecordable``
 (an update op touched a tensor that is not the parameter's weight,
 gradient or state, or took a tensor or int static hyperparameter) and
@@ -46,10 +48,12 @@ gradient or state, or took a tensor or int static hyperparameter) and
 ``data_ptr`` ranges: one launch would update them in a race). A kernel
 that fails to build or launch raises; it never gives way to the loop.
 
-The reference's ``fold_reduce`` (the gradient sum across device
-replicas folded into the update) and its multi-context replicas have no
-counterpart on one device and are left out, as are its sparse-gradient
-fallback (the port has no row-sparse gradients).
+A step where any gradient is row-sparse (``Embedding(sparse_grad=True)``)
+falls back with ``sparse_grad``: the loop hands the RowSparseNDArray to
+the optimizer (SGD's and Adam's lazy updates). The reference's
+``fold_reduce`` (the gradient sum across device replicas folded into
+the update) and its multi-context replicas have no counterpart on one
+device and are left out.
 
 The counterpart of its ``bind_entries``/``apply_entries`` (the update
 folded into ``jit.CompiledTrainStep``'s program) is the same split used
@@ -372,6 +376,10 @@ class FusedUpdater:
             return "ignore_stale_grad"
         if not fusable(self._optimizer):
             return "optimizer"
+        for p in params:
+            if p.grad_req != "null" and p._data is not None and \
+                    p._data.grad is not None and p._data.grad.is_sparse:
+                return "sparse_grad"
         return None
 
     def record(self, params, grads=None, work=None):

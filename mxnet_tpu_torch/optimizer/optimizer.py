@@ -1,12 +1,13 @@
 """Optimizers of the port (mirrors ``mxnet_tpu/optimizer/optimizer.py``):
-the ``Optimizer`` base with MXNet's bookkeeping and the nine optimizers
-whose update is one registered update op (``fused.py``'s fusable set):
-SGD (momentum, ``multi_precision`` through ``mp_sgd_*``), NAG, Adam,
-AdamW, AdaGrad, RMSProp (plain and centered), Ftrl, Signum and SignSGD.
+the ``Optimizer`` base with MXNet's bookkeeping and the reference's 20
+registered optimizers.
 
-Each ``update`` runs its op through :func:`~mxnet_tpu_torch.ops.invoke.
-apply_op` (``ops/optimizer_ops.py``), which writes the weight and the
-states in place: the twin on the CPU, the multi-tensor kernel on the
+Nine update through one registered update op each (``fused.py``'s
+fusable set): SGD (momentum, ``multi_precision`` through ``mp_sgd_*``),
+NAG, Adam, AdamW, AdaGrad, RMSProp (plain and centered), Ftrl, Signum
+and SignSGD. Each runs its op through :func:`~mxnet_tpu_torch.ops.
+invoke.apply_op` (``ops/optimizer_ops.py``), which writes the weight and
+the states in place: the twin on the CPU, the multi-tensor kernel on the
 card. The rules are MXNet's, not ``torch.optim``'s: Adam folds the bias
 correction into the learning rate on the host, ``lr * sqrt(1 - beta2^t)
 / (1 - beta1^t)``, and adds ``epsilon`` to ``sqrt(v)`` of the
@@ -15,18 +16,38 @@ uncorrected ``v``; the gradient is ``grad * rescale_grad``, clipped to
 ``wd_mult`` come from the Parameter (``param_dict``), the per-index or
 the per-name tables. All of it runs on the host in float64.
 
-The reference's other optimizers (AdaDelta, Adamax, Nadam, FTML, LAMB,
-LARS, DCASGD, SGLD, LBSGD, GroupAdaGrad) and its lazy row-sparse updates
-are not ported yet (ROADMAP.md §1 item 13).
+The other eleven are the reference's arithmetic on tensors, operation by
+operation (none is fusable, as in the reference): AdaDelta, Adamax,
+Nadam (``m_schedule`` kept on the optimizer), FTML (its own arithmetic,
+not the ``ftml_update`` op, as the reference's class), LAMB (the ops
+``lamb_update_phase1`` / ``phase2`` with the two norms between them on
+the card), LARS and LBSGD (their norms read on the host, as the
+reference's ``asscalar``), DCASGD, SGLD (its noise from ``nd.random``'s
+``(seed, position)`` draws, so not JAX's bits), GroupAdaGrad and Test.
+
+Row-sparse gradients (``nd.sparse.RowSparseNDArray``, from
+``Embedding(sparse_grad=True)``) take the lazy updates of SGD and Adam
+under ``lazy_update=True`` (:func:`_rsp_grad_rows`): only the rows the
+gradient names change, in the weight and in the states, and every other
+row keeps its bits. The repeats of a row are summed in a fixed order
+(a stable sort of the ids, then a sum over each run, in the order the
+rows came), so the card repeats its bits. Other optimizers read a
+row-sparse gradient densely, as the reference's ops do.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from ..ops.invoke import apply_op
+from ..ops.optimizer_ops import _div
 
 __all__ = ["Optimizer", "register", "create", "SGD", "NAG", "Adam", "AdamW",
-           "AdaGrad", "RMSProp", "Ftrl", "Signum", "SignSGD"]
+           "AdaGrad", "AdaDelta", "Adamax", "Nadam", "RMSProp", "FTML",
+           "Ftrl", "LAMB", "LARS", "DCASGD", "SGLD", "Signum", "SignSGD",
+           "LBSGD", "GroupAdaGrad", "Test"]
 
 _LOW = (torch.float16, torch.bfloat16)
 
@@ -185,6 +206,41 @@ def _zeros(weight):
     return torch.zeros_like(weight, requires_grad=False)
 
 
+def _dense(grad):
+    """A gradient as a tensor (a row-sparse one densified, as the
+    reference's ops read it)."""
+    return getattr(grad, "_data", grad)
+
+
+def _is_rsp(grad):
+    from ..ndarray.sparse import RowSparseNDArray
+    return isinstance(grad, RowSparseNDArray)
+
+
+def _rsp_grad_rows(self, grad):
+    """(row ids, their gradient rows) of a row-sparse gradient: the ids
+    each once, sorted, each row the sum of its repeats in a fixed order
+    (``sparse.summed_rows``), then rescaled and clipped — the front half
+    of every lazy update. The run count is read on the host (the
+    reference's lazy update is eager only too)."""
+    from ..ndarray.sparse import summed_rows
+    rows, g = summed_rows(grad._indices, grad._values)
+    g = g * self.rescale_grad
+    if self.clip_gradient is not None:
+        g = g.clamp(-self.clip_gradient, self.clip_gradient)
+    return rows, g
+
+
+def _no_grad(fn):
+    """Run an update (tensor arithmetic on the weight, an
+    ``nn.Parameter``) off the autograd tape."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (``sgd_update`` / ``sgd_mom_update``; with
@@ -209,6 +265,8 @@ class SGD(Optimizer):
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
+        if self.lazy_update and _is_rsp(grad):
+            return self._update_rsp(index, weight, grad, state)
         lr, wd, kwargs = _common(self, index)
         if state is not None:
             apply_op("sgd_mom_update", [weight, grad, state],
@@ -216,6 +274,21 @@ class SGD(Optimizer):
         else:
             apply_op("sgd_update", [weight, grad], dict(lr=lr, wd=wd,
                                                         **kwargs))
+
+    @_no_grad
+    def _update_rsp(self, index, weight, grad, state):
+        """Lazy update: only the gradient's rows change, their weight
+        decay and momentum included (the reference's SGD._update_rsp)."""
+        lr, wd, _ = _common(self, index)
+        rows, g = _rsp_grad_rows(self, grad)
+        wr = weight[rows]
+        g = g.to(wr.dtype) + wd * wr
+        if state is not None:
+            mr = self.momentum * state[rows] + g
+            state.index_copy_(0, rows, mr)
+            weight.index_copy_(0, rows, wr - lr * mr)
+        else:
+            weight.index_copy_(0, rows, wr - lr * g)
 
     def update_multi_precision(self, index, weight, grad, state):
         if not (self.multi_precision and weight.dtype in _LOW):
@@ -270,6 +343,8 @@ class Adam(Optimizer):
         return (_zeros(weight), _zeros(weight))  # mean, var
 
     def update(self, index, weight, grad, state):
+        if self.lazy_update and _is_rsp(grad):
+            return self._update_rsp(index, weight, grad, state)
         lr, wd, kwargs = _common(self, index)
         t = self._index_update_count[index]
         coef1 = 1. - self.beta1 ** t
@@ -279,6 +354,24 @@ class Adam(Optimizer):
         apply_op("adam_update", [weight, grad, mean, var],
                  dict(lr=lr, wd=wd, beta1=self.beta1, beta2=self.beta2,
                       epsilon=self.epsilon, **kwargs))
+
+    @_no_grad
+    def _update_rsp(self, index, weight, grad, state):
+        """Lazy Adam: only the gradient's rows advance their mean, var and
+        weight (the reference's Adam._update_rsp)."""
+        lr, wd, _ = _common(self, index)
+        t = self._index_update_count[index]
+        lr *= (1. - self.beta2 ** t) ** 0.5 / (1. - self.beta1 ** t)
+        rows, g = _rsp_grad_rows(self, grad)
+        mean, var = state
+        wr = weight[rows]
+        g = g.to(wr.dtype) + wd * wr
+        mr = self.beta1 * mean[rows] + (1 - self.beta1) * g
+        vr = self.beta2 * var[rows] + (1 - self.beta2) * g * g
+        mean.index_copy_(0, rows, mr)
+        var.index_copy_(0, rows, vr)
+        weight.index_copy_(0, rows,
+                           wr - lr * mr / (torch.sqrt(vr) + self.epsilon))
 
 
 @register
@@ -414,3 +507,395 @@ class SignSGD(Signum):
 
     def __init__(self, learning_rate=0.01, **kwargs):
         super().__init__(learning_rate=learning_rate, momentum=0.0, **kwargs)
+
+
+# ------------------------------------------------ the reference's tail --
+# Tensor arithmetic operation by operation in the reference's order; a
+# division by a host scalar divides by a 0-d tensor (``_div``), exactly
+# on either device.
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))  # E[g^2], E[dx^2]
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        _, wd, _ = _common(self, index)
+        grad = _dense(grad) * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        grad = grad + wd * weight
+        acc_g, acc_delta = state
+        acc_g.copy_(self.rho * acc_g + (1. - self.rho) * grad * grad)
+        current_delta = ((acc_delta + self.epsilon).sqrt()
+                         / (acc_g + self.epsilon).sqrt() * grad)
+        acc_delta.copy_(self.rho * acc_delta
+                        + (1. - self.rho) * current_delta * current_delta)
+        weight.copy_(weight - current_delta)
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam under the infinity norm."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))  # mean, u (inf-norm)
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        lr, wd, _ = _common(self, index)
+        t = self._index_update_count[index]
+        lr /= (1. - self.beta1 ** t)
+        grad = _dense(grad) * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        m_t, u_t = state
+        m_t.copy_(self.beta1 * m_t + (1. - self.beta1) * grad)
+        u_t.copy_(torch.maximum(self.beta2 * u_t, grad.abs()))
+        weight.copy_(weight - lr * m_t / u_t)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam; ``m_schedule`` (the product of the momentum
+    schedule) lives on the optimizer, shared by its parameters, as in
+    the reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        lr, wd, _ = _common(self, index)
+        t = self._index_update_count[index]
+        grad = _dense(grad) * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        momentum_t = self.beta1 * (1. - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1. - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m_t, v_t = state
+        m_t.copy_(self.beta1 * m_t + (1. - self.beta1) * grad)
+        v_t.copy_(self.beta2 * v_t + (1. - self.beta2) * grad * grad)
+        grad_prime = _div(grad, 1. - self.m_schedule)
+        m_t_prime = _div(m_t, 1. - m_schedule_next)
+        v_t_prime = _div(v_t, 1. - self.beta2 ** t)
+        m_t_bar = ((1. - momentum_t) * grad_prime
+                   + momentum_t_1 * m_t_prime)
+        weight.copy_(weight - lr * m_t_bar / (v_t_prime.sqrt()
+                                              + self.epsilon))
+
+
+@register
+class FTML(Optimizer):
+    """FTML (Follow The Moving Leader), the reference class's arithmetic
+    (not the ``ftml_update`` op)."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        lr, wd, _ = _common(self, index)
+        t = self._index_update_count[index]
+        grad = _dense(grad) * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        prev_d, prev_v, prev_z = state
+        prev_v.copy_(self.beta2 * prev_v + (1. - self.beta2) * grad * grad)
+        d_t = ((1. - self.beta1 ** t) / lr
+               * (_div(prev_v, 1. - self.beta2 ** t).sqrt() + self.epsilon))
+        sigma_t = d_t - self.beta1 * prev_d
+        prev_z.copy_(self.beta1 * prev_z + (1. - self.beta1) * grad
+                     - sigma_t * weight)
+        weight.copy_(-prev_z / d_t)
+        prev_d.copy_(d_t)
+
+
+@register
+class LAMB(Optimizer):
+    """LAMB, layer-wise adaptive large-batch Adam: ``lamb_update_phase1``,
+    the weight's and the step's norms (on the card, no host read), then
+    ``lamb_update_phase2``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        lr, wd, kwargs = _common(self, index)
+        t = self._index_update_count[index]
+        mean, var = state
+        g, new_mean, new_var = apply_op(
+            "lamb_update_phase1", [weight, grad, mean, var],
+            dict(beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                 t=t, bias_correction=self.bias_correction, wd=wd,
+                 **kwargs))
+        mean.copy_(new_mean)
+        var.copy_(new_var)
+        r1 = apply_op("norm", [weight])
+        r2 = apply_op("norm", [g])
+        phase2_kw = dict(lr=lr)
+        if self.lower_bound:
+            phase2_kw["lower_bound"] = self.lower_bound
+        if self.upper_bound:
+            phase2_kw["upper_bound"] = self.upper_bound
+        apply_op("lamb_update_phase2", [weight, g, r1, r2], phase2_kw)
+
+
+def _host_norm(x):
+    """The L2 norm of ``x`` read on the host (a sync on the card)."""
+    return float(apply_op("norm", [x]).item())
+
+
+@register
+class LARS(Optimizer):
+    """LARS, layer-wise adaptive rate scaling; its trust ratio reads the
+    weight's and the gradient's norms on the host."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.0, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return _zeros(weight)
+        return None
+
+    def update(self, index, weight, grad, state):
+        lr, wd, kwargs = _common(self, index)
+        grad = _dense(grad)
+        w_norm = _host_norm(weight.detach())
+        g_norm = _host_norm(grad * self.rescale_grad)
+        if w_norm > 0.0 and g_norm > 0.0:
+            lars_trust = self.eta * w_norm / (g_norm + wd * w_norm
+                                              + self.epsilon)
+        else:
+            lars_trust = 1.0
+        lr = lr * lars_trust
+        if state is not None:
+            apply_op("sgd_mom_update", [weight, grad, state],
+                     dict(lr=lr, wd=wd, momentum=self.momentum, **kwargs))
+        else:
+            apply_op("sgd_update", [weight, grad], dict(lr=lr, wd=wd,
+                                                        **kwargs))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD; its state is (momentum or
+    None, the previous weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, learning_rate=0.01,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = weight.detach().clone()
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (_zeros(weight), prev)
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        lr, wd, _ = _common(self, index)
+        grad = _dense(grad) * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        mom, previous_weight = state
+        delta = -lr * (grad + wd * weight + self.lamda * grad * grad
+                       * (weight - previous_weight))
+        if mom is not None:
+            mom.copy_(self.momentum * mom + delta)
+            step = mom
+        else:
+            step = delta
+        previous_weight.copy_(weight)
+        weight.copy_(weight + step)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics: the SGD step plus
+    N(0, lr) noise drawn through ``nd.random`` on the weight's device."""
+
+    def __init__(self, learning_rate=0.1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+
+    def create_state(self, index, weight):
+        return None
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        from ..ndarray import random as nd_random
+        lr, wd, _ = _common(self, index)
+        grad = _dense(grad) * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        noise = nd_random.normal(0, math.sqrt(lr), shape=tuple(weight.shape),
+                                 dtype=str(weight.dtype).replace("torch.",
+                                                                 ""),
+                                 ctx=weight.device)._data
+        weight.copy_(weight - lr / 2 * (grad + wd * weight) + noise)
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD with the reference's warmup strategies (linear,
+    power2, sqrt) or, under ``warmup_strategy="lars"``, the LARS ratio
+    (norms read on the host)."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate=learning_rate,
+                         multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.lbmult = 1.0
+        self.cumgrads = {}
+        self.adaptive = False
+        self.admult = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        strategy = self.warmup_strategy
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            mult = maxmult
+        elif nwup <= 1:
+            mult = 1.0
+        elif strategy == "linear":
+            mult = 1.0 + (maxmult - 1) * nup / nwup
+        elif strategy == "power2":
+            mult = 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        elif strategy == "sqrt":
+            mult = 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        else:
+            mult = 1.0
+        return mult
+
+    def update(self, index, weight, grad, state):
+        lr, wd, kwargs = _common(self, index)
+        grad = _dense(grad)
+        if self.warmup_strategy == "lars":
+            w_norm = _host_norm(weight.detach())
+            g_norm = _host_norm(grad * self.rescale_grad)
+            if w_norm > 0 and g_norm > 0:
+                lbmult = w_norm / (g_norm + wd * w_norm + 1e-9)
+            else:
+                lbmult = 1.0
+            lr = lr * lbmult
+        else:
+            lr = lr * self._get_lbmult(self.num_update)
+        if state is not None:
+            apply_op("sgd_mom_update", [weight, grad, state],
+                     dict(lr=lr, wd=wd, momentum=self.momentum, **kwargs))
+        else:
+            apply_op("sgd_update", [weight, grad], dict(lr=lr, wd=wd,
+                                                        **kwargs))
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """AdaGrad with one history value a row (the mean of the row's
+    squared gradient); no weight decay."""
+
+    def __init__(self, learning_rate=0.01, eps=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros((weight.shape[0],) + (1,) * (weight.ndim - 1),
+                           dtype=weight.dtype, device=weight.device)
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        lr, wd, _ = _common(self, index)
+        assert wd == 0, "Weight decay is not supported for GroupAdaGrad"
+        grad = _dense(grad) * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        axes = tuple(range(1, grad.ndim))
+        sq = grad * grad
+        # a vector's rows are its elements (torch's mean over no dims
+        # would reduce them all)
+        state.copy_(state + (sq.mean(dim=axes, keepdim=True) if axes
+                             else sq))
+        weight.copy_(weight - lr * grad / (state + self.float_stable_eps)
+                     .sqrt())
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w -= lr * (grad * rescale_grad +
+    wd * w)``, no update count."""
+
+    def __init__(self, learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    @_no_grad
+    def update(self, index, weight, grad, state):
+        weight.copy_(weight - self.lr * (_dense(grad) * self.rescale_grad
+                                         + self.wd * weight))

@@ -57,6 +57,7 @@ from mxnet_tpu_torch.ops import quantization as tqz  # noqa: E402
 from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
 from mxnet_tpu_torch.ops import optimizer_ops as topt_ops  # noqa: E402
 from mxnet_tpu_torch.ops.invoke import apply_op  # noqa: E402
+from mxnet_tpu_torch.ops.registry import get as get_op  # noqa: E402
 from mxnet_tpu_torch.serving.llm import quant as tquant  # noqa: E402
 from mxnet_tpu_torch.serving.llm.model import (  # noqa: E402
     DENSE_ROWS, _quantize_kv)
@@ -3306,3 +3307,201 @@ def test_hybridized_block_replays_its_graph_bit_for_bit(cuda, tmp_path):
         assert torch.equal(net(x), ref(x))
     assert kernels.capture_count() == captures + 3
     assert net._cached_op.graphs == 3
+
+
+# ------------------------------ the sparse tier and the optimizer tail --
+# Card against CPU copies: the lazy updates' arithmetic is the same
+# operations in the same order on both (the repeats' sum in a fixed
+# order), held within SPARSE_TOL = 1e-6 of the weights' scale; untouched
+# rows, the segment sum's repeat, 2-bit compression and the store's pulls
+# bit for bit; sparse.dot and its gradient (an atomic sum on the card)
+# within 1e-5 of the output's magnitude; the LAMB/AdaGrad update tail's
+# corpus cases as phase 7b holds them (chip_smoke.corpus_tol).
+SPARSE_TOL = 1e-6
+
+
+def _sparse_emb(dev, vocab, dim, seed, sparse_grad=True, prefix="se_"):
+    emb = tgluon.nn.Embedding(vocab, dim, sparse_grad=sparse_grad,
+                              prefix=prefix)
+    emb.initialize(device=dev)
+    w = torch.Generator().manual_seed(seed)
+    emb.weight.set_data(torch.randn(vocab, dim, generator=w) * 0.1)
+    return emb
+
+
+def _emb_step(emb, tr, ids, dev):
+    x = nd.array(ids, ctx=dev)
+    with ag.record():
+        loss = ((emb(x) - 0.25) ** 2).sum()
+    loss.backward()
+    tr.step(len(ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,args", [
+    ("sgd", {"learning_rate": 0.5}),
+    ("sgd", {"learning_rate": 0.5, "momentum": 0.9, "wd": 1e-3}),
+    ("adam", {"learning_rate": 0.05, "wd": 1e-3}),
+    ("adagrad", {"learning_rate": 0.1})])
+def test_lazy_updates_on_the_card_keep_untouched_rows(cuda, opt, args):
+    """Three steps on the card and on the CPU from the same weights and
+    ids (repeats included): the same rows move, by the CPU's amounts;
+    every other row of the weight and of the states keeps its bits; the
+    fused updater counts ``sparse_grad``."""
+    rs = np.random.RandomState(2)
+    batches = [rs.randint(0, 40, 24) for _ in range(3)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        emb = _sparse_emb(dev, 300, 16, 1)
+        tr = tgluon.Trainer(emb.collect_params(), opt, dict(args))
+        w0 = emb.weight.data().detach().clone()
+        for ids in batches:
+            _emb_step(emb, tr, ids, dev)
+        assert dict(tr._fused.fallbacks) == {"sparse_grad": 3}
+        runs.append((emb.weight.data().detach().cpu(), w0.cpu(),
+                     [s.cpu() for s in chip_smoke._state_leaves(
+                         tr._updaters[0].states[0])]))
+    (w, w0, st), (wc, _, stc) = runs
+    rest = sorted(set(range(300)) - set(np.concatenate(batches).tolist()))
+    assert torch.equal(w[rest], w0[rest])
+    for s in st:
+        assert not s[rest].any()
+    assert float((w - wc).abs().max()) <= SPARSE_TOL * float(
+        wc.abs().max())
+    for s, sc in zip(st, stc):
+        assert float((s - sc).abs().max()) <= SPARSE_TOL * max(
+            1.0, float(sc.abs().max()))
+
+
+@pytest.mark.cuda
+def test_segment_sum_repeats_its_bits_on_the_card(cuda):
+    """The repeats of a row summed in a fixed order: twice the same bits
+    on the card, and the CPU's bits (one sum order on both)."""
+    from mxnet_tpu_torch.ndarray.sparse import summed_rows
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(0, 64, (1 << 14,), generator=g)
+    vals = torch.randn(1 << 14, 32, generator=g)
+    r1, s1 = summed_rows(ids.to(cuda), vals.to(cuda))
+    r2, s2 = summed_rows(ids.to(cuda), vals.to(cuda))
+    rc, sc = summed_rows(ids, vals)
+    assert torch.equal(r1, r2) and torch.equal(s1, s2)
+    assert torch.equal(r1.cpu(), rc) and torch.equal(s1.cpu(), sc)
+
+
+@pytest.mark.cuda
+def test_sparse_embedding_grad_and_fallbacks_on_the_card(cuda):
+    """The card's row-sparse gradient is the CPU's (ids in lookup order,
+    rows equal); ``compile_step`` falls back with ``sparse_grad``; a
+    hybridized block (CUDA graphs) takes the dense gradient, equal to
+    the sparse one densified."""
+    ids = np.array([[3, 9, 3], [1, 9, 0]])
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        emb = _sparse_emb(dev, 50, 8, 3, prefix="sg_")
+        with ag.record():
+            loss = (emb(nd.array(ids, ctx=dev)) ** 2).sum()
+        loss.backward()
+        grads.append(emb.weight.grad())
+    g, gc = grads
+    assert g.indices.asnumpy().tolist() == [3, 9, 3, 1, 9, 0] == \
+        gc.indices.asnumpy().tolist()
+    assert torch.equal(g.data._data.cpu(), gc.data._data)
+    emb = _sparse_emb(cuda, 50, 8, 3, prefix="sg2_")
+    tr = tgluon.Trainer(emb.collect_params(), "adam",
+                        {"learning_rate": 0.01})
+    step = tr.compile_step(lambda x: emb(x).sum(axis=1))
+    step(nd.array(ids, ctx=cuda))
+    assert step.last_reason == "sparse_grad"
+    hyb = _sparse_emb(cuda, 50, 8, 3, prefix="sg3_")
+    hyb.hybridize()
+    for _ in range(2):
+        with ag.record():
+            loss = (hyb(nd.array(ids, ctx=cuda)) ** 2).sum()
+        loss.backward()
+        dense = hyb.weight.grad()
+        assert isinstance(dense, torch.Tensor) and not dense.is_sparse
+        assert float((dense.cpu() - gc.asnumpy()).abs().max()) <= 1e-6
+    assert hyb._cached_op.graphs == 2
+
+
+@pytest.mark.cuda
+def test_sparse_dot_and_its_gradient_on_the_card(cuda):
+    from mxnet_tpu_torch.ndarray import sparse
+    rs = np.random.RandomState(6)
+    n, feat, nnz = 256, 1 << 16, 39
+    cols = np.stack([rs.choice(feat, nnz, replace=False) for _ in range(n)])
+    indptr = np.arange(0, n * nnz + 1, nnz)
+    data = rs.randn(n * nnz).astype(np.float32)
+    w_np = rs.randn(feat, 1).astype(np.float32)
+    dy = rs.randn(n, 1).astype(np.float32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        csr = sparse.csr_matrix((data, cols.reshape(-1), indptr),
+                                shape=(n, feat), ctx=dev)
+        w = nd.array(w_np, ctx=dev)
+        w.attach_grad()
+        with ag.record():
+            out = sparse.dot(csr, w)
+            loss = (out * nd.array(dy, ctx=dev)).sum()
+        loss.backward()
+        assert not csr.densified
+        outs.append((out.asnumpy(), w.grad.asnumpy()))
+    for got, want in zip(*outs):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(sum(
+    1 for c in chip_smoke.CORPUS if c[3] == "update")))
+def test_lamb_and_adagrad_tail_on_the_card(cuda, k):
+    """The update tail's corpus cases through ``nd`` on the card and on
+    the CPU (phase 7b's comparison)."""
+    case = [c for c in chip_smoke.CORPUS if c[3] == "update"][k]
+    name, inputs, kwargs, family = case
+    op = get_op(name)
+    got, _ = chip_smoke.corpus_run(torch, nd, ag, op, name, inputs, kwargs,
+                                   cuda)
+    want, _ = chip_smoke.corpus_run(torch, nd, ag, op, name, inputs, kwargs,
+                                    "cpu")
+    rtol, atol = chip_smoke.corpus_tol(op, family, True)
+    for (gs, gd, g), (ws, wd, w) in zip(got, want):
+        assert gs == ws and gd == wd
+        assert chip_smoke._close(g, w, rtol, atol), name
+
+
+@pytest.mark.cuda
+def test_two_bit_compression_on_the_card_bit_for_bit(cuda):
+    from mxnet_tpu_torch.kvstore import compression as gc
+    g = torch.Generator().manual_seed(8)
+    grad = torch.randn(1 << 20, generator=g) * 0.7
+    res = torch.randn(1 << 20, generator=g) * 0.1
+    comp = gc.TwoBitCompression(0.5)
+    packed, new_res = comp.compress(grad.to(cuda), res.to(cuda))
+    packed_c, new_res_c = comp.compress(grad, res)
+    assert torch.equal(packed.cpu(), packed_c)
+    assert torch.equal(new_res.cpu(), new_res_c)
+    assert torch.equal(comp.decompress(packed, grad.shape,
+                                       torch.float32).cpu(),
+                       comp.decompress(packed_c, grad.shape, torch.float32))
+
+
+@pytest.mark.cuda
+def test_kvstore_row_sparse_pull_on_the_card(cuda):
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.ndarray import sparse
+    table = torch.randn(1000, 64, device=cuda)
+    kv = tmx.kv.create("local")
+    kv.init("emb", table)
+    out = sparse.zeros("row_sparse", (1000, 64), ctx=cuda)
+    rows = torch.tensor([7, 999, 7, 0, 512], device=cuda)
+    kv.row_sparse_pull("emb", out=out, row_ids=rows)
+    assert out.indices.asnumpy().tolist() == [0, 7, 512, 999]
+    assert torch.equal(out.data._data, table[[0, 7, 512, 999]])
+    a = sparse.row_sparse_array((torch.ones(2, 64, device=cuda),
+                                 torch.tensor([4, 4], device=cuda)),
+                                shape=(1000, 64))
+    kv.push("emb", [a, a])
+    dense = torch.zeros(1000, 64, device=cuda)
+    kv.pull("emb", out=dense)
+    assert torch.equal(dense[4], torch.full((64,), 4.0, device=cuda))
+    assert int((dense != 0).any(dim=1).sum()) == 1

@@ -371,7 +371,9 @@ def test_parameter_members():
     assert float(p.list_grad()[0].abs().sum()) == 0
     with pytest.raises(NotImplementedError, match="item 14"):
         p.var()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a default-stype parameter has no row-sparse view (the reference's
+    # RuntimeError; tests/test_torch_sparse.py holds the row-sparse one)
+    with pytest.raises(RuntimeError, match="requires stype='row_sparse'"):
         p.row_sparse_data(torch.tensor([0]))
     c = Constant("c_const", np.arange(6, dtype=np.float32).reshape(2, 3))
     c.initialize(device="cpu")

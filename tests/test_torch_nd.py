@@ -221,11 +221,15 @@ def test_invoke_features_work_as_jax(scratch_ops, flag):
 
 
 def test_sparse_embedding_gradients_still_raise():
+    """Under ``record()`` the sparse lookups no longer raise: the weight's
+    gradient is a COO tensor of the looked-up ids in lookup order."""
     weight = torch.ones(4, 3, requires_grad=True)
     ids = torch.tensor([0.0, 2.0])
     assert apply_op("_contrib_SparseEmbedding", [ids, weight]).shape == (2, 3)
-    with ag.record():
-        with pytest.raises(NotImplementedError, match="sparse"):
-            apply_op("_contrib_SparseEmbedding", [ids, weight])
-        with pytest.raises(NotImplementedError, match="sparse"):
-            apply_op("Embedding", [ids, weight], {"sparse_grad": True})
+    for name, params in (("_contrib_SparseEmbedding", None),
+                         ("Embedding", {"sparse_grad": True})):
+        with ag.record():
+            out = apply_op(name, [ids, weight], params)
+        (g,) = torch.autograd.grad(out.sum(), [weight])
+        assert g.is_sparse and g._indices()[0].tolist() == [0, 2]
+        assert torch.equal(g._values(), torch.ones(2, 3))

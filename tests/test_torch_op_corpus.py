@@ -84,6 +84,10 @@ for _n in ("multi_sgd_update", "multi_sgd_mom_update", "multi_mp_sgd_update",
            "_multi_mp_adamw_update", "all_finite", "multi_all_finite",
            "multi_sum_sq", "multi_lars", "reset_arrays"):
     ELSEWHERE[_n] = "update tail: tests/test_torch_multi_update.py"
+# the LAMB and AdaGrad update tail: chip_smoke.CORPUS's "update" cases
+for _c in chip_smoke.CORPUS:
+    if _c[3] == "update":
+        ELSEWHERE[_c[0]] = "update tail: tests/test_torch_op_tail.py"
 ELSEWHERE["ragged_paged_attention"] = "tests/test_torch_nd.py, " \
     "tests/test_torch_ragged_paged.py"
 # the op tail, detection, quantization and RNN ops (chip_smoke.py's

@@ -110,7 +110,8 @@ PORTED = sorted(n for n in jmx._LAZY_MODULES if n in tmx._LAZY_MODULES)
 
 
 def test_root_resolves_the_reference_names_in_both_packages():
-    assert len(PORTED) == 13 and "gluon" in PORTED and "jit" in PORTED
+    assert len(PORTED) == 14 and "gluon" in PORTED and "jit" in PORTED
+    assert "kvstore" in PORTED and tmx.kv is tmx.kvstore
     for name in PORTED + ["NDArray", "MXNetError", "waitall"]:
         assert getattr(jmx, name) is not None
         assert getattr(tmx, name) is not None, name
