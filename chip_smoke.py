@@ -320,6 +320,29 @@ Phases, one line of output each (or more), in order:
    with its CPU twin, a Trainer with a store instance bit for bit with
    ``kvstore=None``; phase 7b also runs the LAMB and AdaGrad update
    ops' corpus cases, card against CPU;
+   8g. the rest of gluon (``run_gluon_rest_phase``): (a) SSD-300
+   (``ssd_300_vgg16_reduced(classes=20)``, 8732 anchors) trained at
+   batch 32 in f32 with SGD and momentum through ``Trainer.step``, fed
+   by ``DataLoader(ArrayDataset(...), num_workers=2, pin_memory=True,
+   device_prefetch=2)`` over synthetic boxes: one step at batch 2
+   against the CPU path from the same weights (the loss, every
+   gradient's norm, ``MultiBoxTarget``'s assignments), the loss falling
+   over 10 steps, ``detect()``'s rows, step ms, images/s in the step
+   and fed by the loader (steps 2-10, the consumer's wait for a batch),
+   device ms and idle of two profiled steps, peak GB, kernels a step,
+   ``MultiBoxTarget`` and ``MultiBoxDetection`` ms; (b) the word-level
+   LSTM language model of MXNet's ``example/gluon/word_language_model``
+   (vocabulary 10000, 650 units, 2 layers, dropout 0.5, bptt 35, batch
+   32, the global norm clipped to 0.2, SGD at lr 20): one step with
+   dropout off against the CPU path, three hybridized steps (replays of
+   its CUDA graphs, the state carried) against three eager ones from the
+   same weights, then the eager step's time against the hybridized
+   one's, tokens/s, device ms, idle; (c) the data
+   tier: the loader with and without ``pin_memory`` and
+   ``device_prefetch``, every batch bit for bit the host's and in
+   order, the consumer's wait and the queue's fill, a worker's exception
+   in the consumer; (d) the twelve new losses and the cell families,
+   forward and input gradient, card against CPU;
 9. one JSON line listing every kernel (the update tail's ops of phase
    7b among them, K3's rows of phase 7c, 8d's bf16 update row): launches
    on the main paths
@@ -8586,7 +8609,7 @@ def run_compiled_bert(torch, rng, kernels, use_amp, cfg=BERT_BASE,
             loss = step(*d)
             torch.cuda.synchronize()
             times.append(time.monotonic() - t0)
-            losses.append(float(loss))
+            losses.append(loss.item())
             if i == 0:
                 b0 = kernels.build_count()
             if i in (1, 2):
@@ -9427,6 +9450,677 @@ def run_sparse_phase(torch, rng, kernels):
     return kernels.launch_counts()
 
 
+# ------------------------------------------------ 8g: the rest of gluon --
+# SSD-300 as examples/ssd_detect.py builds it, trained at VOC's batch
+G_SSD_BATCH, G_SSD_IMAGES, G_SSD_STEPS, G_SSD_SIZE = 32, 96, 10, 300
+G_SSD_CLASSES = 20
+G_SSD_ANCHORS = 8732
+G_LOADER = dict(num_workers=2, pin_memory=True, device_prefetch=2)
+G_SSD_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+# card against CPU at batch 2, TF32 off: the loss and every gradient's
+# norm (f32 convolutions in cuDNN's order against oneDNN's, fifteen deep)
+G_SSD_LOSS_REL_TOL = 1e-4
+G_SSD_GRAD_REL_TOL = 1e-3
+# MXNet's example/gluon/word_language_model (medium): the Penn Treebank
+# vocabulary, 650 units, two layers, bptt 35
+G_LM = dict(vocab=10000, units=650, layers=2, bptt=35, batch=32,
+            dropout=0.5, lr=20.0, clip=0.2)
+G_LM_STEPS = 6
+G_LM_REL_TOL = 1e-4
+# the losses and cells against their CPU path, TF32 off; CTC's
+# forward-backward recursion in log space over 50 steps in the CUDA
+# kernel's order against the CPU's
+G_PART_REL_TOL = 1e-5
+G_PART_TOL = {"CTCLoss": 1e-4}
+
+
+def g_ssd_data(seed, n, size, classes):
+    """``n`` synthetic SSD images (noise, one to three bright boxes an
+    image, each box's brightness its class) and labels (N, 3, 6) padded
+    with -1, as ``examples/ssd_detect.py`` makes them."""
+    rs = np.random.RandomState(seed)
+    imgs = (rs.randn(n, 3, size, size) * 0.05).astype(np.float32)
+    labels = np.full((n, 3, 6), -1.0, np.float32)
+    for i in range(n):
+        nb = rs.randint(1, 4)
+        boxes = _cboxes(nb, seed=seed * 1000 + i)
+        cls = rs.randint(0, classes, nb)
+        for b in range(nb):
+            x1, y1, x2, y2 = (boxes[b] * size).astype(int)
+            imgs[i, :, y1:y2, x1:x2] += 0.5 + cls[b] / classes
+            labels[i, b] = [cls[b], *boxes[b], 0.0]
+    return imgs, labels
+
+
+def g_lm_net(torch, gluon, seed, dropout, dev):
+    """The word language model: Embedding, a 2-layer TNC LSTM and a
+    Dense decoder over the vocabulary, uniform(0.1) weights from
+    ``seed``."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class WordLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="wordlm_")
+            with self.name_scope():
+                self.encoder = nn.Embedding(G_LM["vocab"], G_LM["units"])
+                self.rnn = rnn.LSTM(G_LM["units"], num_layers=G_LM["layers"],
+                                    dropout=dropout, layout="TNC",
+                                    input_size=G_LM["units"])
+                self.decoder = nn.Dense(G_LM["vocab"], flatten=False,
+                                        in_units=G_LM["units"])
+
+        def hybrid_forward(self, F, x, h, c):
+            out, (h, c) = self.rnn(self.encoder(x), [h, c])
+            return self.decoder(out), h, c
+
+    net = WordLM()
+    net.initialize(initializer.Uniform(0.1), device=dev,
+                   generator=torch.Generator().manual_seed(seed))
+    return net
+
+
+def g_lm_step(torch, ag, gluon, net, trainer, loss_fn, x, y, h, c):
+    """One truncated-BPTT step: forward from the carried (detached)
+    state, the mean cross-entropy over the tokens, backward, the global
+    norm clipped to 0.2 (read on the host, as the example does), SGD.
+    Returns (loss, h, c)."""
+    h, c = h.detach(), c.detach()
+    with ag.record():
+        out, h, c = net(x, h, c)
+        loss = loss_fn(out.reshape(-1, G_LM["vocab"]), y.reshape(-1)
+                       ).mean()
+    loss.backward()
+    grads = [p.grad() for p in net.collect_params().values()]
+    gluon.utils.clip_global_norm(grads, G_LM["clip"])
+    trainer.step(1)
+    return loss, h, c
+
+
+def g_norms(net):
+    return {k: float(p.grad().detach().double().norm())
+            for k, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+
+
+def g_copy_to_cpu(torch, src, dst):
+    """``src``'s parameters into ``dst`` (of the same structure, on the
+    CPU) by structural path."""
+    theirs = dst._collect_params_with_prefix()
+    for k, p in src._collect_params_with_prefix().items():
+        a = p.data().detach().cpu()
+        q = theirs[k]
+        q.shape = tuple(a.shape)
+        q.set_data(a.clone())
+        q._finish_deferred_init()
+
+
+def g_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def g_ssd_check(torch, ag, gluon, ssd, net, imgs, labels):
+    """One SSD step on the card against the same step on the CPU from
+    the same weights, at batch 2: the loss, every gradient's norm and
+    MultiBoxTarget's class assignments."""
+    from mxnet_tpu_torch.gluon.block import _F
+    cpu = ssd.ssd_300_vgg16_reduced(classes=G_SSD_CLASSES, prefix="g8ssd_")
+    cpu.initialize(device="cpu")
+    g_copy_to_cpu(torch, net, cpu)
+    loss_fn = ssd.MultiBoxLoss()
+    res = {}
+    for name, block, dev in (("card", net, DEVICE), ("cpu", cpu, "cpu")):
+        block.zero_grad()
+        x = torch.from_numpy(imgs[:2]).to(dev)
+        y = torch.from_numpy(labels[:2]).to(dev)
+        with ag.record():
+            c, lo, a = block(x)
+            loss = loss_fn(c, lo, y, a).mean()
+        loss.backward()
+        _, _, cls_t = _F._contrib_MultiBoxTarget(
+            a, y, c.detach(), overlap_threshold=0.5,
+            negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+        res[name] = (loss.item(), g_norms(block), cls_t.cpu().numpy())
+    (l_card, n_card, t_card), (l_cpu, n_cpu, t_cpu) = res["card"], \
+        res["cpu"]
+    flips = int((t_card != t_cpu).sum())
+    positives_same = np.array_equal(t_card > 0, t_cpu > 0) and \
+        np.array_equal(t_card[t_card > 0], t_cpu[t_cpu > 0])
+    loss_tol, grad_tol = G_SSD_LOSS_REL_TOL, G_SSD_GRAD_REL_TOL
+    grad_err = max(g_rel(n_card[k], n_cpu[k]) for k in n_cpu)
+    log(f"8g (a): SSD-300 step on the card against the CPU at batch 2 "
+        f"(TF32 off): loss {l_card:.6f} vs {l_cpu:.6f} (rel "
+        f"{g_rel(l_card, l_cpu):.2e}, tol {loss_tol}), {len(n_cpu)} "
+        f"gradient norms max rel err {grad_err:.2e} (tol {grad_tol}), "
+        f"MultiBoxTarget assignments {int((t_cpu > 0).sum())} positives "
+        f"{int((t_cpu == 0).sum())} mined negatives, {flips} differ "
+        f"(positives the same: {positives_same})")
+    check(positives_same, "SSD-300: MultiBoxTarget assigns other "
+          "positives on the card than on the CPU")
+    check(flips <= t_cpu.size // 1000, f"SSD-300: {flips} mined "
+          "negatives differ from the CPU's")
+    check(g_rel(l_card, l_cpu) <= loss_tol, "SSD-300 loss differs from "
+          f"the CPU's: {l_card} vs {l_cpu}")
+    check(grad_err <= grad_tol, f"SSD-300 gradient norms differ from the "
+          f"CPU's by {grad_err:.2e}")
+    del cpu
+
+
+def run_g_ssd(torch, kernels, rng):
+    """8g (a): SSD-300 at full width, batch 32, f32, SGD with momentum
+    through ``Trainer.step``, fed by ``DataLoader(ArrayDataset(...),
+    num_workers=2, pin_memory=True, device_prefetch=2)``."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.block import _F
+    from mxnet_tpu_torch.gluon.model_zoo import ssd
+    imgs, labels = g_ssd_data(31, G_SSD_IMAGES, G_SSD_SIZE, G_SSD_CLASSES)
+    from mxnet_tpu_torch import initializer
+    net = ssd.ssd_300_vgg16_reduced(classes=G_SSD_CLASSES, prefix="g8ssd_")
+    net.initialize(initializer.Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(31))
+    with ag.pause():
+        net(torch.from_numpy(imgs[:1]).to(DEVICE))
+    g_ssd_check(torch, ag, gluon, ssd, net, imgs, labels)
+    loss_fn = ssd.MultiBoxLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(G_SSD_SGD))
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(imgs, labels), batch_size=G_SSD_BATCH,
+        shuffle=True, last_batch="discard", **G_LOADER)
+
+    def step(x, y):
+        with ag.record():
+            c, lo, a = net(x)
+            loss = loss_fn(c, lo, y, a).mean()
+        loss.backward()
+        trainer.step(G_SSD_BATCH)
+        return loss
+
+    def batches(n):
+        out = []
+        while len(out) < n:
+            for x, y in loader:
+                out.append((x._data, y._data))
+                if len(out) == n:
+                    break
+        return out
+    from mxnet_tpu_torch.gluon.data.prefetch import _metrics
+    wait = _metrics()["wait"]
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    t_all = time.monotonic()
+    fed = 0
+    # the loader-fed window: steps 2..10, from the end of the first
+    # (its warm-up) to the end of the last, the loader's waits included
+    t_fed = n_wait = s_wait = None
+    while fed < G_SSD_STEPS:
+        for x, y in loader:
+            if fed == G_SSD_STEPS:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(x._data, y._data).item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            fed += 1
+            if fed == 1:
+                t_fed, n_wait, s_wait = time.perf_counter(), wait.count, \
+                    wait.sum
+    fed_s = time.perf_counter() - t_fed
+    fed_wait_ms = (wait.sum - s_wait) / max(wait.count - n_wait, 1) * 1e3
+    counts = kernels.launch_counts()
+    wall = time.monotonic() - t_all
+    log(f"8g (a): SSD-300 losses {[round(v, 4) for v in losses]}")
+    check(all(np.isfinite(losses)), "SSD-300 loss is not finite")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]),
+          f"SSD-300 loss did not fall over {G_SSD_STEPS} steps: {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    prof_batches = batches(2)
+    prof, pwall = profiled(torch, step, prof_batches)
+    share = report_profile(prof, pwall, 2)
+    rows, busy = device_rows(prof)
+    launches_a_step = sum(e.count for e in rows) / 2
+    x, y = prof_batches[0]
+    with ag.pause():
+        c, lo, a = net(x)
+    (_, _, cls_t), t_ms = timed_ms(torch, lambda: _F._contrib_MultiBoxTarget(
+        a, y, c, overlap_threshold=0.5, negative_mining_ratio=3.0,
+        negative_mining_thresh=0.5))
+    with ag.pause():
+        det, d_ms = timed_ms(torch, lambda: net.detect(x))
+    d = det.cpu().numpy()
+    check(a.shape[1] == G_SSD_ANCHORS and d.shape == (
+        G_SSD_BATCH, G_SSD_ANCHORS, 6), f"anchors {tuple(a.shape)}, "
+          f"detect() {d.shape}")
+    live = d[d[..., 0] >= 0]
+    check(((live[:, 0] < G_SSD_CLASSES) & (live[:, 1] >= 0) &
+           (live[:, 1] <= 1)).all() and np.isfinite(d).all(),
+          "detect(): rows not of the reference's form [class, score, x1, "
+          "y1, x2, y2]")
+    step_ms = float(np.median(times[1:])) * 1e3
+    summary = dict(step_ms=step_ms,
+                   images_s=G_SSD_BATCH / step_ms * 1e3,
+                   fed_images_s=(G_SSD_STEPS - 1) * G_SSD_BATCH / fed_s,
+                   fed_step_ms=fed_s / (G_SSD_STEPS - 1) * 1e3,
+                   fed_wait_ms=fed_wait_ms,
+                   device_ms=busy / 1e3 / 2,
+                   idle=None if share is None else 1 - share,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   kernels_a_step=launches_a_step,
+                   multibox_target_ms=t_ms, multibox_detection_ms=d_ms,
+                   rows_kept=int(len(live)))
+    log(f"8g (a): SSD-300 batch {G_SSD_BATCH} f32: step "
+        f"{step_ms:.2f} ms, {summary['images_s']:.1f} images/s in the "
+        f"step; fed by the loader (steps 2-{G_SSD_STEPS}) "
+        f"{summary['fed_step_ms']:.2f} ms a step, "
+        f"{summary['fed_images_s']:.1f} images/s, the consumer waiting "
+        f"{fed_wait_ms:.2f} ms a batch for the loader; profiled "
+        f"device {summary['device_ms']:.2f} ms a step, idle "
+        f"{'not measured' if share is None else format(1 - share, '.3f')}"
+        f", peak {summary['peak_gb']:.2f} GB, {launches_a_step:.0f} "
+        f"kernels a step; MultiBoxTarget {t_ms:.2f} ms, MultiBoxDetection "
+        f"(detect) {d_ms:.2f} ms, {len(live)} rows kept; {G_SSD_STEPS} "
+        f"steps in {wall:.1f}s with the loader")
+    log("8g row ssd: " + json.dumps({k: (round(v, 4) if isinstance(
+        v, float) else v) for k, v in summary.items()}))
+    loader.close()
+    del net, trainer
+    return counts, (imgs, labels)
+
+
+def g_lm_time(torch, ag, gluon, net, trainer, loss_fn, data, steps, label):
+    """``steps`` timed steps and two profiled ones; returns the summary."""
+    tokens = G_LM["batch"] * G_LM["bptt"]
+    h = torch.zeros(G_LM["layers"], G_LM["batch"], G_LM["units"],
+                    device=DEVICE)
+    c = torch.zeros_like(h)
+    losses, times = [], []
+    for i in range(steps):
+        x, y = data[i % len(data)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, h, c = g_lm_step(torch, ag, gluon, net, trainer, loss_fn, x,
+                               y, h, c)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    state = [h, c]
+
+    def one(x, y):
+        _, state[0], state[1] = g_lm_step(torch, ag, gluon, net, trainer,
+                                          loss_fn, x, y, *state)
+    prof, wall = profiled(torch, one, data[:2])
+    share = report_profile(prof, wall, 2)
+    rows, busy = device_rows(prof)
+    step_ms = float(np.median(times[1:])) * 1e3
+    out = dict(step_ms=step_ms, tokens_s=tokens / step_ms * 1e3,
+               device_ms=busy / 1e3 / 2,
+               idle=None if share is None else 1 - share,
+               kernels_a_step=sum(e.count for e in rows) / 2,
+               first_ms=times[0] * 1e3)
+    log(f"8g (b): word LM {label}: step {step_ms:.2f} ms, "
+        f"{out['tokens_s']:.0f} tokens/s, profiled device "
+        f"{out['device_ms']:.2f} ms a step, idle "
+        f"{'not measured' if share is None else format(1 - share, '.3f')}"
+        f", {out['kernels_a_step']:.0f} kernels a step, first step "
+        f"{out['first_ms']:.0f} ms; losses {[round(v, 3) for v in losses]}")
+    check(all(np.isfinite(losses)), f"word LM {label}: loss not finite")
+    return out
+
+
+def g_lm_hybrid_check(torch, ag, gluon, loss_fn, data):
+    """Three steps of the hybridized model (replays of its CUDA graphs,
+    the state carried between them) against three eager steps from the
+    same weights on the same batches, dropout off: each step's loss,
+    every gradient norm and the carried state."""
+    res = {}
+    for label, hybrid in (("eager", False), ("hybridized", True)):
+        net = g_lm_net(torch, gluon, 7, 0.0, DEVICE)
+        if hybrid:
+            net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": G_LM["lr"]})
+        h = torch.zeros(G_LM["layers"], G_LM["batch"], G_LM["units"],
+                        device=DEVICE)
+        c = torch.zeros_like(h)
+        steps = []
+        for i in range(3):
+            loss, h, c = g_lm_step(torch, ag, gluon, net, tr, loss_fn,
+                                   *data[i], h, c)
+            steps.append((loss.item(), g_norms(net), h.detach().clone(),
+                          c.detach().clone()))
+        graphs = net._cached_op.graphs if hybrid and net._cached_op else 0
+        res[label] = steps
+        del net, tr
+    lerr = gerr = serr = 0.0
+    for (l1, n1, h1, c1), (l2, n2, h2, c2) in zip(res["hybridized"],
+                                                  res["eager"]):
+        lerr = max(lerr, g_rel(l1, l2))
+        gerr = max(gerr, max(g_rel(n1[k], n2[k]) for k in n2))
+        serr = max(serr, float((h1 - h2).abs().max()),
+                   float((c1 - c2).abs().max()))
+    log(f"8g (b): hybridized word LM ({graphs} CUDA graphs) against eager "
+        f"over 3 steps from the same weights (dropout off): loss max rel "
+        f"err {lerr:.2e}, gradient norms {gerr:.2e}, carried state max err "
+        f"{serr:.2e} (tol {G_LM_REL_TOL})")
+    check(graphs >= 2, "hybridized word LM captured no forward and "
+          "backward graphs")
+    check(lerr <= G_LM_REL_TOL and gerr <= G_LM_REL_TOL and
+          serr <= G_LM_REL_TOL, "hybridized word LM steps differ from the "
+          "eager ones")
+
+
+def run_g_lm(torch, kernels, rng):
+    """8g (b): the word-level LSTM language model at its published width:
+    one step with dropout off against the CPU path, then the eager step
+    against the hybridized one (a CachedOp of CUDA graphs)."""
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon
+    V, T, B = G_LM["vocab"], G_LM["bptt"], G_LM["batch"]
+    stream = rng.randint(0, V, size=(T * 4 + 1) * B)
+    data = []
+    for i in range(4):
+        seg = stream[i * T * B:(i * T + T + 1) * B].reshape(T + 1, B)
+        data.append((torch.from_numpy(seg[:-1].copy()).to(DEVICE),
+                     torch.from_numpy(seg[1:].astype(np.float32)).to(
+                         DEVICE)))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    # one step, dropout off, against the CPU path from the same weights
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        net = g_lm_net(torch, gluon, 7, 0.0, dev)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": G_LM["lr"]})
+        h = torch.zeros(G_LM["layers"], B, G_LM["units"], device=dev)
+        x, y = (t.to(dev) for t in data[0])
+        loss, h, _ = g_lm_step(torch, ag, gluon, net, tr, loss_fn, x, y, h,
+                               torch.zeros_like(h))
+        res[dev] = (loss.item(), g_norms(net),
+                    {k: p.data().detach().cpu() for k, p in
+                     net._collect_params_with_prefix().items()},
+                    h.detach().cpu())
+    (l1, n1, p1, h1), (l2, n2, p2, h2) = res[DEVICE], res["cpu"]
+    gerr = max(g_rel(n1[k], n2[k]) for k in n2)
+    perr = max(float((p1[k] - p2[k]).abs().max()) /
+               max(float(p2[k].abs().max()), 1e-12) for k in p2)
+    herr = float((h1 - h2).abs().max())
+    log(f"8g (b): word LM step on the card against the CPU (dropout off, "
+        f"TF32 off): loss {l1:.6f} vs {l2:.6f}, gradient norms max rel err "
+        f"{gerr:.2e}, clipped SGD update max rel err {perr:.2e}, carried "
+        f"state max err {herr:.2e} (tol {G_LM_REL_TOL})")
+    check(g_rel(l1, l2) <= G_LM_REL_TOL and gerr <= G_LM_REL_TOL and
+          perr <= G_LM_REL_TOL and herr <= G_LM_REL_TOL,
+          "word LM step differs from the CPU's")
+    del res
+    g_lm_hybrid_check(torch, ag, gluon, loss_fn, data)
+    kernels.reset_launch_counts()
+    rows = {}
+    for label, hybrid in (("eager", False), ("hybridized", True)):
+        net = g_lm_net(torch, gluon, 7, G_LM["dropout"], DEVICE)
+        if hybrid:
+            net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": G_LM["lr"]})
+        rows[label] = g_lm_time(torch, ag, gluon, net, tr, loss_fn, data,
+                                G_LM_STEPS, label)
+        if hybrid:
+            graphs = net._cached_op.graphs if net._cached_op else 0
+            log(f"8g (b): hybridized word LM: {graphs} CUDA graph(s)")
+            check(graphs >= 2, "hybridized word LM captured no forward "
+                  "and backward graphs")
+        del net, tr
+    counts = kernels.launch_counts()
+    log(f"8g (b): hybridized/eager step time "
+        f"{rows['hybridized']['step_ms'] / rows['eager']['step_ms']:.3f}, "
+        f"device ms {rows['hybridized']['device_ms']:.2f} vs "
+        f"{rows['eager']['device_ms']:.2f}")
+    for label, row in rows.items():
+        log(f"8g row word_lm_{label}: " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in row.items()}))
+    return counts
+
+
+def g_epoch(torch, loader, consume_ms=0.0):
+    """One pass over ``loader``: the batches (host copies) and seconds;
+    each batch is moved to the card when it is not there, and the
+    consumer then takes ``consume_ms`` (a host sleep standing in for a
+    step) before the next."""
+    got = []
+    t0 = time.monotonic()
+    for x, y in loader:
+        x, y = x._data.to(DEVICE), y._data.to(DEVICE)
+        got.append((x.cpu().numpy(), y.cpu().numpy()))
+        if consume_ms:
+            time.sleep(consume_ms / 1e3)
+    torch.cuda.synchronize()
+    return got, time.monotonic() - t0
+
+
+def run_g_data(torch, data):
+    """8g (c): the data tier: the same loader with and without
+    ``device_prefetch`` and ``pin_memory``; the batches in order and bit
+    for bit the host's; the consumer's wait and the queue's fill; a
+    worker's exception in the consumer."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.data.prefetch import _metrics
+    imgs, labels = data
+    ds = gluon.data.ArrayDataset(imgs, labels)
+    want = [(imgs[i:i + G_SSD_BATCH], labels[i:i + G_SSD_BATCH])
+            for i in range(0, len(imgs), G_SSD_BATCH)]
+    series = _metrics()
+    wait, fill = series["wait"], series["fill"]
+    rows = {}
+    for label, kw in (("serial", dict(num_workers=0)),
+                      ("plain", dict(num_workers=2)),
+                      ("pinned+prefetch", dict(
+                          num_workers=2, pin_memory=G_LOADER["pin_memory"],
+                          device_prefetch=2))):
+        t0 = time.monotonic()
+        loader = gluon.data.DataLoader(ds, batch_size=G_SSD_BATCH, **kw)
+        start_s = time.monotonic() - t0
+        g_epoch(torch, loader)                           # warm the pool
+        n0, s0 = wait.count, wait.sum
+        got, secs = g_epoch(torch, loader, consume_ms=20.0)
+        loader.close()
+        n, s = wait.count - n0, wait.sum - s0
+        check(len(got) == len(want) and all(
+            np.array_equal(a, c) and np.array_equal(b, d)
+            for (a, b), (c, d) in zip(got, want)),
+            f"8g (c) {label}: batches differ from the host's or arrive out "
+            "of order")
+        rows[label] = dict(epoch_s=secs, start_s=start_s,
+                           wait_ms=(s / n * 1e3) if n else None,
+                           fill=fill.value if n else None)
+        log(f"8g (c): loader {label} ({kw}), batch {G_SSD_BATCH}, a 20 ms "
+            f"consumer: pool start {start_s * 1e3:.0f} ms, epoch "
+            f"{secs * 1e3:.1f} ms for {len(got)} "
+            f"batches, bit for bit the host's, in order; consumer wait "
+            f"{'not measured (no prefetch)' if not n else format(s / n * 1e3, '.3f') + ' ms a batch'}"
+            f", queue fill at the last read "
+            f"{'not measured' if not n else fill.value}")
+    bad = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(labels[:8]).transform(int), batch_size=4,
+        num_workers=2, device_prefetch=2)
+    raised = None
+    try:
+        list(bad)
+    except TypeError as e:
+        raised = e
+    bad.close()
+    check(raised is not None, "8g (c): a worker's exception did not reach "
+          "the consumer")
+    log(f"8g (c): a worker's TypeError surfaced in the consumer: "
+        f"{str(raised)[:60]}")
+    return rows
+
+
+def g_pair(torch, make, inputs, grad_idx):
+    """``make(dev)``'s block on the card and on the CPU from the same
+    parameters (the card's copied), on the same inputs: the largest
+    relative error of the outputs and of the input gradients."""
+    from mxnet_tpu_torch import autograd as ag
+    out = {}
+    card = make(DEVICE)
+    cpu = make("cpu")
+    for side, dev, blk in (("card", DEVICE, card), ("cpu", "cpu", cpu)):
+        if side == "cpu" and len(card.collect_params()):
+            # the card's parameters, shapes resolved by its forward
+            g_copy_to_cpu(torch, card, cpu)
+        args = [[torch.from_numpy(v).to(dev) for v in a]
+                if isinstance(a, list) else
+                torch.from_numpy(a).to(dev) for a in inputs]
+        for i in grad_idx:
+            args[i].requires_grad_()
+        with ag.record():
+            y = blk(*args)
+        flat = []
+
+        def walk(v):
+            if isinstance(v, (list, tuple)):
+                for w in v:
+                    walk(w)
+            else:
+                flat.append(v)
+        walk(y)
+        sum(f.float().sum() * (k + 1) for k, f in enumerate(flat)).backward()
+        out[side] = ([f.detach().cpu().double() for f in flat],
+                     [args[i].grad.cpu().double() for i in grad_idx])
+    err = 0.0
+    for a, b in zip(out["card"][0] + out["card"][1],
+                    out["cpu"][0] + out["cpu"][1]):
+        err = max(err, float((a - b).abs().max()) /
+                  max(float(b.abs().max()), 1.0))
+    return err
+
+
+def run_g_parts(torch, rng):
+    """8g (d): each of the twelve new losses and each cell family,
+    forward and gradient, on the card against the CPU."""
+    from mxnet_tpu_torch.gluon import loss as L
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+    f = np.float32
+    pred = rng.randn(64, 16).astype(f)
+    dense = np.abs(rng.randn(64, 16)).astype(f)
+    sign = np.sign(rng.randn(64, 16)).astype(f)
+    sm = np.exp(dense) / np.exp(dense).sum(-1, keepdims=True)
+    logits = rng.randn(32, 50, 20).astype(f)
+    lab = rng.randint(0, 19, (32, 10)).astype(f)
+    lab[:, 7:] = -1
+    x1, x2 = rng.randn(32, 24).astype(f), rng.randn(32, 24).astype(f)
+    cos_l = np.sign(rng.randn(32)).astype(f)
+    losses = [
+        ("L1Loss", {}, [pred, dense]),
+        ("SigmoidBinaryCrossEntropyLoss", {}, [pred, (sign + 1) / 2]),
+        ("KLDivLoss", {}, [np.log(sm).astype(f), sm]),
+        ("CTCLoss", {}, [logits, lab]),
+        ("HuberLoss", {}, [pred, dense]),
+        ("HingeLoss", {}, [pred, sign]),
+        ("SquaredHingeLoss", {}, [pred, sign]),
+        ("LogisticLoss", {}, [pred, sign]),
+        ("TripletLoss", {}, [pred, dense, dense + 1]),
+        ("PoissonNLLLoss", {}, [pred, dense]),
+        ("CosineEmbeddingLoss", {}, [x1, x2, cos_l]),
+        ("SDMLLoss", {}, [x1, x2]),
+    ]
+    worst = {}
+    for name, kw, arrays in losses:
+        err = g_pair(torch, lambda dev, n=name, k=kw: getattr(L, n)(**k),
+                     arrays, [0])
+        worst[name] = err
+    seq = rng.randn(8, 12, 32).astype(f)
+
+    def cell(cls, **kw):
+        def make(dev):
+            c = cls(prefix="g8c_", **kw)
+            c.initialize(device=dev,
+                         generator=torch.Generator().manual_seed(3))
+            return _Unroll(c)
+        return make
+
+    class _Unroll:
+        def __init__(self, c):
+            self.c = c
+
+        def collect_params(self):
+            return self.c.collect_params()
+
+        def _collect_params_with_prefix(self):
+            return self.c._collect_params_with_prefix()
+
+        def __call__(self, x):
+            out, states = self.c.unroll(x.shape[1], x, layout="NTC")
+            return [out] + list(states)
+
+    def layer(cls, **kw):
+        def make(dev):
+            net = cls(64, prefix="g8l_", **kw)
+            net.initialize(device=dev,
+                           generator=torch.Generator().manual_seed(4))
+            return net
+        return make
+    cells = [
+        ("RNNCell", cell(rnn.RNNCell, hidden_size=48), [seq]),
+        ("LSTMCell", cell(rnn.LSTMCell, hidden_size=48), [seq]),
+        ("GRUCell", cell(rnn.GRUCell, hidden_size=48), [seq]),
+        ("LSTMPCell", cell(crnn.LSTMPCell, hidden_size=48,
+                           projection_size=16), [seq]),
+        ("RNN", layer(rnn.RNN, num_layers=2, layout="NTC"), [seq]),
+        ("LSTM", layer(rnn.LSTM, num_layers=2, bidirectional=True,
+                       layout="NTC"), [seq]),
+        ("GRU", layer(rnn.GRU, layout="NTC"), [seq]),
+    ]
+    img = rng.randn(4, 3, 16, 16).astype(f)
+    for name in ("Conv2DRNNCell", "Conv2DLSTMCell", "Conv2DGRUCell"):
+        def make(dev, n=name):
+            cc = getattr(crnn, n)((3, 16, 16), 8, prefix="g8cv_")
+            cc.initialize(device=dev,
+                          generator=torch.Generator().manual_seed(5))
+            return cc
+        states = [np.zeros((4, 8, 16, 16), f)] * (
+            2 if "LSTM" in name else 1)
+        cells.append((name, make, [img, states]))
+    for name, make, arrays in cells:
+        worst[name] = g_pair(torch, make, arrays, [0])
+    log("8g (d): card against CPU, max rel err of outputs and input "
+        "gradients: " + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+    bad = {k: v for k, v in worst.items()
+           if not v <= G_PART_TOL.get(k, G_PART_REL_TOL)}
+    check(not bad, f"8g (d): beyond tolerance on the card: {bad}")
+    return worst
+
+
+def run_gluon_rest_phase(torch, rng, kernels):
+    """Phase 8g, the rest of gluon: (a) SSD-300 training and detection at
+    full width through the DataLoader with workers, pinned memory and
+    device prefetch; (b) the word-level LSTM language model, eager and
+    hybridized; (c) the data tier; (d) the losses and cells on the card.
+    Returns the launch counts of (a) and (b) (the update kernel)."""
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.monotonic()
+    counts, data = run_g_ssd(torch, kernels, rng)
+    add(counts)
+    torch.cuda.empty_cache()
+    log(f"time: 8g (a) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    add(run_g_lm(torch, kernels, rng))
+    torch.cuda.empty_cache()
+    log(f"time: 8g (b) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    run_g_data(torch, data)
+    log(f"time: 8g (c) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    run_g_parts(torch, rng)
+    torch.cuda.empty_cache()
+    log(f"time: 8g (d) {time.monotonic() - t0:.1f}s")
+    return launches
+
+
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
 
 
@@ -9724,6 +10418,11 @@ def main():
     # kvstore on the card (its own generator, as 5b)
     add(run_sparse_phase(torch, np.random.RandomState(29), kernels))
     lap("8f sparse tier and optimizer tail")
+    # 8g. the rest of gluon: SSD-300 through the DataLoader with workers
+    # and device prefetch, the word LSTM LM eager and hybridized, the data
+    # tier, the losses and cells on the card (its own generator, as 5b)
+    add(run_gluon_rest_phase(torch, np.random.RandomState(30), kernels))
+    lap("8g rest of gluon")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -49,7 +49,12 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   lazy SGD/Adam updates, the reference's 20 optimizers with the LAMB
   ops, the initializer tail and the single-process ``mx.kv`` store
   (2-bit gradient compression, ``row_sparse_pull``), which
-  ``gluon.Trainer(kvstore=...)`` takes as the reference's does.
+  ``gluon.Trainer(kvstore=...)`` takes as the reference's does;
+- ``mx.cpu()`` / ``mx.gpu()`` as the reference's
+  :class:`~mxnet_tpu_torch.context.Context`, and the rest of gluon: the
+  fifteen losses, ``gluon.rnn``, ``gluon.contrib`` (nn, rnn),
+  ``gluon.data`` (the ``DataLoader`` with worker processes, pinned
+  batches and device prefetch), ``gluon.utils`` and SSD-300.
 
 See ROADMAP.md for what remains.
 
@@ -64,11 +69,14 @@ __version__ = "0.1.0"
 from . import amp, autograd, ndarray, rtc  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from .base import MXNetError  # noqa: E402
+from .context import (Context, cpu, gpu, tpu, cpu_pinned,  # noqa: E402
+                      current_context, num_gpus, num_tpus)
 from .ndarray import NDArray  # noqa: E402
 from .ndarray import random  # noqa: E402  (mx.random: nd.random)
 
 __all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc",
-           "MXNetError", "NDArray", "waitall"]
+           "MXNetError", "NDArray", "waitall", "Context", "cpu", "gpu",
+           "tpu", "cpu_pinned", "current_context", "num_gpus", "num_tpus"]
 
 # The reference's lazy subpackages (``mxnet_tpu/__init__.py``
 # ``_LAZY_MODULES``, ``_ALIAS``): loaded at first touch. Those not yet

@@ -254,14 +254,16 @@ class Block(torch.nn.Module):
         return self
 
     def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
-        """Initialize every parameter of the tree on ``device`` (default:
-        the card); ``init`` (default ``Uniform()``) serves parameters
-        without their own initializer. Draws come from ``generator``.
-        ``force_reinit`` draws initialized parameters anew (new tensors:
-        the tree's CUDA graphs are dropped)."""
+                   force_reinit=False, ctx=None, verbose=False):
+        """Initialize every parameter of the tree on ``device`` (or
+        ``ctx``, the reference's name: a Context, string or
+        ``torch.device``; default: the innermost ``with Context``
+        block's, else the card); ``init`` (default ``Uniform()``) serves
+        parameters without their own initializer. Draws come from
+        ``generator``. ``force_reinit`` draws initialized parameters anew
+        (new tensors: the tree's CUDA graphs are dropped)."""
         self.collect_params().initialize(init, device, generator,
-                                         force_reinit=force_reinit)
+                                         force_reinit=force_reinit, ctx=ctx)
         if force_reinit:
             self._drop_graphs()
 

@@ -1,6 +1,7 @@
-"""Model zoo of the port (mirrors ``mxnet_tpu/gluon/model_zoo``): BERT and
-the vision models (``vision``, ``get_model``). ``ssd.py`` is not ported
-yet (ROADMAP.md §1 item 13d)."""
+"""Model zoo of the port (mirrors ``mxnet_tpu/gluon/model_zoo``): BERT,
+the vision models (``vision``, ``get_model``) and SSD-300."""
 from . import bert  # noqa: F401
 from . import vision  # noqa: F401
+from . import ssd  # noqa: F401
 from .vision import get_model  # noqa: F401
+from .ssd import ssd_300_vgg16_reduced, MultiBoxLoss, SSD  # noqa: F401

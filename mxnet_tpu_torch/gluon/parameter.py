@@ -195,19 +195,22 @@ class Parameter:
 
     # -------------------------------------------------------------- init --
     def initialize(self, init=None, device=None, default_init=None,
-                   generator=None, force_reinit=False):
-        """Materialise the data on ``device`` (default: the card) with
+                   generator=None, force_reinit=False, ctx=None):
+        """Materialise the data on ``device`` (or ``ctx``, the reference's
+        name: a Context, string or ``torch.device``; default: the
+        innermost ``with Context`` block's, else the card) with
         ``init`` (else this parameter's own ``init``, else
         ``default_init``, else ``Uniform()``); deferred until the first
         forward while the shape has a 0. A no-op once initialized, unless
         ``force_reinit``, which draws new data (a new tensor: CUDA graphs
         over the old one must be dropped, as ``Block.initialize`` does)."""
+        device = ctx if device is None else device
         if self._data is not None:
             if not force_reinit:
                 return
             if device is None:
                 device = self._data.device
-        device = resolve_device("cuda" if device is None else device)
+        device = resolve_device(device)
         if init is None:
             init = self.init if self.init is not None else default_init
         self._deferred_init = (init or initializer.Uniform(), device, None,
@@ -394,7 +397,7 @@ class Parameter:
         else:
             init, device, generator = None, None, None
         if ctx is not None or device is None:
-            device = resolve_device("cuda" if ctx is None else ctx)
+            device = resolve_device(ctx)
         self._deferred_init = (init, device, value, generator)
         self._finish_deferred_init()
 
@@ -535,12 +538,12 @@ class ParameterDict:
             self._params[k] = v
 
     def initialize(self, init=None, device=None, generator=None,
-                   force_reinit=False):
-        """Initialize every parameter: ``init`` is the default for those
-        without their own initializer."""
+                   force_reinit=False, ctx=None, verbose=False):
+        """Initialize every parameter on ``device`` (or ``ctx``): ``init``
+        is the default for those without their own initializer."""
         for v in self._params.values():
             v.initialize(None, device, init, generator=generator,
-                         force_reinit=force_reinit)
+                         force_reinit=force_reinit, ctx=ctx)
 
     def zero_grad(self):
         for v in self.values():

@@ -37,7 +37,7 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
 
 
 def _device(ctx):
-    return resolve_device("cuda" if ctx is None else ctx)
+    return resolve_device(ctx)
 
 
 def _dtype(dtype):

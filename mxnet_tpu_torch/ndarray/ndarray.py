@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import context as _context
 from .._device import resolve_device
 from ..jit import check_host_read
 from ..base import torch_dtype
@@ -116,8 +117,10 @@ class NDArray:
 
     @property
     def context(self):
-        """The array's device (a ``torch.device``)."""
-        return self._data.device
+        """The array's device as a :class:`~mxnet_tpu_torch.context.
+        Context` (``cpu(0)``, ``gpu(i)``); the tensor's own device is
+        ``_data.device``."""
+        return _context.device(self._data.device)
 
     ctx = context
 

@@ -30,7 +30,7 @@ def seed(seed_state, ctx="all"):
 
 
 def _ctx(ctx):
-    return resolve_device("cuda" if ctx is None else ctx)
+    return resolve_device(ctx)
 
 
 def _draw(op, inputs, params, ctx, out):
@@ -45,7 +45,7 @@ def _dispatch(scalar_op, sample_op, scalar_params, arr_args, shape, dtype,
     if any(isinstance(a, (NDArray, torch.Tensor)) for a in arr_args):
         # per-element parameters: scalars and arrays broadcast to a
         # common shape first
-        dev = next(a.context if isinstance(a, NDArray) else a.device
+        dev = next(a._data.device if isinstance(a, NDArray) else a.device
                    for a in arr_args if isinstance(a, (NDArray,
                                                        torch.Tensor)))
         datas = [a._data if isinstance(a, NDArray) else

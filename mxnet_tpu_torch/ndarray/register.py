@@ -57,7 +57,7 @@ def _as_inputs(arrays):
     """NDArrays and tensors stay as they are; numpy arrays go to the
     device of the first NDArray or tensor among ``arrays``, or to the
     card."""
-    dev = next((a.context if isinstance(a, NDArray) else a.device
+    dev = next((a._data.device if isinstance(a, NDArray) else a.device
                 for a in arrays if isinstance(a, (NDArray, torch.Tensor))),
                None)
     if dev is None and any(isinstance(a, np.ndarray) for a in arrays):

@@ -46,7 +46,7 @@ def _tensor(x, device, dtype=None):
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
         if device is None:
-            device = resolve_device("cuda")
+            device = resolve_device()
     if device is not None:
         x = x.to(device)
     return x if dtype is None else x.to(dtype)
@@ -121,7 +121,9 @@ class BaseSparseNDArray(NDArray):
 
     @property
     def context(self):
-        return self._values.device
+        """The array's device as a Context."""
+        from ..context import device
+        return device(self._values.device)
 
     ctx = context
 
@@ -302,7 +304,7 @@ def csr_matrix(arg1, shape=None, ctx=None, dtype=None):
 
 def zeros(stype, shape, ctx=None, dtype=None):
     """An all-zero array of storage type ``stype``."""
-    dev = resolve_device("cuda" if ctx is None else ctx)
+    dev = resolve_device(ctx)
     dt = torch_dtype(dtype or "float32")
     shape = tuple(shape)
     if stype == "row_sparse":

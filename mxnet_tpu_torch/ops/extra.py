@@ -732,13 +732,12 @@ def _histogram(data, bin_cnt=10, range=None, **_):
 def _linspace_op(start=0.0, stop=1.0, num=50, endpoint=True,
                  dtype="float32", ctx=None, **_):
     return jnp_linspace(start, stop, num, endpoint,
-                        device=resolve_device("cuda" if ctx is None
-                                              else ctx))
+                        device=resolve_device(ctx))
 
 
 def _zeros_without_dtype(shape=(), ctx=None, dtype=None):
     return torch.zeros(tuple(shape), dtype=torch.float32,
-                       device=resolve_device("cuda" if ctx is None else ctx))
+                       device=resolve_device(ctx))
 
 
 def _arange_like(data, start=0.0, step=1.0, repeat=1, axis=None):

@@ -154,7 +154,7 @@ def _draw_device(inputs, params):
         if isinstance(x, torch.Tensor):
             return x.device
     ctx = params.get("ctx")
-    return resolve_device("cuda" if ctx is None else ctx)
+    return resolve_device(ctx)
 
 
 class _SparseEmbedding(torch.autograd.Function):

@@ -433,7 +433,7 @@ alias("sequence_reverse", "SequenceReverse")
 # ------------------------------------------------------- creation ops ------
 # ``ctx`` places the result (default: the card), as nd.zeros does
 def _dev(ctx):
-    return resolve_device("cuda" if ctx is None else ctx)
+    return resolve_device(ctx)
 
 
 def _zeros_impl(shape=(), dtype="float32", ctx=None):

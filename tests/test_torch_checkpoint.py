@@ -168,7 +168,7 @@ def test_nd_save_is_the_reference_file_byte_for_byte(tmp_path, named):
     for k, want in host.items():
         assert tuple(back[k].shape) == want.shape, k
         assert _bits(back[k]) == want.tobytes(), k
-        assert back[k].context.type == "cpu"
+        assert back[k].context.device_type == "cpu"
         if want.dtype.itemsize < 8:
             assert _bits(jback[k]) == want.tobytes(), k
 

@@ -3505,3 +3505,127 @@ def test_kvstore_row_sparse_pull_on_the_card(cuda):
     kv.pull("emb", out=dense)
     assert torch.equal(dense[4], torch.full((64,), 4.0, device=cuda))
     assert int((dense != 0).any(dim=1).sum()) == 1
+
+
+# ------------------------------------------------- the rest of gluon ------
+@pytest.mark.cuda
+def test_context_places_tensors_on_the_card(cuda):
+    import mxnet_tpu_torch as tmx
+    a = nd.zeros((2, 3), ctx=tmx.gpu(0))
+    assert a._data.is_cuda and a.context == tmx.gpu(0)
+    with tmx.gpu(0):
+        assert nd.ones((2,)).context == tmx.gpu(0)
+        net = tgluon.nn.Dense(4, in_units=3, prefix="cudactx_")
+        net.initialize()
+    assert net.weight.data().is_cuda
+    net2 = tgluon.nn.Dense(4, in_units=3, prefix="cudactx2_")
+    net2.initialize(ctx=tmx.gpu(0))
+    assert net2.weight.data().is_cuda
+    assert nd.array(np.ones(2), ctx=tmx.tpu(0)).context == tmx.gpu(0)
+    assert nd.zeros((1,)).context == tmx.gpu(0)     # the default: the card
+    assert a.as_in_context(tmx.cpu()).context == tmx.cpu()
+    free, total = tmx.gpu(0).memory_info()
+    assert 0 < free <= total
+
+
+def _host_dataset(n=40):
+    rs = np.random.RandomState(0)
+    return (rs.randn(n, 3, 8, 8).astype(np.float32),
+            rs.randint(0, 5, n).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_dataloader_workers_with_the_card_initialised(cuda):
+    from mxnet_tpu_torch.gluon import data as tdata
+    torch.zeros(1, device=cuda).sum().item()        # CUDA is initialised
+    x, y = _host_dataset()
+    ds = tdata.ArrayDataset(x, y)
+    serial = [(a.asnumpy(), b.asnumpy())
+              for a, b in tdata.DataLoader(ds, batch_size=8)]
+    loader = tdata.DataLoader(ds, batch_size=8, num_workers=2,
+                              pin_memory=True)
+    got = []
+    for a, b in loader:
+        assert a._data.is_pinned() and b._data.is_pinned()
+        got.append((a.asnumpy(), b.asnumpy()))
+    loader.close()
+    assert len(got) == len(serial) == 5
+    for (a, b), (c, d) in zip(got, serial):
+        assert np.array_equal(a, c) and np.array_equal(b, d)
+
+
+@pytest.mark.cuda
+def test_prefetch_staging_reads_back_bit_for_bit(cuda):
+    """Staged batches come out on the card in order, each equal to the
+    host's: the consumer's stream waits on the copy's event, and work it
+    queues on a staged batch reads the batch's bits."""
+    from mxnet_tpu_torch.gluon import data as tdata
+    x, y = _host_dataset(96)
+    loader = tdata.DataLoader(tdata.ArrayDataset(x, y), batch_size=8,
+                              num_workers=2, pin_memory=True,
+                              device_prefetch=3)
+    for epoch in range(2):
+        sums = []
+        for i, (a, b) in enumerate(loader):
+            assert a._data.is_cuda and b._data.is_cuda
+            sums.append(a._data.double().sum(dim=(1, 2, 3)))
+            np.testing.assert_array_equal(a.asnumpy(), x[i * 8:i * 8 + 8])
+            np.testing.assert_array_equal(b.asnumpy(), y[i * 8:i * 8 + 8])
+            torch.cuda._sleep(2_000_000)   # a busy consumer stream
+        got = torch.cat(sums).cpu().numpy()
+        np.testing.assert_array_equal(
+            got, x.astype(np.float64).sum(axis=(1, 2, 3)))
+    loader.close()
+
+
+@pytest.mark.cuda
+def test_rnn_layers_cells_and_losses_on_the_card_match_cpu(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    worst = chip_smoke.run_g_parts(torch, np.random.RandomState(0))
+    assert len(worst) == 22
+
+
+@pytest.mark.cuda
+def test_ssd_step_on_the_card_matches_cpu(cuda):
+    """The small SSD of ``tests/test_detection.py``: one training step's
+    loss and every gradient on the card against the CPU from the same
+    weights, TF32 off; then ``detect()``'s rows."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import ssd
+    torch.backends.cudnn.allow_tf32 = False
+
+    def build(dev):
+        s1 = nn.HybridSequential(prefix="")
+        s1.add(nn.Conv2D(16, 3, strides=2, padding=1, activation="relu"))
+        s1.add(nn.Conv2D(16, 3, strides=2, padding=1, activation="relu"))
+        s2 = nn.HybridSequential(prefix="")
+        s2.add(nn.Conv2D(16, 3, strides=2, padding=1, activation="relu"))
+        net = ssd.SSD([s1, s2], sizes=[(0.3,), (0.6,)],
+                      ratios=[(1.0, 2.0), (1.0, 2.0)], steps=[-1.0, -1.0],
+                      classes=2, prefix="cudassd_")
+        net.initialize(device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        return net
+    imgs, labels = chip_smoke.g_ssd_data(3, 8, 32, 2)
+    res = {}
+    for dev in (cuda, "cpu"):
+        net = build(dev)
+        with ag.record():
+            c, lo, a = net(torch.from_numpy(imgs).to(dev))
+            loss = ssd.MultiBoxLoss()(c, lo, torch.from_numpy(labels).to(
+                dev), a).mean()
+        loss.backward()
+        res[str(dev)] = (loss.item(), {
+            k: p.grad().cpu() for k, p in
+            net._collect_params_with_prefix().items()})
+        if dev == cuda:
+            with ag.pause():
+                det = net.detect(torch.from_numpy(imgs).to(dev)).cpu()
+    (l1, g1), (l2, g2) = res[str(cuda)], res["cpu"]
+    assert abs(l1 - l2) <= 1e-5 * abs(l2)
+    for k in g2:
+        err = float((g1[k] - g2[k]).abs().max())
+        assert err <= 1e-4 * max(float(g2[k].abs().max()), 1e-6), k
+    assert det.shape[0] == 8 and det.shape[-1] == 6
+    live = det[det[..., 0] >= 0]
+    assert ((live[:, 1] >= 0) & (live[:, 1] <= 1)).all()

@@ -232,7 +232,7 @@ def test_wait_to_read_and_context():
     a = tnd.array(X, ctx="cpu")
     a.wait_to_read()
     tnd.waitall()
-    assert a.context == torch.device("cpu") and a.ctx == a.context
+    assert a.context == tmx.cpu() and a.ctx == a.context
     assert a.as_in_context("cpu") is a
     with pytest.raises(ValueError):
         bool(a)
