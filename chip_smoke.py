@@ -10121,6 +10121,667 @@ def run_gluon_rest_phase(torch, rng, kernels):
     return launches
 
 
+# --------------------------------- 8h: the estimator and its telemetry --
+# (a) ResNet-50 bf16 NHWC s2d at batch 128 (8e (d)'s configuration) fed by
+# a DataLoader over H_RESNET_BATCHES seeded batches with device prefetch;
+# (b) BERT-base at phase 8's batch, length and steps, then
+# (c) two profiled ones; (d) a serving burst of H_BURST_S seconds sampled
+# every H_SAMPLE_S
+H_RESNET_BATCH, H_RESNET_BATCHES, H_PROFILED = 128, 6, 3
+# (a)'s timed loops: H_TURNS rounds of the three loops in alternating
+# order, each turn H_TURN_EPOCHS passes over the loader
+H_TURNS, H_TURN_EPOCHS = 5, 2
+H_BERT_STEPS, H_BURST_S, H_SAMPLE_S = BERT_STEPS, 10.0, 0.5
+H_SERVE_UNITS, H_SERVE_BUCKETS = 1024, (1, 2, 4, 8)
+H_METRIC_READ_SHARE = 0.05      # ROADMAP item 22 when the reads cost more
+H_LOSS_REL_TOL = 1e-5
+
+
+def h_series(names):
+    """Sums and counts of registry series now: a counter's value, a
+    histogram's ``(count, sum)``."""
+    from mxnet_tpu_torch.observability import get_registry
+    reg = get_registry()
+    out = {}
+    for name in names:
+        m = reg.get(name)
+        if m is None:
+            out[name] = 0
+            continue
+        c = m.children()[0] if m.children() else None
+        out[name] = (0 if c is None else
+                     (c.count, c.sum) if hasattr(c, "count") else c.value)
+    return out
+
+
+H_SERIES = ("mxtpu_training_optimizer_steps_total",
+            "mxtpu_training_examples_total", "mxtpu_training_steps_total",
+            "mxtpu_training_step_seconds", "mxtpu_training_compute_seconds",
+            "mxtpu_training_data_wait_seconds")
+
+
+def h_delta(before, after):
+    out = {}
+    for k, v in after.items():
+        b = before[k]
+        if isinstance(v, tuple):
+            b = b or (0, 0.0)            # the series did not exist yet
+            out[k] = tuple(x - y for x, y in zip(v, b))
+        else:
+            out[k] = v - b
+    return out
+
+
+def h_weights(net):
+    return {k: p.data().detach().clone()
+            for k, p in sorted(net.collect_params().items())}
+
+
+def h_same_bits(torch, a, b):
+    """Names of parameters (matched by position: the two nets' prefixes
+    differ) whose bits differ."""
+    return [ka for (ka, va), (_, vb) in zip(a.items(), b.items())
+            if not torch.equal(va, vb)]
+
+
+def h_resnet_loader(torch, gluon, seed):
+    """A DataLoader over ``H_RESNET_BATCHES`` batches of seeded float32
+    images (host numpy, one sample an item) and int labels; the batchify
+    stacks them into bf16 NHWC images and int32 labels, pinned, and the
+    loader stages them on the card two batches ahead."""
+    rs = np.random.default_rng(seed)
+    n = H_RESNET_BATCH * H_RESNET_BATCHES
+    images = rs.standard_normal((n, 224, 224, 3), dtype=np.float32)
+    labels = rs.integers(0, 1000, n).astype(np.int32)
+
+    class Images(gluon.data.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return images[i], labels[i]
+
+    def batchify(samples):
+        x = torch.from_numpy(np.stack([s[0] for s in samples]))
+        y = torch.from_numpy(np.array([s[1] for s in samples]))
+        return [x.to(torch.bfloat16), y]
+    return gluon.data.DataLoader(
+        Images(), batch_size=H_RESNET_BATCH, batchify_fn=batchify,
+        pin_memory=DEVICE == "cuda", device_prefetch=2)
+
+
+def h_bench_loss(gluon, nd):
+    """``bench.py``'s loss (per-sample NLL of the f32 log-softmax) as a
+    gluon Loss, the Estimator's loss."""
+    class BenchNLL(gluon.loss.Loss):
+        def __init__(self):
+            super().__init__(None, 0)
+
+        def forward(self, pred, label):
+            logp = nd.log_softmax(pred.float(), axis=-1)
+            return -nd.pick(logp, label, axis=1)
+    return BenchNLL()
+
+
+def h_resnet(torch, ag, vision, prefix):
+    from mxnet_tpu_torch.initializer import Xavier
+    net = vision.resnet50_v1(layout="NHWC", stem_s2d=True, prefix=prefix)
+    net.initialize(Xavier(), device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+    with ag.pause():
+        net(torch.ones((1, 224, 224, 3), device=DEVICE))
+    net.cast("bfloat16")
+    return net
+
+
+def h_profile(torch, fn, steps):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    share = report_profile(prof, wall, steps)
+    return None if share is None else 1 - share
+
+
+def h_metric_read_ms(torch, est, pred, label, loss, n=20):
+    """The metrics' per-batch cost on their own: the estimator's train
+    metrics and loss metric updated from one step's outputs already on
+    the card (the device idle), ``n`` times; ms a batch."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        for m in est.train_metrics:
+            m.update(label, pred)
+        est.train_loss_metric.update(0, loss)
+    return (time.monotonic() - t0) / n * 1e3
+
+
+def run_h_resnet(torch, kernels, card):
+    """8h (a): ResNet-50 v1 as bench.py builds it (bf16 NHWC s2d, batch
+    128), trained through ``Estimator.fit(compiled_step=True)`` from a
+    DataLoader with device prefetch; Accuracy, TopKAccuracy(5) and the
+    loss metric; ValidationHandler, CheckpointHandler (rotation 2),
+    LoggingHandler and the default StepTimerHandler. Checks: the weights
+    after the epoch bit for bit those of a bare ``compile_step`` loop
+    over the same batches from the same weights (cuDNN deterministic in
+    both), the metrics equal numpy's on the same host copies of the
+    predictions, the optimizer-step and example counters moved by N and
+    128 N, one capture (the first call) and none after. Then
+    ``H_TURNS`` rounds of three loops, each turn ``H_TURN_EPOCHS`` passes
+    over the loader, in the order bare, estimator, estimator without
+    metrics (nothing read back) and the reverse in the next round: each
+    loop's median step ms with its spread and images/s, StepTimer's
+    compute/data-wait split, the metrics' own per-batch cost and both
+    loops' device idle share. The loop without metrics splits the
+    estimator's gap into the reads' share and the handlers'. Returns the
+    launch counts of the estimator's epoch."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon, metric, nd
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    label = "8h (a) resnet-50 bf16 NHWC s2d"
+    n, b = H_RESNET_BATCHES, H_RESNET_BATCH
+    loader = h_resnet_loader(torch, gluon, 31)
+    loss_fn = h_bench_loss(gluon, nd)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_8h_")
+    try:
+        # the bare loop: same function shape as the estimator's step
+        net_b = h_resnet(torch, ag, vision, "r50hb_")
+        tr_b = gluon.Trainer(net_b.collect_params(), "sgd",
+                             dict(RESNET_SGD))
+        def loss_and_pred(x, y):
+            pred = net_b(x)
+            return loss_fn(pred, y), pred
+        step_b = tr_b.compile_step(loss_and_pred)
+        t0 = time.monotonic()
+        for x, y in loader:
+            step_b(x, y)
+        torch.cuda.synchronize()
+        bare_first = time.monotonic() - t0
+        want = h_weights(net_b)
+        step_b.release()
+        del net_b, tr_b, step_b
+        torch.cuda.empty_cache()
+        # the estimator, from the same weights
+        net = h_resnet(torch, ag, vision, "r50ha_")
+        est = E.Estimator(
+            net, loss_fn,
+            train_metrics=[metric.Accuracy(), metric.TopKAccuracy(5)],
+            # the default copies type(m)() of each, and TopKAccuracy()
+            # refuses top_k=1 (the reference's Estimator does the same)
+            val_metrics=[metric.Accuracy(), metric.TopKAccuracy(5)],
+            trainer=gluon.Trainer(net.collect_params(), "sgd",
+                                  dict(RESNET_SGD)))
+        seen = []
+
+        class Recorder(E.BatchEnd):
+            priority = 0
+
+            def batch_end(self, est, *a, **kw):
+                loss = getattr(kw["loss"], "_data", kw["loss"])
+                seen.append((kw["pred"].float().cpu().numpy(),
+                             kw["label"].cpu().numpy(),
+                             loss.float().cpu().numpy()))
+        val = [next(iter(loader))]
+        handlers = [E.ValidationHandler(val, est.evaluate),
+                    E.CheckpointHandler(tmp, model_prefix="r50",
+                                        epoch_period=None, batch_period=2,
+                                        max_checkpoints=2),
+                    E.LoggingHandler(), Recorder()]
+        before, c0 = h_series(H_SERIES), kernels.capture_count()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        est.fit(loader, epochs=1, event_handlers=handlers,
+                compiled_step=True)
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        moved = h_delta(before, h_series(H_SERIES))
+        captures = kernels.capture_count() - c0
+        step = est._compiled_step_auto
+        differ = h_same_bits(torch, h_weights(net), want)
+        preds = np.concatenate([s[0] for s in seen])
+        labels = np.concatenate([s[1] for s in seen]).astype(np.int64)
+        acc = float((preds.argmax(1) == labels).mean())
+        top5 = float((np.argsort(preds, 1)[:, -5:] ==
+                      labels[:, None]).any(1).mean())
+        loss_mean = float(np.concatenate([s[2] for s in seen]).mean())
+        got = dict(est.train_metrics[0].get_name_value() +
+                   est.train_metrics[1].get_name_value() +
+                   est.train_loss_metric.get_name_value())
+        files = sorted(f for f in os.listdir(tmp) if f.endswith(".params"))
+        log(f"{label}: Estimator.fit over {n} batches of {b} from the "
+            f"loader ({fit_s:.2f}s with the validation pass, "
+            f"{len(files)} checkpoints kept: {files}); weights against the "
+            f"bare compile_step loop ({bare_first:.2f}s, cuDNN "
+            f"deterministic): {len(differ)} of {len(want)} differ; "
+            f"metrics {got} against numpy on the host copies: accuracy "
+            f"{acc}, top-5 {top5}, loss {loss_mean:.6f}; counters moved "
+            f"{moved['mxtpu_training_optimizer_steps_total']} steps, "
+            f"{moved['mxtpu_training_examples_total']} examples; captures "
+            f"{captures}; update launches {launches}")
+        check(step is not None and step.last_reason is None,
+              f"{label}: the compiled step fell back "
+              f"({None if step is None else step.last_reason})")
+        check(not differ, f"{label}: weights differ from the bare loop's: "
+              f"{differ[:5]}")
+        check(got["accuracy"] == acc and got["top_k_accuracy_5"] == top5,
+              f"{label}: metrics {got} against numpy {acc}, {top5}")
+        check(abs(got["train_loss"] - loss_mean) <= H_LOSS_REL_TOL *
+              abs(loss_mean), f"{label}: loss metric {got['train_loss']} "
+              f"against numpy {loss_mean}")
+        check(moved["mxtpu_training_optimizer_steps_total"] == n and
+              moved["mxtpu_training_examples_total"] == b * n,
+              f"{label}: counters moved {moved}")
+        check(captures == 1 and step.replays == n - 1,
+              f"{label}: {captures} captures, {step.replays} replays in "
+              f"{n} steps")
+        check(files == ["r50-batch4.params", "r50-batch6.params"],
+              f"{label}: checkpoint rotation kept {files}")
+        # in turns: the bare loop on the estimator's own step (its graph;
+        # no handlers, no metrics) against the estimator's epoch
+        c1 = kernels.capture_count()
+
+        def bare():
+            for _ in range(H_TURN_EPOCHS):
+                for x, y in loader:
+                    step(x, y)
+
+        def fitted():
+            est.fit(loader, epochs=H_TURN_EPOCHS, compiled_step=True,
+                    event_handlers=[E.LoggingHandler()])
+
+        def unread():
+            # the same loop with no metric: nothing reads the step's
+            # outputs back, so the host runs ahead of the card
+            est.fit(loader, epochs=H_TURN_EPOCHS, compiled_step=True,
+                    event_handlers=[E.LoggingHandler(), E.MetricHandler([])])
+        loops = {"bare": bare, "estimator": fitted, "no_metrics": unread}
+        walls = {k: [] for k in loops}
+        split = None
+        for r in range(H_TURNS):
+            for which in list(loops)[::1 if r % 2 == 0 else -1]:
+                before = h_series(H_SERIES)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                loops[which]()
+                torch.cuda.synchronize()
+                walls[which].append(time.monotonic() - t0)
+                if which == "estimator":
+                    split = h_delta(before, h_series(H_SERIES))
+        check(kernels.capture_count() == c1, f"{label}: a capture after "
+              "the first replay")
+        per_turn = n * H_TURN_EPOCHS
+        step_ms = {k: sorted(w / per_turn * 1e3 for w in v)
+                   for k, v in walls.items()}
+        bare_ms = float(np.median(step_ms["bare"]))
+        est_ms = float(np.median(step_ms["estimator"]))
+        unread_ms = float(np.median(step_ms["no_metrics"]))
+        steps = split["mxtpu_training_steps_total"]
+        comp = split["mxtpu_training_compute_seconds"]
+        wait = split["mxtpu_training_data_wait_seconds"]
+        x, y = val[0]
+        pred_loss = step(x, y)
+        read_ms = h_metric_read_ms(torch, est, pred_loss[1], y,
+                                   pred_loss[0])
+        idle_bare = h_profile(torch, lambda: [step(*xy) for xy, _ in zip(
+            loader, range(H_PROFILED))], H_PROFILED)
+        idle_est = h_profile(torch, lambda: est.fit(
+            loader, batches=H_PROFILED, event_handlers=[],
+            compiled_step=True), H_PROFILED)
+        row = {"bare_step_ms": bare_ms, "estimator_step_ms": est_ms,
+               "no_metrics_step_ms": unread_ms,
+               "bare_images_s": b / bare_ms * 1e3,
+               "estimator_images_s": b / est_ms * 1e3,
+               "reads_share": (est_ms - unread_ms) / bare_ms,
+               "compute_ms": comp[1] / max(1, comp[0]) * 1e3,
+               "data_wait_ms": wait[1] / max(1, wait[0]) * 1e3,
+               "timed_steps": steps, "metric_read_ms": read_ms,
+               "metric_read_share": read_ms / bare_ms,
+               "idle_bare": idle_bare, "idle_estimator": idle_est,
+               "step_ms_spread": {k: [round(v[0], 4), round(v[-1], 4)]
+                                  for k, v in step_ms.items()},
+               "walls_s": {k: [round(w, 4) for w in v]
+                           for k, v in walls.items()}}
+        spread = "; ".join(f"{k} {v[0]:.2f}..{v[-1]:.2f}"
+                           for k, v in step_ms.items())
+        log(f"{label} ({card}): {H_TURNS} rounds of turns of {per_turn} "
+            f"batches (bare, estimator, estimator without metrics, then "
+            f"reversed), medians: bare {bare_ms:.2f} ms a step "
+            f"({row['bare_images_s']:.1f} images/s), estimator "
+            f"{est_ms:.2f} ms ({row['estimator_images_s']:.1f} images/s), "
+            f"gap {est_ms - bare_ms:+.2f} ms, of which the metrics' reads "
+            f"{est_ms - unread_ms:+.2f} ms (the estimator without metrics "
+            f"{unread_ms:.2f} ms); ms a step from fastest to slowest turn: "
+            f"{spread}; StepTimer over the "
+            f"estimator's epoch: compute {row['compute_ms']:.2f} ms, data "
+            f"wait {row['data_wait_ms']:.2f} ms a step ({steps} steps); "
+            f"the metrics' own cost {read_ms:.2f} ms a batch "
+            f"({row['metric_read_share']:.3f} of the bare step); idle "
+            f"bare {idle_bare}, estimator {idle_est}")
+        log("8h row resnet: " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in row.items()}))
+        if row["reads_share"] > H_METRIC_READ_SHARE:
+            log(f"{label}: the metrics' host reads cost more than "
+                f"{H_METRIC_READ_SHARE:.0%} of the step "
+                f"({row['reads_share']:.3f})")
+        step.release()
+        del est, net, step, loader
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_h_bert(torch, rng, kernels, card, cfg=BERT_BASE, batch=BERT_BATCH,
+               seqlen=BERT_T, steps=H_BERT_STEPS):
+    """8h (b): BERT-base masked LM as phase 8 trains it (f32, dropout
+    0.1, Adam) through an ``Estimator`` subclass whose ``fit_batch``
+    passes the masked weights and valid lengths to a pre-built
+    ``trainer.compile_step`` (the reference's documented override):
+    ``steps`` batches, 12 launches of K6, K7a and K7b a step and one
+    update launch, falling loss, the weights bit for bit those of 8e
+    (c)'s bare compiled loop from the same weights and draw positions,
+    the loss metric the mean of the per-step losses. (c): ``mx.profiler``
+    around two more steps: the hand-written kernels in
+    ``dumps(lane='device')``, the estimator's epoch and the train step's
+    ranges on the host lane, ``rollup.summary``'s families summing to
+    the trace's device time. Returns the launch counts of (b)."""
+    import gzip
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch import gluon, nd, profiler
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.observability import rollup
+    from mxnet_tpu_torch.ops.flash_attention import KERNEL_NAMES
+    label = "8h (b) bert f32"
+    vocab, layers = cfg["vocab_size"], cfg["num_layers"]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    data = bert_batches(torch, rng, steps + 2, vocab, batch, seqlen, DEVICE)
+
+    def make():
+        net = make_bert_mlm(0.1, **cfg)
+        net.initialize(Xavier(), device=DEVICE,
+                       generator=torch.Generator().manual_seed(0))
+        with ag.pause():
+            mlm_loss(net, loss_fn, data[0], vocab)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": BERT_LR})
+        return net, tr, tr.compile_step(
+            lambda *d: mlm_loss(net, loss_fn, d, vocab), buckets=False)
+    # 8e (c)'s bare loop; dropout draws from torch's default generator
+    # (a capture registers it), the step's own draws from the process RNG
+    net_b, tr_b, step_b = make()
+    nd.random.seed(81)
+    torch.manual_seed(81)
+    bare = [step_b(*data[0])]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    bare += [step_b(*d) for d in data[1:steps]]
+    torch.cuda.synchronize()
+    bare_ms = (time.monotonic() - t0) / (steps - 1) * 1e3
+    bare = [float(v) for v in bare]
+    want = h_weights(net_b)
+    step_b.release()
+    del net_b, tr_b, step_b
+    torch.cuda.empty_cache()
+    net, tr, step = make()
+
+    class MLMEstimator(E.Estimator):
+        """``fit_batch`` over the pre-built compiled step: the batch's
+        masked weights and valid lengths go with it."""
+
+        def fit_batch(self, batch):
+            loss = step(*batch)
+            self._step_applied = True
+            return batch[0], batch[1], None, loss
+    est = MLMEstimator(net, loss_fn, trainer=tr)
+    losses, ends = [], []
+
+    class Losses(E.BatchEnd):
+        priority = 0
+
+        def batch_end(self, est, *a, **kw):
+            losses.append(float(kw["loss"]))
+            ends.append(time.monotonic())
+    nd.random.seed(81)
+    torch.manual_seed(81)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    est.fit(data[:steps], epochs=1, event_handlers=[Losses()])
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    differ = h_same_bits(torch, h_weights(net), want)
+    metric_loss = est.train_loss_metric.get()[1]
+    est_ms = (ends[-1] - ends[0]) / (steps - 1) * 1e3
+    log(f"{label} ({card}): steps 2-{steps}: the bare loop {bare_ms:.2f} ms "
+        f"a step ({batch * seqlen / bare_ms * 1e3:.0f} tokens/s), the "
+        f"estimator {est_ms:.2f} ms ({batch * seqlen / est_ms * 1e3:.0f} "
+        f"tokens/s; its loss metric reads each step's loss back)")
+    log(f"{label}: Estimator.fit over {steps} batches of {batch} x "
+        f"{seqlen} through the pre-built compiled step in {fit_s:.2f}s: "
+        "losses " + " ".join(f"{v:.4f}" for v in losses) + f" (bare loop "
+        + " ".join(f"{v:.4f}" for v in bare) + f"); weights against the "
+        f"bare loop: {len(differ)} of {len(want)} differ; loss metric "
+        f"{metric_loss:.6f} against the mean {np.mean(losses):.6f}; "
+        f"launches {launches}")
+    check(step.last_reason is None and step.replays == steps - 1,
+          f"{label}: reason {step.last_reason}, {step.replays} replays")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: losses {losses}")
+    for name in KERNEL_NAMES:
+        check(launches.get(name, 0) == layers * steps, f"{label}: {name} "
+              f"launched {launches.get(name, 0)} times in {steps} steps")
+    check(launches.get("adam_update", 0) == steps, f"{label}: adam_update "
+          f"launched {launches.get('adam_update', 0)} times")
+    check(not differ, f"{label}: weights differ from the bare loop's: "
+          f"{differ[:5]}")
+    check(losses == bare, f"{label}: losses {losses} against the bare "
+          f"loop's {bare}")
+    check(abs(metric_loss - np.mean(losses)) <= H_LOSS_REL_TOL *
+          abs(np.mean(losses)), f"{label}: loss metric {metric_loss}")
+    # (c) mx.profiler around two steps
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_8h_prof_")
+    try:
+        profiler.set_config(filename=os.path.join(tmp, "prof"))
+        profiler.set_state("run")
+        est.fit(data[steps:steps + 2], epochs=1, event_handlers=[])
+        torch.cuda.synchronize()
+        profiler.set_state("stop")
+        dev = profiler.dumps(format_="dict", lane="device")
+        both = profiler.dumps(format_="dict", lane="both")
+        trace = rollup.find_trace(os.path.join(tmp, "prof"))
+        with gzip.open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        ranges = {e["name"] for e in events if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation"}
+        summ = rollup.summary(trace, steps=2, top=10 ** 6)
+        fam_us = sum(f["ms_per_step"] for f in summ["families"]) * 2 * 1e3
+        fam, total = rollup.rollup(trace)
+        dev_us = both["device"]["total_us"]
+        mine = {k: [key for key, (us, _) in dev.items() if k in key and
+                    us > 0] for k in ("flash_fwd_kernel", "flash_dkv_kernel",
+                                      "flash_dq_kernel",
+                                      "multi_update_kernel")}
+        log(f"8h (c) ({card}): mx.profiler over two estimator steps: "
+            f"device {dev_us / 1e3:.2f} ms ({dev_us / 2e3:.2f} a step), "
+            f"the families sum to {fam_us / 1e3:.2f} ms; hand-written "
+            f"kernels on the device lane {sorted(k for k, v in mine.items() if v)}; "
+            f"host ranges mxtpu.estimator.epoch "
+            f"{'mxtpu.estimator.epoch' in ranges}, mxtpu.train_step "
+            f"{'mxtpu.train_step' in ranges}")
+        for line in rollup.family_table(fam, total, steps=2,
+                                        top=8).splitlines():
+            log(f"8h (c): {line}")
+        for name, (us, cnt) in sorted(dev.items(),
+                                      key=lambda kv: -kv[1][0])[:6]:
+            log(f"8h (c): dumps {us / 1e3:9.3f} ms x{cnt:<5d} {name[:80]}")
+        check(all(mine.values()), f"8h (c): hand-written kernels missing "
+              f"from the device lane: {mine}")
+        check({"mxtpu.estimator.epoch", "mxtpu.train_step"} <= ranges,
+              "8h (c): the estimator's epoch or the train step's range is "
+              "not on the host lane")
+        check(abs(fam_us - dev_us) <= 0.01 * dev_us, f"8h (c): the "
+              f"families sum to {fam_us} us, the trace's device time is "
+              f"{dev_us} us")
+    finally:
+        profiler.set_state("stop")
+        shutil.rmtree(tmp, ignore_errors=True)
+    step.release()
+    del est, net, tr, step, data
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_h_slo(torch, kernels, card):
+    """8h (d): a serving burst of ``H_BURST_S`` seconds on an f32
+    ``ModelServer`` on the card (a two-layer MLP of ``H_SERVE_UNITS``,
+    one CUDA graph a bucket) with one request in 250 expired at submit; a
+    ``TimeSeriesRing`` samples the registry every ``H_SAMPLE_S``, an
+    ``SLOEngine`` evaluates a latency SLO and an availability SLO,
+    ``capacity.build_report(..., chips=1)`` derives the rates. Checks:
+    the report's rates equal the counters' deltas read at the window's
+    quiet ends, the report names the card, ``compile_count()`` equals the
+    counter and the counter the builds and captures since the process
+    began."""
+    import threading
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.observability import (SLO, SLOEngine,
+                                               STATUS_PAGE, STATUS_WARN,
+                                               TimeSeriesRing, capacity,
+                                               compilemon, get_registry)
+    from mxnet_tpu_torch.serving import telemetry
+    u = H_SERVE_UNITS
+    block = nn.HybridSequential(prefix="h_slo_")
+    with block.name_scope():
+        block.add(nn.Dense(4 * u, activation="relu", in_units=u),
+                  nn.Dense(u, in_units=4 * u))
+    block.initialize(Xavier(), device=DEVICE,
+                     generator=torch.Generator().manual_seed(0))
+    server = serving.ModelServer(block, buckets=list(H_SERVE_BUCKETS),
+                                 max_delay_ms=2.0, item_shape=(u,),
+                                 dtype="float32", name="h-slo").start()
+    server.warmup()
+    name = server._stats.server_label
+    reg = get_registry()
+    served = reg.get("mxtpu_serving_requests_completed_total").labels(
+        server=name)
+    views = (telemetry.compile_count(), compilemon.compile_count(),
+             kernels.build_count() + kernels.capture_count())
+    ring = TimeSeriesRing(reg, capacity=128)
+    x = np.random.RandomState(5).randn(64, u).astype(np.float32)
+    futs, expired, stop = [], [0], threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            if i % 250 == 249:
+                try:
+                    server.submit(x[i % 64], deadline_ms=0)
+                except serving.DeadlineExceededError:
+                    expired[0] += 1
+            else:
+                futs.append(server.submit(x[i % 64]))
+            i += 1
+            time.sleep(0.001)
+    t_first = time.monotonic()
+    v_first = served.value
+    ring.record(now=t_first)
+    th = threading.Thread(target=client)
+    th.start()
+    end = t_first + H_BURST_S
+    while time.monotonic() < end - H_SAMPLE_S:
+        time.sleep(H_SAMPLE_S)
+        ring.record()
+    stop.set()
+    th.join()
+    for f in futs:
+        f.result(timeout=60)
+    server.shutdown()      # the worker has counted every batch it served
+    t_last = time.monotonic()
+    v_last = served.value
+    ring.record(now=t_last)
+    lat = SLO.latency("h_latency", threshold_ms=25.0, target=0.99,
+                      labels={"server": name})
+    avail = SLO.serving_availability("h_availability", name, target=0.99)
+    eng = SLOEngine([lat, avail], ring, windows=[
+        (4.0, 1.0, 14.4, STATUS_PAGE), (8.0, 2.0, 6.0, STATUS_WARN)])
+    reports = eng.evaluate()
+    rec = capacity.build_report(ring, reports, [("serving", name, lat)],
+                                chips=1)
+    fe = rec["frontends"][0]
+    want_qps = (v_last - v_first) / (t_last - t_first)
+    p99 = ring.percentile_over("mxtpu_serving_latency_seconds", 99,
+                               {"server": name})
+    log(f"8h (d) ({card}): {len(futs)} requests served and {expired[0]} "
+        f"expired at submit in {t_last - t_first:.2f}s, {len(ring)} "
+        f"snapshots; served {fe['served_qps']:.2f}/s (the counter's delta "
+        f"{want_qps:.2f}/s), good {fe['good_qps']:.2f}/s, expired "
+        f"{fe['expired_qps']:.2f}/s, windowed p99 "
+        f"{'not measured' if p99 is None else f'{p99 * 1e3:.2f} ms'}; "
+        + "; ".join(f"{k}: attainment {r['attainment']:.4f}, status "
+                    f"{r['status_name']}, burn {r['burn_rates']}"
+                    for k, r in reports.items())
+        + f"; capacity {rec['value']} chips per 1M users at "
+        f"{rec['user_model']}, device {rec['device']!r}; compile count "
+        f"{views}")
+    log("8h row capacity: " + json.dumps(
+        {k: rec[k] for k in ("metric", "value", "slo_attained", "chips",
+                             "device", "window_s", "snapshots")}
+        | {"served_qps": fe["served_qps"], "good_qps": fe["good_qps"]}))
+    check(abs(fe["served_qps"] - want_qps) <= 1e-9 * max(1.0, want_qps),
+          f"8h (d): served_qps {fe['served_qps']} against the counter's "
+          f"delta {want_qps}")
+    check(v_last - v_first == len(futs), f"8h (d): the counter moved "
+          f"{v_last - v_first} for {len(futs)} served requests")
+    check(rec["device"] == torch.cuda.get_device_name(0),
+          f"8h (d): the report names {rec['device']!r}")
+    check(views[0] == views[1] == views[2], f"8h (d): compile_count(), "
+          f"the counter and builds + captures differ: {views}")
+    check(reports["h_availability"]["total"] > 0 and
+          reports["h_availability"]["good"] == len(futs),
+          f"8h (d): availability report {reports['h_availability']}")
+
+
+def run_estimator_phase(torch, rng, kernels, card):
+    """Phase 8h, the estimator and its telemetry: (a) ResNet-50 through
+    ``Estimator.fit(compiled_step=True)``, (b) BERT-base through an
+    Estimator subclass over a pre-built compiled step, (c) ``mx.profiler``
+    and the rollup around two of its steps, (d) SLOs and capacity over a
+    serving burst. Returns the launch counts of (a) and (b)."""
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    t0 = time.monotonic()
+    add(run_h_resnet(torch, kernels, card))
+    log(f"time: 8h (a) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    add(run_h_bert(torch, rng, kernels, card))
+    log(f"time: 8h (b)-(c) {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    run_h_slo(torch, kernels, card)
+    torch.cuda.empty_cache()
+    log(f"time: 8h (d) {time.monotonic() - t0:.1f}s")
+    return launches
+
+
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
 
 
@@ -10423,6 +11084,12 @@ def main():
     # tier, the losses and cells on the card (its own generator, as 5b)
     add(run_gluon_rest_phase(torch, np.random.RandomState(30), kernels))
     lap("8g rest of gluon")
+    # 8h. the estimator and its telemetry: ResNet-50 and BERT-base through
+    # Estimator.fit, mx.profiler and the rollup, SLOs and capacity over a
+    # serving burst (its own generator, as 5b)
+    add(run_estimator_phase(torch, np.random.RandomState(32), kernels,
+                            card))
+    lap("8h estimator and telemetry")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -83,11 +83,12 @@ __all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc",
 # ported raise AttributeError naming their ROADMAP.md item.
 _LAZY_MODULES = ("gluon", "optimizer", "initializer", "lr_scheduler",
                  "amp", "contrib", "error", "rtc", "deploy", "resilience",
-                 "serving", "observability", "jit", "kvstore")
+                 "serving", "observability", "jit", "kvstore",
+                 "metric", "profiler", "callback", "monitor")
 _NOT_PORTED = {name: "§1 item 14" for name in (
-    "numpy", "numpy_extension", "symbol", "module", "metric", "io",
-    "image", "parallel", "profiler", "callback", "test_utils",
-    "util", "runtime", "recordio", "executor", "monitor", "model",
+    "numpy", "numpy_extension", "symbol", "module", "io",
+    "image", "parallel", "test_utils",
+    "util", "runtime", "recordio", "executor", "model",
     "operator", "onnx", "native", "library", "visualization", "engine",
     "attribute", "name", "rnn")}
 _ALIAS = {"np": "numpy", "npx": "numpy_extension", "sym": "symbol",

@@ -26,6 +26,10 @@ structural path (``features.0.weight``: attribute names and child
 indices, :meth:`Block._collect_params_with_prefix`) in ``nd.save``'s
 container, so a file written by either package loads into the other's
 block of the same structure.
+
+While ``mx.profiler`` captures with scopes on (``profiler.scopes_enabled``),
+each block call runs inside a ``torch.profiler.record_function`` range
+named after the block; off, the check is one flag read.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import profiler as _profiler
 from ..ndarray.ndarray import NDArray, unwrap
 from ..ops import nn as _nn
 from .parameter import DeferredInitializationError, Parameter, \
@@ -127,6 +132,15 @@ def _name_counter(hint):
     return f"{hint}{count}"
 
 
+def _profiled(call, name):
+    """``call`` inside a ``torch.profiler.record_function`` range named
+    ``name`` (the reference's ``jax.named_scope`` of a block)."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return call(*args, **kwargs)
+    return run
+
+
 class Block(torch.nn.Module):
     """Base building block: named parameters in ``self.params``, child
     blocks as ``nn.Module`` children, ``collect_params`` over the tree."""
@@ -156,6 +170,9 @@ class Block(torch.nn.Module):
         # NDArrays are unwrapped once, here: blocks compute on tensors
         args, kwargs = unwrap(args), unwrap(kwargs)
         call = self._forward_call()
+        if _profiler._scopes_enabled:
+            # a profiler capture: each block's forward is a named range
+            call = _profiled(call, self.name or type(self).__name__)
         if not (self._gluon_pre_hooks or self._gluon_hooks):
             return call(*args, **kwargs)
         # hooks see every input: keyword inputs appended as a dict

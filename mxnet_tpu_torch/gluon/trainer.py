@@ -12,6 +12,15 @@ every parameter with a gradient), ``MXNET_TPU_FUSED_UPDATE=0`` and the
 other fallbacks of ``optimizer/fused.py``; ``fused.fallbacks`` counts
 them by reason.
 
+Each step opens a ``mxtpu.trainer.step`` span and reports the
+reference's training series on the registry (``_obs_metrics``):
+``mxtpu_training_optimizer_steps_total``, ``..._optimizer_step_seconds``
+and ``mxtpu_training_examples_total``; the update's
+``mxtpu_trainer_update_dispatch_total``, ``..._fused_total`` (the fused
+kernel's launches) and ``..._fallback_total{reason}``; under
+``MXNET_TPU_METRICS_GRAD_NORM=1`` the gauge ``mxtpu_training_grad_norm``
+(a host read of every gradient, so off by default).
+
 The store (``kvstore=``, ``compression_params=``, ``update_on_kvstore=``,
 the reference's arguments) is made at the first step, as the
 reference's: on one device ``"device"``, ``"local"``, ``None``, ``""``
@@ -42,7 +51,9 @@ formats), for a bit-exact resume after a restart.
 """
 from __future__ import annotations
 
+import os
 import pickle
+import time
 import weakref
 
 import numpy as np
@@ -50,6 +61,8 @@ import torch
 
 from .. import _rng
 from .. import optimizer as opt
+from ..observability.registry import get_registry
+from ..observability.tracing import get_tracer
 from ..resilience import async_writer as _aw
 from ..resilience import checkpoint as _ckpt
 from ..resilience import faults
@@ -108,6 +121,7 @@ class Trainer:
                                          **optimizer_params)
         self._updaters = [opt.get_updater(self._optimizer)]
         self._fused = None
+        self._obs = None
 
     def _init_kvstore(self):
         """Make the store (at the first step, as the reference's)."""
@@ -147,6 +161,59 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+
+    def _obs_metrics(self):
+        """The training series on the registry, under the reference's
+        names, help texts and labels (the compiled step reports the
+        first three too)."""
+        if self._obs is None:
+            reg = get_registry()
+            self._obs = {
+                "steps": reg.counter(
+                    "mxtpu_training_optimizer_steps_total",
+                    "Trainer.step calls (allreduce + update)."),
+                "secs": reg.histogram(
+                    "mxtpu_training_optimizer_step_seconds",
+                    "Time inside Trainer.step (allreduce + update)."),
+                "examples": reg.counter(
+                    "mxtpu_training_examples_total",
+                    "Examples processed (sum of Trainer.step "
+                    "batch sizes)."),
+                "grad_norm": reg.gauge(
+                    "mxtpu_training_grad_norm",
+                    "Global L2 gradient norm of the last step "
+                    "(MXNET_TPU_METRICS_GRAD_NORM=1 only; costs a "
+                    "host sync)."),
+                "want_grad_norm": os.environ.get(
+                    "MXNET_TPU_METRICS_GRAD_NORM") == "1",
+                "upd_dispatch": reg.counter(
+                    "mxtpu_trainer_update_dispatch_total",
+                    "Compiled optimizer-update program launches "
+                    "(fused path: 1 per step regardless of parameter "
+                    "count)."),
+                "upd_fused": reg.counter(
+                    "mxtpu_trainer_update_fused_total",
+                    "Trainer.step updates applied as one fused, "
+                    "buffer-donating dispatch."),
+                "upd_fallback": reg.counter(
+                    "mxtpu_trainer_update_fallback_total",
+                    "Trainer.step updates that ran the per-param loop, "
+                    "by reason.", ("reason",)),
+            }
+        return self._obs
+
+    def _observe_grad_norm(self, obs):
+        """The global L2 norm of the gradients, summed in float64 on the
+        host (opt-in: it reads every gradient back, a device sync)."""
+        total = 0.0
+        for param in self._params:
+            if param.grad_req == "null" or param._data is None:
+                continue
+            g = param.grad()
+            g = getattr(g, "_data", g)      # a RowSparseNDArray densifies
+            a = g.detach().to("cpu", torch.float64).numpy()
+            total += float((a * a).sum())
+        obs["grad_norm"].set(total ** 0.5)
 
     def _fused_updater(self):
         if self._fused is None:
@@ -190,9 +257,21 @@ class Trainer:
         ``1 / batch_size`` (allreduce + update)."""
         if not self._kv_initialized:
             self._init_kvstore()
-        self._optimizer.rescale_grad = self._scale / batch_size
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        obs = self._obs_metrics()
+        t0 = time.monotonic()
+        with get_tracer().span("mxtpu.trainer.step", "step", None, None,
+                               self._step_count):
+            self._optimizer.rescale_grad = self._scale / batch_size
+            self._allreduce_grads()
+            if obs["want_grad_norm"]:
+                try:
+                    self._observe_grad_norm(obs)
+                except Exception:
+                    pass
+            self._update(ignore_stale_grad)
+        obs["secs"].observe(time.monotonic() - t0)
+        obs["steps"].inc()
+        obs["examples"].inc(batch_size)
         self._step_count += 1
         _aw.note_step_overlap()
         faults.on_step(self._step_count)
@@ -238,18 +317,25 @@ class Trainer:
                     continue
                 self._kvstore.pull(i, param.list_data(), priority=-i)
             return
+        obs = self._obs_metrics()
         fused = self._fused_updater()
         reason = fused.why_ineligible(self._params, ignore_stale_grad)
         if reason is None:
             if fused.step(self._params):
+                obs["upd_dispatch"].inc(fused.last_dispatches)
+                obs["upd_fused"].inc(fused.last_dispatches)
                 return
             reason = fused.last_fallback_reason
         fused.fallbacks[reason] += 1
+        obs["upd_fallback"].labels(reason=reason).inc()
         updater = self._updaters[0]
+        dispatches = 0
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or param._data is None:
                 continue
             updater(i, param.grad(), param.data())
+            dispatches += 1
+        obs["upd_dispatch"].inc(dispatches)
 
     def save_states(self, fname):
         """Write the optimizer's states (numpy arrays, see

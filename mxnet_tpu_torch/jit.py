@@ -321,13 +321,14 @@ class CompiledTrainStep:
         if not tr._kv_initialized:
             tr._init_kvstore()       # a store falls back with "kvstore"
         obs = self._obs_metrics()
+        t0 = time.monotonic()
         with _tracer().span("mxtpu.train_step", "step", None, None,
                             tr._step_count):
             reason = self._why_ineligible()
             if reason is not None:
                 return self._eager_step(args, reason)
             try:
-                return self._compiled_step(args, obs)
+                return self._compiled_step(args, obs, t0)
             except _Fallback as e:
                 if e.reason == "scalar_loss_bucketed":
                     # a pre-reduced loss cannot be pad-corrected: drop
@@ -335,7 +336,7 @@ class CompiledTrainStep:
                     # retry once
                     self._buckets = None
                     try:
-                        return self._compiled_step(args, obs)
+                        return self._compiled_step(args, obs, t0)
                     except _Fallback as e2:
                         e = e2
                 if e.reason in _STICKY_REASONS:
@@ -343,7 +344,7 @@ class CompiledTrainStep:
                 return self._eager_step(args, e.reason)
 
     # ---------------------------------------------------- the fast path --
-    def _compiled_step(self, args, obs):
+    def _compiled_step(self, args, obs, t0):
         from . import autograd
         from .ops import invoke as _invoke
         from .optimizer import fused as _fused
@@ -460,6 +461,12 @@ class CompiledTrainStep:
         if bucket != n:
             obs["padded_rows"].inc(bucket - n)
         if not overflow:
+            # the trainer's series, written on the host after the replay
+            # (an overflow skip records nothing, as the eager amp step)
+            tobs = tr._obs_metrics()
+            tobs["secs"].observe(time.monotonic() - t0)
+            tobs["steps"].inc()
+            tobs["examples"].inc(n)
             from .resilience import async_writer as _aw
             from .resilience import faults
             _aw.note_step_overlap()

@@ -12,7 +12,9 @@ front.
 
 Process-wide counters: :func:`build_count` counts library builds and
 loads and :func:`capture_count` CUDA graph captures (together the port's
-``compile_count``; neither may move after an engine's ``warmup()``), and
+``compile_count``; neither may move after an engine's ``warmup()``; each
+also reports to ``mxtpu_xla_compile_total`` with its seconds,
+``observability/compilemon.py``), and
 :func:`launch_counts` counts kernel launches per kernel, incremented by
 each wrapper where it launches its kernel and nowhere else.
 
@@ -33,6 +35,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from .observability import compilemon
 
 __all__ = ["SOURCES", "build_all", "library", "rtc_library",
            "launch_counts", "reset_launch_counts", "count_launch",
@@ -200,7 +204,10 @@ def _wait(name, started, out):
     return False
 
 
-def _load(name, out, entries):
+def _load(name, out, entries, built):
+    """Load the library at ``out``; ``built`` says whether nvcc just made
+    it (else it was found prebuilt in ``_build/``, a cache hit)."""
+    t0 = time.monotonic()
     lib = ctypes.CDLL(out)
     for fn, argtypes in entries.items():
         f = getattr(lib, fn)
@@ -208,6 +215,10 @@ def _load(name, out, entries):
         f.restype = ctypes.c_int
     _libs[name] = lib
     _builds[0] += 1
+    seconds = time.monotonic() - t0
+    compilemon.note_compile(
+        seconds + (build_seconds[name] if built else 0.0),
+        cache_hit=not built)
     return lib
 
 
@@ -225,8 +236,8 @@ def build_all():
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"csrc/{n}.cu:\n{build_logs[n]}" for n in failed))
-        for name, _, out in started:
-            _load(name, out, SOURCES[name])
+        for name, st, out in started:
+            _load(name, out, SOURCES[name], st is not None)
         return todo
 
 
@@ -238,10 +249,11 @@ def library(name):
     with _lock:
         if name not in _libs:
             src, out = _target(name)
-            if _wait(name, _start(src, out), out):
+            started = _start(src, out)
+            if _wait(name, started, out):
                 raise RuntimeError(
                     f"nvcc failed on csrc/{name}.cu:\n{build_logs[name]}")
-            _load(name, out, SOURCES[name])
+            _load(name, out, SOURCES[name], started is not None)
         return _libs[name]
 
 
@@ -289,11 +301,12 @@ def rtc_library(source, kernel_name):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 with open(src, "w") as f:
                     f.write(text)
-            if _wait(name, _start(src, out), out):
+            started = _start(src, out)
+            if _wait(name, started, out):
                 raise RuntimeError(
                     f"nvcc failed on the source of {kernel_name}:\n"
                     f"{build_logs[name]}")
-            _load(name, out, _RTC_ENTRIES)
+            _load(name, out, _RTC_ENTRIES, started is not None)
         return _libs[name]
 
 
@@ -362,6 +375,7 @@ def capture(fn, stream, pool=None, what="the function", warmed=False,
     stay where they are: the graph replays on their addresses. A failed
     warm run or capture raises :class:`CaptureError` naming ``what``."""
     import torch
+    t0 = time.monotonic()
     if not warmed:
         warm(fn, stream, what)
     graph = torch.cuda.CUDAGraph()
@@ -389,6 +403,7 @@ def capture(fn, stream, pool=None, what="the function", warmed=False,
         _stream_tallies.pop(handle, None)
     with _lock:
         _captures[0] += 1
+    compilemon.note_compile(time.monotonic() - t0)
     return CapturedGraph(graph, tally)
 
 

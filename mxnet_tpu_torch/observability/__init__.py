@@ -17,21 +17,41 @@
   decisions, atomic post-mortem bundles (``tools/flight_inspect.py``
   reads them) and the ``debug_status()`` surface of registered
   servers; :mod:`.exemplars` joins histogram buckets back to requests.
-
-Not ported yet (ROADMAP.md §1 item 14): ``steptimer``, ``timeseries``,
-``slo``, ``capacity``, ``rollup``, and ``jaxmon`` (whose counterpart,
-the compile count, is ``mxnet_tpu_torch.serving.telemetry``).
+- :mod:`.steptimer` (:class:`StepTimer`) — a training step's wall time
+  split into input wait and compute (``mxtpu_training_*``; the
+  estimator's ``StepTimerHandler`` drives it); ``gluon.Trainer`` and the
+  compiled step report the optimizer-step series beside it.
+- :mod:`.compilemon` — the counterpart of the reference's ``jaxmon``:
+  kernel builds and loads and CUDA-graph captures on
+  ``mxtpu_xla_compile_*`` (:func:`compile_count`,
+  :func:`install_jax_monitoring_bridge`).
+- :mod:`.timeseries` (:class:`TimeSeriesRing`) — a bounded ring of
+  registry snapshots with windowed ``rate()``/percentile queries;
+  :mod:`.slo` (:class:`SLO`, :class:`SLOEngine`) evaluates latency /
+  TTFT / availability objectives off it with multi-window burn rates
+  (``mxtpu_slo_*``; a page/breach transition dumps a flight bundle);
+  :mod:`.capacity` turns a window into the chips-per-M-users report.
+- :mod:`.rollup` — per-kernel-family device time of an ``mx.profiler``
+  capture.
 """
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        DEFAULT_TIME_BUCKETS, get_registry)
+from .steptimer import StepTimer
+from .compilemon import compile_count, install_jax_monitoring_bridge
 from .tracing import Span, Tracer, get_tracer, validate_chrome_trace
+from .timeseries import TimeSeriesRing
+from .slo import (SLO, SLOEngine, STATUS_OK, STATUS_WARN, STATUS_PAGE,
+                  STATUS_BREACH)
 from .flightrecorder import (FlightRecorder, get_flightrecorder,
                              flight_ring_capacity, flight_triggers)
 from .exemplars import EXEMPLARS_PER_BUCKET
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "DEFAULT_TIME_BUCKETS", "get_registry",
+           "DEFAULT_TIME_BUCKETS", "get_registry", "StepTimer",
+           "compile_count", "install_jax_monitoring_bridge",
            "Span", "Tracer", "get_tracer", "validate_chrome_trace",
+           "TimeSeriesRing", "SLO", "SLOEngine", "STATUS_OK",
+           "STATUS_WARN", "STATUS_PAGE", "STATUS_BREACH",
            "FlightRecorder", "get_flightrecorder",
            "flight_ring_capacity", "flight_triggers",
            "EXEMPLARS_PER_BUCKET"]

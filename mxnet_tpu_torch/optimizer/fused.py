@@ -71,6 +71,7 @@ import os
 
 import numpy as np
 
+from ..observability.tracing import get_tracer
 from ..ops import invoke as _invoke
 from ..ops import optimizer_ops as _ops
 from . import optimizer as _opt
@@ -432,11 +433,12 @@ class FusedUpdater:
         if r is False:
             return False
         prog = r.prog
-        if r.weights[0].device.type == "cpu":
-            prog.apply_twin(r.bufs, r.rec.params)
-        else:
-            self.tables_built += prog.bind(r.bufs, r.layout)
-            prog.rows.write(prog.scalar_rows(r.rec.params, r.grads))
-            prog.launch()
+        with get_tracer().span("mxtpu.fused_update.dispatch", "step"):
+            if r.weights[0].device.type == "cpu":
+                prog.apply_twin(r.bufs, r.rec.params)
+            else:
+                self.tables_built += prog.bind(r.bufs, r.layout)
+                prog.rows.write(prog.scalar_rows(r.rec.params, r.grads))
+                prog.launch()
         self.last_dispatches = len(prog.groups)
         return True

@@ -6,7 +6,8 @@ the compile count and the series every serving front end shares, on the
 - :func:`compile_count` / :class:`CompileCounter` — kernel library builds
   and loads (:func:`mxnet_tpu_torch.kernels.build_count`) plus CUDA graph
   captures (:func:`mxnet_tpu_torch.kernels.capture_count`) in this
-  process, as the reference's count of XLA compiles; the serving
+  process, read from ``mxtpu_xla_compile_total``, as the reference's
+  count of XLA compiles; the serving
   contract is that it does not move after ``warmup()``.
 - :class:`ServingStats` — the single-shot ``ModelServer``'s counters and
   bounded fixed-edge latency histograms; ``snapshot()`` returns queue
@@ -27,7 +28,7 @@ import threading
 import time
 import weakref
 
-from .. import kernels
+from ..observability import compilemon as _compilemon
 from ..observability import get_registry
 from ..observability.registry import DEFAULT_TIME_BUCKETS
 
@@ -36,8 +37,10 @@ __all__ = ["compile_count", "CompileCounter", "ServingStats", "EventLog",
 
 
 def compile_count():
-    """Kernel builds and loads plus graph captures in this process."""
-    return kernels.build_count() + kernels.capture_count()
+    """Kernel builds and loads plus graph captures in this process: a
+    view over ``mxtpu_xla_compile_total`` (``observability/
+    compilemon.py``), as the reference's is over its compile counter."""
+    return _compilemon.compile_count()
 
 
 class CompileCounter:

@@ -3629,3 +3629,110 @@ def test_ssd_step_on_the_card_matches_cpu(cuda):
     assert det.shape[0] == 8 and det.shape[-1] == 6
     live = det[det[..., 0] >= 0]
     assert ((live[:, 1] >= 0) & (live[:, 1] <= 1)).all()
+
+
+@pytest.mark.cuda
+def test_profiler_device_lane_holds_a_flash_forward(cuda, tmp_path,
+                                                    monkeypatch):
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.observability import rollup
+    monkeypatch.setitem(profiler._config, "filename", str(tmp_path / "p"))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 4, 256, 64, generator=g, device=cuda)
+               for _ in range(3))
+    tfa.flash_attention(q, k, v)                 # built outside the capture
+    torch.cuda.synchronize()
+    profiler.set_state("run")
+    tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    profiler.set_state("stop")
+    dev = profiler.dumps(format_="dict", lane="device")
+    fwd = [us for name, (us, _) in dev.items() if "flash_fwd_kernel" in name]
+    assert fwd and fwd[0] > 0, sorted(dev)
+    assert profiler.dumps().splitlines()[0].startswith("Name")
+    fam, total = rollup.rollup(str(tmp_path / "p"))
+    assert fam["flash_fwd"] > 0 and total >= fam["flash_fwd"]
+
+
+@pytest.mark.cuda
+def test_compile_count_reads_the_counter_after_a_capture(cuda):
+    from mxnet_tpu_torch.observability import compilemon, get_registry
+    from mxnet_tpu_torch.serving import telemetry
+    x = torch.ones(64, device=cuda)
+    out = torch.empty_like(x)
+    reg = get_registry()
+    c0 = compilemon.compile_count()
+    s0 = reg.histogram("mxtpu_xla_compile_seconds").count
+    b0 = kernels.build_count() + kernels.capture_count()
+    graph = kernels.capture(lambda: out.copy_(x * 2), torch.cuda.Stream(),
+                            what="a doubling")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool((out == 2).all())
+    assert compilemon.compile_count() - c0 == 1
+    assert kernels.build_count() + kernels.capture_count() - b0 == 1
+    assert reg.histogram("mxtpu_xla_compile_seconds").count - s0 == 1
+    # the registry's counter restarts with the registry, the kernels'
+    # counts with the process: the views agree on what moved
+    assert telemetry.compile_count() == compilemon.compile_count()
+
+
+@pytest.mark.cuda
+def test_estimator_compiled_fit_matches_a_bare_compiled_loop(cuda):
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+    rs = np.random.RandomState(0)
+    batches = [(torch.from_numpy(rs.randn(16, 8).astype(np.float32))
+                .to(cuda), torch.from_numpy(rs.randint(0, 3, 16).astype(
+                    np.float32)).to(cuda)) for _ in range(4)]
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+
+    def build(prefix):
+        net = nn.HybridSequential(prefix=prefix)
+        with net.name_scope():
+            net.add(nn.Dense(32, activation="relu", in_units=8),
+                    nn.Dense(3, in_units=32))
+        net.initialize(device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+        tr = tgluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+        return net, tr
+    net_b, tr_b = build("estb_")
+
+    def loss_and_pred(x, y):
+        pred = net_b(x)
+        return loss_fn(pred, y), pred
+    step = tr_b.compile_step(loss_and_pred)
+    for x, y in batches:
+        step(x, y)
+    net, tr = build("esta_")
+    est = Estimator(net, loss_fn, train_metrics=[metric.Accuracy()],
+                    trainer=tr)
+    c0 = kernels.capture_count()
+    est.fit(batches, epochs=1, compiled_step=True)
+    torch.cuda.synchronize()
+    assert est._compiled_step_auto.replays == len(batches) - 1
+    assert kernels.capture_count() - c0 == 1
+    for (_, a), (_, b) in zip(sorted(net.collect_params().items()),
+                              sorted(net_b.collect_params().items())):
+        assert torch.equal(a.data(), b.data())
+    assert 0.0 <= est.train_metrics[0].get()[1] <= 1.0
+
+
+@pytest.mark.cuda
+def test_metrics_on_bf16_cuda_tensors_equal_f32(cuda):
+    from mxnet_tpu_torch import metric
+    rs = np.random.RandomState(3)
+    label = torch.from_numpy(rs.randint(0, 10, 64).astype(np.float32))
+    pred16 = torch.from_numpy(rs.uniform(0.01, 1, (64, 10)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    pred32 = pred16.float()
+    for make in (metric.Accuracy, lambda: metric.TopKAccuracy(3),
+                 metric.CrossEntropy, metric.MAE):
+        a, b = make(), make()
+        lab = label if not isinstance(a, metric.MAE) else \
+            torch.from_numpy(rs.uniform(size=(64, 10)).astype(np.float32))
+        a.update([lab.to(cuda)], [pred16])
+        b.update([lab], [pred32.cpu()])
+        assert a.get() == b.get(), (a.get(), b.get())

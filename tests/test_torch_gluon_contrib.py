@@ -159,10 +159,19 @@ def test_sync_batch_norm_across_devices_names_item_9():
         tcnn.SyncBatchNorm(in_channels=3, axis_name="dp")
 
 
-def test_estimator_names_item_13e():
-    with pytest.raises(AttributeError, match=r"§1 item 13e"):
-        gluon.contrib.estimator
+def test_estimator_resolves_and_fits():
+    est_mod = gluon.contrib.estimator
     assert gluon.contrib.nn is tcnn and gluon.contrib.rnn is tcrnn
+    net = tnn.Dense(2, prefix="estfit_")
+    net.initialize(device="cpu")
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(8, 3).astype(np.float32))
+    y = torch.from_numpy((np.arange(8) % 2).astype(np.float32))
+    est = est_mod.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss())
+    est.fit([(x, y)] * 2, epochs=2)
+    name, acc = est.train_metrics[0].get()
+    assert name == "accuracy" and 0.0 <= acc <= 1.0
+    assert est.trainer._step_count == 4
 
 
 CONV_CELLS = [

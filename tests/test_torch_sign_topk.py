@@ -110,7 +110,8 @@ PORTED = sorted(n for n in jmx._LAZY_MODULES if n in tmx._LAZY_MODULES)
 
 
 def test_root_resolves_the_reference_names_in_both_packages():
-    assert len(PORTED) == 14 and "gluon" in PORTED and "jit" in PORTED
+    assert len(PORTED) == 18 and "gluon" in PORTED and "jit" in PORTED
+    assert {"metric", "profiler", "callback", "monitor"} <= set(PORTED)
     assert "kvstore" in PORTED and tmx.kv is tmx.kvstore
     for name in PORTED + ["NDArray", "MXNetError", "waitall"]:
         assert getattr(jmx, name) is not None
@@ -140,6 +141,8 @@ def test_fresh_interpreter_resolves_the_root_lazily():
         "mx.gluon, mx.optimizer, mx.initializer, mx.NDArray, "
         "mx.MXNetError, mx.waitall\n"
         "assert 'mxnet_tpu_torch.gluon' in sys.modules\n"
+        "mx.metric.Accuracy, mx.profiler.dumps, "
+        "mx.gluon.contrib.estimator.Estimator\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.')) "
         "for m in sys.modules)\n"
         "print('ok')\n")
