@@ -2772,6 +2772,9 @@ PROFILED = {}
 # the eager training phases' summaries by label (phase 8e prints the
 # compiled steps beside them)
 EAGER_ROWS = {}
+# the compiled steps' summaries by label (phase 8i prints its Module
+# steps beside them)
+COMPILED_ROWS = {}
 
 
 def report_profile(prof, wall, steps):
@@ -8714,6 +8717,7 @@ def run_compiled_resnet(torch, rng, kernels, bf16):
     eager = EAGER_ROWS.get("8d (c) bf16 NHWC s2d" if bf16
                            else "8d (b) f32 NCHW", {})
     beside(label, got, eager, "images_s")
+    COMPILED_ROWS[label] = got
     step.release()
     del net, trainer, step, data
     torch.cuda.empty_cache()
@@ -10785,6 +10789,339 @@ def run_estimator_phase(torch, rng, kernels, card):
 _BUILTIN_ARGS = {"a": "int8", "h": "uint8", "f": "f32", "i": "int"}
 
 
+# ------------------------------------------- 8i: the symbolic API --
+def _sym_conv_bn_relu(mx, data, num_filter, kernel, stride, pad, name,
+                      relu=True):
+    body = mx.sym.Convolution(data, num_filter=num_filter, kernel=kernel,
+                              stride=stride, pad=pad, no_bias=True,
+                              name=name + "_conv")
+    body = mx.sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=0.9,
+                            name=name + "_bn")
+    if relu:
+        body = mx.sym.Activation(body, act_type="relu", name=name + "_relu")
+    return body
+
+
+def _sym_residual_unit(mx, data, num_filter, stride, dim_match, name):
+    """One bottleneck ResNet v1.5 unit (the stride in the 3x3 conv)."""
+    body = _sym_conv_bn_relu(mx, data, num_filter // 4, (1, 1), (1, 1),
+                             (0, 0), name + "_a")
+    body = _sym_conv_bn_relu(mx, body, num_filter // 4, (3, 3), stride,
+                             (1, 1), name + "_b")
+    body = _sym_conv_bn_relu(mx, body, num_filter, (1, 1), (1, 1), (0, 0),
+                             name + "_c", relu=False)
+    shortcut = data if dim_match else _sym_conv_bn_relu(
+        mx, data, num_filter, (1, 1), stride, (0, 0), name + "_ds",
+        relu=False)
+    out = mx.sym.elemwise_add(body, shortcut, name=name + "_add")
+    return mx.sym.Activation(out, act_type="relu", name=name + "_out")
+
+
+def symbolic_resnet(mx, num_classes=1000, num_layers=50):
+    """examples/train_imagenet.py's symbolic ResNet v1.5 (its
+    get_resnet_symbol at a 224x224 image, bottleneck depths 50/101/152),
+    built from the port's ``mx.sym``: the example imports the JAX
+    package, so its network is copied here."""
+    units = {50: [3, 4, 6, 3], 101: [3, 4, 23, 3],
+             152: [3, 8, 36, 3]}[num_layers]
+    data = mx.sym.Variable("data")
+    body = _sym_conv_bn_relu(mx, data, 64, (7, 7), (2, 2), (3, 3), "stem")
+    body = mx.sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                          pool_type="max", name="stem_pool")
+    for stage, (n_units, nf) in enumerate(zip(units,
+                                              [256, 512, 1024, 2048])):
+        for unit in range(n_units):
+            stride = (1, 1) if stage == 0 or unit > 0 else (2, 2)
+            body = _sym_residual_unit(mx, body, nf, stride, unit > 0,
+                                      f"stage{stage + 1}_unit{unit + 1}")
+    body = mx.sym.Pooling(body, global_pool=True, pool_type="avg",
+                          kernel=(1, 1), name="gap")
+    body = mx.sym.Flatten(body, name="flat")
+    body = mx.sym.FullyConnected(body, num_hidden=num_classes, name="fc1")
+    return mx.sym.SoftmaxOutput(body, name="softmax")
+
+
+# 8i (a): examples/train_imagenet.py --benchmark 1 at its defaults but
+# the batch (32, as 8d (b) and 8e (d) train f32 NCHW) and the epoch (10
+# steps): 128 seeded images a pass (the example's synthetic iterator)
+# behind a ResizeIter
+SYM_BATCH, SYM_STEPS, SYM_IMAGES = 32, 10, 128
+SYM_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+           "rescale_grad": 1.0 / SYM_BATCH}
+# the first training forward's logits (fc1's output) at batch 2, the card
+# against the same bound graph on the CPU, f32 with TF32 off, relative to
+# the largest logit: 53 convolutions summed in other orders (cuDNN's and
+# the CPU's) through training-mode BatchNorm; ReLU is continuous, so a
+# gate that flips on a tie moves the logits by the tie's size only
+SYM_LOGIT_REL_TOL = 1e-4
+# 8i (b): one BERT-base encoder layer, written with the symbolic API
+SYM_LAYER = dict(units=768, heads=12, hidden=3072)
+SYM_LAYER_BATCH, SYM_LAYER_T = 8, 512
+# the layer's output and its q/k/v projections' weight gradients, flash
+# kernels against the op's plain path (flash=False), relative to each
+# result's largest entry: one layer of f32 products after attention
+# carries the kernels' last-bit differences (FLASH_REL_TOL) into sums
+# over 4096 tokens
+SYM_LAYER_REL_TOL = 1e-4
+
+
+def symbolic_encoder_layer(mx, flash=True, units=768, heads=12,
+                           hidden=3072):
+    """A post-LN transformer encoder layer (BERT's) from ``mx.sym``:
+    ``data`` (B, T, units) and an additive padding row ``bias`` (B, T);
+    the attention is ``sym.scaled_dot_product_attention`` (the flash
+    kernels, or with ``flash=False`` its plain path)."""
+    x = mx.sym.var("data")
+    bias = mx.sym.var("bias")
+
+    def split(t):
+        return mx.sym.transpose(mx.sym.reshape(t, shape=(0, 0, heads, -1)),
+                                axes=(0, 2, 1, 3))
+    q, k, v = (mx.sym.FullyConnected(x, num_hidden=units, flatten=False,
+                                     name=n) for n in ("query", "key",
+                                                       "value"))
+    att = mx.sym.scaled_dot_product_attention(
+        split(q), split(k), split(v), bias, name="att", flash=flash)
+    att = mx.sym.reshape(mx.sym.transpose(att, axes=(0, 2, 1, 3)),
+                         shape=(0, 0, -1))
+    proj = mx.sym.FullyConnected(att, num_hidden=units, flatten=False,
+                                 name="proj")
+    h = mx.sym.LayerNorm(proj + x, name="attn_ln")
+    f = mx.sym.Activation(mx.sym.FullyConnected(
+        h, num_hidden=hidden, flatten=False, name="ffn1"), act_type="gelu",
+        name="gelu")
+    f = mx.sym.FullyConnected(f, num_hidden=units, flatten=False,
+                              name="ffn2")
+    return mx.sym.LayerNorm(f + h, name="ffn_ln")
+
+
+def sym_rel(a, b):
+    """max |a - b| over the largest |b| (NDArrays or tensors)."""
+    a = a.asnumpy() if hasattr(a, "asnumpy") else a.detach().cpu().numpy()
+    b = b.asnumpy() if hasattr(b, "asnumpy") else b.detach().cpu().numpy()
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def run_sym_resnet(torch, kernels, rng):
+    """8i (a): examples/train_imagenet.py's symbolic ResNet-50 (v1.5, 3 x
+    224 x 224, 1000 classes, f32 NCHW, TF32 off) trained through
+    ``Module.fit`` over an ``NDArrayIter`` as the example's --benchmark 1
+    mode does (SGD lr 0.1, momentum 0.9, wd 1e-4, the example's Xavier),
+    at batch SYM_BATCH for SYM_STEPS steps, then two profiled steps.
+    Checks: the first training forward's logits at batch 2 against the
+    same bound graph on the CPU, finite loss and parameters, the
+    BatchNorm running statistics moved, one update launch a parameter a
+    step. Returns the launch counts of the fit."""
+    import mxnet_tpu_torch as mx
+    label = "8i (a) symbolic ResNet-50 Module.fit"
+    sym = symbolic_resnet(mx, 1000, 50)
+    data = rng.uniform(-1, 1, (SYM_IMAGES, 3, 224, 224)).astype(np.float32)
+    labels = rng.randint(0, 1000, SYM_IMAGES).astype(np.float32)
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    it = mx.io.ResizeIter(mx.io.NDArrayIter(
+        mx.nd.array(data, ctx=ctx), mx.nd.array(labels, ctx=ctx),
+        batch_size=SYM_BATCH), SYM_STEPS)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(0)
+    torch.manual_seed(0)
+    mod.init_params(initializer=mx.initializer.Xavier(
+        rnd_type="gaussian", factor_type="in", magnitude=2))
+    args, auxs = mod.get_params()
+    # the first forward's logits at batch 2, card and CPU
+    feat = sym.get_internals()["fc1_output"]
+    logits = []
+    for c in (ctx, mx.cpu()):
+        ex = feat.simple_bind(ctx=c, grad_req="null", data=(2, 3, 224, 224))
+        ex.copy_params_from({k: v.as_in_context(c) for k, v in args.items()},
+                            {k: v.as_in_context(c) for k, v in auxs.items()},
+                            allow_extra_params=True)
+        logits.append(ex.forward(is_train=True,
+                                 data=mx.nd.array(data[:2], ctx=c))[0])
+        del ex
+    err = sym_rel(logits[0], logits[1])
+    check(err <= SYM_LOGIT_REL_TOL, f"{label}: first forward's logits card "
+          f"vs CPU {err:.3g} > {SYM_LOGIT_REL_TOL}")
+    n_params = len(args)
+    times = []
+
+    def tick(param):
+        torch.cuda.synchronize()
+        times.append(time.monotonic())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    mod.fit(it, eval_metric="acc", kvstore=mx.kv.create("device"),
+            optimizer="sgd", optimizer_params=dict(SYM_SGD),
+            initializer=mx.initializer.Xavier(rnd_type="gaussian",
+                                              factor_type="in", magnitude=2),
+            batch_end_callback=[tick], num_epoch=1, allow_missing=True)
+    fit_s = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median(np.diff(times))) * 1e3
+    probs = mod.get_outputs()[0].asnumpy()
+    last = labels[((SYM_STEPS - 1) * SYM_BATCH) % SYM_IMAGES:][:SYM_BATCH]
+    loss = float(-np.log(np.maximum(
+        probs[np.arange(SYM_BATCH), last.astype(np.int64)], 1e-30)).mean())
+    new_args, new_auxs = mod.get_params()
+    check(np.isfinite(loss) and all(np.isfinite(v.asnumpy()).all()
+                                    for v in new_args.values()),
+          f"{label}: non-finite loss {loss} or parameters")
+    moved = [n for n in new_auxs if not np.array_equal(
+        new_auxs[n].asnumpy(), auxs[n].asnumpy())]
+    check(len(moved) == len(auxs) and len(auxs) == 106,
+          f"{label}: {len(moved)} of {len(auxs)} BatchNorm running "
+          "statistics moved")
+    check(launches.get("sgd_mom_update", 0) == SYM_STEPS * n_params,
+          f"{label}: sgd_mom_update launched "
+          f"{launches.get('sgd_mom_update', 0)} times, want "
+          f"{SYM_STEPS} x {n_params}")
+    it.reset()
+    batches = [(next(it),), (next(it),)]
+
+    def step(batch):
+        mod.forward_backward(batch)
+        mod.update()
+    prof, wall = profiled(torch, step, batches)
+    share = report_profile(prof, wall, 2)
+    summary = {"step_ms": step_ms, "images_s": SYM_BATCH / step_ms * 1e3,
+               "peak_gb": peak_gb,
+               "device_ms": device_rows(prof)[1] / 1e3 / 2,
+               "idle": None if share is None else 1 - share}
+    log(f"{label}: batch {SYM_BATCH}, {SYM_STEPS} steps in {fit_s:.2f}s "
+        f"(fit, binding done); last batch loss {loss:.4f}; first forward's "
+        f"logits card vs CPU {err:.3g} (tol {SYM_LOGIT_REL_TOL}); "
+        f"{len(moved)} running statistics moved; {n_params} parameters, "
+        f"update launches {launches.get('sgd_mom_update', 0)}")
+    eager = EAGER_ROWS.get("8d (b) f32 NCHW", {})
+    compiled = COMPILED_ROWS.get("8e (d) f32 NCHW", {})
+
+    def fmt(v, f):
+        return "not measured" if v is None else format(v, f)
+    log(f"{label}: step {step_ms:.2f} ms (median of steps 2-{SYM_STEPS}), "
+        f"{summary['images_s']:.1f} images/s, peak {peak_gb:.2f} GB, "
+        f"profiled device {fmt(summary['device_ms'], '.2f')} ms a step, "
+        f"idle {fmt(summary['idle'], '.3f')}; gluon ResNet-50 v1 at the "
+        f"same batch in this call: eager (8d (b)) "
+        f"{fmt(eager.get('step_ms'), '.2f')} ms, compiled (8e (d)) "
+        f"{fmt(compiled.get('step_ms'), '.2f')} ms")
+    log("8i row (a): " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in summary.items()}))
+    del mod, it, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_sym_attention(torch, kernels, rng):
+    """8i (b): one BERT-base encoder layer written with the symbolic API
+    (768 wide, 12 heads, B=8, T=512, f32, the padding mask), bound with
+    ``simple_bind``: one ``forward(is_train=True)`` + ``backward()``
+    launches K6 once and K7a/K7b once each; the output and the q/k/v
+    projections' gradients against the same executor on the op's plain
+    path; the attention op alone at the layer's shapes, its q, k and v
+    gradients against the plain path to FLASH_REL_TOL. Returns the
+    launch counts of the kernel step."""
+    import mxnet_tpu_torch as mx
+    label = "8i (b) symbolic encoder layer"
+    B, T, U = SYM_LAYER_BATCH, SYM_LAYER_T, SYM_LAYER["units"]
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    vlen = rng.randint(T // 4, T + 1, size=B)
+    bias = np.where(np.arange(T)[None, :] < vlen[:, None], 0.0,
+                    -1e30).astype(np.float32)
+    shapes = {"data": (B, T, U), "bias": (B, T)}
+    og = mx.nd.array(rng.randn(B, T, U).astype(np.float32), ctx=ctx)
+    runs, counts = [], None
+    args = None
+    for flash in (True, False):
+        sym = symbolic_encoder_layer(mx, flash=flash, **SYM_LAYER)
+        ex = sym.simple_bind(ctx=ctx, **shapes)
+        if args is None:
+            arg_shapes, _, _ = sym.infer_shape(**shapes)
+            args = {n: (rng.randn(*s) * (0.02 if n.endswith("weight")
+                                         else 0.1)).astype(np.float32)
+                    for n, s in zip(sym.list_arguments(), arg_shapes)}
+            args["data"] = rng.randn(B, T, U).astype(np.float32)
+            args["bias"] = bias
+            for n in ("attn_ln_gamma", "ffn_ln_gamma"):
+                args[n] = np.ones(U, np.float32)
+        ex.copy_params_from({k: mx.nd.array(v, ctx=ctx)
+                             for k, v in args.items()})
+        ex.forward(is_train=True)       # builds, loads and warms
+        ex.backward(og)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = ex.forward(is_train=True)[0]
+        ex.backward(og)
+        torch.cuda.synchronize()
+        if flash:
+            counts = kernels.launch_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            ex.forward(is_train=True)
+            ex.backward(og)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        runs.append((out, {n: ex.grad_dict[n] for n in
+                           ("query_weight", "key_weight", "value_weight",
+                            "data")}, float(np.median(times)) * 1e3))
+        del ex
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(counts.get(k, 0) == 1, f"{label}: {k} launched "
+              f"{counts.get(k, 0)} times in one forward + backward")
+    errs = {"out": sym_rel(runs[0][0], runs[1][0])}
+    errs.update({n: sym_rel(runs[0][1][n], runs[1][1][n])
+                 for n in runs[0][1]})
+    bad = {n: e for n, e in errs.items() if e > SYM_LAYER_REL_TOL}
+    check(not bad, f"{label}: kernels vs plain {bad} > {SYM_LAYER_REL_TOL}")
+    # the attention op alone: the gradients of q, k and v
+    q, k, v, b = (mx.sym.var(n) for n in ("q", "k", "v", "b"))
+    H = SYM_LAYER["heads"]
+    qkv = {n: rng.randn(B, H, T, U // H).astype(np.float32) for n in "qkv"}
+    aog = mx.nd.array(rng.randn(B, H, T, U // H).astype(np.float32),
+                      ctx=ctx)
+    alone = []
+    for flash in (True, False):
+        ex = mx.sym.scaled_dot_product_attention(
+            q, k, v, b, flash=flash, name="att").simple_bind(
+                ctx=ctx, q=(B, H, T, U // H), k=(B, H, T, U // H),
+                v=(B, H, T, U // H), b=(B, T))
+        out = ex.forward(is_train=True, b=bias, **qkv)[0]
+        ex.backward(aog)
+        alone.append([out] + [ex.grad_dict[n] for n in "qkv"])
+    aerrs = [sym_rel(g, w) for g, w in zip(*alone)]
+    check(max(aerrs) <= FLASH_REL_TOL, f"{label}: the attention op alone, "
+          f"out/dq/dk/dv vs plain {aerrs} > {FLASH_REL_TOL}")
+    log(f"{label}: one forward + backward launched flash_fwd "
+        f"{counts.get('flash_fwd', 0)}, flash_bwd_dkv "
+        f"{counts.get('flash_bwd_dkv', 0)}, flash_bwd_dq "
+        f"{counts.get('flash_bwd_dq', 0)}; kernels vs plain (relative): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (tol {SYM_LAYER_REL_TOL}); the op alone out/dq/dk/dv "
+        + " ".join(f"{e:.3g}" for e in aerrs)
+        + f" (tol {FLASH_REL_TOL}); executor step (forward + backward) "
+        f"{runs[0][2]:.2f} ms with the kernels, {runs[1][2]:.2f} ms plain")
+    log("8i row (b): " + json.dumps({"step_ms": round(runs[0][2], 4),
+                                     "plain_step_ms": round(runs[1][2], 4),
+                                     **{k: round(e, 8)
+                                        for k, e in errs.items()}}))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_symbolic_phase(torch, rng, kernels):
+    """8i: the symbolic API and the Module: (a) the symbolic ResNet-50
+    through Module.fit, (b) a symbolic encoder layer on the flash
+    kernels. Returns the launch counts of both."""
+    counts = dict(run_sym_resnet(torch, kernels, rng))
+    for k, n in run_sym_attention(torch, kernels, rng).items():
+        counts[k] = counts.get(k, 0) + n
+    return counts
+
+
 def _template_args(s):
     """The arguments of a mangled template argument list ``I...E`` at the
     start of ``s`` (integer and bool literals, builtin types, source and
@@ -11090,6 +11427,11 @@ def main():
     add(run_estimator_phase(torch, np.random.RandomState(32), kernels,
                             card))
     lap("8h estimator and telemetry")
+    # 8i. the symbolic API and the Module: train_imagenet.py's symbolic
+    # ResNet-50 through Module.fit, a symbolic encoder layer on the flash
+    # kernels (its own generator, as 5b)
+    add(run_symbolic_phase(torch, np.random.RandomState(33), kernels))
+    lap("8i symbolic API and Module")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

@@ -55,6 +55,12 @@ slice to PyTorch with hand-written CUDA kernels for an NVIDIA H100
   fifteen losses, ``gluon.rnn``, ``gluon.contrib`` (nn, rnn),
   ``gluon.data`` (the ``DataLoader`` with worker processes, pinned
   batches and device prefetch), ``gluon.utils`` and SSD-300.
+- the estimator and its telemetry (``gluon.contrib.estimator``,
+  ``metric``, ``callback``, ``monitor``, ``profiler``);
+- the symbolic API and the Module: ``mx.sym`` over the op registry,
+  ``Symbol.bind``/``simple_bind`` and the ``Executor``, ``mx.mod``,
+  ``mx.io``, ``mx.model``, ``mx.viz``, the legacy ``mx.rnn`` and
+  ``mx.test_utils``.
 
 See ROADMAP.md for what remains.
 
@@ -84,13 +90,12 @@ __all__ = ["amp", "autograd", "ndarray", "nd", "random", "rtc",
 _LAZY_MODULES = ("gluon", "optimizer", "initializer", "lr_scheduler",
                  "amp", "contrib", "error", "rtc", "deploy", "resilience",
                  "serving", "observability", "jit", "kvstore",
-                 "metric", "profiler", "callback", "monitor")
+                 "metric", "profiler", "callback", "monitor", "symbol",
+                 "module", "io", "executor", "model", "visualization",
+                 "rnn", "test_utils", "attribute", "name")
 _NOT_PORTED = {name: "§1 item 14" for name in (
-    "numpy", "numpy_extension", "symbol", "module", "io",
-    "image", "parallel", "test_utils",
-    "util", "runtime", "recordio", "executor", "model",
-    "operator", "onnx", "native", "library", "visualization", "engine",
-    "attribute", "name", "rnn")}
+    "numpy", "numpy_extension", "image", "parallel", "util", "runtime",
+    "recordio", "operator", "onnx", "native", "library", "engine")}
 _ALIAS = {"np": "numpy", "npx": "numpy_extension", "sym": "symbol",
           "viz": "visualization", "mod": "module", "kv": "kvstore"}
 

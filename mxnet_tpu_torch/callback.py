@@ -1,9 +1,5 @@
 """Training callbacks of the port (a copy of ``mxnet_tpu/callback.py``;
-reference: python/mxnet/callback.py).
-
-``do_checkpoint`` needs ``model.save_checkpoint``, which the port does not
-have yet (ROADMAP.md §1 item 14): calling it raises
-``NotImplementedError``."""
+reference: python/mxnet/callback.py)."""
 from __future__ import annotations
 
 import logging
@@ -15,11 +11,14 @@ __all__ = ["Speedometer", "do_checkpoint", "module_checkpoint",
 
 def do_checkpoint(prefix, period=1):
     """Epoch callback saving prefix-epoch.params
-    (reference: callback.py:38). Not ported: it writes through
-    ``model.save_checkpoint`` (ROADMAP.md §1 item 14, ``model.py``)."""
-    raise NotImplementedError(
-        "callback.do_checkpoint needs model.save_checkpoint, which the "
-        "port does not have yet (ROADMAP.md §1 item 14, model.py)")
+    (reference: callback.py:38)."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):

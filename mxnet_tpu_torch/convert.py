@@ -15,6 +15,11 @@ needed where the port runs.
 :func:`load_gluon_params` copies a gluon parameter set, as numpy arrays
 by name (the JAX package's ``net.collect_params()``), into a port block,
 so both packages compute the same function from the same weights.
+
+:func:`arg_aux_from_numpy` carries the ``(arg_params, aux_params)`` pair
+of the symbolic API (``{name: NDArray}`` dicts of the JAX package's
+``Module.get_params()``, or numpy arrays) into the port's NDArrays on
+``device``, so both packages bind the same weights.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "tensor_from_numpy", "numpy_from_tensor",
-           "load_gluon_params"]
+           "load_gluon_params", "arg_aux_from_numpy"]
 
 # numpy dtype names that torch.from_numpy does not take -> (the numpy
 # integer type of their bytes, the torch dtype to view them as); a raw
@@ -143,3 +148,19 @@ def load_gluon_params(block, arrays):
                              f"parameter shape {param.shape}")
         param.set_data(tensor_from_numpy(arr, "cpu"))
         param._finish_deferred_init()
+
+
+def arg_aux_from_numpy(arg_params, aux_params, device):
+    """``(arg_params, aux_params)`` as two dicts of the port's NDArrays on
+    ``device``; each value is a numpy array or anything with
+    ``asnumpy()`` (the JAX package's NDArray); ``device`` a Context,
+    string or ``torch.device``."""
+    from ._device import resolve_device
+    from .ndarray import NDArray
+    dev = resolve_device(device)
+
+    def one(d):
+        return {k: NDArray(tensor_from_numpy(
+            v.asnumpy() if hasattr(v, "asnumpy") else np.asarray(v),
+            dev)) for k, v in (d or {}).items()}
+    return one(arg_params), one(aux_params)

@@ -7,7 +7,8 @@ for a background save that failed; recovery paths catch them.
 from .base import MXNetError
 
 __all__ = ["MXNetError", "InternalError", "ValueError", "TypeError",
-           "IndexError", "CheckpointCorruptError", "CheckpointWriteError",
+           "IndexError", "NotImplementedForSymbol",
+           "CheckpointCorruptError", "CheckpointWriteError",
            "register_error"]
 
 
@@ -27,6 +28,10 @@ class IndexError(MXNetError, IndexError):
     pass
 
 
+class NotImplementedForSymbol(MXNetError):
+    pass
+
+
 class CheckpointCorruptError(InternalError):
     """A serialized NDArray container or checkpoint failed validation
     (bad magic, truncation, CRC mismatch). Recovery paths catch this to
@@ -43,7 +48,8 @@ class CheckpointWriteError(InternalError):
 _ERROR_REGISTRY = {"MXNetError": MXNetError}
 _ERROR_REGISTRY.update({
     c.__name__: c for c in (InternalError, ValueError, TypeError,
-                            IndexError, CheckpointCorruptError)})
+                            IndexError, NotImplementedForSymbol,
+                            CheckpointCorruptError)})
 
 
 def register_error(func_name=None, cls=None):

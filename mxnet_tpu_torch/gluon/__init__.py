@@ -5,7 +5,7 @@
 do."""
 from .parameter import (Parameter, Constant, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
-from .block import Block, HybridBlock  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock, CachedOp  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import nn  # noqa: F401
 from . import rnn  # noqa: F401

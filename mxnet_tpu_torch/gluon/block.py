@@ -25,7 +25,9 @@ zero in place), ``register_forward_pre_hook(hook)`` /
 structural path (``features.0.weight``: attribute names and child
 indices, :meth:`Block._collect_params_with_prefix`) in ``nd.save``'s
 container, so a file written by either package loads into the other's
-block of the same structure.
+block of the same structure. ``HybridBlock.export`` writes the same
+parameters keyed ``arg:``/``aux:`` (no graph JSON, as the JAX package
+writes none); :class:`SymbolBlock` runs a Symbol graph as a block.
 
 While ``mx.profiler`` captures with scopes on (``profiler.scopes_enabled``),
 each block call runs inside a ``torch.profiler.record_function`` range
@@ -46,7 +48,7 @@ from ..ops import nn as _nn
 from .parameter import DeferredInitializationError, Parameter, \
     ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp"]
 
 
 class _OpNamespace:
@@ -938,3 +940,94 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write the parameters for deployment to ``path-NNNN.params``
+        (reference: block.py:1241) through ``nd.save``: keyed by
+        structural path, ``arg:`` for a parameter with a gradient,
+        ``aux:`` for one without. No graph JSON is written, as the JAX
+        package writes none. Returns the file name."""
+        from ..ndarray import save as nd_save
+        params = self._collect_params_with_prefix()
+        arg_dict = {f"arg:{k}": v.data().detach()
+                    for k, v in params.items() if v.grad_req != "null"}
+        arg_dict.update({f"aux:{k}": v.data().detach()
+                         for k, v in params.items() if v.grad_req == "null"})
+        pfile = f"{path}-{epoch:04d}.params"
+        nd_save(pfile, arg_dict)
+        return pfile
+
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        """Hybridize and run once on ``x`` (reference: block.py
+        optimize_for; there are no partitioning backends: the block's
+        graphs are its CUDA graphs)."""
+        self.hybridize(True)
+        return self(x, *args)
+
+
+class SymbolBlock(HybridBlock):
+    """A block running a Symbol graph (reference: block.py:1403): the
+    graph's arguments other than ``inputs`` are its parameters (its aux
+    states with ``grad_req="null"``), named as the graph names them.
+    Parameter shapes left unknown are inferred from the first input's
+    shapes (``Symbol._solve_shapes``)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        # empty prefix: symbol argument names ARE the parameter names
+        super().__init__(prefix="", params=params)
+        from ..symbol import Symbol
+        if isinstance(outputs, (list, tuple)) and len(outputs) == 1:
+            outputs = outputs[0]
+        if not isinstance(outputs, Symbol):
+            raise TypeError("outputs must be a Symbol")
+        self._outputs = outputs
+        self._inputs = inputs if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        input_names = {i.name for i in self._inputs}
+        for name in outputs.list_arguments():
+            if name not in input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            self.params.get(name, allow_deferred_init=True,
+                            grad_req="null")
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of a ``-symbol.json`` file, its parameters
+        loaded from ``param_file`` (either package's)."""
+        from ..symbol import load as sym_load
+        from ..symbol import var as sym_var
+        sym = sym_load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [sym_var(n) for n in input_names]
+        ret = SymbolBlock(sym, inputs)
+        if param_file is not None:
+            ret.load_parameters(param_file, ctx=ctx, cast_dtype=True,
+                                dtype_source="saved")
+        return ret
+
+    def forward(self, x, *args):
+        input_names = [i.name for i in self._inputs]
+        xs = (x,) + args
+        params = self.collect_params()
+        if any(p._data is None for p in params.values()):
+            # deferred shapes from the inputs' through the shape solver
+            known = {n: tuple(v.shape) for n, v in zip(input_names, xs)}
+            shape_of, _, _ = self._outputs._solve_shapes(known,
+                                                         partial=True)
+            for pname, p in params.items():
+                if p._data is None and pname in shape_of:
+                    p.shape = shape_of[pname]
+                    p._finish_deferred_init()
+        try:
+            bindings = {n: p.data() for n, p in params.items()}
+        except DeferredInitializationError:
+            raise RuntimeError(
+                "Parameters of SymbolBlock could not be shape-inferred "
+                "from the inputs: load params or initialize() with "
+                "explicit shapes first") from None
+        bindings.update(zip(input_names, xs))
+        names = self._outputs.list_inputs()
+        out = self._outputs._build_fn(names)(*[bindings[n] for n in names])
+        return list(out) if isinstance(out, tuple) else out

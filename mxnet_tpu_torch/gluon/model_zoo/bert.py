@@ -19,8 +19,8 @@ class BERTEncoderLayer(HybridBlock):
     """One post-LN transformer encoder layer."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.1,
-                 flash=True, prefix=None):
-        super().__init__(prefix=prefix)
+                 flash=True, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         with self.name_scope():
             self.attention = MultiHeadAttention(units, num_heads,
                                                 dropout=dropout,
@@ -44,8 +44,8 @@ class BERTEncoderLayer(HybridBlock):
 
 class BERTEncoder(HybridBlock):
     def __init__(self, num_layers, units, hidden_size, num_heads,
-                 dropout=0.1, flash=True, prefix=None):
-        super().__init__(prefix=prefix)
+                 dropout=0.1, flash=True, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         with self.name_scope():
             self.layers = []
             for i in range(num_layers):
@@ -70,8 +70,9 @@ class BERTModel(HybridBlock):
 
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
-                 type_vocab_size=2, dropout=0.1, flash=True, prefix=None):
-        super().__init__(prefix=prefix)
+                 type_vocab_size=2, dropout=0.1, flash=True, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         self._units = units
         with self.name_scope():
             self.word_embed = Embedding(vocab_size, units,

@@ -21,8 +21,8 @@ class MultiHeadAttention(HybridBlock):
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
                  causal=False, flash=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None):
-        super().__init__(prefix=prefix)
+                 bias_initializer="zeros", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if units % num_heads != 0:
             raise ValueError(
                 f"units ({units}) must be divisible by num_heads "

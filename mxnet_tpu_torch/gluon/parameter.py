@@ -26,9 +26,9 @@ as an ``nd.sparse.RowSparseNDArray`` (dense zeros before any backward).
 parameter's (dense) data as a RowSparseNDArray.
 
 One device a parameter: ``list_data``, ``list_grad`` and ``list_ctx``
-return lists of one, and ``reset_ctx`` moves the data. ``var()`` waits
-for ``symbol/`` (ROADMAP.md §1 item 14) and raises
-``NotImplementedError``.
+(Contexts) return lists of one, ``data(ctx)`` and ``grad(ctx)`` take that
+context, and ``reset_ctx`` moves the data. ``var()`` is the parameter's
+Symbol variable.
 
 :func:`param_values` substitutes other tensors for parameters' data on
 the calling thread (the reference's ``functional_call`` substitution):
@@ -45,7 +45,7 @@ import torch
 
 import numpy as np
 
-from .. import initializer
+from .. import context as _context, initializer
 from .._device import resolve_device
 from ..base import dtype_name, torch_dtype
 from ..ndarray.ndarray import unwrap
@@ -149,6 +149,7 @@ class Parameter:
         self._deferred_init = ()
         # blocks holding this parameter: (weakref to block, attribute)
         self._owners = []
+        self._var = None
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
@@ -265,9 +266,12 @@ class Parameter:
         block._parameters[attr] = self._data
 
     # -------------------------------------------------------------- data --
-    def data(self):
+    def data(self, ctx=None):
         """The parameter's ``torch.nn.Parameter`` (or, inside
-        :func:`param_values`, the tensor substituted for it)."""
+        :func:`param_values`, the tensor substituted for it). ``ctx`` (a
+        Context, string or ``torch.device``) must be the one the data
+        lives on, else this raises as the reference's
+        ``_check_initialized(ctx)``."""
         values = getattr(_SUBSTITUTES, "values", None)
         if values is not None:
             sub = values.get(self)
@@ -277,6 +281,7 @@ class Parameter:
         if access is not None:
             access.reads.add(self)
         if self._data is not None:
+            self._check_ctx(ctx)
             return self._data
         if self._deferred_init:
             raise DeferredInitializationError(
@@ -287,14 +292,27 @@ class Parameter:
             f"Parameter '{self.name}' has not been initialized. Initialize "
             "it (or the block's collect_params()) first.")
 
+    def _check_ctx(self, ctx):
+        """Raise unless ``ctx`` is None or names the data's device."""
+        if ctx is None:
+            return
+        want = ctx if isinstance(ctx, _context.Context) else \
+            _context.device(ctx)
+        have = self.list_ctx()
+        if _context.device(want.torch_device) not in have:
+            raise RuntimeError(
+                f"Parameter '{self.name}' was not initialized on context "
+                f"{ctx}. It was only initialized on {have}.")
+
     def list_data(self):
         """The data, as a list of one (one device)."""
         return [self.data()]
 
-    def grad(self):
+    def grad(self, ctx=None):
         """The gradient tensor (zeros until a backward writes it); a
-        sparse gradient as a RowSparseNDArray."""
-        d = self.data()
+        sparse gradient as a RowSparseNDArray. ``ctx`` as in
+        :meth:`data`."""
+        d = self.data(ctx)
         if self._grad_req == "null":
             raise RuntimeError(
                 f"Cannot get gradient array for Parameter '{self.name}' "
@@ -318,12 +336,12 @@ class Parameter:
                 self._data.grad.zero_()
 
     def list_ctx(self):
-        """The device the data is on (or will be, while deferred), as a
-        list of one."""
+        """The context of the device the data is on (or will be, while
+        deferred), as a list of one: ``[gpu(0)]``, ``[cpu(0)]``."""
         if self._data is not None:
-            return [self._data.device]
+            return [_context.device(self._data.device)]
         if self._deferred_init:
-            return [self._deferred_init[1]]
+            return [_context.device(self._deferred_init[1])]
         raise RuntimeError(f"Parameter '{self.name}' has not been "
                            "initialized")
 
@@ -346,10 +364,12 @@ class Parameter:
                              "initialized.")
 
     def var(self):
-        """The reference's Symbol variable: ``symbol/`` is not ported."""
-        raise NotImplementedError(
-            "Parameter.var needs mxnet_tpu.symbol, not ported yet "
-            "(ROADMAP.md §1 item 14)")
+        """The Symbol variable of this parameter (legacy Symbol API): its
+        name, shape and dtype."""
+        if self._var is None:
+            from ..symbol import var
+            self._var = var(self.name, shape=self.shape, dtype=self.dtype)
+        return self._var
 
     def row_sparse_data(self, row_id):
         """The rows ``row_id`` names (each once, sorted) of a

@@ -69,6 +69,15 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+        self._verbose = False
+        self._print_func = None
+
+    def set_verbosity(self, verbose=False, print_func=None):
+        """Keep the verbosity settings (the JAX package's; it prints
+        nothing either); returns the initializer."""
+        self._verbose = verbose
+        self._print_func = print_func or (lambda x: None)
+        return self
 
     def dumps(self):
         """``[name, kwargs]`` as JSON (:func:`create` reads it back)."""

@@ -277,6 +277,7 @@ class CompiledTrainStep:
         self.last_reason = None
         self.capture_seconds = {}
         self.replays = 0
+        self.last_cost_analysis = None
 
     # ------------------------------------------------------ eligibility --
     def _why_ineligible(self):
@@ -664,10 +665,10 @@ class CompiledTrainStep:
                     prog.rows.write(np.zeros((meta["nrows"], 16),
                                              np.float32), ctl_host)
                     outs, grads, found = kernels.warm(
-                        lambda: step(True), self._stream,
+                        lambda: self._counted(step, True), self._stream,
                         "a compiled training step")
                 else:
-                    outs, grads, found = step(False)
+                    outs, grads, found = self._counted(step, False)
         except Exception as exc:
             if access is not None:
                 access.restore()
@@ -829,12 +830,35 @@ class CompiledTrainStep:
             tr.step(n)
         return out
 
+    def _counted(self, step, warm):
+        """``step(warm)``, its FLOPs counted into
+        :attr:`last_cost_analysis`: torch's ``FlopCounterMode`` counts the
+        matrix products of the forward, the backward and the update; the
+        flash attention kernels (K6, K7), opaque to it, are counted from
+        their shapes (``ops.flash_attention.opaque_flops``: 4·D a
+        (query, key) pair forward, 8·D backward, as PERF.md §6's bounds
+        count them)."""
+        from torch.utils.flop_counter import FlopCounterMode
+        from .ops.flash_attention import opaque_flops
+        with FlopCounterMode(display=False) as counter, \
+                opaque_flops() as opaque:
+            res = step(warm)
+        self.last_cost_analysis = {
+            "flops": float(counter.get_total_flops() + opaque["flops"])}
+        return res
+
     # ------------------------------------------------------- introspect --
     def cache_size(self):
         """The graphs held (on the CPU: the signatures run)."""
         return sum(1 if e.graph is None else
                    1 + (e.update_graph is not None)
                    for e in self._cache.values())
+
+    def cost_analysis(self):
+        """``{"flops": ...}`` of the most recently built step, counted
+        over its warm run (None before the first step), as the JAX
+        package's XLA cost analysis; feeds an MFU."""
+        return self.last_cost_analysis
 
     def graph_pool_bytes(self):
         """Device bytes the step's graph memory pool holds (0 on the CPU

@@ -26,6 +26,7 @@ import torch
 from .. import ops as _ops  # noqa: F401  (registers the ported ops)
 from .._device import resolve_device
 from ..base import dtype_code, dtype_name, torch_dtype
+from ..context import Context, current_context  # noqa: F401  (nd.Context)
 from ..error import CheckpointCorruptError
 from ..ops.invoke import apply_op
 from . import register as _register

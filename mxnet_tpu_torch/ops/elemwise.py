@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..base import torch_dtype
 from .registry import _REGISTRY, Operator, alias
 
 
@@ -68,7 +69,7 @@ def _softplus(x):
 # ----------------------------------------------------------------- unary ---
 _UNARY = {
     "abs": torch.abs, "sign": sign, "ceil": torch.ceil,
-    "floor": torch.floor, "rint": torch.round, "round": torch.round,
+    "floor": torch.floor, "rint": torch.round,
     "trunc": torch.trunc, "fix": torch.trunc, "square": torch.square,
     "sqrt": torch.sqrt, "cbrt": _cbrt, "exp": torch.exp, "log": torch.log,
     "log10": torch.log10, "log2": torch.log2, "log1p": torch.log1p,
@@ -94,7 +95,9 @@ _reg("softsign", lambda x: x / (1 + x.abs()))
 _reg("hard_sigmoid", lambda x, alpha=0.2, beta=0.5:
      torch.clamp(alpha * x + beta, 0.0, 1.0))
 _reg("softrelu", _softplus)
-_reg("gelu", lambda x: F.gelu(x, approximate="tanh"))
+_reg("gelu", lambda x, approximate=True: F.gelu(
+    x, approximate="tanh" if approximate else "none"))
+_reg("round", lambda x, decimals=0: torch.round(x, decimals=decimals))
 _reg("silu", F.silu)
 _reg("log_sigmoid", F.logsigmoid)
 _reg("mish", lambda x: x * torch.tanh(_softplus(x)))
@@ -184,8 +187,12 @@ for _n, _f in _SCALAR_CMP.items():
     _reg(_n, _cmp_first(_f), differentiable=False)
 
 _reg("where", lambda cond, x, y: torch.where(cond != 0, x, y))
-_reg("zeros_like", torch.zeros_like, differentiable=False)
-_reg("ones_like", torch.ones_like, differentiable=False)
+_reg("zeros_like", lambda a, dtype=None, shape=None: torch.zeros(
+    a.shape if shape is None else shape, dtype=a.dtype if dtype is None
+    else torch_dtype(dtype), device=a.device), differentiable=False)
+_reg("ones_like", lambda a, dtype=None, shape=None: torch.ones(
+    a.shape if shape is None else shape, dtype=a.dtype if dtype is None
+    else torch_dtype(dtype), device=a.device), differentiable=False)
 
 # ------------------------------------------------- internal elemwise names --
 # (mxnet_tpu/ops/extra.py: the names behind the NDArray operators)

@@ -144,6 +144,17 @@ def _n_out(rule):
 
 
 def _sgd_family(name, rule, n_per):
+    if "mom" not in rule:
+        # the JAX op's positional order: no momentum
+        @_writes_out
+        def plain(arrays, num_weights=1, lrs=(), wds=(), rescale_grad=1.0,
+                  clip_gradient=-1.0, out=None):
+            return impl(arrays, num_weights, lrs, wds, 0.0, rescale_grad,
+                        clip_gradient, out=out)
+        plain.__name__ = name
+    else:
+        plain = None
+
     @_writes_out
     def impl(arrays, num_weights=1, lrs=(), wds=(), momentum=0.0,
              rescale_grad=1.0, clip_gradient=-1.0, out=None):
@@ -156,10 +167,20 @@ def _sgd_family(name, rule, n_per):
         return _flat(multi_apply(rule, groups, kws, counter=name,
                                  out=_out_groups(out, _n_out(rule))))
     impl.__name__ = name
-    return impl
+    return plain or impl
 
 
 def _preloaded_family(name, rule, n_per):
+    if "mom" not in rule:
+        # the JAX op's positional order: no momentum
+        @_writes_out
+        def plain(arrays, rescale_grad=1.0, clip_gradient=-1.0, out=None,
+                  **_):
+            return impl(arrays, 0.0, rescale_grad, clip_gradient, out=out)
+        plain.__name__ = name
+    else:
+        plain = None
+
     @_writes_out
     def impl(arrays, momentum=0.0, rescale_grad=1.0, clip_gradient=-1.0,
              out=None, **_):
@@ -173,7 +194,7 @@ def _preloaded_family(name, rule, n_per):
         return _flat(multi_apply(rule, groups, kws, counter=name,
                                  out=_out_groups(out, _n_out(rule))))
     impl.__name__ = name
-    return impl
+    return plain or impl
 
 
 for _name, _rule, _n in (

@@ -53,6 +53,9 @@ the padded output and gradient columns are dropped. ``D > 256`` raises.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from .. import kernels
@@ -287,6 +290,41 @@ def _unpad(x, D):
     return x if x.shape[-1] == D else x[..., :D].contiguous()
 
 
+# FLOPs of the kernels' launches while an :func:`opaque_flops` count is
+# open: torch's FlopCounterMode cannot see a ctypes launch. Counted from
+# the shapes: 4·D a (query, key) pair forward (QK^T and PV), 8·D
+# backward (dV, dP, dK, dQ; the recomputed QK^T not counted), as
+# PERF.md §6's bounds count them. The backward's launches run on
+# autograd's thread: one count for the process, under a lock.
+_OPAQUE = {"depth": 0, "flops": 0}
+_OPAQUE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def opaque_flops():
+    """Count the flash kernels' FLOPs launched inside the block; yields a
+    dict whose ``"flops"`` holds the count at the block's end."""
+    res = {"flops": 0}
+    with _OPAQUE_LOCK:
+        _OPAQUE["depth"] += 1
+        start = _OPAQUE["flops"]
+    try:
+        yield res
+    finally:
+        with _OPAQUE_LOCK:
+            res["flops"] = _OPAQUE["flops"] - start
+            _OPAQUE["depth"] -= 1
+            if not _OPAQUE["depth"]:
+                _OPAQUE["flops"] = 0
+
+
+def _tally(B, H, Tq, Tk, D, causal, per_pair):
+    if _OPAQUE["depth"]:
+        pairs = B * H * (Tq * (Tk + 1) // 2 if causal else Tq * Tk)
+        with _OPAQUE_LOCK:
+            _OPAQUE["flops"] += per_pair * D * pairs
+
+
 def flash_forward(q, k, v, bias, causal, scale):
     """Forward kernel wrapper: ``(out, lse (B*H, Tq))``. CPU tensors take
     the plain twin; CUDA tensors (f32, bf16 or f16, contiguous) launch
@@ -309,6 +347,7 @@ def flash_forward(q, k, v, bias, causal, scale):
         int(bool(causal)), scale, kernels.stream_handle(q.device))
     kernels.check(rc, entry)
     kernels.count_launch(kernel_name("flash_fwd", q.dtype))
+    _tally(B, H, Tq, Tk, D, causal, 4)
     return _unpad(out, D), lse
 
 
@@ -340,6 +379,7 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, causal, scale,
         int(bool(causal)), scale, kernels.stream_handle(q.device))
     kernels.check(rc, entry)
     kernels.count_launch(kernel_name("flash_bwd_dkv", q.dtype))
+    _tally(B, H, Tq, Tk, D, causal, 4)
     return _unpad(dk, D), _unpad(dv, D), dbias
 
 
@@ -364,6 +404,7 @@ def flash_bwd_dq(q, k, v, bias, dout, lse, delta, causal, scale):
         kernels.stream_handle(q.device))
     kernels.check(rc, entry)
     kernels.count_launch(kernel_name("flash_bwd_dq", q.dtype))
+    _tally(B, H, Tq, Tk, D, causal, 4)
     return _unpad(dq, D)
 
 

@@ -394,6 +394,18 @@ class PagedKVCache:
         """Blocks needed to hold ``num_tokens`` KV entries."""
         return -(-int(num_tokens) // self.block_size)
 
+    def table_row(self, block_ids):
+        """A sequence's padded block-table row: int32
+        ``[max_blocks_per_seq]``, unused entries = the null block."""
+        row = np.full(self.max_blocks_per_seq, NULL_BLOCK, np.int32)
+        if len(block_ids) > self.max_blocks_per_seq:
+            raise KVCacheError(
+                f"{len(block_ids)} blocks exceed the "
+                f"{self.max_blocks_per_seq}-block table "
+                f"(max_context={self.max_context})")
+        row[:len(block_ids)] = block_ids
+        return row
+
     # ------------------------------------------------- prefix index --
     def _on_reclaim(self, block):
         h = self._block_to_hash.pop(block, None)

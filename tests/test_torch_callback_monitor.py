@@ -5,8 +5,8 @@
   batches (the speed is a clock and is not compared); ``ProgressBar``,
   ``log_train_metric`` and ``LogValidationMetricsCallback`` log the same
   lines; ``module_checkpoint`` calls ``save_checkpoint`` at the same
-  epochs; ``do_checkpoint`` raises ``NotImplementedError`` naming
-  ROADMAP item 14 (``model.save_checkpoint`` is not ported);
+  epochs; ``do_checkpoint`` writes the same checkpoint files at the
+  same epochs, the port's loading in the JAX package bit for bit;
 - ``Monitor`` on the toy net of ``tests/test_estimator.py`` (the JAX
   net's weights carried into the port's): the same ``(step, name)`` rows
   for the same ``interval``/``pattern``/``sort``, stats equal to 1e-6
@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import torch  # noqa: E402
 
 import mxnet_tpu as jmx  # noqa: E402
+import mxnet_tpu_torch as tmx  # noqa: E402
 import mxnet_tpu.autograd as jag  # noqa: E402
 from mxnet_tpu import callback as jcb, metric as jm  # noqa: E402
 from mxnet_tpu import gluon as jgluon, monitor as jmon  # noqa: E402
@@ -92,7 +93,7 @@ def test_callback_logs_match_the_reference(name, caplog):
         assert "top_k_accuracy_2=" in lines["torch"][0]
 
 
-def test_module_checkpoint_and_do_checkpoint():
+def test_module_checkpoint_and_do_checkpoint(tmp_path):
     calls = {}
     for pkg, cb in (("jax", jcb), ("torch", tcb)):
         seen = calls[pkg] = []
@@ -103,8 +104,20 @@ def test_module_checkpoint_and_do_checkpoint():
             fn(i)
     assert calls["torch"] == calls["jax"] == [("pfx", 2, True),
                                               ("pfx", 4, True)]
-    with pytest.raises(NotImplementedError, match=r"§1 item 14"):
-        tcb.do_checkpoint("pfx")
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    for pkg, cb, mx in (("jax", jcb, jmx), ("torch", tcb, tmx)):
+        sym = mx.sym.var("w")
+        arg = {"w": jnd.array(w) if pkg == "jax" else torch.from_numpy(w)}
+        fn = cb.do_checkpoint(str(tmp_path / pkg), period=2)
+        for i in range(5):
+            fn(i, sym, arg, {})
+    for pkg in ("jax", "torch"):
+        assert sorted(p.name for p in tmp_path.glob(f"{pkg}-*")) == [
+            f"{pkg}-0002.params", f"{pkg}-0004.params", f"{pkg}-symbol.json"]
+    got = jnd.load(str(tmp_path / "torch-0004.params"))
+    want = jnd.load(str(tmp_path / "jax-0004.params"))
+    assert sorted(got) == sorted(want) == ["arg:w"]
+    assert np.array_equal(got["arg:w"].asnumpy(), want["arg:w"].asnumpy())
 
 
 def _nets():

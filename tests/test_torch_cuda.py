@@ -3736,3 +3736,117 @@ def test_metrics_on_bf16_cuda_tensors_equal_f32(cuda):
         a.update([lab.to(cuda)], [pred16])
         b.update([lab], [pred32.cpu()])
         assert a.get() == b.get(), (a.get(), b.get())
+
+
+# ------------------------------------- the symbolic API and the Module ---
+def _sym_mlp(mx):
+    data = mx.sym.var("data")
+    fc1 = mx.sym.FullyConnected(data, name="fc1", num_hidden=32)
+    act = mx.sym.Activation(fc1, act_type="relu", name="relu1")
+    fc2 = mx.sym.FullyConnected(act, name="fc2", num_hidden=4)
+    return mx.sym.SoftmaxOutput(fc2, name="softmax")
+
+
+def _sym_conv_bn(mx):
+    data = mx.sym.var("data")
+    c = mx.sym.Convolution(data, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                           name="c1")
+    b = mx.sym.BatchNorm(c, fix_gamma=False, name="bn1")
+    r = mx.sym.Activation(b, act_type="relu", name="r1")
+    return mx.sym.FullyConnected(mx.sym.Flatten(r), num_hidden=3, name="fc")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build,shapes", [
+    (_sym_mlp, {"data": (8, 10), "softmax_label": (8,)}),
+    (_sym_conv_bn, {"data": (4, 3, 8, 8)})])
+def test_executor_on_the_card_matches_the_cpu(cuda, build, shapes,
+                                              monkeypatch):
+    import mxnet_tpu_torch as tmx
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    sym = build(tmx)
+    rs = np.random.RandomState(0)
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    args = {n: rs.randn(*s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)}
+    if "softmax_label" in args:
+        args["softmax_label"] = (np.arange(8) % 4).astype(np.float32)
+    aux = {n: (np.abs(rs.randn(*s)) + 0.5).astype(np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    res = []
+    for ctx in (tmx.gpu(0), tmx.cpu()):
+        ex = sym.simple_bind(ctx=ctx, **shapes)
+        ex.copy_params_from({k: tmx.nd.array(v, ctx=ctx)
+                             for k, v in args.items()},
+                            {k: tmx.nd.array(v, ctx=ctx)
+                             for k, v in aux.items()})
+        out = ex.forward(is_train=True)[0]
+        assert out.context == ctx
+        ex.backward()
+        res.append((out.asnumpy(), {k: v.asnumpy()
+                                    for k, v in ex.grad_dict.items()},
+                    {k: v.asnumpy() for k, v in ex.aux_dict.items()}))
+    (go, gg, ga), (co, cg, ca) = res
+    np.testing.assert_allclose(go, co, rtol=1e-4, atol=1e-5)
+    for k in cg:
+        np.testing.assert_allclose(gg[k], cg[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    for k in ca:
+        np.testing.assert_allclose(ga[k], ca[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_attention_symbol_launches_the_flash_kernels_once_a_step(cuda):
+    import mxnet_tpu_torch as tmx
+    q, k, v, b = (tmx.sym.var(n) for n in ("q", "k", "v", "bias"))
+    att = tmx.sym.scaled_dot_product_attention(q, k, v, b, name="att")
+    plain = tmx.sym.scaled_dot_product_attention(q, k, v, b, name="att",
+                                                 flash=False)
+    shapes = {n: (2, 4, 128, 64) for n in "qkv"}
+    shapes["bias"] = (2, 128)
+    rs = np.random.RandomState(1)
+    feeds = {n: rs.randn(*s).astype(np.float32) for n, s in shapes.items()}
+    feeds["bias"][1, 100:] = -1e30
+    feeds["bias"][:, :100] = 0.0
+    og = tmx.nd.array(rs.randn(*shapes["q"]).astype(np.float32), ctx=cuda)
+    res = []
+    for sym in (att, plain):
+        ex = sym.simple_bind(ctx=tmx.gpu(0), **shapes)
+        kernels.reset_launch_counts()
+        out = ex.forward(is_train=True, **feeds)[0]
+        ex.backward(og)
+        torch.cuda.synchronize()
+        res.append((kernels.launch_counts(), out.asnumpy(),
+                    {n: ex.grad_dict[n].asnumpy() for n in "qkv"}))
+    counts = res[0][0]
+    assert counts.get("flash_fwd") == 1
+    assert counts.get("flash_bwd_dkv") == 1 and counts.get(
+        "flash_bwd_dq") == 1
+    assert not any(k.startswith("flash") for k in res[1][0])
+    np.testing.assert_allclose(res[0][1], res[1][1], rtol=0, atol=FLASH_TOL)
+    for n in "qkv":
+        np.testing.assert_allclose(res[0][2][n], res[1][2][n], rtol=0,
+                                   atol=FLASH_GRAD_TOL, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_module_fit_on_the_card(cuda):
+    import mxnet_tpu_torch as tmx
+    rs = np.random.RandomState(2)
+    x = rs.randn(24, 10).astype(np.float32)
+    y = (np.arange(24) % 4).astype(np.float32)
+    it = tmx.io.NDArrayIter(x, y, batch_size=8)
+    mod = tmx.mod.Module(_sym_mlp(tmx))
+    kernels.reset_launch_counts()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            initializer=tmx.initializer.Xavier())
+    torch.cuda.synchronize()
+    args, _ = mod.get_params()
+    assert all(v.context == tmx.gpu(0) for v in args.values())
+    assert all(np.isfinite(v.asnumpy()).all() for v in args.values())
+    # three steps, one update launch a parameter each
+    assert kernels.launch_counts().get("sgd_mom_update") == 3 * len(args)
+    acc = mod.score(tmx.io.NDArrayIter(x, y, batch_size=8), "acc")[0][1]
+    assert 0.0 <= acc <= 1.0

@@ -356,7 +356,7 @@ def test_cast_apply_zero_grad_hooks_and_summary(capsys):
           for k, v in t.collect_params().items()}
     assert td == jd
     assert t.features[0].weight.dtype == "bfloat16"
-    assert t.features[0].weight.list_ctx() == [torch.device("cpu")]
+    assert t.features[0].weight.list_ctx() == [tmx.cpu()]
     assert t.name == "m" and "BasicBlockV1" in repr(t)
 
 
@@ -364,13 +364,13 @@ def test_parameter_members():
     from mxnet_tpu_torch.gluon import Constant, Parameter, ParameterDict
     p = Parameter("p_weight", shape=(2, 3))
     p.initialize(device="cpu")
-    assert p.list_data()[0] is p.data() and p.list_ctx() == [
-        torch.device("cpu")]
+    assert p.list_data()[0] is p.data() and p.list_ctx() == [tmx.cpu()]
     p.grad().fill_(1.0)
     p.zero_grad()
     assert float(p.list_grad()[0].abs().sum()) == 0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        p.var()
+    v = p.var()
+    assert v is p.var() and v.name == "p_weight"
+    assert v.list_arguments() == ["p_weight"] and v._shape_hint == (2, 3)
     # a default-stype parameter has no row-sparse view (the reference's
     # RuntimeError; tests/test_torch_sparse.py holds the row-sparse one)
     with pytest.raises(RuntimeError, match="requires stype='row_sparse'"):
@@ -385,7 +385,7 @@ def test_parameter_members():
     d.initialize(device="cpu")
     d.setattr("lr_mult", 0.5)
     assert all(v.lr_mult == 0.5 for v in d.values())
-    assert d.list_ctx() == [torch.device("cpu")]
+    assert d.list_ctx() == [tmx.cpu()]
     shared = ParameterDict("y_", shared=d)
     assert shared.get("w") is not d["x_w"]
     dense = tnn.Dense(2, in_units=3, prefix="sh_")
