@@ -10990,6 +10990,7 @@ def run_sym_resnet(torch, kernels, rng):
                "peak_gb": peak_gb,
                "device_ms": device_rows(prof)[1] / 1e3 / 2,
                "idle": None if share is None else 1 - share}
+    SYM_ROWS["8i (a)"] = summary
     log(f"{label}: batch {SYM_BATCH}, {SYM_STEPS} steps in {fit_s:.2f}s "
         f"(fit, binding done); last batch loss {loss:.4f}; first forward's "
         f"logits card vs CPU {err:.3g} (tol {SYM_LOGIT_REL_TOL}); "
@@ -11119,6 +11120,398 @@ def run_symbolic_phase(torch, rng, kernels):
     counts = dict(run_sym_resnet(torch, kernels, rng))
     for k, n in run_sym_attention(torch, kernels, rng).items():
         counts[k] = counts.get(k, 0) + n
+    return counts
+
+
+# 8j: records and images. The decoders it requires, fixed from a probe of
+# the card host (g++ 13.3; Python cv2 4.13.0; no OpenCV C++ headers or
+# libraries): the native record readers build with g++; the native decode
+# pool needs OpenCV's C++ libraries and does not, so ImageRecordIter is
+# ImageIter there (cv2 decodes, the pure-Python augmenters run on the
+# card). A missing decoder fails the phase.
+REC_ITER = "ImageIter"
+# 256 seeded 256 x 256 RGB images, labels in 0-999, JPEG quality 90:
+# the first REC_TRAIN in train.rec/.idx, the rest in val.rec/.idx
+REC_IMAGES, REC_SIDE, REC_QUALITY, REC_TRAIN = 256, 256, 90, 128
+REC_SHAPE, REC_BATCH, REC_RESIZE = (3, 224, 224), 32, 256
+# ImageNet's channel mean and std (the reference's ImageRecordIter options)
+REC_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
+REC_STD = dict(std_r=58.393, std_g=57.12, std_b=57.375)
+REC_SEED = 7
+# the float augmenters (brightness, normalization), card against CPU,
+# relative to the largest value: the same host arithmetic on both
+REC_AUG_REL_TOL = 1e-6
+# SYM_ROWS: 8i's summaries by label (8j prints its record-fed step beside
+# 8i (a)'s synthetic-fed one)
+SYM_ROWS = {}
+
+
+def rec_images(rng, n, side):
+    """``n`` seeded side x side RGB images: a 16 x 16 field resized
+    bilinearly, plus noise (JPEGs of a natural image's size)."""
+    import cv2
+    base = rng.randint(0, 256, (n, 16, 16, 3)).astype(np.uint8)
+    noise = rng.randint(-8, 9, (n, side, side, 3)).astype(np.int16)
+    out = np.empty((n, side, side, 3), np.uint8)
+    for i in range(n):
+        up = cv2.resize(base[i], (side, side),
+                        interpolation=cv2.INTER_LINEAR)
+        out[i] = np.clip(up.astype(np.int16) + noise[i], 0, 255)
+    return out
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module over the port (its imports of
+    the JAX package turned into ``mxnet_tpu_torch``)."""
+    import types
+    path = os.path.join(HERE, "examples", name + ".py")
+    with open(path) as f:
+        src = re.sub(r"\bmxnet_tpu\b", "mxnet_tpu_torch", f.read())
+    mod = types.ModuleType(f"_{name}_port")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+def run_rec_write_read(torch, rng, root):
+    """8j (a): write the records with ``recordio.pack_img`` and read them
+    back through the native sequential reader, the native prefetch
+    reader and the pure-Python reader: the same bytes. Returns
+    {"train": path, "val": path} and the labels of each."""
+    from mxnet_tpu_torch import native, recordio
+    label = "8j (a) records"
+    check(native.recordio_lib() is not None, f"{label}: the native record "
+          f"reader did not build: {native.last_build_error}")
+    imgs = rec_images(rng, REC_IMAGES, REC_SIDE)
+    labels = rng.randint(0, 1000, REC_IMAGES)
+    paths, parts = {}, {"train": range(REC_TRAIN),
+                        "val": range(REC_TRAIN, REC_IMAGES)}
+    t0 = time.monotonic()
+    for part, rows in parts.items():
+        paths[part] = os.path.join(root, part + ".rec")
+        w = recordio.MXIndexedRecordIO(os.path.join(root, part + ".idx"),
+                                       paths[part], "w")
+        for k, i in enumerate(rows):
+            w.write_idx(k, recordio.pack_img(
+                recordio.IRHeader(0, float(labels[i]), k, 0), imgs[i],
+                quality=REC_QUALITY, img_fmt=".jpg"))
+        w.close()
+    write_s = time.monotonic() - t0
+    nbytes = sum(os.path.getsize(p) for p in paths.values())
+    reads = {}
+
+    def python_reader(path):
+        os.environ["MXNET_TPU_NATIVE"] = "0"
+        try:
+            r = recordio.MXRecordIO(path, "r")
+        finally:
+            del os.environ["MXNET_TPU_NATIVE"]
+        check(r._native is None, f"{label}: the Python reader is native")
+        return r
+
+    for name, make in (("native", native.NativeRecordReader),
+                       ("prefetch", native.NativePrefetchReader),
+                       ("python", python_reader)):
+        t0 = time.monotonic()
+        got = []
+        for part in parts:
+            r = make(paths[part])
+            while True:
+                rec = r.read()
+                if rec is None:
+                    break
+                got.append(rec)
+            r.close()
+        reads[name] = (got, time.monotonic() - t0)
+    recs = reads["python"][0]
+    check(len(recs) == REC_IMAGES, f"{label}: {len(recs)} records read of "
+          f"{REC_IMAGES}")
+    for name in ("native", "prefetch"):
+        check(reads[name][0] == recs, f"{label}: the {name} reader's bytes "
+              "differ from the Python reader's")
+    got_labels = [float(recordio.unpack(r)[0].label) for r in recs]
+    check(got_labels == [float(v) for v in labels],
+          f"{label}: labels read back differ")
+    h, img = recordio.unpack_img(recs[0])
+    check(img.shape == (REC_SIDE, REC_SIDE, 3) and
+          float(np.abs(img.astype(np.float32) - imgs[0]).mean()) < 8.0,
+          f"{label}: record 0 decodes to {img.shape}, far from its image")
+    log(f"{label}: {REC_IMAGES} images {REC_SIDE} x {REC_SIDE} JPEG "
+        f"q{REC_QUALITY} in train.rec ({REC_TRAIN}) and val.rec, "
+        f"{nbytes / 1e6:.2f} MB written in {write_s:.2f}s; the same bytes "
+        "through " + ", ".join(
+            f"{n} ({nbytes / 1e6 / max(t, 1e-9):.0f} MB/s)"
+            for n, (_, t) in reads.items()))
+    return paths, labels
+
+
+def rec_iter(mx, path, **kw):
+    return mx.io.MXDataIter(
+        "ImageRecordIter", path_imgrec=path, data_shape=REC_SHAPE,
+        batch_size=REC_BATCH, shuffle=True, rand_crop=True,
+        rand_mirror=True, resize=REC_RESIZE, **REC_MEAN, **REC_STD, **kw)
+
+
+def run_rec_iter(torch, paths, labels):
+    """8j (b): ``MXDataIter("ImageRecordIter", ...)`` over train.rec: the
+    iterator is ``REC_ITER``, every batch on the card in f32 at
+    (32, 3, 224, 224) with the records' labels, normalized; the same
+    bits with ``preprocess_threads=1``; ms a batch and images/s."""
+    import random
+    import mxnet_tpu_torch as mx
+    label = "8j (b) ImageRecordIter"
+    random.seed(REC_SEED)
+    it = rec_iter(mx, paths["train"])
+    check(type(it).__name__ == REC_ITER, f"{label}: MXDataIter gave "
+          f"{type(it).__name__}, the probe's host gives {REC_ITER}")
+    times, got, first = [], [], None
+    while True:
+        t0 = time.monotonic()
+        try:
+            b = next(it)
+        except StopIteration:
+            break
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        x = b.data[0]
+        check(x._data.device.type == DEVICE and x.dtype == np.float32
+              and x.shape == (REC_BATCH,) + REC_SHAPE,
+              f"{label}: batch on {x._data.device}, {x.dtype}, {x.shape}")
+        check(bool(torch.isfinite(x._data).all()) and
+              abs(float(x._data.mean())) < 3.0,
+              f"{label}: a batch is not finite or not normalized")
+        got += b.label[0].asnumpy().tolist()
+        first = x if first is None else first
+    check(len(times) == REC_TRAIN // REC_BATCH, f"{label}: {len(times)} "
+          "batches")
+    check(sorted(got) == sorted(float(v) for v in labels[:REC_TRAIN]),
+          f"{label}: the batches' labels are not the records'")
+    random.seed(REC_SEED)
+    again = next(rec_iter(mx, paths["train"], preprocess_threads=1))
+    check(torch.equal(again.data[0]._data, first._data),
+          f"{label}: preprocess_threads=1 gives other bits")
+    ms = float(np.median(times)) * 1e3
+    summary = {"iterator": type(it).__name__, "iter_batch_ms": ms,
+               "iter_images_s": REC_BATCH / ms * 1e3}
+    log(f"{label}: {type(it).__name__} (as asked: {REC_ITER}), "
+        f"{len(times)} batches of {REC_BATCH} at {REC_SHAPE} on "
+        f"{first._data.device}, f32; {ms:.1f} ms a batch (median), "
+        f"{summary['iter_images_s']:.1f} images/s; the same bits with "
+        "preprocess_threads=1")
+    return summary
+
+
+def run_rec_train_imagenet(torch, kernels, paths, root):
+    """8j (c): examples/train_imagenet.py's ``main`` through the port on
+    the records: ResNet-50 (1000 classes, 3 x 224 x 224, batch 32), the
+    128 training records (4 batches), val.rec for its eval, a
+    ``--model-prefix`` checkpoint; the checkpoint reloaded scores the
+    val records as the trained module does, its parameters the trained
+    ones bit for bit; one update launch a parameter a step. Then 4 steps
+    fed by the records (fetch, forward and backward, update, metric)
+    timed, 2 of them profiled. Returns the summary and the launch counts
+    of ``main``."""
+    import argparse
+    import mxnet_tpu_torch as mx
+    label = "8j (c) train_imagenet.py on the records"
+    ti = load_example("train_imagenet")
+    prefix = os.path.join(root, "r50")
+    argv = ["--data-train", paths["train"], "--data-val", paths["val"],
+            "--network", "resnet", "--num-layers", "50", "--num-classes",
+            "1000", "--image-shape", ",".join(map(str, REC_SHAPE)),
+            "--resize", str(REC_RESIZE), "--batch-size", str(REC_BATCH),
+            "--num-examples", str(REC_TRAIN), "--num-epochs", "1",
+            "--lr-step-epochs", "", "--disp-batches", "2",
+            "--model-prefix", prefix]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    mod = ti.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    args, auxs = mod.get_params()
+    steps = REC_TRAIN // REC_BATCH
+    check(launches.get("sgd_mom_update", 0) == steps * len(args),
+          f"{label}: sgd_mom_update launched "
+          f"{launches.get('sgd_mom_update', 0)} times, want {steps} x "
+          f"{len(args)}")
+    check(all(np.isfinite(v.asnumpy()).all() for v in args.values()),
+          f"{label}: non-finite parameters")
+    ns = ti.add_args(argparse.ArgumentParser()).parse_args(argv)
+    ns.image_shape_t = REC_SHAPE
+    kv = mx.kv.create(ns.kv_store)
+    val = ti.get_rec_iter(ns, kv)[1]
+    trained = dict(mod.score(val, "acc"))["accuracy"]
+    sym, l_args, l_auxs = mx.model.load_checkpoint(prefix, 1)
+    same = all(np.array_equal(l_args[k].asnumpy(), v.asnumpy())
+               for k, v in args.items()) and all(
+        np.array_equal(l_auxs[k].asnumpy(), v.asnumpy())
+        for k, v in auxs.items())
+    check(same, f"{label}: the checkpoint's parameters are not the "
+          "trained module's")
+    scored = mx.mod.Module(symbol=sym, context=mx.current_context())
+    val.reset()
+    scored.bind(data_shapes=val.provide_data,
+                label_shapes=val.provide_label, for_training=False)
+    scored.set_params(l_args, l_auxs)
+    acc = dict(scored.score(val, "acc"))["accuracy"]
+    check(np.isfinite(acc) and acc == trained, f"{label}: the reloaded "
+          f"checkpoint scores {acc}, the trained module {trained}")
+    del scored, l_args, l_auxs
+    train = ti.get_rec_iter(ns, kv)[0]
+    metric = mx.metric.create("acc")
+
+    def step():
+        batch = next(train)
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+    times = []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    train.reset()
+    prof, wall = profiled(torch, step, [(), ()])
+    share = report_profile(prof, wall, 2)
+    step_ms = float(np.median(times[1:])) * 1e3
+    summary = {"step_ms": step_ms, "images_s": REC_BATCH / step_ms * 1e3,
+               "device_ms": device_rows(prof)[1] / 1e3 / 2,
+               "idle": None if share is None else 1 - share,
+               "main_s": main_s}
+    synth = SYM_ROWS.get("8i (a)", {})
+
+    def fmt(v, f):
+        return "not measured" if v is None else format(v, f)
+    log(f"{label}: main() {main_s:.2f}s ({steps} training batches, the "
+        f"val eval, the checkpoint); {len(args)} parameters, update "
+        f"launches {launches.get('sgd_mom_update', 0)}; the reloaded "
+        f"checkpoint scores {acc:.4f} on val.rec as the trained module; "
+        f"a step fed by the records {step_ms:.2f} ms (median of steps "
+        f"2-{steps}: fetch, forward and backward, update, metric), "
+        f"{summary['images_s']:.1f} images/s, profiled device "
+        f"{fmt(summary['device_ms'], '.2f')} ms a step, idle "
+        f"{fmt(summary['idle'], '.3f')}; 8i (a)'s synthetic-fed step in "
+        f"this call {fmt(synth.get('step_ms'), '.2f')} ms, idle "
+        f"{fmt(synth.get('idle'), '.3f')}")
+    del mod, train, val
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def run_rec_augmenters(torch, paths):
+    """8j (d): one batch through ``mx.image.ImageIter`` on the card and
+    under ``with mx.cpu():`` from the same ``random.seed``: with the
+    crops, flips and casts alone the same bits; with brightness and
+    normalization added, within REC_AUG_REL_TOL."""
+    import random
+    import mxnet_tpu_torch as mx
+    label = "8j (d) augmenters card vs CPU"
+    mean = np.array([REC_MEAN[k] for k in ("mean_r", "mean_g", "mean_b")])
+    std = np.array([REC_STD[k] for k in ("std_r", "std_g", "std_b")])
+    card = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    res, times = {}, {}
+    for floats in (False, True):
+        kw = dict(mean=mean, std=std, brightness=0.1) if floats else {}
+        for where in ("card", "cpu"):
+            random.seed(REC_SEED)
+            augs = mx.image.CreateAugmenter(
+                REC_SHAPE, resize=REC_RESIZE, rand_crop=True,
+                rand_mirror=True, **kw)
+            with (mx.cpu() if where == "cpu" else card):
+                it = mx.image.ImageIter(REC_BATCH, REC_SHAPE,
+                                        path_imgrec=paths["train"],
+                                        shuffle=True, aug_list=augs)
+                t0 = time.monotonic()
+                x = next(it).data[0]
+                torch.cuda.synchronize()
+                times[(floats, where)] = (time.monotonic() - t0) * 1e3
+            check(x._data.device.type == ("cpu" if where == "cpu"
+                                          else DEVICE),
+                  f"{label}: the {where} batch is on {x._data.device}")
+            res[(floats, where)] = x.asnumpy()
+    check(np.array_equal(res[(False, "card")], res[(False, "cpu")]),
+          f"{label}: crops, flips and casts differ card vs CPU")
+    a, b = res[(True, "card")], res[(True, "cpu")]
+    err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    check(err <= REC_AUG_REL_TOL, f"{label}: the float passes differ "
+          f"{err:.3g} > {REC_AUG_REL_TOL}")
+    log(f"{label}: crops, flips and casts the same bits; brightness and "
+        f"normalization {err:.3g} relative (tol {REC_AUG_REL_TOL}); a "
+        f"batch of {REC_BATCH}: " + ", ".join(
+            f"{'float passes' if f else 'crop/flip/cast'} on the {w} "
+            f"{t:.1f} ms" for (f, w), t in times.items()))
+
+
+def run_rec_ndarray_blocks(torch):
+    """8j: a gluon net fed NDArrays on the card hands NDArrays on the
+    card back, eagerly and hybridized, with the values a tensor caller
+    gets; its loss's ``backward`` runs from the NDArray."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd as ag, gluon
+    from mxnet_tpu_torch.gluon import nn
+    label = "8j fault 21 NDArray callers"
+    ctx = mx.gpu(0) if DEVICE == "cuda" else mx.cpu()
+    net = nn.HybridSequential(prefix="rec_blocks_")
+    with net.name_scope():
+        net.add(nn.Dense(64, activation="relu"), nn.Dense(10))
+    net.initialize(ctx=ctx)
+    x = mx.nd.array(np.random.RandomState(3).randn(8, 32)
+                    .astype(np.float32), ctx=ctx)
+    y = mx.nd.array(np.arange(8) % 10, ctx=ctx)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    outs = []
+    # calls outside record() under pause(): no autograd graph outlives
+    # them into the hybridized block's captures
+    for hybrid in (False, True, True):
+        if hybrid:
+            net.hybridize()
+        with ag.pause():
+            out = net(x)
+            want = net(x._data)
+        mode = "hybridized" if hybrid else "eager"
+        check(isinstance(out, mx.nd.NDArray) and out.context == ctx,
+              f"{label}: an {mode} call gave {type(out).__name__} on "
+              f"{getattr(out, 'context', None)}")
+        check(isinstance(want, torch.Tensor) and torch.equal(want,
+                                                             out._data),
+              f"{label}: an {mode} tensor call gives another type or "
+              "other values")
+        outs.append(out.asnumpy())
+        del out, want
+    for _ in range(2):
+        with ag.record():
+            loss = loss_fn(net(x), y)
+        check(isinstance(loss, mx.nd.NDArray), f"{label}: the loss is "
+              f"{type(loss).__name__}")
+        loss.backward()
+        del loss
+    check(np.allclose(outs[0], outs[1], rtol=1e-5, atol=1e-6),
+          f"{label}: eager and hybridized outputs differ")
+    log(f"{label}: eager and hybridized calls on NDArrays return NDArrays "
+        f"on {ctx}; a tensor call returns a tensor, the same values; the "
+        "loss's backward ran from the NDArray, eagerly and from the "
+        "hybridized block's graphs")
+
+
+def run_records_phase(torch, rng, kernels):
+    """8j: records and images: (a) write and read the records, (b) the
+    ImageRecordIter alone, (c) train_imagenet.py's ResNet-50 on them,
+    (d) the augmenters card vs CPU, and gluon blocks' NDArray callers.
+    Returns the launch counts of (c)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_8j_") as root:
+        paths, labels = run_rec_write_read(torch, rng, root)
+        it_row = run_rec_iter(torch, paths, labels)
+        step_row, counts = run_rec_train_imagenet(torch, kernels, paths,
+                                                  root)
+        run_rec_augmenters(torch, paths)
+    run_rec_ndarray_blocks(torch)
+    log("8j row: " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in {**it_row, **step_row}.items()}))
     return counts
 
 
@@ -11432,6 +11825,11 @@ def main():
     # kernels (its own generator, as 5b)
     add(run_symbolic_phase(torch, np.random.RandomState(33), kernels))
     lap("8i symbolic API and Module")
+    # 8j. records and images: the record readers, ImageRecordIter,
+    # train_imagenet.py's ResNet-50 fed by the records, the augmenters
+    # card vs CPU, gluon blocks' NDArray callers (its own generator, as 5b)
+    add(run_records_phase(torch, np.random.RandomState(34), kernels))
+    lap("8j records and images")
     # 9. kernels line
     for r in results:
         r["launches"] = int(launches.get(r["name"], 0))

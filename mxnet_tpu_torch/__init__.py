@@ -92,10 +92,11 @@ _LAZY_MODULES = ("gluon", "optimizer", "initializer", "lr_scheduler",
                  "serving", "observability", "jit", "kvstore",
                  "metric", "profiler", "callback", "monitor", "symbol",
                  "module", "io", "executor", "model", "visualization",
-                 "rnn", "test_utils", "attribute", "name")
+                 "rnn", "test_utils", "attribute", "name", "image",
+                 "recordio", "native")
 _NOT_PORTED = {name: "§1 item 14" for name in (
-    "numpy", "numpy_extension", "image", "parallel", "util", "runtime",
-    "recordio", "operator", "onnx", "native", "library", "engine")}
+    "numpy", "numpy_extension", "parallel", "util", "runtime",
+    "operator", "onnx", "library", "engine")}
 _ALIAS = {"np": "numpy", "npx": "numpy_extension", "sym": "symbol",
           "viz": "visualization", "mod": "module", "kv": "kvstore"}
 

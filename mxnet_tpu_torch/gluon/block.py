@@ -35,6 +35,7 @@ named after the block; off, the check is one flag read.
 """
 from __future__ import annotations
 
+import functools
 import re
 import threading
 from collections import OrderedDict
@@ -49,6 +50,41 @@ from .parameter import DeferredInitializationError, Parameter, \
     ParameterDict
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp"]
+
+
+def _holds_ndarray(obj):
+    """Whether an NDArray is among ``obj`` or inside its lists, tuples
+    and dicts."""
+    if isinstance(obj, NDArray):
+        return True
+    if isinstance(obj, dict):
+        obj = obj.values()
+    elif not isinstance(obj, (list, tuple)):
+        return False
+    return any(_holds_ndarray(v) for v in obj)
+
+
+def ndarray_boundary(method):
+    """A block method (``__call__``, a cell's ``unroll``) that computes on
+    tensors: NDArray arguments are unwrapped, and a caller that passed an
+    NDArray gets NDArrays back; tensor callers get tensors."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        wrap = _holds_ndarray(args) or _holds_ndarray(kwargs)
+        out = method(self, *unwrap(args), **unwrap(kwargs))
+        return _as_ndarrays(out) if wrap else out
+    return call
+
+
+def _as_ndarrays(out):
+    """``out`` with each tensor in it, alone or in nested lists and
+    tuples, as an NDArray over that tensor (no copy)."""
+    def mark(f):
+        if isinstance(f, str):
+            return "N" if f == "T" else f
+        return f[0], tuple(mark(c) for c in f[1])
+    leaves, fmt = _flatten(out)
+    return _regroup(leaves, mark(fmt))
 
 
 class _OpNamespace:
@@ -168,9 +204,11 @@ class Block(torch.nn.Module):
             for key, block in self._modules.items() if block is not None)
         return f"{self.__class__.__name__}(\n{modstr}\n)"
 
+    @ndarray_boundary
     def __call__(self, *args, **kwargs):
-        # NDArrays are unwrapped once, here: blocks compute on tensors
-        args, kwargs = unwrap(args), unwrap(kwargs)
+        # NDArrays are unwrapped once, here (ndarray_boundary):
+        # blocks compute on tensors, and a child called inside a forward
+        # gets tensors, so only the outermost call hands NDArrays back
         call = self._forward_call()
         if _profiler._scopes_enabled:
             # a profiler capture: each block's forward is a named range

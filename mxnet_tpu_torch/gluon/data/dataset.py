@@ -4,6 +4,8 @@ NDArrays, and the ``DataLoader`` (or the caller) moves batches to the
 card."""
 from __future__ import annotations
 
+import os
+
 from ...ndarray.ndarray import NDArray
 
 __all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
@@ -121,10 +123,18 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """A dataset over a RecordIO ``.rec``/``.idx`` pair: it needs the
-    port of ``recordio.py`` (ROADMAP.md §1 item 14)."""
+    """A dataset over a RecordIO ``.rec``/``.idx`` pair: item ``i`` is
+    the bytes of the record of the ``i``-th key (reference: dataset.py:211
+    + recordio.py)."""
 
     def __init__(self, filename):
-        raise NotImplementedError(
-            "RecordFileDataset reads RecordIO files, which needs "
-            "mxnet_tpu.recordio ported (ROADMAP.md §1 item 14)")
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        from ...recordio import MXIndexedRecordIO
+        self._record = MXIndexedRecordIO(self.idx_file, self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

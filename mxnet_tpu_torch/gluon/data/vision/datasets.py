@@ -6,7 +6,8 @@ CIFAR binary batches) from ``root`` when they are there, and otherwise
 surrogate, bit for bit: one fixed template a class plus noise, from
 numpy generators of the reference's seeds. Nothing is downloaded and
 nothing is written. Samples are CPU NDArrays (HWC uint8) with int32
-labels."""
+labels; ``ImageRecordDataset`` and ``ImageFolderDataset`` decode records
+and image files on the host through cv2 into CPU NDArrays too."""
 from __future__ import annotations
 
 import gzip
@@ -175,20 +176,33 @@ class CIFAR100(CIFAR10):
 
 
 class ImageRecordDataset(Dataset):
-    """Images in a RecordIO file: needs ``recordio`` and ``image``
-    ported (ROADMAP.md §1 item 14)."""
+    """Images in a RecordIO file (reference: datasets.py:243): item ``i``
+    is the ``i``-th record decoded (HWC uint8, RGB unless ``flag`` is 0)
+    and its header's label."""
 
     def __init__(self, filename, flag=1, transform=None):
-        raise NotImplementedError(
-            "ImageRecordDataset reads RecordIO images, which needs "
-            "mxnet_tpu.recordio and mxnet_tpu.image ported (ROADMAP.md §1 "
-            "item 14)")
+        from ..dataset import RecordFileDataset
+        self._record = RecordFileDataset(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....recordio import unpack_img
+        header, img = unpack_img(self._record[idx], self._flag)
+        img = _host(img)
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
+
+    def __len__(self):
+        return len(self._record)
 
 
 class ImageFolderDataset(Dataset):
     """A folder of class folders (the classes in sorted order, in
-    ``synsets``). ``.npy`` images load; decoding ``.jpg``/``.png`` needs
-    ``image`` ported (ROADMAP.md §1 item 14) and raises until then."""
+    ``synsets``; reference: datasets.py:274). ``.jpg``/``.png`` images
+    are decoded by cv2 (HWC uint8, RGB unless ``flag`` is 0), ``.npy``
+    images loaded."""
 
     def __init__(self, root, flag=1, transform=None):
         self._root = os.path.expanduser(root)
@@ -209,11 +223,11 @@ class ImageFolderDataset(Dataset):
 
     def __getitem__(self, idx):
         path, label = self.items[idx]
-        if not path.endswith(".npy"):
-            raise NotImplementedError(
-                f"decoding {os.path.basename(path)} needs mxnet_tpu.image "
-                "ported (ROADMAP.md §1 item 14); .npy images load")
-        img = _host(np.load(path))
+        if path.endswith(".npy"):
+            img = _host(np.load(path))
+        else:
+            from ....image.image import read_host
+            img = _host(read_host(path, self._flag))
         if self._transform is not None:
             return self._transform(img, label)
         return img, label

@@ -21,7 +21,7 @@ from ... import _rng, autograd
 from ..._device import resolve_device
 from ...base import torch_dtype
 from ...ndarray.ndarray import unwrap
-from ..block import Block, HybridBlock, _F
+from ..block import Block, HybridBlock, _F, ndarray_boundary
 
 __all__ = ["RecurrentCell", "HybridRecurrentCell", "RNNCell", "LSTMCell",
            "GRUCell", "SequentialRNNCell", "HybridSequentialRNNCell",
@@ -125,6 +125,7 @@ class RecurrentCell(HybridBlock):
             states.append(_zeros_state(info["shape"], func, **kwargs))
         return states
 
+    @ndarray_boundary
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
         """Run ``length`` steps over ``inputs``. Returns (outputs,
@@ -414,6 +415,7 @@ class BidirectionalCell(RecurrentCell):
         raise NotImplementedError(
             "BidirectionalCell cannot be stepped; use unroll")
 
+    @ndarray_boundary
     def unroll(self, length, inputs, begin_state=None, layout="NTC",
                merge_outputs=None, valid_length=None):
         self.reset()

@@ -8,8 +8,8 @@ NDArrayIter is kept because every legacy Module example feeds on it.
 Batches are NDArrays on the iterator's context: that of its data (numpy
 data goes to ``current_context()`` at construction, the card unless a
 ``with mx.cpu():`` block says otherwise), and a batch is gathered there,
-with no host round trip. ``MXDataIter`` (the record-file iterators) is not ported
-yet and raises.
+with no host round trip. ``MXDataIter`` maps the reference's C++ iterator
+names onto the port's: the record-file ones onto :mod:`..image`.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import numpy as _np
 
 import torch
 
+from ..base import MXNetError
 from ..context import current_context
 from ..ndarray import NDArray, array as nd_array
 
@@ -550,15 +551,114 @@ class LibSVMIter(DataIter):
         return self._pad
 
 
+def _pop_mean_std(kwargs):
+    """mean_r/g/b + std_r/g/b channel kwargs -> (mean, std) tuples."""
+    mean = std = None
+    if any(k in kwargs for k in ("mean_r", "mean_g", "mean_b")):
+        mean = (kwargs.pop("mean_r", 0.0), kwargs.pop("mean_g", 0.0),
+                kwargs.pop("mean_b", 0.0))
+    if any(k in kwargs for k in ("std_r", "std_g", "std_b")):
+        std = (kwargs.pop("std_r", 1.0), kwargs.pop("std_g", 1.0),
+               kwargs.pop("std_b", 1.0))
+    return mean, std
+
+
+# option names ImageRecordIterNative implements directly; anything else
+# (brightness, pca_noise, rand_resize, ...) falls back to ImageIter
+_NATIVE_REC_KEYS = {
+    "path_imgrec", "path_imgidx", "data_shape", "batch_size", "shuffle",
+    "rand_crop", "rand_mirror", "resize", "num_parts", "part_index",
+    "preprocess_threads", "label_width", "seed", "layout", "data_name",
+    "label_name", "last_batch_handle", "mean", "std",
+    "mean_r", "mean_g", "mean_b", "std_r", "std_g", "std_b",
+}
+
+
+def _native_rec_kwargs(args, kwargs):
+    """kwargs for ImageRecordIterNative, or None if out of its scope."""
+    if args or not kwargs.get("path_imgrec"):
+        return None
+    if any(k not in _NATIVE_REC_KEYS for k in kwargs):
+        return None
+    if kwargs.get("last_batch_handle", "pad") == "roll_over":
+        return None
+    kw = dict(kwargs)
+    mean, std = _pop_mean_std(kw)
+    if mean is not None and "mean" not in kw:
+        kw["mean"] = mean
+    if std is not None and "std" not in kw:
+        kw["std"] = std
+    shape = tuple(kw.get("data_shape", ()))
+    channels = shape[-1] if kw.get("layout") == "NHWC" else shape[:1]
+    gray = channels in (1, (1,))
+    if (kw.get("mean") is not None or kw.get("std") is not None) and gray:
+        return None  # channel stats here assume 3-channel decode
+    return kw
+
+
 def MXDataIter(iter_name, *args, **kwargs):
     """The reference's C++ iterators by name (reference:
-    python/mxnet/io/io.py:935): not ported yet. The JAX package maps
-    ImageRecordIter onto its record-file pipeline, which the port does
-    not have (ROADMAP.md §1 item 14c); use NDArrayIter, CSVIter,
-    LibSVMIter or gluon.data.DataLoader."""
+    python/mxnet/io/io.py:935 creates C++ iterators via
+    MXDataIterCreateIter; here each name maps to the Python/native-reader
+    implementation of the same pipeline, as in the JAX package):
+
+    - ImageRecordIter / ImageRecordIter_v1 / ImageRecordUInt8Iter ->
+      image.ImageRecordIterNative (the C++ decode/augment worker pool of
+      mxnet_tpu_torch/native) when the options are in its scope and the
+      pool builds (g++ and OpenCV's C++ libraries), else image.ImageIter
+      (cv2 and the pure-Python augmenters); ``type(it)`` says which
+    - CSVIter -> CSVIter
+    - NDArrayIter/MNISTIter-style in-memory data -> NDArrayIter
+    """
     name = iter_name if isinstance(iter_name, str) else \
         getattr(iter_name, "__name__", str(iter_name))
-    raise NotImplementedError(
-        f"MXDataIter({name!r}): the record-file iterators are not ported "
-        "yet (ROADMAP.md §1 item 14c); use NDArrayIter, CSVIter, "
-        "LibSVMIter or gluon.data.DataLoader")
+    if name in ("ImageRecordIter", "ImageRecordIter_v1",
+                "ImageRecordUInt8Iter"):
+        kwargs.pop("verbose", None)
+        # Prefer the C++ decode/augment pool (the actual analogue of the
+        # reference's ImageRecordIter) when the requested options fall
+        # inside its support; otherwise the pure-Python ImageIter covers
+        # the long tail of augmenters.
+        native_kw = _native_rec_kwargs(args, kwargs)
+        if native_kw is not None:
+            from ..image import (ImageRecordIterNative,
+                                 native_pipeline_available)
+            if native_pipeline_available():
+                return ImageRecordIterNative(**native_kw)
+        from ..image import ImageIter
+        kwargs.pop("preprocess_threads", None)
+        kwargs.pop("seed", None)
+        mean, std = _pop_mean_std(kwargs)
+        if (mean is not None or std is not None) and \
+                "mean" not in kwargs and "std" not in kwargs:
+            # CreateAugmenter normalizes only when BOTH are present;
+            # default the missing one so mean-only/std-only requests
+            # behave the same as on the native path
+            kwargs["mean"] = _np.asarray(
+                mean if mean is not None else (0.0, 0.0, 0.0),
+                _np.float32)
+            kwargs["std"] = _np.asarray(
+                std if std is not None else (1.0, 1.0, 1.0), _np.float32)
+        resize = kwargs.pop("resize", 0)
+        if resize and "aug_list" not in kwargs:
+            # the JAX package leaves mean and std out of this list, so a
+            # resizing iterator there never normalizes; here it does, as
+            # the native pool and the reference's C++ iterator do
+            from ..image import CreateAugmenter
+            kwargs["aug_list"] = CreateAugmenter(
+                data_shape=tuple(kwargs.get("data_shape")),
+                resize=resize,
+                rand_crop=kwargs.pop("rand_crop", False),
+                rand_mirror=kwargs.pop("rand_mirror", False),
+                mean=kwargs.pop("mean", None), std=kwargs.pop("std", None))
+        return ImageIter(*args, **kwargs)
+    if name == "CSVIter":
+        return CSVIter(*args, **kwargs)
+    if name == "LibSVMIter":
+        return LibSVMIter(*args, **kwargs)
+    if name in ("NDArrayIter", "MNISTIter"):
+        return NDArrayIter(*args, **kwargs)
+    raise MXNetError(
+        f"MXDataIter: no equivalent in the port for {name!r}; use "
+        "NDArrayIter, CSVIter, image.ImageIter, or "
+        "gluon.data.DataLoader")

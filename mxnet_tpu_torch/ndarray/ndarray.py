@@ -363,8 +363,13 @@ class NDArray:
     __hash__ = object.__hash__
 
     def _inplace(self, result):
-        # the reference rebinds the array to the result
-        self._data = result._data
+        # the reference rebinds the array to the result; an attached
+        # array stays a leaf whose next backward writes its .grad
+        data = result._data
+        if self._grad_req != "null" and self._data.is_leaf and \
+                self._data.requires_grad:
+            data = data.detach().requires_grad_()
+        self._data = data
         return self
 
     def __iadd__(self, o):

@@ -25,8 +25,11 @@ __all__ = ["uniform", "normal", "randn", "gamma", "exponential", "poisson",
 
 def seed(seed_state, ctx="all"):
     """Seed the process RNG (every device: a draw's stream depends on
-    its position, not on a device)."""
+    its position, not on a device) and torch's default generator, which
+    the initializers draw from when given none: a seed fixes the initial
+    parameters, as in the reference."""
     _rng.seed(seed_state)
+    torch.manual_seed(int(seed_state) & ((1 << 64) - 1))
 
 
 def _ctx(ctx):

@@ -100,7 +100,9 @@ def test_ctx_takes_a_context_everywhere_and_the_card_by_default():
     net.initialize(ctx=tmx.cpu())
     assert net.weight.data().device == torch.device("cpu")
     out = net(nd.ones((1, 2), ctx=tmx.cpu()))
-    assert out.device == torch.device("cpu")
+    # an NDArray caller gets an NDArray (ROADMAP §3 item 21)
+    assert out.context == tmx.cpu() and out._data.device == torch.device(
+        "cpu")
     if not torch.cuda.is_available():
         for make in (lambda: nd.zeros((2,)),
                      lambda: nd.zeros((2,), ctx=tmx.gpu(0)),

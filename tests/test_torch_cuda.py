@@ -3850,3 +3850,100 @@ def test_module_fit_on_the_card(cuda):
     assert kernels.launch_counts().get("sgd_mom_update") == 3 * len(args)
     acc = mod.score(tmx.io.NDArrayIter(x, y, batch_size=8), "acc")[0][1]
     assert 0.0 <= acc <= 1.0
+
+
+def _png_records(tmp_path, n=48, side=32):
+    """``n`` seeded RGB images as lossless PNG records; returns the
+    record file and the images."""
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(5)
+    imgs = rng.randint(0, 256, (n, side, side, 3)).astype(np.uint8)
+    rec = str(tmp_path / "cards.rec")
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "cards.idx"), rec, "w")
+    for i in range(n):
+        w.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i), i, 0), imgs[i], quality=3,
+            img_fmt=".png"))
+    w.close()
+    return rec, imgs
+
+
+@pytest.mark.cuda
+def test_record_batches_reach_the_card_intact_two_in_a_row(cuda, tmp_path):
+    """ImageRecordIter's batches land on the card; the first still holds
+    its records' pixels after the second is made (no staging buffer
+    refilled under it), both bit for bit the CPU iterator's."""
+    import mxnet_tpu_torch as tmx
+    rec, imgs = _png_records(tmp_path)
+    kw = dict(path_imgrec=rec, data_shape=(3, 32, 32), batch_size=16)
+    it = tmx.io.MXDataIter("ImageRecordIter", **kw)
+    b1 = next(it)
+    b2 = next(it)
+    torch.cuda.synchronize()
+    with tmx.cpu():
+        host = tmx.io.MXDataIter("ImageRecordIter", **kw)
+        h1, h2 = next(host), next(host)
+    for k, (b, h) in enumerate(((b1, h1), (b2, h2))):
+        x = b.data[0]
+        assert x._data.device.type == "cuda" and x.dtype == np.float32
+        want = imgs[16 * k:16 * (k + 1)].transpose(0, 3, 1, 2)
+        np.testing.assert_array_equal(x.asnumpy(), want.astype(np.float32))
+        np.testing.assert_array_equal(x.asnumpy(), h.data[0].asnumpy())
+        np.testing.assert_array_equal(b.label[0].asnumpy(),
+                                      np.arange(16 * k, 16 * (k + 1)))
+
+
+@pytest.mark.cuda
+def test_ndarray_fed_block_returns_ndarrays_on_the_card(cuda):
+    """A block called with NDArrays on the card returns NDArrays on the
+    card, eagerly, hybridized and through compile_step, with a tensor
+    caller's values; the compiled step keeps its one capture, one replay
+    a step and the launches a tensor-fed step makes."""
+    import mxnet_tpu_torch as tmx
+    X, Y = _cs_data(cuda, steps=4, n=16)
+    net = _cs_mlp(cuda, 3, prefix="ndcall")
+    x = tmx.nd.NDArray(X[0])
+    # outside record(), under pause(): no autograd graph outlives a call
+    # into the hybridized block's captures
+    with ag.pause():
+        out = net(x)
+        assert isinstance(out, tmx.nd.NDArray)
+        assert out.context == tmx.gpu(0)
+        assert torch.equal(out._data, net(X[0]))
+        net.hybridize()
+        net(X[0])
+        for _ in range(2):
+            hout = net(x)
+            assert isinstance(hout, tmx.nd.NDArray)
+            assert hout.context == tmx.gpu(0)
+            assert torch.equal(hout._data, net(X[0]))
+    loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(2):
+        with ag.record():
+            loss = loss_fn(net(x), tmx.nd.NDArray(Y[0]))
+        assert isinstance(loss, tmx.nd.NDArray)
+        loss.backward()
+    runs = []
+    for wrap in (False, True):
+        m = _cs_mlp(cuda, 4, prefix=f"ndstep{int(wrap)}_")
+        tr = tgluon.Trainer(m.collect_params(), "sgd",
+                            {"learning_rate": 0.05, "momentum": 0.9})
+        step = tr.compile_step(lambda a, b, m=m: loss_fn(m(a), b))
+        feed = (lambda t: tmx.nd.NDArray(t)) if wrap else (lambda t: t)
+        step(feed(X[0]), feed(Y[0]))
+        captures = kernels.capture_count()
+        before = dict(kernels.launch_counts())
+        losses = [step(feed(X[s]), feed(Y[s])) for s in (1, 2, 3)]
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert kernels.capture_count() == captures
+        runs.append(({k: after[k] - before.get(k, 0) for k in after},
+                     [v._data if isinstance(v, tmx.nd.NDArray) else v
+                      for v in losses], losses))
+    (tl, tv, t_out), (nl, nv, n_out) = runs
+    assert tl == nl and tl.get("sgd_mom_update") == 3
+    assert all(isinstance(v, torch.Tensor) for v in t_out)
+    assert all(isinstance(v, tmx.nd.NDArray) and v.context == tmx.gpu(0)
+               for v in n_out)
+    for a, b in zip(tv, nv):
+        assert torch.equal(a, b)

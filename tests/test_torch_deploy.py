@@ -215,7 +215,9 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "mxnet_tpu_torch.error, mxnet_tpu_torch.base, "
             "mxnet_tpu_torch.resilience, "
             "mxnet_tpu_torch.serving.adapters.registry, "
-            "mxnet_tpu_torch.gluon.trainer; "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.native, "
+            "mxnet_tpu_torch.im2rec; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.') or m == 'ml_dtypes']; "

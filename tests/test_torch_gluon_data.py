@@ -83,21 +83,41 @@ def test_file_readers_are_the_references(tmp_path):
         assert len(t) == 5
         np.testing.assert_array_equal(t._data, j._data)
         np.testing.assert_array_equal(t._label, j._label)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdata.vision.ImageRecordDataset(str(tmp_path / "x.rec"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdata.RecordFileDataset(str(tmp_path / "x.rec"))
+    # the record datasets (ROADMAP §1 item 14c, ported): the JAX
+    # package's items on a file both read
+    import cv2
+    rec = str(tmp_path / "x.rec")
+    w = tmx.recordio.MXIndexedRecordIO(str(tmp_path / "x.idx"), rec, "w")
+    for i in range(3):
+        w.write_idx(i, tmx.recordio.pack_img(
+            tmx.recordio.IRHeader(0, float(i + 1), i, 0),
+            np.stack([imgs[i]] * 3, axis=-1), img_fmt=".png"))
+    w.close()
+    for cls in (lambda m: m.vision.ImageRecordDataset(rec),
+                lambda m: m.RecordFileDataset(rec)):
+        t, j = cls(tdata), cls(jdata)
+        assert len(t) == len(j) == 3
+        for i in range(3):
+            a, b = t[i], j[i]
+            if isinstance(a, bytes):
+                assert a == b
+                continue
+            np.testing.assert_array_equal(a[0].asnumpy(), b[0].asnumpy())
+            assert a[0].context == tmx.cpu() and a[1] == b[1] == i + 1
     (tmp_path / "f" / "a").mkdir(parents=True)
     (tmp_path / "f" / "b").mkdir()
     np.save(tmp_path / "f" / "b" / "x.npy", imgs[0])
-    (tmp_path / "f" / "a" / "y.png").write_bytes(b"")
+    cv2.imwrite(str(tmp_path / "f" / "a" / "y.png"), imgs[1])
     folder = tdata.vision.ImageFolderDataset(str(tmp_path / "f"))
+    jfolder = jdata.vision.ImageFolderDataset(str(tmp_path / "f"))
     assert folder.synsets == ["a", "b"] and len(folder) == 2
     img, label = folder[1]
     np.testing.assert_array_equal(img.asnumpy(), imgs[0])
     assert label == 1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        folder[0]
+    img, label = folder[0]
+    assert img.context == tmx.cpu() and label == 0
+    np.testing.assert_array_equal(img.asnumpy(), jfolder[0][0].asnumpy())
+    np.testing.assert_array_equal(img.asnumpy()[..., 0], imgs[1])
 
 
 def _pair_datasets():

@@ -9,8 +9,8 @@ iterators only gather rows):
 - ``ResizeIter`` (a shorter and a longer epoch), ``PrefetchingIter``,
   ``CSVIter`` and ``LibSVMIter`` over files the test writes (the CSR
   batches densified), ``DataDesc`` and ``DataBatch``;
-- ``MXDataIter`` raises naming ROADMAP §1 item 14c (the JAX package maps
-  it onto its record-file pipeline);
+- ``MXDataIter("ImageRecordIter")`` over records: the JAX package's
+  iterator and batches;
 - batches are NDArrays on the iterator's context: the CPU inside
   ``with mx.cpu():``.
 """
@@ -182,7 +182,33 @@ def test_descriptors_batches_and_context():
     assert isinstance(b.data[0], tmx.nd.NDArray)
 
 
-def test_mx_data_iter_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="14c"):
-        tmx.io.MXDataIter("ImageRecordIter", path_imgrec="x.rec",
-                          data_shape=(3, 8, 8), batch_size=2)
+def test_mx_data_iter_raises_naming_the_roadmap_item(tmp_path):
+    """Ported (ROADMAP §1 item 14c): ``MXDataIter("ImageRecordIter")``
+    over records both packages read gives the JAX package's iterator
+    type and batches, bit for bit; a name neither maps still raises."""
+    import cv2
+    rs = np.random.RandomState(3)
+    rec, idx = str(tmp_path / "x.rec"), str(tmp_path / "x.idx")
+    w = tmx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(6):
+        ok, buf = cv2.imencode(".png", rs.randint(0, 256, (10, 10, 3))
+                               .astype(np.uint8))
+        w.write_idx(i, tmx.recordio.pack(
+            tmx.recordio.IRHeader(0, float(i), i, 0), buf.tobytes()))
+    w.close()
+    kw = dict(path_imgrec=rec, data_shape=(3, 8, 8), batch_size=4,
+              rand_crop=True, rand_mirror=True, seed=2)
+    with tmx.cpu():
+        t = tmx.io.MXDataIter("ImageRecordIter", **kw)
+        tb = list(t)
+    j = jmx.io.MXDataIter("ImageRecordIter", **kw)
+    jb = list(j)
+    assert type(t).__name__ == type(j).__name__ == "ImageRecordIterNative"
+    assert len(tb) == len(jb) == 2 and [b.pad for b in tb] == [0, 2]
+    for a, b in zip(tb, jb):
+        np.testing.assert_array_equal(a.data[0].asnumpy(),
+                                      b.data[0].asnumpy())
+        np.testing.assert_array_equal(a.label[0].asnumpy(),
+                                      b.label[0].asnumpy())
+    with pytest.raises(tmx.MXNetError, match="no equivalent"):
+        tmx.io.MXDataIter("MNISTIterator")

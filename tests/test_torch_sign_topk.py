@@ -110,9 +110,10 @@ PORTED = sorted(n for n in jmx._LAZY_MODULES if n in tmx._LAZY_MODULES)
 
 
 def test_root_resolves_the_reference_names_in_both_packages():
-    assert len(PORTED) == 28 and "gluon" in PORTED and "jit" in PORTED
+    assert len(PORTED) == 31 and "gluon" in PORTED and "jit" in PORTED
     assert {"symbol", "module", "io", "executor", "model", "rnn",
             "visualization", "test_utils", "attribute", "name"} <= set(PORTED)
+    assert {"image", "recordio", "native"} <= set(PORTED)
     assert {"metric", "profiler", "callback", "monitor"} <= set(PORTED)
     assert "kvstore" in PORTED and tmx.kv is tmx.kvstore
     for name in PORTED + ["NDArray", "MXNetError", "waitall"]:
@@ -127,7 +128,8 @@ def test_root_resolves_the_reference_names_in_both_packages():
 # the symbolic core and the Module API, ported after these names were
 # first listed: each now resolves (the rest still raise)
 SYMBOLIC = ("symbol", "module", "io", "executor", "model", "visualization",
-            "rnn", "test_utils", "attribute", "name")
+            "rnn", "test_utils", "attribute", "name", "image", "recordio",
+            "native")
 
 
 @pytest.mark.parametrize("name", sorted(
